@@ -1,0 +1,99 @@
+"""GAME model containers (port of `photon_tpu/game/model.py`).
+
+A random effect is one dense (num_entities, d) coefficient tensor plus a
+key → row index; scoring a batch is one gather + rowwise dot. Entities
+unseen at training time take row E, the appended zero row.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import numpy as np
+import torch
+
+from photon_tpu_torch.data.matrix import SparseRows
+from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.ops.losses import TaskType
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedEffectModel:
+    """Reference: model.FixedEffectModel (one GLM + its feature shard)."""
+
+    model: GeneralizedLinearModel
+    feature_shard: str
+
+    def score(self, X) -> torch.Tensor:
+        return self.model.score(X)
+
+
+def score_rows(X, coeff_rows: torch.Tensor) -> torch.Tensor:
+    """Rowwise margin x_i · c_i with a per-row coefficient vector (n, d)."""
+    if isinstance(X, SparseRows):
+        gathered = torch.gather(coeff_rows, 1, X.indices.long())
+        return torch.einsum("nk,nk->n", X.values, gathered)
+    return torch.einsum("nd,nd->n", X, coeff_rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomEffectModel:
+    """Per-entity coefficient matrix (reference: model.RandomEffectModel).
+
+    Row i of `coefficients` belongs to `entity_keys[i]` (sorted keys)."""
+
+    entity_name: str
+    feature_shard: str
+    task: TaskType
+    coefficients: torch.Tensor  # (E, d)
+    entity_keys: np.ndarray  # (E,) raw keys, sorted
+    key_to_index: dict
+
+    @property
+    def n_entities(self) -> int:
+        return int(self.coefficients.shape[0])
+
+    @property
+    def dim(self) -> int:
+        return int(self.coefficients.shape[1])
+
+    def dense_ids(self, raw_ids) -> np.ndarray:
+        """Raw entity keys → dense row ids; unseen keys map to E (zero row).
+        Vectorized via searchsorted over the sorted keys."""
+        raw = np.asarray(raw_ids)
+        keys = np.asarray(self.entity_keys)
+        if raw.dtype.kind != keys.dtype.kind:
+            # cross-kind lookup: promote to str rather than casting into
+            # keys' dtype, which could truncate unseen ids into collisions
+            if keys.dtype.kind in "US":
+                raw = raw.astype(np.str_)
+            else:
+                raw = raw.astype(keys.dtype)
+        pos = np.searchsorted(keys, raw)
+        pos_c = np.clip(pos, 0, len(keys) - 1)
+        found = keys[pos_c] == raw
+        return np.where(found, pos_c, self.n_entities).astype(np.int32)
+
+    def coeffs_for(self, dense_ids) -> torch.Tensor:
+        """(n, d) per-row coefficients; id == E selects the zero row."""
+        C = self.coefficients
+        padded = torch.cat([C, C.new_zeros((1, C.shape[1]))])
+        ids = torch.as_tensor(np.asarray(dense_ids), device=C.device)
+        return padded[ids.long()]
+
+    def score(self, X, dense_ids) -> torch.Tensor:
+        return score_rows(X, self.coeffs_for(dense_ids))
+
+
+CoordinateModel = Union[FixedEffectModel, RandomEffectModel]
+
+
+@dataclasses.dataclass(frozen=True)
+class GameModel:
+    """Ordered coordinate-name → model map (reference: model.GameModel)."""
+
+    coordinates: dict  # name -> CoordinateModel (insertion-ordered)
+    task: TaskType
+
+    def __getitem__(self, name: str) -> CoordinateModel:
+        return self.coordinates[name]
