@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GAME serving path on one GPU.
+"""Drive the PyTorch/CUDA port's GAME serving path and its sparse logistic
+GLM training path on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
 Phases (any failure exits non-zero):
 
-1. build every kernel of the path from the sources in the checkout and
-   hold each against its plain PyTorch version: the int8 serving rung on
-   each of its four branches alone, then all four together, at small
-   shapes (margins within rtol=1e-5, atol=1e-5: the kernel sums each row
-   in another order than PyTorch; cold-miss rows equal the fixed-only
-   margin exactly);
+0. build every kernel from the sources in the checkout, one nvcc per
+   source, all started together;
+1. hold the int8 serving rung against its plain PyTorch version: each of
+   its four branches alone, then all four together, at small shapes
+   (margins within rtol=1e-5, atol=1e-5: the kernel sums each row in
+   another order than PyTorch; cold-miss rows equal the fixed-only margin
+   exactly);
 2. serve a seeded GAME model at the repo's widths — a fixed effect over a
    10,000,000-feature sparse space with 32 nonzeros per row and two
    random effects (100,000 users, 50,000 items, d=8, 8 slots per row) —
@@ -20,8 +22,26 @@ Phases (any failure exits non-zero):
    a sample of the answers against the f32 ladder and the plain int8
    version, `assert_no_retrace`, and that the rung went through the
    kernel (launch counts, reset just before the run, read just after);
-3. time each kernel at the main path's shapes (CUDA events) beside its
-   plain version and its bound, and print QPS and latency percentiles.
+3. time the serving kernel at the main path's shapes (CUDA events) beside
+   its plain version and its bound, and print QPS and latency
+   percentiles;
+T1. hold the four blocked-ELL kernels (fused and tiled tail matvec,
+   fused and tiled occurrence-bucket rmatvec) against their plain
+   versions at small shapes (rtol=atol=1e-5), f32 and bf16 storage, a
+   vector and 1 and 8 lanes, ``square`` on and off, on layouts with a
+   bucket smaller than one tile, buckets of many tiles and rows with no
+   tail; and the hot block's bf16 product (cuBLAS, f32 output);
+T2. train L2 logistic regression at the bench headline's width — 10,000,000
+   features, 32 zipf(1.4) nonzeros + an intercept per row, a 1,024-column
+   bf16 hot block, 2^21 rows, reg 1e-3, history 5, tolerance 0 —
+   through `train_glm`: (a) 40 iterations on the default route (timed;
+   the launch counts are reset just before and read just after, SIMPLE
+   variances included), (b) 5 iterations with the kernels' budget at 0
+   (the tiled forms), (c) 5 iterations under ``scope("off")`` (the plain
+   versions on the card); the loss histories agree within rtol 1e-5, the
+   variances within rtol 1e-4 of the plain version's;
+T3. time each blocked-ELL kernel at (a)'s shapes beside its plain version,
+   its bound and cuSPARSE's SpMV of the same tail as f32 CSR.
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and last
@@ -32,10 +52,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -47,6 +69,10 @@ D_FIXED, K_FIXED = 10_000_000, 32
 N_USERS, N_ITEMS, D_RE, K_RE = 100_000, 50_000, 8, 8
 MAX_BATCH, MAX_DELAY_US, CLIENTS, WINDOW = 64, 200, 32, 4
 EPSILON = 0.5
+
+# the training path: bench.py's sparse_problem + run_sparse shape
+T_ROWS, T_FEATURES, T_NNZ, T_ZIPF, T_DENSE = 1 << 21, 10_000_000, 32, 1.4, 1024
+T_ITERS, T_SHORT, T_REG, T_HISTORY = 40, 5, 1e-3, 5
 
 
 def log(*a) -> None:
@@ -103,10 +129,6 @@ def phase_kernels(dev) -> None:
     from photon_tpu_torch import kernels as K
     from photon_tpu_torch.kernels import serving as KS
 
-    t0 = time.perf_counter()
-    KS.library()
-    log(f"phase 1: built {KS.KERNEL} from {KS.SOURCE.name} in "
-        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(11)
     cases = {"fixed dense": [("fixed", False)],
              "fixed sparse": [("fixed", True)],
@@ -306,30 +328,424 @@ def rung_bound(coords, offsets, shards, ids, fixed_ws, re_cs) -> tuple:
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--requests", type=int, default=4096)
-    args = ap.parse_args()
+# ------------------------------------------------------- phase 0: build all
+def build_kernels() -> None:
+    """Build every kernel library from its source, one nvcc per source,
+    all started together; print the build times and nvcc's per-kernel
+    register / spill report."""
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.kernels import serving as KS
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.library()
+        return mod.SOURCE.name, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        done = [f.result() for f in [pool.submit(timed, m)
+                                     for m in (KS, KB)]]
+    log(f"phase 0: built {', '.join(f'{n} in {t:.1f} s' for n, t in done)}"
+        f" ({time.perf_counter() - t0:.1f} s in all)")
+    for name, report in K.BUILD_LOGS.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"phase 0: {name}: {line.strip()}")
+
+
+# ------------------------------------------ phase T1: blocked-ELL kernels
+def coo_rows(rng, n, d, k, zipf):
+    """bench.py's padded COO recipe: k zipf columns (column 0 = most
+    frequent) with N(0, 1) values, plus the intercept column d - 1."""
+    col = (rng.zipf(zipf, size=(n, k)).astype(np.int64) - 1) % (d - 1)
+    val = rng.normal(size=(n, k)).astype(np.float32)
+    ind = np.concatenate([col, np.full((n, 1), d - 1)], axis=1).astype(
+        np.int32)
+    va = np.concatenate([val, np.ones((n, 1), np.float32)], axis=1)
+    return ind, va
+
+
+def small_layout(dev, bf16: bool):
+    """A small blocked-ELL layout on ``dev`` whose width and occurrence
+    buckets include one smaller than a tile (32 rows at 8 lanes) and one
+    of many tiles (256 rows at 1 lane), with rows that have no tail."""
+    from photon_tpu_torch.data.matrix import SparseRows, to_blocked_ell
+
+    rng = np.random.default_rng(21)
+    ind, va = coo_rows(rng, 6000, 20_000, 24, 1.4)
+    ind[:500, :-1], va[:500, :-1] = 0, 0.0  # rows 0..499: hot column 0 only
+    X = to_blocked_ell(SparseRows(ind, va, 20_000), 16, device=dev)
+    for group in (X.ell_vals, X.bucket_vals):
+        sizes = [int(v.shape[0]) for v in group]
+        if not (min(sizes) < 32 and max(sizes) > 256):
+            raise AssertionError(f"T1 layout buckets {sizes} miss a sub-tile "
+                                 "or a many-tile bucket")
+    B = sum(int(v.shape[0]) for v in X.ell_vals)
+    if not bool((X.row_pos == B).any()):
+        raise AssertionError("T1 layout has no row without a tail")
+    return X.astype(torch_dtype(bf16))
+
+
+def torch_dtype(bf16: bool):
+    import torch
+
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def phase_training_kernels(dev) -> None:
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data import matrix as M
+    from photon_tpu_torch.kernels import blocked_ell as KB
+
+    rng = np.random.default_rng(22)
+    worst = {}
+    for bf16 in (False, True):
+        X = small_layout(dev, bf16)
+        n, d = X.shape
+        for lanes in (None, 1, 8):
+            shape = () if lanes is None else (lanes,)
+            w = torch.from_numpy(rng.normal(size=(d,) + shape).astype(
+                np.float32)).to(dev)
+            r = torch.from_numpy(rng.normal(size=(n,) + shape).astype(
+                np.float32)).to(dev)
+            cases = [(KB.TAIL, KB.tail_matvec, KB.tail_matvec_reference, w,
+                      {}),
+                     (KB.TAIL_TILED, KB.tail_matvec_tiled,
+                      KB.tail_matvec_reference, w, {})]
+            for sq in (False, True):
+                cases += [(KB.RMATVEC, KB.bucket_rmatvec,
+                           KB.bucket_rmatvec_reference, r, {"square": sq}),
+                          (KB.RMATVEC_TILED, KB.bucket_rmatvec_tiled,
+                           KB.bucket_rmatvec_reference, r, {"square": sq})]
+            for name, fn, plain, v, kw in cases:
+                with K.scope("on"):
+                    got = fn(X, v, **kw)
+                want = plain(X, v, *kw.values())
+                torch.cuda.synchronize()
+                label = (f"{name} {'bf16' if bf16 else 'f32'} "
+                         f"lanes={lanes} square={kw.get('square', False)}")
+                np.testing.assert_allclose(got.cpu().numpy(),
+                                           want.cpu().numpy(), **TOL,
+                                           err_msg=label)
+                err = float((got - want).abs().max().item())
+                worst[name] = max(worst.get(name, 0.0), err)
+        # the hot block: a bf16 product on cuBLAS with an f32 output
+        w16 = torch.from_numpy(rng.normal(size=X.d_sel).astype(
+            np.float32)).to(dev).to(X.dense.dtype)
+        hot = M._mm_f32(X.dense, w16)
+        want = X.dense.float() @ w16.float()
+        if hot.dtype != torch.float32:
+            raise AssertionError(f"hot block product is {hot.dtype}")
+        np.testing.assert_allclose(hot.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL, err_msg="hot block")
+    log("T1: every blocked-ELL kernel matches its plain version (f32/bf16, "
+        "vector/1/8 lanes, square on/off; sub-tile and many-tile buckets, "
+        "rows with no tail); max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + "; hot block bf16 product returns f32")
+
+
+# ------------------------------------------------ phase T2: train at width
+def sparse_problem(seed: int, rows: int):
+    """bench.py's sparse_problem recipe with numpy from ``seed``: padded
+    COO rows and labels from a planted hot-end signal."""
+    rng = np.random.default_rng(seed)
+    ind, va = coo_rows(rng, rows, T_FEATURES, T_NNZ, T_ZIPF)
+    d = T_FEATURES
+    w_true = np.zeros(d, np.float32)
+    hot = 200_000
+    w_true[:hot] = rng.normal(size=hot) / np.sqrt(np.arange(1, hot + 1))
+    w_true[d - 1] = -0.2
+    margin = np.einsum("nk,nk->n", va, w_true[ind])
+    y = (rng.uniform(size=rows) < 1 / (1 + np.exp(-margin))).astype(
+        np.float32)
+    return ind, va, y
+
+
+def solve_timed(batch, cfg, dev):
+    import torch
+
+    from photon_tpu_torch.models.training import train_glm
+    from photon_tpu_torch.ops.losses import TaskType
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, res = train_glm(batch, TaskType.LOGISTIC_REGRESSION, cfg,
+                           device=dev)
+    torch.cuda.synchronize()
+    return model, res, time.perf_counter() - t0
+
+
+def phase_training(args, dev, gpu) -> dict:
+    """T2; returns what T3 and the kernel line need."""
+    import dataclasses
 
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.dataset import cast_features, make_batch
+    from photon_tpu_torch.data.matrix import SparseRows, to_blocked_ell
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.models.training import make_objective
+    from photon_tpu_torch.models.variance import (VarianceComputationType,
+                                                  compute_variances)
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    rows = T_ROWS
+    t0 = time.perf_counter()
+    ind, va, y = sparse_problem(args.seed, rows)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    X = to_blocked_ell(SparseRows(ind, va, T_FEATURES), T_DENSE,
+                       device_dense_dtype=torch.bfloat16, device=dev)
+    batch = cast_features(make_batch(X, y, device=dev))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    X = batch.X
+    del ind, va
+    U = X.n_prefix - X.d_sel
+    facts = dict(tail_pad_waste=X.tail_pad_waste,
+                 tail_nnz_share=X.tail_nnz / (rows * (T_NNZ + 1)),
+                 ell_buckets=len(X.ell_vals),
+                 occurrence_buckets=len(X.bucket_vals), U=U)
+    log(f"T2: data made in {gen_s:.1f} s; layout built in {build_s:.1f} s "
+        f"on the host + device (hot block on the card); "
+        + "; ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in facts.items()))
+    cfg = OptimizerConfig(max_iters=T_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+    short = dataclasses.replace(cfg, max_iters=T_SHORT)
+    if K.route(X, torch.zeros(T_FEATURES, device=dev)) != "fused" or \
+            K.route(X, batch.y) != "fused":
+        raise AssertionError("solve (a) must take the fused route")
+
+    # (a): the main path — counts reset just before, read just after
+    K.reset_launch_counts()
+    model, res_a, solve_s = solve_timed(batch, cfg, dev)
+    obj = make_objective(TaskType.LOGISTIC_REGRESSION, cfg, T_FEATURES,
+                         intercept_index=X.last_col_pos, device=dev)
+    w_perm = X.from_model_space(model.coefficients.means)
+    var = compute_variances(obj, w_perm, batch,
+                            VarianceComputationType.SIMPLE)
+    torch.cuda.synchronize()
+    launches_a = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    with K.scope("off"):
+        var_plain = compute_variances(obj, w_perm, batch,
+                                      VarianceComputationType.SIMPLE)
+    np.testing.assert_allclose(var.cpu().numpy(), var_plain.cpu().numpy(),
+                               rtol=1e-4, err_msg="SIMPLE variances")
+    var_err = float(((var - var_plain).abs() / var_plain.abs()).max())
+    it_a = res_a.iterations
+    rate = rows * it_a / solve_s
+
+    # (b): the tiled forms carry the path at full width
+    old = os.environ.get(K.ENV_BUDGET)
+    os.environ[K.ENV_BUDGET] = "0"
+    try:
+        K.reset_launch_counts()
+        _, res_b, b_s = solve_timed(batch, short, dev)
+        launches_b = K.launch_counts()
+    finally:
+        if old is None:
+            del os.environ[K.ENV_BUDGET]
+        else:
+            os.environ[K.ENV_BUDGET] = old
+    # (c): the plain versions on the card
+    K.reset_launch_counts()
+    _, res_c, c_s = solve_timed(batch, dataclasses.replace(short,
+                                                           kernels="off"),
+                                dev)
+    if K.launch_counts():
+        raise AssertionError(f"scope off launched {K.launch_counts()}")
+
+    ha, hb, hc = res_a.history(), res_b.history(), res_c.history()
+    for label, h in (("a", ha), ("b", hb), ("c", hc)):
+        if not np.isfinite(h).all():
+            raise AssertionError(f"solve ({label}) has a non-finite loss")
+    np.testing.assert_allclose(hb, ha[:T_SHORT + 1], rtol=1e-5,
+                               err_msg="tiled vs fused loss history")
+    np.testing.assert_allclose(hc, ha[:T_SHORT + 1], rtol=1e-5,
+                               err_msg="plain vs fused loss history")
+    for name in (KB.TAIL, KB.RMATVEC):
+        if launches_a.get(name, 0) == 0:
+            raise AssertionError(f"{name} never launched in solve (a)")
+    for name in (KB.TAIL_TILED, KB.RMATVEC_TILED):
+        if launches_b.get(name, 0) == 0:
+            raise AssertionError(f"{name} never launched in solve (b)")
+    if set(launches_a) != {KB.TAIL, KB.RMATVEC}:
+        raise AssertionError(f"solve (a) launched {launches_a}")
+    log(f"T2: (a) {it_a} iterations (cap {T_ITERS}) in {solve_s:.3f} s: "
+        f"{rate:.6g} rows*iters/s; loss {ha[0]:.7g} -> {ha[-1]:.7g}; "
+        f"launches (solve + SIMPLE variances) {launches_a}  [{gpu}]")
+    log(f"T2: (b) tiled, {res_b.iterations} iterations in {b_s:.3f} s, "
+        f"launches {launches_b}; (c) plain, {res_c.iterations} iterations "
+        f"in {c_s:.3f} s; max rel loss gap to (a): tiled "
+        f"{np.max(np.abs(hb - ha[:T_SHORT + 1]) / np.abs(ha[:T_SHORT + 1])):.3g}"
+        f", plain "
+        f"{np.max(np.abs(hc - ha[:T_SHORT + 1]) / np.abs(ha[:T_SHORT + 1])):.3g}")
+    log(f"T2: SIMPLE variances vs plain: max rel err {var_err:.3g}; peak "
+        f"device memory {peak_gb:.3f} GB  [{gpu}]")
+    busy, n_ops, top, wall = solve_profile(batch, short, dev)
+    log(f"T2: profiled {T_SHORT}-iteration solve: device busy "
+        + ("not measured" if busy is None else f"{busy * 1e3:.3f} ms")
+        + f" of {wall * 1e3:.3f} ms wall, {n_ops} device kernels and "
+        f"copies (host sync once per iteration); most device time: "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top)
+        + f"  [{gpu}]")
+    return dict(batch=batch, launches_a=launches_a, launches_b=launches_b,
+                w=w_perm, facts=facts)
+
+
+def solve_profile(batch, cfg, dev):
+    """(device busy s, device op count, the five device ops that took the
+    most time [(name, us)], wall s) of one short solve under
+    torch.profiler: the summed time of the CUDA kernels and copies against
+    the wall clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, wall = solve_timed(batch, cfg, dev)
+    by_name, n_ops = {}, 0
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+            n_ops += 1
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (busy_us / 1e6 if busy_us > 0 else None), n_ops, top, wall
+
+
+# ----------------------------------------------- phase T3: kernel timings
+def tail_csr(X, transpose: bool):
+    """The layout's tail as an f32 CSR (n, U), or its transpose (U, n), on
+    the device — cuSPARSE's operand for the library yardstick."""
+    import torch
+
+    n, U = int(X.shape[0]), X.n_prefix - X.d_sel
+    order = torch.argsort(X.row_pos)  # position in the concat -> row
+    rows, cols, vals, base = [], [], [], 0
+    for pc, pv in zip(X.ell_pcols, X.ell_vals):
+        r_b, W = pc.shape
+        orig = order[base:base + r_b]
+        base += r_b
+        keep = pv != 0
+        rows.append(orig[:, None].expand(r_b, W)[keep])
+        cols.append(pc[keep].long())
+        vals.append(pv[keep].float())
+    r, c, v = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    if transpose:
+        r, c, n, U = c, r, U, n
+    return torch.sparse_coo_tensor(torch.stack([r, c]), v, (n, U)) \
+        .coalesce().to_sparse_csr()
+
+
+def blocked_ell_bounds(X) -> dict:
+    """(bound_ms, bound_by) per kernel name for this layout: the bytes each
+    must move (every ELL / bucket slot: int32 index + stored value; the
+    distinct vector entries it reads; row_pos; its f32 output) over HBM
+    bandwidth vs its f32 operations (a multiply-add per slot, one more
+    multiply per slot for ``square``) over the f32 peak."""
+    n, U = int(X.shape[0]), X.n_prefix - X.d_sel
+    vb = X.ell_vals[0].element_size()
+    ell = sum(int(v.numel()) for v in X.ell_vals)
+    occ = sum(int(v.numel()) for v in X.bucket_vals)
+    B = sum(int(v.shape[0]) for v in X.ell_vals)
+    tail_rows = int((X.row_pos != B).sum().item())  # rows the rmatvec reads
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        return max(tb, to), ("bytes" if tb >= to else "operations")
+
+    tail = bound(ell * (4 + vb) + 4 * U + 4 * n + 4 * n, 2 * ell)
+    rmv = bound(occ * (4 + vb) + 4 * tail_rows + 4 * U, 2 * occ)
+    return {"tail_matvec": tail, "tail_matvec_tiled": tail,
+            "bucket_rmatvec": rmv, "bucket_rmatvec_tiled": rmv}
+
+
+def phase_training_timings(state: dict, gpu) -> list:
+    """T3: each blocked-ELL kernel at solve (a)'s shapes; returns the
+    kernel line's entries."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.kernels import blocked_ell as KB
+
+    X = state["batch"].X
+    n = int(X.shape[0])
+    rng = np.random.default_rng(23)
+    w = state["w"]
+    r = torch.from_numpy(rng.uniform(-1, 1, size=n).astype(np.float32)).to(
+        w.device)
+    bounds = blocked_ell_bounds(X)
+    csr = tail_csr(X, transpose=False)
+    csr_t = tail_csr(X, transpose=True)
+    wt = w[X.d_sel:X.n_prefix].to(X.dense.dtype).float()[:, None]
+    r16 = r.to(X.dense.dtype).float()[:, None]
+    specs = [
+        (KB.TAIL, "tail_matvec", KB.tail_matvec, KB.tail_matvec_reference,
+         w, "bell_tail_matvec_kernel", lambda: torch.sparse.mm(csr, wt),
+         "photon_tpu/kernels/blocked_ell.py:187", state["launches_a"]),
+        (KB.TAIL_TILED, "tail_matvec_tiled", KB.tail_matvec_tiled,
+         KB.tail_matvec_reference, w, "bell_tail_matvec_kernel",
+         lambda: torch.sparse.mm(csr, wt),
+         "photon_tpu/kernels/blocked_ell.py:254", state["launches_b"]),
+        (KB.RMATVEC, "bucket_rmatvec", KB.bucket_rmatvec,
+         KB.bucket_rmatvec_reference, r, "bell_bucket_rmatvec_kernel",
+         lambda: torch.sparse.mm(csr_t, r16),
+         "photon_tpu/kernels/blocked_ell.py:340", state["launches_a"]),
+        (KB.RMATVEC_TILED, "bucket_rmatvec_tiled", KB.bucket_rmatvec_tiled,
+         KB.bucket_rmatvec_reference, r, "bell_bucket_rmatvec_kernel",
+         lambda: torch.sparse.mm(csr_t, r16),
+         "photon_tpu/kernels/blocked_ell.py:408", state["launches_b"]),
+    ]
+    out = []
+    for name, key, fn, plain, v, symbol, lib, replaces, launches in specs:
+        with K.scope("on"):
+            got = fn(X, v)
+            want = plain(X, v)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       **TOL, err_msg=name)
+            err = float((got - want).abs().max().item())
+            ms = time_ms(lambda: fn(X, v), n=50, warm=5)
+            dev_ms = device_ms(lambda: fn(X, v), symbol, n=20)
+        plain_ms = time_ms(lambda: plain(X, v), n=20, warm=3)
+        lib_ms = time_ms(lib, n=20, warm=3)
+        bound_ms, bound_by = bounds[key]
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        log(f"T3: {name}: {ms:.4f} ms per call (device time of its kernels "
+            f"{dev_txt}), plain {plain_ms:.4f} ms, cuSPARSE f32 CSR "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"launches {launches.get(name, 0)}, max |err| {err:.3g}  [{gpu}]")
+        out.append({"name": name, "route": "cuda",
+                    "source": "photon_tpu_torch/kernels/csrc/blocked_ell.cu",
+                    "replaces": replaces,
+                    "launches": int(launches.get(name, 0)),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms})
+    return out
+
+
+def phase_serving(args, dev, gpu) -> dict:
+    """Phases 2 and 3; returns the serving kernel's entry of the kernel
+    line."""
+    import torch
+
     from photon_tpu_torch import kernels as K
     from photon_tpu_torch.kernels import serving as KS
     from photon_tpu_torch.serving import ProgramLadder
     from photon_tpu_torch.serving.dispatcher import _Pending, collate_rung_args
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    gpu = gpu_line()
-    log(f"device: {torch.cuda.get_device_name(0)} ({gpu}); torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda}")
-
-    phase_kernels(dev)
 
     t0 = time.perf_counter()
     store = build_store(args.seed, dev)
@@ -423,20 +839,47 @@ def main() -> int:
         f"{lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms over "
         f"{lat['n']} requests; mean {KS.KERNEL} time per B={MAX_BATCH} rung "
         f"{top['ms'] * 1e3:.2f} us  [{gpu}]")
-    print(json.dumps({"kernels": [{
-        "name": KS.KERNEL, "route": "cuda",
-        "source": "photon_tpu_torch/kernels/csrc/serving_int8.cu",
-        "replaces": "photon_tpu/kernels/serving.py:69",
-        "launches": int(launches[KS.KERNEL]), "max_abs_err": top["err"],
-        "ms": top["ms"], "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": None}]}), flush=True)
+    return {"name": KS.KERNEL, "route": "cuda",
+            "source": "photon_tpu_torch/kernels/csrc/serving_int8.cu",
+            "replaces": "photon_tpu/kernels/serving.py:69",
+            "launches": int(launches[KS.KERNEL]), "max_abs_err": top["err"],
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=4096)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gpu = gpu_line()
+    log(f"device: {torch.cuda.get_device_name(0)} ({gpu}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    build_kernels()
+    phase_kernels(dev)
+    phase_training_kernels(dev)
+    kernels = [phase_serving(args, dev, gpu)]
+    torch.cuda.empty_cache()
+    state = phase_training(args, dev, gpu)
+    kernels += phase_training_timings(state, gpu)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

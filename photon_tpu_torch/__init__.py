@@ -16,5 +16,7 @@ Conventions:
   `kernels/`, with its plain PyTorch version beside it.
 
 Ported so far: the GAME serving path (store → int8/bf16/f32 program
-ladder → micro-batching dispatcher), with the int8 rung as a CUDA kernel.
+ladder → micro-batching dispatcher), with the int8 rung as a CUDA kernel;
+and single-device GLM training with L-BFGS (`models.training.train_glm`)
+on dense X or the blocked-ELL layout, whose X passes are CUDA kernels.
 """

@@ -1,13 +1,21 @@
-"""Design-matrix representations (port of the serving subset of
-`photon_tpu/data/matrix.py`).
+"""Design-matrix representations (port of the serving and blocked-ELL parts
+of `photon_tpu/data/matrix.py`).
 
 - dense: a plain (n, d) tensor;
 - `SparseRows`: padded per-row COO — (n, k) int32 indices + (n, k) f32
-  values, rows padded to k slots with (index 0, value 0).
+  values, rows padded to k slots with (index 0, value 0);
+- `BlockedEllRows`: the hot columns as a dense (n, d_sel) block, the cold
+  tail as power-of-two-width ELL row buckets (matvec) and occurrence
+  buckets (rmatvec), in a permuted column space.
 
-`quantize_blocks` stays numpy on the host, so its int8 blocks and scales
-equal the JAX package's bit for bit; only the bf16 form leaves numpy (as a
-CPU `torch.bfloat16` tensor, since numpy has no bfloat16).
+The host builders (`to_blocked_ell`, `quantize_blocks`) stay numpy, copied
+from the reference, so every layout array, int8 block and scale equals the
+JAX package's bit for bit; only bf16 leaves numpy (as `torch.bfloat16`,
+since numpy has no bfloat16).
+
+Every X pass returns f32. A bf16 operand is multiplied as bf16 (the
+product of two bf16 values is exact in f32) and the sum accumulates in
+f32, as the reference's ``preferred_element_type=float32``.
 """
 from __future__ import annotations
 
@@ -15,6 +23,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from photon_tpu_torch import kernels as K
+from photon_tpu_torch.kernels import blocked_ell as KB
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +46,89 @@ class SparseRows:
                           self.n_features)
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockedEllRows:
+    """Blocked-ELL hybrid (reference: `photon_tpu.data.matrix.BlockedEllRows`).
+
+    The ``d_sel`` most frequent columns form a dense (n, d_sel) block; the
+    cold tail is laid twice. For matvec, rows are bucketed by tail nnz into
+    power-of-two widths, each bucket a dense (r_b, W_b) pair of
+    prefix-relative column ids and values; the bucket outputs concatenate
+    and ``row_pos`` maps each original row into that concatenation (rows
+    with no tail map to the zero slot at B = Σ r_b). For rmatvec, the U
+    distinct tail columns are grouped by occurrence count into (c_b, k_b)
+    pairs of original row ids and values, in prefix order.
+
+    The solver works in the PERMUTED column space: hot columns at
+    [0, d_sel), tail columns at [d_sel, n_prefix) in occurrence-bucket
+    order, untouched columns after; `to_model_space` /
+    `from_model_space` translate at the public boundary. Padding slots
+    hold (column or row 0, value 0).
+    """
+
+    dense: torch.Tensor        # (n, d_sel) hot block, original row order
+    ell_pcols: tuple           # per width bucket: (r_b, W_b) int32, ids
+    #                            relative to d_sel (padding 0, value 0)
+    ell_vals: tuple            # per width bucket: (r_b, W_b) values
+    row_pos: torch.Tensor      # (n,) int32 position in the bucket concat
+    bucket_rows: tuple         # per occurrence bucket: (c_b, k_b) int32 rows
+    bucket_vals: tuple         # per occurrence bucket: (c_b, k_b) values
+    perm_cols: torch.Tensor    # (d,) int32 original column per position
+    inv_perm: torch.Tensor     # (d,) int32 position of each original column
+    n_features: int
+    n_prefix: int              # d_sel + U distinct tail columns
+    last_col_pos: int          # permuted position of original column d - 1
+    tail_nnz: int              # real (unpadded) tail nnz
+
+    @property
+    def shape(self):
+        return (self.dense.shape[0], self.n_features)
+
+    @property
+    def d_sel(self) -> int:
+        return int(self.dense.shape[1])
+
+    @property
+    def ell_slots(self) -> int:
+        """Total (padded) ELL slots across the width ladder."""
+        return sum(int(v.shape[0]) * int(v.shape[1]) for v in self.ell_vals)
+
+    @property
+    def tail_pad_waste(self) -> float:
+        """Fraction of ELL slots that are pow2 padding (0.0 = none)."""
+        slots = self.ell_slots
+        return (slots / self.tail_nnz - 1.0) if self.tail_nnz else 0.0
+
+    def from_model_space(self, v: torch.Tensor) -> torch.Tensor:
+        """Original-space (d,) vector (or (d, ...) stack) → permuted space."""
+        return torch.index_select(v, 0, self.perm_cols)
+
+    def to_model_space(self, w: torch.Tensor) -> torch.Tensor:
+        """Permuted-space (d,) vector (or (d, ...) stack) → original space."""
+        return torch.index_select(w, 0, self.inv_perm)
+
+    def to(self, device, non_blocking: bool = False) -> "BlockedEllRows":
+        """The same layout with every tensor on ``device``."""
+        def mv(t):
+            return t.to(device, non_blocking=non_blocking)
+
+        return dataclasses.replace(
+            self, dense=mv(self.dense),
+            ell_pcols=tuple(map(mv, self.ell_pcols)),
+            ell_vals=tuple(map(mv, self.ell_vals)), row_pos=mv(self.row_pos),
+            bucket_rows=tuple(map(mv, self.bucket_rows)),
+            bucket_vals=tuple(map(mv, self.bucket_vals)),
+            perm_cols=mv(self.perm_cols), inv_perm=mv(self.inv_perm))
+
+    def astype(self, dtype) -> "BlockedEllRows":
+        """Every value leaf (hot block, ELL tail, occurrence buckets) in
+        ``dtype`` (round to nearest even for bf16, as the reference)."""
+        return dataclasses.replace(
+            self, dense=self.dense.to(dtype),
+            ell_vals=tuple(v.to(dtype) for v in self.ell_vals),
+            bucket_vals=tuple(v.to(dtype) for v in self.bucket_vals))
+
+
 def as_tensor(a, device, non_blocking: bool = False) -> torch.Tensor:
     """``a`` (numpy array or tensor) as a tensor on ``device``. A pinned
     host tensor uploads asynchronously when ``non_blocking``."""
@@ -43,18 +137,314 @@ def as_tensor(a, device, non_blocking: bool = False) -> torch.Tensor:
     return a.to(device, non_blocking=non_blocking)
 
 
-def matvec(X, w: torch.Tensor) -> torch.Tensor:
-    """X @ w -> (n,) f32, the GLM margin.
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy()
+    return np.asarray(a)
 
-    Dense bf16 storage multiplies bf16 operands and accumulates in f32
-    (a bf16×bf16 product is exact in f32, so upcasting both operands
-    before the f32 matmul is the same arithmetic). Sparse rows gather
-    ``w[indices]`` and take the rowwise dot in f32."""
+
+# ------------------------------------------------------------ host builder
+_SCATTER_CHUNK_ELEMS = 1 << 29  # 2 GB f32 scatter chunk, as the reference
+
+
+def _dense_scatter_chunked(rows_h, pos_h, vals_h, n, d_sel, dtype, device):
+    """Hot COO → (n, d_sel) block on ``device``: per row chunk an f32
+    ``index_put_(accumulate=True)`` then the storage cast into the
+    preallocated result, so the peak is one block plus one f32 chunk
+    (reference: `_dense_scatter_chunked`). The hot COO is row-major, so a
+    row range is a contiguous slice found by searchsorted."""
+    out = torch.empty((n, d_sel), dtype=dtype, device=device)
+    row_chunk = max(1, _SCATTER_CHUNK_ELEMS // max(d_sel, 1))
+    for r0 in range(0, n, row_chunk):
+        r1 = min(n, r0 + row_chunk)
+        lo, hi = np.searchsorted(rows_h, [r0, r1])
+        chunk = torch.zeros((r1 - r0, d_sel), dtype=torch.float32,
+                            device=device)
+        r = torch.from_numpy(rows_h[lo:hi] - r0).to(device).long()
+        p = torch.from_numpy(pos_h[lo:hi]).to(device).long()
+        v = torch.from_numpy(vals_h[lo:hi]).to(device)
+        chunk.index_put_((r, p), v, accumulate=True)
+        out[r0:r1].copy_(chunk)
+    return out
+
+
+def _hot_cold_split(ind, val, d, d_dense, device_dense_dtype, device):
+    """Pick the ``d_dense`` most frequent columns, build the (n, d_sel) hot
+    block (on ``device`` when ``device_dense_dtype`` is set, else a host
+    chunked bincount), and extract the cold nnz as flat row-major COO.
+    Returns (dense, sel, t_rows, t_cols, t_vals) with host t_* arrays."""
+    n, k = ind.shape
+    nnz_mask = val != 0.0
+    counts = np.bincount(ind[nnz_mask].ravel(), minlength=d)
+    d_sel = min(d_dense, d)
+    sel = np.sort(np.argpartition(-counts, d_sel - 1)[:d_sel])
+    col_to_pos = np.full(d, -1, np.int64)
+    col_to_pos[sel] = np.arange(d_sel)
+
+    pos = col_to_pos[ind]  # (n, k); -1 = stays sparse
+    hot = (pos >= 0) & nnz_mask
+    rows = np.repeat(np.arange(n), k).reshape(n, k)
+    if device_dense_dtype is not None:
+        dense = _dense_scatter_chunked(
+            rows[hot].astype(np.int32), pos[hot].astype(np.int32),
+            val[hot].astype(np.float32), n, d_sel, device_dense_dtype,
+            device)
+    else:
+        # bincount over flat (row, pos) ids, chunked over row ranges so the
+        # float64 scratch stays bounded (the reference's host path)
+        dense = np.empty((n, d_sel), np.float32)
+        row_chunk = max(1, (1 << 27) // max(d_sel, 1))
+        for r0 in range(0, n, row_chunk):
+            r1 = min(n, r0 + row_chunk)
+            h = hot[r0:r1]
+            flat_ids = ((rows[r0:r1][h] - r0) * np.int64(d_sel)
+                        + pos[r0:r1][h])
+            dense[r0:r1] = np.bincount(
+                flat_ids, weights=val[r0:r1][h].astype(np.float64),
+                minlength=(r1 - r0) * d_sel,
+            ).astype(np.float32).reshape(r1 - r0, d_sel)
+        dense = torch.from_numpy(dense).to(device)
+    cold = (~hot) & nnz_mask
+    flat = cold.reshape(-1)           # row-major → tail rows ascending
+    t_rows = rows.reshape(-1)[flat]
+    t_cols = ind.reshape(-1)[flat]
+    t_vals = val.reshape(-1)[flat].astype(np.float32)
+    return dense, sel, t_rows, t_cols, t_vals
+
+
+def _bucket_exponents(counts: np.ndarray) -> np.ndarray:
+    """pow2 bucket exponent per count (0 for counts ≤ 1)."""
+    e = np.zeros(counts.shape, np.int64)
+    big = counts > 1
+    e[big] = np.ceil(np.log2(counts[big].astype(np.float64))).astype(np.int64)
+    return e
+
+
+def _column_perm(sel, u_cols, order, d):
+    """(perm_cols, inv_perm) for the hot-prefix + bucket-ordered-tail +
+    untouched-suffix column relabeling."""
+    perm_prefix = np.concatenate([sel, u_cols[order]])
+    untouched = np.setdiff1d(np.arange(d), perm_prefix)
+    perm_cols = np.concatenate([perm_prefix, untouched]).astype(np.int32)
+    inv_perm = np.empty(d, np.int64)
+    inv_perm[perm_cols] = np.arange(d)
+    return perm_cols, inv_perm.astype(np.int32)
+
+
+def _occurrence_buckets(t_rows, t_vals, pcol, d_sel, e, order, u_counts):
+    """Column-major padded occurrence buckets: tail nnz sorted by prefix id
+    group each column's occurrences contiguously, in rank (= output)
+    order. Returns (bucket_rows, bucket_vals) lists of (c_b, k_b)."""
+    m = pcol.shape[0]
+    nnz_order = np.argsort(pcol, kind="stable")
+    rank_per = pcol[nnz_order].astype(np.int64) - d_sel
+    counts_by_rank = u_counts[order]
+    col_offsets = np.concatenate([[0], np.cumsum(counts_by_rank)])
+    pos_within = np.arange(m) - col_offsets[rank_per]
+    es = e[order]                      # exponent per rank, ascending
+    bucket_rows, bucket_vals = [], []
+    for e_v in np.unique(es):
+        r0, r1 = np.searchsorted(es, [e_v, e_v + 1])
+        c_b, k_b = int(r1 - r0), 1 << int(e_v)
+        lo, hi = int(col_offsets[r0]), int(col_offsets[r1])
+        br = np.zeros((c_b, k_b), np.int32)
+        bv = np.zeros((c_b, k_b), np.float32)
+        lr = rank_per[lo:hi] - r0
+        pw = pos_within[lo:hi]
+        br[lr, pw] = t_rows[nnz_order[lo:hi]]
+        bv[lr, pw] = t_vals[nnz_order[lo:hi]]
+        bucket_rows.append(br)
+        bucket_vals.append(bv)
+    return bucket_rows, bucket_vals
+
+
+def _row_exponents(counts: np.ndarray) -> np.ndarray:
+    """ELL width-bucket exponent per row tail-nnz count (-1 = no tail)."""
+    e = np.where(counts > 0, _bucket_exponents(counts), -1)
+    return e.astype(np.int64)
+
+
+def _fill_ell(widths, counts, e_row, starts, pcol, vals):
+    """ELL row buckets over the ``widths`` ladder of (exponent, r_b) pairs.
+    ``starts``: per-row offset of the row's slice in the flat row-major
+    tail. Returns ([(r_b, W_b) pcols], [(r_b, W_b) vals], row_pos), rows
+    with no tail mapping to the zero slot at B = Σ r_b."""
+    n = counts.shape[0]
+    B = sum(r_b for _, r_b in widths)
+    row_pos = np.full(n, B, np.int32)
+    out_c, out_v = [], []
+    base = 0
+    for e_v, r_b in widths:
+        w_b = 1 << e_v
+        rows_b = np.flatnonzero(e_row == e_v)
+        pc = np.zeros((r_b, w_b), np.int32)
+        pv = np.zeros((r_b, w_b), np.float32)
+        if rows_b.size:
+            L = counts[rows_b]
+            tot = int(L.sum())
+            pw = np.arange(tot) - np.repeat(np.cumsum(L) - L, L)
+            src = np.repeat(starts[rows_b], L) + pw
+            dr = np.repeat(np.arange(rows_b.size), L)
+            pc[dr, pw] = pcol[src]
+            pv[dr, pw] = vals[src]
+            row_pos[rows_b] = base + np.arange(rows_b.size, dtype=np.int64)
+        base += r_b
+        out_c.append(pc)
+        out_v.append(pv)
+    return out_c, out_v, row_pos
+
+
+def to_blocked_ell(X: SparseRows, d_dense: int = 1024,
+                   device_dense_dtype=None, device=None) -> BlockedEllRows:
+    """Build the blocked-ELL layout (see `BlockedEllRows`) from padded COO
+    rows (numpy or CPU-tensor leaves), on ``device`` (default ``cuda``).
+
+    One vectorized numpy pass on the host, the reference's own: hot/cold
+    split, occurrence buckets, and rows bucketed by tail nnz into the pow2
+    width ladder. ``device_dense_dtype`` (e.g. ``torch.bfloat16``) builds
+    the hot block on the device from the compact hot COO in that dtype;
+    otherwise it is built on the host in f32 and uploaded."""
+    from photon_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    ind, val = _host(X.indices), _host(X.values)
+    n = ind.shape[0]
+    d = X.n_features
+    d_sel = min(d_dense, d)
+    dense, sel, t_rows, t_cols, t_vals = _hot_cold_split(
+        ind, val, d, d_dense, device_dense_dtype, dev)
+    m = t_rows.size
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if m == 0:
+        perm_cols, inv_perm = _column_perm(
+            sel, np.zeros(0, np.int64), np.zeros(0, np.int64), d)
+        return BlockedEllRows(
+            dense=dense, ell_pcols=(), ell_vals=(),
+            row_pos=up(np.zeros(n, np.int32)),
+            bucket_rows=(), bucket_vals=(),
+            perm_cols=up(perm_cols), inv_perm=up(inv_perm),
+            n_features=d, n_prefix=d_sel,
+            last_col_pos=int(inv_perm[d - 1]), tail_nnz=0)
+
+    u_cols, inv, u_counts = np.unique(t_cols, return_inverse=True,
+                                      return_counts=True)
+    U = u_cols.size
+    e = _bucket_exponents(u_counts)
+    order = np.lexsort((u_cols, e))   # bucket-major, col id within bucket
+    rank = np.empty(U, np.int64)
+    rank[order] = np.arange(U)
+    pcol = (d_sel + rank[inv]).astype(np.int32)
+    perm_cols, inv_perm = _column_perm(sel, u_cols, order, d)
+    bucket_rows, bucket_vals = _occurrence_buckets(
+        t_rows, t_vals, pcol, d_sel, e, order, u_counts)
+
+    row_bounds = np.searchsorted(t_rows, np.arange(n + 1)).astype(np.int64)
+    counts = np.diff(row_bounds)
+    e_row = _row_exponents(counts)
+    widths = [(int(ev), int((e_row == ev).sum()))
+              for ev in np.unique(e_row[e_row >= 0])]
+    # prefix-RELATIVE ids: the tail gather reads w[d_sel:n_prefix]
+    pcol_rel = (pcol.astype(np.int64) - d_sel).astype(np.int32)
+    pcs, pvs, row_pos = _fill_ell(widths, counts, e_row, row_bounds[:-1],
+                                  pcol_rel, t_vals)
+
+    return BlockedEllRows(
+        dense=dense, ell_pcols=tuple(map(up, pcs)),
+        ell_vals=tuple(map(up, pvs)), row_pos=up(row_pos),
+        bucket_rows=tuple(map(up, bucket_rows)),
+        bucket_vals=tuple(map(up, bucket_vals)),
+        perm_cols=up(perm_cols), inv_perm=up(inv_perm),
+        n_features=d, n_prefix=d_sel + U,
+        last_col_pos=int(inv_perm[d - 1]), tail_nnz=int(m))
+
+
+# --------------------------------------------------------------- X passes
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with f32 accumulation and an f32 result, for ``b`` already
+    in ``a``'s dtype (vector or matrix). A bf16 product on the card goes to
+    cuBLAS with an f32 output (``torch.mm(..., out_dtype=float32)``, the
+    counterpart of ``preferred_element_type``); on the CPU both operands
+    upcast to f32, where each bf16×bf16 product is exact."""
+    vec = b.dim() == 1
+    b2 = b[:, None] if vec else b
+    if a.dtype == torch.float32:
+        out = a @ b2
+    elif a.is_cuda:
+        out = torch.mm(a, b2, out_dtype=torch.float32)
+    else:
+        out = a.float() @ b2.float()
+    return out[:, 0] if vec else out
+
+
+def _bell_matvec(X: BlockedEllRows, w: torch.Tensor) -> torch.Tensor:
+    """w: (d,) or (d, G) PERMUTED. The hot block against bf16(w[:d_sel])
+    (storage dtype) plus the ELL tail through the kernel seam (fused or
+    tiled by `kernels.route`)."""
+    hot = _mm_f32(X.dense, w[:X.d_sel].to(X.dense.dtype))
+    if not X.ell_vals:
+        return hot
+    tail = (KB.tail_matvec(X, w) if K.route(X, w) == "fused"
+            else KB.tail_matvec_tiled(X, w))
+    return hot + tail
+
+
+def _bell_rmatvec(X: BlockedEllRows, r: torch.Tensor,
+                  square: bool = False) -> torch.Tensor:
+    """Xᵀr (or (X∘X)ᵀr): the hot block's transpose product (``dense*dense``
+    formed in the storage dtype for ``square``), the occurrence-bucket
+    block through the kernel seam, and zeros for the untouched suffix,
+    concatenated in prefix order. r: (n,) or (n, G)."""
+    dense = X.dense * X.dense if square else X.dense
+    parts = [_mm_f32(dense.t(), r.to(X.dense.dtype))]
+    if X.bucket_vals:
+        parts.append(KB.bucket_rmatvec(X, r, square=square)
+                     if K.route(X, r) == "fused"
+                     else KB.bucket_rmatvec_tiled(X, r, square=square))
+    pad = X.n_features - X.n_prefix
+    if pad:
+        parts.append(torch.zeros((pad,) + tuple(r.shape[1:]),
+                                 dtype=torch.float32, device=r.device))
+    return torch.cat(parts, dim=0)
+
+
+def matvec(X, w: torch.Tensor) -> torch.Tensor:
+    """X @ w -> (n,) f32, the GLM margin (w (d, G) gives (n, G)).
+
+    Dense storage multiplies in its own dtype and accumulates in f32.
+    Sparse rows gather ``w[indices]`` and take the rowwise dot in f32.
+    `BlockedEllRows` takes w in its permuted space."""
+    if isinstance(X, BlockedEllRows):
+        return _bell_matvec(X, w)
     if isinstance(X, SparseRows):
         return torch.einsum("nk,nk->n", X.values.to(torch.float32),
                             w[X.indices.long()])
-    return torch.matmul(X.to(torch.float32),
-                        w.to(X.dtype).to(torch.float32))
+    return _mm_f32(X, w.to(X.dtype))
+
+
+def rmatvec(X, r: torch.Tensor) -> torch.Tensor:
+    """Xᵀ @ r -> (d,) f32, the gradient aggregation (f32 accumulation,
+    storage-dtype operands as `matvec`)."""
+    if isinstance(X, BlockedEllRows):
+        return _bell_rmatvec(X, r)
+    if isinstance(X, SparseRows):
+        raise NotImplementedError(
+            "rmatvec on SparseRows is not ported yet (ROADMAP queue A "
+            "item 2); lay the rows out with to_blocked_ell")
+    return _mm_f32(X.t(), r.to(X.dtype))
+
+
+def sq_rmatvec(X, r: torch.Tensor) -> torch.Tensor:
+    """(X∘X)ᵀ @ r -> (d,): the Hessian-diagonal building block."""
+    if isinstance(X, BlockedEllRows):
+        return _bell_rmatvec(X, r, square=True)
+    if isinstance(X, SparseRows):
+        raise NotImplementedError(
+            "sq_rmatvec on SparseRows is not ported yet (ROADMAP queue A "
+            "item 2); lay the rows out with to_blocked_ell")
+    return _mm_f32((X * X).t(), r.to(X.dtype))
 
 
 def next_pow2(x: int, floor: int = 2) -> int:

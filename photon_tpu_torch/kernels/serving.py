@@ -10,11 +10,11 @@ against it on the card. The inverse link applies outside, in the ladder.
 
 Every int8 rung takes the kernel on the card (there is no VMEM budget to
 fit, so no feasibility test as on the TPU). The kernel is built from the
-source on first use with `torch.utils.cpp_extension.load` into
-``kernels/_build/``. Its entry point is a plain C function bound with
-ctypes: a source that includes PyTorch's headers takes minutes to compile,
-a plain CUDA file seconds. A build or launch failure raises; nothing falls
-back to the plain version on its own.
+source on first use by `kernels.build` (nvcc into ``kernels/_build/``).
+Its entry point is a plain C function bound with ctypes: a source that
+includes PyTorch's headers takes minutes to compile, a plain CUDA file
+seconds. A build or launch failure raises; nothing falls back to the plain
+version on its own.
 
 Operand contract (checked before the launch): every tensor contiguous, on
 the offsets' device; offsets (B,) f32; a sparse shard (B, k) int32
@@ -37,7 +37,6 @@ from photon_tpu_torch.game.model import score_rows
 
 KERNEL = "serving_int8"
 SOURCE = Path(__file__).parent / "csrc" / "serving_int8.cu"
-BUILD_DIR = Path(__file__).parent / "_build"
 # CoordDesc in csrc/serving_int8.cu: one int64 per field, in this order
 _DESC_FIELDS = ("kind", "sparse", "d", "k", "x", "idx", "ids", "q", "s")
 
@@ -51,16 +50,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            from torch.utils.cpp_extension import load
-
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            path = load(
-                name="photon_tpu_torch_serving_int8", sources=[str(SOURCE)],
-                build_directory=str(BUILD_DIR),
-                extra_cuda_cflags=["-O3",
-                                   "-gencode=arch=compute_90a,code=sm_90a"],
-                is_python_module=False, verbose=False)
-            lib = ctypes.CDLL(path)
+            lib = K.build(SOURCE)
             fn = lib.photon_serving_int8_margin
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]

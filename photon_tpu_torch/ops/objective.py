@@ -1,0 +1,133 @@
+"""GLM objective: value / gradient / Hessian diagonal over one device's batch
+(port of the single-device part of `photon_tpu/ops/objective.py`).
+
+Reference parity: com.linkedin.photon.ml.function.glm.SingleNodeGLMLossFunction
+and function.L2RegularizationTwiceDiffFunction. All quantities use the
+reference's SUM convention (weighted sum over examples, not mean), so
+regularization weights mean the same thing.
+
+Ported: the smooth regularizer (L2 weight, ``reg_mask``, diagonal priors),
+the margin-cached family (`margin`, `direction_margin`, `ray_reg_coeffs`,
+`phi_at_ray`, `*_at_margin`), `value_and_grad` and `hess_diag`. Feature
+normalization, full-covariance priors, `hvp`, `full_hessian` and the
+chunk-partial API are still to come (ROADMAP queue A item 3) and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from photon_tpu_torch.data.dataset import GLMBatch
+from photon_tpu_torch.data.matrix import matvec, rmatvec, sq_rmatvec
+from photon_tpu_torch.ops.losses import TaskType, loss_fns
+
+_LATER = "not ported yet (ROADMAP queue A item 3)"
+
+
+@dataclasses.dataclass(frozen=True)
+class Objective:
+    """Smooth part of the regularized negative log-likelihood.
+
+    ``l2`` is the smooth L2 weight. ``reg_mask``: optional (d,) 0/1
+    per-coordinate regularization mask (excludes the intercept when
+    configured). ``prior_mean`` / ``prior_precision``: a diagonal
+    informative prior; the L2 term becomes 0.5 Σ_j (l2 + τ_j)(w_j − μ_j)².
+    """
+
+    task: TaskType
+    l2: float = 0.0
+    reg_mask: Optional[torch.Tensor] = None
+    prior_mean: Optional[torch.Tensor] = None
+    prior_precision: Optional[torch.Tensor] = None
+
+    # ---------------------------------------------------------------- helpers
+    def _reg_parts(self):
+        mask = self.reg_mask if self.reg_mask is not None else 1.0
+        mu = self.prior_mean if self.prior_mean is not None else 0.0
+        tau = self.prior_precision if self.prior_precision is not None else 0.0
+        return (self.l2 + tau) * mask, mu
+
+    def _reg_terms(self, w):
+        """(value, grad) of the smooth regularizer at w."""
+        coeff, mu = self._reg_parts()
+        dw = w - mu
+        return 0.5 * torch.sum(coeff * dw * dw), coeff * dw
+
+    def _reg_hess_diag(self, w):
+        coeff, _ = self._reg_parts()
+        return coeff * torch.ones_like(w)
+
+    # ------------------------------------------------------------------- API
+    def value_and_grad(self, w, batch: GLMBatch):
+        """(f, g) at w: one X pass for the margin, one for Xᵀr."""
+        return self.value_and_grad_at_margin(w, self.margin(w, batch), batch)
+
+    # ------------------------------------------------ margin-space API
+    # The margin is LINEAR in w: z(w + a·p) = z(w) + a·dz, so the
+    # margin-cached L-BFGS runs its line search elementwise on cached
+    # (z, dz) and pays exactly two X passes per iteration.
+
+    def margin(self, w, batch: GLMBatch):
+        """z(w) = Xw + offsets."""
+        return matvec(batch.X, w) + batch.offsets
+
+    def direction_margin(self, p, batch: GLMBatch):
+        """dz = X·p (offset-free margin of the direction)."""
+        return matvec(batch.X, p)
+
+    def ray_reg_coeffs(self, w, p):
+        """Scalars (c0, c1, c2) of the regularizer along the ray w + a·p: it
+        is quadratic in w, so its value is c0 + a·c1 + a²/2·c2 exactly and
+        its slope c1 + a·c2 — one O(d) pass per line search."""
+        coeff, mu = self._reg_parts()
+        dw = w - mu
+        return (0.5 * torch.sum(coeff * dw * dw), torch.sum(coeff * dw * p),
+                torch.sum(coeff * p * p))
+
+    def phi_at_ray(self, z, dz, a, coeffs, batch: GLMBatch):
+        """(φ(a), φ'(a)) along w + a·p from the cached margins and the
+        ray's regularizer coefficients: O(n) elementwise plus scalars, no
+        (d,) work."""
+        loss, d1, _ = loss_fns(self.task)
+        za = z + a * dz
+        f = torch.sum(batch.weights * loss(za, batch.y))
+        dphi = torch.sum(batch.weights * d1(za, batch.y) * dz)
+        c0, c1, c2 = coeffs
+        return f + c0 + a * (c1 + 0.5 * a * c2), dphi + c1 + a * c2
+
+    def value_at_margin(self, w, z, batch: GLMBatch):
+        """f(w) from a cached margin — elementwise only, no pass over X."""
+        loss, _, _ = loss_fns(self.task)
+        return (torch.sum(batch.weights * loss(z, batch.y))
+                + self._reg_terms(w)[0])
+
+    def grad_at_margin(self, w, z, batch: GLMBatch):
+        """Full gradient from a cached margin — ONE pass over X (Xᵀr)."""
+        _, d1, _ = loss_fns(self.task)
+        r = batch.weights * d1(z, batch.y)
+        return rmatvec(batch.X, r) + self._reg_terms(w)[1]
+
+    def value_and_grad_at_margin(self, w, z, batch: GLMBatch):
+        """(f, g) from a cached margin — one elementwise pass + one Xᵀr."""
+        loss, d1, _ = loss_fns(self.task)
+        r = batch.weights * d1(z, batch.y)
+        gX = rmatvec(batch.X, r)
+        value = torch.sum(batch.weights * loss(z, batch.y))
+        rv, rg = self._reg_terms(w)
+        return value + rv, gX + rg
+
+    def hess_diag(self, w, batch: GLMBatch):
+        """diag(H) = (X∘X)ᵀ(weight·d2(z)) + the regularizer's diagonal
+        (reference: TwiceDiffFunction.hessianDiagonal, behind SIMPLE
+        variances)."""
+        _, _, d2 = loss_fns(self.task)
+        w2 = batch.weights * d2(self.margin(w, batch), batch.y)
+        return sq_rmatvec(batch.X, w2) + self._reg_hess_diag(w)
+
+    def hvp(self, w, batch: GLMBatch, v):
+        raise NotImplementedError(f"Objective.hvp is {_LATER}")
+
+    def full_hessian(self, w, batch: GLMBatch):
+        raise NotImplementedError(f"Objective.full_hessian is {_LATER}")

@@ -210,17 +210,17 @@ class ProgramLadder:
             dev = self.device
 
             def quant(block):
-                q, s = quantize_blocks(np.asarray(block, np.float32),
-                                       self.quantize)
+                # from the token's own f32 blocks: the store's host blocks
+                # may already belong to a newer generation
+                q, s = quantize_blocks(block.cpu().numpy(), self.quantize)
                 if s is None:
                     return q.to(dev)
                 return (torch.from_numpy(q).to(dev),
                         torch.from_numpy(np.atleast_1d(s)).to(dev))
 
-            blocks = ({n: quant(b.weights)
-                       for n, b in self.store.fixed.items()},
-                      {n: quant(b.coefficients)
-                       for n, b in self.store.random.items()})
+            fixed_ws, re_cs = token
+            blocks = ({n: quant(b) for n, b in fixed_ws.items()},
+                      {n: quant(b) for n, b in re_cs.items()})
             self._qdev = (token, blocks)
             return blocks
 

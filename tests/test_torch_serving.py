@@ -379,6 +379,32 @@ def test_hot_swap_under_concurrent_load_is_never_torn():
         assert min(abs(s - want[0][i]), abs(s - want[1][i])) <= 1e-5, i
 
 
+def test_int8_cache_quantizes_the_generation_it_is_keyed_by(monkeypatch):
+    """A reload landing between the ladder's read of the store's
+    generation and its quantization must not pair the old generation's
+    key with the new generation's int8 blocks: the cache quantizes the
+    generation it holds (the race that tore answers under concurrent
+    hot swaps)."""
+    models = [_port_model(_ref_game_model(seed=s)) for s in (30, 31)]
+    live = serving.CoefficientStore.from_game_model(models[0], device=CPU)
+    ladder = serving.ProgramLadder(live, floor=8, max_batch=16,
+                                   sparse_k={"member": K_MEMBER},
+                                   quantize="int8")
+    old = live.device_blocks()
+    live.reload_coefficients(
+        serving.CoefficientStore.from_game_model(models[1], device=CPU))
+    monkeypatch.setattr(live, "device_blocks", lambda: old)
+    fixed_q, re_q = ladder._quant_blocks()
+    for n, block in old[0].items():
+        q, s = fixed_q[n]
+        want_q, want_s = ref_matrix.quantize_blocks(block.numpy())
+        np.testing.assert_array_equal(q.numpy(), want_q)
+        assert float(s[0]) == float(want_s)
+    for n, block in old[1].items():
+        np.testing.assert_array_equal(
+            re_q[n][0].numpy(), ref_matrix.quantize_blocks(block.numpy())[0])
+
+
 def test_quantization_refused_on_tiny_epsilon():
     ref = _ref_game_model(seed=12)
     store = serving.CoefficientStore.from_game_model(_port_model(ref),
