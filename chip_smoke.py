@@ -6,13 +6,11 @@ GLM training path on one GPU.
 
 Phases (any failure exits non-zero):
 
-0. build every kernel from the sources in the checkout, one nvcc per
-   source, all started together;
-1. hold the int8 serving rung against its plain PyTorch version: each of
-   its four branches alone, then all four together, at small shapes
-   (margins within rtol=1e-5, atol=1e-5: the kernel sums each row in
-   another order than PyTorch; cold-miss rows equal the fixed-only margin
-   exactly);
+1. build the int8 serving rung from its source in the checkout and hold
+   it against its plain PyTorch version: each of its four branches alone,
+   then all four together, at small shapes (margins within rtol=1e-5,
+   atol=1e-5: the kernel sums each row in another order than PyTorch;
+   cold-miss rows equal the fixed-only margin exactly);
 2. serve a seeded GAME model at the repo's widths — a fixed effect over a
    10,000,000-feature sparse space with 32 nonzeros per row and two
    random effects (100,000 users, 50,000 items, d=8, 8 slots per row) —
@@ -25,12 +23,13 @@ Phases (any failure exits non-zero):
 3. time the serving kernel at the main path's shapes (CUDA events) beside
    its plain version and its bound, and print QPS and latency
    percentiles;
-T1. hold the four blocked-ELL kernels (fused and tiled tail matvec,
-   fused and tiled occurrence-bucket rmatvec) against their plain
-   versions at small shapes (rtol=atol=1e-5), f32 and bf16 storage, a
-   vector and 1 and 8 lanes, ``square`` on and off, on layouts with a
-   bucket smaller than one tile, buckets of many tiles and rows with no
-   tail; and the hot block's bf16 product (cuBLAS, f32 output);
+T1. build the blocked-ELL kernels from their source in the checkout and
+   hold all four (fused and tiled tail matvec, fused and tiled
+   occurrence-bucket rmatvec) against their plain versions at small
+   shapes (rtol=atol=1e-5), f32 and bf16 storage, a vector and 1 and 8
+   lanes, ``square`` on and off, on layouts with a bucket smaller than one
+   tile, buckets of many tiles and rows with no tail; and the hot block's
+   bf16 product (cuBLAS, f32 output);
 T2. train L2 logistic regression at the bench headline's width — 10,000,000
    features, 32 zipf(1.4) nonzeros + an intercept per row, a 1,024-column
    bf16 hot block, 2^21 rows, reg 1e-3, history 5, tolerance 0 —
@@ -57,7 +56,6 @@ import subprocess
 import sys
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -129,6 +127,9 @@ def phase_kernels(dev) -> None:
     from photon_tpu_torch import kernels as K
     from photon_tpu_torch.kernels import serving as KS
 
+    t0 = time.perf_counter()
+    KS.library()
+    log(f"phase 1: built {KS.SOURCE.name} in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(11)
     cases = {"fixed dense": [("fixed", False)],
              "fixed sparse": [("fixed", True)],
@@ -328,32 +329,6 @@ def rung_bound(coords, offsets, shards, ids, fixed_ws, re_cs) -> tuple:
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-# ------------------------------------------------------- phase 0: build all
-def build_kernels() -> None:
-    """Build every kernel library from its source, one nvcc per source,
-    all started together; print the build times and nvcc's per-kernel
-    register / spill report."""
-    from photon_tpu_torch import kernels as K
-    from photon_tpu_torch.kernels import blocked_ell as KB
-    from photon_tpu_torch.kernels import serving as KS
-
-    def timed(mod):
-        t0 = time.perf_counter()
-        mod.library()
-        return mod.SOURCE.name, time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        done = [f.result() for f in [pool.submit(timed, m)
-                                     for m in (KS, KB)]]
-    log(f"phase 0: built {', '.join(f'{n} in {t:.1f} s' for n, t in done)}"
-        f" ({time.perf_counter() - t0:.1f} s in all)")
-    for name, report in K.BUILD_LOGS.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"phase 0: {name}: {line.strip()}")
-
-
 # ------------------------------------------ phase T1: blocked-ELL kernels
 def coo_rows(rng, n, d, k, zipf):
     """bench.py's padded COO recipe: k zipf columns (column 0 = most
@@ -400,6 +375,9 @@ def phase_training_kernels(dev) -> None:
     from photon_tpu_torch.data import matrix as M
     from photon_tpu_torch.kernels import blocked_ell as KB
 
+    t0 = time.perf_counter()
+    KB.library()
+    log(f"T1: built {KB.SOURCE.name} in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(22)
     worst = {}
     for bf16 in (False, True):
@@ -734,6 +712,17 @@ def phase_training_timings(state: dict, gpu) -> list:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms})
+    # the route has no default budget: both rmatvec forms on a cotangent
+    # past the card's 50 MB L2 (8 lanes of n rows)
+    r8 = torch.from_numpy(rng.uniform(-1, 1, size=(n, 8)).astype(
+        np.float32)).to(w.device)
+    with K.scope("on"):
+        fused_ms = time_ms(lambda: KB.bucket_rmatvec(X, r8), n=20, warm=3)
+        tiled_ms = time_ms(lambda: KB.bucket_rmatvec_tiled(X, r8), n=20,
+                           warm=3)
+    log(f"T3: route past L2: bucket_rmatvec on an 8-lane cotangent of "
+        f"{r8.numel() * 4 / 1e6:.1f} MB: fused {fused_ms:.4f} ms, tiled "
+        f"{tiled_ms:.4f} ms per call  [{gpu}]")
     return out
 
 
@@ -867,7 +856,6 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({gpu}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    build_kernels()
     phase_kernels(dev)
     phase_training_kernels(dev)
     kernels = [phase_serving(args, dev, gpu)]

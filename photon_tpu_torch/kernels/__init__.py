@@ -17,25 +17,24 @@ A wrapper never falls back on its own: a kernel that fails to build or
 launch raises.
 
 ROUTE (`route`, the counterpart of the reference's VMEM ladder): the
-blocked-ELL X passes take the single-launch ``fused`` form while the
-vector the kernel gathers from at random fits ``PHOTON_TPU_TORCH_KERNELS_
-BUDGET`` bytes (default: the H100's 50 MB L2), else the per-bucket
-``tiled`` form. 0 forces ``tiled``. There is no floor below which neither
-form runs, so a CUDA tensor never routes to the plain version.
+blocked-ELL X passes take the single-launch ``fused`` form unless
+``PHOTON_TPU_TORCH_KERNELS_BUDGET`` sets a byte budget that the vector the
+kernel gathers from at random exceeds; then the per-bucket ``tiled`` form.
+0 forces ``tiled``. Neither form keeps the vector resident on the card
+(both gather from global memory), and the fused form measured faster on
+the training path's full-width shapes, so there is no default budget.
+There is no floor below which neither form runs, so a CUDA tensor never
+routes to the plain version.
 
-BUILD (`build`): each CUDA source under ``csrc/`` is a plain C entry point,
-compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` on first use (once
-per source content) and loaded with ctypes. Different sources build in
-parallel when asked from different threads.
+BUILD (`load_library`): each CUDA source under ``csrc/`` is a plain C
+entry point, built for ``sm_90a`` into ``_build/`` on first use by
+`torch.utils.cpp_extension.load` and bound with ctypes.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
@@ -43,14 +42,9 @@ import torch
 
 ENV_KNOB = "PHOTON_TPU_TORCH_KERNELS"
 ENV_BUDGET = "PHOTON_TPU_TORCH_KERNELS_BUDGET"
-DEFAULT_BUDGET = 50 * 1024 * 1024  # the H100's L2 cache
 _MODES = ("on", "off", "auto")
 
 BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# nvcc's report per built library (registers, shared memory, spills)
-BUILD_LOGS: dict = {}
 
 # Override stack (innermost wins) pushed by `scope`; process-wide, so a
 # scope set on the caller's thread also governs the dispatcher's threads.
@@ -122,12 +116,13 @@ def reset_launch_counts() -> None:
         _LAUNCHES.clear()
 
 
-def budget() -> int:
-    """The fused form's byte budget (``PHOTON_TPU_TORCH_KERNELS_BUDGET``,
-    default 50 MB); a malformed knob raises here, naming it."""
+def budget():
+    """The fused form's byte budget (``PHOTON_TPU_TORCH_KERNELS_BUDGET``),
+    None when the knob is unset (no budget); a malformed knob raises here,
+    naming it."""
     raw = os.environ.get(ENV_BUDGET)
     if raw is None:
-        return DEFAULT_BUDGET
+        return None
     try:
         b = int(raw)
     except ValueError:
@@ -140,58 +135,38 @@ def budget() -> int:
 
 def route(X, vec: torch.Tensor) -> str:
     """``"fused"`` or ``"tiled"`` for a blocked-ELL X pass of ``vec``: fused
-    while the vector its kernel gathers from fits `budget` — the tail
-    slice ``w[d_sel:n_prefix]`` of a coefficient vector (row count ≠ n)
-    or the whole cotangent of an rmatvec (row count n) — else tiled."""
+    unless a `budget` is set and the vector its kernel gathers from — the
+    tail slice ``w[d_sel:n_prefix]`` of a coefficient vector (row count ≠
+    n) or the whole cotangent of an rmatvec (row count n) — exceeds it."""
+    b = budget()
+    if b is None:
+        return "fused"
     rows = int(vec.shape[0])
     if rows != int(X.shape[0]):  # coefficient vector: only the tail slice
         rows = int(X.n_prefix - X.d_sel)
     resident = rows * (vec.numel() // max(int(vec.shape[0]), 1)) \
         * vec.element_size()
-    return "fused" if resident <= budget() else "tiled"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for cand in ((os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
-                  else ""), shutil.which("nvcc") or ""):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the port's CUDA kernels build with "
-                       "the CUDA toolkit's nvcc (CUDA_HOME or PATH)")
+    return "fused" if resident <= b else "tiled"
 
 
 _build_lock = threading.Lock()
-_BUILD_LOCKS: dict = {}
-_LIBS: dict = {}
 
 
-def build(source: Path) -> ctypes.CDLL:
-    """The shared library built from the CUDA ``source`` (compiled on first
-    call, and again only when the source changes; raises with nvcc's
-    output if the build fails)."""
+def load_library(source: Path) -> ctypes.CDLL:
+    """The shared library built from the CUDA ``source`` into
+    ``_build/<stem>/`` (compiled on first call, and again only when the
+    source changes; raises with the compiler's output if the build
+    fails)."""
+    from torch.utils.cpp_extension import load
+
     source = Path(source)
+    build_dir = BUILD_DIR / source.stem
     with _build_lock:
-        lock = _BUILD_LOCKS.setdefault(source.name, threading.Lock())
-    with lock:
-        lib = _LIBS.get(source.name)
-        if lib is not None:
-            return lib
-        tag = hashlib.sha256(source.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"lib{source.stem}-{tag[:16]}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                capture_output=True, text=True)
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed on {source.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-            BUILD_LOGS[source.name] = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(str(out))
-        _LIBS[source.name] = lib
-        return lib
+        build_dir.mkdir(parents=True, exist_ok=True)
+        path = load(name=f"photon_tpu_torch_{source.stem}",
+                    sources=[str(source)], build_directory=str(build_dir),
+                    extra_cuda_cflags=["-O3",
+                                       "-gencode=arch=compute_90a,"
+                                       "code=sm_90a"],
+                    is_python_module=False, verbose=False)
+    return ctypes.CDLL(path)

@@ -66,7 +66,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = K.build(SOURCE)
+            lib = K.load_library(SOURCE)
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.photon_bell_tail_matvec.argtypes = [p, i, p, p, i, ll, i, p,
                                                     p]

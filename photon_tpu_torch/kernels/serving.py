@@ -10,11 +10,11 @@ against it on the card. The inverse link applies outside, in the ladder.
 
 Every int8 rung takes the kernel on the card (there is no VMEM budget to
 fit, so no feasibility test as on the TPU). The kernel is built from the
-source on first use by `kernels.build` (nvcc into ``kernels/_build/``).
-Its entry point is a plain C function bound with ctypes: a source that
-includes PyTorch's headers takes minutes to compile, a plain CUDA file
-seconds. A build or launch failure raises; nothing falls back to the plain
-version on its own.
+source on first use with `torch.utils.cpp_extension.load` into
+``kernels/_build/``. Its entry point is a plain C function bound with
+ctypes: a source that includes PyTorch's headers takes minutes to compile,
+a plain CUDA file seconds. A build or launch failure raises; nothing falls
+back to the plain version on its own.
 
 Operand contract (checked before the launch): every tensor contiguous, on
 the offsets' device; offsets (B,) f32; a sparse shard (B, k) int32
@@ -50,7 +50,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = K.build(SOURCE)
+            lib = K.load_library(SOURCE)
             fn = lib.photon_serving_int8_margin
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]

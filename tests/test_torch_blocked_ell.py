@@ -277,7 +277,11 @@ def test_route_follows_the_budget(monkeypatch):
     _, port = layouts(14)
     n, d = port.shape
     w, r = torch.zeros(d), torch.zeros(n)
-    assert K.route(port, w) == K.route(port, r) == "fused"  # 50 MB default
+    monkeypatch.delenv(K.ENV_BUDGET, raising=False)
+    assert K.budget() is None
+    assert K.route(port, w) == K.route(port, r) == "fused"
+    # no default budget: a cotangent of 2^20 lanes (GBs) stays fused too
+    assert K.route(port, torch.empty((n, 1 << 20), device="meta")) == "fused"
     U = port.n_prefix - port.d_sel
     # a matvec keeps the tail slice w[d_sel:n_prefix] resident, an
     # rmatvec the whole cotangent: fused exactly while that fits
