@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GAME serving path and its sparse logistic
-GLM training path on one GPU.
+"""Drive the PyTorch/CUDA port's GAME serving path, its sparse logistic
+GLM training path and its dense OWL-QN / TRON training path on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
 Phases (any failure exits non-zero):
 
-1. build the int8 serving rung from its source in the checkout and hold
-   it against its plain PyTorch version: each of its four branches alone,
-   then all four together, at small shapes (margins within rtol=1e-5,
-   atol=1e-5: the kernel sums each row in another order than PyTorch;
-   cold-miss rows equal the fixed-only margin exactly);
+0. build every kernel source in the checkout (serving_int8.cu,
+   blocked_ell.cu, fused_vg.cu), all three builds started together, and
+   print each one's build seconds;
+1. hold the int8 serving rung against its plain PyTorch version: each of
+   its four branches alone, then all four together, at small shapes
+   (margins within rtol=1e-5, atol=1e-5: the kernel sums each row in
+   another order than PyTorch; cold-miss rows equal the fixed-only margin
+   exactly);
 2. serve a seeded GAME model at the repo's widths — a fixed effect over a
    10,000,000-feature sparse space with 32 nonzeros per row and two
    random effects (100,000 users, 50,000 items, d=8, 8 slots per row) —
@@ -23,10 +26,9 @@ Phases (any failure exits non-zero):
 3. time the serving kernel at the main path's shapes (CUDA events) beside
    its plain version and its bound, and print QPS and latency
    percentiles;
-T1. build the blocked-ELL kernels from their source in the checkout and
-   hold all four (fused and tiled tail matvec, fused and tiled
-   occurrence-bucket rmatvec) against their plain versions at small
-   shapes (rtol=atol=1e-5), f32 and bf16 storage, a vector and 1 and 8
+T1. hold the four blocked-ELL kernels (fused and tiled tail matvec, fused
+   and tiled occurrence-bucket rmatvec) against their plain versions at
+   small shapes (rtol=atol=1e-5), f32 and bf16 storage, a vector and 1 and 8
    lanes, ``square`` on and off, on layouts with a bucket smaller than one
    tile, buckets of many tiles and rows with no tail; and the hot block's
    bf16 product (cuBLAS, f32 output);
@@ -40,7 +42,27 @@ T2. train L2 logistic regression at the bench headline's width — 10,000,000
    versions on the card); the loss histories agree within rtol 1e-5, the
    variances within rtol 1e-4 of the plain version's;
 T3. time each blocked-ELL kernel at (a)'s shapes beside its plain version,
-   its bound and cuSPARSE's SpMV of the same tail as f32 CSR.
+   its bound and cuSPARSE's SpMV of the same tail as f32 CSR;
+T2(d). OWL-QN (L1, reg 1.0, 5 iterations) on T2's layout: the kernel
+   route (the blocked-ELL kernels, launch counts) against ``scope("off")``,
+   loss histories within rtol 1e-5;
+D1. hold the fused value+grad kernel against its plain version: all four
+   tasks, f32 and bf16 storage, n = 1,000 and 4,097 (a ragged last tile),
+   d = 40, 256 and the kernel's widest d, zero-weight rows and non-zero
+   offsets (loss within rtol 1e-5, max |dg| <= 1e-5 * max |g|);
+D2. train L1 logistic regression at the bench's dense width — bench.py's
+   dense_problem, 2^19 rows x 256 f32 features, reg 1e4, history 10,
+   tolerance 0, 40 iterations — through `train_glm` (OWL-QN): (a) on the
+   default route (timed; the fused kernel's launches, reset just before and
+   read just after, equal the solve's evaluations), (b) 5 iterations under
+   ``scope("off")``, (c) 5 iterations on the unfused objective; histories
+   within rtol 1e-5; some but not all coefficients exactly zero; a
+   profiled 5-iteration solve's device-busy share;
+D3. TRON (L2, reg 1.0, 10 iterations, 20 CG steps) at the same width,
+   kernel route against ``scope("off")``; iterations, HVPs, rows*iters/s;
+D4. time the fused kernel at D2's shape (CUDA events; device time from the
+   profiler) beside its plain version, the unfused route's two cuBLAS
+   GEMVs (the library yardstick) and its bound.
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and last
@@ -50,6 +72,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -71,6 +94,10 @@ EPSILON = 0.5
 # the training path: bench.py's sparse_problem + run_sparse shape
 T_ROWS, T_FEATURES, T_NNZ, T_ZIPF, T_DENSE = 1 << 21, 10_000_000, 32, 1.4, 1024
 T_ITERS, T_SHORT, T_REG, T_HISTORY = 40, 5, 1e-3, 5
+
+# the dense path: bench.py's dense leg (D_ROWS, D_FEATURES, dense_problem)
+D_ROWS, D_FEATURES, D_ITERS, D_SHORT = 1 << 19, 256, 40, 5
+D_L1, D_HISTORY, D_TRON_ITERS, D_TRON_REG, D_CG = 1e4, 10, 10, 1.0, 20
 
 
 def log(*a) -> None:
@@ -121,15 +148,43 @@ def small_case(rng, parts, dev, B=33, E=9):
     return [tuple(coords), offsets, shards, ids, fixed_ws, re_cs], E
 
 
+def phase_build() -> None:
+    """Phase 0: build every kernel source at once, one thread each (a
+    build is mostly a compiler process)."""
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.kernels import fused as KF
+    from photon_tpu_torch.kernels import serving as KS
+
+    secs, errors = {}, []
+
+    def build(mod) -> None:
+        t0 = time.perf_counter()
+        try:
+            mod.library()
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+        secs[mod.SOURCE.name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(m,))
+               for m in (KS, KB, KF)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    log(f"phase 0: built {len(threads)} kernel sources together in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+
+
 def phase_kernels(dev) -> None:
     import torch
 
     from photon_tpu_torch import kernels as K
     from photon_tpu_torch.kernels import serving as KS
 
-    t0 = time.perf_counter()
-    KS.library()
-    log(f"phase 1: built {KS.SOURCE.name} in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(11)
     cases = {"fixed dense": [("fixed", False)],
              "fixed sparse": [("fixed", True)],
@@ -375,9 +430,6 @@ def phase_training_kernels(dev) -> None:
     from photon_tpu_torch.data import matrix as M
     from photon_tpu_torch.kernels import blocked_ell as KB
 
-    t0 = time.perf_counter()
-    KB.library()
-    log(f"T1: built {KB.SOURCE.name} in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(22)
     worst = {}
     for bf16 in (False, True):
@@ -443,7 +495,9 @@ def sparse_problem(seed: int, rows: int):
     return ind, va, y
 
 
-def solve_timed(batch, cfg, dev):
+def solve_timed(batch, cfg, dev, solve=None):
+    """(model, result, wall s) of one logistic `train_glm` (or of ``solve``
+    (batch, cfg), when given) closed by a synchronize."""
     import torch
 
     from photon_tpu_torch.models.training import train_glm
@@ -451,16 +505,17 @@ def solve_timed(batch, cfg, dev):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model, res = train_glm(batch, TaskType.LOGISTIC_REGRESSION, cfg,
-                           device=dev)
+    if solve is None:
+        model, res = train_glm(batch, TaskType.LOGISTIC_REGRESSION, cfg,
+                               device=dev)
+    else:
+        model, res = None, solve(batch, cfg)
     torch.cuda.synchronize()
     return model, res, time.perf_counter() - t0
 
 
 def phase_training(args, dev, gpu) -> dict:
     """T2; returns what T3 and the kernel line need."""
-    import dataclasses
-
     import torch
 
     from photon_tpu_torch import kernels as K
@@ -586,7 +641,6 @@ def solve_profile(batch, cfg, dev):
     most time [(name, us)], wall s) of one short solve under
     torch.profiler: the summed time of the CUDA kernels and copies against
     the wall clock."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -726,6 +780,294 @@ def phase_training_timings(state: dict, gpu) -> list:
     return out
 
 
+def histories_agree(label: str, want, got) -> float:
+    """Raise unless ``got`` has ``want``'s length and agrees within rtol
+    1e-5; returns the largest relative gap."""
+    if len(got) != len(want) or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: history {got} against {want}")
+    np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=label)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+# ----------------------------------------- phase T2(d): OWL-QN on T2's layout
+def phase_sparse_owlqn(state: dict, dev, gpu) -> None:
+    """OWL-QN through the blocked-ELL kernels, against the plain
+    versions."""
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l1
+
+    batch = state["batch"]
+    cfg = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l1(),
+                          reg_weight=1.0, history=T_HISTORY)
+    K.reset_launch_counts()
+    model, res_a, a_s = solve_timed(batch, cfg, dev)
+    launches = K.launch_counts()
+    _, res_b, b_s = solve_timed(batch, dataclasses.replace(cfg,
+                                                           kernels="off"),
+                                dev)
+    gap = histories_agree("T2(d) plain vs kernels", res_a.history(),
+                          res_b.history())
+    if set(launches) != {KB.TAIL, KB.RMATVEC} \
+            or launches[KB.RMATVEC] != res_a.evaluations:
+        raise AssertionError(f"T2(d) launched {launches} for "
+                             f"{res_a.evaluations} evaluations")
+    w = model.coefficients.means
+    zeros = int((w == 0).sum().item())
+    log(f"T2(d): OWL-QN on the blocked-ELL layout, {res_a.iterations} "
+        f"iterations, {res_a.evaluations} evaluations in {a_s:.3f} s "
+        f"(plain {b_s:.3f} s); launches {launches}; {zeros} of "
+        f"{w.numel()} coefficients exactly zero; loss {res_a.history()[0]:.7g}"
+        f" -> {res_a.history()[-1]:.7g}; max rel gap to plain {gap:.3g}  "
+        f"[{gpu}]")
+
+
+# --------------------------------------------- phases D1-D4: dense OWL-QN
+def fused_case(gen, task, n: int, d: int, dtype, dev):
+    """Seeded operands of one fused call: N(0, 1) rows, margins of order
+    2, non-zero offsets, weights in [0.5, 2) with every seventh row 0, and
+    labels of the task's kind."""
+    import torch
+
+    from photon_tpu_torch.ops.losses import TaskType
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    X = randn(n, d).to(dtype)
+    w = 2.0 * randn(d) / np.sqrt(d)
+    offsets = 0.1 * randn(n)
+    weights = 0.5 + 1.5 * torch.rand((n,), generator=gen, device=dev)
+    weights[::7] = 0.0
+    u = torch.rand((n,), generator=gen, device=dev)
+    if task is TaskType.LINEAR_REGRESSION:
+        y = randn(n)
+    elif task is TaskType.POISSON_REGRESSION:
+        y = torch.poisson(torch.full((n,), 2.0, device=dev), generator=gen)
+    else:
+        y = (u < 0.5).float()
+    return X, w, y, weights, offsets
+
+
+def fused_errors(got, want) -> tuple:
+    """(relative loss error, max |dg| / max |g|) of a kernel result."""
+    (gl, gg), (wl, wg) = got, want
+    rel_loss = abs(float(gl) - float(wl)) / max(abs(float(wl)), 1e-30)
+    rel_g = float((gg - wg).abs().max()) / max(float(wg.abs().max()), 1e-30)
+    return rel_loss, rel_g
+
+
+def phase_fused_kernel(dev) -> None:
+    """D1: the fused value+grad kernel against its plain version."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.kernels import fused as KF
+    from photon_tpu_torch.ops.losses import TaskType
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    worst = [0.0, 0.0]
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (40, 256, KF.max_features(dtype)):
+            for n in (1000, 4097):
+                for task in TaskType:
+                    args = (task,) + fused_case(gen, task, n, d, dtype, dev)
+                    with K.scope("on"):
+                        got = KF.fused_value_and_grad(*args)
+                    want = KF.fused_value_and_grad_reference(*args)
+                    torch.cuda.synchronize()
+                    rel_loss, rel_g = fused_errors(got, want)
+                    label = f"D1 {task.value} {dtype} n={n} d={d}"
+                    if not (rel_loss <= 1e-5 and rel_g <= 1e-5):
+                        raise AssertionError(
+                            f"{label}: loss rel err {rel_loss:.3g}, max "
+                            f"|dg|/max|g| {rel_g:.3g} (limit 1e-5 each)")
+                    worst = [max(worst[0], rel_loss), max(worst[1], rel_g)]
+                    n_cases += 1
+    log(f"D1: {KF.KERNEL} matches its plain version in {n_cases} cases "
+        f"(4 tasks, f32/bf16, n 1000/4097, d 40/256/"
+        f"{KF.max_features(torch.float32)} f32 and "
+        f"{KF.max_features(torch.bfloat16)} bf16, zero-weight rows, "
+        f"offsets): worst loss rel err {worst[0]:.3g}, worst max|dg|/max|g| "
+        f"{worst[1]:.3g}")
+
+
+def dense_problem(seed: int):
+    """bench.py's dense_problem with numpy from ``seed``: N(0, 1) rows and
+    labels from a planted N(0, 1) signal."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(D_ROWS, D_FEATURES)).astype(np.float32)
+    w_true = rng.normal(size=D_FEATURES).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-(X @ w_true)))
+    y = (rng.uniform(size=D_ROWS) < p).astype(np.float32)
+    return X, y
+
+
+def phase_dense_owlqn(args, dev, gpu) -> dict:
+    """D2; returns what D3, D4 and the kernel line need."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.dataset import make_batch
+    from photon_tpu_torch.kernels import fused as KF
+    from photon_tpu_torch.models.training import make_objective, solve
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l1
+
+    t0 = time.perf_counter()
+    X, y = dense_problem(args.seed)
+    batch = make_batch(X, y, device=dev)
+    torch.cuda.synchronize()
+    # the L1 weight against the smooth gradient at 0, Xᵀ(½ − y)
+    g0 = (batch.X.t() @ (0.5 - batch.y)).abs()
+    log(f"D2: data made and uploaded in {time.perf_counter() - t0:.1f} s "
+        f"({D_ROWS} x {D_FEATURES} f32, {X.nbytes / 1e6:.1f} MB); "
+        f"|grad f(0)| per coordinate min {float(g0.min()):.6g}, median "
+        f"{float(g0.quantile(0.5)):.6g}, max {float(g0.max()):.6g} "
+        f"against L1 {D_L1:g}")
+    del X
+    cfg = OptimizerConfig(max_iters=D_ITERS, tolerance=0.0, reg=l1(),
+                          reg_weight=D_L1, history=D_HISTORY)
+    short = dataclasses.replace(cfg, max_iters=D_SHORT)
+
+    # (a): the main path — counts reset just before, read just after
+    K.reset_launch_counts()
+    model, res_a, solve_s = solve_timed(batch, cfg, dev)
+    launches_a = K.launch_counts()
+    it_a, ev_a = res_a.iterations, res_a.evaluations
+    if launches_a != {KF.KERNEL: ev_a}:
+        raise AssertionError(f"solve (a) launched {launches_a} for {ev_a} "
+                             "evaluations")
+    # (b): the plain version on the card
+    K.reset_launch_counts()
+    _, res_b, b_s = solve_timed(batch, dataclasses.replace(short,
+                                                           kernels="off"),
+                                dev)
+    if K.launch_counts():
+        raise AssertionError(f"scope off launched {K.launch_counts()}")
+    # (c): the unfused objective (a margin pass and an Xᵀr pass)
+    obj = make_objective(TaskType.LOGISTIC_REGRESSION, short, D_FEATURES,
+                         fused=False, device=dev)
+    w0 = torch.zeros(D_FEATURES, dtype=torch.float32, device=dev)
+    _, res_c, c_s = solve_timed(batch, short, dev,
+                                solve=lambda b, c: solve(obj, b, w0, c))
+    ha = res_a.history()
+    k = min(len(ha), D_SHORT + 1)
+    gap_b = histories_agree("D2 plain vs kernel", ha[:k], res_b.history())
+    gap_c = histories_agree("D2 unfused vs fused", ha[:k], res_c.history())
+    w = model.coefficients.means
+    zeros = int((w == 0).sum().item())
+    if not 0 < zeros < D_FEATURES:
+        raise AssertionError(f"D2: {zeros} of {D_FEATURES} coefficients are "
+                             "zero; the L1 weight does no work")
+    rate = D_ROWS * it_a / solve_s
+    log(f"D2: (a) {it_a} iterations (cap {D_ITERS}), {ev_a} evaluations "
+        f"({ev_a / max(it_a, 1):.3f} per iteration) in {solve_s:.4f} s: "
+        f"{rate:.6g} rows*iters/s; converged {bool(res_a.converged)}; loss "
+        f"{ha[0]:.8g} -> {ha[-1]:.8g}; {zeros} of {D_FEATURES} coefficients "
+        f"exactly zero; {KF.KERNEL} launches {launches_a[KF.KERNEL]} = "
+        f"evaluations  [{gpu}]")
+    log(f"D2: (b) plain, {res_b.iterations} iterations in {b_s:.4f} s; (c) "
+        f"unfused, {res_c.iterations} iterations, {res_c.evaluations} "
+        f"evaluations in {c_s:.4f} s; max rel loss gap to (a): plain "
+        f"{gap_b:.3g}, unfused {gap_c:.3g}")
+    busy, n_ops, top, wall = solve_profile(batch, short, dev)
+    log(f"D2: profiled {D_SHORT}-iteration solve: device busy "
+        + ("not measured" if busy is None else
+           f"{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+           f"({busy / wall:.3f} busy, {1 - busy / wall:.3f} idle)")
+        + f", {n_ops} device kernels and copies; most device time: "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top)
+        + f"  [{gpu}]")
+    return dict(batch=batch, w=w, launches=launches_a)
+
+
+def phase_dense_tron(state: dict, dev, gpu) -> None:
+    """D3: TRON at D2's width, kernel route against scope("off")."""
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.optim.config import OptimizerConfig, OptimizerType
+    from photon_tpu_torch.optim.regularization import l2
+
+    batch = state["batch"]
+    cfg = OptimizerConfig(optimizer=OptimizerType.TRON,
+                          max_iters=D_TRON_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=D_TRON_REG, cg_max_iters=D_CG)
+    K.reset_launch_counts()
+    _, res_a, a_s = solve_timed(batch, cfg, dev)
+    launches = K.launch_counts()
+    _, res_b, b_s = solve_timed(batch, dataclasses.replace(cfg,
+                                                           kernels="off"),
+                                dev)
+    gap = histories_agree("D3 plain vs kernel route", res_a.history(),
+                          res_b.history())
+    if launches:  # dense TRON is margin-cached: cuBLAS passes only
+        raise AssertionError(f"D3 launched {launches}")
+    h = res_a.history()
+    log(f"D3: TRON {res_a.iterations} iterations, {res_a.hvps} HVPs "
+        f"({2 * res_a.hvps} X passes in CG) in {a_s:.4f} s: "
+        f"{D_ROWS * res_a.iterations / a_s:.6g} rows*iters/s; loss "
+        f"{h[0]:.8g} -> {h[-1]:.8g}; plain route {b_s:.4f} s, max rel gap "
+        f"{gap:.3g}  [{gpu}]")
+
+
+def phase_dense_timings(state: dict, gpu) -> dict:
+    """D4: the fused kernel at D2's shape; returns its kernel-line entry."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.kernels import fused as KF
+    from photon_tpu_torch.ops.losses import TaskType, loss_fns
+
+    b = state["batch"]
+    task = TaskType.LOGISTIC_REGRESSION
+    X, w = b.X, state["w"]
+    args = (task, X, w, b.y, b.weights, b.offsets)
+    with K.scope("on"):
+        got = KF.fused_value_and_grad(*args)
+    want = KF.fused_value_and_grad_reference(*args)
+    torch.cuda.synchronize()
+    rel_loss, rel_g = fused_errors(got, want)
+    if not (rel_loss <= 1e-5 and rel_g <= 1e-5):
+        raise AssertionError(f"D4: loss rel err {rel_loss:.3g}, max |dg|/"
+                             f"max|g| {rel_g:.3g} at D2's shape")
+    err = float((got[1] - want[1]).abs().max())
+    with K.scope("on"):
+        ms = time_ms(lambda: KF.fused_value_and_grad(*args), n=100, warm=10)
+        dev_ms = device_ms(lambda: KF.fused_value_and_grad(*args),
+                           "fused_vg", n=50)
+    plain_ms = time_ms(lambda: KF.fused_value_and_grad_reference(*args),
+                       n=20, warm=3)
+    _, d1, _ = loss_fns(task)
+    r = b.weights * d1(X @ w + b.offsets, b.y)
+    lib_ms = time_ms(lambda: (torch.mv(X, w), torch.mv(X.t(), r)), n=100,
+                     warm=10)
+    n, d = (int(s) for s in X.shape)
+    nbytes = n * d * X.element_size() + 3 * n * 4 + 2 * d * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * n * d / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                               else "operations")
+    launches = int(state["launches"].get(KF.KERNEL, 0))
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    log(f"D4: {KF.KERNEL} at {n} x {d} f32: {ms:.4f} ms per call (device "
+        f"time of its two kernels {dev_txt}), plain {plain_ms:.4f} ms, "
+        f"library yardstick (the unfused route's two cuBLAS GEMVs, "
+        f"torch.mv(X, w) + torch.mv(X.T, r)) {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+        f"{nbytes / 1e9 / (ms / 1e3):.1f} GB/s per call; launches in D2 (a) "
+        f"{launches}; loss rel err {rel_loss:.3g}, max |dg| {err:.3g}  "
+        f"[{gpu}]")
+    return {"name": KF.KERNEL, "route": "cuda",
+            "source": "photon_tpu_torch/kernels/csrc/fused_vg.cu",
+            "replaces": "photon_tpu/ops/fused.py:204", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
 def phase_serving(args, dev, gpu) -> dict:
     """Phases 2 and 3; returns the serving kernel's entry of the kernel
     line."""
@@ -856,12 +1198,20 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({gpu}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    phase_build()
     phase_kernels(dev)
     phase_training_kernels(dev)
+    phase_fused_kernel(dev)
     kernels = [phase_serving(args, dev, gpu)]
     torch.cuda.empty_cache()
     state = phase_training(args, dev, gpu)
     kernels += phase_training_timings(state, gpu)
+    phase_sparse_owlqn(state, dev, gpu)
+    del state
+    torch.cuda.empty_cache()
+    state = phase_dense_owlqn(args, dev, gpu)
+    phase_dense_tron(state, dev, gpu)
+    kernels.append(phase_dense_timings(state, gpu))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

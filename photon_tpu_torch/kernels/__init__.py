@@ -149,19 +149,23 @@ def route(X, vec: torch.Tensor) -> str:
     return "fused" if resident <= b else "tiled"
 
 
-_build_lock = threading.Lock()
+_build_locks_lock = threading.Lock()
+_BUILD_LOCKS: dict = {}
 
 
 def load_library(source: Path) -> ctypes.CDLL:
     """The shared library built from the CUDA ``source`` into
     ``_build/<stem>/`` (compiled on first call, and again only when the
     source changes; raises with the compiler's output if the build
-    fails)."""
+    fails). Builds of different sources may run at once, from different
+    threads."""
     from torch.utils.cpp_extension import load
 
     source = Path(source)
     build_dir = BUILD_DIR / source.stem
-    with _build_lock:
+    with _build_locks_lock:
+        lock = _BUILD_LOCKS.setdefault(source.stem, threading.Lock())
+    with lock:
         build_dir.mkdir(parents=True, exist_ok=True)
         path = load(name=f"photon_tpu_torch_{source.stem}",
                     sources=[str(source)], build_directory=str(build_dir),

@@ -4,13 +4,17 @@
 
 Reference parity: com.linkedin.photon.ml.optimization.game.
 SingleNodeOptimizationProblem. The solve is the margin-cached L-BFGS
-(`optim.lbfgs.minimize_lbfgs_margin`) over dense X or `BlockedEllRows`;
-the blocked-ELL X passes go through the port's CUDA kernels on the card.
+(`optim.lbfgs.minimize_lbfgs_margin`), OWL-QN (`optim.owlqn`, whenever the
+config has an L1 term) or the margin-cached TRON
+(`optim.tron.minimize_tron_margin`), over dense X or `BlockedEllRows`. The
+blocked-ELL X passes go through the port's CUDA kernels on the card; a
+dense OWL-QN solve evaluates f and its gradient through the fused
+value+grad kernel (`kernels.fused`), one pass over X per evaluation.
 
-Still to come, and raising when asked for: OWL-QN and TRON (ROADMAP queue
-A item 4), feature normalization and full-covariance priors (item 3),
-FULL variances (item 5), meshes (item 13), reg-weight grids (item 7) and
-streamed datasets (item 8).
+Still to come, and raising when asked for: feature normalization and
+full-covariance priors (ROADMAP queue A item 3), FULL variances (item 5),
+meshes (item 13), reg-weight grids (item 7) and streamed datasets
+(item 8).
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ from photon_tpu_torch.ops.losses import TaskType
 from photon_tpu_torch.ops.objective import Objective
 from photon_tpu_torch.optim.config import OptimizerConfig, OptimizerType
 from photon_tpu_torch.optim.lbfgs import minimize_lbfgs_margin
+from photon_tpu_torch.optim.owlqn import minimize_owlqn
 from photon_tpu_torch.optim.tracker import OptResult
+from photon_tpu_torch.optim.tron import minimize_tron_margin
 
 
 def _vec_on(v, device):
@@ -45,13 +51,15 @@ def _vec_on(v, device):
 
 def make_objective(task: TaskType, config: OptimizerConfig, n_features: int,
                    prior_mean=None, prior_precision=None,
-                   intercept_index: Optional[int] = -1,
+                   intercept_index: Optional[int] = -1, fused: bool = False,
                    device=None) -> Objective:
     """The smooth objective of one solve, on ``device`` (default ``cuda``).
 
     intercept_index: the column left out of regularization when
     ``config.regularize_intercept`` is False (default -1: the builders
-    append the intercept as the LAST column; None for no intercept)."""
+    append the intercept as the LAST column; None for no intercept).
+    fused: evaluate f and g through the fused value+grad kernel where X
+    qualifies."""
     dev = resolve_device(device)
     reg_mask = None
     if not config.regularize_intercept and intercept_index is not None:
@@ -62,19 +70,33 @@ def make_objective(task: TaskType, config: OptimizerConfig, n_features: int,
         task=task,
         # the f32 value of the weight, as the reference's np.float32 canon
         l2=float(np.float32(config.reg.l2_weight(config.reg_weight))),
-        reg_mask=reg_mask, prior_mean=_vec_on(prior_mean, dev),
+        fused=fused, reg_mask=reg_mask, prior_mean=_vec_on(prior_mean, dev),
         prior_precision=_vec_on(prior_precision, dev))
+
+
+def _l1_lam(config: OptimizerConfig):
+    """The L1 weight of an OWL-QN solve (None on the smooth routes)."""
+    if config.effective_optimizer() is OptimizerType.OWLQN:
+        return config.reg.l1_weight(config.reg_weight)
+    return None
 
 
 def solve(obj: Objective, batch: GLMBatch, w0: torch.Tensor,
           config: OptimizerConfig) -> OptResult:
-    """Run the configured solver on one batch: the margin-cached L-BFGS
-    (two X passes per iteration)."""
+    """Run the configured solver on one batch: OWL-QN when the config has
+    an L1 term (one f/g evaluation per line-search trial), the
+    margin-cached TRON, or the margin-cached L-BFGS (two X passes per
+    iteration)."""
     opt = config.effective_optimizer()
-    if opt is not OptimizerType.LBFGS:
-        raise NotImplementedError(
-            f"{opt.name} is not ported yet (ROADMAP queue A item 4); the "
-            "port trains smooth objectives with L-BFGS")
+    if opt is OptimizerType.OWLQN:
+        return minimize_owlqn(
+            lambda w: obj.value_and_grad(w, batch), w0, _l1_lam(config),
+            max_iters=config.max_iters, tolerance=config.tolerance,
+            history=config.history, reg_mask=obj.reg_mask)
+    if opt is OptimizerType.TRON:
+        return minimize_tron_margin(
+            obj, batch, w0, max_iters=config.max_iters,
+            tolerance=config.tolerance, cg_max_iters=config.cg_max_iters)
     return minimize_lbfgs_margin(
         obj, batch, w0, max_iters=config.max_iters,
         tolerance=config.tolerance, history=config.history)
@@ -151,13 +173,20 @@ def train_glm(
     prior_precision = _vec_on(prior_precision, dev)
     permuted = isinstance(X, BlockedEllRows)
     intercept_index = -1
+    # Dense OWL-QN evaluates f and g through the fused kernel (one X pass
+    # per evaluation); L-BFGS and TRON are margin-cached and never call
+    # value_and_grad, and a BlockedEllRows batch keeps the unfused route
+    # (its X passes are the blocked-ELL kernels), as the reference.
+    use_fused = (config.effective_optimizer() is OptimizerType.OWLQN
+                 and not permuted)
     if permuted:
         w0, prior_mean, prior_precision = _permuted_prep(
             X, w0, prior_mean, prior_precision)
         intercept_index = X.last_col_pos
     obj = make_objective(task, config, d, prior_mean=prior_mean,
                          prior_precision=prior_precision,
-                         intercept_index=intercept_index, device=dev)
+                         intercept_index=intercept_index, fused=use_fused,
+                         device=dev)
     res = solve(obj, batch, w0, config)
     var = compute_variances(obj, res.w, batch, variance)
     if permuted:

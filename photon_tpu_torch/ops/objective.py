@@ -8,9 +8,11 @@ regularization weights mean the same thing.
 
 Ported: the smooth regularizer (L2 weight, ``reg_mask``, diagonal priors),
 the margin-cached family (`margin`, `direction_margin`, `ray_reg_coeffs`,
-`phi_at_ray`, `*_at_margin`), `value_and_grad` and `hess_diag`. Feature
-normalization, full-covariance priors, `hvp`, `full_hessian` and the
-chunk-partial API are still to come (ROADMAP queue A item 3) and raise.
+`phi_at_ray`, `*_at_margin`, `hvp_at_margin`), `value_and_grad` (through
+the fused kernel when ``fused`` is set and X qualifies), `hvp` and
+`hess_diag`. Feature normalization, full-covariance priors,
+`full_hessian` and the chunk-partial API are still to come (ROADMAP queue
+A item 3) and raise.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from photon_tpu_torch.data.dataset import GLMBatch
 from photon_tpu_torch.data.matrix import matvec, rmatvec, sq_rmatvec
+from photon_tpu_torch.kernels.fused import can_fuse, fused_value_and_grad
 from photon_tpu_torch.ops.losses import TaskType, loss_fns
 
 _LATER = "not ported yet (ROADMAP queue A item 3)"
@@ -34,10 +37,14 @@ class Objective:
     per-coordinate regularization mask (excludes the intercept when
     configured). ``prior_mean`` / ``prior_precision``: a diagonal
     informative prior; the L2 term becomes 0.5 Σ_j (l2 + τ_j)(w_j − μ_j)².
+    ``fused``: `value_and_grad` takes the fused value+grad kernel
+    (`kernels.fused`, one pass over X) when X qualifies (`can_fuse`);
+    `train_glm` sets it for dense OWL-QN solves.
     """
 
     task: TaskType
     l2: float = 0.0
+    fused: bool = False
     reg_mask: Optional[torch.Tensor] = None
     prior_mean: Optional[torch.Tensor] = None
     prior_precision: Optional[torch.Tensor] = None
@@ -61,7 +68,13 @@ class Objective:
 
     # ------------------------------------------------------------------- API
     def value_and_grad(self, w, batch: GLMBatch):
-        """(f, g) at w: one X pass for the margin, one for Xᵀr."""
+        """(f, g) at w: one fused pass over X when ``fused`` is set and X
+        qualifies, else one X pass for the margin and one for Xᵀr."""
+        if self.fused and can_fuse(batch.X):
+            value, gX = fused_value_and_grad(self.task, batch.X, w, batch.y,
+                                             batch.weights, batch.offsets)
+            rv, rg = self._reg_terms(w)
+            return value + rv, gX + rg
         return self.value_and_grad_at_margin(w, self.margin(w, batch), batch)
 
     # ------------------------------------------------ margin-space API
@@ -126,8 +139,20 @@ class Objective:
         w2 = batch.weights * d2(self.margin(w, batch), batch.y)
         return sq_rmatvec(batch.X, w2) + self._reg_hess_diag(w)
 
+    def hvp_at_margin(self, w, z, batch: GLMBatch, v, dz_v=None):
+        """H(w)·v with the margin z cached (Gauss-Newton form, exact for
+        GLMs): two X passes (dz_v = X·v and the backprop). Pass dz_v when
+        the caller already has the direction's margin (TRON's CG does)."""
+        _, _, d2 = loss_fns(self.task)
+        if dz_v is None:
+            dz_v = self.direction_margin(v, batch)
+        g = batch.weights * d2(z, batch.y) * dz_v
+        return rmatvec(batch.X, g) + self._reg_parts()[0] * v
+
     def hvp(self, w, batch: GLMBatch, v):
-        raise NotImplementedError(f"Objective.hvp is {_LATER}")
+        """H(w)·v: Xᵀ diag(weight·d2(z)) X v + the regularizer's Hessian
+        times v (reference: TwiceDiffFunction.hessianVector)."""
+        return self.hvp_at_margin(w, self.margin(w, batch), batch, v)
 
     def full_hessian(self, w, batch: GLMBatch):
         raise NotImplementedError(f"Objective.full_hessian is {_LATER}")

@@ -24,6 +24,8 @@ class OptimizerConfig:
     tolerance: float = 1e-7  # relative convergence tolerance (reference default 1e-7)
     # L-BFGS/OWL-QN history length (Breeze default m=10 in reference LBFGS).
     history: int = 10
+    # TRON: max conjugate-gradient iterations per Newton step.
+    cg_max_iters: int = 20
     reg: RegularizationContext = NONE
     reg_weight: float = 0.0
     regularize_intercept: bool = True  # reference regularizes the intercept feature

@@ -25,6 +25,11 @@ class OptResult(NamedTuple):
     failed: torch.Tensor  # abnormal stop (line search failure)
     loss_history: torch.Tensor  # (max_iters + 1,), NaN-padded
     grad_norm_history: torch.Tensor  # (max_iters + 1,), NaN-padded
+    # Work counts the host loop keeps (not in the reference): calls of the
+    # objective's value_and_grad (OWL-QN; 0 for the margin-cached solvers)
+    # and Hessian-vector products (TRON).
+    evaluations: int = 0
+    hvps: int = 0
 
     def history(self) -> np.ndarray:
         h = self.loss_history.cpu().numpy()
