@@ -7,8 +7,9 @@ GLM training path and its dense OWL-QN / TRON training path on one GPU.
 Phases (any failure exits non-zero):
 
 0. build every kernel source in the checkout (serving_int8.cu,
-   blocked_ell.cu, fused_vg.cu), all three builds started together, and
-   print each one's build seconds;
+   blocked_ell.cu, fused_vg.cu), all three builds started together beside
+   an ``nvcc -Xptxas -v`` compile of blocked_ell.cu, and print each one's
+   build seconds;
 1. hold the int8 serving rung against its plain PyTorch version: each of
    its four branches alone, then all four together, at small shapes
    (margins within rtol=1e-5, atol=1e-5: the kernel sums each row in
@@ -26,12 +27,17 @@ Phases (any failure exits non-zero):
 3. time the serving kernel at the main path's shapes (CUDA events) beside
    its plain version and its bound, and print QPS and latency
    percentiles;
-T1. hold the four blocked-ELL kernels (fused and tiled tail matvec, fused
-   and tiled occurrence-bucket rmatvec) against their plain versions at
-   small shapes (rtol=atol=1e-5), f32 and bf16 storage, a vector and 1 and 8
-   lanes, ``square`` on and off, on layouts with a bucket smaller than one
-   tile, buckets of many tiles and rows with no tail; and the hot block's
-   bf16 product (cuBLAS, f32 output);
+T1. print the rmatvec kernel's registers and spills (ptxas -v); hold the
+   four blocked-ELL kernels (fused and tiled tail matvec, fused and tiled
+   occurrence-bucket rmatvec) against their plain versions at small shapes
+   (rtol=atol=1e-5), f32 and bf16 storage, a vector and 1, 3 and 8 lanes,
+   ``square`` on and off, on layouts with a bucket smaller than one tile,
+   buckets of many tiles, rows with no tail, and occurrence buckets of
+   every width from 1 to 4,096 slots (every class of the rmatvec's work
+   plan) with one of a single column; the rmatvec's fused form, a second
+   fused launch, the tiled form and the tiled form into a preallocated
+   ``out=`` slice agree bit for bit; and the hot block's bf16 product
+   (cuBLAS, f32 output);
 T2. train L2 logistic regression at the bench headline's width — 10,000,000
    features, 32 zipf(1.4) nonzeros + an intercept per row, a 1,024-column
    bf16 hot block, 2^21 rows, reg 1e-3, history 5, tolerance 0 —
@@ -40,9 +46,16 @@ T2. train L2 logistic regression at the bench headline's width — 10,000,000
    variances included), (b) 5 iterations with the kernels' budget at 0
    (the tiled forms), (c) 5 iterations under ``scope("off")`` (the plain
    versions on the card); the loss histories agree within rtol 1e-5, the
-   variances within rtol 1e-4 of the plain version's;
+   variances within rtol 1e-4 of the plain version's; a profiled
+   5-iteration solve's device-busy share and the rmatvec kernel's share of
+   it;
 T3. time each blocked-ELL kernel at (a)'s shapes beside its plain version,
-   its bound and cuSPARSE's SpMV of the same tail as f32 CSR;
+   its bound and cuSPARSE's SpMV of the same tail as f32 CSR, with a warm
+   L2 (a loop of calls; device time from the profiler and from CUDA
+   events) and a cold one (a 256 MB write before each call; device time
+   from CUDA events with the host's enqueue hidden behind a spin kernel,
+   and per call from an idle stream); then both rmatvec forms on an
+   8-lane cotangent past the L2 beside cuSPARSE's SpMM;
 T2(d). OWL-QN (L1, reg 1.0, 5 iterations) on T2's layout: the kernel
    route (the blocked-ELL kernels, launch counts) against ``scope("off")``,
    loss histories within rtol 1e-5;
@@ -85,6 +98,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)
+FLUSH_BYTES = 256 << 20     # written before each cold call: 5x the 50 MB L2
+SPIN_CYCLES = 2_000_000     # ~1 ms of spin kernel at the H100's 1.98 GHz
 
 D_FIXED, K_FIXED = 10_000_000, 32
 N_USERS, N_ITEMS, D_RE, K_RE = 100_000, 50_000, 8, 8
@@ -148,14 +163,61 @@ def small_case(rng, parts, dev, B=33, E=9):
     return [tuple(coords), offsets, shards, ids, fixed_ws, re_cs], E
 
 
-def phase_build() -> None:
+def ptxas_report(source) -> list:
+    """[(kernel, registers, spill store bytes, spill load bytes)] of every
+    instantiation of the rmatvec kernel in ``source``, from ``nvcc -O3
+    -Xptxas -v`` for sm_90a (the flags the build gives it), compiled to a
+    cubin under the kernels' build directory."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from photon_tpu_torch import kernels as K
+
+    out_dir = K.BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "nvcc"), "-O3", "-std=c++17",
+         "-arch=sm_90a", "-cubin", "-Xptxas", "-v",
+         "-o", str(out_dir / "blocked_ell.cubin"), str(source)],
+        capture_output=True, text=True, timeout=300, check=True)
+    stats, cur = {}, None
+    for line in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or "bell_bucket_rmatvec_kernel" not in cur:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            stats.setdefault(cur, {}).update(st=int(m.group(1)),
+                                             ld=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            stats.setdefault(cur, {})["regs"] = int(m.group(1))
+    rows = []
+    for name, st in sorted(stats.items()):
+        m = re.search(r"ILb(\d)ELb(\d)ELi(\d+)E", name)
+        label = (f"bf16={m.group(1)} square={m.group(2)} "
+                 f"lane_chunk={m.group(3)}" if m else name)
+        rows.append((label, st.get("regs"), st.get("st"), st.get("ld")))
+    if not rows:
+        raise AssertionError("ptxas -v reported no rmatvec kernel")
+    return rows
+
+
+def phase_build() -> list:
     """Phase 0: build every kernel source at once, one thread each (a
-    build is mostly a compiler process)."""
+    build is mostly a compiler process), beside the rmatvec kernel's
+    ``-Xptxas -v`` compile; returns that report."""
     from photon_tpu_torch.kernels import blocked_ell as KB
     from photon_tpu_torch.kernels import fused as KF
     from photon_tpu_torch.kernels import serving as KS
 
-    secs, errors = {}, []
+    secs, errors, ptxas = {}, [], []
 
     def build(mod) -> None:
         t0 = time.perf_counter()
@@ -165,18 +227,25 @@ def phase_build() -> None:
             errors.append(e)
         secs[mod.SOURCE.name] = time.perf_counter() - t0
 
+    def report() -> None:
+        try:
+            ptxas.extend(ptxas_report(KB.SOURCE))
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(m,))
-               for m in (KS, KB, KF)]
+               for m in (KS, KB, KF)] + [threading.Thread(target=report)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    log(f"phase 0: built {len(threads)} kernel sources together in "
+    log(f"phase 0: built {len(secs)} kernel sources together in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return ptxas
 
 
 def phase_kernels(dev) -> None:
@@ -356,6 +425,62 @@ def device_ms(fn, kernel_symbol: str, n: int = 50):
     return total_us / n / 1e3 if total_us > 0 else None
 
 
+def launch_us(fn, kernel_symbol: str, launches: int, n: int = 10) -> list:
+    """Mean device us of each of the ``launches`` launches of the CUDA
+    kernels whose name holds ``kernel_symbol`` that one call of ``fn``
+    makes, in launch order: ``n`` profiles of three calls each, the last
+    call's launches kept (a trace can miss its first few kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    for _ in range(n):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                      and kernel_symbol in ev.name),
+                     key=lambda ev: ev.time_range.start)
+        if len(evs) >= 2 * launches:
+            rows.append([ev.time_range.elapsed_us()
+                         for ev in evs[-launches:]])
+    return list(np.mean(rows, axis=0)) if rows else []
+
+
+def events_ms(fn, cold: bool, hide_host: bool = True, n: int = 20) -> float:
+    """Mean ms of one call of ``fn`` between two CUDA events. ``cold``: a
+    FLUSH_BYTES write before each call evicts the L2, as the training
+    path's hot-block GEMVs (GBs) do between its sparse passes.
+    ``hide_host``: a spin kernel holds the stream while the host enqueues
+    the call, so the events time its device work alone; otherwise the
+    stream is idle at the first event and the time includes the host side
+    of the call."""
+    import torch
+
+    flush = (torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                         device="cuda") if cold else None)
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for i in range(n):
+        if cold:
+            flush.fill_(float(i))
+        if hide_host:
+            torch.cuda._sleep(SPIN_CYCLES)
+        else:
+            torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / n
+
+
 def rung_bound(coords, offsets, shards, ids, fixed_ws, re_cs) -> tuple:
     """(bound_ms, bound_by) of one int8 rung on these inputs: the bytes it
     must move (request slots, ids, offsets, the margin, and the distinct
@@ -399,13 +524,18 @@ def coo_rows(rng, n, d, k, zipf):
 def small_layout(dev, bf16: bool):
     """A small blocked-ELL layout on ``dev`` whose width and occurrence
     buckets include one smaller than a tile (32 rows at 8 lanes) and one
-    of many tiles (256 rows at 1 lane), with rows that have no tail."""
+    of many tiles (256 rows at 1 lane), with rows that have no tail; its
+    8-column hot block leaves occurrence buckets of every width from 1 to
+    4,096 slots, so the rmatvec's plan has every class (scalar and vector
+    slot loads, groups of 1 to 256 threads per column, walks of 8 and 16
+    slots) and a bucket of one column."""
     from photon_tpu_torch.data.matrix import SparseRows, to_blocked_ell
+    from photon_tpu_torch.kernels import blocked_ell as KB
 
     rng = np.random.default_rng(21)
     ind, va = coo_rows(rng, 6000, 20_000, 24, 1.4)
     ind[:500, :-1], va[:500, :-1] = 0, 0.0  # rows 0..499: hot column 0 only
-    X = to_blocked_ell(SparseRows(ind, va, 20_000), 16, device=dev)
+    X = to_blocked_ell(SparseRows(ind, va, 20_000), 8, device=dev)
     for group in (X.ell_vals, X.bucket_vals):
         sizes = [int(v.shape[0]) for v in group]
         if not (min(sizes) < 32 and max(sizes) > 256):
@@ -414,6 +544,14 @@ def small_layout(dev, bf16: bool):
     B = sum(int(v.shape[0]) for v in X.ell_vals)
     if not bool((X.row_pos == B).any()):
         raise AssertionError("T1 layout has no row without a tail")
+    shapes = [tuple(int(s) for s in v.shape) for v in X.bucket_vals]
+    widths = {k for _, k in shapes}
+    tpcs = {KB.threads_per_column(k) for k in widths}
+    if not ({1 << e for e in range(12)} <= widths
+            and tpcs == {1 << e for e in range(9)}
+            and min(c for c, _ in shapes) == 1):
+        raise AssertionError(f"T1 occurrence buckets {shapes} miss a class "
+                             "of the rmatvec's plan or a one-column bucket")
     return X.astype(torch_dtype(bf16))
 
 
@@ -423,45 +561,65 @@ def torch_dtype(bf16: bool):
     return torch.bfloat16 if bf16 else torch.float32
 
 
-def phase_training_kernels(dev) -> None:
+def phase_training_kernels(dev, ptxas: list) -> None:
     import torch
 
     from photon_tpu_torch import kernels as K
     from photon_tpu_torch.data import matrix as M
     from photon_tpu_torch.kernels import blocked_ell as KB
 
+    log("T1: bell_bucket_rmatvec_kernel (nvcc -O3 -Xptxas -v, sm_90a): "
+        + "; ".join(f"{label}: {regs} registers, {st} B spill stores, {ld} B "
+                    f"spill loads" for label, regs, st, ld in ptxas))
     rng = np.random.default_rng(22)
     worst = {}
+    n_bits = 0
+
+    def check(name, label, got, want):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL, err_msg=f"{name} {label}")
+        err = float((got - want).abs().max().item())
+        worst[name] = max(worst.get(name, 0.0), err)
+
     for bf16 in (False, True):
         X = small_layout(dev, bf16)
         n, d = X.shape
-        for lanes in (None, 1, 8):
+        U = X.n_prefix - X.d_sel
+        for lanes in (None, 1, 3, 8):
             shape = () if lanes is None else (lanes,)
             w = torch.from_numpy(rng.normal(size=(d,) + shape).astype(
                 np.float32)).to(dev)
             r = torch.from_numpy(rng.normal(size=(n,) + shape).astype(
                 np.float32)).to(dev)
-            cases = [(KB.TAIL, KB.tail_matvec, KB.tail_matvec_reference, w,
-                      {}),
-                     (KB.TAIL_TILED, KB.tail_matvec_tiled,
-                      KB.tail_matvec_reference, w, {})]
-            for sq in (False, True):
-                cases += [(KB.RMATVEC, KB.bucket_rmatvec,
-                           KB.bucket_rmatvec_reference, r, {"square": sq}),
-                          (KB.RMATVEC_TILED, KB.bucket_rmatvec_tiled,
-                           KB.bucket_rmatvec_reference, r, {"square": sq})]
-            for name, fn, plain, v, kw in cases:
+            label = f"{'bf16' if bf16 else 'f32'} lanes={lanes}"
+            want = KB.tail_matvec_reference(X, w)
+            for name, fn in ((KB.TAIL, KB.tail_matvec),
+                             (KB.TAIL_TILED, KB.tail_matvec_tiled)):
                 with K.scope("on"):
-                    got = fn(X, v, **kw)
-                want = plain(X, v, *kw.values())
-                torch.cuda.synchronize()
-                label = (f"{name} {'bf16' if bf16 else 'f32'} "
-                         f"lanes={lanes} square={kw.get('square', False)}")
-                np.testing.assert_allclose(got.cpu().numpy(),
-                                           want.cpu().numpy(), **TOL,
-                                           err_msg=label)
-                err = float((got - want).abs().max().item())
-                worst[name] = max(worst.get(name, 0.0), err)
+                    got = fn(X, w)
+                check(name, label, got, want)
+            for sq in (False, True):
+                lab = f"{label} square={sq}"
+                want = KB.bucket_rmatvec_reference(X, r, sq)
+                # a preallocated output with guard rows on both sides
+                buf = torch.full((U + 7,) + shape, float("nan"),
+                                 device=dev)
+                with K.scope("on"):
+                    fused = KB.bucket_rmatvec(X, r, square=sq)
+                    again = KB.bucket_rmatvec(X, r, square=sq)
+                    tiled = KB.bucket_rmatvec_tiled(X, r, square=sq)
+                    KB.bucket_rmatvec_tiled(X, r, square=sq,
+                                            out=buf[3:3 + U])
+                check(KB.RMATVEC, lab, fused, want)
+                check(KB.RMATVEC_TILED, lab, tiled, want)
+                if not (torch.equal(fused, tiled) and torch.equal(fused, again)
+                        and torch.equal(buf[3:3 + U], fused)
+                        and bool(buf[:3].isnan().all())
+                        and bool(buf[3 + U:].isnan().all())):
+                    raise AssertionError(
+                        f"rmatvec {lab}: fused, repeated, tiled and out= "
+                        "launches are not bit-identical")
+                n_bits += 1
         # the hot block: a bf16 product on cuBLAS with an f32 output
         w16 = torch.from_numpy(rng.normal(size=X.d_sel).astype(
             np.float32)).to(dev).to(X.dense.dtype)
@@ -472,10 +630,12 @@ def phase_training_kernels(dev) -> None:
         np.testing.assert_allclose(hot.cpu().numpy(), want.cpu().numpy(),
                                    **TOL, err_msg="hot block")
     log("T1: every blocked-ELL kernel matches its plain version (f32/bf16, "
-        "vector/1/8 lanes, square on/off; sub-tile and many-tile buckets, "
-        "rows with no tail); max |err| "
+        "vector/1/3/8 lanes, square on/off; sub-tile and many-tile buckets, "
+        "rows with no tail, occurrence buckets of 1 to 4,096 slots and one of "
+        "a single column); max |err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-        + "; hot block bf16 product returns f32")
+        + f"; rmatvec fused == repeated == tiled == tiled into out=, bit for "
+        f"bit, in all {n_bits} cases; hot block bf16 product returns f32")
 
 
 # ------------------------------------------------ phase T2: train at width
@@ -546,7 +706,9 @@ def phase_training(args, dev, gpu) -> dict:
     facts = dict(tail_pad_waste=X.tail_pad_waste,
                  tail_nnz_share=X.tail_nnz / (rows * (T_NNZ + 1)),
                  ell_buckets=len(X.ell_vals),
-                 occurrence_buckets=len(X.bucket_vals), U=U)
+                 occurrence_buckets=len(X.bucket_vals), U=U,
+                 occurrence_bucket_shapes=[tuple(int(s) for s in v.shape)
+                                           for v in X.bucket_vals])
     log(f"T2: data made in {gen_s:.1f} s; layout built in {build_s:.1f} s "
         f"on the host + device (hot block on the card); "
         + "; ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
@@ -625,11 +787,18 @@ def phase_training(args, dev, gpu) -> dict:
         f"{np.max(np.abs(hc - ha[:T_SHORT + 1]) / np.abs(ha[:T_SHORT + 1])):.3g}")
     log(f"T2: SIMPLE variances vs plain: max rel err {var_err:.3g}; peak "
         f"device memory {peak_gb:.3f} GB  [{gpu}]")
-    busy, n_ops, top, wall = solve_profile(batch, short, dev)
+    busy, n_ops, top, wall, by_name = solve_profile(batch, short, dev)
+    rmv_us = sum(us for name, us in by_name.items()
+                 if "bell_bucket_rmatvec_kernel" in name)
     log(f"T2: profiled {T_SHORT}-iteration solve: device busy "
-        + ("not measured" if busy is None else f"{busy * 1e3:.3f} ms")
-        + f" of {wall * 1e3:.3f} ms wall, {n_ops} device kernels and "
-        f"copies (host sync once per iteration); most device time: "
+        + ("not measured" if busy is None else
+           f"{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+           f"({busy / wall:.3f} busy, {1 - busy / wall:.3f} idle); "
+           f"bucket_rmatvec kernel {rmv_us / 1e3:.3f} ms "
+           f"({rmv_us / 1e6 / busy:.4f} of device busy)")
+        + f", {n_ops} device kernels and "
+        f"copies (host sync once per iteration); rows*iters/s "
+        f"{rows * T_SHORT / wall:.6g}; most device time: "
         + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top)
         + f"  [{gpu}]")
     return dict(batch=batch, launches_a=launches_a, launches_b=launches_b,
@@ -638,9 +807,9 @@ def phase_training(args, dev, gpu) -> dict:
 
 def solve_profile(batch, cfg, dev):
     """(device busy s, device op count, the five device ops that took the
-    most time [(name, us)], wall s) of one short solve under
-    torch.profiler: the summed time of the CUDA kernels and copies against
-    the wall clock."""
+    most time [(name, us)], wall s, {name: us} of every device op) of one
+    short solve under torch.profiler: the summed time of the CUDA kernels
+    and copies against the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -654,7 +823,8 @@ def solve_profile(batch, cfg, dev):
             n_ops += 1
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return (busy_us / 1e6 if busy_us > 0 else None), n_ops, top, wall
+    return ((busy_us / 1e6 if busy_us > 0 else None), n_ops, top, wall,
+            by_name)
 
 
 # ----------------------------------------------- phase T3: kernel timings
@@ -751,32 +921,81 @@ def phase_training_timings(state: dict, gpu) -> list:
             err = float((got - want).abs().max().item())
             ms = time_ms(lambda: fn(X, v), n=50, warm=5)
             dev_ms = device_ms(lambda: fn(X, v), symbol, n=20)
+            ev_ms = events_ms(lambda: fn(X, v), cold=False)
+            ev_cold = events_ms(lambda: fn(X, v), cold=True)
+            ms_cold = events_ms(lambda: fn(X, v), cold=True, hide_host=False)
         plain_ms = time_ms(lambda: plain(X, v), n=20, warm=3)
         lib_ms = time_ms(lib, n=20, warm=3)
+        lib_ev = events_ms(lib, cold=False)
+        lib_ev_cold = events_ms(lib, cold=True)
+        lib_ms_cold = events_ms(lib, cold=True, hide_host=False)
         bound_ms, bound_by = bounds[key]
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        log(f"T3: {name}: {ms:.4f} ms per call (device time of its kernels "
-            f"{dev_txt}), plain {plain_ms:.4f} ms, cuSPARSE f32 CSR "
-            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"launches {launches.get(name, 0)}, max |err| {err:.3g}  [{gpu}]")
+        log(f"T3: {name}: warm L2: {ms:.4f} ms per call, device time of its "
+            f"kernels {dev_txt} (profiler) / {ev_ms:.4f} ms (events); cold "
+            f"L2: {ms_cold:.4f} ms per call, {ev_cold:.4f} ms device "
+            f"(events); plain {plain_ms:.4f} ms; cuSPARSE f32 CSR warm "
+            f"{lib_ms:.4f} ms per call, {lib_ev:.4f} ms device, cold "
+            f"{lib_ms_cold:.4f} ms per call, {lib_ev_cold:.4f} ms device; "
+            f"bound {bound_ms:.4f} ms ({bound_by}), launches "
+            f"{launches.get(name, 0)}, max |err| {err:.3g}  [{gpu}]")
         out.append({"name": name, "route": "cuda",
                     "source": "photon_tpu_torch/kernels/csrc/blocked_ell.cu",
                     "replaces": replaces,
                     "launches": int(launches.get(name, 0)),
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms})
+                    "library_ms": lib_ms, "device_ms": dev_ms,
+                    "ms_cold": ms_cold, "device_ms_cold": ev_cold,
+                    "library_device_ms": lib_ev,
+                    "library_ms_cold": lib_ms_cold,
+                    "library_device_ms_cold": lib_ev_cold})
+    per_launch = launch_us(lambda: KB.bucket_rmatvec_tiled(X, r),
+                           "bell_bucket_rmatvec_kernel", len(X.bucket_vals))
+    log("T3: bucket_rmatvec_tiled per launch, warm L2 (k_b: device us): "
+        + (", ".join(f"{int(v.shape[1])}: {us:.2f}"
+                     for v, us in zip(X.bucket_vals, per_launch))
+           or "not measured (no trace held every launch)")
+        + f"  [{gpu}]")
     # the route has no default budget: both rmatvec forms on a cotangent
-    # past the card's 50 MB L2 (8 lanes of n rows)
+    # past the card's 50 MB L2 (8 lanes of n rows), beside cuSPARSE's SpMM
     r8 = torch.from_numpy(rng.uniform(-1, 1, size=(n, 8)).astype(
         np.float32)).to(w.device)
+    r8_16 = r8.to(X.dense.dtype).float()
     with K.scope("on"):
-        fused_ms = time_ms(lambda: KB.bucket_rmatvec(X, r8), n=20, warm=3)
-        tiled_ms = time_ms(lambda: KB.bucket_rmatvec_tiled(X, r8), n=20,
-                           warm=3)
+        f8 = KB.bucket_rmatvec(X, r8)
+        t8 = KB.bucket_rmatvec_tiled(X, r8)
+        want8 = KB.bucket_rmatvec_reference(X, r8)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(f8.cpu().numpy(), want8.cpu().numpy(),
+                                   **TOL, err_msg="rmatvec at 8 lanes")
+        if not torch.equal(f8, t8):
+            raise AssertionError("rmatvec at 8 lanes: fused and tiled differ")
+        times = {}
+        for form, fn in (("fused", KB.bucket_rmatvec),
+                         ("tiled", KB.bucket_rmatvec_tiled)):
+            times[form] = (
+                time_ms(lambda: fn(X, r8), n=20, warm=3),
+                device_ms(lambda: fn(X, r8), "bell_bucket_rmatvec_kernel",
+                          n=10),
+                events_ms(lambda: fn(X, r8), cold=True))
+    lib8 = (time_ms(lambda: torch.sparse.mm(csr_t, r8_16), n=20, warm=3),
+            events_ms(lambda: torch.sparse.mm(csr_t, r8_16), cold=True))
+    occ = sum(int(v.numel()) for v in X.bucket_vals)
+    U = X.n_prefix - X.d_sel
+    B = sum(int(v.shape[0]) for v in X.ell_vals)
+    tail_rows = int((X.row_pos != B).sum().item())
+    bound8 = (occ * (4 + X.bucket_vals[0].element_size())
+              + 32 * tail_rows + 32 * U) / HBM_BYTES_PER_S * 1e3
     log(f"T3: route past L2: bucket_rmatvec on an 8-lane cotangent of "
-        f"{r8.numel() * 4 / 1e6:.1f} MB: fused {fused_ms:.4f} ms, tiled "
-        f"{tiled_ms:.4f} ms per call  [{gpu}]")
+        f"{r8.numel() * 4 / 1e6:.1f} MB: "
+        + "; ".join(f"{form} {a:.4f} ms per call, device "
+                    + ("not measured" if b is None else f"{b:.4f} ms")
+                    + f" warm, {c:.4f} ms cold"
+                    for form, (a, b, c) in times.items())
+        + f"; cuSPARSE SpMM {lib8[0]:.4f} ms per call, {lib8[1]:.4f} ms "
+        f"device cold; bound {bound8:.4f} ms (bytes); fused == tiled bit "
+        f"for bit  [{gpu}]")
     return out
 
 
@@ -974,7 +1193,7 @@ def phase_dense_owlqn(args, dev, gpu) -> dict:
         f"unfused, {res_c.iterations} iterations, {res_c.evaluations} "
         f"evaluations in {c_s:.4f} s; max rel loss gap to (a): plain "
         f"{gap_b:.3g}, unfused {gap_c:.3g}")
-    busy, n_ops, top, wall = solve_profile(batch, short, dev)
+    busy, n_ops, top, wall, _ = solve_profile(batch, short, dev)
     log(f"D2: profiled {D_SHORT}-iteration solve: device busy "
         + ("not measured" if busy is None else
            f"{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
@@ -1198,9 +1417,9 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({gpu}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    phase_build()
+    ptxas = phase_build()
     phase_kernels(dev)
-    phase_training_kernels(dev)
+    phase_training_kernels(dev, ptxas)
     phase_fused_kernel(dev)
     kernels = [phase_serving(args, dev, gpu)]
     torch.cuda.empty_cache()

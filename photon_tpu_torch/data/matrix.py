@@ -393,21 +393,21 @@ def _bell_matvec(X: BlockedEllRows, w: torch.Tensor) -> torch.Tensor:
 
 def _bell_rmatvec(X: BlockedEllRows, r: torch.Tensor,
                   square: bool = False) -> torch.Tensor:
-    """Xᵀr (or (X∘X)ᵀr): the hot block's transpose product (``dense*dense``
-    formed in the storage dtype for ``square``), the occurrence-bucket
-    block through the kernel seam, and zeros for the untouched suffix,
-    concatenated in prefix order. r: (n,) or (n, G)."""
+    """Xᵀr (or (X∘X)ᵀr) in prefix order, in one (d,)/(d, G) f32 result:
+    the hot block's transpose product (``dense*dense`` formed in the
+    storage dtype for ``square``) in ``[:d_sel]``, the occurrence-bucket
+    block written by the kernel seam into ``[d_sel:n_prefix]``, zeros for
+    the untouched suffix. r: (n,) or (n, G)."""
+    out = torch.empty((X.n_features,) + tuple(r.shape[1:]),
+                      dtype=torch.float32, device=r.device)
     dense = X.dense * X.dense if square else X.dense
-    parts = [_mm_f32(dense.t(), r.to(X.dense.dtype))]
+    out[:X.d_sel] = _mm_f32(dense.t(), r.to(X.dense.dtype))
     if X.bucket_vals:
-        parts.append(KB.bucket_rmatvec(X, r, square=square)
-                     if K.route(X, r) == "fused"
-                     else KB.bucket_rmatvec_tiled(X, r, square=square))
-    pad = X.n_features - X.n_prefix
-    if pad:
-        parts.append(torch.zeros((pad,) + tuple(r.shape[1:]),
-                                 dtype=torch.float32, device=r.device))
-    return torch.cat(parts, dim=0)
+        rmv = (KB.bucket_rmatvec if K.route(X, r) == "fused"
+               else KB.bucket_rmatvec_tiled)
+        rmv(X, r, square=square, out=out[X.d_sel:X.n_prefix])
+    out[X.n_prefix:].zero_()
+    return out
 
 
 def matvec(X, w: torch.Tensor) -> torch.Tensor:

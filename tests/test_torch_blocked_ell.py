@@ -7,10 +7,18 @@ the four CUDA kernels (`tail_matvec_reference`,
 reference's Pallas kernels in interpret mode, fused and tiled, f32 and
 bf16 storage, vector and lanes, ``square`` on and off; and `matvec`,
 `rmatvec`, `sq_rmatvec` on a `BlockedEllRows` against the reference's.
-The CUDA kernels themselves run only on a GPU, where ``chip_smoke.py``
-holds them against the same plain versions.
+The rmatvec kernel's work plan (`rmatvec_plan`) is checked on the bucket
+shapes of chip_smoke.py's T1 layout and of the headline training layout:
+every column covered once, no thread walking more than max(S, k_b /
+T_max) slots, longest walk first, each tiled launch the fused plan of its
+bucket, a deterministic plan packed as the C struct. The CUDA kernels
+themselves run only on a GPU, where ``chip_smoke.py`` holds them against
+the same plain versions.
 """
 import dataclasses
+import importlib.util
+import re
+from pathlib import Path
 
 import jax.core
 import jax.extend.core
@@ -40,6 +48,7 @@ from photon_tpu_torch.data.dataset import (cast_features,  # noqa: E402
 from photon_tpu_torch.kernels import blocked_ell as KB  # noqa: E402
 
 CPU = "cpu"
+ROOT = Path(__file__).resolve().parent.parent
 # Each output is a sum of at most W_b (k_b) products, exact in f32 for bf16
 # storage; the two sides add them in another order (XLA's einsum vs
 # PyTorch's), so they agree to a few ulp of the sum's magnitude.
@@ -218,6 +227,155 @@ def test_square_does_not_round_the_cotangent():
     np.testing.assert_allclose(sq.numpy(), sq1.numpy() * (1.0 + 2.0 ** -12),
                                rtol=1e-6)
     assert not np.array_equal(sq.numpy(), sq1.numpy())
+
+
+# ------------------------------------------------------------ rmatvec plan
+# The occurrence buckets (c_b, k_b) of the training path's headline layout:
+# bench.py's sparse problem (2^21 rows, 10,000,000 features, 32 zipf(1.4)
+# nonzeros + an intercept per row, a 1,024-column hot block) drawn by
+# chip_smoke.py's recipe at seed 0 with numpy 2.0 (U = 539,058 tail
+# columns; the column counts alone, no 2^21-row data).
+T2_BUCKETS = ((380559, 1), (58680, 2), (37970, 4), (23819, 8), (15253, 16),
+              (9252, 32), (5701, 64), (3441, 128), (2104, 256), (1290, 512),
+              (781, 1024), (208, 2048))
+
+
+def _t1_buckets():
+    """The occurrence buckets of chip_smoke.py's T1 layout, built here on
+    the CPU (it asserts that they reach every class of the plan)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    X = cs.small_layout(CPU, False)
+    return tuple(tuple(int(s) for s in v.shape) for v in X.bucket_vals)
+
+
+@pytest.fixture(scope="module", params=["t1", "t2"])
+def bucket_shapes(request):
+    return _t1_buckets() if request.param == "t1" else T2_BUCKETS
+
+
+def _thread_walk(k_b, tpc):
+    """The most slots one thread of a tpc-thread group walks in the
+    kernel's loops over a k_b-slot column."""
+    if k_b % 4 == 0:
+        return max(4 * len(range(4 * j, k_b, 4 * tpc)) for j in range(tpc))
+    return max(len(range(j, k_b, tpc)) for j in range(tpc))
+
+
+def test_rmatvec_plan_covers_every_column_once(bucket_shapes):
+    plan = KB.rmatvec_plan(bucket_shapes)
+    assert plan.dtype == np.int32 and plan.shape[1] == len(KB._PLAN_FIELDS)
+    for b, (c_b, _) in enumerate(bucket_shapes):
+        mine = plan[plan[:, 0] == b]
+        cols = np.concatenate([np.arange(c0, c0 + n) for _, c0, n, _ in mine])
+        np.testing.assert_array_equal(np.sort(cols), np.arange(c_b))
+    bucket, _, n, tpc = plan.T
+    assert ((0 <= bucket) & (bucket < len(bucket_shapes))).all()
+    assert (n >= 1).all() and (n * tpc <= KB.BLOCK).all()
+    assert ((tpc & (tpc - 1)) == 0).all()  # powers of two: the xor tree
+
+
+def test_rmatvec_plan_bounds_every_walk(bucket_shapes):
+    """No thread walks more than max(S, k_b / T_max) slots (k_b = 2,048
+    columns: 8 slots, not 2,048)."""
+    plan = KB.rmatvec_plan(bucket_shapes)
+    for b, (_, k_b) in enumerate(bucket_shapes):
+        tpcs = set(plan[plan[:, 0] == b, 3].tolist())
+        assert tpcs == {KB.threads_per_column(k_b)}
+        walk = _thread_walk(k_b, tpcs.pop())
+        assert walk == KB.walk_length(k_b)
+        assert walk <= max(KB.SLOTS_PER_THREAD, k_b // KB.BLOCK), (k_b, walk)
+
+
+def test_rmatvec_plan_runs_longest_walk_first(bucket_shapes):
+    plan = KB.rmatvec_plan(bucket_shapes)
+    k = np.asarray([bucket_shapes[b][1] for b in plan[:, 0]])
+    walk = np.asarray([KB.walk_length(int(x)) for x in k])
+    assert (np.diff(walk) <= 0).all()
+    assert (np.diff(k)[np.diff(walk) == 0] <= 0).all()
+    assert walk[0] == max(KB.walk_length(k_b) for _, k_b in bucket_shapes)
+
+
+def test_rmatvec_plan_tiled_launch_is_the_fused_plan_of_its_bucket(
+        bucket_shapes):
+    plan = KB.rmatvec_plan(bucket_shapes)
+    ranges = KB.plan_ranges(plan, len(bucket_shapes))
+    assert sum(hi - lo for lo, hi in ranges) == plan.shape[0]
+    for b, (lo, hi) in enumerate(ranges):
+        np.testing.assert_array_equal(plan[lo:hi], plan[plan[:, 0] == b])
+        assert (np.diff(plan[lo:hi, 1]) > 0).all()  # column order
+
+
+def _c_struct_fields(src: str, name: str) -> list:
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    return re.findall(r"^\s*(?:int32_t|long long) (\w+);", body, re.M)
+
+
+def test_rmatvec_plan_is_deterministic_and_matches_the_c_struct(
+        bucket_shapes):
+    a, b = KB.rmatvec_plan(bucket_shapes), KB.rmatvec_plan(
+        list(bucket_shapes))
+    np.testing.assert_array_equal(a, b)
+    assert a.flags.c_contiguous
+    src = KB.SOURCE.read_text()
+    assert tuple(_c_struct_fields(src, "WorkItem")) == KB._PLAN_FIELDS
+    assert re.search(r"struct WorkItem \{(?:\s*int32_t \w+;)+\s*\};", src)
+    assert tuple(_c_struct_fields(src, "Bucket")) == KB._DESC_FIELDS
+    assert f"constexpr int kThreads = {KB.BLOCK};" in src
+
+
+@pytest.mark.parametrize("lanes", [0, 3])
+@pytest.mark.parametrize("form", ["fused", "tiled"])
+def test_bell_rmatvec_fills_one_output_as_the_concatenation(form, lanes):
+    """`_bell_rmatvec` writes [hot | bucket block | zero suffix] into one
+    result, bit for bit their concatenation, and the wrappers' ``out=``
+    writes exactly its slice."""
+    for bf16 in (False, True):
+        _, X = layouts(18, bf16=bf16)
+        n, d = X.shape
+        U = X.n_prefix - X.d_sel
+        assert d > X.n_prefix  # an untouched suffix
+        r = torch.from_numpy(_vec(np.random.default_rng(19), n, lanes))
+        tail = () if not lanes else (lanes,)
+        wrapper = KB.bucket_rmatvec if form == "fused" else \
+            KB.bucket_rmatvec_tiled
+        for square in (False, True):
+            dense = X.dense * X.dense if square else X.dense
+            want = torch.cat([
+                M._mm_f32(dense.t(), r.to(X.dense.dtype)),
+                KB.bucket_rmatvec_reference(X, r, square),
+                torch.zeros((d - X.n_prefix,) + tail)], dim=0)
+            got = (M.sq_rmatvec if square else M.rmatvec)(X, r)
+            assert got.shape == (d,) + tail and torch.equal(got, want)
+            buf = torch.full((U + 5,) + tail, float("nan"))
+            res = wrapper(X, r, square=square, out=buf[2:2 + U])
+            assert res.data_ptr() == buf[2:].data_ptr()
+            assert torch.equal(buf[2:2 + U], want[X.d_sel:X.n_prefix])
+            assert buf[:2].isnan().all() and buf[2 + U:].isnan().all()
+
+
+def test_rmatvec_operands_are_checked():
+    """The rmatvec refuses a misaligned bucket (its 16-byte slot loads) and
+    an ``out`` that is not the (U[, G]) f32 block."""
+    _, X = layouts(20)
+    n = X.shape[0]
+    U = X.n_prefix - X.d_sel
+    b = next(i for i, v in enumerate(X.bucket_rows) if v.shape[1] >= 4)
+    c, k = X.bucket_rows[b].shape
+    shifted = torch.zeros(c * k + 1, dtype=torch.int32)[1:].view(c, k)
+    bad = dataclasses.replace(X, bucket_rows=X.bucket_rows[:b] + (
+        shifted,) + X.bucket_rows[b + 1:])
+    with pytest.raises(ValueError, match="aligned"):
+        KB._check_rmatvec(bad, torch.zeros(n))
+    assert KB._check_rmatvec(X, torch.zeros(n, 2)) == (2, False)
+    r = torch.zeros(n)
+    with pytest.raises(ValueError, match="out"):
+        KB._rmatvec_out(X, r, torch.zeros(U + 1))
+    with pytest.raises(ValueError, match="out"):
+        KB._rmatvec_out(X, r, torch.zeros(U, dtype=torch.float64))
+    assert KB._rmatvec_out(X, r, None).shape == (U,)
 
 
 # ---------------------------------------------------------------- X passes
