@@ -50,8 +50,8 @@ def main() -> int:
     variant.write_text(src.replace("__ldcs(", "__ldg("))
     libs = {"ldcs": KB.library(), "ldg": K.load_library(variant)}
     p, i = ctypes.c_void_p, ctypes.c_int
-    libs["ldg"].photon_bell_bucket_rmatvec.argtypes = [p, p, i, p, i, i, i,
-                                                       p, p]
+    libs["ldg"].photon_bell_bucket_rmatvec.argtypes = [
+        p, p, i, ctypes.POINTER(ctypes.c_int), i, p, i, i, p, p]
     libs["ldg"].photon_bell_bucket_rmatvec.restype = i
 
     ind, va, y = cs.sparse_problem(args.seed, cs.T_ROWS)
@@ -60,16 +60,16 @@ def main() -> int:
     X = cast_features(make_batch(X, y, device=dev)).X
     del ind, va
     n, U = int(X.shape[0]), X.n_prefix - X.d_sel
-    desc = KB._descriptors(X.bucket_rows, X.bucket_vals, dev)
-    plan, _ = KB._plan(X.bucket_vals, dev)
+    plan = KB.layout_plan(X)
     rng = np.random.default_rng(23)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def call(lib, r, out):
         lanes = 1 if r.dim() == 1 else int(r.shape[1])
+        ranges, n_ranges, _ = plan.occ_fused
         code = lib.photon_bell_bucket_rmatvec(
-            desc.data_ptr(), plan.data_ptr(), int(plan.shape[0]),
-            r.data_ptr(), lanes, 1, 0, out.data_ptr(), stream)
+            *plan.occ_args, ranges, n_ranges, r.data_ptr(), lanes, 0,
+            out.data_ptr(), stream)
         if code:
             raise RuntimeError(f"launch failed: {code}")
 

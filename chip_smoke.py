@@ -27,17 +27,20 @@ Phases (any failure exits non-zero):
 3. time the serving kernel at the main path's shapes (CUDA events) beside
    its plain version and its bound, and print QPS and latency
    percentiles;
-T1. print the rmatvec kernel's registers and spills (ptxas -v); hold the
-   four blocked-ELL kernels (fused and tiled tail matvec, fused and tiled
-   occurrence-bucket rmatvec) against their plain versions at small shapes
-   (rtol=atol=1e-5), f32 and bf16 storage, a vector and 1, 3 and 8 lanes,
-   ``square`` on and off, on layouts with a bucket smaller than one tile,
-   buckets of many tiles, rows with no tail, and occurrence buckets of
-   every width from 1 to 4,096 slots (every class of the rmatvec's work
-   plan) with one of a single column; the rmatvec's fused form, a second
-   fused launch, the tiled form and the tiled form into a preallocated
-   ``out=`` slice agree bit for bit; and the hot block's bf16 product
-   (cuBLAS, f32 output);
+T1. print the tail matvec and rmatvec kernels' registers and spills
+   (ptxas -v); hold the four blocked-ELL kernels (fused and tiled tail
+   matvec, fused and tiled occurrence-bucket rmatvec) against their plain
+   versions at small shapes (rtol=atol=1e-5), f32 and bf16 storage, a
+   vector and 1, 3 and 8 lanes, ``square`` on and off, on layouts with a
+   bucket smaller than one tile, buckets of many tiles, rows with no tail,
+   and occurrence buckets of every width from 1 to 4,096 slots (every
+   class of the rmatvec's work plan) with one of a single column; the tail
+   matvec's fused form, a second fused launch and the tiled form agree bit
+   for bit, and both forms added into an ``out=`` slice (NaN guard rows
+   around it) give its starting values + the fused form, bit for bit; the
+   rmatvec's fused form, a second fused launch, the tiled form and the
+   tiled form into a preallocated ``out=`` slice agree bit for bit; and
+   the hot block's bf16 product (cuBLAS, f32 output);
 T2. train L2 logistic regression at the bench headline's width — 10,000,000
    features, 32 zipf(1.4) nonzeros + an intercept per row, a 1,024-column
    bf16 hot block, 2^21 rows, reg 1e-3, history 5, tolerance 0 —
@@ -46,16 +49,19 @@ T2. train L2 logistic regression at the bench headline's width — 10,000,000
    variances included), (b) 5 iterations with the kernels' budget at 0
    (the tiled forms), (c) 5 iterations under ``scope("off")`` (the plain
    versions on the card); the loss histories agree within rtol 1e-5, the
-   variances within rtol 1e-4 of the plain version's; a profiled
-   5-iteration solve's device-busy share and the rmatvec kernel's share of
-   it;
+   variances within rtol 1e-4 of the plain version's; (a) launches only
+   the fused forms, (b) only the tiled ones; a profiled 5-iteration
+   solve's device-busy share, the blocked-ELL kernels' shares of it and
+   every device op it ran; the device ops of one matvec on each route;
 T3. time each blocked-ELL kernel at (a)'s shapes beside its plain version,
    its bound and cuSPARSE's SpMV of the same tail as f32 CSR, with a warm
    L2 (a loop of calls; device time from the profiler and from CUDA
-   events) and a cold one (a 256 MB write before each call; device time
-   from CUDA events with the host's enqueue hidden behind a spin kernel,
-   and per call from an idle stream); then both rmatvec forms on an
-   8-lane cotangent past the L2 beside cuSPARSE's SpMM;
+   events over the whole call) and a cold one (a 256 MB write before each
+   call; device time from CUDA events with the host's enqueue hidden
+   behind a spin kernel, and per call from an idle stream); both tiled
+   forms' device time per launch; the tail step as the X pass takes it
+   (added into the hot product); then both rmatvec forms on an 8-lane
+   cotangent past the L2 beside cuSPARSE's SpMM;
 T2(d). OWL-QN (L1, reg 1.0, 5 iterations) on T2's layout: the kernel
    route (the blocked-ELL kernels, launch counts) against ``scope("off")``,
    loss histories within rtol 1e-5;
@@ -163,11 +169,14 @@ def small_case(rng, parts, dev, B=33, E=9):
     return [tuple(coords), offsets, shards, ids, fixed_ws, re_cs], E
 
 
+PTXAS_KERNELS = ("bell_tail_matvec_kernel", "bell_bucket_rmatvec_kernel")
+
+
 def ptxas_report(source) -> list:
     """[(kernel, registers, spill store bytes, spill load bytes)] of every
-    instantiation of the rmatvec kernel in ``source``, from ``nvcc -O3
-    -Xptxas -v`` for sm_90a (the flags the build gives it), compiled to a
-    cubin under the kernels' build directory."""
+    instantiation of the tail matvec and rmatvec kernels in ``source``,
+    from ``nvcc -O3 -Xptxas -v`` for sm_90a (the flags the build gives
+    it), compiled to a cubin under the kernels' build directory."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -188,7 +197,7 @@ def ptxas_report(source) -> list:
         if m:
             cur = m.group(1)
             continue
-        if cur is None or "bell_bucket_rmatvec_kernel" not in cur:
+        if cur is None or not any(k in cur for k in PTXAS_KERNELS):
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -200,18 +209,23 @@ def ptxas_report(source) -> list:
             stats.setdefault(cur, {})["regs"] = int(m.group(1))
     rows = []
     for name, st in sorted(stats.items()):
+        kernel = next(k for k in PTXAS_KERNELS if k in name)
         m = re.search(r"ILb(\d)ELb(\d)ELi(\d+)E", name)
+        t = re.search(r"ILb(\d)ELi(\d+)E", name)
         label = (f"bf16={m.group(1)} square={m.group(2)} "
-                 f"lane_chunk={m.group(3)}" if m else name)
-        rows.append((label, st.get("regs"), st.get("st"), st.get("ld")))
-    if not rows:
-        raise AssertionError("ptxas -v reported no rmatvec kernel")
+                 f"lane_chunk={m.group(3)}" if m else
+                 f"bf16={t.group(1)} lane_chunk={t.group(2)}" if t else name)
+        rows.append((f"{kernel} {label}", st.get("regs"), st.get("st"),
+                     st.get("ld")))
+    missing = [k for k in PTXAS_KERNELS if not any(k in r[0] for r in rows)]
+    if missing:
+        raise AssertionError(f"ptxas -v reported no {missing}")
     return rows
 
 
 def phase_build() -> list:
     """Phase 0: build every kernel source at once, one thread each (a
-    build is mostly a compiler process), beside the rmatvec kernel's
+    build is mostly a compiler process), beside the blocked-ELL kernels'
     ``-Xptxas -v`` compile; returns that report."""
     from photon_tpu_torch.kernels import blocked_ell as KB
     from photon_tpu_torch.kernels import fused as KF
@@ -387,20 +401,26 @@ def score_direct(ladder, reqs: list):
 
 
 # ------------------------------------------------------------ phase 3: timing
-def time_ms(fn, n: int = 200, warm: int = 20) -> float:
+def time_ms(fn, n: int = 200, warm: int = 20, windows: int = 5) -> float:
+    """ms per call of ``fn``: CUDA events around ``windows`` loops of ``n``
+    calls each, the median loop's time over n. A loop that the host stalls
+    in (a one-card machine shares its host's cores) does not set it."""
     import torch
 
     for _ in range(warm):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(n):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / n)
+    return float(np.median(times))
 
 
 def device_ms(fn, kernel_symbol: str, n: int = 50):
@@ -450,7 +470,7 @@ def launch_us(fn, kernel_symbol: str, launches: int, n: int = 10) -> list:
 
 
 def events_ms(fn, cold: bool, hide_host: bool = True, n: int = 20) -> float:
-    """Mean ms of one call of ``fn`` between two CUDA events. ``cold``: a
+    """Median ms of one call of ``fn`` between two CUDA events. ``cold``: a
     FLUSH_BYTES write before each call evicts the L2, as the training
     path's hot-block GEMVs (GBs) do between its sparse passes.
     ``hide_host``: a spin kernel holds the stream while the host enqueues
@@ -478,7 +498,7 @@ def events_ms(fn, cold: bool, hide_host: bool = True, n: int = 20) -> float:
         stop.record()
         pairs.append((start, stop))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / n
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
 def rung_bound(coords, offsets, shards, ids, fixed_ws, re_cs) -> tuple:
@@ -568,12 +588,12 @@ def phase_training_kernels(dev, ptxas: list) -> None:
     from photon_tpu_torch.data import matrix as M
     from photon_tpu_torch.kernels import blocked_ell as KB
 
-    log("T1: bell_bucket_rmatvec_kernel (nvcc -O3 -Xptxas -v, sm_90a): "
+    log("T1: blocked-ELL kernels (nvcc -O3 -Xptxas -v, sm_90a): "
         + "; ".join(f"{label}: {regs} registers, {st} B spill stores, {ld} B "
                     f"spill loads" for label, regs, st, ld in ptxas))
     rng = np.random.default_rng(22)
     worst = {}
-    n_bits = 0
+    n_bits = n_tail_bits = 0
 
     def check(name, label, got, want):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -593,11 +613,32 @@ def phase_training_kernels(dev, ptxas: list) -> None:
                 np.float32)).to(dev)
             label = f"{'bf16' if bf16 else 'f32'} lanes={lanes}"
             want = KB.tail_matvec_reference(X, w)
-            for name, fn in ((KB.TAIL, KB.tail_matvec),
-                             (KB.TAIL_TILED, KB.tail_matvec_tiled)):
-                with K.scope("on"):
-                    got = fn(X, w)
-                check(name, label, got, want)
+            # out= slices starting from h0, with NaN guard rows around them
+            h0 = torch.from_numpy(rng.normal(size=(n,) + shape).astype(
+                np.float32)).to(dev)
+            bufs = []
+            with K.scope("on"):
+                fused = KB.tail_matvec(X, w)
+                again = KB.tail_matvec(X, w)
+                tiled = KB.tail_matvec_tiled(X, w)
+                for fn in (KB.tail_matvec, KB.tail_matvec_tiled):
+                    buf = torch.full((n + 7,) + shape, float("nan"),
+                                     device=dev)
+                    buf[3:3 + n] = h0
+                    fn(X, w, out=buf[3:3 + n])
+                    bufs.append(buf)
+            check(KB.TAIL, label, fused, want)
+            check(KB.TAIL_TILED, label, tiled, want)
+            start_plus = h0 + fused
+            if not (torch.equal(fused, tiled) and torch.equal(fused, again)
+                    and all(torch.equal(b[3:3 + n], start_plus)
+                            and bool(b[:3].isnan().all())
+                            and bool(b[3 + n:].isnan().all())
+                            for b in bufs)):
+                raise AssertionError(
+                    f"tail matvec {label}: fused, repeated, tiled and out= "
+                    "launches are not bit-identical")
+            n_tail_bits += 1
             for sq in (False, True):
                 lab = f"{label} square={sq}"
                 want = KB.bucket_rmatvec_reference(X, r, sq)
@@ -634,7 +675,10 @@ def phase_training_kernels(dev, ptxas: list) -> None:
         "rows with no tail, occurrence buckets of 1 to 4,096 slots and one of "
         "a single column); max |err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-        + f"; rmatvec fused == repeated == tiled == tiled into out=, bit for "
+        + f"; tail matvec fused == repeated == tiled, and both forms added "
+        f"into out= == start + fused (guard rows untouched), bit for bit, in "
+        f"all {n_tail_bits} cases;"
+        f" rmatvec fused == repeated == tiled == tiled into out=, bit for "
         f"bit, in all {n_bits} cases; hot block bf16 product returns f32")
 
 
@@ -679,6 +723,7 @@ def phase_training(args, dev, gpu) -> dict:
     import torch
 
     from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data import matrix as M
     from photon_tpu_torch.data.dataset import cast_features, make_batch
     from photon_tpu_torch.data.matrix import SparseRows, to_blocked_ell
     from photon_tpu_torch.kernels import blocked_ell as KB
@@ -706,6 +751,8 @@ def phase_training(args, dev, gpu) -> dict:
     facts = dict(tail_pad_waste=X.tail_pad_waste,
                  tail_nnz_share=X.tail_nnz / (rows * (T_NNZ + 1)),
                  ell_buckets=len(X.ell_vals),
+                 ell_bucket_shapes=[tuple(int(s) for s in v.shape)
+                                    for v in X.ell_vals],
                  occurrence_buckets=len(X.bucket_vals), U=U,
                  occurrence_bucket_shapes=[tuple(int(s) for s in v.shape)
                                            for v in X.bucket_vals])
@@ -776,6 +823,8 @@ def phase_training(args, dev, gpu) -> dict:
             raise AssertionError(f"{name} never launched in solve (b)")
     if set(launches_a) != {KB.TAIL, KB.RMATVEC}:
         raise AssertionError(f"solve (a) launched {launches_a}")
+    if set(launches_b) != {KB.TAIL_TILED, KB.RMATVEC_TILED}:
+        raise AssertionError(f"solve (b) launched {launches_b}")
     log(f"T2: (a) {it_a} iterations (cap {T_ITERS}) in {solve_s:.3f} s: "
         f"{rate:.6g} rows*iters/s; loss {ha[0]:.7g} -> {ha[-1]:.7g}; "
         f"launches (solve + SIMPLE variances) {launches_a}  [{gpu}]")
@@ -787,44 +836,90 @@ def phase_training(args, dev, gpu) -> dict:
         f"{np.max(np.abs(hc - ha[:T_SHORT + 1]) / np.abs(ha[:T_SHORT + 1])):.3g}")
     log(f"T2: SIMPLE variances vs plain: max rel err {var_err:.3g}; peak "
         f"device memory {peak_gb:.3f} GB  [{gpu}]")
-    busy, n_ops, top, wall, by_name = solve_profile(batch, short, dev)
+    busy, n_ops, top, wall, by_name, counts = solve_profile(batch, short,
+                                                           dev)
     rmv_us = sum(us for name, us in by_name.items()
                  if "bell_bucket_rmatvec_kernel" in name)
+    tail_us = sum(us for name, us in by_name.items()
+                  if "bell_tail_matvec_kernel" in name)
     log(f"T2: profiled {T_SHORT}-iteration solve: device busy "
         + ("not measured" if busy is None else
            f"{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
            f"({busy / wall:.3f} busy, {1 - busy / wall:.3f} idle); "
            f"bucket_rmatvec kernel {rmv_us / 1e3:.3f} ms "
-           f"({rmv_us / 1e6 / busy:.4f} of device busy)")
+           f"({rmv_us / 1e6 / busy:.4f} of device busy), tail_matvec "
+           f"kernel {tail_us / 1e3:.3f} ms "
+           f"({tail_us / 1e6 / busy:.4f})")
         + f", {n_ops} device kernels and "
         f"copies (host sync once per iteration); rows*iters/s "
         f"{rows * T_SHORT / wall:.6g}; most device time: "
         + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top)
         + f"  [{gpu}]")
+    log("T2: the profiled solve's device ops (name: launches, ms): "
+        + "; ".join(f"{name[:70]}: {counts[name]}, {us / 1e3:.3f}"
+                    for name, us in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1])))
+    # the X pass on each route: no add, no concatenation, no gather
+    for route, budget in (("fused", None), ("tiled", "0")):
+        ops = device_ops(lambda: M.matvec(X, w_perm), budget)
+        log(f"T2: device ops of three matvecs on the {route} route (a trace "
+            f"can miss its first kernels): "
+            + "; ".join(f"{name[:70]} x{c}" for name, c in ops.items()))
     return dict(batch=batch, launches_a=launches_a, launches_b=launches_b,
                 w=w_perm, facts=facts)
 
 
+def device_ops(fn, budget=None) -> dict:
+    """{device op name: count} over three calls of ``fn`` under
+    torch.profiler (kernels, copies and memsets), with the kernels' byte
+    budget set to ``budget`` (None: unset) for the calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch import kernels as K
+
+    old = os.environ.pop(K.ENV_BUDGET, None)
+    if budget is not None:
+        os.environ[K.ENV_BUDGET] = budget
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop(K.ENV_BUDGET, None)
+        if old is not None:
+            os.environ[K.ENV_BUDGET] = old
+    ops: dict = {}
+    for ev in sorted(prof.events(), key=lambda ev: ev.time_range.start):
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            ops[ev.name] = ops.get(ev.name, 0) + 1
+    return ops
+
+
 def solve_profile(batch, cfg, dev):
     """(device busy s, device op count, the five device ops that took the
-    most time [(name, us)], wall s, {name: us} of every device op) of one
-    short solve under torch.profiler: the summed time of the CUDA kernels
-    and copies against the wall clock."""
+    most time [(name, us)], wall s, {name: us} and {name: count} of every
+    device op) of one short solve under torch.profiler: the summed time of
+    the CUDA kernels and copies against the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, _, wall = solve_timed(batch, cfg, dev)
-    by_name, n_ops = {}, 0
+    by_name, counts, n_ops = {}, {}, 0
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us())
+            counts[ev.name] = counts.get(ev.name, 0) + 1
             n_ops += 1
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return ((busy_us / 1e6 if busy_us > 0 else None), n_ops, top, wall,
-            by_name)
+            by_name, counts)
 
 
 # ----------------------------------------------- phase T3: kernel timings
@@ -880,6 +975,7 @@ def phase_training_timings(state: dict, gpu) -> list:
     import torch
 
     from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data import matrix as M
     from photon_tpu_torch.kernels import blocked_ell as KB
 
     X = state["batch"].X
@@ -932,7 +1028,8 @@ def phase_training_timings(state: dict, gpu) -> list:
         bound_ms, bound_by = bounds[key]
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         log(f"T3: {name}: warm L2: {ms:.4f} ms per call, device time of its "
-            f"kernels {dev_txt} (profiler) / {ev_ms:.4f} ms (events); cold "
+            f"kernels {dev_txt} (profiler) / {ev_ms:.4f} ms (events, the "
+            f"whole call); cold "
             f"L2: {ms_cold:.4f} ms per call, {ev_cold:.4f} ms device "
             f"(events); plain {plain_ms:.4f} ms; cuSPARSE f32 CSR warm "
             f"{lib_ms:.4f} ms per call, {lib_ev:.4f} ms device, cold "
@@ -946,6 +1043,7 @@ def phase_training_timings(state: dict, gpu) -> list:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms, "device_ms": dev_ms,
+                    "device_ms_events": ev_ms,
                     "ms_cold": ms_cold, "device_ms_cold": ev_cold,
                     "library_device_ms": lib_ev,
                     "library_ms_cold": lib_ms_cold,
@@ -957,6 +1055,31 @@ def phase_training_timings(state: dict, gpu) -> list:
                      for v, us in zip(X.bucket_vals, per_launch))
            or "not measured (no trace held every launch)")
         + f"  [{gpu}]")
+    per_launch = launch_us(lambda: KB.tail_matvec_tiled(X, w),
+                           "bell_tail_matvec_kernel", len(X.ell_vals))
+    log("T3: tail_matvec_tiled per launch, warm L2 (W_b x r_b: device us): "
+        + (", ".join(f"{int(v.shape[1])} x {int(v.shape[0])}: {us:.2f}"
+                     for v, us in zip(X.ell_vals, per_launch))
+           or "not measured (no trace held every launch)")
+        + f"  [{gpu}]")
+    # the tail step as _bell_matvec takes it: added into the hot product
+    hot = M._mm_f32(X.dense, w[:X.d_sel].to(X.dense.dtype))
+    steps = {}
+    with K.scope("on"):
+        for form, fn in (("fused", KB.tail_matvec),
+                         ("tiled", KB.tail_matvec_tiled)):
+            h = hot.clone()
+            steps[form] = (time_ms(lambda: fn(X, w, out=h), n=50, warm=5),
+                           events_ms(lambda: fn(X, w, out=h), cold=False),
+                           events_ms(lambda: fn(X, w, out=h), cold=True))
+        whole = (time_ms(lambda: M.matvec(X, w), n=50, warm=5),
+                 events_ms(lambda: M.matvec(X, w), cold=False))
+    log("T3: _bell_matvec's tail step (added into the hot product, out=): "
+        + "; ".join(f"{form} {a:.4f} ms per call, {b:.4f} ms device warm, "
+                    f"{c:.4f} cold (events)"
+                    for form, (a, b, c) in steps.items())
+        + f"; the whole matvec (hot bf16 GEMV + fused tail) {whole[0]:.4f} "
+        f"ms per call, {whole[1]:.4f} ms device warm  [{gpu}]")
     # the route has no default budget: both rmatvec forms on a cotangent
     # past the card's 50 MB L2 (8 lanes of n rows), beside cuSPARSE's SpMM
     r8 = torch.from_numpy(rng.uniform(-1, 1, size=(n, 8)).astype(
@@ -1193,7 +1316,7 @@ def phase_dense_owlqn(args, dev, gpu) -> dict:
         f"unfused, {res_c.iterations} iterations, {res_c.evaluations} "
         f"evaluations in {c_s:.4f} s; max rel loss gap to (a): plain "
         f"{gap_b:.3g}, unfused {gap_c:.3g}")
-    busy, n_ops, top, wall, _ = solve_profile(batch, short, dev)
+    busy, n_ops, top, wall, _, _ = solve_profile(batch, short, dev)
     log(f"D2: profiled {D_SHORT}-iteration solve: device busy "
         + ("not measured" if busy is None else
            f"{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "

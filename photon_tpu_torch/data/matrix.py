@@ -108,17 +108,31 @@ class BlockedEllRows:
         return torch.index_select(w, 0, self.inv_perm)
 
     def to(self, device, non_blocking: bool = False) -> "BlockedEllRows":
-        """The same layout with every tensor on ``device``."""
+        """The same layout with every tensor on ``device``: this layout
+        itself when they all are there already, so the kernels' plan for
+        it (`kernels.blocked_ell.layout_plan`) is kept."""
         def mv(t):
             return t.to(device, non_blocking=non_blocking)
 
-        return dataclasses.replace(
+        moved = dataclasses.replace(
             self, dense=mv(self.dense),
             ell_pcols=tuple(map(mv, self.ell_pcols)),
             ell_vals=tuple(map(mv, self.ell_vals)), row_pos=mv(self.row_pos),
             bucket_rows=tuple(map(mv, self.bucket_rows)),
             bucket_vals=tuple(map(mv, self.bucket_vals)),
             perm_cols=mv(self.perm_cols), inv_perm=mv(self.inv_perm))
+        if all(a is b for a, b in zip(moved._tensors(), self._tensors())):
+            return self
+        return moved
+
+    def _tensors(self):
+        """Every tensor of the layout, in field order."""
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                yield v
+            elif isinstance(v, tuple):
+                yield from v
 
     def astype(self, dtype) -> "BlockedEllRows":
         """Every value leaf (hot block, ELL tail, occurrence buckets) in
@@ -381,14 +395,15 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _bell_matvec(X: BlockedEllRows, w: torch.Tensor) -> torch.Tensor:
     """w: (d,) or (d, G) PERMUTED. The hot block against bf16(w[:d_sel])
-    (storage dtype) plus the ELL tail through the kernel seam (fused or
-    tiled by `kernels.route`)."""
+    (storage dtype), then the ELL tail added into that product in place
+    through the kernel seam (fused or tiled by `kernels.route`): per row
+    one f32 add of the same two terms as ``hot + tail``."""
     hot = _mm_f32(X.dense, w[:X.d_sel].to(X.dense.dtype))
     if not X.ell_vals:
         return hot
-    tail = (KB.tail_matvec(X, w) if K.route(X, w) == "fused"
-            else KB.tail_matvec_tiled(X, w))
-    return hot + tail
+    tail = (KB.tail_matvec if K.route(X, w) == "fused"
+            else KB.tail_matvec_tiled)
+    return tail(X, w, out=hot)
 
 
 def _bell_rmatvec(X: BlockedEllRows, r: torch.Tensor,

@@ -100,10 +100,11 @@ def scope(m=None):
         _OVERRIDES.pop()
 
 
-def count_launch(name: str) -> None:
-    """Called by a wrapper where it launches its kernel, and nowhere else."""
+def count_launch(name: str, n: int = 1) -> None:
+    """Called by a wrapper where it launches its kernel (``n`` launches
+    made by one call), and nowhere else."""
     with _launch_lock:
-        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
 
 
 def launch_counts() -> dict:

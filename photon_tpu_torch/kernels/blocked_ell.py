@@ -1,46 +1,58 @@
 """The blocked-ELL X passes as hand-written CUDA kernels (port of the four
 Pallas kernels of `photon_tpu/kernels/blocked_ell.py`).
 
-Four wrappers, two kernel bodies in `csrc/blocked_ell.cu`:
+Four wrappers, two kernel bodies in `csrc/blocked_ell.cu`, each body run
+over a work plan of one-block items:
 
-- `tail_matvec` (fused): ONE launch over the n original rows returns the
-  (n,)/(n, G) f32 tail term in original row order — each row finds its
-  width bucket through ``row_pos`` (the zero slot gives 0);
-- `tail_matvec_tiled`: one launch per width bucket over row tiles, then
-  the concat + zero row + ``row_pos`` gather in PyTorch, as the reference
-  does outside its tiled kernels;
-- `bucket_rmatvec` (fused): ONE launch over every item of the layout's
-  work plan (`rmatvec_plan`) returns the (U,)/(U, G) tail-gradient block
-  in prefix order; ``square`` gives (X∘X)ᵀr;
+- `tail_matvec` (fused): ONE launch over every item of the tail plan
+  (`tail_plan`: consecutive rows of one width bucket per block) adds the
+  (n,)/(n, G) f32 tail term into its output in original row order, each
+  row through the inverse map ``tail_rows``;
+- `tail_matvec_tiled`: one launch per width bucket over that bucket's
+  items, into the same output;
+- `bucket_rmatvec` (fused): ONE launch over every item of the rmatvec
+  plan (`rmatvec_plan`) writes the (U,)/(U, G) tail-gradient block in
+  prefix order; ``square`` gives (X∘X)ᵀr;
 - `bucket_rmatvec_tiled`: one launch per occurrence bucket over that
-  bucket's items, each writing its slice of one preallocated output.
+  bucket's items, each writing its slice of one output.
 
-Both rmatvec forms take ``out=``, a preallocated (U,)/(U, G) f32 view to
-write the block into (the caller's slice of the full (d,)/(d, G)
-gradient).
+`layout_plan` checks a layout's buckets, packs their descriptors and
+builds both work plans and ``tail_rows`` once per layout object (a
+`BlockedEllRows` is frozen and its tensors never change), so a call
+checks only its vector and its output, then makes one ctypes call, in
+which the C entry point makes all of the form's launches.
 
-The caller (`data.matrix`) adds the hot block's product and picks the
-form with `kernels.route`. `tail_matvec_reference` and
-`bucket_rmatvec_reference` are the plain PyTorch versions of the same
-functions (gather, f32 upcast, product, sum; the same bf16 rounding
-points):
-the CPU runs them, the tests hold them against the JAX package, and
+The tail matvec ADDS into ``out=`` — an (n,)/(n, G) f32 tensor, the
+caller's hot-block product — and leaves rows with no tail as they are;
+without it, into a zero-filled new output, so it returns the tail term
+alone. The rmatvec WRITES into ``out=``, a preallocated (U,)/(U, G) f32
+view (the caller's slice of the full (d,)/(d, G) gradient), or into a new
+output. The caller (`data.matrix`) picks the form with `kernels.route`.
+
+`tail_matvec_reference` and `bucket_rmatvec_reference` are the plain
+PyTorch versions of the same functions (gather, f32 upcast, product, sum;
+the same bf16 rounding points): the CPU runs them (added or copied into
+``out``), the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds every kernel against them on the card.
 
 Each wrapper checks its operands, then on a CUDA tensor launches its
 kernel (counting the launch in `kernels.count_launch`) or raises; it takes
 the plain version only for CPU tensors (or under ``scope("off")``).
-Operand contract: w / r f32 contiguous, (d,)/(d, G) or (n,)/(n, G); every
-index matrix int32 and every value matrix f32 or bf16 (one dtype for all),
-contiguous, on the vector's device; occurrence buckets whose width is a
-multiple of 4 start 16-byte aligned, as the caching allocator gives
-them. Index ranges are what `data.matrix.to_blocked_ell` guarantees:
-ell_pcols in [0, U), row_pos in [0, B], bucket_rows in [0, n).
+Operand contract: w / r f32 contiguous, (d,)/(d, G) or (n,)/(n, G), on the
+layout's device; every index matrix int32 and the value matrices of each
+kind f32 or bf16 (one dtype per kind), contiguous, on that device; every
+ELL width a power of two; a bucket whose kernel reads 2 or 4 slots at once
+starts aligned to that many ids and values, as the caching allocator
+gives it. Index ranges are what `data.matrix.to_blocked_ell` guarantees:
+ell_pcols in [0, U), row_pos in [0, B] with each position below B taken
+by exactly one row, bucket_rows in [0, n).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -55,23 +67,26 @@ RMATVEC = "bucket_rmatvec"
 RMATVEC_TILED = "bucket_rmatvec_tiled"
 # Bucket in csrc/blocked_ell.cu: one int64 per field, in this order
 _DESC_FIELDS = ("idx", "val", "rows", "width", "base")
-_DESC_BYTES = 8 * len(_DESC_FIELDS)
-# WorkItem in csrc/blocked_ell.cu: one int32 per field, in this order
+# WorkItem (the rmatvec's plan) and TailItem (the tail matvec's) in
+# csrc/blocked_ell.cu: one int32 per field, in these orders
 _PLAN_FIELDS = ("bucket", "col0", "cols", "tpc")
-_ITEM_BYTES = 4 * len(_PLAN_FIELDS)
+_TAIL_FIELDS = ("bucket", "row0", "rows")
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
-# the rmatvec's work plan: kThreads in the source (one block per item, and
-# the most threads one column gets) and the slots one thread walks
+# kThreads in the source (one block per item of either plan, the most
+# threads one rmatvec column gets), the slots one rmatvec thread walks, the
+# slots one tail thread holds (kTailSlotsPerThread) and the most ELL width
+# buckets a layout may have (kMaxTailBuckets)
 BLOCK = 256
 SLOTS_PER_THREAD = 8
+TAIL_SLOTS_PER_THREAD = 4
+MAX_TAIL_BUCKETS = 32
 
 _lib = None
 _lib_lock = threading.Lock()
-# descriptor arrays on the device, keyed by their own content (pointers,
-# shapes, device), so a layout uploads its descriptors once
-_desc_lock = threading.Lock()
-_DESC_CACHE: dict = {}
-_DESC_CACHE_MAX = 64
+# each layout's LayoutPlan by id(layout), beside a weak reference to the
+# layout that tells its entry from that of a dead layout with the same id
+_plans_lock = threading.Lock()
+_PLANS: dict = {}
 
 
 def library() -> ctypes.CDLL:
@@ -81,12 +96,13 @@ def library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = K.load_library(SOURCE)
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.photon_bell_tail_matvec.argtypes = [p, i, p, p, i, ll, i, p,
-                                                    p]
+            p, i = ctypes.c_void_p, ctypes.c_int
+            ranges = ctypes.POINTER(ctypes.c_int)
+            lib.photon_bell_tail_matvec.argtypes = [
+                p, i, p, p, i, ranges, i, p, i, p, ctypes.c_longlong, p]
             lib.photon_bell_tail_matvec.restype = i
-            lib.photon_bell_bucket_rmatvec.argtypes = [p, p, i, p, i, i, i,
-                                                       p, p]
+            lib.photon_bell_bucket_rmatvec.argtypes = [p, p, i, ranges, i, p,
+                                                       i, i, p, p]
             lib.photon_bell_bucket_rmatvec.restype = i
             lib.photon_bell_error_string.argtypes = [i]
             lib.photon_bell_error_string.restype = ctypes.c_char_p
@@ -151,7 +167,36 @@ def bucket_rmatvec_reference(X, r: torch.Tensor,
     return torch.cat(parts, dim=0)
 
 
-# --------------------------------------------------------- rmatvec plan
+# ------------------------------------------------------------- work plans
+def rows_per_thread(w_b: int) -> int:
+    """The rows one thread of the tail kernel takes in a bucket of width
+    w_b: TAIL_SLOTS_PER_THREAD / w_b, at least 1 (``rows_per_thread`` in
+    the source)."""
+    return max(1, TAIL_SLOTS_PER_THREAD // int(w_b))
+
+
+def tail_plan(bucket_shapes) -> np.ndarray:
+    """The tail matvec's work plan for ELL width buckets of (r_b, W_b)
+    shapes: an (items, 3) int32 array of (bucket, row0, rows) rows, fields
+    as `_TAIL_FIELDS`. Each item is one block's worth of one bucket's
+    rows: ``rows`` ≤ BLOCK·`rows_per_thread`(W_b) rows from ``row0`` on,
+    thread t taking rows t, t + BLOCK, .... Items run widest bucket first
+    (the longest rows start first, the short ones fill in behind), then in
+    bucket order; one bucket's items are contiguous, in row order."""
+    parts = []
+    for b, (r_b, w_b) in enumerate(bucket_shapes):
+        per = BLOCK * rows_per_thread(w_b)
+        row0 = np.arange(0, int(r_b), per, dtype=np.int64)
+        item = np.empty((row0.size, len(_TAIL_FIELDS)), np.int32)
+        item[:, 0], item[:, 1] = b, row0
+        item[:, 2] = np.minimum(per, int(r_b) - row0)
+        parts.append(((-int(w_b), b), item))
+    parts.sort(key=lambda kv: kv[0])
+    if not parts:
+        return np.zeros((0, len(_TAIL_FIELDS)), np.int32)
+    return np.concatenate([item for _, item in parts])
+
+
 def threads_per_column(k_b: int) -> int:
     """The group of threads that sums one column of a k_b-slot bucket: the
     largest power of two ≤ k_b / SLOTS_PER_THREAD, between 1 and BLOCK."""
@@ -196,8 +241,8 @@ def rmatvec_plan(bucket_shapes) -> np.ndarray:
 
 
 def plan_ranges(plan: np.ndarray, n_buckets: int) -> list:
-    """Each bucket's (first, end) rows of ``plan``: the items one launch of
-    the tiled form runs."""
+    """Each bucket's (first, end) rows of ``plan`` (either plan: the bucket
+    is its first field): the items one launch of the tiled form runs."""
     out = []
     for b in range(n_buckets):
         rows = np.flatnonzero(plan[:, 0] == b)
@@ -205,46 +250,140 @@ def plan_ranges(plan: np.ndarray, n_buckets: int) -> list:
     return out
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class LayoutPlan:
+    """What the kernels need of one layout, checked and put on its device
+    once (`layout_plan`). Per kind of bucket — ``tail`` the ELL width
+    buckets, ``occ`` the occurrence buckets — the (nb, 5) int64 Bucket
+    descriptors (bases cumulative from 0 in
+    bucket order), the work plan as an (items, fields) int32 array on the
+    device and the launches of each form over it as the C entry point
+    takes them (``*_fused``: every item, ``*_tiled``: each bucket's
+    `plan_ranges`; both `_host_ranges`); ``tail_rows``, the (B,) int32
+    original row of each position of the width buckets' concatenation
+    (``argsort(row_pos)[:B]``); and the leading arguments of each C entry
+    point (``*_args``: the addresses of those tensors, the tail's bucket
+    count, last whether the values are bf16), as ctypes objects that a
+    call passes without converting them; the plan keeps the tensors
+    alive."""
+
+    device: torch.device
+    n_features: int
+    d_sel: int
+    tail_desc: torch.Tensor
+    tail_items: torch.Tensor
+    tail_fused: tuple
+    tail_tiled: tuple
+    tail_rows: torch.Tensor
+    occ_desc: torch.Tensor
+    occ_items: torch.Tensor
+    occ_fused: tuple
+    occ_tiled: tuple
+    tail_args: tuple
+    occ_args: tuple
+
+
+def layout_plan(X) -> LayoutPlan:
+    """``X``'s `LayoutPlan`: built on the first call for this layout object
+    and kept until the layout is collected. Raises if a bucket is not what
+    the kernels take."""
+    hit = _PLANS.get(id(X))
+    if hit is not None and hit[0]() is X:
+        return hit[1]
+    with _plans_lock:
+        hit = _PLANS.get(id(X))
+        if hit is not None and hit[0]() is X:
+            return hit[1]
+        plan = _build_plan(X)
+        _PLANS[id(X)] = (weakref.ref(X), plan)
+        weakref.finalize(X, _PLANS.pop, id(X), None)
+    return plan
+
+
+def _build_plan(X) -> LayoutPlan:
+    device = X.row_pos.device
+    n = int(X.shape[0])
+    _check(X.row_pos, torch.int32, (n,), device, "row_pos")
+    tail_bf16 = _check_buckets(X.ell_pcols, X.ell_vals, device, "ELL")
+    occ_bf16 = _check_buckets(X.bucket_rows, X.bucket_vals, device,
+                              "occurrence-bucket")
+    tail_shapes = [tuple(int(s) for s in v.shape) for v in X.ell_vals]
+    occ_shapes = [tuple(int(s) for s in v.shape) for v in X.bucket_vals]
+    if len(tail_shapes) > MAX_TAIL_BUCKETS:
+        raise ValueError(f"{len(tail_shapes)} ELL width buckets; the tail "
+                         f"kernel takes at most {MAX_TAIL_BUCKETS}")
+    # the tail kernel reads a row's min(W_b, 4)-slot groups at once, the
+    # rmatvec 4 slots at a time from widths that are multiples of 4
+    for b, (_, w_b) in enumerate(tail_shapes):
+        if w_b & (w_b - 1):
+            raise ValueError(f"ELL width bucket {b}: width {w_b} is not a "
+                             "power of two")
+        _check_aligned(X.ell_pcols[b], X.ell_vals[b], min(w_b, 4),
+                       f"ELL width bucket {b}")
+    for b, (_, k_b) in enumerate(occ_shapes):
+        if k_b % 4 == 0:
+            _check_aligned(X.bucket_rows[b], X.bucket_vals[b], 4,
+                           f"occurrence bucket {b}")
+    B = sum(r_b for r_b, _ in tail_shapes)
+    tail_items, occ_items = tail_plan(tail_shapes), rmatvec_plan(occ_shapes)
+    tail_desc = _descriptors(X.ell_pcols, X.ell_vals, device)
+    occ_desc = _descriptors(X.bucket_rows, X.bucket_vals, device)
+    tail_rows = torch.argsort(X.row_pos, stable=True)[:B].to(torch.int32)
+    tail_dev = torch.from_numpy(tail_items).to(device)
+    occ_dev = torch.from_numpy(occ_items).to(device)
+    return LayoutPlan(
+        device=device, n_features=X.n_features, d_sel=X.d_sel,
+        tail_desc=tail_desc, tail_items=tail_dev,
+        tail_fused=_host_ranges([(0, int(tail_items.shape[0]))]),
+        tail_tiled=_host_ranges(plan_ranges(tail_items, len(tail_shapes))),
+        tail_rows=tail_rows,
+        occ_desc=occ_desc, occ_items=occ_dev,
+        occ_fused=_host_ranges([(0, int(occ_items.shape[0]))]),
+        occ_tiled=_host_ranges(plan_ranges(occ_items, len(occ_shapes))),
+        tail_args=(ctypes.c_void_p(tail_desc.data_ptr()),
+                   ctypes.c_int(len(tail_shapes)),
+                   ctypes.c_void_p(tail_dev.data_ptr()),
+                   ctypes.c_void_p(tail_rows.data_ptr()),
+                   ctypes.c_int(int(tail_bf16))),
+        occ_args=(ctypes.c_void_p(occ_desc.data_ptr()),
+                  ctypes.c_void_p(occ_dev.data_ptr()),
+                  ctypes.c_int(int(occ_bf16))))
+
+
+def _host_ranges(ranges) -> tuple:
+    """(the (first, end) item ranges flattened into a ctypes int array,
+    their count as a ctypes int, the launches they make: one per non-empty
+    range)."""
+    flat = [int(x) for r in ranges for x in r]
+    return ((ctypes.c_int * len(flat))(*flat), ctypes.c_int(len(ranges)),
+            sum(hi > lo for lo, hi in ranges))
+
+
 # ---------------------------------------------------------------- wrappers
-def tail_matvec(X, w: torch.Tensor) -> torch.Tensor:
-    """The fused tail matvec: (n,)/(n, G) f32 tail term in original row
-    order, one launch. ``w`` is the full permuted (d,)/(d, G) vector."""
+def tail_matvec(X, w: torch.Tensor, out=None) -> torch.Tensor:
+    """The fused tail matvec: ``out`` plus the (n,)/(n, G) f32 tail term in
+    original row order (``out`` zero-filled and new when not given), one
+    launch. ``w`` is the full permuted (d,)/(d, G) vector."""
     if not K.use_kernel(w):
-        return tail_matvec_reference(X, w)
-    wt, lanes, bf16 = _check_tail(X, w)
-    n = int(X.row_pos.shape[0])
-    _check(X.row_pos, torch.int32, (n,), w.device, "row_pos")
-    desc = _descriptors(X.ell_pcols, X.ell_vals, w.device)
-    out = torch.empty((n,) + tuple(w.shape[1:]), dtype=torch.float32,
-                      device=w.device)
-    _launch_tail(TAIL, desc.data_ptr(), len(X.ell_vals),
-                 X.row_pos.data_ptr(), wt, lanes, n, bf16, out)
-    K.count_launch(TAIL)
+        return _plain_add(tail_matvec_reference(X, w), X, w, out)
+    plan, lanes = _check_tail(X, w)
+    out, zero_bytes = _tail_out(X, w, out)
+    _launch_tail(TAIL, plan, plan.tail_fused, w, lanes, out, zero_bytes)
     return out
 
 
-def tail_matvec_tiled(X, w: torch.Tensor) -> torch.Tensor:
-    """The tiled tail matvec: one launch per width bucket over its rows,
-    then concat + zero row + ``row_pos`` gather. Same values as
-    `tail_matvec`."""
+def tail_matvec_tiled(X, w: torch.Tensor, out=None) -> torch.Tensor:
+    """The tiled tail matvec: one launch per width bucket over that
+    bucket's items of the plan, each adding its rows into the same
+    output. The same per-row arithmetic as `tail_matvec`, so the same
+    bits."""
     if not K.use_kernel(w):
-        return tail_matvec_reference(X, w)
-    wt, lanes, bf16 = _check_tail(X, w)
-    _check(X.row_pos, torch.int32, (int(X.row_pos.shape[0]),), w.device,
-           "row_pos")
-    desc = _descriptors(X.ell_pcols, X.ell_vals, w.device)
-    parts = []
-    for b, pv in enumerate(X.ell_vals):
-        r_b = int(pv.shape[0])
-        out = torch.empty((r_b,) + tuple(w.shape[1:]), dtype=torch.float32,
-                          device=w.device)
-        _launch_tail(TAIL_TILED, desc.data_ptr() + b * _DESC_BYTES, 1, 0, wt,
-                     lanes, r_b, bf16, out)
-        K.count_launch(TAIL_TILED)
-        parts.append(out)
-    parts.append(torch.zeros((1,) + tuple(w.shape[1:]), dtype=torch.float32,
-                             device=w.device))
-    return torch.index_select(torch.cat(parts, dim=0), 0, X.row_pos)
+        return _plain_add(tail_matvec_reference(X, w), X, w, out)
+    plan, lanes = _check_tail(X, w)
+    out, zero_bytes = _tail_out(X, w, out)
+    _launch_tail(TAIL_TILED, plan, plan.tail_tiled, w, lanes, out,
+                 zero_bytes)
+    return out
 
 
 def bucket_rmatvec(X, r: torch.Tensor, square: bool = False,
@@ -253,14 +392,11 @@ def bucket_rmatvec(X, r: torch.Tensor, square: bool = False,
     gradient block in prefix order (written into ``out`` when given), one
     launch over every item of the layout's work plan."""
     if not K.use_kernel(r):
-        return _plain_into(bucket_rmatvec_reference(X, r, square), out)
-    lanes, bf16 = _check_rmatvec(X, r)
-    desc = _descriptors(X.bucket_rows, X.bucket_vals, r.device)
-    plan, _ = _plan(X.bucket_vals, r.device)
+        return _plain_into(bucket_rmatvec_reference(X, r, square), X, r,
+                           out)
+    plan, lanes = _check_rmatvec(X, r)
     out = _rmatvec_out(X, r, out)
-    _launch_rmatvec(RMATVEC, desc.data_ptr(), plan.data_ptr(),
-                    int(plan.shape[0]), r, lanes, bf16, square, out)
-    K.count_launch(RMATVEC)
+    _launch_rmatvec(RMATVEC, plan, plan.occ_fused, r, lanes, square, out)
     return out
 
 
@@ -270,21 +406,21 @@ def bucket_rmatvec_tiled(X, r: torch.Tensor, square: bool = False,
     bucket's items of the plan, each into its slice of one output. The
     same items per bucket as `bucket_rmatvec`, so the same bits."""
     if not K.use_kernel(r):
-        return _plain_into(bucket_rmatvec_reference(X, r, square), out)
-    lanes, bf16 = _check_rmatvec(X, r)
-    desc = _descriptors(X.bucket_rows, X.bucket_vals, r.device)
-    plan, ranges = _plan(X.bucket_vals, r.device)
+        return _plain_into(bucket_rmatvec_reference(X, r, square), X, r,
+                           out)
+    plan, lanes = _check_rmatvec(X, r)
     out = _rmatvec_out(X, r, out)
-    for lo, hi in ranges:
-        _launch_rmatvec(RMATVEC_TILED, desc.data_ptr(),
-                        plan.data_ptr() + lo * _ITEM_BYTES, hi - lo, r,
-                        lanes, bf16, square, out)
-        K.count_launch(RMATVEC_TILED)
+    _launch_rmatvec(RMATVEC_TILED, plan, plan.occ_tiled, r, lanes, square,
+                    out)
     return out
 
 
 # ----------------------------------------------------------------- helpers
 def _check(t, dtype, shape, device, what: str) -> None:
+    if isinstance(t, torch.Tensor) and t.dtype == dtype \
+            and t.shape == shape and t.device == device \
+            and t.is_contiguous():
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a tensor, got {type(t)}")
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
@@ -297,12 +433,21 @@ def _check(t, dtype, shape, device, what: str) -> None:
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
-def _check_vector(v: torch.Tensor, what: str) -> int:
-    """The lane count of an f32 (m,)/(m, G) vector (1 for (m,))."""
+def _check_vector(v, device, what: str) -> int:
+    """The lane count of an f32 (m,)/(m, G) vector on ``device`` (1 for
+    (m,))."""
+    if isinstance(v, torch.Tensor) and v.dtype == torch.float32 \
+            and v.device == device and v.is_contiguous():
+        if v.dim() == 1:
+            return 1
+        if v.dim() == 2 and v.shape[1] >= 1:
+            return v.shape[1]
+    if not isinstance(v, torch.Tensor):
+        raise TypeError(f"{what}: expected a tensor, got {type(v)}")
     if v.dim() not in (1, 2) or (v.dim() == 2 and v.shape[1] < 1):
         raise ValueError(f"{what}: expected (m,) or (m, G) with G >= 1, got "
                          f"{tuple(v.shape)}")
-    _check(v, torch.float32, v.shape, v.device, what)
+    _check(v, torch.float32, v.shape, device, what)
     return int(v.shape[1]) if v.dim() == 2 else 1
 
 
@@ -319,30 +464,45 @@ def _check_buckets(idx, vals, device, what: str) -> bool:
     return dtype == torch.bfloat16
 
 
+def _check_aligned(i, v, slots: int, what: str) -> None:
+    """Refuse a bucket whose kernel reads ``slots`` ids and values at once
+    from a start that is not aligned to that many of each."""
+    ai, av = 4 * slots, v.element_size() * slots
+    if i.data_ptr() % ai or v.data_ptr() % av:
+        raise ValueError(f"{what}: ids must start {ai}-byte aligned and "
+                         f"values {av}-byte aligned")
+
+
 def _check_tail(X, w):
-    lanes = _check_vector(w, "w")
-    if int(w.shape[0]) != X.n_features:
+    """(``X``'s plan, the lane count) for a tail matvec of ``w``."""
+    plan = layout_plan(X)
+    lanes = _check_vector(w, plan.device, "w")
+    if w.shape[0] != plan.n_features:
         raise ValueError(f"w has {w.shape[0]} rows, the layout "
-                         f"{X.n_features} features")
-    bf16 = _check_buckets(X.ell_pcols, X.ell_vals, w.device, "ELL")
-    return w[X.d_sel:X.n_prefix], lanes, bf16
+                         f"{plan.n_features} features")
+    return plan, lanes
 
 
 def _check_rmatvec(X, r):
-    lanes = _check_vector(r, "r")
-    if int(r.shape[0]) != int(X.shape[0]):
+    """(``X``'s plan, the lane count) for an rmatvec of ``r``."""
+    plan = layout_plan(X)
+    lanes = _check_vector(r, plan.device, "r")
+    if r.shape[0] != X.shape[0]:
         raise ValueError(f"r has {r.shape[0]} rows, the layout "
                          f"{X.shape[0]}")
-    bf16 = _check_buckets(X.bucket_rows, X.bucket_vals, r.device,
-                          "occurrence-bucket")
-    # the kernel reads 4 slots at a time from widths that are multiples of
-    # 4: 16 B of row ids and 8 B (bf16) or 16 B (f32) of values
-    for b, (i, v) in enumerate(zip(X.bucket_rows, X.bucket_vals)):
-        if int(i.shape[1]) % 4 == 0 and (
-                i.data_ptr() % 16 or v.data_ptr() % (8 if bf16 else 16)):
-            raise ValueError(f"occurrence bucket {b}: ids and values must "
-                             "start 16-byte aligned (8 for bf16 values)")
-    return lanes, bf16
+    return plan, lanes
+
+
+def _tail_out(X, w, out):
+    """(``out`` checked as the (n,)/(n, G) f32 output, 0), or (a new one,
+    its bytes: the C entry point zero-fills them before the kernel adds
+    into it)."""
+    shape = (int(X.shape[0]),) + tuple(w.shape[1:])
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=w.device)
+        return out, 4 * out.numel()
+    _check(out, torch.float32, shape, w.device, "out")
+    return out, 0
 
 
 def _rmatvec_out(X, r, out) -> torch.Tensor:
@@ -354,75 +514,76 @@ def _rmatvec_out(X, r, out) -> torch.Tensor:
     return out
 
 
-def _plain_into(res: torch.Tensor, out) -> torch.Tensor:
-    """A plain version's result, copied into ``out`` when one is given."""
+def _plain_add(tail: torch.Tensor, X, w, out) -> torch.Tensor:
+    """The plain tail term, added into ``out`` when one is given."""
+    if out is None:
+        return tail
+    return _tail_out(X, w, out)[0].add_(tail)
+
+
+def _plain_into(res: torch.Tensor, X, r, out) -> torch.Tensor:
+    """The plain rmatvec block, copied into ``out`` when one is given."""
     if out is None:
         return res
-    return out.copy_(res)
+    return _rmatvec_out(X, r, out).copy_(res)
 
 
 def _descriptors(idx, vals, device) -> torch.Tensor:
-    """The (nb, 5) int64 device array of Bucket descriptors for these
-    buckets, bases cumulative from 0 in bucket order."""
+    """The (nb, 5) int64 array of Bucket descriptors for these buckets on
+    ``device``, bases cumulative from 0 in bucket order."""
     rows, base = [], 0
     for i, v in zip(idx, vals):
         r_b, width = (int(s) for s in i.shape)
         rows.append((i.data_ptr(), v.data_ptr(), r_b, width, base))
         base += r_b
-    key = (device, tuple(rows))
-    with _desc_lock:
-        desc = _DESC_CACHE.get(key)
-        if desc is None:
-            if len(_DESC_CACHE) >= _DESC_CACHE_MAX:
-                _DESC_CACHE.clear()
-            desc = torch.tensor(rows, dtype=torch.int64).to(device)
-            _DESC_CACHE[key] = desc
-    return desc
+    return torch.tensor(rows, dtype=torch.int64).reshape(
+        len(rows), len(_DESC_FIELDS)).to(device)
 
 
-def _plan(vals, device):
-    """(the `rmatvec_plan` of these buckets' shapes as an (items, 4) int32
-    device array, each bucket's `plan_ranges`), built and uploaded once
-    per list of shapes."""
-    shapes = tuple(tuple(int(s) for s in v.shape) for v in vals)
-    key = ("plan", device, shapes)
-    with _desc_lock:
-        hit = _DESC_CACHE.get(key)
-        if hit is None:
-            if len(_DESC_CACHE) >= _DESC_CACHE_MAX:
-                _DESC_CACHE.clear()
-            items = rmatvec_plan(shapes)
-            hit = (torch.from_numpy(items).to(device),
-                   plan_ranges(items, len(shapes)))
-            _DESC_CACHE[key] = hit
-    return hit
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(code: int, what: str) -> None:
+def _launch(name: str, entry: str, n_launches: int, out, *args) -> None:
+    """One call of the C entry point ``entry`` with ``args`` and the current
+    stream of ``out``'s device, making ``n_launches`` launches; counts them,
+    and raises if one fails."""
+    fn = getattr(_lib if _lib is not None else library(), entry)
+    index = out.get_device()
+    if index == torch.cuda.current_device():
+        code = fn(*args, _current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, _current_stream(index))
     if code:
-        raise RuntimeError(f"{what} launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            f"{library().photon_bell_error_string(code)}")
+    if n_launches:
+        K.count_launch(name, n_launches)
 
 
-def _launch_tail(name, desc_ptr, nb, row_pos_ptr, wt, lanes, n_rows, bf16,
-                 out):
-    lib = library()
-    with torch.cuda.device(out.device):
-        code = lib.photon_bell_tail_matvec(
-            desc_ptr, nb, row_pos_ptr, wt.data_ptr(), lanes, n_rows,
-            int(bf16), out.data_ptr(), _stream(out.device))
-    _raise_on(code, name)
+def _current_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream, the value of
+    ``torch.cuda.current_stream(index).cuda_stream``, read without building
+    a Stream object (the larger part of a call's host time,
+    chip_host_parts.py)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
 
 
-def _launch_rmatvec(name, desc_ptr, plan_ptr, n_items, r, lanes, bf16,
-                    square, out):
-    lib = library()
-    with torch.cuda.device(out.device):
-        code = lib.photon_bell_bucket_rmatvec(
-            desc_ptr, plan_ptr, n_items, r.data_ptr(), lanes, int(bf16),
-            int(bool(square)), out.data_ptr(), _stream(out.device))
-    _raise_on(code, name)
+def _launch_tail(name, plan, ranges, w, lanes, out, zero_bytes) -> None:
+    """The tail kernel over ``ranges`` (a `_host_ranges` tuple) of the tail
+    plan, after zeroing the first ``zero_bytes`` of ``out``; it gathers
+    from the tail slice w[d_sel:n_prefix], passed by its address."""
+    flat, n_ranges, n_launches = ranges
+    _launch(name, "photon_bell_tail_matvec", n_launches, out,
+            *plan.tail_args, flat, n_ranges,
+            w.data_ptr() + plan.d_sel * lanes * 4, lanes, out.data_ptr(),
+            zero_bytes)
+
+
+def _launch_rmatvec(name, plan, ranges, r, lanes, square, out) -> None:
+    """The rmatvec kernel over ``ranges`` (a `_host_ranges` tuple) of the
+    rmatvec plan."""
+    flat, n_ranges, n_launches = ranges
+    _launch(name, "photon_bell_bucket_rmatvec", n_launches, out,
+            *plan.occ_args, flat, n_ranges, r.data_ptr(), lanes,
+            int(bool(square)), out.data_ptr())

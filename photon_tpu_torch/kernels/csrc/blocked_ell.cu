@@ -2,16 +2,17 @@
 // form, for f32 or bf16 storage and for a vector or G lanes.
 //
 // Replaces the Pallas kernels of photon_tpu/kernels/blocked_ell.py:
-//   bell_tail_matvec_kernel with row_pos   tail_matvec          (_tail_call)
-//   bell_tail_matvec_kernel, one bucket    tail_matvec_tiled    (_tiled_tail_call)
+//   bell_tail_matvec_kernel, all items     tail_matvec          (_tail_call)
+//   bell_tail_matvec_kernel, per bucket    tail_matvec_tiled    (_tiled_tail_call)
 //   bell_bucket_rmatvec_kernel, all items  bucket_rmatvec       (_rmatvec_call)
 //   bell_bucket_rmatvec_kernel, per bucket bucket_rmatvec_tiled (_tiled_rmatvec_call)
 //
 // What they compute (the reference's _bell_compute dtype recipe):
-//   tail matvec  out[i, g] = sum_w f32(pv[p, w]) * f32(S(wt[pc[p, w], g]))
-//                with p = row_pos[i] the row's place in the concatenation
-//                of the width buckets (p = B, past every bucket, is the
-//                zero slot of a row with no tail), wt = w[d_sel:n_prefix]
+//   tail matvec  out[i, g] += sum_w f32(pv[p, w]) * f32(S(wt[pc[p, w], g]))
+//                for every row i with a tail, p its place in the
+//                concatenation of the width buckets (row_pos[i] = p, i =
+//                tail_rows[p]), wt = w[d_sel:n_prefix]; rows with no tail
+//                are left as they are
 //   rmatvec      out[c, g] = sum_k f32(bv[c, k]) * f32(S(r[br[c, k], g]))
 //   square       out[c, g] = sum_k (f32(bv[c, k]) * f32(bv[c, k])) * r[br[c, k], g]
 // where S rounds to the storage dtype: to bf16 when the values are bf16
@@ -23,20 +24,43 @@
 // ulp of the exact one (the extra adds cost nothing in a gather-bound
 // loop).
 //
-// Tail matvec design. One thread per output element (row, lane), looping
-// over that row's W_b slots: every output is written by one thread, with
-// no atomics, so the order is fixed. Buckets arrive as a small device array
-// of Bucket descriptors (pointers, shape, first position in the
-// concatenation) packed by photon_tpu_torch/kernels/blocked_ell.py, so one
-// compiled kernel serves every layout. The fused form launches once over
-// all n rows; a thread finds its bucket by scanning the descriptors'
-// bases. The tiled form launches once per bucket with that bucket's
-// descriptor alone, over its rows in blocks of kThreads (the tile), and the
-// caller concatenates the buckets and gathers by row_pos, as the reference
-// does outside its tiled kernels. Bound: bytes (every ELL slot, 4 B index +
-// 2 B bf16 or 4 B f32 value, the distinct coefficients it touches, 4 B per
-// output per lane; one multiply-add per slot). Making it fast is later
-// work.
+// Buckets arrive as a small device array of Bucket descriptors (pointers,
+// shape, first position in the concatenation of their kind) packed once
+// per layout by photon_tpu_torch/kernels/blocked_ell.py (layout_plan), so
+// one compiled kernel serves every layout.
+//
+// Tail matvec design. Bound: bytes — every ELL slot once (4 B column id +
+// 2 B bf16 or 4 B f32 value), the distinct coefficients the slots touch,
+// and the output; one multiply-add per slot. The work is ~1.7 M short rows
+// (W_b = 1 ... 16 at the training path's headline layout), each a few
+// loads of 4 B at scattered places (its coefficients, its output), so what
+// costs is the 32 B sectors those move through L2 and how many of them are
+// in flight, more than the bytes of the bound. The host builds a work plan
+// once per layout (tail_plan in blocked_ell.py): each TailItem is one
+// block's worth of consecutive rows of ONE width bucket, so the width is
+// uniform in a block and no thread looks for its bucket; the descriptors
+// are staged in shared memory while the item loads. A thread takes R =
+// rows_per_thread(W_b) = max(1, 4 / W_b) rows (t, t + 256, ...), so it
+// holds at least 4 slots whatever the width (8 or 16 slots, or six blocks
+// per SM, measured slower at the headline layout: chip_tail_ab.py). The
+// body is specialised per width by a switch on it (W_b = 1, 2, 4, 8, 16
+// unrolled; a loop over 4-slot steps beyond): for a vector a thread
+// issues the original index (from the inverse map tail_rows), ids and
+// values of all R rows at once (16 B id loads and 8 B / 16 B value loads
+// where W_b % 4 == 0, 8 B / 4 B for W_b == 2; evict-first, the slot
+// stream is read once), then the R current outputs and all R * W_b
+// gathers, so a warp waits out two load latencies per R rows, not one per
+// slot. Each row's Kahan sum, taken in slot order, is added into out at
+// its row: out[row] = out[row] + (acc - comp), one f32 add, so the
+// caller's hot-block product takes the tail term in place, with no
+// concatenation, no zero slot and no row_pos gather. Lanes live inside the
+// thread as in the rmatvec (add_slot), one row after another. Each row is
+// written by one thread with no atomics; the fused form (one launch over
+// every item, widest bucket first) and the tiled form (one launch per
+// bucket over that bucket's items) run the same per-row arithmetic, so
+// they give the same bits as each other. Every launch of a call is made by
+// one call of the C entry point, so a tiled call crosses from Python to C
+// once, not once per bucket.
 //
 // Rmatvec design. Bound: bytes — every occurrence-bucket slot once (4 B row
 // id + 2 B bf16 or 4 B f32 value), the cotangent rows the slots touch and
@@ -44,8 +68,8 @@
 // span k_b = 1 ... thousands, so one thread per column would leave the few
 // longest columns walking thousands of dependent gathers each on a handful
 // of SMs after the rest of the grid has finished. Instead the host builds a
-// work plan per layout once (rmatvec_plan in blocked_ell.py, cached beside
-// the descriptors): each WorkItem is up to one block's worth of columns of one
+// work plan per layout once (rmatvec_plan in blocked_ell.py, in the same
+// layout_plan): each WorkItem is up to one block's worth of columns of one
 // bucket, each column summed by a group of tpc = clamp(k_b / S, 1, kThreads)
 // threads (a power of two; S = SLOTS_PER_THREAD = 8 in blocked_ell.py), so
 // no thread walks more than max(S, k_b / kThreads) slots; items come longest
@@ -104,17 +128,28 @@ struct WorkItem {
   int32_t tpc;
 };
 
+// One item of the tail matvec's work plan: `rows` rows of ELL width bucket
+// `bucket`, from its row `row0` on, at most rows_per_thread(width) rows per
+// thread (rows <= kThreads * rows_per_thread(width)).
+// photon_tpu_torch/kernels/blocked_ell.py (_TAIL_FIELDS, tail_plan) packs
+// the same fields in the same order.
+struct TailItem {
+  int32_t bucket;
+  int32_t row0;
+  int32_t rows;
+};
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLaneChunk = 8;  // lanes a thread holds in registers at once
+constexpr int kTailSlotsPerThread = 4;  // tail slots a thread holds at once
+constexpr int kMaxTailBuckets = 32;  // ELL width buckets a layout may have
 
-template <bool kBf16>
-__device__ __forceinline__ float load_value(long long p, long long i) {
-  if constexpr (kBf16) {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
-  } else {
-    return reinterpret_cast<const float*>(p)[i];
-  }
+// The rows one thread of the tail kernel takes in a bucket of width w (0:
+// any width past 16): kTailSlotsPerThread / w, at least 1. blocked_ell.py
+// (rows_per_thread) computes the same.
+__host__ __device__ constexpr int rows_per_thread(int w) {
+  return w <= 0 || w >= kTailSlotsPerThread ? 1 : kTailSlotsPerThread / w;
 }
 
 // The gathered operand in the storage dtype, back in f32.
@@ -148,45 +183,6 @@ __device__ __forceinline__ void kahan_merge(float other_acc,
   const float err = (acc - (s - bp)) + (other_acc - bp);
   comp = (comp + other_comp) - err;
   acc = s;
-}
-
-// The bucket holding concatenation position p, or nb when p lies past
-// every bucket (the matvec's zero slot). Positions start at b[0].base.
-__device__ __forceinline__ int find_bucket(const Bucket* __restrict__ b,
-                                           int nb, long long p) {
-  for (int i = 0; i < nb; ++i) {
-    if (p < b[i].base + b[i].rows) return i;
-  }
-  return nb;
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-bell_tail_matvec_kernel(const Bucket* __restrict__ buckets, int nb,
-                        const int32_t* __restrict__ row_pos,
-                        const float* __restrict__ wt, int lanes,
-                        long long n_rows, float* __restrict__ out) {
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (t >= n_rows * lanes) return;
-  const long long i = t / lanes;
-  const int g = static_cast<int>(t - i * lanes);
-  const long long p = row_pos ? static_cast<long long>(row_pos[i])
-                              : buckets[0].base + i;
-  const int b = find_bucket(buckets, nb, p);
-  float acc = 0.f, comp = 0.f;
-  if (b < nb) {
-    const Bucket bk = buckets[b];
-    const long long off = (p - bk.base) * bk.width;
-    const int32_t* pc = reinterpret_cast<const int32_t*>(bk.idx) + off;
-    for (long long j = 0; j < bk.width; ++j) {
-      const float v = load_value<kBf16>(bk.val, off + j);
-      const float c =
-          to_storage<kBf16>(wt[static_cast<long long>(pc[j]) * lanes + g]);
-      kahan_fma(v, c, acc, comp);
-    }
-  }
-  out[t] = acc;
 }
 
 // Four consecutive values of a bucket from element i (i % 4 == 0), loaded
@@ -254,6 +250,223 @@ __device__ __forceinline__ void add_slot(const float* __restrict__ r,
       kahan_fma(vv, kSquare ? x[g] : to_storage<kBf16>(x[g]), acc[g],
                 comp[g]);
     }
+  }
+}
+
+// The kW ids and values of one ELL row, from element off of its bucket (a
+// multiple of kW), all loads issued together and evict-first: 16 B id
+// loads and 8 B (bf16) or 16 B (f32) value loads for kW % 4 == 0, one 8 B
+// id load and one 4 B / 8 B value load for kW == 2, scalar loads for 1.
+template <bool kBf16, int kW>
+__device__ __forceinline__ void load_row(const Bucket& bk, long long off,
+                                         int32_t (&id)[kW], float (&v)[kW]) {
+  const int32_t* pc = reinterpret_cast<const int32_t*>(bk.idx) + off;
+  if constexpr (kW % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < kW / 4; ++q) {
+      const int4 t = __ldcs(reinterpret_cast<const int4*>(pc) + q);
+      id[4 * q] = t.x;
+      id[4 * q + 1] = t.y;
+      id[4 * q + 2] = t.z;
+      id[4 * q + 3] = t.w;
+      float f[4];
+      load_values4<kBf16>(bk.val, off + 4 * q, f);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[4 * q + k] = f[k];
+    }
+  } else if constexpr (kW == 2) {
+    const int2 t = __ldcs(reinterpret_cast<const int2*>(pc));
+    id[0] = t.x;
+    id[1] = t.y;
+    if constexpr (kBf16) {
+      const unsigned int u =
+          __ldcs(reinterpret_cast<const unsigned int*>(bk.val) + off / 2);
+      v[0] = __uint_as_float(u << 16);
+      v[1] = __uint_as_float(u & 0xffff0000u);
+    } else {
+      const float2 f =
+          __ldcs(reinterpret_cast<const float2*>(bk.val) + off / 2);
+      v[0] = f.x;
+      v[1] = f.y;
+    }
+  } else {
+    static_assert(kW == 1, "ELL widths are powers of two");
+    id[0] = __ldcs(pc);
+    v[0] = load_value_cs<kBf16>(bk.val, off);
+  }
+}
+
+// out[row, g0 + g] += acc[g] - comp[g] for the chunk's nl lanes: one f32
+// add of the compensated sum into what out holds.
+template <int kChunk>
+__device__ __forceinline__ void add_to_row(float* __restrict__ out,
+                                           int32_t row, int lanes, int g0,
+                                           int nl, const float (&acc)[kChunk],
+                                           const float (&comp)[kChunk]) {
+  float* o = out + static_cast<long long>(row) * lanes + g0;
+#pragma unroll
+  for (int g = 0; g < kChunk; ++g) {
+    if (g < nl) o[g] = __fadd_rn(o[g], __fsub_rn(acc[g], comp[g]));
+  }
+}
+
+// Row p of bucket bk, of width kW (unrolled) or, for kW == 0, of bk.width
+// (a loop over 4-slot steps: widths past 16 are multiples of 4): its Kahan
+// sum per lane chunk, in slot order, added into out at its original row.
+template <bool kBf16, int kChunk, int kW>
+__device__ __forceinline__ void tail_row(const Bucket& bk, long long p,
+                                         int32_t row,
+                                         const float* __restrict__ wt,
+                                         int lanes, int vec4,
+                                         float* __restrict__ out) {
+  if constexpr (kW > 0) {
+    int32_t id[kW];
+    float v[kW];
+    load_row<kBf16, kW>(bk, p * kW, id, v);
+    for (int g0 = 0; g0 < lanes; g0 += kChunk) {
+      const int nl = min(kChunk, lanes - g0);
+      float acc[kChunk], comp[kChunk];
+#pragma unroll
+      for (int g = 0; g < kChunk; ++g) acc[g] = comp[g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kW; ++j) {
+        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id[j], v[j], acc,
+                               comp);
+      }
+      add_to_row(out, row, lanes, g0, nl, acc, comp);
+    }
+  } else {
+    const long long k = bk.width;
+    const long long off = p * k;
+    const int32_t* pc = reinterpret_cast<const int32_t*>(bk.idx) + off;
+    for (int g0 = 0; g0 < lanes; g0 += kChunk) {
+      const int nl = min(kChunk, lanes - g0);
+      float acc[kChunk], comp[kChunk];
+#pragma unroll
+      for (int g = 0; g < kChunk; ++g) acc[g] = comp[g] = 0.f;
+#pragma unroll 2
+      for (long long s = 0; s < k; s += 4) {
+        const int4 id = __ldcs(reinterpret_cast<const int4*>(pc + s));
+        float v[4];
+        load_values4<kBf16>(bk.val, off + s, v);
+        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id.x, v[0], acc,
+                               comp);
+        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id.y, v[1], acc,
+                               comp);
+        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id.z, v[2], acc,
+                               comp);
+        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id.w, v[3], acc,
+                               comp);
+      }
+      add_to_row(out, row, lanes, g0, nl, acc, comp);
+    }
+  }
+}
+
+// A vector's kR rows of width kW (kW * kR <= kTailSlotsPerThread, or kR =
+// 1) for one
+// thread, rows t, t + kThreads, ... of the item: every row's original
+// index, ids and values are loaded first (coalesced across the warp), then
+// the rows' current outputs and all kW * kR gathers, then each row's Kahan
+// sum in slot order is added into its output.
+template <bool kBf16, int kW, int kR>
+__device__ __forceinline__ void tail_rows_vec(
+    const Bucket& bk, const TailItem& it,
+    const int32_t* __restrict__ tail_rows, const float* __restrict__ wt,
+    float* __restrict__ out) {
+  int32_t id[kR][kW], row[kR];
+  float v[kR][kW], x[kR][kW], o[kR];
+  const int t = static_cast<int>(threadIdx.x);
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    if (t + j * kThreads < it.rows) {
+      const long long p = static_cast<long long>(it.row0) + t + j * kThreads;
+      row[j] = __ldcs(tail_rows + bk.base + p);
+      load_row<kBf16, kW>(bk, p * kW, id[j], v[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    if (t + j * kThreads < it.rows) {
+      o[j] = out[row[j]];
+#pragma unroll
+      for (int k = 0; k < kW; ++k) x[j][k] = __ldg(wt + id[j][k]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    if (t + j * kThreads < it.rows) {
+      float acc = 0.f, comp = 0.f;
+#pragma unroll
+      for (int k = 0; k < kW; ++k) {
+        kahan_fma(v[j][k], to_storage<kBf16>(x[j][k]), acc, comp);
+      }
+      out[row[j]] = __fadd_rn(o[j], __fsub_rn(acc, comp));
+    }
+  }
+}
+
+// One item's rows of a width-kW bucket (kW == 0: any wider width): a
+// vector takes the multi-row body, lanes one row after another.
+template <bool kBf16, int kChunk, int kW>
+__device__ __forceinline__ void tail_item(const Bucket& bk,
+                                          const TailItem& it,
+                                          const int32_t* __restrict__ tail_rows,
+                                          const float* __restrict__ wt,
+                                          int lanes, int vec4,
+                                          float* __restrict__ out) {
+  constexpr int kR = rows_per_thread(kW);
+  if constexpr (kChunk == 1 && kW > 0) {
+    tail_rows_vec<kBf16, kW, kR>(bk, it, tail_rows, wt, out);
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < kR; ++j) {
+      const int r = static_cast<int>(threadIdx.x) + j * kThreads;
+      if (r < it.rows) {
+        const long long p = static_cast<long long>(it.row0) + r;
+        tail_row<kBf16, kChunk, kW>(bk, p, __ldcs(tail_rows + bk.base + p),
+                                    wt, lanes, vec4, out);
+      }
+    }
+  }
+}
+
+// One block per TailItem, its rows of one bucket (the width is
+// block-uniform, so the switch does not diverge). The nb descriptors are
+// staged in shared memory while the item loads, so the descriptor is not
+// one more load on each thread's chain.
+template <bool kBf16, int kChunk>
+__global__ void __launch_bounds__(kThreads)
+bell_tail_matvec_kernel(const Bucket* __restrict__ buckets, int nb,
+                        const TailItem* __restrict__ items,
+                        const int32_t* __restrict__ tail_rows,
+                        const float* __restrict__ wt, int lanes, int vec4,
+                        float* __restrict__ out) {
+  __shared__ Bucket staged[kMaxTailBuckets];
+  if (static_cast<int>(threadIdx.x) < nb) {
+    staged[threadIdx.x] = buckets[threadIdx.x];
+  }
+  const TailItem it = items[blockIdx.x];
+  __syncthreads();
+  const Bucket bk = staged[it.bucket];
+  switch (bk.width) {
+    case 1:
+      tail_item<kBf16, kChunk, 1>(bk, it, tail_rows, wt, lanes, vec4, out);
+      break;
+    case 2:
+      tail_item<kBf16, kChunk, 2>(bk, it, tail_rows, wt, lanes, vec4, out);
+      break;
+    case 4:
+      tail_item<kBf16, kChunk, 4>(bk, it, tail_rows, wt, lanes, vec4, out);
+      break;
+    case 8:
+      tail_item<kBf16, kChunk, 8>(bk, it, tail_rows, wt, lanes, vec4, out);
+      break;
+    case 16:
+      tail_item<kBf16, kChunk, 16>(bk, it, tail_rows, wt, lanes, vec4, out);
+      break;
+    default:
+      tail_item<kBf16, kChunk, 0>(bk, it, tail_rows, wt, lanes, vec4, out);
   }
 }
 
@@ -359,47 +572,70 @@ void launch_rmatvec(const Bucket* b, const WorkItem* items, int n_items,
   }
 }
 
-unsigned int blocks_for(long long threads) {
-  return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
+template <bool kBf16>
+void launch_tail(const Bucket* b, int nb, const TailItem* items, int n_items,
+                 const int32_t* tail_rows, const float* wt, int lanes,
+                 int vec4, float* o, cudaStream_t s) {
+  if (lanes == 1) {
+    bell_tail_matvec_kernel<kBf16, 1><<<n_items, kThreads, 0, s>>>(
+        b, nb, items, tail_rows, wt, lanes, vec4, o);
+  } else {
+    bell_tail_matvec_kernel<kBf16, kLaneChunk><<<n_items, kThreads, 0, s>>>(
+        b, nb, items, tail_rows, wt, lanes, vec4, o);
+  }
 }
 
 }  // namespace
 
-// Tail matvec over n_rows rows on `stream`: with row_pos, the fused form
-// (every bucket, rows in original order, out (n_rows, lanes)); with
-// row_pos null, the tiled form over the one bucket `buckets` points at
-// (out (rows, lanes)). Returns the cudaError_t of the launch.
+// Both entry points take their work plan's items on the device and, on the
+// host, n_ranges (first, end) pairs of item indices: one launch per
+// non-empty range, all from this one call (the fused form passes one range
+// over every item, the tiled form one per bucket). Each returns the
+// cudaError_t of its first failed launch, or 0.
+
+// Tail matvec: row p of bucket b adds its term into out[tail_rows[
+// buckets[b].base + p]] (out is (n, lanes), wt the (U, lanes) tail slice
+// of the coefficients; nb <= kMaxTailBuckets). The first zero_bytes of out
+// are zeroed first (a new output: the call then returns the tail alone).
 extern "C" __attribute__((visibility("default"))) int
-photon_bell_tail_matvec(const void* buckets, int nb, const void* row_pos,
-                        const void* wt, int lanes, long long n_rows, int bf16,
-                        void* out, void* stream) {
-  if (n_rows <= 0) return 0;
+photon_bell_tail_matvec(const void* buckets, int nb, const void* items,
+                        const void* tail_rows, int bf16, const int* ranges,
+                        int n_ranges, const void* wt, int lanes, void* out,
+                        long long zero_bytes, void* stream) {
+  if (nb > kMaxTailBuckets) return static_cast<int>(cudaErrorInvalidValue);
   const auto* b = static_cast<const Bucket*>(buckets);
-  const auto* rp = static_cast<const int32_t*>(row_pos);
+  const auto* it = static_cast<const TailItem*>(items);
+  const auto* tr = static_cast<const int32_t*>(tail_rows);
   const auto* w = static_cast<const float*>(wt);
   auto* o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned int grid = blocks_for(n_rows * lanes);
-  if (bf16) {
-    bell_tail_matvec_kernel<true><<<grid, kThreads, 0, s>>>(
-        b, nb, rp, w, lanes, n_rows, o);
-  } else {
-    bell_tail_matvec_kernel<false><<<grid, kThreads, 0, s>>>(
-        b, nb, rp, w, lanes, n_rows, o);
+  if (zero_bytes > 0) {
+    const cudaError_t err =
+        cudaMemsetAsync(out, 0, static_cast<size_t>(zero_bytes), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int vec4 =
+      lanes % 4 == 0 && reinterpret_cast<uintptr_t>(wt) % 16 == 0;
+  for (int k = 0; k < n_ranges; ++k) {
+    const int lo = ranges[2 * k], n_items = ranges[2 * k + 1] - lo;
+    if (n_items <= 0) continue;
+    if (bf16) {
+      launch_tail<true>(b, nb, it + lo, n_items, tr, w, lanes, vec4, o, s);
+    } else {
+      launch_tail<false>(b, nb, it + lo, n_items, tr, w, lanes, vec4, o, s);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
-// Occurrence-bucket rmatvec over n_items work items on `stream`: the fused
-// form passes every item of the plan, the tiled form one bucket's. Each
-// column c of bucket b lands in out[buckets[b].base + c] (out is (U, lanes),
-// U the total of the buckets' columns). Returns the cudaError_t of the
-// launch.
+// Occurrence-bucket rmatvec: column c of bucket b lands in out[buckets[b]
+// .base + c] (out is (U, lanes), U the total of the buckets' columns).
 extern "C" __attribute__((visibility("default"))) int
-photon_bell_bucket_rmatvec(const void* buckets, const void* items,
-                           int n_items, const void* r, int lanes, int bf16,
-                           int square, void* out, void* stream) {
-  if (n_items <= 0) return 0;
+photon_bell_bucket_rmatvec(const void* buckets, const void* items, int bf16,
+                           const int* ranges, int n_ranges, const void* r,
+                           int lanes, int square, void* out, void* stream) {
   const auto* b = static_cast<const Bucket*>(buckets);
   const auto* it = static_cast<const WorkItem*>(items);
   const auto* rr = static_cast<const float*>(r);
@@ -407,18 +643,24 @@ photon_bell_bucket_rmatvec(const void* buckets, const void* items,
   const auto s = static_cast<cudaStream_t>(stream);
   const int vec4 =
       lanes % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;
-  if (square) {
-    if (bf16) {
-      launch_rmatvec<true, true>(b, it, n_items, rr, lanes, vec4, o, s);
+  for (int k = 0; k < n_ranges; ++k) {
+    const int lo = ranges[2 * k], n = ranges[2 * k + 1] - lo;
+    if (n <= 0) continue;
+    if (square) {
+      if (bf16) {
+        launch_rmatvec<true, true>(b, it + lo, n, rr, lanes, vec4, o, s);
+      } else {
+        launch_rmatvec<false, true>(b, it + lo, n, rr, lanes, vec4, o, s);
+      }
+    } else if (bf16) {
+      launch_rmatvec<true, false>(b, it + lo, n, rr, lanes, vec4, o, s);
     } else {
-      launch_rmatvec<false, true>(b, it, n_items, rr, lanes, vec4, o, s);
+      launch_rmatvec<false, false>(b, it + lo, n, rr, lanes, vec4, o, s);
     }
-  } else if (bf16) {
-    launch_rmatvec<true, false>(b, it, n_items, rr, lanes, vec4, o, s);
-  } else {
-    launch_rmatvec<false, false>(b, it, n_items, rr, lanes, vec4, o, s);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 extern "C" __attribute__((visibility("default"))) const char*

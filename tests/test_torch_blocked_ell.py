@@ -11,11 +11,20 @@ The rmatvec kernel's work plan (`rmatvec_plan`) is checked on the bucket
 shapes of chip_smoke.py's T1 layout and of the headline training layout:
 every column covered once, no thread walking more than max(S, k_b /
 T_max) slots, longest walk first, each tiled launch the fused plan of its
-bucket, a deterministic plan packed as the C struct. The CUDA kernels
-themselves run only on a GPU, where ``chip_smoke.py`` holds them against
-the same plain versions.
+bucket, a deterministic plan packed as the C struct. So is the tail
+matvec's (`tail_plan`, on the same layouts' ELL width buckets): every row
+once, no item mixing two widths, widest bucket first, each tiled launch
+the fused plan of its bucket, the C struct's fields. The per-layout plan
+(`layout_plan`): ``tail_rows`` inverts ``row_pos``, the descriptors and
+launch ranges are the layout's, it is built once per layout object. The
+``out=`` seams: the tail matvec adds into ``out`` bit for bit, and
+`_bell_matvec` is the hot product plus the tail term on either route.
+The CUDA kernels themselves run only on a GPU, where ``chip_smoke.py``
+holds them against the same plain versions.
 """
 import dataclasses
+import functools
+import gc
 import importlib.util
 import re
 from pathlib import Path
@@ -240,20 +249,24 @@ T2_BUCKETS = ((380559, 1), (58680, 2), (37970, 4), (23819, 8), (15253, 16),
               (781, 1024), (208, 2048))
 
 
-def _t1_buckets():
-    """The occurrence buckets of chip_smoke.py's T1 layout, built here on
-    the CPU (it asserts that they reach every class of the plan)."""
+@functools.lru_cache(maxsize=None)
+def _t1_shapes():
+    """(ELL width bucket shapes, occurrence bucket shapes) of
+    chip_smoke.py's T1 layout, built here on the CPU (it asserts that they
+    reach every class of the rmatvec's plan, a sub-tile and a many-tile
+    bucket)."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     X = cs.small_layout(CPU, False)
-    return tuple(tuple(int(s) for s in v.shape) for v in X.bucket_vals)
+    return tuple(tuple(tuple(int(s) for s in v.shape) for v in vals)
+                 for vals in (X.ell_vals, X.bucket_vals))
 
 
 @pytest.fixture(scope="module", params=["t1", "t2"])
 def bucket_shapes(request):
-    return _t1_buckets() if request.param == "t1" else T2_BUCKETS
+    return _t1_shapes()[1] if request.param == "t1" else T2_BUCKETS
 
 
 def _thread_walk(k_b, tpc):
@@ -369,13 +382,217 @@ def test_rmatvec_operands_are_checked():
         shifted,) + X.bucket_rows[b + 1:])
     with pytest.raises(ValueError, match="aligned"):
         KB._check_rmatvec(bad, torch.zeros(n))
-    assert KB._check_rmatvec(X, torch.zeros(n, 2)) == (2, False)
+    plan, lanes = KB._check_rmatvec(X, torch.zeros(n, 2))
+    assert lanes == 2 and plan.occ_args[-1].value == 0  # f32 values
     r = torch.zeros(n)
     with pytest.raises(ValueError, match="out"):
         KB._rmatvec_out(X, r, torch.zeros(U + 1))
     with pytest.raises(ValueError, match="out"):
         KB._rmatvec_out(X, r, torch.zeros(U, dtype=torch.float64))
     assert KB._rmatvec_out(X, r, None).shape == (U,)
+
+
+# -------------------------------------------------------------- tail plan
+# The ELL width buckets (r_b, W_b) of the same headline layout, as
+# chip_smoke.py's T2 line prints them on the card (seed 0, the numpy
+# there: U = 539,182 tail columns, 1,694,311 rows with a tail).
+T2_ELL_BUCKETS = ((680425, 1), (559958, 2), (410178, 4), (43698, 8),
+                  (52, 16))
+
+
+@pytest.fixture(scope="module", params=["t1", "t2"])
+def ell_shapes(request):
+    return _t1_shapes()[0] if request.param == "t1" else T2_ELL_BUCKETS
+
+
+def _port(seed, bf16=False, **kw):
+    """A port layout on the CPU alone (no reference build)."""
+    ind, val, d = rows(seed, **kw)
+    X = M.to_blocked_ell(M.SparseRows(ind, val, d), 32, device=CPU)
+    return X.astype(torch.bfloat16) if bf16 else X
+
+
+def test_tail_plan_covers_every_row_once(ell_shapes):
+    """Every row of every width bucket in exactly one item, an item's rows
+    inside its own bucket (no item mixes two widths), at most
+    `rows_per_thread` rows a thread: TAIL_SLOTS_PER_THREAD slots, or one
+    wider row."""
+    plan = KB.tail_plan(ell_shapes)
+    assert plan.dtype == np.int32 and plan.shape[1] == len(KB._TAIL_FIELDS)
+    bucket, row0, n_rows = plan.T
+    assert ((0 <= bucket) & (bucket < len(ell_shapes))).all()
+    per = np.asarray([KB.rows_per_thread(w) for _, w in ell_shapes])[bucket]
+    assert ((1 <= n_rows) & (n_rows <= KB.BLOCK * per)).all()
+    w_b = np.asarray([w for _, w in ell_shapes])[bucket]
+    assert (w_b * per == np.maximum(w_b, KB.TAIL_SLOTS_PER_THREAD)).all()
+    r_b = np.asarray([r for r, _ in ell_shapes])[bucket]
+    assert ((0 <= row0) & (row0 + n_rows <= r_b)).all()
+    for b, (r, _) in enumerate(ell_shapes):
+        mine = plan[plan[:, 0] == b]
+        covered = np.concatenate([np.arange(r0, r0 + k) for _, r0, k in mine])
+        np.testing.assert_array_equal(np.sort(covered), np.arange(r))
+
+
+def test_tail_plan_runs_widest_bucket_first(ell_shapes):
+    plan = KB.tail_plan(ell_shapes)
+    widths = np.asarray([ell_shapes[b][1] for b in plan[:, 0]])
+    assert (np.diff(widths) <= 0).all()
+    assert widths[0] == max(w for _, w in ell_shapes)
+
+
+def test_tail_plan_tiled_launch_is_the_fused_plan_of_its_bucket(ell_shapes):
+    plan = KB.tail_plan(ell_shapes)
+    ranges = KB.plan_ranges(plan, len(ell_shapes))
+    assert sum(hi - lo for lo, hi in ranges) == plan.shape[0]
+    for b, (lo, hi) in enumerate(ranges):
+        np.testing.assert_array_equal(plan[lo:hi], plan[plan[:, 0] == b])
+        assert (np.diff(plan[lo:hi, 1]) > 0).all()  # row order
+
+
+def test_tail_plan_is_deterministic_and_matches_the_c_struct(ell_shapes):
+    a, b = KB.tail_plan(ell_shapes), KB.tail_plan(list(ell_shapes))
+    np.testing.assert_array_equal(a, b)
+    assert a.flags.c_contiguous
+    src = KB.SOURCE.read_text()
+    assert tuple(_c_struct_fields(src, "TailItem")) == KB._TAIL_FIELDS
+    assert re.search(r"struct TailItem \{(?:\s*int32_t \w+;)+\s*\};", src)
+    assert (f"constexpr int kTailSlotsPerThread = "
+            f"{KB.TAIL_SLOTS_PER_THREAD};") in src
+    assert f"constexpr int kMaxTailBuckets = {KB.MAX_TAIL_BUCKETS};" in src
+    assert [KB.rows_per_thread(1 << e) for e in range(6)] == [4, 2, 1, 1, 1,
+                                                               1]
+
+
+@pytest.mark.parametrize("seed", [7, 18])
+def test_layout_plan_inverts_row_pos_and_packs_the_buckets(seed):
+    """``tail_rows`` is argsort(row_pos)[:B], a bijection onto the rows
+    with a tail; the descriptors and both work plans are the layout's."""
+    X = _port(seed, n=400, d=3000, k=20)
+    plan = KB.layout_plan(X)
+    row_pos = X.row_pos.numpy()
+    B = sum(int(v.shape[0]) for v in X.ell_vals)
+    tail_rows = plan.tail_rows.numpy()
+    assert plan.tail_rows.dtype == torch.int32 and B < X.shape[0]
+    np.testing.assert_array_equal(tail_rows,
+                                  np.argsort(row_pos, kind="stable")[:B])
+    np.testing.assert_array_equal(np.sort(tail_rows),
+                                  np.flatnonzero(row_pos != B))
+    np.testing.assert_array_equal(row_pos[tail_rows], np.arange(B))
+    for desc, idx, vals in ((plan.tail_desc, X.ell_pcols, X.ell_vals),
+                            (plan.occ_desc, X.bucket_rows, X.bucket_vals)):
+        shapes = np.asarray([v.shape for v in vals])
+        np.testing.assert_array_equal(desc.numpy(), np.column_stack([
+            [i.data_ptr() for i in idx], [v.data_ptr() for v in vals],
+            shapes, np.cumsum(shapes[:, 0]) - shapes[:, 0]]))
+    for items, fused, tiled, host in (
+            (plan.tail_items, plan.tail_fused, plan.tail_tiled,
+             KB.tail_plan([tuple(v.shape) for v in X.ell_vals])),
+            (plan.occ_items, plan.occ_fused, plan.occ_tiled,
+             KB.rmatvec_plan([tuple(v.shape) for v in X.bucket_vals]))):
+        np.testing.assert_array_equal(items.numpy(), host)
+        # the launches the C entry point makes: one over every item, or
+        # one per bucket over its items
+        assert list(fused[0]) == [0, len(host)]
+        assert (fused[1].value, fused[2]) == (1, 1)
+        ranges = KB.plan_ranges(host, len(tiled[0]) // 2)
+        assert list(tiled[0]) == [x for r in ranges for x in r]
+        assert (tiled[1].value, tiled[2]) == (len(ranges), len(ranges))
+    # the entry points' leading arguments are the plan's own tensors
+    assert [a.value for a in plan.tail_args] == [
+        plan.tail_desc.data_ptr(), len(X.ell_vals),
+        plan.tail_items.data_ptr(), plan.tail_rows.data_ptr(), 0]
+    assert [a.value for a in plan.occ_args] == [
+        plan.occ_desc.data_ptr(), plan.occ_items.data_ptr(), 0]
+
+
+def test_layout_plan_is_built_once_per_layout(monkeypatch):
+    built = []
+    real = KB._build_plan
+    monkeypatch.setattr(KB, "_build_plan",
+                        lambda X: built.append(id(X)) or real(X))
+    X = _port(22)
+    n, d = X.shape
+    for _ in range(3):
+        KB._check_tail(X, torch.zeros(d))
+        KB._check_rmatvec(X, torch.zeros(n, 2))
+    assert KB.layout_plan(X) is KB.layout_plan(X) and len(built) == 1
+    # a batch moved to where it already is keeps its layout, and its plan
+    moved = make_batch(X, np.zeros(n), device=CPU).to(CPU).X
+    assert moved is X and X.to(torch.device(CPU)) is X
+    assert KB.layout_plan(moved) is KB.layout_plan(X) and len(built) == 1
+    Y = X.astype(torch.bfloat16)  # a second layout: its own plan
+    assert KB.layout_plan(Y) is not KB.layout_plan(X) and len(built) == 2
+    # the bf16 flag of each entry point's arguments
+    assert KB.layout_plan(Y).tail_args[-1].value == 1
+    assert KB.layout_plan(Y).occ_args[-1].value == 1
+    assert KB.layout_plan(X).tail_args[-1].value == 0
+    key = id(Y)
+    del Y
+    gc.collect()
+    assert key not in KB._PLANS  # a collected layout's plan goes with it
+
+
+@pytest.mark.parametrize("lanes", [0, 3])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("form", ["fused", "tiled"])
+def test_tail_matvec_adds_into_out(form, bf16, lanes):
+    """``out=`` takes ``out + tail`` in place, bit for bit; rows with no
+    tail keep their value."""
+    X = _port(7, bf16, n=400, d=3000, k=20)
+    n, d = X.shape
+    rng = np.random.default_rng(30 + lanes)
+    w = torch.from_numpy(_vec(rng, d, lanes))
+    h = torch.from_numpy(_vec(rng, n, lanes))
+    wrapper = KB.tail_matvec if form == "fused" else KB.tail_matvec_tiled
+    tail = wrapper(X, w)
+    buf = h.clone()
+    res = wrapper(X, w, out=buf)
+    assert res.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf, h + tail)
+    zero = X.row_pos.numpy() == sum(int(v.shape[0]) for v in X.ell_vals)
+    assert zero.any() and torch.equal(buf[zero], h[zero])
+
+
+@pytest.mark.parametrize("lanes", [0, 3])
+@pytest.mark.parametrize("route", ["fused", "tiled"])
+def test_bell_matvec_adds_the_tail_into_the_hot_product(route, lanes,
+                                                        monkeypatch):
+    """`_bell_matvec` is the hot product + the tail term, bit for bit, on
+    either route."""
+    if route == "tiled":
+        monkeypatch.setenv(K.ENV_BUDGET, "0")
+    else:
+        monkeypatch.delenv(K.ENV_BUDGET, raising=False)
+    for bf16 in (False, True):
+        X = _port(24, bf16)
+        assert K.route(X, torch.zeros(X.n_features)) == route
+        w = torch.from_numpy(_vec(np.random.default_rng(25), X.n_features,
+                                  lanes))
+        want = (M._mm_f32(X.dense, w[:X.d_sel].to(X.dense.dtype))
+                + KB.tail_matvec_reference(X, w))
+        got = M.matvec(X, w)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_tail_out_is_checked():
+    """``out`` of the wrong shape, dtype or device raises, on both forms."""
+    X = _port(26)
+    n, d = X.shape
+    w = torch.zeros(d)
+    bad = (torch.zeros(n + 1), torch.zeros(n, dtype=torch.float64),
+           torch.zeros(n, 2), torch.zeros(n, device="meta"),
+           torch.zeros(2 * n)[::2])
+    for out in bad:
+        with pytest.raises(ValueError, match="out"):
+            KB._tail_out(X, w, out)
+        for fn in (KB.tail_matvec, KB.tail_matvec_tiled):
+            with pytest.raises(ValueError, match="out"):
+                fn(X, w, out=out)
+    out, zero_bytes = KB._tail_out(X, w, None)  # zeroed by the entry point
+    assert out.shape == (n,) and out.dtype == torch.float32
+    assert zero_bytes == 4 * n
+    given, zero_bytes = KB._tail_out(X, w, out)
+    assert given is out and zero_bytes == 0
 
 
 # ---------------------------------------------------------------- X passes
