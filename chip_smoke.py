@@ -8,13 +8,15 @@ Phases (any failure exits non-zero):
 
 0. build every kernel source in the checkout (serving_int8.cu,
    blocked_ell.cu, fused_vg.cu), all three builds started together beside
-   an ``nvcc -Xptxas -v`` compile of blocked_ell.cu, and print each one's
-   build seconds;
-1. hold the int8 serving rung against its plain PyTorch version: each of
-   its four branches alone, then all four together, at small shapes
+   an ``nvcc -Xptxas -v`` compile of each, and print each one's build
+   seconds;
+1. print the int8 serving rung's registers and spills (ptxas -v) and hold
+   it against its plain PyTorch version: each of its four branches alone,
+   all four together, and 20 coordinates (two launches; equal bit for bit
+   to the first 16 then the last 4 from their margins), at small shapes
    (margins within rtol=1e-5, atol=1e-5: the kernel sums each row in
    another order than PyTorch; cold-miss rows equal the fixed-only margin
-   exactly);
+   exactly, with 4 and with 20 coordinates);
 2. serve a seeded GAME model at the repo's widths — a fixed effect over a
    10,000,000-feature sparse space with 32 nonzeros per row and two
    random effects (100,000 users, 50,000 items, d=8, 8 slots per row) —
@@ -25,8 +27,9 @@ Phases (any failure exits non-zero):
    version, `assert_no_retrace`, and that the rung went through the
    kernel (launch counts, reset just before the run, read just after);
 3. time the serving kernel at the main path's shapes (CUDA events) beside
-   its plain version and its bound, and print QPS and latency
-   percentiles;
+   its plain version and its bound, the top rung's device time with a warm
+   and a cold L2 beside an empty kernel of the same grid (the floor of any
+   launch), and print QPS and latency percentiles;
 T1. print the tail matvec and rmatvec kernels' registers and spills
    (ptxas -v); hold the four blocked-ELL kernels (fused and tiled tail
    matvec, fused and tiled occurrence-bucket rmatvec) against their plain
@@ -65,10 +68,14 @@ T3. time each blocked-ELL kernel at (a)'s shapes beside its plain version,
 T2(d). OWL-QN (L1, reg 1.0, 5 iterations) on T2's layout: the kernel
    route (the blocked-ELL kernels, launch counts) against ``scope("off")``,
    loss histories within rtol 1e-5;
-D1. hold the fused value+grad kernel against its plain version: all four
-   tasks, f32 and bf16 storage, n = 1,000 and 4,097 (a ragged last tile),
-   d = 40, 256 and the kernel's widest d, zero-weight rows and non-zero
-   offsets (loss within rtol 1e-5, max |dg| <= 1e-5 * max |g|);
+D1. print the fused value+grad kernel's registers and spills (ptxas -v)
+   and hold it against its plain version: all four tasks, f32 and bf16
+   storage, n = 1,000 and 4,097 (a ragged last tile), d = 37 (rows not a
+   multiple of 16 bytes: the element-copy branch), 40, 256 and the
+   kernel's widest d, and an f32 X at a misaligned address (the
+   element-copy branch at d = 256), zero-weight rows and non-zero offsets
+   (loss within rtol 1e-5, max |dg| <= 1e-5 * max |g|); a second call
+   repeats each bit for bit;
 D2. train L1 logistic regression at the bench's dense width — bench.py's
    dense_problem, 2^19 rows x 256 f32 features, reg 1e4, history 10,
    tolerance 0, 40 iterations — through `train_glm` (OWL-QN): (a) on the
@@ -80,8 +87,9 @@ D2. train L1 logistic regression at the bench's dense width — bench.py's
 D3. TRON (L2, reg 1.0, 10 iterations, 20 CG steps) at the same width,
    kernel route against ``scope("off")``; iterations, HVPs, rows*iters/s;
 D4. time the fused kernel at D2's shape (CUDA events; device time from the
-   profiler) beside its plain version, the unfused route's two cuBLAS
-   GEMVs (the library yardstick) and its bound.
+   profiler, and from events with a warm and a cold L2) beside its plain
+   version, the unfused route's two cuBLAS GEMVs (the library yardstick,
+   warm and cold) and its bound.
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and last
@@ -169,14 +177,34 @@ def small_case(rng, parts, dev, B=33, E=9):
     return [tuple(coords), offsets, shards, ids, fixed_ws, re_cs], E
 
 
-PTXAS_KERNELS = ("bell_tail_matvec_kernel", "bell_bucket_rmatvec_kernel")
+PTXAS_KERNELS = ("bell_tail_matvec_kernel", "bell_bucket_rmatvec_kernel",
+                 "serving_int8_margin_kernel", "fused_vg_tile_kernel")
+
+
+def _ptxas_label(kernel: str, name: str) -> str:
+    """A kernel instantiation's template arguments, from its mangled
+    ``name``."""
+    import re
+
+    m = re.search(r"ILb(\d)ELb(\d)ELi(\d+)E", name)
+    if m:
+        return (f"bf16={m.group(1)} square={m.group(2)} "
+                f"lane_chunk={m.group(3)}")
+    m = re.search(r"ILb(\d)ELi(\d+)E", name)
+    if m:
+        last = "task" if kernel.startswith("fused") else "lane_chunk"
+        return f"bf16={m.group(1)} {last}={m.group(2)}"
+    m = re.search(r"ILi(\d+)EE", name)
+    if m:
+        return f"coords<={m.group(1)}"
+    return ""
 
 
 def ptxas_report(source) -> list:
     """[(kernel, registers, spill store bytes, spill load bytes)] of every
-    instantiation of the tail matvec and rmatvec kernels in ``source``,
-    from ``nvcc -O3 -Xptxas -v`` for sm_90a (the flags the build gives
-    it), compiled to a cubin under the kernels' build directory."""
+    instantiation of the `PTXAS_KERNELS` in ``source``, from ``nvcc -O3
+    -Xptxas -v`` for sm_90a (the flags the build gives it), compiled to a
+    cubin under the kernels' build directory."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -188,7 +216,7 @@ def ptxas_report(source) -> list:
     res = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "nvcc"), "-O3", "-std=c++17",
          "-arch=sm_90a", "-cubin", "-Xptxas", "-v",
-         "-o", str(out_dir / "blocked_ell.cubin"), str(source)],
+         "-o", str(out_dir / f"{source.stem}.cubin"), str(source)],
         capture_output=True, text=True, timeout=300, check=True)
     stats, cur = {}, None
     for line in (res.stdout + res.stderr).splitlines():
@@ -210,28 +238,25 @@ def ptxas_report(source) -> list:
     rows = []
     for name, st in sorted(stats.items()):
         kernel = next(k for k in PTXAS_KERNELS if k in name)
-        m = re.search(r"ILb(\d)ELb(\d)ELi(\d+)E", name)
-        t = re.search(r"ILb(\d)ELi(\d+)E", name)
-        label = (f"bf16={m.group(1)} square={m.group(2)} "
-                 f"lane_chunk={m.group(3)}" if m else
-                 f"bf16={t.group(1)} lane_chunk={t.group(2)}" if t else name)
-        rows.append((f"{kernel} {label}", st.get("regs"), st.get("st"),
-                     st.get("ld")))
-    missing = [k for k in PTXAS_KERNELS if not any(k in r[0] for r in rows)]
-    if missing:
-        raise AssertionError(f"ptxas -v reported no {missing}")
+        rows.append((f"{kernel} {_ptxas_label(kernel, name)}".strip(),
+                     st.get("regs"), st.get("st"), st.get("ld")))
     return rows
 
 
-def phase_build() -> list:
+def ptxas_text(rows: list) -> str:
+    return "; ".join(f"{label}: {regs} registers, {st} B spill stores, "
+                     f"{ld} B spill loads" for label, regs, st, ld in rows)
+
+
+def phase_build() -> dict:
     """Phase 0: build every kernel source at once, one thread each (a
-    build is mostly a compiler process), beside the blocked-ELL kernels'
-    ``-Xptxas -v`` compile; returns that report."""
+    build is mostly a compiler process), beside an ``-Xptxas -v`` compile
+    of each; returns those reports by source stem."""
     from photon_tpu_torch.kernels import blocked_ell as KB
     from photon_tpu_torch.kernels import fused as KF
     from photon_tpu_torch.kernels import serving as KS
 
-    secs, errors, ptxas = {}, [], []
+    secs, errors, ptxas = {}, [], {}
 
     def build(mod) -> None:
         t0 = time.perf_counter()
@@ -241,62 +266,91 @@ def phase_build() -> list:
             errors.append(e)
         secs[mod.SOURCE.name] = time.perf_counter() - t0
 
-    def report() -> None:
+    def report(mod) -> None:
         try:
-            ptxas.extend(ptxas_report(KB.SOURCE))
+            ptxas[mod.SOURCE.stem] = ptxas_report(mod.SOURCE)
         except Exception as e:  # reported by the main thread
             errors.append(e)
 
+    mods = (KS, KB, KF)
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=build, args=(m,))
-               for m in (KS, KB, KF)] + [threading.Thread(target=report)]
+    threads = [threading.Thread(target=fn, args=(m,))
+               for m in mods for fn in (build, report)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
+    missing = [k for k in PTXAS_KERNELS
+               if not any(k in r[0] for rows in ptxas.values() for r in rows)]
+    if missing:
+        raise AssertionError(f"ptxas -v reported no {missing}")
     log(f"phase 0: built {len(secs)} kernel sources together in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     return ptxas
 
 
-def phase_kernels(dev) -> None:
+def phase_kernels(dev, ptxas: list) -> None:
     import torch
 
     from photon_tpu_torch import kernels as K
     from photon_tpu_torch.kernels import serving as KS
 
+    log(f"phase 1: {KS.KERNEL} (nvcc -O3 -Xptxas -v, sm_90a): "
+        + ptxas_text(ptxas))
     rng = np.random.default_rng(11)
     cases = {"fixed dense": [("fixed", False)],
              "fixed sparse": [("fixed", True)],
              "random dense": [("random", False)],
              "random sparse": [("random", True)]}
     cases["all four"] = [p for ps in cases.values() for p in ps]
+    cases["20 coords"] = cases["all four"] * 5  # two launches
     with K.scope("on"):
         for label, parts in cases.items():
             args, E = small_case(rng, parts, dev)
+            K.reset_launch_counts()
             got = KS.int8_margin(*args)
+            launches = K.launch_counts().get(KS.KERNEL, 0)
             want = KS.int8_margin_reference(*args)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                        **TOL, err_msg=label)
-            log(f"phase 1: {label:13s} kernel vs plain max |err| {err:.3g}")
-        # cold-miss rows: every entity unseen -> exactly the fixed margin
-        args, E = small_case(rng, cases["all four"], dev)
+            if launches != -(-len(parts) // KS.MAX_COORDS):
+                raise AssertionError(f"{label}: {launches} launches")
+            log(f"phase 1: {label:13s} kernel vs plain max |err| {err:.3g} "
+                f"({launches} launch{'es' if launches > 1 else ''})")
+        # the two launches of 20 coordinates = 16, then 4 from its margins
         coords, offsets, shards, ids, fixed_ws, re_cs = args
-        ids = {n: torch.full_like(e, E) for n, e in ids.items()}
-        got = KS.int8_margin(coords, offsets, shards, ids, fixed_ws, re_cs)
-        fixed_only = KS.int8_margin(
-            tuple(c for c in coords if c[1] == "fixed"), offsets, shards,
-            ids, fixed_ws, re_cs)
+        m = KS.MAX_COORDS
+        first = KS.int8_margin(coords[:m], offsets, shards, ids, fixed_ws,
+                               re_cs)
+        chained = KS.int8_margin(coords[m:], first, shards, ids, fixed_ws,
+                                 re_cs)
         torch.cuda.synchronize()
-        if not torch.equal(got, fixed_only):
-            raise AssertionError("cold-miss rows differ from the fixed-only "
-                                 "margin")
-        log("phase 1: cold-miss rows equal the fixed-only margin exactly")
+        if not torch.equal(chained, got):
+            raise AssertionError("20 coordinates in one call differ from 16 "
+                                 "then 4 chained")
+        log(f"phase 1: 20 coordinates in one call == the first {m} then the "
+            f"last {len(coords) - m} from their margins, bit for bit")
+        # cold-miss rows: every entity unseen -> exactly the fixed margin
+        for label in ("all four", "20 coords"):
+            args, E = small_case(rng, cases[label], dev)
+            coords, offsets, shards, ids, fixed_ws, re_cs = args
+            ids = {n: torch.full_like(e, E) for n, e in ids.items()}
+            got = KS.int8_margin(coords, offsets, shards, ids, fixed_ws,
+                                 re_cs)
+            fixed_only = KS.int8_margin(
+                tuple(c for c in coords if c[1] == "fixed"), offsets, shards,
+                ids, fixed_ws, re_cs)
+            torch.cuda.synchronize()
+            if not torch.equal(got, fixed_only):
+                raise AssertionError(f"{label}: cold-miss rows differ from "
+                                     "the fixed-only margin")
+        log("phase 1: cold-miss rows equal the fixed-only margin exactly "
+            "(4 and 20 coordinates)")
 
 
 # ------------------------------------------------------------- phase 2: serve
@@ -589,8 +643,7 @@ def phase_training_kernels(dev, ptxas: list) -> None:
     from photon_tpu_torch.kernels import blocked_ell as KB
 
     log("T1: blocked-ELL kernels (nvcc -O3 -Xptxas -v, sm_90a): "
-        + "; ".join(f"{label}: {regs} registers, {st} B spill stores, {ld} B "
-                    f"spill loads" for label, regs, st, ld in ptxas))
+        + ptxas_text(ptxas))
     rng = np.random.default_rng(22)
     worst = {}
     n_bits = n_tail_bits = 0
@@ -1200,7 +1253,7 @@ def fused_errors(got, want) -> tuple:
     return rel_loss, rel_g
 
 
-def phase_fused_kernel(dev) -> None:
+def phase_fused_kernel(dev, ptxas: list) -> None:
     """D1: the fused value+grad kernel against its plain version."""
     import torch
 
@@ -1208,32 +1261,55 @@ def phase_fused_kernel(dev) -> None:
     from photon_tpu_torch.kernels import fused as KF
     from photon_tpu_torch.ops.losses import TaskType
 
+    log(f"D1: {KF.KERNEL} (nvcc -O3 -Xptxas -v, sm_90a): " + ptxas_text(ptxas))
     gen = torch.Generator(device=dev).manual_seed(31)
     worst = [0.0, 0.0]
     n_cases = 0
+
+    def check(label, args) -> None:
+        nonlocal worst, n_cases
+        with K.scope("on"):
+            got = KF.fused_value_and_grad(*args)
+            again = KF.fused_value_and_grad(*args)
+        want = KF.fused_value_and_grad_reference(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
+            raise AssertionError(f"{label}: a second call differs")
+        rel_loss, rel_g = fused_errors(got, want)
+        if not (rel_loss <= 1e-5 and rel_g <= 1e-5):
+            raise AssertionError(
+                f"{label}: loss rel err {rel_loss:.3g}, max "
+                f"|dg|/max|g| {rel_g:.3g} (limit 1e-5 each)")
+        worst = [max(worst[0], rel_loss), max(worst[1], rel_g)]
+        n_cases += 1
+
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (40, 256, KF.max_features(dtype)):
+        for d in (37, 40, 256, KF.max_features(dtype)):
             for n in (1000, 4097):
                 for task in TaskType:
                     args = (task,) + fused_case(gen, task, n, d, dtype, dev)
-                    with K.scope("on"):
-                        got = KF.fused_value_and_grad(*args)
-                    want = KF.fused_value_and_grad_reference(*args)
-                    torch.cuda.synchronize()
-                    rel_loss, rel_g = fused_errors(got, want)
-                    label = f"D1 {task.value} {dtype} n={n} d={d}"
-                    if not (rel_loss <= 1e-5 and rel_g <= 1e-5):
-                        raise AssertionError(
-                            f"{label}: loss rel err {rel_loss:.3g}, max "
-                            f"|dg|/max|g| {rel_g:.3g} (limit 1e-5 each)")
-                    worst = [max(worst[0], rel_loss), max(worst[1], rel_g)]
-                    n_cases += 1
+                    check(f"D1 {task.value} {dtype} n={n} d={d}", args)
+    # X one element past a 16-byte boundary: the element-copy branch at a
+    # width the bulk copies take
+    n, d = 4097, 256
+    for task in TaskType:
+        X, *rest = fused_case(gen, task, n, d, torch.float32, dev)
+        flat = torch.empty(n * d + 1, device=dev)
+        Xm = flat[1:].view(n, d)
+        Xm.copy_(X)
+        check(f"D1 {task.value} misaligned X", (task, Xm, *rest))
     log(f"D1: {KF.KERNEL} matches its plain version in {n_cases} cases "
-        f"(4 tasks, f32/bf16, n 1000/4097, d 40/256/"
+        f"(4 tasks, f32/bf16, n 1000/4097, d 37/40/256/"
         f"{KF.max_features(torch.float32)} f32 and "
-        f"{KF.max_features(torch.bfloat16)} bf16, zero-weight rows, "
-        f"offsets): worst loss rel err {worst[0]:.3g}, worst max|dg|/max|g| "
-        f"{worst[1]:.3g}")
+        f"{KF.max_features(torch.bfloat16)} bf16 — d = 37 rows are not a "
+        f"multiple of 16 bytes and take the element-copy branch, as does a "
+        f"misaligned f32 X at d = 256 —, zero-weight rows, offsets), and a "
+        f"second call repeats each bit for bit: worst loss rel err "
+        f"{worst[0]:.3g}, worst max|dg|/max|g| {worst[1]:.3g}; ring at "
+        f"d = 256 f32: {KF.tile_rows(256, 4)} rows x {KF.stages(256, 4)} "
+        f"stages, {KF.smem_bytes(KF.tile_rows(256, 4), KF.stages(256, 4), 256, 4)} "
+        f"B of shared memory a block")
 
 
 def dense_problem(seed: int):
@@ -1380,12 +1456,20 @@ def phase_dense_timings(state: dict, gpu) -> dict:
         ms = time_ms(lambda: KF.fused_value_and_grad(*args), n=100, warm=10)
         dev_ms = device_ms(lambda: KF.fused_value_and_grad(*args),
                            "fused_vg", n=50)
+        warm_ev = events_ms(lambda: KF.fused_value_and_grad(*args),
+                            cold=False)
+        cold_ev = events_ms(lambda: KF.fused_value_and_grad(*args),
+                            cold=True)
+        cold_call = events_ms(lambda: KF.fused_value_and_grad(*args),
+                              cold=True, hide_host=False)
     plain_ms = time_ms(lambda: KF.fused_value_and_grad_reference(*args),
                        n=20, warm=3)
     _, d1, _ = loss_fns(task)
     r = b.weights * d1(X @ w + b.offsets, b.y)
     lib_ms = time_ms(lambda: (torch.mv(X, w), torch.mv(X.t(), r)), n=100,
                      warm=10)
+    lib_cold = events_ms(lambda: (torch.mv(X, w), torch.mv(X.t(), r)),
+                         cold=True)
     n, d = (int(s) for s in X.shape)
     nbytes = n * d * X.element_size() + 3 * n * 4 + 2 * d * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1402,12 +1486,23 @@ def phase_dense_timings(state: dict, gpu) -> dict:
         f"{nbytes / 1e9 / (ms / 1e3):.1f} GB/s per call; launches in D2 (a) "
         f"{launches}; loss rel err {rel_loss:.3g}, max |dg| {err:.3g}  "
         f"[{gpu}]")
+    rows, ring = KF.tile_rows(d, X.element_size()), KF.stages(
+        d, X.element_size())
+    log(f"D4: device ms by CUDA events (host hidden): warm L2 "
+        f"{warm_ev:.4f}, cold L2 (a {FLUSH_BYTES >> 20} MB write before "
+        f"each call) {cold_ev:.4f}; a cold call from an idle stream "
+        f"{cold_call:.4f}; the two GEMVs cold {lib_cold:.4f}; "
+        f"{bound_ms / warm_ev:.3f} of the bound warm; ring {rows} rows x "
+        f"{ring} stages, {KF._plan(X.device, n, d, False)[2]} blocks  "
+        f"[{gpu}]")
     return {"name": KF.KERNEL, "route": "cuda",
             "source": "photon_tpu_torch/kernels/csrc/fused_vg.cu",
             "replaces": "photon_tpu/ops/fused.py:204", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms}
+            # no one PyTorch call computes the loss and Xᵀr: the two GEMVs
+            # above are a yardstick, not the library's version
+            "library_ms": None}
 
 
 def phase_serving(args, dev, gpu) -> dict:
@@ -1473,6 +1568,7 @@ def phase_serving(args, dev, gpu) -> dict:
         pend = [_Pending(r) for r in reqs[:B]]
         offsets, shards, ids, _ = collate_rung_args(ladder, pend, B)
         rung = (ladder.coords,) + ladder._upload(offsets, shards, ids) + quant
+        top_rung = rung
         with K.scope("on"):
             got = KS.int8_margin(*rung)
             want = KS.int8_margin_reference(*rung)
@@ -1493,6 +1589,28 @@ def phase_serving(args, dev, gpu) -> dict:
             f"(device time of the kernel alone {dev_txt}), plain "
             f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us "
             f"({bound_by}), max |err| {err:.3g}  [{gpu}]")
+    # the top rung with a cold L2, and the floor of any launch of its grid
+    rung = top_rung
+    lib = KS.library()
+    with K.scope("on"):
+        warm_ev = events_ms(lambda: KS.int8_margin(*rung), cold=False)
+        cold_ev = events_ms(lambda: KS.int8_margin(*rung), cold=True)
+        cold_call = events_ms(lambda: KS.int8_margin(*rung), cold=True,
+                              hide_host=False)
+
+    def empty():
+        K.launch(lib.photon_serving_int8_empty, dev.index or 0, MAX_BATCH)
+
+    empty_dev = device_ms(empty, "serving_int8_empty_kernel")
+    empty_ev = events_ms(empty, cold=False)
+    log(f"phase 3: rung B={MAX_BATCH} device time by CUDA events (host "
+        f"hidden): warm L2 {warm_ev * 1e3:.2f} us, cold L2 (a "
+        f"{FLUSH_BYTES >> 20} MB write before each call) "
+        f"{cold_ev * 1e3:.2f} us; a cold call from an idle stream "
+        f"{cold_call * 1e3:.2f} us; an empty kernel of the same grid "
+        + ("not measured" if empty_dev is None
+           else f"{empty_dev * 1e3:.2f} us")
+        + f" by the profiler, {empty_ev * 1e3:.2f} us by events  [{gpu}]")
     # one top-rung flush's host side, on this thread alone (no clients)
     pend = [_Pending(r) for r in reqs[:MAX_BATCH]]
     t0 = time.perf_counter()
@@ -1541,9 +1659,9 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     ptxas = phase_build()
-    phase_kernels(dev)
-    phase_training_kernels(dev, ptxas)
-    phase_fused_kernel(dev)
+    phase_kernels(dev, ptxas["serving_int8"])
+    phase_training_kernels(dev, ptxas["blocked_ell"])
+    phase_fused_kernel(dev, ptxas["fused_vg"])
     kernels = [phase_serving(args, dev, gpu)]
     torch.cuda.empty_cache()
     state = phase_training(args, dev, gpu)

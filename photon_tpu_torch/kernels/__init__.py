@@ -29,6 +29,11 @@ routes to the plain version.
 BUILD (`load_library`): each CUDA source under ``csrc/`` is a plain C
 entry point, built for ``sm_90a`` into ``_build/`` on first use by
 `torch.utils.cpp_extension.load` and bound with ctypes.
+
+LAUNCH (`launch`): every wrapper calls its C entry point through one
+helper that appends the raw handle of the device's current stream
+(`current_stream`), so a call builds no Stream object and, when its
+tensors lie on the current device, enters no device context.
 """
 from __future__ import annotations
 
@@ -175,3 +180,25 @@ def load_library(source: Path) -> ctypes.CDLL:
                                        "code=sm_90a"],
                     is_python_module=False, verbose=False)
     return ctypes.CDLL(path)
+
+
+def current_stream(index: int) -> int:
+    """The handle of CUDA device ``index``'s current stream, the value of
+    ``torch.cuda.current_stream(index).cuda_stream``, read without building
+    a Stream object (the larger part of a call's host time,
+    chip_host_parts.py)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
+
+
+def launch(fn, index: int, *args) -> int:
+    """``fn(*args, stream)``: the C entry point ``fn`` called with the
+    current stream of CUDA device ``index``; returns its code. The device
+    is made current around the call only when it is not already (tensors
+    on another device than the current one)."""
+    if index == torch.cuda.current_device():
+        return fn(*args, current_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, current_stream(index))

@@ -545,28 +545,12 @@ def _launch(name: str, entry: str, n_launches: int, out, *args) -> None:
     stream of ``out``'s device, making ``n_launches`` launches; counts them,
     and raises if one fails."""
     fn = getattr(_lib if _lib is not None else library(), entry)
-    index = out.get_device()
-    if index == torch.cuda.current_device():
-        code = fn(*args, _current_stream(index))
-    else:
-        with torch.cuda.device(index):
-            code = fn(*args, _current_stream(index))
+    code = K.launch(fn, out.get_device(), *args)
     if code:
         raise RuntimeError(f"{name} launch failed: "
                            f"{library().photon_bell_error_string(code)}")
     if n_launches:
         K.count_launch(name, n_launches)
-
-
-def _current_stream(index: int) -> int:
-    """The handle of device ``index``'s current stream, the value of
-    ``torch.cuda.current_stream(index).cuda_stream``, read without building
-    a Stream object (the larger part of a call's host time,
-    chip_host_parts.py)."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return torch.cuda.current_stream(index).cuda_stream
-    return raw(index)
 
 
 def _launch_tail(name, plan, ranges, w, lanes, out, zero_bytes) -> None:

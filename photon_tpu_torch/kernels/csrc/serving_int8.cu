@@ -1,4 +1,4 @@
-// One whole int8 serving rung in one launch: offsets in, (B,) f32 margin out.
+// One whole int8 serving rung: offsets in, (B,) f32 margin out.
 //
 // Replaces the Pallas kernel photon_tpu/kernels/serving.py::fused_int8_margin.
 // It computes what that kernel computes, coordinate by coordinate in the
@@ -10,27 +10,48 @@
 // where (col_j, x_j) runs over a sparse row's k padded slots (padding is
 // idx 0, val 0 and is read like any slot) or over a dense row's d columns.
 //
-// Design: one thread block per request row. For each coordinate the block's
-// threads stride over the row's slots, dequantize per element as the
-// reference does (float(q) * scale, then times the feature value), and the
-// f32 partial sums reduce across the block (warp shuffles, then one partial
-// per warp added in a fixed order). Thread 0 adds each coordinate's sum to
-// the row's margin in coordinate order, so the contributions add in the
-// reference's order. Unlike the TPU body, which dequantizes the whole fixed
-// vector into VMEM for every call, the fixed vector is gathered per nonzero:
-// a 10M-feature vector is 10 MB of int8 against a few KB a rung touches.
+// Bound: bytes, and in practice latency. A rung reads each request slot
+// (index + value), one int8 and at most one scale per slot, and writes 4 B
+// per row: about 30 KB at B = 64, a few nanoseconds of HBM time, with
+// about one multiply-add per byte. What a rung really waits on is the
+// chain of dependent loads — a slot's index, then the coefficient it
+// names — and the launch itself.
 //
-// Bound: bytes. A rung reads each request slot (index + value), one int8
-// and at most one scale per slot, and writes 4 B per row; there is about
-// one multiply-add per byte, far below the card's operations per byte.
-// This first version does not try to reach that bound (one block per row
-// leaves most threads idle at k = 8..32): it is meant to be right first.
+// Design.
+// - The coordinates travel by value in the kernel's parameter space (a
+//   __grid_constant__ RungParams of up to kMaxCoords CoordDesc entries,
+//   ~1.2 KB of the 4 KB), so a call uploads no descriptor array.
+// - The kernel is instantiated for 1, 2, 4, 8 and 16 coordinates, and a
+//   launch takes the smallest that holds its coordinates, so its loops
+//   unroll to no more code than the rung needs.
+// - One warp per request row, kRowsPerBlock rows per block. Lane j takes
+//   slots j, j + 32, ... of a sparse row, or columns j, j + 32, ... of a
+//   dense one.
+// - Loads in three phases over every coordinate of the launch: first the
+//   ones that depend on no other load (the row's entity id, its first 32
+//   slots' indices and values), then the ones that need them (the
+//   entity's scale, the q gathers), then the arithmetic. The dependent
+//   chain per rung is about three memory round trips in all, not three
+//   per coordinate in series. Slots past a row's first 32 (k > 32 or
+//   d > 32) are loaded in the third phase, in order.
+// - Each coordinate's dequantized products (float(q) * scale rounded as
+//   the reference does, then times the feature value) reduce across the
+//   warp by a fixed shuffle tree; lane 0 adds each coordinate's sum to the
+//   row's margin in coordinate order.
+// - A rung of more than kMaxCoords coordinates is served by several
+//   launches from one call (photon_serving_int8_margin): each launch
+//   starts from the previous one's margins in `out`. The margin is an f32
+//   either way, so the result is bit for bit that of one pass.
+// Unlike the TPU body, which dequantizes the whole fixed vector into VMEM
+// for every call, the fixed vector is gathered per nonzero: a 10M-feature
+// vector is 10 MB of int8 against a few KB a rung touches.
 //
-// The coordinates arrive as a device array of CoordDesc, one per
-// coordinate, packed by photon_tpu_torch/kernels/serving.py (_DESC_FIELDS
-// there lists the same fields in the same order).
+// The coordinates arrive from photon_tpu_torch/kernels/serving.py as a
+// host array of CoordDesc (its _DESC_FIELDS lists the same fields in the
+// same order), whose pointers that module writes on every call.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -47,75 +68,167 @@ struct CoordDesc {
   long long s;       // const float*: (1,) fixed or (E + 1,) random
 };
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCoords = 16;
+constexpr int kRowsPerBlock = 4;
+constexpr int kThreads = 32 * kRowsPerBlock;
 
-// Sum of v over the block; the result is valid in thread 0.
-__device__ float block_sum(float v, float* partial) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.f;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w) total += partial[w];
+struct RungParams {
+  const float* offsets;  // (B,): the offsets, or the previous launch's out
+  float* out;            // (B,) margins
+  int batch;
+  int n_coords;          // <= kMaxCoords
+  CoordDesc coord[kMaxCoords];
+};
+static_assert(sizeof(CoordDesc) == 72, "CoordDesc is nine 8-byte fields");
+static_assert(sizeof(RungParams) <= 4096, "kernel parameters exceed 4 KB");
+
+// kCoords bounds the coordinates of a launch (p.n_coords <= kCoords): the
+// loops over them unroll to exactly that many, so a rung of three takes
+// no code for sixteen.
+template <int kCoords>
+__global__ void __launch_bounds__(kThreads)
+serving_int8_margin_kernel(const __grid_constant__ RungParams p) {
+  const int lane = threadIdx.x & 31;
+  const long long r =
+      static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= p.batch) return;
+
+  // phase 1: the loads that depend on no other load
+  const float offset = p.offsets[r];
+  int e[kCoords];
+  int col[kCoords];
+  float val[kCoords];
+#pragma unroll
+  for (int c = 0; c < kCoords; ++c) {
+    if (c < p.n_coords) {
+      const CoordDesc& cd = p.coord[c];
+      const long long width = cd.sparse ? cd.k : cd.d;
+      e[c] = cd.kind == 1 ? reinterpret_cast<const int32_t*>(cd.ids)[r] : 0;
+      col[c] = 0;
+      val[c] = 0.f;
+      if (lane < width) {
+        col[c] = cd.sparse
+                     ? reinterpret_cast<const int32_t*>(cd.idx)[r * cd.k + lane]
+                     : lane;
+        val[c] = reinterpret_cast<const float*>(cd.x)[r * width + lane];
+      }
+    }
   }
-  __syncthreads();  // partial[] is reused by the next coordinate
-  return total;
+  // phase 2: the loads that need phase 1's
+  float scale[kCoords];
+  int qv[kCoords];
+#pragma unroll
+  for (int c = 0; c < kCoords; ++c) {
+    if (c < p.n_coords) {
+      const CoordDesc& cd = p.coord[c];
+      const long long width = cd.sparse ? cd.k : cd.d;
+      scale[c] = reinterpret_cast<const float*>(cd.s)[e[c]];
+      qv[c] = lane < width
+                  ? reinterpret_cast<const int8_t*>(
+                        cd.q)[static_cast<long long>(e[c]) * cd.d + col[c]]
+                  : 0;
+    }
+  }
+  // phase 3: dequantize, reduce each coordinate, add in coordinate order
+  float margin = offset;
+#pragma unroll
+  for (int c = 0; c < kCoords; ++c) {
+    if (c < p.n_coords) {
+      const CoordDesc& cd = p.coord[c];
+      const long long width = cd.sparse ? cd.k : cd.d;
+      const int8_t* q = reinterpret_cast<const int8_t*>(cd.q) +
+                        static_cast<long long>(e[c]) * cd.d;
+      const float* x = reinterpret_cast<const float*>(cd.x) + r * width;
+      const int32_t* idx =
+          reinterpret_cast<const int32_t*>(cd.idx) + r * cd.k;
+      float acc = 0.f;
+      if (lane < width) {
+        acc = val[c] * __fmul_rn(static_cast<float>(qv[c]), scale[c]);
+      }
+      for (long long j = lane + 32; j < width; j += 32) {
+        const long long cj = cd.sparse ? idx[j] : j;
+        acc += x[j] * __fmul_rn(static_cast<float>(q[cj]), scale[c]);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        acc += __shfl_down_sync(0xffffffffu, acc, o);
+      }
+      margin = margin + acc;  // lane 0 holds the coordinate's sum
+    }
+  }
+  if (lane == 0) p.out[r] = margin;
 }
 
-__global__ void __launch_bounds__(kThreads)
-serving_int8_margin_kernel(const float* __restrict__ offsets,
-                           const CoordDesc* __restrict__ desc, int n_coords,
-                           float* __restrict__ out) {
-  __shared__ float partial[kWarps];
-  const long long r = blockIdx.x;
-  float margin = offsets[r];
-  for (int c = 0; c < n_coords; ++c) {
-    const CoordDesc cd = desc[c];
-    const int8_t* q = reinterpret_cast<const int8_t*>(cd.q);
-    const float* s = reinterpret_cast<const float*>(cd.s);
-    const float* x = reinterpret_cast<const float*>(cd.x);
-    float scale;
-    if (cd.kind == 1) {
-      const long long e = reinterpret_cast<const int32_t*>(cd.ids)[r];
-      q += e * cd.d;
-      scale = s[e];
-    } else {
-      scale = s[0];
-    }
-    float acc = 0.f;
-    if (cd.sparse) {
-      const int32_t* idx = reinterpret_cast<const int32_t*>(cd.idx) + r * cd.k;
-      const float* val = x + r * cd.k;
-      for (long long j = threadIdx.x; j < cd.k; j += kThreads) {
-        const float w = __fmul_rn(static_cast<float>(q[idx[j]]), scale);
-        acc += val[j] * w;
-      }
-    } else {
-      const float* row = x + r * cd.d;
-      for (long long j = threadIdx.x; j < cd.d; j += kThreads) {
-        const float w = __fmul_rn(static_cast<float>(q[j]), scale);
-        acc += row[j] * w;
-      }
-    }
-    const float contribution = block_sum(acc, partial);
-    if (threadIdx.x == 0) margin = margin + contribution;
+// The floor a launch of the rung's grid costs: no loads, no work.
+__global__ void __launch_bounds__(kThreads) serving_int8_empty_kernel() {}
+
+int blocks_for(int batch) {
+  return (batch + kRowsPerBlock - 1) / kRowsPerBlock;
+}
+
+// The smallest of 1, 2, 4, 8, 16 that holds n coordinates: the
+// instantiation a launch of n takes.
+int coords_bound(int n) {
+  int b = 1;
+  while (b < n) b <<= 1;
+  return b;
+}
+
+cudaError_t launch_rung(const RungParams& p, cudaStream_t stream) {
+  const int grid = blocks_for(p.batch);
+  switch (coords_bound(p.n_coords)) {
+    case 1:
+      serving_int8_margin_kernel<1><<<grid, kThreads, 0, stream>>>(p);
+      break;
+    case 2:
+      serving_int8_margin_kernel<2><<<grid, kThreads, 0, stream>>>(p);
+      break;
+    case 4:
+      serving_int8_margin_kernel<4><<<grid, kThreads, 0, stream>>>(p);
+      break;
+    case 8:
+      serving_int8_margin_kernel<8><<<grid, kThreads, 0, stream>>>(p);
+      break;
+    default:
+      serving_int8_margin_kernel<kMaxCoords>
+          <<<grid, kThreads, 0, stream>>>(p);
   }
-  if (threadIdx.x == 0) out[r] = margin;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the rung on `stream`; returns the cudaError_t of the launch.
+// Launches the rung on `stream`: `coords` is a host array of n_coords
+// CoordDesc, served kMaxCoords at a time (the first launch reads
+// `offsets`, each later one the margins the one before left in `out`).
+// Returns the cudaError_t of the launches.
 extern "C" __attribute__((visibility("default"))) int
-photon_serving_int8_margin(const void* offsets, const void* desc,
+photon_serving_int8_margin(const void* offsets, const void* coords,
                            int n_coords, int batch, void* out, void* stream) {
   if (batch <= 0) return 0;
-  serving_int8_margin_kernel<<<batch, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(offsets),
-      static_cast<const CoordDesc*>(desc), n_coords,
-      static_cast<float*>(out));
+  if (n_coords < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* cds = static_cast<const CoordDesc*>(coords);
+  RungParams p;
+  p.out = static_cast<float*>(out);
+  p.batch = batch;
+  int c0 = 0;
+  do {
+    const int n = n_coords - c0 < kMaxCoords ? n_coords - c0 : kMaxCoords;
+    p.offsets = c0 == 0 ? static_cast<const float*>(offsets) : p.out;
+    p.n_coords = n;
+    std::memcpy(p.coord, cds + c0, sizeof(CoordDesc) * n);
+    const cudaError_t e = launch_rung(p, static_cast<cudaStream_t>(stream));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    c0 += n;
+  } while (c0 < n_coords);
+  return 0;
+}
+
+// One launch of the empty kernel with a B-row rung's grid on `stream`.
+extern "C" __attribute__((visibility("default"))) int
+photon_serving_int8_empty(int batch, void* stream) {
+  if (batch <= 0) return 0;
+  serving_int8_empty_kernel<<<blocks_for(batch), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

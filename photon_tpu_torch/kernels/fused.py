@@ -15,9 +15,12 @@ in f64, as near-exactly as the kernel's compensated sums.
 
 The kernel reads X from HBM once per call, against the two reads of the
 unfused route (``matvec`` then ``rmatvec``): each block of a persistent
-grid copies row tiles into shared memory and forms both products from
-there; a second small kernel sums the blocks' partials in a fixed order
-(no atomics, so a call repeats bit for bit).
+grid keeps a ring of `stages` row tiles in shared memory, filled by bulk
+asynchronous copies while it forms both products from the tile before
+them; a second small kernel sums the blocks' partials in a fixed order
+(no atomics, so a call repeats bit for bit). `tile_rows`, `stages` and
+`smem_bytes` mirror the source's layout; `_plan` caches the geometry and
+the grid per shape.
 
 `can_fuse` is the port's own gate: a dense 2-D f32 or bf16 X with at
 least one row, and rows that fit the kernel's shared-memory budget
@@ -48,9 +51,11 @@ _TASK_IDS = {TaskType.LOGISTIC_REGRESSION: 0,
              TaskType.POISSON_REGRESSION: 2,
              TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM: 3}
 # Shared memory one block may take (of the 227 KB a Hopper block can opt
-# into), and the rows of a full tile.
+# into); the rows of a full tile and the tiles of a full ring, chosen by
+# chip_fused_ab.py at D2's shape.
 SMEM_BUDGET = 200 * 1024
-MAX_ROWS = 64
+MAX_ROWS = 32
+STAGES = 3
 _WARPS = 8
 
 _lib = None
@@ -68,9 +73,9 @@ def library() -> ctypes.CDLL:
             lib = K.load_library(SOURCE)
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.photon_fused_vg.argtypes = [p, p, p, p, p, ll, i, i, i, i, i,
-                                            p, p, p]
+                                            i, p, p, p]
             lib.photon_fused_vg.restype = i
-            lib.photon_fused_vg_grid.argtypes = [ll, i, i, i,
+            lib.photon_fused_vg_grid.argtypes = [ll, i, i, i, i,
                                                  ctypes.POINTER(i)]
             lib.photon_fused_vg_grid.restype = i
             lib.photon_fused_vg_error_string.argtypes = [i]
@@ -84,27 +89,44 @@ def _align16(b: int) -> int:
     return (b + 15) & ~15
 
 
-def smem_bytes(rows: int, d: int, itemsize: int) -> int:
-    """Shared memory of one block for a tile of ``rows`` rows: the tile, w
-    in X's dtype, the gradient sums and their compensations, the tile's
-    cotangents and the warps' loss sums (``smem_bytes`` in
+def smem_bytes(rows: int, stages: int, d: int, itemsize: int) -> int:
+    """Shared memory of one block for a ring of ``stages`` tiles of
+    ``rows`` rows: the tiles, w in X's dtype, the gradient sums and their
+    compensations, two buffers of the tile's cotangents, the warps' loss
+    sums and each stage's two mbarriers (``smem_bytes`` in
     csrc/fused_vg.cu computes the same layout)."""
-    return (_align16(rows * d * itemsize) + _align16(d * itemsize)
-            + 2 * _align16(4 * d) + _align16(4 * rows) + 4 * _WARPS)
+    return (stages * _align16(rows * d * itemsize) + _align16(d * itemsize)
+            + 2 * _align16(4 * d) + _align16(8 * rows) + 4 * _WARPS
+            + 16 * stages)
+
+
+def _ring(d: int, itemsize: int) -> tuple:
+    """(rows, stages) of the ring for rows of ``d`` columns: `STAGES` tiles
+    of up to `MAX_ROWS` rows, fewer rows while the budget does not hold
+    them, then fewer stages; (0, 0) when not one row fits."""
+    for stages in range(STAGES, 0, -1):
+        rows = MAX_ROWS
+        while rows > 0 and smem_bytes(rows, stages, d, itemsize) \
+                > SMEM_BUDGET:
+            rows -= 1
+        if rows:
+            return rows, stages
+    return 0, 0
 
 
 def tile_rows(d: int, itemsize: int) -> int:
-    """The rows of a tile: up to `MAX_ROWS`, as many as the budget holds
-    (0 when not even one row fits)."""
-    rows = MAX_ROWS
-    while rows > 0 and smem_bytes(rows, d, itemsize) > SMEM_BUDGET:
-        rows -= 1
-    return rows
+    """The rows of a tile (0 when not even one row fits)."""
+    return _ring(d, itemsize)[0]
+
+
+def stages(d: int, itemsize: int) -> int:
+    """The tiles of the ring (0 when not even one row fits)."""
+    return _ring(d, itemsize)[1]
 
 
 def _widest(itemsize: int) -> int:
     d = SMEM_BUDGET // (2 * itemsize + 8)  # an upper bound
-    while smem_bytes(1, d, itemsize) > SMEM_BUDGET:
+    while smem_bytes(1, 1, d, itemsize) > SMEM_BUDGET:
         d -= 1
     return d
 
@@ -155,17 +177,16 @@ def fused_value_and_grad(task: TaskType, X: torch.Tensor, w: torch.Tensor,
         return fused_value_and_grad_reference(task, X, w, y, weights,
                                               offsets)
     n, d, bf16 = _check(X, w, y, weights, offsets)
-    rows, ctas = _plan(X.device, n, d, bf16)
-    partial = torch.empty((ctas, d + 1), dtype=torch.float32,
-                          device=X.device)
-    out = torch.empty((d + 1,), dtype=torch.float32, device=X.device)
-    lib = library()
-    with torch.cuda.device(X.device):
-        code = lib.photon_fused_vg(
-            X.data_ptr(), w.data_ptr(), y.data_ptr(), weights.data_ptr(),
-            offsets.data_ptr(), n, d, int(bf16), _TASK_IDS[task], rows, ctas,
-            partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(X.device).cuda_stream)
+    rows, ring, ctas = _plan(X.device, n, d, bf16)
+    # the blocks' (ctas, d + 1) partials, then the (d + 1,) result
+    buf = torch.empty(((ctas + 1) * (d + 1),), dtype=torch.float32,
+                      device=X.device)
+    out = buf[ctas * (d + 1):]
+    lib = _lib if _lib is not None else library()
+    code = K.launch(lib.photon_fused_vg, X.get_device(), X.data_ptr(),
+                    w.data_ptr(), y.data_ptr(), weights.data_ptr(),
+                    offsets.data_ptr(), n, d, int(bf16), _TASK_IDS[task],
+                    rows, ring, ctas, buf.data_ptr(), out.data_ptr())
     if code:
         raise RuntimeError(f"{KERNEL} launch failed: "
                            f"{lib.photon_fused_vg_error_string(code)}")
@@ -194,23 +215,23 @@ def _check(X, w, y, weights, offsets):
 
 
 def _plan(device, n: int, d: int, bf16: bool):
-    """(rows per tile, blocks) for this shape on ``device``: one full wave
-    of resident blocks, at most one per tile (cached per shape)."""
+    """(rows per tile, stages, blocks) for this shape on ``device``: one
+    full wave of resident blocks, at most one per tile (cached per
+    shape)."""
     key = (device, n, d, bf16)
-    with _plan_lock:
-        plan = _PLANS.get(key)
+    plan = _PLANS.get(key)
     if plan is not None:
         return plan
-    rows = tile_rows(d, 2 if bf16 else 4)
+    rows, ring = _ring(d, 2 if bf16 else 4)
     lib = library()
     ctas = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        code = lib.photon_fused_vg_grid(n, d, int(bf16), rows,
+    with torch.cuda.device(device):  # once per shape
+        code = lib.photon_fused_vg_grid(n, d, int(bf16), rows, ring,
                                         ctypes.byref(ctas))
     if code:
         raise RuntimeError(f"{KERNEL} grid query failed: "
                            f"{lib.photon_fused_vg_error_string(code)}")
-    plan = (rows, int(ctas.value))
+    plan = (rows, ring, int(ctas.value))
     with _plan_lock:
         _PLANS[key] = plan
     return plan

@@ -151,19 +151,47 @@ def test_can_fuse_rejects_what_the_kernel_does_not_take():
 
 
 def test_tile_geometry():
-    """A full tile at the dense bench width fits the budget; the widest d
-    takes one row per tile and covers the reference's widest (a 128-row
-    chunk in its 4 MB slot: 8,192 f32 or 16,384 bf16 columns)."""
+    """A full ring at the dense bench width fits the budget twice over an
+    SM's 227 KB; the widest d takes one stage of one row and covers the
+    reference's widest (a 128-row chunk in its 4 MB slot: 8,192 f32 or
+    16,384 bf16 columns)."""
     assert F.tile_rows(256, 4) == F.MAX_ROWS
-    assert F.smem_bytes(64, 256, 4) == 68_896 <= F.SMEM_BUDGET
+    assert F.stages(256, 4) == F.STAGES
+    assert F.smem_bytes(32, 3, 256, 4) == 101_712 <= F.SMEM_BUDGET
     for dtype, itemsize, ref_top in ((torch.float32, 4, 8192),
                                      (torch.bfloat16, 2, 16384)):
         top = F.max_features(dtype)
         assert top >= ref_top
-        assert F.tile_rows(top, itemsize) == 1
-        assert F.tile_rows(top + 1, itemsize) == 0
-        assert F.smem_bytes(1, top, itemsize) <= F.SMEM_BUDGET \
-            < F.smem_bytes(1, top + 1, itemsize)
+        assert (F.tile_rows(top, itemsize), F.stages(top, itemsize)) == (1, 1)
+        assert (F.tile_rows(top + 1, itemsize),
+                F.stages(top + 1, itemsize)) == (0, 0)
+        assert F.smem_bytes(1, 1, top, itemsize) <= F.SMEM_BUDGET \
+            < F.smem_bytes(1, 1, top + 1, itemsize)
+
+
+def test_max_features_is_pinned():
+    """At the widest d the ring is one stage of one row, whose two
+    mbarriers and second cotangent fit in the 16-byte padding of its
+    parts: `can_fuse` takes every width up to 12,796 f32 / 17,060 bf16."""
+    assert F.max_features(torch.float32) == 12_796
+    assert F.max_features(torch.bfloat16) == 17_060
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_fits_the_budget_for_every_width(dtype):
+    """For every d up to `max_features`: at least one stage of one row,
+    inside the budget, with as many rows as the budget allows for its
+    stages (up to `MAX_ROWS`) and fewer stages only where not one row
+    fits with more."""
+    itemsize = getattr(torch, dtype).itemsize
+    for d in range(1, F.max_features(getattr(torch, dtype)) + 1):
+        rows, ring = F.tile_rows(d, itemsize), F.stages(d, itemsize)
+        assert 1 <= rows <= F.MAX_ROWS and 1 <= ring <= F.STAGES, d
+        assert F.smem_bytes(rows, ring, d, itemsize) <= F.SMEM_BUDGET, d
+        assert rows == F.MAX_ROWS or F.smem_bytes(
+            rows + 1, ring, d, itemsize) > F.SMEM_BUDGET, d
+        assert ring == F.STAGES or F.smem_bytes(
+            1, ring + 1, d, itemsize) > F.SMEM_BUDGET, d
 
 
 def test_wrapper_takes_the_plain_version_only_on_the_cpu():
