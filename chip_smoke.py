@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GAME serving path, its sparse logistic
-GLM training path and its dense OWL-QN / TRON training path on one GPU.
+GLM training path, its dense OWL-QN / TRON training path and its
+reg-weight grids on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -9,7 +10,8 @@ Phases (any failure exits non-zero):
 0. build every kernel source in the checkout (serving_int8.cu,
    blocked_ell.cu, fused_vg.cu), all three builds started together beside
    an ``nvcc -Xptxas -v`` compile of each, and print each one's build
-   seconds;
+   seconds, and the registers and spills of the blocked-ELL kernels'
+   8-lane instantiations (the lane grid's);
 1. print the int8 serving rung's registers and spills (ptxas -v) and hold
    it against its plain PyTorch version: each of its four branches alone,
    all four together, and 20 coordinates (two launches; equal bit for bit
@@ -63,11 +65,29 @@ T3. time each blocked-ELL kernel at (a)'s shapes beside its plain version,
    call; device time from CUDA events with the host's enqueue hidden
    behind a spin kernel, and per call from an idle stream); both tiled
    forms' device time per launch; the tail step as the X pass takes it
-   (added into the hot product); then both rmatvec forms on an 8-lane
-   cotangent past the L2 beside cuSPARSE's SpMM;
+   (added into the hot product);
 T2(d). OWL-QN (L1, reg 1.0, 5 iterations) on T2's layout: the kernel
    route (the blocked-ELL kernels, launch counts) against ``scope("off")``,
    loss histories within rtol 1e-5;
+G. the reg-weight grid on T2's layout (built once, for T2): (a) bench.py's
+   run_sparse_grid — 8 L2 lanes (S_GRID, geomspace(1e-4, 1e-2)), history
+   5 stored bf16, tolerance 0, 40 iterations — through
+   `train_glm_grid(device_results=True)` (timed; launch counts reset just
+   before and read just after): rows x sum of per-lane iterations over
+   the wall, per-lane iterations, line-search trials per iteration, peak
+   device memory beside the reckoned solver state, and a profiled
+   5-iteration grid's device-busy share and device ops per iteration;
+   (b) 5 iterations with f32 history on the kernels, on the tiled forms,
+   on the plain versions (``scope("off")``) and as 8 single-lane
+   `train_glm` solves: per-lane iterations equal, loss histories within
+   rtol 1e-5; (c) 4 OWL-QN lanes (an L1 sweep) and 4 TRON lanes on the
+   same layout against their plain versions, rtol 1e-5; then each
+   blocked-ELL kernel at 8 lanes (the grid's coefficients; a seeded
+   cotangent) beside its plain version, cuSPARSE's SpMM and its 8-lane
+   bound, warm and cold, the fused and tiled forms bit-identical; and the
+   hot block's Xᵀr over all rows against an f64 product, as one cuBLAS
+   call and as the X pass sums it in row chunks (at most 1e-5 of the
+   largest output);
 D1. print the fused value+grad kernel's registers and spills (ptxas -v)
    and hold it against its plain version: all four tasks, f32 and bf16
    storage, n = 1,000 and 4,097 (a ragged last tile), d = 37 (rows not a
@@ -86,12 +106,18 @@ D2. train L1 logistic regression at the bench's dense width — bench.py's
    profiled 5-iteration solve's device-busy share;
 D3. TRON (L2, reg 1.0, 10 iterations, 20 CG steps) at the same width,
    kernel route against ``scope("off")``; iterations, HVPs, rows*iters/s;
+D5. bench.py's run_dense on D2's data: the 16-lane L2 grid (D_GRID,
+   history 10, tolerance 0, 40 iterations) through `train_glm_grid`, no
+   hand-written kernel (its lanes' products are cuBLAS GEMMs), twice:
+   rows x sum of per-lane iterations over the wall;
 D4. time the fused kernel at D2's shape (CUDA events; device time from the
    profiler, and from events with a warm and a cold L2) beside its plain
    version, the unfused route's two cuBLAS GEMVs (the library yardstick,
    warm and cold) and its bound.
 
-Output: the run's lines, then one ``{"kernels": [...]}`` JSON line, the
+Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
+blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
+their launches in the grid's solves under ``grid_launches``), the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
@@ -127,6 +153,13 @@ T_ITERS, T_SHORT, T_REG, T_HISTORY = 40, 5, 1e-3, 5
 # the dense path: bench.py's dense leg (D_ROWS, D_FEATURES, dense_problem)
 D_ROWS, D_FEATURES, D_ITERS, D_SHORT = 1 << 19, 256, 40, 5
 D_L1, D_HISTORY, D_TRON_ITERS, D_TRON_REG, D_CG = 1e4, 10, 10, 1.0, 20
+
+# the reg-weight grids: bench.py's run_sparse_grid (S_GRID, 8 L2 lanes,
+# bf16 history) on T2's problem, and run_dense (D_GRID, 16 lanes) on D2's
+S_GRID = list(np.geomspace(1e-4, 1e-2, 8))
+D_GRID = list(np.geomspace(1e-4, 1e-2, 16))
+G_L1 = [0.5, 1.0, 2.0, 4.0]        # the OWL-QN lanes on T2's layout
+G_TRON = [1.0, 3.0, 10.0, 30.0]    # the TRON lanes on T2's layout
 
 
 def log(*a) -> None:
@@ -289,6 +322,11 @@ def phase_build() -> dict:
     log(f"phase 0: built {len(secs)} kernel sources together in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    eight = [r for r in ptxas["blocked_ell"] if "lane_chunk=8" in r[0]]
+    spilled = [r[0] for r in eight if r[2] or r[3]]
+    log("phase 0: the blocked-ELL kernels' 8-lane instantiations (ptxas "
+        "-v), the lane grid's: " + ptxas_text(eight) + "; spills: "
+        + (", ".join(spilled) if spilled else "none"))
     return ptxas
 
 
@@ -841,17 +879,9 @@ def phase_training(args, dev, gpu) -> dict:
     rate = rows * it_a / solve_s
 
     # (b): the tiled forms carry the path at full width
-    old = os.environ.get(K.ENV_BUDGET)
-    os.environ[K.ENV_BUDGET] = "0"
-    try:
-        K.reset_launch_counts()
-        _, res_b, b_s = solve_timed(batch, short, dev)
-        launches_b = K.launch_counts()
-    finally:
-        if old is None:
-            del os.environ[K.ENV_BUDGET]
-        else:
-            os.environ[K.ENV_BUDGET] = old
+    K.reset_launch_counts()
+    _, res_b, b_s = with_budget("0", lambda: solve_timed(batch, short, dev))
+    launches_b = K.launch_counts()
     # (c): the plain versions on the card
     K.reset_launch_counts()
     _, res_c, c_s = solve_timed(batch, dataclasses.replace(short,
@@ -952,16 +982,17 @@ def device_ops(fn, budget=None) -> dict:
     return ops
 
 
-def solve_profile(batch, cfg, dev):
+def solve_profile(batch, cfg, dev, solve=None):
     """(device busy s, device op count, the five device ops that took the
     most time [(name, us)], wall s, {name: us} and {name: count} of every
-    device op) of one short solve under torch.profiler: the summed time of
-    the CUDA kernels and copies against the wall clock."""
+    device op) of one short solve (`solve_timed`'s) under torch.profiler:
+    the summed time of the CUDA kernels and copies against the wall
+    clock."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall = solve_timed(batch, cfg, dev)
+        _, _, wall = solve_timed(batch, cfg, dev, solve)
     by_name, counts, n_ops = {}, {}, 0
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -999,13 +1030,14 @@ def tail_csr(X, transpose: bool):
         .coalesce().to_sparse_csr()
 
 
-def blocked_ell_bounds(X) -> dict:
-    """(bound_ms, bound_by) per kernel name for this layout: the bytes each
-    must move (every ELL / bucket slot: int32 index + stored value; the
-    distinct vector entries it reads; row_pos; its f32 output) over HBM
-    bandwidth vs its f32 operations (a multiply-add per slot, one more
-    multiply per slot for ``square``) over the f32 peak."""
-    n, U = int(X.shape[0]), X.n_prefix - X.d_sel
+def blocked_ell_bounds(X, lanes: int = 1) -> dict:
+    """(bound_ms, bound_by) per kernel name for this layout at ``lanes``
+    lanes: the bytes each must move (every ELL / bucket slot: int32 index
+    + stored value, once; the distinct vector entries it reads, G floats
+    each; row_pos; its f32 output, G floats a row or column) over HBM
+    bandwidth vs its f32 operations (a multiply-add per slot and lane,
+    one more multiply per slot for ``square``) over the f32 peak."""
+    n, U, G = int(X.shape[0]), X.n_prefix - X.d_sel, lanes
     vb = X.ell_vals[0].element_size()
     ell = sum(int(v.numel()) for v in X.ell_vals)
     occ = sum(int(v.numel()) for v in X.bucket_vals)
@@ -1016,8 +1048,10 @@ def blocked_ell_bounds(X) -> dict:
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         return max(tb, to), ("bytes" if tb >= to else "operations")
 
-    tail = bound(ell * (4 + vb) + 4 * U + 4 * n + 4 * n, 2 * ell)
-    rmv = bound(occ * (4 + vb) + 4 * tail_rows + 4 * U, 2 * occ)
+    tail = bound(ell * (4 + vb) + 4 * U * G + 4 * n + 4 * n * G,
+                 2 * ell * G)
+    rmv = bound(occ * (4 + vb) + 4 * tail_rows * G + 4 * U * G,
+                2 * occ * G)
     return {"tail_matvec": tail, "tail_matvec_tiled": tail,
             "bucket_rmatvec": rmv, "bucket_rmatvec_tiled": rmv}
 
@@ -1133,45 +1167,6 @@ def phase_training_timings(state: dict, gpu) -> list:
                     for form, (a, b, c) in steps.items())
         + f"; the whole matvec (hot bf16 GEMV + fused tail) {whole[0]:.4f} "
         f"ms per call, {whole[1]:.4f} ms device warm  [{gpu}]")
-    # the route has no default budget: both rmatvec forms on a cotangent
-    # past the card's 50 MB L2 (8 lanes of n rows), beside cuSPARSE's SpMM
-    r8 = torch.from_numpy(rng.uniform(-1, 1, size=(n, 8)).astype(
-        np.float32)).to(w.device)
-    r8_16 = r8.to(X.dense.dtype).float()
-    with K.scope("on"):
-        f8 = KB.bucket_rmatvec(X, r8)
-        t8 = KB.bucket_rmatvec_tiled(X, r8)
-        want8 = KB.bucket_rmatvec_reference(X, r8)
-        torch.cuda.synchronize()
-        np.testing.assert_allclose(f8.cpu().numpy(), want8.cpu().numpy(),
-                                   **TOL, err_msg="rmatvec at 8 lanes")
-        if not torch.equal(f8, t8):
-            raise AssertionError("rmatvec at 8 lanes: fused and tiled differ")
-        times = {}
-        for form, fn in (("fused", KB.bucket_rmatvec),
-                         ("tiled", KB.bucket_rmatvec_tiled)):
-            times[form] = (
-                time_ms(lambda: fn(X, r8), n=20, warm=3),
-                device_ms(lambda: fn(X, r8), "bell_bucket_rmatvec_kernel",
-                          n=10),
-                events_ms(lambda: fn(X, r8), cold=True))
-    lib8 = (time_ms(lambda: torch.sparse.mm(csr_t, r8_16), n=20, warm=3),
-            events_ms(lambda: torch.sparse.mm(csr_t, r8_16), cold=True))
-    occ = sum(int(v.numel()) for v in X.bucket_vals)
-    U = X.n_prefix - X.d_sel
-    B = sum(int(v.shape[0]) for v in X.ell_vals)
-    tail_rows = int((X.row_pos != B).sum().item())
-    bound8 = (occ * (4 + X.bucket_vals[0].element_size())
-              + 32 * tail_rows + 32 * U) / HBM_BYTES_PER_S * 1e3
-    log(f"T3: route past L2: bucket_rmatvec on an 8-lane cotangent of "
-        f"{r8.numel() * 4 / 1e6:.1f} MB: "
-        + "; ".join(f"{form} {a:.4f} ms per call, device "
-                    + ("not measured" if b is None else f"{b:.4f} ms")
-                    + f" warm, {c:.4f} ms cold"
-                    for form, (a, b, c) in times.items())
-        + f"; cuSPARSE SpMM {lib8[0]:.4f} ms per call, {lib8[1]:.4f} ms "
-        f"device cold; bound {bound8:.4f} ms (bytes); fused == tiled bit "
-        f"for bit  [{gpu}]")
     return out
 
 
@@ -1216,6 +1211,323 @@ def phase_sparse_owlqn(state: dict, dev, gpu) -> None:
         f"{w.numel()} coefficients exactly zero; loss {res_a.history()[0]:.7g}"
         f" -> {res_a.history()[-1]:.7g}; max rel gap to plain {gap:.3g}  "
         f"[{gpu}]")
+
+
+# ------------------------------------------- phase G: the reg-weight grid
+def grid_timed(batch, cfg, weights, dev, **kw):
+    """(train_glm_grid's result, wall s) of one logistic grid closed by a
+    synchronize."""
+    import torch
+
+    from photon_tpu_torch.models.training import train_glm_grid
+    from photon_tpu_torch.ops.losses import TaskType
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_glm_grid(batch, TaskType.LOGISTIC_REGRESSION, cfg, weights,
+                         device=dev, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lane_histories(res) -> list:
+    """Each lane's loss history (NaN padding dropped) of a lane-major
+    grid result."""
+    h = res.loss_history.cpu().numpy()
+    return [row[~np.isnan(row)] for row in h]
+
+
+def grids_agree(label: str, want, got) -> float:
+    """Raise unless two lane-major grid results took the same per-lane
+    iterations and their loss histories agree within rtol 1e-5; returns
+    the largest relative gap."""
+    if want.iterations.tolist() != got.iterations.tolist():
+        raise AssertionError(f"{label}: iterations {got.iterations} "
+                             f"against {want.iterations}")
+    return max(histories_agree(f"{label} lane {i}", a, b)
+               for i, (a, b) in enumerate(zip(lane_histories(want),
+                                               lane_histories(got))))
+
+
+def with_budget(budget, fn):
+    """``fn()`` with the kernels' byte budget knob set to ``budget``."""
+    from photon_tpu_torch import kernels as K
+
+    old = os.environ.get(K.ENV_BUDGET)
+    os.environ[K.ENV_BUDGET] = budget
+    try:
+        return fn()
+    finally:
+        if old is None:
+            del os.environ[K.ENV_BUDGET]
+        else:
+            os.environ[K.ENV_BUDGET] = old
+
+
+def phase_grid(state: dict, dev, gpu) -> dict:
+    """G: the headline 8-lane grid at full width (a), its agreement with
+    the tiled forms, the plain versions and 8 single-lane solves (b), and
+    OWL-QN and TRON lanes against their plain versions (c); returns what
+    the 8-lane kernel timings need."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig, OptimizerType
+    from photon_tpu_torch.optim.regularization import l1, l2
+
+    batch = state["batch"]
+    X = batch.X
+    rows, d, G, m = int(X.shape[0]), T_FEATURES, len(S_GRID), T_HISTORY
+    cfg = OptimizerConfig(max_iters=T_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=0.0, history=m,
+                          lane_history_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a): the main path — counts reset just before, read just after
+    K.reset_launch_counts()
+    (res, var), wall = grid_timed(batch, cfg, S_GRID, dev,
+                                  device_results=True)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    its = res.iterations.cpu().numpy()
+    hists = lane_histories(res)
+    if var is not None or tuple(res.w.shape) != (G, d) \
+            or not bool(torch.isfinite(res.w).all()):
+        raise AssertionError(f"G (a): result w {tuple(res.w.shape)}, "
+                             f"variances {var}")
+    for i, h in enumerate(hists):
+        if not np.isfinite(h).all() or not h[-1] < h[0]:
+            raise AssertionError(f"G (a) lane {i}: loss history {h}")
+    if set(launches) != {KB.TAIL, KB.RMATVEC}:
+        raise AssertionError(f"G (a) launched {launches}")
+    steps = int(its.max())
+    rate = rows * int(its.sum()) / wall
+    layout_b = sum(t.numel() * t.element_size() for t in X._tensors())
+    lane_b = 4 * d * G
+    state_b = 10 * lane_b + 2 * m * d * G * 2 + 8 * rows * G * 4
+    log(f"G: (a) {G}-lane L2 grid (S_GRID {S_GRID[0]:g}..{S_GRID[-1]:g}, "
+        f"history {m} bf16, tolerance 0) through train_glm_grid"
+        f"(device_results=True): per-lane iterations {its.tolist()} in "
+        f"{wall:.3f} s: {rate:.6g} rows*sum(iters)/s "
+        f"({rows * steps / wall:.6g} rows*iters/s per lock-step iteration "
+        f"count); line-search trials {res.trials} over {steps} "
+        f"iterations ({res.trials / steps:.3f} per iteration); launches "
+        f"{launches}; loss lane 0 {hists[0][0]:.7g} -> {hists[0][-1]:.7g}, "
+        f"lane {G - 1} {hists[-1][0]:.7g} -> {hists[-1][-1]:.7g}  [{gpu}]")
+    log(f"G: (a) peak device memory {peak / 1e9:.3f} GB ({base / 1e9:.3f} GB "
+        f"resident before: the layout {layout_b / 1e9:.3f} GB and T2's "
+        f"tensors), {(peak - base) / 1e9:.3f} GB for the solve against a "
+        f"reckoned {state_b / 1e9:.3f} GB (10 (d, G) f32 tensors of "
+        f"{lane_b / 1e9:.3f} GB, the bf16 S/Y history "
+        f"{2 * m * d * G * 2 / 1e9:.3f} GB, 8 (n, G) f32 tensors)  [{gpu}]")
+    del var
+    short = dataclasses.replace(cfg, max_iters=T_SHORT)
+    busy, n_ops, top, pwall, by_name, _ = solve_profile(
+        batch, short, dev,
+        lambda b, c: grid_timed(b, c, S_GRID, dev, device_results=True))
+    kern_us = {k: sum(us for name, us in by_name.items() if k in name)
+               for k in ("bell_tail_matvec_kernel",
+                         "bell_bucket_rmatvec_kernel", "nvjet")}
+    log(f"G: profiled {T_SHORT}-iteration grid: device busy "
+        + ("not measured" if busy is None else
+           f"{busy * 1e3:.3f} ms of {pwall * 1e3:.3f} ms wall "
+           f"({busy / pwall:.3f} busy, {1 - busy / pwall:.3f} idle); "
+           + ", ".join(f"{k} {us / 1e3:.3f} ms ({us / 1e6 / busy:.4f})"
+                       for k, us in kern_us.items()))
+        + f", {n_ops} device kernels and copies ({n_ops / T_SHORT:.1f} per "
+        f"iteration); most device time: "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top)
+        + f"  [{gpu}]")
+
+    # (b): 5 iterations, f32 history: kernels, tiled forms, plain versions
+    # on the card, and 8 single-lane solves at each lane's weight
+    f32 = dataclasses.replace(short, lane_history_dtype=None)
+    K.reset_launch_counts()
+    (res_k, _), k_s = grid_timed(batch, f32, S_GRID, dev,
+                                 device_results=True)
+    launches_k = K.launch_counts()
+    K.reset_launch_counts()
+    (res_t, _), t_s = with_budget("0", lambda: grid_timed(
+        batch, f32, S_GRID, dev, device_results=True))
+    launches_t = K.launch_counts()
+    K.reset_launch_counts()
+    (res_p, _), p_s = grid_timed(batch, dataclasses.replace(f32,
+                                                            kernels="off"),
+                                 S_GRID, dev, device_results=True)
+    if K.launch_counts():
+        raise AssertionError(f"scope off launched {K.launch_counts()}")
+    if set(launches_t) != {KB.TAIL_TILED, KB.RMATVEC_TILED}:
+        raise AssertionError(f"G (b) tiled launched {launches_t}")
+    gap_t = grids_agree("G (b) tiled vs kernels", res_k, res_t)
+    gap_p = grids_agree("G (b) plain vs kernels", res_k, res_p)
+    single = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l2(),
+                             history=m)
+    gap_s, s_s, k_h = 0.0, 0.0, lane_histories(res_k)
+    for i, wt in enumerate(S_GRID):
+        _, r1, t1 = solve_timed(batch, dataclasses.replace(
+            single, reg_weight=float(wt)), dev)
+        s_s += t1
+        if r1.iterations != int(res_k.iterations[i]):
+            raise AssertionError(f"G (b) lane {i}: {r1.iterations} "
+                                 f"iterations alone, "
+                                 f"{int(res_k.iterations[i])} in the grid")
+        gap_s = max(gap_s, histories_agree(f"G (b) single vs lane {i}",
+                                           r1.history(), k_h[i]))
+    log(f"G: (b) {T_SHORT} iterations, f32 history: kernels {k_s:.3f} s "
+        f"(launches {launches_k}), tiled {t_s:.3f} s (launches "
+        f"{launches_t}), plain {p_s:.3f} s, {G} single-lane train_glm "
+        f"{s_s:.3f} s; max rel loss gap to the kernels: tiled {gap_t:.3g}, "
+        f"plain {gap_p:.3g}, single-lane {gap_s:.3g}; iterations equal  "
+        f"[{gpu}]")
+
+    # (c): OWL-QN (L1) and TRON lanes on the same layout vs plain
+    for label, c, wts in (
+            ("OWL-QN", OptimizerConfig(max_iters=T_SHORT, tolerance=0.0,
+                                       reg=l1(), history=m), G_L1),
+            ("TRON", OptimizerConfig(optimizer=OptimizerType.TRON,
+                                     max_iters=T_SHORT, tolerance=0.0,
+                                     reg=l2(), cg_max_iters=D_CG), G_TRON)):
+        K.reset_launch_counts()
+        (ra, _), a_s = grid_timed(batch, c, wts, dev, device_results=True)
+        la = K.launch_counts()
+        (rb, _), b_s = grid_timed(batch, dataclasses.replace(c,
+                                                             kernels="off"),
+                                  wts, dev, device_results=True)
+        gap = grids_agree(f"G (c) {label} plain vs kernels", ra, rb)
+        if set(la) != {KB.TAIL, KB.RMATVEC}:
+            raise AssertionError(f"G (c) {label} launched {la}")
+        zeros = int((ra.w == 0).sum(dim=1).max()) if label == "OWL-QN" \
+            else None
+        log(f"G: (c) {label} {len(wts)} lanes {wts}: iterations "
+            f"{ra.iterations.tolist()} in {a_s:.3f} s (plain {b_s:.3f} s), "
+            f"trials {ra.trials}, HVPs {ra.hvps}, launches {la}"
+            + ("" if zeros is None else
+               f", most exact zeros in a lane {zeros} of {d}")
+            + f"; max rel loss gap to plain {gap:.3g}  [{gpu}]")
+    W8 = X.from_model_space(res.w.t().contiguous())
+    return dict(w8=W8, launches=launches, launches_tiled=launches_t)
+
+
+def phase_grid_timings(state: dict, grid: dict, gpu) -> dict:
+    """G: the four blocked-ELL kernels at 8 lanes on T2's layout (the grid's
+    final coefficients; a seeded (n, 8) cotangent) against their plain
+    versions, cuSPARSE's SpMM and their 8-lane bounds; the tail and
+    rmatvec forms bit-identical. Returns each kernel's 8-lane figures by
+    name."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.kernels import blocked_ell as KB
+
+    X = state["batch"].X
+    n, G = int(X.shape[0]), 8
+    w8 = grid["w8"]
+    r8 = torch.from_numpy(np.random.default_rng(24).uniform(
+        -1, 1, size=(n, G)).astype(np.float32)).to(w8.device)
+    bounds = blocked_ell_bounds(X, lanes=G)
+    csr, csr_t = tail_csr(X, transpose=False), tail_csr(X, transpose=True)
+    wt = w8[X.d_sel:X.n_prefix].to(X.dense.dtype).float()
+    r16 = r8.to(X.dense.dtype).float()
+    specs = [
+        (KB.TAIL, "tail_matvec", KB.tail_matvec, KB.tail_matvec_reference,
+         w8, "bell_tail_matvec_kernel", lambda: torch.sparse.mm(csr, wt),
+         grid["launches"]),
+        (KB.TAIL_TILED, "tail_matvec_tiled", KB.tail_matvec_tiled,
+         KB.tail_matvec_reference, w8, "bell_tail_matvec_kernel",
+         lambda: torch.sparse.mm(csr, wt), grid["launches_tiled"]),
+        (KB.RMATVEC, "bucket_rmatvec", KB.bucket_rmatvec,
+         KB.bucket_rmatvec_reference, r8, "bell_bucket_rmatvec_kernel",
+         lambda: torch.sparse.mm(csr_t, r16), grid["launches"]),
+        (KB.RMATVEC_TILED, "bucket_rmatvec_tiled", KB.bucket_rmatvec_tiled,
+         KB.bucket_rmatvec_reference, r8, "bell_bucket_rmatvec_kernel",
+         lambda: torch.sparse.mm(csr_t, r16), grid["launches_tiled"]),
+    ]
+    out, bits = {}, {}
+    for name, key, fn, plain, v, symbol, lib, launches in specs:
+        with K.scope("on"):
+            got = fn(X, v)
+            want = plain(X, v)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       **TOL, err_msg=f"{name} at 8 lanes")
+            bits[name] = got
+            err = float((got - want).abs().max().item())
+            ms = time_ms(lambda: fn(X, v), n=50, warm=5)
+            dev_ms = device_ms(lambda: fn(X, v), symbol, n=20)
+            ev_ms = events_ms(lambda: fn(X, v), cold=False)
+            ev_cold = events_ms(lambda: fn(X, v), cold=True)
+            ms_cold = events_ms(lambda: fn(X, v), cold=True, hide_host=False)
+        plain_ms = time_ms(lambda: plain(X, v), n=10, warm=2)
+        lib_ms = time_ms(lib, n=20, warm=3)
+        lib_ev = events_ms(lib, cold=False)
+        lib_cold = events_ms(lib, cold=True)
+        bound_ms, bound_by = bounds[key]
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        log(f"G: {name} at 8 lanes: warm L2 {ms:.4f} ms per call, device "
+            f"{dev_txt} (profiler) / {ev_ms:.4f} ms (events); cold L2 "
+            f"{ms_cold:.4f} ms per call, {ev_cold:.4f} ms device (events); "
+            f"plain {plain_ms:.4f} ms; cuSPARSE SpMM f32 CSR x (., 8) warm "
+            f"{lib_ms:.4f} ms per call, {lib_ev:.4f} ms device, cold "
+            f"{lib_cold:.4f} ms device; bound {bound_ms:.4f} ms ({bound_by}); "
+            f"launches in the grid's solves {launches.get(name, 0)}; max "
+            f"|err| {err:.3g}  [{gpu}]")
+        out[name] = {"lanes8_ms": ms, "lanes8_device_ms": dev_ms,
+                     "lanes8_device_ms_events": ev_ms,
+                     "lanes8_ms_cold": ms_cold,
+                     "lanes8_device_ms_cold": ev_cold,
+                     "lanes8_plain_ms": plain_ms,
+                     "lanes8_library_ms": lib_ms,
+                     "lanes8_library_device_ms": lib_ev,
+                     "lanes8_library_device_ms_cold": lib_cold,
+                     "lanes8_bound_ms": bound_ms,
+                     "lanes8_max_abs_err": err,
+                     "grid_launches": int(launches.get(name, 0))}
+    for a, b in ((KB.TAIL, KB.TAIL_TILED), (KB.RMATVEC, KB.RMATVEC_TILED)):
+        if not torch.equal(bits[a], bits[b]):
+            raise AssertionError(f"{a} and {b} differ at 8 lanes")
+    log("G: at 8 lanes the fused and tiled forms agree bit for bit (tail "
+        "matvec, rmatvec)")
+    hot_rmatvec_accuracy(X, r8, gpu)
+    return out
+
+
+def hot_rmatvec_accuracy(X, r, gpu) -> None:
+    """G: the hot block's Xᵀr over all n rows against an f64 product, as
+    one cuBLAS call over the whole contraction and as the X pass sums it
+    (`_mm_f32`: chunks of `_MM_CHUNK` rows), for 1 and 8 columns of the
+    bf16-rounded cotangent ``r``; raises if the X pass is off by more than
+    1e-5 of the largest output."""
+    import torch
+
+    from photon_tpu_torch.data import matrix as M
+
+    r16 = r.to(X.dense.dtype)
+    n, step = int(X.shape[0]), 1 << 17
+    exact = sum(X.dense[k:k + step].double().t() @ r16[k:k + step].double()
+                for k in range(0, n, step))
+    parts = []
+    for G in (1, 8):
+        rg = r16[:, :G].contiguous()
+        want = exact[:, :G]
+        errs = {}
+        for form, fn in (("one cuBLAS call", lambda: M._mm(X.dense.t(), rg)),
+                         ("chunked", lambda: M._mm_f32(X.dense.t(), rg))):
+            got = fn().double()
+            errs[form] = (float((got - want).abs().max()
+                                / want.abs().max()),
+                          time_ms(fn, n=20, warm=3))
+        if errs["chunked"][0] > 1e-5:
+            raise AssertionError(f"hot-block Xᵀr at {G} columns: {errs}")
+        parts.append(f"{G} column(s): " + ", ".join(
+            f"{form} max |err| {e:.3g} of max |exact|, {ms:.4f} ms"
+            for form, (e, ms) in errs.items()))
+    log(f"G: the hot block's Xᵀr over {n} rows (bf16, f32 output) against "
+        f"f64, chunks of {M._MM_CHUNK} rows: " + "; ".join(parts)
+        + f"  [{gpu}]")
 
 
 # --------------------------------------------- phases D1-D4: dense OWL-QN
@@ -1429,6 +1741,35 @@ def phase_dense_tron(state: dict, dev, gpu) -> None:
         f"{D_ROWS * res_a.iterations / a_s:.6g} rows*iters/s; loss "
         f"{h[0]:.8g} -> {h[-1]:.8g}; plain route {b_s:.4f} s, max rel gap "
         f"{gap:.3g}  [{gpu}]")
+
+
+def phase_dense_grid(state: dict, dev, gpu) -> None:
+    """D5: bench.py's run_dense — the 16-lane L2 grid (D_GRID, history 10,
+    tolerance 0, 40 iterations) on D2's data through train_glm_grid,
+    host results (the transfer closes the timing), twice."""
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    cfg = OptimizerConfig(max_iters=D_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=0.0)
+    for run in (1, 2):
+        K.reset_launch_counts()
+        grid, wall = grid_timed(state["batch"], cfg, D_GRID, dev)
+        if K.launch_counts():  # the lanes' products are cuBLAS GEMMs
+            raise AssertionError(f"D5 launched {K.launch_counts()}")
+        its = [r.iterations for _, r in grid]
+        for i, (model, r) in enumerate(grid):
+            h = r.history()
+            if not np.isfinite(h).all() or not h[-1] < h[0] or not bool(
+                    model.coefficients.means.isfinite().all()):
+                raise AssertionError(f"D5 lane {i}: loss history {h}")
+        log(f"D5: run {run}: {len(D_GRID)}-lane L2 grid (D_GRID "
+            f"{D_GRID[0]:g}..{D_GRID[-1]:g}) at {D_ROWS} x {D_FEATURES} "
+            f"f32, per-lane iterations {its} in {wall:.4f} s: "
+            f"{D_ROWS * sum(its) / wall:.6g} rows*sum(iters)/s; trials "
+            f"{grid[0][1].trials}; loss lane 0 {grid[0][1].history()[-1]:.8g}"
+            f", lane 15 {grid[-1][1].history()[-1]:.8g}  [{gpu}]")
 
 
 def phase_dense_timings(state: dict, gpu) -> dict:
@@ -1667,10 +2008,14 @@ def main() -> int:
     state = phase_training(args, dev, gpu)
     kernels += phase_training_timings(state, gpu)
     phase_sparse_owlqn(state, dev, gpu)
+    lanes8 = phase_grid_timings(state, phase_grid(state, dev, gpu), gpu)
+    for entry in kernels:
+        entry.update(lanes8.get(entry["name"], {}))
     del state
     torch.cuda.empty_cache()
     state = phase_dense_owlqn(args, dev, gpu)
     phase_dense_tron(state, dev, gpu)
+    phase_dense_grid(state, dev, gpu)
     kernels.append(phase_dense_timings(state, gpu))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

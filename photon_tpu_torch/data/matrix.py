@@ -376,20 +376,50 @@ def to_blocked_ell(X: SparseRows, d_dense: int = 1024,
 
 
 # --------------------------------------------------------------- X passes
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with f32 accumulation and an f32 result, for ``b`` already
-    in ``a``'s dtype (vector or matrix). A bf16 product on the card goes to
-    cuBLAS with an f32 output (``torch.mm(..., out_dtype=float32)``, the
+# A contraction of at least twice this many terms (an Xᵀr over the rows)
+# runs as one batched product over chunks of this many, then one f32 sum
+# of the chunk results. In one cuBLAS call over 2^21 rows the hot block's
+# Xᵀr was off by up to 1.6e-4 of its largest output (5.5e-5 at 8
+# columns), in chunks of 4,096 rows by 2.2e-6 (3.4e-6), in about the same
+# time, and a column's result no longer depends on how many columns share
+# the call (NVIDIA H100; chip_smoke.py's phase G measures both).
+_MM_CHUNK = 4096
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, batched: bool = False):
+    """``a @ b`` (or ``torch.bmm``) with an f32 result for bf16 or f32
+    operands: cuBLAS with an f32 output on the card (``out_dtype``, the
     counterpart of ``preferred_element_type``); on the CPU both operands
     upcast to f32, where each bf16×bf16 product is exact."""
+    mm = torch.bmm if batched else torch.mm
+    if a.dtype == torch.float32:
+        return mm(a, b)
+    if a.is_cuda:
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.float(), b.float())
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with f32 accumulation and an f32 result, for ``b`` already
+    in ``a``'s dtype (vector or matrix); a long contraction is summed in
+    chunks of `_MM_CHUNK` terms (strided views, no copies)."""
     vec = b.dim() == 1
     b2 = b[:, None] if vec else b
-    if a.dtype == torch.float32:
-        out = a @ b2
-    elif a.is_cuda:
-        out = torch.mm(a, b2, out_dtype=torch.float32)
+    K = a.shape[1]
+    if K < 2 * _MM_CHUNK:
+        out = _mm(a, b2)
     else:
-        out = a.float() @ b2.float()
+        c = _MM_CHUNK
+        C = K // c
+        parts = _mm(
+            a.as_strided((C, a.shape[0], c),
+                         (c * a.stride(1), a.stride(0), a.stride(1))),
+            b2.as_strided((C, c, b2.shape[1]),
+                          (c * b2.stride(0), b2.stride(0), b2.stride(1))),
+            batched=True)
+        out = parts.sum(dim=0)
+        if C * c < K:
+            out += _mm(a[:, C * c:], b2[C * c:])
     return out[:, 0] if vec else out
 
 
@@ -447,8 +477,31 @@ def rmatvec(X, r: torch.Tensor) -> torch.Tensor:
     if isinstance(X, SparseRows):
         raise NotImplementedError(
             "rmatvec on SparseRows is not ported yet (ROADMAP queue A "
-            "item 2); lay the rows out with to_blocked_ell")
+            "item 4); lay the rows out with to_blocked_ell")
     return _mm_f32(X.t(), r.to(X.dtype))
+
+
+def _no_sparse_lanes(X, what: str) -> None:
+    if isinstance(X, SparseRows):
+        raise NotImplementedError(
+            f"{what} on SparseRows is not ported yet (ROADMAP queue A item "
+            "4): its gather is single-lane; lay the rows out with "
+            "to_blocked_ell for a lane grid")
+
+
+def matvec_lanes(X, W: torch.Tensor) -> torch.Tensor:
+    """X @ W -> (n, G) f32 for LANE-MINOR coefficients W: (d, G), G
+    contiguous (a `BlockedEllRows` W in its permuted space): the hot block
+    (or dense X) as one (n, ·) × (·, G) product, the tail kernel gathering
+    G contiguous floats per index."""
+    _no_sparse_lanes(X, "matvec_lanes")
+    return matvec(X, W)
+
+
+def rmatvec_lanes(X, R: torch.Tensor) -> torch.Tensor:
+    """Xᵀ @ R -> (d, G) f32 for lane-minor per-row cotangents R: (n, G)."""
+    _no_sparse_lanes(X, "rmatvec_lanes")
+    return rmatvec(X, R)
 
 
 def sq_rmatvec(X, r: torch.Tensor) -> torch.Tensor:
@@ -458,7 +511,7 @@ def sq_rmatvec(X, r: torch.Tensor) -> torch.Tensor:
     if isinstance(X, SparseRows):
         raise NotImplementedError(
             "sq_rmatvec on SparseRows is not ported yet (ROADMAP queue A "
-            "item 2); lay the rows out with to_blocked_ell")
+            "item 4); lay the rows out with to_blocked_ell")
     return _mm_f32((X * X).t(), r.to(X.dtype))
 
 

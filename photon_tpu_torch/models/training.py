@@ -1,5 +1,6 @@
 """Single-device GLM training (port of `make_objective`, `solve`,
-`_permuted_prep`, `_init_w0` and the one-device `train_glm` of
+`_permuted_prep`, `_init_w0`, the one-device `train_glm`, and the
+reg-weight grid `lane_weight_arrays` / `train_glm_grid` of
 `photon_tpu/models/training.py`).
 
 Reference parity: com.linkedin.photon.ml.optimization.game.
@@ -11,14 +12,18 @@ blocked-ELL X passes go through the port's CUDA kernels on the card; a
 dense OWL-QN solve evaluates f and its gradient through the fused
 value+grad kernel (`kernels.fused`), one pass over X per evaluation.
 
-Still to come, and raising when asked for: feature normalization and
-full-covariance priors (ROADMAP queue A item 3), FULL variances (item 5),
-meshes (item 13), reg-weight grids (item 7) and streamed datasets
-(item 8).
+A reg-weight grid runs its G lanes lock-step in lane-minor layout
+(`optim.lane_lbfgs`, `lane_owlqn`, `lane_tron`): every X pass is one
+shared (·, G) pass through the same kernels.
+
+Still to come, and raising when asked for: feature normalization,
+`PriorDistribution` (full-covariance priors) and FULL variances (ROADMAP
+queue A item 4), streamed datasets (item 5) and meshes (item 10).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional
 
 import numpy as np
@@ -31,9 +36,13 @@ from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_tpu_torch.models.variance import (VarianceComputationType,
                                               compute_variances)
+from photon_tpu_torch.ops.lane_objective import supports_lanes
 from photon_tpu_torch.ops.losses import TaskType
 from photon_tpu_torch.ops.objective import Objective
 from photon_tpu_torch.optim.config import OptimizerConfig, OptimizerType
+from photon_tpu_torch.optim.lane_lbfgs import minimize_lbfgs_margin_lanes
+from photon_tpu_torch.optim.lane_owlqn import minimize_owlqn_lanes
+from photon_tpu_torch.optim.lane_tron import minimize_tron_margin_lanes
 from photon_tpu_torch.optim.lbfgs import minimize_lbfgs_margin
 from photon_tpu_torch.optim.owlqn import minimize_owlqn
 from photon_tpu_torch.optim.tracker import OptResult
@@ -82,15 +91,18 @@ def _l1_lam(config: OptimizerConfig):
 
 
 def solve(obj: Objective, batch: GLMBatch, w0: torch.Tensor,
-          config: OptimizerConfig) -> OptResult:
+          config: OptimizerConfig,
+          l1_weight: Optional[float] = None) -> OptResult:
     """Run the configured solver on one batch: OWL-QN when the config has
     an L1 term (one f/g evaluation per line-search trial), the
     margin-cached TRON, or the margin-cached L-BFGS (two X passes per
-    iteration)."""
+    iteration). ``l1_weight`` overrides the config's L1 weight (a grid
+    lane's)."""
     opt = config.effective_optimizer()
     if opt is OptimizerType.OWLQN:
+        lam = _l1_lam(config) if l1_weight is None else l1_weight
         return minimize_owlqn(
-            lambda w: obj.value_and_grad(w, batch), w0, _l1_lam(config),
+            lambda w: obj.value_and_grad(w, batch), w0, lam,
             max_iters=config.max_iters, tolerance=config.tolerance,
             history=config.history, reg_mask=obj.reg_mask)
     if opt is OptimizerType.TRON:
@@ -158,12 +170,12 @@ def train_glm(
     if prior is not None:
         raise NotImplementedError(
             "PriorDistribution (incl. full-covariance priors) is not ported "
-            "yet (ROADMAP queue A items 1 and 3); pass the diagonal "
+            "yet (ROADMAP queue A item 4); pass the diagonal "
             "prior_mean/prior_precision")
     if normalization is not None:
         raise NotImplementedError(
             "feature normalization is not ported yet (ROADMAP queue A "
-            "item 3)")
+            "item 4)")
     dev = resolve_device(device)
     batch = batch.to(dev)
     X = batch.X
@@ -194,3 +206,247 @@ def train_glm(
         if var is not None:
             var = X.to_model_space(var)
     return GeneralizedLinearModel(Coefficients(res.w, var), task), res
+
+
+# ------------------------------------------------------------ the lane grid
+_log = logging.getLogger("photon_tpu_torch.models")
+
+
+def _history_storage(name):
+    """The torch dtype a ``lane_history_dtype`` names (None: the solver's
+    f32)."""
+    if name is None:
+        return None
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError("lane_history_dtype must name a torch floating "
+                         f"dtype such as 'bfloat16', got {name!r}")
+    return dt
+
+
+def _lane_result(res: OptResult) -> OptResult:
+    """A lane-minor result (w (d, G), histories (T + 1, G)) in the public
+    lane-MAJOR convention: w (G, d), histories (G, T + 1)."""
+    return res._replace(w=res.w.t(), loss_history=res.loss_history.t(),
+                        grad_norm_history=res.grad_norm_history.t())
+
+
+def _lane_solve(obj, batch, W0, l2s, l1s, config) -> OptResult:
+    """The one place a lane-minor solve is dispatched: L1/elastic-net
+    sweeps (``l1s`` given) on the OWL-QN lanes, whose trials each pay one
+    shared margin pass; smooth sweeps on the margin-cached TRON or L-BFGS
+    lanes. ``W0``: (d, G) lane-minor starts, G contiguous."""
+    hdt = _history_storage(config.lane_history_dtype)
+    if l1s is not None:
+        return minimize_owlqn_lanes(
+            obj, l2s, l1s, batch, W0, max_iters=config.max_iters,
+            tolerance=config.tolerance, history=config.history,
+            reg_mask=obj.reg_mask, history_dtype=hdt)
+    if config.optimizer is OptimizerType.TRON:
+        return minimize_tron_margin_lanes(
+            obj, l2s, batch, W0, max_iters=config.max_iters,
+            tolerance=config.tolerance, cg_max_iters=config.cg_max_iters)
+    return minimize_lbfgs_margin_lanes(
+        obj, l2s, batch, W0, max_iters=config.max_iters,
+        tolerance=config.tolerance, history=config.history,
+        history_dtype=hdt)
+
+
+def _train_run_grid(batch, W0, obj, l2s, l1s, config, variance):
+    """The general grid runner (variances, priors): the single-lane solve
+    and its variances once per lane, in turn, at that lane's weights
+    (the reference vmaps the same solver over the lanes). Returns a
+    lane-minor OptResult and (d, G) variances (None for NONE)."""
+    res, var = [], []
+    for i in range(W0.shape[1]):
+        o = dataclasses.replace(obj, l2=float(l2s[i]))
+        r = solve(o, batch, W0[:, i].contiguous(), config,
+                  l1_weight=None if l1s is None else float(l1s[i]))
+        res.append(r)
+        var.append(compute_variances(o, r.w, batch, variance))
+    dev = W0.device
+    out = OptResult(
+        w=torch.stack([r.w for r in res], dim=1),
+        value=torch.stack([r.value for r in res]),
+        grad_norm=torch.stack([r.grad_norm for r in res]),
+        iterations=torch.tensor([r.iterations for r in res],
+                                dtype=torch.int32, device=dev),
+        converged=torch.stack([r.converged for r in res]),
+        failed=torch.stack([r.failed for r in res]),
+        loss_history=torch.stack([r.loss_history for r in res], dim=1),
+        grad_norm_history=torch.stack([r.grad_norm_history for r in res],
+                                      dim=1),
+        evaluations=sum(r.evaluations for r in res),
+        hvps=sum(r.hvps for r in res))
+    return out, (None if var[0] is None else torch.stack(var, dim=1))
+
+
+def lane_weight_arrays(config: OptimizerConfig, reg_weights):
+    """(l2s, l1s, static_config) for a grid's per-lane weights, the one
+    place the lane routing lives: any L1 weight in the sweep runs every
+    lane on OWL-QN (the reference's forced-OWLQN-on-L1 rule, per sweep),
+    and the static config is weight-normalized (``reg_weight`` 0, the
+    optimizer pinned). ``l2s``/``l1s`` are (G,) f32 CPU tensors; ``l1s``
+    is None on the smooth routes."""
+    weights = [float(wt) for wt in reg_weights]
+    l2s = torch.tensor([config.reg.l2_weight(wt) for wt in weights],
+                       dtype=torch.float32)
+    use_owlqn = (config.effective_optimizer() is OptimizerType.OWLQN
+                 or any(config.reg.l1_weight(wt) > 0.0 for wt in weights))
+    l1s = None
+    if use_owlqn:
+        l1s = torch.tensor([config.reg.l1_weight(wt) for wt in weights],
+                           dtype=torch.float32)
+    static_cfg = dataclasses.replace(
+        config, reg_weight=0.0,
+        optimizer=(OptimizerType.OWLQN if use_owlqn
+                   else config.effective_optimizer()))
+    return l2s, l1s, static_cfg
+
+
+def _grid_w0(d: int, G: int, w0, device) -> torch.Tensor:
+    """The (d, G) lane-minor f32 start, G contiguous: zeros, a shared (d,)
+    start in every lane, or a lane-major (G, d) per-lane start."""
+    if w0 is None:
+        return torch.zeros((d, G), dtype=torch.float32, device=device)
+    if np.ndim(w0) == 2:
+        if tuple(np.shape(w0)) != (G, d):
+            raise ValueError(f"per-lane w0 must be (G={G}, d={d}), got "
+                             f"{tuple(np.shape(w0))}")
+        return _vec_on(w0, device).t().contiguous()
+    return _vec_on(w0, device)[:, None].expand(d, G).contiguous()
+
+
+def _to_host(tensors: list) -> list:
+    """The tensors on the CPU, from ONE device-to-host copy (packed as f32:
+    bools and counts below 2^24 round-trip exactly)."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+def train_glm_grid(
+    batch: GLMBatch,
+    task: TaskType,
+    config: OptimizerConfig,
+    reg_weights,
+    mesh=None,
+    w0=None,
+    variance: VarianceComputationType = VarianceComputationType.NONE,
+    normalization=None,
+    device_results: bool = False,
+    prior_mean=None,
+    prior_precision=None,
+    prior=None,
+    device=None,
+):
+    """Train one GLM per regularization weight, the G lanes lock-step on
+    one device (default ``cuda``) (reference: train_glm_grid without a
+    mesh; the reference's grid mode runs one Spark job per weight).
+
+    Every lane starts from ``w0``: None (zeros), a shared (d,) start, or
+    a lane-major (G, d) per-lane start, in ORIGINAL column order. A
+    `BlockedEllRows` batch solves in its permuted space (the (d, G) start
+    gathers in through ``from_model_space``, the result out through
+    ``to_model_space``). Sweeps without variances or priors run the
+    lane-minor solvers (L-BFGS, TRON, or OWL-QN for any L1 weight, as
+    `lane_weight_arrays` routes them), every X pass shared by the lanes;
+    SIMPLE variances and diagonal priors run the general runner, one
+    single-lane solve per lane, and say so at INFO.
+
+    Returns ``[(GeneralizedLinearModel, OptResult)]`` in ``reg_weights``
+    order, on the CPU from one host transfer for the whole sweep; with
+    ``device_results=True``, the lane-major ``(OptResult, variances)``
+    still on the device (w (G, d), per-lane scalars (G,), histories (G,
+    T + 1), variances (G, d) or None). ``config.kernels`` scopes the kernel
+    mode of the whole sweep."""
+    if hasattr(batch, "n_chunks"):
+        raise NotImplementedError(
+            "streamed mode has no lane-minor grid (every lane would "
+            "multiply the per-pass host→device stream); run the sweep "
+            "sequentially — each point is a train_glm(ChunkedBatch) solve. "
+            "Streamed datasets are not ported yet (ROADMAP queue A item 5)")
+    if config.kernels is not None:
+        with K.scope(config.kernels):
+            return train_glm_grid(
+                batch, task, dataclasses.replace(config, kernels=None),
+                reg_weights, mesh=mesh, w0=w0, variance=variance,
+                normalization=normalization, device_results=device_results,
+                prior_mean=prior_mean, prior_precision=prior_precision,
+                prior=prior, device=device)
+    if mesh is not None:
+        raise NotImplementedError(
+            "meshes (multi-device grids) are not ported yet (ROADMAP queue "
+            "A item 10)")
+    if normalization is not None:
+        raise NotImplementedError(
+            "feature normalization is not ported yet (ROADMAP queue A "
+            "item 4)")
+    if prior is not None:
+        raise NotImplementedError(
+            "PriorDistribution (incl. full-covariance priors) is not ported "
+            "yet (ROADMAP queue A item 4); pass the diagonal "
+            "prior_mean/prior_precision")
+    if variance is VarianceComputationType.FULL:
+        raise NotImplementedError(
+            "FULL variances are not ported yet (ROADMAP queue A item 4); "
+            "use SIMPLE")
+    dev = resolve_device(device)
+    batch = batch.to(dev)
+    X = batch.X
+    d = _matrix_dim(X)
+    weights = [float(wt) for wt in reg_weights]
+    W0 = _grid_w0(d, len(weights), w0, dev)
+    prior_mean = _vec_on(prior_mean, dev)
+    prior_precision = _vec_on(prior_precision, dev)
+    permuted = isinstance(X, BlockedEllRows)
+    intercept_index = -1
+    if permuted:
+        W0, prior_mean, prior_precision = _permuted_prep(
+            X, W0, prior_mean, prior_precision)
+        intercept_index = X.last_col_pos
+    obj = make_objective(task, config, d, prior_mean=prior_mean,
+                         prior_precision=prior_precision,
+                         intercept_index=intercept_index, device=dev)
+    l2s, l1s, static_cfg = lane_weight_arrays(config, weights)
+    l2s = l2s.to(dev)
+    l1s = None if l1s is None else l1s.to(dev)
+    if variance is VarianceComputationType.NONE and supports_lanes(obj):
+        res, var = _lane_solve(obj, batch, W0, l2s, l1s, static_cfg), None
+    else:
+        _log.info(
+            "train_glm_grid: %s requested — the lane-minor lock-step grid "
+            "does not take it; routing the %d-lane sweep to the general "
+            "runner (one single-lane solve per lane, in turn).",
+            "an informative prior" if not supports_lanes(obj)
+            else f"{variance.value.upper()} variances", len(weights))
+        res, var = _train_run_grid(batch, W0, obj, l2s, l1s, static_cfg,
+                                   variance)
+    if permuted:  # back to original column order: one (d, G) gather
+        res = res._replace(w=X.to_model_space(res.w))
+        if var is not None:
+            var = X.to_model_space(var)
+    res = _lane_result(res)
+    var = None if var is None else var.t()
+    if device_results:
+        return res, var
+    fields = [res.w, res.value, res.grad_norm, res.iterations,
+              res.converged, res.failed, res.loss_history,
+              res.grad_norm_history] + ([] if var is None else [var])
+    host = _to_host(fields)
+    W, value, gnorm, its, conv, failed, hist, ghist = host[:8]
+    V = host[8] if var is not None else None
+    out = []
+    for i in range(len(weights)):
+        lane = OptResult(
+            w=W[i], value=value[i], grad_norm=gnorm[i],
+            iterations=int(its[i]), converged=conv[i], failed=failed[i],
+            loss_history=hist[i], grad_norm_history=ghist[i],
+            evaluations=res.evaluations, hvps=res.hvps, trials=res.trials)
+        model = GeneralizedLinearModel(
+            Coefficients(W[i], None if V is None else V[i]), task)
+        out.append((model, lane))
+    return out

@@ -3,7 +3,7 @@
 Reference parity: com.linkedin.photon.ml.optimization.VarianceComputationType
 {NONE, SIMPLE, FULL} and DistributedOptimizationProblem.computeVariances:
 SIMPLE is var_j = 1 / H_jj, the inverse of the Hessian diagonal. FULL
-(diag(H⁻¹) by a dense solve) is still to come (ROADMAP queue A item 5).
+(diag(H⁻¹) by a dense solve) is still to come (ROADMAP queue A item 4).
 """
 from __future__ import annotations
 
@@ -28,5 +28,5 @@ def compute_variances(obj: Objective, w: torch.Tensor, batch: GLMBatch,
     if kind is VarianceComputationType.SIMPLE:
         return 1.0 / torch.clamp(obj.hess_diag(w, batch), min=1e-12)
     raise NotImplementedError(
-        "FULL variances are not ported yet (ROADMAP queue A item 5); use "
+        "FULL variances are not ported yet (ROADMAP queue A item 4); use "
         "SIMPLE")

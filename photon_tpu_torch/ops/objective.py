@@ -12,7 +12,7 @@ the margin-cached family (`margin`, `direction_margin`, `ray_reg_coeffs`,
 the fused kernel when ``fused`` is set and X qualifies), `hvp` and
 `hess_diag`. Feature normalization, full-covariance priors,
 `full_hessian` and the chunk-partial API are still to come (ROADMAP queue
-A item 3) and raise.
+A item 4) and raise.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from photon_tpu_torch.data.matrix import matvec, rmatvec, sq_rmatvec
 from photon_tpu_torch.kernels.fused import can_fuse, fused_value_and_grad
 from photon_tpu_torch.ops.losses import TaskType, loss_fns
 
-_LATER = "not ported yet (ROADMAP queue A item 3)"
+_LATER = "not ported yet (ROADMAP queue A item 4)"
 
 
 @dataclasses.dataclass(frozen=True)

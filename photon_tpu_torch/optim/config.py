@@ -29,6 +29,12 @@ class OptimizerConfig:
     reg: RegularizationContext = NONE
     reg_weight: float = 0.0
     regularize_intercept: bool = True  # reference regularizes the intercept feature
+    # Lane grid only (train_glm_grid): the storage dtype of the (m, d, G)
+    # L-BFGS/OWL-QN (s, y) history, e.g. "bfloat16" (None: the solver's
+    # f32). The steering inner products (rho, gamma, the curvature test)
+    # stay f32, computed from the unrounded pair at push time and cached,
+    # so only the two-loop direction sees the rounding.
+    lane_history_dtype: str | None = None
     # Kernel mode for the solve's X passes, as `photon_tpu_torch.kernels`'
     # ``on``/``off``/``auto``; None inherits the PHOTON_TPU_TORCH_KERNELS
     # env knob. train_glm scopes the whole solve with it.

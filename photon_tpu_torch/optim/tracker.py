@@ -20,16 +20,19 @@ class OptResult(NamedTuple):
     w: torch.Tensor
     value: torch.Tensor
     grad_norm: torch.Tensor
-    iterations: int  # the solve's loop runs on the host, so it knows
+    iterations: int  # the solve's loop runs on the host, so it knows;
+    #                  a (G,) tensor of per-lane counts for a lane grid
     converged: torch.Tensor  # tolerance criteria met
     failed: torch.Tensor  # abnormal stop (line search failure)
     loss_history: torch.Tensor  # (max_iters + 1,), NaN-padded
     grad_norm_history: torch.Tensor  # (max_iters + 1,), NaN-padded
     # Work counts the host loop keeps (not in the reference): calls of the
-    # objective's value_and_grad (OWL-QN; 0 for the margin-cached solvers)
-    # and Hessian-vector products (TRON).
+    # objective's value_and_grad (OWL-QN; 0 for the margin-cached solvers),
+    # Hessian-vector products (TRON) and line-search trials (the lane
+    # solvers; each trial is shared by every lane).
     evaluations: int = 0
     hvps: int = 0
+    trials: int = 0
 
     def history(self) -> np.ndarray:
         h = self.loss_history.cpu().numpy()
