@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GAME serving path, its sparse logistic
-GLM training path, its dense OWL-QN / TRON training path and its
-reg-weight grids on one GPU.
+GLM training path, its dense OWL-QN / TRON training path, its
+reg-weight grids and its GAME training on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -55,7 +55,9 @@ T2. train L2 logistic regression at the bench headline's width — 10,000,000
    (the tiled forms), (c) 5 iterations under ``scope("off")`` (the plain
    versions on the card); the loss histories agree within rtol 1e-5, the
    variances within rtol 1e-4 of the plain version's; (a) launches only
-   the fused forms, (b) only the tiled ones; a profiled 5-iteration
+   the fused forms, (b) only the tiled ones; peak device memory after the
+   layout, over solve (a) and over its SIMPLE variances with the hot
+   block squared in row chunks and squared whole; a profiled 5-iteration
    solve's device-busy share, the blocked-ELL kernels' shares of it and
    every device op it ran; the device ops of one matvec on each route;
 T3. time each blocked-ELL kernel at (a)'s shapes beside its plain version,
@@ -113,11 +115,38 @@ D5. bench.py's run_dense on D2's data: the 16-lane L2 grid (D_GRID,
 D4. time the fused kernel at D2's shape (CUDA events; device time from the
    profiler, and from events with a warm and a cold L2) beside its plain
    version, the unfused route's two cuBLAS GEMVs (the library yardstick,
-   warm and cold) and its bound.
+   warm and cold) and its bound;
+GM. GAME at benches/game_10m.py's full width — 10,000,000 rows, 100,000
+   users, 50,000 items, a 32-wide fixed shard in bf16 on the card, 4-wide
+   per-user and per-item shards, 2 sweeps; logistic, the fixed effect L2
+   1.0 for 30 iterations, each random effect L2 5.0 for 15 — through
+   `GameEstimator.fit`: the entity bucketing's seconds and buckets (m, E,
+   lane chunk), a cold fit and a warm refit (row-sweeps/s = rows x sweeps
+   / warm wall), peak device memory, the objective history, each random
+   effect's iterations per entity (median, max) and converged and failed
+   counts per sweep, seconds per coordinate update, a profiled warm
+   sweep's device-busy share and top device ops, scoring time, AUC of
+   GAME against the fixed effect alone (numpy rank sum; GAME must win);
+   then 64 entities of each random effect drawn from the seed, solved as
+   lanes of their buckets and each alone through `train_glm` on its
+   bucket's rows with the same offsets (solves stopped at tolerance
+   1e-3): iterations equal, loss histories within rtol 1e-5;
+GK. GAME through the kernels, one sweep, random effects with the serving
+   phase's shards (d 8, 8 slots): (a) a `BlockedEllRows` fixed shard at
+   T2's width and 2^19 rows (L-BFGS, SIMPLE variances), (b) D2's dense
+   shard (OWL-QN, L1 1e4); each fit's kernel launches inside the descent
+   (reset just before, read just after), and the fit held against
+   ``scope("off")``: objective histories and the fixed effect's
+   coefficients and variances within rtol 1e-5 (of the largest), each
+   random effect's entity by entity, all but at most 0.1% of them (each
+   entity decides its own steps and stop, and a few in 10^5 decide on
+   the rounding their offsets differ by; they are counted).
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
-their launches in the grid's solves under ``grid_launches``), the
+their launches in the grid's solves under ``grid_launches``; every
+entry its launches in GM's fits and GK's default-route fits under
+``gm_launches`` and ``gk_launches``), the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
@@ -160,6 +189,21 @@ S_GRID = list(np.geomspace(1e-4, 1e-2, 8))
 D_GRID = list(np.geomspace(1e-4, 1e-2, 16))
 G_L1 = [0.5, 1.0, 2.0, 4.0]        # the OWL-QN lanes on T2's layout
 G_TRON = [1.0, 3.0, 10.0, 30.0]    # the TRON lanes on T2's layout
+
+# GAME at full width: benches/game_10m.py (rows, entities, widths, sweeps;
+# (max_iters, L2 weight) of the fixed effect and of each random effect)
+GM_ROWS, GM_USERS, GM_ITEMS = 10_000_000, 100_000, 50_000
+GM_D_FIXED, GM_D_RE, GM_SWEEPS = 32, 4, 2
+GM_FIXED, GM_RE = (30, 1.0), (15, 5.0)
+# GM's check re-solves this many entities of each random effect alone.
+# Its gate and GK stop each entity's solve at a relative progress of
+# RE_CHECK_TOL: these small entity problems reach the f32 floor within a
+# few iterations, where two solves that sum in other orders (a lane and a
+# single solve; runs on offsets a rounding apart) stop or step on
+# rounding; a stop at 1e-3 is a decision rounding cannot flip. GM also
+# runs the check at its timed configuration and reports where it parts
+GM_CHECK, RE_CHECK_TOL = 64, 1e-3
+GK_ROWS = 1 << 19  # GAME through the kernels: T2's width at this depth
 
 
 def log(*a) -> None:
@@ -860,15 +904,35 @@ def phase_training(args, dev, gpu) -> dict:
 
     # (a): the main path — counts reset just before, read just after
     K.reset_launch_counts()
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated(dev) / 1e9
+    build_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
     model, res_a, solve_s = solve_timed(batch, cfg, dev)
+    solve_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     obj = make_objective(TaskType.LOGISTIC_REGRESSION, cfg, T_FEATURES,
                          intercept_index=X.last_col_pos, device=dev)
     w_perm = X.from_model_space(model.coefficients.means)
+    torch.cuda.reset_peak_memory_stats(dev)
     var = compute_variances(obj, w_perm, batch,
                             VarianceComputationType.SIMPLE)
     torch.cuda.synchronize()
     launches_a = K.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    var_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak_gb = max(build_peak_gb, solve_peak_gb, var_peak_gb)
+    # the same variances with the hot block squared whole, as before the
+    # (X∘X)ᵀr pass squared it in row chunks
+    sq_rows = M._SQ_ROWS
+    M._SQ_ROWS = rows
+    torch.cuda.reset_peak_memory_stats(dev)
+    var_whole = compute_variances(obj, w_perm, batch,
+                                  VarianceComputationType.SIMPLE)
+    torch.cuda.synchronize()
+    whole_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    M._SQ_ROWS = sq_rows
+    np.testing.assert_allclose(var_whole.cpu().numpy(), var.cpu().numpy(),
+                               rtol=1e-5, err_msg="variances, whole square")
+    del var_whole
     with K.scope("off"):
         var_plain = compute_variances(obj, w_perm, batch,
                                       VarianceComputationType.SIMPLE)
@@ -919,6 +983,11 @@ def phase_training(args, dev, gpu) -> dict:
         f"{np.max(np.abs(hc - ha[:T_SHORT + 1]) / np.abs(ha[:T_SHORT + 1])):.3g}")
     log(f"T2: SIMPLE variances vs plain: max rel err {var_err:.3g}; peak "
         f"device memory {peak_gb:.3f} GB  [{gpu}]")
+    log(f"T2: peak device memory: {resident_gb:.3f} GB resident after the "
+        f"layout (build peak {build_peak_gb:.3f}); solve (a) without "
+        f"variances {solve_peak_gb:.3f} GB; its SIMPLE variances "
+        f"{var_peak_gb:.3f} GB with the hot block squared in chunks of "
+        f"{sq_rows} rows, {whole_peak_gb:.3f} GB squared whole  [{gpu}]")
     busy, n_ops, top, wall, by_name, counts = solve_profile(batch, short,
                                                            dev)
     rmv_us = sum(us for name, us in by_name.items()
@@ -1980,6 +2049,613 @@ def phase_serving(args, dev, gpu) -> dict:
             "library_ms": None}
 
 
+# ------------------------------------------ phases GM and GK: GAME training
+def game_10m_data(seed: int):
+    """benches/game_10m.py's data with numpy from ``seed``: N(0, 1) rows
+    of the fixed shard and both per-entity shards, uniform user and item
+    ids, labels from a planted logistic GAME model."""
+    rows, users, items = GM_ROWS, GM_USERS, GM_ITEMS
+    df, dr = GM_D_FIXED, GM_D_RE
+    rng = np.random.default_rng(seed)
+    w_true = (rng.normal(size=df) * 0.3).astype(np.float32)
+    u_true = rng.normal(size=(users, dr)).astype(np.float32)
+    i_true = rng.normal(size=(items, dr)).astype(np.float32)
+    Xf = rng.normal(size=(rows, df)).astype(np.float32)
+    Xu = rng.normal(size=(rows, dr)).astype(np.float32)
+    Xi = rng.normal(size=(rows, dr)).astype(np.float32)
+    uid = rng.integers(0, users, size=rows)
+    iid = rng.integers(0, items, size=rows)
+    margin = (Xf @ w_true + np.einsum("nd,nd->n", Xu, u_true[uid])
+              + np.einsum("nd,nd->n", Xi, i_true[iid]))
+    y = (rng.uniform(size=rows) < 1 / (1 + np.exp(-margin))).astype(
+        np.float32)
+    return Xf, Xu, Xi, uid, iid, y
+
+
+def game_estimator(dev, fixed_cfg, re_cfg, sweeps: int, variance=None,
+                   shards=("fixed", "u_re", "i_re")):
+    """benches/game_10m.py's estimator: a fixed effect and per-user and
+    per-item random effects, logistic."""
+    from photon_tpu_torch.game.estimator import (FixedEffectConfig,
+                                                 GameEstimator,
+                                                 RandomEffectConfig)
+    from photon_tpu_torch.models.variance import VarianceComputationType
+    from photon_tpu_torch.ops.losses import TaskType
+
+    return GameEstimator(
+        task=TaskType.LOGISTIC_REGRESSION, n_sweeps=sweeps, device=dev,
+        variance=variance or VarianceComputationType.NONE,
+        coordinate_configs={
+            "fixed": FixedEffectConfig(shards[0], fixed_cfg),
+            "per_user": RandomEffectConfig("user", shards[1], re_cfg),
+            "per_item": RandomEffectConfig("item", shards[2], re_cfg)})
+
+
+def fit_timed(est, data):
+    """(the fit's one GameFitResult, wall s) closed by a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (res,) = est.fit(data)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+class CoordinateTimer:
+    """Seconds of every coordinate update (its train call, closed by a
+    synchronize), by feature shard, while the context is open."""
+
+    def __enter__(self):
+        import torch
+
+        from photon_tpu_torch.game.fixed_effect import FixedEffectCoordinate
+        from photon_tpu_torch.game.random_effect import \
+            RandomEffectCoordinate
+
+        self.secs: dict = {}
+        self._saved = []
+        for cls in (FixedEffectCoordinate, RandomEffectCoordinate):
+            train = cls.train
+
+            def timed(coord, *a, _train=train, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _train(coord, *a, **kw)
+                torch.cuda.synchronize()
+                self.secs.setdefault(coord.dataset.shard_name, []).append(
+                    time.perf_counter() - t0)
+                return out
+
+            self._saved.append((cls, train))
+            cls.train = timed
+        return self
+
+    def __exit__(self, *exc):
+        for cls, train in self._saved:
+            cls.train = train
+
+
+def auc(scores: np.ndarray, y: np.ndarray) -> float:
+    """Area under the ROC curve by the rank sum (ties averaged)."""
+    order = np.argsort(scores, kind="stable")
+    s = scores[order]
+    ranks = np.empty(len(s), np.float64)
+    starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    ends = np.r_[starts[1:], len(s)]
+    avg = (starts + ends + 1) / 2.0  # 1-based average rank of each run
+    ranks[order] = np.repeat(avg, ends - starts)
+    pos = y > 0.5
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+def profiled_busy(fn):
+    """(device busy s, wall s, device op count, the five device ops that
+    took the most time [(name, us, launches)]) of ``fn()`` under
+    torch.profiler, closed by a synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            us, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    us = sum(v[0] for v in by_name.values())
+    n_ops = sum(v[1] for v in by_name.values())
+    top = sorted(((k, v[0], v[1]) for k, v in by_name.items()),
+                 key=lambda t: -t[1])[:5]
+    return (us / 1e6 if us > 0 else None), wall, n_ops, top
+
+
+def entity_check(coord, offsets, seed: int, cfg, dev, gpu, label,
+                 strict: bool = True) -> int:
+    """GM's check: ``GM_CHECK`` entities drawn from ``seed``, solved as
+    lanes of their buckets' lock-step solves (``coord.solve_block``, the
+    coordinate's own route) and each alone through `train_glm` on its
+    bucket's rows with the same offsets, both under ``cfg``. ``strict``:
+    equal iterations and loss histories within rtol 1e-5, else raise.
+    Otherwise (the timed configuration, whose solves run to the f32
+    floor) report how many agree so, and for each that parts its
+    iterations, the first iteration whose losses part and its final
+    losses' gap; raise unless every final loss agrees within rtol 1e-5.
+    Returns the number of entities checked."""
+    import torch
+
+    from photon_tpu_torch.data.dataset import GLMBatch
+    from photon_tpu_torch.game.random_effect import RandomEffectCoordinate
+    from photon_tpu_torch.models.training import train_glm
+
+    ds = coord.dataset
+    check = RandomEffectCoordinate(ds, coord.task, cfg)
+    rng = np.random.default_rng(seed)
+    picked = set(rng.choice(ds.n_entities, size=min(GM_CHECK,
+                                                    ds.n_entities),
+                            replace=False).tolist())
+    gaps, parted, n = [], [], 0
+    for block in ds.blocks:
+        lanes = [j for j, e in enumerate(block.entity_index.tolist())
+                 if e in picked]
+        if not lanes:
+            continue
+        res, _ = check.solve_block(block, offsets)
+        batch = ds.block_batch(block, offsets)
+        for j in lanes:
+            one = GLMBatch(*(t.contiguous() for t in (
+                block.X[j], batch.y[:, j], batch.weights[:, j],
+                batch.offsets[:, j])))
+            _, single = train_glm(one, coord.task, cfg, device=dev)
+            lane_its = int(res.iterations[j])
+            entity = int(block.entity_index[j])
+            hist = res.loss_history[j].cpu().numpy()
+            hist, alone = hist[~np.isnan(hist)], single.history()
+            n += 1
+            if strict:
+                if lane_its != single.iterations:
+                    raise AssertionError(
+                        f"{label}: entity {entity} took {lane_its} "
+                        f"iterations as a lane, {single.iterations} alone")
+                gaps.append(histories_agree(f"{label} entity {entity}",
+                                            alone, hist))
+                continue
+            final = float(abs(hist[-1] - alone[-1]) / abs(alone[-1]))
+            gaps.append(final)
+            c = min(len(hist), len(alone))
+            rel = np.abs(hist[:c] - alone[:c]) / np.abs(alone[:c])
+            if lane_its != single.iterations or len(hist) != len(alone) \
+                    or (rel > 1e-5).any():
+                first = int(np.argmax(rel > 1e-5)) if (rel > 1e-5).any() \
+                    else c
+                parted.append(f"{entity}: {lane_its}/{single.iterations} "
+                              f"iterations, losses part at {first}, final "
+                              f"gap {final:.3g}")
+            if final > 1e-5:
+                raise AssertionError(
+                    f"{label}: entity {entity}'s final loss {hist[-1]} as a "
+                    f"lane, {alone[-1]} alone ({lane_its}/"
+                    f"{single.iterations} iterations)")
+    torch.cuda.synchronize()
+    how = ("iterations equal, max rel loss gap" if strict else
+           f"{n - len(parted)} agree (iterations equal, histories within "
+           f"rtol 1e-5); parted (lane/alone) [{'; '.join(parted)}]; max "
+           "rel gap of the final losses")
+    log(f"GM: {label}: {n} entities drawn from the seed, solved as lanes of "
+        f"their buckets and each alone through train_glm on its bucket's "
+        f"rows with the same offsets ({cfg.max_iters} iterations, tolerance "
+        f"{cfg.tolerance:g}): {how} {max(gaps):.3g}  [{gpu}]")
+    return n
+
+
+def phase_game(args, dev, gpu) -> dict:
+    """GM: benches/game_10m.py at full width through GameEstimator.fit;
+    returns the kernels' launches in its fits."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.dataset import make_batch
+    from photon_tpu_torch.game.dataset import GameData
+    from photon_tpu_torch.game.random_effect import lane_chunk
+    from photon_tpu_torch.game.scoring import coordinate_scores, score_game
+    from photon_tpu_torch.models.training import train_glm
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    n, sweeps = GM_ROWS, GM_SWEEPS
+    t0 = time.perf_counter()
+    Xf, Xu, Xi, uid, iid, y = game_10m_data(args.seed)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    Xf_dev = torch.from_numpy(Xf).to(dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    del Xf
+    data = GameData.build(y, shards={"fixed": Xf_dev, "u_re": Xu,
+                                     "i_re": Xi},
+                          entity_ids={"user": uid, "item": iid})
+    cfg_f = OptimizerConfig(max_iters=GM_FIXED[0], reg=l2(),
+                            reg_weight=GM_FIXED[1])
+    cfg_r = OptimizerConfig(max_iters=GM_RE[0], reg=l2(),
+                            reg_weight=GM_RE[1])
+    est = game_estimator(dev, cfg_f, cfg_r, sweeps)
+    log(f"GM: data made in {gen_s:.1f} s ({n} rows, {GM_USERS} users + "
+        f"{GM_ITEMS} items, d_fixed {GM_D_FIXED} bf16 on the card "
+        f"({Xf_dev.numel() * 2 / 1e9:.2f} GB, uploaded in {up_s:.2f} s), "
+        f"d_re {GM_D_RE} f32)")
+
+    # the entity bucketing, into the estimator's own dataset cache
+    dcache, ccache = est._caches_for(data)
+    bucket_s = {}
+    for name, cfg in est.coordinate_configs.items():
+        t0 = time.perf_counter()
+        dcache[est._dataset_key(cfg)] = est._build_dataset(data, cfg)
+        torch.cuda.synchronize()
+        bucket_s[name] = time.perf_counter() - t0
+    datasets = {name: dcache[est._dataset_key(cfg)]
+                for name, cfg in est.coordinate_configs.items()}
+    for name in ("per_user", "per_item"):
+        ds = datasets[name]
+        log(f"GM: {name}: bucketed in {bucket_s[name]:.2f} s on the host "
+            f"and uploaded: {ds.n_entities} entities, buckets (m, E, lane "
+            "chunk) "
+            + ", ".join(f"({b.m}, {b.n_entities}, "
+                        f"{lane_chunk(b.m, b.n_entities)})"
+                        for b in ds.blocks)
+            + f"; {ds.n_active} active rows")
+    K.reset_launch_counts()
+    cold, cold_s = fit_timed(est, data)
+    warm, warm_s = fit_timed(est, data)
+    launches = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    hist = warm.descent.objective_history
+    if len(hist) != 3 * sweeps or not np.isfinite(hist).all():
+        raise AssertionError(f"GM: objective history {hist}")
+    np.testing.assert_allclose(cold.descent.objective_history, hist,
+                               rtol=1e-5, err_msg="GM cold vs warm fit")
+    if not hist[-1] < n * np.log(2.0):
+        raise AssertionError(f"GM: objective {hist[-1]} not below the "
+                             f"zero model's {n * np.log(2.0)}")
+    log(f"GM: cold fit ({sweeps} sweeps, 3 coordinates, datasets bucketed "
+        f"above) {cold_s:.3f} s; warm refit {warm_s:.3f} s: "
+        f"{n * sweeps / warm_s:.6g} row-sweeps/s; peak device memory "
+        f"{peak_gb:.3f} GB; hand-written kernel launches in both fits "
+        f"{launches or 'none'}  [{gpu}]")
+    log("GM: objective history (after each update): "
+        + ", ".join(f"{v:.8g}" for v in hist))
+    for name in ("per_user", "per_item"):
+        for sweep, st in enumerate(warm.descent.coordinate_stats[name]):
+            its = st.iterations_per_entity
+            log(f"GM: {name} sweep {sweep}: iterations median "
+                f"{np.median(its):g}, max {its.max()} (cap {GM_RE[0]}); "
+                f"{st.n_converged} converged, {st.n_failed} failed of "
+                f"{st.n_entities}")
+    fixed_its = [int(r.iterations)
+                 for r in warm.descent.coordinate_stats["fixed"]]
+    with CoordinateTimer() as timer:
+        fit_timed(est, data)
+    log("GM: seconds per coordinate update (sweep by sweep): "
+        + "; ".join(f"{shard} " + ", ".join(f"{v:.3f}" for v in secs)
+                    for shard, secs in timer.secs.items())
+        + f"; fixed-effect iterations {fixed_its}  [{gpu}]")
+    est.n_sweeps = 1
+    busy, wall, n_ops, top = profiled_busy(lambda: est.fit(data))
+    est.n_sweeps = sweeps
+    log("GM: profiled warm sweep: device busy "
+        + ("not measured" if busy is None else
+           f"{busy:.3f} s of {wall:.3f} s wall ({busy / wall:.3f} busy, "
+           f"{1 - busy / wall:.3f} idle)")
+        + f", {n_ops} device ops; most device time (ms, launches): "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f}, {k}"
+                    for name, us, k in top) + f"  [{gpu}]")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total = score_game(warm.model, data)
+    scores = total.cpu().numpy()
+    score_s = time.perf_counter() - t0
+    if scores.shape != (n,) or not np.isfinite(scores).all():
+        raise AssertionError("GM: scores are not finite (n,)")
+    fixed_only, _ = train_glm(make_batch(Xf_dev, y, device=dev),
+                              TaskType.LOGISTIC_REGRESSION, cfg_f,
+                              device=dev)
+    f_scores = fixed_only.score(Xf_dev).cpu().numpy()
+    game_auc, f_auc = auc(scores, y), auc(f_scores, y)
+    if not game_auc > f_auc:
+        raise AssertionError(f"GM: GAME AUC {game_auc} not above the fixed "
+                             f"effect's {f_auc}")
+    log(f"GM: scoring {n} rows: {score_s:.3f} s; AUC GAME {game_auc:.6f} vs "
+        f"fixed-only {f_auc:.6f}")
+
+    # the lane-batched per-entity solves against single solves
+    parts = coordinate_scores(warm.model, data)
+    coords = {c.dataset.shard_name: c for c in ccache.values()}
+    check_cfg = dataclasses.replace(cfg_r, tolerance=RE_CHECK_TOL)
+    for name, shard in (("per_user", "u_re"), ("per_item", "i_re")):
+        offsets = torch.zeros(n, dtype=torch.float32, device=dev)
+        for other, s in parts.items():
+            if other != name:
+                offsets = offsets + s
+        entity_check(coords[shard], offsets, args.seed + 11, check_cfg, dev,
+                     gpu, name)
+        entity_check(coords[shard], offsets, args.seed + 11, cfg_r, dev,
+                     gpu, f"{name} at the timed configuration",
+                     strict=False)
+    del data, Xf_dev, est, cold, warm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gk_data(seed: int, rows: int):
+    """GK's rows: T2's sparse fixed shard recipe (10,000,000 features, 32
+    zipf(1.4) nonzeros + the intercept) and the serving phase's per-user
+    and per-item shards (d 8, 8 slots), labels from a planted model."""
+    rng = np.random.default_rng(seed)
+    ind, va = coo_rows(rng, rows, T_FEATURES, T_NNZ, T_ZIPF)
+    w_true = np.zeros(T_FEATURES, np.float32)
+    hot = 200_000
+    w_true[:hot] = rng.normal(size=hot) / np.sqrt(np.arange(1, hot + 1))
+    uid = rng.integers(0, N_USERS, size=rows)
+    iid = rng.integers(0, N_ITEMS, size=rows)
+    re = {}
+    margin = np.einsum("nk,nk->n", va, w_true[ind])
+    for name, ids, E in (("u", uid, N_USERS), ("i", iid, N_ITEMS)):
+        idx = rng.integers(0, D_RE, size=(rows, K_RE)).astype(np.int32)
+        val = rng.normal(size=(rows, K_RE)).astype(np.float32)
+        coef = (0.3 * rng.normal(size=(E, D_RE))).astype(np.float32)
+        margin += np.einsum("nk,nk->n", val, coef[ids[:, None], idx])
+        re[name] = (idx, val)
+    y = (rng.uniform(size=rows) < 1 / (1 + np.exp(-margin))).astype(
+        np.float32)
+    return ind, va, re, uid, iid, y
+
+
+def fits_agree(label: str, want, got, strict: bool) -> tuple:
+    """Raise unless two GAME fits' objective histories agree within rtol
+    1e-5 and the fixed effect's coefficients and variances within rtol
+    1e-5 of the largest of each; ``strict``: every random-effect entity's
+    too. Returns (the largest relative history gap, {random effect:
+    (entities apart, of them stopped at another iteration, largest
+    gap)})."""
+    gap = histories_agree(f"{label} objective history",
+                          np.asarray(want.descent.objective_history),
+                          np.asarray(got.descent.objective_history))
+    apart = {}
+    for name, wm in want.model.coordinates.items():
+        gm = got.model.coordinates[name]
+        fixed = hasattr(wm, "model")
+        pairs = ([(wm.model.coefficients.means, gm.model.coefficients.means),
+                  (wm.model.coefficients.variances,
+                   gm.model.coefficients.variances)] if fixed else
+                 [(wm.coefficients, gm.coefficients),
+                  (wm.variances, gm.variances)])
+        bad, worst = None, 0.0
+        for a, b in pairs:
+            if a is None:
+                continue
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            tol = 1e-5 * float(np.abs(a).max())
+            if fixed:
+                np.testing.assert_allclose(b, a, rtol=1e-5, atol=tol,
+                                           err_msg=f"{label} {name}")
+                continue
+            off = np.abs(b - a) > tol + 1e-5 * np.abs(a)
+            rows = off.any(axis=1)
+            bad = rows if bad is None else bad | rows
+            if rows.any():
+                worst = max(worst, float(np.abs(b - a)[off].max()))
+        if fixed:
+            continue
+        its = [f.descent.coordinate_stats[name][-1].iterations_per_entity
+               for f in (want, got)]
+        apart[name] = (int(bad.sum()), int((bad & (its[0] != its[1])).sum()),
+                       worst)
+        if strict and bad.any():
+            raise AssertionError(
+                f"{label} {name}: {int(bad.sum())} of {bad.size} entities "
+                f"apart (largest gap {worst:.3g})")
+    return gap, apart
+
+
+def resolve_agree(label: str, est, data, want, dev) -> None:
+    """Re-solve each random effect of ``want`` (a one-sweep fit of
+    ``est`` on scope("off")) from the offsets it saw there, recomputed
+    from ``want``'s scores in the descent's order, once on the default
+    route and once on scope("off"): raise unless both give ``want``'s
+    tables bit for bit. Their solves reach no kernel, so a fit on the
+    default route parts from ``want`` only through its offsets."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+
+    dcache, ccache = est._caches_for(data)
+    configs = est.coordinate_configs
+    coords = est._build_coordinates(
+        {name: dcache[est._dataset_key(cfg)] for name, cfg in
+         configs.items()}, configs, ccache)
+    base = torch.as_tensor(data.offsets).to(dev, torch.float32)
+    scores = {}
+    with K.scope("off"):
+        scores["fixed"] = coords["fixed"].score(
+            want.model.coordinates["fixed"])
+    for name in ("per_user", "per_item"):
+        offsets = base
+        for s in scores.values():
+            offsets = offsets + s
+        wm = want.model.coordinates[name]
+        for route in ("default", "off"):
+            if route == "off":
+                with K.scope("off"):
+                    model, _ = coords[name].train(offsets)
+            else:
+                model, _ = coords[name].train(offsets)
+            for part, a, b in (("coefficients", wm.coefficients,
+                                model.coefficients),
+                               ("variances", wm.variances, model.variances)):
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a.cpu(), b.cpu())):
+                    raise AssertionError(
+                        f"{label} {name}: re-solved on the {route} route "
+                        f"from the same offsets, the {part} are not the "
+                        "fit's bit for bit")
+        scores[name] = coords[name].score(wm)
+
+
+def entity_pass_costs(est, data, gpu) -> None:
+    """GK's sparse entity blocks: per bucket, the device ms (events, host
+    hidden, warm L2) of the lane Xᵀr as the port sums it (a segmented
+    scan over each lane's slots sorted by column), of d masked column
+    sums (one pass over the slots per column, slot order) and of
+    PyTorch's `scatter_add_` (atomic adds, the order left to the run),
+    with the scan's largest gap to the masked sums."""
+    import torch
+
+    dcache, _ = est._caches_for(data)
+    for name in ("per_user", "per_item"):
+        ds = dcache[est._dataset_key(est.coordinate_configs[name])]
+        rows = []
+        for block in ds.blocks:
+            X = block.lanes
+            if X.indices is None:
+                continue
+            m, k, E = X.indices.shape
+            d = X.n_features
+            R = torch.randn((m, E), generator=torch.Generator(
+                X.indices.device).manual_seed(m), device=X.indices.device)
+            idx = X.indices.reshape(m * k, E)
+            contrib = (X.values * R[:, None, :]).reshape(m * k, E)
+
+            def masked():
+                return torch.stack([torch.sum(torch.where(
+                    idx == j, contrib, 0.0), dim=0) for j in range(d)])
+
+            def scattered():
+                return torch.zeros((d, E), device=R.device).scatter_add_(
+                    0, idx, contrib)
+
+            gap = float((X.rmatvec_lanes(R) - masked()).abs().max())
+            rows.append(f"({m}, {E}, {m * k} slots): scan "
+                        f"{events_ms(lambda: X.rmatvec_lanes(R), False):.4f}"
+                        f", masked {events_ms(masked, False):.4f}, "
+                        f"scatter_add_ {events_ms(scattered, False):.4f}, "
+                        f"max |scan - masked| {gap:.3g}")
+        log(f"GK: {name}'s lane Xᵀr per bucket (m, E, slots a lane), "
+            f"device ms: " + "; ".join(rows) + f"  [{gpu}]")
+
+
+def phase_game_kernels(args, dev, gpu) -> dict:
+    """GK: GAME through the kernels — (a) a BlockedEllRows fixed shard
+    at T2's width (L-BFGS, SIMPLE variances), (b) a dense fixed shard at
+    D2's shape (OWL-QN, L1 1e4), both with T2's per-entity shards, each
+    fit held against scope("off"); returns the kernels' launches in the
+    default-route fits. (a)'s random-effect tables must agree entity by
+    entity. (b)'s fixed effect parts from scope("off") by a rounding (the
+    fused kernel sums in its own order), so its random effects see
+    offsets a rounding apart, and an entity whose line search or stop
+    decides on that rounding parts: those are counted with their largest
+    gap, and both fits' random effects re-solved from the same offsets
+    must agree bit for bit."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.matrix import SparseRows, to_blocked_ell
+    from photon_tpu_torch.game.dataset import GameData
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.kernels import fused as KF
+    from photon_tpu_torch.models.variance import VarianceComputationType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l1, l2
+
+    rows = GK_ROWS
+    t0 = time.perf_counter()
+    ind, va, re, uid, iid, y = gk_data(args.seed + 5, rows)
+    X = to_blocked_ell(SparseRows(ind, va, T_FEATURES), T_DENSE,
+                       device_dense_dtype=torch.bfloat16,
+                       device=dev).astype(torch.bfloat16)
+    del ind, va
+    shards = {"u": SparseRows(*re["u"], D_RE), "i": SparseRows(*re["i"],
+                                                                D_RE)}
+    ids = {"user": uid, "item": iid}
+    torch.cuda.synchronize()
+    log(f"GK: data and layout in {time.perf_counter() - t0:.1f} s: {rows} "
+        f"rows, fixed shard BlockedEllRows over {T_FEATURES} features "
+        f"({T_DENSE}-column bf16 hot block, {X.n_prefix - X.d_sel} tail "
+        f"columns), per-user and per-item shards d {D_RE}, {K_RE} slots")
+    re_cfg = OptimizerConfig(max_iters=GM_RE[0], tolerance=RE_CHECK_TOL,
+                             reg=l2(), reg_weight=GM_RE[1])
+    launches = {}
+    cases = (
+        ("(a) blocked-ELL L-BFGS, SIMPLE variances", X,
+         OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l2(),
+                         reg_weight=GM_FIXED[1], history=T_HISTORY),
+         VarianceComputationType.SIMPLE,
+         (KB.TAIL, KB.RMATVEC), True),
+        ("(b) dense OWL-QN, L1 1e4", None,
+         OptimizerConfig(max_iters=D_SHORT, tolerance=0.0, reg=l1(),
+                         reg_weight=D_L1, history=D_HISTORY),
+         VarianceComputationType.NONE, (KF.KERNEL,), False))
+    for label, Xfix, cfg_f, var, names, strict in cases:
+        if Xfix is None:
+            Xd, yd = dense_problem(args.seed)
+            Xfix = torch.from_numpy(Xd).to(dev)
+            y_case = yd[:rows]
+            del Xd
+        else:
+            y_case = y
+        data = GameData.build(y_case, shards={"fixed": Xfix, **shards},
+                              entity_ids=ids)
+        est = game_estimator(dev, cfg_f, re_cfg, 1, variance=var,
+                             shards=("fixed", "u", "i"))
+        K.reset_launch_counts()
+        got, wall = fit_timed(est, data)
+        counts = K.launch_counts()
+        for name in names:
+            if counts.get(name, 0) == 0:
+                raise AssertionError(f"GK {label}: {name} never launched "
+                                     f"inside the descent ({counts})")
+        est_off = game_estimator(dev, cfg_f, re_cfg, 1, variance=var,
+                                 shards=("fixed", "u", "i"))
+        K.reset_launch_counts()
+        with K.scope("off"):
+            want, off_wall = fit_timed(est_off, data)
+            off_counts = K.launch_counts()
+        if off_counts:
+            raise AssertionError(f"GK {label}: scope off launched "
+                                 f"{off_counts}")
+        gap, apart = fits_agree(f"GK {label}", want, got, strict)
+        resolve_agree(f"GK {label}", est_off, data, want, dev)
+        if strict:
+            entity_pass_costs(est, data, gpu)
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        log(f"GK {label}: one sweep in {wall:.3f} s on the default route, "
+            f"{off_wall:.3f} s on the plain versions; kernel launches "
+            f"inside the descent {counts}; objective history "
+            + ", ".join(f"{v:.8g}" for v in got.descent.objective_history)
+            + f"; max rel gap to scope('off') {gap:.3g}; the fixed "
+            f"effect's coefficients and variances within rtol 1e-5 of "
+            f"their largest, and each random effect's"
+            + (" too" if strict else
+               " but for (entities apart, of them stopped at another "
+               f"iteration, largest gap) {apart}")
+            + "; each random effect re-solved from scope('off')'s offsets "
+            "on both routes: its tables bit for bit  [" + gpu + "]")
+        del data, est, est_off, got, want, Xfix
+        torch.cuda.empty_cache()
+    del X
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2017,6 +2693,13 @@ def main() -> int:
     phase_dense_tron(state, dev, gpu)
     phase_dense_grid(state, dev, gpu)
     kernels.append(phase_dense_timings(state, gpu))
+    del state
+    torch.cuda.empty_cache()
+    gm = phase_game(args, dev, gpu)
+    gk = phase_game_kernels(args, dev, gpu)
+    for entry in kernels:
+        entry["gm_launches"] = gm.get(entry["name"], 0)
+        entry["gk_launches"] = gk.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,9 @@ Conventions:
 
 Ported so far: the GAME serving path (store → int8/bf16/f32 program
 ladder → micro-batching dispatcher), with the int8 rung as a CUDA kernel;
-and single-device GLM training with L-BFGS (`models.training.train_glm`)
-on dense X or the blocked-ELL layout, whose X passes are CUDA kernels.
+single-device GLM training (`models.training.train_glm`: L-BFGS, OWL-QN,
+TRON; priors, normalization, variances) on dense X, `SparseRows` or the
+blocked-ELL layout, whose X passes are CUDA kernels; reg-weight grids
+(`train_glm_grid`); and GAME training in memory
+(`game.estimator.GameEstimator`).
 """

@@ -1,5 +1,6 @@
-"""Labeled data containers (port of `GLMBatch`, `make_batch` and
-`cast_features` of `photon_tpu/data/dataset.py`).
+"""Labeled data containers (port of `GLMBatch`, `make_batch`, `pad_batch`,
+`with_offsets`, `cast_features` and `total_weight` of
+`photon_tpu/data/dataset.py`).
 
 Reference parity: com.linkedin.photon.ml.data.LabeledPoint (label,
 features, offset, weight). A GLMBatch is the whole dataset as tensors on
@@ -7,6 +8,7 @@ one device; rows of weight 0 are padding that every reduction ignores.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -57,6 +59,45 @@ def make_batch(X, y, weights=None, offsets=None, device=None) -> GLMBatch:
     offsets = (torch.zeros(n, dtype=torch.float32, device=dev)
                if offsets is None else _f32(offsets, dev))
     return GLMBatch(X, y, weights, offsets)
+
+
+def pad_batch(batch: GLMBatch, target_n: int) -> GLMBatch:
+    """The batch grown to ``target_n`` rows with zero-weight padding rows
+    (zero features, label, weight and offset), which every reduction
+    ignores. A `BlockedEllRows` grows its hot block, and the new rows'
+    ``row_pos`` point at the zero slot (no tail)."""
+    n = batch.n
+    if target_n == n:
+        return batch
+    if target_n < n:
+        raise ValueError(f"cannot pad {n} rows down to {target_n}")
+    extra = target_n - n
+    X = batch.X
+
+    def grow(t, fill=0):
+        pad = torch.full((extra,) + tuple(t.shape[1:]), fill, dtype=t.dtype,
+                         device=t.device)
+        return torch.cat([t, pad])
+
+    if isinstance(X, BlockedEllRows):
+        B = sum(int(v.shape[0]) for v in X.ell_vals)
+        X = dataclasses.replace(X, dense=grow(X.dense),
+                                row_pos=grow(X.row_pos, B))
+    elif isinstance(X, SparseRows):
+        X = SparseRows(grow(X.indices), grow(X.values), X.n_features)
+    else:
+        X = grow(X)
+    return GLMBatch(X, grow(batch.y), grow(batch.weights),
+                    grow(batch.offsets))
+
+
+def with_offsets(batch: GLMBatch, offsets) -> GLMBatch:
+    """The batch with new (n,) offsets (f32, on the batch's device)."""
+    return batch._replace(offsets=_f32(offsets, batch.y.device))
+
+
+def total_weight(batch: GLMBatch) -> float:
+    return float(np.sum(batch.weights.cpu().numpy()))
 
 
 def cast_features(batch: GLMBatch, dtype=torch.bfloat16) -> GLMBatch:

@@ -6,7 +6,9 @@ of `photon_tpu/data/matrix.py`).
   values, rows padded to k slots with (index 0, value 0);
 - `BlockedEllRows`: the hot columns as a dense (n, d_sel) block, the cold
   tail as power-of-two-width ELL row buckets (matvec) and occurrence
-  buckets (rmatvec), in a permuted column space.
+  buckets (rmatvec), in a permuted column space;
+- `EntityBlocks`: a random effect's bucket of E entities' padded rows,
+  lane-minor, whose lane passes multiply each lane by its own rows.
 
 The host builders (`to_blocked_ell`, `quantize_blocks`) stay numpy, copied
 from the reference, so every layout array, int8 block and scale equals the
@@ -399,27 +401,53 @@ def _mm(a: torch.Tensor, b: torch.Tensor, batched: bool = False):
     return mm(a.float(), b.float())
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with f32 accumulation and an f32 result, for ``b`` already
-    in ``a``'s dtype (vector or matrix); a long contraction is summed in
-    chunks of `_MM_CHUNK` terms (strided views, no copies)."""
+# (X∘X)ᵀr squares this many rows of X at a time (a multiple of
+# `_MM_CHUNK`): 2^18 rows of T2's 1,024-column bf16 hot block are 0.5 GB,
+# where squaring the whole block formed a second 4.29 GB copy of it.
+_SQ_ROWS = 1 << 18
+
+
+def _chunked(t: torch.Tensor, C: int, c: int) -> torch.Tensor:
+    """(C, rows, c) strided view of the first C·c columns of ``t``."""
+    return t.as_strided((C, t.shape[0], c),
+                        (c * t.stride(1), t.stride(0), t.stride(1)))
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor,
+            square: bool = False) -> torch.Tensor:
+    """``a @ b`` (``(a∘a) @ b`` with ``square``) with f32 accumulation and
+    an f32 result, for ``b`` already in ``a``'s dtype (vector or matrix);
+    a long contraction is summed in chunks of `_MM_CHUNK` terms (strided
+    views, no copies). ``square`` squares ``a`` in the storage dtype,
+    `_SQ_ROWS` columns at a time, so no second copy of ``a`` forms; the
+    chunk products are summed in the same order either way."""
     vec = b.dim() == 1
     b2 = b[:, None] if vec else b
     K = a.shape[1]
+
+    def sq(t):  # in the layout of the whole block's square
+        return (t.t() * t.t()).t() if square else t
+
     if K < 2 * _MM_CHUNK:
-        out = _mm(a, b2)
+        out = _mm(sq(a), b2)
     else:
         c = _MM_CHUNK
         C = K // c
-        parts = _mm(
-            a.as_strided((C, a.shape[0], c),
-                         (c * a.stride(1), a.stride(0), a.stride(1))),
-            b2.as_strided((C, c, b2.shape[1]),
-                          (c * b2.stride(0), b2.stride(0), b2.stride(1))),
-            batched=True)
-        out = parts.sum(dim=0)
+        step = (max(1, _SQ_ROWS // c) if square else C) * c
+        parts = []
+        for k0 in range(0, C * c, step):
+            ak = sq(a[:, k0:k0 + step])
+            bk = b2[k0:k0 + step]
+            Ck = ak.shape[1] // c
+            parts.append(_mm(
+                _chunked(ak, Ck, c),
+                bk.as_strided((Ck, c, bk.shape[1]),
+                              (c * bk.stride(0), bk.stride(0),
+                               bk.stride(1))),
+                batched=True))
+        out = (parts[0] if len(parts) == 1 else torch.cat(parts)).sum(dim=0)
         if C * c < K:
-            out += _mm(a[:, C * c:], b2[C * c:])
+            out += _mm(sq(a[:, C * c:]), b2[C * c:])
     return out[:, 0] if vec else out
 
 
@@ -439,20 +467,36 @@ def _bell_matvec(X: BlockedEllRows, w: torch.Tensor) -> torch.Tensor:
 def _bell_rmatvec(X: BlockedEllRows, r: torch.Tensor,
                   square: bool = False) -> torch.Tensor:
     """Xᵀr (or (X∘X)ᵀr) in prefix order, in one (d,)/(d, G) f32 result:
-    the hot block's transpose product (``dense*dense`` formed in the
-    storage dtype for ``square``) in ``[:d_sel]``, the occurrence-bucket
-    block written by the kernel seam into ``[d_sel:n_prefix]``, zeros for
-    the untouched suffix. r: (n,) or (n, G)."""
+    the hot block's transpose product (for ``square`` each row chunk
+    squared in the storage dtype as it goes) in ``[:d_sel]``, the
+    occurrence-bucket block written by the kernel seam into
+    ``[d_sel:n_prefix]``, zeros for the untouched suffix. r: (n,) or
+    (n, G)."""
     out = torch.empty((X.n_features,) + tuple(r.shape[1:]),
                       dtype=torch.float32, device=r.device)
-    dense = X.dense * X.dense if square else X.dense
-    out[:X.d_sel] = _mm_f32(dense.t(), r.to(X.dense.dtype))
+    out[:X.d_sel] = _mm_f32(X.dense.t(), r.to(X.dense.dtype), square=square)
     if X.bucket_vals:
         rmv = (KB.bucket_rmatvec if K.route(X, r) == "fused"
                else KB.bucket_rmatvec_tiled)
         rmv(X, r, square=square, out=out[X.d_sel:X.n_prefix])
     out[X.n_prefix:].zero_()
     return out
+
+
+def _sparse_rmatvec(X: SparseRows, r: torch.Tensor,
+                    square: bool = False) -> torch.Tensor:
+    """Xᵀr (or (X∘X)ᵀr) of padded COO rows: each slot's product added into
+    its column (``index_add_``, the reference's segment sum); r: (n,) or
+    (n, G)."""
+    v = X.values.to(torch.float32)
+    if square:
+        v = v * v
+    lanes = tuple(r.shape[1:])
+    contrib = (v[..., None] * r[:, None, :] if lanes
+               else v * r[:, None]).reshape((-1,) + lanes)
+    out = torch.zeros((X.n_features,) + lanes, dtype=torch.float32,
+                      device=r.device)
+    return out.index_add_(0, X.indices.reshape(-1).long(), contrib)
 
 
 def matvec(X, w: torch.Tensor) -> torch.Tensor:
@@ -464,43 +508,44 @@ def matvec(X, w: torch.Tensor) -> torch.Tensor:
     if isinstance(X, BlockedEllRows):
         return _bell_matvec(X, w)
     if isinstance(X, SparseRows):
-        return torch.einsum("nk,nk->n", X.values.to(torch.float32),
+        eq = "nk,nkg->ng" if w.dim() == 2 else "nk,nk->n"
+        return torch.einsum(eq, X.values.to(torch.float32),
                             w[X.indices.long()])
+    if isinstance(X, EntityBlocks):
+        raise TypeError("EntityBlocks are lane-minor per-entity blocks: "
+                        "use matvec_lanes")
     return _mm_f32(X, w.to(X.dtype))
 
 
 def rmatvec(X, r: torch.Tensor) -> torch.Tensor:
     """Xᵀ @ r -> (d,) f32, the gradient aggregation (f32 accumulation,
-    storage-dtype operands as `matvec`)."""
+    storage-dtype operands as `matvec`; r (n, G) gives (d, G))."""
     if isinstance(X, BlockedEllRows):
         return _bell_rmatvec(X, r)
     if isinstance(X, SparseRows):
-        raise NotImplementedError(
-            "rmatvec on SparseRows is not ported yet (ROADMAP queue A "
-            "item 4); lay the rows out with to_blocked_ell")
+        return _sparse_rmatvec(X, r)
+    if isinstance(X, EntityBlocks):
+        raise TypeError("EntityBlocks are lane-minor per-entity blocks: "
+                        "use rmatvec_lanes")
     return _mm_f32(X.t(), r.to(X.dtype))
-
-
-def _no_sparse_lanes(X, what: str) -> None:
-    if isinstance(X, SparseRows):
-        raise NotImplementedError(
-            f"{what} on SparseRows is not ported yet (ROADMAP queue A item "
-            "4): its gather is single-lane; lay the rows out with "
-            "to_blocked_ell for a lane grid")
 
 
 def matvec_lanes(X, W: torch.Tensor) -> torch.Tensor:
     """X @ W -> (n, G) f32 for LANE-MINOR coefficients W: (d, G), G
     contiguous (a `BlockedEllRows` W in its permuted space): the hot block
     (or dense X) as one (n, ·) × (·, G) product, the tail kernel gathering
-    G contiguous floats per index."""
-    _no_sparse_lanes(X, "matvec_lanes")
+    G contiguous floats per index; `SparseRows` gather (n, k, G). An
+    `EntityBlocks` matrix gives each lane its own entity's rows: (m, E)."""
+    if isinstance(X, EntityBlocks):
+        return X.matvec_lanes(W)
     return matvec(X, W)
 
 
 def rmatvec_lanes(X, R: torch.Tensor) -> torch.Tensor:
-    """Xᵀ @ R -> (d, G) f32 for lane-minor per-row cotangents R: (n, G)."""
-    _no_sparse_lanes(X, "rmatvec_lanes")
+    """Xᵀ @ R -> (d, G) f32 for lane-minor per-row cotangents R: (n, G)
+    (`EntityBlocks`: each lane's cotangent through its own rows)."""
+    if isinstance(X, EntityBlocks):
+        return X.rmatvec_lanes(R)
     return rmatvec(X, R)
 
 
@@ -509,10 +554,223 @@ def sq_rmatvec(X, r: torch.Tensor) -> torch.Tensor:
     if isinstance(X, BlockedEllRows):
         return _bell_rmatvec(X, r, square=True)
     if isinstance(X, SparseRows):
-        raise NotImplementedError(
-            "sq_rmatvec on SparseRows is not ported yet (ROADMAP queue A "
-            "item 4); lay the rows out with to_blocked_ell")
-    return _mm_f32((X * X).t(), r.to(X.dtype))
+        return _sparse_rmatvec(X, r, square=True)
+    return _mm_f32(X.t(), r.to(X.dtype), square=True)
+
+
+def sq_rmatvec_lanes(X, R: torch.Tensor) -> torch.Tensor:
+    """(X∘X)ᵀ @ R -> (d, G) for lane-minor R: (n, G)."""
+    if isinstance(X, EntityBlocks):
+        return X.rmatvec_lanes(R, square=True)
+    return sq_rmatvec(X, R)
+
+
+MAX_GRAM_FEATURES = 20_000
+
+
+def _gram_too_wide(X, d: int) -> None:
+    if d > MAX_GRAM_FEATURES:
+        raise ValueError(
+            f"weighted_gram densifies {type(X).__name__}: d={d} exceeds "
+            f"MAX_GRAM_FEATURES={MAX_GRAM_FEATURES}; use hess_diag/SIMPLE "
+            "variances for large feature spaces")
+
+
+def _densify(X) -> torch.Tensor:
+    """An f32 (n, d) copy of a sparse layout (`BlockedEllRows` in its
+    permuted space, the space of every other X pass on it)."""
+    n, d = X.shape
+    if isinstance(X, BlockedEllRows):
+        dev = X.dense.device
+        rows = torch.zeros((n, d), dtype=torch.float32, device=dev)
+        rows[:, :X.d_sel] += X.dense.to(torch.float32)
+        off = X.d_sel
+        for br, bv in zip(X.bucket_rows, X.bucket_vals):
+            c_b = br.shape[0]
+            cols = torch.arange(off, off + c_b, device=dev)[:, None]
+            rows.index_put_((br.long(), cols.expand_as(br)),
+                            bv.to(torch.float32), accumulate=True)
+            off += c_b
+        return rows
+    rows = torch.zeros((n, d), dtype=torch.float32,
+                       device=X.values.device)
+    ridx = torch.arange(n, device=rows.device)[:, None].expand_as(X.indices)
+    rows.index_put_((ridx, X.indices.long()),
+                    X.values.to(torch.float32), accumulate=True)
+    return rows
+
+
+def weighted_gram(X, r: torch.Tensor) -> torch.Tensor:
+    """Xᵀ diag(r) X -> (d, d) f32, for FULL variances on small feature
+    spaces. Sparse layouts are densified, so d is capped at
+    `MAX_GRAM_FEATURES` (the reference's guard); dense storage is taken in
+    f32 whatever its dtype."""
+    if isinstance(X, (SparseRows, BlockedEllRows)):
+        _gram_too_wide(X, X.n_features)
+        rows = _densify(X)
+    else:
+        rows = X.to(torch.float32)
+    return (rows * r[:, None]).t() @ rows
+
+
+def _host_col(dense, j: int) -> np.ndarray:
+    """Column ``j`` on the host, sliced before the transfer."""
+    col = dense[:, j]
+    if isinstance(col, torch.Tensor):
+        return col.to(torch.float32).cpu().numpy()
+    return np.asarray(col)
+
+
+def last_column_is_intercept(X) -> bool:
+    """True when the design matrix's last column is constant 1 — the
+    intercept-last convention of the feature builders."""
+    if isinstance(X, BlockedEllRows):
+        if X.last_col_pos < X.d_sel:  # an intercept is maximally hot
+            return bool((_host_col(X.dense, X.last_col_pos) == 1.0).all())
+        if X.last_col_pos >= X.n_prefix:
+            return False  # untouched by these rows: it has zeros
+        # a column in every row may still sit in the tail (ties in the hot
+        # selection): n entries, all 1.0, rows a permutation of range(n)
+        n = X.dense.shape[0]
+        off = X.d_sel
+        for br, bv in zip(X.bucket_rows, X.bucket_vals):
+            c_b = br.shape[0]
+            if X.last_col_pos < off + c_b:
+                r = _host(br[X.last_col_pos - off])
+                v = _host(bv[X.last_col_pos - off].to(torch.float32))
+                real = v != 0.0
+                return bool(int(real.sum()) == n and (v[real] == 1.0).all()
+                            and (np.sort(r[real]) == np.arange(n)).all())
+            off += c_b
+        return False
+    if isinstance(X, SparseRows):
+        d = X.n_features
+        ind = _host(X.indices)
+        val = X.values
+        val = _host(val.to(torch.float32) if isinstance(val, torch.Tensor)
+                    else val)
+        hit = (ind == d - 1) & (val != 0.0)
+        return bool(hit.any(axis=1).all() and (val[hit] == 1.0).all())
+    return bool((_host_col(X, X.shape[1] - 1) == 1.0).all())
+
+
+# ------------------------------------------------ per-entity blocks
+def _column_segments(indices: torch.Tensor, n_features: int) -> tuple:
+    """The plan of a sparse entity block's column sums: each lane's
+    (m·k) slots sorted by column (stable: slot order within a column),
+    as ``order`` (L, E) and the sorted columns ``keys`` (L, E), and
+    ``last`` (d, E), the sorted position of each column's last slot in
+    each lane (L where the lane has none)."""
+    m, k, E = indices.shape
+    L = m * k
+    keys, order = torch.sort(indices.reshape(L, E).long(), dim=0,
+                             stable=True)
+    end = torch.ones((L, E), dtype=torch.bool, device=indices.device)
+    end[:-1] = keys[:-1] != keys[1:]
+    pos = torch.arange(L, device=indices.device)[:, None].expand(L, E)
+    # every slot but a column's last writes row d, which is dropped:
+    # each kept row has one writer
+    last = torch.full((n_features + 1, E), L, dtype=torch.int64,
+                      device=indices.device)
+    last.scatter_(0, torch.where(end, keys, n_features), pos.contiguous())
+    return order, keys.to(torch.int32), last[:n_features].contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class EntityBlocks:
+    """E entities' padded row blocks as one lane-minor design matrix: lane
+    e is entity e, and a lane pass multiplies each lane by its own
+    entity's rows (the reference `vmap`s one solve over the entity axis;
+    the port runs its lane solvers with lanes = entities).
+
+    Either ``dense`` (m, d, E) rows, or padded COO ``indices``/``values``
+    (m, k, E) over ``n_features`` columns; E is the contiguous axis, as
+    every lane tensor of the lane solvers. Padding rows carry weight 0 in
+    the batch (and zero values here). Every pass sums in an order fixed
+    by the block alone (no two adds race for one output), so a solve
+    gives the same bits on every run."""
+
+    dense: torch.Tensor | None
+    indices: torch.Tensor | None
+    values: torch.Tensor | None
+    n_features: int
+    # the sparse form's `_column_segments`, built once with the block
+    segments: tuple | None = dataclasses.field(default=None, compare=False,
+                                               repr=False)
+
+    def __post_init__(self):
+        if self.indices is not None and self.segments is None:
+            object.__setattr__(self, "segments", _column_segments(
+                self.indices, self.n_features))
+
+    def lanes(self, lo: int, hi: int) -> "EntityBlocks":
+        """Lanes lo..hi as a block of their own (its plan sliced, not
+        rebuilt)."""
+        def cut(t):
+            return None if t is None else t[..., lo:hi].contiguous()
+
+        return EntityBlocks(cut(self.dense), cut(self.indices),
+                            cut(self.values), self.n_features,
+                            None if self.segments is None else
+                            tuple(cut(t) for t in self.segments))
+
+    def _rows(self, W: torch.Tensor) -> torch.Tensor:
+        """The (m, k, E) gathered coefficients of the sparse form."""
+        m, k, E = self.indices.shape
+        return torch.gather(W, 0, self.indices.reshape(m * k, E)
+                            ).reshape(m, k, E)
+
+    def _f32(self, t: torch.Tensor) -> torch.Tensor:
+        return t if t.dtype == torch.float32 else t.to(torch.float32)
+
+    def matvec_lanes(self, W: torch.Tensor) -> torch.Tensor:
+        """(m, E): z[i, e] = Σ_j X_e[i, j] W[j, e]."""
+        if self.dense is not None:
+            Wc = W.to(self.dense.dtype)
+            return torch.sum(self._f32(self.dense) * self._f32(Wc)[None],
+                             dim=1)
+        return torch.sum(self._f32(self.values) * self._rows(W), dim=1)
+
+    def rmatvec_lanes(self, R: torch.Tensor,
+                      square: bool = False) -> torch.Tensor:
+        """(d, E): each lane's Xᵀr (or (X∘X)ᵀr) over its own rows. The
+        sparse form sums each column's slots by a segmented scan over the
+        lane's slots sorted by column (log2(m·k) passes)."""
+        if self.dense is not None:
+            X = self._f32(self.dense)
+            if square:
+                X = X * X
+            Rc = self._f32(R.to(self.dense.dtype))
+            return torch.sum(X * Rc[:, None, :], dim=0)
+        v = self._f32(self.values)
+        if square:
+            v = v * v
+        m, k, E = self.indices.shape
+        L = m * k
+        order, keys, last = self.segments
+        x = torch.gather((v * R[:, None, :]).reshape(L, E), 0, order)
+        off = 1
+        while off < L:  # x[p] += x[p - off] within p's column
+            x = torch.cat([x[:off], x[off:] + torch.where(
+                keys[off:] == keys[:-off], x[:-off], 0.0)])
+            off *= 2
+        x = torch.cat([x, x.new_zeros((1, E))])
+        return torch.gather(x, 0, last)
+
+    def weighted_gram_lanes(self, R: torch.Tensor) -> torch.Tensor:
+        """(E, d, d): each lane's Xᵀ diag(r) X, f32."""
+        if self.dense is not None:
+            X = self._f32(self.dense)
+        else:
+            _gram_too_wide(self, self.n_features)
+            m, k, E = self.indices.shape
+            X = torch.zeros((m, self.n_features, E), dtype=torch.float32,
+                            device=R.device)
+            v = self._f32(self.values)
+            for s in range(k):  # one writer per cell in each pass
+                X.scatter_add_(1, self.indices[:, s:s + 1],
+                               v[:, s:s + 1])
+        return torch.einsum("mde,me,mfe->edf", X, R, X)
 
 
 def next_pow2(x: int, floor: int = 2) -> int:

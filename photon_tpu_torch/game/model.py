@@ -1,20 +1,21 @@
 """GAME model containers (port of `photon_tpu/game/model.py`).
 
-A random effect is one dense (num_entities, d) coefficient tensor plus a
-key → row index; scoring a batch is one gather + rowwise dot. Entities
-unseen at training time take row E, the appended zero row.
+A random effect is one dense (num_entities, d) coefficient tensor (and,
+when trained with them, its (num_entities, d) variances) plus a key → row
+index; scoring a batch is one gather + rowwise dot. Entities unseen at
+training time take row E, the appended zero row.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from photon_tpu_torch.data.matrix import SparseRows
-from photon_tpu_torch.models.glm import GeneralizedLinearModel
-from photon_tpu_torch.ops.losses import TaskType
+from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_tpu_torch.ops.losses import TaskType, mean_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +24,10 @@ class FixedEffectModel:
 
     model: GeneralizedLinearModel
     feature_shard: str
+
+    @property
+    def task(self) -> TaskType:
+        return self.model.task
 
     def score(self, X) -> torch.Tensor:
         return self.model.score(X)
@@ -48,6 +53,7 @@ class RandomEffectModel:
     coefficients: torch.Tensor  # (E, d)
     entity_keys: np.ndarray  # (E,) raw keys, sorted
     key_to_index: dict
+    variances: Optional[torch.Tensor] = None  # (E, d) or None
 
     @property
     def n_entities(self) -> int:
@@ -84,6 +90,13 @@ class RandomEffectModel:
     def score(self, X, dense_ids) -> torch.Tensor:
         return score_rows(X, self.coeffs_for(dense_ids))
 
+    def model_for(self, key) -> GeneralizedLinearModel:
+        """One entity's GLM (reference: RandomEffectModel.getModel)."""
+        i = self.key_to_index[key]
+        var = None if self.variances is None else self.variances[i]
+        return GeneralizedLinearModel(
+            Coefficients(self.coefficients[i], var), self.task)
+
 
 CoordinateModel = Union[FixedEffectModel, RandomEffectModel]
 
@@ -97,3 +110,9 @@ class GameModel:
 
     def __getitem__(self, name: str) -> CoordinateModel:
         return self.coordinates[name]
+
+    def names(self):
+        return list(self.coordinates)
+
+    def mean(self, total_score: torch.Tensor) -> torch.Tensor:
+        return mean_fn(self.task)(total_score)

@@ -1,5 +1,7 @@
 """Offline batch scoring of GAME models (port of the in-memory path of
-`photon_tpu/game/scoring.py`; the streamed host-cache path waits).
+`photon_tpu/game/scoring.py`; the streamed host-cache path,
+`score_chunked_host`, waits for ROADMAP queue A item 6). It scores what
+`game.estimator.GameEstimator.fit` returns, on the model's device.
 
 The total score is the base offsets plus every coordinate's margin,
 summed in coordinate order — the sum the serving ladder's f32 rungs must
@@ -9,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from photon_tpu_torch.data.matrix import SparseRows, as_tensor
+from photon_tpu_torch.data.matrix import BlockedEllRows, SparseRows, as_tensor
 from photon_tpu_torch.game.dataset import GameData
 from photon_tpu_torch.game.model import (FixedEffectModel, GameModel,
                                          RandomEffectModel)
@@ -23,7 +25,9 @@ def _model_device(model: GameModel) -> torch.device:
 
 
 def _on(X, device):
-    return X.to(device) if isinstance(X, SparseRows) else as_tensor(X, device)
+    if isinstance(X, (SparseRows, BlockedEllRows)):
+        return X.to(device)
+    return as_tensor(X, device)
 
 
 def coordinate_scores(model: GameModel, data: GameData) -> dict:

@@ -16,9 +16,12 @@ A reg-weight grid runs its G lanes lock-step in lane-minor layout
 (`optim.lane_lbfgs`, `lane_owlqn`, `lane_tron`): every X pass is one
 shared (·, G) pass through the same kernels.
 
-Still to come, and raising when asked for: feature normalization,
-`PriorDistribution` (full-covariance priors) and FULL variances (ROADMAP
-queue A item 4), streamed datasets (item 5) and meshes (item 10).
+Informative priors (`optim.prior.PriorDistribution`, diagonal or full
+covariance), feature normalization (`data.normalization`, folded into the
+objective: the solve runs in normalized space, the model comes back in
+original space) and SIMPLE or FULL variances follow the reference's rules.
+Still to come, and raising when asked for: streamed datasets (ROADMAP
+queue A item 5) and meshes (item 10).
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import torch
 
 from photon_tpu_torch import kernels as K
 from photon_tpu_torch.data.dataset import GLMBatch
-from photon_tpu_torch.data.matrix import BlockedEllRows, SparseRows
+from photon_tpu_torch.data.matrix import (BlockedEllRows, EntityBlocks,
+                                          SparseRows)
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_tpu_torch.models.variance import (VarianceComputationType,
@@ -58,9 +62,16 @@ def _vec_on(v, device):
     return v.to(device=device, dtype=torch.float32)
 
 
+def _host_vec(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
 def make_objective(task: TaskType, config: OptimizerConfig, n_features: int,
                    prior_mean=None, prior_precision=None,
                    intercept_index: Optional[int] = -1, fused: bool = False,
+                   normalization=None, prior_full_precision=None,
                    device=None) -> Objective:
     """The smooth objective of one solve, on ``device`` (default ``cuda``).
 
@@ -68,19 +79,27 @@ def make_objective(task: TaskType, config: OptimizerConfig, n_features: int,
     ``config.regularize_intercept`` is False (default -1: the builders
     append the intercept as the LAST column; None for no intercept).
     fused: evaluate f and g through the fused value+grad kernel where X
-    qualifies."""
+    qualifies. normalization: a `NormalizationContext` whose factors and
+    shifts the objective folds into its margin (the solve then runs in
+    normalized space). Priors of shape (d, G) are per-lane (a random
+    effect's entities)."""
     dev = resolve_device(device)
     reg_mask = None
     if not config.regularize_intercept and intercept_index is not None:
         reg_mask = torch.ones(n_features, dtype=torch.float32, device=dev)
         reg_mask[intercept_index] = 0.0
-
+    norm_factors = norm_shifts = None
+    if normalization is not None and not normalization.is_identity:
+        norm_factors = _vec_on(normalization.factors, dev)
+        norm_shifts = _vec_on(normalization.shifts, dev)
     return Objective(
         task=task,
         # the f32 value of the weight, as the reference's np.float32 canon
         l2=float(np.float32(config.reg.l2_weight(config.reg_weight))),
         fused=fused, reg_mask=reg_mask, prior_mean=_vec_on(prior_mean, dev),
-        prior_precision=_vec_on(prior_precision, dev))
+        prior_precision=_vec_on(prior_precision, dev),
+        prior_full_precision=_vec_on(prior_full_precision, dev),
+        norm_factors=norm_factors, norm_shifts=norm_shifts)
 
 
 def _l1_lam(config: OptimizerConfig):
@@ -126,17 +145,69 @@ def _permuted_prep(X: BlockedEllRows, w0, prior_mean, prior_precision):
     return w0, prior_mean, prior_precision
 
 
-def _init_w0(d: int, w0, device) -> torch.Tensor:
+def _permuted_norm(X: BlockedEllRows, norm):
+    """The normalization context the objective of a permuted solve uses:
+    factors and shifts gathered into the permuted space on the host
+    (elementwise transforms commute with the permutation, so the
+    original-space context converts the result after `to_model_space`)."""
+    if norm is None:
+        return None
+    perm = _host_vec(X.perm_cols)
+    return dataclasses.replace(
+        norm,
+        factors=None if norm.factors is None else norm.factors[perm],
+        shifts=None if norm.shifts is None else norm.shifts[perm])
+
+
+def _active_norm(normalization):
+    """The NormalizationContext if it does anything, else None."""
+    if normalization is not None and not normalization.is_identity:
+        return normalization
+    return None
+
+
+def _init_w0(d: int, w0, device, norm=None) -> torch.Tensor:
     if w0 is None:
         return torch.zeros(d, dtype=torch.float32, device=device)
     if np.ndim(w0) == 2:
         raise ValueError("per-lane (G, d) w0 is a grid-path feature; single "
                          "solves take a (d,) start")
+    if norm is not None:
+        w0 = norm.to_normalized_space(_host_vec(w0))
     return _vec_on(w0, device)
 
 
+def _prior_into(norm, prior_mean, prior_precision):
+    """Original-space diagonal prior → the normalized solve's space: μ to
+    normalized coordinates, τ_j·f_j² (the intercept/shift coupling
+    dropped, the same diagonal approximation as the variances)."""
+    if norm is None:
+        return prior_mean, prior_precision
+    if prior_mean is not None:
+        prior_mean = norm.to_normalized_space(_host_vec(prior_mean))
+    if prior_precision is not None:
+        f = norm.factors if norm.factors is not None else 1.0
+        prior_precision = np.asarray(_host_vec(prior_precision),
+                                     np.float32) * f * f
+    return prior_mean, prior_precision
+
+
+def _refuse_streamed(batch) -> None:
+    if hasattr(batch, "n_chunks"):
+        raise NotImplementedError(
+            "streamed datasets (ChunkedBatch) are not ported yet (ROADMAP "
+            "queue A item 5)")
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "meshes (multi-device training) are not ported yet (ROADMAP "
+            "queue A item 10)")
+
+
 def _matrix_dim(X) -> int:
-    if isinstance(X, (SparseRows, BlockedEllRows)):
+    if isinstance(X, (SparseRows, BlockedEllRows, EntityBlocks)):
         return X.n_features
     return int(X.shape[1])
 
@@ -151,6 +222,7 @@ def train_glm(
     prior_precision=None,
     prior=None,
     normalization=None,
+    mesh=None,
     device=None,
 ) -> tuple[GeneralizedLinearModel, OptResult]:
     """Full-batch GLM training on one device (reference: train_glm without
@@ -158,33 +230,48 @@ def train_glm(
 
     A `BlockedEllRows` batch solves in its permuted space; ``w0`` and the
     priors are taken, and the model's coefficients and variances returned,
-    in ORIGINAL column order. ``config.kernels`` scopes the kernel mode of
-    the whole solve."""
+    in ORIGINAL column order. With a `NormalizationContext` the solve runs
+    in normalized space (the objective folds the factors and shifts in; X
+    is untouched) and the model comes back in original space; ``w0`` and
+    the priors are original-space too. ``prior``: an
+    `optim.prior.PriorDistribution`, the only way to pass a
+    full-covariance precision (refused with normalization or a
+    `BlockedEllRows` batch, as the reference). ``config.kernels`` scopes
+    the kernel mode of the whole solve."""
+    _refuse_streamed(batch)
     if config.kernels is not None:
         with K.scope(config.kernels):
             return train_glm(
                 batch, task, dataclasses.replace(config, kernels=None),
                 w0=w0, variance=variance, prior_mean=prior_mean,
                 prior_precision=prior_precision, prior=prior,
-                normalization=normalization, device=device)
-    if prior is not None:
-        raise NotImplementedError(
-            "PriorDistribution (incl. full-covariance priors) is not ported "
-            "yet (ROADMAP queue A item 4); pass the diagonal "
-            "prior_mean/prior_precision")
-    if normalization is not None:
-        raise NotImplementedError(
-            "feature normalization is not ported yet (ROADMAP queue A "
-            "item 4)")
+                normalization=normalization, mesh=mesh, device=device)
+    _refuse_mesh(mesh)
     dev = resolve_device(device)
     batch = batch.to(dev)
     X = batch.X
     d = _matrix_dim(X)
-    w0 = _init_w0(d, w0, dev)
+    norm = _active_norm(normalization)
+    permuted = isinstance(X, BlockedEllRows)
+    prior_full = None
+    if prior is not None:
+        if prior_mean is not None or prior_precision is not None:
+            raise ValueError("pass prior OR prior_mean/prior_precision")
+        prior_mean = prior.mean
+        prior_precision = prior.precision_diag
+        prior_full = prior.precision_full
+        if prior_full is not None and norm is not None:
+            raise ValueError(
+                "full-covariance priors are not supported together with "
+                "normalization (no exact diagonal-space transform exists); "
+                "pre-transform the precision or use a diagonal prior")
+    w0 = _init_w0(d, w0, dev, norm)
+    prior_mean, prior_precision = _prior_into(norm, prior_mean,
+                                              prior_precision)
     prior_mean = _vec_on(prior_mean, dev)
     prior_precision = _vec_on(prior_precision, dev)
-    permuted = isinstance(X, BlockedEllRows)
     intercept_index = -1
+    norm_obj = norm
     # Dense OWL-QN evaluates f and g through the fused kernel (one X pass
     # per evaluation); L-BFGS and TRON are margin-cached and never call
     # value_and_grad, and a BlockedEllRows batch keeps the unfused route
@@ -192,20 +279,33 @@ def train_glm(
     use_fused = (config.effective_optimizer() is OptimizerType.OWLQN
                  and not permuted)
     if permuted:
+        if prior_full is not None:
+            raise ValueError(
+                "full-covariance priors are not supported with "
+                "BlockedEllRows (a (d, d) precision at that scale is "
+                "impractical; use a diagonal prior)")
         w0, prior_mean, prior_precision = _permuted_prep(
             X, w0, prior_mean, prior_precision)
+        norm_obj = _permuted_norm(X, norm)
         intercept_index = X.last_col_pos
     obj = make_objective(task, config, d, prior_mean=prior_mean,
                          prior_precision=prior_precision,
                          intercept_index=intercept_index, fused=use_fused,
-                         device=dev)
+                         normalization=norm_obj,
+                         prior_full_precision=prior_full, device=dev)
     res = solve(obj, batch, w0, config)
     var = compute_variances(obj, res.w, batch, variance)
     if permuted:
         res = res._replace(w=X.to_model_space(res.w))
         if var is not None:
             var = X.to_model_space(var)
-    return GeneralizedLinearModel(Coefficients(res.w, var), task), res
+    w_out = res.w
+    if norm is not None:
+        w_out = _vec_on(norm.to_original_space(_host_vec(res.w)), dev)
+        if var is not None:
+            var = _vec_on(norm.variances_to_original_space(_host_vec(var)),
+                          dev)
+    return GeneralizedLinearModel(Coefficients(w_out, var), task), res
 
 
 # ------------------------------------------------------------ the lane grid
@@ -354,8 +454,12 @@ def train_glm_grid(
     ``to_model_space``). Sweeps without variances or priors run the
     lane-minor solvers (L-BFGS, TRON, or OWL-QN for any L1 weight, as
     `lane_weight_arrays` routes them), every X pass shared by the lanes;
-    SIMPLE variances and diagonal priors run the general runner, one
-    single-lane solve per lane, and say so at INFO.
+    variances and a (shared, diagonal) prior run the general runner, one
+    single-lane solve per lane, and say so at INFO. A
+    `NormalizationContext` folds into every lane's objective; ``w0`` and
+    the prior are original-space, and the returned models too (the
+    ``device_results`` form stays in the solve's normalized space, as the
+    reference's).
 
     Returns ``[(GeneralizedLinearModel, OptResult)]`` in ``reg_weights``
     order, on the CPU from one host transfer for the whole sweep; with
@@ -377,40 +481,45 @@ def train_glm_grid(
                 normalization=normalization, device_results=device_results,
                 prior_mean=prior_mean, prior_precision=prior_precision,
                 prior=prior, device=device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes (multi-device grids) are not ported yet (ROADMAP queue "
-            "A item 10)")
-    if normalization is not None:
-        raise NotImplementedError(
-            "feature normalization is not ported yet (ROADMAP queue A "
-            "item 4)")
-    if prior is not None:
-        raise NotImplementedError(
-            "PriorDistribution (incl. full-covariance priors) is not ported "
-            "yet (ROADMAP queue A item 4); pass the diagonal "
-            "prior_mean/prior_precision")
-    if variance is VarianceComputationType.FULL:
-        raise NotImplementedError(
-            "FULL variances are not ported yet (ROADMAP queue A item 4); "
-            "use SIMPLE")
+    _refuse_mesh(mesh)
     dev = resolve_device(device)
     batch = batch.to(dev)
     X = batch.X
     d = _matrix_dim(X)
+    norm = _active_norm(normalization)
     weights = [float(wt) for wt in reg_weights]
+    if np.ndim(w0) == 2 and norm is not None:
+        raise ValueError(
+            "per-lane w0 with normalization is not supported; pass "
+            "normalized-space starts and normalization=None")
+    if prior is not None:
+        if prior_mean is not None or prior_precision is not None:
+            raise ValueError("pass prior OR prior_mean/prior_precision")
+        if prior.precision_full is not None:
+            raise ValueError(
+                "full-covariance priors are not supported on the grid "
+                "path; use a diagonal prior (from_variances) or run the "
+                "sweep sequentially via train_glm")
+        prior_mean, prior_precision = prior.mean, prior.precision_diag
+    if norm is not None and w0 is not None:
+        w0 = norm.to_normalized_space(_host_vec(w0))
     W0 = _grid_w0(d, len(weights), w0, dev)
+    prior_mean, prior_precision = _prior_into(norm, prior_mean,
+                                              prior_precision)
     prior_mean = _vec_on(prior_mean, dev)
     prior_precision = _vec_on(prior_precision, dev)
     permuted = isinstance(X, BlockedEllRows)
     intercept_index = -1
+    norm_obj = norm
     if permuted:
         W0, prior_mean, prior_precision = _permuted_prep(
             X, W0, prior_mean, prior_precision)
+        norm_obj = _permuted_norm(X, norm)
         intercept_index = X.last_col_pos
     obj = make_objective(task, config, d, prior_mean=prior_mean,
                          prior_precision=prior_precision,
-                         intercept_index=intercept_index, device=dev)
+                         intercept_index=intercept_index,
+                         normalization=norm_obj, device=dev)
     l2s, l1s, static_cfg = lane_weight_arrays(config, weights)
     l2s = l2s.to(dev)
     l1s = None if l1s is None else l1s.to(dev)
@@ -439,6 +548,10 @@ def train_glm_grid(
     host = _to_host(fields)
     W, value, gnorm, its, conv, failed, hist, ghist = host[:8]
     V = host[8] if var is not None else None
+    if norm is not None:  # back to original space, as train_glm
+        W = torch.from_numpy(norm.rows_to_original_space(W.numpy()))
+        if V is not None:
+            V = torch.from_numpy(norm.variances_to_original_space(V.numpy()))
     out = []
     for i in range(len(weights)):
         lane = OptResult(

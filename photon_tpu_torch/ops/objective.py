@@ -1,4 +1,4 @@
-"""GLM objective: value / gradient / Hessian diagonal over one device's batch
+"""GLM objective: value / gradient / Hessian products over one device's batch
 (port of the single-device part of `photon_tpu/ops/objective.py`).
 
 Reference parity: com.linkedin.photon.ml.function.glm.SingleNodeGLMLossFunction
@@ -6,13 +6,13 @@ and function.L2RegularizationTwiceDiffFunction. All quantities use the
 reference's SUM convention (weighted sum over examples, not mean), so
 regularization weights mean the same thing.
 
-Ported: the smooth regularizer (L2 weight, ``reg_mask``, diagonal priors),
-the margin-cached family (`margin`, `direction_margin`, `ray_reg_coeffs`,
-`phi_at_ray`, `*_at_margin`, `hvp_at_margin`), `value_and_grad` (through
-the fused kernel when ``fused`` is set and X qualifies), `hvp` and
-`hess_diag`. Feature normalization, full-covariance priors,
-`full_hessian` and the chunk-partial API are still to come (ROADMAP queue
-A item 4) and raise.
+Ported: the smooth regularizer (L2 weight, ``reg_mask``, diagonal and
+full-covariance priors), feature normalization folded into the margin and
+the backprop, the margin-cached family (`margin`, `direction_margin`,
+`ray_reg_coeffs`, `phi_at_ray`, `*_at_margin`, `hvp_at_margin`),
+`value_and_grad` (through the fused kernel when ``fused`` is set and X
+qualifies), `hvp`, `hess_diag` and `full_hessian`. The chunk-partial API
+(streamed training) is still to come (ROADMAP queue A item 5).
 """
 from __future__ import annotations
 
@@ -22,11 +22,10 @@ from typing import Optional
 import torch
 
 from photon_tpu_torch.data.dataset import GLMBatch
-from photon_tpu_torch.data.matrix import matvec, rmatvec, sq_rmatvec
+from photon_tpu_torch.data.matrix import (matvec, rmatvec, sq_rmatvec,
+                                          weighted_gram)
 from photon_tpu_torch.kernels.fused import can_fuse, fused_value_and_grad
 from photon_tpu_torch.ops.losses import TaskType, loss_fns
-
-_LATER = "not ported yet (ROADMAP queue A item 4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,10 +35,15 @@ class Objective:
     ``l2`` is the smooth L2 weight. ``reg_mask``: optional (d,) 0/1
     per-coordinate regularization mask (excludes the intercept when
     configured). ``prior_mean`` / ``prior_precision``: a diagonal
-    informative prior; the L2 term becomes 0.5 Σ_j (l2 + τ_j)(w_j − μ_j)².
+    informative prior; the L2 term becomes 0.5 Σ_j (l2 + τ_j)(w_j − μ_j)²
+    (the lane objective also takes them lane-minor, (d, G)).
+    ``prior_full_precision``: a dense (d, d) precision P adding
+    0.5·dwᵀ P dw (small d only). ``norm_factors`` / ``norm_shifts``:
+    feature normalization folded into the margin, z = X(f∘w) − s·(f∘w) +
+    offsets, so the solve runs in normalized coefficient space.
     ``fused``: `value_and_grad` takes the fused value+grad kernel
-    (`kernels.fused`, one pass over X) when X qualifies (`can_fuse`);
-    `train_glm` sets it for dense OWL-QN solves.
+    (`kernels.fused`, one pass over X) when X qualifies (`can_fuse`) and
+    nothing is normalized; `train_glm` sets it for dense OWL-QN solves.
     """
 
     task: TaskType
@@ -48,8 +52,30 @@ class Objective:
     reg_mask: Optional[torch.Tensor] = None
     prior_mean: Optional[torch.Tensor] = None
     prior_precision: Optional[torch.Tensor] = None
+    prior_full_precision: Optional[torch.Tensor] = None
+    norm_factors: Optional[torch.Tensor] = None
+    norm_shifts: Optional[torch.Tensor] = None
 
     # ---------------------------------------------------------------- helpers
+    def _eff_w(self, w):
+        """The coefficients the data sees: f∘w."""
+        return w if self.norm_factors is None else w * self.norm_factors
+
+    def _margin_of_eff(self, wt, X):
+        z = matvec(X, wt)
+        if self.norm_shifts is not None:
+            z = z - torch.dot(self.norm_shifts, wt)
+        return z
+
+    def _backprop(self, batch: GLMBatch, g):
+        """∂z/∂w pulled back over a per-row cotangent g: f∘(Xᵀg − s·Σg)."""
+        out = rmatvec(batch.X, g)
+        if self.norm_shifts is not None:
+            out = out - self.norm_shifts * torch.sum(g)
+        if self.norm_factors is not None:
+            out = out * self.norm_factors
+        return out
+
     def _reg_parts(self):
         mask = self.reg_mask if self.reg_mask is not None else 1.0
         mu = self.prior_mean if self.prior_mean is not None else 0.0
@@ -60,17 +86,33 @@ class Objective:
         """(value, grad) of the smooth regularizer at w."""
         coeff, mu = self._reg_parts()
         dw = w - mu
-        return 0.5 * torch.sum(coeff * dw * dw), coeff * dw
+        value = 0.5 * torch.sum(coeff * dw * dw)
+        grad = coeff * dw
+        if self.prior_full_precision is not None:
+            Pdw = self.prior_full_precision @ dw
+            value = value + 0.5 * torch.dot(dw, Pdw)
+            grad = grad + Pdw
+        return value, grad
 
     def _reg_hess_diag(self, w):
-        coeff, _ = self._reg_parts()
-        return coeff * torch.ones_like(w)
+        diag = self._reg_parts()[0] * torch.ones_like(w)
+        if self.prior_full_precision is not None:
+            diag = diag + torch.diagonal(self.prior_full_precision)
+        return diag
+
+    def _reg_hvp(self, v):
+        out = self._reg_parts()[0] * v
+        if self.prior_full_precision is not None:
+            out = out + self.prior_full_precision @ v
+        return out
 
     # ------------------------------------------------------------------- API
     def value_and_grad(self, w, batch: GLMBatch):
-        """(f, g) at w: one fused pass over X when ``fused`` is set and X
-        qualifies, else one X pass for the margin and one for Xᵀr."""
-        if self.fused and can_fuse(batch.X):
+        """(f, g) at w: one fused pass over X when ``fused`` is set, X
+        qualifies and nothing is normalized, else one X pass for the
+        margin and one for Xᵀr."""
+        if (self.fused and self.norm_factors is None
+                and self.norm_shifts is None and can_fuse(batch.X)):
             value, gX = fused_value_and_grad(self.task, batch.X, w, batch.y,
                                              batch.weights, batch.offsets)
             rv, rg = self._reg_terms(w)
@@ -83,21 +125,34 @@ class Objective:
     # (z, dz) and pays exactly two X passes per iteration.
 
     def margin(self, w, batch: GLMBatch):
-        """z(w) = Xw + offsets."""
-        return matvec(batch.X, w) + batch.offsets
+        """z(w) = X(f∘w) − s·(f∘w) + offsets."""
+        wt = self._eff_w(w)
+        z = matvec(batch.X, wt) + batch.offsets
+        if self.norm_shifts is not None:
+            z = z - torch.dot(self.norm_shifts, wt)
+        return z
 
     def direction_margin(self, p, batch: GLMBatch):
-        """dz = X·p (offset-free margin of the direction)."""
-        return matvec(batch.X, p)
+        """dz = ∂z/∂w · p (the offset-free margin of the direction)."""
+        return self._margin_of_eff(self._eff_w(p), batch.X)
 
     def ray_reg_coeffs(self, w, p):
-        """Scalars (c0, c1, c2) of the regularizer along the ray w + a·p: it
-        is quadratic in w, so its value is c0 + a·c1 + a²/2·c2 exactly and
-        its slope c1 + a·c2 — one O(d) pass per line search."""
+        """Scalars (c0, c1, c2) of the regularizer along the ray w + a·p:
+        every smooth term (L2, diagonal and full priors) is quadratic in
+        w, so its value is c0 + a·c1 + a²/2·c2 exactly and its slope
+        c1 + a·c2 — one O(d) pass per line search."""
         coeff, mu = self._reg_parts()
         dw = w - mu
-        return (0.5 * torch.sum(coeff * dw * dw), torch.sum(coeff * dw * p),
-                torch.sum(coeff * p * p))
+        c0 = 0.5 * torch.sum(coeff * dw * dw)
+        c1 = torch.sum(coeff * dw * p)
+        c2 = torch.sum(coeff * p * p)
+        if self.prior_full_precision is not None:
+            Pdw = self.prior_full_precision @ dw
+            Pp = self.prior_full_precision @ p
+            c0 = c0 + 0.5 * torch.dot(dw, Pdw)
+            c1 = c1 + torch.dot(dw, Pp)
+            c2 = c2 + torch.dot(p, Pp)
+        return c0, c1, c2
 
     def phi_at_ray(self, z, dz, a, coeffs, batch: GLMBatch):
         """(φ(a), φ'(a)) along w + a·p from the cached margins and the
@@ -120,39 +175,64 @@ class Objective:
         """Full gradient from a cached margin — ONE pass over X (Xᵀr)."""
         _, d1, _ = loss_fns(self.task)
         r = batch.weights * d1(z, batch.y)
-        return rmatvec(batch.X, r) + self._reg_terms(w)[1]
+        return self._backprop(batch, r) + self._reg_terms(w)[1]
 
     def value_and_grad_at_margin(self, w, z, batch: GLMBatch):
         """(f, g) from a cached margin — one elementwise pass + one Xᵀr."""
         loss, d1, _ = loss_fns(self.task)
         r = batch.weights * d1(z, batch.y)
-        gX = rmatvec(batch.X, r)
+        gX = self._backprop(batch, r)
         value = torch.sum(batch.weights * loss(z, batch.y))
         rv, rg = self._reg_terms(w)
         return value + rv, gX + rg
 
     def hess_diag(self, w, batch: GLMBatch):
-        """diag(H) = (X∘X)ᵀ(weight·d2(z)) + the regularizer's diagonal
-        (reference: TwiceDiffFunction.hessianDiagonal, behind SIMPLE
-        variances)."""
+        """diag(H) = f²∘(X∘X)ᵀ(weight·d2(z)) (with shifts, the expansion
+        Σ w2 (x − s)², so sparse X never densifies) + the regularizer's
+        diagonal (reference: TwiceDiffFunction.hessianDiagonal, behind
+        SIMPLE variances)."""
         _, _, d2 = loss_fns(self.task)
         w2 = batch.weights * d2(self.margin(w, batch), batch.y)
-        return sq_rmatvec(batch.X, w2) + self._reg_hess_diag(w)
+        diag = sq_rmatvec(batch.X, w2)
+        if self.norm_shifts is not None:
+            s = self.norm_shifts
+            diag = (diag - 2.0 * s * rmatvec(batch.X, w2)
+                    + s * s * torch.sum(w2))
+        if self.norm_factors is not None:
+            diag = diag * self.norm_factors * self.norm_factors
+        return diag + self._reg_hess_diag(w)
 
     def hvp_at_margin(self, w, z, batch: GLMBatch, v, dz_v=None):
         """H(w)·v with the margin z cached (Gauss-Newton form, exact for
-        GLMs): two X passes (dz_v = X·v and the backprop). Pass dz_v when
-        the caller already has the direction's margin (TRON's CG does)."""
+        GLMs): two X passes (dz_v and the backprop). Pass dz_v when the
+        caller already has the direction's margin (TRON's CG does)."""
         _, _, d2 = loss_fns(self.task)
         if dz_v is None:
             dz_v = self.direction_margin(v, batch)
         g = batch.weights * d2(z, batch.y) * dz_v
-        return rmatvec(batch.X, g) + self._reg_parts()[0] * v
+        return self._backprop(batch, g) + self._reg_hvp(v)
 
     def hvp(self, w, batch: GLMBatch, v):
-        """H(w)·v: Xᵀ diag(weight·d2(z)) X v + the regularizer's Hessian
-        times v (reference: TwiceDiffFunction.hessianVector)."""
+        """H(w)·v: Jᵀ diag(weight·d2(z)) J v + the regularizer's Hessian
+        times v, J = ∂z/∂w (reference: TwiceDiffFunction.hessianVector)."""
         return self.hvp_at_margin(w, self.margin(w, batch), batch, v)
 
     def full_hessian(self, w, batch: GLMBatch):
-        raise NotImplementedError(f"Objective.full_hessian is {_LATER}")
+        """Dense (d, d) Hessian (reference: TwiceDiffFunction.hessianMatrix,
+        behind FULL variances; small feature spaces only). With
+        normalization: F(G − s qᵀ − q sᵀ + (Σw2) s sᵀ)F, G = Xᵀdiag(w2)X,
+        q = Xᵀw2, F = diag(factors)."""
+        _, _, d2 = loss_fns(self.task)
+        w2 = batch.weights * d2(self.margin(w, batch), batch.y)
+        H = weighted_gram(batch.X, w2)
+        if self.norm_shifts is not None:
+            s = self.norm_shifts
+            q = rmatvec(batch.X, w2)
+            H = (H - torch.outer(s, q) - torch.outer(q, s)
+                 + torch.sum(w2) * torch.outer(s, s))
+        if self.norm_factors is not None:
+            H = H * torch.outer(self.norm_factors, self.norm_factors)
+        H = H + torch.diag(self._reg_parts()[0] * torch.ones_like(w))
+        if self.prior_full_precision is not None:
+            H = H + self.prior_full_precision
+        return H

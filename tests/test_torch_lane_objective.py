@@ -185,38 +185,43 @@ def test_lane_x_passes_are_the_single_lane_passes(layout):
         _close(rv[:, g], M.rmatvec(pb.X, R[:, g].contiguous()).numpy())
 
 
-def test_sparse_rows_have_no_lanes():
-    """SparseRows' single-lane gather is not a lane pass: a named raise,
-    not a crash in its einsum."""
-    ind, val, d = rows(n=20, d=100)
-    X = M.SparseRows(torch.from_numpy(ind), torch.from_numpy(val), d)
-    W = torch.zeros((d, 3))
-    for fn, arg in ((M.matvec_lanes, W), (M.rmatvec_lanes,
-                                          torch.zeros((20, 3)))):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 4"):
-            fn(X, arg)
-
-
 def test_supports_lanes_and_normalization():
-    """Priors send a sweep off the lane path; an objective carrying
-    normalization raises, naming the ROADMAP item."""
+    """A shared (d,) prior or a full-covariance one sends a sweep off the
+    lane path, per-lane (d, G) priors stay on it; an objective carrying
+    normalization folds it into every lane as the reference's does."""
     po = Objective(L.TaskType.LOGISTIC_REGRESSION)
     assert LO.supports_lanes(po)
     assert not LO.supports_lanes(dataclasses.replace(
         po, prior_mean=torch.zeros(4)))
     assert not LO.supports_lanes(dataclasses.replace(
         po, prior_precision=torch.ones(4)))
+    assert not LO.supports_lanes(dataclasses.replace(
+        po, prior_full_precision=torch.eye(4)))
+    assert LO.supports_lanes(dataclasses.replace(
+        po, prior_mean=torch.zeros(4, 3), prior_precision=torch.ones(4, 3)))
 
-    @dataclasses.dataclass(frozen=True)
-    class Normalized(Objective):
-        norm_factors: Optional[torch.Tensor] = None
-
-    _, pb, d, ops = _problem("dense", 3)
-    normed = Normalized(L.TaskType.LOGISTIC_REGRESSION,
-                        norm_factors=torch.ones(d))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        LO.margin_lanes(normed, torch.from_numpy(ops["W"]), pb)
+    rb, pb, d, ops = _problem("dense", 3)
+    rng = np.random.default_rng(17)
+    f = rng.uniform(0.5, 2.0, size=d).astype(np.float32)
+    s = (0.1 * rng.normal(size=d)).astype(np.float32)
+    normed = Objective(L.TaskType.LOGISTIC_REGRESSION,
+                       norm_factors=torch.from_numpy(f),
+                       norm_shifts=torch.from_numpy(s))
+    rnormed = RObjective(RL.TaskType.LOGISTIC_REGRESSION,
+                         norm_factors=jnp.asarray(f),
+                         norm_shifts=jnp.asarray(s))
+    W = ops["W"]
+    _close(LO.margin_lanes(normed, torch.from_numpy(W), pb),
+           np.asarray(RLO.margin_lanes(rnormed, jnp.asarray(W), rb)))
+    l2s = np.asarray([0.1, 1.0, 3.0], np.float32)
+    z = LO.margin_lanes(normed, torch.from_numpy(W), pb)
+    got = LO.value_and_grad_at_margin_lanes(normed, torch.from_numpy(l2s),
+                                            torch.from_numpy(W), z, pb)
+    want = RLO.value_and_grad_at_margin_lanes(
+        rnormed, jnp.asarray(l2s), jnp.asarray(W), jnp.asarray(z.numpy()),
+        rb)
+    for g_, w_ in zip(got, want):
+        _close(g_, np.asarray(w_))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -194,11 +194,17 @@ def test_objective_margin_api_matches_reference(bf16):
 
 
 def test_objective_parts_still_to_port_raise():
+    """Only the chunk-partial API (streamed training, ROADMAP queue A item
+    5) is still to come; the full Hessian is ported (its parity lives in
+    test_torch_prior_norm.py) and is the Hessian the HVP applies."""
     _, pb = problem(n=64, d=200)
     po = Objective(L.TaskType.LOGISTIC_REGRESSION, l2=1.0)
+    assert not hasattr(po, "chunk_value_grad_partials")
     w = torch.zeros(200)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        po.full_hessian(w, pb)
+    v = torch.linspace(-1.0, 1.0, 200)
+    H = po.full_hessian(w, pb)
+    np.testing.assert_allclose((H @ v).numpy(), po.hvp(w, pb, v).numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------------------------ line search
@@ -374,19 +380,25 @@ def test_train_glm_default_device_raises_without_gpu():
         T.train_glm(pb, L.TaskType.LOGISTIC_REGRESSION, _configs(iters=2)[1])
 
 
-@pytest.mark.parametrize("what", ["normalization", "prior", "full_variance"])
+@pytest.mark.parametrize("what", ["mesh", "chunked"])
 def test_train_glm_parts_still_to_port_raise(what):
+    """Meshes (item 10) and streamed batches (item 5) raise, naming their
+    ROADMAP item; priors, normalization and FULL variances are ported."""
     _, pb = problem(n=64, d=200)
     cfg = _configs(iters=2)[1]
-    kw = {}
-    if what == "normalization":
-        kw["normalization"] = object()
-    elif what == "prior":
-        kw["prior"] = object()
+    kw, batch, item = {}, pb, "10"
+    if what == "mesh":
+        kw["mesh"] = object()
     else:
-        kw["variance"] = Var.FULL
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.train_glm(pb, L.TaskType.LOGISTIC_REGRESSION, cfg, device=CPU,
+        batch, item = pb._replace(), "5"
+
+        class Chunked(tuple):
+            n_chunks = 4
+
+        batch = Chunked(pb)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue A item {item}\\b"):
+        T.train_glm(batch, L.TaskType.LOGISTIC_REGRESSION, cfg, device=CPU,
                     **kw)
 
 
