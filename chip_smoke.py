@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GAME serving path, its sparse logistic
 GLM training path, its dense OWL-QN / TRON training path, its
-reg-weight grids and its GAME training on one GPU.
+reg-weight grids, its streamed (out-of-device-memory) training and its
+GAME training on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -90,6 +91,29 @@ G. the reg-weight grid on T2's layout (built once, for T2): (a) bench.py's
    hot block's Xᵀr over all rows against an f64 product, as one cuBLAS
    call and as the X pass sums it in row chunks (at most 1e-5 of the
    largest output);
+S. streamed training (a host dataset streamed through the card two
+   chunks deep): T2's problem laid out as a bf16 host ladder
+   (`chunk_blocked_ell`, 8 chunks of 2^18 rows) — its build seconds,
+   chunk and pass bytes, this host's pinned host-to-device rate (one
+   chunk's copy) —; the tail matvec (1 and 8 lanes) and the rmatvec on
+   device ladder chunks with padded width buckets against their plain
+   versions; (a) streamed L-BFGS at T2's settings through
+   `train_glm(ChunkedBatch)` (timed; counts reset just before and read
+   just after): rows·iters/s, feature streams and bytes per iteration,
+   the link bound's share, the stall share, plan builds (at most one per
+   ring slot), launches per pass, peak device memory beside the reckoned
+   two chunks plus solver state; held against ``scope("off")``
+   (iterations equal, histories within rtol 1e-5) and against resident
+   T2 (a) (histories within 1e-5 over the first 5 iterations and a
+   5-iteration streamed solve's coefficients within rtol 2e-3 / atol
+   2e-5 of T2 (b)'s; where the 40-iteration histories part is reported:
+   ROADMAP.md §C6); a profiled 5-iteration solve's device-busy share,
+   copies apart; (b) streamed OWL-QN (L1 1.0, 5 iterations, 8 ladder
+   lanes) against ``scope("off")`` and resident T2(d) (final value rtol
+   1e-5, equal zero sets); (c) bench.py's streamed leg (D2's 2^19 x 256
+   f32 in 2^16-row chunks, L-BFGS, 40 iterations) against the resident
+   solve (final value rtol 1e-5, coefficients rtol 2e-3 / atol 2e-5),
+   and at 2^18 rows its peak memory, which must not grow by a chunk;
 D1. print the fused value+grad kernel's registers and spills (ptxas -v)
    and hold it against its plain version: all four tasks, f32 and bf16
    storage, n = 1,000 and 4,097 (a ragged last tile), d = 37 (rows not a
@@ -131,6 +155,15 @@ GM. GAME at benches/game_10m.py's full width — 10,000,000 rows, 100,000
    lanes of their buckets and each alone through `train_glm` on its
    bucket's rows with the same offsets (solves stopped at tolerance
    1e-3): iterations equal, loss histories within rtol 1e-5;
+GS. GM again with its fixed shard as 10 host chunks of 2^20 bf16 rows (the
+   random effects' buckets reused): cold fit, warm refit row-sweeps/s,
+   peak memory, seconds per update, the ``game_e2e.*`` counters (the
+   descent's scores host caches); held against GM's warm fit (objective
+   rtol 1e-5, AUC within 1e-4) and, on the fixed shard alone stopped at
+   a relative progress of 1e-3, the streamed fixed solve against the
+   resident one (iterations equal, coefficients rtol 2e-3 / atol 2e-5);
+   after GK, GK (a)'s sparse fixed shard as a 4-chunk bf16 ladder, one
+   sweep through the kernels against ``scope("off")``;
 GK. GAME through the kernels, one sweep, random effects with the serving
    phase's shards (d 8, 8 slots): (a) a `BlockedEllRows` fixed shard at
    T2's width and 2^19 rows (L-BFGS, SIMPLE variances), (b) D2's dense
@@ -146,7 +179,8 @@ Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
 their launches in the grid's solves under ``grid_launches``; every
 entry its launches in GM's fits and GK's default-route fits under
-``gm_launches`` and ``gk_launches``), the
+``gm_launches`` and ``gk_launches``, in phase S's main-path solves under
+``s_launches`` and in GS's fits under ``gs_launches``), the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
@@ -204,6 +238,11 @@ GM_FIXED, GM_RE = (30, 1.0), (15, 5.0)
 # runs the check at its timed configuration and reports where it parts
 GM_CHECK, RE_CHECK_TOL = 64, 1e-3
 GK_ROWS = 1 << 19  # GAME through the kernels: T2's width at this depth
+# the streamed phases' chunk heights: T2's ladder (8 chunks), bench.py's
+# streamed leg on D2's data (run_streamed, 2^16), GM's fixed shard and
+# GK's ladder
+S_CHUNK, S_DENSE_CHUNK, GS_CHUNK, GK_S_CHUNK = 1 << 18, 1 << 16, 1 << 20, \
+    1 << 17
 
 
 def log(*a) -> None:
@@ -881,7 +920,6 @@ def phase_training(args, dev, gpu) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     X = batch.X
-    del ind, va
     U = X.n_prefix - X.d_sel
     facts = dict(tail_pad_waste=X.tail_pad_waste,
                  tail_nnz_share=X.tail_nnz / (rows * (T_NNZ + 1)),
@@ -946,6 +984,7 @@ def phase_training(args, dev, gpu) -> dict:
     K.reset_launch_counts()
     _, res_b, b_s = with_budget("0", lambda: solve_timed(batch, short, dev))
     launches_b = K.launch_counts()
+    w5_model = res_b.w.cpu().numpy()  # train_glm returns model order
     # (c): the plain versions on the card
     K.reset_launch_counts()
     _, res_c, c_s = solve_timed(batch, dataclasses.replace(short,
@@ -1018,7 +1057,8 @@ def phase_training(args, dev, gpu) -> dict:
             f"can miss its first kernels): "
             + "; ".join(f"{name[:70]} x{c}" for name, c in ops.items()))
     return dict(batch=batch, launches_a=launches_a, launches_b=launches_b,
-                w=w_perm, facts=facts)
+                w=w_perm, facts=facts, coo=(ind, va, y), hist_a=ha,
+                w5_model=w5_model, solve_peak=solve_peak_gb)
 
 
 def device_ops(fn, budget=None) -> dict:
@@ -1274,6 +1314,7 @@ def phase_sparse_owlqn(state: dict, dev, gpu) -> None:
                              f"{res_a.evaluations} evaluations")
     w = model.coefficients.means
     zeros = int((w == 0).sum().item())
+    state["owlqn"] = (res_a.history(), w.cpu().numpy())
     log(f"T2(d): OWL-QN on the blocked-ELL layout, {res_a.iterations} "
         f"iterations, {res_a.evaluations} evaluations in {a_s:.3f} s "
         f"(plain {b_s:.3f} s); launches {launches}; {zeros} of "
@@ -2049,6 +2090,298 @@ def phase_serving(args, dev, gpu) -> dict:
             "library_ms": None}
 
 
+# ------------------------------------- phase S: streamed (out-of-memory)
+def h2d_gbs(X, dev) -> float:
+    """This host's pinned host-to-device rate: one chunk's per-chunk
+    tensors (pinned) copied onto the card, best of three, GB/s."""
+    import torch
+
+    from photon_tpu_torch.data.dataset import _leaves
+
+    src = _leaves(X.chunks[0])
+    dst = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in src]
+    nbytes = sum(t.numel() * t.element_size() for t in src)
+    best = float("inf")
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for d_, s_ in zip(dst, src):
+            d_.copy_(s_, non_blocking=True)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return nbytes / best / 1e9
+
+
+def ladder_kernels_agree(cb, dev, gpu) -> None:
+    """The tail matvec (1 and 8 lanes) and the rmatvec on device chunks
+    of a ladder (each width bucket padded to the largest count over the
+    chunks) against their plain versions: the tail added into random
+    starting values (rows with no tail keep theirs bit for bit, so no
+    padded position wrote anywhere), rtol=atol=1e-5."""
+    import torch
+
+    from photon_tpu_torch.kernels import blocked_ell as KB
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n_local, d = cb.chunk_rows, cb.X.n_features
+    for i, b in cb.iter_device(device=dev):
+        if i not in (0, cb.n_chunks - 1):
+            continue
+        X = b.X
+        B = sum(int(v.shape[0]) for v in X.ell_vals)
+        free = int((X.tail_rows < 0).sum())
+        no_tail = X.row_pos == B
+        for lanes in (1, 8):
+            shape = (d,) if lanes == 1 else (d, lanes)
+            w = torch.randn(shape, generator=gen, device=dev) * 0.01
+            start = torch.randn((n_local,) + shape[1:], generator=gen,
+                                device=dev)
+            got = KB.tail_matvec(X, w, out=start.clone())
+            want = start + KB.tail_matvec_reference(X, w)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), **TOL,
+                                       err_msg=f"ladder tail, {lanes} lanes")
+            if not torch.equal(got[no_tail], start[no_tail]):
+                raise AssertionError("ladder tail: a row with no tail moved")
+            r = torch.randn((n_local,) + shape[1:], generator=gen,
+                            device=dev)
+            got_r = KB.bucket_rmatvec(X, r)
+            want_r = KB.bucket_rmatvec_reference(X, r)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got_r.cpu().numpy(),
+                                       want_r.cpu().numpy(), **TOL,
+                                       err_msg=f"ladder rmatvec, {lanes}")
+        log(f"S: ladder chunk {i}: {B} concatenation positions, {free} "
+            "taken by no row (padded bucket rows): the tail matvec (1 and 8 "
+            "lanes, added into random values; rows with no tail unchanged "
+            "bit for bit) and the rmatvec (1 and 8 lanes) agree with their "
+            "plain versions within rtol=atol=1e-5  [" + gpu + "]")
+
+
+def streamed_solve(cb, cfg, dev):
+    """(model, result, wall s, launches, telemetry counters, plan builds,
+    peak GB over the solve beyond what was allocated before it) of one
+    streamed `train_glm`, counts reset just before and read just
+    after."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.kernels import blocked_ell as KB
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    builds = KB.plan_builds()
+    telemetry.reset()
+    K.reset_launch_counts()
+    model, res, wall = solve_timed(cb, cfg, dev)
+    launches = K.launch_counts()
+    counters = telemetry.snapshot()["counters"]
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    return (model, res, wall, launches, counters, KB.plan_builds() - builds,
+            peak)
+
+
+def phase_streamed(args, t2: dict, dev, gpu) -> dict:
+    """S: (a) streamed L-BFGS on T2's problem as a bf16 host ladder, (b)
+    streamed OWL-QN on it, (c) bench.py's streamed leg on D2's data;
+    returns the kernels' launches in the main-path solves."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.dataset import (chunk_batch,
+                                               chunk_blocked_ell, make_batch)
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l1, l2
+
+    ind, va, y = t2["coo"]
+    t0 = time.perf_counter()
+    cb = chunk_blocked_ell(make_batch(SparseRows(ind, va, T_FEATURES), y,
+                                      device="cpu"),
+                           S_CHUNK, T_DENSE, feature_dtype=torch.bfloat16)
+    build_s = time.perf_counter() - t0
+    c0 = cb.X.chunks[0]
+    chunk_gb = (cb.X.chunk_nbytes() + 12 * S_CHUNK) / 1e9
+    pass_gb = chunk_gb * cb.n_chunks
+    rate = h2d_gbs(cb.X, dev)
+    log(f"S: T2's problem as a host ladder in {build_s:.1f} s: "
+        f"{cb.n_chunks} chunks of {S_CHUNK} rows (pinned), ELL width "
+        f"buckets {[tuple(v.shape) for v in c0.ell_vals]}, "
+        f"{len(c0.bucket_vals)} occurrence buckets, "
+        f"{c0.n_prefix - c0.d_sel} tail columns; {chunk_gb:.4f} GB a chunk "
+        f"(hot block {c0.dense.numel() * 2 / 1e9:.4f} GB), {pass_gb:.4f} GB "
+        f"a pass; pinned host-to-device {rate:.2f} GB/s (one chunk's "
+        f"copy, best of 3)  [{gpu}]")
+    ladder_kernels_agree(cb, dev, gpu)
+
+    # (a) the main path: streamed L-BFGS at T2's settings
+    cfg = OptimizerConfig(max_iters=T_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+    model, res, wall, la, tele, builds, peak = streamed_solve(cb, cfg, dev)
+    it = res.iterations
+    passes = tele["stream.passes"]
+    streams = tele["solver.feature_streams"]
+    stall, comp = tele["stream.stall_seconds"], tele["stream.compute_seconds"]
+    for name in (KB.TAIL, KB.RMATVEC):
+        if la.get(name, 0) == 0:
+            raise AssertionError(f"S (a): {name} never launched ({la})")
+    if builds > 2:
+        raise AssertionError(f"S (a): {builds} plan builds (at most one per "
+                             "ring slot, 2)")
+    _, res_off, off_s, l_off, _, _, _ = streamed_solve(
+        cb, dataclasses.replace(cfg, kernels="off"), dev)
+    if l_off:
+        raise AssertionError(f"S (a) scope off launched {l_off}")
+    if res_off.iterations != it:
+        raise AssertionError(f"S (a): {it} iterations, scope off "
+                             f"{res_off.iterations}")
+    gap_off = histories_agree("S (a) kernels vs scope off",
+                              res_off.history(), res.history())
+    # against resident T2 (a): the two sum the same rows in other groups
+    # (chunk partials against one pass), and at tolerance 0 on this
+    # ill-conditioned problem L-BFGS amplifies that rounding step by step
+    # (a CPU run of the port at 2^16 rows parts the same way: 1e-7 for 10
+    # iterations, 1e-5 by 20, 1e-3 by 40), so the gate holds the first
+    # T_SHORT iterations, and a T_SHORT-iteration streamed solve's
+    # coefficients against the resident T_SHORT-iteration solve's (T2
+    # (b)); the 40-iteration gap is reported
+    h, hr = res.history(), t2["hist_a"]
+    if len(h) != len(hr):
+        raise AssertionError(f"S (a): {it} iterations, resident "
+                             f"{len(hr) - 1}")
+    rel = np.abs(h - hr) / np.abs(hr)
+    parts = np.flatnonzero(rel > 1e-5)
+    gap5 = histories_agree("S (a) vs resident T2 (a), first iterations",
+                           hr[:T_SHORT + 1], h[:T_SHORT + 1])
+    m5, r5, _, _, _, _, _ = streamed_solve(
+        cb, dataclasses.replace(cfg, max_iters=T_SHORT), dev)
+    w_s, w_r = m5.coefficients.means.cpu().numpy(), t2["w5_model"]
+    off = np.abs(w_s - w_r) > 2e-5 + 2e-3 * np.abs(w_r)
+    log(f"S (a): against resident T2 (a): histories within {gap5:.3g} over "
+        f"the first {T_SHORT} iterations; {T_SHORT}-iteration coefficients "
+        f"max |dw| {np.abs(w_s - w_r).max():.4g}, {int(off.sum())} of "
+        f"{w_s.size} outside rtol 2e-3 / atol 2e-5; over {it} iterations the "
+        f"histories part by more than 1e-5 first at iteration "
+        f"{parts[0] if parts.size else 'none'}, "
+        f"{rel[-1]:.3g} apart at the last (losses {h[-1]:.8g} and "
+        f"{hr[-1]:.8g})")
+    np.testing.assert_allclose(w_s, w_r, rtol=2e-3, atol=2e-5,
+                               err_msg="S (a) coefficients vs resident")
+    it_s = wall / max(it, 1)
+    bound_s = pass_gb * streams / max(it, 1) / rate
+    reckoned = 2 * chunk_gb + (2 * T_HISTORY + 8) * 4 * T_FEATURES / 1e9
+    log(f"S (a): streamed L-BFGS, {it} iterations (cap {T_ITERS}) in "
+        f"{wall:.3f} s: {T_ROWS * it / wall:.6g} rows*iters/s (resident T2 "
+        f"(a) above); {streams:g} feature streams ({streams / it:.4g} an "
+        f"iteration), {passes:g} passes, {pass_gb * streams / it:.4f} GB "
+        f"uploaded an iteration, link bound {bound_s * 1e3:.2f} ms of "
+        f"{it_s * 1e3:.2f} ms an iteration ({bound_s / it_s:.3f} of it); "
+        f"stall share {stall / max(stall + comp, 1e-12):.3f} (stall "
+        f"{stall:.3f} s, compute {comp:.3f} s); plan builds {builds}; "
+        f"launches {la} ({', '.join(f'{k} {v / (it + 1):.3g}' for k, v in la.items())} "
+        f"a pass that runs it: the first pass and each direction or "
+        f"gradient pass); "
+        f"peak device memory {peak:.3f} GB beside the reckoned "
+        f"{reckoned:.3f} GB (2 chunks + {2 * T_HISTORY + 8} vectors of d) "
+        f"and resident T2 (a)'s {t2['solve_peak']:.3f} GB; loss {h[0]:.7g} -> {h[-1]:.7g}, "
+        f"{abs(h[-1] - hr[-1]) / abs(hr[-1]):.3g} from resident T2 (a)  "
+        f"[{gpu}]")
+    log(f"S (a): scope('off') {res_off.iterations} iterations in "
+        f"{off_s:.3f} s; max rel history gap {gap_off:.3g}")
+    short = dataclasses.replace(cfg, max_iters=T_SHORT)
+    busy, n_ops, top, pwall, by_name, _ = solve_profile(cb, short, dev)
+    copy_us = sum(us for k, us in by_name.items() if "Memcpy" in k)
+    log(f"S (a): profiled {T_SHORT}-iteration solve: device busy "
+        + ("not measured" if busy is None else
+           f"{busy * 1e3:.3f} ms of {pwall * 1e3:.3f} ms wall "
+           f"({busy / pwall:.3f}; copies {copy_us / 1e3:.3f} ms, "
+           f"{copy_us / 1e6 / pwall:.3f} of the wall, kernels and the "
+           f"rest {(busy - copy_us / 1e6) / pwall:.3f})")
+        + f", {n_ops} device ops; most device time: "
+        + "; ".join(f"{name[:50]} {us / 1e3:.3f} ms" for name, us in top)
+        + f"  [{gpu}]")
+    launches = dict(la)
+
+    # (b) streamed OWL-QN on the same ladder, T2(d)'s settings
+    cfg_b = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l1(),
+                            reg_weight=1.0, history=T_HISTORY)
+    model_b, res_b, wall_b, lb, tele_b, _, peak_b = streamed_solve(
+        cb, cfg_b, dev)
+    _, res_boff, _, lboff, _, _, _ = streamed_solve(
+        cb, dataclasses.replace(cfg_b, kernels="off"), dev)
+    if lboff:
+        raise AssertionError(f"S (b) scope off launched {lboff}")
+    gap_b = histories_agree("S (b) kernels vs scope off",
+                            res_boff.history(), res_b.history())
+    hd, wd = t2["owlqn"]
+    np.testing.assert_allclose(res_b.history()[-1], hd[-1], rtol=1e-5,
+                               err_msg="S (b) final value vs T2(d)")
+    wb = model_b.coefficients.means.cpu().numpy()
+    zs = int(((wb == 0) != (wd == 0)).sum())
+    ladders = tele_b["solver.feature_streams"] - (res_b.iterations + 1)
+    log(f"S (b): streamed OWL-QN, {res_b.iterations} iterations in "
+        f"{wall_b:.3f} s, {tele_b['solver.feature_streams']:g} feature "
+        f"streams ({ladders:g} 8-lane ladder passes); launches {lb}; "
+        f"{int((wb == 0).sum())} coefficients zero, {zs} differ in zero "
+        f"set from resident T2(d); loss {res_b.history()[-1]:.7g} vs "
+        f"T2(d) {hd[-1]:.7g}; max rel gap to scope off {gap_b:.3g}; peak "
+        f"{peak_b:.3f} GB  [{gpu}]")
+    if zs:
+        raise AssertionError(f"S (b): {zs} coefficients differ in zero set")
+    for name, c in lb.items():
+        launches[name] = launches.get(name, 0) + c
+    del cb, model, model_b
+    torch.cuda.empty_cache()
+
+    # (c) bench.py's streamed leg: D2's data in 2^16-row chunks
+    X, yd = dense_problem(args.seed)
+    cfg_c = OptimizerConfig(max_iters=T_ITERS, tolerance=0.0, reg=l2(),
+                            reg_weight=T_REG, history=T_HISTORY)
+    rb = make_batch(X, yd, device=dev)
+    m_r, res_r, wall_r = solve_timed(rb, cfg_c, dev)
+    del rb
+    torch.cuda.empty_cache()
+    peaks = {}
+    for rows in (D_ROWS, D_ROWS // 2):
+        cbd = chunk_batch(make_batch(X[:rows], yd[:rows], device="cpu"),
+                          S_DENSE_CHUNK)
+        m_c, res_c, wall_c, lc, _, _, peaks[rows] = streamed_solve(
+            cbd, cfg_c, dev)
+        if rows == D_ROWS:
+            np.testing.assert_allclose(res_c.history()[-1],
+                                       res_r.history()[-1], rtol=1e-5,
+                                       err_msg="S (c) final value")
+            np.testing.assert_allclose(
+                m_c.coefficients.means.cpu().numpy(),
+                m_r.coefficients.means.cpu().numpy(), rtol=2e-3, atol=2e-5,
+                err_msg="S (c) coefficients")
+            log(f"S (c): D2's {D_ROWS} x {D_FEATURES} f32 in "
+                f"{cbd.n_chunks} chunks of {S_DENSE_CHUNK} rows: streamed "
+                f"{res_c.iterations} iterations in {wall_c:.3f} s, "
+                f"{D_ROWS * res_c.iterations / wall_c:.6g} rows*iters/s "
+                f"against resident {D_ROWS * res_r.iterations / wall_r:.6g}"
+                f" ({res_r.iterations} iterations in {wall_r:.3f} s); "
+                f"final loss {res_c.history()[-1]:.8g} vs "
+                f"{res_r.history()[-1]:.8g}; launches {lc or 'none'}  "
+                f"[{gpu}]")
+        del cbd
+    chunk_c = (S_DENSE_CHUNK * D_FEATURES * 4 + 12 * S_DENSE_CHUNK) / 1e9
+    grow = peaks[D_ROWS] - peaks[D_ROWS // 2]
+    log(f"S (c): peak device memory over the streamed solve {peaks[D_ROWS]:.4f}"
+        f" GB at {D_ROWS} rows, {peaks[D_ROWS // 2]:.4f} GB at "
+        f"{D_ROWS // 2}: grows {grow:.4f} GB (one chunk {chunk_c:.4f} GB)  "
+        f"[{gpu}]")
+    if grow > chunk_c:
+        raise AssertionError("S (c): peak memory grew with the row count")
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------ phases GM and GK: GAME training
 def game_10m_data(seed: int):
     """benches/game_10m.py's data with numpy from ``seed``: N(0, 1) rows
@@ -2390,9 +2723,11 @@ def phase_game(args, dev, gpu) -> dict:
         entity_check(coords[shard], offsets, args.seed + 11, cfg_r, dev,
                      gpu, f"{name} at the timed configuration",
                      strict=False)
-    del data, Xf_dev, est, cold, warm
+    del Xf_dev, parts, coords
+    gs = game_streamed(est, data, warm, game_auc, cfg_f, dev, gpu)
+    del data, est, cold, warm
     torch.cuda.empty_cache()
-    return launches
+    return launches, gs
 
 
 def gk_data(seed: int, rows: int):
@@ -2552,6 +2887,165 @@ def entity_pass_costs(est, data, gpu) -> None:
             f"device ms: " + "; ".join(rows) + f"  [{gpu}]")
 
 
+def game_streamed(est, data, warm, game_auc: float, cfg_f, dev,
+                  gpu) -> dict:
+    """GS: GM's fit with the fixed shard as a host ChunkedMatrix of dense
+    bf16 chunks (GS_CHUNK rows), the random effects' bucketed datasets
+    reused from GM's fits; held against GM's warm fit (objective rtol
+    1e-5, AUC within 1e-4) and, on the fixed shard alone, its streamed
+    fixed-effect solve against the resident one stopped at a relative
+    progress of RE_CHECK_TOL (iterations equal, coefficients rtol 2e-3 /
+    atol 2e-5). The fits' own fixed-effect solves run on to a relative
+    progress of 1e-7, the f32 floor of a 10M-row sum, where the two sides
+    step on rounding (the coefficients move ~1e-4 while the loss moves
+    below its f32 resolution), so their coefficient gap is reported;
+    returns the kernels' launches in its fits."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.data.dataset import (chunk_matrix, make_batch,
+                                               make_chunked_batch)
+    from photon_tpu_torch.game.scoring import score_game
+    from photon_tpu_torch.models.training import train_glm
+    from photon_tpu_torch.ops.losses import TaskType
+
+    n, sweeps = GM_ROWS, GM_SWEEPS
+    t0 = time.perf_counter()
+    chunked = chunk_matrix(data.shards["fixed"], GS_CHUNK)
+    build_s = time.perf_counter() - t0
+    pair = dataclasses.replace(cfg_f, tolerance=RE_CHECK_TOL)
+    logistic = TaskType.LOGISTIC_REGRESSION
+    m_r, r_r = train_glm(make_batch(data.shards["fixed"], data.y,
+                                    device=dev), logistic, pair, device=dev)
+    m_s, r_s = train_glm(make_chunked_batch(chunked, data.y), logistic, pair,
+                         device=dev)
+    w5_s = m_s.coefficients.means.cpu().numpy()
+    w5_r = m_r.coefficients.means.cpu().numpy()
+    if r_s.iterations != r_r.iterations:
+        raise AssertionError(f"GS: streamed fixed solve {r_s.iterations} "
+                             f"iterations, resident {r_r.iterations}")
+    np.testing.assert_allclose(w5_s, w5_r, rtol=2e-3, atol=2e-5,
+                               err_msg="GS streamed vs resident fixed solve")
+    del m_r
+    # the resident shard and its coordinate leave the caches; the random
+    # effects' datasets and coordinates stay
+    dcache, ccache = est._caches_for(data)
+    key = est._dataset_key(est.coordinate_configs["fixed"])
+    dcache.pop(key)
+    for k in [k for k in ccache if k[0] == key]:
+        ccache.pop(k)
+    data.shards["fixed"] = chunked
+    torch.cuda.empty_cache()
+    telemetry.reset()
+    K.reset_launch_counts()
+    cold, cold_s = fit_timed(est, data)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    warm_s_fit, warm_s = fit_timed(est, data)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = K.launch_counts()
+    counters = telemetry.snapshot()["counters"]
+    e2e = {k: v for k, v in counters.items() if k.startswith("game_e2e.")}
+    if not e2e.get("game_e2e.host_offset_sums"):
+        raise AssertionError(f"GS: no host offset sums ({e2e})")
+    hist = np.asarray(warm_s_fit.descent.objective_history)
+    want = np.asarray(warm.descent.objective_history)
+    gap = histories_agree("GS streamed vs resident objective", want, hist)
+    w_s = warm_s_fit.model.coordinates["fixed"].model.weights.cpu().numpy()
+    w_r = warm.model.coordinates["fixed"].model.weights.cpu().numpy()
+    off = np.abs(w_s - w_r) > 2e-5 + 2e-3 * np.abs(w_r)
+    its_r = [int(r.iterations) for r in warm.descent.coordinate_stats["fixed"]]
+    t0 = time.perf_counter()
+    scores = score_game(warm_s_fit.model, data).cpu().numpy()
+    score_s = time.perf_counter() - t0
+    s_auc = auc(scores, data.y)
+    if abs(s_auc - game_auc) > 1e-4:
+        raise AssertionError(f"GS: AUC {s_auc} against GM's {game_auc}")
+    its = [int(r.iterations)
+           for r in warm_s_fit.descent.coordinate_stats["fixed"]]
+    with CoordinateTimer() as timer:
+        fit_timed(est, data)
+    log(f"GS: the fixed shard as {chunked.n_chunks} host chunks of "
+        f"{GS_CHUNK} rows, bf16 ({chunked.nbytes() / 1e9:.3f} GB pinned, "
+        f"chunked in {build_s:.2f} s); cold fit {cold_s:.3f} s, warm refit "
+        f"{warm_s:.3f} s: {n * sweeps / warm_s:.6g} row-sweeps/s; peak "
+        f"device memory over the warm refit {peak_gb:.3f} GB "
+        f"({base / 1e9:.3f} GB held before it); fixed-effect iterations "
+        f"{its} (GM's {its_r}); fixed coefficients max |dw| "
+        f"{np.abs(w_s - w_r).max():.3g} from GM's, {int(off.sum())} of "
+        f"{w_s.size} outside rtol 2e-3 / atol 2e-5; the fixed shard alone "
+        f"stopped at a relative progress of {RE_CHECK_TOL:g}, streamed vs "
+        f"resident: {r_s.iterations} iterations each, max |dw| "
+        f"{np.abs(w5_s - w5_r).max():.3g} (within rtol 2e-3 / atol 2e-5); "
+        f"objective max rel gap to GM's resident fit {gap:.3g}; "
+        f"AUC {s_auc:.6f} vs {game_auc:.6f}; scoring {score_s:.3f} s; "
+        f"kernel launches {launches or 'none'}; counters over both fits "
+        f"{e2e}  [{gpu}]")
+    log("GS: seconds per coordinate update (sweep by sweep): "
+        + "; ".join(f"{shard} " + ", ".join(f"{v:.3f}" for v in secs)
+                    for shard, secs in timer.secs.items()) + f"  [{gpu}]")
+    return launches
+
+
+def phase_gk_ladder(args, dev, gpu) -> dict:
+    """GS, GK (a)'s sparse fixed shard as a bf16 host ladder (chunks of
+    GK_S_CHUNK rows), one sweep through the blocked-ELL kernels against
+    scope("off"); returns the kernels' launches in the default-route
+    fit."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.dataset import chunk_blocked_ell, make_batch
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.game.dataset import GameData
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    rows = GK_ROWS
+    t0 = time.perf_counter()
+    ind, va, re, uid, iid, y = gk_data(args.seed + 5, rows)
+    cb = chunk_blocked_ell(make_batch(SparseRows(ind, va, T_FEATURES), y,
+                                      device="cpu"),
+                           GK_S_CHUNK, T_DENSE, feature_dtype=torch.bfloat16)
+    del ind, va
+    log(f"GS: GK's rows as a ladder of {cb.n_chunks} chunks of {GK_S_CHUNK} "
+        f"rows in {time.perf_counter() - t0:.1f} s")
+    data = GameData.build(y, shards={"fixed": cb.X,
+                                     "u": SparseRows(*re["u"], D_RE),
+                                     "i": SparseRows(*re["i"], D_RE)},
+                          entity_ids={"user": uid, "item": iid})
+    re_cfg = OptimizerConfig(max_iters=GM_RE[0], tolerance=RE_CHECK_TOL,
+                             reg=l2(), reg_weight=GM_RE[1])
+    cfg_f = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l2(),
+                            reg_weight=GM_FIXED[1], history=T_HISTORY)
+    est = game_estimator(dev, cfg_f, re_cfg, 1, shards=("fixed", "u", "i"))
+    K.reset_launch_counts()
+    got, wall = fit_timed(est, data)
+    launches = K.launch_counts()
+    for name in (KB.TAIL, KB.RMATVEC):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"GS ladder: {name} never launched "
+                                 f"({launches})")
+    est_off = game_estimator(dev, cfg_f, re_cfg, 1,
+                             shards=("fixed", "u", "i"))
+    with K.scope("off"):
+        want, off_wall = fit_timed(est_off, data)
+    gap, apart = fits_agree("GS ladder", want, got, strict=False)
+    log(f"GS: GK (a)'s fixed shard as a host ladder, one sweep in "
+        f"{wall:.3f} s on the kernels, {off_wall:.3f} s on the plain "
+        f"versions; launches {launches}; objective history "
+        + ", ".join(f"{v:.8g}" for v in got.descent.objective_history)
+        + f"; max rel gap to scope('off') {gap:.3g}; the fixed effect "
+        f"within rtol 1e-5 of its largest; random effects (entities apart, "
+        f"of them at another iteration, largest gap) {apart}  [{gpu}]")
+    del data, est, est_off, got, want, cb
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_game_kernels(args, dev, gpu) -> dict:
     """GK: GAME through the kernels — (a) a BlockedEllRows fixed shard
     at T2's width (L-BFGS, SIMPLE variances), (b) a dense fixed shard at
@@ -2687,19 +3181,27 @@ def main() -> int:
     lanes8 = phase_grid_timings(state, phase_grid(state, dev, gpu), gpu)
     for entry in kernels:
         entry.update(lanes8.get(entry["name"], {}))
+    t2 = {k: state[k] for k in ("coo", "hist_a", "w5_model", "owlqn",
+                                "solve_peak")}
     del state
     torch.cuda.empty_cache()
+    s_launches = phase_streamed(args, t2, dev, gpu)
+    del t2
     state = phase_dense_owlqn(args, dev, gpu)
     phase_dense_tron(state, dev, gpu)
     phase_dense_grid(state, dev, gpu)
     kernels.append(phase_dense_timings(state, gpu))
     del state
     torch.cuda.empty_cache()
-    gm = phase_game(args, dev, gpu)
+    gm, gs = phase_game(args, dev, gpu)
     gk = phase_game_kernels(args, dev, gpu)
+    for name, c in phase_gk_ladder(args, dev, gpu).items():
+        gs[name] = gs.get(name, 0) + c
     for entry in kernels:
         entry["gm_launches"] = gm.get(entry["name"], 0)
         entry["gk_launches"] = gk.get(entry["name"], 0)
+        entry["s_launches"] = s_launches.get(entry["name"], 0)
+        entry["gs_launches"] = gs.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

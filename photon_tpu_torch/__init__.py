@@ -20,6 +20,8 @@ ladder → micro-batching dispatcher), with the int8 rung as a CUDA kernel;
 single-device GLM training (`models.training.train_glm`: L-BFGS, OWL-QN,
 TRON; priors, normalization, variances) on dense X, `SparseRows` or the
 blocked-ELL layout, whose X passes are CUDA kernels; reg-weight grids
-(`train_glm_grid`); and GAME training in memory
-(`game.estimator.GameEstimator`).
+(`train_glm_grid`); GAME training (`game.estimator.GameEstimator`); and
+streamed training of datasets larger than device memory (a host
+`data.dataset.ChunkedBatch` through `train_glm`, and a GAME fixed effect
+over a host-chunked shard).
 """

@@ -7,13 +7,16 @@ of `photon_tpu/data/matrix.py`).
 - `BlockedEllRows`: the hot columns as a dense (n, d_sel) block, the cold
   tail as power-of-two-width ELL row buckets (matvec) and occurrence
   buckets (rmatvec), in a permuted column space;
+- `ShardedBlockedEllRows`: the same laid for S row shards under one
+  global permutation, on the host — what a streamed chunk ladder is cut
+  from (`shard_blocked_ell`, one `BlockedEllRows` chunk per shard);
 - `EntityBlocks`: a random effect's bucket of E entities' padded rows,
   lane-minor, whose lane passes multiply each lane by its own rows.
 
-The host builders (`to_blocked_ell`, `quantize_blocks`) stay numpy, copied
-from the reference, so every layout array, int8 block and scale equals the
-JAX package's bit for bit; only bf16 leaves numpy (as `torch.bfloat16`,
-since numpy has no bfloat16).
+The host builders (`to_blocked_ell`, `shard_blocked_ell`,
+`quantize_blocks`) stay numpy, copied from the reference, so every layout
+array, int8 block and scale equals the JAX package's bit for bit; only
+bf16 leaves numpy (as `torch.bfloat16`, since numpy has no bfloat16).
 
 Every X pass returns f32. A bf16 operand is multiplied as bf16 (the
 product of two bf16 values is exact in f32) and the sum accumulates in
@@ -66,6 +69,13 @@ class BlockedEllRows:
     order, untouched columns after; `to_model_space` /
     `from_model_space` translate at the public boundary. Padding slots
     hold (column or row 0, value 0).
+
+    ``tail_rows``, the inverse of ``row_pos`` over the concatenation
+    ((B,) int32, -1 at a position no row takes), is given by a chunk of a
+    ladder (`ShardedBlockedEllRows.chunk`), whose width buckets are padded
+    to the largest count over the chunks, so some positions are free; a
+    layout from `to_blocked_ell` takes every position and leaves it None
+    (the kernels' plan derives it).
     """
 
     dense: torch.Tensor        # (n, d_sel) hot block, original row order
@@ -81,6 +91,7 @@ class BlockedEllRows:
     n_prefix: int              # d_sel + U distinct tail columns
     last_col_pos: int          # permuted position of original column d - 1
     tail_nnz: int              # real (unpadded) tail nnz
+    tail_rows: torch.Tensor | None = None  # (B,) int32 inverse of row_pos
 
     @property
     def shape(self):
@@ -122,7 +133,9 @@ class BlockedEllRows:
             ell_vals=tuple(map(mv, self.ell_vals)), row_pos=mv(self.row_pos),
             bucket_rows=tuple(map(mv, self.bucket_rows)),
             bucket_vals=tuple(map(mv, self.bucket_vals)),
-            perm_cols=mv(self.perm_cols), inv_perm=mv(self.inv_perm))
+            perm_cols=mv(self.perm_cols), inv_perm=mv(self.inv_perm),
+            tail_rows=(None if self.tail_rows is None
+                       else mv(self.tail_rows)))
         if all(a is b for a, b in zip(moved._tensors(), self._tensors())):
             return self
         return moved
@@ -375,6 +388,204 @@ def to_blocked_ell(X: SparseRows, d_dense: int = 1024,
         perm_cols=up(perm_cols), inv_perm=up(inv_perm),
         n_features=d, n_prefix=d_sel + U,
         last_col_pos=int(inv_perm[d - 1]), tail_nnz=int(m))
+
+
+# ------------------------------------------------------ host chunk ladder
+@dataclasses.dataclass(frozen=True)
+class ShardedBlockedEllRows:
+    """A blocked-ELL layout laid for S row shards under ONE global column
+    permutation, held on the host as CPU tensors (reference:
+    `photon_tpu.data.matrix.ShardedBlockedEllRows`).
+
+    Every per-shard structure is padded to a common shape across the
+    shards (shard axis leading): the ELL width ladder is the union of the
+    shards' row exponents with r_b the largest per-shard count, the
+    occurrence buckets take the largest per-shard occurrence count, and
+    ``row_pos`` is (S, n_local) with LOCAL concatenation positions. It is
+    the form a streamed chunk ladder is cut from (`chunk`,
+    `data.dataset.chunk_blocked_ell`); its mesh form (a shard per device)
+    waits for ROADMAP queue A item 10."""
+
+    dense: torch.Tensor        # (n, d_sel) hot block, global rows
+    ell_pcols: tuple           # per width bucket: (S, r_b, W_b) int32
+    ell_vals: tuple            # per width bucket: (S, r_b, W_b)
+    row_pos: torch.Tensor      # (S, n_local) int32 local positions
+    bucket_rows: tuple         # per occurrence bucket: (S, c_b, k_b) LOCAL
+    bucket_vals: tuple         # per occurrence bucket: (S, c_b, k_b)
+    perm_cols: torch.Tensor    # (d,) int32
+    inv_perm: torch.Tensor     # (d,) int32
+    n_features: int
+    n_prefix: int
+    last_col_pos: int
+    tail_nnz: int
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.row_pos.shape[0])
+
+    @property
+    def n_local(self) -> int:
+        return int(self.row_pos.shape[1])
+
+    def chunk(self, i: int) -> BlockedEllRows:
+        """Shard ``i`` as a CPU `BlockedEllRows` (views, no copies of the
+        value blocks), with its inverse map ``tail_rows``: every chunk
+        shares the common shapes, so the kernels' work plans are shared
+        too, and the padded rows of its width buckets map to -1."""
+        nl = self.n_local
+        row_pos = self.row_pos[i]
+        B = sum(int(v.shape[1]) for v in self.ell_vals)
+        rp = row_pos.numpy()
+        live = np.flatnonzero(rp < B)
+        tail_rows = np.full(B, -1, np.int32)
+        tail_rows[rp[live]] = live
+        return BlockedEllRows(
+            dense=self.dense[i * nl:(i + 1) * nl],
+            ell_pcols=tuple(b[i] for b in self.ell_pcols),
+            ell_vals=tuple(b[i] for b in self.ell_vals),
+            row_pos=row_pos,
+            bucket_rows=tuple(b[i] for b in self.bucket_rows),
+            bucket_vals=tuple(b[i] for b in self.bucket_vals),
+            perm_cols=self.perm_cols, inv_perm=self.inv_perm,
+            n_features=self.n_features, n_prefix=self.n_prefix,
+            last_col_pos=self.last_col_pos, tail_nnz=self.tail_nnz,
+            tail_rows=torch.from_numpy(tail_rows))
+
+    def shard_slice(self, lo: int, hi: int) -> "ShardedBlockedEllRows":
+        """Shards ``lo:hi`` as one smaller ladder (views, no copies)."""
+        nl = self.n_local
+        return dataclasses.replace(
+            self, dense=self.dense[lo * nl:hi * nl],
+            ell_pcols=tuple(b[lo:hi] for b in self.ell_pcols),
+            ell_vals=tuple(b[lo:hi] for b in self.ell_vals),
+            row_pos=self.row_pos[lo:hi],
+            bucket_rows=tuple(b[lo:hi] for b in self.bucket_rows),
+            bucket_vals=tuple(b[lo:hi] for b in self.bucket_vals))
+
+
+def _sharded_occurrence_buckets(loc_rows, t_vals, rank_nnz, s_ids, S, e,
+                                order):
+    """Per-shard occurrence buckets (S, c_b, k_b) with LOCAL row ids: nnz
+    sorted by (rank, shard); within a (rank, shard) group the row-major
+    source keeps local rows ascending."""
+    m_tot = rank_nnz.shape[0]
+    U = order.shape[0]
+    nnz_order = np.lexsort((s_ids, rank_nnz))
+    rs_key = (rank_nnz * S + s_ids)[nnz_order]
+    counts_rs = np.bincount(rs_key, minlength=U * S)
+    offsets_rs = np.concatenate([[0], np.cumsum(counts_rs)])
+    pos_within = np.arange(m_tot) - offsets_rs[rs_key]
+    rank_sorted = rank_nnz[nnz_order]
+    es = e[order]                      # exponent per rank, ascending
+    bucket_rows, bucket_vals = [], []
+    for e_v in np.unique(es):
+        r0, r1 = np.searchsorted(es, [e_v, e_v + 1])
+        c_b, k_b = int(r1 - r0), 1 << int(e_v)
+        lo, hi = np.searchsorted(rank_sorted, [r0, r1])
+        br = np.zeros((S, c_b, k_b), np.int32)
+        bv = np.zeros((S, c_b, k_b), np.float32)
+        sel_nnz = nnz_order[lo:hi]
+        ls = s_ids[sel_nnz]
+        lr = rank_nnz[sel_nnz] - r0
+        pw = pos_within[lo:hi]
+        br[ls, lr, pw] = loc_rows[sel_nnz]
+        bv[ls, lr, pw] = t_vals[sel_nnz]
+        bucket_rows.append(br)
+        bucket_vals.append(bv)
+    return bucket_rows, bucket_vals
+
+
+def shard_blocked_ell(X: SparseRows, n_shards: int,
+                      d_dense: int = 1024) -> ShardedBlockedEllRows:
+    """Build the sharded blocked-ELL layout (see `ShardedBlockedEllRows`)
+    from padded COO rows (numpy or CPU-tensor leaves), on the host. Rows
+    must divide ``n_shards`` (pad the batch first).
+
+    The reference's own numpy pass (`photon_tpu.data.matrix.
+    shard_blocked_ell` with its host hot block), so every array equals the
+    JAX package's: a GLOBAL column permutation (hot prefix from global
+    frequencies, tail ranks by the largest per-shard occurrence bucket)
+    and per-shard structures padded to common shapes (a (shard, width)
+    pair a shard lacks is all-zero rows that contribute nothing)."""
+    ind, val = _host(X.indices), _host(X.values)
+    n = ind.shape[0]
+    d = X.n_features
+    if n % n_shards != 0:
+        raise ValueError(
+            f"{n} rows do not divide {n_shards} shards; pad the batch first "
+            "(data.dataset.pad_batch)")
+    n_local = n // n_shards
+    d_sel = min(d_dense, d)
+    dense, sel, t_rows, t_cols, t_vals = _hot_cold_split(
+        ind, val, d, d_dense, None, torch.device("cpu"))
+    t_vals = t_vals.astype(np.float32)
+    m_tot = t_rows.size
+    S = n_shards
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    if m_tot == 0:
+        perm_cols, inv_perm = _column_perm(
+            sel, np.zeros(0, np.int64), np.zeros(0, np.int64), d)
+        return ShardedBlockedEllRows(
+            dense=dense, ell_pcols=(), ell_vals=(),
+            row_pos=t(np.zeros((S, n_local), np.int32)),
+            bucket_rows=(), bucket_vals=(),
+            perm_cols=t(perm_cols), inv_perm=t(inv_perm),
+            n_features=d, n_prefix=d_sel,
+            last_col_pos=int(inv_perm[d - 1]), tail_nnz=0)
+
+    s_ids = (t_rows // n_local).astype(np.int64)       # (m,) shard per nnz
+    loc_rows = (t_rows - s_ids * n_local).astype(np.int64)
+
+    u_cols, inv, u_counts = np.unique(t_cols, return_inverse=True,
+                                      return_counts=True)
+    U = u_cols.size
+    # per-(column, shard) occurrence counts -> the largest per column
+    cs_counts = np.bincount(inv * S + s_ids, minlength=U * S).reshape(U, S)
+    e = _bucket_exponents(cs_counts.max(axis=1))
+    order = np.lexsort((u_cols, e))   # bucket-major, col id within bucket
+    rank = np.empty(U, np.int64)
+    rank[order] = np.arange(U)
+    pcol = (d_sel + rank[inv]).astype(np.int32)   # (m,) global prefix ids
+    perm_cols, inv_perm = _column_perm(sel, u_cols, order, d)
+    bucket_rows, bucket_vals = _sharded_occurrence_buckets(
+        loc_rows, t_vals, rank[inv], s_ids, S, e, order)
+
+    # per-shard ELL row buckets over a SHARED width ladder (t_rows is
+    # ascending, so a shard's slice of the flat tail is contiguous)
+    sb = np.searchsorted(t_rows, np.arange(S + 1) * n_local)
+    shard_layouts = []
+    for s in range(S):
+        lo, hi = int(sb[s]), int(sb[s + 1])
+        rbs = lo + np.searchsorted(loc_rows[lo:hi], np.arange(n_local + 1))
+        counts_s = np.diff(rbs)
+        shard_layouts.append((counts_s, _row_exponents(counts_s),
+                              rbs[:-1].astype(np.int64)))
+    widths: dict = {}
+    for counts_s, e_row_s, _ in shard_layouts:
+        for ev in np.unique(e_row_s[e_row_s >= 0]):
+            r_b = int((e_row_s == ev).sum())
+            widths[int(ev)] = max(widths.get(int(ev), 0), r_b)
+    ladder = sorted(widths.items())
+    pcol_rel = (pcol.astype(np.int64) - d_sel).astype(np.int32)
+    per_shard = [_fill_ell(ladder, counts_s, e_row_s, starts_s, pcol_rel,
+                           t_vals)
+                 for counts_s, e_row_s, starts_s in shard_layouts]
+    ell_pcols = tuple(t(np.stack([q[0][b] for q in per_shard]))
+                      for b in range(len(ladder)))
+    ell_vals = tuple(t(np.stack([q[1][b] for q in per_shard]))
+                     for b in range(len(ladder)))
+    row_pos = t(np.stack([q[2] for q in per_shard]))
+
+    return ShardedBlockedEllRows(
+        dense=dense, ell_pcols=ell_pcols, ell_vals=ell_vals,
+        row_pos=row_pos, bucket_rows=tuple(map(t, bucket_rows)),
+        bucket_vals=tuple(map(t, bucket_vals)),
+        perm_cols=t(perm_cols), inv_perm=t(inv_perm),
+        n_features=d, n_prefix=d_sel + U,
+        last_col_pos=int(inv_perm[d - 1]), tail_nnz=int(m_tot))
 
 
 # --------------------------------------------------------------- X passes

@@ -21,7 +21,12 @@ here:
 - the reference's active/passive split (`numActiveDataPointsUpperBound`)
   is ``active_cap``: each entity's first ``active_cap`` rows (after a
   seeded shuffle) are trained on; all rows are scored through the flat
-  per-row shard kept beside the blocks.
+  per-row shard kept beside the blocks;
+- a fixed effect's shard may be a host `data.dataset.ChunkedMatrix` (the
+  streamed regime, for data larger than device memory): it stays on the
+  host with its scalar columns, and `FixedEffectDataset.batch` assembles
+  a `ChunkedBatch` that `train_glm` streams. A random effect needs a
+  resident shard.
 
 The bucketing runs on the host in numpy, the reference's own code, so
 entity order, m, row ids, padding and the projected X equal the JAX
@@ -35,7 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photon_tpu_torch.data.dataset import GLMBatch
+from photon_tpu_torch.data.dataset import (ChunkedMatrix, GLMBatch,
+                                           make_chunked_batch)
 from photon_tpu_torch.data.matrix import (BlockedEllRows, EntityBlocks,
                                           SparseRows, _host, as_tensor,
                                           next_pow2)
@@ -45,8 +51,9 @@ from photon_tpu_torch.device import resolve_device
 @dataclasses.dataclass
 class GameData:
     """Host-side GAME data: response + per-shard design matrices (numpy
-    arrays, tensors, `SparseRows` or, for a fixed effect, `BlockedEllRows`)
-    + per-coordinate raw entity ids."""
+    arrays, tensors, `SparseRows` or, for a fixed effect, `BlockedEllRows`
+    or a host-chunked `ChunkedMatrix`) + per-coordinate raw entity
+    ids."""
 
     y: np.ndarray  # (n,)
     weights: np.ndarray  # (n,)
@@ -71,18 +78,19 @@ class GameData:
                         dict(entity_ids or {}))
 
 
-def refuse_chunked(X) -> None:
-    """A host-chunked (streamed-objective) shard is not ported yet."""
-    if hasattr(X, "chunk_rows"):
-        raise NotImplementedError(
-            "host-chunked (ChunkedMatrix) shards and the streamed GAME "
-            "regime are not ported yet (ROADMAP queue A item 5)")
-
-
 def _shard_dim(X) -> int:
-    if isinstance(X, (SparseRows, BlockedEllRows)):
+    if isinstance(X, (SparseRows, BlockedEllRows, ChunkedMatrix)):
         return X.n_features
     return int(X.shape[1])
+
+
+def _refuse_chunked_entity_shard(X) -> None:
+    if isinstance(X, ChunkedMatrix):
+        raise TypeError(
+            "random-effect coordinates need a resident shard (entity "
+            "bucketing gathers rows); the training driver only chunks "
+            "shards used exclusively by fixed effects — keep this shard "
+            "out of the streamed-objective set")
 
 
 def _gather_rows(X, idx: np.ndarray):
@@ -92,7 +100,6 @@ def _gather_rows(X, idx: np.ndarray):
             "BlockedEllRows shards are not supported for GAME entity "
             "bucketing (a fixed-effect layout); use SparseRows or dense "
             "shards for random-effect coordinates")
-    refuse_chunked(X)
     if isinstance(X, SparseRows):
         return _host(X.indices)[idx], _host(X.values)[idx]
     if isinstance(X, torch.Tensor):
@@ -113,13 +120,15 @@ def _on_device(X, dev):
 
 @dataclasses.dataclass(frozen=True)
 class FixedEffectDataset:
-    """One feature shard over all rows, on the device (reference:
-    FixedEffectDataset)."""
+    """One feature shard over all rows (reference: FixedEffectDataset):
+    on ``device``, or, for a host-chunked shard, on the host (``y`` and
+    ``weights`` numpy) with ``device`` the one its chunks stream onto."""
 
     shard_name: str
     X: object
-    y: torch.Tensor
-    weights: torch.Tensor
+    y: object  # (n,) tensor on `device`, or numpy for a chunked shard
+    weights: object
+    device: Optional[torch.device] = None
 
     @property
     def n(self) -> int:
@@ -129,18 +138,35 @@ class FixedEffectDataset:
     def dim(self) -> int:
         return _shard_dim(self.X)
 
+    @property
+    def chunked(self) -> bool:
+        return isinstance(self.X, ChunkedMatrix)
+
     @staticmethod
     def build(data: GameData, shard_name: str,
               device=None) -> "FixedEffectDataset":
         dev = resolve_device(device)
         X = data.shards[shard_name]
-        refuse_chunked(X)
+        if isinstance(X, ChunkedMatrix):
+            # the streamed regime: the shard and its scalar columns stay
+            # on the host; batch() assembles a ChunkedBatch
+            return FixedEffectDataset(
+                shard_name, X, np.asarray(data.y, np.float32),
+                np.asarray(data.weights, np.float32), dev)
         return FixedEffectDataset(
             shard_name, _on_device(X, dev),
             as_tensor(np.asarray(data.y, np.float32), dev),
-            as_tensor(np.asarray(data.weights, np.float32), dev))
+            as_tensor(np.asarray(data.weights, np.float32), dev), dev)
 
-    def batch(self, offsets) -> GLMBatch:
+    def batch(self, offsets):
+        """The solve's batch with these (n,) offsets: a `ChunkedBatch` for
+        a chunked shard (offsets fetched to the host, 4 bytes a row), else
+        a GLMBatch on the device."""
+        if self.chunked:
+            if isinstance(offsets, torch.Tensor):
+                offsets = offsets.detach().cpu().numpy()
+            return make_chunked_batch(self.X, self.y, self.weights,
+                                      np.asarray(offsets, np.float32))
         offs = (offsets.to(self.y.device, torch.float32)
                 if isinstance(offsets, torch.Tensor)
                 else as_tensor(np.asarray(offsets, np.float32),
@@ -252,7 +278,7 @@ class RandomEffectDataset:
               device=None) -> "RandomEffectDataset":
         dev = resolve_device(device)
         X = data.shards[shard_name]
-        refuse_chunked(X)
+        _refuse_chunked_entity_shard(X)
         raw = np.asarray(data.entity_ids[entity_name])
         keys, entity_dense = np.unique(raw, return_inverse=True)
         entity_dense = entity_dense.astype(np.int32)

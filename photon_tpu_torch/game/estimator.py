@@ -8,26 +8,29 @@ per configuration, each warm-started from the previous one when enabled;
 datasets (the entity bucketing) and coordinates are cached across grid
 points and across fits of the same data.
 
-On the port's device (CUDA unless ``device="cpu"``), one device, in
-memory. Not ported yet, each raising with its ROADMAP queue A item: the
-vectorized grid paths (`would_vectorize` gives the reference's answer;
-where it says they would run, fit raises — item 6, `game/grid.py`),
-validation data (item 7, with the evaluators and selection by a
-validation metric), host-chunked shards (item 5) and meshes (item 10).
+On the port's device (CUDA unless ``device="cpu"``), one device. A
+fixed effect's shard may be a host `ChunkedMatrix`: its solves stream
+(the pod-scale regime's single-device form) and the descent exchanges
+its margins on the host. Not ported yet, each raising with its ROADMAP
+queue A item: the vectorized grid paths (`would_vectorize` gives the
+reference's answer; where it says they would run, fit raises — item 6,
+`game/grid.py`), validation data (item 7, with the evaluators and
+selection by a validation metric) and meshes (item 10).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from photon_tpu_torch import telemetry
+from photon_tpu_torch.data.dataset import ChunkedMatrix
 from photon_tpu_torch.data.matrix import (BlockedEllRows,
                                           last_column_is_intercept)
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.game.coordinate_descent import (CoordinateDescentResult,
                                                       coordinate_descent)
 from photon_tpu_torch.game.dataset import (FixedEffectDataset, GameData,
-                                           RandomEffectDataset,
-                                           refuse_chunked)
+                                           RandomEffectDataset)
 from photon_tpu_torch.game.fixed_effect import FixedEffectCoordinate
 from photon_tpu_torch.game.model import GameModel
 from photon_tpu_torch.game.random_effect import RandomEffectCoordinate
@@ -178,7 +181,7 @@ class GameEstimator:
             f"normalization[{name!r}] must be a NormalizationType or "
             f"NormalizationContext, got {type(spec)}")
 
-    def _refuse_unported(self, data: GameData, validation) -> None:
+    def _refuse_unported(self, validation) -> None:
         if validation is not None:
             raise NotImplementedError(
                 "validation-time evaluation (validation= data, evaluators) "
@@ -187,8 +190,6 @@ class GameEstimator:
             raise NotImplementedError(
                 "meshes (multi-device GAME) are not ported yet (ROADMAP "
                 "queue A item 10)")
-        for cfg in self.coordinate_configs.values():
-            refuse_chunked(data.shards[cfg.feature_shard])
 
     def fit(self, data: GameData, validation: Optional[GameData] = None,
             config_grid: Optional[list] = None,
@@ -202,8 +203,12 @@ class GameEstimator:
         active_cap, projection), so overrides that change only the
         optimizer reuse the bucketed blocks."""
         resolve_device(self.device)
-        self._refuse_unported(data, validation)
+        self._refuse_unported(validation)
         grid = config_grid or [self.coordinate_configs]
+        if self._chunked_shards(data):
+            # the streamed regime: fixed effects stream their host-chunked
+            # shards; the descent exchanges margins on the host
+            telemetry.count("game_e2e.chunked_fit_points", len(grid))
         dataset_cache, coord_cache = self._caches_for(data)
         chain_warm = self.warm_start
         if self.would_vectorize(grid, initial_models):
@@ -263,13 +268,21 @@ class GameEstimator:
                 and not self.locked and not self.incremental
                 and not initial_models):
             return False
-        if self.n_sweeps == 1:
+        if self.n_sweeps == 1 and (data is None
+                                   or not self._chunked_shards(data)):
             probe = self._fixed_only_reg_grid(grid)
             if probe is not None and self._fixed_seq_ok(probe):
                 return True
         if self._game_grid_probe(grid) is None:
             return False
         return data is None or self._grid_data_supported(data)
+
+    def _chunked_shards(self, data: GameData) -> bool:
+        """Whether any coordinate's shard is host-chunked: those solves
+        are host loops, so every vectorized grid path falls back to the
+        sequential sweep."""
+        return any(isinstance(data.shards[c.feature_shard], ChunkedMatrix)
+                   for c in self.coordinate_configs.values())
 
     def _grid_reg_skew(self, grid) -> float:
         """Max over coordinates of the grid's reg-weight spread (a zero
@@ -325,7 +338,7 @@ class GameEstimator:
         """Layouts the lane-axis grid runs: dense or SparseRows."""
         for cfg in self.coordinate_configs.values():
             X = data.shards[cfg.feature_shard]
-            if isinstance(X, BlockedEllRows) or hasattr(X, "chunk_rows"):
+            if isinstance(X, (BlockedEllRows, ChunkedMatrix)):
                 return False
         return True
 

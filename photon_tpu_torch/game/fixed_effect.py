@@ -6,14 +6,14 @@ trainModel on the offsets the other coordinates' scores make. The solve is
 `models.training.train_glm` on the coordinate's device: its X passes go
 through the port's kernels (the blocked-ELL kernels on a `BlockedEllRows`
 shard, the fused value+grad on a dense OWL-QN solve). A host-chunked
-(streamed) shard is not ported yet (ROADMAP queue A item 5).
+shard (`data.dataset.ChunkedMatrix`) solves streamed (`train_glm` on its
+`ChunkedBatch`) and scores into a host margin cache
+(`game.scoring.score_chunked_host`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-import torch
 
 from photon_tpu_torch.game.dataset import FixedEffectDataset
 from photon_tpu_torch.game.model import FixedEffectModel
@@ -60,9 +60,17 @@ class FixedEffectCoordinate:
         model, res = train_glm(
             self.dataset.batch(offsets_full), self.task, self.config,
             w0=w0, variance=self.variance, normalization=self.normalization,
-            prior=prior_dist, mesh=self.mesh, device=self.dataset.y.device)
+            prior=prior_dist, mesh=self.mesh, device=self.dataset.device)
         return FixedEffectModel(model, self.dataset.shard_name), res
 
-    def score(self, model: FixedEffectModel) -> torch.Tensor:
-        """This coordinate's margin alone (no offsets)."""
+    def score(self, model: FixedEffectModel):
+        """This coordinate's margin alone (no offsets): an (n,) tensor on
+        the device, or, for a chunked shard, a HOST (n,) numpy cache
+        filled chunk by chunk (the full score vector never lives on the
+        device)."""
+        if self.dataset.chunked:
+            from photon_tpu_torch.game.scoring import score_chunked_host
+
+            return score_chunked_host(self.dataset.X, model.model.weights,
+                                      self.mesh)
         return model.score(self.dataset.X)

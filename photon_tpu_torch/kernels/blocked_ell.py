@@ -18,9 +18,14 @@ over a work plan of one-block items:
 
 `layout_plan` checks a layout's buckets, packs their descriptors and
 builds both work plans and ``tail_rows`` once per layout object (a
-`BlockedEllRows` is frozen and its tensors never change), so a call
+`BlockedEllRows` is frozen and its tensors are never replaced), so a call
 checks only its vector and its output, then makes one ctypes call, in
-which the C entry point makes all of the form's launches.
+which the C entry point makes all of the form's launches. The work plans
+depend on the bucket shapes alone and are shared by every layout of the
+same shapes (every chunk of a chunk ladder). A streamed solve reuses a
+few device layouts whose buffers each chunk overwrites in place (the
+upload ring's slots, `data.dataset.DeviceChunkRing`), so it builds one
+plan per slot, not one per chunk visit; `plan_builds` counts the builds.
 
 The tail matvec ADDS into ``out=`` — an (n,)/(n, G) f32 tensor, the
 caller's hot-block product — and leaves rows with no tail as they are;
@@ -45,7 +50,12 @@ ELL width a power of two; a bucket whose kernel reads 2 or 4 slots at once
 starts aligned to that many ids and values, as the caching allocator
 gives it. Index ranges are what `data.matrix.to_blocked_ell` guarantees:
 ell_pcols in [0, U), row_pos in [0, B] with each position below B taken
-by exactly one row, bucket_rows in [0, n).
+by at most one row, bucket_rows in [0, n). A layout whose positions are
+not all taken (a chunk of a ladder, `data.matrix.shard_blocked_ell`:
+each width bucket is padded to the largest count over the chunks)
+carries its inverse map ``tail_rows`` with -1 at the free positions,
+which the tail kernel skips; otherwise the plan derives it from
+``row_pos``.
 """
 from __future__ import annotations
 
@@ -84,9 +94,13 @@ MAX_TAIL_BUCKETS = 32
 _lib = None
 _lib_lock = threading.Lock()
 # each layout's LayoutPlan by id(layout), beside a weak reference to the
-# layout that tells its entry from that of a dead layout with the same id
+# layout that tells its entry from that of a dead layout with the same id;
+# the shape-only parts of a plan by (bucket shapes, device); and the count
+# of plans built
 _plans_lock = threading.Lock()
 _PLANS: dict = {}
+_SHAPE_PLANS: dict = {}
+_PLAN_BUILDS = 0
 
 
 def library() -> ctypes.CDLL:
@@ -259,9 +273,11 @@ class LayoutPlan:
     bucket order), the work plan as an (items, fields) int32 array on the
     device and the launches of each form over it as the C entry point
     takes them (``*_fused``: every item, ``*_tiled``: each bucket's
-    `plan_ranges`; both `_host_ranges`); ``tail_rows``, the (B,) int32
-    original row of each position of the width buckets' concatenation
-    (``argsort(row_pos)[:B]``); and the leading arguments of each C entry
+    `plan_ranges`; both `_host_ranges`; shared by layouts of the same
+    shapes); ``tail_rows``, the (B,) int32 original row of each position
+    of the width buckets' concatenation (the layout's own ``tail_rows``
+    when it carries one, -1 at a position no row takes; else
+    ``argsort(row_pos)[:B]``); and the leading arguments of each C entry
     point (``*_args``: the addresses of those tensors, the tail's bucket
     count, last whether the values are bf16), as ctypes objects that a
     call passes without converting them; the plan keeps the tensors
@@ -287,6 +303,7 @@ def layout_plan(X) -> LayoutPlan:
     """``X``'s `LayoutPlan`: built on the first call for this layout object
     and kept until the layout is collected. Raises if a bucket is not what
     the kernels take."""
+    global _PLAN_BUILDS
     hit = _PLANS.get(id(X))
     if hit is not None and hit[0]() is X:
         return hit[1]
@@ -295,9 +312,35 @@ def layout_plan(X) -> LayoutPlan:
         if hit is not None and hit[0]() is X:
             return hit[1]
         plan = _build_plan(X)
+        _PLAN_BUILDS += 1
         _PLANS[id(X)] = (weakref.ref(X), plan)
         weakref.finalize(X, _PLANS.pop, id(X), None)
     return plan
+
+
+def plan_builds() -> int:
+    """How many layout plans this process has built."""
+    with _plans_lock:
+        return _PLAN_BUILDS
+
+
+def _shape_plan(tail_shapes, occ_shapes, device) -> tuple:
+    """The parts of a plan that depend on the bucket shapes alone: both
+    work plans on ``device`` and their fused and tiled ranges, built once
+    per (shapes, device) (called under ``_plans_lock``)."""
+    key = (tuple(tail_shapes), tuple(occ_shapes), str(device))
+    hit = _SHAPE_PLANS.get(key)
+    if hit is None:
+        tail_items = tail_plan(tail_shapes)
+        occ_items = rmatvec_plan(occ_shapes)
+        hit = (torch.from_numpy(tail_items).to(device),
+               _host_ranges([(0, int(tail_items.shape[0]))]),
+               _host_ranges(plan_ranges(tail_items, len(tail_shapes))),
+               torch.from_numpy(occ_items).to(device),
+               _host_ranges([(0, int(occ_items.shape[0]))]),
+               _host_ranges(plan_ranges(occ_items, len(occ_shapes))))
+        _SHAPE_PLANS[key] = hit
+    return hit
 
 
 def _build_plan(X) -> LayoutPlan:
@@ -325,21 +368,21 @@ def _build_plan(X) -> LayoutPlan:
             _check_aligned(X.bucket_rows[b], X.bucket_vals[b], 4,
                            f"occurrence bucket {b}")
     B = sum(r_b for r_b, _ in tail_shapes)
-    tail_items, occ_items = tail_plan(tail_shapes), rmatvec_plan(occ_shapes)
+    (tail_dev, tail_fused, tail_tiled, occ_dev, occ_fused,
+     occ_tiled) = _shape_plan(tail_shapes, occ_shapes, device)
     tail_desc = _descriptors(X.ell_pcols, X.ell_vals, device)
     occ_desc = _descriptors(X.bucket_rows, X.bucket_vals, device)
-    tail_rows = torch.argsort(X.row_pos, stable=True)[:B].to(torch.int32)
-    tail_dev = torch.from_numpy(tail_items).to(device)
-    occ_dev = torch.from_numpy(occ_items).to(device)
+    if X.tail_rows is not None:
+        _check(X.tail_rows, torch.int32, (B,), device, "tail_rows")
+        tail_rows = X.tail_rows
+    else:
+        tail_rows = torch.argsort(X.row_pos, stable=True)[:B].to(torch.int32)
     return LayoutPlan(
         device=device, n_features=X.n_features, d_sel=X.d_sel,
-        tail_desc=tail_desc, tail_items=tail_dev,
-        tail_fused=_host_ranges([(0, int(tail_items.shape[0]))]),
-        tail_tiled=_host_ranges(plan_ranges(tail_items, len(tail_shapes))),
-        tail_rows=tail_rows,
-        occ_desc=occ_desc, occ_items=occ_dev,
-        occ_fused=_host_ranges([(0, int(occ_items.shape[0]))]),
-        occ_tiled=_host_ranges(plan_ranges(occ_items, len(occ_shapes))),
+        tail_desc=tail_desc, tail_items=tail_dev, tail_fused=tail_fused,
+        tail_tiled=tail_tiled, tail_rows=tail_rows,
+        occ_desc=occ_desc, occ_items=occ_dev, occ_fused=occ_fused,
+        occ_tiled=occ_tiled,
         tail_args=(ctypes.c_void_p(tail_desc.data_ptr()),
                    ctypes.c_int(len(tail_shapes)),
                    ctypes.c_void_p(tail_dev.data_ptr()),

@@ -12,7 +12,9 @@
 //                for every row i with a tail, p its place in the
 //                concatenation of the width buckets (row_pos[i] = p, i =
 //                tail_rows[p]), wt = w[d_sel:n_prefix]; rows with no tail
-//                are left as they are
+//                are left as they are, and a position p that no row takes
+//                (tail_rows[p] < 0: a padded row of a chunk ladder's width
+//                bucket) writes nothing
 //   rmatvec      out[c, g] = sum_k f32(bv[c, k]) * f32(S(r[br[c, k], g]))
 //   square       out[c, g] = sum_k (f32(bv[c, k]) * f32(bv[c, k])) * r[br[c, k], g]
 // where S rounds to the storage dtype: to bf16 when the values are bf16
@@ -379,6 +381,7 @@ __device__ __forceinline__ void tail_rows_vec(
   const int t = static_cast<int>(threadIdx.x);
 #pragma unroll
   for (int j = 0; j < kR; ++j) {
+    row[j] = -1;
     if (t + j * kThreads < it.rows) {
       const long long p = static_cast<long long>(it.row0) + t + j * kThreads;
       row[j] = __ldcs(tail_rows + bk.base + p);
@@ -387,7 +390,7 @@ __device__ __forceinline__ void tail_rows_vec(
   }
 #pragma unroll
   for (int j = 0; j < kR; ++j) {
-    if (t + j * kThreads < it.rows) {
+    if (row[j] >= 0) {
       o[j] = out[row[j]];
 #pragma unroll
       for (int k = 0; k < kW; ++k) x[j][k] = __ldg(wt + id[j][k]);
@@ -395,7 +398,7 @@ __device__ __forceinline__ void tail_rows_vec(
   }
 #pragma unroll
   for (int j = 0; j < kR; ++j) {
-    if (t + j * kThreads < it.rows) {
+    if (row[j] >= 0) {
       float acc = 0.f, comp = 0.f;
 #pragma unroll
       for (int k = 0; k < kW; ++k) {
@@ -424,8 +427,10 @@ __device__ __forceinline__ void tail_item(const Bucket& bk,
       const int r = static_cast<int>(threadIdx.x) + j * kThreads;
       if (r < it.rows) {
         const long long p = static_cast<long long>(it.row0) + r;
-        tail_row<kBf16, kChunk, kW>(bk, p, __ldcs(tail_rows + bk.base + p),
-                                    wt, lanes, vec4, out);
+        const int32_t row = __ldcs(tail_rows + bk.base + p);
+        if (row >= 0) {
+          tail_row<kBf16, kChunk, kW>(bk, p, row, wt, lanes, vec4, out);
+        }
       }
     }
   }
@@ -594,7 +599,8 @@ void launch_tail(const Bucket* b, int nb, const TailItem* items, int n_items,
 // cudaError_t of its first failed launch, or 0.
 
 // Tail matvec: row p of bucket b adds its term into out[tail_rows[
-// buckets[b].base + p]] (out is (n, lanes), wt the (U, lanes) tail slice
+// buckets[b].base + p]], or nothing where that entry is negative (out is
+// (n, lanes), wt the (U, lanes) tail slice
 // of the coefficients; nb <= kMaxTailBuckets). The first zero_bytes of out
 // are zeroed first (a new output: the call then returns the tail alone).
 extern "C" __attribute__((visibility("default"))) int

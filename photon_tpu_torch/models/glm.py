@@ -2,8 +2,9 @@
 part of `photon_tpu/models/glm.py`).
 
 User-facing coefficients are in ORIGINAL column order; a `BlockedEllRows`
-design matrix works in its permuted space, so scoring translates w at the
-boundary (one gather)."""
+design matrix (or a chunk ladder) works in its permuted space, so scoring
+translates w at the boundary (one gather). A host `ChunkedMatrix` scores
+chunk by chunk (`chunked_margins`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,6 +40,8 @@ class GeneralizedLinearModel:
     def score(self, X, offsets=0.0) -> torch.Tensor:
         """Raw margin x·w + offset (reference: computeScore)."""
         w = self.coefficients.means
+        if hasattr(X, "n_chunks"):
+            return chunked_margins(X, w, offsets)
         if isinstance(X, BlockedEllRows):
             w = X.from_model_space(w)
         return matvec(X, w) + offsets
@@ -46,3 +49,18 @@ class GeneralizedLinearModel:
     def predict_mean(self, X, offsets=0.0) -> torch.Tensor:
         """Mean response via the inverse link (reference: computeMean)."""
         return mean_fn(self.task)(self.score(X, offsets))
+
+
+def chunked_margins(X, w: torch.Tensor, offsets=0.0) -> torch.Tensor:
+    """Margins over a host `ChunkedMatrix` on ``w``'s device: each chunk
+    streams through the upload ring into one matvec, the results
+    concatenated there and trimmed to (n_real,) (reference:
+    `chunked_margins`)."""
+    from photon_tpu_torch.data.dataset import make_chunked_batch
+
+    w = w.to(torch.float32)
+    if X.permuted:
+        w = w[X.perm_cols.to(w.device).long()]
+    data = make_chunked_batch(X, torch.zeros(X.n_real))
+    parts = [matvec(b.X, w) for _, b in data.iter_device(device=w.device)]
+    return torch.cat(parts)[:X.n_real] + offsets

@@ -20,8 +20,11 @@ Informative priors (`optim.prior.PriorDistribution`, diagonal or full
 covariance), feature normalization (`data.normalization`, folded into the
 objective: the solve runs in normalized space, the model comes back in
 original space) and SIMPLE or FULL variances follow the reference's rules.
-Still to come, and raising when asked for: streamed datasets (ROADMAP
-queue A item 5) and meshes (item 10).
+
+A host-chunked `data.dataset.ChunkedBatch` (a dataset larger than device
+memory) dispatches to `train_glm_streamed`: L-BFGS or OWL-QN over chunks
+streamed through the device (`optim.streamed`). Still to come, and
+raising when asked for: meshes (ROADMAP queue A item 10).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import kernels as K
-from photon_tpu_torch.data.dataset import GLMBatch
+from photon_tpu_torch.data.dataset import ChunkedBatch, GLMBatch
 from photon_tpu_torch.data.matrix import (BlockedEllRows, EntityBlocks,
                                           SparseRows)
 from photon_tpu_torch.device import resolve_device
@@ -192,13 +195,6 @@ def _prior_into(norm, prior_mean, prior_precision):
     return prior_mean, prior_precision
 
 
-def _refuse_streamed(batch) -> None:
-    if hasattr(batch, "n_chunks"):
-        raise NotImplementedError(
-            "streamed datasets (ChunkedBatch) are not ported yet (ROADMAP "
-            "queue A item 5)")
-
-
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -210,6 +206,88 @@ def _matrix_dim(X) -> int:
     if isinstance(X, (SparseRows, BlockedEllRows, EntityBlocks)):
         return X.n_features
     return int(X.shape[1])
+
+
+def train_glm_streamed(
+    data: ChunkedBatch,
+    task: TaskType,
+    config: OptimizerConfig,
+    w0=None,
+    prior_mean=None,
+    prior_precision=None,
+    normalization=None,
+    mesh=None,
+    device=None,
+) -> tuple[GeneralizedLinearModel, OptResult]:
+    """The out-of-device-memory solve (reference: `train_glm_streamed`):
+    ``data`` is a host `ChunkedBatch` and every evaluation sums over
+    chunks streamed onto ``device`` (default ``cuda``) — the objective,
+    stop rules and returned shapes of `train_glm`, which dispatches here
+    for a ChunkedBatch. L-BFGS, or OWL-QN when the config has an L1 term;
+    TRON is refused (each CG step would stream the whole dataset). A
+    blocked-ELL chunk ladder (`chunk_blocked_ell`) solves in its global
+    permuted space: ``w0``, the diagonal prior and the normalization
+    translate in, the coefficients back out. ``w0`` and the priors are
+    original-space; with a `NormalizationContext` the solve runs in
+    normalized space and the model comes back in original space."""
+    from photon_tpu_torch.optim.streamed import (minimize_lbfgs_streamed,
+                                                 minimize_owlqn_streamed)
+
+    if config.effective_optimizer() is OptimizerType.TRON:
+        raise ValueError(
+            "TRON is not available in streamed mode (each CG step would "
+            "stream the full dataset once — cg_max_iters streams per "
+            "iteration vs L-BFGS's two); use LBFGS or OWLQN for "
+            "out-of-HBM solves")
+    _refuse_mesh(mesh)
+    dev = resolve_device(device)
+    d = data.X.n_features
+    norm = _active_norm(normalization)
+    w0 = _init_w0(d, w0, dev, norm)
+    prior_mean, prior_precision = _prior_into(norm, prior_mean,
+                                              prior_precision)
+    prior_mean = _vec_on(prior_mean, dev)
+    prior_precision = _vec_on(prior_precision, dev)
+    # a chunk ladder carries ONE global column permutation for the whole
+    # stream: translate the original-space side inputs in, the solution
+    # back out, as for a resident BlockedEllRows
+    permuted = data.X.permuted
+    norm_obj, intercept_index = norm, -1
+    if permuted:
+        perm = data.X.perm_cols.to(dev).long()
+        w0 = w0[perm]
+        if prior_mean is not None:
+            prior_mean = prior_mean[perm]
+        if prior_precision is not None:
+            prior_precision = prior_precision[perm]
+        if norm is not None:
+            perm_h = data.X.perm_cols.numpy()
+            norm_obj = dataclasses.replace(
+                norm,
+                factors=None if norm.factors is None else norm.factors[perm_h],
+                shifts=None if norm.shifts is None else norm.shifts[perm_h])
+        intercept_index = data.X.last_col_pos
+    obj = make_objective(task, config, d, prior_mean=prior_mean,
+                         prior_precision=prior_precision,
+                         normalization=norm_obj,
+                         intercept_index=intercept_index, device=dev)
+    if config.effective_optimizer() is OptimizerType.OWLQN:
+        res = minimize_owlqn_streamed(
+            obj, data, w0, config.reg.l1_weight(config.reg_weight),
+            max_iters=config.max_iters, tolerance=config.tolerance,
+            history=config.history, reg_mask=obj.reg_mask,
+            kernels=config.kernels)
+    else:
+        res = minimize_lbfgs_streamed(
+            obj, data, w0, max_iters=config.max_iters,
+            tolerance=config.tolerance, history=config.history,
+            kernels=config.kernels)
+    if permuted:  # back to original column order before the unfold
+        res = res._replace(w=res.w[data.X.inv_perm.to(dev).long()])
+    w_out = res.w
+    if norm is not None:
+        w_out = _vec_on(norm.to_original_space(_host_vec(res.w)), dev)
+    return GeneralizedLinearModel(Coefficients(w_out, None), task), res
 
 
 def train_glm(
@@ -237,8 +315,29 @@ def train_glm(
     `optim.prior.PriorDistribution`, the only way to pass a
     full-covariance precision (refused with normalization or a
     `BlockedEllRows` batch, as the reference). ``config.kernels`` scopes
-    the kernel mode of the whole solve."""
-    _refuse_streamed(batch)
+    the kernel mode of the whole solve.
+
+    A `ChunkedBatch` (host-resident chunks) dispatches to the streamed
+    solve, `train_glm_streamed`: no variances and no full-covariance
+    prior there, as the reference."""
+    if isinstance(batch, ChunkedBatch):
+        if variance is not VarianceComputationType.NONE:
+            raise ValueError(
+                "coefficient variances are not available in streamed mode "
+                "(the Hessian-diagonal pass is not chunk-accumulated yet); "
+                "use variance_type=none")
+        if prior is not None:
+            if prior_mean is not None or prior_precision is not None:
+                raise ValueError("pass prior OR prior_mean/prior_precision")
+            if prior.precision_full is not None:
+                raise ValueError(
+                    "full-covariance priors are not supported in streamed "
+                    "mode; use a diagonal prior")
+            prior_mean, prior_precision = prior.mean, prior.precision_diag
+        return train_glm_streamed(
+            batch, task, config, w0=w0, prior_mean=prior_mean,
+            prior_precision=prior_precision, normalization=normalization,
+            mesh=mesh, device=device)
     if config.kernels is not None:
         with K.scope(config.kernels):
             return train_glm(
@@ -467,12 +566,11 @@ def train_glm_grid(
     still on the device (w (G, d), per-lane scalars (G,), histories (G,
     T + 1), variances (G, d) or None). ``config.kernels`` scopes the kernel
     mode of the whole sweep."""
-    if hasattr(batch, "n_chunks"):
-        raise NotImplementedError(
+    if isinstance(batch, ChunkedBatch):
+        raise ValueError(
             "streamed mode has no lane-minor grid (every lane would "
             "multiply the per-pass host→device stream); run the sweep "
-            "sequentially — each point is a train_glm(ChunkedBatch) solve. "
-            "Streamed datasets are not ported yet (ROADMAP queue A item 5)")
+            "sequentially — each point is a train_glm(ChunkedBatch) solve")
     if config.kernels is not None:
         with K.scope(config.kernels):
             return train_glm_grid(

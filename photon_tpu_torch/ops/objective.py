@@ -11,8 +11,8 @@ full-covariance priors), feature normalization folded into the margin and
 the backprop, the margin-cached family (`margin`, `direction_margin`,
 `ray_reg_coeffs`, `phi_at_ray`, `*_at_margin`, `hvp_at_margin`),
 `value_and_grad` (through the fused kernel when ``fused`` is set and X
-qualifies), `hvp`, `hess_diag` and `full_hessian`. The chunk-partial API
-(streamed training) is still to come (ROADMAP queue A item 5).
+qualifies), `hvp`, `hess_diag`, `full_hessian`, and the chunk-partial API
+of the streamed solvers (`chunk_value_grad_partials` and its kin).
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ from typing import Optional
 import torch
 
 from photon_tpu_torch.data.dataset import GLMBatch
-from photon_tpu_torch.data.matrix import (matvec, rmatvec, sq_rmatvec,
-                                          weighted_gram)
+from photon_tpu_torch.data.matrix import (matvec, matvec_lanes, rmatvec,
+                                          sq_rmatvec, weighted_gram)
 from photon_tpu_torch.kernels.fused import can_fuse, fused_value_and_grad
 from photon_tpu_torch.ops.losses import TaskType, loss_fns
 
@@ -69,9 +69,18 @@ class Objective:
 
     def _backprop(self, batch: GLMBatch, g):
         """∂z/∂w pulled back over a per-row cotangent g: f∘(Xᵀg − s·Σg)."""
-        out = rmatvec(batch.X, g)
+        return self._finish_backprop(*self._backprop_parts(batch, g))
+
+    def _backprop_parts(self, batch: GLMBatch, g):
+        """The pieces of `_backprop` that sum over rows: (Xᵀg, Σg), Σg only
+        when a shift exists (None otherwise)."""
+        gsum = torch.sum(g) if self.norm_shifts is not None else None
+        return rmatvec(batch.X, g), gsum
+
+    def _finish_backprop(self, gX, gsum=None):
+        out = gX
         if self.norm_shifts is not None:
-            out = out - self.norm_shifts * torch.sum(g)
+            out = out - self.norm_shifts * gsum
         if self.norm_factors is not None:
             out = out * self.norm_factors
         return out
@@ -185,6 +194,67 @@ class Objective:
         value = torch.sum(batch.weights * loss(z, batch.y))
         rv, rg = self._reg_terms(w)
         return value + rv, gX + rg
+
+    # ------------------------------------------------ chunk-partial API
+    # The streamed solvers (optim/streamed.py) stream a dataset too big
+    # for device memory through the solve chunk by chunk, and each
+    # evaluation sums per-chunk partials on the device, in chunk order, in
+    # f32 (the reference's per-partition treeAggregate leaves). Partials
+    # carry NO regularizer terms: the regularizer is a function of w alone
+    # and `finish_value_grad` adds it once.
+
+    def chunk_value_grad_partials(self, w, batch: GLMBatch):
+        """(margin, partials) of ONE chunk: the margin for the caller's
+        per-chunk cache, the partials to sum with `add_partials` and close
+        with `finish_value_grad`."""
+        z = self.margin(w, batch)
+        return z, self.chunk_partials_at_margin(z, batch)
+
+    def chunk_partials_at_margin(self, z, batch: GLMBatch):
+        """(loss sum, Xᵀr, Σr or None) of one chunk from its cached margin:
+        one elementwise pass and one Xᵀr pass."""
+        loss, d1, _ = loss_fns(self.task)
+        r = batch.weights * d1(z, batch.y)
+        gX, gsum = self._backprop_parts(batch, r)
+        return torch.sum(batch.weights * loss(z, batch.y)), gX, gsum
+
+    @staticmethod
+    def add_partials(a, b):
+        """Two chunk-partial tuples summed leaf by leaf (None stays None)."""
+        return tuple(None if x is None else x + y for x, y in zip(a, b))
+
+    def finish_value_grad(self, w, partials):
+        """(f, g) from summed chunk partials plus the regularizer at w."""
+        val, gX, gsum = partials
+        rv, rg = self._reg_terms(w)
+        return val + rv, self._finish_backprop(gX, gsum) + rg
+
+    def chunk_phi_partials(self, z, dz, a, y, weights):
+        """(φ_loss, φ'_loss) partials of one chunk at step ``a`` along its
+        cached (z, dz): elementwise only, no X, no (d,) work (the caller
+        adds the regularizer's exact quadratic ray once)."""
+        loss, d1, _ = loss_fns(self.task)
+        za = z + a * dz
+        return (torch.sum(weights * loss(za, y)),
+                torch.sum(weights * d1(za, y) * dz))
+
+    def chunk_value_partials_many(self, W, batch: GLMBatch):
+        """(K,) loss partials of K candidate coefficient vectors (rows of
+        ``W``, (K, d)) over ONE chunk, the streamed OWL-QN ladder's leaf:
+        one lane pass over X for all K (`matvec_lanes`, the blocked-ELL
+        kernels at K lanes), so one chunk upload prices every candidate.
+        ``W.t()`` is used as it is when contiguous (pass the transpose of
+        a lane-minor (d, K) tensor to avoid a copy)."""
+        loss, _, _ = loss_fns(self.task)
+        Wl = W.t()
+        if self.norm_factors is not None:
+            Wl = Wl * self.norm_factors[:, None]
+        Z = matvec_lanes(batch.X, Wl.contiguous())
+        if self.norm_shifts is not None:
+            Z = Z - (self.norm_shifts @ Wl)[None, :]
+        Z = Z + batch.offsets[:, None]
+        return torch.sum(batch.weights[:, None] * loss(Z, batch.y[:, None]),
+                         dim=0)
 
     def hess_diag(self, w, batch: GLMBatch):
         """diag(H) = f²∘(X∘X)ᵀ(weight·d2(z)) (with shifts, the expansion

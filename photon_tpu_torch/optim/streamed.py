@@ -1,0 +1,559 @@
+"""Streamed (out-of-device-memory) solvers: L-BFGS and OWL-QN whose every
+objective evaluation sums over chunks streamed through the device (port of
+the single-device part of `photon_tpu/optim/streamed.py`: `_History`,
+`_host_wolfe`, `_cubic_min_host`, `_convergence_host`,
+`minimize_lbfgs_streamed`, `minimize_owlqn_streamed`).
+
+Reference parity: com.linkedin.photon.ml.function.glm.
+DistributedGLMLossFunction drives Breeze L-BFGS/OWL-QN with one
+`RDD.treeAggregate` per evaluation; the dataset never lives in one
+executor's memory. Here it lives on the host as a `data.dataset.
+ChunkedBatch`, each evaluation streams the chunks through the device
+(`DeviceChunkRing`: a side stream keeps two chunks in flight, within a
+pass and into the next) and sums the `Objective.chunk_*_partials` in f32
+on the device, in chunk order, so the device holds a couple of chunks
+plus solver state.
+
+The math and the stop rules are the reference's:
+
+- The outer loop runs on the host; the direction, the history push and
+  the partials are device work (`two_loop` is the port's own), and the
+  convergence test mirrors `optim.lbfgs._convergence` term for term.
+- L-BFGS's line search rides per-chunk margins cached on the HOST: the
+  gradient pass leaves z, the direction pass dz, each copied from the
+  device asynchronously into pinned buffers and read once the pass has
+  closed (a copy per chunk that blocked the host would serialize upload
+  and compute). A Wolfe trial uploads 16 bytes a row of (z, dz) and the
+  labels and weights (8 more), never the features; the first trial rides
+  the direction pass, so an iteration that accepts α = 1 costs exactly
+  two feature streams. The chain z += α·dz runs in numpy and is
+  refreshed from w every `_Z_REFRESH` iterations.
+- OWL-QN's orthant projection breaks the margin's linearity, so its
+  backtracking ladder is priced `ladder_lanes` candidates per chunk
+  visit (`chunk_value_partials_many`: one lane pass, the blocked-ELL
+  kernels at K lanes on a ladder); the first rung that passes is the
+  resident solver's sequential halving, since each rung's Armijo test is
+  memoryless.
+
+TRON is absent (each CG step would stream the whole dataset), as in the
+reference. Not ported yet, each raising with its ROADMAP queue A item:
+meshes (`_MeshStream`, item 10) and checkpoints of the solver state
+(item 11).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from photon_tpu_torch import kernels as K
+from photon_tpu_torch import telemetry
+from photon_tpu_torch.optim.lbfgs import _Z_REFRESH, two_loop
+from photon_tpu_torch.optim.linesearch import C1, C2
+from photon_tpu_torch.optim.owlqn import pseudo_gradient
+from photon_tpu_torch.optim.tracker import OptResult
+
+__all__ = ["minimize_lbfgs_streamed", "minimize_owlqn_streamed"]
+
+_F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _floats(*ts) -> list:
+    """Device scalars as Python floats, from one device-to-host copy."""
+    return torch.stack([t.reshape(()).to(torch.float32)
+                        for t in ts]).tolist()
+
+
+class _SingleDeviceStream:
+    """The one-device regime: chunks stream through the ring onto the
+    solve's device; per-chunk margin caches are rows of (n_chunks,
+    chunk_rows) host f32 tensors, pinned on a GPU."""
+
+    def __init__(self, data, device, prefetch=2):
+        self.data, self.device = data, device
+        self.ring = data.device_ring(device=device, prefetch=prefetch)
+        self._cuda = device.type == "cuda"
+
+    def host_margins(self) -> torch.Tensor:
+        return torch.empty((self.data.n_chunks, self.data.chunk_rows),
+                           dtype=torch.float32, pin_memory=self._cuda)
+
+    def iter_chunks(self):
+        return self.ring.stream_pass()
+
+    def _up(self, row: torch.Tensor) -> torch.Tensor:
+        return row.to(self.device, non_blocking=True)
+
+    def sync(self) -> None:
+        """Wait for the compute stream: the host margin copies of a pass
+        have landed."""
+        if self._cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def chunk_init(self, obj, w, b, z_row):
+        """Partials of chunk ``b`` at w; its margin copied into ``z_row``."""
+        z, parts = obj.chunk_value_grad_partials(w, b)
+        z_row.copy_(z, non_blocking=True)
+        return parts
+
+    def chunk_grad(self, obj, z_row, b):
+        return obj.chunk_partials_at_margin(self._up(z_row), b)
+
+    def chunk_dz_phi(self, obj, p, z_row, a, b, dz_row):
+        """φ partials of chunk ``b`` at step ``a``; its direction margin
+        copied into ``dz_row``."""
+        dz = obj.direction_margin(p, b)
+        dz_row.copy_(dz, non_blocking=True)
+        return obj.chunk_phi_partials(self._up(z_row), dz, a, b.y,
+                                      b.weights)
+
+    def chunk_phi(self, obj, i, z_row, dz_row, a):
+        """φ partials of chunk ``i`` from its cached margins: (z, dz) and
+        the chunk's labels and weights upload, no features."""
+        y, weights = map(self._up, self.ring.host_columns(i)[:2])
+        return obj.chunk_phi_partials(self._up(z_row), self._up(dz_row), a,
+                                      y, weights)
+
+    def chunk_value_many(self, obj, W, b):
+        return obj.chunk_value_partials_many(W, b)
+
+
+def _backend(data, mesh, prefetch, device):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded streamed solves (_MeshStream) are not ported yet "
+            "(ROADMAP queue A item 10)")
+    return _SingleDeviceStream(data, device, prefetch)
+
+
+def _refuse_checkpoint(checkpoint) -> None:
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "checkpoints of a streamed solve's state are not ported yet "
+            "(ROADMAP queue A item 11)")
+
+
+class _History:
+    """The circular (s, y) history: device buffers, host bookkeeping.
+    `push` applies `optim.lbfgs`'s curvature gate (one read-back)."""
+
+    def __init__(self, m: int, d: int, device):
+        self.S = torch.zeros((m, d), dtype=torch.float32, device=device)
+        self.Y = torch.zeros((m, d), dtype=torch.float32, device=device)
+        self.rho = torch.zeros((m,), dtype=torch.float32, device=device)
+        self.m, self.idx, self.count = m, 0, 0
+        self.sy, self.yy = 0.0, 0.0
+        self.device = device
+
+    def push(self, s, y) -> None:
+        sy, yy = _floats(torch.dot(s, y), torch.dot(y, y))
+        if not sy > 1e-10 * max(yy, 1e-20):
+            return  # curvature condition failed: skip, keep newest stats
+        self.S[self.idx] = s
+        self.Y[self.idx] = y
+        self.rho[self.idx] = float(np.float32(1.0) / np.maximum(
+            np.float32(sy), np.float32(1e-20)))
+        self.idx = (self.idx + 1) % self.m
+        self.count = min(self.count + 1, self.m)
+        self.sy, self.yy = sy, yy
+
+    def args(self) -> tuple:
+        def t(v):
+            return torch.tensor(np.float32(v), device=self.device)
+
+        return (self.S, self.Y, self.rho, self.idx, self.count, t(self.sy),
+                t(self.yy))
+
+
+# ---------------------------------------------------------- host line search
+def _sign(x: float) -> float:
+    return 0.0 if x == 0.0 else math.copysign(1.0, x)
+
+
+def _cubic_min_host(a_lo, f_lo, d_lo, a_hi, f_hi, d_hi) -> float:
+    """Scalar port of `optim.linesearch._cubic_min` (same safeguards)."""
+    span = a_hi - a_lo
+    d1 = d_lo + d_hi - 3.0 * (f_lo - f_hi) / (1.0 if span == 0.0 else -span)
+    disc = d1 * d1 - d_lo * d_hi
+    d2 = _sign(span) * math.sqrt(max(disc, 0.0))
+    denom = d_hi - d_lo + 2.0 * d2
+    a_c = a_hi - span * (d_hi + d2 - d1) / (1.0 if denom == 0.0 else denom)
+    lo_m = a_lo + 0.1 * span
+    hi_m = a_hi - 0.1 * span
+    inside = ((lo_m <= a_c <= hi_m) if span > 0.0
+              else (hi_m <= a_c <= lo_m))
+    ok = disc >= 0.0 and denom != 0.0 and math.isfinite(a_c) and inside
+    return a_c if ok else 0.5 * (a_lo + a_hi)
+
+
+def _host_wolfe(phi, f0: float, dphi0: float, a_init: float,
+                max_evals: int, first=None):
+    """Host port of `optim.linesearch.wolfe_line_search`: the same
+    bracket + zoom state machine, one streamed ``phi`` evaluation per
+    step, stopping at the first trial that satisfies the strong Wolfe
+    conditions. ``first`` is (f, dphi) at ``a_init`` already summed
+    during the direction pass. Returns (alpha, f_alpha, ok, trials)."""
+    phase, i = 0, 0
+    a, a_prev, f_prev, d_prev = a_init, 0.0, f0, dphi0
+    a_lo, f_lo, d_lo = 0.0, f0, dphi0
+    a_hi = f_hi = d_hi = math.inf
+    a_star, f_star = 0.0, f0
+    done = False
+
+    def armijo(a_, f_):
+        return f_ <= f0 + C1 * a_ * dphi0
+
+    while not done and i < max_evals:
+        f, d = first if (first is not None and i == 0) else phi(a)
+        f, d = float(f), float(d)
+        bad = math.isnan(f) or math.isinf(f)
+
+        if phase == 0:  # bracketing (N&W Alg 3.5)
+            to_zoom_hi = bad or not armijo(a, f) or (i > 0 and f >= f_prev)
+            wolfe_ok = not to_zoom_hi and abs(d) <= -C2 * dphi0
+            to_zoom_rev = (not to_zoom_hi and not wolfe_ok and d >= 0.0)
+            expand = not (to_zoom_hi or wolfe_ok or to_zoom_rev)
+            n_phase = 1 if (to_zoom_hi or to_zoom_rev) else 0
+            n_lo = ((a_prev, f_prev, d_prev) if to_zoom_hi else (a, f, d))
+            n_hi = ((a, f, d) if to_zoom_hi else (a_prev, f_prev, d_prev))
+        else:  # zoom (Alg 3.6); `a` is the trial point inside [lo, hi]
+            shrink_hi = bad or not armijo(a, f) or f >= f_lo
+            wolfe_ok = not shrink_hi and abs(d) <= -C2 * dphi0
+            flip = not shrink_hi and d * (a_hi - a_lo) >= 0.0
+            expand, n_phase = False, 1
+            n_lo = (a_lo, f_lo, d_lo) if shrink_hi else (a, f, d)
+            n_hi = ((a, f, d) if shrink_hi
+                    else ((a_lo, f_lo, d_lo) if flip else (a_hi, f_hi, d_hi)))
+
+        done = wolfe_ok
+        a_lo, f_lo, d_lo = n_lo
+        a_hi, f_hi, d_hi = n_hi
+        interp_a = _cubic_min_host(a_lo, f_lo, d_lo, a_hi, f_hi, d_hi)
+        if not (math.isfinite(f_hi) and math.isfinite(d_hi)):
+            interp_a = 0.5 * (a_lo + a_hi)
+        next_a = 2.0 * a if (phase == 0 and expand) else interp_a
+
+        if done or (armijo(a, f) and f < f_star and not bad):
+            a_star, f_star = a, f
+        i += 1
+        a_prev, f_prev, d_prev = a, f, d
+        a, phase = next_a, n_phase
+
+    return a_star, f_star, done or a_star > 0.0, i
+
+
+def _convergence_host(ok, f_old, f_new, gnorm, g0norm, dphi0,
+                      tolerance) -> bool:
+    """Host mirror of `optim.lbfgs._convergence` (f32 noise floor)."""
+    grad_conv = gnorm <= tolerance * max(1.0, g0norm)
+    f_conv = ok and abs(f_old - f_new) <= tolerance * max(
+        max(abs(f_old), abs(f_new)), 1e-12)
+    noise = 4.0 * _F32_EPS * max(abs(f_old), 1.0)
+    precision_limited = (not ok) and abs(dphi0) <= noise
+    return grad_conv or f_conv or precision_limited
+
+
+def _result(w, value, gnorm, it, converged, failed, hist, ghist,
+            evaluations, trials) -> OptResult:
+    dev = w.device
+
+    def t(v, dtype=torch.float32):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    return OptResult(
+        w=w, value=t(np.float32(value)), grad_norm=t(np.float32(gnorm)),
+        iterations=int(it), converged=t(bool(converged), torch.bool),
+        failed=t(bool(failed), torch.bool),
+        loss_history=torch.from_numpy(hist).to(dev),
+        grad_norm_history=torch.from_numpy(ghist).to(dev),
+        evaluations=int(evaluations), trials=int(trials))
+
+
+def _acc(acc, parts):
+    """Partials summed in chunk order (the first chunk's as they are)."""
+    return parts if acc is None else tuple(
+        None if a is None else a + b for a, b in zip(acc, parts))
+
+
+# --------------------------------------------------------- streamed L-BFGS
+def minimize_lbfgs_streamed(obj, data, w0: torch.Tensor,
+                            max_iters: int = 100, tolerance: float = 1e-7,
+                            history: int = 10, max_ls_evals: int = 12,
+                            mesh=None, prefetch=2, kernels=None,
+                            checkpoint=None) -> OptResult:
+    """L-BFGS whose value and gradient sum over the chunks of ``data`` (a
+    `ChunkedBatch`) streamed onto ``w0``'s device: the math and stop rules
+    of `optim.lbfgs.minimize_lbfgs_margin`. ``kernels`` scopes the kernel
+    mode (`kernels.scope`) over the solve. Telemetry: ``solver.
+    feature_streams``, ``solver.evaluations``, ``solver.linesearch_trials``,
+    ``solver.iterations``, ``solver.margin_cache.hits`` / ``.refreshes``.
+    ``mesh`` and ``checkpoint`` wait for ROADMAP queue A items 10 and 11."""
+    _refuse_checkpoint(checkpoint)
+    with K.scope(kernels):
+        return _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
+                               max_ls_evals, mesh, prefetch)
+
+
+def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
+                    max_ls_evals, mesh, prefetch) -> OptResult:
+    w = w0 if w0.dtype == torch.float32 else w0.to(torch.float32)
+    be = _backend(data, mesh, prefetch, w.device)
+    n_chunks = data.n_chunks
+    d = int(w.shape[0])
+    hist_st = _History(history, d, w.device)
+    evals = trials = 0
+
+    # ---- initial pass: margins cached per chunk, (f, g) summed
+    z_host, dz_host = be.host_margins(), be.host_margins()
+    acc = None
+    for i, b in be.iter_chunks():
+        acc = _acc(acc, be.chunk_init(obj, w, b, z_host[i]))
+    f_dev, g = obj.finish_value_grad(w, acc)
+    f, g0norm = _floats(f_dev, torch.linalg.vector_norm(g))
+    be.sync()
+    evals += 1
+    telemetry.count("solver.feature_streams")
+    telemetry.count("solver.evaluations")
+
+    hist = np.full(max_iters + 1, np.nan, np.float32)
+    ghist = np.full(max_iters + 1, np.nan, np.float32)
+    hist[0], ghist[0] = f, g0norm
+    it, converged, failed = 0, g0norm <= 1e-14, False
+    done = converged
+    zn, dzn = z_host.numpy(), dz_host.numpy()
+    while not done and it < max_iters:
+        p = -two_loop(g, *hist_st.args())
+        dphi0_t = torch.dot(p, g)
+        bad = dphi0_t >= 0.0
+        p = torch.where(bad, -g, p)
+        dphi0_t = torch.where(bad, -torch.dot(g, g), dphi0_t)
+        c0, c1r, c2r = obj.ray_reg_coeffs(w, p)
+        dphi0, pnorm, c0, c1r, c2r = _floats(
+            dphi0_t, torch.linalg.vector_norm(p), c0, c1r, c2r)
+        a_init = 1.0 if hist_st.count > 0 else 1.0 / max(pnorm, 1.0)
+
+        def reg_ray(a):  # the regularizer's exact quadratic along the ray
+            return c0 + a * (c1r + 0.5 * a * c2r), c1r + a * c2r
+
+        # ---- direction pass (feature stream 1 of 2): dz per chunk, the
+        # first Wolfe trial's φ(a_init) partials riding along
+        a32 = float(np.float32(a_init))
+        phis = None
+        for i, b in be.iter_chunks():
+            phis = _acc(phis, be.chunk_dz_phi(obj, p, z_host[i], a32, b,
+                                              dz_host[i]))
+        wl0, wd0 = _floats(*phis)
+        be.sync()
+        rv, rd = reg_ray(a_init)
+        first_eval = (wl0 + rv, wd0 + rd)
+        evals += 1
+        telemetry.count("solver.feature_streams")
+        telemetry.count("solver.evaluations")
+
+        def phi(a):
+            """A trial from the cached margins: no features stream."""
+            nonlocal evals
+            evals += 1
+            telemetry.count("solver.evaluations")
+            telemetry.count("solver.margin_cache.hits")
+            a32 = float(np.float32(a))
+            acc_phi = None
+            for i in range(n_chunks):
+                acc_phi = _acc(acc_phi, be.chunk_phi(obj, i, z_host[i],
+                                                     dz_host[i], a32))
+            wl, wd = _floats(*acc_phi)
+            rv, rd = reg_ray(a)
+            return wl + rv, wd + rd
+
+        alpha, f_star, ok, n_trials = _host_wolfe(phi, f, dphi0, a_init,
+                                                  max_ls_evals,
+                                                  first=first_eval)
+        trials += n_trials
+        telemetry.count("solver.linesearch_trials", n_trials)
+
+        if ok:
+            a32 = np.float32(alpha)
+            w_new = w + float(a32) * p
+            zn += a32 * dzn  # the host margin chain: z += α·dz
+            refresh = max_iters >= _Z_REFRESH and (it + 1) % _Z_REFRESH == 0
+            # ---- gradient pass (feature stream 2 of 2)
+            evals += 1
+            telemetry.count("solver.feature_streams")
+            telemetry.count("solver.evaluations")
+            if refresh:
+                telemetry.count("solver.margin_cache.refreshes")
+            acc = None
+            for i, b in be.iter_chunks():
+                if refresh:  # re-anchor the chained margin on w (f32 drift)
+                    parts = be.chunk_init(obj, w_new, b, z_host[i])
+                else:
+                    parts = be.chunk_grad(obj, z_host[i], b)
+                acc = _acc(acc, parts)
+            _, g_new = obj.finish_value_grad(w_new, acc)
+            f_new = f_star  # the accepted trial's value, as the resident
+            # margin solver keeps it
+            hist_st.push(w_new - w, g_new - g)
+            be.sync()
+        else:
+            w_new, g_new, f_new = w, g, f
+
+        (gnorm,) = _floats(torch.linalg.vector_norm(g_new))
+        converged = _convergence_host(ok, f, f_new, gnorm, g0norm, dphi0,
+                                      tolerance)
+        failed = failed or (not ok and not converged)
+        it += 1
+        hist[it], ghist[it] = f_new, gnorm
+        telemetry.count("solver.iterations")
+        w, g, f = w_new, g_new, f_new
+        done = converged or not ok
+
+    (gnorm,) = _floats(torch.linalg.vector_norm(g))
+    return _result(w, f, gnorm, it, converged, failed, hist, ghist, evals,
+                   trials)
+
+
+# --------------------------------------------------------- streamed OWL-QN
+def minimize_owlqn_streamed(obj, data, w0: torch.Tensor, l1_weight: float,
+                            max_iters: int = 100, tolerance: float = 1e-7,
+                            history: int = 10, max_ls_evals: int = 20,
+                            reg_mask=None, ladder_lanes: int = 8, mesh=None,
+                            prefetch=2, kernels=None,
+                            checkpoint=None) -> OptResult:
+    """OWL-QN over streamed chunks: the projected backtracking ladder is
+    priced ``ladder_lanes`` candidates per chunk stream, so the common
+    iteration costs two feature streams (the ladder pass and the accepted
+    point's gradient pass). The math and stop rules of `optim.owlqn.
+    minimize_owlqn`; ``kernels``, ``mesh`` and ``checkpoint`` as in
+    `minimize_lbfgs_streamed`."""
+    _refuse_checkpoint(checkpoint)
+    with K.scope(kernels):
+        return _owlqn_streamed(obj, data, w0, l1_weight, max_iters,
+                               tolerance, history, max_ls_evals, reg_mask,
+                               ladder_lanes, mesh, prefetch)
+
+
+def _reg_values(obj, W) -> torch.Tensor:
+    """The smooth regularizer's value at each column of ``W`` (d, K)."""
+    coeff, mu = obj._reg_parts()
+    if isinstance(coeff, torch.Tensor):
+        coeff = coeff[:, None]
+    if isinstance(mu, torch.Tensor):
+        mu = mu[:, None]
+    dW = W - mu
+    rv = 0.5 * torch.sum(coeff * dW * dW, dim=0)
+    if obj.prior_full_precision is not None:
+        rv = rv + 0.5 * torch.sum(dW * (obj.prior_full_precision @ dW),
+                                  dim=0)
+    return rv
+
+
+def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
+                    max_ls_evals, reg_mask, ladder_lanes, mesh,
+                    prefetch) -> OptResult:
+    w = w0 if w0.dtype == torch.float32 else w0.to(torch.float32)
+    dev = w.device
+    be = _backend(data, mesh, prefetch, dev)
+    d = int(w.shape[0])
+    l1 = float(np.float32(l1_weight))
+    mask = (torch.ones((d,), dtype=torch.float32, device=dev)
+            if reg_mask is None
+            else reg_mask.to(device=dev, dtype=torch.float32))
+    c1 = 1e-4  # optim.owlqn's Armijo constant
+    hist_st = _History(history, d, dev)
+    evals = trials = 0
+
+    def l1_term(wv):
+        return l1 * torch.sum(mask * torch.abs(wv))
+
+    def pg_norm(wv, gv):
+        return torch.linalg.vector_norm(pseudo_gradient(wv, gv, l1, mask))
+
+    def value_grad_pass(w_at):
+        nonlocal evals
+        evals += 1
+        telemetry.count("solver.feature_streams")
+        telemetry.count("solver.evaluations")
+        acc = None
+        for _, b in be.iter_chunks():
+            acc = _acc(acc, obj.chunk_value_grad_partials(w_at, b)[1])
+        f_dev, g_at = obj.finish_value_grad(w_at, acc)
+        return f_dev, g_at
+
+    f_dev, g = value_grad_pass(w)
+    f, l1w, pg0norm = _floats(f_dev, l1_term(w), pg_norm(w, g))
+    F = f + l1w
+    hist = np.full(max_iters + 1, np.nan, np.float32)
+    ghist = np.full(max_iters + 1, np.nan, np.float32)
+    hist[0], ghist[0] = F, pg0norm
+    it, converged, failed = 0, pg0norm <= 1e-14, False
+    done = converged
+    while not done and it < max_iters:
+        pg = pseudo_gradient(w, g, l1, mask)
+        p = -two_loop(pg, *hist_st.args())
+        p = torch.where(p * pg < 0.0, p, 0.0)
+        dphi0_t = torch.dot(p, pg)
+        bad = dphi0_t >= 0.0
+        p = torch.where(bad, -pg, p)
+        dphi0_t = torch.where(bad, -torch.dot(pg, pg), dphi0_t)
+        xi = torch.where(w != 0.0, torch.sign(w), torch.sign(-pg))
+        dphi0, pnorm = _floats(dphi0_t, torch.linalg.vector_norm(p))
+        a0 = 1.0 if hist_st.count > 0 else 1.0 / max(pnorm, 1.0)
+
+        # ---- the ladder: blocks of `ladder_lanes` rungs, each block priced
+        # by ONE chunk stream (lane-minor (d, K) candidates)
+        ok, w_new = False, None
+        n_ls = 0
+        while n_ls < max_ls_evals and not ok:
+            Kb = min(ladder_lanes, max_ls_evals - n_ls)
+            alphas = (a0 * 0.5 ** np.arange(n_ls, n_ls + Kb)).astype(
+                np.float32)
+            A = torch.from_numpy(alphas).to(dev)
+            W = w[:, None] + A[None, :] * p[:, None]
+            W = torch.where(W * xi[:, None] > 0.0, W, 0.0)
+            dec = pg @ (W - w[:, None])
+            l1t = l1 * torch.sum(mask[:, None] * torch.abs(W), dim=0)
+            rv = _reg_values(obj, W)
+            evals += Kb
+            trials += Kb
+            telemetry.count("solver.feature_streams")
+            telemetry.count("solver.evaluations", Kb)
+            telemetry.count("solver.linesearch_trials", Kb)
+            acc = None
+            for _, b in be.iter_chunks():
+                acc = _acc(acc, (be.chunk_value_many(obj, W.t(), b),))
+            host = torch.stack([acc[0], rv, l1t, dec]).cpu().numpy()
+            vals, rv_h, l1t_h, dec_h = host.astype(np.float64)
+            F_cand = vals + rv_h + l1t_h
+            for k in range(Kb):  # first passing rung == sequential halving
+                if (np.isfinite(F_cand[k]) and dec_h[k] < 0.0
+                        and F_cand[k] <= F + c1 * dec_h[k]):
+                    ok, w_new = True, W[:, k].contiguous()
+                    break
+            n_ls += Kb
+
+        if ok:
+            f_dev, g_new = value_grad_pass(w_new)  # the gradient stream
+            hist_st.push(w_new - w, g_new - g)  # smooth-gradient history
+            f_new, l1n = _floats(f_dev, l1_term(w_new))
+            F_new = f_new + l1n
+        else:
+            w_new, g_new, f_new, F_new = w, g, f, F
+
+        (pgnorm,) = _floats(pg_norm(w_new, g_new))
+        grad_conv = pgnorm <= tolerance * max(1.0, pg0norm)
+        f_conv = ok and abs(F - F_new) <= tolerance * max(
+            max(abs(F), abs(F_new)), 1e-12)
+        noise = 4.0 * _F32_EPS * max(abs(F), 1.0)
+        precision_limited = (not ok) and abs(dphi0) <= noise
+        converged = grad_conv or f_conv or precision_limited
+        failed = failed or (not ok and not converged)
+        it += 1
+        hist[it], ghist[it] = F_new, pgnorm
+        telemetry.count("solver.iterations")
+        w, g, f, F = w_new, g_new, f_new, F_new
+        done = converged or not ok
+
+    (pgnorm,) = _floats(pg_norm(w, g))
+    return _result(w, F, pgnorm, it, converged, failed, hist, ghist, evals,
+                   trials)

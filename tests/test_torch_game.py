@@ -46,6 +46,7 @@ from photon_tpu.optim.config import OptimizerConfig as RConfig  # noqa: E402
 from photon_tpu.optim.config import OptimizerType as ROpt  # noqa: E402
 
 from photon_tpu_torch.data import matrix as M  # noqa: E402
+from photon_tpu_torch.data.dataset import chunk_matrix  # noqa: E402
 from photon_tpu_torch.game import dataset as GD  # noqa: E402
 from photon_tpu_torch.game import estimator as GE  # noqa: E402
 from photon_tpu_torch.game import projector as PJ  # noqa: E402
@@ -555,12 +556,16 @@ def test_paths_not_ported_raise_with_their_item():
     raises(7, lambda: pest.fit(port, validation=port))
     raises(10, lambda: dataclasses.replace(pest, mesh=object()).fit(port))
 
-    class Chunked:
-        chunk_rows = 64
-
-    chunked = dataclasses.replace(port, shards={**port.shards,
-                                                "fixed": Chunked()})
-    raises(5, lambda: pest.fit(chunked))
+    # a host-chunked fixed shard (item 5, now ported) fits, as the same
+    # shard resident does (test_torch_streamed.py holds it against the
+    # reference)
+    chunked = dataclasses.replace(port, shards={
+        **port.shards, "fixed": chunk_matrix(port.shards["fixed"], 64)})
+    (streamed,) = pest.fit(chunked)
+    (resident,) = pest.fit(port)
+    np.testing.assert_allclose(streamed.descent.objective_history,
+                               resident.descent.objective_history,
+                               rtol=HIST_RTOL)
     straggle = dict(pest.coordinate_configs)
     straggle["per_user"] = dataclasses.replace(straggle["per_user"],
                                                straggler_budget=2)

@@ -26,7 +26,6 @@ for _name in dir(jax.extend.core):
 
 import dataclasses  # noqa: E402
 import logging  # noqa: E402
-from collections import namedtuple  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -48,7 +47,8 @@ from photon_tpu.optim.config import OptimizerType as ROpt  # noqa: E402
 
 from photon_tpu_torch import kernels as K  # noqa: E402
 from photon_tpu_torch.data import matrix as M  # noqa: E402
-from photon_tpu_torch.data.dataset import make_batch  # noqa: E402
+from photon_tpu_torch.data.dataset import (chunk_batch,  # noqa: E402
+                                           make_batch)
 from photon_tpu_torch.models import training as T  # noqa: E402
 from photon_tpu_torch.models.variance import (  # noqa: E402
     VarianceComputationType as Var)
@@ -552,24 +552,31 @@ def test_lane_weight_arrays_match_reference():
 
 
 # ---------------------------------------------------------- what raises
-Chunked = namedtuple("Chunked", "X y weights offsets n_chunks")
-
-
 @pytest.mark.parametrize("what", ["mesh", "chunked"])
 def test_grid_parts_still_to_port_raise(what):
-    """Meshes (item 10) and streamed batches (item 5) raise, naming their
-    ROADMAP item; normalization, priors, FULL variances and SparseRows
-    grids are ported (test_torch_prior_norm.py holds them)."""
+    """Meshes (item 10) raise, naming their ROADMAP item; a streamed batch
+    (a host `ChunkedBatch`) raises the reference's ValueError: streamed
+    mode has no lane grid (each point is a train_glm solve). Normalization,
+    priors, FULL variances and SparseRows grids are ported
+    (test_torch_prior_norm.py holds them)."""
     _, pb = small_bell()
     _, pcfg = _configs(iters=2)
-    kw, batch, item = {}, pb, "10"
     if what == "mesh":
-        kw["mesh"] = object()
-    else:
-        batch, item = Chunked(None, None, None, None, 4), "5"
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue A item {item}\\b"):
-        T.train_glm_grid(batch, LOGISTIC, pcfg, [0.1, 1.0], device=CPU, **kw)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue A item 10\\b"):
+            T.train_glm_grid(pb, LOGISTIC, pcfg, [0.1, 1.0], device=CPU,
+                             mesh=object())
+        return
+    chunked = chunk_batch(make_batch(np.zeros((8, 3), np.float32),
+                                     np.zeros(8), device=CPU), 4)
+    with pytest.raises(ValueError, match="streamed mode has no lane-minor "
+                                         "grid"):
+        RT.train_glm_grid(RD.chunk_batch(RD.make_batch(np.zeros((8, 3)),
+                                                       np.zeros(8)), 4),
+                          RLOGISTIC, _configs(iters=2)[0], [0.1, 1.0])
+    with pytest.raises(ValueError, match="streamed mode has no lane-minor "
+                                         "grid"):
+        T.train_glm_grid(chunked, LOGISTIC, pcfg, [0.1, 1.0], device=CPU)
 
 
 def test_grid_kernels_on_with_cpu_tensors_raises():

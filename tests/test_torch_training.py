@@ -43,7 +43,8 @@ from photon_tpu.optim.linesearch import (  # noqa: E402
 from photon_tpu_torch import kernels as K  # noqa: E402
 from photon_tpu_torch.convert import glm_from_arrays  # noqa: E402
 from photon_tpu_torch.data import matrix as M  # noqa: E402
-from photon_tpu_torch.data.dataset import cast_features, make_batch  # noqa: E402
+from photon_tpu_torch.data.dataset import (cast_features,  # noqa: E402
+                                           chunk_batch, make_batch)
 from photon_tpu_torch.models import training as T  # noqa: E402
 from photon_tpu_torch.models.variance import (  # noqa: E402
     VarianceComputationType as Var, compute_variances)
@@ -194,17 +195,33 @@ def test_objective_margin_api_matches_reference(bf16):
 
 
 def test_objective_parts_still_to_port_raise():
-    """Only the chunk-partial API (streamed training, ROADMAP queue A item
-    5) is still to come; the full Hessian is ported (its parity lives in
-    test_torch_prior_norm.py) and is the Hessian the HVP applies."""
+    """Nothing of the one-device objective is still to come: the
+    chunk-partial API (streamed training, ROADMAP queue A item 5) is
+    ported, its partials summed over a batch's row chunks giving
+    `value_and_grad` (test_torch_streamed.py holds them against the
+    reference), and the full Hessian (its parity lives in
+    test_torch_prior_norm.py) is the Hessian the HVP applies."""
     _, pb = problem(n=64, d=200)
     po = Objective(L.TaskType.LOGISTIC_REGRESSION, l2=1.0)
-    assert not hasattr(po, "chunk_value_grad_partials")
     w = torch.zeros(200)
     v = torch.linspace(-1.0, 1.0, 200)
     H = po.full_hessian(w, pb)
     np.testing.assert_allclose((H @ v).numpy(), po.hvp(w, pb, v).numpy(),
                                rtol=1e-5, atol=1e-5)
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(64, 7)).astype(np.float32)
+    y = (rng.uniform(size=64) < 0.5).astype(np.float32)
+    wd = torch.from_numpy(rng.normal(size=7).astype(np.float32))
+    acc = None
+    for lo in (0, 40):
+        part = make_batch(X[lo:lo + 40], y[lo:lo + 40], device=CPU)
+        _, parts = po.chunk_value_grad_partials(wd, part)
+        acc = parts if acc is None else po.add_partials(acc, parts)
+    f, g = po.finish_value_grad(wd, acc)
+    f_all, g_all = po.value_and_grad(wd, make_batch(X, y, device=CPU))
+    np.testing.assert_allclose(float(f), float(f_all), rtol=1e-6)
+    np.testing.assert_allclose(g.numpy(), g_all.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ------------------------------------------------------------ line search
@@ -382,24 +399,28 @@ def test_train_glm_default_device_raises_without_gpu():
 
 @pytest.mark.parametrize("what", ["mesh", "chunked"])
 def test_train_glm_parts_still_to_port_raise(what):
-    """Meshes (item 10) and streamed batches (item 5) raise, naming their
-    ROADMAP item; priors, normalization and FULL variances are ported."""
+    """Meshes (item 10) raise, naming their ROADMAP item; a streamed batch
+    (a host `ChunkedBatch`, item 5, now ported) solves, and takes the
+    resident solve's steps (test_torch_streamed.py holds it against the
+    reference); priors, normalization and FULL variances are ported."""
     _, pb = problem(n=64, d=200)
     cfg = _configs(iters=2)[1]
-    kw, batch, item = {}, pb, "10"
     if what == "mesh":
-        kw["mesh"] = object()
-    else:
-        batch, item = pb._replace(), "5"
-
-        class Chunked(tuple):
-            n_chunks = 4
-
-        batch = Chunked(pb)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue A item {item}\\b"):
-        T.train_glm(batch, L.TaskType.LOGISTIC_REGRESSION, cfg, device=CPU,
-                    **kw)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue A item 10\\b"):
+            T.train_glm(pb, L.TaskType.LOGISTIC_REGRESSION, cfg, device=CPU,
+                        mesh=object())
+        return
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(64, 10)).astype(np.float32)
+    y = (rng.uniform(size=64) < 0.5).astype(np.float32)
+    resident = make_batch(X, y, device=CPU)
+    _, want = T.train_glm(resident, L.TaskType.LOGISTIC_REGRESSION, cfg,
+                          device=CPU)
+    _, got = T.train_glm(chunk_batch(resident, 24),
+                         L.TaskType.LOGISTIC_REGRESSION, cfg, device=CPU)
+    assert got.iterations == want.iterations
+    np.testing.assert_allclose(got.history(), want.history(), rtol=HIST_RTOL)
 
 
 def test_glm_from_arrays_scores_like_the_reference():
