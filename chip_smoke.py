@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GAME serving path, its sparse logistic
 GLM training path, its dense OWL-QN / TRON training path, its
-reg-weight grids, its streamed (out-of-device-memory) training and its
-GAME training on one GPU.
+reg-weight grids, its streamed (out-of-device-memory) training, its
+GAME training and its validation-driven model selection (the
+vectorized fixed-effect and GAME grids) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -91,6 +92,22 @@ G. the reg-weight grid on T2's layout (built once, for T2): (a) bench.py's
    hot block's Xᵀr over all rows against an f64 product, as one cuBLAS
    call and as the X pass sums it in row chunks (at most 1e-5 of the
    largest output);
+E. validation-driven selection on T2's layout: 2^19 held-out rows drawn
+   from T2's planted w_true with their own seed, laid out on their own
+   (`to_blocked_ell`, 1,024 bf16 hot columns); `GameEstimator.fit(data,
+   validation=..., config_grid=S_GRID)` on a fixed-effect-only model,
+   one sweep, no warm starts — the one-program fixed-effect grid (one
+   `train_glm_grid` at G (a)'s settings, then one 8-lane tail-matvec
+   launch each to score the training and the validation rows) — timed,
+   its launches and plan builds counted (reset just before, read just
+   after), peak memory; the validation pass's ms (score_models + 8 AUCs
+   on the card), per-lane AUC and the pick; held: each lane equals a
+   direct `train_glm_grid` bit for bit, the validation margins within
+   rtol=atol=1e-5 of ``scope("off")`` and of each model's single-lane
+   score, each AUC within 1e-4 of a numpy f64 rank sum of the same
+   margins, `best_model` picks `evaluate_glm_grid`'s lane, and 5-iteration
+   fits on the kernels and under ``scope("off")`` give per-lane AUCs
+   within 1e-5;
 S. streamed training (a host dataset streamed through the card two
    chunks deep): T2's problem laid out as a bf16 host ladder
    (`chunk_blocked_ell`, 8 chunks of 2^18 rows) — its build seconds,
@@ -155,6 +172,24 @@ GM. GAME at benches/game_10m.py's full width — 10,000,000 rows, 100,000
    lanes of their buckets and each alone through `train_glm` on its
    bucket's rows with the same offsets (solves stopped at tolerance
    1e-3): iterations equal, loss histories within rtol 1e-5;
+GG. GM's model as a 4-lane grid over the per-user L2 weight (1.25, 2.5,
+   5, 10; no warm starts) through `GameEstimator.fit`'s lane-axis path
+   (`game.grid.fit_game_grid`: every grid point a lane of one
+   coordinate descent, GM's bucketed datasets), with 2^20 held-out rows
+   from GM's planted model: a cold fit (AUC) and a warm refit
+   (SHARDED_AUC by user) — grid row-sweeps/s = rows x sweeps x lanes /
+   warm wall —, peak memory, seconds per coordinate update, per-lane
+   objective histories and iterations per entity, a profiled warm
+   sweep's device-busy share, the validation pass's seconds; held: every
+   lane's AUC and SHARDED_AUC within 1e-4 of numpy f64 on the same
+   scores, `grouped_auc` twice on the card bit for bit, `best_model`
+   under each evaluator picks numpy's lane, and each lane against a
+   sequential fit of its point (every solve stopped at a relative
+   progress of 1e-3): objective histories within rtol 1e-5, the fixed
+   effect within 1e-5 of its largest coefficient, each random effect's
+   entities apart beyond rtol 1e-5 at most 0.1% of them or twice as many
+   as a one-ulp nudge of the row weights moves apart in the sequential
+   fits themselves (the chained entity solves amplify a rounding);
 GS. GM again with its fixed shard as 10 host chunks of 2^20 bf16 rows (the
    random effects' buckets reused): cold fit, warm refit row-sweeps/s,
    peak memory, seconds per update, the ``game_e2e.*`` counters (the
@@ -180,7 +215,8 @@ blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
 their launches in the grid's solves under ``grid_launches``; every
 entry its launches in GM's fits and GK's default-route fits under
 ``gm_launches`` and ``gk_launches``, in phase S's main-path solves under
-``s_launches`` and in GS's fits under ``gs_launches``), the
+``s_launches``, in GS's fits under ``gs_launches``, in E's fit under
+``e_launches`` and in GG's fits under ``gg_launches``), the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
@@ -238,6 +274,12 @@ GM_FIXED, GM_RE = (30, 1.0), (15, 5.0)
 # runs the check at its timed configuration and reports where it parts
 GM_CHECK, RE_CHECK_TOL = 64, 1e-3
 GK_ROWS = 1 << 19  # GAME through the kernels: T2's width at this depth
+# validation-driven selection: E's held-out rows on their own layout (T2's
+# planted w_true, rows from seed + E_SEED); GG's grid over the per-user L2
+# weight and its held-out rows (GM's planted model, rows from seed +
+# GG_SEED)
+E_ROWS, E_SEED = 1 << 19, 101
+GG_USER_L2, GG_VAL_ROWS, GG_SEED = [1.25, 2.5, 5.0, 10.0], 1 << 20, 202
 # the streamed phases' chunk heights: T2's ladder (8 chunks), bench.py's
 # streamed leg on D2's data (run_streamed, 2^16), GM's fixed shard and
 # GK's ladder
@@ -857,9 +899,17 @@ def phase_training_kernels(dev, ptxas: list) -> None:
 
 
 # ------------------------------------------------ phase T2: train at width
-def sparse_problem(seed: int, rows: int):
+def planted_labels(rng, ind, va, w_true) -> np.ndarray:
+    """Logistic labels of padded COO rows under ``w_true``."""
+    margin = np.einsum("nk,nk->n", va, w_true[ind])
+    return (rng.uniform(size=len(ind)) < 1 / (1 + np.exp(-margin))).astype(
+        np.float32)
+
+
+def sparse_planted(seed: int, rows: int):
     """bench.py's sparse_problem recipe with numpy from ``seed``: padded
-    COO rows and labels from a planted hot-end signal."""
+    COO rows, a planted hot-end signal ``w_true`` and labels from it;
+    returns (ind, va, y, w_true)."""
     rng = np.random.default_rng(seed)
     ind, va = coo_rows(rng, rows, T_FEATURES, T_NNZ, T_ZIPF)
     d = T_FEATURES
@@ -867,10 +917,20 @@ def sparse_problem(seed: int, rows: int):
     hot = 200_000
     w_true[:hot] = rng.normal(size=hot) / np.sqrt(np.arange(1, hot + 1))
     w_true[d - 1] = -0.2
-    margin = np.einsum("nk,nk->n", va, w_true[ind])
-    y = (rng.uniform(size=rows) < 1 / (1 + np.exp(-margin))).astype(
-        np.float32)
-    return ind, va, y
+    return ind, va, planted_labels(rng, ind, va, w_true), w_true
+
+
+def sparse_problem(seed: int, rows: int):
+    """(ind, va, y) of `sparse_planted`."""
+    return sparse_planted(seed, rows)[:3]
+
+
+def heldout_rows(seed: int, rows: int, w_true):
+    """Held-out rows of the same recipe drawn from ``seed``, labelled by
+    the same planted ``w_true``: (ind, va, y)."""
+    rng = np.random.default_rng(seed)
+    ind, va = coo_rows(rng, rows, T_FEATURES, T_NNZ, T_ZIPF)
+    return ind, va, planted_labels(rng, ind, va, w_true)
 
 
 def solve_timed(batch, cfg, dev, solve=None):
@@ -910,7 +970,7 @@ def phase_training(args, dev, gpu) -> dict:
 
     rows = T_ROWS
     t0 = time.perf_counter()
-    ind, va, y = sparse_problem(args.seed, rows)
+    ind, va, y, w_true = sparse_planted(args.seed, rows)
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1057,7 +1117,8 @@ def phase_training(args, dev, gpu) -> dict:
             f"can miss its first kernels): "
             + "; ".join(f"{name[:70]} x{c}" for name, c in ops.items()))
     return dict(batch=batch, launches_a=launches_a, launches_b=launches_b,
-                w=w_perm, facts=facts, coo=(ind, va, y), hist_a=ha,
+                w=w_perm, facts=facts, coo=(ind, va, y), w_true=w_true,
+                hist_a=ha,
                 w5_model=w5_model, solve_peak=solve_peak_gb)
 
 
@@ -2090,6 +2151,186 @@ def phase_serving(args, dev, gpu) -> dict:
             "library_ms": None}
 
 
+# ------------------------------------ phase E: validation-driven selection
+def validation_pass(models, Xv, y_t, G: int):
+    """One validation pass over ``Xv``: the G models' margins in one lane
+    pass and each lane's AUC on the card; returns (margins, AUC tensor)."""
+    import torch
+
+    from photon_tpu_torch.evaluation import auc as auc_t
+    from photon_tpu_torch.models.glm import score_models
+
+    m = score_models(models, Xv)
+    return m, torch.stack([auc_t(m[i], y_t) for i in range(G)])
+
+
+def phase_validation(args, state: dict, dev, gpu) -> dict:
+    """E: the fixed-effect grid (S_GRID) through GameEstimator.fit with
+    held-out rows on their own blocked-ELL layout; returns the kernels'
+    launches inside the fit."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.dataset import cast_features, make_batch
+    from photon_tpu_torch.data.matrix import SparseRows, to_blocked_ell
+    from photon_tpu_torch.game.dataset import GameData
+    from photon_tpu_torch.game.estimator import (FixedEffectConfig,
+                                                 GameEstimator)
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.models.glm import score_models
+    from photon_tpu_torch.models.training import (evaluate_glm_grid,
+                                                  train_glm_grid)
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    batch = state["batch"]
+    X, y = batch.X, state["coo"][2]
+    G = len(S_GRID)
+    t0 = time.perf_counter()
+    ind, va, vy = heldout_rows(args.seed + E_SEED, E_ROWS, state["w_true"])
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vbatch = cast_features(make_batch(to_blocked_ell(
+        SparseRows(ind, va, T_FEATURES), T_DENSE,
+        device_dense_dtype=torch.bfloat16, device=dev), vy, device=dev))
+    torch.cuda.synchronize()
+    lay_s = time.perf_counter() - t0
+    Xv = vbatch.X
+    del ind, va
+    shared = np.intersect1d(X.perm_cols[:X.d_sel].cpu().numpy(),
+                            Xv.perm_cols[:Xv.d_sel].cpu().numpy()).size
+    log(f"E: {E_ROWS} held-out rows from T2's planted w_true (seed "
+        f"{args.seed + E_SEED}) made in {gen_s:.1f} s, laid out in "
+        f"{lay_s:.1f} s: {T_DENSE}-column bf16 hot block ({shared} of its "
+        f"columns also hot in T2's layout), {Xv.n_prefix - Xv.d_sel} tail "
+        f"columns, {len(Xv.ell_vals)} width and {len(Xv.bucket_vals)} "
+        "occurrence buckets")
+    cfg = OptimizerConfig(max_iters=T_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=0.0, history=T_HISTORY,
+                          lane_history_dtype="bfloat16")
+    train = GameData.build(y, shards={"fixed": X})
+    val = GameData.build(vy, shards={"fixed": Xv})
+
+    def estimator(c):
+        return GameEstimator(
+            task=TaskType.LOGISTIC_REGRESSION, n_sweeps=1,
+            warm_start=False, device=dev,
+            coordinate_configs={"fixed": FixedEffectConfig("fixed", c)})
+
+    def grid_of(c):
+        return [{"fixed": FixedEffectConfig(
+            "fixed", dataclasses.replace(c, reg_weight=float(w)))}
+            for w in S_GRID]
+
+    est = estimator(cfg)
+    if not est.would_vectorize(grid_of(cfg), data=train):
+        raise AssertionError("E: the grid must take _fit_fixed_grid")
+    builds0 = KB.plan_builds()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path — counts reset just before, read just after
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = est.fit(train, validation=val, config_grid=grid_of(cfg))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    builds = KB.plan_builds() - builds0
+    peak = torch.cuda.max_memory_allocated(dev)
+    its = [int(r.descent.coordinate_stats["fixed"][0].iterations)
+           for r in res]
+    aucs = [r.validation_score for r in res]
+    best = est.best_model(res)
+    best_i = [r is best for r in res].index(True)
+    if set(launches) != {KB.TAIL, KB.RMATVEC}:
+        raise AssertionError(f"E: the fit launched {launches}")
+    if builds != 1:
+        raise AssertionError(f"E: {builds} plan builds in the fit (one, "
+                             "for the validation layout, expected)")
+    models = [r.model["fixed"].model for r in res]
+    vy_t = torch.from_numpy(vy).to(dev)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        margins, aucs_t = validation_pass(models, Xv, vy_t, G)
+        aucs_t.cpu()
+        times.append(time.perf_counter() - t0)
+    log(f"E: GameEstimator.fit(validation=..., config_grid=S_GRID) through "
+        f"_fit_fixed_grid ({G} L2 lanes {S_GRID[0]:g}..{S_GRID[-1]:g}, "
+        f"history {T_HISTORY} bf16, tolerance 0): {fit_s:.3f} s; per-lane "
+        f"iterations {its}; launches in the fit {launches}; plan builds "
+        f"{builds}; peak device memory {peak / 1e9:.3f} GB "
+        f"({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB "
+        f"resident)  [{gpu}]")
+    log(f"E: validation AUC per lane "
+        + ", ".join(f"{a:.6f}" for a in aucs) + f"; best index {best_i} "
+        f"(L2 {S_GRID[best_i]:g}); the validation pass (score_models + {G} "
+        f"AUCs on the card) {1e3 * float(np.median(times)):.3f} ms "
+        f"(median of 3)  [{gpu}]")
+
+    # each lane equals a direct train_glm_grid with the same config
+    direct = train_glm_grid(batch, TaskType.LOGISTIC_REGRESSION, cfg,
+                            S_GRID, device=dev)
+    for i, (m, r) in enumerate(direct):
+        if not torch.equal(m.coefficients.means,
+                           models[i].coefficients.means.cpu()):
+            raise AssertionError(f"E: lane {i} is not train_glm_grid's "
+                                 "bit for bit")
+        if int(r.iterations) != its[i]:
+            raise AssertionError(f"E: lane {i} iterations {its[i]} against "
+                                 f"train_glm_grid's {int(r.iterations)}")
+    # the validation margins: kernels against scope("off") and against
+    # each model's single-lane score
+    margins = score_models(models, Xv)
+    with K.scope("off"):
+        plain = score_models(models, Xv)
+    np.testing.assert_allclose(margins.cpu().numpy(), plain.cpu().numpy(),
+                               **TOL, err_msg="E: margins vs scope off")
+    gap_single = 0.0
+    for i, m in enumerate(models):
+        one = m.score(Xv).cpu().numpy()
+        np.testing.assert_allclose(margins[i].cpu().numpy(), one, **TOL,
+                                   err_msg=f"E: lane {i} vs its own score")
+        gap_single = max(gap_single, float(np.abs(
+            margins[i].cpu().numpy() - one).max()))
+    gap_off = float((margins - plain).abs().max())
+    # each lane's AUC against numpy f64 on the same margins
+    np_aucs = [auc(margins[i].cpu().numpy(), vy) for i in range(G)]
+    auc_gap = max(abs(a - b) for a, b in zip(aucs, np_aucs))
+    if auc_gap > 1e-4:
+        raise AssertionError(f"E: AUC {aucs} against numpy f64 {np_aucs}")
+    sel, sel_scores = evaluate_glm_grid(direct, vbatch)
+    if sel != best_i:
+        raise AssertionError(f"E: best_model {best_i}, evaluate_glm_grid "
+                             f"{sel}")
+    # 5 iterations on the kernels and under scope("off"): the same AUCs
+    short = dataclasses.replace(cfg, max_iters=T_SHORT)
+    res_k = estimator(short).fit(train, validation=val,
+                                 config_grid=grid_of(short))
+    with K.scope("off"):
+        res_p = estimator(short).fit(train, validation=val,
+                                     config_grid=grid_of(short))
+    gap5 = max(abs(a.validation_score - b.validation_score)
+               for a, b in zip(res_k, res_p))
+    if gap5 > 1e-5:
+        raise AssertionError(f"E: 5-iteration AUCs part by {gap5:.3g}")
+    log(f"E: lanes equal a direct train_glm_grid bit for bit; validation "
+        f"margins within rtol=atol=1e-5 of scope(\"off\") (max |diff| "
+        f"{gap_off:.3g}) and of each model's single-lane score "
+        f"({gap_single:.3g}); AUC vs numpy f64 rank sum max |diff| "
+        f"{auc_gap:.3g}; evaluate_glm_grid picks {sel} (AUCs within "
+        f"{max(abs(a - b) for a, b in zip(sel_scores, aucs)):.3g}); "
+        f"{T_SHORT}-iteration fits on the kernels and under scope(\"off\"): "
+        f"per-lane AUCs within {gap5:.3g}  [{gpu}]")
+    del vbatch, Xv, margins, plain, direct, res, res_k, res_p
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------- phase S: streamed (out-of-memory)
 def h2d_gbs(X, dev) -> float:
     """This host's pinned host-to-device rate: one chunk's per-chunk
@@ -2383,16 +2624,26 @@ def phase_streamed(args, t2: dict, dev, gpu) -> dict:
 
 
 # ------------------------------------------ phases GM and GK: GAME training
-def game_10m_data(seed: int):
+def game_10m_model(rng) -> tuple:
+    """benches/game_10m.py's planted logistic GAME model: (fixed, per-user,
+    per-item) coefficients."""
+    w_true = (rng.normal(size=GM_D_FIXED) * 0.3).astype(np.float32)
+    u_true = rng.normal(size=(GM_USERS, GM_D_RE)).astype(np.float32)
+    i_true = rng.normal(size=(GM_ITEMS, GM_D_RE)).astype(np.float32)
+    return w_true, u_true, i_true
+
+
+def game_10m_data(seed: int, rows: int = GM_ROWS, model_seed=None):
     """benches/game_10m.py's data with numpy from ``seed``: N(0, 1) rows
     of the fixed shard and both per-entity shards, uniform user and item
-    ids, labels from a planted logistic GAME model."""
-    rows, users, items = GM_ROWS, GM_USERS, GM_ITEMS
+    ids, labels from a planted logistic GAME model — drawn from ``seed``
+    first, or, for held-out rows, from ``model_seed``."""
     df, dr = GM_D_FIXED, GM_D_RE
     rng = np.random.default_rng(seed)
-    w_true = (rng.normal(size=df) * 0.3).astype(np.float32)
-    u_true = rng.normal(size=(users, dr)).astype(np.float32)
-    i_true = rng.normal(size=(items, dr)).astype(np.float32)
+    planted = game_10m_model(
+        rng if model_seed is None else np.random.default_rng(model_seed))
+    w_true, u_true, i_true = planted
+    users, items = GM_USERS, GM_ITEMS
     Xf = rng.normal(size=(rows, df)).astype(np.float32)
     Xu = rng.normal(size=(rows, dr)).astype(np.float32)
     Xi = rng.normal(size=(rows, dr)).astype(np.float32)
@@ -2724,10 +2975,270 @@ def phase_game(args, dev, gpu) -> dict:
                      gpu, f"{name} at the timed configuration",
                      strict=False)
     del Xf_dev, parts, coords
+    gg = phase_game_grid(args, est, data, dev, gpu)
     gs = game_streamed(est, data, warm, game_auc, cfg_f, dev, gpu)
     del data, est, cold, warm
     torch.cuda.empty_cache()
-    return launches, gs
+    return launches, gs, gg
+
+
+def sharded_auc_np(scores: np.ndarray, y: np.ndarray, groups) -> float:
+    """The mean over groups holding both classes of each group's AUC by
+    the rank sum (ties averaged), in f64."""
+    s = scores.astype(np.float64)
+    order = np.lexsort((s, groups))
+    s, pos, g = s[order], y[order] > 0.5, np.asarray(groups)[order]
+    n = len(s)
+    starts = np.flatnonzero(np.r_[True, (s[1:] != s[:-1])
+                                  | (g[1:] != g[:-1])])
+    ends = np.r_[starts[1:], n]
+    avg = np.repeat((starts + ends + 1) / 2.0, ends - starts)
+    g0 = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
+    size = np.diff(np.r_[g0, n])
+    ranks = avg - np.repeat(g0, size)  # 1-based within the group
+    n_pos = np.add.reduceat(pos.astype(np.float64), g0)
+    n_neg = size - n_pos
+    rsum = np.add.reduceat(np.where(pos, ranks, 0.0), g0)
+    valid = (n_pos > 0) & (n_neg > 0)
+    per = (rsum - n_pos * (n_pos + 1) / 2.0) / np.where(valid,
+                                                         n_pos * n_neg, 1.0)
+    return float(per[valid].mean())
+
+
+class UpdateTimer:
+    """Seconds of each coordinate update of a lane-axis grid fit (closed by
+    a synchronize where the update's lane objective is taken), in update
+    order, while the context is open."""
+
+    def __enter__(self):
+        import torch
+
+        from photon_tpu_torch.game import grid as GR
+
+        self.secs: list = []
+        self._saved = (GR.fit_game_grid, GR._lane_objective)
+        fit, objective = self._saved
+
+        def timed_fit(*a, **kw):
+            torch.cuda.synchronize()
+            self._t = time.perf_counter()
+            return fit(*a, **kw)
+
+        def timed_objective(*a, **kw):
+            out = objective(*a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            self.secs.append(t - self._t)
+            self._t = t
+            return out
+
+        GR.fit_game_grid, GR._lane_objective = timed_fit, timed_objective
+        return self
+
+    def __exit__(self, *exc):
+        from photon_tpu_torch.game import grid as GR
+
+        GR.fit_game_grid, GR._lane_objective = self._saved
+
+
+def phase_game_grid(args, est_gm, data, dev, gpu) -> dict:
+    """GG: GM's model as a 4-lane grid over the per-user L2 weight through
+    GameEstimator.fit's lane-axis path (game.grid.fit_game_grid), with
+    held-out rows; returns the kernels' launches in its fits."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.evaluation import auc as auc_t
+    from photon_tpu_torch.evaluation import grouped_auc
+    from photon_tpu_torch.evaluation.evaluator import (Evaluator,
+                                                       EvaluatorType)
+    from photon_tpu_torch.game.dataset import GameData
+    from photon_tpu_torch.game.scoring import score_game
+
+    G, sweeps = len(GG_USER_L2), est_gm.n_sweeps
+    base = est_gm.coordinate_configs
+
+    def grid_estimator(check: bool, **kw):
+        cfgs = dict(base)
+        if check:  # stops at a relative progress of RE_CHECK_TOL
+            cfgs = {name: dataclasses.replace(c, optimizer=dataclasses.replace(
+                c.optimizer, tolerance=RE_CHECK_TOL))
+                for name, c in cfgs.items()}
+        est = dataclasses.replace(est_gm, coordinate_configs=cfgs,
+                                  warm_start=False, **kw)
+        # GM's bucketed datasets and coordinates, shared
+        est._caches[id(data)] = est_gm._caches[id(data)]
+        grid = [{"per_user": dataclasses.replace(
+            cfgs["per_user"], optimizer=dataclasses.replace(
+                cfgs["per_user"].optimizer, reg_weight=w))}
+            for w in GG_USER_L2]
+        return est, grid
+
+    t0 = time.perf_counter()
+    Xf, Xu, Xi, uid, iid, vy = game_10m_data(args.seed + GG_SEED,
+                                             GG_VAL_ROWS,
+                                             model_seed=args.seed)
+    val = GameData.build(vy, shards={
+        "fixed": torch.from_numpy(Xf).to(dev).to(torch.bfloat16),
+        "u_re": Xu, "i_re": Xi}, entity_ids={"user": uid, "item": iid})
+    gen_s = time.perf_counter() - t0
+    del Xf, Xu, Xi
+    est, grid = grid_estimator(
+        False, evaluator=Evaluator(EvaluatorType.AUC))
+    if not est.would_vectorize(grid, data=data):
+        raise AssertionError("GG: the grid must take the lane-axis path")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path — counts reset just before, read just after
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = est.fit(data, validation=val, config_grid=grid)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    est_sh = dataclasses.replace(
+        est, evaluator=Evaluator(EvaluatorType.SHARDED_AUC),
+        evaluator_entity="user")
+    est_sh._caches = est._caches
+    with UpdateTimer() as timer:
+        t0 = time.perf_counter()
+        warm = est_sh.fit(data, validation=val, config_grid=grid)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n = data.n
+    grid_s = sum(timer.secs)
+    log(f"GG: {G}-lane GAME grid (per-user L2 {GG_USER_L2}, the rest GM's) "
+        f"through GameEstimator.fit's lane-axis path, GM's datasets: cold "
+        f"fit {cold_s:.3f} s, warm refit {warm_s:.3f} s: "
+        f"{n * sweeps * G / warm_s:.6g} grid row-sweeps/s (rows x sweeps x "
+        f"lanes / warm wall); peak device memory {peak_gb:.3f} GB; "
+        f"hand-written kernel launches in both fits {launches or 'none'}  "
+        f"[{gpu}]")
+    names = list(est.update_sequence or base)
+    log("GG: seconds per coordinate update (all lanes): "
+        + "; ".join(f"{names[i % len(names)]} {v:.3f}"
+                    for i, v in enumerate(timer.secs))
+        + f"; the validation pass ({GG_VAL_ROWS} rows made in {gen_s:.1f} "
+        f"s: scoring every lane + {G} SHARDED_AUCs) "
+        f"{warm_s - grid_s:.3f} s  [{gpu}]")
+    for g, r in enumerate(warm):
+        its = {name: [f"{np.median(st.iterations_per_entity):g}/"
+                      f"{st.iterations_per_entity.max()}"
+                      for st in r.descent.coordinate_stats[name]]
+               for name in ("per_user", "per_item")}
+        log(f"GG: lane {g} (user L2 {GG_USER_L2[g]:g}): objective history "
+            + ", ".join(f"{v:.8g}" for v in r.descent.objective_history)
+            + f"; iterations per entity median/max by sweep {its}; "
+            f"validation AUC {cold[g].validation_score:.6f}, SHARDED_AUC "
+            f"{r.validation_score:.6f}")
+        np.testing.assert_allclose(r.descent.objective_history,
+                                   cold[g].descent.objective_history,
+                                   rtol=1e-5, err_msg="GG cold vs warm")
+    est1 = dataclasses.replace(est, n_sweeps=1)
+    est1._caches = est._caches
+    busy, wall, n_ops, top = profiled_busy(
+        lambda: est1.fit(data, config_grid=grid))
+    log("GG: profiled warm sweep: device busy "
+        + ("not measured" if busy is None else
+           f"{busy:.3f} s of {wall:.3f} s wall ({busy / wall:.3f} busy, "
+           f"{1 - busy / wall:.3f} idle)")
+        + f", {n_ops} device ops; most device time (ms, launches): "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f}, {k}"
+                    for name, us, k in top) + f"  [{gpu}]")
+
+    # every lane's validation metrics against numpy f64 on the same scores
+    val_dev = val.to_device(dev)
+    groups = np.unique(uid, return_inverse=True)[1].reshape(-1)
+    gap_auc = gap_sh = 0.0
+    np_auc, np_sh = [], []
+    for g in range(G):
+        s = score_game(warm[g].model, val_dev)
+        sh = s.cpu().numpy()
+        a_np, sh_np = auc(sh, vy), sharded_auc_np(sh, vy, groups)
+        np_auc.append(a_np)
+        np_sh.append(sh_np)
+        a_port = float(auc_t(s, val_dev.y))
+        _, _, sh_port = grouped_auc(s, val_dev.y, val_dev.weights, groups,
+                                    int(groups.max()) + 1)
+        for label, got, want in (
+                ("AUC", a_port, a_np), ("SHARDED_AUC", float(sh_port), sh_np),
+                ("fit's AUC", cold[g].validation_score, a_np),
+                ("fit's SHARDED_AUC", warm[g].validation_score, sh_np)):
+            if abs(got - want) > 1e-4:
+                raise AssertionError(f"GG lane {g}: {label} {got} against "
+                                     f"numpy f64 {want}")
+        gap_auc = max(gap_auc, abs(a_port - a_np),
+                      abs(cold[g].validation_score - a_np))
+        gap_sh = max(gap_sh, abs(float(sh_port) - sh_np),
+                     abs(warm[g].validation_score - sh_np))
+    s = score_game(warm[0].model, val_dev)
+    runs = [grouped_auc(s, val_dev.y, val_dev.weights, groups,
+                        int(groups.max()) + 1)[0] for _ in range(2)]
+    if not torch.equal(runs[0].nan_to_num(7.0), runs[1].nan_to_num(7.0)):
+        raise AssertionError("GG: grouped_auc differs between two runs")
+    picks = []
+    for label, e, res, want in (("AUC", est, cold, np_auc),
+                                ("SHARDED_AUC", est_sh, warm, np_sh)):
+        best = e.best_model(res)
+        i = [r is best for r in res].index(True)
+        j = int(np.argmax(want))
+        if i != j and want[j] - want[i] > 1e-6:
+            raise AssertionError(f"GG: best_model under {label} picks lane "
+                                 f"{i}, numpy lane {j} ({want})")
+        picks.append(f"{label} lane {i} (numpy {j})")
+    log(f"GG: validation metrics against numpy f64 on the same scores: AUC "
+        f"max |diff| {gap_auc:.3g}, SHARDED_AUC {gap_sh:.3g}; grouped_auc "
+        f"twice on the card bit for bit; best_model picks "
+        + ", ".join(picks) + f"  [{gpu}]")
+
+    # each lane against a sequential fit of its point, every solve
+    # stopped at a relative progress of RE_CHECK_TOL, beside the
+    # sequential fits' own spread: the same fits with the row weights one
+    # ulp above 1 (the chained entity solves amplify a rounding; ROADMAP.md
+    # §C8)
+    chk, cgrid = grid_estimator(True)
+    seq, _ = grid_estimator(True, vectorized_grid=False)
+    t0 = time.perf_counter()
+    lanes = chk.fit(data, config_grid=cgrid)
+    torch.cuda.synchronize()
+    lane_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alone = seq.fit(data, config_grid=cgrid)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    nudged = seq.fit(dataclasses.replace(data, weights=np.nextafter(
+        data.weights, np.float32(2.0))), config_grid=cgrid)
+    worst, apart_all = 0.0, []
+    for g in range(G):
+        gap, apart = fits_agree(f"GG lane {g}", alone[g], lanes[g],
+                                strict=False)
+        spread = entities_apart(alone[g], nudged[g])
+        worst = max(worst, gap)
+        for name, (k, k_its, big) in apart.items():
+            E = alone[g].model[name].n_entities
+            k_sp, _, big_sp = spread[name]
+            apart_all.append(f"lane {g} {name} {k}/{E} ({k_its} at another "
+                             f"iteration, largest {big:.3g}; nudged "
+                             f"{k_sp}, largest {big_sp:.3g})")
+            if k > max(1e-3 * E, 2 * k_sp):
+                raise AssertionError(
+                    f"GG lane {g} {name}: {k} of {E} entities apart, the "
+                    f"sequential fits' own one-ulp spread {k_sp}")
+    log(f"GG: each lane against a sequential fit of its point (tolerance "
+        f"{RE_CHECK_TOL:g}; grid {lane_s:.3f} s, {G} sequential fits "
+        f"{seq_s:.3f} s): objective histories within rtol {worst:.3g}, the "
+        f"fixed effect within 1e-5 of the largest; entities apart beyond "
+        f"rtol 1e-5 (at most 0.1% or twice the sequential fits' own "
+        f"spread under a one-ulp nudge of the row weights): "
+        + "; ".join(apart_all) + f"  [{gpu}]")
+    del cold, warm, lanes, alone, nudged, val, val_dev
+    for e in (est, est_sh, est1, chk, seq):
+        e._caches.clear()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def gk_data(seed: int, rows: int):
@@ -2754,50 +3265,63 @@ def gk_data(seed: int, rows: int):
     return ind, va, re, uid, iid, y
 
 
-def fits_agree(label: str, want, got, strict: bool) -> tuple:
-    """Raise unless two GAME fits' objective histories agree within rtol
-    1e-5 and the fixed effect's coefficients and variances within rtol
-    1e-5 of the largest of each; ``strict``: every random-effect entity's
-    too. Returns (the largest relative history gap, {random effect:
-    (entities apart, of them stopped at another iteration, largest
-    gap)})."""
-    gap = histories_agree(f"{label} objective history",
-                          np.asarray(want.descent.objective_history),
-                          np.asarray(got.descent.objective_history))
+def entities_apart(want, got) -> dict:
+    """{random effect: (entities whose coefficients or variances part
+    beyond rtol 1e-5 of the largest, of them stopped at another
+    iteration, largest gap)} between two GAME fits."""
     apart = {}
     for name, wm in want.model.coordinates.items():
+        if hasattr(wm, "model"):
+            continue
         gm = got.model.coordinates[name]
-        fixed = hasattr(wm, "model")
-        pairs = ([(wm.model.coefficients.means, gm.model.coefficients.means),
-                  (wm.model.coefficients.variances,
-                   gm.model.coefficients.variances)] if fixed else
-                 [(wm.coefficients, gm.coefficients),
-                  (wm.variances, gm.variances)])
         bad, worst = None, 0.0
-        for a, b in pairs:
+        for a, b in ((wm.coefficients, gm.coefficients),
+                     (wm.variances, gm.variances)):
             if a is None:
                 continue
             a, b = a.cpu().numpy(), b.cpu().numpy()
-            tol = 1e-5 * float(np.abs(a).max())
-            if fixed:
-                np.testing.assert_allclose(b, a, rtol=1e-5, atol=tol,
-                                           err_msg=f"{label} {name}")
-                continue
-            off = np.abs(b - a) > tol + 1e-5 * np.abs(a)
+            off = np.abs(b - a) > 1e-5 * float(np.abs(a).max()) \
+                + 1e-5 * np.abs(a)
             rows = off.any(axis=1)
             bad = rows if bad is None else bad | rows
             if rows.any():
                 worst = max(worst, float(np.abs(b - a)[off].max()))
-        if fixed:
-            continue
         its = [f.descent.coordinate_stats[name][-1].iterations_per_entity
                for f in (want, got)]
         apart[name] = (int(bad.sum()), int((bad & (its[0] != its[1])).sum()),
                        worst)
-        if strict and bad.any():
+    return apart
+
+
+def fits_agree(label: str, want, got, strict: bool) -> tuple:
+    """Raise unless two GAME fits' objective histories agree within rtol
+    1e-5 and the fixed effect's coefficients and variances within rtol
+    1e-5 of the largest of each; ``strict``: every random-effect entity's
+    too. Returns (the largest relative history gap, `entities_apart`)."""
+    gap = histories_agree(f"{label} objective history",
+                          np.asarray(want.descent.objective_history),
+                          np.asarray(got.descent.objective_history))
+    for name, wm in want.model.coordinates.items():
+        if not hasattr(wm, "model"):
+            continue
+        gm = got.model.coordinates[name]
+        for a, b in ((wm.model.coefficients.means,
+                      gm.model.coefficients.means),
+                     (wm.model.coefficients.variances,
+                      gm.model.coefficients.variances)):
+            if a is None:
+                continue
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            np.testing.assert_allclose(b, a, rtol=1e-5,
+                                       atol=1e-5 * float(np.abs(a).max()),
+                                       err_msg=f"{label} {name}")
+    apart = entities_apart(want, got)
+    for name, (k, _, worst) in apart.items():
+        if strict and k:
+            E = want.model.coordinates[name].n_entities
             raise AssertionError(
-                f"{label} {name}: {int(bad.sum())} of {bad.size} entities "
-                f"apart (largest gap {worst:.3g})")
+                f"{label} {name}: {k} of {E} entities apart (largest gap "
+                f"{worst:.3g})")
     return gap, apart
 
 
@@ -3181,6 +3705,7 @@ def main() -> int:
     lanes8 = phase_grid_timings(state, phase_grid(state, dev, gpu), gpu)
     for entry in kernels:
         entry.update(lanes8.get(entry["name"], {}))
+    e_launches = phase_validation(args, state, dev, gpu)
     t2 = {k: state[k] for k in ("coo", "hist_a", "w5_model", "owlqn",
                                 "solve_peak")}
     del state
@@ -3193,7 +3718,7 @@ def main() -> int:
     kernels.append(phase_dense_timings(state, gpu))
     del state
     torch.cuda.empty_cache()
-    gm, gs = phase_game(args, dev, gpu)
+    gm, gs, gg = phase_game(args, dev, gpu)
     gk = phase_game_kernels(args, dev, gpu)
     for name, c in phase_gk_ladder(args, dev, gpu).items():
         gs[name] = gs.get(name, 0) + c
@@ -3202,6 +3727,8 @@ def main() -> int:
         entry["gk_launches"] = gk.get(entry["name"], 0)
         entry["s_launches"] = s_launches.get(entry["name"], 0)
         entry["gs_launches"] = gs.get(entry["name"], 0)
+        entry["e_launches"] = e_launches.get(entry["name"], 0)
+        entry["gg_launches"] = gg.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

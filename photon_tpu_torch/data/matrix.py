@@ -865,6 +865,32 @@ def last_column_is_intercept(X) -> bool:
     return bool((_host_col(X, X.shape[1] - 1) == 1.0).all())
 
 
+# ------------------------------------------------ sorted segment sums
+def _tail_rowsum(contrib: torch.Tensor,
+                 row_bounds: torch.Tensor) -> torch.Tensor:
+    """Per-segment sums of flat contributions (m,) or (m, G) whose
+    segment s spans ``row_bounds[s]:row_bounds[s + 1]``: cumulative-sum
+    differences, no scatter."""
+    zero = contrib.new_zeros((1,) + tuple(contrib.shape[1:]))
+    cs = torch.cat([zero, torch.cumsum(contrib, dim=0)])
+    b = cs[row_bounds]
+    return b[1:] - b[:-1]
+
+
+def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Segment sums for ids SORTED ascending (reference:
+    `sorted_segment_sum`): the bounds by a binary search, the sums by
+    cumulative-sum differences — no atomic or combining scatter, so the
+    same bits on every run. ``data`` (m,) or (m, G); ``segment_ids``
+    (m,) nondecreasing; returns (num_segments,) or (num_segments, G)."""
+    ids = segment_ids.to(torch.int64)
+    bounds = torch.searchsorted(
+        ids, torch.arange(num_segments + 1, dtype=torch.int64,
+                          device=ids.device))
+    return _tail_rowsum(data, bounds)
+
+
 # ------------------------------------------------ per-entity blocks
 def _column_segments(indices: torch.Tensor, n_features: int) -> tuple:
     """The plan of a sparse entity block's column sums: each lane's
@@ -899,7 +925,12 @@ class EntityBlocks:
     every lane tensor of the lane solvers. Padding rows carry weight 0 in
     the batch (and zero values here). Every pass sums in an order fixed
     by the block alone (no two adds race for one output), so a solve
-    gives the same bits on every run."""
+    gives the same bits on every run.
+
+    A regularization grid over the entities (`game.grid`) runs G lanes
+    per entity: with ``lanes_per_entity`` G the block has E·G lanes,
+    entity-major, and lane l reads the rows of entity l // G — the block
+    itself is shared by an entity's G lanes, never copied (`grid`)."""
 
     dense: torch.Tensor | None
     indices: torch.Tensor | None
@@ -908,6 +939,7 @@ class EntityBlocks:
     # the sparse form's `_column_segments`, built once with the block
     segments: tuple | None = dataclasses.field(default=None, compare=False,
                                                repr=False)
+    lanes_per_entity: int = 1
 
     def __post_init__(self):
         if self.indices is not None and self.segments is None:
@@ -915,61 +947,81 @@ class EntityBlocks:
                 self.indices, self.n_features))
 
     def lanes(self, lo: int, hi: int) -> "EntityBlocks":
-        """Lanes lo..hi as a block of their own (its plan sliced, not
-        rebuilt)."""
+        """Entities lo..hi (with their lanes) as a block of their own (its
+        plan sliced, not rebuilt)."""
         def cut(t):
             return None if t is None else t[..., lo:hi].contiguous()
 
         return EntityBlocks(cut(self.dense), cut(self.indices),
                             cut(self.values), self.n_features,
                             None if self.segments is None else
-                            tuple(cut(t) for t in self.segments))
+                            tuple(cut(t) for t in self.segments),
+                            self.lanes_per_entity)
 
-    def _rows(self, W: torch.Tensor) -> torch.Tensor:
-        """The (m, k, E) gathered coefficients of the sparse form."""
+    def grid(self, G: int) -> "EntityBlocks":
+        """The same block with G lanes per entity (the tensors shared)."""
+        return dataclasses.replace(self, lanes_per_entity=int(G))
+
+    def _by_entity(self, W: torch.Tensor) -> torch.Tensor:
+        """A lane tensor (·, E·G) as its (·, E, G) view."""
+        return W.reshape(W.shape[0], -1, self.lanes_per_entity)
+
+    def _rows(self, Wv: torch.Tensor) -> torch.Tensor:
+        """The (m, k, E, G) gathered coefficients of the sparse form, from
+        (d, E, G) lanes."""
         m, k, E = self.indices.shape
-        return torch.gather(W, 0, self.indices.reshape(m * k, E)
-                            ).reshape(m, k, E)
+        idx = self.indices.reshape(m * k, E, 1).long().expand(
+            m * k, E, Wv.shape[2])
+        return torch.gather(Wv, 0, idx).reshape(m, k, E, -1)
 
     def _f32(self, t: torch.Tensor) -> torch.Tensor:
         return t if t.dtype == torch.float32 else t.to(torch.float32)
 
     def matvec_lanes(self, W: torch.Tensor) -> torch.Tensor:
-        """(m, E): z[i, e] = Σ_j X_e[i, j] W[j, e]."""
+        """(m, E·G): z[i, l] = Σ_j X_e[i, j] W[j, l], e = l // G."""
+        Wv = self._by_entity(W)
         if self.dense is not None:
-            Wc = W.to(self.dense.dtype)
-            return torch.sum(self._f32(self.dense) * self._f32(Wc)[None],
-                             dim=1)
-        return torch.sum(self._f32(self.values) * self._rows(W), dim=1)
+            Wc = self._f32(Wv.to(self.dense.dtype))
+            z = torch.sum(self._f32(self.dense)[..., None] * Wc[None], dim=1)
+        else:
+            z = torch.sum(self._f32(self.values)[..., None] * self._rows(Wv),
+                          dim=1)
+        return z.reshape(z.shape[0], -1)
 
     def rmatvec_lanes(self, R: torch.Tensor,
                       square: bool = False) -> torch.Tensor:
-        """(d, E): each lane's Xᵀr (or (X∘X)ᵀr) over its own rows. The
-        sparse form sums each column's slots by a segmented scan over the
-        lane's slots sorted by column (log2(m·k) passes)."""
+        """(d, E·G): each lane's Xᵀr (or (X∘X)ᵀr) over its entity's rows.
+        The sparse form sums each column's slots by a segmented scan over
+        the entity's slots sorted by column (log2(m·k) passes)."""
+        Rv = self._by_entity(R)
+        G = Rv.shape[2]
         if self.dense is not None:
             X = self._f32(self.dense)
             if square:
                 X = X * X
-            Rc = self._f32(R.to(self.dense.dtype))
-            return torch.sum(X * Rc[:, None, :], dim=0)
+            Rc = self._f32(Rv.to(self.dense.dtype))
+            out = torch.sum(X[..., None] * Rc[:, None], dim=0)
+            return out.reshape(out.shape[0], -1)
         v = self._f32(self.values)
         if square:
             v = v * v
         m, k, E = self.indices.shape
         L = m * k
-        order, keys, last = self.segments
-        x = torch.gather((v * R[:, None, :]).reshape(L, E), 0, order)
+        order, keys, last = (t[..., None] for t in self.segments)
+        x = torch.gather((v[..., None] * Rv[:, None]).reshape(L, E, G), 0,
+                         order.expand(L, E, G))
         off = 1
         while off < L:  # x[p] += x[p - off] within p's column
             x = torch.cat([x[:off], x[off:] + torch.where(
                 keys[off:] == keys[:-off], x[:-off], 0.0)])
             off *= 2
-        x = torch.cat([x, x.new_zeros((1, E))])
-        return torch.gather(x, 0, last)
+        x = torch.cat([x, x.new_zeros((1, E, G))])
+        out = torch.gather(x, 0, last.expand(last.shape[0], E, G))
+        return out.reshape(out.shape[0], -1)
 
     def weighted_gram_lanes(self, R: torch.Tensor) -> torch.Tensor:
-        """(E, d, d): each lane's Xᵀ diag(r) X, f32."""
+        """(E·G, d, d): each lane's Xᵀ diag(r) X, f32."""
+        Rv = self._by_entity(R)
         if self.dense is not None:
             X = self._f32(self.dense)
         else:
@@ -981,7 +1033,8 @@ class EntityBlocks:
             for s in range(k):  # one writer per cell in each pass
                 X.scatter_add_(1, self.indices[:, s:s + 1],
                                v[:, s:s + 1])
-        return torch.einsum("mde,me,mfe->edf", X, R, X)
+        H = torch.einsum("mde,meg,mfe->egdf", X, Rv, X)
+        return H.reshape((-1,) + tuple(H.shape[2:]))
 
 
 def next_pow2(x: int, floor: int = 2) -> int:

@@ -77,6 +77,28 @@ class GameData:
         return GameData(y, weights, offsets, dict(shards),
                         dict(entity_ids or {}))
 
+    def to_device(self, device=None) -> "GameData":
+        """This data for scoring and evaluation on ``device`` (default
+        ``cuda``): every resident shard, the labels, weights and offsets
+        moved there once, so each later score and metric is device work
+        alone (reference: `GameData.to_device`). A host-chunked shard
+        stays on the host (it streams chunk by chunk); entity ids stay
+        host numpy (they are densified on the host). Training data stays
+        on the host: its entity bucketing reads numpy columns."""
+        dev = resolve_device(device)
+
+        def put(X):
+            return X if isinstance(X, ChunkedMatrix) else _on_device(X, dev)
+
+        def col(v):
+            return as_tensor(np.asarray(v, np.float32)
+                             if not isinstance(v, torch.Tensor) else v,
+                             dev).to(torch.float32)
+
+        return GameData(col(self.y), col(self.weights), col(self.offsets),
+                        {k: put(X) for k, X in self.shards.items()},
+                        self.entity_ids)
+
 
 def _shard_dim(X) -> int:
     if isinstance(X, (SparseRows, BlockedEllRows, ChunkedMatrix)):

@@ -1,39 +1,54 @@
-"""GameEstimator: train GAME models over candidate configurations (port of
-`FixedEffectConfig`, `RandomEffectConfig`, `GameFitResult` and the
-sequential path of `GameEstimator.fit` of `photon_tpu/game/estimator.py`).
+"""GameEstimator: train GAME models over candidate configurations and
+select the best on validation data (port of `photon_tpu/game/
+estimator.py`: `FixedEffectConfig`, `RandomEffectConfig`,
+`GameFitResult`, `GameEstimator`).
 
 Reference parity: com.linkedin.photon.ml.estimators.GameEstimator — fit()
 takes a sequence of per-coordinate configurations and trains one GameModel
-per configuration, each warm-started from the previous one when enabled;
-datasets (the entity bucketing) and coordinates are cached across grid
-points and across fits of the same data.
+per configuration, each warm-started from the previous one when enabled,
+evaluates each on the validation data, and `best_model` picks by the
+evaluator's direction (GameTrainingDriver.selectBestModel). Datasets (the
+entity bucketing) and coordinates are cached across grid points and
+across fits of the same data.
 
-On the port's device (CUDA unless ``device="cpu"``), one device. A
-fixed effect's shard may be a host `ChunkedMatrix`: its solves stream
-(the pod-scale regime's single-device form) and the descent exchanges
-its margins on the host. Not ported yet, each raising with its ROADMAP
-queue A item: the vectorized grid paths (`would_vectorize` gives the
-reference's answer; where it says they would run, fit raises — item 6,
-`game/grid.py`), validation data (item 7, with the evaluators and
-selection by a validation metric) and meshes (item 10).
+A reg-weight grid without warm starts takes the reference's vectorized
+paths where its ``would_vectorize`` does: a lone fixed effect over one
+sweep is one `train_glm_grid` sweep plus one batched scoring pass per
+matrix (`_fit_fixed_grid`); a GAME model whose grid varies only reg
+weights runs every grid point as a lane of one coordinate descent
+(`game.grid.fit_game_grid`, dense and `SparseRows` shards only, as the
+reference's `_grid_data_supported`).
+
+On the port's device (CUDA unless ``device="cpu"``), one device; the
+validation data moves there once per fit and every metric runs there. A
+fixed effect's shard may be a host `ChunkedMatrix`: its solves stream and
+the descent exchanges its margins on the host. Meshes wait for ROADMAP
+queue A item 10, the straggler re-solve (``straggler_budget``) for item
+6.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import torch
+
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import ChunkedMatrix
 from photon_tpu_torch.data.matrix import (BlockedEllRows,
                                           last_column_is_intercept)
 from photon_tpu_torch.device import resolve_device
+from photon_tpu_torch.evaluation.evaluator import (Evaluator,
+                                                   default_evaluator,
+                                                   evaluate_with_entity)
 from photon_tpu_torch.game.coordinate_descent import (CoordinateDescentResult,
                                                       coordinate_descent)
 from photon_tpu_torch.game.dataset import (FixedEffectDataset, GameData,
                                            RandomEffectDataset)
 from photon_tpu_torch.game.fixed_effect import FixedEffectCoordinate
-from photon_tpu_torch.game.model import GameModel
+from photon_tpu_torch.game.model import FixedEffectModel, GameModel
 from photon_tpu_torch.game.random_effect import RandomEffectCoordinate
+from photon_tpu_torch.game.scoring import score_game
 from photon_tpu_torch.models.variance import VarianceComputationType
 from photon_tpu_torch.ops.losses import TaskType
 from photon_tpu_torch.optim.config import OptimizerConfig
@@ -81,7 +96,7 @@ class GameFitResult:
 
 @dataclasses.dataclass
 class GameEstimator:
-    """Reference: estimators.GameEstimator (its sequential path)."""
+    """Reference: estimators.GameEstimator."""
 
     task: TaskType
     coordinate_configs: dict  # name -> CoordinateConfig (order = sequence)
@@ -92,6 +107,11 @@ class GameEstimator:
     locked: frozenset = frozenset()
     incremental: frozenset = frozenset()
     warm_start: bool = True
+    # the validation metric (default: the task's, `default_evaluator`)
+    evaluator: Optional[Evaluator] = None
+    # entity-id column the sharded evaluators group by (default: the first
+    # random-effect coordinate's entity type)
+    evaluator_entity: Optional[str] = None
     # coordinate name → a NormalizationType (the context built from that
     # coordinate's design matrix) or a prebuilt NormalizationContext
     normalization: dict = dataclasses.field(default_factory=dict)
@@ -181,11 +201,7 @@ class GameEstimator:
             f"normalization[{name!r}] must be a NormalizationType or "
             f"NormalizationContext, got {type(spec)}")
 
-    def _refuse_unported(self, validation) -> None:
-        if validation is not None:
-            raise NotImplementedError(
-                "validation-time evaluation (validation= data, evaluators) "
-                "is not ported yet (ROADMAP queue A item 7)")
+    def _refuse_unported(self) -> None:
         if self.mesh is not None:
             raise NotImplementedError(
                 "meshes (multi-device GAME) are not ported yet (ROADMAP "
@@ -194,34 +210,47 @@ class GameEstimator:
     def fit(self, data: GameData, validation: Optional[GameData] = None,
             config_grid: Optional[list] = None,
             initial_models: Optional[dict] = None) -> list:
-        """Train one GameModel per candidate configuration.
+        """Train one GameModel per candidate configuration, each scored on
+        ``validation`` (its ``validation_score``) when given.
 
         ``config_grid``: list of {name -> CoordinateConfig} overrides, one
         model per entry (None: one model with ``coordinate_configs``).
         Successive models warm-start from the previous one when
-        ``warm_start``. Datasets are cached per (shard, entity,
-        active_cap, projection), so overrides that change only the
+        ``warm_start`` — except on the vectorized grid paths, whose lanes
+        run concurrently from zeros. Datasets are cached per (shard,
+        entity, active_cap, projection), so overrides that change only the
         optimizer reuse the bucketed blocks."""
-        resolve_device(self.device)
-        self._refuse_unported(validation)
+        dev = resolve_device(self.device)
+        self._refuse_unported()
         grid = config_grid or [self.coordinate_configs]
+        evaluator = self.evaluator or default_evaluator(self.task)
         if self._chunked_shards(data):
             # the streamed regime: fixed effects stream their host-chunked
             # shards; the descent exchanges margins on the host
             telemetry.count("game_e2e.chunked_fit_points", len(grid))
         dataset_cache, coord_cache = self._caches_for(data)
+        if validation is not None:
+            # one transfer for the whole grid: every point scores the same
+            # validation shards
+            validation = validation.to_device(dev)
         chain_warm = self.warm_start
         if self.would_vectorize(grid, initial_models):
-            if self.would_vectorize(grid, initial_models, data):
-                raise NotImplementedError(
-                    "this config grid takes the reference's vectorized grid "
-                    "path (game/grid.py, or one train_glm_grid program for "
-                    "a lone fixed effect), which is not ported yet (ROADMAP "
-                    "queue A item 6); set vectorized_grid=False or "
-                    "warm_start=True to run it sequentially")
-            # the reference keeps the vectorized contract (no warm starts
-            # across grid points) on its unsupported-layout fallback
-            chain_warm = False
+            if self.n_sweeps == 1 and not self._chunked_shards(data):
+                probe = self._fixed_only_reg_grid(grid)
+                if probe is not None and self._fixed_seq_ok(probe):
+                    # a lone fixed effect, one sweep: one train_glm_grid
+                    return self._fit_fixed_grid(probe, data, validation,
+                                                evaluator, dataset_cache)
+            lanes = self._game_grid_probe(grid)
+            if lanes is not None:
+                if self._grid_data_supported(data):
+                    return self._fit_game_grid(lanes, data, validation,
+                                               evaluator, dataset_cache,
+                                               coord_cache)
+                # the vectorized contract (no warm starts across grid
+                # points) holds on the unsupported-layout fallback too, so
+                # results do not depend on the matrix representation
+                chain_warm = False
 
         results: list[GameFitResult] = []
         prev_models = dict(initial_models or {})
@@ -236,12 +265,7 @@ class GameEstimator:
                 "initial_models")
         for overrides in grid:
             configs = {**self.coordinate_configs, **overrides}
-            datasets = {}
-            for name, cfg in configs.items():
-                key = self._dataset_key(cfg)
-                if key not in dataset_cache:
-                    dataset_cache[key] = self._build_dataset(data, cfg)
-                datasets[name] = dataset_cache[key]
+            datasets = self._datasets_for(data, configs, dataset_cache)
             coords = self._build_coordinates(datasets, configs, coord_cache)
             descent = coordinate_descent(
                 coords, data.y, data.weights, data.offsets, self.task,
@@ -249,7 +273,13 @@ class GameEstimator:
                 n_sweeps=self.n_sweeps, locked=self.locked,
                 initial_models=prev_models, incremental=self.incremental,
                 priors=user_priors)
-            results.append(GameFitResult(descent.model, descent, configs))
+            result = GameFitResult(descent.model, descent, configs)
+            if validation is not None:
+                telemetry.count("game.validate_point")
+                result.validation_score = self._evaluate(
+                    evaluator, score_game(descent.model, validation),
+                    validation)
+            results.append(result)
             if chain_warm:
                 prev_models = dict(descent.model.coordinates)
         return results
@@ -364,19 +394,169 @@ class GameEstimator:
             weights.append(float(cfg.optimizer.reg_weight))
         return name, base, weights
 
+    def _datasets_for(self, data: GameData, configs: dict,
+                      dataset_cache: dict) -> dict:
+        datasets = {}
+        for name, cfg in configs.items():
+            key = self._dataset_key(cfg)
+            if key not in dataset_cache:
+                dataset_cache[key] = self._build_dataset(data, cfg)
+            datasets[name] = dataset_cache[key]
+        return datasets
+
+    def _fit_fixed_grid(self, probe, data: GameData, validation,
+                        evaluator: Evaluator, dataset_cache) -> list:
+        """The vectorized fixed-effect grid: one `train_glm_grid` sweep
+        (the lanes share every X pass), then one batched scoring pass per
+        matrix — the training rows for each lane's objective, the
+        validation rows for its metric."""
+        from photon_tpu_torch.models.glm import (Coefficients,
+                                                 GeneralizedLinearModel,
+                                                 score_models)
+        from photon_tpu_torch.models.training import train_glm_grid
+        from photon_tpu_torch.ops.losses import loss_fns
+
+        name, base, weights = probe
+        ds = self._datasets_for(data, {name: base}, dataset_cache)[name]
+        norm = self._normalization_for(name, ds)
+        telemetry.count("game.grid_vectorized_lanes", len(weights))
+        batch = ds.batch(data.offsets)
+        grid = train_glm_grid(batch, self.task, base.optimizer, weights,
+                              variance=self.variance, normalization=norm,
+                              device=ds.device)
+        dev = ds.device
+        models = [GeneralizedLinearModel(Coefficients(
+            m.coefficients.means.to(dev),
+            None if m.coefficients.variances is None
+            else m.coefficients.variances.to(dev)), self.task)
+            for m, _ in grid]
+        # each lane's unregularized weighted training loss (what the
+        # descent's objective_history records), from one scoring pass
+        loss, _, _ = loss_fns(self.task)
+        margins = score_models(models, ds.X, batch.offsets)
+        objectives = torch.sum(batch.weights * loss(margins, batch.y),
+                               dim=1).cpu().tolist()
+        val_margins = None
+        if validation is not None:
+            val_margins = score_models(
+                models, validation.shards[base.feature_shard],
+                validation.offsets)
+        results = []
+        for i, (model, (_, res)) in enumerate(zip(models, grid)):
+            cfg_i = FixedEffectConfig(
+                base.feature_shard,
+                dataclasses.replace(base.optimizer, reg_weight=weights[i]))
+            game_model = GameModel(
+                {name: FixedEffectModel(model, base.feature_shard)},
+                self.task)
+            descent = CoordinateDescentResult(
+                model=game_model, objective_history=[objectives[i]],
+                coordinate_stats={name: [res]})
+            r = GameFitResult(game_model, descent, {name: cfg_i})
+            if val_margins is not None:
+                telemetry.count("game.validate_point")
+                r.validation_score = self._evaluate(
+                    evaluator, val_margins[i], validation)
+            results.append(r)
+        return results
+
+    def _fit_game_grid(self, lanes: dict, data: GameData, validation,
+                       evaluator: Evaluator, dataset_cache,
+                       coord_cache) -> list:
+        """The lane-axis GAME grid (`game.grid.fit_game_grid`): every grid
+        point a lane of one coordinate descent; validation scores every
+        lane in one pass per coordinate."""
+        from photon_tpu_torch.game.grid import fit_game_grid, lane_re_margins
+        from photon_tpu_torch.models.glm import _score_many
+
+        configs = self.coordinate_configs
+        datasets = self._datasets_for(data, configs, dataset_cache)
+        coords = self._build_coordinates(datasets, configs, coord_cache)
+        G = len(next(iter(lanes.values())))
+        telemetry.count("game.grid_vectorized_lanes", G)
+        outcome = fit_game_grid(
+            coords, lanes, data.y, data.weights, data.offsets, self.task,
+            update_sequence=self.update_sequence, n_sweeps=self.n_sweeps,
+            mesh=self.mesh)
+        val_scores = None
+        if validation is not None:
+            total = validation.offsets[None, :]
+            for name in outcome.lane_models[0].names():
+                cfg = configs[name]
+                Xv = validation.shards[cfg.feature_shard]
+                if isinstance(cfg, FixedEffectConfig):
+                    total = total + _score_many(outcome.stacked[name], Xv)
+                else:
+                    model0 = outcome.lane_models[0].coordinates[name]
+                    ids = model0.dense_ids(
+                        validation.entity_ids[cfg.entity_name])
+                    total = total + lane_re_margins(outcome.stacked[name],
+                                                    Xv, ids)
+            val_scores = total
+        results = []
+        for g in range(G):
+            configs_g = {
+                name: dataclasses.replace(
+                    cfg, optimizer=dataclasses.replace(
+                        cfg.optimizer, reg_weight=lanes[name][g]))
+                for name, cfg in configs.items()}
+            descent = CoordinateDescentResult(
+                model=outcome.lane_models[g],
+                objective_history=outcome.objective_histories[g],
+                coordinate_stats=outcome.coordinate_stats[g])
+            r = GameFitResult(outcome.lane_models[g], descent, configs_g)
+            if val_scores is not None:
+                telemetry.count("game.validate_point")
+                r.validation_score = self._evaluate(
+                    evaluator, val_scores[g], validation)
+            results.append(r)
+        return results
+
+    def evaluate_scores(self, evaluator: Evaluator, scores,
+                        validation: GameData) -> float:
+        """The validation metric of ``scores`` (the drivers report extra
+        evaluators on the best model through it)."""
+        return self._evaluate(evaluator, scores, validation)
+
+    def _evaluate(self, evaluator: Evaluator, scores,
+                  validation: GameData) -> float:
+        """The evaluator on the scores' device; a sharded one groups by
+        ``evaluator_entity`` (default: the first random-effect
+        coordinate's entity type), as the reference's per-entity
+        validation evaluators do."""
+        if not evaluator.needs_groups:
+            return evaluator.evaluate(scores, validation.y,
+                                      validation.weights)
+        entity = self.evaluator_entity
+        if entity is None:
+            for cfg in self.coordinate_configs.values():
+                if isinstance(cfg, RandomEffectConfig):
+                    entity = cfg.entity_name
+                    break
+        return evaluate_with_entity(evaluator, scores, validation.y,
+                                    validation.weights,
+                                    validation.entity_ids, entity)
+
     def best_model(self, results: list) -> GameFitResult:
-        """The result with the lowest final training objective (selection
-        by a validation metric waits for evaluation, ROADMAP item 7)."""
+        """Pick by validation metric in the evaluator's direction
+        (reference: GameTrainingDriver.selectBestModel); a result without
+        a validation score competes by its final training objective."""
+        evaluator = self.evaluator or default_evaluator(self.task)
         best = None
         for r in results:
-            obj = (r.descent.objective_history[-1]
-                   if r.descent.objective_history else float("inf"))
-            best_obj = (best.descent.objective_history[-1]
-                        if best is not None
-                        and best.descent.objective_history
-                        else float("inf"))
-            if best is None or obj < best_obj:
-                best = r
+            if r.validation_score is not None:
+                if best is None or evaluator.better_than(
+                        r.validation_score, best.validation_score):
+                    best = r
+            else:
+                obj = (r.descent.objective_history[-1]
+                       if r.descent.objective_history else float("inf"))
+                best_obj = (best.descent.objective_history[-1]
+                            if best is not None
+                            and best.descent.objective_history
+                            else float("inf"))
+                if best is None or obj < best_obj:
+                    best = r
         if best is None:
             raise ValueError("no fit results to select from")
         return best

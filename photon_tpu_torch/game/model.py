@@ -33,12 +33,27 @@ class FixedEffectModel:
         return self.model.score(X)
 
 
+def padded_coeffs(coefficients: torch.Tensor, dense_ids) -> torch.Tensor:
+    """Per-row coefficients: (E, d) → (n, d), or a grid's (G, E, d) lane
+    tables → (G, n, d); id E selects an appended zero row (the unseen
+    entity), the convention scoring and the incremental prior share
+    (reference: `_padded_coeffs`)."""
+    C = coefficients
+    zero = C.new_zeros(C.shape[:-2] + (1, C.shape[-1]))
+    ids = torch.as_tensor(np.asarray(dense_ids) if not isinstance(
+        dense_ids, torch.Tensor) else dense_ids, device=C.device).long()
+    return torch.cat([C, zero], dim=-2)[..., ids, :]
+
+
 def score_rows(X, coeff_rows: torch.Tensor) -> torch.Tensor:
-    """Rowwise margin x_i · c_i with a per-row coefficient vector (n, d)."""
+    """Rowwise margin x_i · c_i with per-row coefficients (n, d), or a
+    grid's (G, n, d) giving (G, n) lane margins."""
     if isinstance(X, SparseRows):
-        gathered = torch.gather(coeff_rows, 1, X.indices.long())
-        return torch.einsum("nk,nk->n", X.values, gathered)
-    return torch.einsum("nd,nd->n", X, coeff_rows)
+        idx = X.indices.long().expand(coeff_rows.shape[:-1]
+                                      + X.indices.shape[-1:])
+        gathered = torch.gather(coeff_rows, -1, idx)
+        return torch.einsum("nk,...nk->...n", X.values, gathered)
+    return torch.einsum("nd,...nd->...n", X, coeff_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,10 +97,7 @@ class RandomEffectModel:
 
     def coeffs_for(self, dense_ids) -> torch.Tensor:
         """(n, d) per-row coefficients; id == E selects the zero row."""
-        C = self.coefficients
-        padded = torch.cat([C, C.new_zeros((1, C.shape[1]))])
-        ids = torch.as_tensor(np.asarray(dense_ids), device=C.device)
-        return padded[ids.long()]
+        return padded_coeffs(self.coefficients, dense_ids)
 
     def score(self, X, dense_ids) -> torch.Tensor:
         return score_rows(X, self.coeffs_for(dense_ids))

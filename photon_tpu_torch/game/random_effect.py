@@ -21,6 +21,10 @@ read back and scattered on the host. ``pipeline_depth`` is accepted and
 changes nothing (the reference's pipelined loop is bit-identical to this
 one at every depth); ``straggler_budget`` (the compacted re-solve of
 unconverged lanes) is not ported yet.
+
+A regularization grid over the GAME model (`game.grid`) solves a bucket
+with G lanes per entity (`solve_block_grid`): lanes = (entity × grid
+point), each entity's rows shared by its G lanes.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_tpu_torch.data.dataset import GLMBatch
 from photon_tpu_torch.game.dataset import RandomEffectDataset, REBlock
 from photon_tpu_torch.game.model import RandomEffectModel
 from photon_tpu_torch.models.training import (_lane_result, _lane_solve,
@@ -50,9 +55,11 @@ from photon_tpu_torch.optim.tracker import OptResult
 LANE_ELEMS = 1 << 24
 
 
-def lane_chunk(m: int, e_real: int) -> int:
-    """Entities per lock-step solve for a bucket of height ``m``."""
-    return max(1, min(e_real, LANE_ELEMS // max(m, 1)))
+def lane_chunk(m: int, e_real: int, lanes_per_entity: int = 1) -> int:
+    """Entities per lock-step solve for a bucket of height ``m`` whose
+    entities take ``lanes_per_entity`` lanes each (a grid's G: the chunk
+    shrinks by G, as the reference's ``cap // G``)."""
+    return max(1, min(e_real, LANE_ELEMS // max(m * lanes_per_entity, 1)))
 
 
 def align_entity_priors(prior: RandomEffectModel, entity_keys, d: int):
@@ -205,6 +212,50 @@ class RandomEffectCoordinate:
                else torch.cat(variances) if len(variances) > 1
                else variances[0])
         return res, var
+
+    def solve_block_grid(self, block: REBlock, offsets_lanes, W0, l2s,
+                         l1s, config: OptimizerConfig):
+        """A regularization grid's solve of one bucket (`game.grid`):
+        every (entity × grid point) a lane, entity-major (lane e·G + g),
+        in chunks of `lane_chunk` (m, E, G) entities, each chunk one
+        lock-step solve whose lanes share their entity's rows
+        (`EntityBlocks.grid`). ``offsets_lanes``: the (n, G) per-lane
+        offsets; ``W0``: (d, E·G) lane-minor starts; ``l2s`` / ``l1s``:
+        the (G,) lane weights (``l1s`` None off OWL-QN); ``config`` the
+        weight-normalized one of `lane_weight_arrays`. Returns lane-minor
+        (w (d, E·G), variances (d, E·G) or None, converged, failed,
+        iterations (E·G,)) on the device."""
+        ds = self.dataset
+        dev = block.y.device
+        obj = make_objective(self.task, self.config, ds.dim, device=dev)
+        G = int(l2s.shape[0])
+        E, m = block.n_entities, block.m
+        X = block.lanes.grid(G)
+        rows = block.row_index.t()  # (m, E)
+        y, wts = block.y.t(), block.weights.t()
+        step = lane_chunk(m, E, G)
+        parts = []
+        for lo in range(0, E, step):
+            hi = min(E, lo + step)
+
+            def per_lane(t):  # (m, e) entity columns -> (m, e·G) lanes
+                return t[:, lo:hi, None].expand(m, hi - lo, G).reshape(m, -1)
+
+            sub = GLMBatch(X.lanes(lo, hi), per_lane(y), per_lane(wts),
+                           offsets_lanes[rows[:, lo:hi]].reshape(m, -1))
+            l2 = l2s.repeat(hi - lo)
+            l1 = None if l1s is None else l1s.repeat(hi - lo)
+            res = _lane_solve(obj, sub, W0[:, lo * G:hi * G].contiguous(),
+                              l2, l1, config)
+            var = compute_variances_lanes(obj, l2, res.w, sub, self.variance)
+            parts.append((res.w, var, res.converged, res.failed,
+                          res.iterations))
+        if len(parts) == 1:
+            return parts[0]
+        w, var, conv, fail, its = zip(*parts)
+        return (torch.cat(w, dim=1),
+                None if var[0] is None else torch.cat(var, dim=1),
+                torch.cat(conv), torch.cat(fail), torch.cat(its))
 
     def train(self, offsets_full,
               warm_start: Optional[RandomEffectModel] = None,

@@ -1,5 +1,6 @@
 """GLM containers (port of the `Coefficients`/`GeneralizedLinearModel`
-part of `photon_tpu/models/glm.py`).
+part of `photon_tpu/models/glm.py`, with `chunked_margins` and the
+batched `score_models`).
 
 User-facing coefficients are in ORIGINAL column order; a `BlockedEllRows`
 design matrix (or a chunk ladder) works in its permuted space, so scoring
@@ -12,7 +13,8 @@ from typing import Optional
 
 import torch
 
-from photon_tpu_torch.data.matrix import BlockedEllRows, matvec
+from photon_tpu_torch.data.matrix import (BlockedEllRows, SparseRows,
+                                          matvec, matvec_lanes)
 from photon_tpu_torch.ops.losses import TaskType, mean_fn
 
 
@@ -64,3 +66,27 @@ def chunked_margins(X, w: torch.Tensor, offsets=0.0) -> torch.Tensor:
     data = make_chunked_batch(X, torch.zeros(X.n_real))
     parts = [matvec(b.X, w) for _, b in data.iter_device(device=w.device)]
     return torch.cat(parts)[:X.n_real] + offsets
+
+
+def _score_many(W: torch.Tensor, X, offsets=0.0) -> torch.Tensor:
+    """(G, n) margins of G lane-major coefficient rows W (G, d), original
+    column order: one lane pass over X — a `BlockedEllRows` takes
+    ``W[:, perm_cols]`` lane-minor (its hot product one (n, d_sel) ×
+    (d_sel, G) product, its tail one G-lane kernel launch), dense X one
+    (n, d) × (d, G) product."""
+    W = W.to(torch.float32)
+    Wt = (X.from_model_space(W.t()) if isinstance(X, BlockedEllRows)
+          else W.t().contiguous())
+    return matvec_lanes(X, Wt).t() + offsets
+
+
+def score_models(models, X, offsets=0.0) -> torch.Tensor:
+    """(G, n) raw margins of G same-shape models over one design matrix in
+    one lane pass (reference: `score_models`, the scoring side of a
+    `train_glm_grid` sweep), on X's device."""
+    dev = (X.dense if isinstance(X, BlockedEllRows)
+           else X.values if isinstance(X, SparseRows) else X).device
+    W = torch.stack([m.coefficients.means.to(dev) for m in models])
+    if not isinstance(offsets, (int, float)):
+        offsets = torch.as_tensor(offsets).to(dev, torch.float32)
+    return _score_many(W, X, offsets)

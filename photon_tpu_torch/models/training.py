@@ -1,7 +1,7 @@
 """Single-device GLM training (port of `make_objective`, `solve`,
 `_permuted_prep`, `_init_w0`, the one-device `train_glm`, and the
-reg-weight grid `lane_weight_arrays` / `train_glm_grid` of
-`photon_tpu/models/training.py`).
+reg-weight grid `lane_weight_arrays` / `train_glm_grid` /
+`evaluate_glm_grid` of `photon_tpu/models/training.py`).
 
 Reference parity: com.linkedin.photon.ml.optimization.game.
 SingleNodeOptimizationProblem. The solve is the margin-cached L-BFGS
@@ -661,3 +661,25 @@ def train_glm_grid(
             Coefficients(W[i], None if V is None else V[i]), task)
         out.append((model, lane))
     return out
+
+
+def evaluate_glm_grid(grid, batch: GLMBatch, evaluator=None):
+    """Validation model selection over a `train_glm_grid` result
+    (reference: `evaluate_glm_grid`, GameEstimator's pick by
+    ``Evaluator.better_than``). Scoring, the one pass over X, is one lane
+    pass for every lane (`models.glm.score_models`) on the batch's
+    device; each lane's metric then runs there. Returns ``(best_index,
+    [score per lane])``."""
+    from photon_tpu_torch.evaluation.evaluator import default_evaluator
+    from photon_tpu_torch.models.glm import score_models
+
+    task = grid[0][0].task
+    evaluator = evaluator if evaluator is not None else default_evaluator(task)
+    margins = score_models([m for m, _ in grid], batch.X, batch.offsets)
+    scores = [evaluator.evaluate(margins[i], batch.y, batch.weights)
+              for i in range(len(grid))]
+    best = 0
+    for i in range(1, len(scores)):
+        if evaluator.better_than(scores[i], scores[best]):
+            best = i
+    return best, scores

@@ -10,7 +10,8 @@ with priors and with SIMPLE and FULL variances, on dense and sparse
 blocks; `GameEstimator.fit` over two sweeps (objective history, the fixed
 coefficients and every random-effect table) for logistic, linear and
 Poisson regression; locked and incremental coordinates; a config grid with
-warm starts; an unseen entity scoring zero; and every path that is not
+warm starts; an unseen entity scoring zero; a fit with validation data
+and a cold (vectorized) reg-weight grid; and every path that is not
 ported raising with its ROADMAP item. Loss histories within rtol 1e-5
 with equal iterations, coefficients within rtol 1e-4 (atol 1e-5),
 variances within rtol 1e-4. The port runs on the CPU.
@@ -545,15 +546,22 @@ def test_unseen_entity_scores_zero():
 
 # --------------------------------------------------------- what raises
 def test_paths_not_ported_raise_with_their_item():
+    """Meshes (item 10) and the straggler re-solve (item 6) still raise;
+    validation data (item 7) and the cold reg-weight grid that the
+    reference vectorizes (item 6) now fit, held against the reference."""
     ref, port = game_pair(raw_game(n=200))
-    _, pest = estimator_pair(n_sweeps=1)
+    rest, pest = estimator_pair(n_sweeps=1)
 
     def raises(item, fn):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue A item {item}\\b"):
             fn()
 
-    raises(7, lambda: pest.fit(port, validation=port))
+    (rv,) = rest.fit(ref, validation=ref)
+    (pv,) = pest.fit(port, validation=port)
+    assert_same_fit(rv, pv)
+    np.testing.assert_allclose(pv.validation_score, rv.validation_score,
+                               rtol=0, atol=1e-5)
     raises(10, lambda: dataclasses.replace(pest, mesh=object()).fit(port))
 
     # a host-chunked fixed shard (item 5, now ported) fits, as the same
@@ -571,14 +579,22 @@ def test_paths_not_ported_raise_with_their_item():
                                                straggler_budget=2)
     raises(6, lambda: dataclasses.replace(
         pest, coordinate_configs=straggle).fit(port))
-    # a reg-weight grid without warm starts: the reference vectorizes it
-    base = pest.coordinate_configs
-    grid = [{"fixed": dataclasses.replace(
-        base["fixed"], optimizer=dataclasses.replace(
-            base["fixed"].optimizer, reg_weight=w))} for w in (0.5, 1.0)]
+    # a reg-weight grid without warm starts: the reference vectorizes it,
+    # every grid point a lane of one coordinate descent
+    grids = []
+    for est in (rest, pest):
+        base = est.coordinate_configs
+        grids.append([{"fixed": dataclasses.replace(
+            base["fixed"], optimizer=dataclasses.replace(
+                base["fixed"].optimizer, reg_weight=w))} for w in (0.5, 1.0)])
+    rcold = dataclasses.replace(rest, warm_start=False)
     cold = dataclasses.replace(pest, warm_start=False)
-    assert cold.would_vectorize(grid)
-    raises(6, lambda: cold.fit(port, config_grid=grid))
+    assert cold.would_vectorize(grids[1])
+    rres = rcold.fit(ref, config_grid=grids[0])
+    pres = cold.fit(port, config_grid=grids[1])
+    assert len(pres) == 2
+    for rr, pr in zip(rres, pres):
+        assert_same_fit(rr, pr)
 
 
 @pytest.mark.parametrize("case", ["warm", "cold", "forced", "off", "skewed",
