@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's GAME serving path, its sparse logistic
 GLM training path, its dense OWL-QN / TRON training path, its
 reg-weight grids, its streamed (out-of-device-memory) training, its
-GAME training and its validation-driven model selection (the
-vectorized fixed-effect and GAME grids) on one GPU.
+GAME training, its validation-driven model selection (the vectorized
+fixed-effect and GAME grids) and its drivers (Avro in, model directory
+and scored Avro out) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -209,6 +210,28 @@ GK. GAME through the kernels, one sweep, random effects with the serving
    random effect's entity by entity, all but at most 0.1% of them (each
    entity decides its own steps and stop, and a few in 10^5 decide on
    the rounding their offsets differ by; they are counted).
+DRV. the drivers on local Avro (a temporary directory beside this script):
+   (a) benches/game_10m.py's widths and settings at 2^18 training and
+   2^16 validation rows (GM's planted model; written as deflate Avro by
+   a vectorized encoder through the port's `AvroBlockWriter`, its first
+   block held against `write_datum`) through `run_indexing`,
+   `run_training` (a 2-point grid over the per-user L2, 2.5 and 5.0;
+   validation with AUC and SHARDED_AUC by user; ``output_mode="ALL"``)
+   and `run_scoring` of ``best_model/`` on the validation file, the
+   kernels' launch counts reset just before the indexing and read just
+   after the scoring: each driver's phase seconds, read rows/s, model
+   directory bytes, peak device memory; held: ``best_model/`` loads back
+   bit for bit, the records of ``scores.avro`` equal the scores
+   returned, the scoring driver's AUC within 1e-6 of the estimator's
+   validation AUC and within 1e-4 of a numpy f64 rank sum of the best
+   model's margins, every point's ``training_manifest.json`` the row
+   manifest (ROADMAP §C9); (b) a fixed-effect-only job over one bag of
+   32 zipf(1.4) names a row out of 2^16 (2^15 rows, so a `SparseRows`
+   shard) trained twice: equal coefficient records; (c) the `SparseRows`
+   Xᵀr at T2's widths (2^19 rows): 3 calls equal bit for bit, within
+   1e-5 of the largest output of a numpy f64 Xᵀr, its ms a call and its
+   plan's build seconds beside the parent's ``index_add_`` form (its
+   ms, its error and how many outputs its own calls disagree on).
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
@@ -216,7 +239,8 @@ their launches in the grid's solves under ``grid_launches``; every
 entry its launches in GM's fits and GK's default-route fits under
 ``gm_launches`` and ``gk_launches``, in phase S's main-path solves under
 ``s_launches``, in GS's fits under ``gs_launches``, in E's fit under
-``e_launches`` and in GG's fits under ``gg_launches``), the
+``e_launches``, in GG's fits under ``gg_launches`` and in DRV (a)
+under ``drv_launches``), the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
@@ -285,6 +309,15 @@ GG_USER_L2, GG_VAL_ROWS, GG_SEED = [1.25, 2.5, 5.0, 10.0], 1 << 20, 202
 # GK's ladder
 S_CHUNK, S_DENSE_CHUNK, GS_CHUNK, GK_S_CHUNK = 1 << 18, 1 << 16, 1 << 20, \
     1 << 17
+# the drivers on local Avro: GM's widths at 2^18 training and 2^16
+# validation rows (a pure-Python Avro decode is ~100 µs a row), a grid
+# over the per-user L2 weight; (b) a wide sparse fixed effect; (c) the
+# SparseRows Xᵀr at T2's widths
+DRV_ROWS, DRV_VAL_ROWS, DRV_SEED, DRV_BLOCK = 1 << 18, 1 << 16, 303, 4096
+DRV_USER_L2 = [2.5, 5.0]
+DRV_WIDE_ROWS, DRV_WIDE_D, DRV_WIDE_K, DRV_WIDE_ITERS = 1 << 15, 1 << 16, \
+    32, 20
+DRV_XTR_ROWS = 1 << 19
 
 
 def log(*a) -> None:
@@ -3674,6 +3707,396 @@ def phase_game_kernels(args, dev, gpu) -> dict:
     return launches
 
 
+# ------------------------------------------ phase DRV: the drivers on Avro
+def encode_examples(y, ids, bags) -> tuple:
+    """TrainingExampleAvro record bytes of rows, vectorized (the scoring
+    driver's block-encoder idiom): the response, null offset and weight,
+    the string columns ``ids`` (uid then the entity ids, each the union's
+    string branch) and the bags, each ``(names, X)``: one (name, "", x)
+    NameTermValue per column of X. Returns (payload, record offsets)."""
+    import io
+
+    from photon_tpu_torch.data.avro_io import (_write_long, scatter_ragged,
+                                               varint_bytes)
+
+    n = int(y.shape[0])
+    cols = []
+    for col in ids:
+        enc = np.char.encode(np.asarray(col, np.str_), "utf-8")
+        bmat = np.frombuffer(enc.tobytes(), np.uint8).reshape(
+            n, enc.dtype.itemsize)
+        ln = np.char.str_len(enc).astype(np.int64)
+        cols.append((bmat, ln) + varint_bytes(ln))
+    tmpls = []
+    for names, X in bags:
+        t = io.BytesIO()
+        _write_long(t, len(names))
+        slots = []
+        for name in names:
+            raw = name.encode("utf-8")
+            _write_long(t, len(raw))
+            t.write(raw + b"\x00")  # the name, then the empty term
+            slots.append(t.tell())
+            t.write(bytes(8))
+        t.write(b"\x00")
+        tmpls.append((np.frombuffer(t.getvalue(), np.uint8),
+                      np.asarray(slots), X))
+    rec_len = 10 + sum(1 + vl + ln for _, ln, _, vl in cols) \
+        + sum(len(tm) for tm, _, _ in tmpls)
+    off = np.concatenate([[0], np.cumsum(rec_len)[:-1]])
+    buf = np.zeros(int(rec_len.sum()), np.uint8)
+    b8 = np.arange(8)
+    buf[off[:, None] + b8] = np.ascontiguousarray(
+        y, "<f8").view(np.uint8).reshape(n, 8)
+    pos = off + 10  # the offset and weight unions' null branch: 0, 0
+    for bmat, ln, vmat, vl in cols:
+        buf[pos] = 2  # union branch 1, zigzag
+        scatter_ragged(buf, pos + 1, vmat, vl)
+        scatter_ragged(buf, pos + 1 + vl, bmat, ln)
+        pos = pos + 1 + vl + ln
+    for tm, slots, X in tmpls:
+        buf[pos[:, None] + np.arange(len(tm))] = tm
+        vb = np.ascontiguousarray(X, "<f8").view(np.uint8).reshape(
+            n, len(slots), 8)
+        buf[pos[:, None, None] + slots[None, :, None] + b8] = vb
+        pos = pos + len(tm)
+    return buf.tobytes(), off
+
+
+def write_examples(path, schema, y, ids, bags, block: int = DRV_BLOCK):
+    """Rows as a deflate Avro container through the port's
+    `AvroBlockWriter`, ``block`` records a block; the first block's bytes
+    are held against the port's record encoder (`write_datum`)."""
+    import io
+
+    from photon_tpu_torch.data.avro_io import (AvroBlockWriter,
+                                               parse_schema, write_datum)
+
+    parsed = parse_schema(schema)
+    with AvroBlockWriter(path, schema, codec="deflate") as w:
+        for lo in range(0, len(y), block):
+            hi = min(lo + block, len(y))
+            payload, _ = encode_examples(
+                y[lo:hi], [c[lo:hi] for c in ids],
+                [(names, X[lo:hi]) for names, X in bags])
+            if lo == 0:
+                ref = io.BytesIO()
+                fields = [f["name"] for f in schema["fields"]]
+                for i in range(hi):
+                    rec = {"response": float(y[i]), "offset": None,
+                           "weight": None}
+                    rec.update({f: str(c[i]) for f, c in
+                                zip(fields[3:3 + len(ids)], ids)})
+                    rec.update({f: [{"name": nm, "term": "",
+                                     "value": float(X[i, j])}
+                                    for j, nm in enumerate(names)]
+                                for f, (names, X) in
+                                zip(fields[3 + len(ids):], bags)})
+                    write_datum(ref, parsed, rec)
+                if ref.getvalue() != payload:
+                    raise AssertionError("DRV: the vectorized Avro encoder "
+                                         "differs from write_datum")
+            w.write_block(hi - lo, payload)
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_drivers(args, dev, gpu) -> dict:
+    """DRV: the drivers end to end on local Avro — (a) indexing, training
+    (a 2-point per-user L2 grid, validation, ALL mode) and scoring at GM's
+    widths, (b) a wide sparse fixed effect trained twice, (c) the
+    SparseRows Xᵀr at T2's widths; returns the kernels' launches in (a)."""
+    import tempfile
+
+    import torch
+
+    from photon_tpu_torch import drivers as D
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data import matrix as PM
+    from photon_tpu_torch.data.avro_io import read_avro
+    from photon_tpu_torch.data.ingest import training_example_schema
+    from photon_tpu_torch.data.model_io import load_game_model
+    from photon_tpu_torch.drivers.index import IndexingParams
+    from photon_tpu_torch.game.model import FixedEffectModel
+    from photon_tpu_torch.game.scoring import score_game
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_drv", dir=here) as root:
+        # (a) GM's widths, cut in depth
+        t0 = time.perf_counter()
+        seed = args.seed + DRV_SEED
+        tr = game_10m_data(seed, DRV_ROWS)
+        va = game_10m_data(seed + 1, DRV_VAL_ROWS, model_seed=seed)
+        schema = training_example_schema(
+            feature_bags=("global", "perUser", "perItem"),
+            entity_fields=("userId", "itemId"))
+        names = ([f"f{j}" for j in range(GM_D_FIXED)],
+                 [f"u{j}" for j in range(GM_D_RE)],
+                 [f"i{j}" for j in range(GM_D_RE)])
+        for path, (Xf, Xu, Xi, uid, iid, y) in (("train.avro", tr),
+                                                ("val.avro", va)):
+            n = len(y)
+            write_examples(os.path.join(root, path), schema, y,
+                           [np.char.add("r", np.arange(n).astype(str)),
+                            np.char.add("u", uid.astype(str)),
+                            np.char.add("i", iid.astype(str))],
+                           list(zip(names, (Xf, Xu, Xi))))
+        log(f"DRV (a): {DRV_ROWS} training and {DRV_VAL_ROWS} validation "
+            f"rows written as deflate Avro in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(os.path.join(root, 'train.avro')) / 1e6:.1f}"
+            f" MB and "
+            f"{os.path.getsize(os.path.join(root, 'val.avro')) / 1e6:.1f} "
+            "MB; records held against write_datum)")
+        shards = {"global": {"bags": ["global"], "has_intercept": True},
+                  "perUser": {"bags": ["perUser"], "has_intercept": False},
+                  "perItem": {"bags": ["perItem"], "has_intercept": False}}
+        coords = {
+            "fixed": {"feature_shard": "global", "reg_type": "l2",
+                      "reg_weight": GM_FIXED[1], "max_iters": GM_FIXED[0]},
+            "per_user": {"feature_shard": "perUser", "entity_name":
+                         "userId", "reg_type": "l2", "reg_weight":
+                         GM_RE[1], "max_iters": GM_RE[0],
+                         "reg_weights": DRV_USER_L2},
+            "per_item": {"feature_shard": "perItem", "entity_name":
+                         "itemId", "reg_type": "l2", "reg_weight":
+                         GM_RE[1], "max_iters": GM_RE[0]}}
+        train_path = os.path.join(root, "train.avro")
+        val_path = os.path.join(root, "val.avro")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        ix = D.run_indexing(IndexingParams(train_path,
+                                           os.path.join(root, "maps"),
+                                           shards))
+        index_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = D.run_training(D.TrainingParams(
+            train_path=train_path, validation_path=val_path,
+            output_dir=os.path.join(root, "train"), feature_shards=shards,
+            coordinates=coords, entity_fields=["userId", "itemId"],
+            n_sweeps=GM_SWEEPS, output_mode="ALL",
+            evaluators=["AUC", "SHARDED_AUC"], evaluator_entity="userId",
+            index_map_dir=os.path.join(root, "maps")), device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sc = D.run_scoring(D.ScoringParams(
+            model_dir=out.model_dir, data_path=val_path,
+            output_dir=os.path.join(root, "score"), feature_shards=shards,
+            entity_fields=["userId", "itemId"], evaluators=["AUC"]),
+            device=dev)
+        score_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        rows_read = DRV_ROWS + DRV_VAL_ROWS
+        log(f"DRV (a): indexing {index_s:.3f} s ({ix.sizes}); training "
+            f"{train_s:.3f} s, phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in out.timings.items())
+            + f" s; read {rows_read / out.timings['read']:.6g} rows/s; "
+            f"scoring {score_s:.3f} s, phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sc.timings.items())
+            + f" s, read {DRV_VAL_ROWS / sc.timings['read']:.6g} rows/s; "
+            f"best_model/ {dir_bytes(out.model_dir)} bytes, models/ "
+            f"{dir_bytes(os.path.join(root, 'train', 'models'))} bytes; "
+            f"peak device memory {peak / 1e9:.3f} GB; kernel launches "
+            f"{launches}  [{gpu}]")
+        for r in out.results:
+            log(f"DRV (a): per-user L2 "
+                f"{r.configs['per_user'].optimizer.reg_weight}: validation "
+                f"AUC {r.validation_score:.8g}; objective history "
+                + ", ".join(f"{v:.8g}"
+                            for v in r.descent.objective_history))
+        log(f"DRV (a): validation metrics of the best point "
+            f"{out.validation_metrics}; scoring driver metrics "
+            f"{sc.metrics}")
+
+        # holds
+        best = out.best.model
+        loaded, _ = load_game_model(out.model_dir, device=dev)
+        for name, cm in best.coordinates.items():
+            lm = loaded[name]
+            if isinstance(cm, FixedEffectModel):
+                same = torch.equal(cm.model.coefficients.means,
+                                   lm.model.coefficients.means)
+            else:
+                same = (torch.equal(cm.coefficients, lm.coefficients)
+                        and list(cm.entity_keys) == list(lm.entity_keys))
+            if not same:
+                raise AssertionError(f"DRV (a): best_model/{name} does not "
+                                     "load back bit for bit")
+        rec = np.asarray([r["predictionScore"]
+                          for r in read_avro(sc.output_path)])
+        if not np.array_equal(rec, sc.scores):
+            raise AssertionError("DRV (a): scores.avro differs from "
+                                 "ScoringOutput.scores")
+        gap = abs(sc.metric - out.best.validation_score)
+        if gap > 1e-6:
+            raise AssertionError(f"DRV (a): the scoring driver's AUC "
+                                 f"{sc.metric} is {gap:.3g} from the "
+                                 f"estimator's {out.best.validation_score}")
+        # the best model's margins on the validation rows, by the port's
+        # scoring, against a numpy f64 rank sum
+        from photon_tpu_torch.data.feature_bags import FeatureShardConfig
+        from photon_tpu_torch.data.ingest import (GameDataConfig,
+                                                  read_game_data)
+
+        _, maps = load_game_model(out.model_dir, device="cpu")
+        vfull, _ = read_game_data(val_path, GameDataConfig(
+            shards={k: FeatureShardConfig.coerce(v)
+                    for k, v in shards.items()},
+            entity_fields=("userId", "itemId")),
+            index_maps={cm.feature_shard: maps[n]
+                        for n, cm in best.coordinates.items()})
+        margins = score_game(best, vfull.to_device(dev)).cpu().numpy()
+        np_auc = auc(margins.astype(np.float64), vfull.y)
+        if abs(np_auc - out.best.validation_score) > 1e-4:
+            raise AssertionError(f"DRV (a): best AUC "
+                                 f"{out.best.validation_score} vs numpy "
+                                 f"f64 {np_auc}")
+        best_manifest = json.load(open(os.path.join(
+            out.model_dir, "training_manifest.json")))
+        rows = json.load(open(os.path.join(root, "train", "models",
+                                           "models.json")))
+        for row in rows:
+            m = json.load(open(os.path.join(row["dir"],
+                                            "training_manifest.json")))
+            if m != best_manifest or set(m) != {"version", "n_rows",
+                                                "entities"}:
+                raise AssertionError(f"DRV (a): {row['dir']}'s training "
+                                     "manifest is not the row manifest "
+                                     "(ROADMAP §C9)")
+        log(f"DRV (a): best_model/ loads back bit for bit; scores.avro "
+            f"equals ScoringOutput.scores; scoring AUC {sc.metric:.8g} vs "
+            f"the estimator's {out.best.validation_score:.8g} "
+            f"(gap {gap:.3g}); numpy f64 AUC {np_auc:.8g}; "
+            f"{len(rows)} points' training manifests are the row "
+            f"manifest ({best_manifest['n_rows']} rows)")
+        del out, sc, best, loaded, vfull, tr, va
+        torch.cuda.empty_cache()
+
+        # (b) a wide sparse fixed effect through the driver, twice
+        rng = np.random.default_rng(seed + 2)
+        n = DRV_WIDE_ROWS
+        cols = (rng.zipf(T_ZIPF, size=(n, DRV_WIDE_K)) - 1) % DRV_WIDE_D
+        vals = rng.normal(size=(n, DRV_WIDE_K)).astype(np.float32)
+        w_true = (rng.normal(size=DRV_WIDE_D) / np.sqrt(
+            np.arange(1, DRV_WIDE_D + 1))).astype(np.float32)
+        y = planted_labels(rng, cols, vals, w_true)
+        wschema = training_example_schema(feature_bags=("wide",))
+        wide_path = os.path.join(root, "wide.avro")
+        # rows of distinct names: one bag of DRV_WIDE_K entries a row
+        t0 = time.perf_counter()
+        wnames = np.char.add("w", np.arange(DRV_WIDE_D).astype(str))
+        write_wide(wide_path, wschema, y, wnames[cols], vals)
+        write_s = time.perf_counter() - t0
+        coefs = []
+        for run in range(2):
+            builds = PM.segment_plan_builds()
+            t0 = time.perf_counter()
+            w = D.run_training(D.TrainingParams(
+                train_path=wide_path,
+                output_dir=os.path.join(root, f"wide{run}"),
+                feature_shards={"wide": {"bags": ["wide"],
+                                         "has_intercept": True}},
+                coordinates={"fixed": {
+                    "feature_shard": "wide", "reg_type": "l2",
+                    "reg_weight": 1.0, "max_iters": DRV_WIDE_ITERS,
+                    "tolerance": 0.0}},
+                n_sweeps=1), device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            builds = PM.segment_plan_builds() - builds
+            if builds < 1:
+                raise AssertionError("DRV (b): the wide shard's Xᵀr built "
+                                     "no segment plan (not SparseRows?)")
+            coefs.append(read_avro(os.path.join(
+                w.model_dir, "fixed", "coefficients.avro")))
+            d_wide = w.best.model["fixed"].model.coefficients.dim
+            log(f"DRV (b): run {run}: {wall:.3f} s, phases "
+                + ", ".join(f"{k} {v:.3f}" for k, v in w.timings.items())
+                + f" s; {d_wide} columns (SparseRows), {builds} segment "
+                f"plan builds; objective "
+                f"{w.best.descent.objective_history[-1]:.8g}")
+        if coefs[0] != coefs[1]:
+            apart = sum(a != b for a, b in zip(*coefs))
+            raise AssertionError(f"DRV (b): two runs' coefficient records "
+                                 f"differ ({apart} of {len(coefs[0])})")
+        log(f"DRV (b): {n} rows over {DRV_WIDE_D} zipf({T_ZIPF}) names, "
+            f"{DRV_WIDE_K} a row, written in {write_s:.1f} s; the two "
+            f"runs' {len(coefs[0])} coefficient records equal bit for bit")
+
+    # (c) the repaired SparseRows Xᵀr at T2's widths
+    ind, val, _ = sparse_problem(args.seed, DRV_XTR_ROWS)
+    r_np = np.random.default_rng(seed + 3).normal(
+        size=DRV_XTR_ROWS).astype(np.float32)
+    X = PM.SparseRows(torch.from_numpy(ind), torch.from_numpy(val),
+                      T_FEATURES).to(dev)
+    r = torch.from_numpy(r_np).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    PM.segment_plan(X)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    outs = [PM.rmatvec(X, r) for _ in range(3)]
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError("DRV (c): the SparseRows Xᵀr changed bits "
+                             "between calls")
+    want = np.bincount(ind.reshape(-1), weights=(
+        val.astype(np.float64) * r_np[:, None]).reshape(-1),
+        minlength=T_FEATURES)
+    got = outs[0].cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    if err > 1e-5:
+        raise AssertionError(f"DRV (c): Xᵀr off by {err:.3g} of the "
+                             "largest f64 output (limit 1e-5)")
+
+    def index_add_rmatvec():  # the parent's `_sparse_rmatvec`
+        contrib = (X.values.to(torch.float32) * r[:, None]).reshape(-1)
+        out = torch.zeros(X.n_features, dtype=torch.float32, device=dev)
+        return out.index_add_(0, X.indices.reshape(-1).long(), contrib)
+
+    old = [index_add_rmatvec() for _ in range(3)]
+    old_apart = max(int((old[0] != o).sum()) for o in old[1:])
+    old_err = float(np.abs(old[0].cpu().numpy() - want).max()
+                    / np.abs(want).max())
+    ms, old_ms = [], []
+    for _ in range(2):  # in turns: segments, index_add_, segments, ...
+        ms.append(events_ms(lambda: PM.rmatvec(X, r), cold=False,
+                            hide_host=False))
+        old_ms.append(events_ms(index_add_rmatvec, cold=False,
+                                hide_host=False))
+    log(f"DRV (c): SparseRows Xᵀr at {DRV_XTR_ROWS} rows x "
+        f"{ind.shape[1]} slots over {T_FEATURES} features: plan built in "
+        f"{plan_s:.3f} s ({len(X.plan.levels)} levels); 3 calls equal bit "
+        f"for bit, {err:.3g} of the largest f64 output from numpy; "
+        f"{min(ms):.4f} ms a call (events, warm; {ms}) against the "
+        f"index_add_ form's {min(old_ms):.4f} ({old_ms}), which gave "
+        f"{old_apart} outputs apart between its own 3 calls and is "
+        f"{old_err:.3g} from f64  [{gpu}]")
+    del X, r, outs, old
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_wide(path, schema, y, names, vals, block: int = DRV_BLOCK):
+    """One-bag rows of per-row names (an (n, k) string array) as a deflate
+    Avro container, through `write_avro`'s record encoder (the names vary
+    by row, so no template applies)."""
+    from photon_tpu_torch.data.avro_io import write_avro
+
+    write_avro(path, ({"response": float(y[i]), "offset": None,
+                       "weight": None, "uid": None,
+                       "wide": [{"name": str(nm), "term": "",
+                                 "value": float(v)}
+                                for nm, v in zip(names[i], vals[i])]}
+                      for i in range(len(y))), schema, block_records=block)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3722,6 +4145,8 @@ def main() -> int:
     gk = phase_game_kernels(args, dev, gpu)
     for name, c in phase_gk_ladder(args, dev, gpu).items():
         gs[name] = gs.get(name, 0) + c
+    torch.cuda.empty_cache()
+    drv = phase_drivers(args, dev, gpu)
     for entry in kernels:
         entry["gm_launches"] = gm.get(entry["name"], 0)
         entry["gk_launches"] = gk.get(entry["name"], 0)
@@ -3729,6 +4154,7 @@ def main() -> int:
         entry["gs_launches"] = gs.get(entry["name"], 0)
         entry["e_launches"] = e_launches.get(entry["name"], 0)
         entry["gg_launches"] = gg.get(entry["name"], 0)
+        entry["drv_launches"] = drv.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

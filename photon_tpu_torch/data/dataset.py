@@ -13,7 +13,7 @@ host in uniform row chunks (pinned, when a GPU is present, so an upload
 is an asynchronous DMA) and streams through the device one chunk at a
 time (`DeviceChunkRing`), so the device holds a couple of chunks plus
 solver state. Its mesh form waits for ROADMAP queue A item 10, the
-stall-driven prefetch controller for item 8.
+stall-driven prefetch controller for item 8b.
 """
 from __future__ import annotations
 
@@ -327,14 +327,14 @@ class DeviceChunkRing:
     pass abandoned part way resets the ring: the next starts at chunk 0
     with nothing stale in flight. ``prefetch`` is an int: the reference's
     stall-driven `AdaptivePrefetch` controller lives in
-    `data/ingest_plane.py`, which waits for ROADMAP queue A item 8."""
+    `data/ingest_plane.py`, which waits for ROADMAP queue A item 8b."""
 
     def __init__(self, batch: ChunkedBatch, device=None, prefetch=2):
         if hasattr(prefetch, "observe"):
             raise NotImplementedError(
                 "a stall-driven prefetch controller (AdaptivePrefetch, "
                 "data/ingest_plane.py) is not ported yet (ROADMAP queue A "
-                "item 8); pass an int depth")
+                "item 8b); pass an int depth")
         self.batch = batch
         self.depth = max(int(prefetch), 1)
         self.device = resolve_device(device)
@@ -393,6 +393,10 @@ class DeviceChunkRing:
         while len(self._slots) <= s:
             self._slots.append(self._new_slot())
         slot = self._slots[s]
+        if isinstance(slot.X, SparseRows):
+            # a `SparseRows` Xᵀr plans from the slot's contents, which this
+            # upload replaces: the next pass over the slot plans anew
+            object.__setattr__(slot.X, "plan", None)
         src = _leaves(self.batch.X.chunks[i]) + self.host_columns(i)
         dst = _leaves(slot.X) + [slot.y, slot.weights, slot.offsets]
         if not self._cuda:

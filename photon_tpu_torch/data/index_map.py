@@ -16,6 +16,11 @@ INTERCEPT_KEY = "(INTERCEPT)"
 _HEADER = "#photon_tpu-indexmap"
 
 
+def feature_key(name: str, term: str = "") -> str:
+    """Reference: Utils.getFeatureKey(name, term)."""
+    return f"{name}{DELIMITER}{term}" if term else name
+
+
 @dataclasses.dataclass
 class IndexMap:
     """Mutable-until-frozen key → id map.

@@ -25,6 +25,7 @@ f32, as the reference's ``preferred_element_type=float32``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -38,6 +39,9 @@ class SparseRows:
     indices: torch.Tensor  # (n, k) int32, padded with 0
     values: torch.Tensor  # (n, k) f32, padded with 0.0
     n_features: int
+    # the `SegmentPlan` of its Xᵀr, built on the first one (`segment_plan`)
+    plan: object = dataclasses.field(default=None, init=False,
+                                     compare=False, repr=False)
 
     @property
     def shape(self):
@@ -696,18 +700,16 @@ def _bell_rmatvec(X: BlockedEllRows, r: torch.Tensor,
 
 def _sparse_rmatvec(X: SparseRows, r: torch.Tensor,
                     square: bool = False) -> torch.Tensor:
-    """Xᵀr (or (X∘X)ᵀr) of padded COO rows: each slot's product added into
-    its column (``index_add_``, the reference's segment sum); r: (n,) or
-    (n, G)."""
-    v = X.values.to(torch.float32)
+    """Xᵀr (or (X∘X)ᵀr) of padded COO rows, r (n,) or (n, G): each live
+    slot's product in column order (the matrix's `SegmentPlan`), summed
+    per column by `segment_sums` — no atomic add, so the same bits on
+    every run."""
+    plan = segment_plan(X)
+    v = X.values.reshape(-1).index_select(0, plan.src).to(torch.float32)
     if square:
         v = v * v
-    lanes = tuple(r.shape[1:])
-    contrib = (v[..., None] * r[:, None, :] if lanes
-               else v * r[:, None]).reshape((-1,) + lanes)
-    out = torch.zeros((X.n_features,) + lanes, dtype=torch.float32,
-                      device=r.device)
-    return out.index_add_(0, X.indices.reshape(-1).long(), contrib)
+    rr = r.index_select(0, plan.rows)
+    return segment_sums(plan, v[:, None] * rr if r.dim() == 2 else v * rr)
 
 
 def matvec(X, w: torch.Tensor) -> torch.Tensor:
@@ -891,6 +893,116 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return _tail_rowsum(data, bounds)
 
 
+# ------------------------------------------------ SparseRows column sums
+# A column's sorted slots are summed in chunks of this many: inside a
+# chunk a segmented scan adds only slots of one column (a tree of adds, so
+# no column's sum cancels against another's — a cumulative sum over T2's
+# 17.3M slots would, and so would a difference of prefix sums inside a
+# chunk), and a column whose run crosses chunks sums its chunk partials
+# the same way at the next level, until one is left.
+_SEG_CHUNK = 256
+_SEGMENT_PLAN_BUILDS = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """The column sums of a `SparseRows` matrix, planned once: its live
+    slots (value ≠ 0, so padding never touches column 0) sorted by column,
+    stably, and the levels that sum each column's run. Indices are int32."""
+
+    src: torch.Tensor  # (L,) flat slot of each live slot, in column order
+    rows: torch.Tensor  # (L,) its row
+    # per level: (padded length, its sorted columns as (·, _SEG_CHUNK)
+    # padded with -1, the last position of each piece (a column's run
+    # inside one chunk), the pieces that complete their column, those
+    # columns, the pieces carried to the next level)
+    levels: tuple
+    n_features: int
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32)
+
+
+def _plan_levels(keys: torch.Tensor) -> tuple:
+    """The levels of sorted column ``keys`` (int64): each cuts every
+    column's run at chunk bounds into pieces; a column with one piece is
+    done, the pieces of the others are the next level's slots."""
+    C = _SEG_CHUNK
+    levels = []
+    while keys.shape[0]:
+        L = int(keys.shape[0])
+        padded = -(-L // C) * C
+        last = torch.arange(L, device=keys.device) % C == C - 1
+        last[-1] = True
+        last[:-1] |= keys[:-1] != keys[1:]
+        ends = torch.nonzero(last).squeeze(1)
+        pk = keys[ends]
+        alone = torch.ones_like(last[:pk.shape[0]])
+        alone[1:] &= pk[1:] != pk[:-1]
+        alone[:-1] &= pk[:-1] != pk[1:]
+        done = torch.nonzero(alone).squeeze(1)
+        carry = torch.nonzero(~alone).squeeze(1)
+        grid = torch.full((padded,), -1, dtype=torch.int32,
+                          device=keys.device)
+        grid[:L] = keys
+        levels.append((padded, grid.reshape(-1, C), _i32(ends), _i32(done),
+                       _i32(pk[done]), _i32(carry)))
+        keys = pk[carry]
+    return tuple(levels)
+
+
+def segment_plan(X: SparseRows) -> SegmentPlan:
+    """``X``'s `SegmentPlan`, built on the first call for this matrix
+    object (on its device) and kept with it."""
+    global _SEGMENT_PLAN_BUILDS
+    if X.plan is None:
+        _, k = X.indices.shape
+        live = torch.nonzero(X.values.reshape(-1) != 0).squeeze(1)
+        keys, order = torch.sort(X.indices.reshape(-1).long()[live],
+                                 stable=True)
+        src = live[order]
+        object.__setattr__(X, "plan", SegmentPlan(
+            _i32(src), _i32(torch.div(src, k, rounding_mode="floor")),
+            _plan_levels(keys), X.n_features))
+        _SEGMENT_PLAN_BUILDS += 1
+    return X.plan
+
+
+def segment_plan_builds() -> int:
+    """How many `SegmentPlan`s this process has built."""
+    return _SEGMENT_PLAN_BUILDS
+
+
+def segment_sums(plan: SegmentPlan, x: torch.Tensor) -> torch.Tensor:
+    """Per-column sums of ``x`` (L,) or (L, G), f32 in the plan's slot
+    order: (n_features,) or (n_features, G), zeros where a column has no
+    live slot. Each level scans its chunks (log2 `_SEG_CHUNK` passes, each
+    adding a slot's partial into the slot ``off`` after it where both hold
+    one column), so every sum is a fixed tree of adds of one column's
+    values: the same bits on every run."""
+    C = _SEG_CHUNK
+    lanes = tuple(x.shape[1:])
+    tail = (1,) * len(lanes)
+    out = torch.zeros((plan.n_features,) + lanes, dtype=torch.float32,
+                      device=x.device)
+    for padded, keys, ends, done, cols, carry in plan.levels:
+        if padded > x.shape[0]:
+            x = torch.cat([x, x.new_zeros((padded - x.shape[0],) + lanes)])
+        x = x.reshape((-1, C) + lanes)
+        off = 1
+        while off < C:
+            same = (keys[:, off:] == keys[:, :-off]).reshape(
+                (keys.shape[0], C - off) + tail)
+            x = torch.cat([x[:, :off], x[:, off:] + torch.where(
+                same, x[:, :-off], 0.0)], dim=1)
+            off *= 2
+        pieces = x.reshape((-1,) + lanes).index_select(0, ends)
+        out[cols] = pieces.index_select(0, done)
+        x = pieces.index_select(0, carry)
+    return out
+
+
 # ------------------------------------------------ per-entity blocks
 def _column_segments(indices: torch.Tensor, n_features: int) -> tuple:
     """The plan of a sparse entity block's column sums: each lane's
@@ -1043,6 +1155,62 @@ def next_pow2(x: int, floor: int = 2) -> int:
     while m < x:
         m *= 2
     return m
+
+
+def quantize_rows(n: int, quantum: int) -> int:
+    """Smallest multiple of ``quantum`` ≥ n (≥ quantum) — the linear rung of
+    the height ladder (the scoring driver's chunks, which cluster around
+    one chunk size); open-ended heights bucket by `next_pow2`."""
+    q = int(quantum)
+    return max((max(int(n), 1) + q - 1) // q * q, q)
+
+
+def from_scipy_csr(csr, k: int | None = None,
+                   strict: bool = False) -> SparseRows:
+    """Pad a scipy CSR matrix to fixed nnz-per-row, vectorized (the
+    reference's `from_scipy_csr`, the same arrays): a numpy-backed
+    `SparseRows` (the port's ingest stays on the host).
+
+    If ``k`` is smaller than some row's nnz, the row keeps its k
+    largest-|value| entries and a UserWarning reports how many rows were
+    truncated and what fraction of the total |value| mass was dropped;
+    ``strict=True`` raises ValueError instead."""
+    n, d = csr.shape
+    indptr = np.asarray(csr.indptr)
+    row_nnz = np.diff(indptr)
+    max_nnz = int(row_nnz.max()) if n else 0
+    if k is None:
+        k = max(1, max_nnz)
+    col = np.asarray(csr.indices)
+    dat = np.asarray(csr.data, np.float32)
+    row = np.repeat(np.arange(n, dtype=np.int64), row_nnz)
+    truncating = max_nnz > k
+    if truncating:
+        # within each row by descending |value|: the first k are kept
+        order = np.lexsort((-np.abs(dat), row))
+        col, dat, row = col[order], dat[order], row[order]
+    pos = np.arange(row.shape[0], dtype=np.int64) - np.repeat(
+        indptr[:-1].astype(np.int64), row_nnz)
+    keep = pos < k
+    if truncating:
+        n_trunc = int((row_nnz > k).sum())
+        n_drop = int((~keep).sum())
+        total_mass = float(np.abs(dat).sum())
+        frac = float(np.abs(dat[~keep]).sum()) / total_mass \
+            if total_mass > 0.0 else 0.0
+        detail = (f"{n_trunc} rows exceed k={k} nnz (max row nnz = "
+                  f"{max_nnz}); dropping {n_drop} smallest-|value| entries "
+                  f"= {frac:.4%} of the total |value| mass")
+        if strict:
+            raise ValueError(f"from_scipy_csr(strict=True): {detail}")
+        warnings.warn(
+            f"from_scipy_csr: {detail}; keeping the k largest-|value| "
+            "entries per row", stacklevel=2)
+    indices = np.zeros((n, k), np.int32)
+    values = np.zeros((n, k), np.float32)
+    indices[row[keep], pos[keep]] = col[keep]
+    values[row[keep], pos[keep]] = dat[keep]
+    return SparseRows(indices, values, d)
 
 
 def quantize_blocks(block, mode: str = "int8"):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import telemetry
+from photon_tpu_torch.checkpoint.store import commit_bytes
 from photon_tpu_torch.data.index_map import IndexMap
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.game.model import (FixedEffectModel, GameModel,
@@ -171,9 +172,8 @@ class CoefficientStore:
                      "entity_name": blk.entity_name, "directory": "tsv"})
         for final in staged:
             os.replace(final + tag, final)
-        manifest = os.path.join(out_dir, _META_NAME)
-        _write_synced(manifest + tag, json.dumps(meta, indent=2).encode())
-        os.replace(manifest + tag, manifest)
+        commit_bytes(os.path.join(out_dir, _META_NAME),
+                     json.dumps(meta, indent=2).encode())
 
     @classmethod
     def open(cls, out_dir, mmap: bool = True,

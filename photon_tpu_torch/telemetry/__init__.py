@@ -4,6 +4,9 @@
 The reference records into an opt-in run object; here the registry is
 always on and costs one lock per update. ``snapshot()`` reads it,
 ``reset()`` clears it. Names follow the reference's ``serving.*`` family.
+`span`, `event` and `sample_device_memory` are the reference's calls with
+no run attached: they record nothing (run objects wait for ROADMAP
+queue A item 11).
 """
 from __future__ import annotations
 
@@ -52,3 +55,30 @@ def snapshot() -> dict:
 
 def reset() -> None:
     REGISTRY.reset()
+
+
+class _NullSpan:
+    """The no-op span context manager (no run attached)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def span(name: str, **attrs):
+    return _NULL_SPAN
+
+
+def event(kind: str, **fields) -> None:
+    return None
+
+
+def sample_device_memory(tag: str = "") -> None:
+    return None

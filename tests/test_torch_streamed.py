@@ -681,7 +681,7 @@ def test_streamed_raises():
         def observe(self, *a):
             pass
 
-    item(8, lambda: pcb.device_ring(device=CPU, prefetch=Controller()))
+    item("8b", lambda: pcb.device_ring(device=CPU, prefetch=Controller()))
     item(10, lambda: pcb.device_ring(device=CPU, mesh=object()))
     item(10, lambda: next(pcb.iter_device(device=CPU, mesh=object())))
     item(10, lambda: pcb.mesh_chunk(0, object()))
