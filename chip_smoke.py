@@ -3,8 +3,10 @@
 GLM training path, its dense OWL-QN / TRON training path, its
 reg-weight grids, its streamed (out-of-device-memory) training, its
 GAME training, its validation-driven model selection (the vectorized
-fixed-effect and GAME grids) and its drivers (Avro in, model directory
-and scored Avro out) on one GPU.
+fixed-effect and GAME grids), its drivers (Avro in, model directory
+and scored Avro out) and its streamed data plane (the native Avro
+decoder, the ingest plane, the training driver's streamed regimes) on
+one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -12,9 +14,10 @@ Phases (any failure exits non-zero):
 
 0. build every kernel source in the checkout (serving_int8.cu,
    blocked_ell.cu, fused_vg.cu), all three builds started together beside
-   an ``nvcc -Xptxas -v`` compile of each, and print each one's build
-   seconds, and the registers and spills of the blocked-ELL kernels'
-   8-lane instantiations (the lane grid's);
+   an ``nvcc -Xptxas -v`` compile of each and the native Avro decoder's
+   host library (g++), and print each one's build seconds, and the
+   registers and spills of the blocked-ELL kernels' 8-lane
+   instantiations (the lane grid's);
 1. print the int8 serving rung's registers and spills (ptxas -v) and hold
    it against its plain PyTorch version: each of its four branches alone,
    all four together, and 20 coordinates (two launches; equal bit for bit
@@ -214,7 +217,7 @@ DRV. the drivers on local Avro (a temporary directory beside this script):
    (a) benches/game_10m.py's widths and settings at 2^18 training and
    2^16 validation rows (GM's planted model; written as deflate Avro by
    a vectorized encoder through the port's `AvroBlockWriter`, its first
-   block held against `write_datum`) through `run_indexing`,
+   256 records held against `write_datum`) through `run_indexing`,
    `run_training` (a 2-point grid over the per-user L2, 2.5 and 5.0;
    validation with AUC and SHARDED_AUC by user; ``output_mode="ALL"``)
    and `run_scoring` of ``best_model/`` on the validation file, the
@@ -231,7 +234,31 @@ DRV. the drivers on local Avro (a temporary directory beside this script):
    Xᵀr at T2's widths (2^19 rows): 3 calls equal bit for bit, within
    1e-5 of the largest output of a numpy f64 Xᵀr, its ms a call and its
    plan's build seconds beside the parent's ``index_add_`` form (its
-   ms, its error and how many outputs its own calls disagree on).
+   ms, its error and how many outputs its own calls disagree on). The
+   drivers decode natively (a fallback to Python fails the phase).
+DRV-S. the streamed data plane on local Avro (a `_drvs*` temporary
+   directory): GM's widths at 2^21 training rows (just over the training
+   driver's default streaming threshold) as 8 deflate part files and 2^18
+   validation rows, written by a spawn process pool; (a) one part file
+   through `read_game_data` native and Python (equal bit for bit, rows/s
+   each), then the training rows through `iter_game_chunks_parallel`
+   with 0 and 4 process workers, a chunk-cache build and a cache hit
+   (every chunk bit-identical, rows/s each); (b) `run_indexing`, then
+   `run_training` with `streaming=None` (it trips), 4 workers, a chunk
+   cache, GM's coordinates stopped at a relative progress of 1e-3, AUC
+   and SHARDED_AUC — phase seconds, read rows/s, the staging stall share,
+   the prefetch widenings, staging bytes, peak device memory —, held bit
+   for bit against a `streaming=False` run (model, validation data,
+   margins; the AUC within 1e-6), and a rerun that hits the cache (no
+   decode) and trains the same model; (c) the streamed objective under
+   half the estimated device bytes (the fixed shard as host chunks):
+   seconds per update, `game_e2e.*`, within 1e-3 of (b) (at most 0.1% of
+   an effect's entities beyond); (d) 2^18 rows at T2's widths written as
+   per-row names, the ladder built from Avro with 4 workers, cold and
+   from its cache, equal to `chunk_blocked_ell` of the in-memory read bit
+   for bit, and 10 streamed L-BFGS iterations through the tail matvec
+   and rmatvec kernels (rows·iters/s, launches), the first 5 within 1e-5
+   of ``scope("off")``. No leg meant to be native decodes in Python.
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
@@ -239,9 +266,10 @@ their launches in the grid's solves under ``grid_launches``; every
 entry its launches in GM's fits and GK's default-route fits under
 ``gm_launches`` and ``gk_launches``, in phase S's main-path solves under
 ``s_launches``, in GS's fits under ``gs_launches``, in E's fit under
-``e_launches``, in GG's fits under ``gg_launches`` and in DRV (a)
-under ``drv_launches``), the
-card's name and power limit as nvidia-smi reports them, and last
+``e_launches``, in GG's fits under ``gg_launches``, in DRV (a)
+under ``drv_launches`` and in DRV-S's main-path runs — (b)'s streamed
+driver run, (c)'s streamed objective and (d)'s ladder solve, each
+counted alone — under ``drvs_launches``), the card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
 """
@@ -318,6 +346,17 @@ DRV_USER_L2 = [2.5, 5.0]
 DRV_WIDE_ROWS, DRV_WIDE_D, DRV_WIDE_K, DRV_WIDE_ITERS = 1 << 15, 1 << 16, \
     32, 20
 DRV_XTR_ROWS = 1 << 19
+# the streamed data plane (DRV-S): GM's widths at 2^21 training rows
+# (just over the training driver's default streaming threshold of
+# 2,000,000) in 8 part files and 2^18 validation rows, 4 ingest workers,
+# 2^16-row decode chunks and 2^19-row objective chunks, solves stopped at
+# a relative progress of DRVS_TOL (the (b)/(c) comparison's tolerance);
+# (d) T2's widths at 2^18 rows, a ladder of 2^16-row chunks, 10 iterations
+DRVS_ROWS, DRVS_VAL_ROWS, DRVS_PARTS, DRVS_SEED = 1 << 21, 1 << 18, 8, 404
+DRVS_WORKERS, DRVS_CHUNK, DRVS_OBJ_CHUNK, DRVS_TOL = 4, 1 << 16, 1 << 19, \
+    1e-3
+DRVS_LADDER_ROWS, DRVS_LADDER_CHUNK, DRVS_LADDER_ITERS = 1 << 18, 1 << 16, 10
+DRVS_AUC_CALLS = 20  # (b): the same margins' AUC, call after call
 
 
 def log(*a) -> None:
@@ -463,10 +502,20 @@ def phase_build() -> dict:
         except Exception as e:  # reported by the main thread
             errors.append(e)
 
+    def build_native() -> None:
+        from photon_tpu_torch import native
+
+        t0 = time.perf_counter()
+        if not native.available():
+            errors.append(RuntimeError(
+                f"the native library did not build: {native.build_error()}"))
+        secs["native/src/photon_native.cc (g++)"] = time.perf_counter() - t0
+
     mods = (KS, KB, KF)
     t0 = time.perf_counter()
     threads = [threading.Thread(target=fn, args=(m,))
                for m in mods for fn in (build, report)]
+    threads.append(threading.Thread(target=build_native))
     for t in threads:
         t.start()
     for t in threads:
@@ -477,7 +526,8 @@ def phase_build() -> dict:
                if not any(k in r[0] for rows in ptxas.values() for r in rows)]
     if missing:
         raise AssertionError(f"ptxas -v reported no {missing}")
-    log(f"phase 0: built {len(secs)} kernel sources together in "
+    log(f"phase 0: built {len(secs) - 1} kernel sources and the native "
+        f"Avro decoder's host library together in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     eight = [r for r in ptxas["blocked_ell"] if "lane_chunk=8" in r[0]]
@@ -3815,6 +3865,7 @@ def phase_drivers(args, dev, gpu) -> dict:
 
     from photon_tpu_torch import drivers as D
     from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
     from photon_tpu_torch.data import matrix as PM
     from photon_tpu_torch.data.avro_io import read_avro
     from photon_tpu_torch.data.ingest import training_example_schema
@@ -3830,12 +3881,7 @@ def phase_drivers(args, dev, gpu) -> dict:
         seed = args.seed + DRV_SEED
         tr = game_10m_data(seed, DRV_ROWS)
         va = game_10m_data(seed + 1, DRV_VAL_ROWS, model_seed=seed)
-        schema = training_example_schema(
-            feature_bags=("global", "perUser", "perItem"),
-            entity_fields=("userId", "itemId"))
-        names = ([f"f{j}" for j in range(GM_D_FIXED)],
-                 [f"u{j}" for j in range(GM_D_RE)],
-                 [f"i{j}" for j in range(GM_D_RE)])
+        schema, names = gm_schema()
         for path, (Xf, Xu, Xi, uid, iid, y) in (("train.avro", tr),
                                                 ("val.avro", va)):
             n = len(y)
@@ -3869,6 +3915,7 @@ def phase_drivers(args, dev, gpu) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         K.reset_launch_counts()
+        telemetry.reset()
         t0 = time.perf_counter()
         ix = D.run_indexing(IndexingParams(train_path,
                                            os.path.join(root, "maps"),
@@ -3893,11 +3940,13 @@ def phase_drivers(args, dev, gpu) -> dict:
         score_s = time.perf_counter() - t0
         launches = K.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
+        counters_native("DRV (a)")  # the drivers decode natively now
         rows_read = DRV_ROWS + DRV_VAL_ROWS
         log(f"DRV (a): indexing {index_s:.3f} s ({ix.sizes}); training "
             f"{train_s:.3f} s, phases "
             + ", ".join(f"{k} {v:.3f}" for k, v in out.timings.items())
-            + f" s; read {rows_read / out.timings['read']:.6g} rows/s; "
+            + f" s; read {rows_read / out.timings['read']:.6g} rows/s "
+            "(native; the pure-Python decode read 7.6e3–1.0e4); "
             f"scoring {score_s:.3f} s, phases "
             + ", ".join(f"{k} {v:.3f}" for k, v in sc.timings.items())
             + f" s, read {DRV_VAL_ROWS / sc.timings['read']:.6g} rows/s; "
@@ -4083,6 +4132,618 @@ def phase_drivers(args, dev, gpu) -> dict:
     return launches
 
 
+# ------------------------- phase DRV-S: the streamed data plane on Avro
+def write_gm_part(task) -> tuple:
+    """One part file of DRV-S's GM-width data (a spawn worker's task):
+    ``(path, seed, model_seed, rows, first_row)`` → (path, seconds)."""
+    path, seed, model_seed, rows, first = task
+    t0 = time.perf_counter()
+    Xf, Xu, Xi, uid, iid, y = game_10m_data(seed, rows, model_seed=model_seed)
+    schema, names = gm_schema()
+    write_examples(path, schema, y,
+                   [np.char.add("r", np.arange(first, first + rows)
+                                .astype(str)),
+                    np.char.add("u", uid.astype(str)),
+                    np.char.add("i", iid.astype(str))],
+                   list(zip(names, (Xf, Xu, Xi))))
+    return path, time.perf_counter() - t0
+
+
+def gm_schema() -> tuple:
+    """GM's TrainingExampleAvro schema and bag names (DRV and DRV-S)."""
+    from photon_tpu_torch.data.ingest import training_example_schema
+
+    schema = training_example_schema(
+        feature_bags=("global", "perUser", "perItem"),
+        entity_fields=("userId", "itemId"))
+    names = ([f"f{j}" for j in range(GM_D_FIXED)],
+             [f"u{j}" for j in range(GM_D_RE)],
+             [f"i{j}" for j in range(GM_D_RE)])
+    return schema, names
+
+
+def encode_named_rows(y, cols, vals) -> bytes:
+    """One block of one-bag TrainingExampleAvro records whose entries are
+    per-row names ``f<col>`` (an (n, k) int column array; names vary by
+    row, so no record template applies), vectorized: the response, null
+    offset, weight and uid, then k (name, "", value) NameTermValues."""
+    n, k = cols.shape
+    c = cols.reshape(-1).astype(np.int64)
+    ndig = np.ones(c.shape, np.int64)
+    t = c // 10
+    while (t > 0).any():
+        ndig += t > 0
+        t //= 10
+    nl = ndig + 1  # "f" + digits
+    name = np.zeros((c.size, int(nl.max())), np.uint8)
+    name[:, 0] = ord("f")
+    rem = c.copy()
+    for j in range(int(ndig.max()) - 1, -1, -1):
+        live = ndig > j
+        name[live, 1 + j] = (48 + rem[live] % 10).astype(np.uint8)
+        rem[live] //= 10
+    ent = 1 + nl + 1 + 8  # name length varint, name, empty term, double
+    count = np.full(n, 2 * k, np.uint8)  # the block count varint (k < 64)
+    rec_len = 8 + 3 + 1 + ent.reshape(n, k).sum(1) + 1
+    start = np.concatenate([[0], np.cumsum(rec_len)[:-1]])
+    buf = np.zeros(int(rec_len.sum()), np.uint8)
+    b8 = np.arange(8)
+    buf[start[:, None] + b8] = np.ascontiguousarray(
+        y, "<f8").view(np.uint8).reshape(n, 8)
+    buf[start + 11] = count  # offset, weight, uid: null (0, 0, 0)
+    epos = (start[:, None] + 12 + np.concatenate(
+        [np.zeros((n, 1), np.int64), np.cumsum(ent.reshape(n, k), 1)[:, :-1]],
+        1)).reshape(-1)
+    buf[epos] = (2 * nl).astype(np.uint8)
+    from photon_tpu_torch.data.avro_io import scatter_ragged
+
+    scatter_ragged(buf, epos + 1, name, nl)
+    buf[(epos + 1 + nl)[:, None] + 1 + b8] = np.ascontiguousarray(
+        vals.reshape(-1), "<f8").view(np.uint8).reshape(-1, 8)
+    return buf.tobytes()
+
+
+def write_named_rows(path, schema, y, cols, vals, block: int = DRV_BLOCK):
+    """Per-row-name rows as a deflate Avro container through
+    `AvroBlockWriter` (`encode_named_rows` a block); the first block's
+    bytes are held against the port's record encoder (`write_datum`)."""
+    import io
+
+    from photon_tpu_torch.data.avro_io import (AvroBlockWriter,
+                                               parse_schema, write_datum)
+
+    parsed = parse_schema(schema)
+    with AvroBlockWriter(path, schema, codec="deflate") as w:
+        for lo in range(0, len(y), block):
+            hi = min(lo + block, len(y))
+            payload = encode_named_rows(y[lo:hi], cols[lo:hi], vals[lo:hi])
+            if lo == 0:
+                ref = io.BytesIO()
+                for i in range(hi):
+                    write_datum(ref, parsed, {
+                        "response": float(y[i]), "offset": None,
+                        "weight": None, "uid": None,
+                        "wide": [{"name": f"f{int(cc)}", "term": "",
+                                  "value": float(v)}
+                                 for cc, v in zip(cols[i], vals[i])]})
+                if ref.getvalue() != payload:
+                    raise AssertionError("DRV-S: the per-row-name encoder "
+                                         "differs from write_datum")
+            w.write_block(hi - lo, payload)
+
+
+def chunk_digest(chunk) -> str:
+    """sha256 of a GameData chunk's arrays (scalars, shards, entity ids)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in (chunk.y, chunk.weights, chunk.offsets):
+        h.update(np.ascontiguousarray(a).tobytes())
+    for s in sorted(chunk.shards):
+        X = chunk.shards[s]
+        for a in ((X.indices, X.values) if hasattr(X, "indices") else (X,)):
+            h.update(np.ascontiguousarray(a).tobytes())
+    for e in sorted(chunk.entity_ids):
+        h.update(np.ascontiguousarray(chunk.entity_ids[e]).tobytes())
+    return h.hexdigest()
+
+
+def counters_native(label: str) -> dict:
+    """The telemetry counters after a leg meant to be native: it fails
+    when any chunk fell back to Python or the library was unavailable."""
+    from photon_tpu_torch import telemetry
+
+    c = telemetry.snapshot()["counters"]
+    bad = {k: c[k] for k in ("ingest.python_fallback",
+                             "ingest.native_unavailable") if c.get(k)}
+    if bad:
+        raise AssertionError(f"DRV-S {label}: a native leg fell back to "
+                             f"Python: {bad}")
+    return c
+
+
+def models_equal(a, b) -> bool:
+    """Two GameModels' coefficients (and entity keys) bit for bit."""
+    import torch
+
+    from photon_tpu_torch.game.model import FixedEffectModel
+
+    for name, cm in a.coordinates.items():
+        other = b[name]
+        if isinstance(cm, FixedEffectModel):
+            if not torch.equal(cm.model.coefficients.means,
+                               other.model.coefficients.means):
+                return False
+        elif not (torch.equal(cm.coefficients, other.coefficients)
+                  and list(cm.entity_keys) == list(other.entity_keys)):
+            return False
+    return True
+
+
+def model_gaps(a, b) -> dict:
+    """Per coordinate: (the largest coefficient gap over the largest
+    coefficient of ``b``, how many entities' gaps exceed DRVS_TOL of that
+    scale, entities); a fixed effect counts as one entity of gap 0."""
+    from photon_tpu_torch.game.model import FixedEffectModel
+
+    out = {}
+    for name, cm in a.coordinates.items():
+        other = b[name]
+        if isinstance(cm, FixedEffectModel):
+            x = cm.model.coefficients.means.float().cpu().numpy()
+            z = other.model.coefficients.means.float().cpu().numpy()
+            out[name] = (float(np.abs(x - z).max() / np.abs(z).max()), 0, 1)
+        else:
+            if list(cm.entity_keys) != list(other.entity_keys):
+                raise AssertionError(f"DRV-S: {name}'s entities differ")
+            x = cm.coefficients.float().cpu().numpy()
+            z = other.coefficients.float().cpu().numpy()
+            gap = np.abs(x - z).max(1) / np.abs(z).max()
+            out[name] = (float(gap.max()), int((gap > DRVS_TOL).sum()),
+                         int(gap.size))
+    return out
+
+
+def phase_drivers_streamed(args, dev, gpu) -> dict:
+    """DRV-S: the streamed data plane — (a) native against Python decode
+    and the ingest plane's legs on GM-width part files, (b) the training
+    driver past its default streaming threshold (auto-trip, 4 workers, a
+    chunk cache) against the in-memory read and a cache-hit rerun, (c)
+    the streamed objective under a device budget, (d) T2's ladder built
+    from Avro and trained through the blocked-ELL kernels; returns the
+    kernels' launches in (b)'s streamed run, (c)'s and (d)'s solve."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from photon_tpu_torch import drivers as D
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import native, telemetry
+    from photon_tpu_torch.data.dataset import (_leaves, chunk_blocked_ell,
+                                               make_batch)
+    from photon_tpu_torch.data.feature_bags import FeatureShardConfig
+    from photon_tpu_torch.data.ingest import (GameDataConfig,
+                                              read_game_data,
+                                              training_example_schema)
+    from photon_tpu_torch.data.ingest_plane import (
+        chunk_blocked_ell_from_avro, iter_game_chunks_parallel,
+        open_chunk_source)
+    from photon_tpu_torch.data.streaming import scan_ingest
+    from photon_tpu_torch.drivers import train as DT
+    from photon_tpu_torch.drivers.index import IndexingParams
+    from photon_tpu_torch.models.training import train_glm
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gb() -> str:
+        return (f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB"
+                if cuda else "not measured (CPU)")
+
+    if not native.available():
+        raise AssertionError(f"DRV-S: the native library did not build: "
+                             f"{native.build_error()}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    seed = args.seed + DRVS_SEED
+    t_phase = time.perf_counter()
+    failures: list = []
+    with tempfile.TemporaryDirectory(prefix="_drvs", dir=here) as root:
+        train_dir = os.path.join(root, "train")
+        val_dir = os.path.join(root, "val")
+        os.makedirs(train_dir)
+        os.makedirs(val_dir)
+        per = DRVS_ROWS // DRVS_PARTS
+        tasks = [(os.path.join(train_dir, f"part-{p:05d}.avro"),
+                  seed + 10 + p, seed, per, p * per)
+                 for p in range(DRVS_PARTS)]
+        tasks.append((os.path.join(val_dir, "part-00000.avro"), seed + 1,
+                      seed, DRVS_VAL_ROWS, 0))
+        t0 = time.perf_counter()
+        with cf.ProcessPoolExecutor(
+                max_workers=min(len(tasks), os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            part_s = [s for _, s in pool.map(write_gm_part, tasks)]
+        write_s = time.perf_counter() - t0
+        mb = dir_bytes(train_dir) / 1e6
+        log(f"DRV-S: {DRVS_ROWS} training rows at GM's widths as "
+            f"{DRVS_PARTS} deflate part files ({mb:.1f} MB) and "
+            f"{DRVS_VAL_ROWS} validation rows ({dir_bytes(val_dir) / 1e6:.1f}"
+            f" MB) written by {len(tasks)} spawn processes in {write_s:.1f} "
+            f"s (each part {min(part_s):.1f}–{max(part_s):.1f} s); cut: "
+            f"depth, {DRVS_ROWS} of GM's {GM_ROWS} rows  [{gpu}]")
+        shards = {"global": {"bags": ["global"], "has_intercept": True},
+                  "perUser": {"bags": ["perUser"], "has_intercept": False},
+                  "perItem": {"bags": ["perItem"], "has_intercept": False}}
+        cfg = GameDataConfig(
+            shards={k: FeatureShardConfig.coerce(v)
+                    for k, v in shards.items()},
+            entity_fields=("userId", "itemId"))
+
+        # (a) decode: one part file native and Python, bit for bit
+        part0 = tasks[0][0]
+        telemetry.reset()
+        t0 = time.perf_counter()
+        nat, nmaps = read_game_data(part0, cfg, use_native=True)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py, pmaps = read_game_data(part0, cfg, use_native=False)
+        py_s = time.perf_counter() - t0
+        counters_native("(a)")
+        same = (all(np.array_equal(getattr(nat, f), getattr(py, f))
+                    for f in ("y", "weights", "offsets"))
+                and all(np.array_equal(nat.shards[s], py.shards[s])
+                        for s in cfg.shards)
+                and all(np.array_equal(nat.entity_ids[e], py.entity_ids[e])
+                        and nat.entity_ids[e].dtype == py.entity_ids[e].dtype
+                        for e in cfg.entity_fields)
+                and all(nmaps[s].keys_in_order() == pmaps[s].keys_in_order()
+                        for s in cfg.shards))
+        if not same:
+            raise AssertionError("DRV-S (a): the native read differs from "
+                                 "the Python read")
+        log(f"DRV-S (a): one part file ({per} rows): read_game_data native "
+            f"{per / nat_s:.6g} rows/s ({nat_s:.3f} s), Python "
+            f"{per / py_s:.6g} rows/s ({py_s:.3f} s), {py_s / nat_s:.1f}x; "
+            f"the two GameData and maps equal bit for bit  [{gpu}]")
+        del nat, py
+        scan = scan_ingest(train_dir, cfg)
+        maps, bidx = scan.index_maps, scan.block_index
+        legs, digests = [], None
+
+        def leg(label, make):
+            nonlocal digests
+            telemetry.reset()
+            t0 = time.perf_counter()
+            _, chunks = make()
+            got = [chunk_digest(c) for c in chunks]
+            secs = time.perf_counter() - t0
+            c = counters_native(f"(a) {label}")
+            if digests is None:
+                digests = got
+            elif got != digests:
+                raise AssertionError(f"DRV-S (a) {label}: chunks differ from "
+                                     "the in-process decode's")
+            starts = int(c.get("ingest.pool_starts", 0))
+            legs.append(f"{label} {DRVS_ROWS / secs:.6g} rows/s "
+                        f"({secs:.3f} s" + (f", a worker pool start"
+                                            if starts else "") + ")")
+            return c
+
+        kw = dict(chunk_rows=DRVS_CHUNK, block_index=bidx)
+        leg("0 workers", lambda: iter_game_chunks_parallel(
+            train_dir, cfg, maps, workers=0, **kw))
+        c4 = leg(f"{DRVS_WORKERS} process workers",
+                 lambda: iter_game_chunks_parallel(
+                     train_dir, cfg, maps, workers=DRVS_WORKERS,
+                     mode="process", **kw))
+        cache_a = os.path.join(root, "cache_a")
+        cb = leg("cache build", lambda: open_chunk_source(
+            train_dir, cfg, maps, workers=DRVS_WORKERS, cache_dir=cache_a,
+            **kw))
+        ch = leg("cache hit", lambda: open_chunk_source(
+            train_dir, cfg, maps, cache_dir=cache_a, **kw))
+        if (c4.get("ingest.worker_deaths") or cb.get("ingest.worker_deaths")
+                or ch.get("ingest.cache_hits") != 1
+                or ch.get("ingest.decode_seconds")):
+            raise AssertionError(f"DRV-S (a): a worker died or the cache "
+                                 f"hit decoded Avro: {c4} {cb} {ch}")
+        log(f"DRV-S (a): {len(digests)} chunks of the {DRVS_ROWS} training "
+            f"rows, bit-identical over: " + "; ".join(legs)
+            + f"; cache {dir_bytes(cache_a) / 1e6:.1f} MB  [{gpu}]")
+
+        # (b) the training driver past its default streaming threshold
+        coords = {
+            "fixed": {"feature_shard": "global", "reg_type": "l2",
+                      "reg_weight": GM_FIXED[1], "max_iters": GM_FIXED[0],
+                      "tolerance": DRVS_TOL},
+            "per_user": {"feature_shard": "perUser", "entity_name":
+                         "userId", "reg_type": "l2", "reg_weight": GM_RE[1],
+                         "max_iters": GM_RE[0], "tolerance": DRVS_TOL},
+            "per_item": {"feature_shard": "perItem", "entity_name":
+                         "itemId", "reg_type": "l2", "reg_weight": GM_RE[1],
+                         "max_iters": GM_RE[0], "tolerance": DRVS_TOL}}
+        maps_dir = os.path.join(root, "maps")
+        params = D.TrainingParams(
+            train_path=train_dir, validation_path=val_dir,
+            output_dir=os.path.join(root, "b1"), feature_shards=shards,
+            coordinates=coords, entity_fields=["userId", "itemId"],
+            n_sweeps=GM_SWEEPS, evaluators=["AUC", "SHARDED_AUC"],
+            evaluator_entity="userId", index_map_dir=maps_dir,
+            ingest_workers=DRVS_WORKERS,
+            chunk_cache_dir=os.path.join(root, "cache_b"))
+        if DRVS_ROWS <= params.streaming_threshold_rows:
+            raise AssertionError("DRV-S: the training set does not exceed "
+                                 "the default streaming threshold")
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        telemetry.reset()
+        t0 = time.perf_counter()
+        ix = D.run_indexing(IndexingParams(train_dir, maps_dir, shards))
+        index_s = time.perf_counter() - t0
+        counters_native("(b) indexing")
+        telemetry.reset()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = D.run_training(params, device=dev)
+        sync()
+        train_s = time.perf_counter() - t0
+        launches_b = K.launch_counts()
+        c = counters_native("(b)")
+        snap = telemetry.snapshot()
+        if not c.get("ingest.device_chunks"):
+            raise AssertionError("DRV-S (b): streaming=None did not stream")
+        read_s = out.timings["read"]
+        rows = DRVS_ROWS + DRVS_VAL_ROWS
+        stall = c.get("ingest.staging_wait_seconds", 0.0)
+        log(f"DRV-S (b): indexing {index_s:.3f} s ({ix.sizes}); training "
+            f"(streaming=None tripped: {DRVS_ROWS} rows > "
+            f"{params.streaming_threshold_rows}; {DRVS_WORKERS} workers, a "
+            f"chunk cache) {train_s:.3f} s, phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in out.timings.items())
+            + f" s; read {rows / read_s:.6g} rows/s; staging stall "
+            f"{stall:.3f} s, {stall / read_s:.3f} of the read; prefetch "
+            f"widened {int(c.get('stream.prefetch_widened', 0))} times, "
+            f"at most {snap['gauges'].get('ingest.staging_peak_depth')} "
+            f"staging buffers ("
+            f"{snap['gauges'].get('ingest.staging_peak_bytes', 0) / 1e6:.1f}"
+            f" MB pinned host staging); decode "
+            f"{c.get('ingest.decode_seconds', 0):.3f} s (waiting on "
+            f"{int(c.get('ingest.worker_chunks', 0))} worker chunks, "
+            f"{int(c.get('ingest.pool_starts', 0))} pool starts), cache "
+            f"commits {c.get('ingest.cache_commit_seconds', 0):.3f} s; "
+            f"launches {launches_b}; "
+            f"peak device memory {peak_gb()}; validation AUC "
+            f"{out.best.validation_score:.8g}, metrics "
+            f"{out.validation_metrics}  [{gpu}]")
+        mem = D.run_training(dataclasses.replace(
+            params, output_dir=os.path.join(root, "b_mem"), streaming=False,
+            ingest_workers=0, chunk_cache_dir=None), device=dev)
+        # the two validation reads, and the best model's margins on each
+        from photon_tpu_torch.data.streaming import stream_to_device
+        from photon_tpu_torch.game.scoring import score_game
+
+        vmaps = out_maps(maps_dir, shards)
+        v_str, _ = stream_to_device(val_dir, cfg, vmaps,
+                                    chunk_rows=DRVS_CHUNK, device=dev)
+        v_mem, _ = read_game_data(val_dir, cfg, index_maps=vmaps)
+        v_same = {f: bool(np.array_equal(
+            getattr(v_str, f).cpu().numpy(), getattr(v_mem, f)))
+            for f in ("y", "weights", "offsets")}
+        v_same.update({s: bool(np.array_equal(
+            v_str.shards[s].cpu().numpy(), v_mem.shards[s]))
+            for s in cfg.shards})
+        v_same.update({e: bool(np.array_equal(v_str.entity_ids[e],
+                                              v_mem.entity_ids[e]))
+                       for e in cfg.entity_fields})
+        from photon_tpu_torch.evaluation.metrics import auc as auc_dev
+
+        m_str = score_game(out.best.model, v_str)
+        m_mem = score_game(out.best.model, v_mem.to_device(dev))
+        apart = int((m_str != m_mem).sum())
+        # the same margins' AUC, call after call: one value (§C11, its
+        # cumulative sums are blocked scans, not one CUDA device scan)
+        aucs = {float(auc_dev(m_str, v_str.y, v_str.weights))
+                for _ in range(DRVS_AUC_CALLS)}
+        auc_gap = abs(out.best.validation_score - mem.best.validation_score)
+        log(f"DRV-S (b): validation AUC streamed "
+            f"{out.best.validation_score!r}, in memory "
+            f"{mem.best.validation_score!r} (gap {auc_gap:.3g}, limit 1e-6); "
+            f"the validation reads equal: {v_same}; the best model's margins "
+            f"on them {apart} apart; the AUC of those margins over "
+            f"{DRVS_AUC_CALLS} calls: {len(aucs)} distinct values "
+            f"{sorted(aucs)}  [{gpu}]")
+        if not (models_equal(out.best.model, mem.best.model)
+                and all(v_same.values()) and apart == 0):
+            failures.append(
+                f"DRV-S (b): the streamed model or data differ from the "
+                f"in-memory read's: {model_gaps(out.best.model, mem.best.model)}"
+                f", {v_same}, margins {apart} apart")
+        if auc_gap > 1e-6:
+            failures.append(f"DRV-S (b): the validation AUCs {auc_gap:.3g} "
+                            "apart")
+        if len(aucs) != 1:
+            failures.append(f"DRV-S (b): the AUC of the same margins took "
+                            f"{len(aucs)} values over {DRVS_AUC_CALLS} calls "
+                            "(ROADMAP §C11)")
+        telemetry.reset()
+        hit = D.run_training(dataclasses.replace(
+            params, output_dir=os.path.join(root, "b2")), device=dev)
+        c = counters_native("(b) cache hit")
+        if (c.get("ingest.cache_hits") != 2 or c.get("ingest.decode_seconds")
+                or not models_equal(out.best.model, hit.best.model)):
+            failures.append(f"DRV-S (b): the cache-hit run decoded Avro "
+                            f"or trained another model: {c}")
+        log(f"DRV-S (b): the streamed model equals the in-memory read's "
+            f"(read {mem.timings['read']:.3f} s, "
+            f"{rows / mem.timings['read']:.6g} rows/s) bit for bit; a "
+            f"second streamed run hit the cache (2 hits, no decode): read "
+            f"{hit.timings['read']:.3f} s "
+            f"({rows / hit.timings['read']:.6g} rows/s), the same model bit "
+            f"for bit  [{gpu}]")
+
+        # (c) the streamed objective under a device budget
+        est = DT._estimate_device_bytes(DRVS_ROWS, out_maps(maps_dir, shards),
+                                        params)
+        telemetry.reset()
+        K.reset_launch_counts()
+        with CoordinateTimer() as timer:
+            so = D.run_training(dataclasses.replace(
+                params, output_dir=os.path.join(root, "c"),
+                hbm_budget_bytes=est // 2,
+                objective_chunk_rows=DRVS_OBJ_CHUNK), device=dev)
+        launches_c = K.launch_counts()
+        c = counters_native("(c)")
+        if c.get("game_e2e.pod_scale_runs") != 1:
+            raise AssertionError("DRV-S (c): the streamed objective did not "
+                                 f"engage: {c}")
+        gaps = model_gaps(so.best.model, out.best.model)
+        # the fixed effect within DRVS_TOL; a random effect's entities
+        # apart beyond it at most 0.1% of them (entity solves stop at
+        # DRVS_TOL, on offsets the streamed fixed effect moves by a
+        # rounding)
+        bad = {k: v for k, v in gaps.items()
+               if v[0] > DRVS_TOL and (k == "fixed" or v[1] > 1e-3 * v[2])}
+        e2e = {k: v for k, v in c.items() if k.startswith("game_e2e.")}
+        log(f"DRV-S (c): budget {est // 2} bytes (half the {est}-byte "
+            f"estimate): the fixed shard as {DRVS_ROWS // DRVS_OBJ_CHUNK} "
+            f"host chunks, random effects resident; phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in so.timings.items())
+            + " s; seconds per update "
+            + "; ".join(f"{s} " + ", ".join(f"{v:.3f}" for v in secs)
+                        for s, secs in timer.secs.items())
+            + f"; {e2e}; launches {launches_c}; against (b): largest gap / "
+            "largest coefficient "
+            + ", ".join(f"{k} {v[0]:.3g} ({v[1]} of {v[2]} entities past "
+                        f"{DRVS_TOL:g})" for k, v in gaps.items())
+            + f"; AUC {so.best.validation_score:.8g} vs "
+            f"{out.best.validation_score:.8g}  [{gpu}]")
+        if bad:
+            failures.append(f"DRV-S (c): streamed objective apart from "
+                            f"(b) beyond {DRVS_TOL:g}: {bad}")
+        del out, mem, hit, so
+
+        # (d) T2's ladder from Avro, through kernels rows 2 and 4
+        ind, val, y = sparse_problem(seed + 3, DRVS_LADDER_ROWS)
+        wide_path = os.path.join(root, "t2.avro")
+        wschema = training_example_schema(feature_bags=("wide",))
+        t0 = time.perf_counter()
+        write_named_rows(wide_path, wschema, y, ind[:, :T_NNZ],
+                         val[:, :T_NNZ])
+        wwrite_s = time.perf_counter() - t0
+        wcfg = GameDataConfig(shards={"wide": FeatureShardConfig(
+            bags=("wide",), has_intercept=True)})
+        telemetry.reset()
+        t0 = time.perf_counter()
+        wscan = scan_ingest(wide_path, wcfg)
+        wmaps = wscan.index_maps
+        scan_s = time.perf_counter() - t0
+        k = T_NNZ + 1
+        lkw = dict(d_dense=T_DENSE, feature_dtype=torch.bfloat16, sparse_k=k,
+                   workers=DRVS_WORKERS,
+                   cache_dir=os.path.join(root, "ladder"),
+                   block_index=wscan.block_index)
+        t0 = time.perf_counter()
+        cold = chunk_blocked_ell_from_avro(wide_path, wcfg, wmaps, "wide",
+                                           DRVS_LADDER_CHUNK, **lkw)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lad = chunk_blocked_ell_from_avro(wide_path, wcfg, wmaps, "wide",
+                                          DRVS_LADDER_CHUNK, **lkw)
+        hit_s = time.perf_counter() - t0
+        c = counters_native("(d)")
+        cold_parts = (f"decode {c.get('ingest.decode_seconds', 0):.3f} s "
+                      f"({int(c.get('ingest.pool_starts', 0))} pool starts),"
+                      f" layout {c.get('ingest.layout_seconds', 0):.3f} s, "
+                      f"cache commit "
+                      f"{c.get('ingest.cache_commit_seconds', 0):.3f} s")
+        if c.get("ingest.cache_hits") != 1:
+            raise AssertionError(f"DRV-S (d): the ladder cache missed: {c}")
+        full, _ = read_game_data(wide_path, wcfg, index_maps=wmaps,
+                                 sparse_k=k)
+        want = chunk_blocked_ell(make_batch(full.shards["wide"], full.y,
+                                            full.weights, full.offsets,
+                                            device="cpu"),
+                                 DRVS_LADDER_CHUNK, d_dense=T_DENSE,
+                                 feature_dtype=torch.bfloat16)
+        for got, label in ((cold, "cold"), (lad, "cache hit")):
+            ok = (got.X.n_chunks == want.X.n_chunks
+                  and all(x.dtype == z.dtype and torch.equal(x, z)
+                          for a, b in zip(got.X.chunks, want.X.chunks)
+                          for x, z in zip(_leaves(a), _leaves(b)))
+                  and torch.equal(got.X.perm_cols,
+                                  torch.as_tensor(want.X.perm_cols))
+                  and all(np.array_equal(getattr(got, f), getattr(want, f))
+                          for f in ("y", "weights", "offsets")))
+            if not ok:
+                failures.append(f"DRV-S (d): the {label} ladder differs from "
+                                "chunk_blocked_ell of the in-memory read")
+        d_feat = wmaps["wide"].n_features
+        log(f"DRV-S (d): {DRVS_LADDER_ROWS} rows at T2's widths ({T_NNZ} "
+            f"zipf({T_ZIPF}) names of {T_FEATURES} a row + an intercept; "
+            f"{d_feat} distinct columns) written as per-row names in "
+            f"{wwrite_s:.1f} s ({os.path.getsize(wide_path) / 1e6:.1f} MB, "
+            f"{DRVS_LADDER_ROWS / wwrite_s:.6g} rows/s; cut: depth, "
+            f"{DRVS_LADDER_ROWS} of T2's {T_ROWS}); maps in {scan_s:.3f} s; "
+            f"ladder of {lad.X.n_chunks} bf16 chunks ({T_DENSE} hot columns)"
+            f" from Avro with {DRVS_WORKERS} workers {cold_s:.3f} s cold "
+            f"({cold_parts}), {hit_s:.3f} s from the ladder cache; both equal "
+            f"chunk_blocked_ell of the in-memory read bit for bit  [{gpu}]")
+        cfg_t = OptimizerConfig(max_iters=DRVS_LADDER_ITERS, tolerance=0.0,
+                                reg=l2(), reg_weight=T_REG,
+                                history=T_HISTORY)
+        sync()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, res = train_glm(lad, TaskType.LOGISTIC_REGRESSION, cfg_t,
+                           device=dev)
+        sync()
+        solve_s = time.perf_counter() - t0
+        d_launch = K.launch_counts()
+        with K.scope("off"):
+            _, off = train_glm(lad, TaskType.LOGISTIC_REGRESSION,
+                               dataclasses.replace(cfg_t, max_iters=5),
+                               device=dev)
+        h, ho = np.asarray(res.history()[:5]), np.asarray(off.history()[:5])
+        err = float(np.max(np.abs(h - ho) / np.abs(ho)))
+        log(f"DRV-S (d): streamed L-BFGS on the ladder, "
+            f"{res.iterations} iterations in {solve_s:.3f} s: "
+            f"{DRVS_LADDER_ROWS * res.iterations / solve_s:.6g} "
+            f"rows·iters/s; launches {d_launch}; first 5 iterations within "
+            f"{err:.3g} of scope('off')'s (limit 1e-5)  [{gpu}]")
+        if err > 1e-5:
+            failures.append("DRV-S (d): the kernel route's history parts "
+                            "from scope('off')'s")
+        if cuda and not all(d_launch.get(n, 0) > 0
+                            for n in ("tail_matvec", "bucket_rmatvec")):
+            raise AssertionError(f"DRV-S (d): the ladder solve launched "
+                                 f"{d_launch}, not rows 2 and 4")
+        # the main paths' launches: (b)'s streamed driver run, (c)'s
+        # streamed objective and (d)'s ladder solve, each counted alone
+        drvs = {n: launches_b.get(n, 0) + launches_c.get(n, 0)
+                + d_launch.get(n, 0)
+                for n in {*launches_b, *launches_c, *d_launch}}
+    log(f"DRV-S: {time.perf_counter() - t_phase:.1f} s in all  [{gpu}]")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return drvs
+
+
+def out_maps(maps_dir, shards) -> dict:
+    """The indexing driver's frozen maps of ``shards``."""
+    from photon_tpu_torch.drivers.index import load_index_map_dir
+
+    return load_index_map_dir(maps_dir, shards)
+
+
 def write_wide(path, schema, y, names, vals, block: int = DRV_BLOCK):
     """One-bag rows of per-row names (an (n, k) string array) as a deflate
     Avro container, through `write_avro`'s record encoder (the names vary
@@ -4147,6 +4808,8 @@ def main() -> int:
         gs[name] = gs.get(name, 0) + c
     torch.cuda.empty_cache()
     drv = phase_drivers(args, dev, gpu)
+    torch.cuda.empty_cache()
+    drvs = phase_drivers_streamed(args, dev, gpu)
     for entry in kernels:
         entry["gm_launches"] = gm.get(entry["name"], 0)
         entry["gk_launches"] = gk.get(entry["name"], 0)
@@ -4155,6 +4818,7 @@ def main() -> int:
         entry["e_launches"] = e_launches.get(entry["name"], 0)
         entry["gg_launches"] = gg.get(entry["name"], 0)
         entry["drv_launches"] = drv.get(entry["name"], 0)
+        entry["drvs_launches"] = drvs.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,5 +23,10 @@ blocked-ELL layout, whose X passes are CUDA kernels; reg-weight grids
 (`train_glm_grid`); GAME training (`game.estimator.GameEstimator`); and
 streamed training of datasets larger than device memory (a host
 `data.dataset.ChunkedBatch` through `train_glm`, and a GAME fixed effect
-over a host-chunked shard).
+over a host-chunked shard); evaluation and validation-driven selection;
+and the drivers (`drivers`) over the streamed data plane: the native
+Avro block decoder (`native`, host C++ built by g++), streamed reads to
+the card and to the host (`data.streaming`), the parallel ingest plane
+with its chunk cache (`data.ingest_plane`, `ingest`) and the training
+driver's streamed regimes.
 """

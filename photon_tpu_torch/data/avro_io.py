@@ -10,8 +10,10 @@ metadata (schema JSON + codec), 16-byte sync marker, then blocks of
 (record count, byte size, payload, sync). Codecs: ``null``, ``deflate``
 (raw zlib) and ``snappy`` (raw block + 4-byte big-endian CRC32 of the
 uncompressed bytes, per the Avro spec) — the three the reference's Hadoop
-jobs produce; snappy is `data.snappy`, pure Python. The native block
-decoder waits for ROADMAP queue A item 8b.
+jobs produce; snappy blocks decompress through the C++ runtime
+(`native/`) when it is available, `data.snappy` (pure Python) otherwise.
+The native block decoder (`data.native_ingest`) reads the payloads this
+module's readers return.
 
 Decoding yields plain Python dicts keyed by field name — the
 ``feature_bags`` builder consumes these directly.
@@ -462,11 +464,16 @@ def write_datum(out, schema, value) -> None:
 
 def _snappy_block_uncompress(path, payload: bytes) -> bytes:
     """Avro snappy block: raw snappy + 4-byte big-endian CRC32 of the
-    uncompressed bytes, decompressed by the pure-Python `data.snappy`."""
+    uncompressed bytes. Decompresses through the C++ runtime when it is
+    available (the ingest hot path), the pure-Python `data.snappy`
+    otherwise."""
     if len(payload) < 4:
         raise ValueError(f"{path}: snappy block too short for its CRC")
     raw, (crc,) = payload[:-4], struct.unpack(">I", payload[-4:])
-    out = _snappy.uncompress(raw)
+    from photon_tpu_torch import native
+
+    out = (native.snappy_uncompress(raw) if native.available()
+           else _snappy.uncompress(raw))
     if zlib.crc32(out) & 0xFFFFFFFF != crc:
         raise ValueError(f"{path}: snappy block CRC mismatch")
     return out

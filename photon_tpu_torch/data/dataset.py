@@ -12,8 +12,9 @@ A `ChunkedBatch` is a dataset too big for device memory: it lives on the
 host in uniform row chunks (pinned, when a GPU is present, so an upload
 is an asynchronous DMA) and streams through the device one chunk at a
 time (`DeviceChunkRing`), so the device holds a couple of chunks plus
-solver state. Its mesh form waits for ROADMAP queue A item 10, the
-stall-driven prefetch controller for item 8b.
+solver state; its depth may follow a stall-driven controller
+(`data.ingest_plane.AdaptivePrefetch`). Its mesh form waits for ROADMAP
+queue A item 10.
 """
 from __future__ import annotations
 
@@ -325,18 +326,21 @@ class DeviceChunkRing:
     ``stream.stall_seconds``, ``stream.compute_seconds``,
     ``stream.prefetch_depth`` (a gauge) and ``stream.stalled_passes``. A
     pass abandoned part way resets the ring: the next starts at chunk 0
-    with nothing stale in flight. ``prefetch`` is an int: the reference's
-    stall-driven `AdaptivePrefetch` controller lives in
-    `data/ingest_plane.py`, which waits for ROADMAP queue A item 8b."""
+    with nothing stale in flight.
+
+    ``prefetch`` is an int, or a stall-driven controller
+    (`data.ingest_plane.AdaptivePrefetch`): each pass then runs at the
+    controller's depth, and the pass's stall and compute seconds feed its
+    `observe` at the pass's end. When it widens, the ring adds slots (the
+    controller caps the depth at its byte budget over one chunk's bytes);
+    when it narrows, the window drains to the new depth. An upload takes
+    a slot that is neither in flight nor held, so results are bit for bit
+    the same at every depth."""
 
     def __init__(self, batch: ChunkedBatch, device=None, prefetch=2):
-        if hasattr(prefetch, "observe"):
-            raise NotImplementedError(
-                "a stall-driven prefetch controller (AdaptivePrefetch, "
-                "data/ingest_plane.py) is not ported yet (ROADMAP queue A "
-                "item 8b); pass an int depth")
         self.batch = batch
-        self.depth = max(int(prefetch), 1)
+        self._ctl = prefetch if hasattr(prefetch, "observe") else None
+        self._static = 2 if self._ctl is not None else max(int(prefetch), 1)
         self.device = resolve_device(device)
         c0 = batch.X.chunks[0]
         if isinstance(c0, BlockedEllRows) and c0.tail_rows is None:
@@ -352,10 +356,15 @@ class DeviceChunkRing:
         self._side = torch.cuda.Stream(self.device) if self._cuda else None
         self._shared = None  # a ladder's permutation on the device, once
         self._slots: list = []
-        self._free: list = [None] * self.depth
+        self._free: dict = {}  # slot -> event of the consumer's last use
         self._window: deque = deque()
         self._next = 0       # chunk index the next upload takes (mod n)
-        self._next_slot = 0  # slot the next upload fills (mod depth)
+
+    @property
+    def depth(self) -> int:
+        """Chunks in flight: the controller's current depth, or the int."""
+        return (max(int(self._ctl.depth), 1) if self._ctl is not None
+                else self._static)
 
     def host_columns(self, i: int) -> list:
         """Chunk ``i``'s (y, weights, offsets) on the host (pinned on a
@@ -404,7 +413,7 @@ class DeviceChunkRing:
                 d_.copy_(s_)
             return None
         with torch.cuda.stream(self._side):
-            if self._free[s] is not None:
+            if self._free.get(s) is not None:
                 self._side.wait_event(self._free[s])
             for d_, s_ in zip(dst, src):
                 d_.copy_(s_, non_blocking=True)
@@ -413,13 +422,15 @@ class DeviceChunkRing:
         return ev
 
     def _fill(self, cap: int) -> None:
-        """Issue uploads until ``cap`` chunks are in flight."""
+        """Issue uploads until ``cap`` chunks are in flight, each into the
+        lowest slot not in flight (the chunk the consumer held is released
+        before a fill), so a fixed depth cycles through the same slots."""
         n = self.batch.n_chunks
         while len(self._window) < cap:
-            s = self._next_slot
+            busy = {s for _, s, _ in self._window}
+            s = next(j for j in range(len(self._slots) + 1) if j not in busy)
             self._window.append((self._next, s, self._upload(self._next, s)))
             self._next = (self._next + 1) % n
-            self._next_slot = (s + 1) % self.depth
 
     def _release(self, s: int) -> None:
         """The consumer is done issuing work on slot ``s``."""
@@ -472,6 +483,9 @@ class DeviceChunkRing:
             telemetry.count("stream.stall_seconds", stall)
             telemetry.count("stream.compute_seconds", max(compute, 0.0))
             telemetry.gauge("stream.prefetch_depth", depth)
+            if ok and self._ctl is not None:
+                self._ctl.observe(stall, max(compute, 0.0), n,
+                                  self.batch.X.chunk_nbytes())
             _log_stream_stall(stall, compute, n, depth)
 
 

@@ -1,6 +1,6 @@
-"""Feature/entity index maps: keys → dense ids (port of the in-memory part
-of `photon_tpu/data/index_map.py`; the native mmap store waits for the
-`native/` port).
+"""Feature/entity index maps: keys → dense ids (port of
+`photon_tpu/data/index_map.py`: the in-memory `IndexMap` and
+`PalDBIndexMap` over the native mmap'd store).
 
 Key format and the TSV file format are the reference's, so a map saved by
 either package loads in the other.
@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from pathlib import Path
 from typing import Iterable, Optional
+
+import numpy as np
 
 DELIMITER = "\x01"
 INTERCEPT_KEY = "(INTERCEPT)"
@@ -118,3 +120,89 @@ class IndexMap:
                 k, v = line.rstrip("\n").rsplit("\t", 1)
                 key_to_id[k.replace("\\x01", DELIMITER)] = int(v)
         return IndexMap(key_to_id, frozen=True, has_intercept=has_intercept)
+
+
+class PalDBIndexMap:
+    """Frozen feature index map over the native mmap'd C++ hash store.
+
+    Reference parity: com.linkedin.photon.ml.index.PalDBIndexMap — the
+    offline store the reference maps at training/scoring time for feature
+    spaces too large for a JVM hash map. Same interface subset as a frozen
+    IndexMap (get / n_features / intercept_id / keys_in_order), plus
+    ``lookup_batch`` for vectorized key resolution. Binary save/load is
+    mmap-based: opening a 10M-key store touches no Python per key.
+    """
+
+    def __init__(self, store, has_intercept: bool):
+        self._store = store
+        self.has_intercept = has_intercept
+        self.frozen = True
+
+    NULL_ID = IndexMap.NULL_ID
+
+    # --------------------------------------------------------- construction
+    @classmethod
+    def build(cls, imap: "IndexMap") -> "PalDBIndexMap":
+        """Freeze an in-memory IndexMap into a native store."""
+        from photon_tpu_torch import native
+
+        keys = imap.keys_in_order()
+        if imap.has_intercept:
+            keys = keys[:-1]
+        return cls(native.NativeIndexStore.from_keys(keys),
+                   imap.has_intercept)
+
+    def __len__(self) -> int:
+        return len(self._store) + (1 if self.has_intercept else 0)
+
+    @property
+    def n_features(self) -> int:
+        return len(self)
+
+    @property
+    def intercept_id(self) -> Optional[int]:
+        return len(self) - 1 if self.has_intercept else None
+
+    def get(self, key: str) -> int:
+        if key == INTERCEPT_KEY:
+            return self.intercept_id if self.has_intercept else self.NULL_ID
+        return self._store.get(key)
+
+    index_of = get  # frozen: lookups never insert
+
+    def lookup_batch(self, keys) -> np.ndarray:
+        keys = list(keys)  # materialize: generators must survive two passes
+        ids = self._store.lookup_batch(keys)
+        if self.has_intercept:
+            ids = np.where(
+                np.asarray([k == INTERCEPT_KEY for k in keys]),
+                np.int32(self.intercept_id), ids)
+        return ids
+
+    def keys_in_order(self) -> list:
+        out = self._store.keys_in_order()
+        if self.has_intercept:
+            out.append(INTERCEPT_KEY)
+        return out
+
+    def to_index_map(self) -> IndexMap:
+        keys = self._store.keys_in_order()
+        return IndexMap({k: i for i, k in enumerate(keys)}, frozen=True,
+                        has_intercept=self.has_intercept)
+
+    # -------------------------------------------------------------------- IO
+    # Binary pair: <path> is the native store; <path>.meta carries the
+    # intercept flag.
+    def save(self, path) -> None:
+        self._store.save(path)
+        Path(str(path) + ".meta").write_text(
+            f"#photon_tpu-paldb\t{int(self.has_intercept)}\n")
+
+    @classmethod
+    def open(cls, path) -> "PalDBIndexMap":
+        from photon_tpu_torch import native
+
+        meta = Path(str(path) + ".meta").read_text().rstrip("\n").split("\t")
+        if meta[0] != "#photon_tpu-paldb":
+            raise ValueError(f"{path}: not a photon_tpu PalDB index map")
+        return cls(native.NativeIndexStore.open(path), bool(int(meta[1])))

@@ -1,17 +1,20 @@
 """Avro training records → GameData (host arrays) — the port's copy of
-`photon_tpu/data/ingest.py`, on the pure-Python decode path.
+`photon_tpu/data/ingest.py`.
 
 Reference parity: com.linkedin.photon.ml.data.avro.AvroDataReader — reads
 TrainingExampleAvro-shaped records (response/offset/weight + feature-bag
 arrays of NameTermValue + entity-id columns) and materializes one design
 matrix per configured feature shard. The reference produces per-partition
 RDDs; here the output is host numpy arrays (and numpy-backed
-`SparseRows`), moved to the device once by `GameData.to_device`. The
-native block decoder waits for ROADMAP queue A item 8b.
+`SparseRows`), moved to the device once by `GameData.to_device`.
+`read_game_data` decodes through the C++ block decoder
+(`data.native_ingest`) unless asked not to, with this module's
+pure-Python assembly as its fallback.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -265,6 +268,39 @@ def records_to_game_data(
     return GameData(y, weights, offsets, shards, ids), index_maps
 
 
+def native_fallback(what, force: Optional[bool]) -> None:
+    """The one decision point for a native read that did not apply.
+
+    ``force=True`` (``use_native=True``) raises: with the library's build
+    error (the compiler's stderr) when it is unavailable, else naming the
+    unplannable schema. ``force=None`` falls back to the pure-Python
+    decoder LOUDLY: a warning naming the reason, and the counters
+    ``ingest.python_fallback`` (every fallback) and
+    ``ingest.native_unavailable`` (the library could not be built or
+    loaded)."""
+    from photon_tpu_torch import native, telemetry
+
+    missing = not native.available()
+    if force:
+        if missing:
+            native.require_lib()  # raises with the build error
+        raise RuntimeError(
+            f"native ingestion requested for {what} but the schema is not "
+            "native-plannable (see native_ingest.compile_plan), the files' "
+            "schemas differ, or per-shard maps mix build/frozen modes")
+    telemetry.count("ingest.python_fallback")
+    if missing:
+        telemetry.count("ingest.native_unavailable")
+        reason = f"the C++ library is unavailable ({native.build_error()})"
+    else:
+        reason = ("the schema shape is not native-plannable (see "
+                  "native_ingest.compile_plan), the files' schemas differ, "
+                  "or per-shard maps mix build/frozen modes")
+    logging.getLogger("photon_tpu_torch.ingest").warning(
+        "native ingestion unavailable for %s: %s — falling back to the "
+        "pure-Python reader", what, reason)
+
+
 def read_game_data(
     path,
     config: GameDataConfig,
@@ -272,13 +308,19 @@ def read_game_data(
     sparse_k: Optional[int] = None,
     use_native: Optional[bool] = None,
 ) -> tuple[GameData, dict]:
-    """Avro file/dir → GameData (reference: AvroDataReader.readMerged),
-    through the pure-Python decoder. ``use_native=True`` asks for the C++
-    block decoder, which is not ported yet: it raises rather than falling
-    back quietly; None and False read in Python."""
-    if use_native:
-        raise NotImplementedError(
-            "the native Avro block decoder (photon_tpu/native) is not "
-            "ported yet (ROADMAP queue A item 8b); use_native=None or "
-            "False reads through the pure-Python decoder")
+    """Avro file/dir → GameData (reference: AvroDataReader.readMerged).
+
+    use_native: True forces the C++ block decoder (an error if the
+    library does not build or the schema is not plannable), False forces
+    pure Python, None (default) tries native and falls back — logged and
+    counted (`native_fallback`) — when the toolchain or the schema shape
+    isn't supported. Both decoders give the same GameData and maps.
+    """
+    if use_native is not False:
+        from photon_tpu_torch.data.native_ingest import read_game_data_native
+
+        out = read_game_data_native(path, config, index_maps, sparse_k)
+        if out is not None:
+            return out
+        native_fallback(path, use_native)
     return records_to_game_data(read_avro(path), config, index_maps, sparse_k)

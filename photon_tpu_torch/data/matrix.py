@@ -868,13 +868,51 @@ def last_column_is_intercept(X) -> bool:
 
 
 # ------------------------------------------------ sorted segment sums
+_SCAN_BLOCK = 1024
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along dim 0 whose bits do not depend on the
+    run. ``torch.cumsum`` of a float CUDA tensor with one column is one
+    CUB device scan (decoupled look-back), whose additions group by the
+    timing of its blocks: the same input gives other bits from call to
+    call, so that case takes `_blocked_prefix_sum`. Several columns scan
+    one thread per column, in row order, and the CPU's scan is
+    sequential: both keep ``torch.cumsum``."""
+    single = x.dim() == 1 or x[0].numel() == 1
+    if x.is_cuda and x.is_floating_point() and single:
+        return _blocked_prefix_sum(x)
+    return torch.cumsum(x, dim=0)
+
+
+def _blocked_prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """`prefix_sum` in a fixed order: the values cut into rows of 1,024,
+    each row scanned along itself, and the row totals prefix-summed the
+    same way, recursively, then added back."""
+    v = x.reshape(-1)
+    n = int(v.shape[0])
+    m = _SCAN_BLOCK
+    rows = max(-(-n // m), 1)
+    blocks = torch.nn.functional.pad(v, (0, rows * m - n)).reshape(rows, m)
+    if rows == 1:
+        # a second row keeps the scan along the row (one row alone is
+        # the single-column case again)
+        out = torch.cumsum(torch.cat([blocks, torch.zeros_like(blocks)]),
+                           dim=1)[0]
+    else:
+        inner = torch.cumsum(blocks, dim=1)
+        carry = _blocked_prefix_sum(inner[:, -1])
+        out = torch.cat([inner[:1], inner[1:] + carry[:-1, None]]).reshape(-1)
+    return out[:n].reshape(x.shape)
+
+
 def _tail_rowsum(contrib: torch.Tensor,
                  row_bounds: torch.Tensor) -> torch.Tensor:
     """Per-segment sums of flat contributions (m,) or (m, G) whose
     segment s spans ``row_bounds[s]:row_bounds[s + 1]``: cumulative-sum
-    differences, no scatter."""
+    differences (`prefix_sum`: the same bits every run), no scatter."""
     zero = contrib.new_zeros((1,) + tuple(contrib.shape[1:]))
-    cs = torch.cat([zero, torch.cumsum(contrib, dim=0)])
+    cs = torch.cat([zero, prefix_sum(contrib)])
     b = cs[row_bounds]
     return b[1:] - b[:-1]
 

@@ -3,9 +3,9 @@
 
 Avro containers at LinkedIn commonly use the snappy codec (each block:
 raw-snappy-compressed payload + 4-byte big-endian CRC32 of the UNCOMPRESSED
-bytes). Nothing in this image ships a snappy binding, so the raw block
-format is implemented here; a native decompressor waits for the
-`native/` port (ROADMAP queue A item 8b).
+bytes). No snappy binding is assumed, so the raw block format is
+implemented here; `native.snappy_uncompress` is the C++ twin the
+container reader prefers when the native library builds.
 
 Format (github.com/google/snappy format_description.txt):
   preamble: uncompressed length, little-endian varint;

@@ -13,8 +13,9 @@ sum each column's live slots through the matrix's sorted segments (the
 plan its Xᵀr uses: no atomic add decides a sum), with implicit zeros
 folded in afterwards — a column whose nonzero count is below the row
 count includes 0 in its min/max, matching the reference's full-vector
-semantics. The chunk-merging forms (`merge`, `compute_host`) come with
-the streamed reads, ROADMAP queue A item 8b.
+semantics. The streamed reads summarize each host chunk with
+`compute_host` (numpy, f64) and fold the chunks with `merge` (Chan's
+parallel update).
 """
 from __future__ import annotations
 
@@ -74,6 +75,87 @@ class FeatureSummary:
             dt = np.int64 if f.name == "num_nonzeros" else np.float64
             kwargs[f.name] = np.asarray(doc[f.name], dt)
         return FeatureSummary(**kwargs)
+
+    # ----------------------------------------------------------------- merging
+    def merge(self, other: "FeatureSummary") -> "FeatureSummary":
+        """Combine two summaries of disjoint row sets into the summary of
+        their union (reference: the treeAggregate combOp over per-partition
+        summarizers). Means/variances merge with Chan's parallel update in
+        float64, so a chunk-streamed summary matches the one-shot pass to
+        ~1e-12 relative — this is what lets the streaming drivers build
+        normalization contexts without materializing the dataset."""
+        na, nb = self.count, other.count
+        n = na + nb
+        delta = other.mean - self.mean
+        mean = self.mean + delta * (nb / n)
+        m2 = (self.variance * na + other.variance * nb
+              + delta * delta * (na * nb / n))
+        return FeatureSummary(
+            count=n,
+            mean=mean,
+            variance=m2 / n,
+            minimum=np.minimum(self.minimum, other.minimum),
+            maximum=np.maximum(self.maximum, other.maximum),
+            abs_max=np.maximum(self.abs_max, other.abs_max),
+            norm_l1=self.norm_l1 + other.norm_l1,
+            norm_l2=np.sqrt(self.norm_l2 ** 2 + other.norm_l2 ** 2),
+            num_nonzeros=self.num_nonzeros + other.num_nonzeros,
+        )
+
+    # ------------------------------------------------------------ construction
+    @staticmethod
+    def compute_host(X) -> "FeatureSummary":
+        """Numpy twin of `compute` for one host chunk — the streaming chunk
+        hook (the chunk is decoded on the host and summarized there, with
+        no device round trip). Accumulates in float64, so chunk merges
+        match the one-shot pass to ~1e-12 relative."""
+        if isinstance(X, SparseRows):
+            n, d = X.shape
+            idx = np.asarray(X.indices).reshape(-1)
+            val = np.asarray(X.values, np.float64).reshape(-1)
+            live = val != 0.0
+            idx, val = idx[live], val[live]
+            s1 = np.zeros(d)
+            s2 = np.zeros(d)
+            l1 = np.zeros(d)
+            nnz = np.zeros(d, np.int64)
+            np.add.at(s1, idx, val)
+            np.add.at(s2, idx, val * val)
+            np.add.at(l1, idx, np.abs(val))
+            np.add.at(nnz, idx, 1)
+            mn = np.full(d, np.inf)
+            mx = np.full(d, -np.inf)
+            np.minimum.at(mn, idx, val)
+            np.maximum.at(mx, idx, val)
+            # implicit zeros: all-zero columns and columns with nnz < n
+            mn = np.where(nnz == 0, 0.0, mn)
+            mx = np.where(nnz == 0, 0.0, mx)
+            has_zero = nnz < n
+            mn = np.where(has_zero, np.minimum(mn, 0.0), mn)
+            mx = np.where(has_zero, np.maximum(mx, 0.0), mx)
+            mean = s1 / n
+            # mean-shifted second pass, like compute(): the one-pass
+            # E[x²]−E[x]² form cancels catastrophically for large-mean,
+            # small-variance columns. Stored entries contribute (v−μ)²;
+            # the n−nnz implicit zeros contribute μ² each.
+            c = val - mean[idx]
+            ssq = np.zeros(d)
+            np.add.at(ssq, idx, c * c)
+            var = np.maximum((ssq + (n - nnz) * mean * mean) / n, 0.0)
+        else:
+            Xn = np.asarray(X, np.float64)
+            n, d = Xn.shape
+            mean = Xn.mean(0)
+            var = np.mean((Xn - mean) ** 2, 0)
+            mn = Xn.min(0)
+            mx = Xn.max(0)
+            l1 = np.abs(Xn).sum(0)
+            s2 = (Xn * Xn).sum(0)
+            nnz = np.count_nonzero(Xn, axis=0).astype(np.int64)
+        return FeatureSummary(
+            count=int(n), mean=mean, variance=var, minimum=mn, maximum=mx,
+            abs_max=np.maximum(np.abs(mn), np.abs(mx)),
+            norm_l1=l1, norm_l2=np.sqrt(s2), num_nonzeros=nnz)
 
     # ------------------------------------------------------------ construction
     @staticmethod

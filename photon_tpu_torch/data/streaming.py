@@ -1,49 +1,88 @@
-"""Chunked Avro ingestion: block-streamed Avro → GameData chunks, on the
-pure-Python decode path (the part of `photon_tpu/data/streaming.py` the
-in-memory drivers use; `stream_to_device`, `stream_to_host` and the
-native chunk decoder wait for ROADMAP queue A item 8b).
+"""Streaming ingestion: block-streamed Avro → bounded-memory GameData (the
+port's copy of `photon_tpu/data/streaming.py`, single device).
 
 Reference parity: com.linkedin.photon.ml.data.avro.AvroDataReader reads
 partitioned HDFS data through Spark — the dataset never materializes on one
 host. Here:
 
 - `iter_game_chunks`: an iterator of GameData CHUNKS, assembled container
-  block by container block; the host arena stays bounded by ~2 chunks
-  regardless of dataset size, and multi-file inputs stream file after
-  file (the scoring driver's reader);
-- `scan_ingest`: one pass over the containers that builds any missing
-  frozen index maps and records the block index (a header-only scan when
-  every map is given — the training driver's auto-streaming check).
+  block by container block (the native C++ decoder when it applies, pure
+  Python otherwise); the host arena stays bounded by ~2 chunks regardless
+  of dataset size, and multi-file inputs stream file after file;
+- `build_index_maps_streaming` / `scan_ingest`: the training path's first
+  pass — feature-key → id maps built over the same block stream (native
+  build mode), recording the block index the ingest plane reuses;
+- `stream_to_device`: chunks land STRAIGHT in preallocated device tensors
+  — each chunk is copied into a pinned staging buffer and from there, on
+  a side stream, into its rows of the device tensors; a staging buffer is
+  refilled only after its copy's event — so the host holds a few
+  chunk-sized staging buffers and one decoded chunk, never the dataset;
+- `stream_to_host`: the streamed-objective read — shards used only by
+  fixed effects as uniform host `ChunkedMatrix` chunks (pinned), the rest
+  as host numpy.
 
 Chunks are container-block-aligned: a chunk closes at the first block
 boundary at or after `chunk_rows`, so concatenating the chunks reproduces
-the one-shot `read_game_data` result exactly.
+the one-shot `read_game_data` result exactly. Meshes (``mesh=``,
+``local_only``) wait for ROADMAP queue A item 10.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
+from photon_tpu_torch import native, telemetry
+from photon_tpu_torch.checkpoint.faults import retry_io
 from photon_tpu_torch.data.avro_io import AvroContainerReader, avro_paths
+from photon_tpu_torch.data.feature_bags import coo_to_matrix
 from photon_tpu_torch.data.index_map import INTERCEPT_KEY, IndexMap, \
     feature_key
 from photon_tpu_torch.data.ingest import (
     GameDataConfig,
     entity_id_or_none,
+    native_fallback,
     normalize_bag,
     numeric_or_none,
     records_to_game_data,
 )
 from photon_tpu_torch.data.matrix import SparseRows, next_pow2
+from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.game.dataset import GameData
 
 
 def _open_reader(p) -> AvroContainerReader:
-    """One Avro container (the reference's retry with backoff on open,
-    `checkpoint.faults.retry_io`, waits for ROADMAP queue A item 8b)."""
-    return AvroContainerReader(p)
+    """Open one Avro container with transient-IO retry/backoff
+    (`checkpoint.faults.retry_io`, site ``avro_open``): a shared-filesystem
+    hiccup at ingest backs off and retries instead of killing the run.
+    Mid-stream read errors still propagate — a container cannot be safely
+    resumed mid-block, so the recovery unit is the ingest pass."""
+    return retry_io(lambda: AvroContainerReader(p), site="avro_open")
+
+
+def _mesh_not_ported(what: str):
+    return NotImplementedError(
+        f"{what}: mesh (multi-device) streaming is not ported yet (ROADMAP "
+        "queue A item 10)")
+
+
+def feature_torch_dtype(feature_dtype) -> torch.dtype:
+    """A storage dtype given as a torch dtype, a name (``"bfloat16"``) or
+    None (float32)."""
+    if feature_dtype is None:
+        return torch.float32
+    if isinstance(feature_dtype, torch.dtype):
+        return feature_dtype
+    return getattr(torch, str(feature_dtype))
+
+
+def _tensor(a) -> torch.Tensor:
+    """A host array as a CPU tensor (a copy only when the array is not a
+    writable C-contiguous buffer, e.g. a cache hit's read-only mmap)."""
+    return torch.from_numpy(np.require(a, requirements=("C", "W")))
 
 
 def scan_row_counts(path, block_index: Optional[dict] = None) -> list:
@@ -69,8 +108,8 @@ class IngestScan:
     """Everything one cold-start pass over the containers learns: the
     frozen per-shard index maps AND the per-file block index (offsets /
     record counts / compressed sizes). `scan_ingest` folds row counting
-    into the map-building scan, so preallocating device buffers
-    costs no extra pass."""
+    into the map-building scan, so preallocating device buffers and
+    planning the ingest plane's decode tasks costs no extra pass."""
 
     index_maps: dict
     block_index: dict  # path -> [(offset, count, size)]
@@ -88,16 +127,16 @@ class IngestScan:
 def scan_ingest(path, config: GameDataConfig,
                 index_maps: Optional[dict] = None) -> IngestScan:
     """ONE pass over the containers: build whatever frozen index maps are
-    missing (first-seen order, bags in shard-config order — the ids
-    `read_game_data` assigns) while recording the block index as a side
-    effect of the same walk. When every map is prebuilt the pass degrades
-    to the header-only scan (no payload decompress)."""
+    missing (exactly `build_index_maps_streaming` semantics) while
+    recording the block index as a side effect of the same walk. When
+    every map is prebuilt the pass degrades to the header-only scan (no
+    payload decompress)."""
     index_maps = dict(index_maps or {})
     todo = {s: cfg for s, cfg in config.shards.items() if s not in index_maps}
     index_out: dict = {}
     if todo:
-        index_maps = _build_index_maps_streaming(path, index_maps, todo,
-                                                 index_out)
+        index_maps = _build_index_maps_streaming(path, config, index_maps,
+                                                 todo, index_out=index_out)
     else:
         for p in avro_paths(path):
             index_out[str(p)] = _open_reader(p).block_index()
@@ -111,8 +150,8 @@ def _frozen_maps_or_raise(config: GameDataConfig, index_maps,
     if missing:
         raise ValueError(
             f"streaming ingestion needs frozen index maps for every shard "
-            f"(missing {missing}); run scan_ingest (or the indexing "
-            "driver) first — ids cannot be assigned "
+            f"(missing {missing}); run build_index_maps_streaming (or the "
+            "indexing driver) first — ids cannot be assigned "
             "on-the-fly once early chunks have already been emitted")
     unfrozen = [s for s in config.shards if not index_maps[s].frozen]
     if unfrozen:
@@ -133,11 +172,41 @@ def _frozen_maps_or_raise(config: GameDataConfig, index_maps,
     return index_maps
 
 
-def _build_index_maps_streaming(path, index_maps: dict, todo: dict,
-                                index_out: dict) -> dict:
-    """The map-building walk: each record's bags of the shards in ``todo``
-    assign ids; every block's (offset, count, size) goes to
-    ``index_out``."""
+def build_index_maps_streaming(
+    path,
+    config: GameDataConfig,
+    index_maps: Optional[dict] = None,
+    use_native: Optional[bool] = None,
+) -> dict:
+    """One bounded-memory pass assigning feature ids (first-seen order,
+    bags in shard-config order — identical to `read_game_data`'s maps).
+    Existing maps in `index_maps` are kept as-is. Runs through the native
+    block decoder when it applies (``use_native`` as in `read_game_data`)."""
+    index_maps = dict(index_maps or {})
+    todo = {s: cfg for s, cfg in config.shards.items() if s not in index_maps}
+    if not todo:
+        return index_maps
+    return _build_index_maps_streaming(path, config, index_maps, todo,
+                                       use_native=use_native)
+
+
+def _build_index_maps_streaming(path, config: GameDataConfig, index_maps,
+                                todo, index_out: Optional[dict] = None,
+                                use_native: Optional[bool] = None) -> dict:
+    # Native pass over EXACTLY the shards being built: a sub-config keeps
+    # only their bags and consumes nothing else — every other field
+    # (the response/entity columns and prebuilt shards' bags) skips
+    # inside the C++ decoder.
+    if use_native is not False:
+        sub = dataclasses.replace(config, shards=todo, entity_fields=(),
+                                  response_field="\x00unconsumed",
+                                  offset_field="\x00unconsumed",
+                                  weight_field="\x00unconsumed")
+        nat = _build_maps_native(path, sub, index_out=index_out)
+        if nat is not None:
+            index_maps.update(nat)
+            return index_maps
+        native_fallback(path, use_native)
     building = {s: IndexMap() for s in todo}
     bag_names = sorted({b for cfg in todo.values() for b in cfg.bags})
     for p in avro_paths(path):
@@ -152,12 +221,70 @@ def _build_index_maps_streaming(path, index_maps: dict, todo: dict,
                     for bag in cfg.bags:
                         for ntv in norm[bag]:
                             imap.index_of(feature_key(ntv.name, ntv.term))
-        index_out[str(p)] = entries
+        if index_out is not None:
+            index_out[str(p)] = entries
     for s, cfg in todo.items():
         if cfg.has_intercept:
             building[s].index_of(INTERCEPT_KEY)
         index_maps[s] = building[s].freeze()
     return index_maps
+
+
+def _plan_readers(readers, config: GameDataConfig):
+    """The compiled schema plan shared by every reader, or None (not
+    plannable, or the files' schemas differ)."""
+    from photon_tpu_torch.data.native_ingest import compile_plan
+
+    plan0 = compile_plan(readers[0].schema, config)
+    if plan0 is None:
+        return None
+    for rd in readers[1:]:
+        if compile_plan(rd.schema, config) != plan0:
+            return None
+    return plan0
+
+
+def _build_maps_native(path, config: GameDataConfig,
+                       index_out: Optional[dict] = None) -> Optional[dict]:
+    """Native block-decode pass in BUILD mode, per-block arrays discarded —
+    id assignment mirrors `read_game_data_native` exactly (same stores,
+    same first-seen order). None when the native path doesn't apply.
+    ``index_out`` collects the block index of the same walk."""
+    from photon_tpu_torch.data.native_ingest import build_decode_plan
+
+    if not native.available():
+        return None
+    paths = avro_paths(path)
+    if not paths:
+        return None
+    readers = [_open_reader(p) for p in paths]
+    plan0 = _plan_readers(readers, config)
+    if plan0 is None:
+        return None
+    shard_names = list(config.shards)
+    stores = [native.NativeIndexStore(capacity_hint=1024)
+              for _ in shard_names]
+    plan = build_decode_plan(plan0, config, shard_names)
+    for rd in readers:
+        entries = []
+        for off, count, size, payload in rd.walk_blocks():
+            entries.append((off, count, size))
+            dec = native.decode_block(payload, count, 0, plan, stores, True)
+            if not dec.ok:
+                raise ValueError(f"{rd.path}: malformed Avro block")
+            dec.free()
+        if index_out is not None:
+            index_out[str(rd.path)] = entries
+    out = {}
+    for si, s in enumerate(shard_names):
+        cfg = config.shards[s]
+        imap = IndexMap({k: i for i, k in
+                         enumerate(stores[si].keys_in_order())},
+                        frozen=True, has_intercept=cfg.has_intercept)
+        if cfg.has_intercept:
+            imap.index_of(INTERCEPT_KEY)  # no-op id; records metadata
+        out[s] = imap
+    return out
 
 
 @dataclasses.dataclass
@@ -224,8 +351,9 @@ def iter_game_chunks(
 
     Chunks close at container-block boundaries, so sizes are
     ≥ `chunk_rows` (except the last) and concatenation equals the one-shot
-    read. `use_native` as in ingest.read_game_data: True raises (the
-    native chunk decoder is ROADMAP queue A item 8b).
+    read. `use_native` as in `ingest.read_game_data`: True forces the C++
+    decoder (raising when it cannot apply), None tries it and falls back
+    to Python logged and counted, False reads in Python.
 
     `uniform_sparse_k=False` lifts the fixed-`sparse_k` requirement for
     sparse shards: each chunk gets its own max-nnz width. Only for
@@ -237,11 +365,13 @@ def iter_game_chunks(
     stream = ChunkStream(config, index_maps, chunk_rows, sparse_k,
                          quantize_k=(not uniform_sparse_k
                                      and sparse_k is None))
-    if use_native:
-        raise NotImplementedError(
-            "the native chunk decoder (photon_tpu/native) is not ported yet "
-            "(ROADMAP queue A item 8b); use_native=None or False streams "
-            "through the pure-Python decoder")
+    if use_native is not False:
+        # Availability / plannability checked EAGERLY (before the first
+        # next()), so a forced use_native=True fails at the call site.
+        it = _native_chunks(path, stream)
+        if it is not None:
+            return stream, it
+        native_fallback(path, use_native)
     return stream, _python_chunks(path, stream)
 
 
@@ -272,8 +402,8 @@ def _quantize_widths(stream: ChunkStream, data: GameData) -> GameData:
 def _python_chunks(path, stream: ChunkStream) -> Iterator[GameData]:
     """Records buffered per chunk, then the standard records→GameData
     assembly with the frozen maps. Chunks close at container-BLOCK
-    boundaries, as the reference's native path does, so chunking is the
-    same whichever decoder runs."""
+    boundaries, exactly like the native path, so chunking is the same
+    whichever decoder runs."""
     return _python_chunks_from_readers(
         [_open_reader(p) for p in avro_paths(path)], stream)
 
@@ -281,7 +411,9 @@ def _python_chunks(path, stream: ChunkStream) -> Iterator[GameData]:
 def _python_chunks_from_readers(readers, stream: ChunkStream
                                 ) -> Iterator[GameData]:
     """The reader-level body of `_python_chunks`: any AvroContainerReader-
-    shaped sources stream through the SAME record buffering and assembly."""
+    shaped sources (including the ingest plane's per-worker block slices)
+    stream through the SAME record buffering and assembly, so a worker's
+    chunk is bit-identical to the serial stream's by construction."""
     buf: list = []
 
     def flush():
@@ -315,3 +447,551 @@ def _python_chunks_from_readers(readers, stream: ChunkStream
                 yield flush()
     if buf:
         yield flush()
+
+
+def _native_chunks(path, stream: ChunkStream):
+    """C++ block decoder path; None when unavailable/unplannable."""
+    if not native.available():
+        return None
+    paths = avro_paths(path)
+    if not paths:
+        return None
+    return _native_chunks_from_readers(
+        [_open_reader(p) for p in paths], stream)
+
+
+def _native_chunks_from_readers(readers, stream: ChunkStream,
+                                stores: Optional[list] = None):
+    """The reader-level body of `_native_chunks` (shared with the ingest
+    plane's per-worker block slices); None when the schema is not
+    native-plannable. ``stores`` are the frozen native stores of the
+    stream's maps when the caller holds them already (a decode worker
+    builds them once, not per task)."""
+    from photon_tpu_torch.data.native_ingest import (build_decode_plan,
+                                                     entity_ids_of,
+                                                     frozen_stores)
+
+    if not native.available() or not readers:
+        return None
+    config = stream.config
+    plan0 = _plan_readers(readers, config)
+    if plan0 is None:
+        return None
+    shard_names = list(config.shards)
+    if stores is None:
+        stores = frozen_stores(stream.index_maps, shard_names)
+    plan = build_decode_plan(plan0, config, shard_names)
+
+    optional_ents = set(config.optional_entity_fields)
+
+    def generator():
+        ys, offs, wts, ysets = [], [], [], []
+        coos = [[] for _ in shard_names]
+        ents = [[] for _ in config.entity_fields]
+        rows_in_chunk = 0
+        live = 0
+
+        def assemble() -> GameData:
+            nonlocal rows_in_chunk, live
+            n = rows_in_chunk
+            if config.allow_missing_response:
+                stream.last_response_mask = np.concatenate(ysets)
+                ysets.clear()
+            y = np.concatenate(ys).astype(np.float32)
+            offsets = np.concatenate(offs).astype(np.float32)
+            weights = np.concatenate(wts).astype(np.float32)
+            shards = {}
+            for si, s in enumerate(shard_names):
+                cfg = config.shards[s]
+                imap = stream.index_maps[s]
+                rows = np.concatenate([c[0] for c in coos[si]])
+                cols = np.concatenate([c[1] for c in coos[si]]).astype(
+                    np.int64)
+                vals = np.concatenate([c[2] for c in coos[si]])
+                if cfg.has_intercept:
+                    rows = np.concatenate(
+                        [rows, np.arange(n, dtype=np.int64)])
+                    cols = np.concatenate(
+                        [cols, np.full(n, imap.intercept_id, np.int64)])
+                    vals = np.concatenate([vals, np.ones(n, np.float32)])
+                shards[s] = coo_to_matrix(rows, cols, vals, n,
+                                          imap.n_features,
+                                          cfg.dense_threshold,
+                                          k=stream.sparse_k)
+            ids = {}
+            presence: dict = {}
+            for e_i, e in enumerate(config.entity_fields):
+                col, null = entity_ids_of(ents[e_i])
+                if e in optional_ents:
+                    presence[e] = ~null
+                elif null.any():
+                    raise ValueError(f"records missing entity id {e!r}")
+                ids[e] = col
+            stream.last_entity_presence = presence
+            out = _quantize_widths(
+                stream, GameData(y, weights, offsets, shards, ids))
+            # block pieces + the assembled chunk coexist briefly
+            stream._note(live + _chunk_nbytes(out))
+            ys.clear()
+            offs.clear()
+            wts.clear()
+            for c in coos:
+                c.clear()
+            for e in ents:
+                e.clear()
+            rows_in_chunk = 0
+            live = 0
+            return out
+
+        for rd in readers:
+            for count, payload in rd.blocks():
+                dec = native.decode_block(payload, count, rows_in_chunk,
+                                          plan, stores, False)
+                if not dec.ok:
+                    raise ValueError(f"{rd.path}: malformed Avro block")
+                y, y_set = dec.scalars(0)
+                if not y_set.all():
+                    if not config.allow_missing_response:
+                        raise ValueError(
+                            f"{rd.path}: record missing response")
+                    stream.saw_missing_response = True
+                    y = np.where(y_set, y, 0.0)
+                if config.allow_missing_response:
+                    ysets.append(y_set)
+                off, off_set = dec.scalars(1)
+                wt, wt_set = dec.scalars(2)
+                ys.append(y)
+                offs.append(np.where(off_set, off, 0.0))
+                wts.append(np.where(wt_set, wt, 1.0))
+                live += y.nbytes * 3
+                for si in range(len(shard_names)):
+                    c = dec.coo(si)
+                    coos[si].append(c)
+                    live += sum(a.nbytes for a in c)
+                for e in range(len(config.entity_fields)):
+                    ents[e].append(dec.entity_column(e))
+                dec.free()
+                rows_in_chunk += count
+                if rows_in_chunk >= stream.chunk_rows:
+                    yield assemble()
+        if rows_in_chunk:
+            yield assemble()
+
+    return generator()
+
+
+def _dense_shard_flags(config: GameDataConfig, index_maps: dict) -> dict:
+    return {s: index_maps[s].n_features <= cfg.dense_threshold
+            for s, cfg in config.shards.items()}
+
+
+def _round_to(a: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """Host f32 values rounded through the storage dtype (the values a
+    ``dtype`` tensor holds, kept as f32 numpy for the host consumers)."""
+    if dtype == torch.float32:
+        return np.asarray(a, np.float32)
+    return _tensor(np.asarray(a, np.float32)).to(dtype).to(
+        torch.float32).numpy()
+
+
+def stream_to_host(
+    path,
+    config: GameDataConfig,
+    index_maps: dict,
+    chunked_shards=(),
+    chunk_rows: int = 65536,
+    objective_chunk_rows: int = 1 << 20,
+    sparse_k: Optional[int] = None,
+    use_native: Optional[bool] = None,
+    feature_dtype=None,
+    chunk_hook=None,
+    n_rows: Optional[int] = None,
+    workers: int = 0,
+    cache_dir=None,
+    block_index: Optional[dict] = None,
+    mode: str = "process",
+    pool=None,
+) -> tuple[GameData, int]:
+    """Stream a dataset into HOST-RESIDENT form for the out-of-device-
+    memory streamed-objective solve (the training driver trips here when
+    the device-resident estimate exceeds the device's budget).
+
+    ``workers``/``cache_dir``/``block_index``/``mode`` engage the ingest
+    plane (`data.ingest_plane.open_chunk_source`): ``workers > 0``
+    decodes container blocks in a worker pool (chunk order preserved bit
+    for bit; a dead worker degrades that chunk to in-process decode),
+    ``cache_dir`` opens/commits the decode-once chunk cache,
+    ``block_index`` reuses `scan_ingest`'s block offsets, and ``pool`` (a
+    `data.ingest_plane.DecodePool`) lends process workers that outlive
+    the stream.
+
+    Shards named in `chunked_shards` are assembled as
+    `data.dataset.ChunkedMatrix` — uniform `objective_chunk_rows`-row host
+    chunks (CPU tensors, pinned when a GPU is present) the streamed
+    solvers re-upload pass by pass, so the device holds O(chunk + solver
+    state) instead of O(dataset). Every other shard and the scalar
+    columns assemble as full host numpy (the GAME layer moves what it
+    needs: random-effect buckets must be resident).
+
+    `feature_dtype` (a torch dtype or its name) is the storage dtype of
+    the feature values: chunked shards store it, resident shards hold
+    their values rounded through it (as f32 numpy, which the host-side
+    entity bucketing reads). `chunk_hook(chunk)` runs on every decoded
+    chunk first (validation, mergeable statistics).
+
+    Returns (GameData, n_real); GameData.n == n_real (only the
+    ChunkedMatrix pads internally, weight-0-masked by the solve batches).
+    """
+    from photon_tpu_torch.data.dataset import ChunkedMatrix, _pin
+    from photon_tpu_torch.data.ingest_plane import open_chunk_source
+
+    index_maps = _frozen_maps_or_raise(config, index_maps, sparse_k)
+    chunked_shards = set(chunked_shards)
+    unknown = chunked_shards - set(config.shards)
+    if unknown:
+        raise ValueError(f"chunked_shards not in config: {sorted(unknown)}")
+    if n_rows is not None:
+        n_real = int(n_rows)
+    else:
+        n_real = sum(scan_row_counts(path, block_index=block_index))
+    c_rows = max(int(objective_chunk_rows), 1)
+
+    dense_shards = _dense_shard_flags(config, index_maps)
+    f_dtype = feature_torch_dtype(feature_dtype)
+    for s in chunked_shards:
+        if not dense_shards[s] and sparse_k is None:
+            raise ValueError(
+                f"chunked shard {s!r} is sparse: pass a fixed sparse_k so "
+                "every chunk shares one nnz width")
+
+    def alloc(s):
+        d = index_maps[s].n_features
+        if dense_shards[s]:
+            return torch.zeros((c_rows, d), dtype=f_dtype)
+        return (torch.zeros((c_rows, sparse_k), dtype=torch.int32),
+                torch.zeros((c_rows, sparse_k), dtype=f_dtype))
+
+    bufs = {s: alloc(s) for s in chunked_shards}
+    done_chunks: dict = {s: [] for s in chunked_shards}
+    filled = 0  # rows filled in the current uniform chunk buffers
+
+    scal_parts: dict = {k: [] for k in ("y", "weights", "offsets")}
+    res_parts: dict = {s: [] for s in config.shards if s not in chunked_shards}
+    entity_cols: dict = {e: [] for e in config.entity_fields}
+
+    def flush():
+        nonlocal bufs, filled
+        for s in chunked_shards:
+            b = bufs[s]
+            done_chunks[s].append(tuple(map(_pin, b)) if isinstance(b, tuple)
+                                  else _pin(b))
+        bufs = {s: alloc(s) for s in chunked_shards}
+        filled = 0
+
+    _, chunks = open_chunk_source(path, config, index_maps,
+                                  chunk_rows=chunk_rows, sparse_k=sparse_k,
+                                  use_native=use_native, workers=workers,
+                                  cache_dir=cache_dir,
+                                  block_index=block_index, mode=mode,
+                                  pool=pool)
+    for chunk in chunks:
+        telemetry.count("ingest.chunks")
+        telemetry.count("ingest.rows", chunk.n)
+        if chunk_hook is not None:
+            chunk_hook(chunk)
+        scal_parts["y"].append(np.asarray(chunk.y))
+        scal_parts["weights"].append(np.asarray(chunk.weights))
+        scal_parts["offsets"].append(np.asarray(chunk.offsets))
+        for e in config.entity_fields:
+            entity_cols[e].append(np.asarray(chunk.entity_ids[e]))
+        for s in res_parts:
+            X = chunk.shards[s]
+            if isinstance(X, SparseRows):
+                res_parts[s].append((np.asarray(X.indices),
+                                     _round_to(X.values, f_dtype)))
+            else:
+                res_parts[s].append(_round_to(X, f_dtype))
+        host_mat = {}
+        for s in chunked_shards:
+            X = chunk.shards[s]
+            host_mat[s] = (_tensor(X) if dense_shards[s]
+                           else (_tensor(X.indices), _tensor(X.values)))
+        c0, n_c = 0, chunk.n
+        while c0 < n_c:
+            take = min(n_c - c0, c_rows - filled)
+            sl = slice(c0, c0 + take)
+            dst = slice(filled, filled + take)
+            for s in chunked_shards:
+                if dense_shards[s]:
+                    bufs[s][dst] = host_mat[s][sl]
+                else:
+                    ind, val = bufs[s]
+                    h_ind, h_val = host_mat[s]
+                    k_c = h_ind.shape[1]
+                    ind[dst, :k_c] = h_ind[sl]
+                    val[dst, :k_c] = h_val[sl]
+            filled += take
+            c0 += take
+            if filled == c_rows:
+                flush()
+    if filled or (chunked_shards and not done_chunks[next(iter(
+            chunked_shards))]):
+        flush()  # partial tail chunk (pad rows are all-zero → weight 0)
+
+    def concat(parts, width=None, dtype=np.float32):
+        if parts:
+            return np.concatenate(parts)
+        shape = (0,) if width is None else (0, width)
+        return np.zeros(shape, dtype)
+
+    shards: dict = {}
+    for s in config.shards:
+        d = index_maps[s].n_features
+        if s in chunked_shards:
+            cs = tuple(c if dense_shards[s] else SparseRows(c[0], c[1], d)
+                       for c in done_chunks[s])
+            shards[s] = ChunkedMatrix(cs, n_real, d)
+        elif dense_shards[s]:
+            shards[s] = concat(res_parts[s], width=d)
+        else:
+            k = sparse_k if sparse_k is not None else 1
+            ind = concat([p[0] for p in res_parts[s]], width=k,
+                         dtype=np.int32)
+            val = concat([p[1] for p in res_parts[s]], width=k)
+            shards[s] = SparseRows(ind, val, d)
+
+    ids = {e: (np.concatenate([np.asarray(c, dtype=np.str_) for c in cols])
+               if cols else np.zeros(0, dtype="U1"))
+           for e, cols in entity_cols.items()}
+    data = GameData(concat(scal_parts["y"]), concat(scal_parts["weights"]),
+                    concat(scal_parts["offsets"]), shards, ids)
+    return data, n_real
+
+
+class _StagingRing:
+    """Pinned host staging buffers for `stream_to_device`'s uploads: a
+    chunk is copied into a free buffer, the buffer's columns are copied
+    into their device rows on a side stream (``non_blocking``), and an
+    event recorded after those copies guards the buffer — it is refilled
+    only once the event has passed. ``depth`` buffers (an int, or an
+    `AdaptivePrefetch` whose depth widens while the waits block, within
+    its byte budget); each grows to the largest chunk it has held."""
+
+    def __init__(self, device: torch.device, prefetch):
+        self.device = device
+        self.ctl = prefetch if hasattr(prefetch, "observe_wait") else None
+        self.static = 2 if self.ctl is not None else max(int(prefetch), 1)
+        self.side = torch.cuda.Stream(device)
+        # the device tensors' zero fills run on the compute stream first
+        self.side.wait_stream(torch.cuda.current_stream(device))
+        self.slots: list = []   # [{name: pinned tensor}]
+        self.events: list = []  # per slot: the event of its last upload
+        self.turn = 0
+        self.item_bytes = 0
+
+    @property
+    def depth(self) -> int:
+        return (max(int(self.ctl.depth), 1) if self.ctl is not None
+                else self.static)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for slot in self.slots for t in slot.values())
+
+    def acquire(self, need: dict) -> dict:
+        """A staging buffer with a pinned tensor of at least ``need[name]``
+        = (shape, dtype) per column, free for the host to fill."""
+        if len(self.slots) < self.depth:
+            self.slots.append({})
+            self.events.append(None)
+            s = len(self.slots) - 1
+        else:
+            s = self.turn % len(self.slots)
+            self.turn += 1
+            ev = self.events[s]
+            if ev is not None:
+                t0 = time.perf_counter()
+                ev.synchronize()
+                waited = time.perf_counter() - t0
+                telemetry.count("ingest.staging_wait_seconds", waited)
+                if self.ctl is not None:
+                    self.ctl.observe_wait(waited, self.item_bytes)
+        slot = self.slots[s]
+        for name, (shape, dtype) in need.items():
+            t = slot.get(name)
+            if (t is None or t.dtype != dtype or t.shape[1:] != shape[1:]
+                    or t.shape[0] < shape[0]):
+                slot[name] = torch.empty(shape, dtype=dtype, pin_memory=True)
+        self._current = s
+        return slot
+
+    def upload(self, pairs) -> None:
+        """Issue ``dst.copy_(src)`` for each (device view, pinned view) on
+        the side stream and guard the current buffer with an event."""
+        with torch.cuda.stream(self.side):
+            for dst, src in pairs:
+                dst.copy_(src, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self.side)
+        self.events[self._current] = ev
+        self.item_bytes = max(self.item_bytes,
+                              sum(src.numel() * src.element_size()
+                                  for _, src in pairs))
+
+    def finish(self) -> None:
+        """The compute stream waits for every upload; the ring's size goes
+        to the peak gauges ``ingest.staging_peak_depth`` /
+        ``ingest.staging_peak_bytes`` (the largest ring since the reset)."""
+        torch.cuda.current_stream(self.device).wait_stream(self.side)
+        telemetry.gauge_max("ingest.staging_peak_depth", len(self.slots))
+        telemetry.gauge_max("ingest.staging_peak_bytes", self.nbytes())
+
+
+def stream_to_device(
+    path,
+    config: GameDataConfig,
+    index_maps: dict,
+    mesh=None,
+    chunk_rows: int = 65536,
+    sparse_k: Optional[int] = None,
+    use_native: Optional[bool] = None,
+    feature_dtype=None,
+    chunk_hook=None,
+    n_rows: Optional[int] = None,
+    prefetch=2,
+    _local_mask=None,
+    workers: int = 0,
+    cache_dir=None,
+    block_index: Optional[dict] = None,
+    local_only: bool = False,
+    device=None,
+    mode: str = "process",
+    pool=None,
+) -> tuple[GameData, int]:
+    """Stream a dataset STRAIGHT into its device placement on ``device``
+    (default ``cuda``).
+
+    The row count comes first (`n_rows`, or the block headers — the
+    block index of `scan_ingest` when given), so every device tensor is
+    allocated once at its full size: the scalar columns (n,) f32, a dense
+    shard (n, d) and a sparse one (n, sparse_k) int32 indices + values in
+    the storage dtype `feature_dtype` (a torch dtype or its name; f32 by
+    default). Each decoded chunk is copied into a pinned staging buffer
+    and from it, ``non_blocking`` on a side stream, into its rows; a
+    staging buffer is refilled only after the event of its previous
+    upload (`_StagingRing`). ``prefetch`` is the number of staging buffers
+    (an int, default 2, or a `data.ingest_plane.AdaptivePrefetch` that
+    widens while those waits block, within its byte budget). Host memory:
+    the staging buffers and the decoded chunk in hand — one shard (the
+    whole dataset on one device) never materializes on the host. On the
+    CPU the chunk is copied into its rows directly.
+
+    ``workers``/``cache_dir``/``block_index``/``mode``/``pool`` as in
+    `stream_to_host`; `chunk_hook(chunk)` runs on every decoded chunk
+    before its upload — the bounded-memory seam for per-chunk validation
+    and mergeable statistics.
+
+    Returns (GameData with device-resident y/weights/offsets/shards,
+    n_real); entity ids stay host numpy (they factorize on the host).
+    Meshes, ``local_only`` and the multi-process slot mask wait for
+    ROADMAP queue A item 10.
+    """
+    from photon_tpu_torch.data.ingest_plane import open_chunk_source
+
+    if mesh is not None:
+        raise _mesh_not_ported("stream_to_device(mesh=...)")
+    if local_only or _local_mask is not None:
+        raise _mesh_not_ported("stream_to_device(local_only / _local_mask)")
+    dev = resolve_device(device)
+    index_maps = _frozen_maps_or_raise(config, index_maps, sparse_k)
+    if n_rows is not None:
+        n_real = int(n_rows)
+    else:
+        n_real = sum(scan_row_counts(path, block_index=block_index))
+    dense_shards = _dense_shard_flags(config, index_maps)
+    f_dtype = feature_torch_dtype(feature_dtype)
+    scalars = {k: torch.zeros(n_real, dtype=torch.float32, device=dev)
+               for k in ("y", "weights", "offsets")}
+    mats: dict = {}
+    for s in config.shards:
+        d = index_maps[s].n_features
+        if dense_shards[s]:
+            mats[s] = torch.zeros((n_real, d), dtype=f_dtype, device=dev)
+        else:
+            mats[s] = (torch.zeros((n_real, sparse_k), dtype=torch.int32,
+                                   device=dev),
+                       torch.zeros((n_real, sparse_k), dtype=f_dtype,
+                                   device=dev))
+    entity_cols: dict = {e: [] for e in config.entity_fields}
+    ring = _StagingRing(dev, prefetch) if dev.type == "cuda" else None
+
+    _, chunks = open_chunk_source(path, config, index_maps,
+                                  chunk_rows=chunk_rows, sparse_k=sparse_k,
+                                  use_native=use_native, workers=workers,
+                                  cache_dir=cache_dir,
+                                  block_index=block_index, mode=mode,
+                                  pool=pool)
+    row = 0
+    for chunk in chunks:
+        telemetry.count("ingest.chunks")
+        telemetry.count("ingest.rows", chunk.n)
+        if chunk_hook is not None:
+            chunk_hook(chunk)
+        n_c = chunk.n
+        if row + n_c > n_real:
+            raise ValueError(
+                f"{path}: the stream yielded more than the {n_real} rows "
+                "its row count promised (the files changed?)")
+        for e in config.entity_fields:
+            entity_cols[e].append(np.asarray(chunk.entity_ids[e]))
+        # (name, host array, device view of this chunk's rows)
+        cols = [(k, np.asarray(getattr(chunk, k), np.float32),
+                 scalars[k][row:row + n_c]) for k in scalars]
+        for s in config.shards:
+            X = chunk.shards[s]
+            if dense_shards[s]:
+                cols.append((s, np.asarray(X), mats[s][row:row + n_c]))
+            else:
+                h_ind = np.asarray(X.indices)
+                k_c = h_ind.shape[1]
+                ind, val = mats[s]
+                cols.append((s + ".indices", h_ind,
+                             ind[row:row + n_c, :k_c]))
+                cols.append((s + ".values", np.asarray(X.values),
+                             val[row:row + n_c, :k_c]))
+        if ring is None:
+            for _, a, dst in cols:
+                dst.copy_(_tensor(a))
+        else:
+            slot = ring.acquire({name: (tuple(dst.shape), dst.dtype)
+                                 for name, _, dst in cols})
+            pairs = []
+            for name, a, dst in cols:
+                stage = slot[name][:n_c]
+                stage.copy_(_tensor(a))
+                pairs.append((dst, stage))
+            ring.upload(pairs)
+        telemetry.count("ingest.device_chunks")
+        row += n_c
+    if row != n_real:
+        raise ValueError(f"{path}: streamed {row} rows, the row count "
+                         f"promised {n_real} (the files changed?)")
+    if ring is not None:
+        ring.finish()
+
+    shards = {}
+    for s in config.shards:
+        if dense_shards[s]:
+            shards[s] = mats[s]
+        else:
+            shards[s] = SparseRows(mats[s][0], mats[s][1],
+                                   index_maps[s].n_features)
+    ids = {}
+    for e in config.entity_fields:
+        # chunk producers already emit str ndarrays; concatenate promotes
+        # to the widest str dtype, no per-row Python loop
+        cols = entity_cols[e] or [np.zeros(0, dtype="U1")]
+        ids[e] = np.concatenate([np.asarray(c, dtype=np.str_) for c in cols])
+    data = GameData(scalars["y"], scalars["weights"], scalars["offsets"],
+                    shards, ids)
+    return data, n_real

@@ -16,6 +16,11 @@ nothing at minimum support).
 
 The port's copy of `photon_tpu/drivers/index.py`: the same files, ids and
 order (``python -m photon_tpu_torch.drivers.index --config job.json``).
+The count runs through the native block decoder in build mode (its
+stores assign ids in first-seen order, and a bincount of each block's
+column ids is the occurrence count) unless ``use_native=False``; the
+reference counts every record in Python, which the port keeps as the
+fallback (`ingest.native_fallback`: logged and counted).
 """
 from __future__ import annotations
 
@@ -23,11 +28,15 @@ import dataclasses
 import json
 import os
 from collections import Counter
+from typing import Optional
+
+import numpy as np
 
 from photon_tpu_torch.data.avro_io import read_avro
 from photon_tpu_torch.data.feature_bags import FeatureShardConfig
 from photon_tpu_torch.data.index_map import IndexMap, feature_key
-from photon_tpu_torch.data.ingest import normalize_bag
+from photon_tpu_torch.data.ingest import (GameDataConfig, native_fallback,
+                                          normalize_bag)
 from photon_tpu_torch.utils.logging import photon_logger
 from photon_tpu_torch.utils.timing import PhaseTimers
 
@@ -40,6 +49,9 @@ class IndexingParams:
     output_dir: str
     feature_shards: dict  # shard name -> FeatureShardConfig or dict form
     min_count: int = 1
+    # True forces the native decoder, False pure Python, None tries native
+    # and falls back (as `read_game_data`'s use_native)
+    use_native: Optional[bool] = None
 
     def __post_init__(self):
         if self.min_count < 1:
@@ -61,19 +73,28 @@ def run_indexing(params: IndexingParams) -> IndexingOutput:
     """Scan the data once, build + save one frozen IndexMap per shard."""
     log = photon_logger("photon_tpu_torch.index", params.output_dir)
     timers = PhaseTimers()
-    with timers("read"):
-        records = read_avro(params.data_path)
-
-    with timers("count"):
-        counts: dict[str, Counter] = {s: Counter() for s in params.feature_shards}
-        for r in records:
-            for shard, cfg in params.feature_shards.items():
-                c = counts[shard]
-                for bag in cfg.bags:
-                    # same normalization as ingestion, so the prebuilt map's
-                    # keys/order match an implicitly built one exactly
-                    for ntv in normalize_bag(r.get(bag)):
-                        c[feature_key(ntv.name, ntv.term)] += 1
+    counts = None
+    if params.use_native is not False:
+        with timers("count"):
+            native = _count_native(params.data_path, params.feature_shards)
+        if native is None:
+            native_fallback(params.data_path, params.use_native)
+        else:
+            counts, n_records = native
+    if counts is None:
+        with timers("read"):
+            records = read_avro(params.data_path)
+        n_records = len(records)
+        with timers("count"):
+            counts = {s: Counter() for s in params.feature_shards}
+            for r in records:
+                for shard, cfg in params.feature_shards.items():
+                    c = counts[shard]
+                    for bag in cfg.bags:
+                        # same normalization as ingestion, so the prebuilt
+                        # map's keys/order match an implicitly built one
+                        for ntv in normalize_bag(r.get(bag)):
+                            c[feature_key(ntv.name, ntv.term)] += 1
 
     os.makedirs(params.output_dir, exist_ok=True)
     map_paths, sizes = {}, {}
@@ -93,7 +114,59 @@ def run_indexing(params: IndexingParams) -> IndexingOutput:
             log.info("shard %s: %d features (min_count=%d) -> %s",
                      shard, imap.n_features, params.min_count, path)
     log.info("timings: %s", timers.summary())
-    return IndexingOutput(map_paths, sizes, len(records))
+    return IndexingOutput(map_paths, sizes, n_records)
+
+
+def _count_native(path, shards: dict) -> Optional[tuple[dict, int]]:
+    """({shard: {key: count}} in first-seen order, records) through the
+    native decoder in build mode, or None when it does not apply (no
+    library, an unplannable schema). Each shard's store consumes its bags
+    in config order, record by record — the order of the Python count —
+    and every entry (duplicates included) is one COO entry, so a
+    bincount of the column ids is the Counter's count."""
+    from photon_tpu_torch import native
+    from photon_tpu_torch.data.avro_io import avro_paths
+    from photon_tpu_torch.data.native_ingest import build_decode_plan
+    from photon_tpu_torch.data.streaming import _open_reader, _plan_readers
+
+    if not native.available():
+        return None
+    paths = avro_paths(path)
+    if not paths:
+        return None
+    # consume the bags only: every other field skips inside the decoder
+    config = GameDataConfig(shards=shards, response_field="\x00unconsumed",
+                            offset_field="\x00unconsumed",
+                            weight_field="\x00unconsumed")
+    readers = [_open_reader(p) for p in paths]
+    plan0 = _plan_readers(readers, config)
+    if plan0 is None:
+        return None
+    names = list(shards)
+    stores = [native.NativeIndexStore(capacity_hint=1024) for _ in names]
+    plan = build_decode_plan(plan0, config, names)
+    tallies = [np.zeros(0, np.int64) for _ in names]
+    n_records = 0
+    for rd in readers:
+        for count, payload in rd.blocks():
+            dec = native.decode_block(payload, count, 0, plan, stores, True)
+            if not dec.ok:
+                raise ValueError(f"{rd.path}: malformed Avro block")
+            for si in range(len(names)):
+                cols = dec.coo(si)[1]
+                if cols.size:
+                    b = np.bincount(cols, minlength=len(stores[si]))
+                    b[:tallies[si].size] += tallies[si]
+                    tallies[si] = b
+            dec.free()
+            n_records += count
+    counts = {}
+    for si, s in enumerate(names):
+        keys = stores[si].keys_in_order()
+        t = np.zeros(len(keys), np.int64)
+        t[:tallies[si].size] = tallies[si]
+        counts[s] = dict(zip(keys, t.tolist()))
+    return counts, n_records
 
 
 def load_index_maps(map_paths: dict) -> dict:

@@ -10,8 +10,8 @@ The port's copy of `photon_tpu/drivers/score.py`
 (``python -m photon_tpu_torch.drivers.score --config job.json``, on the
 GPU unless ``run_scoring(..., device="cpu")``). The pipeline is CHUNKED
 end to end (the reference scores partition by partition and never
-collects the dataset): container blocks stream through the pure-Python
-decoder (the native one is ROADMAP queue A item 8b), each chunk is padded
+collects the dataset): container blocks stream through the native block
+decoder (pure Python as its fallback), each chunk is padded
 to a quantized height, moved to the device once and scored there, and
 appended to the output container via a VECTORIZED ScoredItemAvro block
 encoder. The loop is a ONE-CHUNK software pipeline: chunk i's scoring is
@@ -97,8 +97,8 @@ class ScoringParams:
     sparse_k: Optional[int] = None
     # Output container codec: null | deflate | snappy.
     output_codec: str = "deflate"
-    # True asks for the native C++ block decoder, which raises (ROADMAP
-    # queue A item 8b); None and False decode in pure Python.
+    # True forces the native C++ block decoder, False pure Python, None
+    # (default) tries native and falls back, logged and counted.
     use_native: Optional[bool] = None
     # The reference's persistent XLA compilation cache: XLA-only, so the
     # port accepts it and logs that it has no effect.

@@ -9,15 +9,30 @@ CLI.
 Hyperparameter search: the reference's grid mode maps to the cartesian
 product of each coordinate's `reg_weights`.
 
-The port's copy of `photon_tpu/drivers/train.py`, its in-memory path
+The port's copy of `photon_tpu/drivers/train.py`
 (``python -m photon_tpu_torch.drivers.train --config job.json``, on the
-GPU unless ``run_training(..., device="cpu")``): read (pure-Python Avro),
-validate, summarize, normalize, down-sample, `GameEstimator.fit` over the
-grid with validation, the extra evaluators, `best_model`, save, and
-``output_mode="ALL"`` with per-point resume. What is not ported raises
+GPU unless ``run_training(..., device="cpu")``): read (the native Avro
+decoder, pure Python as its fallback), validate, summarize, normalize,
+down-sample, `GameEstimator.fit` over the grid with validation, the extra
+evaluators, `best_model`, save, and ``output_mode="ALL"`` with per-point
+resume. Three read regimes, as the reference's:
+
+- in memory (`read_game_data`), at or below ``streaming_threshold_rows``
+  training rows (a header-only count) or with ``streaming=False``;
+- streamed to the device (`_read_streaming`): frozen maps from one
+  native pass, then chunks straight into preallocated device tensors
+  (`data.streaming.stream_to_device`), validated and summarized chunk by
+  chunk — above the threshold or with ``streaming=True``;
+- the streamed objective (`_read_streamed_objective`): shards used only
+  by fixed effects stay on the host as chunks the streamed solvers
+  re-upload every pass (`stream_to_host`), when the device-resident
+  estimate exceeds the device budget (`hbm_budget_bytes`, else the
+  card's memory) or with ``streamed_objective=True``.
+
+``ingest_workers`` and ``chunk_cache_dir`` engage the ingest plane
+(`data.ingest_plane`) in both streamed regimes. What is not ported raises
 naming its ROADMAP queue A item: ``checkpoint_dir`` and ``tuning_iters``
-(item 11), the streamed regimes and their knobs (item 8b), meshes (item
-10). Decoding stays on the host; the data moves to the device once.
+(item 11) and meshes (item 10).
 
 One deliberate difference from the reference: in ``output_mode="ALL"``
 every saved point's ``training_manifest.json`` is the training-row
@@ -49,9 +64,12 @@ from photon_tpu_torch.data.normalization import (
     NormalizationType,
 )
 from photon_tpu_torch.data.sampling import (binary_down_sample,
-                                            default_down_sample)
+                                            default_down_sample,
+                                            down_sample_weights)
 from photon_tpu_torch.data.statistics import FeatureSummary
-from photon_tpu_torch.data.streaming import scan_ingest
+from photon_tpu_torch.data.streaming import (build_index_maps_streaming,
+                                             scan_ingest, stream_to_device,
+                                             stream_to_host)
 from photon_tpu_torch.data.validators import (DataValidationType,
                                               validate_game_data)
 from photon_tpu_torch.device import resolve_device
@@ -143,18 +161,38 @@ class TrainingParams:
     variance_type: str = "none"
     down_sampling_rate: Optional[float] = None  # binary tasks: negatives only
     sparse_k: Optional[int] = None
-    # The reference's streamed regimes and ingest plane (ROADMAP queue A
-    # item 8b): streaming=None keeps the reference's header-only row count
-    # and raises above streaming_threshold_rows, where the reference would
-    # stream; streaming=True, streamed_objective=True, an explicit
-    # hbm_budget_bytes, ingest_workers > 0 and chunk_cache_dir raise.
+    # Streaming ingestion (reference: AvroDataReader reads partitioned data
+    # through Spark and never materializes the dataset on one host).
+    # Tri-state: None streams when the container-block headers count more
+    # than `streaming_threshold_rows` rows; True forces it; False keeps
+    # the one-shot reader. Streaming needs frozen index maps (built in one
+    # bounded pass, or prebuilt via index_map_dir), validates + summarizes
+    # chunk by chunk, lands data straight in preallocated device tensors,
+    # and expresses down-sampling as weight-0 rows (identical weighted
+    # objective; the row count is unchanged).
     streaming: Optional[bool] = None
     streaming_threshold_rows: int = 2_000_000
     streaming_chunk_rows: int = 65536
+    # Streamed-objective (out-of-device-memory) mode: shards used only by
+    # fixed effects live on the HOST as chunks and every solver evaluation
+    # streams them through the device (optim/streamed.py). Tri-state: None
+    # trips when the device-resident estimate exceeds the device budget
+    # (`hbm_budget_bytes`, else the card's memory; on the CPU only an
+    # explicit budget trips it); True forces it; False never.
     streamed_objective: Optional[bool] = None
     hbm_budget_bytes: Optional[int] = None
+    # Rows per host chunk of a streamed-objective shard.
     objective_chunk_rows: int = 1 << 20
+    # Storage dtype for streamed feature values ("bfloat16" halves the
+    # device bytes of big shards; compute stays f32). None keeps float32.
     streaming_feature_dtype: Optional[str] = None
+    # The ingest plane (data/ingest_plane.py): ingest_workers > 0 decodes
+    # Avro container blocks in that many spawn worker processes (chunk
+    # order bit-identical to the serial reader; a dead worker degrades
+    # that chunk to in-process decode); chunk_cache_dir commits decoded
+    # chunks once (mmap-able .npy + manifest) and every later run with the
+    # same key opens them and never touches Avro. Relative cache paths
+    # land under output_dir.
     ingest_workers: int = 0
     chunk_cache_dir: Optional[str] = None
     # Directory of prebuilt frozen index maps (the indexing driver's
@@ -319,23 +357,12 @@ def _refuse_unported(params: TrainingParams, mesh) -> None:
         raise NotImplementedError(
             "tuning_iters > 0 (the GP reg-weight tuner, _tune) is not "
             "ported yet (ROADMAP queue A item 11)")
-    streamed = {
-        "streaming=True": params.streaming is True,
-        "streamed_objective=True": params.streamed_objective is True,
-        "hbm_budget_bytes": params.hbm_budget_bytes is not None,
-        "ingest_workers > 0": params.ingest_workers > 0,
-        "chunk_cache_dir": bool(params.chunk_cache_dir),
-    }
-    asked = [k for k, v in streamed.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: the streamed training regimes and the "
-            "ingest plane are not ported yet (ROADMAP queue A item 8b)")
 
 
 def run_training(params: TrainingParams, mesh=None,
                  device=None) -> TrainingOutput:
-    """The full reference pipeline on ``device`` (default ``cuda``): read →
+    """The full reference pipeline on ``device`` (default ``cuda``): read
+    (in memory, streamed to the device, or the streamed objective) →
     validate → (summarize, normalize, down-sample) → train over the config
     grid → select best on validation → save."""
     _refuse_unported(params, mesh)
@@ -356,36 +383,83 @@ def run_training(params: TrainingParams, mesh=None,
         if params.index_map_dir:
             prebuilt_maps = load_index_map_dir(params.index_map_dir,
                                                params.feature_shards)
-        if params.streaming is None:
-            # the reference's auto-streaming check: a header-only scan
-            n_train_rows = scan_ingest(params.train_path,
-                                       GameDataConfig(shards={})).n_rows
-            if n_train_rows > params.streaming_threshold_rows:
-                raise NotImplementedError(
-                    f"{n_train_rows} training rows exceed "
-                    f"streaming_threshold_rows="
-                    f"{params.streaming_threshold_rows}, where the reference "
-                    "streams its ingest; streaming ingestion is not ported "
-                    "yet (ROADMAP queue A item 8b) — raise the threshold or "
-                    "set streaming=False to read in memory")
-        data, index_maps = read_game_data(
-            params.train_path, data_cfg, index_maps=prebuilt_maps,
-            sparse_k=params.sparse_k)
-        validation = None
-        if params.validation_path:
-            validation, _ = read_game_data(
-                params.validation_path, data_cfg, index_maps=index_maps,
+        n_train_rows = None
+        train_block_index = None
+        streaming = params.streaming
+        if streaming is None:
+            # resolved into a LOCAL: the caller's config stays a reusable
+            # tri-state. The header-only scan records the block index the
+            # ingest plane reuses.
+            scan0 = scan_ingest(params.train_path, GameDataConfig(shards={}))
+            n_train_rows = scan0.n_rows
+            train_block_index = scan0.block_index
+            streaming = n_train_rows > params.streaming_threshold_rows
+            log.info("%d training rows against streaming_threshold_rows=%d:"
+                     " %s", n_train_rows, params.streaming_threshold_rows,
+                     "streaming" if streaming else "in memory")
+        stream_stats: dict = {}
+        streamed_obj = False
+        # An EXPLICIT hbm_budget_bytes opts into the streamed-objective
+        # check even below the streaming threshold.
+        frozen_maps = None
+        if (streaming or params.streamed_objective
+                or (params.streamed_objective is None
+                    and params.hbm_budget_bytes is not None)):
+            # frozen maps built ONCE (one native pass that also counts
+            # rows and records the block index), shared by the estimate
+            # and whichever streamed read runs
+            scan = scan_ingest(params.train_path, data_cfg, prebuilt_maps)
+            frozen_maps = scan.index_maps
+            train_block_index = scan.block_index
+            if n_train_rows is None:
+                n_train_rows = scan.n_rows
+            streamed_obj = _resolve_streamed_objective(
+                params, frozen_maps, n_train_rows, dev, log)
+        if streamed_obj:
+            index_maps = frozen_maps
+            chunked = _streamable_shards(params)
+            data, validation, stream_stats, n_real = \
+                _read_streamed_objective(
+                    params, data_cfg, task, mode, index_maps,
+                    n_train_rows, chunked, dev,
+                    block_index=train_block_index)
+            log.info(
+                "streamed objective engaged: %d rows; host-chunked "
+                "shards %s (%d-row chunks), resident shards %s",
+                n_real, sorted(chunked), params.objective_chunk_rows,
+                sorted(set(params.feature_shards) - chunked))
+        elif streaming:
+            data, validation, index_maps, stream_stats, n_real = \
+                _read_streaming(params, data_cfg, task, mode, frozen_maps,
+                                dev, n_train_rows,
+                                block_index=train_block_index)
+            log.info("streamed %d training rows to %s, %d shards", n_real,
+                     dev, len(data.shards))
+        else:
+            data, index_maps = read_game_data(
+                params.train_path, data_cfg,
+                index_maps=(frozen_maps if frozen_maps is not None
+                            else prebuilt_maps),
                 sparse_k=params.sparse_k)
-        log.info("read %d training rows, %d shards", data.n,
-                 len(data.shards))
+            validation = None
+            if params.validation_path:
+                validation, _ = read_game_data(
+                    params.validation_path, data_cfg, index_maps=index_maps,
+                    sparse_k=params.sparse_k)
+            log.info("read %d training rows, %d shards", data.n,
+                     len(data.shards))
 
     with timers("validate"):
-        validate_game_data(data, task, mode)
-        if validation is not None:
-            validate_game_data(validation, task, mode)
+        # the streamed reads validated every chunk inside the read pass
+        if not streaming and not streamed_obj:
+            validate_game_data(data, task, mode)
+            if validation is not None:
+                validate_game_data(validation, task, mode)
 
-    # Summaries and normalization are computed BEFORE down-sampling:
-    # statistics describe the dataset, down-sampling is a training trick.
+    # Summaries and normalization are computed BEFORE down-sampling in
+    # every read regime: statistics describe the dataset, down-sampling is
+    # a training trick — and the model must not change when the streaming
+    # tri-state flips as the data grows.
     summaries = {}
     if params.summarization_output_dir is not None:
         summary_dir = params.summarization_output_dir
@@ -394,12 +468,17 @@ def run_training(params: TrainingParams, mesh=None,
         os.makedirs(summary_dir, exist_ok=True)
         with timers("summarize"):
             for shard_name in params.feature_shards:
-                s = FeatureSummary.compute(data.shards[shard_name],
-                                           device=dev)
+                # the streamed reads merged chunk summaries in the read
+                s = (stream_stats[shard_name] if shard_name in stream_stats
+                     else FeatureSummary.compute(data.shards[shard_name],
+                                                 device=dev))
                 s.save(os.path.join(summary_dir, f"{shard_name}.json"))
                 summaries[shard_name] = s
         log.info("wrote feature summaries for %d shards to %s",
                  len(summaries), summary_dir)
+    elif stream_stats:
+        # normalization-only statistics (no summary files asked for)
+        summaries = dict(stream_stats)
 
     norm_type = NormalizationType(params.normalization)
     normalization = {}
@@ -425,10 +504,23 @@ def run_training(params: TrainingParams, mesh=None,
 
     if params.down_sampling_rate is not None:
         with timers("down_sample"):
-            n0 = data.n
-            data = _apply_down_sampling(
-                data, task, params.down_sampling_rate, params.seed)
-            log.info("down-sampled %d -> %d rows", n0, data.n)
+            if streaming or streamed_obj:
+                # streamed data: dropped rows become weight-0 rows (the
+                # same weighted objective; rows are not re-indexed, and no
+                # weight-0 row enters a random effect's active set)
+                new_w = down_sample_weights(
+                    np.asarray(data.y), params.down_sampling_rate,
+                    np.asarray(data.weights), params.seed,
+                    binary=_binary_task(task))
+                log.info("down-sampled to %d weight-carrying rows of %d",
+                         int((new_w > 0).sum()), data.n)
+                data = GameData(data.y, np.asarray(new_w, np.float32),
+                                data.offsets, data.shards, data.entity_ids)
+            else:
+                n0 = data.n
+                data = _apply_down_sampling(
+                    data, task, params.down_sampling_rate, params.seed)
+                log.info("down-sampled %d -> %d rows", n0, data.n)
 
     initial_models = None
     if params.initial_model_dir:
@@ -459,12 +551,26 @@ def run_training(params: TrainingParams, mesh=None,
         device=dev,
     )
 
+    if streamed_obj:
+        re_coords = sorted(n for n, s in params.coordinates.items()
+                           if s.entity_name is not None)
+        if re_coords:
+            # the composed GAME regime: streamed fixed-effect coordinate(s)
+            # + resident random-effect buckets
+            telemetry.count("game_e2e.pod_scale_runs")
+            log.info(
+                "GAME end-to-end streamed regime: fixed-effect "
+                "coordinate(s) solve out of device memory on host-chunked "
+                "shards %s; random-effect coordinate(s) %s train resident; "
+                "inter-coordinate scores exchange through host margin "
+                "caches", sorted(_streamable_shards(params)), re_coords)
+
     n_resumed = 0
     with timers("train"):
         if params.resume:
             results, n_resumed = _fit_grid_resumable(
                 estimator, params, data, validation, initial_models,
-                index_maps, log, dev)
+                index_maps, log, dev, streaming, streamed_obj)
         else:
             results = estimator.fit(
                 data, validation=validation,
@@ -507,7 +613,7 @@ def run_training(params: TrainingParams, mesh=None,
         if params.output_mode.upper() == "ALL":
             models_dir = os.path.join(params.output_dir, "models")
             os.makedirs(models_dir, exist_ok=True)
-            gsig = _global_signature(params, False)
+            gsig = _global_signature(params, streaming, streamed_obj)
             rows = []
             sigs = _point_signatures(gsig, [r.configs for r in results])
             # Skip rewriting only points the CURRENT resume run persisted or
@@ -549,6 +655,218 @@ def run_training(params: TrainingParams, mesh=None,
     return TrainingOutput(best, results, model_dir, timers.summary(),
                           validation_metrics=validation_metrics,
                           n_resumed=n_resumed)
+
+
+def _ingest_cache_dir(params: TrainingParams):
+    """chunk_cache_dir resolved like checkpoint_dir: relative paths land
+    under the run's output dir."""
+    d = params.chunk_cache_dir
+    if d and not os.path.isabs(d):
+        d = os.path.join(params.output_dir, d)
+    return d
+
+
+def _stats_hook(params: TrainingParams, task: TaskType,
+                mode: DataValidationType, stats: dict):
+    """(hook factory) for the streamed reads: each chunk is validated, and
+    the shards that need statistics (summaries, normalization) fold their
+    chunk summaries into ``stats`` (numpy, f64; merged by Chan's update).
+    Statistics see the chunks as decoded, so they are exact over the real
+    rows."""
+    need_stats = set()
+    if params.summarization_output_dir is not None:
+        need_stats |= set(params.feature_shards)
+    if NormalizationType(params.normalization) is not NormalizationType.NONE:
+        need_stats |= {s.feature_shard for s in params.coordinates.values()}
+
+    def make_hook(collect_stats: bool):
+        def hook(chunk):
+            validate_game_data(chunk, task, mode)
+            if collect_stats:
+                for s in need_stats:
+                    cs = FeatureSummary.compute_host(chunk.shards[s])
+                    stats[s] = cs if s not in stats else stats[s].merge(cs)
+        return hook
+
+    return make_hook, bool(need_stats)
+
+
+def _read_streaming(params: TrainingParams, data_cfg: GameDataConfig,
+                    task: TaskType, mode: DataValidationType,
+                    prebuilt_maps, device, n_train_rows=None,
+                    block_index=None):
+    """Bounded-host-memory read (reference: AvroDataReader + the training
+    driver never materialize the dataset on one host): frozen index maps
+    from one block-stream pass, then chunks land straight in their device
+    tensors (`stream_to_device`, a stall-driven `AdaptivePrefetch` over
+    its staging buffers), with per-chunk validation and mergeable summary
+    statistics folded into the same pass. The scalar columns come back to
+    the host (12 bytes a row: the estimator's entity bucketing and
+    down-sampling read them there); the shards stay on the device."""
+    from photon_tpu_torch.data.ingest_plane import (AdaptivePrefetch,
+                                                    DecodePool)
+    from photon_tpu_torch.data.matrix import _host
+
+    index_maps = build_index_maps_streaming(
+        params.train_path, data_cfg, prebuilt_maps)
+    stats: dict = {}
+    make_hook, collect = _stats_hook(params, task, mode, stats)
+    with DecodePool() as pool:  # one worker start for both reads
+        data, n_real = stream_to_device(
+            params.train_path, data_cfg, index_maps,
+            chunk_rows=params.streaming_chunk_rows, sparse_k=params.sparse_k,
+            feature_dtype=params.streaming_feature_dtype,
+            chunk_hook=make_hook(collect), n_rows=n_train_rows,
+            prefetch=AdaptivePrefetch(), workers=params.ingest_workers,
+            cache_dir=_ingest_cache_dir(params), block_index=block_index,
+            device=device, pool=pool)
+        validation = None
+        if params.validation_path:
+            validation, _ = stream_to_device(
+                params.validation_path, data_cfg, index_maps,
+                chunk_rows=params.streaming_chunk_rows,
+                sparse_k=params.sparse_k,
+                feature_dtype=params.streaming_feature_dtype,
+                chunk_hook=make_hook(False), workers=params.ingest_workers,
+                cache_dir=_ingest_cache_dir(params), device=device,
+                pool=pool)
+    data = GameData(_host(data.y), _host(data.weights), _host(data.offsets),
+                    data.shards, data.entity_ids)
+    return data, validation, index_maps, stats, n_real
+
+
+def _streamable_shards(params: TrainingParams) -> set:
+    """Shards eligible for host-chunking: used by fixed-effect coordinates
+    ONLY (random-effect bucketing gathers rows, so its shards must stay
+    resident; shards no coordinate uses stay resident too)."""
+    fixed = {s.feature_shard for s in params.coordinates.values()
+             if s.entity_name is None}
+    re = {s.feature_shard for s in params.coordinates.values()
+          if s.entity_name is not None}
+    return fixed - re
+
+
+def _detect_hbm_budget(device) -> Optional[int]:
+    """The device's memory budget for the auto-trip: the card's free
+    bytes plus what this process's allocator already holds (the room the
+    dataset could take), from ``torch.cuda.mem_get_info``. None on the
+    CPU: there the streamed objective engages only when asked for or
+    given an explicit ``hbm_budget_bytes``."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    free, _total = torch.cuda.mem_get_info(dev)
+    return int(free) + int(torch.cuda.memory_reserved(dev))
+
+
+def _estimate_device_bytes(n_rows: int, index_maps: dict,
+                           params: TrainingParams) -> int:
+    """Device-resident footprint estimate of the dataset from the frozen
+    maps + header row count alone (no data read): scalars at 12 B/row,
+    dense shards at d×value bytes, sparse shards at k×(index+value)."""
+    val_bytes = 2 if params.streaming_feature_dtype in ("bfloat16",
+                                                        "float16") else 4
+    total = 12 * n_rows
+    for s, cfg in params.feature_shards.items():
+        d = index_maps[s].n_features
+        if d <= cfg.dense_threshold:
+            total += n_rows * d * val_bytes
+        elif params.sparse_k is not None:
+            total += n_rows * params.sparse_k * (4 + val_bytes)
+    return int(total)
+
+
+def _resolve_streamed_objective(params: TrainingParams, index_maps: dict,
+                                n_rows: int, device, log) -> bool:
+    """The streamed-objective tri-state, resolved: forced True/False wins;
+    None trips when the device-resident estimate exceeds the budget
+    (``hbm_budget_bytes``, else `_detect_hbm_budget`; on the CPU, with no
+    budget given, it stays resident). Every resolution is logged at INFO —
+    estimate, budget, verdict — so a surprising regime choice is
+    diagnosable from the run log."""
+    forced = params.streamed_objective
+    if forced is False:
+        log.info("streamed objective: OFF (forced by streamed_objective="
+                 "False)")
+        return False
+    if forced:
+        if not _streamable_shards(params):
+            raise ValueError(
+                "streamed_objective=True needs at least one shard used "
+                "exclusively by fixed-effect coordinates (random-effect "
+                "shards must stay resident for entity bucketing)")
+        log.info("streamed objective: ON (forced by streamed_objective="
+                 "True)")
+        return True
+    est = _estimate_device_bytes(n_rows, index_maps, params)
+    budget = (params.hbm_budget_bytes if params.hbm_budget_bytes
+              else _detect_hbm_budget(device))
+    telemetry.gauge("train.dataset_estimate_bytes", est)
+    if budget is None:
+        log.info(
+            "streamed objective auto-resolution: dataset estimate %.3f GiB "
+            "(%d rows) on %s, which has no device budget and none was "
+            "given (hbm_budget_bytes): verdict resident", est / 2**30,
+            n_rows, device)
+        return False
+    chunked = _streamable_shards(params)
+    verdict = est > budget and bool(chunked)
+    telemetry.gauge("train.hbm_budget_bytes", budget)
+    log.info(
+        "streamed objective auto-resolution: dataset estimate %.3f GiB "
+        "(%d rows), device budget %.3f GiB (%s), verdict %s",
+        est / 2**30, n_rows, budget / 2**30,
+        "hbm_budget_bytes" if params.hbm_budget_bytes else str(device),
+        "STREAM" if verdict else "resident")
+    if est > budget and not chunked:
+        log.warning(
+            "dataset estimate %.3f GiB exceeds the device budget %.3f GiB "
+            "but no shard is fixed-effect-only; staying device-resident "
+            "(expect an out-of-memory error at this scale)",
+            est / 2**30, budget / 2**30)
+    return verdict
+
+
+def _read_streamed_objective(params: TrainingParams,
+                             data_cfg: GameDataConfig, task: TaskType,
+                             mode: DataValidationType, index_maps: dict,
+                             n_train_rows: int, chunked_shards: set,
+                             device, block_index=None):
+    """The out-of-device-memory read: training data lands HOST-resident —
+    the fixed-effect shards as uniform ChunkedMatrix chunks the streamed
+    solvers re-upload pass by pass, everything else as host numpy the
+    GAME layer moves as needed. Per-chunk validation and mergeable
+    statistics ride the same pass, as in `_read_streaming`. Validation
+    data streams to the device (it is scored, not solved)."""
+    from photon_tpu_torch.data.ingest_plane import DecodePool
+
+    stats: dict = {}
+    make_hook, collect = _stats_hook(params, task, mode, stats)
+    with DecodePool() as pool:  # one worker start for both reads
+        data, n_real = stream_to_host(
+            params.train_path, data_cfg, index_maps,
+            chunked_shards=chunked_shards,
+            chunk_rows=params.streaming_chunk_rows,
+            objective_chunk_rows=params.objective_chunk_rows,
+            sparse_k=params.sparse_k,
+            feature_dtype=params.streaming_feature_dtype,
+            chunk_hook=make_hook(collect), n_rows=n_train_rows,
+            workers=params.ingest_workers,
+            cache_dir=_ingest_cache_dir(params), block_index=block_index,
+            pool=pool)
+        validation = None
+        if params.validation_path:
+            validation, _ = stream_to_device(
+                params.validation_path, data_cfg, index_maps,
+                chunk_rows=params.streaming_chunk_rows,
+                sparse_k=params.sparse_k,
+                feature_dtype=params.streaming_feature_dtype,
+                chunk_hook=make_hook(False), workers=params.ingest_workers,
+                cache_dir=_ingest_cache_dir(params), device=device,
+                pool=pool)
+    return data, validation, stats, n_real
 
 
 def _global_signature(params: TrainingParams, streaming: bool,
@@ -652,7 +970,8 @@ def _write_manifest(path: str, rows: list) -> None:
 
 def _fit_grid_resumable(estimator: GameEstimator, params: TrainingParams,
                         data, validation, initial_models, index_maps, log,
-                        device):
+                        device, streaming: bool = False,
+                        streamed_obj: bool = False):
     """Fit the grid one point at a time, CHECKPOINTING each point the
     moment it finishes, and loading points a previous (possibly died) run
     already completed. Warm starts chain through loaded models exactly as
@@ -677,7 +996,7 @@ def _fit_grid_resumable(estimator: GameEstimator, params: TrainingParams,
         {n: s.coordinate_config() for n, s in params.coordinates.items()}
     ]
     base = {n: s.coordinate_config() for n, s in params.coordinates.items()}
-    gsig = _global_signature(params, False)
+    gsig = _global_signature(params, streaming, streamed_obj)
     sigs = _point_signatures(gsig, [{**base, **ov} for ov in grid])
     if (not any(s in completed for s in sigs)
             and estimator.would_vectorize(grid, initial_models, data=data)):
@@ -746,11 +1065,15 @@ def main(argv=None) -> None:
                    default=None)
     p.add_argument("--no-resume", dest="ckpt_resume", action="store_false")
     p.add_argument("--ingest-workers", type=int, default=None,
-                   help="the reference's ingest plane (not ported: "
-                        "ROADMAP queue A item 8b)")
+                   help="decode Avro container blocks in this many worker "
+                        "processes (the ingest plane; overrides the "
+                        "config's ingest_workers; 0 = in-process)")
     p.add_argument("--chunk-cache-dir", default=None,
-                   help="the reference's chunk cache (not ported: "
-                        "ROADMAP queue A item 8b)")
+                   help="decode-once columnar chunk cache directory "
+                        "(overrides the config's chunk_cache_dir; "
+                        "relative paths land under output_dir). A rerun "
+                        "with an unchanged dataset/config/index-map key "
+                        "opens mmap'd chunks and never touches Avro")
     args = p.parse_args(argv)
     with open(args.config) as f:
         params = TrainingParams(**json.load(f))

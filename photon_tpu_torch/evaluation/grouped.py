@@ -8,7 +8,9 @@ every group's metric at once on the scores' device: per-group sums are
 cumulative-sum differences (`data.matrix.sorted_segment_sum`), and the
 segmented minima and maxima these metrics need are over monotone
 sequences (cumulative sums, positions), so they are gathers at the
-segment bounds. Nothing adds through an index or a scatter, so a metric
+segment bounds. Nothing adds through an index or a scatter, and the
+float cumulative sums are `data.matrix.prefix_sum`'s blocked scans (a
+single CUDA device scan groups its additions by timing), so a metric
 gives the same bits on every run. The elements a combining scatter would
 have taken are counted on ``eval.scatter_elems_saved`` (`telemetry`).
 
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from photon_tpu_torch import telemetry
-from photon_tpu_torch.data.matrix import sorted_segment_sum
+from photon_tpu_torch.data.matrix import prefix_sum, sorted_segment_sum
 
 F32 = torch.float32
 
@@ -107,7 +109,7 @@ def _grouped_auc(scores, labels, weights, groups, num_groups: int):
     wpos = w * y
     wneg = w * (1.0 - y)
     tid = _tie_ids(s, g)
-    cneg = torch.cumsum(wneg, dim=0)
+    cneg = prefix_sum(wneg)
     tb = _bounds(tid, n)
     gb = _bounds(g, num_groups)
     neg_in_tie = sorted_segment_sum(wneg, tid, n)
@@ -149,8 +151,8 @@ def _grouped_aupr(scores, labels, weights, groups, num_groups: int):
     wpos = w * y
     wneg = w * (1.0 - y)
     tid = _tie_ids(s, g)
-    cpos = torch.cumsum(wpos, dim=0)
-    cneg = torch.cumsum(wneg, dim=0)
+    cpos = prefix_sum(wpos)
+    cneg = prefix_sum(wneg)
     tb = _bounds(tid, n)
     gb = _bounds(g, num_groups)
     # a tied block is one threshold: cumulative weights at its END, minus

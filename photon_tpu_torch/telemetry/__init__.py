@@ -27,6 +27,12 @@ class Registry:
         with self._lock:
             self._gauges[name] = value
 
+    def gauge_max(self, name: str, value) -> None:
+        """A peak gauge: keeps the largest value set since the reset."""
+        with self._lock:
+            old = self._gauges.get(name)
+            self._gauges[name] = value if old is None else max(old, value)
+
     def snapshot(self) -> dict:
         with self._lock:
             return {"counters": dict(self._counters),
@@ -47,6 +53,10 @@ def count(name: str, value: float = 1.0) -> None:
 
 def gauge(name: str, value) -> None:
     REGISTRY.gauge(name, value)
+
+
+def gauge_max(name: str, value) -> None:
+    REGISTRY.gauge_max(name, value)
 
 
 def snapshot() -> dict:

@@ -295,12 +295,6 @@ def test_resume_skips_saved_points(jobs, tmp_path):
 @pytest.mark.parametrize("knob,item", [
     ({"checkpoint_dir": "ckpt"}, "item 11"),
     ({"tuning_iters": 2}, "item 11"),
-    ({"streaming": True}, "item 8b"),
-    ({"streamed_objective": True}, "item 8b"),
-    ({"hbm_budget_bytes": 1 << 30}, "item 8b"),
-    ({"ingest_workers": 2}, "item 8b"),
-    ({"chunk_cache_dir": "cache"}, "item 8b"),
-    ({"streaming_threshold_rows": 100}, "item 8b"),
 ])
 def test_unported_options_raise_with_their_item(jobs, tmp_path, knob, item):
     root = jobs[0]

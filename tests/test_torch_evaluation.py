@@ -144,6 +144,47 @@ def test_sorted_segment_sum_matches_reference(n, lanes):
     _close(got, np.asarray(want))
 
 
+@pytest.mark.parametrize("n", [1, 5, 1024, 1025, 3000, (1 << 20) + 7])
+def test_prefix_sum_blocked_scan(n):
+    """`prefix_sum`'s blocked form (what a float CUDA tensor of one column
+    takes: a single device scan there groups its additions by timing)
+    against an f64 scan, one column and (n, 1); several columns keep
+    torch.cumsum."""
+    from photon_tpu_torch.data.matrix import _blocked_prefix_sum, prefix_sum
+
+    x = np.random.default_rng(n).normal(size=n).astype(np.float32)
+    want = np.cumsum(x.astype(np.float64))
+    for shape in ((n,), (n, 1)):
+        got = _blocked_prefix_sum(torch.from_numpy(x.reshape(shape)))
+        assert tuple(got.shape) == shape and got.dtype == torch.float32
+        scale = np.maximum(np.abs(np.cumsum(np.abs(x.astype(np.float64)))),
+                           1.0)
+        assert np.all(np.abs(got.numpy().reshape(-1) - want) <= 1e-6 * scale
+                      * max(np.log2(n), 1))
+    two = torch.from_numpy(np.stack([x, -x], 1))
+    assert torch.equal(prefix_sum(two), torch.cumsum(two, 0))
+
+
+@pytest.mark.parametrize("name", ["grouped_auc", "grouped_aupr"])
+def test_grouped_metrics_on_the_blocked_scan_match_reference(name,
+                                                             monkeypatch):
+    """The AUC and AUPR through the blocked scan (the CUDA route) against
+    the reference, over 3,000 rows (three scan rows and a carry)."""
+    from photon_tpu_torch.data import matrix as PM
+
+    monkeypatch.setattr(PG, "prefix_sum", PM._blocked_prefix_sum)
+    monkeypatch.setattr(PM, "prefix_sum", PM._blocked_prefix_sum)
+    s, y, w, g, G = case(3000, seed=4)
+    want = getattr(RE, name)(jnp.asarray(s), jnp.asarray(y), jnp.asarray(w),
+                             jnp.asarray(g), G)
+    got = getattr(PE, name)(torch.from_numpy(s), y, w, g, G)
+    for a, b in zip(got, want):
+        if a.dtype == torch.bool:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        else:
+            _close(a, np.asarray(b))
+
+
 def test_grouped_metrics_are_scatter_free_and_counted():
     src = inspect.getsource(PG) + inspect.getsource(sorted_segment_sum)
     calls = re.findall(r"\.(index_add_?|scatter\w*|index_put_?|bincount)\(",

@@ -169,12 +169,28 @@ def test_fixed_sparse_k_and_records_path(avro):
     assert_data_equal(P, R)
 
 
-def test_native_decoder_raises_naming_its_item(avro):
+def test_native_decoder_raises_naming_its_item(avro, monkeypatch,
+                                               tmp_path):
+    """use_native=True decodes natively (equal to the Python read); with a
+    library that cannot build it raises, naming the compiler's error,
+    and never falls back."""
+    from photon_tpu_torch import native
+
     pcfg, _ = configs()
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        PI.read_game_data(str(avro[0]), pcfg, use_native=True)
+    want, wmaps = PI.read_game_data(str(avro[0]), pcfg, use_native=False)
+    got, gmaps = PI.read_game_data(str(avro[0]), pcfg, use_native=True)
+    assert_data_equal(got, want)
     maps = PST.scan_ingest(str(avro[0]), pcfg).index_maps
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    bad = tmp_path / "broken.cc"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_SRC", bad)
+    monkeypatch.setattr(native, "_LIB_PATH", tmp_path / "_build" / "lib.so")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_error", None)
+    with pytest.raises(RuntimeError, match="broken.cc"):
+        PI.read_game_data(str(avro[0]), pcfg, use_native=True)
+    with pytest.raises(RuntimeError, match="broken.cc"):
         PST.iter_game_chunks(str(avro[0]), pcfg, maps, sparse_k=8,
                              use_native=True)
 
@@ -321,7 +337,8 @@ def test_chunks_match_reference(avro, chunk_rows):
         kw = dict(chunk_rows=chunk_rows, sparse_k=8 if uniform else None,
                   uniform_sparse_k=uniform)
         ps, pchunks = PST.iter_game_chunks(str(avro[0]), pcfg,
-                                           scan.index_maps, **kw)
+                                           scan.index_maps,
+                                           use_native=False, **kw)
         rs, rchunks = RST.iter_game_chunks(str(avro[0]), rcfg,
                                            rscan.index_maps,
                                            use_native=False, **kw)

@@ -675,13 +675,6 @@ def test_streamed_raises():
     item(11, lambda: S.minimize_owlqn_streamed(
         Objective(task), pcb, torch.zeros(300), 1.0, checkpoint=object()))
 
-    class Controller:
-        depth = 2
-
-        def observe(self, *a):
-            pass
-
-    item("8b", lambda: pcb.device_ring(device=CPU, prefetch=Controller()))
     item(10, lambda: pcb.device_ring(device=CPU, mesh=object()))
     item(10, lambda: next(pcb.iter_device(device=CPU, mesh=object())))
     item(10, lambda: pcb.mesh_chunk(0, object()))
