@@ -5,8 +5,9 @@ reg-weight grids, its streamed (out-of-device-memory) training, its
 GAME training, its validation-driven model selection (the vectorized
 fixed-effect and GAME grids), its drivers (Avro in, model directory
 and scored Avro out) and its streamed data plane (the native Avro
-decoder, the ingest plane, the training driver's streamed regimes) on
-one GPU.
+decoder, the ingest plane, the training driver's streamed regimes) and
+its continual refresh (delta plan, compacted re-solve, hot swap into a
+live int8 ladder) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -259,6 +260,31 @@ DRV-S. the streamed data plane on local Avro (a `_drvs*` temporary
    for bit, and 10 streamed L-BFGS iterations through the tail matvec
    and rmatvec kernels (rows·iters/s, launches), the first 5 within 1e-5
    of ``scope("off")``. No leg meant to be native decodes in Python.
+CR. continual refresh at GM's widths: (a) the previous model
+   (`GameEstimator.fit` on GM's data, SIMPLE variances) and its
+   `build_manifest`; (b) a delta drop of 2^20 zipf(1.2) user rows (users
+   shifted +0.3) plus 4,096 rows of 1,000 unseen users, `diff_manifest`
+   and `refresh_game_model` with GM's random-effect configs stopped at
+   1e-3 — diff and refresh seconds, per coordinate touched and deferred
+   entities, buckets, solves, iterations, seconds, rows/s, peak memory;
+   held: untouched rows and the fixed effect bit for bit, no failed
+   entity, 1,000 deferred, 64 touched users against `train_glm` alone
+   (prior, warm start, offsets) and against a refresh of those 64 alone;
+   (c) a second drop with 8 more touched users in a bucket with free
+   lanes, refreshed at GM's config as it is: no new solve signature
+   (`assert_no_retrace`); (d) `hot_swap` into a live store behind an int8
+   and an f32 `ProgramLadder` under 32 client threads, mid-stream — probe
+   ms, publish s and bytes, reload ms, staleness, the first flush after
+   it, QPS and p50/p99 on each side, the rung kernel's launches after the
+   swap (counts reset just before it); held: answers on each side equal
+   the plain int8 version of their generation (rtol = atol = 1e-5) and
+   the f32 ladder within ε/4, no retrace, one hot swap; (e) a publish
+   killed at ``swap_publish#1`` leaves ``CURRENT`` and its bytes, a store
+   with +1e6 added is refused (counted) and the live store untouched;
+   (f) the per-user coordinate on (a)'s data with ``straggler_budget`` 5
+   against none at GM's config (coefficients within 1e-3) and with 2
+   against none at 1e-3 (equal failed counts): straggler entities,
+   lock-step iterations of both passes, ``game_re.iters_saved``.
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
@@ -269,7 +295,8 @@ entry its launches in GM's fits and GK's default-route fits under
 ``e_launches``, in GG's fits under ``gg_launches``, in DRV (a)
 under ``drv_launches`` and in DRV-S's main-path runs — (b)'s streamed
 driver run, (c)'s streamed objective and (d)'s ladder solve, each
-counted alone — under ``drvs_launches``), the card's name and power limit as nvidia-smi reports them, and last
+counted alone — under ``drvs_launches``, and after CR (d)'s hot swap
+under ``cr_launches``), the card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
 """
@@ -357,6 +384,19 @@ DRVS_WORKERS, DRVS_CHUNK, DRVS_OBJ_CHUNK, DRVS_TOL = 4, 1 << 16, 1 << 19, \
     1e-3
 DRVS_LADDER_ROWS, DRVS_LADDER_CHUNK, DRVS_LADDER_ITERS = 1 << 18, 1 << 16, 10
 DRVS_AUC_CALLS = 20  # (b): the same margins' AUC, call after call
+# continual refresh (CR): the previous model from GM's data (GM's rows),
+# a delta drop of 2^20 zipf(1.2) user rows plus 4,096 rows of 1,000 users
+# the model never saw (from seed + CR_SEED), the drop's users shifted by
+# CR_SHIFT; the hot swap's requests and its probe bound (a refreshed user
+# moves its margin by a few units, a blown-up store by ~1e6); (f)'s budget
+CR_ROWS, CR_DROP_ROWS, CR_NEW_USERS, CR_NEW_ROWS = GM_ROWS, 1 << 20, 1000, \
+    4096
+CR_SEED, CR_SHIFT, CR_REQUESTS, CR_PROBE_BOUND, CR_BUDGET = 505, 0.3, \
+    4096, 25.0, 5
+W_CHECK_RTOL = 1e-4  # coefficients of one entity solved two ways
+# (f) again at RE_CHECK_TOL, where GM's entities stop within 4 iterations:
+# a budget of 2 leaves most of them to the tail pass
+CR_BUDGET_CHECK = 2
 
 
 def log(*a) -> None:
@@ -4758,6 +4798,602 @@ def write_wide(path, schema, y, names, vals, block: int = DRV_BLOCK):
                       for i in range(len(y))), schema, block_records=block)
 
 
+# ------------------------------------------- phase CR: continual refresh
+def cr_drop(seed: int, uid: np.ndarray, planted, shift: float):
+    """A delta drop at GM's widths over the user keys ``uid`` (ids at or
+    past GM_USERS are users the previous model never saw): uniform item
+    keys, N(0, 1) rows, labels from the planted model with every drawn
+    user's coefficients shifted by ``shift``. Returns its GameData and
+    its (Xf, Xu, Xi, uid, iid, y) columns."""
+    from photon_tpu_torch.game.dataset import GameData
+
+    w_true, u_true, i_true = planted
+    rng = np.random.default_rng(seed)
+    n = uid.shape[0]
+    Xf = rng.normal(size=(n, GM_D_FIXED)).astype(np.float32)
+    Xu = rng.normal(size=(n, GM_D_RE)).astype(np.float32)
+    Xi = rng.normal(size=(n, GM_D_RE)).astype(np.float32)
+    iid = rng.integers(0, GM_ITEMS, size=n)
+    u_rows = np.where((uid < GM_USERS)[:, None],
+                      u_true[np.minimum(uid, GM_USERS - 1)] + shift, 0.0)
+    margin = (Xf @ w_true + np.einsum("nd,nd->n", Xu, u_rows)
+              + np.einsum("nd,nd->n", Xi, i_true[iid]))
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-margin))).astype(
+        np.float32)
+    data = GameData.build(y, shards={"fixed": Xf, "u_re": Xu, "i_re": Xi},
+                          entity_ids={"user": uid, "item": iid})
+    return data, (Xf, Xu, Xi, uid, iid, y)
+
+
+def cr_drop_users(seed: int) -> np.ndarray:
+    """(b)'s user keys: CR_DROP_ROWS zipf(1.2) ranks over GM's users (the
+    rank wrapped into the user space) and CR_NEW_ROWS rows of CR_NEW_USERS
+    users the previous model never saw."""
+    rng = np.random.default_rng(seed)
+    known = (rng.zipf(1.2, size=CR_DROP_ROWS) - 1) % GM_USERS
+    new = GM_USERS + np.concatenate([
+        np.arange(CR_NEW_USERS),
+        rng.integers(0, CR_NEW_USERS, size=CR_NEW_ROWS - CR_NEW_USERS)])
+    return np.concatenate([known, new]).astype(np.int64)
+
+
+def cr_second_users(data, plan, dev) -> tuple:
+    """(c)'s user keys: (b)'s plus up to 8 users of the previous model
+    that (b) did not touch, each given exactly the row count of the
+    lowest per-user bucket that has free (padding) lanes: the touched
+    count grows, every bucket's padded count stays. Returns (keys, users
+    added, that bucket's (m, touched, padded))."""
+    from photon_tpu_torch.continual import REFRESH_LANES
+    from photon_tpu_torch.game.dataset import RandomEffectDataset
+    from photon_tpu_torch.parallel.mesh import pad_to_multiple
+
+    uid = np.asarray(data.entity_ids["user"])
+    ds = RandomEffectDataset.build(data, "user", "u_re", device=dev)
+    touched = plan.coordinates["per_user"].touched_keys
+    for b in sorted(ds.blocks, key=lambda b: b.m):
+        keys = ds.entity_keys[b.entity_index].astype(np.str_)
+        n = int(np.isin(keys, touched).sum())
+        pad = pad_to_multiple(n, REFRESH_LANES)
+        if pad > n:
+            free = np.setdiff1d(np.arange(GM_USERS), uid)[:min(pad - n, 8)]
+            return (np.concatenate([uid, np.repeat(free, b.m)]), free.size,
+                    (b.m, n, pad))
+    raise AssertionError("CR (c): no per-user bucket has a free lane")
+
+
+def serve_swapping(ladder, reqs: list, swap) -> dict:
+    """Serve from CLIENTS threads (each keeps WINDOW in flight) through one
+    dispatcher, the requests taken in turn from ``reqs`` (cycling), and
+    call ``swap()`` on this thread once half of ``reqs`` are answered, the
+    clients still sending; the run ends when half of ``reqs`` more were
+    sent after ``swap()`` returned. Returns each send's request index,
+    submit and answer times and score, the run's start and end, the
+    swap's start and end, and what ``swap()`` returned."""
+    from photon_tpu_torch.serving import MicroBatchDispatcher
+
+    n = len(reqs)
+    lock = threading.Lock()
+    sends: list = []  # [request index, submit s, answer s, score]
+    st = dict(t_swap1=None, n_post=0)
+    done = threading.Semaphore(0)
+    errors: list = []
+    disp = MicroBatchDispatcher(ladder, max_batch=MAX_BATCH,
+                                max_delay_us=MAX_DELAY_US)
+
+    def take():
+        with lock:
+            if st["t_swap1"] is not None:
+                if st["n_post"] >= n // 2:
+                    return None
+                st["n_post"] += 1
+            rec = [len(sends) % n, 0.0, 0.0, float("nan")]
+            sends.append(rec)
+            return rec
+
+    def client() -> None:
+        try:
+            while True:
+                window = [r for r in (take() for _ in range(WINDOW))
+                          if r is not None]
+                if not window:
+                    return
+                futs = []
+                for rec in window:
+                    rec[1] = time.perf_counter()
+                    futs.append(disp.submit(reqs[rec[0]]))
+                for rec, f in zip(window, futs):
+                    rec[3] = f.result(timeout=120)
+                    rec[2] = time.perf_counter()
+                    done.release()
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+            for _ in range(n):
+                done.release()
+
+    threads = [threading.Thread(target=client) for _ in range(CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for _ in range(n // 2):
+        done.acquire()
+    t_swap0 = time.perf_counter()
+    out = swap()
+    with lock:
+        st["t_swap1"] = t_swap1 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    t_end = time.perf_counter()
+    disp.close()
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish")
+    idx, t_sub, t_ans, scores = (np.asarray(v) for v in zip(*sends))
+    return dict(idx=idx.astype(np.int64), t_sub=t_sub, t_ans=t_ans,
+                scores=scores, t0=t0, t_swap0=t_swap0, t_swap1=t_swap1,
+                t_end=t_end, swap=out)
+
+
+def cr_requests(seed: int, n: int) -> list:
+    """Requests over GM's keys: dense rows of the three shards, zipf(1.2)
+    user and item ranks (ranks past the entity counts are cold)."""
+    from photon_tpu_torch.serving import ScoreRequest
+
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal((n, GM_D_FIXED), np.float32)
+    u = rng.standard_normal((n, GM_D_RE), np.float32)
+    i = rng.standard_normal((n, GM_D_RE), np.float32)
+    ur = rng.zipf(1.2, size=n) - 1
+    ir = rng.zipf(1.2, size=n) - 1
+    return [ScoreRequest(features={"fixed": f[r], "u_re": u[r],
+                                   "i_re": i[r]},
+                         entities={"user": str(ur[r]), "item": str(ir[r])},
+                         offset=0.0) for r in range(n)]
+
+
+def lat_text(lat_ms: np.ndarray, wall: float) -> str:
+    return (f"{lat_ms.size / wall:.1f} QPS, p50 "
+            f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
+            f"{np.percentile(lat_ms, 99):.3f} ms over {lat_ms.size}")
+
+
+def phase_continual(args, dev, gpu) -> tuple:
+    """CR: continual refresh at GM's widths — (a) the previous model, (b)
+    a delta drop's plan and refresh held entity by entity, (c) a second
+    drop on the same padded shapes, (d) the hot swap into a live int8
+    ladder under load, (e) a killed publish and a refused store, (f) the
+    straggler re-solve. Returns the kernels' launches in (b)-(c)'s
+    refreshes and in (d)'s post-swap window."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from photon_tpu_torch import continual as CT
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.checkpoint.faults import (FaultPlan,
+                                                    InjectedFault,
+                                                    fault_plan)
+    from photon_tpu_torch.continual import refresh as CRF
+    from photon_tpu_torch.data.dataset import make_batch
+    from photon_tpu_torch.game.dataset import GameData
+    from photon_tpu_torch.game.random_effect import (RandomEffectCoordinate,
+                                                     align_entity_priors)
+    from photon_tpu_torch.game.scoring import coordinate_scores
+    from photon_tpu_torch.kernels import serving as KS
+    from photon_tpu_torch.models.training import train_glm
+    from photon_tpu_torch.models.variance import VarianceComputationType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+    from photon_tpu_torch.serving import CoefficientStore, ProgramLadder
+
+    t_phase = time.perf_counter()
+    telemetry.reset()
+    cfg_f = OptimizerConfig(max_iters=GM_FIXED[0], reg=l2(),
+                            reg_weight=GM_FIXED[1])
+    cfg_r = OptimizerConfig(max_iters=GM_RE[0], reg=l2(),
+                            reg_weight=GM_RE[1])
+    # (b) stops each refreshed entity at RE_CHECK_TOL: an entity starts at
+    # its previous optimum under a prior of precision ~1/variance, so at
+    # 1e-7 it reaches the f32 floor within a few iterations, where its
+    # line search can fail on rounding (the reference fails the same
+    # lanes); (c) runs GM's configuration as it is and reports them
+    cfg_b = dataclasses.replace(cfg_r, tolerance=RE_CHECK_TOL)
+    configs = {"per_user": cfg_b, "per_item": cfg_b}
+
+    # (a) the previous model: GM's data, SIMPLE variances, its manifest
+    t0 = time.perf_counter()
+    Xf, Xu, Xi, uid, iid, y = game_10m_data(args.seed, rows=CR_ROWS)
+    Xf_dev = torch.from_numpy(Xf).to(dev).to(torch.bfloat16)
+    del Xf
+    data = GameData.build(y, shards={"fixed": Xf_dev, "u_re": Xu,
+                                     "i_re": Xi},
+                          entity_ids={"user": uid, "item": iid})
+    gen_s = time.perf_counter() - t0
+    est = game_estimator(dev, cfg_f, cfg_r, GM_SWEEPS,
+                         variance=VarianceComputationType.SIMPLE)
+    prev_fit, fit_s = fit_timed(est, data)
+    prev = prev_fit.model
+    t0 = time.perf_counter()
+    manifest = CT.build_manifest(data)
+    manifest_s = time.perf_counter() - t0
+    n_users = len(manifest["entities"]["user"])
+    log(f"CR (a): previous model: {CR_ROWS} rows made in {gen_s:.1f} s, "
+        f"GameEstimator.fit ({GM_SWEEPS} sweeps, SIMPLE variances) "
+        f"{fit_s:.3f} s, manifest {manifest_s:.2f} s ({n_users} users, "
+        f"{len(manifest['entities']['item'])} items)  [{gpu}]")
+
+    # (b) the delta drop, its plan and the refresh
+    planted = game_10m_model(np.random.default_rng(args.seed))
+    t_drop = time.time()
+    drop, cols = cr_drop(args.seed + CR_SEED, cr_drop_users(
+        args.seed + CR_SEED), planted, CR_SHIFT)
+    t0 = time.perf_counter()
+    plan = CT.diff_manifest(manifest, drop, prev)
+    diff_s = time.perf_counter() - t0
+    coord_s: dict = {}
+    refresh_coordinate = CRF._refresh_coordinate
+
+    def timed_coordinate(prev_model, cm, cplan, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = refresh_coordinate(prev_model, cm, cplan, *a, **kw)
+        torch.cuda.synchronize()
+        coord_s[cplan.name] = time.perf_counter() - t
+        return out
+
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    CRF._refresh_coordinate = timed_coordinate
+    try:
+        t0 = time.perf_counter()
+        res = CT.refresh_game_model(prev, drop, plan, configs)
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t0
+    finally:
+        CRF._refresh_coordinate = refresh_coordinate
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"CR (b): drop of {drop.n} rows ({CR_DROP_ROWS} zipf(1.2) users + "
+        f"{CR_NEW_ROWS} rows of {CR_NEW_USERS} new users, uniform items, "
+        f"users shifted {CR_SHIFT:+g}); diff_manifest {diff_s:.3f} s; "
+        f"refresh_game_model {refresh_s:.3f} s, peak device memory "
+        f"{peak_gb:.3f} GB  [{gpu}]")
+    for name, cp in plan.coordinates.items():
+        st = res.stats[name]
+        log(f"CR (b): {name}: {st.n_touched} touched ({cp.n_touched_rows} "
+            f"rows), {st.n_deferred_new} deferred; buckets "
+            f"{st.buckets_touched} touched, {st.buckets_skipped} skipped; "
+            f"{st.solve_dispatches} solves, {st.total_iterations} "
+            f"iterations, {st.n_converged} converged, {st.n_failed} failed; "
+            f"{coord_s[name]:.3f} s, {cp.n_touched_rows / coord_s[name]:.6g}"
+            f" touched rows/s  [{gpu}]")
+    if res.stats["per_user"].n_deferred_new != CR_NEW_USERS or \
+            res.stats["per_item"].n_deferred_new != 0:
+        raise AssertionError(f"CR (b): deferred {res.stats}")
+    for name, cp in plan.coordinates.items():
+        old, new = prev.coordinates[name], res.model.coordinates[name]
+        keep = np.ones(old.n_entities, bool)
+        keep[old.dense_ids(cp.touched_keys.astype(np.int64))] = False
+        for a, b in ((old.coefficients, new.coefficients),
+                     (old.variances, new.variances)):
+            if not torch.equal(a[torch.from_numpy(keep).to(dev)],
+                               b[torch.from_numpy(keep).to(dev)]):
+                raise AssertionError(f"CR (b): {name}: an untouched row "
+                                     "changed")
+        log(f"CR (b): {name}: {int(keep.sum())} untouched coefficient and "
+            "variance rows equal bit for bit")
+    if not torch.equal(prev.coordinates["fixed"].model.weights,
+                       res.model.coordinates["fixed"].model.weights):
+        raise AssertionError("CR (b): the fixed effect changed")
+
+    # each entity whose refresh failed fails alone too: a line search at
+    # the f32 floor (ROADMAP §C12), not the compaction
+    col = {"per_user": (1, 3), "per_item": (2, 4)}
+    offs = {name: CRF._other_scores_host(prev, drop, name)
+            for name in plan.coordinates}
+
+    def alone(name, key, cfg):
+        cmn = prev.coordinates[name]
+        x, ids = cols[col[name][0]], cols[col[name][1]]
+        sel = np.nonzero(ids == key)[0]
+        row = int(cmn.dense_ids(np.asarray([key]))[0])
+        pm, pp = align_entity_priors(cmn, np.asarray([key]), GM_D_RE)
+        return train_glm(make_batch(x[sel], cols[5][sel],
+                                    offsets=offs[name][sel], device=dev),
+                         cmn.task, cfg,
+                         w0=cmn.coefficients[row].cpu().numpy(),
+                         prior_mean=pm[0], prior_precision=pp[0], device=dev)
+
+    for name, keys in res.failed_keys.items():
+        alone_failed = [bool(alone(name, k, cfg_b)[1].failed)
+                        for k in keys.astype(np.int64).tolist()]
+        rows_of = [int((cols[col[name][1]] == k).sum())
+                   for k in keys.astype(np.int64).tolist()]
+        log(f"CR (b): {name}: {keys.size} failed refreshes (drop rows "
+            f"{rows_of}), {sum(alone_failed)} of them fail alone "
+            f"through train_glm too (the f32 floor, ROADMAP §C12)  [{gpu}]")
+        if not all(alone_failed):
+            raise AssertionError(f"CR (b): {name}: a failed refresh "
+                                 "converges alone")
+
+    # (b) check: touched users re-solved alone on their drop rows, with
+    # their prior, warm start and offsets; and as a refresh of their own
+    cm = prev.coordinates["per_user"]
+    touched = plan.coordinates["per_user"].touched_keys.astype(np.int64)
+    picked = np.sort(np.random.default_rng(args.seed + 12).choice(
+        touched, size=GM_CHECK, replace=False))
+    sub = CT.RefreshPlan({"per_user": dataclasses.replace(
+        plan.coordinates["per_user"], touched_keys=picked.astype(np.str_),
+        new_keys=np.asarray([], np.str_))}, drop.n, plan.n_prev_rows)
+    alone_set = CT.refresh_game_model(prev, drop, sub, {"per_user": cfg_b})
+    rows = cm.dense_ids(picked)
+    got = res.model.coordinates["per_user"].coefficients[rows].cpu().numpy()
+    own = alone_set.model.coordinates["per_user"].coefficients[
+        rows].cpu().numpy()
+    gaps, alone_its = [], 0
+    for j, key in enumerate(picked.tolist()):
+        model, r = alone("per_user", key, cfg_b)
+        wa = model.coefficients.means.cpu().numpy()
+        gaps.append(float(np.max(np.abs(got[j] - wa)
+                                 / np.maximum(1.0, np.abs(wa)))))
+        alone_its += int(r.iterations)
+    shared = float(np.max(np.abs(got - own) / np.maximum(1.0, np.abs(own))))
+    st = alone_set.stats["per_user"]
+    log(f"CR (b): {GM_CHECK} touched users drawn from the seed, each "
+        f"re-solved alone through train_glm on its drop rows with its "
+        f"prior, warm start and offsets: max rel coefficient gap "
+        f"{max(gaps):.3g}, iterations {alone_its} alone against "
+        f"{st.total_iterations} as a refresh of those {GM_CHECK} alone, "
+        f"whose coefficients are {shared:.3g} (max rel) from the full "
+        f"refresh's  [{gpu}]")
+    if max(gaps) > W_CHECK_RTOL or shared > W_CHECK_RTOL or \
+            st.total_iterations != alone_its:
+        raise AssertionError("CR (b): touched users part from their solves "
+                             "alone")
+
+    # (c) a second drop: another touched count, the same padded shapes
+    baseline = len(CT.RefreshResult.signatures())
+    uid2, added, (m, n_b, pad) = cr_second_users(drop, plan, dev)
+    drop2, _ = cr_drop(args.seed + CR_SEED + 1, uid2, planted, CR_SHIFT)
+    full2 = CT.diff_manifest(manifest, drop2, prev)
+    plan2 = CT.RefreshPlan({"per_user": full2.coordinates["per_user"]},
+                           full2.n_drop_rows, full2.n_prev_rows)
+    t0 = time.perf_counter()
+    res2 = CT.refresh_game_model(prev, drop2, plan2, {"per_user": cfg_r})
+    torch.cuda.synchronize()
+    refresh2_s = time.perf_counter() - t0
+    refresh_launches = K.launch_counts()
+    n_sigs = CT.RefreshResult.assert_no_retrace(baseline)
+    log(f"CR (c): second drop of {drop2.n} rows: {added} untouched users "
+        f"added with {m} rows each into the per-user bucket of height {m} "
+        f"({n_b} touched, padded to {pad}): per_user touched "
+        f"{plan.coordinates['per_user'].n_touched} -> "
+        f"{plan2.coordinates['per_user'].n_touched}; refresh "
+        f"{refresh2_s:.3f} s (per_user alone: the added rows move items "
+        f"across bucket heights); {n_sigs} solve signatures, none new; "
+        f"hand-written kernel launches in (b)-(c)'s refreshes "
+        f"{refresh_launches or 'none'}  [{gpu}]")
+    busy, wall, n_ops, top = profiled_busy(lambda: CT.refresh_game_model(
+        prev, drop2, plan2, {"per_user": cfg_r}))
+    log("CR (c): profiled per-user refresh: device busy "
+        + ("not measured" if busy is None else
+           f"{busy:.3f} s of {wall:.3f} s wall ({busy / wall:.3f} busy, "
+           f"{1 - busy / wall:.3f} idle)")
+        + f", {n_ops} device ops; most device time (ms, launches): "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f}, {k}"
+                    for name, us, k in top) + f"  [{gpu}]")
+    st = res2.stats["per_user"]
+    log(f"CR (c): per_user at GM's configuration (tolerance "
+        f"{cfg_r.tolerance:g}): {st.n_touched} touched, "
+        f"{st.total_iterations} iterations, {st.n_converged} converged, "
+        f"{st.n_failed} failed (line searches that found no decrease at "
+        f"the f32 floor)  [{gpu}]")
+
+    # (d) the hot swap into a live int8 ladder under load
+    live = CoefficientStore.from_game_model(prev, device=dev)
+    old = CoefficientStore.from_game_model(prev, device=dev)
+    new = CoefficientStore.from_game_model(res.model, device=dev)
+    spec = dict(floor=8, max_batch=MAX_BATCH, output_mean=True)
+    ladder = ProgramLadder(live, quantize="int8", quant_epsilon=EPSILON,
+                           **spec)
+    ladder.warmup()
+    f32 = ProgramLadder(live, **spec)
+    f32.warmup()
+    reqs = cr_requests(args.seed + CR_SEED + 2, CR_REQUESTS)
+    flushes: list = []
+    score_padded = ladder.score_padded
+
+    def timed_score(*a):  # host ms of each flush's upload and dispatch
+        t = time.perf_counter()
+        out = score_padded(*a)
+        flushes.append((t, time.perf_counter() - t))
+        return out
+
+    ladder.score_padded = timed_score
+    root = tempfile.mkdtemp(prefix="_drv_cr", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        CT.publish_store(root, live)
+        probe = CT.ParityProbe(sample=64, bound=CR_PROBE_BOUND)
+        t0 = time.perf_counter()
+        report = CT.parity_probe(live, new, probe)
+        probe_ms = (time.perf_counter() - t0) * 1e3
+        parts: dict = {}
+
+        def timed(obj, name):
+            fn = getattr(obj, name)
+
+            def wrapped(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                parts[name] = time.perf_counter() - t
+                return out
+
+            setattr(obj, name, wrapped)
+
+        timed(new, "save")
+        timed(live, "reload_coefficients")
+
+        def swap():
+            K.reset_launch_counts()
+            return CT.hot_swap(live, new, root=root, probe=probe,
+                               rows_changed_unix=t_drop)
+
+        run = serve_swapping(ladder, reqs, swap)
+        cr_launches = K.launch_counts()
+        ladder.score_padded = score_padded
+        vdir = os.path.join(root, f"v{run['swap']['version']:08d}")
+        lat = (run["t_ans"] - run["t_sub"]) * 1e3
+        pre = run["t_ans"] < run["t_swap0"]
+        post = run["t_sub"] > run["t_swap1"]
+        if not np.isfinite(run["scores"]).all():
+            raise AssertionError("CR (d): a request was not answered")
+        post_flush = [d for t, d in flushes if t > run["t_swap1"]]
+        pre_flush = [d for t, d in flushes if t < run["t_swap0"]]
+        counters = telemetry.snapshot()["counters"]
+        log(f"CR (d): parity probe {probe_ms:.3f} ms (max margin delta "
+            f"{report.max_abs_delta:.6g} over {report.n_probes} probes, "
+            f"bound {CR_PROBE_BOUND:g}); publish {parts['save']:.3f} s, "
+            f"{dir_bytes(vdir)} bytes; reload "
+            f"{parts['reload_coefficients'] * 1e3:.3f} ms; staleness "
+            f"{run['swap']['staleness_s']:.3f} s (drop made to servable); "
+            f"first post-swap flush {post_flush[0] * 1e3:.3f} ms host (it "
+            f"re-quantizes the new generation) against a median "
+            f"{np.median(pre_flush) * 1e3:.3f} ms before  [{gpu}]")
+        log(f"CR (d): {run['idx'].size} requests from {CLIENTS} threads: before "
+            f"the swap " + lat_text(lat[pre], run["t_swap0"] - run["t0"])
+            + "; after it " + lat_text(lat[post],
+                                       run["t_end"] - run["t_swap1"])
+            + f"; {int((~pre & ~post).sum())} in flight across it; "
+            f"{KS.KERNEL} launches after the swap "
+            f"{cr_launches.get(KS.KERNEL, 0)}  [{gpu}]")
+        if counters.get("serving.hot_swaps") != 1:
+            raise AssertionError(f"CR (d): hot swaps {counters}")
+        if cr_launches.get(KS.KERNEL, 0) == 0:
+            raise AssertionError("CR (d): the rung kernel never launched "
+                                 "after the swap")
+        n_sigs = ladder.assert_no_retrace()
+        rng = np.random.default_rng(args.seed + 3)
+        for side, mask, store in (("before", pre, old), ("after", post,
+                                                         new)):
+            idx = np.nonzero(mask)[0]
+            idx = np.sort(rng.choice(idx, size=min(256, idx.size),
+                                     replace=False))
+            picked = [reqs[i] for i in run["idx"][idx]]
+            plain = ProgramLadder(store, quantize="int8",
+                                  quant_epsilon=EPSILON, **spec)
+            with K.scope("off"):
+                want = score_direct(plain, picked)
+            want32 = score_direct(ProgramLadder(store, **spec), picked)
+            got = run["scores"][idx]
+            np.testing.assert_allclose(got, want, **TOL,
+                                       err_msg=f"CR (d) {side}")
+            d32 = float(np.abs(got - want32).max())
+            if d32 > EPSILON / 4:
+                raise AssertionError(f"CR (d) {side}: int8 answers differ "
+                                     f"from the f32 ladder by {d32}")
+            log(f"CR (d): {idx.size} answers {side} the swap against the "
+                f"{'old' if store is old else 'new'} generation: max |int8 "
+                f"- plain int8| {float(np.abs(got - want).max()):.3g}, max "
+                f"|int8 - f32| {d32:.3g}; {n_sigs} rung signatures")
+        f32_gap = float(np.abs(score_direct(f32, reqs[:256])
+                               - score_direct(ProgramLadder(new, **spec),
+                                              reqs[:256])).max())
+        if f32_gap:
+            raise AssertionError("CR (d): the live f32 ladder does not "
+                                 "score the new generation")
+
+        # (e) a publish killed before the pointer, and a refused store
+        cur, v = CT.open_current(root, device=dev)
+        before = np.array(cur.random["per_user"].coefficients)
+        with fault_plan(FaultPlan.kill_at("swap_publish", 1)):
+            try:
+                CT.hot_swap(None, old, root=root, probe=None)
+                raise AssertionError("CR (e): the kill did not fire")
+            except InjectedFault:
+                pass
+        cur2, v2 = CT.open_current(root, device=dev)
+        if v2 != v or not np.array_equal(
+                np.array(cur2.random["per_user"].coefficients), before):
+            raise AssertionError("CR (e): a killed publish moved CURRENT")
+        broken = CoefficientStore.from_game_model(res.model, device=dev)
+        broken.random["per_user"] = dataclasses.replace(
+            broken.random["per_user"],
+            coefficients=broken.random["per_user"].coefficients + 1e6)
+        live_before = np.array(live.random["per_user"].coefficients)
+        try:
+            CT.hot_swap(live, broken, probe=probe)
+            raise AssertionError("CR (e): the blown-up store went live")
+        except CT.SwapRefused as e:
+            refused = e.report
+        counters = telemetry.snapshot()["counters"]
+        if counters.get("continual.swap_refusals") != 1 or \
+                not np.array_equal(live.random["per_user"].coefficients,
+                                   live_before):
+            raise AssertionError(f"CR (e): refusal {counters}")
+        log(f"CR (e): a publish killed at swap_publish#1 leaves version {v}"
+            f" live with the same bytes; a store with +1e6 on its per-user "
+            f"coefficients refused (max margin delta "
+            f"{refused.max_abs_delta:.6g}), continual.swap_refusals 1, the "
+            "live store untouched")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del live, old, new, ladder, f32
+
+    # (f) the straggler re-solve on (a)'s per-user coordinate
+    dcache, _ = est._caches_for(data)
+    ds = dcache[est._dataset_key(est.coordinate_configs["per_user"])]
+    offsets = torch.zeros(data.n, dtype=torch.float32, device=dev)
+    for name, s in coordinate_scores(prev, data).items():
+        if name != "per_user":
+            offsets = offsets + s
+    cfg_f2 = dataclasses.replace(cfg_r, tolerance=RE_CHECK_TOL)
+    for cfg, budget in ((cfg_r, CR_BUDGET), (cfg_f2, CR_BUDGET_CHECK)):
+        fits = {}
+        for b in (None, budget):
+            coord = RandomEffectCoordinate(ds, cm.task, cfg,
+                                           straggler_budget=b)
+            telemetry.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, stats = coord.train(offsets)
+            torch.cuda.synchronize()
+            fits[b] = (model.coefficients.cpu().numpy(), stats,
+                       time.perf_counter() - t0,
+                       telemetry.snapshot()["counters"])
+        (w0, s0, t_0, _), (w5, s5, t_5, c5) = fits[None], fits[budget]
+        conv = s0.converged_per_entity & s5.converged_per_entity
+        rel = np.max(np.abs(w5 - w0) / np.maximum(1.0, np.abs(w0)), axis=1)
+        log(f"CR (f): per-user update at tolerance {cfg.tolerance:g} without"
+            f" a budget {t_0:.3f} s ({s0.total_iterations} iterations, "
+            f"{s0.n_converged} converged, {s0.n_failed} failed); "
+            f"straggler_budget {budget} {t_5:.3f} s ({s5.total_iterations} "
+            f"iterations, {s5.n_converged} converged, {s5.n_failed} failed):"
+            f" {int(c5.get('game_re.straggler_entities', 0))} straggler "
+            f"entities, lock-step iterations first pass "
+            f"{int(c5.get('game_re.capped_lockstep_iters', 0))} + tail "
+            f"{int(c5.get('game_re.tail_lockstep_iters', 0))}, "
+            f"game_re.iters_saved {int(c5.get('game_re.iters_saved', 0))}; "
+            f"{int(conv.sum())} entities converged in both runs: max rel "
+            f"coefficient gap {rel[conv].max():.3g}, "
+            f"{int((rel[conv] > 1e-5).sum())} apart beyond 1e-5; all "
+            f"entities: max rel gap {rel.max():.3g}  [{gpu}]")
+        # at 1e-7 both runs reach the optimum: hold the entities converged
+        # in both (a tail pass restarted at the f32 floor may end "failed",
+        # in the reference too: ROADMAP §C12); at RE_CHECK_TOL each run
+        # stops early on its own path: hold the outcomes
+        if not c5.get("game_re.straggler_entities") or (
+                rel[conv].max() > RE_CHECK_TOL if cfg is cfg_r
+                else s0.n_failed != s5.n_failed):
+            raise AssertionError("CR (f): the straggler re-solve parts from "
+                                 "the run without a budget")
+    del data, est, prev_fit, Xf_dev
+    torch.cuda.empty_cache()
+    log(f"CR: {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+    return refresh_launches, cr_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4810,6 +5446,8 @@ def main() -> int:
     drv = phase_drivers(args, dev, gpu)
     torch.cuda.empty_cache()
     drvs = phase_drivers_streamed(args, dev, gpu)
+    torch.cuda.empty_cache()
+    _, cr = phase_continual(args, dev, gpu)
     for entry in kernels:
         entry["gm_launches"] = gm.get(entry["name"], 0)
         entry["gk_launches"] = gk.get(entry["name"], 0)
@@ -4819,6 +5457,7 @@ def main() -> int:
         entry["gg_launches"] = gg.get(entry["name"], 0)
         entry["drv_launches"] = drv.get(entry["name"], 0)
         entry["drvs_launches"] = drvs.get(entry["name"], 0)
+        entry["cr_launches"] = cr.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,10 @@ lineage to replay, so this module supplies the two halves explicitly:
 
 The registry keeps every reference site, so plans and site names mean
 the same in both packages; the port's program points today are
-``avro_open``, ``ingest_worker``, ``cache_open`` and ``cache_commit``
-(the checkpoint sessions and taps wait for ROADMAP queue A item 11).
+``avro_open``, ``ingest_worker``, ``cache_open``, ``cache_commit``,
+``commit`` (`checkpoint.store`) and ``swap_publish``
+(`continual.swap.publish_store`); the checkpoint sessions and taps wait
+for ROADMAP queue A item 11.
 
 Counters (`telemetry`): ``faults.injected_kills``,
 ``faults.injected_errors``, ``faults.io_retries``,

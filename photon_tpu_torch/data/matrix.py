@@ -1108,6 +1108,43 @@ class EntityBlocks:
                             tuple(cut(t) for t in self.segments),
                             self.lanes_per_entity)
 
+    def take(self, idx, pad_lanes: int | None = None) -> "EntityBlocks":
+        """Entities ``idx`` (in that order) as a block of ``pad_lanes``
+        entities, zero entities after them: the lane-minor counterpart of
+        `parallel.mesh.compact_rows` (lanes are the last axis here). The
+        sparse form's plan is gathered along the lanes, not rebuilt; a
+        zero entity (indices 0, values 0) gets the plan of an all-zero
+        lane, so its slots still sort by column."""
+        if not isinstance(idx, torch.Tensor):
+            idx = torch.from_numpy(np.asarray(idx, np.int64).reshape(-1))
+        src = self.dense if self.dense is not None else self.indices
+        idx = idx.long().to(src.device)
+        n = int(idx.shape[0])
+        pad = n if pad_lanes is None else int(pad_lanes)
+        if pad < n:
+            raise ValueError(f"pad_lanes={pad} is below the {n} taken")
+
+        def cut(t, fill=None):
+            if t is None:
+                return None
+            g = t.index_select(t.dim() - 1, idx)
+            if pad == n:
+                return g.contiguous()
+            if fill is None:
+                fill = t.new_zeros(tuple(t.shape[:-1]) + (1,))
+            return torch.cat([g, fill.expand(tuple(t.shape[:-1])
+                                             + (pad - n,))], dim=-1)
+
+        segments = None
+        if self.segments is not None:
+            m, k, _ = self.indices.shape
+            zero = _column_segments(self.indices.new_zeros((m, k, 1)),
+                                    self.n_features)
+            segments = tuple(cut(t, z) for t, z in zip(self.segments, zero))
+        return EntityBlocks(cut(self.dense), cut(self.indices),
+                            cut(self.values), self.n_features, segments,
+                            self.lanes_per_entity)
+
     def grid(self, G: int) -> "EntityBlocks":
         """The same block with G lanes per entity (the tensors shared)."""
         return dataclasses.replace(self, lanes_per_entity=int(G))

@@ -22,9 +22,10 @@ reference's `_grid_data_supported`).
 On the port's device (CUDA unless ``device="cpu"``), one device; the
 validation data moves there once per fit and every metric runs there. A
 fixed effect's shard may be a host `ChunkedMatrix`: its solves stream and
-the descent exchanges its margins on the host. Meshes wait for ROADMAP
-queue A item 10, the straggler re-solve (``straggler_budget``) for item
-6.
+the descent exchanges its margins on the host. A random effect's
+``straggler_budget`` caps its first pass and re-solves the lanes left
+over as one gathered block (`RandomEffectCoordinate.train`). Meshes wait
+for ROADMAP queue A item 10.
 """
 from __future__ import annotations
 

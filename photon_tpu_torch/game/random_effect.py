@@ -19,8 +19,14 @@ elements (so its solver state stays a few GB at most on the card). The
 block loop is the plain sequential one: bucket after bucket, each solved,
 read back and scattered on the host. ``pipeline_depth`` is accepted and
 changes nothing (the reference's pipelined loop is bit-identical to this
-one at every depth); ``straggler_budget`` (the compacted re-solve of
-unconverged lanes) is not ported yet.
+one at every depth).
+
+``straggler_budget`` caps the first pass of every chunk at that many
+iterations; the lanes of a bucket that neither converged nor failed then
+gather with `EntityBlocks.take` into one block that runs, warm-started
+from the capped pass, to the config's ``max_iters`` (iterations add per
+entity; the second pass restarts the L-BFGS curvature history, so
+iteration counts change, not the optimum).
 
 A regularization grid over the GAME model (`game.grid`) solves a bucket
 with G lanes per entity (`solve_block_grid`): lanes = (entity × grid
@@ -34,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import GLMBatch
 from photon_tpu_torch.game.dataset import RandomEffectDataset, REBlock
 from photon_tpu_torch.game.model import RandomEffectModel
@@ -45,6 +52,7 @@ from photon_tpu_torch.models.variance import (VarianceComputationType,
 from photon_tpu_torch.ops.losses import TaskType
 from photon_tpu_torch.optim.config import OptimizerConfig
 from photon_tpu_torch.optim.tracker import OptResult
+from photon_tpu_torch.parallel.mesh import compact_rows
 
 # The largest (m, E) lane tensor of one chunk solve, in elements: 2^24 f32
 # is 64 MB, and a lane L-BFGS keeps about a dozen such tensors plus its
@@ -60,6 +68,35 @@ def lane_chunk(m: int, e_real: int, lanes_per_entity: int = 1) -> int:
     entities take ``lanes_per_entity`` lanes each (a grid's G: the chunk
     shrinks by G, as the reference's ``cap // G``)."""
     return max(1, min(e_real, LANE_ELEMS // max(m * lanes_per_entity, 1)))
+
+
+def _lanes(a, dev) -> torch.Tensor:
+    """(E, p) host rows → their (p, E) lane tensor on ``dev``."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(a, np.float32).T)).to(dev)
+
+
+def take_lanes(batch: GLMBatch, idx, pad_lanes: Optional[int] = None
+               ) -> GLMBatch:
+    """The entities ``idx`` of a lane-minor bucket batch as a batch of
+    ``pad_lanes`` lanes (zero lanes after them: weight 0, so no solve sees
+    their rows): X by `EntityBlocks.take`, the (m, E) label, weight and
+    offset columns by `compact_rows` on their entity-major views."""
+    y, w, o = compact_rows((batch.y.t(), batch.weights.t(),
+                            batch.offsets.t()), idx, pad_rows=pad_lanes)
+    return GLMBatch(batch.X.take(idx, pad_lanes), y.t().contiguous(),
+                    w.t().contiguous(), o.t().contiguous())
+
+
+def _lockstep(iters: np.ndarray, step: int, lanes: bool = True) -> int:
+    """Lock-step cost of solving ``iters`` (per-lane iteration counts) in
+    chunks of ``step`` lanes: Σ over chunks of its slowest lane's count,
+    times the chunk's width when ``lanes``."""
+    total = 0
+    for lo in range(0, iters.shape[0], step):
+        part = iters[lo:lo + step]
+        total += int(part.max(initial=0)) * (part.shape[0] if lanes else 1)
+    return total
 
 
 def align_entity_priors(prior: RandomEffectModel, entity_keys, d: int):
@@ -98,6 +135,9 @@ class RETrainStats:
     # (E,) solver iterations per dense entity id
     iterations_per_entity: Optional[np.ndarray] = dataclasses.field(
         default=None, compare=False, repr=False)
+    # (E,) whether each dense entity's solve converged
+    converged_per_entity: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
 
 @dataclasses.dataclass(eq=False)
@@ -123,10 +163,6 @@ class RandomEffectCoordinate:
                 "yet (ROADMAP queue A item 10)")
         if int(self.pipeline_depth) < 0:
             raise ValueError("pipeline_depth must be >= 0")
-        if self._effective_budget() is not None:
-            raise NotImplementedError(
-                "straggler_budget (the compacted re-solve of unconverged "
-                "entities) is not ported yet (ROADMAP queue A item 6)")
         if ds.projection is not None:
             if (self.normalization is not None
                     and not self.normalization.is_identity):
@@ -142,6 +178,9 @@ class RandomEffectCoordinate:
                     "projection")
 
     def _effective_budget(self) -> Optional[int]:
+        """The first-pass iteration cap, or None when the straggler
+        re-solve is off (unset, non-positive, or no smaller than
+        max_iters)."""
         b = self.straggler_budget
         if b is None or b <= 0 or b >= self.config.max_iters:
             return None
@@ -152,33 +191,54 @@ class RandomEffectCoordinate:
         return n if n is not None and not n.is_identity else None
 
     def solve_block(self, block: REBlock, offsets_full, w0=None,
-                    prior_means=None, prior_precs=None):
+                    prior_means=None, prior_precs=None,
+                    max_iters: Optional[int] = None):
         """Every entity of one bucket as the lanes of lock-step solves, in
         chunks of `lane_chunk` entities, in the bucket's solve space
         (projected, normalized). ``offsets_full``: the (n,) per-row
         offsets on the device; ``w0`` / ``prior_means`` / ``prior_precs``:
-        (E, p) host arrays (default: zeros, no prior). Returns the
+        (E, p) host arrays (default: zeros, no prior); ``max_iters``: a cap
+        below the config's (the straggler first pass). Returns the
         lane-MAJOR `OptResult` (w (E, p), per-entity scalars (E,),
         histories (E, T + 1)) and the (E, p) variances (None for NONE), on
         the device."""
-        ds = self.dataset
-        batch = ds.block_batch(block, offsets_full)
+        batch = self.dataset.block_batch(block, offsets_full)
         dev = block.y.device
-        dim = block.dim if block.dim is not None else ds.dim
-        norm = self._norm() if ds.projection is None else None
-        obj = make_objective(self.task, self.config, dim,
-                             normalization=norm, device=dev)
-        l2, l1, cfg = lane_weight_arrays(self.config,
-                                         [self.config.reg_weight])
+        obj = self.block_objective(block)
         E = block.n_entities
         if w0 is None:
-            w0 = np.zeros((E, dim), np.float32)
+            w0 = np.zeros((E, self._block_dim(block)), np.float32)
+        pm = pp = None
+        if prior_means is not None:
+            pm, pp = _lanes(prior_means, dev), _lanes(prior_precs, dev)
+        return self.solve_lanes(obj, batch, _lanes(w0, dev), pm, pp,
+                                max_iters=max_iters)
 
-        def lanes(a, lo, hi):  # (E, p) host rows → (p, G) device lanes
-            return torch.from_numpy(np.ascontiguousarray(
-                np.asarray(a, np.float32)[lo:hi].T)).to(dev)
+    def _block_dim(self, block: REBlock) -> int:
+        return block.dim if block.dim is not None else self.dataset.dim
 
-        step = lane_chunk(block.m, E)
+    def block_objective(self, block: REBlock):
+        """The objective of one bucket's solves, in its solve space."""
+        norm = self._norm() if self.dataset.projection is None else None
+        return make_objective(self.task, self.config, self._block_dim(block),
+                              normalization=norm, device=block.y.device)
+
+    def solve_lanes(self, obj, batch: GLMBatch, W0: torch.Tensor,
+                    prior_means: Optional[torch.Tensor] = None,
+                    prior_precs: Optional[torch.Tensor] = None,
+                    max_iters: Optional[int] = None):
+        """The lane solves under `solve_block`: a lane-minor batch (X an
+        `EntityBlocks` of E entities, (m, E) labels, weights and offsets)
+        from the (p, E) starts ``W0`` and per-lane priors, in chunks of
+        `lane_chunk(m, E)` lanes, each one lock-step solve. Returns the
+        lane-MAJOR `OptResult` and the (E, p) variances (None for NONE)."""
+        dev = W0.device
+        l2, l1, cfg = lane_weight_arrays(self.config,
+                                         [self.config.reg_weight])
+        if max_iters is not None:
+            cfg = dataclasses.replace(cfg, max_iters=int(max_iters))
+        m, E = int(batch.y.shape[0]), int(batch.y.shape[1])
+        step = lane_chunk(m, E)
         results, variances = [], []
         for lo in range(0, E, step):
             hi = min(E, lo + step)
@@ -190,12 +250,13 @@ class RandomEffectCoordinate:
             o = obj
             if prior_means is not None:
                 o = dataclasses.replace(
-                    obj, prior_mean=lanes(prior_means, lo, hi),
-                    prior_precision=lanes(prior_precs, lo, hi))
+                    obj, prior_mean=prior_means[:, lo:hi].contiguous(),
+                    prior_precision=prior_precs[:, lo:hi].contiguous())
             G = hi - lo
             l2s = l2.to(dev).expand(G).contiguous()
             l1s = None if l1 is None else l1.to(dev).expand(G).contiguous()
-            res = _lane_solve(o, sub, lanes(w0, lo, hi), l2s, l1s, cfg)
+            res = _lane_solve(o, sub, W0[:, lo:hi].contiguous(), l2s, l1s,
+                              cfg)
             var = compute_variances_lanes(o, l2s, res.w, sub, self.variance)
             results.append(_lane_result(res))
             variances.append(None if var is None else var.t())
@@ -212,6 +273,58 @@ class RandomEffectCoordinate:
                else torch.cat(variances) if len(variances) > 1
                else variances[0])
         return res, var
+
+    def _resolve_stragglers(self, block: REBlock, offsets_full, idx,
+                            w_out, conv, fail, iters, var_h, pm, pp):
+        """The second pass of a capped solve: the lanes ``idx`` of one
+        bucket that neither converged nor failed, gathered with
+        `EntityBlocks.take` (with their label, weight and offset columns
+        and their priors) into one block, started from the capped pass's
+        ``w_out`` and solved to the config's ``max_iters``. Iterations add
+        per entity; ``w_out``, ``conv``, ``fail`` and ``var_h`` are
+        overwritten in place (host arrays of the bucket's E entities).
+
+        ``game_re.iters_saved`` counts lock-step lane-iterations: a chunk
+        of width c whose slowest lane runs k iterations costs c·k (frozen
+        lanes ride along). Uncapped, each first-pass chunk (`lane_chunk(m,
+        E)` lanes) would run to its slowest lane's total; capped, it stops
+        at its slowest capped lane and the tail's chunks (`lane_chunk(m,
+        n)` lanes) pay their own:
+
+            saved = Σ_c |c|·max_c(first + tail)
+                    − Σ_c |c|·max_c(first) − Σ_t |t|·max_t(tail),
+
+        clipped at 0 (the reference's formula, over the port's chunks
+        rather than `_MAX_SOLVE_LANES`)."""
+        ds = self.dataset
+        dev = block.y.device
+        n2 = int(idx.size)
+        batch = take_lanes(ds.block_batch(block, offsets_full), idx)
+        W0 = _lanes(w_out[idx], dev)
+        pm2 = pp2 = None
+        if pm is not None:
+            pm2, pp2 = _lanes(pm[idx], dev), _lanes(pp[idx], dev)
+        res2, var2 = self.solve_lanes(self.block_objective(block), batch, W0,
+                                      pm2, pp2)
+        w2, conv2, fail2, it2 = (t.cpu().numpy() for t in (
+            res2.w, res2.converged, res2.failed, res2.iterations))
+        it2 = it2.astype(np.int64)
+        first = iters.copy()
+        w_out[idx] = w2
+        conv[idx] = conv2
+        fail[idx] = fail2
+        iters[idx] += it2
+        if var_h is not None:
+            var_h[idx] = var2.cpu().numpy()
+        step, step2 = lane_chunk(block.m, first.shape[0]), lane_chunk(
+            block.m, n2)
+        full, capped = _lockstep(iters, step), _lockstep(first, step)
+        tail = _lockstep(it2, step2)
+        telemetry.count("game_re.straggler_entities", n2)
+        telemetry.count("game_re.tail_resolves")
+        telemetry.count("game_re.tail_lockstep_iters",
+                        _lockstep(it2, step2, lanes=False))
+        telemetry.count("game_re.iters_saved", max(full - capped - tail, 0))
 
     def solve_block_grid(self, block: REBlock, offsets_lanes, W0, l2s,
                          l1s, config: OptimizerConfig):
@@ -265,7 +378,10 @@ class RandomEffectCoordinate:
         offsets. ``warm_start``: a model whose coefficients start the
         solves. ``prior``: a previous run's model — each entity seen in it
         gets a Gaussian prior from its coefficients and variances, aligned
-        by entity KEY (entities new to this dataset get none)."""
+        by entity KEY (entities new to this dataset get none). With a
+        ``straggler_budget`` below ``max_iters`` each bucket's first pass
+        stops there and its unconverged lanes re-solve as one gathered
+        block (`_resolve_stragglers`)."""
         ds = self.dataset
         E, d = ds.n_entities, ds.dim
         norm = self._norm()
@@ -294,10 +410,12 @@ class RandomEffectCoordinate:
                      else None)
         n_conv = n_fail = 0
         iters_per_entity = np.zeros((E,), np.int64)
+        conv_per_entity = np.zeros((E,), bool)
         if not isinstance(offsets_full, torch.Tensor):
             offsets_full = torch.from_numpy(
                 np.asarray(offsets_full, np.float32))
         offsets_dev = offsets_full.to(ds.device, torch.float32)
+        budget = self._effective_budget()
         for block in ds.blocks:
             ents = block.entity_index
             w0_full = coeffs[ents]
@@ -315,11 +433,20 @@ class RandomEffectCoordinate:
                 w0 = w0_full
                 if prior_means is not None:
                     pm, pp = prior_means[ents], prior_precs[ents]
-            res, var = self.solve_block(block, offsets_dev, w0, pm, pp)
-            w_out, conv, fail, iters = (t.cpu().numpy() for t in (
+            res, var = self.solve_block(block, offsets_dev, w0, pm, pp,
+                                        max_iters=budget)
+            w_out, conv, fail, iters = (np.array(t.cpu()) for t in (
                 res.w, res.converged, res.failed, res.iterations))
             iters = iters.astype(np.int64)
-            var_h = None if var is None else var.cpu().numpy()
+            var_h = None if var is None else np.array(var.cpu())
+            if budget is not None:
+                telemetry.count("game_re.capped_lockstep_iters", _lockstep(
+                    iters, lane_chunk(block.m, iters.shape[0]), lanes=False))
+                strag = np.nonzero(~conv & ~fail)[0]
+                if strag.size:
+                    self._resolve_stragglers(block, offsets_dev, strag,
+                                             w_out, conv, fail, iters, var_h,
+                                             pm, pp)
             if block.proj is not None:
                 from photon_tpu_torch.game.projector import scatter_rows_into
 
@@ -335,6 +462,7 @@ class RandomEffectCoordinate:
             n_conv += int(conv.sum())
             n_fail += int(fail.sum())
             iters_per_entity[ents] = iters
+            conv_per_entity[ents] = conv
         if norm is not None:
             coeffs = norm.rows_to_original_space(coeffs)
             if variances is not None:
@@ -348,7 +476,7 @@ class RandomEffectCoordinate:
                 np.ascontiguousarray(variances)).to(ds.device))
         return model, RETrainStats(E, n_conv, n_fail,
                                    int(iters_per_entity.sum()),
-                                   iters_per_entity)
+                                   iters_per_entity, conv_per_entity)
 
     def score(self, model: RandomEffectModel) -> torch.Tensor:
         """Per-row margin for ALL rows, active and passive: one gather +

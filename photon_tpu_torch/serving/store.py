@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import telemetry
-from photon_tpu_torch.checkpoint.store import commit_bytes
+from photon_tpu_torch.checkpoint.store import (commit_bytes,
+                                               replace_committed)
 from photon_tpu_torch.data.index_map import IndexMap
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.game.model import (FixedEffectModel, GameModel,
@@ -136,9 +137,10 @@ class CoefficientStore:
         mmap-able) + the entity directories + a JSON manifest.
 
         Two-phase: every payload is written and fsynced under a temp name
-        first, then renamed into place, and the manifest commits LAST — a
-        save killed midway leaves no manifest, so `open` fails cleanly
-        instead of reading a torn block."""
+        first, then published by `replace_committed` (a ``commit`` fault
+        site each), and the manifest commits LAST — a save killed midway
+        leaves no manifest, so `open` fails cleanly instead of reading a
+        torn block."""
         out_dir = str(out_dir)
         os.makedirs(out_dir, exist_ok=True)
         tag = f".tmp.{os.getpid()}"
@@ -171,7 +173,7 @@ class CoefficientStore:
                      "feature_shard": blk.feature_shard,
                      "entity_name": blk.entity_name, "directory": "tsv"})
         for final in staged:
-            os.replace(final + tag, final)
+            replace_committed(final + tag, final)
         commit_bytes(os.path.join(out_dir, _META_NAME),
                      json.dumps(meta, indent=2).encode())
 

@@ -192,14 +192,15 @@ def test_bucketing_matches_reference(shard, active_cap, projection):
 
 # ------------------------------------------------------ per-entity solves
 def _re_pair(shard, ropt, popt, variance="none", projection=None,
-             normalization=None):
-    ref, port = game_pair(raw_game())
+             normalization=None, n=600, **build_kw):
+    ref, port = game_pair(raw_game(n=n))
     entity = "user" if shard == "u" else "item"
     rds = RGD.RandomEffectDataset.build(ref, entity, shard,
-                                        projection=projection and projection[0])
+                                        projection=projection and projection[0],
+                                        **build_kw)
     pds = GD.RandomEffectDataset.build(port, entity, shard,
                                        projection=projection and projection[1],
-                                       device=CPU)
+                                       device=CPU, **build_kw)
     rn = pn = None
     if normalization is not None:
         from photon_tpu.data import normalization as RN
@@ -546,9 +547,9 @@ def test_unseen_entity_scores_zero():
 
 # --------------------------------------------------------- what raises
 def test_paths_not_ported_raise_with_their_item():
-    """Meshes (item 10) and the straggler re-solve (item 6) still raise;
-    validation data (item 7) and the cold reg-weight grid that the
-    reference vectorizes (item 6) now fit, held against the reference."""
+    """Meshes (item 10) still raise; validation data (item 7), the
+    straggler re-solve and the cold reg-weight grid that the reference
+    vectorizes (item 6) now fit, held against the reference."""
     ref, port = game_pair(raw_game(n=200))
     rest, pest = estimator_pair(n_sweeps=1)
 
@@ -574,11 +575,17 @@ def test_paths_not_ported_raise_with_their_item():
     np.testing.assert_allclose(streamed.descent.objective_history,
                                resident.descent.objective_history,
                                rtol=HIST_RTOL)
-    straggle = dict(pest.coordinate_configs)
-    straggle["per_user"] = dataclasses.replace(straggle["per_user"],
-                                               straggler_budget=2)
-    raises(6, lambda: dataclasses.replace(
-        pest, coordinate_configs=straggle).fit(port))
+    # the straggler re-solve (item 6, now ported) fits as the reference's
+    # (SIMPLE variances, as test_straggler_resolve_matches_reference's fit)
+    fits = []
+    for est, data, var in ((rest, ref, RVar.SIMPLE),
+                           (pest, port, Var.SIMPLE)):
+        straggle = {k: (dataclasses.replace(c, straggler_budget=2)
+                        if hasattr(c, "straggler_budget") else c)
+                    for k, c in est.coordinate_configs.items()}
+        fits += dataclasses.replace(est, coordinate_configs=straggle,
+                                    variance=var).fit(data)
+    assert_same_fit(*fits)
     # a reg-weight grid without warm starts: the reference vectorizes it,
     # every grid point a lane of one coordinate descent
     grids = []
@@ -595,6 +602,67 @@ def test_paths_not_ported_raise_with_their_item():
     assert len(pres) == 2
     for rr, pr in zip(rres, pres):
         assert_same_fit(rr, pr)
+
+
+@pytest.mark.parametrize("case", ["lbfgs-u", "lbfgs-i", "owlqn-u", "owlqn-i",
+                                  "tron-u", "tron-i", "estimator"])
+def test_straggler_resolve_matches_reference(case):
+    """``straggler_budget=2``: every chunk's first pass stops at 2
+    iterations and the lanes neither converged nor failed re-solve as one
+    gathered block to ``max_iters`` from the capped pass's coefficients,
+    with their priors; per-entity iterations (the two passes added),
+    convergence, coefficients and SIMPLE variances equal the reference's,
+    on dense (users) and sparse (items) blocks, through
+    `RandomEffectCoordinate.train` and through `GameEstimator.fit`."""
+    from photon_tpu_torch import telemetry
+
+    telemetry.reset()
+    if case == "estimator":
+        rest, pest = estimator_pair(n_sweeps=1, variance=RVar.SIMPLE)
+        ref, port = game_pair(raw_game(n=200))
+        fits = []
+        for est, data in ((rest, ref), (pest, port)):
+            cfgs = {k: (dataclasses.replace(c, straggler_budget=2)
+                        if hasattr(c, "straggler_budget") else c)
+                    for k, c in est.coordinate_configs.items()}
+            fits += dataclasses.replace(est, coordinate_configs=cfgs).fit(
+                data)
+        assert_same_fit(*fits)
+    else:
+        opt, shard = case.split("-")
+        reg = "en" if opt == "owlqn" else "l2"
+        ropt, popt = cfg_pair("lbfgs" if opt == "owlqn" else opt, reg=reg,
+                              lam=0.5 if reg == "en" else 1.0, iters=10)
+        rc, pc, offsets = _re_pair(shard, ropt, popt, "simple", n=200,
+                                   max_blocks=1)
+        d = rc.dataset.dim
+        rng = np.random.default_rng(3)
+        prev = (0.3 * rng.normal(size=(rc.dataset.n_entities, d))).astype(
+            np.float32)
+        var = rng.uniform(0.2, 2.0, size=prev.shape).astype(np.float32)
+        keys = rc.dataset.entity_keys
+        k2i = {k: i for i, k in enumerate(keys.tolist())}
+        from photon_tpu.game.model import RandomEffectModel as RREM
+        from photon_tpu_torch.game.model import RandomEffectModel as REM
+
+        common = dict(entity_name=rc.dataset.entity_name,
+                      feature_shard=rc.dataset.shard_name, entity_keys=keys,
+                      key_to_index=k2i)
+        rprior = RREM(task=RL.TaskType.LOGISTIC_REGRESSION,
+                      coefficients=jnp.asarray(prev),
+                      variances=jnp.asarray(var), **common)
+        pprior = REM(task=L.TaskType.LOGISTIC_REGRESSION,
+                     coefficients=torch.from_numpy(prev),
+                     variances=torch.from_numpy(var), **common)
+        rc = dataclasses.replace(rc, straggler_budget=2)
+        pc = dataclasses.replace(pc, straggler_budget=2)
+        rm, rs = rc.train(offsets, prior=rprior)
+        pm, ps = pc.train(offsets, prior=pprior)
+        assert_same_re(rm, rs, pm, ps, var=True)
+    counters = telemetry.snapshot()["counters"]
+    assert counters["game_re.straggler_entities"] > 0
+    assert counters["game_re.tail_resolves"] > 0
+    assert "game_re.iters_saved" in counters
 
 
 @pytest.mark.parametrize("case", ["warm", "cold", "forced", "off", "skewed",
