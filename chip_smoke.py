@@ -7,7 +7,8 @@ fixed-effect and GAME grids), its drivers (Avro in, model directory
 and scored Avro out) and its streamed data plane (the native Avro
 decoder, the ingest plane, the training driver's streamed regimes) and
 its continual refresh (delta plan, compacted re-solve, hot swap into a
-live int8 ladder) on one GPU.
+live int8 ladder) and its elastic runs (checkpoint/restore of the
+streamed solvers, GAME's descent and the training driver) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -285,6 +286,38 @@ CR. continual refresh at GM's widths: (a) the previous model
    against none at GM's config (coefficients within 1e-3) and with 2
    against none at 1e-3 (equal failed counts): straggler entities,
    lock-step iterations of both passes, ``game_re.iters_saved``.
+CK. elastic runs (in-process kills: an injected fault, then a fresh
+   `checkpoint` session resuming from the last commit; snapshot
+   directories under ``_drv_ck*`` temporary directories beside this
+   script, each removed after its leg): (a) after S (b), on S's ladder:
+   streamed L-BFGS (CK_ITERS iterations, tolerance 0, the default kernel
+   route) session-less, armed and unkilled with a synchronous and an
+   asynchronous writer (about CK_SNAPSHOTS snapshots a run, CK_KEEP kept),
+   killed at the middle ``evaluation``, the middle ``chunk_upload``,
+   ``snapshot_write`` #2 and ``commit`` #2 and resumed, and S (b)'s
+   OWL-QN killed at its middle evaluation and resumed — state bytes,
+   snapshots, pack ms (the caller's part), commit and restore s,
+   rows·iters/s session-less against armed, the tail matvec and rmatvec
+   launches after each resume; held: every armed and resumed result (w,
+   loss history, iterations) equals the session-less one bit for bit; (b)
+   inside GM: GM's model at full width with every solve stopped at
+   RE_CHECK_TOL and ``straggler_budget`` CR_BUDGET_CHECK, fitted at
+   ``pipeline_depth`` 1, 0 and 2 (seconds each, no claim; equal bit for
+   bit), armed and unkilled (async writer), killed at the middle
+   ``bucket_retire`` and a mid-run ``commit`` and resumed (snapshots at
+   every retire and update) — snapshot bytes, ``checkpoint.re_restores``
+   and ``checkpoint.descent_restores``; held: every model, score and
+   objective history equals the session-less fit's bit for bit; (c)
+   inside DRV, after (a): DRV (a)'s `run_training` with a
+   ``checkpoint_dir`` killed at its middle ``bucket_retire`` and rerun:
+   ``best_model/`` equals DRV (a)'s bit for bit; then ``python -m
+   photon_tpu_torch.checkpoint --selftest --json`` on the card exits 0;
+   (d) after T2(d): T2's resident L-BFGS (T_SHORT iterations) session-less,
+   under an armed session with the tap off (the same launches, the same
+   device ops — every aten operator the solve dispatches, counted by a
+   dispatch mode —, the same bits) and with ``resident_tap=True``
+   (the tapped iteration count and w, mapped back to model order, equal
+   the result's bit for bit).
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
@@ -295,8 +328,9 @@ entry its launches in GM's fits and GK's default-route fits under
 ``e_launches``, in GG's fits under ``gg_launches``, in DRV (a)
 under ``drv_launches`` and in DRV-S's main-path runs — (b)'s streamed
 driver run, (c)'s streamed objective and (d)'s ladder solve, each
-counted alone — under ``drvs_launches``, and after CR (d)'s hot swap
-under ``cr_launches``), the card's name and power limit as nvidia-smi reports them, and last
+counted alone — under ``drvs_launches``, after CR (d)'s hot swap
+under ``cr_launches``, and in CK's armed and resumed runs and (d)'s
+tapped solve under ``ck_launches``), the card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
 """
@@ -397,6 +431,10 @@ W_CHECK_RTOL = 1e-4  # coefficients of one entity solved two ways
 # (f) again at RE_CHECK_TOL, where GM's entities stop within 4 iterations:
 # a budget of 2 leaves most of them to the tail pass
 CR_BUDGET_CHECK = 2
+# elastic runs (CK): (a)'s streamed solves run CK_ITERS iterations with a
+# cadence of about CK_SNAPSHOTS snapshots a run; every snapshot directory
+# keeps CK_KEEP (about 1 GB at T2's widths)
+CK_ITERS, CK_SNAPSHOTS, CK_KEEP = 10, 3, 2
 
 
 def log(*a) -> None:
@@ -2699,6 +2737,8 @@ def phase_streamed(args, t2: dict, dev, gpu) -> dict:
         raise AssertionError(f"S (b): {zs} coefficients differ in zero set")
     for name, c in lb.items():
         launches[name] = launches.get(name, 0) + c
+    phase_ck_streamed(cb, res_b, cfg_b,
+                      int(tele_b["solver.feature_streams"]), dev, gpu)
     del cb, model, model_b
     torch.cuda.empty_cache()
 
@@ -3100,6 +3140,7 @@ def phase_game(args, dev, gpu) -> dict:
     del Xf_dev, parts, coords
     gg = phase_game_grid(args, est, data, dev, gpu)
     gs = game_streamed(est, data, warm, game_auc, cfg_f, dev, gpu)
+    phase_ck_game(est, data, dev, gpu)
     del data, est, cold, warm
     torch.cuda.empty_cache()
     return launches, gs, gg
@@ -3962,13 +4003,14 @@ def phase_drivers(args, dev, gpu) -> dict:
                                            shards))
         index_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out = D.run_training(D.TrainingParams(
+        params_a = dict(
             train_path=train_path, validation_path=val_path,
             output_dir=os.path.join(root, "train"), feature_shards=shards,
             coordinates=coords, entity_fields=["userId", "itemId"],
             n_sweeps=GM_SWEEPS, output_mode="ALL",
             evaluators=["AUC", "SHARDED_AUC"], evaluator_entity="userId",
-            index_map_dir=os.path.join(root, "maps")), device=dev)
+            index_map_dir=os.path.join(root, "maps"))
+        out = D.run_training(D.TrainingParams(**params_a), device=dev)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -4065,6 +4107,9 @@ def phase_drivers(args, dev, gpu) -> dict:
             f"(gap {gap:.3g}); numpy f64 AUC {np_auc:.8g}; "
             f"{len(rows)} points' training manifests are the row "
             f"manifest ({best_manifest['n_rows']} rows)")
+        phase_ck_driver(root, params_a, out, int(
+            telemetry.snapshot()["counters"].get("game_re.blocks", 0)),
+            dev, gpu)
         del out, sc, best, loaded, vfull, tr, va
         torch.cuda.empty_cache()
 
@@ -5394,6 +5439,441 @@ def phase_continual(args, dev, gpu) -> tuple:
     return refresh_launches, cr_launches
 
 
+# ------------------------------------------------ phase CK: elastic runs
+# CK's kernel launches, summed over its legs (each reset just before and
+# read just after): (a)'s armed runs and resumed legs, (b)'s and (c)'s
+# resumed fits, (d)'s tapped solve
+CK_LAUNCHES: dict = {}
+
+
+def ck_count(launches: dict) -> None:
+    for name, c in launches.items():
+        CK_LAUNCHES[name] = CK_LAUNCHES.get(name, 0) + c
+
+
+def ck_dir(tag: str) -> str:
+    """A fresh snapshot directory beside this script (gitignored as
+    ``_drv*``); each leg removes its own."""
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=f"_drv_ck_{tag}_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+
+
+def ck_killed(ckdir: str, site: str, occ: int, run, **session) -> None:
+    """Run ``run`` under a session with a kill armed at ``site``#``occ``;
+    it must die there, in this process (the session is closed on the way
+    out, as a driver's ``finally`` closes it)."""
+    from photon_tpu_torch import checkpoint
+
+    try:
+        with checkpoint.session(ckdir, **session):
+            with checkpoint.fault_plan(
+                    checkpoint.FaultPlan.kill_at(site, occ)):
+                run()
+    except checkpoint.InjectedFault as e:
+        if (e.site, e.occurrence) != (site, occ):
+            raise
+        return
+    raise AssertionError(f"CK: no kill at {site}#{occ}")
+
+
+def ck_resumed(ckdir: str, run, **session) -> tuple:
+    """(what ``run`` returns, restore s: the session's load of the last
+    commit) under a fresh session resuming from ``ckdir``."""
+    from photon_tpu_torch import checkpoint
+
+    t0 = time.perf_counter()
+    checkpoint.start_session(ckdir, **session)
+    restore_s = time.perf_counter() - t0
+    try:
+        out = run()
+    finally:
+        checkpoint.finish_session()
+    return out, restore_s
+
+
+def ck_snap_facts(c: dict) -> str:
+    n = max(int(c.get("checkpoint.snapshots", 0)), 1)
+    return (f"{int(c.get('checkpoint.snapshots', 0))} snapshots of "
+            f"{c.get('checkpoint.bytes', 0) / n / 1e6:.1f} MB, pack "
+            f"{c.get('checkpoint.pack_seconds', 0) / n * 1e3:.2f} ms (the "
+            f"caller's part), commit "
+            f"{c.get('checkpoint.commit_seconds', 0) / n:.3f} s each")
+
+
+def phase_ck_streamed(cb, res_owlqn, cfg_owlqn, owlqn_evals: int, dev,
+                      gpu) -> None:
+    """CK (a): streamed L-BFGS on S's ladder (T2's full width, the default
+    kernel route, tolerance 0, CK_ITERS iterations) session-less, armed
+    and unkilled (a synchronous and an asynchronous writer), killed at its
+    middle ``evaluation``, its middle ``chunk_upload``, ``snapshot_write``
+    #2 and ``commit`` #2 and each resumed in this process; streamed OWL-QN
+    (S (b)'s run the reference; ``owlqn_evals`` its evaluation-site hits,
+    one a feature stream) killed at its middle evaluation and resumed. Every armed and resumed result equals the session-less one
+    bit for bit."""
+    import shutil
+
+    import torch
+
+    from photon_tpu_torch import checkpoint, telemetry
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    t_phase = time.perf_counter()
+    cfg = OptimizerConfig(max_iters=CK_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+    with checkpoint.record_sites() as rec:
+        _, plain, plain_s, _, _, _, _ = streamed_solve(cb, cfg, dev)
+    sites = dict(rec.hits)
+    every = max(sites["evaluation"] // CK_SNAPSHOTS, 1)
+    rows_iters = T_ROWS * plain.iterations
+
+    def same(label, res, want=plain):
+        if not (torch.equal(res.w, want.w)
+                and np.array_equal(res.loss_history.cpu().numpy(),
+                                   want.loss_history.cpu().numpy())
+                and res.iterations == want.iterations):
+            raise AssertionError(f"CK (a) {label}: not the session-less "
+                                 "result bit for bit")
+
+    armed = {}
+    for mode in ("sync", "async"):
+        d = ck_dir("a")
+        try:
+            with checkpoint.session(d, every_evals=every, every_s=None,
+                                    async_writer=mode == "async",
+                                    keep=CK_KEEP):
+                _, res, wall, la, _, _, peak = streamed_solve(cb, cfg, dev)
+                t0 = time.perf_counter()
+            drain_s = time.perf_counter() - t0  # the session's close
+            same(f"armed ({mode})", res)
+            ck_count(la)
+            armed[mode] = (wall, dict(telemetry.snapshot()["counters"]),
+                           drain_s, peak)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    ws, tele_s, _, peak_s = armed["sync"]
+    wa, tele_a, drain_a, peak_a = armed["async"]
+    log(f"CK (a): streamed L-BFGS at T2's width, {plain.iterations} "
+        f"iterations, {sites['evaluation']} evaluations, "
+        f"{sites['chunk_upload']} chunk uploads: session-less "
+        f"{plain_s:.3f} s ({rows_iters / plain_s:.6g} rows*iters/s); armed "
+        f"every {every} evaluations, sync writer {ws:.3f} s "
+        f"({rows_iters / ws:.6g}, {ws / plain_s:.3f}x; "
+        f"{ck_snap_facts(tele_s)}; peak {peak_s:.3f} GB), async writer "
+        f"{wa:.3f} s ({rows_iters / wa:.6g}, {wa / plain_s:.3f}x; "
+        f"{ck_snap_facts(tele_a)}; the close drained {drain_a:.3f} s; "
+        f"peak {peak_a:.3f} GB); both bit for bit  [{gpu}]")
+
+    session = dict(every_evals=every, every_s=None, async_writer=False,
+                   keep=CK_KEEP)
+    legs = [("evaluation", (sites["evaluation"] + 1) // 2),
+            ("chunk_upload", (sites["chunk_upload"] + 1) // 2),
+            ("snapshot_write", 2), ("commit", 2)]
+    for site, occ in legs:
+        d = ck_dir("a")
+        try:
+            ck_killed(d, site, occ, lambda: streamed_solve(cb, cfg, dev),
+                      **session)
+            seq = checkpoint.SnapshotStore(d).latest_seq()
+            out, restore_s = ck_resumed(
+                d, lambda: streamed_solve(cb, cfg, dev), **session)
+            _, res, wall, la, tele, builds, _ = out
+            same(f"resumed after {site}#{occ}", res)
+            for name in (KB.TAIL, KB.RMATVEC):
+                if la.get(name, 0) == 0:
+                    raise AssertionError(f"CK (a) {site}#{occ}: {name} "
+                                         "never launched after the resume")
+            if tele.get("checkpoint.solver_restores") != 1:
+                raise AssertionError(f"CK (a) {site}#{occ}: no solver "
+                                     "restore counted")
+            ck_count(la)
+            log(f"CK (a): killed at {site}#{occ}, resumed from snapshot "
+                f"{seq} (restore {restore_s:.3f} s) in {wall:.3f} s, bit "
+                f"for bit; launches {la}, plan builds {builds}  [{gpu}]")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
+    d = ck_dir("a")
+    try:
+        n_eval = owlqn_evals
+        occ = (n_eval + 1) // 2
+        ck_killed(d, "evaluation", occ,
+                  lambda: streamed_solve(cb, cfg_owlqn, dev), **session)
+        out, restore_s = ck_resumed(
+            d, lambda: streamed_solve(cb, cfg_owlqn, dev), **session)
+        _, res, wall, la, _, _, _ = out
+        same("OWL-QN resumed", res, res_owlqn)
+        ck_count(la)
+        log(f"CK (a): streamed OWL-QN killed at evaluation#{occ} of "
+            f"{n_eval}, resumed (restore {restore_s:.3f} s) in {wall:.3f} "
+            f"s, equal to S (b) bit for bit; launches {la}  [{gpu}]")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"CK (a): {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+
+
+def phase_ck_game(est_gm, data, dev, gpu) -> None:
+    """CK (b): GM at full width (2 sweeps, every solve stopped at
+    RE_CHECK_TOL, ``straggler_budget`` CR_BUDGET_CHECK): session-less
+    fits at ``pipeline_depth`` 1, 0 and 2 (equal bit for bit), an armed
+    unkilled fit (async writer), kills at the middle ``bucket_retire``
+    and at a mid-run ``commit`` each resumed — every model, score and
+    objective history equal to the session-less fit's."""
+    import shutil
+
+    import torch
+
+    from photon_tpu_torch import checkpoint, telemetry
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.game.estimator import RandomEffectConfig
+    from photon_tpu_torch.game.scoring import score_game
+
+    t_phase = time.perf_counter()
+
+    def estimator(depth: int):
+        cfgs = {}
+        for name, c in est_gm.coordinate_configs.items():
+            c = dataclasses.replace(c, optimizer=dataclasses.replace(
+                c.optimizer, tolerance=RE_CHECK_TOL))
+            if isinstance(c, RandomEffectConfig):
+                c = dataclasses.replace(c, pipeline_depth=depth,
+                                        straggler_budget=CR_BUDGET_CHECK)
+            cfgs[name] = c
+        est = dataclasses.replace(est_gm, coordinate_configs=cfgs)
+        est._caches[id(data)] = est_gm._caches[id(data)]  # GM's buckets
+        return est
+
+    def fit(depth: int):
+        telemetry.reset()
+        K.reset_launch_counts()
+        res, wall = fit_timed(estimator(depth), data)
+        return (res, wall, dict(telemetry.snapshot()["counters"]),
+                K.launch_counts())
+
+    def same(label, got, want):
+        # scoring 10M rows takes seconds (host entity lookups): the
+        # session-less fit's scores are taken once
+        if not (models_equal(want.model, got.model)
+                and want.descent.objective_history
+                == got.descent.objective_history
+                and torch.equal(score_game(got.model, data), ref_scores)):
+            raise AssertionError(f"CK (b) {label}: not the session-less "
+                                 "fit bit for bit")
+
+    with checkpoint.record_sites() as rec:
+        ref, wall1, c1, _ = fit(1)
+    ref_scores = score_game(ref.model, data)
+    retires = rec.hits["bucket_retire"]
+    n_updates = len(ref.descent.objective_history)
+    every = max((retires + n_updates) // CK_SNAPSHOTS, 1)
+    walls = {1: wall1}
+    for depth in (0, 2):
+        got, walls[depth], c, _ = fit(depth)
+        same(f"pipeline_depth {depth}", got, ref)
+    log(f"CK (b): GM at {GM_ROWS} rows, {GM_SWEEPS} sweeps, solves at "
+        f"{RE_CHECK_TOL:g}, straggler_budget {CR_BUDGET_CHECK}: "
+        f"{retires} bucket retires, {n_updates} updates; fit s at "
+        f"pipeline_depth 1 {walls[1]:.3f}, 0 {walls[0]:.3f}, 2 "
+        f"{walls[2]:.3f} (no claim), depths 0 and 2 equal to 1 bit for "
+        f"bit; {int(c1.get('game_re.straggler_entities', 0))} straggler "
+        f"entities  [{gpu}]")
+
+    d = ck_dir("b")
+    try:
+        with checkpoint.session(d, every_evals=every, every_s=None,
+                                keep=CK_KEEP):
+            armed, wall_a, _, _ = fit(1)
+        same("armed", armed, ref)
+        log(f"CK (b): armed every {every} evaluations (async writer): "
+            f"{wall_a:.3f} s ({wall_a / walls[1]:.3f}x the session-less "
+            f"fit); {ck_snap_facts(telemetry.snapshot()['counters'])}; bit "
+            f"for bit  [{gpu}]")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    # the kill legs snapshot at every retire and update, so the middle
+    # retire's resume finds a live random-effect update in the snapshot
+    session = dict(every_evals=1, every_s=None, async_writer=False,
+                   keep=CK_KEEP)
+    for site, occ in (("bucket_retire", (retires + 1) // 2),
+                      ("commit", (retires + n_updates + 1) // 2)):
+        d = ck_dir("b")
+        try:
+            ck_killed(d, site, occ, lambda: fit(1), **session)
+            out, restore_s = ck_resumed(d, lambda: fit(1), **session)
+            got, wall, c, la = out
+            same(f"resumed after {site}#{occ}", got, ref)
+            ck_count(la)
+            log(f"CK (b): killed at {site}#{occ}, resumed (restore "
+                f"{restore_s:.3f} s) in {wall:.3f} s, bit for bit: "
+                f"checkpoint.descent_restores "
+                f"{int(c.get('checkpoint.descent_restores', 0))}, "
+                f"checkpoint.re_restores "
+                f"{int(c.get('checkpoint.re_restores', 0))}, "
+                f"{ck_snap_facts(c)}  [{gpu}]")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"CK (b): {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+
+
+def phase_ck_driver(root: str, params: dict, out, retires: int, dev,
+                    gpu) -> None:
+    """CK (c): DRV (a)'s `run_training` again with ``checkpoint_dir``
+    (every evaluation, the async writer), killed at its middle
+    ``bucket_retire`` and rerun with the same params: ``best_model/``
+    equals DRV (a)'s uncheckpointed one bit for bit; then the
+    checkpoint selftest as a subprocess on the card."""
+    import torch
+
+    from photon_tpu_torch import checkpoint, telemetry
+    from photon_tpu_torch import drivers as D
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.model_io import load_game_model
+
+    t_phase = time.perf_counter()
+    p = D.TrainingParams(**{
+        **params, "output_dir": os.path.join(root, "train_ck"),
+        "checkpoint_dir": "ck", "checkpoint_every_s": None,
+        "checkpoint_every_evals": 1})
+    occ = (retires + 1) // 2
+    t0 = time.perf_counter()
+    with checkpoint.fault_plan(checkpoint.FaultPlan.kill_at("bucket_retire",
+                                                            occ)):
+        try:
+            D.run_training(p, device=dev)
+            raise AssertionError("CK (c): the training driver was not "
+                                 "killed")
+        except checkpoint.InjectedFault:
+            pass
+    killed_s = time.perf_counter() - t0
+    if checkpoint.current() is not None:
+        raise AssertionError("CK (c): the killed driver left its session "
+                             "open")
+    ckdir = os.path.join(root, "train_ck", "ck")
+    seq = checkpoint.SnapshotStore(ckdir).latest_seq()
+    telemetry.reset()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = D.run_training(p, device=dev)
+    torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t0
+    ck_count(K.launch_counts())
+    c = telemetry.snapshot()["counters"]
+    a, _ = load_game_model(out.model_dir, device=dev)
+    b, _ = load_game_model(again.model_dir, device=dev)
+    if not models_equal(a, b):
+        raise AssertionError("CK (c): the rerun's best_model/ is not the "
+                             "uncheckpointed run's")
+    log(f"CK (c): run_training with checkpoint_dir killed at "
+        f"bucket_retire#{occ} of {retires} after {killed_s:.1f} s "
+        f"(snapshot {seq} committed), rerun {rerun_s:.1f} s (phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in again.timings.items())
+        + f"): checkpoint.descent_restores "
+        f"{int(c.get('checkpoint.descent_restores', 0))}, re_restores "
+        f"{int(c.get('checkpoint.re_restores', 0))}; best_model/ equals "
+        f"DRV (a)'s bit for bit  [{gpu}]")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_tpu_torch.checkpoint", "--selftest",
+         "--json"], cwd=here, capture_output=True, text=True, timeout=600)
+    report = (json.loads(proc.stdout.strip().splitlines()[-1])
+              if proc.stdout.strip() else {})
+    if proc.returncode != 0 or not report.get("ok"):
+        raise AssertionError(f"CK (c): the selftest failed (rc "
+                             f"{proc.returncode}): {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+    log(f"CK (c): python -m photon_tpu_torch.checkpoint --selftest --json "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s on "
+        f"{report['device']}: {sorted(report['checks'])}")
+    log(f"CK (c): {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+
+
+def dispatched_ops(fn) -> dict:
+    """{aten operator: count} of one call of ``fn``: every operator it
+    dispatches (on the card, each a kernel launch, copy or read-back),
+    counted by a dispatch mode; exact, where a profiler trace can drop
+    records. The hand-written kernels' launches are `kernels.
+    launch_counts`' own."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops: dict = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func.overloadpacket)
+            self.ops[name] = self.ops.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as mode:
+        fn()
+    return mode.ops
+
+
+def phase_ck_resident(state: dict, dev, gpu) -> None:
+    """CK (d): T2's resident L-BFGS (rows 2 and 4; T_SHORT iterations)
+    session-less, under an armed session with the tap off (the same
+    launches, the same dispatched device ops operator by operator, the
+    same bits), and with ``resident_tap=True`` (the tapped iterate is
+    the result's)."""
+    import shutil
+
+    import torch
+
+    from photon_tpu_torch import checkpoint
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    batch = state["batch"]
+    cfg = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+    d = ck_dir("d")
+
+    def solve():
+        K.reset_launch_counts()
+        _, res, wall = solve_timed(batch, cfg, dev)
+        return res, wall, K.launch_counts()
+
+    def armed(tap: bool = False):
+        with checkpoint.session(d, every_evals=None, every_s=None,
+                                async_writer=False, resident_tap=tap) as s:
+            out = solve()
+            return out, {k: v for k, v in s._state.items()
+                         if k.startswith("resident/")}
+
+    try:
+        r0, s0, l0 = solve()
+        (r1, s1, l1), rec1 = armed()
+        ops0, ops1 = dispatched_ops(solve), dispatched_ops(armed)
+        (r2, s2, l2_), rec2 = armed(tap=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if not (not rec1 and l1 == l0 and ops1 == ops0
+            and torch.equal(r1.w, r0.w)):
+        raise AssertionError(
+            f"CK (d): the armed session with the tap off changed the solve:"
+            f" launches {l0} -> {l1}, device ops {sum(ops0.values())} -> "
+            f"{sum(ops1.values())}, recorded {sorted(rec1)}")
+    cap = rec2.get("resident/lbfgs_margin")
+    if cap is None or int(cap["it"]) != r2.iterations or not torch.equal(
+            batch.X.to_model_space(cap["w"]), r2.w):
+        raise AssertionError("CK (d): the tap did not capture the final "
+                             "iterate")
+    ck_count(l2_)
+    log(f"CK (d): resident L-BFGS on T2's layout, {r0.iterations} "
+        f"iterations: session-less {s0:.3f} s, launches {l0}; armed with "
+        f"the tap off {s1:.3f} s, the same launches, the same bits, the "
+        f"same device ops operator by operator ({sum(ops0.values())} "
+        f"dispatched); tapped {s2:.3f} s: "
+        f"it {int(cap['it'])} and w equal the result's bit for bit  "
+        f"[{gpu}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5422,6 +5902,7 @@ def main() -> int:
     state = phase_training(args, dev, gpu)
     kernels += phase_training_timings(state, gpu)
     phase_sparse_owlqn(state, dev, gpu)
+    phase_ck_resident(state, dev, gpu)
     lanes8 = phase_grid_timings(state, phase_grid(state, dev, gpu), gpu)
     for entry in kernels:
         entry.update(lanes8.get(entry["name"], {}))
@@ -5458,6 +5939,7 @@ def main() -> int:
         entry["drv_launches"] = drv.get(entry["name"], 0)
         entry["drvs_launches"] = drvs.get(entry["name"], 0)
         entry["cr_launches"] = cr.get(entry["name"], 0)
+        entry["ck_launches"] = CK_LAUNCHES.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

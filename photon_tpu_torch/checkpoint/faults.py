@@ -22,11 +22,16 @@ lineage to replay, so this module supplies the two halves explicitly:
   ``retry_on`` includes it. Backoff is deterministic (no jitter).
 
 The registry keeps every reference site, so plans and site names mean
-the same in both packages; the port's program points today are
-``avro_open``, ``ingest_worker``, ``cache_open``, ``cache_commit``,
-``commit`` (`checkpoint.store`) and ``swap_publish``
-(`continual.swap.publish_store`); the checkpoint sessions and taps wait
-for ROADMAP queue A item 11.
+the same in both packages, and the port hits every one but
+``replica_dispatch`` (`serving/fleet.py` waits for ROADMAP queue A item
+11) and ``selftest_io`` (the selftest's own): ``chunk_upload``
+(`data.dataset.DeviceChunkRing.stream_pass`, one hit per consumed
+chunk), ``evaluation`` (`optim.streamed`), ``bucket_retire``
+(`game.random_effect`), ``snapshot_write`` / ``snapshot_io`` / ``commit``
+(`checkpoint.store`), ``swap_publish`` (`continual.swap.publish_store`),
+``rung_execute`` (`serving.dispatcher.RungExecutor.execute`),
+``store_open`` (`serving.store.CoefficientStore.open`), ``avro_open``,
+``ingest_worker``, ``cache_open`` and ``cache_commit``.
 
 Counters (`telemetry`): ``faults.injected_kills``,
 ``faults.injected_errors``, ``faults.io_retries``,

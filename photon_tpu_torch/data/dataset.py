@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import telemetry
+from photon_tpu_torch.checkpoint.faults import kill_point
 from photon_tpu_torch.data.matrix import (BlockedEllRows, SparseRows,
                                           as_tensor, shard_blocked_ell)
 from photon_tpu_torch.device import resolve_device
@@ -456,6 +457,9 @@ class DeviceChunkRing:
                 # one-pass mode uploads nothing past the last chunk
                 self._fill(min(depth, n) if prime else min(depth, n - i))
                 _, held, ev = self._window.popleft()
+                # fault site: a preemption mid-upload-stream (one hit per
+                # consumed chunk, in `iter_device`'s passes too)
+                kill_point("chunk_upload")
                 t0 = time.perf_counter()
                 if ev is not None:
                     ev.synchronize()

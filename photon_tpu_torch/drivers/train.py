@@ -30,9 +30,13 @@ resume. Three read regimes, as the reference's:
   card's memory) or with ``streamed_objective=True``.
 
 ``ingest_workers`` and ``chunk_cache_dir`` engage the ingest plane
-(`data.ingest_plane`) in both streamed regimes. What is not ported raises
-naming its ROADMAP queue A item: ``checkpoint_dir`` and ``tuning_iters``
-(item 11) and meshes (item 10).
+(`data.ingest_plane`) in both streamed regimes. ``checkpoint_dir`` opens
+a process-wide `checkpoint` session over the train phase (relative paths
+land under ``output_dir``): the streamed solves and GAME's descent
+snapshot into it at the ``checkpoint_every_s`` / ``checkpoint_every_evals``
+cadence, and a rerun with the same params resumes from the last commit
+(``checkpoint_resume``). What is not ported raises naming its ROADMAP
+queue A item: ``tuning_iters`` (item 11) and meshes (item 10).
 
 One deliberate difference from the reference: in ``output_mode="ALL"``
 every saved point's ``training_manifest.json`` is the training-row
@@ -52,7 +56,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from photon_tpu_torch import telemetry
+from photon_tpu_torch import checkpoint, telemetry
 from photon_tpu_torch.checkpoint.store import commit_bytes
 from photon_tpu_torch.continual.delta import build_manifest
 from photon_tpu_torch.data.feature_bags import FeatureShardConfig
@@ -252,8 +256,8 @@ class TrainingParams:
     # The reference's persistent XLA compilation cache: XLA-only, so the
     # port accepts it and logs that it has no effect.
     compilation_cache_dir: Optional[str] = None
-    # The reference's crash-consistent solver snapshots (checkpoint_dir
-    # raises: ROADMAP queue A item 11)
+    # Crash-consistent solver snapshots: a `checkpoint` session over the
+    # train phase (relative paths land under output_dir)
     checkpoint_dir: Optional[str] = None
     checkpoint_every_s: Optional[float] = 30.0  # wall-clock cadence
     checkpoint_every_evals: Optional[int] = None  # evaluation cadence
@@ -349,10 +353,6 @@ def _refuse_unported(params: TrainingParams, mesh) -> None:
         raise NotImplementedError(
             "meshes (multi-device training) are not ported yet (ROADMAP "
             "queue A item 10)")
-    if params.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir (crash-consistent solver snapshots) is not "
-            "ported yet (ROADMAP queue A item 11)")
     if params.tuning_iters > 0:
         raise NotImplementedError(
             "tuning_iters > 0 (the GP reg-weight tuner, _tune) is not "
@@ -565,17 +565,43 @@ def run_training(params: TrainingParams, mesh=None,
                 "inter-coordinate scores exchange through host margin "
                 "caches", sorted(_streamable_shards(params)), re_coords)
 
-    n_resumed = 0
-    with timers("train"):
-        if params.resume:
-            results, n_resumed = _fit_grid_resumable(
-                estimator, params, data, validation, initial_models,
-                index_maps, log, dev, streaming, streamed_obj)
+    ckpt_active = False
+    if params.checkpoint_dir:
+        ckpt_dir = params.checkpoint_dir
+        if not os.path.isabs(ckpt_dir):
+            ckpt_dir = os.path.join(params.output_dir, ckpt_dir)
+        sess = checkpoint.start_session(
+            ckpt_dir, every_s=params.checkpoint_every_s,
+            every_evals=params.checkpoint_every_evals,
+            keep=params.checkpoint_keep, resume=params.checkpoint_resume,
+            async_writer=params.checkpoint_async)
+        ckpt_active = True
+        if sess.restored_any():
+            log.info("checkpoint/restore: resuming training from the last "
+                     "committed snapshot in %s", ckpt_dir)
         else:
-            results = estimator.fit(
-                data, validation=validation,
-                config_grid=_config_grid(params.coordinates),
-                initial_models=initial_models)
+            log.info("checkpoint/restore: snapshotting to %s (every_s=%s, "
+                     "every_evals=%s, keep=%d)", ckpt_dir,
+                     params.checkpoint_every_s,
+                     params.checkpoint_every_evals, params.checkpoint_keep)
+
+    n_resumed = 0
+    try:
+        with timers("train"):
+            if params.resume:
+                results, n_resumed = _fit_grid_resumable(
+                    estimator, params, data, validation, initial_models,
+                    index_maps, log, dev, streaming, streamed_obj)
+            else:
+                results = estimator.fit(
+                    data, validation=validation,
+                    config_grid=_config_grid(params.coordinates),
+                    initial_models=initial_models)
+    finally:
+        if ckpt_active:
+            # drain the writer either way: on success a rerun restores the
+            # complete state; on a crash the last commit is the resume point
+            checkpoint.finish_session()
     telemetry.sample_device_memory("post_train")
     best = estimator.best_model(results)
     if best.validation_score is not None:
@@ -1059,8 +1085,9 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="torch device to train on (default: cuda)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="the reference's solver snapshots (not ported: "
-                        "ROADMAP queue A item 11)")
+                   help="crash-consistent solver snapshots (relative paths "
+                        "land under output_dir); a rerun resumes from the "
+                        "last committed snapshot")
     p.add_argument("--resume", dest="ckpt_resume", action="store_true",
                    default=None)
     p.add_argument("--no-resume", dest="ckpt_resume", action="store_false")

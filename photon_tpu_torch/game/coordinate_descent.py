@@ -12,8 +12,20 @@ informative prior, the same prior in every sweep.
 The host drives the loop; every score, offset sum and objective stays on
 the device (the objectives are read back once, at the end). This is the
 reference's plain route: its fused one-program updates are a speed path
-to the same models, and checkpoints wait for ROADMAP queue A items 6 and
-11.
+to the same models (ROADMAP speed work, beside item 1); random effects
+train on the pipelined block loop (`RandomEffectCoordinate.train`).
+
+Elastic runs: under a `checkpoint` session the descent scopes its state
+as ``game-<fingerprint>-<invocation>`` (the fingerprint hashes the
+problem, so grid points apart never share state), each update under a
+``u<k>`` sub-scope that is cleared when the update completes. After each
+complete update it publishes the progress cut — every updated
+coordinate's model and SCORES (stored, not recomputed, so a resumed
+run's low bits match), the objective history and compact stats — and a
+restore skips the done updates (``checkpoint.descent_restores``). In the
+streamed regime restored scores stay host caches. Resumed stats carry
+the scalars; per-iteration histories and per-entity arrays died with the
+original process and come back as NaN or None.
 
 STREAMED regime: when any coordinate's shard is a host `ChunkedMatrix`
 (data larger than device memory), the margin exchange moves to the host,
@@ -25,18 +37,25 @@ keeps the reference's ``game_e2e.*`` counters in `telemetry`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
 import torch
 
+from photon_tpu_torch import checkpoint as _ckpt
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import ChunkedMatrix
 from photon_tpu_torch.game.fixed_effect import FixedEffectCoordinate
-from photon_tpu_torch.game.model import GameModel
-from photon_tpu_torch.game.random_effect import RandomEffectCoordinate
+from photon_tpu_torch.game.model import (FixedEffectModel, GameModel,
+                                         RandomEffectModel)
+from photon_tpu_torch.game.random_effect import (RandomEffectCoordinate,
+                                                 RETrainStats)
+from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_tpu_torch.ops.losses import TaskType, loss_fns
+from photon_tpu_torch.optim.tracker import OptResult
 
 Coordinate = FixedEffectCoordinate | RandomEffectCoordinate
 
@@ -102,6 +121,107 @@ def _objective_streamed(task, y, weights, offsets, score, chunk_rows: int,
         np.float64)))
 
 
+# ------------------------------------------------- checkpoint (de)hydration
+# The reference's payload layout (`photon_tpu/game/coordinate_descent.py`),
+# plus the port's work counts in a fixed effect's stats entry.
+def _descent_fingerprint(coordinates, update_sequence, n_sweeps, locked,
+                         task, n_rows) -> str:
+    """Stable identity of one descent invocation: restored state is only
+    accepted by a loop solving the SAME problem (grid points with
+    different reg weights hash apart)."""
+    parts = []
+    for name in update_sequence:
+        c = coordinates[name]
+        cfg = c.config
+        parts.append((
+            name, type(c).__name__, cfg.effective_optimizer().value,
+            cfg.max_iters, cfg.tolerance, cfg.history, cfg.cg_max_iters,
+            cfg.reg.reg_type.value, cfg.reg.alpha, float(cfg.reg_weight),
+            cfg.regularize_intercept,
+            getattr(c, "pipeline_depth", None),
+            getattr(c, "straggler_budget", None),
+        ))
+    ident = repr((task.name, n_sweeps, tuple(update_sequence),
+                  tuple(sorted(locked)), int(n_rows), parts))
+    return hashlib.sha1(ident.encode()).hexdigest()[:12]
+
+
+def _model_from_progress(progress, name, kind, coord, task, dev):
+    def t(key):
+        v = progress.get(key)
+        return None if v is None else torch.from_numpy(
+            np.ascontiguousarray(v)).to(dev)
+
+    var = t(f"m.{name}.var")
+    if kind == "fixed":
+        return FixedEffectModel(GeneralizedLinearModel(
+            Coefficients(t(f"m.{name}.w"), var), task),
+            coord.dataset.shard_name)
+    ds = coord.dataset
+    return RandomEffectModel(
+        entity_name=ds.entity_name, feature_shard=ds.shard_name, task=task,
+        coefficients=t(f"m.{name}.coeffs"), entity_keys=ds.entity_keys,
+        key_to_index=ds.key_to_index, variances=var)
+
+
+def _stats_from_entry(entry, models):
+    """A per-update stats record from its progress entry: the scalars;
+    per-iteration histories come back as NaN."""
+    if entry["kind"] == "re":
+        return RETrainStats(int(entry["E"]), int(entry["c"]),
+                            int(entry["f"]), int(entry["it"]))
+    w = models[entry["name"]].model.coefficients.means
+    dev = w.device
+
+    def scalar(v, dtype=torch.float32):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    nan = torch.full((1,), float("nan"), dtype=torch.float32, device=dev)
+    return OptResult(
+        w=w, value=scalar(np.float32(entry["value"])),
+        grad_norm=scalar(np.float32(entry["grad_norm"])),
+        iterations=int(entry["iterations"]),
+        converged=scalar(bool(entry["converged"]), torch.bool),
+        failed=scalar(bool(entry["failed"]), torch.bool),
+        loss_history=nan, grad_norm_history=nan,
+        evaluations=int(entry.get("evaluations", 0)),
+        hvps=int(entry.get("hvps", 0)), trials=int(entry.get("trials", 0)))
+
+
+def _stat_entry(name: str, stats) -> dict:
+    if isinstance(stats, RETrainStats):
+        return {"name": name, "kind": "re", "E": stats.n_entities,
+                "c": stats.n_converged, "f": stats.n_failed,
+                "it": stats.total_iterations}
+    return {"name": name, "kind": "fixed", "value": float(stats.value),
+            "grad_norm": float(stats.grad_norm),
+            "iterations": int(stats.iterations),
+            "converged": bool(stats.converged),
+            "failed": bool(stats.failed),
+            "evaluations": int(stats.evaluations), "hvps": int(stats.hvps),
+            "trials": int(stats.trials)}
+
+
+def _progress_payload(updated, models, scores, objective_history,
+                      stats_entries, n_done) -> dict:
+    payload = {"kind": "descent_progress", "n_done": int(n_done),
+               "objective": [float(v) for v in objective_history],
+               "stats": list(stats_entries),
+               "updated": dict(updated)}
+    for name in updated:
+        m = models[name]
+        if isinstance(m, FixedEffectModel):
+            payload[f"m.{name}.w"] = m.model.coefficients.means
+            if m.model.coefficients.variances is not None:
+                payload[f"m.{name}.var"] = m.model.coefficients.variances
+        else:
+            payload[f"m.{name}.coeffs"] = m.coefficients
+            if m.variances is not None:
+                payload[f"m.{name}.var"] = m.variances
+        payload[f"s.{name}"] = scores[name]
+    return payload
+
+
 def coordinate_descent(coordinates: dict, y, weights, base_offsets,
                        task: TaskType,
                        update_sequence: Optional[list] = None,
@@ -155,36 +275,92 @@ def coordinate_descent(coordinates: dict, y, weights, base_offsets,
         scores = {name: _to_host_score(s) for name, s in scores.items()}
     objective_history: list = []
     coordinate_stats: dict = {name: [] for name in update_sequence}
-    for _ in range(n_sweeps):
-        for name in update_sequence:
-            if name in locked:
-                continue
-            coord = coordinates[name]
-            others = tuple(s for o, s in scores.items() if o != name)
-            if streamed:
-                if name in chunked:
-                    telemetry.count("game_e2e.streamed_fixed_updates")
-                offsets = _sum_scores_host(base, others)
-            else:
-                offsets = _sum_scores(base, others)
-            model, stats = coord.train(offsets, warm_start=models.get(name),
-                                       prior=priors.get(name))
-            models[name] = model
-            scores[name] = coord.score(model)
-            coordinate_stats[name].append(stats)
-            if streamed:
-                scores[name] = _to_host_score(scores[name])
-                objective_history.append(_objective_streamed(
-                    task, y, weights, offsets, scores[name], obj_chunk_rows,
-                    dev))
-            else:
-                objective_history.append(
-                    _objective_at(task, y, weights, offsets, scores[name]))
+
+    ck = _ckpt.current()
+    cd_scope = contextlib.nullcontext()
+    if ck is not None:
+        fp = _descent_fingerprint(coordinates, update_sequence, n_sweeps,
+                                  locked, task, int(y.shape[0]))
+        cd_scope = ck.scope(f"game-{fp}-{ck.invocation(fp)}")
+    done_updates = 0
+    stats_entries: list = []
+    updated: dict = {}  # coordinate name -> "fixed" | "re", updated so far
+    with cd_scope:
+        progress = ck.restore("progress") if ck is not None else None
+        if progress is not None:
+            done_updates = int(progress["n_done"])
+            objective_history = [float(v) for v in progress["objective"]]
+            stats_entries = list(progress["stats"])
+            updated = dict(progress["updated"])
+            for name, kind in updated.items():
+                c_dev = coordinate_device(coordinates[name])
+                models[name] = _model_from_progress(
+                    progress, name, kind, coordinates[name], task, c_dev)
+                s_np = np.asarray(progress[f"s.{name}"], np.float32)
+                # the streamed regime's restored scores stay host caches
+                scores[name] = (s_np if streamed else
+                                torch.from_numpy(s_np).to(c_dev))
+            for e in stats_entries:
+                coordinate_stats[e["name"]].append(
+                    _stats_from_entry(e, models))
+            telemetry.count("checkpoint.descent_restores")
+
+        upd = -1
+        for _ in range(n_sweeps):
+            for name in update_sequence:
+                if name in locked:
+                    continue
+                upd += 1
+                if upd < done_updates:
+                    continue  # restored from the checkpoint image above
+                coord = coordinates[name]
+                others = tuple(s for o, s in scores.items() if o != name)
+                if streamed:
+                    if name in chunked:
+                        telemetry.count("game_e2e.streamed_fixed_updates")
+                    offsets = _sum_scores_host(base, others)
+                else:
+                    offsets = _sum_scores(base, others)
+                # per-update sub-scope: a live random-effect update's
+                # bucket-level state lands under u<k>/re
+                u_scope = (ck.scope(f"u{upd}") if ck is not None
+                           else contextlib.nullcontext())
+                with u_scope:
+                    model, stats = coord.train(
+                        offsets, warm_start=models.get(name),
+                        prior=priors.get(name))
+                models[name] = model
+                scores[name] = coord.score(model)
+                coordinate_stats[name].append(stats)
+                if streamed:
+                    scores[name] = _to_host_score(scores[name])
+                    objective_history.append(_objective_streamed(
+                        task, y, weights, offsets, scores[name],
+                        obj_chunk_rows, dev))
+                else:
+                    objective_history.append(
+                        _objective_at(task, y, weights, offsets,
+                                      scores[name]))
+                if ck is not None:
+                    # the update is complete: drop its sub-scope state,
+                    # force its objective to the host, and publish the
+                    # progress cut (updates 0..upd done)
+                    ck.clear(f"u{upd}", prefix=True)
+                    objective_history[-1] = float(objective_history[-1])
+                    stats_entries.append(_stat_entry(name, stats))
+                    updated[name] = ("fixed" if isinstance(
+                        model, FixedEffectModel) else "re")
+                    ck.update("progress", _progress_payload(
+                        updated, models, scores, objective_history,
+                        stats_entries, upd + 1))
+                    ck.note_evaluations()
+                    ck.maybe_snapshot()
     if streamed:
         objective_history = [float(v) for v in objective_history]
     elif objective_history:
-        objective_history = [float(v) for v in torch.stack(
-            objective_history).cpu().tolist()]
+        objective_history = [float(v) for v in torch.stack([
+            torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for v in objective_history]).cpu().tolist()]
     ordered = {name: models[name] for name in update_sequence}
     for name in coordinates:  # score-only coordinates outside the sequence
         if name in models and name not in ordered:

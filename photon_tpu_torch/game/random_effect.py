@@ -15,11 +15,27 @@ which entities share its solve.
 
 A bucket solves in chunks of entities (`lane_chunk`), each chunk one
 lock-step solve; a chunk's (m, E) tensors stay under `LANE_ELEMS`
-elements (so its solver state stays a few GB at most on the card). The
-block loop is the plain sequential one: bucket after bucket, each solved,
-read back and scattered on the host. ``pipeline_depth`` is accepted and
-changes nothing (the reference's pipelined loop is bit-identical to this
-one at every depth).
+elements (so its solver state stays a few GB at most on the card).
+
+The block loop is the reference's pipelined dispatch/retire ledger:
+`dispatch` gathers a bucket's warm starts and priors and runs its lane
+solves; `retire` reads the results back, runs the straggler pass,
+scatters into the coefficient table and reports progress. Dispatch runs
+ahead of retire by up to ``pipeline_depth`` buckets (the
+``game_re.blocks_in_flight`` gauge). Buckets partition the entity set, so
+dispatch(k+1)'s gathers never read rows retire(k) writes, and every depth
+gives the same bits. The reference's dispatch returns before the device
+finishes; a lane solve here reads back once per lane iteration, so what a
+depth of 1 or more overlaps is bucket k+1's device gathers and uploads
+with retire(k)'s host work (and the retire's read-back finds the results
+already landed), not the solves themselves.
+
+Elastic runs: retire order equals dispatch order, so "buckets 0..k
+retired" is a consistent cut. Under a `checkpoint` session each retire
+(after its ``bucket_retire`` fault site) reports the coefficient table in
+solve space, the per-entity iterations and convergence, the counts and
+the retire cursor; a resumed `train` skips the retired prefix and
+re-dispatches the rest (``checkpoint.re_restores``).
 
 ``straggler_budget`` caps the first pass of every chunk at that many
 iterations; the lanes of a bucket that neither converged nor failed then
@@ -35,11 +51,13 @@ point), each entity's rows shared by its G lanes.
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
+from photon_tpu_torch import checkpoint as _ckpt
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import GLMBatch
 from photon_tpu_torch.game.dataset import RandomEffectDataset, REBlock
@@ -122,6 +140,18 @@ def align_entity_priors(prior: RandomEffectModel, entity_keys, d: int):
     else:
         prior_precs = seen * np.ones((E, d), np.float32)
     return prior_means, prior_precs
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched bucket awaiting retire: its solve-space priors (the
+    straggler pass re-uses them) and the lane solve's device results."""
+
+    block: REBlock
+    pm: Optional[np.ndarray]
+    pp: Optional[np.ndarray]
+    res: OptResult
+    var: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -416,7 +446,38 @@ class RandomEffectCoordinate:
                 np.asarray(offsets_full, np.float32))
         offsets_dev = offsets_full.to(ds.device, torch.float32)
         budget = self._effective_budget()
-        for block in ds.blocks:
+
+        # ---- checkpoint/restore: the retire cursor is the cut (the
+        # module docstring); the snapshot is the coefficient table in
+        # SOLVE space, the per-entity trackers and the cursor
+        ck = _ckpt.current()
+        st = ck.restore("re") if ck is not None else None
+        n_blocks = len(ds.blocks)
+        start_block = 0
+        if st is not None:
+            got = (st.get("kind"), int(st.get("E", -1)),
+                   int(st.get("d", -1)), int(st.get("n_blocks", -1)),
+                   bool(st.get("has_var", False)))
+            want = ("re_train", E, d, n_blocks, variances is not None)
+            if got != want:
+                raise _ckpt.SnapshotStateError(
+                    f"random-effect snapshot does not fit this coordinate:"
+                    f" snapshot (kind, E, d, n_blocks, has_var)={got} vs "
+                    f"resuming train() {want}")
+            coeffs = np.array(st["coeffs"], np.float32)
+            if variances is not None:
+                variances = np.array(st["variances"], np.float32)
+            iters_per_entity = np.array(st["iters"], np.int64)
+            if "conv" in st:
+                conv_per_entity = np.array(st["conv"], bool)
+            n_conv, n_fail = int(st["n_conv"]), int(st["n_fail"])
+            start_block = int(st["blocks_done"])
+            telemetry.count("checkpoint.re_restores")
+        retired = start_block
+
+        def dispatch(block: REBlock) -> _InFlight:
+            """Stage 1: the bucket's warm starts and priors, projected into
+            its solve space, and its lane solves."""
             ents = block.entity_index
             w0_full = coeffs[ents]
             pm = pp = None
@@ -435,10 +496,22 @@ class RandomEffectCoordinate:
                     pm, pp = prior_means[ents], prior_precs[ents]
             res, var = self.solve_block(block, offsets_dev, w0, pm, pp,
                                         max_iters=budget)
+            telemetry.count("game_re.blocks")
+            return _InFlight(block, pm, pp, res, var)
+
+        def retire(fl: _InFlight) -> None:
+            """Stage 2: the OLDEST in-flight bucket's results to the host,
+            its straggler pass, the scatter back, and the progress cut."""
+            nonlocal n_conv, n_fail, retired
+            # fault site: a preemption here loses this bucket's
+            # unscattered results; a resume re-dispatches it
+            _ckpt.kill_point("bucket_retire")
+            block, ents = fl.block, fl.block.entity_index
             w_out, conv, fail, iters = (np.array(t.cpu()) for t in (
-                res.w, res.converged, res.failed, res.iterations))
+                fl.res.w, fl.res.converged, fl.res.failed,
+                fl.res.iterations))
             iters = iters.astype(np.int64)
-            var_h = None if var is None else np.array(var.cpu())
+            var_h = None if fl.var is None else np.array(fl.var.cpu())
             if budget is not None:
                 telemetry.count("game_re.capped_lockstep_iters", _lockstep(
                     iters, lane_chunk(block.m, iters.shape[0]), lanes=False))
@@ -446,7 +519,7 @@ class RandomEffectCoordinate:
                 if strag.size:
                     self._resolve_stragglers(block, offsets_dev, strag,
                                              w_out, conv, fail, iters, var_h,
-                                             pm, pp)
+                                             fl.pm, fl.pp)
             if block.proj is not None:
                 from photon_tpu_torch.game.projector import scatter_rows_into
 
@@ -463,6 +536,33 @@ class RandomEffectCoordinate:
             n_fail += int(fail.sum())
             iters_per_entity[ents] = iters
             conv_per_entity[ents] = conv
+            retired += 1
+            if ck is not None:
+                payload = {
+                    "kind": "re_train", "E": E, "d": d, "n_blocks": n_blocks,
+                    "has_var": variances is not None, "coeffs": coeffs,
+                    "iters": iters_per_entity, "conv": conv_per_entity,
+                    "n_conv": n_conv, "n_fail": n_fail,
+                    "blocks_done": retired}
+                if variances is not None:
+                    payload["variances"] = variances
+                ck.update("re", payload)
+                ck.note_evaluations()
+                ck.maybe_snapshot()
+
+        # the pipeline: dispatch runs ahead of retire by up to
+        # `pipeline_depth` buckets; a resumed run skips the retired prefix
+        pending: deque = deque()
+        depth = int(self.pipeline_depth)
+        for block in ds.blocks[start_block:]:
+            pending.append(dispatch(block))
+            telemetry.gauge("game_re.blocks_in_flight", len(pending))
+            while len(pending) > depth:
+                retire(pending.popleft())
+        while pending:
+            retire(pending.popleft())
+        if ck is not None:
+            ck.clear("re")
         if norm is not None:
             coeffs = norm.rows_to_original_space(coeffs)
             if variances is not None:

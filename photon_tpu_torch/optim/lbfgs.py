@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from photon_tpu_torch.checkpoint.taps import snapshot_tap
 from photon_tpu_torch.optim.linesearch import wolfe_line_search
 from photon_tpu_torch.optim.tracker import OptResult
 
@@ -141,6 +142,7 @@ def minimize_lbfgs_margin(obj, batch, w0: torch.Tensor, max_iters: int = 100,
         it += 1
         hist[it] = f_new
         ghist[it] = gnorm
+        snapshot_tap("lbfgs_margin", it, w_new, f_new, gnorm)
         keep, done = torch.stack([keep, converged | ~ok]).tolist()  # sync
         if keep:
             idx, count = _push(S, Y, rho, idx, count, s, y, sy_new)

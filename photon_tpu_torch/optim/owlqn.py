@@ -28,6 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
+from photon_tpu_torch.checkpoint.taps import snapshot_tap
 from photon_tpu_torch.optim.lbfgs import _curvature, _push, two_loop
 from photon_tpu_torch.optim.tracker import OptResult
 
@@ -138,6 +139,7 @@ def minimize_owlqn(value_and_grad: Callable, w0: torch.Tensor,
         it += 1
         hist[it] = F_new
         ghist[it] = pgnorm
+        snapshot_tap("owlqn", it, w_new, F_new, pgnorm)
         keep, conv = torch.stack([keep, converged]).tolist()  # sync
         done = conv or not ok
         if keep:

@@ -35,10 +35,20 @@ The math and the stop rules are the reference's:
   resident solver's sequential halving, since each rung's Armijo test is
   memoryless.
 
+Elastic runs: both solvers are host loops, so their full state is
+host-visible at every iteration boundary — the crash-consistency cut.
+Under a `checkpoint` session each boundary reports the iterate, the
+gradient, the curvature history with its cursor, L-BFGS's per-chunk
+margin caches (bit for bit through ``.npy``, never re-derived on
+resume), the histories, the flags and the evaluation counts, then lets
+the cadence decide whether to snapshot; a resumed solve rehydrates that
+state, skips the initial pass, and replays the rest bit for bit on the
+same card and chunking. Each objective evaluation hits the
+``evaluation`` fault site (`_eval_tick`). The session is the switch:
+session-less, each touch point is one ``current() is None`` branch.
+
 TRON is absent (each CG step would stream the whole dataset), as in the
-reference. Not ported yet, each raising with its ROADMAP queue A item:
-meshes (`_MeshStream`, item 10) and checkpoints of the solver state
-(item 11).
+reference. Meshes (`_MeshStream`) wait for ROADMAP queue A item 10.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ import math
 import numpy as np
 import torch
 
+from photon_tpu_torch import checkpoint as _ckpt
 from photon_tpu_torch import kernels as K
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.optim.lbfgs import _Z_REFRESH, two_loop
@@ -125,13 +136,6 @@ def _backend(data, mesh, prefetch, device):
             "mesh-sharded streamed solves (_MeshStream) are not ported yet "
             "(ROADMAP queue A item 10)")
     return _SingleDeviceStream(data, device, prefetch)
-
-
-def _refuse_checkpoint(checkpoint) -> None:
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoints of a streamed solve's state are not ported yet "
-            "(ROADMAP queue A item 11)")
 
 
 class _History:
@@ -254,6 +258,91 @@ def _convergence_host(ok, f_old, f_new, gnorm, g0norm, dphi0,
     return grad_conv or f_conv or precision_limited
 
 
+def _eval_tick(ck, n: int = 1) -> None:
+    """One objective evaluation closed: the ``evaluation`` fault site and
+    the checkpoint cadence's count. Session-less: one global load and one
+    branch."""
+    _ckpt.kill_point("evaluation")
+    if ck is not None:
+        ck.note_evaluations(n)
+
+
+# ------------------------------------------------- checkpoint (de)hydration
+# The layout is the reference's (`photon_tpu/optim/streamed.py`), plus the
+# port's evaluation and trial counts, so a resumed result reports the
+# uninterrupted run's counts too.
+def _pack_stream_state(kind, d, n_chunks, chunk_rows, max_iters, it, f,
+                       g0norm, hist, ghist, converged, failed, done, w, g,
+                       hist_st, evals, trials, extra=None) -> dict:
+    st = {
+        "kind": kind, "d": int(d), "n_chunks": int(n_chunks),
+        "chunk_rows": int(chunk_rows), "max_iters": int(max_iters),
+        "it": int(it), "f": float(f), "g0norm": float(g0norm),
+        "hist": hist, "ghist": ghist,
+        "converged": bool(converged), "failed": bool(failed),
+        "done": bool(done), "w": w, "g": g,
+        "S": hist_st.S, "Y": hist_st.Y, "rho": hist_st.rho,
+        "h_idx": int(hist_st.idx), "h_count": int(hist_st.count),
+        "h_sy": float(hist_st.sy), "h_yy": float(hist_st.yy),
+        "evals": int(evals), "trials": int(trials),
+    }
+    if extra:
+        st.update(extra)
+    return st
+
+
+def _validate_stream_state(st: dict, kind: str, d: int, n_chunks: int,
+                           chunk_rows: int, max_iters: int) -> None:
+    got = (st.get("kind"), int(st.get("d", -1)), int(st.get("n_chunks", -1)),
+           int(st.get("chunk_rows", -1)), int(st.get("max_iters", -1)))
+    want = (kind, d, n_chunks, chunk_rows, max_iters)
+    if got != want:
+        raise _ckpt.SnapshotStateError(
+            f"streamed-solver snapshot does not fit this solve: snapshot "
+            f"(kind, d, n_chunks, chunk_rows, max_iters)={got} vs resuming "
+            f"program {want}. Resume must re-run the same problem with the "
+            "same chunking and iteration budget.")
+
+
+def _restore_history(st: dict, history: int, d: int, device) -> _History:
+    S, Y, rho = (np.asarray(st["S"]), np.asarray(st["Y"]),
+                 np.asarray(st["rho"]))
+    if S.shape != (history, d):
+        raise _ckpt.SnapshotStateError(
+            f"curvature history shape {S.shape} in snapshot vs "
+            f"({history}, {d}) in the resuming solve")
+    hs = _History(history, d, device)
+    hs.S.copy_(torch.from_numpy(np.ascontiguousarray(S, np.float32)))
+    hs.Y.copy_(torch.from_numpy(np.ascontiguousarray(Y, np.float32)))
+    hs.rho.copy_(torch.from_numpy(np.ascontiguousarray(rho, np.float32)))
+    hs.idx, hs.count = int(st["h_idx"]), int(st["h_count"])
+    hs.sy, hs.yy = float(st["h_sy"]), float(st["h_yy"])
+    return hs
+
+
+def _restore_z_cache(st: dict, data, z_host: torch.Tensor) -> None:
+    """The per-chunk cached margins out of a snapshot, into the rows of
+    ``z_host``: slot-keyed (schema v2, from any number of writing
+    processes) or a v1 packed vector, re-padded to the chunk height (pad
+    rows carry weight 0)."""
+    for i in range(data.n_chunks):
+        z_host[i].copy_(torch.from_numpy(_ckpt.unpack_row_slots(
+            st, f"z{i}", None, data.chunk_rows, data.chunk_rows)))
+
+
+def _restore_vector(st: dict, key: str, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(st[key]), np.float32)).to(device)
+
+
+def _restore_common(st: dict) -> tuple:
+    """(hist, ghist, it, converged, failed, done, evals, trials)."""
+    return (np.array(st["hist"], np.float32),
+            np.array(st["ghist"], np.float32), int(st["it"]),
+            bool(st["converged"]), bool(st["failed"]), bool(st["done"]),
+            int(st.get("evals", 0)), int(st.get("trials", 0)))
+
+
 def _result(w, value, gnorm, it, converged, failed, hist, ghist,
             evaluations, trials) -> OptResult:
     dev = w.device
@@ -280,19 +369,34 @@ def _acc(acc, parts):
 def minimize_lbfgs_streamed(obj, data, w0: torch.Tensor,
                             max_iters: int = 100, tolerance: float = 1e-7,
                             history: int = 10, max_ls_evals: int = 12,
-                            mesh=None, prefetch=2, kernels=None,
-                            checkpoint=None) -> OptResult:
+                            mesh=None, prefetch=2,
+                            kernels=None) -> OptResult:
     """L-BFGS whose value and gradient sum over the chunks of ``data`` (a
     `ChunkedBatch`) streamed onto ``w0``'s device: the math and stop rules
     of `optim.lbfgs.minimize_lbfgs_margin`. ``kernels`` scopes the kernel
     mode (`kernels.scope`) over the solve. Telemetry: ``solver.
     feature_streams``, ``solver.evaluations``, ``solver.linesearch_trials``,
-    ``solver.iterations``, ``solver.margin_cache.hits`` / ``.refreshes``.
-    ``mesh`` and ``checkpoint`` wait for ROADMAP queue A items 10 and 11."""
-    _refuse_checkpoint(checkpoint)
+    ``solver.iterations``, ``solver.margin_cache.hits`` / ``.refreshes``;
+    ``checkpoint.solver_restores`` when it resumed from the current
+    `checkpoint` session's snapshot. ``mesh`` waits for ROADMAP queue A
+    item 10."""
     with K.scope(kernels):
         return _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
                                max_ls_evals, mesh, prefetch)
+
+
+def _pack_lbfgs_state(d, data, max_iters, it, f, g0norm, hist, ghist,
+                      converged, failed, done, w, g, hist_st, z_host, z_gen,
+                      evals, trials) -> dict:
+    extra: dict = {}
+    for i in range(data.n_chunks):
+        extra.update(_ckpt.pack_row_slots(z_host[i], None, data.chunk_rows,
+                                          prefix=f"z{i}"))
+    extra["z_gen"] = int(z_gen)
+    return _pack_stream_state("lbfgs_streamed", d, data.n_chunks,
+                              data.chunk_rows, max_iters, it, f, g0norm,
+                              hist, ghist, converged, failed, done, w, g,
+                              hist_st, evals, trials, extra)
 
 
 def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
@@ -301,26 +405,51 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
     be = _backend(data, mesh, prefetch, w.device)
     n_chunks = data.n_chunks
     d = int(w.shape[0])
-    hist_st = _History(history, d, w.device)
-    evals = trials = 0
-
-    # ---- initial pass: margins cached per chunk, (f, g) summed
     z_host, dz_host = be.host_margins(), be.host_margins()
-    acc = None
-    for i, b in be.iter_chunks():
-        acc = _acc(acc, be.chunk_init(obj, w, b, z_host[i]))
-    f_dev, g = obj.finish_value_grad(w, acc)
-    f, g0norm = _floats(f_dev, torch.linalg.vector_norm(g))
-    be.sync()
-    evals += 1
-    telemetry.count("solver.feature_streams")
-    telemetry.count("solver.evaluations")
+    ck = _ckpt.current()
+    st = ck.restore("lbfgs_streamed") if ck is not None else None
+    z_gen = 0
+    if st is not None:
+        # ---- resume: the iteration-boundary state rehydrates and the
+        # initial pass is skipped (the margins come from the snapshot)
+        _validate_stream_state(st, "lbfgs_streamed", d, n_chunks,
+                               data.chunk_rows, max_iters)
+        w = _restore_vector(st, "w", w.device)
+        g = _restore_vector(st, "g", w.device)
+        hist_st = _restore_history(st, history, d, w.device)
+        _restore_z_cache(st, data, z_host)
+        f, g0norm = float(st["f"]), float(st["g0norm"])
+        (hist, ghist, it, converged, failed, done, evals,
+         trials) = _restore_common(st)
+        z_gen = int(st.get("z_gen", 0))
+        telemetry.count("checkpoint.solver_restores")
+    else:
+        hist_st = _History(history, d, w.device)
+        evals = trials = 0
 
-    hist = np.full(max_iters + 1, np.nan, np.float32)
-    ghist = np.full(max_iters + 1, np.nan, np.float32)
-    hist[0], ghist[0] = f, g0norm
-    it, converged, failed = 0, g0norm <= 1e-14, False
-    done = converged
+        # ---- initial pass: margins cached per chunk, (f, g) summed
+        acc = None
+        for i, b in be.iter_chunks():
+            acc = _acc(acc, be.chunk_init(obj, w, b, z_host[i]))
+        f_dev, g = obj.finish_value_grad(w, acc)
+        f, g0norm = _floats(f_dev, torch.linalg.vector_norm(g))
+        be.sync()
+        evals += 1
+        telemetry.count("solver.feature_streams")
+        telemetry.count("solver.evaluations")
+        _eval_tick(ck)
+
+        hist = np.full(max_iters + 1, np.nan, np.float32)
+        ghist = np.full(max_iters + 1, np.nan, np.float32)
+        hist[0], ghist[0] = f, g0norm
+        it, converged, failed = 0, g0norm <= 1e-14, False
+        done = converged
+        if ck is not None:
+            # the it=0 cut: resuming from here replays a cold start
+            ck.update("lbfgs_streamed", _pack_lbfgs_state(
+                d, data, max_iters, it, f, g0norm, hist, ghist, converged,
+                failed, done, w, g, hist_st, z_host, z_gen, evals, trials))
+            ck.maybe_snapshot()
     zn, dzn = z_host.numpy(), dz_host.numpy()
     while not done and it < max_iters:
         p = -two_loop(g, *hist_st.args())
@@ -350,6 +479,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         evals += 1
         telemetry.count("solver.feature_streams")
         telemetry.count("solver.evaluations")
+        _eval_tick(ck)
 
         def phi(a):
             """A trial from the cached margins: no features stream."""
@@ -363,6 +493,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
                 acc_phi = _acc(acc_phi, be.chunk_phi(obj, i, z_host[i],
                                                      dz_host[i], a32))
             wl, wd = _floats(*acc_phi)
+            _eval_tick(ck)
             rv, rd = reg_ray(a)
             return wl + rv, wd + rd
 
@@ -383,6 +514,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
             telemetry.count("solver.evaluations")
             if refresh:
                 telemetry.count("solver.margin_cache.refreshes")
+                z_gen += 1
             acc = None
             for i, b in be.iter_chunks():
                 if refresh:  # re-anchor the chained margin on w (f32 drift)
@@ -391,6 +523,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
                     parts = be.chunk_grad(obj, z_host[i], b)
                 acc = _acc(acc, parts)
             _, g_new = obj.finish_value_grad(w_new, acc)
+            _eval_tick(ck)
             f_new = f_star  # the accepted trial's value, as the resident
             # margin solver keeps it
             hist_st.push(w_new - w, g_new - g)
@@ -407,6 +540,12 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         telemetry.count("solver.iterations")
         w, g, f = w_new, g_new, f_new
         done = converged or not ok
+        if ck is not None:
+            # the iteration boundary: the crash-consistency cut
+            ck.update("lbfgs_streamed", _pack_lbfgs_state(
+                d, data, max_iters, it, f, g0norm, hist, ghist, converged,
+                failed, done, w, g, hist_st, z_host, z_gen, evals, trials))
+            ck.maybe_snapshot()
 
     (gnorm,) = _floats(torch.linalg.vector_norm(g))
     return _result(w, f, gnorm, it, converged, failed, hist, ghist, evals,
@@ -418,15 +557,14 @@ def minimize_owlqn_streamed(obj, data, w0: torch.Tensor, l1_weight: float,
                             max_iters: int = 100, tolerance: float = 1e-7,
                             history: int = 10, max_ls_evals: int = 20,
                             reg_mask=None, ladder_lanes: int = 8, mesh=None,
-                            prefetch=2, kernels=None,
-                            checkpoint=None) -> OptResult:
+                            prefetch=2, kernels=None) -> OptResult:
     """OWL-QN over streamed chunks: the projected backtracking ladder is
     priced ``ladder_lanes`` candidates per chunk stream, so the common
     iteration costs two feature streams (the ladder pass and the accepted
     point's gradient pass). The math and stop rules of `optim.owlqn.
-    minimize_owlqn`; ``kernels``, ``mesh`` and ``checkpoint`` as in
-    `minimize_lbfgs_streamed`."""
-    _refuse_checkpoint(checkpoint)
+    minimize_owlqn`; ``kernels``, ``mesh`` and the `checkpoint` session as
+    in `minimize_lbfgs_streamed` (OWL-QN keeps no margin cache across
+    iterations, so its snapshot is the iterate, history and scalars)."""
     with K.scope(kernels):
         return _owlqn_streamed(obj, data, w0, l1_weight, max_iters,
                                tolerance, history, max_ls_evals, reg_mask,
@@ -460,7 +598,8 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
             if reg_mask is None
             else reg_mask.to(device=dev, dtype=torch.float32))
     c1 = 1e-4  # optim.owlqn's Armijo constant
-    hist_st = _History(history, d, dev)
+    ck = _ckpt.current()
+    st = ck.restore("owlqn_streamed") if ck is not None else None
     evals = trials = 0
 
     def l1_term(wv):
@@ -478,16 +617,42 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
         for _, b in be.iter_chunks():
             acc = _acc(acc, obj.chunk_value_grad_partials(w_at, b)[1])
         f_dev, g_at = obj.finish_value_grad(w_at, acc)
+        _eval_tick(ck)
         return f_dev, g_at
 
-    f_dev, g = value_grad_pass(w)
-    f, l1w, pg0norm = _floats(f_dev, l1_term(w), pg_norm(w, g))
-    F = f + l1w
-    hist = np.full(max_iters + 1, np.nan, np.float32)
-    ghist = np.full(max_iters + 1, np.nan, np.float32)
-    hist[0], ghist[0] = F, pg0norm
-    it, converged, failed = 0, pg0norm <= 1e-14, False
-    done = converged
+    def pack(it, f, F, pg0norm, hist, ghist, converged, failed, done, w, g,
+             hist_st) -> dict:
+        return _pack_stream_state(
+            "owlqn_streamed", d, data.n_chunks, data.chunk_rows, max_iters,
+            it, f, pg0norm, hist, ghist, converged, failed, done, w, g,
+            hist_st, evals, trials, {"F": float(F)})
+
+    if st is not None:
+        # ---- resume: the iterate, history and scalars rehydrate
+        _validate_stream_state(st, "owlqn_streamed", d, data.n_chunks,
+                               data.chunk_rows, max_iters)
+        w = _restore_vector(st, "w", dev)
+        g = _restore_vector(st, "g", dev)
+        hist_st = _restore_history(st, history, d, dev)
+        f, F, pg0norm = float(st["f"]), float(st["F"]), float(st["g0norm"])
+        (hist, ghist, it, converged, failed, done, evals,
+         trials) = _restore_common(st)
+        telemetry.count("checkpoint.solver_restores")
+    else:
+        hist_st = _History(history, d, dev)
+        f_dev, g = value_grad_pass(w)
+        f, l1w, pg0norm = _floats(f_dev, l1_term(w), pg_norm(w, g))
+        F = f + l1w
+        hist = np.full(max_iters + 1, np.nan, np.float32)
+        ghist = np.full(max_iters + 1, np.nan, np.float32)
+        hist[0], ghist[0] = F, pg0norm
+        it, converged, failed = 0, pg0norm <= 1e-14, False
+        done = converged
+        if ck is not None:
+            ck.update("owlqn_streamed", pack(it, f, F, pg0norm, hist, ghist,
+                                             converged, failed, done, w, g,
+                                             hist_st))
+            ck.maybe_snapshot()
     while not done and it < max_iters:
         pg = pseudo_gradient(w, g, l1, mask)
         p = -two_loop(pg, *hist_st.args())
@@ -523,6 +688,7 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
             for _, b in be.iter_chunks():
                 acc = _acc(acc, (be.chunk_value_many(obj, W.t(), b),))
             host = torch.stack([acc[0], rv, l1t, dec]).cpu().numpy()
+            _eval_tick(ck, Kb)
             vals, rv_h, l1t_h, dec_h = host.astype(np.float64)
             F_cand = vals + rv_h + l1t_h
             for k in range(Kb):  # first passing rung == sequential halving
@@ -553,6 +719,11 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
         telemetry.count("solver.iterations")
         w, g, f, F = w_new, g_new, f_new, F_new
         done = converged or not ok
+        if ck is not None:
+            ck.update("owlqn_streamed", pack(it, f, F, pg0norm, hist, ghist,
+                                             converged, failed, done, w, g,
+                                             hist_st))
+            ck.maybe_snapshot()
 
     (pgnorm,) = _floats(pg_norm(w, g))
     return _result(w, F, pgnorm, it, converged, failed, hist, ghist, evals,

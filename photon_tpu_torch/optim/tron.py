@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from photon_tpu_torch.checkpoint.taps import snapshot_tap
 from photon_tpu_torch.optim.tracker import OptResult
 
 ETA0, ETA1, ETA2 = 1e-4, 0.25, 0.75
@@ -158,6 +159,7 @@ def minimize_tron_margin(obj, batch, w0: torch.Tensor, max_iters: int = 100,
         it += 1
         hist[it] = f_new
         ghist[it] = gnorm
+        snapshot_tap("tron_margin", it, w_new, f_new, gnorm, aux=delta_new)
         done = bool(converged | stuck)  # sync
         w, z, f, g, delta = w_new, z_new, f_new, g_new, delta_new
 

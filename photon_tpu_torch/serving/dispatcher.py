@@ -1,6 +1,6 @@
 """Micro-batching dispatcher: the serving tier's request plane (port of
-`photon_tpu/serving/dispatcher.py`; its fault sites and request tracing
-wait for a later slice).
+`photon_tpu/serving/dispatcher.py`, with its ``rung_execute`` fault
+site; request tracing waits for a later slice).
 
 A bounded queue feeds a dispatch thread that collects up to ``max_batch``
 requests or until the OLDEST queued request has waited ``max_delay_us``,
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import telemetry
+from photon_tpu_torch.checkpoint import faults
 from photon_tpu_torch.data.matrix import SparseRows
 from photon_tpu_torch.serving.admission import (SHED_DEADLINE,
                                                 SHED_QUEUE_FULL,
@@ -149,6 +150,7 @@ class RungExecutor:
         bucket = self.ladder.bucket_for(len(batch))
         offsets, shards, ids, misses = collate_rung_args(
             self.ladder, batch, bucket)
+        faults.kill_point("rung_execute")  # a replica death mid-request
         out_dev = self.ladder.score_padded(offsets, shards, ids)
         return out_dev, bucket, misses
 

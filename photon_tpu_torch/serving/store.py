@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import telemetry
+from photon_tpu_torch.checkpoint import faults
 from photon_tpu_torch.checkpoint.store import (commit_bytes,
                                                replace_committed)
 from photon_tpu_torch.data.index_map import IndexMap
@@ -181,11 +182,22 @@ class CoefficientStore:
     def open(cls, out_dir, mmap: bool = True,
              device=None) -> "CoefficientStore":
         """Open a saved store onto ``device``; ``mmap=True`` maps every
-        coefficient block read-only instead of copying it into the heap."""
+        coefficient block read-only instead of copying it into the heap.
+
+        The reads ride `faults.retry_io` (site ``store_open``): they are
+        pure reads, so a retry restarts the open; an injected kill at the
+        site propagates. A missing manifest (nothing published) fails at
+        once rather than burning the retry budget."""
         out_dir = str(out_dir)
         manifest = os.path.join(out_dir, _META_NAME)
         if not os.path.exists(manifest):
             raise FileNotFoundError(f"{manifest}: no store manifest")
+        return faults.retry_io(lambda: cls._open(out_dir, mmap, device),
+                               site="store_open")
+
+    @classmethod
+    def _open(cls, out_dir: str, mmap: bool, device) -> "CoefficientStore":
+        manifest = os.path.join(out_dir, _META_NAME)
         with open(manifest) as f:
             meta = json.load(f)
         if meta.get("format") != _FORMAT:

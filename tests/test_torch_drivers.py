@@ -293,7 +293,6 @@ def test_resume_skips_saved_points(jobs, tmp_path):
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"checkpoint_dir": "ckpt"}, "item 11"),
     ({"tuning_iters": 2}, "item 11"),
 ])
 def test_unported_options_raise_with_their_item(jobs, tmp_path, knob, item):
@@ -338,9 +337,11 @@ def test_clis(jobs, tmp_path, capsys):
     PDT.main(["--config", str(cfg), "--device", "cpu"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["n_models"] == 1 and os.path.isdir(line["model_dir"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PDT.main(["--config", str(cfg), "--device", "cpu",
-                  "--checkpoint-dir", "ck"])
+    PDT.main(["--config", str(cfg), "--device", "cpu", "--checkpoint-dir",
+              "ck"])  # a relative checkpoint directory: under output_dir
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert os.path.isdir(line["model_dir"])
+    assert os.path.isdir(tmp_path / "out" / "ck")
     scfg = tmp_path / "score.json"
     scfg.write_text(json.dumps({
         "model_dir": line["model_dir"],

@@ -670,10 +670,6 @@ def test_streamed_raises():
     item(10, lambda: T.train_glm(pcb, task, cfg, mesh=object(), device=CPU))
     item(10, lambda: S.minimize_lbfgs_streamed(
         Objective(task), pcb, torch.zeros(300), mesh=object()))
-    item(11, lambda: S.minimize_lbfgs_streamed(
-        Objective(task), pcb, torch.zeros(300), checkpoint=object()))
-    item(11, lambda: S.minimize_owlqn_streamed(
-        Objective(task), pcb, torch.zeros(300), 1.0, checkpoint=object()))
 
     item(10, lambda: pcb.device_ring(device=CPU, mesh=object()))
     item(10, lambda: next(pcb.iter_device(device=CPU, mesh=object())))
