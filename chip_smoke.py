@@ -7,8 +7,10 @@ fixed-effect and GAME grids), its drivers (Avro in, model directory
 and scored Avro out) and its streamed data plane (the native Avro
 decoder, the ingest plane, the training driver's streamed regimes) and
 its continual refresh (delta plan, compacted re-solve, hot swap into a
-live int8 ladder) and its elastic runs (checkpoint/restore of the
-streamed solvers, GAME's descent and the training driver) on one GPU.
+live int8 ladder), its elastic runs (checkpoint/restore of the
+streamed solvers, GAME's descent and the training driver) and its
+multi-GPU GLM training (the slot mesh in one process and in several) on
+one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -241,11 +243,12 @@ DRV. the drivers on local Avro (a temporary directory beside this script):
 DRV-S. the streamed data plane on local Avro (a `_drvs*` temporary
    directory): GM's widths at 2^21 training rows (just over the training
    driver's default streaming threshold) as 8 deflate part files and 2^18
-   validation rows, written by a spawn process pool; (a) one part file
-   through `read_game_data` native and Python (equal bit for bit, rows/s
-   each), then the training rows through `iter_game_chunks_parallel`
-   with 0 and 4 process workers, a chunk-cache build and a cache hit
-   (every chunk bit-identical, rows/s each); (b) `run_indexing`, then
+   validation rows, written by a spawn process pool; (a) a part file of
+   DRVS_PY_ROWS rows written beside them through `read_game_data` native
+   and Python (equal bit for bit, rows/s each), then half the training
+   part files (cut: depth) through `iter_game_chunks_parallel` with 0 and
+   4 process workers, a chunk-cache build and a cache hit (every chunk
+   bit-identical, rows/s each); (b) `run_indexing`, then
    `run_training` with `streaming=None` (it trips), 4 workers, a chunk
    cache, GM's coordinates stopped at a relative progress of 1e-3, AUC
    and SHARDED_AUC — phase seconds, read rows/s, the staging stall share,
@@ -255,7 +258,7 @@ DRV-S. the streamed data plane on local Avro (a `_drvs*` temporary
    decode) and trains the same model; (c) the streamed objective under
    half the estimated device bytes (the fixed shard as host chunks):
    seconds per update, `game_e2e.*`, within 1e-3 of (b) (at most 0.1% of
-   an effect's entities beyond); (d) 2^18 rows at T2's widths written as
+   an effect's entities beyond); (d) 2^17 rows at T2's widths written as
    per-row names, the ladder built from Avro with 4 workers, cold and
    from its cache, equal to `chunk_blocked_ell` of the in-memory read bit
    for bit, and 10 streamed L-BFGS iterations through the tail matvec
@@ -286,6 +289,39 @@ CR. continual refresh at GM's widths: (a) the previous model
    against none at GM's config (coefficients within 1e-3) and with 2
    against none at 1e-3 (equal failed counts): straggler entities,
    lock-step iterations of both passes, ``game_re.iters_saved``.
+MG. the slot mesh, after S (the multi-GPU GLM slice at T2's widths,
+   with every slot on the visible cards — all eight on one card when
+   there is one): (a) T2's L2 logistic L-BFGS (reg 1e-3, history 5,
+   tolerance 0, 40 iterations) on an in-process 8-slot mesh
+   (`cast_features(shard_blocked_ell_batch(...))`, every value leaf bf16
+   as T2's; `train_glm(mesh=)`: rows 2 and 4 on every slot's shard):
+   first rows 2 and 4 on each slot's shard (1 and 8 lanes, (X∘X)ᵀr too)
+   against their plain versions, rtol=atol=1e-5; rows·iters/s,
+   reductions an iteration (one an evaluation), one reduction's ms,
+   launches, peak memory, a profiled solve's idle share; held against
+   T2: histories within rtol 1e-5 over the first T_SHORT iterations of
+   (a) (where the 40-iteration paths part, and their last gaps, are
+   printed: §C13), the 40th value within MG_PART_RTOL, and a
+   T_SHORT-iteration mesh solve's value within rtol 1e-5 and coefficients
+   within atol 1e-4 of T2's T_SHORT-iteration solve;
+   (b) S's ladder as mesh chunks (`chunk_blocked_ell(n_shards=8)`): rows
+   2 and 4 on every slot's shard of the first and last mesh chunk
+   against their plain versions as in (a); L-BFGS
+   MG_ITERS_C iterations and OWL-QN T_SHORT against S's one-device
+   histories (the same bounds), rows·iters/s against the link bound, the
+   stall share; (d) ``python -m photon_tpu_torch.parallel --selftest
+   --backend gloo --json`` as a subprocess on the card: exit 0 (one
+   digest and one ``local_only`` solve at 1, 2 and 4 processes, the
+   ingest split on every rank of 2 and 4, a 2-process snapshot restored
+   at 1 and 4 bit for bit, the commit kill loud); (c) that digest equal
+   to this process's mesh's, a line naming the backend, and (a)'s solve
+   cut to MG_ITERS_C iterations at 2 processes (each mapping its own
+   slots' shards from a ``_drv_mg*`` directory beside this script;
+   launched beside the selftest and (b)'s layout build, before any timed
+   solve) bit for bit equal to the in-process mesh's, with collectives,
+   reductions and wire bytes; with two cards
+   or more the same over NCCL, a card per rank. Every kernel and the
+   native library are built (phase 0) before any child starts.
 CK. elastic runs (in-process kills: an injected fault, then a fresh
    `checkpoint` session resuming from the last commit; snapshot
    directories under ``_drv_ck*`` temporary directories beside this
@@ -306,8 +342,9 @@ CK. elastic runs (in-process kills: an injected fault, then a fresh
    bit), armed and unkilled (async writer), killed at the middle
    ``bucket_retire`` and a mid-run ``commit`` and resumed (snapshots at
    every retire and update) — snapshot bytes, ``checkpoint.re_restores``
-   and ``checkpoint.descent_restores``; held: every model, score and
-   objective history equals the session-less fit's bit for bit; (c)
+   and ``checkpoint.descent_restores``; held: every model and objective
+   history equals the session-less fit's bit for bit (the scores, a
+   function of the model, are not recomputed: cut for MG's time); (c)
    inside DRV, after (a): DRV (a)'s `run_training` with a
    ``checkpoint_dir`` killed at its middle ``bucket_retire`` and rerun:
    ``best_model/`` equals DRV (a)'s bit for bit; then ``python -m
@@ -329,8 +366,10 @@ entry its launches in GM's fits and GK's default-route fits under
 under ``drv_launches`` and in DRV-S's main-path runs — (b)'s streamed
 driver run, (c)'s streamed objective and (d)'s ladder solve, each
 counted alone — under ``drvs_launches``, after CR (d)'s hot swap
-under ``cr_launches``, and in CK's armed and resumed runs and (d)'s
-tapped solve under ``ck_launches``), the card's name and power limit as nvidia-smi reports them, and last
+under ``cr_launches``, in CK's armed and resumed runs and (d)'s
+tapped solve under ``ck_launches``, and in MG (a)'s mesh solve under
+``mg_launches``), the card's name and power limit as nvidia-smi reports
+them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
 """
@@ -412,12 +451,17 @@ DRV_XTR_ROWS = 1 << 19
 # 2,000,000) in 8 part files and 2^18 validation rows, 4 ingest workers,
 # 2^16-row decode chunks and 2^19-row objective chunks, solves stopped at
 # a relative progress of DRVS_TOL (the (b)/(c) comparison's tolerance);
-# (d) T2's widths at 2^18 rows, a ladder of 2^16-row chunks, 10 iterations
+# (d) T2's widths at 2^17 rows (cut from 2^18 for the script's time), a
+# ladder of 2^15-row chunks, 10 iterations
 DRVS_ROWS, DRVS_VAL_ROWS, DRVS_PARTS, DRVS_SEED = 1 << 21, 1 << 18, 8, 404
 DRVS_WORKERS, DRVS_CHUNK, DRVS_OBJ_CHUNK, DRVS_TOL = 4, 1 << 16, 1 << 19, \
     1e-3
-DRVS_LADDER_ROWS, DRVS_LADDER_CHUNK, DRVS_LADDER_ITERS = 1 << 18, 1 << 16, 10
+DRVS_LADDER_ROWS, DRVS_LADDER_CHUNK, DRVS_LADDER_ITERS = 1 << 17, 1 << 15, 10
 DRVS_AUC_CALLS = 20  # (b): the same margins' AUC, call after call
+# (a)'s native-against-Python decode reads a part of this many rows of its
+# own (cut for MG's time: a whole 2^18-row part took the pure Python
+# decoder ~35 s)
+DRVS_PY_ROWS = 1 << 15
 # continual refresh (CR): the previous model from GM's data (GM's rows),
 # a delta drop of 2^20 zipf(1.2) user rows plus 4,096 rows of 1,000 users
 # the model never saw (from seed + CR_SEED), the drop's users shifted by
@@ -435,10 +479,33 @@ CR_BUDGET_CHECK = 2
 # cadence of about CK_SNAPSHOTS snapshots a run; every snapshot directory
 # keeps CK_KEEP (about 1 GB at T2's widths)
 CK_ITERS, CK_SNAPSHOTS, CK_KEEP = 10, 3, 2
+# phase MG: the in-process mesh's slots (T2's rows split eight ways), and
+# the iterations of (a)'s solve repeated across processes and of (b)'s
+# streamed L-BFGS
+MG_SLOTS, MG_ITERS_C = 8, 10
+# MG (a)'s 40th loss against T2 (a)'s: past the reference's 1e-5 once the
+# tolerance-0 paths part (ROADMAP §C13; mesh_parting.py on the CPU, every
+# leaf bf16: the port 1.65e-4 and 4.98e-4 at the 40th at 2^16 and 2^18
+# rows, 1.15e-3 at most on the way, the JAX package's own mesh 6.06e-5
+# from its one device), so held at 10x the largest 40th reading; a slot
+# dropped from the reduction moves the loss by about 1/8
+MG_PART_RTOL = 5e-3
 
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+LAPS: dict = {}
+_LAP_T = [time.perf_counter()]
+
+
+def lap(name: str) -> None:
+    """Record the seconds since the previous lap (or the start) under
+    ``name``: the per-phase wall `main` prints before the kernels line."""
+    now = time.perf_counter()
+    LAPS[name] = round(now - _LAP_T[0], 1)
+    _LAP_T[0] = now
 
 
 def gpu_line() -> str:
@@ -1279,7 +1346,7 @@ def phase_training(args, dev, gpu) -> dict:
             + "; ".join(f"{name[:70]} x{c}" for name, c in ops.items()))
     return dict(batch=batch, launches_a=launches_a, launches_b=launches_b,
                 w=w_perm, facts=facts, coo=(ind, va, y), w_true=w_true,
-                hist_a=ha,
+                hist_a=ha, w40_model=model.coefficients.means.cpu().numpy(),
                 w5_model=w5_model, solve_peak=solve_peak_gb)
 
 
@@ -1318,11 +1385,10 @@ def solve_profile(batch, cfg, dev, solve=None):
     most time [(name, us)], wall s, {name: us} and {name: count} of every
     device op) of one short solve (`solve_timed`'s) under torch.profiler:
     the summed time of the CUDA kernels and copies against the wall
-    clock."""
+    clock. Only device activity is traced, as in `profiled_busy`."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, wall = solve_timed(batch, cfg, dev, solve)
     by_name, counts, n_ops = {}, {}, 0
     for ev in prof.events():
@@ -2515,51 +2581,84 @@ def h2d_gbs(X, dev) -> float:
     return nbytes / best / 1e9
 
 
-def ladder_kernels_agree(cb, dev, gpu) -> None:
-    """The tail matvec (1 and 8 lanes) and the rmatvec on device chunks
-    of a ladder (each width bucket padded to the largest count over the
-    chunks) against their plain versions: the tail added into random
-    starting values (rows with no tail keep theirs bit for bit, so no
-    padded position wrote anywhere), rtol=atol=1e-5."""
+def shard_kernels_agree(X, gen, label: str, square=(False,)) -> tuple:
+    """The tail matvec and the rmatvec (1 and 8 lanes; (X∘X)ᵀr too when
+    ``square`` holds True) on one device `BlockedEllRows` (a ladder chunk
+    or a mesh slot's shard) against their plain versions: the tail added
+    into random starting values (rows with no tail keep theirs bit for
+    bit, so no padded position wrote anywhere), rtol=atol=1e-5. Returns
+    (concatenation positions, positions taken by no row, max |err|)."""
     import torch
 
     from photon_tpu_torch.kernels import blocked_ell as KB
 
-    gen = torch.Generator(device=dev).manual_seed(7)
-    n_local, d = cb.chunk_rows, cb.X.n_features
-    for i, b in cb.iter_device(device=dev):
-        if i not in (0, cb.n_chunks - 1):
-            continue
-        X = b.X
-        B = sum(int(v.shape[0]) for v in X.ell_vals)
-        free = int((X.tail_rows < 0).sum())
-        no_tail = X.row_pos == B
-        for lanes in (1, 8):
-            shape = (d,) if lanes == 1 else (d, lanes)
-            w = torch.randn(shape, generator=gen, device=dev) * 0.01
-            start = torch.randn((n_local,) + shape[1:], generator=gen,
-                                device=dev)
-            got = KB.tail_matvec(X, w, out=start.clone())
-            want = start + KB.tail_matvec_reference(X, w)
-            torch.cuda.synchronize()
-            np.testing.assert_allclose(got.cpu().numpy(),
-                                       want.cpu().numpy(), **TOL,
-                                       err_msg=f"ladder tail, {lanes} lanes")
-            if not torch.equal(got[no_tail], start[no_tail]):
-                raise AssertionError("ladder tail: a row with no tail moved")
-            r = torch.randn((n_local,) + shape[1:], generator=gen,
+    dev = X.row_pos.device
+    n_local, d = int(X.row_pos.shape[0]), X.n_features
+    B = sum(int(v.shape[0]) for v in X.ell_vals)
+    free = int((X.tail_rows < 0).sum())
+    no_tail = X.row_pos == B
+    err = 0.0
+    for lanes in (1, 8):
+        shape = (d,) if lanes == 1 else (d, lanes)
+        w = torch.randn(shape, generator=gen, device=dev) * 0.01
+        start = torch.randn((n_local,) + shape[1:], generator=gen,
                             device=dev)
-            got_r = KB.bucket_rmatvec(X, r)
-            want_r = KB.bucket_rmatvec_reference(X, r)
+        got = KB.tail_matvec(X, w, out=start.clone())
+        want = start + KB.tail_matvec_reference(X, w)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL, err_msg=f"{label} tail, {lanes} "
+                                   "lanes")
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got[no_tail], start[no_tail]):
+            raise AssertionError(f"{label} tail: a row with no tail moved")
+        r = torch.randn((n_local,) + shape[1:], generator=gen, device=dev)
+        for sq in square:
+            got_r = KB.bucket_rmatvec(X, r, square=sq)
+            want_r = KB.bucket_rmatvec_reference(X, r, square=sq)
             torch.cuda.synchronize()
             np.testing.assert_allclose(got_r.cpu().numpy(),
                                        want_r.cpu().numpy(), **TOL,
-                                       err_msg=f"ladder rmatvec, {lanes}")
+                                       err_msg=f"{label} rmatvec, {lanes} "
+                                       f"lanes, square={sq}")
+            err = max(err, float((got_r - want_r).abs().max()))
+    return B, free, err
+
+
+def ladder_kernels_agree(cb, dev, gpu) -> None:
+    """`shard_kernels_agree` on the first and last device chunks of a
+    ladder (each width bucket padded to the largest count over the
+    chunks)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for i, b in cb.iter_device(device=dev):
+        if i not in (0, cb.n_chunks - 1):
+            continue
+        B, free, _ = shard_kernels_agree(b.X, gen, f"ladder chunk {i}")
         log(f"S: ladder chunk {i}: {B} concatenation positions, {free} "
             "taken by no row (padded bucket rows): the tail matvec (1 and 8 "
             "lanes, added into random values; rows with no tail unchanged "
             "bit for bit) and the rmatvec (1 and 8 lanes) agree with their "
             "plain versions within rtol=atol=1e-5  [" + gpu + "]")
+
+
+def mesh_kernels_agree(X, gen, label: str, gpu) -> None:
+    """`shard_kernels_agree`, (X∘X)ᵀr included, on every slot's shard of
+    a mesh matrix (a `SlotRows` of `BlockedEllRows`), logged."""
+    shapes, free, err = set(), 0, 0.0
+    for j, part in enumerate(X.parts):
+        B, f, e = shard_kernels_agree(part, gen, f"{label} slot {j}",
+                                      square=(False, True))
+        shapes.add(B)
+        free, err = free + f, max(err, e)
+    log(f"{label}: on each of the {len(X.parts)} slots' shards "
+        f"({X.rows_per_slot} rows, {sorted(shapes)} concatenation positions, "
+        f"{free} taken by no row in all) the tail matvec (1 and 8 lanes, "
+        f"added into random values; rows with no tail unchanged bit for "
+        f"bit) and the rmatvec (1 and 8 lanes, square off and on) agree "
+        f"with their plain versions within rtol=atol=1e-5 (max |err| "
+        f"{err:.3g})  [{gpu}]")
 
 
 def streamed_solve(cb, cfg, dev):
@@ -2708,6 +2807,7 @@ def phase_streamed(args, t2: dict, dev, gpu) -> dict:
         + "; ".join(f"{name[:50]} {us / 1e3:.3f} ms" for name, us in top)
         + f"  [{gpu}]")
     launches = dict(la)
+    s_ref = dict(hist_lbfgs=h, h2d_gbs=rate, pass_gb=pass_gb)
 
     # (b) streamed OWL-QN on the same ladder, T2(d)'s settings
     cfg_b = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l1(),
@@ -2735,10 +2835,13 @@ def phase_streamed(args, t2: dict, dev, gpu) -> dict:
         f"{peak_b:.3f} GB  [{gpu}]")
     if zs:
         raise AssertionError(f"S (b): {zs} coefficients differ in zero set")
+    s_ref.update(hist_owlqn=res_b.history(), w_owlqn=wb)
     for name, c in lb.items():
         launches[name] = launches.get(name, 0) + c
+    lap("S (a), (b)")
     phase_ck_streamed(cb, res_b, cfg_b,
                       int(tele_b["solver.feature_streams"]), dev, gpu)
+    lap("CK (a)")
     del cb, model, model_b
     torch.cuda.empty_cache()
 
@@ -2783,6 +2886,342 @@ def phase_streamed(args, t2: dict, dev, gpu) -> dict:
     if grow > chunk_c:
         raise AssertionError("S (c): peak memory grew with the row count")
     torch.cuda.empty_cache()
+    return launches, s_ref
+
+
+# --------------------------------------------- phase MG: the slot mesh
+def mesh_solve(batch, cfg, mesh):
+    """(model, result, wall s) of one logistic `train_glm` on ``mesh``,
+    closed by a synchronize."""
+    import torch
+
+    from photon_tpu_torch.models.training import train_glm
+    from photon_tpu_torch.ops.losses import TaskType
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, res = train_glm(batch, TaskType.LOGISTIC_REGRESSION, cfg,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    return model, res, time.perf_counter() - t0
+
+
+def first_apart(h, hr, rtol: float = 1e-5):
+    """The first iteration where two loss histories part by more than
+    ``rtol`` (None if they never do), and their relative gap at the last."""
+    rel = np.abs(h - hr) / np.abs(hr)
+    over = np.flatnonzero(rel > rtol)
+    return (int(over[0]) if over.size else None), float(rel[-1])
+
+
+def psum_ms(mesh, d: int, dev, n: int = 20) -> float:
+    """Median ms (CUDA events) of one slot-ordered reduction of MG_SLOTS
+    (d + 1)-float slot partials, the payload a value-and-gradient
+    evaluation closes with."""
+    import torch
+
+    parts = [(torch.randn((), device=dev), torch.randn(d, device=dev))
+             for _ in range(mesh.n_local)]
+    ts = []
+    for _ in range(n + 3):
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        mesh.psum(parts)
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts[3:]))
+
+
+def phase_mesh(t2: dict, s_ref: dict, dev, gpu) -> dict:
+    """MG: (a) T2's L-BFGS on an in-process 8-slot mesh (every slot on
+    the visible cards) against T2 (a); (b) S's ladder as mesh chunks
+    (L-BFGS, OWL-QN) against S; (d) the parallel selftest subprocess
+    (gloo on the card), whose digests at 1, 2 and 4 processes (c) holds
+    against this process's mesh; (c) (a)'s solve cut to MG_ITERS_C
+    iterations at 2 processes from a saved sharded batch, bit for bit
+    against the in-process mesh; NCCL legs with two cards or more.
+    Returns the kernels' launches in (a)'s main-path solve."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    # (d) runs beside the host layout builds below (its spawned processes
+    # on the card, the builds numpy on this host), and so do (c)'s
+    # multi-process solves once their shards are saved; both are waited
+    # for before any timed solve
+    selftest = subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch.parallel", "--selftest",
+         "--backend", "gloo", "--json"], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    root = tempfile.mkdtemp(prefix="_drv_mg", dir=here)
+    threads: list = []
+    try:
+        return _phase_mesh(t2, s_ref, dev, gpu, selftest, t_phase, root,
+                           threads)
+    finally:
+        if selftest.poll() is None:
+            selftest.kill()
+            selftest.wait()
+        for t in threads:
+            t.join()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selftest, t_phase: float,
+                root: str, threads: list) -> dict:
+    import threading
+
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.data.dataset import (cast_features,
+                                               chunk_blocked_ell,
+                                               make_batch, mesh_batch,
+                                               shard_blocked_ell_batch)
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l1, l2
+    from photon_tpu_torch.parallel import selfcheck as sc
+    from photon_tpu_torch.parallel.launch import launch
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    ind, va, y = t2["coo"]
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(n_devices=MG_SLOTS)
+    host = make_batch(SparseRows(ind, va, T_FEATURES), y, device="cpu")
+    t0 = time.perf_counter()
+    # every value leaf bf16, as T2 (a)'s `cast_features`: the same problem
+    sb = cast_features(shard_blocked_ell_batch(host, MG_SLOTS, T_DENSE))
+    build_s = time.perf_counter() - t0
+    # (c)'s multi-process solves start here, from the saved shards, beside
+    # the selftest and (b)'s host layout build; they are waited for before
+    # any timed solve, and checked against (a)'s in-process mesh below
+    t0 = time.perf_counter()
+    sc.save_sharded_batch(sb, root)
+    save_s = time.perf_counter() - t0
+    cfgd = dict(max_iters=MG_ITERS_C, tolerance=0.0, reg_weight=T_REG,
+                history=T_HISTORY)
+    # NCCL needs a card per process, and the slots must split evenly
+    legs = [("gloo", 2)] + ([("nccl", 4 if cards >= 4 else 2)]
+                            if cards >= 2 else [])
+    runs: dict = {}
+
+    def run_legs():
+        for backend, n in legs:
+            t0 = time.perf_counter()
+            try:
+                runs[backend, n] = (launch(
+                    sc.target_saved_solve, n, args=(root, cfgd),
+                    device="cuda", backend=backend, timeout_s=600),
+                    time.perf_counter() - t0)
+            except Exception as e:  # raised in the main thread below
+                runs[backend, n] = (e, time.perf_counter() - t0)
+
+    legs_c = threading.Thread(target=run_legs)
+    threads.append(legs_c)
+    legs_c.start()
+    t0 = time.perf_counter()
+    cbm = chunk_blocked_ell(host, S_CHUNK, T_DENSE,
+                            feature_dtype=torch.bfloat16, n_shards=MG_SLOTS)
+    lad_s = time.perf_counter() - t0
+    out, err = selftest.communicate(timeout=900)
+    st_s = time.perf_counter() - t_phase
+    legs_c.join()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mb = mesh_batch(sb, mesh)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    log(f"MG (a): T2's problem laid for {MG_SLOTS} slots in {build_s:.1f} s "
+        f"on the host ({mb.X.rows_per_slot} rows a slot, one column "
+        f"permutation), uploaded in {up_s:.2f} s; slots on "
+        f"{sorted({str(d) for d in mesh.slot_devices})} ({cards} visible "
+        f"card(s))  [{gpu}]")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    mesh_kernels_agree(mb.X, gen, "MG (a) mesh batch", gpu)
+
+    # (a) the main path: counts reset just before, read just after
+    cfg = OptimizerConfig(max_iters=T_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+    K.reset_launch_counts()
+    telemetry.reset()
+    model, res, wall = mesh_solve(mb, cfg, mesh)
+    launches = K.launch_counts()
+    red = telemetry.snapshot()["counters"].get("mesh.reductions", 0)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    for name in (KB.TAIL, KB.RMATVEC):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"MG (a): {name} never launched "
+                                 f"({launches})")
+    it = res.iterations
+    h, hr = res.history(), t2["hist_a"]
+    if len(h) != len(hr):
+        raise AssertionError(f"MG (a): {it} iterations, T2 (a) "
+                             f"{len(hr) - 1}")
+    gap5 = histories_agree("MG (a) vs T2 (a), first iterations",
+                           hr[:T_SHORT + 1], h[:T_SHORT + 1])
+    apart, last = first_apart(h, hr)
+    w_m, w_r = model.coefficients.means.cpu().numpy(), t2["w40_model"]
+    dw = float(np.abs(w_m - w_r).max())
+    log(f"MG (a): against T2 (a): histories within {gap5:.3g} over the "
+        f"first {T_SHORT} iterations; apart by more than 1e-5 first at "
+        f"iteration {apart if apart is not None else 'none'} of {it}, "
+        f"{last:.3g} apart at the last (losses {h[-1]:.8g} and "
+        f"{hr[-1]:.8g}); final coefficients max |dw| {dw:.4g}  [{gpu}]")
+    # at tolerance 0 on this ill-conditioned problem the two paths part
+    # where the reassociated sums (8 slot partials against one pass) have
+    # grown past 1e-5 (§C6, §C13; the JAX package's own mesh and one
+    # device part the same way: mesh_parting.py), so the reference's
+    # coefficient and value bounds are held where the paths still agree
+    # (a T_SHORT-iteration mesh solve against T2's T_SHORT-iteration
+    # coefficients), and the 40th value at MG_PART_RTOL
+    np.testing.assert_allclose(h[-1], hr[-1], rtol=MG_PART_RTOL,
+                               err_msg="MG (a) 40th value vs T2 (a)")
+    short = dataclasses.replace(cfg, max_iters=T_SHORT)
+    m5, r5, _ = mesh_solve(mb, short, mesh)
+    w5 = m5.coefficients.means.cpu().numpy()
+    dw5 = float(np.abs(w5 - t2["w5_model"]).max())
+    log(f"MG (a): {T_SHORT}-iteration coefficients against T2's: max |dw| "
+        f"{dw5:.4g}; final values {r5.history()[-1]:.8g} and "
+        f"{hr[T_SHORT]:.8g}")
+    np.testing.assert_allclose(w5, t2["w5_model"], atol=1e-4,
+                               err_msg="MG (a) coefficients vs T2")
+    np.testing.assert_allclose(r5.history()[-1], hr[T_SHORT], rtol=1e-5,
+                               err_msg="MG (a) value vs T2 (a)")
+    del m5
+    red_ms = psum_ms(mesh, T_FEATURES, dev)
+    busy, n_ops, top, pwall, _, _ = solve_profile(
+        mb, short, dev, solve=lambda b, c: mesh_solve(b, c, mesh)[1])
+    log(f"MG (a): {it} iterations in {wall:.3f} s: "
+        f"{T_ROWS * it / wall:.6g} rows*iters/s (T2 (a), one device, "
+        f"above); {red:g} reductions ({red / it:.4g} an iteration: one per "
+        f"evaluation, the line search's trials included; no collective in "
+        f"one process, 0 wire bytes); one reduction of the {MG_SLOTS} "
+        f"(d + 1)-float slot partials {red_ms:.4f} ms; launches "
+        f"{launches}; peak device memory {peak:.3f} GB over the upload and "
+        f"solve (T2 (a) one device {t2['solve_peak']:.3f} GB); profiled "
+        f"{T_SHORT}-iteration solve: "
+        + ("device busy not measured" if busy is None else
+           f"{busy / pwall:.3f} busy, {1 - busy / pwall:.3f} idle of "
+           f"{pwall * 1e3:.1f} ms")
+        + f", {n_ops} device ops; most device time: "
+        + "; ".join(f"{name[:50]} {us / 1e3:.3f} ms" for name, us in top)
+        + f"  [{gpu}]")
+    cfg_c = dataclasses.replace(cfg, max_iters=MG_ITERS_C)
+    m_c, res_c, wall_c = mesh_solve(mb, cfg_c, mesh)
+    w_c = m_c.coefficients.means.cpu().numpy().astype(np.float64)
+    del mb, model, m_c
+    torch.cuda.empty_cache()
+
+    # (b) S's ladder as mesh chunks: every chunk row-sharded over the slots
+    cfg_b = dataclasses.replace(cfg, max_iters=MG_ITERS_C)
+    for i in (0, cbm.n_chunks - 1):
+        mesh_kernels_agree(cbm.mesh_chunk(i, mesh).X, gen,
+                           f"MG (b) mesh chunk {i}", gpu)
+    telemetry.reset()
+    K.reset_launch_counts()
+    _, rb, wall_b = mesh_solve(cbm, cfg_b, mesh)
+    tele = telemetry.snapshot()["counters"]
+    lb = K.launch_counts()
+    hs = s_ref["hist_lbfgs"][:MG_ITERS_C + 1]
+    gap_b = histories_agree("MG (b) L-BFGS vs S (a), first iterations",
+                            hs[:T_SHORT + 1], rb.history()[:T_SHORT + 1])
+    apart_b, last_b = first_apart(rb.history(), hs)
+    np.testing.assert_allclose(rb.history()[-1], hs[-1], rtol=1e-5,
+                               err_msg="MG (b) L-BFGS final value vs S (a)")
+    streams = tele["solver.feature_streams"]
+    stall, comp = tele["stream.stall_seconds"], tele["stream.compute_seconds"]
+    it_s = wall_b / max(rb.iterations, 1)
+    bound_s = s_ref["pass_gb"] * streams / max(rb.iterations, 1) \
+        / s_ref["h2d_gbs"]
+    cfg_o = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l1(),
+                            reg_weight=1.0, history=T_HISTORY)
+    mo, ro, wall_o = mesh_solve(cbm, cfg_o, mesh)
+    gap_o = histories_agree("MG (b) OWL-QN vs S (b)", s_ref["hist_owlqn"],
+                            ro.history())
+    wo = mo.coefficients.means.cpu().numpy()
+    np.testing.assert_allclose(wo, s_ref["w_owlqn"], atol=1e-4,
+                               err_msg="MG (b) OWL-QN coefficients vs S (b)")
+    log(f"MG (b): S's ladder for {MG_SLOTS} slots ({cbm.n_chunks} chunks of "
+        f"{S_CHUNK} rows, {cbm.mesh_chunk_rows(mesh) // MG_SLOTS} rows a "
+        f"slot a chunk) in {lad_s:.1f} s; L-BFGS {rb.iterations} iterations "
+        f"in {wall_b:.3f} s: {T_ROWS * rb.iterations / wall_b:.6g} "
+        f"rows*iters/s, link bound {bound_s * 1e3:.2f} ms of "
+        f"{it_s * 1e3:.2f} ms an iteration ({bound_s / it_s:.3f} of it), "
+        f"stall share {stall / max(stall + comp, 1e-12):.3f}; "
+        f"{tele['mesh.reductions']:g} reductions for {rb.evaluations} "
+        f"evaluations; launches {lb}; vs S (a): within {gap_b:.3g} over "
+        f"{T_SHORT} iterations, apart by more than 1e-5 first at "
+        f"{apart_b if apart_b is not None else 'none'}, {last_b:.3g} at the "
+        f"last; OWL-QN {ro.iterations} iterations in {wall_o:.3f} s, within "
+        f"{gap_o:.3g} of S (b), coefficients max |dw| "
+        f"{np.abs(wo - s_ref['w_owlqn']).max():.4g}  [{gpu}]")
+    for name in (KB.TAIL, KB.RMATVEC):
+        if lb.get(name, 0) == 0:
+            raise AssertionError(f"MG (b): {name} never launched ({lb})")
+    del cbm
+    torch.cuda.empty_cache()
+
+    # (d) the selftest subprocess on the card (gloo: one card, 4 ranks)
+    report = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    if selftest.returncode != 0 or not report.get("ok"):
+        raise AssertionError(f"MG (d): selftest exit {selftest.returncode}: "
+                             f"{out[-3000:]} {err[-3000:]}")
+    log(f"MG (d): python -m photon_tpu_torch.parallel --selftest --backend "
+        f"gloo on the card (run beside (a)'s and (b)'s host layout "
+        f"builds): exit 0 in {st_s:.1f} s; digest "
+        f"{report['digest']}; the local_only solve at 1, 2 and 4 processes "
+        f"bit for bit equal to the selftest's in-process mesh "
+        f"({report['checks']['local_only_solve_bit_identical']['detail']}), "
+        f"(rank, decoded, skipped) by process count "
+        f"{report['ingest_split']}; 2-process snapshot restored at 1 and 4 "
+        f"bit for bit; commit kill (outcome, s) {report['commit_kill']}  "
+        f"[{gpu}]")
+
+    # (c) the multi-process spine: the selftest's digests against this
+    # process's mesh, and (a)'s solve at 2 processes from saved shards
+    mine = sc.psum_signature(mesh)
+    digests = report["checks"]["psum_bit_identity_1_2_4"]["detail"]
+    if report["digest"] != mine:
+        raise AssertionError(f"MG (c): selftest digest {report['digest']} "
+                             f"against this process's mesh {mine}")
+    log(f"MG (c): psum-signature digest at 1, 2, 4 processes (gloo, one "
+        f"card) and in the selftest's process {digests}; this process's "
+        f"8-slot mesh {mine}: one value")
+    if cards < 2:
+        log(f"MG (c): one visible card: every multi-process leg runs gloo "
+            f"(backend named; NCCL refuses two ranks on one card), the "
+            f"partials copied through host memory; no NCCL leg")
+    for backend, n in legs:
+        res2, l_s = runs[backend, n]
+        if isinstance(res2, Exception):
+            raise res2
+        want = sc._digest(w_c)
+        got = [r["digest"] for r in res2]
+        if any(g != want for g in got):
+            raise AssertionError(f"MG (c) {backend}: {n}-process "
+                                 f"coefficients {got} vs in-process "
+                                 f"{want}")
+        r0 = res2[0]
+        log(f"MG (c): (a)'s solve cut to {MG_ITERS_C} iterations at {n} "
+            f"processes ({backend}; each maps its own {MG_SLOTS // n} "
+            f"slots' shards from disk, {save_s:.1f} s to save them): "
+            f"coefficients {got} bit for bit equal to the in-process "
+            f"mesh's {want} ({wall_c:.3f} s); {r0['collectives']} "
+            f"collectives for {r0['reductions']} reductions (one each), "
+            f"{r0['wire_bytes']:.6g} bytes on the wire from rank 0 "
+            f"({(T_FEATURES + 1) * 4 * (n - 1):.6g} a value-and-gradient "
+            f"reduction); launch + load + solve {l_s:.1f} s, beside the "
+            f"selftest and (b)'s layout build  [{gpu}]")
+    del sb, host
+    torch.cuda.empty_cache()
+    log(f"MG: {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
     return launches
 
 
@@ -2901,12 +3340,13 @@ def auc(scores: np.ndarray, y: np.ndarray) -> float:
 def profiled_busy(fn):
     """(device busy s, wall s, device op count, the five device ops that
     took the most time [(name, us, launches)]) of ``fn()`` under
-    torch.profiler, closed by a synchronize."""
+    torch.profiler, closed by a synchronize. Only device activity is
+    traced: the host's ops would add their recording to the wall, and
+    their events take longer to read back than the run itself."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -3059,6 +3499,7 @@ def phase_game(args, dev, gpu) -> dict:
                         f"{lane_chunk(b.m, b.n_entities)})"
                         for b in ds.blocks)
             + f"; {ds.n_active} active rows")
+    lap("GM data")
     K.reset_launch_counts()
     cold, cold_s = fit_timed(est, data)
     warm, warm_s = fit_timed(est, data)
@@ -3104,6 +3545,7 @@ def phase_game(args, dev, gpu) -> dict:
         + f", {n_ops} device ops; most device time (ms, launches): "
         + "; ".join(f"{name[:60]} {us / 1e3:.3f}, {k}"
                     for name, us, k in top) + f"  [{gpu}]")
+    lap("GM fits")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3123,6 +3565,7 @@ def phase_game(args, dev, gpu) -> dict:
     log(f"GM: scoring {n} rows: {score_s:.3f} s; AUC GAME {game_auc:.6f} vs "
         f"fixed-only {f_auc:.6f}")
 
+    lap("GM scoring")
     # the lane-batched per-entity solves against single solves
     parts = coordinate_scores(warm.model, data)
     coords = {c.dataset.shard_name: c for c in ccache.values()}
@@ -3138,8 +3581,11 @@ def phase_game(args, dev, gpu) -> dict:
                      gpu, f"{name} at the timed configuration",
                      strict=False)
     del Xf_dev, parts, coords
+    lap("GM entity checks")
     gg = phase_game_grid(args, est, data, dev, gpu)
+    lap("GG")
     gs = game_streamed(est, data, warm, game_auc, cfg_f, dev, gpu)
+    lap("GS")
     phase_ck_game(est, data, dev, gpu)
     del data, est, cold, warm
     torch.cuda.empty_cache()
@@ -4107,9 +4553,11 @@ def phase_drivers(args, dev, gpu) -> dict:
             f"(gap {gap:.3g}); numpy f64 AUC {np_auc:.8g}; "
             f"{len(rows)} points' training manifests are the row "
             f"manifest ({best_manifest['n_rows']} rows)")
+        lap("DRV (a)")
         phase_ck_driver(root, params_a, out, int(
             telemetry.snapshot()["counters"].get("game_re.blocks", 0)),
             dev, gpu)
+        lap("CK (c)")
         del out, sc, best, loaded, vfull, tr, va
         torch.cuda.empty_cache()
 
@@ -4443,14 +4891,17 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
     with tempfile.TemporaryDirectory(prefix="_drvs", dir=here) as root:
         train_dir = os.path.join(root, "train")
         val_dir = os.path.join(root, "val")
-        os.makedirs(train_dir)
-        os.makedirs(val_dir)
+        py_dir = os.path.join(root, "python")
+        for d in (train_dir, val_dir, py_dir):
+            os.makedirs(d)
         per = DRVS_ROWS // DRVS_PARTS
         tasks = [(os.path.join(train_dir, f"part-{p:05d}.avro"),
                   seed + 10 + p, seed, per, p * per)
                  for p in range(DRVS_PARTS)]
         tasks.append((os.path.join(val_dir, "part-00000.avro"), seed + 1,
                       seed, DRVS_VAL_ROWS, 0))
+        tasks.append((os.path.join(py_dir, "part-00000.avro"), seed + 2,
+                      seed, DRVS_PY_ROWS, 0))
         t0 = time.perf_counter()
         with cf.ProcessPoolExecutor(
                 max_workers=min(len(tasks), os.cpu_count() or 1),
@@ -4464,6 +4915,7 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
             f" MB) written by {len(tasks)} spawn processes in {write_s:.1f} "
             f"s (each part {min(part_s):.1f}–{max(part_s):.1f} s); cut: "
             f"depth, {DRVS_ROWS} of GM's {GM_ROWS} rows  [{gpu}]")
+        lap("DRV-S write")
         shards = {"global": {"bags": ["global"], "has_intercept": True},
                   "perUser": {"bags": ["perUser"], "has_intercept": False},
                   "perItem": {"bags": ["perItem"], "has_intercept": False}}
@@ -4472,8 +4924,8 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
                     for k, v in shards.items()},
             entity_fields=("userId", "itemId"))
 
-        # (a) decode: one part file native and Python, bit for bit
-        part0 = tasks[0][0]
+        # (a) decode: a part file native and Python, bit for bit
+        part0 = tasks[-1][0]
         telemetry.reset()
         t0 = time.perf_counter()
         nat, nmaps = read_game_data(part0, cfg, use_native=True)
@@ -4494,12 +4946,20 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
         if not same:
             raise AssertionError("DRV-S (a): the native read differs from "
                                  "the Python read")
-        log(f"DRV-S (a): one part file ({per} rows): read_game_data native "
-            f"{per / nat_s:.6g} rows/s ({nat_s:.3f} s), Python "
-            f"{per / py_s:.6g} rows/s ({py_s:.3f} s), {py_s / nat_s:.1f}x; "
+        log(f"DRV-S (a): a part file of {DRVS_PY_ROWS} rows (cut: depth, "
+            f"from a {per}-row part): read_game_data native "
+            f"{DRVS_PY_ROWS / nat_s:.6g} rows/s ({nat_s:.3f} s), Python "
+            f"{DRVS_PY_ROWS / py_s:.6g} rows/s ({py_s:.3f} s), "
+            f"{py_s / nat_s:.1f}x; "
             f"the two GameData and maps equal bit for bit  [{gpu}]")
         del nat, py
-        scan = scan_ingest(train_dir, cfg)
+        # the ingest plane's legs read half the part files (cut: depth)
+        a_dir = os.path.join(root, "train_a")
+        os.makedirs(a_dir)
+        for path, *_ in tasks[:DRVS_PARTS // 2]:
+            os.link(path, os.path.join(a_dir, os.path.basename(path)))
+        a_rows = per * (DRVS_PARTS // 2)
+        scan = scan_ingest(a_dir, cfg)
         maps, bidx = scan.index_maps, scan.block_index
         legs, digests = [], None
 
@@ -4517,32 +4977,34 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
                 raise AssertionError(f"DRV-S (a) {label}: chunks differ from "
                                      "the in-process decode's")
             starts = int(c.get("ingest.pool_starts", 0))
-            legs.append(f"{label} {DRVS_ROWS / secs:.6g} rows/s "
+            legs.append(f"{label} {a_rows / secs:.6g} rows/s "
                         f"({secs:.3f} s" + (f", a worker pool start"
                                             if starts else "") + ")")
             return c
 
         kw = dict(chunk_rows=DRVS_CHUNK, block_index=bidx)
         leg("0 workers", lambda: iter_game_chunks_parallel(
-            train_dir, cfg, maps, workers=0, **kw))
+            a_dir, cfg, maps, workers=0, **kw))
         c4 = leg(f"{DRVS_WORKERS} process workers",
                  lambda: iter_game_chunks_parallel(
-                     train_dir, cfg, maps, workers=DRVS_WORKERS,
+                     a_dir, cfg, maps, workers=DRVS_WORKERS,
                      mode="process", **kw))
         cache_a = os.path.join(root, "cache_a")
         cb = leg("cache build", lambda: open_chunk_source(
-            train_dir, cfg, maps, workers=DRVS_WORKERS, cache_dir=cache_a,
+            a_dir, cfg, maps, workers=DRVS_WORKERS, cache_dir=cache_a,
             **kw))
         ch = leg("cache hit", lambda: open_chunk_source(
-            train_dir, cfg, maps, cache_dir=cache_a, **kw))
+            a_dir, cfg, maps, cache_dir=cache_a, **kw))
         if (c4.get("ingest.worker_deaths") or cb.get("ingest.worker_deaths")
                 or ch.get("ingest.cache_hits") != 1
                 or ch.get("ingest.decode_seconds")):
             raise AssertionError(f"DRV-S (a): a worker died or the cache "
                                  f"hit decoded Avro: {c4} {cb} {ch}")
-        log(f"DRV-S (a): {len(digests)} chunks of the {DRVS_ROWS} training "
-            f"rows, bit-identical over: " + "; ".join(legs)
+        log(f"DRV-S (a): {len(digests)} chunks of {a_rows} training rows "
+            f"(cut: depth, {DRVS_PARTS // 2} of the {DRVS_PARTS} part files), "
+            f"bit-identical over: " + "; ".join(legs)
             + f"; cache {dir_bytes(cache_a) / 1e6:.1f} MB  [{gpu}]")
+        lap("DRV-S (a)")
 
         # (b) the training driver past its default streaming threshold
         coords = {
@@ -5620,16 +6082,13 @@ def phase_ck_game(est_gm, data, dev, gpu) -> None:
     RE_CHECK_TOL, ``straggler_budget`` CR_BUDGET_CHECK): session-less
     fits at ``pipeline_depth`` 1, 0 and 2 (equal bit for bit), an armed
     unkilled fit (async writer), kills at the middle ``bucket_retire``
-    and at a mid-run ``commit`` each resumed — every model, score and
-    objective history equal to the session-less fit's."""
+    and at a mid-run ``commit`` each resumed — every model and objective
+    history equal to the session-less fit's."""
     import shutil
-
-    import torch
 
     from photon_tpu_torch import checkpoint, telemetry
     from photon_tpu_torch import kernels as K
     from photon_tpu_torch.game.estimator import RandomEffectConfig
-    from photon_tpu_torch.game.scoring import score_game
 
     t_phase = time.perf_counter()
 
@@ -5654,18 +6113,17 @@ def phase_ck_game(est_gm, data, dev, gpu) -> None:
                 K.launch_counts())
 
     def same(label, got, want):
-        # scoring 10M rows takes seconds (host entity lookups): the
-        # session-less fit's scores are taken once
+        # the models and objective histories bit for bit (scores are a
+        # function of the model: re-scoring 10M rows a comparison, ~4 s
+        # each on the host's entity lookups, was cut for phase MG's time)
         if not (models_equal(want.model, got.model)
                 and want.descent.objective_history
-                == got.descent.objective_history
-                and torch.equal(score_game(got.model, data), ref_scores)):
+                == got.descent.objective_history):
             raise AssertionError(f"CK (b) {label}: not the session-less "
                                  "fit bit for bit")
 
     with checkpoint.record_sites() as rec:
         ref, wall1, c1, _ = fit(1)
-    ref_scores = score_game(ref.model, data)
     retires = rec.hits["bucket_retire"]
     n_updates = len(ref.descent.objective_history)
     every = max((retires + n_updates) // CK_SNAPSHOTS, 1)
@@ -5893,42 +6351,61 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({gpu}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    lap("start")
     ptxas = phase_build()
+    lap("build")
     phase_kernels(dev, ptxas["serving_int8"])
     phase_training_kernels(dev, ptxas["blocked_ell"])
     phase_fused_kernel(dev, ptxas["fused_vg"])
+    lap("kernels")
     kernels = [phase_serving(args, dev, gpu)]
     torch.cuda.empty_cache()
+    lap("serving")
     state = phase_training(args, dev, gpu)
     kernels += phase_training_timings(state, gpu)
     phase_sparse_owlqn(state, dev, gpu)
     phase_ck_resident(state, dev, gpu)
+    lap("T2, T3, CK (d)")
     lanes8 = phase_grid_timings(state, phase_grid(state, dev, gpu), gpu)
     for entry in kernels:
         entry.update(lanes8.get(entry["name"], {}))
+    lap("G")
     e_launches = phase_validation(args, state, dev, gpu)
+    lap("E")
     t2 = {k: state[k] for k in ("coo", "hist_a", "w5_model", "owlqn",
-                                "solve_peak")}
+                                "solve_peak", "w40_model")}
     del state
     torch.cuda.empty_cache()
-    s_launches = phase_streamed(args, t2, dev, gpu)
+    s_launches, s_ref = phase_streamed(args, t2, dev, gpu)
+    torch.cuda.empty_cache()
+    lap("S (c)")
+    mg = phase_mesh(t2, s_ref, dev, gpu)
     del t2
+    lap("MG")
     state = phase_dense_owlqn(args, dev, gpu)
     phase_dense_tron(state, dev, gpu)
     phase_dense_grid(state, dev, gpu)
     kernels.append(phase_dense_timings(state, gpu))
     del state
     torch.cuda.empty_cache()
+    lap("D2-D5")
     gm, gs, gg = phase_game(args, dev, gpu)
+    lap("CK (b)")
     gk = phase_game_kernels(args, dev, gpu)
     for name, c in phase_gk_ladder(args, dev, gpu).items():
         gs[name] = gs.get(name, 0) + c
     torch.cuda.empty_cache()
+    lap("GK")
     drv = phase_drivers(args, dev, gpu)
     torch.cuda.empty_cache()
+    lap("DRV (b), (c)")
     drvs = phase_drivers_streamed(args, dev, gpu)
     torch.cuda.empty_cache()
+    lap("DRV-S (b)-(d)")
     _, cr = phase_continual(args, dev, gpu)
+    lap("CR")
+    log(f"phase seconds: {json.dumps(LAPS)}; {sum(LAPS.values()):.1f} s "
+        f"in all  [{gpu}]")
     for entry in kernels:
         entry["gm_launches"] = gm.get(entry["name"], 0)
         entry["gk_launches"] = gk.get(entry["name"], 0)
@@ -5940,6 +6417,7 @@ def main() -> int:
         entry["drvs_launches"] = drvs.get(entry["name"], 0)
         entry["cr_launches"] = cr.get(entry["name"], 0)
         entry["ck_launches"] = CK_LAUNCHES.get(entry["name"], 0)
+        entry["mg_launches"] = mg.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

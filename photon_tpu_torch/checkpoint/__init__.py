@@ -1,5 +1,5 @@
 """Elastic runs: crash-consistent checkpoint/restore and fault injection
-(port of `photon_tpu/checkpoint`, one device).
+(port of `photon_tpu/checkpoint`).
 
 The host-driven regimes (the streamed solvers, GAME's block loop and
 coordinate descent) have no lineage to replay, so this package makes
@@ -34,8 +34,12 @@ session-less run makes no copy, no read-back and no launch it would not
 make anyway.
 
 Bit-identical resume holds on the same card with the same chunking (the
-same ``ChunkedBatch`` chunk height, the same GAME buckets); meshes and
-multi-process commits raise naming ROADMAP queue A item 10.
+same ``ChunkedBatch`` chunk height, the same GAME buckets). A mesh
+solve's row caches snapshot per slot and restore on the same mesh at any
+process count, bit for bit; several processes commit one snapshot
+together (`store.py`: the begin and commit barriers, bounded by
+``PHOTON_TPU_BARRIER_TIMEOUT_S``), and a session of several processes
+snapshots by evaluation count.
 
 CLI: ``python -m photon_tpu_torch.checkpoint --selftest [--json]`` runs
 an in-process snapshot → kill → restore → bit-parity proof and exits 1 on

@@ -1,5 +1,5 @@
 """Versioned solver-state snapshots: the process-wide checkpoint session
-(port of `photon_tpu/checkpoint/state.py`, one device).
+(port of `photon_tpu/checkpoint/state.py`).
 
 One process-wide :class:`CheckpointSession` the instrumented host loops
 report into, armed by the driver (``checkpoint.session(...)`` /
@@ -41,9 +41,13 @@ are freed as the next replaces them.
 Snapshots are taken at iteration/bucket/update boundaries only, so
 cadence (wall clock or evaluation count) never changes the numbers a
 resumed run produces. Row caches pack in global row order
-(`pack_rows` / `pack_row_slots`); their mesh forms wait for ROADMAP queue
-A item 10, while a v2 multi-slot payload written by a mesh run restores
-onto one device (numpy only).
+(`pack_rows`) or, the multi-process form, one entry per mesh slot keyed
+``{prefix}@s{slot:04d}`` (`pack_row_slots`), so each process writes only
+its own slots and a snapshot from any process count or mesh restores at
+any other (`unpack_row_slots` re-slices the global rows to the resuming
+layout's local slots). A session of several processes snapshots by
+evaluation count: its ranks cut at the same iteration boundaries, which
+a wall-clock cadence would not give them.
 """
 from __future__ import annotations
 
@@ -77,12 +81,6 @@ class SnapshotStateError(ValueError):
     the mismatch spelled out instead of resuming into silent drift."""
 
 
-def _mesh_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} with a mesh (row caches sharded over devices) is not "
-        "ported yet (ROADMAP queue A item 10)")
-
-
 def _rows(local) -> np.ndarray:
     if isinstance(local, torch.Tensor):
         local = local.detach().cpu().numpy()
@@ -92,31 +90,49 @@ def _rows(local) -> np.ndarray:
 # ----------------------------------------------------- row-cache layout
 def pack_rows(local, mesh, n_rows: int) -> np.ndarray:
     """The global row vector of a per-row cache: its first ``n_rows``
-    rows, copied, as f32 (``local`` a flat ``(rows,)`` array or tensor)."""
-    if mesh is not None:
-        raise _mesh_not_ported("pack_rows")
-    return np.array(_rows(local)[:n_rows], dtype=np.float32)
+    rows, copied, as f32. ``local`` is a flat ``(rows,)`` array or
+    tensor, or under a mesh this process's ``(n_local_slots, s)`` stack
+    (`parallel.mesh.fetch_local_rows`), placed at its slots' global rows
+    (other processes' rows stay zero)."""
+    if mesh is None:
+        return np.array(_rows(local)[:n_rows], dtype=np.float32)
+    local = _rows(local)
+    s = local.shape[1]
+    out = np.zeros((mesh.n_slots * s,), np.float32)
+    for k, j in enumerate(mesh.local_slots):
+        out[j * s:(j + 1) * s] = local[k]
+    return np.array(out[:n_rows])
 
 
 def unpack_rows(z_global, mesh, pad_rows: int) -> np.ndarray:
-    """Inverse of :func:`pack_rows`: the global rows zero-padded to
-    ``pad_rows`` (pad rows carry weight 0 in every batch, so their values
-    never enter a reduction)."""
-    if mesh is not None:
-        raise _mesh_not_ported("unpack_rows")
+    """Inverse of :func:`pack_rows` onto a (possibly different) layout:
+    the global rows zero-padded to ``pad_rows`` (pad rows carry weight 0
+    in every batch, so their values never enter a reduction), re-sliced
+    under a mesh into this process's ``(n_local_slots, s)`` stack."""
     z_global = np.asarray(z_global, np.float32)
     buf = np.zeros((int(pad_rows),), np.float32)
     buf[:z_global.shape[0]] = z_global
-    return buf
+    if mesh is None:
+        return buf
+    stack = buf.reshape(mesh.n_slots, int(pad_rows) // mesh.n_slots)
+    return np.array(stack[list(mesh.local_slots)])
 
 
 def pack_row_slots(local, mesh, n_rows: int, prefix: str) -> dict:
-    """The snapshot form of a per-row cache: one entry per device slot,
-    keyed ``{prefix}@s{slot:04d}``; on one device the one slot 0 carries
-    the rows trimmed to ``n_rows`` (a tensor stays a tensor: the session
-    clones it at ``update()``)."""
+    """The snapshot form of a per-row cache: one entry per device slot
+    this process owns, keyed ``{prefix}@s{slot:04d}`` — unique across
+    processes, so each ``meta_p<k>.json`` references only files its own
+    process wrote and a restore unions the full slot set. Under a mesh
+    ``local`` is the ``(n_local_slots, s)`` stack; on one device the one
+    slot 0 carries the rows trimmed to ``n_rows``. A tensor stays a
+    tensor (the session clones it at ``update()``)."""
     if mesh is not None:
-        raise _mesh_not_ported("pack_row_slots")
+        if isinstance(local, torch.Tensor):
+            return {f"{prefix}@s{j:04d}": local[k]
+                    for k, j in enumerate(mesh.local_slots)}
+        local = np.asarray(local)
+        return {f"{prefix}@s{j:04d}": np.array(local[k], dtype=np.float32)
+                for k, j in enumerate(mesh.local_slots)}
     if isinstance(local, torch.Tensor):
         return {f"{prefix}@s0000": local.reshape(-1)[:n_rows]}
     return {f"{prefix}@s0000":
@@ -125,15 +141,14 @@ def pack_row_slots(local, mesh, n_rows: int, prefix: str) -> dict:
 
 def unpack_row_slots(payload: dict, prefix: str, mesh, pad_rows: int,
                      n_rows: int) -> np.ndarray:
-    """Inverse of :func:`pack_row_slots` onto one device, whatever layout
-    wrote it: slot entries (from every process of a multi-process run)
-    concatenate slot-major into the global row order, trim to ``n_rows``
-    (the writing layout's pad rows drop) and re-pad to ``pad_rows``.
-    Falls back to a v1 single-key ``prefix`` entry when present."""
-    if mesh is not None:
-        raise _mesh_not_ported("unpack_row_slots")
+    """Inverse of :func:`pack_row_slots` onto ANY layout (process count
+    and mesh may both differ from the writing run's): slot entries (from
+    every process of a multi-process run) concatenate slot-major into the
+    global row order, trim to ``n_rows`` (the writing layout's pad rows
+    drop), re-pad to ``pad_rows`` and re-slice to this layout
+    (`unpack_rows`). Falls back to a v1 single-key ``prefix`` entry."""
     if prefix in payload:  # schema v1: one packed global vector
-        return unpack_rows(_rows(payload[prefix])[:n_rows], None, pad_rows)
+        return unpack_rows(_rows(payload[prefix])[:n_rows], mesh, pad_rows)
     tag = f"{prefix}@s"
     keys = sorted(k for k in payload if k.startswith(tag))
     if not keys:
@@ -142,7 +157,7 @@ def unpack_row_slots(payload: dict, prefix: str, mesh, pad_rows: int,
             f"(keys: {sorted(payload)[:8]}...)")
     z = np.concatenate([_rows(payload[k]).astype(np.float32).ravel()
                         for k in keys])
-    return unpack_rows(z[:n_rows], None, pad_rows)
+    return unpack_rows(z[:n_rows], mesh, pad_rows)
 
 
 def _copy_value(v):
@@ -186,12 +201,25 @@ class CheckpointSession:
       fsync/rename ride the thread).
     - ``resident_tap=True`` arms the resident solvers' last-iterate tap
       (`taps.snapshot_tap`), which is otherwise one flag check.
+
+    Under several processes (`parallel.mesh.initialize_distributed`) the
+    cadence must be by evaluations (``every_s=None``): every rank then
+    snapshots at the same cut, and the store's barriers pair them up.
     """
 
     def __init__(self, store, *, every_s: Optional[float] = 30.0,
                  every_evals: Optional[int] = None, resume: bool = True,
                  async_writer: bool = True, keep: int = 2,
                  resident_tap: bool = False):
+        from photon_tpu_torch.parallel.mesh import distributed_client
+
+        dist = distributed_client()
+        if dist is not None and dist["world"] > 1 and every_s is not None:
+            raise ValueError(
+                "a multi-process checkpoint session snapshots by evaluation "
+                "count: pass every_s=None (with every_evals) — ranks "
+                "deciding by their own clocks would cut at different "
+                "iterations and split the store's commit barriers")
         if not isinstance(store, SnapshotStore):
             store = SnapshotStore(store, keep=keep)
         self.store = store

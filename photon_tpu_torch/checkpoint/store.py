@@ -1,6 +1,6 @@
 """Crash-consistent snapshot storage: temp + fsync + rename commits, a
-manifest-pointer snapshot layout, an async writer thread, and retention
-(port of `photon_tpu/checkpoint/store.py`, one process).
+manifest-pointer snapshot layout, an async writer thread, retention, and
+the multi-process commit (port of `photon_tpu/checkpoint/store.py`).
 
 The durability protocol, smallest piece first:
 
@@ -28,10 +28,22 @@ The durability protocol, smallest piece first:
 The layout is the reference's, byte for byte in its structure
 (``SCHEMA_VERSION`` 2, ``p<process>_<idx>.npy`` payloads, the same
 manifest format), so a snapshot directory written by either package
-loads in the other. Restore merges every ``meta_p<k>.json`` it finds, so
-a multi-process snapshot's slot entries load onto one process. Writing
-from more than one process (the barrier-stamped commit) waits for
-ROADMAP queue A item 10.
+loads in the other.
+
+Multi-process (a live `parallel.mesh` process group): every process
+writes its payload under its own ``p<k>_`` prefix and ``meta_p<k>.json``
+into the same snapshot directory (shared storage); rank 0 alone writes
+the replicated entries (a process other than 0 writes only its
+slot-keyed ``@s<slot>`` row caches). No payload is written until rank 0
+has swept a dead attempt's leftovers (barrier ``photon_ckpt_begin_<seq>``),
+and rank 0 replaces the manifest only after every rank's payloads are
+durable (barrier ``photon_ckpt_commit_<seq>``). Both barriers are
+bounded by ``PHOTON_TPU_BARRIER_TIMEOUT_S``: a rank that dies between
+its payload and the commit barrier makes the survivors' commit fail
+loudly, and the manifest still points at the last whole snapshot.
+Restore merges every ``meta_p<k>.json`` it finds (first process wins for
+an entry several wrote), so a snapshot written at one process count
+loads at any other.
 
 Snapshot reads and writes ride :func:`faults.retry_io` (site
 ``snapshot_io``): transient storage hiccups back off and retry.
@@ -140,18 +152,36 @@ def _host(v, ready=None):
 
 
 def _process_count() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return int(torch.distributed.get_world_size())
-    return 1
+    from photon_tpu_torch.parallel.mesh import distributed_client
+
+    c = distributed_client()
+    return 1 if c is None else int(c["world"])
 
 
-def _check_single_process() -> None:
-    """The reference's pre-manifest barrier stamps a multi-process commit;
-    one process needs none."""
+def _process_index() -> int:
+    from photon_tpu_torch.parallel.mesh import distributed_client
+
+    c = distributed_client()
+    return 0 if c is None else int(c["rank"])
+
+
+def _barrier(tag: str) -> None:
+    """A commit barrier: a no-op for one process; else every rank waits
+    for all, within ``PHOTON_TPU_BARRIER_TIMEOUT_S`` — a dead or late
+    peer RAISES here (`parallel.mesh.cluster_barrier`), so a
+    half-written snapshot fails the commit loudly and the previous
+    manifest stays the restore point."""
     if _process_count() > 1:
-        raise NotImplementedError(
-            "multi-process snapshot commits (the barrier-stamped manifest) "
-            "are not ported yet (ROADMAP queue A item 10)")
+        from photon_tpu_torch.parallel.mesh import cluster_barrier
+
+        cluster_barrier(tag)
+
+
+def _per_process(key: str) -> bool:
+    """A slot-keyed row-cache entry (``<prefix>@s<slot>``), written by the
+    process that owns the slot; every other entry is replicated and
+    written by rank 0 alone."""
+    return "@s" in key
 
 
 def _write_fsync(path: str, data: bytes) -> None:
@@ -207,19 +237,23 @@ class SnapshotStore:
     # -------------------------------------------------------------- commit
     def commit(self, state: dict, seq: int, meta: Optional[dict] = None,
                schema: Optional[int] = None, ready=None) -> str:
-        """Write snapshot ``seq`` and commit it via the manifest pointer.
-        ``ready``: a CUDA event after which the state's device tensors
-        hold their values. Returns the snapshot directory's name."""
+        """Write snapshot ``seq`` and commit it via the manifest pointer
+        (multi-process: every rank its payloads, rank 0 the manifest after
+        the barrier). ``ready``: a CUDA event after which the state's
+        device tensors hold their values. Returns the snapshot
+        directory's name."""
         from photon_tpu_torch.checkpoint.state import SCHEMA_VERSION
 
-        _check_single_process()
         schema = SCHEMA_VERSION if schema is None else int(schema)
         name = f"snap_{seq:08d}"
         snap_dir = os.path.join(self.root, name)
-        proc = 0
-        if os.path.isdir(snap_dir):
-            # leftovers of a dead uncommitted attempt at this seq
+        proc = _process_index()
+        if proc == 0 and os.path.isdir(snap_dir):
+            # leftovers of a dead uncommitted attempt at this seq — other
+            # ranks' payloads (of any process count) included
             shutil.rmtree(snap_dir, ignore_errors=True)
+        # nobody writes until rank 0's sweep is done
+        _barrier(f"photon_ckpt_begin_{seq}")
         os.makedirs(snap_dir, exist_ok=True)
 
         entries: dict = {}
@@ -231,6 +265,8 @@ class SnapshotStore:
                 payload = state[path]
                 entry: dict = {}
                 for key in sorted(payload):
+                    if proc and not _per_process(key):
+                        continue  # replicated: rank 0 writes it
                     v = _host(payload[key], ready)
                     if isinstance(v, np.ndarray):
                         fname = f"p{proc}_{idx:05d}.npy"
@@ -258,13 +294,15 @@ class SnapshotStore:
             # THE mid-write kill window: payloads durable, pointer not yet
             # moved — a death here must restore from the PREVIOUS manifest.
             faults.kill_point("snapshot_write")
-            manifest = {"format": _FORMAT, "schema": schema, "seq": seq,
-                        "latest": name}
-            faults.retry_io(
-                lambda: commit_bytes(self._manifest_path(),
-                                     json.dumps(manifest).encode()),
-                site="snapshot_io")
-            self._gc(keep_name=name)
+            _barrier(f"photon_ckpt_commit_{seq}")
+            if proc == 0:
+                manifest = {"format": _FORMAT, "schema": schema, "seq": seq,
+                            "latest": name}
+                faults.retry_io(
+                    lambda: commit_bytes(self._manifest_path(),
+                                         json.dumps(manifest).encode()),
+                    site="snapshot_io")
+                self._gc(keep_name=name)
         telemetry.count("checkpoint.snapshots")
         telemetry.count("checkpoint.bytes", n_bytes)
         telemetry.count("checkpoint.commit_seconds",

@@ -587,7 +587,8 @@ def save_ladder(root, key: str, cb) -> str:
     """Commit a finished blocked-ELL ChunkedBatch (the
     `data.dataset.chunk_blocked_ell` output) as a ``ladder`` entry —
     layout construction happens once, every later run mmap-opens it."""
-    from photon_tpu_torch.data.matrix import BlockedEllRows
+    from photon_tpu_torch.data.matrix import (BlockedEllRows,
+                                              ShardedBlockedEllRows)
 
     X = cb.X
     w = ChunkCacheWriter(root, key, "ladder", meta={
@@ -604,7 +605,7 @@ def save_ladder(root, key: str, cb) -> str:
         w.add_array("inv_perm", _np_of(X.inv_perm)[0])
     chunk_meta = []
     for i, c in enumerate(X.chunks):
-        if not isinstance(c, BlockedEllRows):
+        if not isinstance(c, (BlockedEllRows, ShardedBlockedEllRows)):
             raise TypeError(
                 "save_ladder expects blocked-ELL chunks (build them with "
                 "data.dataset.chunk_blocked_ell)")
@@ -621,7 +622,8 @@ def open_ladder(root, key: str, mmap: bool = True,
     """Reopen a committed ``ladder`` entry as a ChunkedBatch (chunks as
     pinned host tensors when a GPU is present), or None on a miss."""
     from photon_tpu_torch.data.dataset import ChunkedBatch, ChunkedMatrix
-    from photon_tpu_torch.data.matrix import BlockedEllRows
+    from photon_tpu_torch.data.matrix import (BlockedEllRows,
+                                              ShardedBlockedEllRows)
 
     bag = open_cache(root, key, "ladder", mmap=mmap, verify=verify)
     if bag is None:
@@ -631,7 +633,8 @@ def open_ladder(root, key: str, mmap: bool = True,
     if "perm_cols" in names:
         shared = {n: torch.from_numpy(np.array(bag.array(n)))
                   for n in _SHARED}
-    classes = {"BlockedEllRows": BlockedEllRows}
+    classes = {"BlockedEllRows": BlockedEllRows,
+               "ShardedBlockedEllRows": ShardedBlockedEllRows}
     chunks = tuple(
         _join_dataclass(classes[cm["cls"]], bag, f"c{i:05d}.",
                         cm["fields"], shared)

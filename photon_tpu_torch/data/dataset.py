@@ -13,8 +13,15 @@ host in uniform row chunks (pinned, when a GPU is present, so an upload
 is an asynchronous DMA) and streams through the device one chunk at a
 time (`DeviceChunkRing`), so the device holds a couple of chunks plus
 solver state; its depth may follow a stall-driven controller
-(`data.ingest_plane.AdaptivePrefetch`). Its mesh form waits for ROADMAP
-queue A item 10.
+(`data.ingest_plane.AdaptivePrefetch`).
+
+On a mesh (`parallel.mesh.Mesh`) a batch is row-sharded over the slots:
+`mesh_batch` lays a resident batch out (X as a `SlotRows`, the scalar
+columns as this process's rows), `shard_blocked_ell_batch` builds the
+blocked-ELL layout for S shards under one column permutation, and a
+`ChunkedBatch` streams every chunk row-sharded over the local slots
+(`MeshChunkRing`; a blocked-ELL ladder laid for the mesh by
+`chunk_blocked_ell(n_shards=S)`).
 """
 from __future__ import annotations
 
@@ -29,9 +36,12 @@ import torch
 
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.checkpoint.faults import kill_point
-from photon_tpu_torch.data.matrix import (BlockedEllRows, SparseRows,
+from photon_tpu_torch.data.matrix import (BlockedEllRows,
+                                          ShardedBlockedEllRows, SparseRows,
                                           as_tensor, shard_blocked_ell)
 from photon_tpu_torch.device import resolve_device
+from photon_tpu_torch.parallel.mesh import (SlotRows, _slot_slice,
+                                            pad_to_multiple, shard_rows)
 
 
 class GLMBatch(NamedTuple):
@@ -60,7 +70,13 @@ def _f32(a, device) -> torch.Tensor:
 def make_batch(X, y, weights=None, offsets=None, device=None) -> GLMBatch:
     """A batch on ``device`` (default ``cuda``). A dense X from numpy
     arrives as f32; a floating tensor keeps its storage dtype; layouts
-    move as they are."""
+    move as they are. A row-sharded X (`SlotRows`, e.g. from
+    `stream_to_device(mesh=...)`) stays on its mesh, and takes its
+    columns row-sharded over the same mesh — the weights given (only the
+    producer knows which rows are padding), the offsets zero by
+    default."""
+    if isinstance(X, SlotRows):
+        return _slot_batch_of(X, y, weights, offsets)
     dev = resolve_device(device)
     y = _f32(y, dev)
     n = int(y.shape[0])
@@ -77,11 +93,27 @@ def make_batch(X, y, weights=None, offsets=None, device=None) -> GLMBatch:
     return GLMBatch(X, y, weights, offsets)
 
 
+def _slot_batch_of(X: SlotRows, y, weights, offsets) -> GLMBatch:
+    if weights is None:
+        raise ValueError("a row-sharded batch needs its weights (0 on the "
+                         "padding rows its producer added)")
+    if offsets is None:
+        offsets = SlotRows(X.mesh, tuple(
+            torch.zeros(X.rows_per_slot, dtype=torch.float32, device=d)
+            for d in X.mesh.slot_devices), X.rows_per_slot)
+    for v in (y, weights, offsets):
+        if not isinstance(v, SlotRows) or v.mesh is not X.mesh:
+            raise ValueError("a row-sharded X takes its scalar columns "
+                             "row-sharded over the same mesh")
+    return GLMBatch(X, y, weights, offsets)
+
+
 def pad_batch(batch: GLMBatch, target_n: int) -> GLMBatch:
     """The batch grown to ``target_n`` rows with zero-weight padding rows
     (zero features, label, weight and offset), which every reduction
-    ignores. A `BlockedEllRows` grows its hot block, and the new rows'
-    ``row_pos`` point at the zero slot (no tail)."""
+    ignores — e.g. to a multiple of a mesh's slot count. A
+    `BlockedEllRows` grows its hot block, and the new rows' ``row_pos``
+    point at the zero slot (no tail)."""
     n = batch.n
     if target_n == n:
         return batch
@@ -89,6 +121,10 @@ def pad_batch(batch: GLMBatch, target_n: int) -> GLMBatch:
         raise ValueError(f"cannot pad {n} rows down to {target_n}")
     extra = target_n - n
     X = batch.X
+    if isinstance(X, (ShardedBlockedEllRows, SlotRows)):
+        raise ValueError(
+            "cannot pad a sharded batch (its per-shard layouts are laid "
+            "out already); pad before shard_blocked_ell_batch / mesh_batch")
 
     def grow(t, fill=0):
         pad = torch.full((extra,) + tuple(t.shape[1:]), fill, dtype=t.dtype,
@@ -107,6 +143,82 @@ def pad_batch(batch: GLMBatch, target_n: int) -> GLMBatch:
                     grow(batch.offsets))
 
 
+def shard_blocked_ell_batch(batch: GLMBatch, n_shards: int,
+                            d_dense: int = 1024,
+                            device_dense_dtype=None) -> GLMBatch:
+    """Pad a `SparseRows` batch to the mesh and re-lay its X, on the host,
+    as a `ShardedBlockedEllRows` for ``n_shards`` slots (reference:
+    `shard_blocked_ell_batch`): each slot gets its own ELL row buckets and
+    occurrence buckets under ONE global column permutation, so a mesh
+    solve (`train_glm(mesh=)`, through `mesh_batch`) runs the blocked-ELL
+    kernels on every slot's shard and closes each evaluation with one
+    reduction. ``device_dense_dtype`` (e.g. ``torch.bfloat16``) recasts
+    the hot block's storage."""
+    X = batch.X
+    if not isinstance(X, SparseRows):
+        raise TypeError("shard_blocked_ell_batch expects SparseRows")
+    n_pad = pad_to_multiple(batch.n, n_shards)
+    host = GLMBatch(SparseRows(_cpu(X.indices), _cpu(X.values),
+                               X.n_features),
+                    _cpu(batch.y), _cpu(batch.weights), _cpu(batch.offsets))
+    host = pad_batch(host, n_pad)
+    sb = shard_blocked_ell(host.X, n_shards, d_dense)
+    if device_dense_dtype is not None:
+        sb = dataclasses.replace(sb, dense=sb.dense.to(device_dense_dtype))
+    return host._replace(X=sb)
+
+
+def mesh_batch(batch: GLMBatch, mesh) -> GLMBatch:
+    """The solve form of ``batch`` on ``mesh``: X row-sharded over the
+    slots (a `SlotRows`: dense rows, `SparseRows`, or a
+    `ShardedBlockedEllRows`' shards as one `BlockedEllRows` per slot),
+    rows padded with weight 0 to a multiple of the slot count, and the
+    scalar columns as this process's rows, slot-major, on the home
+    device — the layout the objective's per-slot row sums and the mesh's
+    one reduction per evaluation read. A batch already row-sharded
+    (`SlotRows` X, its columns row-sharded or in this solve form) keeps
+    its shards. A single-device `BlockedEllRows` cannot be row-sharded
+    (its buckets are laid for all rows); build the mesh form with
+    `shard_blocked_ell_batch`."""
+    X = batch.X
+    if isinstance(X, SlotRows):
+        if X.mesh is not mesh:
+            raise ValueError("the batch is row-sharded over another mesh")
+        cols = []
+        for c in (batch.y, batch.weights, batch.offsets):
+            if isinstance(c, SlotRows):
+                c = c.local()
+            elif not (isinstance(c, torch.Tensor) and c.device == mesh.home
+                      and c.shape[0] == X.n_local_rows):
+                raise ValueError("a row-sharded X takes row-sharded scalar "
+                                 "columns")
+            cols.append(c)
+        return GLMBatch(X, *cols)
+    if isinstance(X, BlockedEllRows):
+        raise ValueError(
+            "BlockedEllRows is a single-device representation (its buckets "
+            "cannot be row-sharded); use the mesh form "
+            "(data.dataset.shard_blocked_ell_batch(batch, "
+            f"{mesh.n_slots})) under a mesh")
+    if isinstance(X, ShardedBlockedEllRows):
+        if X.n_shards != mesh.n_slots:
+            raise ValueError(
+                f"ShardedBlockedEllRows has {X.n_shards} shards but the "
+                f"mesh has {mesh.n_slots} slots; rebuild with "
+                f"data.dataset.shard_blocked_ell_batch(batch, "
+                f"{mesh.n_slots})")
+        n_pad = int(X.dense.shape[0])
+        Xs = SlotRows(mesh, tuple(
+            X.chunk(j).to(dev)
+            for j, dev in zip(mesh.local_slots, mesh.slot_devices)),
+            X.n_local)
+    else:
+        n_pad = pad_to_multiple(batch.n, mesh.n_slots)
+        Xs = shard_rows(X, mesh, pad_rows=n_pad)
+    return GLMBatch(Xs, *(shard_rows(c, mesh, pad_rows=n_pad).local()
+                          for c in (batch.y, batch.weights, batch.offsets)))
+
+
 def with_offsets(batch: GLMBatch, offsets) -> GLMBatch:
     """The batch with new (n,) offsets (f32, on the batch's device)."""
     return batch._replace(offsets=_f32(offsets, batch.y.device))
@@ -122,7 +234,7 @@ def cast_features(batch: GLMBatch, dtype=torch.bfloat16) -> GLMBatch:
     multiply in that dtype and accumulate in f32; labels, weights,
     offsets and all solver state stay f32."""
     X = batch.X
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, (BlockedEllRows, ShardedBlockedEllRows)):
         X = X.astype(dtype)
     elif isinstance(X, SparseRows):
         X = SparseRows(X.indices, X.values.to(dtype), X.n_features)
@@ -138,12 +250,6 @@ def cast_features(batch: GLMBatch, dtype=torch.bfloat16) -> GLMBatch:
 # lives in one executor's memory; Spark partitions stream through each
 # treeAggregate. Here the dataset lives on the host in uniform row chunks
 # and streams through the device chunk by chunk.
-
-
-def _mesh_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: mesh (multi-device) chunk streams are not ported yet "
-        "(ROADMAP queue A item 10)")
 
 
 def _pin(t: torch.Tensor) -> torch.Tensor:
@@ -162,9 +268,16 @@ def _cpu(a) -> torch.Tensor:
 
 
 def _map_leaves(X, fn):
-    """``X`` (a dense tensor, `SparseRows` or `BlockedEllRows`) with ``fn``
-    applied to each per-chunk tensor (the column permutation, shared by
-    every chunk of a ladder, kept as it is)."""
+    """``X`` (a dense tensor, `SparseRows`, `BlockedEllRows` or a mesh
+    ladder's `ShardedBlockedEllRows`) with ``fn`` applied to each
+    per-chunk tensor (the column permutation, shared by every chunk of a
+    ladder, kept as it is)."""
+    if isinstance(X, ShardedBlockedEllRows):
+        return dataclasses.replace(
+            X, dense=fn(X.dense), ell_pcols=tuple(map(fn, X.ell_pcols)),
+            ell_vals=tuple(map(fn, X.ell_vals)), row_pos=fn(X.row_pos),
+            bucket_rows=tuple(map(fn, X.bucket_rows)),
+            bucket_vals=tuple(map(fn, X.bucket_vals)))
     if isinstance(X, BlockedEllRows):
         return dataclasses.replace(
             X, dense=fn(X.dense), ell_pcols=tuple(map(fn, X.ell_pcols)),
@@ -228,6 +341,14 @@ class ChunkedMatrix:
         return self.n_chunks * self.chunk_rows
 
     @property
+    def chunk_shards(self) -> int:
+        """Mesh slots each chunk was laid for: >1 iff the chunks are
+        `ShardedBlockedEllRows` groups of a mesh ladder
+        (`chunk_blocked_ell(..., n_shards=S)`), else 1."""
+        c = self.chunks[0]
+        return c.n_shards if isinstance(c, ShardedBlockedEllRows) else 1
+
+    @property
     def shape(self) -> tuple:
         return (self.n_real, self.n_features)
 
@@ -275,25 +396,89 @@ class ChunkedBatch(NamedTuple):
                         torch.from_numpy(self.weights[sl]),
                         torch.from_numpy(self.offsets[sl]))
 
-    def mesh_chunk(self, i: int, mesh, _cache=None):
-        raise _mesh_not_ported("ChunkedBatch.mesh_chunk")
+    def mesh_chunk_rows(self, mesh) -> int:
+        """Per-chunk row count after padding to the mesh (every chunk pads
+        to the same height)."""
+        return pad_to_multiple(self.X.chunk_rows, mesh.n_slots)
+
+    def _check_mesh(self, mesh) -> None:
+        cs = self.X.chunk_shards
+        if cs > 1 and cs != mesh.n_slots:
+            raise ValueError(
+                f"blocked-ELL chunk ladder was laid for {cs} slot(s) but "
+                f"the mesh has {mesh.n_slots}; rebuild with data.dataset."
+                f"chunk_blocked_ell(batch, chunk_rows, "
+                f"n_shards={mesh.n_slots})")
+        if cs == 1 and self.X.permuted:
+            raise ValueError(
+                "this blocked-ELL chunk ladder was laid for ONE device per "
+                "chunk and cannot row-shard over a mesh; rebuild it for the "
+                "mesh with data.dataset.chunk_blocked_ell(batch, chunk_rows, "
+                f"n_shards={mesh.n_slots}), or stream SparseRows chunks")
+
+    def slot_batch(self, mesh, slot: int) -> "ChunkedBatch":
+        """Global slot ``slot``'s rows of every chunk as a ChunkedBatch of
+        its own — rows ``[slot·s, (slot+1)·s)`` of each chunk padded to
+        `mesh_chunk_rows` (pad rows weight 0), or shard ``slot`` of each
+        mesh-ladder chunk: the per-slot stream `MeshChunkRing` uploads
+        onto the slot's device. Views where the rows divide evenly."""
+        self._check_mesh(mesh)
+        c = self.X.chunk_rows
+        s = self.mesh_chunk_rows(mesh) // mesh.n_slots
+        if self.X.chunk_shards > 1:
+            chunks = tuple(_map_leaves(ch.chunk(slot), _pin)
+                           for ch in self.X.chunks)
+        else:
+            chunks = tuple(_map_leaves(
+                ch, lambda t: _pin(_slot_slice(t, slot, s, c).contiguous()))
+                for ch in self.X.chunks)
+
+        def col(v):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+            return np.concatenate([
+                _slot_slice(v[i * c:(i + 1) * c], slot, s, c).numpy()
+                for i in range(self.n_chunks)])
+
+        X = dataclasses.replace(self.X, chunks=chunks,
+                                n_real=self.n_chunks * s)
+        return ChunkedBatch(X, col(self.y), col(self.weights),
+                            col(self.offsets))
+
+    def mesh_chunk(self, i: int, mesh, _cache=None) -> GLMBatch:
+        """Chunk ``i`` row-sharded over the mesh (`SlotRows` X and scalar
+        columns, this process's slots only; pad rows weight 0) — one
+        upload, no ring (the streamed solvers use `device_ring`)."""
+        self._check_mesh(mesh)
+        pad = self.mesh_chunk_rows(mesh)
+        X = self.X.chunks[i]
+        if isinstance(X, ShardedBlockedEllRows):
+            Xs = mesh_chunk_matrix(X, mesh, _cache)
+        else:
+            Xs = shard_rows(X, mesh, pad_rows=pad)
+        c = self.X.chunk_rows
+        sl = slice(i * c, (i + 1) * c)
+        return GLMBatch(Xs, *(shard_rows(v[sl], mesh, pad_rows=pad)
+                              for v in (self.y, self.weights, self.offsets)))
 
     def iter_device(self, device=None, mesh=None, prefetch=2):
         """Yield (i, device GLMBatch) for one pass, ``prefetch`` chunks in
         flight (the one-pass form of `device_ring`: nothing is uploaded
         past the last chunk). Each yielded chunk is valid until the
-        caller asks for the next ``prefetch`` - 1 chunks."""
+        caller asks for the next ``prefetch`` - 1 chunks. With ``mesh``,
+        each yield is the chunk as one device batch per local slot."""
         if mesh is not None:
-            raise _mesh_not_ported("ChunkedBatch.iter_device(mesh=...)")
+            yield from MeshChunkRing(self, mesh, prefetch).stream_pass(
+                prime=False)
+            return
         ring = DeviceChunkRing(self, device=device, prefetch=prefetch)
         yield from ring.stream_pass(prime=False)
 
-    def device_ring(self, device=None, mesh=None,
-                    prefetch=2) -> "DeviceChunkRing":
+    def device_ring(self, device=None, mesh=None, prefetch=2):
         """A persistent cross-pass upload ring over this dataset's chunks
-        (see `DeviceChunkRing`), the streamed solvers' regime."""
+        (see `DeviceChunkRing`; `MeshChunkRing` with ``mesh``), the
+        streamed solvers' regime."""
         if mesh is not None:
-            raise _mesh_not_ported("ChunkedBatch.device_ring(mesh=...)")
+            return MeshChunkRing(self, mesh, prefetch)
         return DeviceChunkRing(self, device=device, prefetch=prefetch)
 
 
@@ -336,14 +521,24 @@ class DeviceChunkRing:
     controller caps the depth at its byte budget over one chunk's bytes);
     when it narrows, the window drains to the new depth. An upload takes
     a slot that is neither in flight nor held, so results are bit for bit
-    the same at every depth."""
+    the same at every depth. ``_quiet`` (a `MeshChunkRing`'s per-slot
+    rings) leaves the fault site, the counters and the controller's
+    `observe` to the owner."""
 
-    def __init__(self, batch: ChunkedBatch, device=None, prefetch=2):
+    def __init__(self, batch: ChunkedBatch, device=None, prefetch=2,
+                 _quiet: bool = False):
         self.batch = batch
+        self._quiet = _quiet
         self._ctl = prefetch if hasattr(prefetch, "observe") else None
         self._static = 2 if self._ctl is not None else max(int(prefetch), 1)
         self.device = resolve_device(device)
         c0 = batch.X.chunks[0]
+        if isinstance(c0, ShardedBlockedEllRows):
+            raise ValueError(
+                f"this blocked-ELL chunk ladder was laid for a "
+                f"{c0.n_shards}-slot mesh (chunk_blocked_ell(n_shards=...)); "
+                "stream it over the mesh (device_ring(mesh=...)), or rebuild "
+                "with n_shards=1 for one device")
         if isinstance(c0, BlockedEllRows) and c0.tail_rows is None:
             raise ValueError(
                 "blocked-ELL chunks need their inverse map tail_rows (a "
@@ -459,7 +654,8 @@ class DeviceChunkRing:
                 _, held, ev = self._window.popleft()
                 # fault site: a preemption mid-upload-stream (one hit per
                 # consumed chunk, in `iter_device`'s passes too)
-                kill_point("chunk_upload")
+                if not self._quiet:
+                    kill_point("chunk_upload")
                 t0 = time.perf_counter()
                 if ev is not None:
                     ev.synchronize()
@@ -481,20 +677,98 @@ class DeviceChunkRing:
                 # pass starts clean at chunk 0
                 self._window.clear()
                 self._next = 0
-            compute = (time.perf_counter() - t_start) - stall
-            telemetry.count("stream.passes")
-            telemetry.count("stream.chunk_uploads", n)
-            telemetry.count("stream.stall_seconds", stall)
-            telemetry.count("stream.compute_seconds", max(compute, 0.0))
-            telemetry.gauge("stream.prefetch_depth", depth)
-            if ok and self._ctl is not None:
-                self._ctl.observe(stall, max(compute, 0.0), n,
-                                  self.batch.X.chunk_nbytes())
-            _log_stream_stall(stall, compute, n, depth)
+            if not self._quiet:
+                _pass_done(self._ctl, ok, stall,
+                           (time.perf_counter() - t_start) - stall, n, depth,
+                           self.batch.X.chunk_nbytes())
 
 
-def mesh_chunk_matrix(X, mesh, _cache=None):
-    raise _mesh_not_ported("mesh_chunk_matrix")
+def _pass_done(ctl, ok: bool, stall: float, compute: float, n: int,
+               depth: int, chunk_nbytes: int) -> None:
+    """A ring pass's counters, its controller's `observe` (a whole pass
+    only) and the stall log line."""
+    telemetry.count("stream.passes")
+    telemetry.count("stream.chunk_uploads", n)
+    telemetry.count("stream.stall_seconds", stall)
+    telemetry.count("stream.compute_seconds", max(compute, 0.0))
+    telemetry.gauge("stream.prefetch_depth", depth)
+    if ok and ctl is not None:
+        ctl.observe(stall, max(compute, 0.0), n, chunk_nbytes)
+    _log_stream_stall(stall, compute, n, depth)
+
+
+class MeshChunkRing:
+    """The upload ring of a mesh stream: one `DeviceChunkRing` per LOCAL
+    slot, over that slot's rows of every chunk (`ChunkedBatch.
+    slot_batch`), onto the slot's device. A ring slot thus holds one
+    chunk row-sharded over the local slots, and the kernels' plans are
+    built once per (ring slot, mesh slot), never per upload.
+    `stream_pass` yields ``(i, [device chunk per local slot])`` with one
+    ``chunk_upload`` fault site per chunk and the single ring's counters
+    (its stall the waits for all slots' uploads)."""
+
+    def __init__(self, batch: ChunkedBatch, mesh, prefetch=2):
+        self.batch, self.mesh = batch, mesh
+        self._ctl = prefetch if hasattr(prefetch, "observe") else None
+        self.rings = [DeviceChunkRing(batch.slot_batch(mesh, j), device=dev,
+                                      prefetch=prefetch, _quiet=True)
+                      for j, dev in zip(mesh.local_slots, mesh.slot_devices)]
+
+    @property
+    def depth(self) -> int:
+        return self.rings[0].depth
+
+    def host_columns(self, k: int, i: int) -> list:
+        """Local slot ``k``'s (y, weights, offsets) rows of chunk ``i``."""
+        return self.rings[k].host_columns(i)
+
+    def stream_pass(self, prime: bool = True):
+        n = self.batch.n_chunks
+        if n == 0:
+            return
+        depth = self.depth
+        gens = [r.stream_pass(prime) for r in self.rings]
+        stall, ok = 0.0, False
+        t_start = time.perf_counter()
+        try:
+            for i in range(n):
+                t0 = time.perf_counter()
+                chunk = [next(g)[1] for g in gens]
+                stall += time.perf_counter() - t0
+                kill_point("chunk_upload")
+                yield i, chunk
+            for g in gens:  # each ring primes its next pass
+                next(g, None)
+            ok = True
+        finally:
+            for g in gens:
+                g.close()
+            _pass_done(self._ctl, ok, stall,
+                       (time.perf_counter() - t_start) - stall, n, depth,
+                       self.batch.X.chunk_nbytes())
+
+
+def mesh_chunk_matrix(X, mesh, _cache=None) -> SlotRows:
+    """One mesh-ladder chunk (a host `ShardedBlockedEllRows`) onto the
+    mesh: shard ``j`` to local slot ``j`` as a `BlockedEllRows` on its
+    device, the ladder's one column permutation uploaded once per device
+    (``_cache``: a dict kept across the chunks of a pass)."""
+    if not isinstance(X, ShardedBlockedEllRows):
+        raise TypeError("mesh_chunk_matrix expects ShardedBlockedEllRows")
+    if X.n_shards != mesh.n_slots:
+        raise ValueError(
+            f"blocked-ELL chunk ladder was laid for {X.n_shards} slot(s) "
+            f"but the mesh has {mesh.n_slots}; rebuild with data.dataset."
+            f"chunk_blocked_ell(batch, chunk_rows, n_shards={mesh.n_slots})")
+    cache = {} if _cache is None else _cache
+    parts = []
+    for j, dev in zip(mesh.local_slots, mesh.slot_devices):
+        if dev not in cache:
+            cache[dev] = (X.perm_cols.to(dev), X.inv_perm.to(dev))
+        b = _map_leaves(X.chunk(j), lambda t, d=dev: t.to(d))
+        parts.append(dataclasses.replace(b, perm_cols=cache[dev][0],
+                                         inv_perm=cache[dev][1]))
+    return SlotRows(mesh, tuple(parts), X.n_local)
 
 
 def _log_stream_stall(stall: float, compute: float, n_chunks: int,
@@ -602,8 +876,14 @@ def chunk_blocked_ell(batch: GLMBatch, chunk_rows: int, d_dense: int = 1024,
     boundary. ``feature_dtype`` (e.g. ``torch.bfloat16``) recasts every
     chunk's values after the build (half the feature bytes a pass
     uploads; f32 accumulation unchanged). Chunks are pinned when a GPU is
-    present. ``n_shards > 1`` (a ladder laid for a mesh) waits for ROADMAP
-    queue A item 10."""
+    present.
+
+    ``n_shards > 1`` lays the ladder for a mesh of that many slots: the
+    builder runs with S = n_chunks × n_shards and each chunk is the
+    `ShardedBlockedEllRows` group of its ``n_shards`` consecutive shards,
+    so every chunk row-shards over the mesh (`MeshChunkRing`) with
+    per-slot buckets under ONE global permutation. ``chunk_rows`` must be
+    a multiple of ``n_shards``."""
     X = batch.X
     if not isinstance(X, SparseRows):
         raise TypeError("chunk_blocked_ell expects SparseRows")
@@ -611,8 +891,11 @@ def chunk_blocked_ell(batch: GLMBatch, chunk_rows: int, d_dense: int = 1024,
         raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-    if n_shards > 1:
-        raise _mesh_not_ported(f"chunk_blocked_ell(n_shards={n_shards})")
+    if chunk_rows % n_shards:
+        raise ValueError(
+            f"chunk_rows={chunk_rows} must be a multiple of "
+            f"n_shards={n_shards} (every slot streams an equal row slice "
+            "of every chunk)")
     n = batch.n
     n_pad = -(-max(n, 1) // chunk_rows) * chunk_rows
     ind = _cpu(X.indices).numpy()
@@ -621,16 +904,23 @@ def chunk_blocked_ell(batch: GLMBatch, chunk_rows: int, d_dense: int = 1024,
         k = ind.shape[1]
         ind = np.concatenate([ind, np.zeros((n_pad - n, k), ind.dtype)])
         val = np.concatenate([val, np.zeros((n_pad - n, k), val.dtype)])
+    n_chunks = n_pad // chunk_rows
     ladder = shard_blocked_ell(SparseRows(ind, val, X.n_features),
-                               n_pad // chunk_rows, d_dense)
+                               n_chunks * n_shards, d_dense)
 
     def finish(t):
         if feature_dtype is not None and t.is_floating_point():
             t = t.to(feature_dtype)
         return _pin(t.contiguous())
 
-    chunks = tuple(_map_leaves(ladder.chunk(i), finish)
-                   for i in range(n_pad // chunk_rows))
+    if n_shards == 1:
+        chunks = tuple(_map_leaves(ladder.chunk(i), finish)
+                       for i in range(n_chunks))
+    else:
+        chunks = tuple(_map_leaves(ladder.shard_slice(i * n_shards,
+                                                      (i + 1) * n_shards),
+                                   finish)
+                       for i in range(n_chunks))
     cm = ChunkedMatrix(chunks, n, X.n_features,
                        perm_cols=ladder.perm_cols, inv_perm=ladder.inv_perm,
                        last_col_pos=ladder.last_col_pos)

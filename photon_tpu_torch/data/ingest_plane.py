@@ -650,8 +650,8 @@ def chunk_blocked_ell_from_avro(
     per-chunk ELL/occurrence bucketing of `data.dataset.chunk_blocked_ell`)
     runs once, off the training critical path — a cache hit mmap-opens
     the ladder and touches neither Avro nor the builder. ``feature_dtype``
-    is a torch dtype or its name; ``n_shards > 1`` (a ladder laid for a
-    mesh) waits for ROADMAP queue A item 10."""
+    is a torch dtype or its name; ``n_shards > 1`` lays the ladder for a
+    mesh of that many slots (`data.dataset.chunk_blocked_ell`)."""
     from photon_tpu_torch.data import chunk_cache as cc
     from photon_tpu_torch.data.dataset import GLMBatch, chunk_blocked_ell
     from photon_tpu_torch.data.matrix import SparseRows

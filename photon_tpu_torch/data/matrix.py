@@ -32,6 +32,7 @@ import torch
 
 from photon_tpu_torch import kernels as K
 from photon_tpu_torch.kernels import blocked_ell as KB
+from photon_tpu_torch.parallel.mesh import SlotParts, SlotRows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,8 +408,9 @@ class ShardedBlockedEllRows:
     occurrence buckets take the largest per-shard occurrence count, and
     ``row_pos`` is (S, n_local) with LOCAL concatenation positions. It is
     the form a streamed chunk ladder is cut from (`chunk`,
-    `data.dataset.chunk_blocked_ell`); its mesh form (a shard per device)
-    waits for ROADMAP queue A item 10."""
+    `data.dataset.chunk_blocked_ell`), and a mesh's: shard ``j`` goes to
+    slot ``j`` as its own `BlockedEllRows` (`data.dataset.mesh_batch`,
+    `mesh_chunk_matrix`)."""
 
     dense: torch.Tensor        # (n, d_sel) hot block, global rows
     ell_pcols: tuple           # per width bucket: (S, r_b, W_b) int32
@@ -426,6 +428,10 @@ class ShardedBlockedEllRows:
     @property
     def n_shards(self) -> int:
         return int(self.row_pos.shape[0])
+
+    @property
+    def shape(self):
+        return (self.dense.shape[0], self.n_features)
 
     @property
     def n_local(self) -> int:
@@ -465,6 +471,14 @@ class ShardedBlockedEllRows:
             row_pos=self.row_pos[lo:hi],
             bucket_rows=tuple(b[lo:hi] for b in self.bucket_rows),
             bucket_vals=tuple(b[lo:hi] for b in self.bucket_vals))
+
+    def astype(self, dtype) -> "ShardedBlockedEllRows":
+        """Every value leaf of every shard in ``dtype``, as
+        `BlockedEllRows.astype`."""
+        return dataclasses.replace(
+            self, dense=self.dense.to(dtype),
+            ell_vals=tuple(v.to(dtype) for v in self.ell_vals),
+            bucket_vals=tuple(v.to(dtype) for v in self.bucket_vals))
 
 
 def _sharded_occurrence_buckets(loc_rows, t_vals, rank_nnz, s_ids, S, e,
@@ -712,12 +726,43 @@ def _sparse_rmatvec(X: SparseRows, r: torch.Tensor,
     return segment_sums(plan, v[:, None] * rr if r.dim() == 2 else v * rr)
 
 
+def _slot_matvec(X: SlotRows, w: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` (a row pass) of every local slot's shard on its own device
+    (w copied there once per device), the margins assembled in slot order
+    on the home device: (n_local,) or (n_local, G)."""
+    mesh, s = X.mesh, X.rows_per_slot
+    out = torch.empty((X.n_local_rows,) + tuple(w.shape[1:]),
+                      dtype=torch.float32, device=mesh.home)
+    on: dict = {}
+    for k, (part, dev) in enumerate(zip(X.parts, mesh.slot_devices)):
+        if dev not in on:
+            on[dev] = w.to(dev)
+        out[k * s:(k + 1) * s] = fn(part, on[dev])
+    return out
+
+
+def _slot_rmatvec(X: SlotRows, r, fn) -> SlotParts:
+    """``fn`` (a transpose pass) of every local slot's shard against its
+    rows of ``r`` (the local rows, slot-major, on the home device, or one
+    tensor per slot — `ops.objective.slot_map`'s): one partial per slot,
+    left on its device for the evaluation's one reduction
+    (`parallel.mesh.psum`)."""
+    s = X.rows_per_slot
+    if not isinstance(r, SlotParts):
+        r = [r[k * s:(k + 1) * s] for k in range(len(X.parts))]
+    return SlotParts(fn(part, rk.to(dev)) for part, dev, rk in
+                     zip(X.parts, X.mesh.slot_devices, r))
+
+
 def matvec(X, w: torch.Tensor) -> torch.Tensor:
     """X @ w -> (n,) f32, the GLM margin (w (d, G) gives (n, G)).
 
     Dense storage multiplies in its own dtype and accumulates in f32.
     Sparse rows gather ``w[indices]`` and take the rowwise dot in f32.
-    `BlockedEllRows` takes w in its permuted space."""
+    `BlockedEllRows` takes w in its permuted space. A row-sharded
+    `SlotRows` gives this process's rows, slot by slot."""
+    if isinstance(X, SlotRows):
+        return _slot_matvec(X, w, matvec)
     if isinstance(X, BlockedEllRows):
         return _bell_matvec(X, w)
     if isinstance(X, SparseRows):
@@ -732,7 +777,10 @@ def matvec(X, w: torch.Tensor) -> torch.Tensor:
 
 def rmatvec(X, r: torch.Tensor) -> torch.Tensor:
     """Xᵀ @ r -> (d,) f32, the gradient aggregation (f32 accumulation,
-    storage-dtype operands as `matvec`; r (n, G) gives (d, G))."""
+    storage-dtype operands as `matvec`; r (n, G) gives (d, G)). A
+    `SlotRows` gives one partial per local slot (`SlotParts`)."""
+    if isinstance(X, SlotRows):
+        return _slot_rmatvec(X, r, rmatvec)
     if isinstance(X, BlockedEllRows):
         return _bell_rmatvec(X, r)
     if isinstance(X, SparseRows):
@@ -763,7 +811,10 @@ def rmatvec_lanes(X, R: torch.Tensor) -> torch.Tensor:
 
 
 def sq_rmatvec(X, r: torch.Tensor) -> torch.Tensor:
-    """(X∘X)ᵀ @ r -> (d,): the Hessian-diagonal building block."""
+    """(X∘X)ᵀ @ r -> (d,): the Hessian-diagonal building block (per-slot
+    partials for a `SlotRows`)."""
+    if isinstance(X, SlotRows):
+        return _slot_rmatvec(X, r, sq_rmatvec)
     if isinstance(X, BlockedEllRows):
         return _bell_rmatvec(X, r, square=True)
     if isinstance(X, SparseRows):
@@ -817,7 +868,9 @@ def weighted_gram(X, r: torch.Tensor) -> torch.Tensor:
     """Xᵀ diag(r) X -> (d, d) f32, for FULL variances on small feature
     spaces. Sparse layouts are densified, so d is capped at
     `MAX_GRAM_FEATURES` (the reference's guard); dense storage is taken in
-    f32 whatever its dtype."""
+    f32 whatever its dtype. A `SlotRows` gives per-slot partials."""
+    if isinstance(X, SlotRows):
+        return _slot_rmatvec(X, r, weighted_gram)
     if isinstance(X, (SparseRows, BlockedEllRows)):
         _gram_too_wide(X, X.n_features)
         rows = _densify(X)

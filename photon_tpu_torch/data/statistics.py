@@ -31,6 +31,8 @@ from photon_tpu_torch.data.matrix import (BlockedEllRows, SparseRows,
                                           as_tensor, segment_plan,
                                           segment_sums)
 from photon_tpu_torch.device import resolve_device
+from photon_tpu_torch.parallel.mesh import (SlotRows, gather_processes,
+                                            shard_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,11 +164,15 @@ class FeatureSummary:
     def compute(X, mesh=None, device=None) -> "FeatureSummary":
         """Summarize a design matrix in one device pass, on the matrix's
         device when it holds tensors, else on ``device`` (default
-        ``cuda``). Meshes wait for ROADMAP queue A item 10."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "FeatureSummary.compute over a mesh is not ported yet "
-                "(ROADMAP queue A item 10)")
+        ``cuda``). With ``mesh`` the rows shard over its slots (or X is
+        row-sharded already, a `SlotRows`), each slot summarizes its own
+        rows, and the partials combine over the mesh (the reference's
+        treeAggregate of summarizers): the sums in one slot-ordered
+        reduction, the extrema in one gather; the row count must divide
+        the slot count (padding rows would enter the minima and the
+        counts)."""
+        if mesh is not None or isinstance(X, SlotRows):
+            return _compute_mesh(X, mesh)
         if isinstance(X, BlockedEllRows):
             raise TypeError(
                 "FeatureSummary.compute takes the original SparseRows/dense "
@@ -187,26 +193,77 @@ class FeatureSummary:
         # small numbers, where the one-pass E[x²]−E[x]² form cancels
         # catastrophically in f32 for large-mean features.
         shift = torch.from_numpy(mean.astype(np.float32)).to(dev)
-        if sparse:
-            ssq = _shifted_ssq_sparse(X, shift).cpu().numpy().astype(
-                np.float64)
-            # stored entries contribute (v−μ)²; the n−nnz implicit zeros
-            # contribute μ² each — no cancellation in either term.
-            var = (ssq + (n - nnz) * mean * mean) / n
-        else:
-            var = _shifted_ssq_dense(X, shift).cpu().numpy().astype(
-                np.float64) / n
-        var = np.maximum(var, 0.0)
-        # Fold implicit zeros into extrema (reference: full-vector summary).
-        has_zero = nnz < n
-        mn = np.where(has_zero, np.minimum(mn, 0.0), mn)
-        mx = np.where(has_zero, np.maximum(mx, 0.0), mx)
-        f64 = partial(np.asarray, dtype=np.float64)
-        return FeatureSummary(
-            count=n, mean=f64(mean), variance=f64(var), minimum=f64(mn),
-            maximum=f64(mx), abs_max=f64(np.maximum(np.abs(mn), np.abs(mx))),
-            norm_l1=f64(l1), norm_l2=f64(np.sqrt(s2)),
-            num_nonzeros=np.asarray(nnz, np.int64))
+        ssq = (_shifted_ssq_sparse(X, shift) if sparse
+               else _shifted_ssq_dense(X, shift))
+        return _finish_summary(n, s1, s2, mn, mx, l1, nnz,
+                               ssq.cpu().numpy().astype(np.float64), sparse)
+
+
+def _finish_summary(n, s1, s2, mn, mx, l1, nnz, ssq,
+                    sparse) -> FeatureSummary:
+    """The summary from its sums (f64 host arrays) and the mean-shifted
+    Σ(x−μ)² of the stored entries."""
+    mean = s1 / n
+    if sparse:
+        # stored entries contribute (v−μ)²; the n−nnz implicit zeros
+        # contribute μ² each — no cancellation in either term.
+        var = (ssq + (n - nnz) * mean * mean) / n
+    else:
+        var = ssq / n
+    var = np.maximum(var, 0.0)
+    # Fold implicit zeros into extrema (reference: full-vector summary).
+    has_zero = nnz < n
+    mn = np.where(has_zero, np.minimum(mn, 0.0), mn)
+    mx = np.where(has_zero, np.maximum(mx, 0.0), mx)
+    f64 = partial(np.asarray, dtype=np.float64)
+    return FeatureSummary(
+        count=n, mean=f64(mean), variance=f64(var), minimum=f64(mn),
+        maximum=f64(mx), abs_max=f64(np.maximum(np.abs(mn), np.abs(mx))),
+        norm_l1=f64(l1), norm_l2=f64(np.sqrt(s2)),
+        num_nonzeros=np.asarray(nnz, np.int64))
+
+
+def _compute_mesh(X, mesh) -> FeatureSummary:
+    """`FeatureSummary.compute` over a mesh: per-slot summaries, the sums
+    (f64) closed by one slot-ordered reduction, the extrema by one gather
+    of this process's slot-wise min/max, then the mean-shifted pass the
+    same way."""
+    if isinstance(X, BlockedEllRows):
+        raise TypeError("FeatureSummary.compute takes the original "
+                        "SparseRows/dense matrix")
+    if isinstance(X, SlotRows):
+        if mesh is not None and X.mesh is not mesh:
+            raise ValueError("X is row-sharded over another mesh")
+        mesh = X.mesh
+    else:
+        n = int(X.shape[0])
+        if n % mesh.n_slots:
+            raise ValueError(
+                f"{n} rows do not divide the {mesh.n_slots}-slot mesh; "
+                "summarize before padding or pass mesh=None")
+        X = shard_rows(X, mesh)
+    sparse = isinstance(X.parts[0], SparseRows)
+    summ = _summarize_sparse if sparse else _summarize_dense
+    outs = [summ(p) for p in X.parts]
+    f64 = torch.float64
+    s1, s2, l1, nnz = (t.cpu().numpy() for t in mesh.psum(
+        [tuple(o[i].to(f64) for i in (0, 1, 4, 5)) for o in outs]))
+    home = mesh.home
+    ext = torch.stack([torch.stack([o[2].to(home), -o[3].to(home)])
+                       for o in outs]).amin(0)
+    ext = gather_processes(mesh, ext).amin(0).cpu().numpy()
+    mn, mx = ext[0].astype(np.float64), -ext[1].astype(np.float64)
+    n = X.n_rows
+    mean = s1 / n
+    shifts = {}
+    for p, dev in zip(X.parts, mesh.slot_devices):
+        if dev not in shifts:
+            shifts[dev] = torch.from_numpy(mean.astype(np.float32)).to(dev)
+    ssq_fn = _shifted_ssq_sparse if sparse else _shifted_ssq_dense
+    (ssq,) = mesh.psum([(ssq_fn(p, shifts[dev]).to(f64),)
+                        for p, dev in zip(X.parts, mesh.slot_devices)])
+    return _finish_summary(n, s1, s2, mn, mx, l1, nnz, ssq.cpu().numpy(),
+                           sparse)
 
 
 def _shifted_ssq_dense(X: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:

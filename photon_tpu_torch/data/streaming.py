@@ -1,5 +1,5 @@
 """Streaming ingestion: block-streamed Avro → bounded-memory GameData (the
-port's copy of `photon_tpu/data/streaming.py`, single device).
+port's copy of `photon_tpu/data/streaming.py`).
 
 Reference parity: com.linkedin.photon.ml.data.avro.AvroDataReader reads
 partitioned HDFS data through Spark — the dataset never materializes on one
@@ -23,8 +23,10 @@ host. Here:
 
 Chunks are container-block-aligned: a chunk closes at the first block
 boundary at or after `chunk_rows`, so concatenating the chunks reproduces
-the one-shot `read_game_data` result exactly. Meshes (``mesh=``,
-``local_only``) wait for ROADMAP queue A item 10.
+the one-shot `read_game_data` result exactly. With a mesh,
+`stream_to_device` fills each local slot's rows on its device, and
+``local_only=True`` decodes only the chunk tasks that overlap this
+process's slots.
 """
 from __future__ import annotations
 
@@ -61,12 +63,6 @@ def _open_reader(p) -> AvroContainerReader:
     Mid-stream read errors still propagate — a container cannot be safely
     resumed mid-block, so the recovery unit is the ingest pass."""
     return retry_io(lambda: AvroContainerReader(p), site="avro_open")
-
-
-def _mesh_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: mesh (multi-device) streaming is not ported yet (ROADMAP "
-        "queue A item 10)")
 
 
 def feature_torch_dtype(feature_dtype) -> torch.dtype:
@@ -893,15 +889,32 @@ def stream_to_device(
 
     Returns (GameData with device-resident y/weights/offsets/shards,
     n_real); entity ids stay host numpy (they factorize on the host).
-    Meshes, ``local_only`` and the multi-process slot mask wait for
-    ROADMAP queue A item 10.
+
+    With ``mesh`` (a `parallel.mesh.Mesh`) the rows shard contiguously
+    over its slots (padded with weight 0 to a multiple of the slot
+    count): each of THIS process's slots gets its rows, on its device,
+    as `SlotRows` columns and shards, while other processes' rows stream
+    past without materializing; entity ids stay host numpy and global.
+    ``local_only=True`` (the per-process ingest split) goes further:
+    chunk tasks (`ingest_plane.plan_chunk_tasks`, the serial stream's
+    boundaries) whose rows fall entirely in other processes' slots are
+    never decoded — their container blocks are never read — and
+    ``ingest.chunks_skipped`` counts them; a boundary task decodes whole.
+    Their entity ids fill with "", and ``cache_dir`` is refused (a
+    partial decode must never commit a global cache entry).
+    ``_local_mask`` (S booleans) narrows the slots this process fills —
+    the one-process test seam for the multi-process slot arithmetic.
     """
     from photon_tpu_torch.data.ingest_plane import open_chunk_source
 
     if mesh is not None:
-        raise _mesh_not_ported("stream_to_device(mesh=...)")
+        return _stream_to_mesh(
+            path, config, index_maps, mesh, chunk_rows, sparse_k,
+            use_native, feature_dtype, chunk_hook, n_rows, _local_mask,
+            workers, cache_dir, block_index, local_only, mode, pool)
     if local_only or _local_mask is not None:
-        raise _mesh_not_ported("stream_to_device(local_only / _local_mask)")
+        raise ValueError("local_only and _local_mask split a mesh's rows "
+                         "over its processes: pass the mesh")
     dev = resolve_device(device)
     index_maps = _frozen_maps_or_raise(config, index_maps, sparse_k)
     if n_rows is not None:
@@ -994,4 +1007,165 @@ def stream_to_device(
         ids[e] = np.concatenate([np.asarray(c, dtype=np.str_) for c in cols])
     data = GameData(scalars["y"], scalars["weights"], scalars["offsets"],
                     shards, ids)
+    return data, n_real
+
+
+def _local_task_chunks(tasks, config, index_maps, sparse_k, use_native,
+                       local_rows):
+    """The ``local_only`` chunk source: ``(chunk, n_rows)`` for tasks whose
+    global row range overlaps one of the ``[lo, hi)`` intervals of
+    ``local_rows`` (decoded in-process through the serial assembly path,
+    bit-identical to the serial chunk at that position) and ``(None,
+    n_rows)`` for the rest, whose container blocks are never read."""
+    from photon_tpu_torch.data.ingest_plane import _decode_task, _DecodeState
+
+    state = _DecodeState(config, index_maps, sparse_k, use_native)
+    r0 = 0
+    for task in tasks:
+        r1 = r0 + task.n_rows
+        if any(r0 < hi and r1 > lo for lo, hi in local_rows):
+            chunk = _decode_task(state, task)[0]
+            yield chunk, chunk.n
+        else:
+            yield None, task.n_rows
+        r0 = r1
+
+
+def _stream_to_mesh(path, config, index_maps, mesh, chunk_rows, sparse_k,
+                    use_native, feature_dtype, chunk_hook, n_rows,
+                    _local_mask, workers, cache_dir, block_index, local_only,
+                    mode, pool) -> tuple:
+    """`stream_to_device(mesh=...)`: each local slot's rows filled from
+    the chunk stream straight into tensors on its device."""
+    from photon_tpu_torch.data.ingest_plane import (open_chunk_source,
+                                                    plan_chunk_tasks,
+                                                    scan_or_reuse_block_index)
+    from photon_tpu_torch.parallel.mesh import SlotRows, pad_to_multiple
+
+    index_maps = _frozen_maps_or_raise(config, index_maps, sparse_k)
+    S = mesh.n_slots
+    mask = ([j in mesh.local_slots for j in range(S)] if _local_mask is None
+            else [bool(m) and j in mesh.local_slots
+                  for j, m in enumerate(_local_mask)])
+    if len(mask) != S:
+        raise ValueError(f"_local_mask has {len(mask)} entries for {S} "
+                         "slots")
+    local_tasks = None
+    if local_only:
+        if cache_dir is not None:
+            raise ValueError(
+                "stream_to_device(local_only=True) cannot tee the chunk "
+                "cache: this process decodes only its own block ranges, and "
+                "a partial decode must never commit a global cache entry — "
+                "pre-build the cache with a full decode, or drop local_only")
+        block_index = scan_or_reuse_block_index(path, block_index)
+        local_tasks = plan_chunk_tasks(block_index, chunk_rows)
+    if n_rows is not None:
+        n_real = int(n_rows)
+    elif local_tasks is not None:
+        n_real = sum(t.n_rows for t in local_tasks)
+    else:
+        n_real = sum(scan_row_counts(path, block_index=block_index))
+    s = pad_to_multiple(max(n_real, 1), S) // S
+    dense_shards = _dense_shard_flags(config, index_maps)
+    f_dtype = feature_torch_dtype(feature_dtype)
+    # per local slot k (global slot j): its columns and shards, on its
+    # device; slots the mask leaves out stay zero (weight 0)
+    scal, mats = [], []
+    for dev in mesh.slot_devices:
+        scal.append({c: torch.zeros(s, dtype=torch.float32, device=dev)
+                     for c in ("y", "weights", "offsets")})
+        m = {}
+        for sh in config.shards:
+            d = index_maps[sh].n_features
+            m[sh] = (torch.zeros((s, d), dtype=f_dtype, device=dev)
+                     if dense_shards[sh] else
+                     (torch.zeros((s, sparse_k), dtype=torch.int32,
+                                  device=dev),
+                      torch.zeros((s, sparse_k), dtype=f_dtype, device=dev)))
+        mats.append(m)
+    lo_slot = mesh.local_slots[0]
+    entity_cols: dict = {e: [] for e in config.entity_fields}
+    if local_tasks is not None:
+        local_rows = [(j * s, (j + 1) * s) for j in range(S) if mask[j]]
+        chunk_iter = _local_task_chunks(local_tasks, config, index_maps,
+                                        sparse_k, use_native, local_rows)
+    else:
+        _, chunks = open_chunk_source(path, config, index_maps,
+                                      chunk_rows=chunk_rows,
+                                      sparse_k=sparse_k,
+                                      use_native=use_native, workers=workers,
+                                      cache_dir=cache_dir,
+                                      block_index=block_index, mode=mode,
+                                      pool=pool)
+        chunk_iter = ((c, c.n) for c in chunks)
+    row = 0
+    for chunk, n_c in chunk_iter:
+        if row + n_c > n_real:
+            raise ValueError(
+                f"{path}: the stream yielded more than the {n_real} rows "
+                "its row count promised (the files changed?)")
+        if chunk is None:
+            telemetry.count("ingest.chunks_skipped")
+            for e in config.entity_fields:
+                entity_cols[e].append(np.full(n_c, "", dtype="U1"))
+            row += n_c
+            continue
+        telemetry.count("ingest.chunks")
+        telemetry.count("ingest.rows", chunk.n)
+        if chunk_hook is not None:
+            chunk_hook(chunk)
+        for e in config.entity_fields:
+            entity_cols[e].append(np.asarray(chunk.entity_ids[e]))
+        host = {c: _tensor(np.asarray(getattr(chunk, c), np.float32))
+                for c in ("y", "weights", "offsets")}
+        for sh in config.shards:
+            X = chunk.shards[sh]
+            host[sh] = (_tensor(np.asarray(X)) if dense_shards[sh] else
+                        (_tensor(np.asarray(X.indices)),
+                         _tensor(np.asarray(X.values))))
+        # the chunk's rows [row, row + n_c) cut at slot boundaries
+        for j in range(row // s, min((row + n_c - 1) // s, S - 1) + 1):
+            if not mask[j]:
+                continue
+            a, b = max(row, j * s), min(row + n_c, (j + 1) * s)
+            src, dst = slice(a - row, b - row), slice(a - j * s, b - j * s)
+            k = j - lo_slot
+            for c in ("y", "weights", "offsets"):
+                scal[k][c][dst].copy_(host[c][src])
+            for sh in config.shards:
+                if dense_shards[sh]:
+                    mats[k][sh][dst].copy_(host[sh][src])
+                else:
+                    ind, val = mats[k][sh]
+                    h_ind, h_val = host[sh]
+                    k_c = h_ind.shape[1]
+                    ind[dst, :k_c].copy_(h_ind[src])
+                    val[dst, :k_c].copy_(h_val[src])
+        telemetry.count("ingest.device_chunks")
+        row += n_c
+    if row != n_real:
+        raise ValueError(f"{path}: streamed {row} rows, the row count "
+                         f"promised {n_real} (the files changed?)")
+
+    def rows(parts):
+        return SlotRows(mesh, tuple(parts), s)
+
+    shards = {}
+    for sh in config.shards:
+        if dense_shards[sh]:
+            shards[sh] = rows(m[sh] for m in mats)
+        else:
+            shards[sh] = rows(SparseRows(m[sh][0], m[sh][1],
+                                         index_maps[sh].n_features)
+                              for m in mats)
+    ids = {}
+    for e in config.entity_fields:
+        cols = entity_cols[e] or [np.zeros(0, dtype="U1")]
+        if S * s > n_real:
+            cols = cols + [np.full(S * s - n_real, "", dtype="U1")]
+        ids[e] = np.concatenate([np.asarray(c, dtype=np.str_) for c in cols])
+    data = GameData(rows(sc["y"] for sc in scal),
+                    rows(sc["weights"] for sc in scal),
+                    rows(sc["offsets"] for sc in scal), shards, ids)
     return data, n_real

@@ -1,7 +1,7 @@
-"""Single-device GLM training (port of `make_objective`, `solve`,
-`_permuted_prep`, `_init_w0`, the one-device `train_glm`, and the
-reg-weight grid `lane_weight_arrays` / `train_glm_grid` /
-`evaluate_glm_grid` of `photon_tpu/models/training.py`).
+"""GLM training on one device or a mesh (port of `make_objective`,
+`solve`, `_permuted_prep`, `_init_w0`, `_mesh_prep`, `train_glm`,
+`train_glm_streamed` and the reg-weight grid `lane_weight_arrays` /
+`train_glm_grid` / `evaluate_glm_grid` of `photon_tpu/models/training.py`).
 
 Reference parity: com.linkedin.photon.ml.optimization.game.
 SingleNodeOptimizationProblem. The solve is the margin-cached L-BFGS
@@ -23,8 +23,15 @@ original space) and SIMPLE or FULL variances follow the reference's rules.
 
 A host-chunked `data.dataset.ChunkedBatch` (a dataset larger than device
 memory) dispatches to `train_glm_streamed`: L-BFGS or OWL-QN over chunks
-streamed through the device (`optim.streamed`). Still to come, and
-raising when asked for: meshes (ROADMAP queue A item 10).
+streamed through the device (`optim.streamed`).
+
+With ``mesh=`` (a `parallel.mesh.Mesh`) the rows shard over the mesh's
+slots (`data.dataset.mesh_batch`: dense X, `SparseRows`, or the mesh
+blocked-ELL form of `shard_blocked_ell_batch`), every slot runs the X
+passes (the blocked-ELL kernels on its own shard) and each evaluation
+closes with one reduction (`parallel.mesh.psum`) — resident, streamed
+and grid solves alike. The fused value+grad stays off the mesh path, as
+in the reference. The solver state lives on the mesh's home device.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from photon_tpu_torch.optim.lbfgs import minimize_lbfgs_margin
 from photon_tpu_torch.optim.owlqn import minimize_owlqn
 from photon_tpu_torch.optim.tracker import OptResult
 from photon_tpu_torch.optim.tron import minimize_tron_margin
+from photon_tpu_torch.parallel.mesh import Mesh, SlotRows
 
 
 def _vec_on(v, device):
@@ -195,15 +203,37 @@ def _prior_into(norm, prior_mean, prior_precision):
     return prior_mean, prior_precision
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes (multi-device training) are not ported yet (ROADMAP "
-            "queue A item 10)")
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+
+
+def _prep(batch: GLMBatch, mesh, device) -> tuple:
+    """(batch on its device or row-sharded over the mesh, the solve's
+    device): the mesh's home device holds the replicated solver state."""
+    _check_mesh(mesh)
+    if mesh is None:
+        if isinstance(batch.X, SlotRows):
+            raise ValueError("a row-sharded batch solves on its mesh: pass "
+                             "mesh=")
+        dev = resolve_device(device)
+        return batch.to(dev), dev
+    from photon_tpu_torch.data.dataset import mesh_batch
+
+    return mesh_batch(batch, mesh), mesh.home
+
+
+def _is_permuted(X) -> bool:
+    """A blocked-ELL layout (one device's, or every slot's of a mesh):
+    the solve runs in its permuted column space."""
+    if isinstance(X, SlotRows):
+        X = X.parts[0]
+    return isinstance(X, BlockedEllRows)
 
 
 def _matrix_dim(X) -> int:
-    if isinstance(X, (SparseRows, BlockedEllRows, EntityBlocks)):
+    if isinstance(X, (SparseRows, BlockedEllRows, EntityBlocks, SlotRows)):
         return X.n_features
     return int(X.shape[1])
 
@@ -229,7 +259,11 @@ def train_glm_streamed(
     permuted space: ``w0``, the diagonal prior and the normalization
     translate in, the coefficients back out. ``w0`` and the priors are
     original-space; with a `NormalizationContext` the solve runs in
-    normalized space and the model comes back in original space."""
+    normalized space and the model comes back in original space. With
+    ``mesh`` every chunk streams row-sharded over the slots (a
+    blocked-ELL ladder laid for the mesh: `chunk_blocked_ell(n_shards=
+    S)`) and each evaluation closes with one reduction; the solve state
+    lives on the mesh's home device."""
     from photon_tpu_torch.optim.streamed import (minimize_lbfgs_streamed,
                                                  minimize_owlqn_streamed)
 
@@ -239,8 +273,8 @@ def train_glm_streamed(
             "stream the full dataset once — cg_max_iters streams per "
             "iteration vs L-BFGS's two); use LBFGS or OWLQN for "
             "out-of-HBM solves")
-    _refuse_mesh(mesh)
-    dev = resolve_device(device)
+    _check_mesh(mesh)
+    dev = resolve_device(device) if mesh is None else mesh.home
     d = data.X.n_features
     norm = _active_norm(normalization)
     w0 = _init_w0(d, w0, dev, norm)
@@ -275,12 +309,12 @@ def train_glm_streamed(
         res = minimize_owlqn_streamed(
             obj, data, w0, config.reg.l1_weight(config.reg_weight),
             max_iters=config.max_iters, tolerance=config.tolerance,
-            history=config.history, reg_mask=obj.reg_mask,
+            history=config.history, reg_mask=obj.reg_mask, mesh=mesh,
             kernels=config.kernels)
     else:
         res = minimize_lbfgs_streamed(
             obj, data, w0, max_iters=config.max_iters,
-            tolerance=config.tolerance, history=config.history,
+            tolerance=config.tolerance, history=config.history, mesh=mesh,
             kernels=config.kernels)
     if permuted:  # back to original column order before the unfold
         res = res._replace(w=res.w[data.X.inv_perm.to(dev).long()])
@@ -303,8 +337,12 @@ def train_glm(
     mesh=None,
     device=None,
 ) -> tuple[GeneralizedLinearModel, OptResult]:
-    """Full-batch GLM training on one device (reference: train_glm without
-    a mesh). The batch moves to ``device`` (default ``cuda``) first.
+    """Full-batch GLM training (reference: train_glm). The batch moves to
+    ``device`` (default ``cuda``) first — or, with ``mesh``, row-shards
+    over its slots (`data.dataset.mesh_batch`; a blocked-ELL batch in the
+    mesh form of `shard_blocked_ell_batch`), each evaluation closing with
+    one reduction over the mesh, the model coming back on the mesh's home
+    device.
 
     A `BlockedEllRows` batch solves in its permuted space; ``w0`` and the
     priors are taken, and the model's coefficients and variances returned,
@@ -345,13 +383,11 @@ def train_glm(
                 w0=w0, variance=variance, prior_mean=prior_mean,
                 prior_precision=prior_precision, prior=prior,
                 normalization=normalization, mesh=mesh, device=device)
-    _refuse_mesh(mesh)
-    dev = resolve_device(device)
-    batch = batch.to(dev)
+    batch, dev = _prep(batch, mesh, device)
     X = batch.X
     d = _matrix_dim(X)
     norm = _active_norm(normalization)
-    permuted = isinstance(X, BlockedEllRows)
+    permuted = _is_permuted(X)
     prior_full = None
     if prior is not None:
         if prior_mean is not None or prior_precision is not None:
@@ -374,9 +410,10 @@ def train_glm(
     # Dense OWL-QN evaluates f and g through the fused kernel (one X pass
     # per evaluation); L-BFGS and TRON are margin-cached and never call
     # value_and_grad, and a BlockedEllRows batch keeps the unfused route
-    # (its X passes are the blocked-ELL kernels), as the reference.
+    # (its X passes are the blocked-ELL kernels), as the reference; so
+    # does a mesh solve (its evaluation closes with the mesh reduction).
     use_fused = (config.effective_optimizer() is OptimizerType.OWLQN
-                 and not permuted)
+                 and not permuted and mesh is None)
     if permuted:
         if prior_full is not None:
             raise ValueError(
@@ -543,8 +580,10 @@ def train_glm_grid(
     device=None,
 ):
     """Train one GLM per regularization weight, the G lanes lock-step on
-    one device (default ``cuda``) (reference: train_glm_grid without a
-    mesh; the reference's grid mode runs one Spark job per weight).
+    one device (default ``cuda``) or, with ``mesh``, row-sharded over its
+    slots with one reduction per evaluation for all lanes (reference:
+    train_glm_grid; the reference's grid mode runs one Spark job per
+    weight).
 
     Every lane starts from ``w0``: None (zeros), a shared (d,) start, or
     a lane-major (G, d) per-lane start, in ORIGINAL column order. A
@@ -579,9 +618,7 @@ def train_glm_grid(
                 normalization=normalization, device_results=device_results,
                 prior_mean=prior_mean, prior_precision=prior_precision,
                 prior=prior, device=device)
-    _refuse_mesh(mesh)
-    dev = resolve_device(device)
-    batch = batch.to(dev)
+    batch, dev = _prep(batch, mesh, device)
     X = batch.X
     d = _matrix_dim(X)
     norm = _active_norm(normalization)
@@ -606,7 +643,7 @@ def train_glm_grid(
                                               prior_precision)
     prior_mean = _vec_on(prior_mean, dev)
     prior_precision = _vec_on(prior_precision, dev)
-    permuted = isinstance(X, BlockedEllRows)
+    permuted = _is_permuted(X)
     intercept_index = -1
     norm_obj = norm
     if permuted:

@@ -10,7 +10,10 @@ the same number of random accesses as a single lane.
 The functions mirror `ops.objective.Objective`'s margin-space API; the
 ``Objective`` supplies the task, ``reg_mask`` and the normalization fold
 (shared by every lane), and per-lane L2 weights arrive as an explicit
-``l2s`` (G,) tensor. One device, so there is no cross-device sum.
+``l2s`` (G,) tensor. On a mesh (a row-sharded `parallel.mesh.SlotRows`
+X) the column sums and the lane-stacked Xᵀ pass are per-slot partials,
+and each evaluation closes them with one reduction (`objective.
+reduce_rows`), as the single-lane objective does.
 
 Lanes are either regularization weights over one shared batch (the grid:
 X shared, (n,) labels, weights and offsets broadcast over the lanes) or
@@ -29,7 +32,8 @@ from photon_tpu_torch.data.dataset import GLMBatch
 from photon_tpu_torch.data.matrix import (matvec_lanes, rmatvec_lanes,
                                           sq_rmatvec_lanes)
 from photon_tpu_torch.ops.losses import loss_fns
-from photon_tpu_torch.ops.objective import Objective
+from photon_tpu_torch.ops.objective import (Objective, reduce_rows, row_sum,
+                                            slot_map)
 
 
 def _lane_prior(v) -> bool:
@@ -71,15 +75,25 @@ def direction_margin_lanes(obj: Objective, P, batch: GLMBatch):
     return dz
 
 
-def _backprop_lanes(obj: Objective, batch: GLMBatch, Gm):
-    """Pull an (n, G) per-row cotangent back to (d, G):
-    f∘(XᵀGm − s·ΣGm)."""
-    out = rmatvec_lanes(batch.X, Gm)
+def _backprop_parts_lanes(obj: Objective, batch: GLMBatch, Gm):
+    """The row sums of `_backprop_lanes`: (XᵀGm, ΣGm or None)."""
+    gsum = row_sum(batch, Gm, 0) if obj.norm_shifts is not None else None
+    return rmatvec_lanes(batch.X, Gm), gsum
+
+
+def _finish_backprop_lanes(obj: Objective, out, gsum):
     if obj.norm_shifts is not None:
-        out = out - obj.norm_shifts[:, None] * torch.sum(Gm, dim=0)[None, :]
+        out = out - obj.norm_shifts[:, None] * gsum[None, :]
     if obj.norm_factors is not None:
         out = out * obj.norm_factors[:, None]
     return out
+
+
+def _backprop_lanes(obj: Objective, batch: GLMBatch, Gm):
+    """Pull an (n, G) per-row cotangent back to (d, G):
+    f∘(XᵀGm − s·ΣGm) (one reduction on a mesh)."""
+    return _finish_backprop_lanes(
+        obj, *reduce_rows(batch, *_backprop_parts_lanes(obj, batch, Gm)))
 
 
 def _masked(obj: Objective, W):
@@ -136,11 +150,15 @@ def phi_at_ray_lanes(obj: Objective, z, dz, a, coeffs, batch: GLMBatch):
     """(φ(a), φ'(a)) per lane from cached margins — one (n, G) elementwise
     pass and two (G,) column sums, no pass over X. ``a``: (G,)."""
     loss, d1, _ = loss_fns(obj.task)
-    za = z + a[None, :] * dz
-    y = _col(batch.y)
-    wt = _col(batch.weights)
-    f = torch.sum(wt * loss(za, y), dim=0)
-    dphi = torch.sum(wt * d1(za, y) * dz, dim=0)
+
+    def rows(za, y, wt, dz):
+        y, wt = _col(y), _col(wt)
+        return wt * loss(za, y), wt * d1(za, y) * dz
+
+    wl, wd = slot_map(batch, rows, z + a[None, :] * dz, batch.y,
+                      batch.weights, dz)
+    f, dphi = reduce_rows(batch, row_sum(batch, wl, 0),
+                          row_sum(batch, wd, 0))
     c0, c1, c2 = coeffs
     return f + c0 + a * (c1 + 0.5 * a * c2), dphi + c1 + a * c2
 
@@ -153,7 +171,8 @@ def hvp_at_margin_lanes(obj: Objective, l2s, z, batch: GLMBatch, V,
     _, _, d2 = loss_fns(obj.task)
     if dZv is None:
         dZv = direction_margin_lanes(obj, V, batch)
-    r = _col(batch.weights) * d2(z, _col(batch.y)) * dZv
+    r = slot_map(batch, lambda z, y, wt, dz: _col(wt) * d2(z, _col(y)) * dz,
+                 z, batch.y, batch.weights, dZv)
     return _backprop_lanes(obj, batch, r) + _reg_hvp_lanes(obj, l2s, V)
 
 
@@ -162,14 +181,17 @@ def value_at_margin_lanes(obj: Objective, l2s, W, z, batch: GLMBatch):
     margins — one (n, G) elementwise pass, no X pass and no gradient (the
     lane OWL-QN's backtracking trials need values only)."""
     loss, _, _ = loss_fns(obj.task)
-    value = torch.sum(_col(batch.weights) * loss(z, _col(batch.y)), dim=0)
+    wl = slot_map(batch, lambda z, y, wt: _col(wt) * loss(z, _col(y)), z,
+                  batch.y, batch.weights)
+    (value,) = reduce_rows(batch, row_sum(batch, wl, 0))
     return value + _reg_terms_lanes(obj, l2s, W)[0]
 
 
 def grad_at_margin_lanes(obj: Objective, l2s, W, z, batch: GLMBatch):
     """Per-lane gradient from cached margins — one lane-stacked Xᵀ pass."""
     _, d1, _ = loss_fns(obj.task)
-    r = _col(batch.weights) * d1(z, _col(batch.y))
+    r = slot_map(batch, lambda z, y, wt: _col(wt) * d1(z, _col(y)), z,
+                 batch.y, batch.weights)
     return _backprop_lanes(obj, batch, r) + _reg_terms_lanes(obj, l2s, W)[1]
 
 
@@ -178,10 +200,15 @@ def value_and_grad_at_margin_lanes(obj: Objective, l2s, W, z,
     """(f (G,), g (d, G)) from cached margins: one elementwise pass and
     one lane-stacked Xᵀ pass."""
     loss, d1, _ = loss_fns(obj.task)
-    y = _col(batch.y)
-    wt = _col(batch.weights)
-    grad = _backprop_lanes(obj, batch, wt * d1(z, y))
-    value = torch.sum(wt * loss(z, y), dim=0)
+
+    def rows(z, y, wt):
+        y, wt = _col(y), _col(wt)
+        return wt * d1(z, y), wt * loss(z, y)
+
+    r, wl = slot_map(batch, rows, z, batch.y, batch.weights)
+    gX, gsum = _backprop_parts_lanes(obj, batch, r)
+    value, gX, gsum = reduce_rows(batch, row_sum(batch, wl, 0), gX, gsum)
+    grad = _finish_backprop_lanes(obj, gX, gsum)
     rv, rg = _reg_terms_lanes(obj, l2s, W)
     return value + rv, grad + rg
 

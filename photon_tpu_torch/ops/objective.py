@@ -13,6 +13,17 @@ the backprop, the margin-cached family (`margin`, `direction_margin`,
 `value_and_grad` (through the fused kernel when ``fused`` is set and X
 qualifies), `hvp`, `hess_diag`, `full_hessian`, and the chunk-partial API
 of the streamed solvers (`chunk_value_grad_partials` and its kin).
+
+On a mesh (a batch whose X is a row-sharded `parallel.mesh.SlotRows`)
+the per-row math runs slot by slot (`slot_map`: each slot's rows as a
+tensor of their own, so every rounding is the same whichever slots share
+a process), every sum over rows becomes one partial per local slot
+(`row_sum`, and the X passes' Xᵀr), and each evaluation closes them with
+ONE reduction (`reduce_rows`, the mesh's slot-ordered `psum`) — the
+reference's `_psum_many`: value and gradient ride one collective, a TRON
+HVP is one pass plus one collective, a line-search trial's two totals
+one more. On one device the helpers are the plain expressions and sums,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +37,51 @@ from photon_tpu_torch.data.matrix import (matvec, matvec_lanes, rmatvec,
                                           sq_rmatvec, weighted_gram)
 from photon_tpu_torch.kernels.fused import can_fuse, fused_value_and_grad
 from photon_tpu_torch.ops.losses import TaskType, loss_fns
+from photon_tpu_torch.parallel.mesh import SlotParts, SlotRows
+
+
+def slot_map(batch: GLMBatch, fn, *cols):
+    """``fn`` of per-row columns ((n,) or (n, G) tensors): on one device
+    ``fn(*cols)``; on a mesh batch ``fn`` of each local slot's rows, as
+    `SlotParts` (a tuple of them when ``fn`` returns a tuple) — each slot
+    a tensor of the same shape at every process count."""
+    X = batch.X
+    if not isinstance(X, SlotRows):
+        return fn(*cols)
+    s = X.rows_per_slot
+    outs = [fn(*(c[k * s:(k + 1) * s] for c in cols))
+            for k in range(X.mesh.n_local)]
+    if isinstance(outs[0], tuple):
+        return tuple(SlotParts(o[i] for o in outs)
+                     for i in range(len(outs[0])))
+    return SlotParts(outs)
+
+
+def row_sum(batch: GLMBatch, x, dim=None):
+    """Σ over the rows of a per-row quantity ``x`` ((n,) or (n, G), or a
+    `slot_map` result): the sum on one device; on a mesh batch one
+    partial per local slot, for `reduce_rows` to close."""
+    def total(t):
+        return torch.sum(t) if dim is None else torch.sum(t, dim=dim)
+
+    X = batch.X
+    if isinstance(X, SlotRows):
+        if not isinstance(x, SlotParts):
+            s = X.rows_per_slot
+            x = [x[k * s:(k + 1) * s] for k in range(X.mesh.n_local)]
+        return SlotParts(total(t) for t in x)
+    return total(x)
+
+
+def reduce_rows(batch: GLMBatch, *parts) -> tuple:
+    """Close an evaluation's row partials (`row_sum`s, Xᵀr passes, None
+    leaves) with ONE reduction over the mesh; on one device they are the
+    totals already."""
+    X = batch.X
+    if not isinstance(X, SlotRows):
+        return parts
+    return X.mesh.psum([tuple(None if p is None else p[k] for p in parts)
+                        for k in range(X.mesh.n_local)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,13 +124,16 @@ class Objective:
         return z
 
     def _backprop(self, batch: GLMBatch, g):
-        """∂z/∂w pulled back over a per-row cotangent g: f∘(Xᵀg − s·Σg)."""
-        return self._finish_backprop(*self._backprop_parts(batch, g))
+        """∂z/∂w pulled back over a per-row cotangent g: f∘(Xᵀg − s·Σg)
+        (one reduction on a mesh)."""
+        return self._finish_backprop(
+            *reduce_rows(batch, *self._backprop_parts(batch, g)))
 
     def _backprop_parts(self, batch: GLMBatch, g):
         """The pieces of `_backprop` that sum over rows: (Xᵀg, Σg), Σg only
-        when a shift exists (None otherwise)."""
-        gsum = torch.sum(g) if self.norm_shifts is not None else None
+        when a shift exists (None otherwise); per-slot partials on a
+        mesh."""
+        gsum = row_sum(batch, g) if self.norm_shifts is not None else None
         return rmatvec(batch.X, g), gsum
 
     def _finish_backprop(self, gX, gsum=None):
@@ -168,30 +227,36 @@ class Objective:
         ray's regularizer coefficients: O(n) elementwise plus scalars, no
         (d,) work."""
         loss, d1, _ = loss_fns(self.task)
-        za = z + a * dz
-        f = torch.sum(batch.weights * loss(za, batch.y))
-        dphi = torch.sum(batch.weights * d1(za, batch.y) * dz)
+        wl, wd = slot_map(batch, lambda za, y, wt, dz: (
+            wt * loss(za, y), wt * d1(za, y) * dz), z + a * dz, batch.y,
+            batch.weights, dz)
+        f, dphi = reduce_rows(batch, row_sum(batch, wl), row_sum(batch, wd))
         c0, c1, c2 = coeffs
         return f + c0 + a * (c1 + 0.5 * a * c2), dphi + c1 + a * c2
 
     def value_at_margin(self, w, z, batch: GLMBatch):
         """f(w) from a cached margin — elementwise only, no pass over X."""
         loss, _, _ = loss_fns(self.task)
-        return (torch.sum(batch.weights * loss(z, batch.y))
-                + self._reg_terms(w)[0])
+        wl = slot_map(batch, lambda z, y, wt: wt * loss(z, y), z, batch.y,
+                      batch.weights)
+        (value,) = reduce_rows(batch, row_sum(batch, wl))
+        return value + self._reg_terms(w)[0]
 
     def grad_at_margin(self, w, z, batch: GLMBatch):
         """Full gradient from a cached margin — ONE pass over X (Xᵀr)."""
         _, d1, _ = loss_fns(self.task)
-        r = batch.weights * d1(z, batch.y)
+        r = slot_map(batch, lambda z, y, wt: wt * d1(z, y), z, batch.y,
+                     batch.weights)
         return self._backprop(batch, r) + self._reg_terms(w)[1]
 
     def value_and_grad_at_margin(self, w, z, batch: GLMBatch):
         """(f, g) from a cached margin — one elementwise pass + one Xᵀr."""
         loss, d1, _ = loss_fns(self.task)
-        r = batch.weights * d1(z, batch.y)
-        gX = self._backprop(batch, r)
-        value = torch.sum(batch.weights * loss(z, batch.y))
+        r, wl = slot_map(batch, lambda z, y, wt: (
+            wt * d1(z, y), wt * loss(z, y)), z, batch.y, batch.weights)
+        gX, gsum = self._backprop_parts(batch, r)
+        value, gX, gsum = reduce_rows(batch, row_sum(batch, wl), gX, gsum)
+        gX = self._finish_backprop(gX, gsum)
         rv, rg = self._reg_terms(w)
         return value + rv, gX + rg
 
@@ -216,7 +281,7 @@ class Objective:
         loss, d1, _ = loss_fns(self.task)
         r = batch.weights * d1(z, batch.y)
         gX, gsum = self._backprop_parts(batch, r)
-        return torch.sum(batch.weights * loss(z, batch.y)), gX, gsum
+        return row_sum(batch, batch.weights * loss(z, batch.y)), gX, gsum
 
     @staticmethod
     def add_partials(a, b):
@@ -262,12 +327,16 @@ class Objective:
         diagonal (reference: TwiceDiffFunction.hessianDiagonal, behind
         SIMPLE variances)."""
         _, _, d2 = loss_fns(self.task)
-        w2 = batch.weights * d2(self.margin(w, batch), batch.y)
+        w2 = slot_map(batch, lambda z, y, wt: wt * d2(z, y),
+                      self.margin(w, batch), batch.y, batch.weights)
         diag = sq_rmatvec(batch.X, w2)
         if self.norm_shifts is not None:
             s = self.norm_shifts
-            diag = (diag - 2.0 * s * rmatvec(batch.X, w2)
-                    + s * s * torch.sum(w2))
+            diag, q, w2sum = reduce_rows(batch, diag, rmatvec(batch.X, w2),
+                                         row_sum(batch, w2))
+            diag = diag - 2.0 * s * q + s * s * w2sum
+        else:
+            (diag,) = reduce_rows(batch, diag)
         if self.norm_factors is not None:
             diag = diag * self.norm_factors * self.norm_factors
         return diag + self._reg_hess_diag(w)
@@ -279,7 +348,8 @@ class Objective:
         _, _, d2 = loss_fns(self.task)
         if dz_v is None:
             dz_v = self.direction_margin(v, batch)
-        g = batch.weights * d2(z, batch.y) * dz_v
+        g = slot_map(batch, lambda z, y, wt, dz: wt * d2(z, y) * dz, z,
+                     batch.y, batch.weights, dz_v)
         return self._backprop(batch, g) + self._reg_hvp(v)
 
     def hvp(self, w, batch: GLMBatch, v):
@@ -293,13 +363,17 @@ class Objective:
         normalization: F(G − s qᵀ − q sᵀ + (Σw2) s sᵀ)F, G = Xᵀdiag(w2)X,
         q = Xᵀw2, F = diag(factors)."""
         _, _, d2 = loss_fns(self.task)
-        w2 = batch.weights * d2(self.margin(w, batch), batch.y)
+        w2 = slot_map(batch, lambda z, y, wt: wt * d2(z, y),
+                      self.margin(w, batch), batch.y, batch.weights)
         H = weighted_gram(batch.X, w2)
         if self.norm_shifts is not None:
             s = self.norm_shifts
-            q = rmatvec(batch.X, w2)
+            H, q, w2sum = reduce_rows(batch, H, rmatvec(batch.X, w2),
+                                      row_sum(batch, w2))
             H = (H - torch.outer(s, q) - torch.outer(q, s)
-                 + torch.sum(w2) * torch.outer(s, s))
+                 + w2sum * torch.outer(s, s))
+        else:
+            (H,) = reduce_rows(batch, H)
         if self.norm_factors is not None:
             H = H * torch.outer(self.norm_factors, self.norm_factors)
         H = H + torch.diag(self._reg_parts()[0] * torch.ones_like(w))

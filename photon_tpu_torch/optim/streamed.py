@@ -1,8 +1,8 @@
 """Streamed (out-of-device-memory) solvers: L-BFGS and OWL-QN whose every
-objective evaluation sums over chunks streamed through the device (port of
-the single-device part of `photon_tpu/optim/streamed.py`: `_History`,
-`_host_wolfe`, `_cubic_min_host`, `_convergence_host`,
-`minimize_lbfgs_streamed`, `minimize_owlqn_streamed`).
+objective evaluation sums over chunks streamed through the device, on one
+device or row-sharded over a mesh (port of `photon_tpu/optim/streamed.py`:
+`_History`, `_host_wolfe`, `_cubic_min_host`, `_convergence_host`,
+`_MeshStream`, `minimize_lbfgs_streamed`, `minimize_owlqn_streamed`).
 
 Reference parity: com.linkedin.photon.ml.function.glm.
 DistributedGLMLossFunction drives Breeze L-BFGS/OWL-QN with one
@@ -47,8 +47,17 @@ same card and chunking. Each objective evaluation hits the
 ``evaluation`` fault site (`_eval_tick`). The session is the switch:
 session-less, each touch point is one ``current() is None`` branch.
 
+MESH MODE (``mesh=``): every chunk streams row-sharded over the local
+slots (`data.dataset.MeshChunkRing`: one upload ring per slot, onto the
+slot's device), the chunk partials stay per slot (one per local slot,
+summed in chunk order on the slot's device), the margin caches live on
+the host in local-slot layout, and each evaluation closes with ONE
+reduction over the mesh (`parallel.mesh.psum`) — the same bits at every
+process count. A snapshot keys the margin caches by slot
+(``z<i>@s<slot>``), so it restores at any process count.
+
 TRON is absent (each CG step would stream the whole dataset), as in the
-reference. Meshes (`_MeshStream`) wait for ROADMAP queue A item 10.
+reference.
 """
 from __future__ import annotations
 
@@ -64,6 +73,7 @@ from photon_tpu_torch.optim.lbfgs import _Z_REFRESH, two_loop
 from photon_tpu_torch.optim.linesearch import C1, C2
 from photon_tpu_torch.optim.owlqn import pseudo_gradient
 from photon_tpu_torch.optim.tracker import OptResult
+from photon_tpu_torch.parallel.mesh import Mesh, SlotParts
 
 __all__ = ["minimize_lbfgs_streamed", "minimize_owlqn_streamed"]
 
@@ -127,14 +137,129 @@ class _SingleDeviceStream:
                                       y, weights)
 
     def chunk_value_many(self, obj, W, b):
-        return obj.chunk_value_partials_many(W, b)
+        return (obj.chunk_value_partials_many(W, b),)
+
+    def chunk_grad_at(self, obj, w, b):
+        """Partials of chunk ``b`` at w (no margin cached)."""
+        return obj.chunk_value_grad_partials(w, b)[1]
+
+    def finish(self, obj, w, acc):
+        """(f, g) at w from the summed partials."""
+        return obj.finish_value_grad(w, acc)
+
+    def totals(self, acc) -> tuple:
+        return acc
+
+
+def _obj_on(obj, dev, cache: dict):
+    """``obj`` with its tensors on ``dev`` (once per device)."""
+    import dataclasses
+
+    got = cache.get(dev)
+    if got is None:
+        got = cache[dev] = dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to(dev)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+    return got
+
+
+class _MeshStream:
+    """The mesh regime: every chunk row-sharded over the local slots
+    (`MeshChunkRing`), partials one per local slot on the slot's device,
+    per-chunk margin caches as rows of (n_chunks, n_local_slots · s)
+    host f32 tensors (local-slot layout, pinned on a GPU), and each
+    evaluation closed by the mesh's one reduction."""
+
+    def __init__(self, data, mesh: Mesh, prefetch=2):
+        self.data, self.mesh = data, mesh
+        self.ring = data.device_ring(mesh=mesh, prefetch=prefetch)
+        self.s = data.mesh_chunk_rows(mesh) // mesh.n_slots
+        self.devs = mesh.slot_devices
+        self._cuda = mesh.home.type == "cuda"
+        self._objs: dict = {}
+
+    def host_margins(self) -> torch.Tensor:
+        return torch.empty((self.data.n_chunks, self.mesh.n_local * self.s),
+                           dtype=torch.float32, pin_memory=self._cuda)
+
+    def iter_chunks(self):
+        return self.ring.stream_pass()
+
+    def sync(self) -> None:
+        if self._cuda:
+            for dev in set(self.devs):
+                torch.cuda.current_stream(dev).synchronize()
+
+    def _slots(self, obj, *vecs):
+        """(k, slot device, obj there, each of ``vecs`` there) per local
+        slot (a vector copied once per device)."""
+        on: dict = {}
+        for k, dev in enumerate(self.devs):
+            if dev not in on:
+                on[dev] = [v.to(dev) for v in vecs]
+            yield (k, dev, _obj_on(obj, dev, self._objs)) + tuple(on[dev])
+
+    def _row(self, row, k):
+        return row[k * self.s:(k + 1) * self.s]
+
+    def chunk_init(self, obj, w, bs, z_row):
+        parts = SlotParts()
+        for k, dev, o, wk in self._slots(obj, w):
+            z, p = o.chunk_value_grad_partials(wk, bs[k])
+            self._row(z_row, k).copy_(z, non_blocking=True)
+            parts.append(p)
+        return parts
+
+    def chunk_grad(self, obj, z_row, bs):
+        return SlotParts(
+            o.chunk_partials_at_margin(
+                self._row(z_row, k).to(dev, non_blocking=True), bs[k])
+            for k, dev, o in self._slots(obj))
+
+    def chunk_dz_phi(self, obj, p, z_row, a, bs, dz_row):
+        parts = SlotParts()
+        for k, dev, o, pk in self._slots(obj, p):
+            b = bs[k]
+            dz = o.direction_margin(pk, b)
+            self._row(dz_row, k).copy_(dz, non_blocking=True)
+            parts.append(o.chunk_phi_partials(
+                self._row(z_row, k).to(dev, non_blocking=True), dz, a, b.y,
+                b.weights))
+        return parts
+
+    def chunk_phi(self, obj, i, z_row, dz_row, a):
+        parts = SlotParts()
+        for k, dev, o in self._slots(obj):
+            y, weights = (t.to(dev, non_blocking=True)
+                          for t in self.ring.host_columns(k, i)[:2])
+            parts.append(o.chunk_phi_partials(
+                self._row(z_row, k).to(dev, non_blocking=True),
+                self._row(dz_row, k).to(dev, non_blocking=True), a, y,
+                weights))
+        return parts
+
+    def chunk_grad_at(self, obj, w, bs):
+        return SlotParts(o.chunk_value_grad_partials(wk, bs[k])[1]
+                         for k, dev, o, wk in self._slots(obj, w))
+
+    def chunk_value_many(self, obj, W, bs):
+        return SlotParts((o.chunk_value_partials_many(Wk, bs[k]),)
+                         for k, dev, o, Wk in self._slots(obj, W))
+
+    def finish(self, obj, w, acc):
+        return obj.finish_value_grad(w, self.mesh.psum(acc))
+
+    def totals(self, acc) -> tuple:
+        return self.mesh.psum(acc)
 
 
 def _backend(data, mesh, prefetch, device):
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded streamed solves (_MeshStream) are not ported yet "
-            "(ROADMAP queue A item 10)")
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        return _MeshStream(data, mesh, prefetch)
     return _SingleDeviceStream(data, device, prefetch)
 
 
@@ -320,14 +445,17 @@ def _restore_history(st: dict, history: int, d: int, device) -> _History:
     return hs
 
 
-def _restore_z_cache(st: dict, data, z_host: torch.Tensor) -> None:
+def _restore_z_cache(st: dict, data, z_host: torch.Tensor, mesh) -> None:
     """The per-chunk cached margins out of a snapshot, into the rows of
     ``z_host``: slot-keyed (schema v2, from any number of writing
-    processes) or a v1 packed vector, re-padded to the chunk height (pad
-    rows carry weight 0)."""
+    processes and any mesh) or a v1 packed vector, re-padded to this
+    layout's chunk height (pad rows carry weight 0) and re-sliced to its
+    local slots."""
+    pad = data.mesh_chunk_rows(mesh) if mesh is not None else data.chunk_rows
     for i in range(data.n_chunks):
-        z_host[i].copy_(torch.from_numpy(_ckpt.unpack_row_slots(
-            st, f"z{i}", None, data.chunk_rows, data.chunk_rows)))
+        z_host[i].copy_(torch.from_numpy(np.ascontiguousarray(
+            _ckpt.unpack_row_slots(st, f"z{i}", mesh, pad,
+                                   data.chunk_rows)).reshape(-1)))
 
 
 def _restore_vector(st: dict, key: str, device) -> torch.Tensor:
@@ -360,9 +488,13 @@ def _result(w, value, gnorm, it, converged, failed, hist, ghist,
 
 
 def _acc(acc, parts):
-    """Partials summed in chunk order (the first chunk's as they are)."""
-    return parts if acc is None else tuple(
-        None if a is None else a + b for a, b in zip(acc, parts))
+    """Partials summed in chunk order (the first chunk's as they are); a
+    mesh's per-slot partials slot by slot."""
+    if acc is None:
+        return parts
+    if isinstance(parts, SlotParts):
+        return SlotParts(_acc(a, p) for a, p in zip(acc, parts))
+    return tuple(None if a is None else a + b for a, b in zip(acc, parts))
 
 
 # --------------------------------------------------------- streamed L-BFGS
@@ -378,19 +510,22 @@ def minimize_lbfgs_streamed(obj, data, w0: torch.Tensor,
     feature_streams``, ``solver.evaluations``, ``solver.linesearch_trials``,
     ``solver.iterations``, ``solver.margin_cache.hits`` / ``.refreshes``;
     ``checkpoint.solver_restores`` when it resumed from the current
-    `checkpoint` session's snapshot. ``mesh`` waits for ROADMAP queue A
-    item 10."""
+    `checkpoint` session's snapshot. ``mesh`` (a `parallel.mesh.Mesh`)
+    streams every chunk row-sharded over its slots, one reduction per
+    evaluation; ``w0`` then lives on the mesh's home device."""
     with K.scope(kernels):
         return _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
                                max_ls_evals, mesh, prefetch)
 
 
-def _pack_lbfgs_state(d, data, max_iters, it, f, g0norm, hist, ghist,
-                      converged, failed, done, w, g, hist_st, z_host, z_gen,
-                      evals, trials) -> dict:
+def _pack_lbfgs_state(d, data, mesh, max_iters, it, f, g0norm, hist,
+                      ghist, converged, failed, done, w, g, hist_st, z_host,
+                      z_gen, evals, trials) -> dict:
     extra: dict = {}
     for i in range(data.n_chunks):
-        extra.update(_ckpt.pack_row_slots(z_host[i], None, data.chunk_rows,
+        local = z_host[i] if mesh is None else z_host[i].view(mesh.n_local,
+                                                              -1)
+        extra.update(_ckpt.pack_row_slots(local, mesh, data.chunk_rows,
                                           prefix=f"z{i}"))
     extra["z_gen"] = int(z_gen)
     return _pack_stream_state("lbfgs_streamed", d, data.n_chunks,
@@ -417,7 +552,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         w = _restore_vector(st, "w", w.device)
         g = _restore_vector(st, "g", w.device)
         hist_st = _restore_history(st, history, d, w.device)
-        _restore_z_cache(st, data, z_host)
+        _restore_z_cache(st, data, z_host, mesh)
         f, g0norm = float(st["f"]), float(st["g0norm"])
         (hist, ghist, it, converged, failed, done, evals,
          trials) = _restore_common(st)
@@ -431,7 +566,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         acc = None
         for i, b in be.iter_chunks():
             acc = _acc(acc, be.chunk_init(obj, w, b, z_host[i]))
-        f_dev, g = obj.finish_value_grad(w, acc)
+        f_dev, g = be.finish(obj, w, acc)
         f, g0norm = _floats(f_dev, torch.linalg.vector_norm(g))
         be.sync()
         evals += 1
@@ -447,8 +582,9 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         if ck is not None:
             # the it=0 cut: resuming from here replays a cold start
             ck.update("lbfgs_streamed", _pack_lbfgs_state(
-                d, data, max_iters, it, f, g0norm, hist, ghist, converged,
-                failed, done, w, g, hist_st, z_host, z_gen, evals, trials))
+                d, data, mesh, max_iters, it, f, g0norm, hist, ghist,
+                converged, failed, done, w, g, hist_st, z_host, z_gen, evals,
+                trials))
             ck.maybe_snapshot()
     zn, dzn = z_host.numpy(), dz_host.numpy()
     while not done and it < max_iters:
@@ -472,7 +608,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         for i, b in be.iter_chunks():
             phis = _acc(phis, be.chunk_dz_phi(obj, p, z_host[i], a32, b,
                                               dz_host[i]))
-        wl0, wd0 = _floats(*phis)
+        wl0, wd0 = _floats(*be.totals(phis))
         be.sync()
         rv, rd = reg_ray(a_init)
         first_eval = (wl0 + rv, wd0 + rd)
@@ -492,7 +628,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
             for i in range(n_chunks):
                 acc_phi = _acc(acc_phi, be.chunk_phi(obj, i, z_host[i],
                                                      dz_host[i], a32))
-            wl, wd = _floats(*acc_phi)
+            wl, wd = _floats(*be.totals(acc_phi))
             _eval_tick(ck)
             rv, rd = reg_ray(a)
             return wl + rv, wd + rd
@@ -522,7 +658,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
                 else:
                     parts = be.chunk_grad(obj, z_host[i], b)
                 acc = _acc(acc, parts)
-            _, g_new = obj.finish_value_grad(w_new, acc)
+            _, g_new = be.finish(obj, w_new, acc)
             _eval_tick(ck)
             f_new = f_star  # the accepted trial's value, as the resident
             # margin solver keeps it
@@ -543,8 +679,9 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         if ck is not None:
             # the iteration boundary: the crash-consistency cut
             ck.update("lbfgs_streamed", _pack_lbfgs_state(
-                d, data, max_iters, it, f, g0norm, hist, ghist, converged,
-                failed, done, w, g, hist_st, z_host, z_gen, evals, trials))
+                d, data, mesh, max_iters, it, f, g0norm, hist, ghist,
+                converged, failed, done, w, g, hist_st, z_host, z_gen, evals,
+                trials))
             ck.maybe_snapshot()
 
     (gnorm,) = _floats(torch.linalg.vector_norm(g))
@@ -615,8 +752,8 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
         telemetry.count("solver.evaluations")
         acc = None
         for _, b in be.iter_chunks():
-            acc = _acc(acc, obj.chunk_value_grad_partials(w_at, b)[1])
-        f_dev, g_at = obj.finish_value_grad(w_at, acc)
+            acc = _acc(acc, be.chunk_grad_at(obj, w_at, b))
+        f_dev, g_at = be.finish(obj, w_at, acc)
         _eval_tick(ck)
         return f_dev, g_at
 
@@ -686,8 +823,9 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
             telemetry.count("solver.linesearch_trials", Kb)
             acc = None
             for _, b in be.iter_chunks():
-                acc = _acc(acc, (be.chunk_value_many(obj, W.t(), b),))
-            host = torch.stack([acc[0], rv, l1t, dec]).cpu().numpy()
+                acc = _acc(acc, be.chunk_value_many(obj, W.t(), b))
+            (vals,) = be.totals(acc)
+            host = torch.stack([vals, rv, l1t, dec]).cpu().numpy()
             _eval_tick(ck, Kb)
             vals, rv_h, l1t_h, dec_h = host.astype(np.float64)
             F_cand = vals + rv_h + l1t_h

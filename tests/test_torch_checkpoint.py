@@ -481,15 +481,31 @@ def test_async_writer_error_raises_at_the_next_call(tmp_path):
 
 
 def test_multi_process_and_mesh_forms_raise_item_10(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        checkpoint.pack_rows(np.zeros(4), object(), 4)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        checkpoint.pack_row_slots(np.zeros(4), object(), 4, "z0")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        checkpoint.unpack_row_slots({}, "z0", object(), 4, 4)
-    monkeypatch.setattr(pstore, "_process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        checkpoint.SnapshotStore(str(tmp_path / "mp")).commit({}, 0)
+    """The mesh forms (ported; they raised before): row caches pack per
+    slot and re-slice onto another mesh, and a rank other than 0 writes
+    only its slot-keyed entries (rank 0 the replicated ones and the
+    manifest)."""
+    from photon_tpu_torch.parallel import mesh as PM
+
+    m8 = PM.make_mesh(n_devices=8, device="cpu")
+    m4 = PM.make_mesh(n_devices=4, device="cpu")
+    rows = np.arange(16, dtype=np.float32)
+    local = rows.reshape(8, 2)
+    np.testing.assert_array_equal(checkpoint.pack_rows(local, m8, 15),
+                                  rows[:15])
+    packed = checkpoint.pack_row_slots(local, m8, 15, "z0")
+    assert sorted(packed) == [f"z0@s{j:04d}" for j in range(8)]
+    np.testing.assert_array_equal(
+        checkpoint.unpack_row_slots(packed, "z0", m4, 16, 15),
+        np.concatenate([rows[:15], [0.0]]).reshape(4, 4))
+    monkeypatch.setattr(pstore, "_process_index", lambda: 1)
+    store = checkpoint.SnapshotStore(str(tmp_path / "mp"))
+    store.commit({"s": {"w": np.ones(3, np.float32), "z0@s0004":
+                        np.zeros(2, np.float32), "it": 3}}, 0)
+    meta = json.load(open(tmp_path / "mp" / "snap_00000000" /
+                          "meta_p1.json"))
+    assert list(meta["entries"]["s"]) == ["z0@s0004"]
+    assert store.read_manifest() is None  # rank 0 commits the manifest
 
 
 def test_row_slots_v1_and_multi_slot_payloads_restore_on_one_device():

@@ -677,15 +677,19 @@ def test_compact_rows_matches_reference(pad_rows):
 
 
 def test_mesh_parts_raise_with_their_item():
-    for name in ("make_mesh", "data_sharding", "shard_rows"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 10\\b"):
-            getattr(PM, name)
+    """The hybrid replica x data mesh still raises naming its item; the
+    rest of the mesh module is ported (`compact_rows` onto a mesh shards
+    the block over its slots; tests/test_torch_mesh.py holds the rest)."""
     with pytest.raises(NotImplementedError,
                        match="ROADMAP queue A item 10\\b"):
-        PM.compact_rows((torch.zeros(3),), [0], mesh=object())
+        PM.make_hybrid_mesh()
+    mesh = PM.make_mesh(n_devices=2, device="cpu")
+    got = PM.compact_rows((torch.arange(6.0),), [4, 0], mesh=mesh)[0]
+    assert torch.equal(got.local(), torch.tensor([4.0, 0.0]))
     with pytest.raises(AttributeError):
         PM.no_such_name  # noqa: B018
+    with pytest.raises(AttributeError):
+        PM.data_sharding  # noqa: B018
 
 
 @pytest.mark.parametrize("sparse", [False, True])

@@ -305,8 +305,11 @@ def test_feature_summary_matches_reference(avro, tmp_path):
          ).astype(np.float32)
     assert_summary_close(FeatureSummary.compute(X, device="cpu"),
                          RFS.compute(X))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FeatureSummary.compute(X, mesh=object(), device="cpu")
+    # over an 8-slot mesh (ported; it raised before): the same summary
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    assert_summary_close(FeatureSummary.compute(
+        X, mesh=make_mesh(n_devices=8, device="cpu")), RFS.compute(X))
 
 
 def test_build_manifest_matches_reference(avro):

@@ -285,10 +285,22 @@ def test_ladder_from_avro_and_its_cache(dataset, tmp_path):
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
         assert torch.equal(got.X.inv_perm, torch.as_tensor(want.X.inv_perm))
         assert got.X.last_col_pos == want.X.last_col_pos
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PIP.chunk_blocked_ell_from_avro(root, pcfg, scan.index_maps,
-                                        "other", 256, d_dense=64,
-                                        sparse_k=4, n_shards=2)
+    # a ladder laid for a 2-slot mesh (ported; it raised before), through
+    # the cache too: each chunk the pair of shards `chunk_blocked_ell`
+    # lays from the in-memory read
+    mesh_kw = dict(kw, cache_dir=str(tmp_path / "mesh_ladder"))
+    want2 = chunk_blocked_ell(make_batch(one.shards["other"], one.y,
+                                         one.weights, one.offsets,
+                                         device=CPU), 256, d_dense=64,
+                              feature_dtype=torch.bfloat16, n_shards=2)
+    for _ in range(2):  # cold, then a cache hit
+        got2 = PIP.chunk_blocked_ell_from_avro(
+            root, pcfg, scan.index_maps, "other", 256, n_shards=2,
+            **mesh_kw)
+        assert got2.X.chunk_shards == 2
+        for a, b in zip(got2.X.chunks, want2.X.chunks):
+            for x, y in zip(_leaves(a), _leaves(b)):
+                assert x.dtype == y.dtype and torch.equal(x, y)
 
 
 def test_adaptive_prefetch_decides_as_reference():

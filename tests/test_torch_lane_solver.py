@@ -554,16 +554,23 @@ def test_lane_weight_arrays_match_reference():
 # ---------------------------------------------------------- what raises
 @pytest.mark.parametrize("what", ["mesh", "chunked"])
 def test_grid_parts_still_to_port_raise(what):
-    """Meshes (item 10) raise, naming their ROADMAP item; a streamed batch
-    (a host `ChunkedBatch`) raises the reference's ValueError: streamed
-    mode has no lane grid (each point is a train_glm solve). Normalization,
+    """Meshes are ported (tests/test_torch_mesh.py holds the grid on a
+    mesh); a one-device `BlockedEllRows` under a mesh raises the
+    reference's ValueError (its buckets cannot be row-sharded: the mesh
+    form is `shard_blocked_ell_batch`). A streamed batch (a host
+    `ChunkedBatch`) raises the reference's ValueError: streamed mode has
+    no lane grid (each point is a train_glm solve). Normalization,
     priors, FULL variances and SparseRows grids are ported
     (test_torch_prior_norm.py holds them)."""
     _, pb = small_bell()
     _, pcfg = _configs(iters=2)
     if what == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 10\\b"):
+        from photon_tpu_torch.parallel.mesh import make_mesh
+
+        with pytest.raises(ValueError, match="single-device"):
+            T.train_glm_grid(pb, LOGISTIC, pcfg, [0.1, 1.0],
+                             mesh=make_mesh(n_devices=8, device=CPU))
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             T.train_glm_grid(pb, LOGISTIC, pcfg, [0.1, 1.0], device=CPU,
                              mesh=object())
         return

@@ -667,19 +667,20 @@ def test_streamed_raises():
         T.train_glm(pcb, task, cfg, prior=full, device=CPU)
     with pytest.raises(ValueError, match="no lane-minor grid"):
         T.train_glm_grid(pcb, task, cfg, [0.1, 1.0], device=CPU)
-    item(10, lambda: T.train_glm(pcb, task, cfg, mesh=object(), device=CPU))
-    item(10, lambda: S.minimize_lbfgs_streamed(
-        Objective(task), pcb, torch.zeros(300), mesh=object()))
-
-    item(10, lambda: pcb.device_ring(device=CPU, mesh=object()))
-    item(10, lambda: next(pcb.iter_device(device=CPU, mesh=object())))
-    item(10, lambda: pcb.mesh_chunk(0, object()))
-    item(10, lambda: D.mesh_chunk_matrix(None, object()))
+    # meshes are ported (tests/test_torch_mesh.py); a mesh must be one
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        T.train_glm(pcb, task, cfg, mesh=object(), device=CPU)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        S.minimize_lbfgs_streamed(Objective(task), pcb, torch.zeros(300),
+                                  mesh=object())
+    with pytest.raises(TypeError, match="expects ShardedBlockedEllRows"):
+        D.mesh_chunk_matrix(None, object())
+    # GAME's streamed scoring on a mesh waits for the GAME half of item 10
     item(10, lambda: score_chunked_host(pcb.X, torch.zeros(300),
                                        mesh=object()))
     ind, val, y = coo(n=64)
     sp = D.make_batch(M.SparseRows(ind, val, 3000), y, device=CPU)
-    item(10, lambda: D.chunk_blocked_ell(sp, 32, n_shards=2))
+    assert D.chunk_blocked_ell(sp, 32, n_shards=2).X.chunk_shards == 2
     with pytest.raises(TypeError, match="chunk_blocked_ell"):
         D.chunk_matrix(M.to_blocked_ell(sp.X, 16, device=CPU), 16)
     with pytest.raises(TypeError, match="expects SparseRows"):

@@ -249,9 +249,26 @@ def test_stream_to_device_cpu_equals_reference(tmp_path, wide):
     X = b16.shards["other"]
     assert (X.values if wide else X).dtype == torch.bfloat16
     assert_data(b16, rb16)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PST.stream_to_device(root, pcfg, maps, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # over an 8-slot mesh (ported; it raised before): the same rows, slot
+    # by slot, then weight-0 padding (1,200 rows divide 8 slots: none)
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_devices=8, device=CPU)
+    md, mn = PST.stream_to_device(root, pcfg, maps, mesh=mesh,
+                                  chunk_rows=300, sparse_k=k)
+    assert mn == 1200 and md.y.rows_per_slot == 150
+    for f in ("y", "weights", "offsets"):
+        assert torch.equal(getattr(md, f).local(), getattr(data, f))
+    for s in pcfg.shards:
+        X, Xm = data.shards[s], md.shards[s]
+        if isinstance(X, torch.Tensor):
+            assert torch.equal(Xm.local(), X)
+        else:
+            for f in ("indices", "values"):
+                assert torch.equal(torch.cat([getattr(p, f)
+                                              for p in Xm.parts]),
+                                   getattr(X, f))
+    with pytest.raises(ValueError, match="pass the mesh"):
         PST.stream_to_device(root, pcfg, maps, local_only=True, device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -399,15 +399,23 @@ def test_train_glm_default_device_raises_without_gpu():
 
 @pytest.mark.parametrize("what", ["mesh", "chunked"])
 def test_train_glm_parts_still_to_port_raise(what):
-    """Meshes (item 10) raise, naming their ROADMAP item; a streamed batch
-    (a host `ChunkedBatch`, item 5, now ported) solves, and takes the
-    resident solve's steps (test_torch_streamed.py holds it against the
+    """Meshes are ported (tests/test_torch_mesh.py holds them against the
+    reference's 8-device mesh); a one-device `BlockedEllRows` under a mesh
+    raises the reference's ValueError (the mesh form is
+    `shard_blocked_ell_batch`), and a mesh that is not a
+    `parallel.mesh.Mesh` a TypeError. A streamed batch (a host
+    `ChunkedBatch`, item 5, now ported) solves, and takes the resident
+    solve's steps (test_torch_streamed.py holds it against the
     reference); priors, normalization and FULL variances are ported."""
     _, pb = problem(n=64, d=200)
     cfg = _configs(iters=2)[1]
     if what == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 10\\b"):
+        from photon_tpu_torch.parallel.mesh import make_mesh
+
+        with pytest.raises(ValueError, match="single-device"):
+            T.train_glm(pb, L.TaskType.LOGISTIC_REGRESSION, cfg,
+                        mesh=make_mesh(n_devices=8, device=CPU))
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             T.train_glm(pb, L.TaskType.LOGISTIC_REGRESSION, cfg, device=CPU,
                         mesh=object())
         return
