@@ -8,9 +8,10 @@ and scored Avro out) and its streamed data plane (the native Avro
 decoder, the ingest plane, the training driver's streamed regimes) and
 its continual refresh (delta plan, compacted re-solve, hot swap into a
 live int8 ladder), its elastic runs (checkpoint/restore of the
-streamed solvers, GAME's descent and the training driver) and its
-multi-GPU GLM training (the slot mesh in one process and in several) on
-one GPU.
+streamed solvers, GAME's descent and the training driver), its
+multi-GPU GLM training (the slot mesh in one process and in several) and
+GAME on the mesh (entity lanes over the slots, the mesh refresh, the
+driver and the GAME grid on a mesh) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -176,8 +177,8 @@ GM. GAME at benches/game_10m.py's full width — 10,000,000 rows, 100,000
    counts per sweep, seconds per coordinate update, a profiled warm
    sweep's device-busy share and top device ops, scoring time, AUC of
    GAME against the fixed effect alone (numpy rank sum; GAME must win);
-   then 64 entities of each random effect drawn from the seed, solved as
-   lanes of their buckets and each alone through `train_glm` on its
+   then GM_CHECK entities of each random effect drawn from the seed,
+   solved as lanes of their buckets and each alone through `train_glm` on its
    bucket's rows with the same offsets (solves stopped at tolerance
    1e-3): iterations equal, loss histories within rtol 1e-5;
 GG. GM's model as a 4-lane grid over the per-user L2 weight (1.25, 2.5,
@@ -272,8 +273,9 @@ CR. continual refresh at GM's widths: (a) the previous model
    1e-3 — diff and refresh seconds, per coordinate touched and deferred
    entities, buckets, solves, iterations, seconds, rows/s, peak memory;
    held: untouched rows and the fixed effect bit for bit, no failed
-   entity, 1,000 deferred, 64 touched users against `train_glm` alone
-   (prior, warm start, offsets) and against a refresh of those 64 alone;
+   entity, 1,000 deferred, GM_CHECK touched users against `train_glm`
+   alone (prior, warm start, offsets) and against a refresh of those
+   alone;
    (c) a second drop with 8 more touched users in a bucket with free
    lanes, refreshed at GM's config as it is: no new solve signature
    (`assert_no_retrace`); (d) `hot_swap` into a live store behind an int8
@@ -355,6 +357,40 @@ CK. elastic runs (in-process kills: an injected fault, then a fresh
    dispatch mode —, the same bits) and with ``resident_tap=True``
    (the tapped iteration count and w, mapped back to model order, equal
    the result's bit for bit).
+GMM. GAME on the in-process MG_SLOTS-slot mesh (all slots on the one
+   card), its legs inside the phases whose data they reuse: (a) after
+   GM's scoring, GM's estimator and data with ``mesh=`` (the fixed shard
+   row-sharded, every bucket's lanes split over the slots): sharding
+   seconds, a cold fit and a warm refit (row-sweeps/s), peak memory,
+   random-effect lock-step solves a sweep (at most 8x GM's), a profiled
+   warm sweep's idle share; held against GM's warm fit: the fixed effect
+   within atol 2e-3 (the reference's mesh bound) and the AUC on 2^18
+   held-out rows within 1e-4, the entities apart beyond rtol 1e-5
+   reported (§C16: every solve runs to the f32 floor), then both fits
+   again with every solve stopped at RE_CHECK_TOL, where at most 0.1% of
+   each random effect's entities (or twice the one-ulp nudge's count)
+   may part, none by more than twice the nudge's largest gap; (b) after
+   GK (a): GK (a)'s
+   fixed shard laid for the slots (every value leaf bf16), rows 2 and 4
+   on every slot's shard against their plain versions (1 and 8 lanes,
+   (X∘X)ᵀr too), the one-sweep fit through them (launches counted,
+   reset just before and read just after) held against GK (a) at those
+   bounds; (d) beside GK: (b)'s problem at 2^16 rows and one sweep
+   fitted by 2 gloo processes sharing the card (`parallel.launch`), its
+   digest (every table) equal to the in-process mesh's bit for bit, then
+   killed at ``bucket_retire#2`` on both ranks and resumed in this
+   process to the same digest; (c) in CR after (b): the same refresh on
+   the mesh (touched lanes padded to a slot multiple, solved slot by
+   slot), held against CR (b)'s at (a)'s entity bounds — its generation
+   is the one CR (d) hot-swaps into the live int8 ladder; (e) in DRV
+   after CK (c): DRV (a)'s Avro and parameters, every solve stopped at
+   RE_CHECK_TOL, through `run_training(mesh=)` and `run_training` on one
+   device (the best model only; a third run on one device reads a copy
+   of the training Avro whose row weights sit one ulp above 1), the same
+   best point, held at (a)'s bounds; (f) after GG: GG's 4-lane grid at
+   2^21 rows, every solve at
+   RE_CHECK_TOL, on one device and on the mesh (`fit_game_grid(mesh=)`),
+   each lane at (a)'s bounds.
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
@@ -367,9 +403,10 @@ under ``drv_launches`` and in DRV-S's main-path runs — (b)'s streamed
 driver run, (c)'s streamed objective and (d)'s ladder solve, each
 counted alone — under ``drvs_launches``, after CR (d)'s hot swap
 under ``cr_launches``, in CK's armed and resumed runs and (d)'s
-tapped solve under ``ck_launches``, and in MG (a)'s mesh solve under
-``mg_launches``), the card's name and power limit as nvidia-smi reports
-them, and last
+tapped solve under ``ck_launches``, in MG (a)'s mesh solve under
+``mg_launches``, and in GMM's legs — (b)'s mesh fit, (d)'s two
+processes, the rung after (c)'s swap — under ``gmm_launches``), the
+card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
 """
@@ -417,14 +454,15 @@ G_TRON = [1.0, 3.0, 10.0, 30.0]    # the TRON lanes on T2's layout
 GM_ROWS, GM_USERS, GM_ITEMS = 10_000_000, 100_000, 50_000
 GM_D_FIXED, GM_D_RE, GM_SWEEPS = 32, 4, 2
 GM_FIXED, GM_RE = (30, 1.0), (15, 5.0)
-# GM's check re-solves this many entities of each random effect alone.
+# GM's check re-solves this many entities of each random effect alone
+# (and CR (b)'s this many touched users; cut from 64 for GMM's time).
 # Its gate and GK stop each entity's solve at a relative progress of
 # RE_CHECK_TOL: these small entity problems reach the f32 floor within a
 # few iterations, where two solves that sum in other orders (a lane and a
 # single solve; runs on offsets a rounding apart) stop or step on
 # rounding; a stop at 1e-3 is a decision rounding cannot flip. GM also
 # runs the check at its timed configuration and reports where it parts
-GM_CHECK, RE_CHECK_TOL = 64, 1e-3
+GM_CHECK, RE_CHECK_TOL = 32, 1e-3
 GK_ROWS = 1 << 19  # GAME through the kernels: T2's width at this depth
 # validation-driven selection: E's held-out rows on their own layout (T2's
 # planted w_true, rows from seed + E_SEED); GG's grid over the per-user L2
@@ -490,6 +528,31 @@ MG_SLOTS, MG_ITERS_C = 8, 10
 # from its one device), so held at 10x the largest 40th reading; a slot
 # dropped from the reduction moves the loss by about 1/8
 MG_PART_RTOL = 5e-3
+# phase GMM: GAME on the in-process MG_SLOTS-slot mesh, its legs inside the
+# phases whose data they reuse. Bounds against one device: the fixed
+# effect within the reference's own mesh-against-single atol
+# (tests/test_game.py:226-233), the validation AUC within GMM_AUC_GAP,
+# and at most GMM_ENTITY_SHARE of each random effect's entities beyond
+# rtol 1e-5 (ROADMAP §C8's bound; or twice as many as a one-ulp nudge of
+# the row weights moves apart on one device, none by more than
+# GMM_GAP_FACTOR times the nudge's largest gap) where every solve stops at
+# a relative progress of RE_CHECK_TOL: at GM's timed configuration (1e-7) a fixed
+# effect stops at the f32 floor a rounding apart on each side and every
+# entity follows its offsets (§C16), so there the share is reported. (d)
+# cuts GK (b) to GMM_D_ROWS rows and one sweep, (f) GG to GMM_F_ROWS rows
+# at RE_CHECK_TOL; (a) and (f) score GMM_VAL_ROWS held-out rows of GM's
+# planted model (from seed + GMM_SEED)
+GMM_FIXED_ATOL, GMM_ENTITY_SHARE, GMM_AUC_GAP = 2e-3, 1e-3, 1e-4
+GMM_GAP_FACTOR = 2.0
+# GMM (d)'s two clusters each ran in under 30 s with their start; a hung
+# one is stopped and fails the phase well inside the script's limit
+GMM_D_TIMEOUT_S = 180.0
+GMM_D_ROWS, GMM_F_ROWS, GMM_VAL_ROWS, GMM_SEED = 1 << 16, 1 << 21, 1 << 18, \
+    606
+# GMM's kernel launches, summed over its legs (each reset just before its
+# main path and read just after): (b)'s mesh fit, (d)'s processes, the
+# rung after (c)'s swap
+GMM_LAUNCHES: dict = {}
 
 
 def log(*a) -> None:
@@ -1374,9 +1437,8 @@ def device_ops(fn, budget=None) -> dict:
         if old is not None:
             os.environ[K.ENV_BUDGET] = old
     ops: dict = {}
-    for ev in sorted(prof.events(), key=lambda ev: ev.time_range.start):
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            ops[ev.name] = ops.get(ev.name, 0) + 1
+    for name, _ in device_events(prof):
+        ops[name] = ops.get(name, 0) + 1
     return ops
 
 
@@ -1391,12 +1453,10 @@ def solve_profile(batch, cfg, dev, solve=None):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, wall = solve_timed(batch, cfg, dev, solve)
     by_name, counts, n_ops = {}, {}, 0
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us())
-            counts[ev.name] = counts.get(ev.name, 0) + 1
-            n_ops += 1
+    for name, t in device_events(prof):
+        by_name[name] = by_name.get(name, 0.0) + t
+        counts[name] = counts.get(name, 0) + 1
+        n_ops += 1
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return ((busy_us / 1e6 if busy_us > 0 else None), n_ops, top, wall,
@@ -3337,6 +3397,16 @@ def auc(scores: np.ndarray, y: np.ndarray) -> float:
                  / (n_pos * n_neg))
 
 
+def device_events(prof) -> list:
+    """[(name, us)] of every device op (kernel, copy, set) a torch.profiler
+    run recorded, read from its raw trace: the profiler's own event
+    objects take about 0.1 ms each to build on the host, a minute for the
+    ~4e5 ops of a mesh sweep."""
+    return [(ev.name(), ev.duration_ns() / 1e3)
+            for ev in prof.profiler.kineto_results.events()
+            if str(ev.device_type()).endswith("CUDA")]
+
+
 def profiled_busy(fn):
     """(device busy s, wall s, device op count, the five device ops that
     took the most time [(name, us, launches)]) of ``fn()`` under
@@ -3353,10 +3423,9 @@ def profiled_busy(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict = {}
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            us, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    for name, t in device_events(prof):
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + t, n + 1)
     us = sum(v[0] for v in by_name.values())
     n_ops = sum(v[1] for v in by_name.values())
     top = sorted(((k, v[0], v[1]) for k, v in by_name.items()),
@@ -3448,6 +3517,7 @@ def phase_game(args, dev, gpu) -> dict:
     import torch
 
     from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
     from photon_tpu_torch.data.dataset import make_batch
     from photon_tpu_torch.game.dataset import GameData
     from photon_tpu_torch.game.random_effect import lane_chunk
@@ -3502,7 +3572,9 @@ def phase_game(args, dev, gpu) -> dict:
     lap("GM data")
     K.reset_launch_counts()
     cold, cold_s = fit_timed(est, data)
+    telemetry.reset()
     warm, warm_s = fit_timed(est, data)
+    warm_counters = dict(telemetry.snapshot()["counters"])
     launches = K.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     hist = warm.descent.objective_history
@@ -3566,6 +3638,10 @@ def phase_game(args, dev, gpu) -> dict:
         f"fixed-only {f_auc:.6f}")
 
     lap("GM scoring")
+    gmm_val = gmm_data(args.seed + GMM_SEED, GMM_VAL_ROWS, dev,
+                       model_seed=args.seed)
+    gmm_game(est, data, warm, warm_counters, gmm_val, dev, gpu)
+    lap("GMM (a)")
     # the lane-batched per-entity solves against single solves
     parts = coordinate_scores(warm.model, data)
     coords = {c.dataset.shard_name: c for c in ccache.values()}
@@ -3584,6 +3660,9 @@ def phase_game(args, dev, gpu) -> dict:
     lap("GM entity checks")
     gg = phase_game_grid(args, est, data, dev, gpu)
     lap("GG")
+    gmm_grid(est, data, gmm_val, dev, gpu)
+    del gmm_val
+    lap("GMM (f)")
     gs = game_streamed(est, data, warm, game_auc, cfg_f, dev, gpu)
     lap("GS")
     phase_ck_game(est, data, dev, gpu)
@@ -4192,6 +4271,9 @@ def phase_game_kernels(args, dev, gpu) -> dict:
     decides on that rounding parts: those are counted with their largest
     gap, and both fits' random effects re-solved from the same offsets
     must agree bit for bit."""
+    import shutil
+    import tempfile
+
     import torch
 
     from photon_tpu_torch import kernels as K
@@ -4209,7 +4291,6 @@ def phase_game_kernels(args, dev, gpu) -> dict:
     X = to_blocked_ell(SparseRows(ind, va, T_FEATURES), T_DENSE,
                        device_dense_dtype=torch.bfloat16,
                        device=dev).astype(torch.bfloat16)
-    del ind, va
     shards = {"u": SparseRows(*re["u"], D_RE), "i": SparseRows(*re["i"],
                                                                 D_RE)}
     ids = {"user": uid, "item": iid}
@@ -4231,6 +4312,14 @@ def phase_game_kernels(args, dev, gpu) -> dict:
          OptimizerConfig(max_iters=D_SHORT, tolerance=0.0, reg=l1(),
                          reg_weight=D_L1, history=D_HISTORY),
          VarianceComputationType.NONE, (KF.KERNEL,), False))
+    # GMM (d): (a)'s configuration cut in depth, fitted by 2 processes
+    # beside (a) and (b) here
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckdir = tempfile.mkdtemp(prefix="_drv_gmm", dir=here)
+    gmm_cfgs = game_estimator(dev, cases[0][2], re_cfg, 1, shards=(
+        "fixed", "u", "i")).coordinate_configs
+    started = gmm_processes_start(args.seed + 5 + GMM_SEED, gmm_cfgs,
+                                  cases[0][3], ckdir)
     for label, Xfix, cfg_f, var, names, strict in cases:
         if Xfix is None:
             Xd, yd = dense_problem(args.seed)
@@ -4263,6 +4352,11 @@ def phase_game_kernels(args, dev, gpu) -> dict:
         resolve_agree(f"GK {label}", est_off, data, want, dev)
         if strict:
             entity_pass_costs(est, data, gpu)
+            lap("GK (a)")
+            gmm_kernels(ind, va, y, shards, ids, cfg_f, re_cfg, var, got,
+                        data, dev, gpu)
+            del ind, va
+            lap("GMM (b)")
         for name, c in counts.items():
             launches[name] = launches.get(name, 0) + c
         log(f"GK {label}: one sweep in {wall:.3f} s on the default route, "
@@ -4281,14 +4375,545 @@ def phase_game_kernels(args, dev, gpu) -> dict:
         torch.cuda.empty_cache()
     del X
     torch.cuda.empty_cache()
+    lap("GK (b)")
+    try:
+        gmm_processes_finish(started, gmm_cfgs, cases[0][3], ckdir, gpu)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    lap("GMM (d)")
     return launches
 
 
+# ---------------------------------------- phase GMM: GAME on the mesh
+def gmm_count(launches: dict) -> None:
+    for name, c in launches.items():
+        GMM_LAUNCHES[name] = GMM_LAUNCHES.get(name, 0) + c
+
+
+def gmm_mesh():
+    """The in-process MG_SLOTS-slot mesh on the visible cards."""
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_devices=MG_SLOTS)
+
+
+def gmm_data(seed: int, rows: int, dev, model_seed=None):
+    """GM's rows (`game_10m_data`) as a GameData: the fixed shard bf16 on
+    the card, the per-entity shards host numpy."""
+    import torch
+
+    from photon_tpu_torch.game.dataset import GameData
+
+    Xf, Xu, Xi, uid, iid, y = game_10m_data(seed, rows, model_seed)
+    return GameData.build(y, shards={
+        "fixed": torch.from_numpy(Xf).to(dev).to(torch.bfloat16),
+        "u_re": Xu, "i_re": Xi}, entity_ids={"user": uid, "item": iid})
+
+
+def model_auc(model, data) -> float:
+    """A GAME model's AUC on ``data`` (numpy f64 rank sum of its scores)."""
+    from photon_tpu_torch.game.scoring import score_game
+
+    y = data.y.cpu().numpy() if hasattr(data.y, "cpu") else data.y
+    return auc(score_game(model, data).cpu().numpy().astype(np.float64),
+               np.asarray(y))
+
+
+def entities_off(want, got) -> dict:
+    """{random effect: (entities of two GameModels with a coefficient
+    apart beyond rtol 1e-5 and 1e-5 of the table's largest, of them,
+    largest gap)}."""
+    out = {}
+    for name, wm in want.coordinates.items():
+        if hasattr(wm, "model"):
+            continue
+        a = wm.coefficients.cpu().numpy()
+        b = got.coordinates[name].coefficients.cpu().numpy()
+        off = (np.abs(b - a) > 1e-5 * float(np.abs(a).max())
+               + 1e-5 * np.abs(a)).any(axis=1)
+        out[name] = (int(off.sum()), int(a.shape[0]),
+                     float(np.abs(b - a).max()))
+    return out
+
+
+def gmm_agree(label: str, want, got, auc_want: float, auc_got: float,
+              nudged=None) -> str:
+    """Hold a mesh fit's GameModel ``got`` against the one-device
+    ``want`` at GMM's bounds — the fixed effect within GMM_FIXED_ATOL, the
+    AUC within GMM_AUC_GAP and, given ``nudged`` (``want``'s fit again
+    with the row weights one ulp above 1; fits stopped at RE_CHECK_TOL),
+    §C8's bound as GG holds it: at most GMM_ENTITY_SHARE of each random
+    effect's entities apart (`entities_off`), or twice as many as the
+    nudge moves apart in the one-device fit itself, and none of them
+    further apart than GMM_GAP_FACTOR times the nudge's largest gap —
+    and return the figures as text."""
+    parts = []
+    for name, wm in want.coordinates.items():
+        if not hasattr(wm, "model"):
+            continue
+        a = wm.model.weights.float().cpu().numpy()
+        b = got.coordinates[name].model.weights.float().cpu().numpy()
+        gap = float(np.abs(a - b).max())
+        parts.append(f"{name} max |dw| {gap:.3g}")
+        if gap > GMM_FIXED_ATOL:
+            raise AssertionError(f"{label}: {name} {gap} apart (atol "
+                                 f"{GMM_FIXED_ATOL})")
+    spread = None if nudged is None else entities_off(want, nudged)
+    for name, (k, E, worst) in entities_off(want, got).items():
+        text = (f"{name} {k} of {E} entities beyond rtol 1e-5 ({k / E:.3%};"
+                f" largest gap {worst:.3g})")
+        if spread is not None:
+            k_sp, _, big_sp = spread[name]
+            text += f" [one-ulp nudge on one device: {k_sp}, {big_sp:.3g}]"
+            held_entities(label, name, k, E, worst, k_sp, big_sp)
+        parts.append(text)
+    d_auc = abs(auc_got - auc_want)
+    parts.append(f"AUC {auc_got:.8g} against {auc_want:.8g} ({d_auc:.3g})")
+    if d_auc > GMM_AUC_GAP:
+        raise AssertionError(f"{label}: AUC {d_auc} apart")
+    return "; ".join(parts)
+
+
+def held_entities(label: str, name: str, k: int, E: int, worst: float,
+                  k_sp: int, big_sp: float) -> None:
+    """GMM's entity bound: ``k`` of ``E`` entities apart (largest gap
+    ``worst``) against a one-ulp nudge's ``k_sp`` (largest ``big_sp``) —
+    at most GMM_ENTITY_SHARE of them or twice the nudge's count, and, when
+    any is apart, none beyond GMM_GAP_FACTOR times the nudge's gap (a
+    wrong lane parts by far more than rounding moves one)."""
+    if k > max(GMM_ENTITY_SHARE * E, 2 * k_sp):
+        raise AssertionError(
+            f"{label}: {name}: {k} of {E} entities apart, over "
+            f"{GMM_ENTITY_SHARE:.1%} and twice the one-ulp spread {k_sp}")
+    if k and worst > GMM_GAP_FACTOR * big_sp:
+        raise AssertionError(
+            f"{label}: {name}: an entity {worst:.3g} apart, over "
+            f"{GMM_GAP_FACTOR:g} times the one-ulp nudge's largest gap "
+            f"{big_sp:.3g}")
+
+
+def nudged_weights(data):
+    """``data`` with every row weight one ulp above its own."""
+    w = data.weights
+    if hasattr(w, "cpu"):
+        w = w.cpu().numpy()
+    return dataclasses.replace(data, weights=np.nextafter(
+        np.asarray(w, np.float32), np.float32(2.0)))
+
+
+def gmm_game(est, data, warm, warm_counters: dict, val, dev, gpu) -> None:
+    """GMM (a): GM at full width on the MG_SLOTS-slot mesh — GM's
+    estimator and data with ``mesh=``: the datasets sharded (the fixed
+    shard row-sharded, every bucket's lanes split over the slots at
+    dispatch), a cold fit and a warm refit, peak memory, lock-step solves
+    a sweep against GM's, a profiled warm sweep; held against GM's warm
+    fit."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
+
+    mesh = gmm_mesh()
+    est_m = dataclasses.replace(est, mesh=mesh)
+    dcache, _ = est_m._caches_for(data)
+    gm_cache, _ = est._caches_for(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cfg in est_m.coordinate_configs.values():
+        key = est_m._dataset_key(cfg)
+        # GM's bucketed random-effect datasets serve the mesh as they
+        # are (the mesh's home is GM's card); the fixed shard shards
+        dcache[key] = (gm_cache[key] if key[0] == "random"
+                       else est_m._build_dataset(data, cfg))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    cold, cold_s = fit_timed(est_m, data)
+    telemetry.reset()
+    warm_m, warm_s = fit_timed(est_m, data)
+    c = telemetry.snapshot()["counters"]
+    launches = K.launch_counts()
+    gmm_count(launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    sweeps, n = est.n_sweeps, data.n
+    np.testing.assert_allclose(cold.descent.objective_history,
+                               warm_m.descent.objective_history, rtol=1e-5,
+                               err_msg="GMM (a) cold vs warm fit")
+    lock_m = c.get("game_re.lockstep_solves", 0) / sweeps
+    lock_1 = warm_counters.get("game_re.lockstep_solves", 0) / sweeps
+    if not 0 < lock_m <= MG_SLOTS * lock_1:
+        raise AssertionError(f"GMM (a): {lock_m} lock-step solves a sweep "
+                             f"against {lock_1} on one device")
+    held = gmm_agree("GMM (a)", warm.model, warm_m.model,
+                     model_auc(warm.model, val), model_auc(warm_m.model, val))
+    log(f"GMM (a): GM on a {MG_SLOTS}-slot mesh (slots on "
+        f"{sorted({str(d) for d in mesh.slot_devices})}): the fixed shard "
+        f"sharded in {build_s:.2f} s (GM's buckets reused); cold fit "
+        f"{cold_s:.3f} s, warm refit {warm_s:.3f} s: "
+        f"{n * sweeps / warm_s:.6g} row-sweeps/s; peak "
+        f"device memory {peak_gb:.3f} GB ({base / 1e9:.3f} GB held before "
+        f"the fits); random-effect lock-step solves a sweep {lock_m:g} "
+        f"against {lock_1:g} on one device; mesh reductions "
+        f"{int(c.get('mesh.reductions', 0))}, slot solves "
+        f"{int(c.get('game_re.slot_solves', 0))}; kernel launches "
+        f"{launches or 'none'}  [{gpu}]")
+    log("GMM (a): objective history "
+        + ", ".join(f"{v:.8g}" for v in warm_m.descent.objective_history)
+        + "; against GM's warm fit (" + ", ".join(
+            f"{v:.8g}" for v in warm.descent.objective_history) + ")")
+    est1 = dataclasses.replace(est_m, n_sweeps=1)
+    est1._caches = est_m._caches
+    busy, wall, n_ops, top = profiled_busy(lambda: est1.fit(data))
+    log("GMM (a): profiled warm sweep: device busy "
+        + ("not measured" if busy is None else
+           f"{busy:.3f} s of {wall:.3f} s wall ({busy / wall:.3f} busy, "
+           f"{1 - busy / wall:.3f} idle)")
+        + f", {n_ops} device ops; most device time (ms, launches): "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f}, {k}"
+                    for name, us, k in top) + f"  [{gpu}]")
+    log(f"GMM (a): against GM's one-device warm fit (every solve to the f32 "
+        f"floor: entities reported, §C16), on {GMM_VAL_ROWS} held-out "
+        f"rows: {held}  [{gpu}]")
+    # the entity bound, on fits stopped at RE_CHECK_TOL on both sides (the
+    # datasets of each side shared), beside the one-device fit's own
+    # spread under a one-ulp nudge of the row weights (§C8)
+    cfgs = {name: dataclasses.replace(c, optimizer=dataclasses.replace(
+        c.optimizer, tolerance=RE_CHECK_TOL))
+        for name, c in est.coordinate_configs.items()}
+    fits = []
+    for e, d in ((est, data), (est_m, data), (est, nudged_weights(data))):
+        ec = dataclasses.replace(e, coordinate_configs=cfgs)
+        ec._caches = e._caches
+        fits.append(fit_timed(ec, d))
+        del ec
+    held = gmm_agree("GMM (a) at the check tolerance", fits[0][0].model,
+                     fits[1][0].model, model_auc(fits[0][0].model, val),
+                     model_auc(fits[1][0].model, val), fits[2][0].model)
+    log(f"GMM (a): every solve stopped at a relative progress of "
+        f"{RE_CHECK_TOL:g}: one device {fits[0][1]:.3f} s, the mesh "
+        f"{fits[1][1]:.3f} s; held at GMM's bounds: {held}  [{gpu}]")
+    del est_m, est1, cold, warm_m, fits
+    torch.cuda.empty_cache()
+
+
+def gmm_grid(est_gm, data, val, dev, gpu) -> None:
+    """GMM (f): GG's 4-lane grid (GM's model, per-user L2 GG_USER_L2, no
+    warm starts; every solve stopped at a relative progress of
+    RE_CHECK_TOL) on GM's first GMM_F_ROWS rows, on one device and on the
+    mesh (`fit_game_grid(mesh=)` through the estimator), each lane held
+    at GMM's bounds on the held-out rows."""
+    import torch
+
+    from photon_tpu_torch.evaluation.evaluator import (Evaluator,
+                                                       EvaluatorType)
+    from photon_tpu_torch.game.dataset import GameData
+
+    r = GMM_F_ROWS
+    cut = GameData.build(
+        data.y[:r], shards={k: X[:r] for k, X in data.shards.items()},
+        entity_ids={k: v[:r] for k, v in data.entity_ids.items()})
+    base = {name: dataclasses.replace(c, optimizer=dataclasses.replace(
+        c.optimizer, tolerance=RE_CHECK_TOL))
+        for name, c in est_gm.coordinate_configs.items()}
+    grid = [{"per_user": dataclasses.replace(
+        base["per_user"], optimizer=dataclasses.replace(
+            base["per_user"].optimizer, reg_weight=w))} for w in GG_USER_L2]
+    fits, secs = {}, {}
+    shared: dict = {}
+    for label, mesh, d in (("one device", None, cut),
+                           ("mesh", gmm_mesh(), cut),
+                           ("nudged", None, nudged_weights(cut))):
+        est = dataclasses.replace(est_gm, warm_start=False, mesh=mesh,
+                                  coordinate_configs=base,
+                                  evaluator=Evaluator(EvaluatorType.AUC))
+        if not est.would_vectorize(grid, data=d):
+            raise AssertionError("GMM (f): the grid must take the lane-axis "
+                                 "path")
+        if d is cut:  # the one-device buckets serve the mesh too
+            cache, _ = est._caches_for(cut)
+            cache.update({k: v for k, v in shared.items()
+                          if k[0] == "random"})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[label] = est.fit(d, validation=val, config_grid=grid)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        if d is cut:
+            shared.update(est._caches_for(cut)[0])
+        del est
+    for g, (one, m, nu) in enumerate(zip(fits["one device"], fits["mesh"],
+                                         fits["nudged"])):
+        held = gmm_agree(f"GMM (f) lane {g}", one.model, m.model,
+                         one.validation_score, m.validation_score, nu.model)
+        log(f"GMM (f): lane {g} (user L2 {GG_USER_L2[g]:g}): {held}")
+    log(f"GMM (f): GG's {len(grid)}-lane grid on {r} rows (cut from "
+        f"{data.n}): one device {secs['one device']:.3f} s (bucketing "
+        f"included), the {MG_SLOTS}-slot mesh {secs['mesh']:.3f} s (the "
+        f"fixed shard's sharding included, the buckets shared); every "
+        f"lane held at GMM's bounds  [{gpu}]")
+    del fits, cut, shared
+    torch.cuda.empty_cache()
+
+
+def gmm_kernels(ind, va, y, shards, ids, cfg_f, re_cfg, var, want, data_a,
+                dev, gpu) -> None:
+    """GMM (b): GK (a) on the mesh — T2's sparse fixed shard laid for the
+    slots (`shard_blocked_ell_batch`, every value leaf bf16 as GK's), rows
+    2 and 4 on every slot's shard held against their plain versions, then
+    the one-sweep fit through them (launches counted), held at GMM's
+    bounds against GK (a)'s one-device fit (training rows' AUC)."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.dataset import (cast_features, make_batch,
+                                               shard_blocked_ell_batch)
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.game.dataset import GameData
+    from photon_tpu_torch.kernels import blocked_ell as KB
+
+    mesh = gmm_mesh()
+    t0 = time.perf_counter()
+    sb = cast_features(shard_blocked_ell_batch(make_batch(
+        SparseRows(ind, va, T_FEATURES), y, device="cpu"), MG_SLOTS,
+        T_DENSE))
+    build_s = time.perf_counter() - t0
+    data_m = GameData.build(y, shards={"fixed": sb.X, **shards},
+                            entity_ids=ids)
+    est = game_estimator(dev, cfg_f, re_cfg, 1, variance=var,
+                         shards=("fixed", "u", "i"))
+    est.mesh = mesh
+    dcache, _ = est._caches_for(data_m)
+    fixed_cfg = est.coordinate_configs["fixed"]
+    ds = est._build_dataset(data_m, fixed_cfg)
+    dcache[est._dataset_key(fixed_cfg)] = ds
+    gen = torch.Generator(device=dev).manual_seed(13)
+    mesh_kernels_agree(ds.X, gen, "GMM (b) fixed shard", gpu)
+    K.reset_launch_counts()
+    got, wall = fit_timed(est, data_m)
+    counts = K.launch_counts()
+    for name in (KB.TAIL, KB.RMATVEC):
+        if counts.get(name, 0) == 0:
+            raise AssertionError(f"GMM (b): {name} never launched inside "
+                                 f"the mesh fit ({counts})")
+    gmm_count(counts)
+    est_n = game_estimator(dev, cfg_f, re_cfg, 1, variance=var,
+                           shards=("fixed", "u", "i"))
+    nudged, _ = fit_timed(est_n, nudged_weights(data_a))
+    held = gmm_agree("GMM (b)", want.model, got.model,
+                     model_auc(want.model, data_a.to_device(dev)),
+                     model_auc(got.model, data_m.to_device(dev)),
+                     nudged.model)
+    log(f"GMM (b): GK (a) on the {MG_SLOTS}-slot mesh: the fixed shard "
+        f"laid for the slots in {build_s:.1f} s; one sweep in {wall:.3f} "
+        f"s; kernel launches inside the descent {counts}; held against "
+        f"GK (a)'s one-device fit on its training rows: {held}  [{gpu}]")
+    del est, est_n, got, nudged, data_m, sb, ds
+    torch.cuda.empty_cache()
+
+
+def gmm_processes_start(seed: int, cfgs: dict, var, ckdir: str) -> tuple:
+    """GMM (d), started beside (b): (b)'s problem cut to GMM_D_ROWS rows
+    and one sweep (its fixed shard laid for MG_SLOTS slots, bf16) fitted
+    by 2 gloo processes sharing the card (`parallel.launch`,
+    `selfcheck.target_game_data`), then again under a checkpoint session
+    killed at the 2nd ``bucket_retire`` on both ranks, the two clusters
+    side by side. Returns (their threads, their results, the data)."""
+    import threading
+
+    from photon_tpu_torch.data.dataset import (cast_features, make_batch,
+                                               shard_blocked_ell_batch)
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.game.dataset import GameData
+    from photon_tpu_torch.parallel import selfcheck as sc
+    from photon_tpu_torch.parallel.launch import launch
+
+    ind, va, re, uid, iid, y = gk_data(seed, GMM_D_ROWS)
+    sb = cast_features(shard_blocked_ell_batch(make_batch(
+        SparseRows(ind, va, T_FEATURES), y, device="cpu"), MG_SLOTS,
+        T_DENSE))
+    data = GameData.build(y, shards={
+        "fixed": sb.X, "u": SparseRows(*re["u"], D_RE),
+        "i": SparseRows(*re["i"], D_RE)}, entity_ids={"user": uid,
+                                                      "item": iid})
+    runs: dict = {}
+
+    def go(key, ck, kill):
+        t0 = time.perf_counter()
+        try:
+            runs[key] = (launch(sc.target_game_data, 2, args=(
+                data, cfgs, 1, var, ck, kill), device="cuda",
+                backend="gloo", timeout_s=GMM_D_TIMEOUT_S),
+                         time.perf_counter() - t0)
+        except Exception as e:  # raised in the main thread
+            runs[key] = (e, time.perf_counter() - t0)
+
+    # the two clusters side by side
+    threads = [threading.Thread(target=go, args=a)
+               for a in (("fit", None, 0), ("kill", ckdir, 2))]
+    for t in threads:
+        t.start()
+    return threads, runs, data
+
+
+def gmm_processes_finish(started: tuple, cfgs: dict, var, ckdir: str, gpu
+                         ) -> None:
+    """GMM (d), held: the 2 processes' digest (every coordinate's table)
+    equal to the in-process mesh's bit for bit, both ranks killed at the
+    2nd ``bucket_retire``, and that snapshot resumed in THIS process
+    (one process, the same 8 slots) to the same digest."""
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.parallel import selfcheck as sc
+
+    threads, runs, data = started
+    mesh = gmm_mesh()
+    t0 = time.perf_counter()
+    want = sc.fit_game(mesh, data, cfgs, 1, var)
+    one_s = time.perf_counter() - t0
+    for t in threads:
+        t.join()
+    for key, (got, _) in runs.items():
+        if isinstance(got, Exception):
+            raise AssertionError(f"GMM (d) {key}: {got}")
+    fit, fit_s = runs["fit"]
+    if [r["digest"] for r in fit] != [want["digest"]] * 2:
+        raise AssertionError(f"GMM (d): digests {[r['digest'] for r in fit]}"
+                             f" against the in-process {want['digest']}")
+    kill, kill_s = runs["kill"]
+    if not all(r["killed"] for r in kill):
+        raise AssertionError("GMM (d): the kill at bucket_retire#2 did not "
+                             "fire on every rank")
+    t0 = time.perf_counter()
+    resumed = sc.fit_game(mesh, data, cfgs, 1, var, ckdir)
+    resume_s = time.perf_counter() - t0
+    if resumed["digest"] != want["digest"] or resumed["restores"] < 1:
+        raise AssertionError(f"GMM (d): resumed at 1 process to "
+                             f"{resumed['digest']} ({resumed['restores']} "
+                             f"restores), not {want['digest']}")
+    counts: dict = {}
+    for r in fit:
+        for name, c in r["launches"].items():
+            counts[name] = counts.get(name, 0) + c
+    for name in (KB.TAIL, KB.RMATVEC):
+        if counts.get(name, 0) == 0:
+            raise AssertionError(f"GMM (d): {name} never launched in the "
+                                 f"2 processes ({counts})")
+    gmm_count(counts)
+    log(f"GMM (d): GMM (b)'s problem at {GMM_D_ROWS} rows, one sweep: 2 "
+        f"gloo processes sharing the card ({fit_s:.1f} s with their start)"
+        f" give digest {fit[0]['digest']}, the in-process {MG_SLOTS}-slot "
+        f"mesh's ({one_s:.1f} s) bit for bit, with "
+        f"{[r['collectives'] for r in fit]} collectives a rank; killed at "
+        f"bucket_retire#2 on both ranks ({kill_s:.1f} s) and resumed in one"
+        f" process ({resume_s:.1f} s, {resumed['restores']} restores): the "
+        f"same digest; kernel launches in the 2 processes {counts}  [{gpu}]")
+
+
+def gmm_refresh(prev, drop, plan, configs, res, one_s: float, dev, gpu):
+    """GMM (c): CR's refresh of its first drop on the mesh (the touched
+    lanes padded to a slot multiple, solved slot by slot), held against
+    CR (b)'s one-device refresh at GMM's entity bound; returns the
+    RefreshResult, whose generation CR (d) hot-swaps into the live int8
+    ladder."""
+    import torch
+
+    from photon_tpu_torch import continual as CT
+    from photon_tpu_torch import telemetry
+
+    mesh = gmm_mesh()
+    telemetry.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_m = CT.refresh_game_model(prev, drop, plan, configs, mesh=mesh)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    c = telemetry.snapshot()["counters"]
+    nudged = CT.refresh_game_model(prev, nudged_weights(drop), plan, configs)
+    spread = entities_off(res.model, nudged.model)
+    parts = []
+    for name, (k, E, worst) in entities_off(res.model, res_m.model).items():
+        st = res_m.stats[name]
+        k_sp, _, big_sp = spread[name]
+        held_entities("GMM (c)", name, k, st.n_touched, worst, k_sp,
+                      big_sp)
+        if st.n_touched != res.stats[name].n_touched:
+            raise AssertionError(f"GMM (c): {name} touched {st.n_touched}")
+        parts.append(f"{name} {st.n_touched} touched, {k} beyond rtol 1e-5"
+                     f" of CR (b)'s (largest gap {worst:.3g}; a one-ulp "
+                     f"nudge of the drop's weights on one device: {k_sp}, "
+                     f"{big_sp:.3g}), {st.n_failed} failed")
+    log(f"GMM (c): refresh_game_model on the {MG_SLOTS}-slot mesh "
+        f"{mesh_s:.3f} s against {one_s:.3f} s on one device; "
+        + "; ".join(parts)
+        + f"; slot solves {int(c.get('game_re.slot_solves', 0))}, lock-step"
+        f" solves {int(c.get('game_re.lockstep_solves', 0))}; CR (d) "
+        f"swaps this generation in  [{gpu}]")
+    return res_m
+
+
+def gmm_driver(params_a: dict, root: str, train: tuple, dev, gpu) -> None:
+    """GMM (e): DRV (a)'s Avro and parameters with every solve stopped at
+    RE_CHECK_TOL (the best model only) through `run_training(mesh=)`, held
+    at GMM's bounds against the same run on one device; a third run on
+    one device reads ``train`` (DRV (a)'s training columns) again as Avro
+    whose row weights sit one ulp above 1, the one-device run's own
+    spread for the entity bound."""
+    import torch
+
+    from photon_tpu_torch import drivers as D
+    from photon_tpu_torch import kernels as K
+
+    t0 = time.perf_counter()
+    nudged_path = os.path.join(root, "train_nudged.avro")
+    write_examples(nudged_path, *train, weights=np.full(
+        len(train[1]), np.nextafter(np.float32(1), np.float32(2))))
+    write_s = time.perf_counter() - t0
+    coords = {n: {**c, "tolerance": RE_CHECK_TOL}
+              for n, c in params_a["coordinates"].items()}
+
+    def run(tag, mesh=None, **kw):
+        params = D.TrainingParams(**{
+            **params_a, "coordinates": coords, "output_mode": "BEST",
+            "output_dir": os.path.join(root, f"train_{tag}"), **kw})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (D.run_training(params, mesh=mesh) if mesh is not None
+               else D.run_training(params, device=dev))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    one, one_s = run("check")
+    K.reset_launch_counts()
+    out_m, mesh_s = run("mesh", gmm_mesh())
+    gmm_count(K.launch_counts())
+    nudged, _ = run("nudged", train_path=nudged_path)
+
+    def weights(r):
+        return {n: c.optimizer.reg_weight for n, c in r.configs.items()}
+
+    if weights(out_m.best) != weights(one.best):
+        raise AssertionError(f"GMM (e): best point {weights(out_m.best)} "
+                             f"against {weights(one.best)}")
+    (twin,) = [r for r in nudged.results if weights(r) == weights(one.best)]
+    held = gmm_agree("GMM (e)", one.best.model, out_m.best.model,
+                     one.best.validation_score, out_m.best.validation_score,
+                     twin.model)
+    log(f"GMM (e): DRV (a)'s run_training with every solve stopped at a "
+        f"relative progress of {RE_CHECK_TOL:g}: on the {MG_SLOTS}-slot mesh"
+        f" {mesh_s:.3f} s, phases " + ", ".join(
+            f"{k} {v:.3f}" for k, v in out_m.timings.items())
+        + f" s; on one device {one_s:.3f} s; the nudged training Avro "
+        f"written in {write_s:.1f} s; the same best point; held at GMM's "
+        f"bounds: {held}  [{gpu}]")
+
+
 # ------------------------------------------ phase DRV: the drivers on Avro
-def encode_examples(y, ids, bags) -> tuple:
+def encode_examples(y, ids, bags, weights=None) -> tuple:
     """TrainingExampleAvro record bytes of rows, vectorized (the scoring
-    driver's block-encoder idiom): the response, null offset and weight,
-    the string columns ``ids`` (uid then the entity ids, each the union's
+    driver's block-encoder idiom): the response, a null offset, a null
+    weight (or the rows' ``weights``), the string columns ``ids`` (uid then the entity ids, each the union's
     string branch) and the bags, each ``(names, X)``: one (name, "", x)
     NameTermValue per column of X. Returns (payload, record offsets)."""
     import io
@@ -4318,14 +4943,21 @@ def encode_examples(y, ids, bags) -> tuple:
         t.write(b"\x00")
         tmpls.append((np.frombuffer(t.getvalue(), np.uint8),
                       np.asarray(slots), X))
-    rec_len = 10 + sum(1 + vl + ln for _, ln, _, vl in cols) \
+    head = 10 if weights is None else 18
+    rec_len = head + sum(1 + vl + ln for _, ln, _, vl in cols) \
         + sum(len(tm) for tm, _, _ in tmpls)
     off = np.concatenate([[0], np.cumsum(rec_len)[:-1]])
     buf = np.zeros(int(rec_len.sum()), np.uint8)
     b8 = np.arange(8)
     buf[off[:, None] + b8] = np.ascontiguousarray(
         y, "<f8").view(np.uint8).reshape(n, 8)
-    pos = off + 10  # the offset and weight unions' null branch: 0, 0
+    # the offset union's null branch (0); the weight union's null branch
+    # (0) or its double branch (2, zigzag) and the value
+    if weights is not None:
+        buf[off + 9] = 2
+        buf[off[:, None] + 10 + b8] = np.ascontiguousarray(
+            weights, "<f8").view(np.uint8).reshape(n, 8)
+    pos = off + head
     for bmat, ln, vmat, vl in cols:
         buf[pos] = 2  # union branch 1, zigzag
         scatter_ragged(buf, pos + 1, vmat, vl)
@@ -4340,10 +4972,12 @@ def encode_examples(y, ids, bags) -> tuple:
     return buf.tobytes(), off
 
 
-def write_examples(path, schema, y, ids, bags, block: int = DRV_BLOCK):
+def write_examples(path, schema, y, ids, bags, block: int = DRV_BLOCK,
+                   weights=None):
     """Rows as a deflate Avro container through the port's
-    `AvroBlockWriter`, ``block`` records a block; the first block's bytes
-    are held against the port's record encoder (`write_datum`)."""
+    `AvroBlockWriter`, ``block`` records a block, with the rows'
+    ``weights`` when given; the first block's bytes are held against the
+    port's record encoder (`write_datum`)."""
     import io
 
     from photon_tpu_torch.data.avro_io import (AvroBlockWriter,
@@ -4355,13 +4989,15 @@ def write_examples(path, schema, y, ids, bags, block: int = DRV_BLOCK):
             hi = min(lo + block, len(y))
             payload, _ = encode_examples(
                 y[lo:hi], [c[lo:hi] for c in ids],
-                [(names, X[lo:hi]) for names, X in bags])
+                [(names, X[lo:hi]) for names, X in bags],
+                None if weights is None else weights[lo:hi])
             if lo == 0:
                 ref = io.BytesIO()
                 fields = [f["name"] for f in schema["fields"]]
                 for i in range(hi):
                     rec = {"response": float(y[i]), "offset": None,
-                           "weight": None}
+                           "weight": (None if weights is None
+                                      else float(weights[i]))}
                     rec.update({f: str(c[i]) for f, c in
                                 zip(fields[3:3 + len(ids)], ids)})
                     rec.update({f: [{"name": nm, "term": "",
@@ -4409,14 +5045,16 @@ def phase_drivers(args, dev, gpu) -> dict:
         tr = game_10m_data(seed, DRV_ROWS)
         va = game_10m_data(seed + 1, DRV_VAL_ROWS, model_seed=seed)
         schema, names = gm_schema()
+        avro_cols = {}
         for path, (Xf, Xu, Xi, uid, iid, y) in (("train.avro", tr),
                                                 ("val.avro", va)):
             n = len(y)
-            write_examples(os.path.join(root, path), schema, y,
-                           [np.char.add("r", np.arange(n).astype(str)),
-                            np.char.add("u", uid.astype(str)),
-                            np.char.add("i", iid.astype(str))],
-                           list(zip(names, (Xf, Xu, Xi))))
+            avro_cols[path] = (schema, y,
+                               [np.char.add("r", np.arange(n).astype(str)),
+                                np.char.add("u", uid.astype(str)),
+                                np.char.add("i", iid.astype(str))],
+                               list(zip(names, (Xf, Xu, Xi))))
+            write_examples(os.path.join(root, path), *avro_cols[path])
         log(f"DRV (a): {DRV_ROWS} training and {DRV_VAL_ROWS} validation "
             f"rows written as deflate Avro in "
             f"{time.perf_counter() - t0:.1f} s "
@@ -4558,7 +5196,9 @@ def phase_drivers(args, dev, gpu) -> dict:
             telemetry.snapshot()["counters"].get("game_re.blocks", 0)),
             dev, gpu)
         lap("CK (c)")
-        del out, sc, best, loaded, vfull, tr, va
+        gmm_driver(params_a, root, avro_cols.pop("train.avro"), dev, gpu)
+        lap("GMM (e)")
+        del out, sc, best, loaded, vfull, tr, va, avro_cols
         torch.cuda.empty_cache()
 
         # (b) a wide sparse fixed effect through the driver, twice
@@ -5658,6 +6298,9 @@ def phase_continual(args, dev, gpu) -> tuple:
             st.total_iterations != alone_its:
         raise AssertionError("CR (b): touched users part from their solves "
                              "alone")
+    lap("CR (b)")
+    res_m = gmm_refresh(prev, drop, plan, configs, res, refresh_s, dev, gpu)
+    lap("GMM (c)")
 
     # (c) a second drop: another touched count, the same padded shapes
     baseline = len(CT.RefreshResult.signatures())
@@ -5700,7 +6343,8 @@ def phase_continual(args, dev, gpu) -> tuple:
     # (d) the hot swap into a live int8 ladder under load
     live = CoefficientStore.from_game_model(prev, device=dev)
     old = CoefficientStore.from_game_model(prev, device=dev)
-    new = CoefficientStore.from_game_model(res.model, device=dev)
+    # GMM (c): the mesh refresh's generation goes live
+    new = CoefficientStore.from_game_model(res_m.model, device=dev)
     spec = dict(floor=8, max_batch=MAX_BATCH, output_mean=True)
     ladder = ProgramLadder(live, quantize="int8", quant_epsilon=EPSILON,
                            **spec)
@@ -5749,6 +6393,7 @@ def phase_continual(args, dev, gpu) -> tuple:
 
         run = serve_swapping(ladder, reqs, swap)
         cr_launches = K.launch_counts()
+        gmm_count(cr_launches)
         ladder.score_padded = score_padded
         vdir = os.path.join(root, f"v{run['swap']['version']:08d}")
         lat = (run["t_ans"] - run["t_sub"]) * 1e3
@@ -6418,6 +7063,7 @@ def main() -> int:
         entry["cr_launches"] = cr.get(entry["name"], 0)
         entry["ck_launches"] = CK_LAUNCHES.get(entry["name"], 0)
         entry["mg_launches"] = mg.get(entry["name"], 0)
+        entry["gmm_launches"] = GMM_LAUNCHES.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

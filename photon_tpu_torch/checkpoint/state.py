@@ -45,9 +45,14 @@ resumed run produces. Row caches pack in global row order
 ``{prefix}@s{slot:04d}`` (`pack_row_slots`), so each process writes only
 its own slots and a snapshot from any process count or mesh restores at
 any other (`unpack_row_slots` re-slices the global rows to the resuming
-layout's local slots). A session of several processes snapshots by
-evaluation count: its ranks cut at the same iteration boundaries, which
-a wall-clock cadence would not give them.
+layout's local slots). GAME's descent on a mesh needs no slot entries:
+after each bucket's gather and each fixed effect's gathered score every
+process holds the whole coefficient tables, score caches and counts in
+global row and entity order, so they are replicated entries (process 0
+writes them) and a snapshot from one mesh restores onto another or onto
+one device. A session of several processes snapshots by evaluation
+count: its ranks cut at the same iteration boundaries, which a
+wall-clock cadence would not give them.
 """
 from __future__ import annotations
 

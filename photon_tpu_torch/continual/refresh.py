@@ -27,7 +27,13 @@ which entities actually gained evidence, and only those re-solve:
   solve per 64 lanes as the reference's scan is. The fixed pad target is
   what makes shapes repeat: a refresh whose touched counts pad to the
   same targets records the same signatures (`RefreshResult.signatures`,
-  on the port's `serving.programs.SignatureLog`).
+  on the port's `serving.programs.SignatureLog`);
+- with ``mesh`` (reference: `refresh_game_model(mesh=)`) the pad quantum
+  rounds up to a slot multiple, and the padded block's lanes split over
+  the slots, each local slot solving its contiguous share on its device
+  (`RandomEffectCoordinate.solve_lanes_mesh`), the results gathered in
+  slot order (one gather per bucket). The refreshed model, its publish
+  and the serving hot swap stay on one device.
 
 A zero lane (weight-0 rows, start 0, prior precision 0) has a zero
 gradient: it converges at iteration 0, and an entity's result does not
@@ -54,7 +60,8 @@ from photon_tpu_torch.game.random_effect import (RandomEffectCoordinate,
                                                  align_entity_priors,
                                                  take_lanes)
 from photon_tpu_torch.models.variance import VarianceComputationType
-from photon_tpu_torch.parallel.mesh import compact_rows, pad_to_multiple
+from photon_tpu_torch.parallel.mesh import (check_mesh, compact_rows,
+                                            pad_to_multiple)
 from photon_tpu_torch.serving.programs import SignatureLog
 
 # Fixed lane quantum of compacted refresh blocks: every touched count pads
@@ -182,13 +189,10 @@ def refresh_game_model(
     has a posterior to build priors from), NONE otherwise.
     ``prior_scale``: the reference's incremental-weight multiplier on the
     prior precision (1.0 = trust the previous posterior as-is).
-    ``lane_chunk``: the pad quantum of a bucket's touched count. ``mesh``
-    waits for ROADMAP queue A item 10.
+    ``lane_chunk``: the pad quantum of a bucket's touched count (rounded
+    up to a multiple of ``mesh``'s slots, over which the solves split).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "continual refresh over a mesh is not ported yet (ROADMAP "
-            "queue A item 10)")
+    check_mesh(mesh)
     coords = dict(prev_model.coordinates)
     stats: dict = {}
     failed: dict = {}
@@ -214,17 +218,21 @@ def refresh_game_model(
                 coords[cname], stats[cname], failed[cname] = \
                     _refresh_coordinate(
                         prev_model, cm, cplan, drop, cfg, variance=var_kind,
-                        prior_scale=prior_scale, lane_chunk=lane_chunk)
+                        prior_scale=prior_scale, lane_chunk=lane_chunk,
+                        mesh=mesh)
         telemetry.count("continual.refreshes")
     return RefreshResult(GameModel(coords, prev_model.task), stats, failed)
 
 
 def _refresh_coordinate(prev_model: GameModel, cm: RandomEffectModel,
                         cplan, drop, cfg, *, variance, prior_scale,
-                        lane_chunk):
+                        lane_chunk, mesh=None):
     """One coordinate's compacted partial re-solve; returns the refreshed
     RandomEffectModel, its stats and the raw keys of its failed solves."""
-    dev = cm.coefficients.device
+    out_dev = cm.coefficients.device
+    dev = out_dev if mesh is None else mesh.home
+    if mesh is not None:
+        lane_chunk = pad_to_multiple(int(lane_chunk), mesh.n_slots)
     ds = RandomEffectDataset.build(drop, cplan.entity_name,
                                    cm.feature_shard, device=dev)
     d = cm.dim
@@ -241,7 +249,7 @@ def _refresh_coordinate(prev_model: GameModel, cm: RandomEffectModel,
     # and priors come from the previous posterior; rows of the previous
     # coefficient matrix are the scatter targets.
     pid = cm.dense_ids(ds.entity_keys)  # (E_ds,) rows in prev model
-    w0_all = cm.coeffs_for(pid).to(torch.float32)  # (E_ds, d) on dev
+    w0_all = cm.coeffs_for(pid).to(dev, torch.float32)  # (E_ds, d)
     pm_all, pp_all = align_entity_priors(cm, ds.entity_keys, d)
     if prior_scale != 1.0:
         pp_all = (pp_all * np.float32(prior_scale)).astype(np.float32)
@@ -258,7 +266,8 @@ def _refresh_coordinate(prev_model: GameModel, cm: RandomEffectModel,
         variances = (cm.variances.cpu().numpy().astype(np.float32)
                      if cm.variances is not None else np.zeros_like(coeffs))
 
-    coord = RandomEffectCoordinate(ds, cm.task, cfg, variance=variance)
+    coord = RandomEffectCoordinate(ds, cm.task, cfg, variance=variance,
+                                   mesh=mesh)
     buckets_touched = buckets_skipped = dispatches = 0
     total_iters = n_conv = n_fail = 0
     failed = []
@@ -284,16 +293,21 @@ def _refresh_coordinate(prev_model: GameModel, cm: RandomEffectModel,
                                     batch.offsets, W0, PM, PP))
         with telemetry.span("continual.refresh_solve", m=block.m,
                             touched=n2):
-            res, var = coord.solve_lanes(coord.block_objective(block),
-                                         batch, W0, PM, PP)
-            w2, conv2, fail2, it2 = (t.cpu().numpy() for t in (
-                res.w, res.converged, res.failed, res.iterations))
+            if mesh is not None:
+                w2, conv2, fail2, it2, var = coord.solve_lanes_mesh(
+                    coord.block_objective(block), batch, W0, PM, PP)
+            else:
+                res, var = coord.solve_lanes(coord.block_objective(block),
+                                             batch, W0, PM, PP)
+                w2, conv2, fail2, it2 = (t.cpu().numpy() for t in (
+                    res.w, res.converged, res.failed, res.iterations))
+                var = None if var is None else var.cpu().numpy()
         dispatches += 1
         telemetry.count("continual.refresh_solves")
         rows = pid[block.entity_index[lanes]]  # previous-model rows
         coeffs[rows] = w2[:n2]
         if variances is not None:
-            variances[rows] = var.cpu().numpy()[:n2]
+            variances[rows] = var[:n2]
         total_iters += int(it2[:n2].astype(np.int64).sum())
         n_conv += int(conv2[:n2].sum())
         n_fail += int(fail2[:n2].sum())
@@ -302,10 +316,10 @@ def _refresh_coordinate(prev_model: GameModel, cm: RandomEffectModel,
 
     model = RandomEffectModel(
         entity_name=cm.entity_name, feature_shard=cm.feature_shard,
-        task=cm.task, coefficients=torch.from_numpy(coeffs).to(dev),
+        task=cm.task, coefficients=torch.from_numpy(coeffs).to(out_dev),
         entity_keys=cm.entity_keys, key_to_index=cm.key_to_index,
         variances=None if variances is None
-        else torch.from_numpy(variances).to(dev))
+        else torch.from_numpy(variances).to(out_dev))
     return model, CoordinateRefreshStats(
         n_touched=cplan.n_touched,
         n_deferred_new=int(cplan.new_keys.shape[0]),

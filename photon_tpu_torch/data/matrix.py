@@ -1198,6 +1198,17 @@ class EntityBlocks:
                             cut(self.values), self.n_features, segments,
                             self.lanes_per_entity)
 
+    def to(self, device) -> "EntityBlocks":
+        """The same block on ``device`` (a no-op for tensors there)."""
+        def mv(t):
+            return None if t is None else t.to(device)
+
+        return EntityBlocks(mv(self.dense), mv(self.indices),
+                            mv(self.values), self.n_features,
+                            None if self.segments is None else
+                            tuple(mv(t) for t in self.segments),
+                            self.lanes_per_entity)
+
     def grid(self, G: int) -> "EntityBlocks":
         """The same block with G lanes per entity (the tensors shared)."""
         return dataclasses.replace(self, lanes_per_entity=int(G))

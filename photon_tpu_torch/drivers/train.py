@@ -36,7 +36,16 @@ land under ``output_dir``): the streamed solves and GAME's descent
 snapshot into it at the ``checkpoint_every_s`` / ``checkpoint_every_evals``
 cadence, and a rerun with the same params resumes from the last commit
 (``checkpoint_resume``). What is not ported raises naming its ROADMAP
-queue A item: ``tuning_iters`` (item 11) and meshes (item 10).
+queue A item: ``tuning_iters`` (item 11).
+
+With ``mesh`` (a `parallel.mesh.Mesh`, in process or across processes)
+the data lands whole on the mesh's home device — the entity bucketing
+reads every row — and `GameEstimator(mesh=)` shards it: the fixed
+effects row-sharded over the slots, the random effects' entity lanes
+split over them. A streamed objective's chunks stream row-sharded over
+the slots. The auto-trip's budget pools the mesh's cards (the smallest
+card's budget times the distinct cards across the processes). Only
+process 0 writes the model directories; the log lines name the mesh.
 
 One deliberate difference from the reference: in ``output_mode="ALL"``
 every saved point's ``training_manifest.json`` is the training-row
@@ -93,6 +102,7 @@ from photon_tpu_torch.models.variance import VarianceComputationType
 from photon_tpu_torch.ops.losses import TaskType
 from photon_tpu_torch.optim import regularization as reg
 from photon_tpu_torch.optim.config import OptimizerConfig, OptimizerType
+from photon_tpu_torch.parallel.mesh import check_mesh
 from photon_tpu_torch.utils.logging import photon_logger
 from photon_tpu_torch.utils.timing import PhaseTimers
 
@@ -348,11 +358,9 @@ def _config_grid(coordinates: dict) -> Optional[list]:
 
 def _refuse_unported(params: TrainingParams, mesh) -> None:
     """Raise for every option whose path is not ported, naming its ROADMAP
-    queue A item, before any data is read."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes (multi-device training) are not ported yet (ROADMAP "
-            "queue A item 10)")
+    queue A item, before any data is read (and for a ``mesh`` that is not
+    one)."""
+    check_mesh(mesh)
     if params.tuning_iters > 0:
         raise NotImplementedError(
             "tuning_iters > 0 (the GP reg-weight tuner, _tune) is not "
@@ -366,7 +374,10 @@ def run_training(params: TrainingParams, mesh=None,
     validate → (summarize, normalize, down-sample) → train over the config
     grid → select best on validation → save."""
     _refuse_unported(params, mesh)
-    dev = resolve_device(device)
+    dev = mesh.home if mesh is not None else resolve_device(device)
+    on_mesh = ("" if mesh is None else
+               f" (mesh of {mesh.n_slots} slots over "
+               f"{mesh.process_count} process(es))")
     log = photon_logger("photon_tpu_torch.train", params.output_dir)
     timers = PhaseTimers(span_prefix="train.")
     task = TaskType[params.task]
@@ -414,7 +425,7 @@ def run_training(params: TrainingParams, mesh=None,
             if n_train_rows is None:
                 n_train_rows = scan.n_rows
             streamed_obj = _resolve_streamed_objective(
-                params, frozen_maps, n_train_rows, dev, log)
+                params, frozen_maps, n_train_rows, dev, log, mesh)
         if streamed_obj:
             index_maps = frozen_maps
             chunked = _streamable_shards(params)
@@ -425,16 +436,18 @@ def run_training(params: TrainingParams, mesh=None,
                     block_index=train_block_index)
             log.info(
                 "streamed objective engaged: %d rows; host-chunked "
-                "shards %s (%d-row chunks), resident shards %s",
+                "shards %s (%d-row chunks), resident shards %s%s",
                 n_real, sorted(chunked), params.objective_chunk_rows,
-                sorted(set(params.feature_shards) - chunked))
+                sorted(set(params.feature_shards) - chunked),
+                "" if mesh is None else
+                f"; chunks row-shard over the {mesh.n_slots}-slot mesh")
         elif streaming:
             data, validation, index_maps, stream_stats, n_real = \
                 _read_streaming(params, data_cfg, task, mode, frozen_maps,
                                 dev, n_train_rows,
                                 block_index=train_block_index)
-            log.info("streamed %d training rows to %s, %d shards", n_real,
-                     dev, len(data.shards))
+            log.info("streamed %d training rows to %s, %d shards%s",
+                     n_real, dev, len(data.shards), on_mesh)
         else:
             data, index_maps = read_game_data(
                 params.train_path, data_cfg,
@@ -446,8 +459,8 @@ def run_training(params: TrainingParams, mesh=None,
                 validation, _ = read_game_data(
                     params.validation_path, data_cfg, index_maps=index_maps,
                     sparse_k=params.sparse_k)
-            log.info("read %d training rows, %d shards", data.n,
-                     len(data.shards))
+            log.info("read %d training rows, %d shards%s", data.n,
+                     len(data.shards), on_mesh)
 
     with timers("validate"):
         # the streamed reads validated every chunk inside the read pass
@@ -548,6 +561,7 @@ def run_training(params: TrainingParams, mesh=None,
         evaluator_entity=params.evaluator_entity,
         normalization=normalization,
         vectorized_grid=params.vectorized_grid,
+        mesh=mesh,
         device=dev,
     )
 
@@ -561,9 +575,11 @@ def run_training(params: TrainingParams, mesh=None,
             log.info(
                 "GAME end-to-end streamed regime: fixed-effect "
                 "coordinate(s) solve out of device memory on host-chunked "
-                "shards %s; random-effect coordinate(s) %s train resident; "
-                "inter-coordinate scores exchange through host margin "
-                "caches", sorted(_streamable_shards(params)), re_coords)
+                "shards %s; random-effect coordinate(s) %s train resident%s;"
+                " inter-coordinate scores exchange through host margin "
+                "caches", sorted(_streamable_shards(params)), re_coords,
+                "" if mesh is None else
+                f", their lanes split over the {mesh.n_slots}-slot mesh")
 
     ckpt_active = False
     if params.checkpoint_dir:
@@ -625,18 +641,20 @@ def run_training(params: TrainingParams, mesh=None,
                     log.warning("skipping %s: %s", ev.kind.name, e)
         log.info("validation metrics (best model): %s", validation_metrics)
 
+    writer = mesh is None or mesh.process_index == 0
     with timers("save"):
         # Training-row manifest: the delta baseline a continual refresh
         # diffs the next data drop against, beside the coefficients.
         manifest = build_manifest(data)
         model_dir = os.path.join(params.output_dir, "best_model")
-        save_game_model(
-            model_dir, best.model,
-            {n: index_maps[params.coordinates[n].feature_shard]
-             for n in best.model.names()},
-            manifest=manifest,
-        )
-        if params.output_mode.upper() == "ALL":
+        if writer:  # every process holds the same models
+            save_game_model(
+                model_dir, best.model,
+                {n: index_maps[params.coordinates[n].feature_shard]
+                 for n in best.model.names()},
+                manifest=manifest,
+            )
+        if writer and params.output_mode.upper() == "ALL":
             models_dir = os.path.join(params.output_dir, "models")
             os.makedirs(models_dir, exist_ok=True)
             gsig = _global_signature(params, streaming, streamed_obj)
@@ -772,19 +790,31 @@ def _streamable_shards(params: TrainingParams) -> set:
     return fixed - re
 
 
-def _detect_hbm_budget(device) -> Optional[int]:
+def _detect_hbm_budget(device, mesh=None) -> Optional[int]:
     """The device's memory budget for the auto-trip: the card's free
     bytes plus what this process's allocator already holds (the room the
-    dataset could take), from ``torch.cuda.mem_get_info``. None on the
+    dataset could take), from ``torch.cuda.mem_get_info``. With ``mesh``
+    the smallest of this process's slot cards (other processes' cards
+    cannot be asked; a mesh is homogeneous in practice). None on the
     CPU: there the streamed objective engages only when asked for or
     given an explicit ``hbm_budget_bytes``."""
     import torch
 
-    dev = torch.device(device)
-    if dev.type != "cuda":
+    devs = ([torch.device(device)] if mesh is None
+            else list(dict.fromkeys(mesh.slot_devices)))
+    if devs[0].type != "cuda":
         return None
-    free, _total = torch.cuda.mem_get_info(dev)
-    return int(free) + int(torch.cuda.memory_reserved(dev))
+    room = []
+    for dev in devs:
+        free, _total = torch.cuda.mem_get_info(dev)
+        room.append(int(free) + int(torch.cuda.memory_reserved(dev)))
+    return min(room)
+
+
+def _mesh_cards(mesh) -> int:
+    """Distinct cards under a mesh: this process's slot devices times
+    the processes (slots sharing a card pool nothing)."""
+    return len(set(mesh.slot_devices)) * mesh.process_count
 
 
 def _estimate_device_bytes(n_rows: int, index_maps: dict,
@@ -805,13 +835,15 @@ def _estimate_device_bytes(n_rows: int, index_maps: dict,
 
 
 def _resolve_streamed_objective(params: TrainingParams, index_maps: dict,
-                                n_rows: int, device, log) -> bool:
+                                n_rows: int, device, log, mesh=None) -> bool:
     """The streamed-objective tri-state, resolved: forced True/False wins;
     None trips when the device-resident estimate exceeds the budget
     (``hbm_budget_bytes``, else `_detect_hbm_budget`; on the CPU, with no
-    budget given, it stays resident). Every resolution is logged at INFO —
-    estimate, budget, verdict — so a surprising regime choice is
-    diagnosable from the run log."""
+    budget given, it stays resident). Under a mesh the budget is pooled:
+    the per-card budget times the mesh's distinct cards (a streamed mesh
+    solve gives each card its slots' rows). Every resolution is logged at
+    INFO — estimate, budget, mesh, verdict — so a surprising regime choice
+    is diagnosable from the run log."""
     forced = params.streamed_objective
     if forced is False:
         log.info("streamed objective: OFF (forced by streamed_objective="
@@ -828,7 +860,9 @@ def _resolve_streamed_objective(params: TrainingParams, index_maps: dict,
         return True
     est = _estimate_device_bytes(n_rows, index_maps, params)
     budget = (params.hbm_budget_bytes if params.hbm_budget_bytes
-              else _detect_hbm_budget(device))
+              else _detect_hbm_budget(device, mesh))
+    if budget is not None and mesh is not None:
+        budget *= _mesh_cards(mesh)
     telemetry.gauge("train.dataset_estimate_bytes", est)
     if budget is None:
         log.info(
@@ -842,9 +876,12 @@ def _resolve_streamed_objective(params: TrainingParams, index_maps: dict,
     telemetry.gauge("train.hbm_budget_bytes", budget)
     log.info(
         "streamed objective auto-resolution: dataset estimate %.3f GiB "
-        "(%d rows), device budget %.3f GiB (%s), verdict %s",
+        "(%d rows), device budget %.3f GiB (%s%s), verdict %s",
         est / 2**30, n_rows, budget / 2**30,
         "hbm_budget_bytes" if params.hbm_budget_bytes else str(device),
+        "" if mesh is None else
+        f", pooled over the {_mesh_cards(mesh)} card(s) of a "
+        f"{mesh.n_slots}-slot mesh",
         "STREAM" if verdict else "resident")
     if est > budget and not chunked:
         log.warning(
@@ -1057,16 +1094,20 @@ def _fit_grid_resumable(estimator: GameEstimator, params: TrainingParams,
                               config_grid=[overrides],
                               initial_models=prev_models)[0]
             point_dir = _sig_dir(models_dir, sig)
-            save_game_model(
-                point_dir, r.model,
-                {n: index_maps[params.coordinates[n].feature_shard]
-                 for n in r.model.names()})
+            mesh = estimator.mesh
+            if mesh is None or mesh.process_index == 0:
+                save_game_model(
+                    point_dir, r.model,
+                    {n: index_maps[params.coordinates[n].feature_shard]
+                     for n in r.model.names()})
             manifest_by_sig[sig] = _manifest_row(point_dir, r, best=False,
                                                  sig=sig)
             # checkpoint the manifest NOW (atomically): a crash at the
             # next point loses only that point ("best" flags are
             # finalized in the save phase)
-            _write_manifest(manifest_path, list(manifest_by_sig.values()))
+            if mesh is None or mesh.process_index == 0:
+                _write_manifest(manifest_path,
+                                list(manifest_by_sig.values()))
         results.append(r)
         if params.warm_start:
             prev_models = dict(r.model.coordinates)

@@ -43,8 +43,8 @@ import torch
 from photon_tpu_torch.data.dataset import (ChunkedMatrix, GLMBatch,
                                            make_chunked_batch)
 from photon_tpu_torch.data.matrix import (BlockedEllRows, EntityBlocks,
-                                          SparseRows, _host, as_tensor,
-                                          next_pow2)
+                                          ShardedBlockedEllRows, SparseRows,
+                                          _host, as_tensor, next_pow2)
 from photon_tpu_torch.device import resolve_device
 
 
@@ -82,13 +82,16 @@ class GameData:
         ``cuda``): every resident shard, the labels, weights and offsets
         moved there once, so each later score and metric is device work
         alone (reference: `GameData.to_device`). A host-chunked shard
-        stays on the host (it streams chunk by chunk); entity ids stay
-        host numpy (they are densified on the host). Training data stays
-        on the host: its entity bucketing reads numpy columns."""
+        stays on the host (it streams chunk by chunk), and so does a
+        mesh's blocked-ELL layout (it scores shard by shard); entity ids
+        stay host numpy (they are densified on the host). Training data
+        stays on the host: its entity bucketing reads numpy columns."""
         dev = resolve_device(device)
 
         def put(X):
-            return X if isinstance(X, ChunkedMatrix) else _on_device(X, dev)
+            if isinstance(X, (ChunkedMatrix, ShardedBlockedEllRows)):
+                return X
+            return _on_device(X, dev)
 
         def col(v):
             return as_tensor(np.asarray(v, np.float32)
@@ -101,7 +104,8 @@ class GameData:
 
 
 def _shard_dim(X) -> int:
-    if isinstance(X, (SparseRows, BlockedEllRows, ChunkedMatrix)):
+    if isinstance(X, (SparseRows, BlockedEllRows, ChunkedMatrix,
+                      ShardedBlockedEllRows)):
         return X.n_features
     return int(X.shape[1])
 
@@ -129,6 +133,19 @@ def _gather_rows(X, idx: np.ndarray):
     return np.asarray(X)[idx]
 
 
+def _host_shard(X):
+    """A shard as the host form `data.dataset.mesh_batch` shards: numpy
+    rows, CPU `SparseRows`, or a `ShardedBlockedEllRows` as it is."""
+    if isinstance(X, SparseRows):
+        return SparseRows(torch.as_tensor(_host(X.indices)),
+                          torch.as_tensor(_host(X.values)), X.n_features)
+    if isinstance(X, torch.Tensor):
+        return X.detach().cpu()
+    if isinstance(X, (BlockedEllRows, ShardedBlockedEllRows)):
+        return X
+    return np.asarray(X, np.float32)
+
+
 def _on_device(X, dev):
     """A shard on the device: layouts move as they are; a floating tensor
     keeps its storage dtype (a bf16 shard stays bf16); anything else
@@ -144,17 +161,30 @@ def _on_device(X, dev):
 class FixedEffectDataset:
     """One feature shard over all rows (reference: FixedEffectDataset):
     on ``device``, or, for a host-chunked shard, on the host (``y`` and
-    ``weights`` numpy) with ``device`` the one its chunks stream onto."""
+    ``weights`` numpy) with ``device`` the one its chunks stream onto.
+
+    With ``mesh`` a resident shard is row-sharded over the mesh's slots
+    once, at build (`data.dataset.mesh_batch`: X a `SlotRows` — dense
+    rows, `SparseRows`, or a `ShardedBlockedEllRows`' shards — and ``y``
+    and ``weights`` this process's padded rows on the home device); every
+    solve reuses the shards and `batch` cuts this process's rows out of
+    the descent's whole offsets."""
 
     shard_name: str
     X: object
     y: object  # (n,) tensor on `device`, or numpy for a chunked shard
     weights: object
     device: Optional[torch.device] = None
+    mesh: Optional[object] = None
+    n_rows: Optional[int] = None  # the real rows of a row-sharded shard
+    # the GameData's own shard behind a row-sharded X (whole statistics,
+    # such as a normalization context, read it)
+    host: Optional[object] = dataclasses.field(default=None, repr=False)
 
     @property
     def n(self) -> int:
-        return int(self.y.shape[0])
+        return (int(self.n_rows) if self.n_rows is not None
+                else int(self.y.shape[0]))
 
     @property
     def dim(self) -> int:
@@ -165,16 +195,26 @@ class FixedEffectDataset:
         return isinstance(self.X, ChunkedMatrix)
 
     @staticmethod
-    def build(data: GameData, shard_name: str,
-              device=None) -> "FixedEffectDataset":
-        dev = resolve_device(device)
+    def build(data: GameData, shard_name: str, device=None,
+              mesh=None) -> "FixedEffectDataset":
+        dev = mesh.home if mesh is not None else resolve_device(device)
         X = data.shards[shard_name]
         if isinstance(X, ChunkedMatrix):
             # the streamed regime: the shard and its scalar columns stay
-            # on the host; batch() assembles a ChunkedBatch
+            # on the host; batch() assembles a ChunkedBatch (streamed
+            # over the mesh's slots by the solve itself)
             return FixedEffectDataset(
                 shard_name, X, np.asarray(data.y, np.float32),
-                np.asarray(data.weights, np.float32), dev)
+                np.asarray(data.weights, np.float32), dev, mesh)
+        if mesh is not None:
+            from photon_tpu_torch.data.dataset import mesh_batch
+
+            col = (lambda v: torch.from_numpy(np.asarray(v, np.float32)))
+            b = mesh_batch(GLMBatch(_host_shard(X), col(data.y),
+                                    col(data.weights),
+                                    torch.zeros(data.n)), mesh)
+            return FixedEffectDataset(shard_name, b.X, b.y, b.weights, dev,
+                                      mesh, data.n, X)
         return FixedEffectDataset(
             shard_name, _on_device(X, dev),
             as_tensor(np.asarray(data.y, np.float32), dev),
@@ -193,6 +233,10 @@ class FixedEffectDataset:
                 if isinstance(offsets, torch.Tensor)
                 else as_tensor(np.asarray(offsets, np.float32),
                                self.y.device))
+        if self.mesh is not None:
+            from photon_tpu_torch.parallel.mesh import local_rows
+
+            offs = local_rows(self.mesh, offs, self.X.n_rows)
         return GLMBatch(self.X, self.y, self.weights, offs)
 
 
@@ -217,6 +261,29 @@ class REBlock:
     @property
     def n_entities(self) -> int:
         return int(self.entity_index.shape[0])
+
+    def take(self, idx, pad: int, device=None) -> "REBlock":
+        """Entities ``idx`` (positions in this bucket) as a bucket of
+        ``pad`` entities on ``device`` (default: this one's), zero
+        entities after them: weight-0 rows, row ids 0, entity index -1 —
+        one mesh slot's share of the bucket (`game.grid`)."""
+        from photon_tpu_torch.parallel.mesh import compact_rows
+
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        dev = self.y.device if device is None else device
+        lanes = self.lanes.take(idx, pad).to(dev)
+        ri, y, w = (compact_rows(t, idx, pad_rows=pad).t().contiguous()
+                    .to(dev) for t in (self.row_index, self.y,
+                                       self.weights))
+        ents = np.full(pad, -1, np.int32)
+        ents[:idx.size] = self.entity_index[idx]
+        X = (_entity_major(lanes.dense) if lanes.dense is not None
+             else (_entity_major(lanes.indices),
+                   _entity_major(lanes.values)))
+        return REBlock(m=self.m, entity_index=ents,
+                       row_index=_entity_major(ri), y=_entity_major(y),
+                       weights=_entity_major(w), X=X, lanes=lanes,
+                       dim=self.dim, proj=self.proj)
 
 
 def _lane_minor(a: np.ndarray, dev) -> torch.Tensor:

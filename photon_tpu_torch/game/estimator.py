@@ -24,19 +24,29 @@ validation data moves there once per fit and every metric runs there. A
 fixed effect's shard may be a host `ChunkedMatrix`: its solves stream and
 the descent exchanges its margins on the host. A random effect's
 ``straggler_budget`` caps its first pass and re-solves the lanes left
-over as one gathered block (`RandomEffectCoordinate.train`). Meshes wait
-for ROADMAP queue A item 10.
+over as one gathered block (`RandomEffectCoordinate.train`).
+
+With ``mesh`` (a `parallel.mesh.Mesh`) every coordinate gets it: a fixed
+effect's shard is row-sharded over the slots once per dataset and solves
+through `train_glm(mesh=)`, a random effect's buckets split their entity
+lanes over the slots, and the data, the descent's offsets and scores and
+every model live on the mesh's home device, whole on every process.
+Both vectorized grids run on it, as in the reference: the fixed-effect
+grid through `train_glm_grid(mesh=)`, the lane-axis GAME grid through
+`fit_game_grid(mesh=)`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import ChunkedMatrix
 from photon_tpu_torch.data.matrix import (BlockedEllRows,
+                                          ShardedBlockedEllRows,
                                           last_column_is_intercept)
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.evaluation.evaluator import (Evaluator,
@@ -53,6 +63,7 @@ from photon_tpu_torch.game.scoring import score_game
 from photon_tpu_torch.models.variance import VarianceComputationType
 from photon_tpu_torch.ops.losses import TaskType
 from photon_tpu_torch.optim.config import OptimizerConfig
+from photon_tpu_torch.parallel.mesh import check_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,14 +150,18 @@ class GameEstimator:
         return ("random", cfg.entity_name, cfg.feature_shard,
                 cfg.active_cap, cfg.projection)
 
+    def _device(self):
+        return self.mesh.home if self.mesh is not None else self.device
+
     def _build_dataset(self, data: GameData, cfg: CoordinateConfig):
         if isinstance(cfg, FixedEffectConfig):
             return FixedEffectDataset.build(data, cfg.feature_shard,
-                                            device=self.device)
+                                            device=self.device,
+                                            mesh=self.mesh)
         return RandomEffectDataset.build(
             data, cfg.entity_name, cfg.feature_shard,
             active_cap=cfg.active_cap, projection=cfg.projection,
-            device=self.device)
+            device=self._device())
 
     def _build_coordinates(self, datasets: dict, configs: dict,
                            cache: Optional[dict] = None) -> dict:
@@ -191,22 +206,17 @@ class GameEstimator:
         if isinstance(spec, NormalizationContext):
             return spec
         if isinstance(spec, NormalizationType):
-            icpt = -1 if last_column_is_intercept(dataset.X) else None
+            X = getattr(dataset, "host", None)
+            X = dataset.X if X is None else X  # a row-sharded shard's own
+            icpt = -1 if last_column_is_intercept(X) else None
             if spec is NormalizationType.STANDARDIZATION and icpt is None:
                 raise ValueError(
                     f"normalization[{name!r}]: STANDARDIZATION requires an "
                     "intercept column (all-ones, last) in the feature shard")
-            return NormalizationContext.build(dataset.X, spec,
-                                              intercept_index=icpt)
+            return NormalizationContext.build(X, spec, intercept_index=icpt)
         raise TypeError(
             f"normalization[{name!r}] must be a NormalizationType or "
             f"NormalizationContext, got {type(spec)}")
-
-    def _refuse_unported(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "meshes (multi-device GAME) are not ported yet (ROADMAP "
-                "queue A item 10)")
 
     def fit(self, data: GameData, validation: Optional[GameData] = None,
             config_grid: Optional[list] = None,
@@ -221,8 +231,8 @@ class GameEstimator:
         run concurrently from zeros. Datasets are cached per (shard,
         entity, active_cap, projection), so overrides that change only the
         optimizer reuse the bucketed blocks."""
-        dev = resolve_device(self.device)
-        self._refuse_unported()
+        check_mesh(self.mesh)
+        dev = resolve_device(self._device())
         grid = config_grid or [self.coordinate_configs]
         evaluator = self.evaluator or default_evaluator(self.task)
         if self._chunked_shards(data):
@@ -366,10 +376,13 @@ class GameEstimator:
         return lanes
 
     def _grid_data_supported(self, data: GameData) -> bool:
-        """Layouts the lane-axis grid runs: dense or SparseRows."""
+        """Layouts the lane-axis grid runs: dense or SparseRows (a
+        blocked-ELL shard, one device's or a mesh's, and a chunked one
+        keep the sequential path, on a mesh or not)."""
         for cfg in self.coordinate_configs.values():
             X = data.shards[cfg.feature_shard]
-            if isinstance(X, (BlockedEllRows, ChunkedMatrix)):
+            if isinstance(X, (BlockedEllRows, ShardedBlockedEllRows,
+                              ChunkedMatrix)):
                 return False
         return True
 
@@ -424,7 +437,7 @@ class GameEstimator:
         batch = ds.batch(data.offsets)
         grid = train_glm_grid(batch, self.task, base.optimizer, weights,
                               variance=self.variance, normalization=norm,
-                              device=ds.device)
+                              mesh=self.mesh, device=ds.device)
         dev = ds.device
         models = [GeneralizedLinearModel(Coefficients(
             m.coefficients.means.to(dev),
@@ -434,8 +447,20 @@ class GameEstimator:
         # each lane's unregularized weighted training loss (what the
         # descent's objective_history records), from one scoring pass
         loss, _, _ = loss_fns(self.task)
-        margins = score_models(models, ds.X, batch.offsets)
-        objectives = torch.sum(batch.weights * loss(margins, batch.y),
+        if self.mesh is not None:  # every slot's rows, gathered
+            from photon_tpu_torch.game.scoring import mesh_margins
+
+            def col(v):
+                return torch.as_tensor(np.asarray(v, np.float32)).to(dev)
+
+            y, wts = col(data.y), col(data.weights)
+            W = torch.stack([m.coefficients.means for m in models])
+            margins = mesh_margins(ds.X, W.t(), ds.n).t() \
+                + col(data.offsets)
+        else:
+            y, wts = batch.y, batch.weights
+            margins = score_models(models, ds.X, batch.offsets)
+        objectives = torch.sum(wts * loss(margins, y),
                                dim=1).cpu().tolist()
         val_margins = None
         if validation is not None:

@@ -9,6 +9,13 @@ shard, the fused value+grad on a dense OWL-QN solve). A host-chunked
 shard (`data.dataset.ChunkedMatrix`) solves streamed (`train_glm` on its
 `ChunkedBatch`) and scores into a host margin cache
 (`game.scoring.score_chunked_host`).
+
+On a mesh the dataset is row-sharded over the slots
+(`FixedEffectDataset.build(mesh=)`), `train_glm(mesh=)` closes each
+evaluation with one slot-ordered reduction, and the score is every
+slot's margins gathered in slot order (`game.scoring.mesh_margins`): the
+descent's whole (n,) offsets, the same bits on every process. The fused
+one-program update stays off on a mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -73,4 +80,9 @@ class FixedEffectCoordinate:
 
             return score_chunked_host(self.dataset.X, model.model.weights,
                                       self.mesh)
+        if self.dataset.mesh is not None:
+            from photon_tpu_torch.game.scoring import mesh_margins
+
+            return mesh_margins(self.dataset.X, model.model.weights,
+                                self.dataset.n)
         return model.score(self.dataset.X)

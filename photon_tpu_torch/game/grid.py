@@ -1,6 +1,7 @@
 """Vectorized GAME regularization grids: coordinate descent with a lane
 axis (port of `GridFitOutcome`, `fit_game_grid`, `_lane_offsets` and
-`lane_re_margins` of `photon_tpu/game/grid.py`, on one device).
+`lane_re_margins` of `photon_tpu/game/grid.py`, on one device or a
+mesh).
 
 Reference parity: com.linkedin.photon.ml.estimators.GameEstimator's grid
 mode trains one full job per GameOptimizationConfiguration. Here every
@@ -17,6 +18,14 @@ sharing every pass over the lane-invariant design matrices.
   copied G times.
 - Scores are (n, G) per coordinate on the device; after each update the
   per-lane objective (G,) stays there too, read back once at the end.
+
+On a mesh (reference: `fit_game_grid(mesh=)`) the fixed batch is
+row-sharded over the slots, padded to a slot multiple, its lanes closing
+each evaluation with one slot-ordered reduction, and its (n, G) margins
+gathered in slot order; a bucket's (entity × grid point) lanes split by
+entity over the slots (`RandomEffectCoordinate.solve_block_grid_mesh`),
+one gather per bucket. The starts are whole on every process, as the
+reference's replicated ``w0s``.
 
 Semantics against the sequential path: the same per grid point — each
 lane runs the same sweeps, warm-starting every update from its own
@@ -42,6 +51,7 @@ from photon_tpu_torch.game.model import (FixedEffectModel, GameModel,
                                          RandomEffectModel, padded_coeffs,
                                          score_rows)
 from photon_tpu_torch.game.random_effect import RETrainStats
+from photon_tpu_torch.game.scoring import mesh_margins
 from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_tpu_torch.models.training import (_lane_result, _lane_solve,
                                               _to_host, lane_weight_arrays,
@@ -49,6 +59,7 @@ from photon_tpu_torch.models.training import (_lane_result, _lane_solve,
 from photon_tpu_torch.models.variance import compute_variances_lanes
 from photon_tpu_torch.ops.losses import TaskType, loss_fns
 from photon_tpu_torch.optim.tracker import OptResult
+from photon_tpu_torch.parallel.mesh import SlotRows, check_mesh, local_rows
 
 
 def _lane_offsets(base: torch.Tensor, scores, G: int) -> torch.Tensor:
@@ -87,6 +98,8 @@ class GridFitOutcome:
 def _refuse(coord, name: str) -> None:
     X = coord.dataset.X
     if isinstance(coord, FixedEffectCoordinate):
+        if isinstance(X, SlotRows):
+            X = X.parts[0]
         if isinstance(X, (BlockedEllRows, ChunkedMatrix)):
             raise ValueError(
                 f"fit_game_grid: coordinate {name!r} has a "
@@ -112,12 +125,9 @@ def fit_game_grid(coordinates: dict, lane_weights: dict, y, weights,
     ``coordinates``: name -> FixedEffectCoordinate | RandomEffectCoordinate
     built from the BASE configs (reg weights are per-lane values);
     ``lane_weights``: name -> G reg weights, one per grid point (constant
-    for a coordinate the grid does not vary). On the coordinates' device;
-    ``mesh`` waits for ROADMAP queue A item 10."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes (multi-device GAME grids) are not ported yet (ROADMAP "
-            "queue A item 10)")
+    for a coordinate the grid does not vary). On the coordinates' device,
+    or with ``mesh`` over its slots (the module docstring)."""
+    check_mesh(mesh)
     seq = list(update_sequence) if update_sequence else list(coordinates)
     trained = list(dict.fromkeys(seq))
     G = len(next(iter(lane_weights.values())))
@@ -142,7 +152,15 @@ def fit_game_grid(coordinates: dict, lane_weights: dict, y, weights,
         ds = coord.dataset
         if isinstance(coord, FixedEffectCoordinate):
             obj = make_objective(task, coord.config, ds.dim, device=dev)
-            prep[name] = (obj, l2s, l1s, static_cfg)
+            cols = None
+            if mesh is not None:  # X row-sharded once, its rows kept
+                from photon_tpu_torch.data.dataset import mesh_batch
+
+                mb = (mesh_batch(GLMBatch(ds.X, y, weights,
+                                          torch.zeros_like(y)), mesh)
+                      if ds.mesh is None else ds)
+                cols = (mb.X, mb.y, mb.weights)
+            prep[name] = (obj, l2s, l1s, static_cfg, cols)
             state[name] = torch.zeros((G, ds.dim), dtype=torch.float32,
                                       device=dev)
         else:
@@ -164,13 +182,19 @@ def fit_game_grid(coordinates: dict, lane_weights: dict, y, weights,
             offs = _lane_offsets(
                 base, tuple(s for o, s in scores.items() if o != name), G)
             if isinstance(coord, FixedEffectCoordinate):
-                obj, l2s, l1s, cfg = prep[name]
-                batch = GLMBatch(ds.X, y, weights, offs)
+                obj, l2s, l1s, cfg, cols = prep[name]
+                if cols is None:
+                    batch = GLMBatch(ds.X, y, weights, offs)
+                else:
+                    batch = GLMBatch(*cols, local_rows(
+                        mesh, offs, cols[0].n_rows))
                 res = _lane_solve(obj, batch, state[name].t().contiguous(),
                                   l2s, l1s, cfg)
                 var = compute_variances_lanes(obj, l2s, res.w, batch,
                                               coord.variance)
-                margins = matvec_lanes(ds.X, res.w)
+                margins = (matvec_lanes(ds.X, res.w) if cols is None
+                           else mesh_margins(cols[0], res.w,
+                                             int(y.shape[0])))
                 res = _lane_result(res)
                 state[name] = res.w
                 var_state[name] = None if var is None else var.t()
@@ -184,8 +208,13 @@ def fit_game_grid(coordinates: dict, lane_weights: dict, y, weights,
                 for block, ents in zip(ds.blocks, ents_b):
                     e = int(ents.shape[0])
                     W0 = C[:, ents, :].permute(2, 1, 0).reshape(d, e * G)
-                    w, var, conv, fail, its = coord.solve_block_grid(
-                        block, offs, W0, l2s, l1s, cfg)
+                    if mesh is None:
+                        w, var, conv, fail, its = coord.solve_block_grid(
+                            block, offs, W0, l2s, l1s, cfg)
+                    else:
+                        w, var, conv, fail, its = \
+                            coord.solve_block_grid_mesh(
+                                mesh, block, offs, W0, l2s, l1s, cfg)
                     C[:, ents, :] = w.reshape(d, e, G).permute(2, 1, 0)
                     if var is not None:
                         if V is None:

@@ -47,6 +47,21 @@ iteration counts change, not the optimum).
 A regularization grid over the GAME model (`game.grid`) solves a bucket
 with G lanes per entity (`solve_block_grid`): lanes = (entity × grid
 point), each entity's rows shared by its G lanes.
+
+On a mesh (``mesh``, a `parallel.mesh.Mesh` of S slots) a bucket's E
+lanes pad with weight-0 lanes to ``pad_to_multiple(E, S)`` and slot j
+owns the contiguous lanes ``[j·c, (j+1)·c)``, c = that count / S
+(reference: `dispatch_chunked` over `data_sharding`). Dispatch gathers
+each LOCAL slot's lanes from the bucket (`take_lanes`) onto the slot's
+device and runs their solves there, in chunks of `lane_chunk(m, c)`: the
+same work on the same lanes at every process count. Retire gathers every
+process's packed results (w, variances, convergence, failure and
+iterations per lane) in slot order — one `all_gather` per bucket, the
+only collective the update adds — and drops the padding lanes, so every
+process holds the whole table and counts real lanes only. The straggler
+pass re-pads its lanes to a slot multiple the same way. Slots' lanes are
+never merged into one solve: that would tie an entity's bits to the
+process count.
 """
 from __future__ import annotations
 
@@ -70,7 +85,8 @@ from photon_tpu_torch.models.variance import (VarianceComputationType,
 from photon_tpu_torch.ops.losses import TaskType
 from photon_tpu_torch.optim.config import OptimizerConfig
 from photon_tpu_torch.optim.tracker import OptResult
-from photon_tpu_torch.parallel.mesh import compact_rows
+from photon_tpu_torch.parallel.mesh import (check_mesh, compact_rows,
+                                            gather_processes, pad_to_multiple)
 
 # The largest (m, E) lane tensor of one chunk solve, in elements: 2^24 f32
 # is 64 MB, and a lane L-BFGS keeps about a dozen such tensors plus its
@@ -104,6 +120,55 @@ def take_lanes(batch: GLMBatch, idx, pad_lanes: Optional[int] = None
                             batch.offsets.t()), idx, pad_rows=pad_lanes)
     return GLMBatch(batch.X.take(idx, pad_lanes), y.t().contiguous(),
                     w.t().contiguous(), o.t().contiguous())
+
+
+def _objective_on(obj, dev):
+    """``obj`` with every tensor field on ``dev`` (itself when there)."""
+    moved = {f.name: getattr(obj, f.name).to(dev)
+             for f in dataclasses.fields(obj)
+             if isinstance(getattr(obj, f.name), torch.Tensor)
+             and getattr(obj, f.name).device != dev}
+    return dataclasses.replace(obj, **moved) if moved else obj
+
+
+def _pack_lanes(w, var, conv, fail, its, home) -> torch.Tensor:
+    """One f32 row per lane on ``home``, the form a slot's results travel
+    in: lane-major w (lanes, p), the variances when computed, then
+    converged, failed and iterations (exact in f32)."""
+    n = int(w.shape[0])
+    parts = [w] + ([] if var is None else [var])
+    parts += [t.reshape(n, 1) for t in (conv, fail, its)]
+    return torch.cat([t.to(home, torch.float32) for t in parts], dim=1)
+
+
+def solve_slots(mesh, E: int, solve_share) -> torch.Tensor:
+    """Dispatch ``E`` lanes over the slots of ``mesh``: they pad to a
+    slot multiple and slot j owns the c = ⌈E / S⌉ lanes [j·c, (j+1)·c).
+    ``solve_share(idx, c, dev)`` solves one LOCAL slot's real lanes
+    ``idx`` (a long tensor, padded to c lanes) on its device and returns
+    lane-major (w, variances or None, converged, failed, iterations).
+    Returns this process's results packed by `_pack_lanes`, (n_local·c·k,
+    K) on the home device, in slot order."""
+    c = pad_to_multiple(max(E, 1), mesh.n_slots) // mesh.n_slots
+    packed = []
+    for j, dev in zip(mesh.local_slots, mesh.slot_devices):
+        idx = torch.arange(min(j * c, E), min((j + 1) * c, E),
+                           dtype=torch.long)
+        packed.append(_pack_lanes(*solve_share(idx, c, dev), mesh.home))
+    telemetry.count("game_re.slot_solves", len(packed))
+    return torch.cat(packed)
+
+
+def gather_slots(mesh, local: torch.Tensor, n: int, p: int) -> tuple:
+    """Retire on a mesh: every process's `solve_slots` results in slot
+    order (one gather), the padding lanes past ``n`` dropped — lane-major
+    (w (n, p), variances (n, p) or None, converged, failed, iterations
+    (n,) int64) on the home device."""
+    rows = gather_processes(mesh, local).reshape(-1, int(local.shape[1]))
+    rows = rows[:n]
+    var = rows[:, p:2 * p] if rows.shape[1] == 2 * p + 3 else None
+    return (rows[:, :p], var, rows[:, -3] != 0, rows[:, -2] != 0,
+            rows[:, -1].to(torch.int64))
 
 
 def _lockstep(iters: np.ndarray, step: int, lanes: bool = True) -> int:
@@ -150,8 +215,10 @@ class _InFlight:
     block: REBlock
     pm: Optional[np.ndarray]
     pp: Optional[np.ndarray]
-    res: OptResult
+    res: Optional[OptResult]
     var: Optional[torch.Tensor]
+    # on a mesh: this process's slots' packed results (`_solve_slots`)
+    local: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -187,10 +254,7 @@ class RandomEffectCoordinate:
 
     def __post_init__(self):
         ds = self.dataset
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "meshes (entity blocks sharded over devices) are not ported "
-                "yet (ROADMAP queue A item 10)")
+        check_mesh(self.mesh)
         if int(self.pipeline_depth) < 0:
             raise ValueError("pipeline_depth must be >= 0")
         if ds.projection is not None:
@@ -253,6 +317,53 @@ class RandomEffectCoordinate:
         return make_objective(self.task, self.config, self._block_dim(block),
                               normalization=norm, device=block.y.device)
 
+    # ------------------------------------------------- lanes over slots
+    def _solve_slots(self, obj, batch: GLMBatch, W0: torch.Tensor,
+                     prior_means=None, prior_precs=None,
+                     max_iters: Optional[int] = None) -> torch.Tensor:
+        """Dispatch on a mesh (`solve_slots`): the E lanes of a lane-minor
+        ``batch`` (with (p, E) starts and priors), each LOCAL slot's c
+        lanes (zero lanes past E) taken onto its device and solved there
+        by `solve_lanes`."""
+        def share(idx, c, dev):
+            def cols(t):  # (p, E) lane columns -> (p, c) on dev
+                return compact_rows(t.t(), idx, pad_rows=c).t() \
+                    .contiguous().to(dev)
+
+            sub = take_lanes(batch, idx, c)
+            if sub.y.device != dev:
+                sub = GLMBatch(sub.X.to(dev), *(t.to(dev) for t in sub[1:]))
+            pm = pp = None
+            if prior_means is not None:
+                pm, pp = cols(prior_means), cols(prior_precs)
+            res, var = self.solve_lanes(_objective_on(obj, dev), sub,
+                                        cols(W0), pm, pp,
+                                        max_iters=max_iters)
+            return res.w, var, res.converged, res.failed, res.iterations
+
+        return solve_slots(self.mesh, int(batch.y.shape[1]), share)
+
+    def _gather_slots(self, local: torch.Tensor, E: int, p: int) -> tuple:
+        """`gather_slots` of a bucket's E lanes as host arrays (w (E, p),
+        converged, failed, iterations (E,) int64, variances or None)."""
+        w, var, conv, fail, its = (
+            None if t is None else t.cpu().numpy()
+            for t in gather_slots(self.mesh, local, E, p))
+        return (np.ascontiguousarray(w), conv, fail, its,
+                None if var is None else np.ascontiguousarray(var))
+
+    def solve_lanes_mesh(self, obj, batch: GLMBatch, W0: torch.Tensor,
+                         prior_means=None, prior_precs=None,
+                         max_iters: Optional[int] = None) -> tuple:
+        """`solve_lanes` over the mesh's slots, dispatched and gathered at
+        once (the straggler pass and the continual refresh): host (w,
+        converged, failed, iterations, variances or None) of the E real
+        lanes."""
+        local = self._solve_slots(obj, batch, W0, prior_means, prior_precs,
+                                  max_iters)
+        return self._gather_slots(local, int(batch.y.shape[1]),
+                                  int(W0.shape[0]))
+
     def solve_lanes(self, obj, batch: GLMBatch, W0: torch.Tensor,
                     prior_means: Optional[torch.Tensor] = None,
                     prior_precs: Optional[torch.Tensor] = None,
@@ -287,6 +398,7 @@ class RandomEffectCoordinate:
             l1s = None if l1 is None else l1.to(dev).expand(G).contiguous()
             res = _lane_solve(o, sub, W0[:, lo:hi].contiguous(), l2s, l1s,
                               cfg)
+            telemetry.count("game_re.lockstep_solves")
             var = compute_variances_lanes(o, l2s, res.w, sub, self.variance)
             results.append(_lane_result(res))
             variances.append(None if var is None else var.t())
@@ -334,10 +446,15 @@ class RandomEffectCoordinate:
         pm2 = pp2 = None
         if pm is not None:
             pm2, pp2 = _lanes(pm[idx], dev), _lanes(pp[idx], dev)
-        res2, var2 = self.solve_lanes(self.block_objective(block), batch, W0,
-                                      pm2, pp2)
-        w2, conv2, fail2, it2 = (t.cpu().numpy() for t in (
-            res2.w, res2.converged, res2.failed, res2.iterations))
+        if self.mesh is not None:  # re-padded to a slot multiple
+            w2, conv2, fail2, it2, var2 = self.solve_lanes_mesh(
+                self.block_objective(block), batch, W0, pm2, pp2)
+        else:
+            res2, var2 = self.solve_lanes(self.block_objective(block),
+                                          batch, W0, pm2, pp2)
+            w2, conv2, fail2, it2 = (t.cpu().numpy() for t in (
+                res2.w, res2.converged, res2.failed, res2.iterations))
+            var2 = None if var2 is None else var2.cpu().numpy()
         it2 = it2.astype(np.int64)
         first = iters.copy()
         w_out[idx] = w2
@@ -345,9 +462,9 @@ class RandomEffectCoordinate:
         fail[idx] = fail2
         iters[idx] += it2
         if var_h is not None:
-            var_h[idx] = var2.cpu().numpy()
-        step, step2 = lane_chunk(block.m, first.shape[0]), lane_chunk(
-            block.m, n2)
+            var_h[idx] = var2
+        step, step2 = self._chunk_of(block.m, first.shape[0]), \
+            self._chunk_of(block.m, n2)
         full, capped = _lockstep(iters, step), _lockstep(first, step)
         tail = _lockstep(it2, step2)
         telemetry.count("game_re.straggler_entities", n2)
@@ -355,6 +472,14 @@ class RandomEffectCoordinate:
         telemetry.count("game_re.tail_lockstep_iters",
                         _lockstep(it2, step2, lanes=False))
         telemetry.count("game_re.iters_saved", max(full - capped - tail, 0))
+
+    def _chunk_of(self, m: int, E: int) -> int:
+        """Lanes per lock-step solve of an E-lane bucket: `lane_chunk` of
+        the bucket, or on a mesh of one slot's share."""
+        if self.mesh is not None:
+            E = pad_to_multiple(max(E, 1), self.mesh.n_slots) \
+                // self.mesh.n_slots
+        return lane_chunk(m, E)
 
     def solve_block_grid(self, block: REBlock, offsets_lanes, W0, l2s,
                          l1s, config: OptimizerConfig):
@@ -390,6 +515,7 @@ class RandomEffectCoordinate:
             l1 = None if l1s is None else l1s.repeat(hi - lo)
             res = _lane_solve(obj, sub, W0[:, lo * G:hi * G].contiguous(),
                               l2, l1, config)
+            telemetry.count("game_re.lockstep_solves")
             var = compute_variances_lanes(obj, l2, res.w, sub, self.variance)
             parts.append((res.w, var, res.converged, res.failed,
                           res.iterations))
@@ -399,6 +525,32 @@ class RandomEffectCoordinate:
         return (torch.cat(w, dim=1),
                 None if var[0] is None else torch.cat(var, dim=1),
                 torch.cat(conv), torch.cat(fail), torch.cat(its))
+
+    def solve_block_grid_mesh(self, mesh, block: REBlock, offsets_lanes,
+                              W0, l2s, l1s, config: OptimizerConfig):
+        """`solve_block_grid` over the slots of ``mesh`` (`solve_slots`,
+        `gather_slots`): the bucket's E entities pad to a slot multiple,
+        each LOCAL slot's c entities (with their G lanes each) taken onto
+        its device (`REBlock.take`) and solved there — the same lane-minor
+        results as `solve_block_grid`, on the home device."""
+        E, G = block.n_entities, int(l2s.shape[0])
+        d = int(W0.shape[0])
+        W0e = W0.reshape(d, E, G)
+
+        def share(idx, c, dev):
+            sub = block.take(idx.numpy(), c, dev)
+            w0 = torch.zeros((d, c, G), dtype=W0.dtype, device=dev)
+            w0[:, :idx.numel()] = W0e[:, idx].to(dev)
+            w, var, conv, fail, its = self.solve_block_grid(
+                sub, offsets_lanes.to(dev), w0.reshape(d, c * G),
+                l2s.to(dev), None if l1s is None else l1s.to(dev), config)
+            return w.t(), None if var is None else var.t(), conv, fail, its
+
+        w, var, conv, fail, its = gather_slots(
+            mesh, solve_slots(mesh, E, share), E * G, d)
+        return (w.t().contiguous(),
+                None if var is None else var.t().contiguous(),
+                conv, fail, its)
 
     def train(self, offsets_full,
               warm_start: Optional[RandomEffectModel] = None,
@@ -494,9 +646,17 @@ class RandomEffectCoordinate:
                 w0 = w0_full
                 if prior_means is not None:
                     pm, pp = prior_means[ents], prior_precs[ents]
+            telemetry.count("game_re.blocks")
+            if self.mesh is not None:
+                dev = block.y.device
+                local = self._solve_slots(
+                    self.block_objective(block),
+                    ds.block_batch(block, offsets_dev), _lanes(w0, dev),
+                    None if pm is None else _lanes(pm, dev),
+                    None if pp is None else _lanes(pp, dev), budget)
+                return _InFlight(block, pm, pp, None, None, local)
             res, var = self.solve_block(block, offsets_dev, w0, pm, pp,
                                         max_iters=budget)
-            telemetry.count("game_re.blocks")
             return _InFlight(block, pm, pp, res, var)
 
         def retire(fl: _InFlight) -> None:
@@ -507,14 +667,19 @@ class RandomEffectCoordinate:
             # unscattered results; a resume re-dispatches it
             _ckpt.kill_point("bucket_retire")
             block, ents = fl.block, fl.block.entity_index
-            w_out, conv, fail, iters = (np.array(t.cpu()) for t in (
-                fl.res.w, fl.res.converged, fl.res.failed,
-                fl.res.iterations))
+            if fl.local is not None:  # the bucket's one gather, in order
+                w_out, conv, fail, iters, var_h = self._gather_slots(
+                    fl.local, block.n_entities, self._block_dim(block))
+            else:
+                w_out, conv, fail, iters = (np.array(t.cpu()) for t in (
+                    fl.res.w, fl.res.converged, fl.res.failed,
+                    fl.res.iterations))
+                var_h = None if fl.var is None else np.array(fl.var.cpu())
             iters = iters.astype(np.int64)
-            var_h = None if fl.var is None else np.array(fl.var.cpu())
             if budget is not None:
                 telemetry.count("game_re.capped_lockstep_iters", _lockstep(
-                    iters, lane_chunk(block.m, iters.shape[0]), lanes=False))
+                    iters, self._chunk_of(block.m, iters.shape[0]),
+                    lanes=False))
                 strag = np.nonzero(~conv & ~fail)[0]
                 if strag.size:
                     self._resolve_stragglers(block, offsets_dev, strag,

@@ -1,6 +1,6 @@
 """Offline batch scoring of GAME models (port of `photon_tpu/game/
-scoring.py` on one device). It scores what `game.estimator.GameEstimator.
-fit` returns, on the model's device.
+scoring.py`). It scores what `game.estimator.GameEstimator.fit` returns,
+on the model's device.
 
 The total score is the base offsets plus every coordinate's margin,
 summed in coordinate order — the sum the serving ladder's f32 rungs must
@@ -10,7 +10,16 @@ A fixed effect whose shard is a host `ChunkedMatrix` (the streamed
 regime) scores through `score_chunked_host`: each chunk streams through
 the device, its margins are copied asynchronously into a pinned HOST
 (n,) cache, and the full-dataset score vector never lives on the device,
-so the GAME descent sums its offsets on the host.
+so the GAME descent sums its offsets on the host. With a mesh each chunk
+streams row-sharded over the slots (a mesh ladder's `ShardedBlockedEllRows`
+chunk shard by shard through the blocked-ELL kernels; dense and
+`SparseRows` chunks cut into padded row slices), and the per-slot margins
+come back in slot order through one gather per call.
+
+A row-sharded fixed shard (`SlotRows`, the mesh form of a GAME fixed
+effect) scores slot by slot and gathers in slot order (`mesh_margins`);
+a `ShardedBlockedEllRows` shard in scoring data scores shard by shard on
+the model's device.
 """
 from __future__ import annotations
 
@@ -19,8 +28,12 @@ import torch
 
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import ChunkedMatrix, make_chunked_batch
-from photon_tpu_torch.data.matrix import (BlockedEllRows, SparseRows,
-                                          as_tensor, matvec)
+from photon_tpu_torch.data.matrix import (BlockedEllRows,
+                                          ShardedBlockedEllRows, SparseRows,
+                                          as_tensor, matvec, matvec_lanes)
+from photon_tpu_torch.parallel.mesh import (SlotRows, check_mesh,
+                                            gather_processes, gather_rows,
+                                            pad_to_multiple)
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.game.dataset import GameData
 from photon_tpu_torch.game.model import (FixedEffectModel, GameModel,
@@ -35,11 +48,36 @@ def _model_device(model: GameModel) -> torch.device:
 
 
 def _on(X, device):
-    if isinstance(X, ChunkedMatrix):
-        return X  # streamed chunk by chunk, never resident
+    if isinstance(X, (ChunkedMatrix, ShardedBlockedEllRows)):
+        return X  # streamed chunk by chunk / shard by shard
     if isinstance(X, (SparseRows, BlockedEllRows)):
         return X.to(device)
     return as_tensor(X, device)
+
+
+def mesh_margins(X: SlotRows, w: torch.Tensor, n_rows: int
+                 ) -> torch.Tensor:
+    """The (n,) margins (or (n, G) for lane-minor (d, G) ``w``) of a
+    row-sharded matrix for model-space ``w``: every local slot's matvec on
+    its device (a blocked-ELL slot through the kernels, ``w`` in the
+    layout's permuted space), gathered in slot order over the processes
+    and trimmed to the ``n_rows`` real rows, on the home device."""
+    w = w.to(X.mesh.home, torch.float32)
+    if isinstance(X.parts[0], BlockedEllRows):
+        w = X.from_model_space(w)
+    local = matvec_lanes(X, w.contiguous()) if w.dim() == 2 \
+        else matvec(X, w)
+    return gather_rows(X.mesh, local, n_rows)
+
+
+def _score_sharded(X: ShardedBlockedEllRows, w: torch.Tensor,
+                   n_rows: int) -> torch.Tensor:
+    """Margins of a host `ShardedBlockedEllRows` on ``w``'s device, shard
+    by shard in row order (the mesh form scored on one device)."""
+    dev = w.device
+    wp = w.to(torch.float32)[X.perm_cols.to(dev).long()]
+    parts = [matvec(X.chunk(j).to(dev), wp) for j in range(X.n_shards)]
+    return torch.cat(parts)[:n_rows]
 
 
 def coordinate_scores(model: GameModel, data: GameData) -> dict:
@@ -50,7 +88,9 @@ def coordinate_scores(model: GameModel, data: GameData) -> dict:
     for name, cm in model.coordinates.items():
         X = _on(data.shards[cm.feature_shard], device)
         if isinstance(cm, FixedEffectModel):
-            out[name] = cm.score(X)
+            out[name] = (_score_sharded(X, cm.model.weights, data.n)
+                         if isinstance(X, ShardedBlockedEllRows)
+                         else cm.score(X))
         elif isinstance(cm, RandomEffectModel):
             out[name] = cm.score(X, cm.dense_ids(
                 data.entity_ids[cm.entity_name]))
@@ -77,11 +117,17 @@ def score_chunked_host(X: ChunkedMatrix, w, mesh=None,
     ``cuda``), takes one matvec there (a chunk ladder's blocked-ELL
     kernels; ``w`` translated into its permuted space once), and its
     margins are copied asynchronously into a pinned host buffer read once
-    the stream has closed. ``mesh`` waits for ROADMAP queue A item 10."""
+    the stream has closed. With ``mesh`` every chunk streams row-sharded
+    over the slots (`_score_chunked_mesh`); a ladder laid for a mesh
+    (`chunk_blocked_ell(n_shards > 1)`) needs one."""
+    check_mesh(mesh)
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded streamed scoring is not ported yet (ROADMAP "
-            "queue A item 10)")
+        return _score_chunked_mesh(X, w, mesh)
+    if X.chunk_shards > 1:
+        raise ValueError(
+            f"this blocked-ELL chunk ladder was laid for a "
+            f"{X.chunk_shards}-device mesh; pass mesh= to score it "
+            "(or rebuild with chunk_blocked_ell(n_shards=1))")
     if isinstance(w, torch.Tensor):
         dev = w.device
     else:
@@ -101,3 +147,39 @@ def score_chunked_host(X: ChunkedMatrix, w, mesh=None,
         torch.cuda.current_stream(dev).synchronize()
     telemetry.count("game_e2e.score_stream_rows", int(X.n_real))
     return out.numpy()[:X.n_real]
+
+
+def _score_chunked_mesh(X: ChunkedMatrix, w, mesh) -> np.ndarray:
+    """`score_chunked_host` over a mesh: every chunk streams through the
+    mesh's upload ring (`data.dataset.MeshChunkRing`: each local slot's
+    rows of the chunk — padded to the mesh, or the slot's shard of a mesh
+    ladder — on the slot's device), each slot's margins land in a pinned
+    host buffer, and one gather over the processes puts every slot's rows
+    back in global order: chunk-major, slot-major within a chunk, each
+    chunk's padding dropped."""
+    home = mesh.home
+    w = (w.detach() if isinstance(w, torch.Tensor)
+         else torch.from_numpy(np.asarray(w, np.float32)))
+    w = w.to(home, torch.float32)
+    if X.permuted:
+        w = w[X.perm_cols.to(home).long()]
+    cuda = home.type == "cuda"
+    c = X.chunk_rows
+    s = pad_to_multiple(c, mesh.n_slots) // mesh.n_slots
+    local = torch.empty((X.n_chunks, mesh.n_local, s), dtype=torch.float32,
+                        pin_memory=cuda)
+    on: dict = {}
+    data = make_chunked_batch(X, np.zeros(X.n_real, np.float32))
+    for i, parts in data.iter_device(mesh=mesh):
+        for k, (b, dev) in enumerate(zip(parts, mesh.slot_devices)):
+            if dev not in on:
+                on[dev] = w.to(dev)
+            local[i, k].copy_(matvec(b.X, on[dev]), non_blocking=True)
+        telemetry.count("game_e2e.score_stream_chunks")
+    if cuda:
+        for dev in set(mesh.slot_devices):
+            torch.cuda.current_stream(dev).synchronize()
+    rows = gather_processes(mesh, local.to(home))  # (P, chunks, local, s)
+    rows = rows.permute(1, 0, 2, 3).reshape(X.n_chunks, mesh.n_slots * s)
+    telemetry.count("game_e2e.score_stream_rows", int(X.n_real))
+    return rows[:, :c].reshape(-1)[:X.n_real].cpu().numpy()

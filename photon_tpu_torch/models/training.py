@@ -61,7 +61,7 @@ from photon_tpu_torch.optim.lbfgs import minimize_lbfgs_margin
 from photon_tpu_torch.optim.owlqn import minimize_owlqn
 from photon_tpu_torch.optim.tracker import OptResult
 from photon_tpu_torch.optim.tron import minimize_tron_margin
-from photon_tpu_torch.parallel.mesh import Mesh, SlotRows
+from photon_tpu_torch.parallel.mesh import Mesh, SlotRows, check_mesh
 
 
 def _vec_on(v, device):
@@ -203,16 +203,10 @@ def _prior_into(norm, prior_mean, prior_precision):
     return prior_mean, prior_precision
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None and not isinstance(mesh, Mesh):
-        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
-                        f"{type(mesh).__name__}")
-
-
 def _prep(batch: GLMBatch, mesh, device) -> tuple:
     """(batch on its device or row-sharded over the mesh, the solve's
     device): the mesh's home device holds the replicated solver state."""
-    _check_mesh(mesh)
+    check_mesh(mesh)
     if mesh is None:
         if isinstance(batch.X, SlotRows):
             raise ValueError("a row-sharded batch solves on its mesh: pass "
@@ -273,7 +267,7 @@ def train_glm_streamed(
             "stream the full dataset once — cg_max_iters streams per "
             "iteration vs L-BFGS's two); use LBFGS or OWLQN for "
             "out-of-HBM solves")
-    _check_mesh(mesh)
+    check_mesh(mesh)
     dev = resolve_device(device) if mesh is None else mesh.home
     d = data.X.n_features
     norm = _active_norm(normalization)

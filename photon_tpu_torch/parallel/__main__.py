@@ -17,7 +17,10 @@ run side by side, each cluster on its own rendezvous port):
    ``stream_to_device(local_only=True)`` then a resident mesh solve at 1,
    2 and 4 processes — coefficients bit for bit equal to this process's
    8-slot mesh's, and every rank of 2 and 4 skipped chunks
-   (``ingest.chunks_skipped`` > 0) and decoded some;
+   (``ingest.chunks_skipped`` > 0) and decoded some; and GAME on the
+   mesh (`selfcheck.game_fit`: entity lanes over the slots, one gather a
+   bucket) — one digest at 1, 2 and 4 processes, equal to this
+   process's;
 3. elastic restore: a 2-process mesh-streamed solve killed mid-run
    commits ``p<k>_`` payloads with per-slot row caches; 1- and 4-process
    clusters restore them (each from its own copy of the snapshot) and
@@ -109,6 +112,13 @@ def selftest(device: str = "cuda", backend=None) -> dict:
               all((r["w"] == want["w"]).all()
                   for res in solved.values() for r in res),
               f"in-process {want['digest']}, by process count {got}")
+        games = {n: sorted({r["game_digest"] for r in res})
+                 for n, res in solved.items()}
+        game_want = sc.game_fit(mesh8)["digest"]
+        report["game_digest"] = game_want
+        check("game_bit_identity_1_2_4",
+              all(g == [game_want] for g in games.values()),
+              f"in-process {game_want}, by process count {games}")
         check("local_only_ingest_split",
               all(r["chunks_skipped"] > 0 and r["chunks_decoded"] > 0
                   for n, res in solved.items() if n > 1 for r in res),

@@ -142,9 +142,10 @@ def launch(target: Callable, n_processes: int, *, args: Sequence = (),
     processes forming one process group; return the per-rank results in
     rank order.
 
-    ``total_devices`` (the global mesh slot count) must divide by
-    ``n_processes``. ``device`` is each child's device — ``cuda`` unless
-    the caller asks for ``"cpu"``; ``backend`` its group's (default:
+    ``total_devices`` (the global mesh slot count) must split over
+    ``n_processes`` as `parallel.mesh.check_slot_split` allows.
+    ``device`` is each child's device — ``cuda`` unless the caller asks
+    for ``"cpu"``; ``backend`` its group's (default:
     NCCL on CUDA, gloo on the CPU; ``"gloo"`` to share a card). ``env``
     adds child environment variables (fault knobs, barrier timeouts).
     Raises :class:`ClusterUnavailable` when even a localhost group cannot
@@ -158,6 +159,9 @@ def launch(target: Callable, n_processes: int, *, args: Sequence = (),
             f"total_devices={total_devices} does not divide into "
             f"{n_processes} processes — the global mesh would change shape "
             "across process counts")
+    from photon_tpu_torch.parallel.mesh import check_slot_split
+
+    check_slot_split(total_devices, n_processes)
     if backend == "nccl" and str(device).startswith("cpu"):
         raise ValueError("NCCL reduces CUDA tensors; a CPU launch uses gloo")
     coordinator = f"127.0.0.1:{free_port()}"

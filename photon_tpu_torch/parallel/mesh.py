@@ -16,31 +16,43 @@ fixes its summation order independently of the world size, so the mesh
 fixes it itself: the S slot partials are summed by a pairwise tree over
 slot order — each process sums the subtree of its own contiguous slots,
 the P process partials are ``all_gather``ed (ONE collective), and every
-rank finishes the same tree in rank order. With S and P powers of two
-every addition is the same f32 addition at every P, so the same mesh
-split over 1, 2 or 4 processes gives the same bits, and the in-process
-mesh (P = 1) runs the same code. Counters: ``mesh.reductions`` (one per
-call), ``mesh.collectives`` and ``mesh.wire_bytes`` (what this rank sends
-on the wire) when P > 1.
+rank finishes the same tree in rank order. When each process's S/P
+slots are a power of two, its subtree is a subtree of the global tree,
+every addition is the same f32 addition at every P, and the same mesh
+split over 1, 2 or 4 processes gives the same bits; the in-process mesh
+(P = 1) runs the same code. Any other split (S = 6 over 2 processes: 3
+slots each) would sum in another order than the in-process tree, so
+`make_mesh` and `parallel.launch` refuse it (`check_slot_split`).
+Counters: ``mesh.reductions`` (one per call), ``mesh.collectives`` and
+``mesh.wire_bytes`` (what this rank sends on the wire) when P > 1.
+
+THE REPLICA × DATA MESH (`make_hybrid_mesh`, the reference's DCN × ICI
+layout): the same S slots seen as R replicas of D slots each,
+replica-major (slot ``r·D + i`` is replica r's i-th slot). Its whole-mesh
+`psum` is the flat slot tree, which with D a power of two is a tree of
+per-replica subtrees.
 
 BACKENDS. CPU tensors reduce over gloo; CUDA with a card per process over
 NCCL; several processes sharing one card over gloo with host copies of
 the partials (the caller names it: ``backend="gloo"``; the compute stays
-on the card). Asking for NCCL with fewer cards than processes raises. No
-path swaps a backend or moves to the CPU unasked. Barriers (the
+on the card). Asking for NCCL with more processes on this host than it
+has cards raises (the host's process count: torchrun's
+``LOCAL_WORLD_SIZE``, else the whole cluster on one box). No path swaps a backend or moves to the CPU unasked. Barriers (the
 checkpoint store's commit barriers, :func:`cluster_barrier`) run on a
 gloo group of their own, bounded by ``PHOTON_TPU_BARRIER_TIMEOUT_S``: a
 dead peer fails them loudly, never hangs them.
 
 Row sharding: :class:`SlotRows` holds this process's slots of a
 row-sharded array or matrix, each on its slot's device (`shard_rows`,
-`shard_local_rows`, `shard_stacked`, `fetch_local_rows`). The replica ×
-data hybrid mesh (`make_hybrid_mesh`) waits for ROADMAP queue A item 10.
+`shard_local_rows`, `shard_stacked`, `fetch_local_rows`); `local_rows`
+and `gather_rows` move a whole per-row vector to this process's padded
+rows and back (one `all_gather`, slot order).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import os
 import time
 from typing import Optional
 
@@ -55,7 +67,8 @@ __all__ = [
     "distributed_client", "cluster_barrier", "barrier_timeout_s",
     "flat_mesh_devices", "local_row_slots", "shard_rows",
     "shard_local_rows", "shard_stacked", "fetch_local_rows", "psum",
-    "gather_processes",
+    "gather_processes", "check_slot_split", "check_mesh", "local_rows",
+    "gather_rows",
     "pad_to_multiple", "compact_rows", "make_hybrid_mesh",
 ]
 
@@ -82,7 +95,9 @@ class Mesh:
     (contiguous), slot ``local_slots[k]`` on ``slot_devices[k]``.
     ``home`` (the first local slot's device) holds the replicated solver
     state. ``backend`` is None for one process, else the process group's
-    ("gloo" or "nccl"). Compared and hashed by identity."""
+    ("gloo" or "nccl"). ``n_replicas`` (None for a flat mesh) views the
+    slots as a replica × data mesh (`make_hybrid_mesh`). Compared and
+    hashed by identity."""
 
     n_slots: int
     local_slots: tuple
@@ -90,6 +105,19 @@ class Mesh:
     process_index: int = 0
     process_count: int = 1
     backend: Optional[str] = None
+    n_replicas: Optional[int] = None
+
+    @property
+    def axis_names(self) -> tuple:
+        return (("replica", "data") if self.n_replicas is not None
+                else ("data",))
+
+    @property
+    def shape(self) -> tuple:
+        """(R, D) for a replica × data mesh, else (S,)."""
+        if self.n_replicas is not None:
+            return (self.n_replicas, self.n_slots // self.n_replicas)
+        return (self.n_slots,)
 
     @property
     def home(self) -> torch.device:
@@ -114,6 +142,29 @@ def _process() -> tuple:
     if _DIST:
         return _DIST["rank"], _DIST["world"]
     return 0, 1
+
+
+def check_slot_split(n_slots: int, n_processes: int) -> None:
+    """Refuse a split of ``n_slots`` over ``n_processes`` under which the
+    slot-ordered reduction would not give the in-process bits: every
+    process must own the same count of contiguous slots, and for P > 1
+    that count must be a power of two — only then is each process's run
+    of slots a subtree of `_tree`'s pairwise tree (S = 8 over 2 or 4
+    processes and 6 over 3 pass; 6 over 2 and 12 over 4 do not)."""
+    S, P = int(n_slots), int(n_processes)
+    if S % P:
+        raise ValueError(
+            f"{S} mesh slots do not split over {P} processes — every "
+            "process must own the same number of contiguous slots")
+    k = S // P
+    if P > 1 and k & (k - 1):
+        raise ValueError(
+            f"{S} mesh slots over {P} processes give each process {k} "
+            "slots, which is not a power of two: a process's slots would "
+            "not form a subtree of the slot-ordered reduction's pairwise "
+            "tree, so its sums would differ from the in-process mesh's. "
+            "Use a slot count whose share per process is a power of two "
+            f"(e.g. {P * (1 << max(k - 1, 0).bit_length())} slots)")
 
 
 def make_mesh(n_devices: Optional[int] = None, devices=None,
@@ -145,10 +196,7 @@ def make_mesh(n_devices: Optional[int] = None, devices=None,
         S = int(n_devices)
     if S < 1:
         raise ValueError(f"a mesh needs at least one slot, got {S}")
-    if S % world:
-        raise ValueError(
-            f"{S} mesh slots do not split over {world} processes — every "
-            "process must own the same number of contiguous slots")
+    check_slot_split(S, world)
     per = S // world
     local = tuple(range(rank * per, (rank + 1) * per))
     if devices is not None:
@@ -162,6 +210,13 @@ def make_mesh(n_devices: Optional[int] = None, devices=None,
         slot_devs = (base,) * per
     return Mesh(S, local, slot_devs, rank, world,
                 _DIST.get("backend") if world > 1 else None)
+
+
+def check_mesh(mesh) -> None:
+    """``mesh`` must be None or a :class:`Mesh` (a TypeError otherwise)."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
 
 
 def flat_mesh_devices(mesh: Mesh) -> list:
@@ -230,12 +285,18 @@ def psum(mesh: Mesh, parts) -> tuple:
     flat = torch.cat([t.reshape(-1) for t in leaves])
     rows = gather_processes(mesh, flat)
     (total,) = _tree([(rows[p],) for p in range(mesh.process_count)])
+    return _unflatten(total, local)
+
+
+def _unflatten(flat: torch.Tensor, like) -> tuple:
+    """``flat`` cut back into the shapes of ``like``'s tensor leaves (None
+    leaves stay None)."""
     out, at = [], 0
-    for t in local:
+    for t in like:
         if t is None:
             out.append(None)
             continue
-        out.append(total[at:at + t.numel()].reshape(t.shape))
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
         at += t.numel()
     return tuple(out)
 
@@ -376,6 +437,33 @@ def fetch_local_rows(arr: SlotRows, mesh: Mesh) -> np.ndarray:
     return np.stack([p.detach().cpu().numpy() for p in arr.parts])
 
 
+def local_rows(mesh: Mesh, t: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """This process's rows of a whole per-row tensor ``t`` ((n, ...), any
+    device) padded with zeros to ``n_pad`` rows: its local slots' rows,
+    slot-major, on the home device — the scalar-column layout of a
+    row-sharded batch (`data.dataset.mesh_batch`)."""
+    s = int(n_pad) // mesh.n_slots
+    lo, hi = mesh.local_slots[0] * s, (mesh.local_slots[-1] + 1) * s
+    n = int(t.shape[0])
+    t = t.to(mesh.home)
+    if hi <= n:
+        return t[lo:hi]
+    out = t.new_zeros((hi - lo,) + tuple(t.shape[1:]))
+    if n > lo:
+        out[:n - lo] = t[lo:n]
+    return out
+
+
+def gather_rows(mesh: Mesh, local: torch.Tensor, n_rows: int
+                ) -> torch.Tensor:
+    """The inverse of `local_rows`: every process's padded local rows
+    gathered in slot order (one ``all_gather`` when P > 1) and trimmed to
+    the ``n_rows`` real rows, on the home device — the same bits on every
+    rank."""
+    rows = gather_processes(mesh, local.to(mesh.home))
+    return rows.reshape((-1,) + tuple(local.shape[1:]))[:int(n_rows)]
+
+
 # ------------------------------------------------------------ compaction
 def _map(fn, tree):
     """``fn`` over every tensor leaf of a tuple / NamedTuple / list / dict
@@ -425,12 +513,22 @@ def compact_rows(tree, idx, pad_rows: int | None = None, mesh=None):
     return _map(take, tree)
 
 
-def make_hybrid_mesh(*args, **kwargs):
-    """The replica × data mesh (the reference's DCN × ICI layout) is not
-    ported yet (ROADMAP queue A item 10)."""
-    raise NotImplementedError(
-        "parallel.mesh.make_hybrid_mesh (the replica x data mesh) is not "
-        "ported yet (ROADMAP queue A item 10)")
+def make_hybrid_mesh(n_replicas: Optional[int] = None,
+                     n_devices: Optional[int] = None, devices=None,
+                     device=None) -> Mesh:
+    """The replica × data mesh (reference: `make_hybrid_mesh`, DCN ×
+    ICI): the `make_mesh` slots viewed as ``n_replicas`` replicas of D
+    slots, replica-major, so a replica is a contiguous run of slots.
+    ``n_replicas=None`` takes one replica per process (one for an
+    in-process mesh). A count that does not divide the slots raises.
+    Every row-sharded path runs on it as on the flat mesh of the same
+    slots (its `psum` is the flat slot tree)."""
+    mesh = make_mesh(n_devices=n_devices, devices=devices, device=device)
+    R = mesh.process_count if n_replicas is None else int(n_replicas)
+    if R < 1 or mesh.n_slots % R:
+        raise ValueError(f"{mesh.n_slots} devices do not divide into "
+                         f"{R} replicas")
+    return dataclasses.replace(mesh, n_replicas=R)
 
 
 # ------------------------------------------------------ the process group
@@ -449,6 +547,20 @@ def distributed_client() -> Optional[dict]:
     None — the one place the module state is read (double-init refusal,
     barriers, the checkpoint store's commit barrier)."""
     return dict(_DIST) if _DIST else None
+
+
+def local_process_count(num_processes: int) -> int:
+    """How many processes of the cluster run on THIS host: torchrun's
+    ``LOCAL_WORLD_SIZE``, else all ``num_processes`` (one box, as
+    `parallel.launch` runs them)."""
+    raw = os.environ.get("LOCAL_WORLD_SIZE")
+    if raw is None:
+        return int(num_processes)
+    n = int(raw)
+    if not 1 <= n <= num_processes:
+        raise ValueError(f"{n} processes on this host is outside 1.."
+                         f"{num_processes} (the cluster's size)")
+    return n
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -475,8 +587,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
     Validation is loud and comes before any traffic: a rank outside
     ``[0, num_processes)``, a rank without a size, a bad size, NCCL on
-    the CPU or on fewer cards than processes, and a second initialize in
-    the same process all raise."""
+    the CPU or on fewer cards than this host's processes
+    (`local_process_count`), and a second initialize in the same process
+    all raise."""
     import torch.distributed as dist
 
     from photon_tpu_torch.device import resolve_device
@@ -529,11 +642,15 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
             raise ValueError("NCCL reduces CUDA tensors; a CPU mesh uses "
                              "backend='gloo'")
         cards = torch.cuda.device_count()
-        if cards < num_processes:
+        here = local_process_count(num_processes)
+        if cards < here:
             raise ValueError(
-                f"NCCL needs a card per process: {num_processes} processes "
-                f"on {cards} card(s); name backend='gloo' to share a card "
-                "(the partials then reduce through host copies)")
+                f"NCCL needs a card per process: {here} processes on this "
+                f"host's {cards} card(s); name backend='gloo' to share a "
+                "card (the partials then reduce through host copies). If "
+                "the cluster spans several hosts, set "
+                "LOCAL_WORLD_SIZE to this host's process count (torchrun "
+                "sets it)")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     timeout = datetime.timedelta(seconds=float(initialization_timeout or 300))

@@ -14,9 +14,10 @@ every comparison.
   reduction: a digest that must be the same at every process count.
 - :func:`target_stream_solve` — the spine probe above, then scan →
   ``stream_to_device(local_only=True)`` (each process decodes only the
-  container blocks that overlap its slots) → resident mesh GLM solve;
-  the probe's digest, the f64 coefficients and the ingest split's
-  counters (one launch for both proofs).
+  container blocks that overlap its slots) → resident mesh GLM solve,
+  then GAME on the mesh (`game_fit`); the probe's digest, the f64
+  coefficients, the ingest split's counters and the GAME digest (one
+  launch for the three proofs).
 - :func:`target_snapshot_kill` / :func:`target_resume_solve` — a
   mesh-streamed solve killed mid-run commits per-slot (``@s<slot>``) row
   caches under each process's ``p<k>_`` payloads; the resume restores
@@ -28,6 +29,13 @@ every comparison.
 - :func:`target_saved_solve` — a resident mesh solve of a sharded
   blocked-ELL batch a parent saved (`save_sharded_batch`): each process
   maps only its own slots' shards from disk (`load_sharded_batch`).
+- :func:`target_game_data` — GAME on the mesh (`fit_game`) of a
+  parent's `GameData` (`game_problem`'s seeded one in the tests): a
+  fixed effect (dense, or the mesh's blocked-ELL form)
+  and random effects whose entity lanes split over the slots; the digest
+  of every coordinate's table, optionally under a checkpoint session
+  killed at a ``bucket_retire`` (a rerun over the same directory, at any
+  process count, resumes it).
 """
 from __future__ import annotations
 
@@ -40,6 +48,8 @@ __all__ = [
     "target_resume_solve", "target_commit_kill", "psum_signature",
     "stream_solve", "chunked_problem", "solve_chunked", "write_e2e_dataset",
     "save_sharded_batch", "load_sharded_batch", "target_saved_solve",
+    "game_problem", "game_configs", "fit_game", "game_fit",
+    "target_game_data",
 ]
 
 _TOL0_CFG = dict(max_iters=10, tolerance=0.0, reg_weight=1e-2, history=4)
@@ -189,12 +199,14 @@ def target_psum_signature(ctx) -> dict:
 def target_stream_solve(ctx) -> dict:
     """args=(dataset_root,): `target_psum_signature` (its digest as
     ``psum_digest``, its collectives and wire bytes), then `stream_solve`
-    on this rank, then a timed cluster barrier."""
+    on this rank, then `game_fit` (its digest as ``game_digest``), then a
+    timed cluster barrier."""
     from photon_tpu_torch.parallel.mesh import cluster_barrier
 
     (root,) = ctx.args
     spine = target_psum_signature(ctx)
     out = stream_solve(root, _mesh(ctx))
+    out["game_digest"] = game_fit(_mesh(ctx))["digest"]
     out["barrier_wait_s"] = cluster_barrier("stream_solve_done")
     out.update(psum_digest=spine.pop("digest"), **spine)
     return out
@@ -401,3 +413,126 @@ def target_saved_solve(ctx) -> dict:
             "reductions": int(c.get("mesh.reductions", 0)),
             "collectives": int(c.get("mesh.collectives", 0)),
             "wire_bytes": int(c.get("mesh.wire_bytes", 0))}
+
+
+# ------------------------------------------------------------ GAME on a mesh
+def game_problem(n: int = 512, users: int = 29, layout: str = "dense",
+                 n_shards: int = 8, seed: int = 5):
+    """Deterministic GAME data (seeded, rebuilt the same in every
+    process): ``n`` logistic rows, a fixed shard (d 6 with the intercept
+    last; ``layout="ell"`` lays its sparse form, d 40, for an
+    ``n_shards``-slot mesh with `shard_blocked_ell_batch`), a dense
+    per-user shard (d 4, intercept last) and zipf-skewed user ids."""
+    from photon_tpu_torch.data.dataset import (make_batch,
+                                               shard_blocked_ell_batch)
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.game.dataset import GameData
+
+    rng = np.random.default_rng(seed)
+    Xu = np.concatenate([rng.normal(size=(n, 3)), np.ones((n, 1))],
+                        1).astype(np.float32)
+    uid = (rng.zipf(1.4, size=n) - 1) % users
+    wu = (0.5 * rng.normal(size=(users, 4))).astype(np.float32)
+    if layout == "ell":
+        d = 40
+        ind = np.concatenate([(rng.zipf(1.3, size=(n, 5)) - 1) % (d - 1),
+                              np.full((n, 1), d - 1)], 1).astype(np.int32)
+        val = np.concatenate([rng.normal(size=(n, 5)), np.ones((n, 1))],
+                             1).astype(np.float32)
+        wf = (0.3 * rng.normal(size=d)).astype(np.float32)
+        zf = np.einsum("nk,nk->n", val, wf[ind])
+        Xf = SparseRows(ind, val, d)
+    else:
+        Xf = np.concatenate([rng.normal(size=(n, 5)), np.ones((n, 1))],
+                            1).astype(np.float32)
+        zf = Xf @ (0.5 * rng.normal(size=6)).astype(np.float32)
+    z = zf + np.einsum("nd,nd->n", Xu, wu[uid])
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    if layout == "ell":
+        Xf = shard_blocked_ell_batch(make_batch(Xf, y, device="cpu"),
+                                     n_shards, d_dense=8).X
+    return GameData.build(y, {"fixed": Xf, "u": Xu}, {"user": uid})
+
+
+def game_configs() -> dict:
+    """`game_problem`'s coordinates: a fixed effect and a per-user random
+    effect (L2, logistic)."""
+    from photon_tpu_torch.game.estimator import (FixedEffectConfig,
+                                                 RandomEffectConfig)
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    return {"fixed": FixedEffectConfig("fixed", OptimizerConfig(
+                max_iters=20, reg=l2(), reg_weight=1.0, tolerance=1e-6)),
+            "per_user": RandomEffectConfig("user", "u", OptimizerConfig(
+                max_iters=12, reg=l2(), reg_weight=2.0, tolerance=1e-4))}
+
+
+def fit_game(mesh, data, configs: dict, n_sweeps: int = 2, variance=None,
+             ckpt_dir=None, kill_at: int = 0) -> dict:
+    """``data`` (a `GameData`) fitted by `GameEstimator(mesh=)` (logistic,
+    ``configs`` name -> coordinate config): every coordinate's table in
+    f64 (``tables``), their digest in name order, the objective history,
+    the restores, collectives and kernel launches of the run. With
+    ``ckpt_dir`` the fit runs under a checkpoint session snapshotting
+    every evaluation, killed at the ``kill_at``-th ``bucket_retire`` (0:
+    not killed; then only ``killed`` is set)."""
+    import contextlib
+
+    from photon_tpu_torch import checkpoint, kernels, telemetry
+    from photon_tpu_torch.game.estimator import GameEstimator
+    from photon_tpu_torch.models.variance import VarianceComputationType
+    from photon_tpu_torch.ops.losses import TaskType
+
+    est = GameEstimator(TaskType.LOGISTIC_REGRESSION, dict(configs),
+                        n_sweeps=n_sweeps, mesh=mesh,
+                        variance=variance or VarianceComputationType.NONE)
+    telemetry.reset()
+    kernels.reset_launch_counts()
+    if ckpt_dir is None:
+        (fit,) = est.fit(data)
+    else:
+        plan = (checkpoint.fault_plan(checkpoint.FaultPlan.kill_at(
+            "bucket_retire", int(kill_at))) if kill_at
+            else contextlib.nullcontext())
+        try:
+            with checkpoint.session(str(ckpt_dir), every_evals=1,
+                                    every_s=None, async_writer=False):
+                with plan:
+                    (fit,) = est.fit(data)
+        except checkpoint.InjectedFault:
+            return {"killed": True, "digest": None}
+    tables = {}
+    for name in sorted(fit.model.coordinates):
+        m = fit.model.coordinates[name]
+        t = m.model.weights if hasattr(m, "model") else m.coefficients
+        tables[name] = t.cpu().numpy().astype(np.float64)
+    c = telemetry.snapshot()["counters"]
+    return {"killed": False, "tables": tables,
+            "digest": _digest(np.concatenate(
+                [t.reshape(-1) for t in tables.values()])),
+            "history": list(fit.descent.objective_history),
+            "restores": int(c.get("checkpoint.descent_restores", 0)
+                            + c.get("checkpoint.re_restores", 0)),
+            "collectives": int(c.get("mesh.collectives", 0)),
+            "launches": kernels.launch_counts()}
+
+
+def game_fit(mesh, layout: str = "dense", ckpt_dir=None,
+             kill_at: int = 0) -> dict:
+    """`game_problem` (laid for the mesh) through `fit_game`, two sweeps
+    (the random effect at ``pipeline_depth`` 1)."""
+    return fit_game(mesh, game_problem(layout=layout,
+                                       n_shards=mesh.n_slots),
+                    game_configs(), 2, None, ckpt_dir, kill_at)
+
+
+def target_game_data(ctx) -> dict:
+    """args=(data, configs, n_sweeps, variance, ckpt_dir or None,
+    kill_at): `fit_game` of a parent's `GameData` on this cluster's
+    mesh."""
+    data, configs, n_sweeps, variance, ckdir, kill_at = ctx.args
+    out = fit_game(_mesh(ctx), data, configs, n_sweeps, variance, ckdir,
+                   int(kill_at))
+    out["rank"] = ctx.process_id
+    return out

@@ -403,8 +403,9 @@ def test_refresh_refusals(world):
                                {"re": RandomEffectConfig("e", "rs",
                                                          CFG_R[1])})
     assert res.stats["re"].n_touched == 4
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue A item 10\\b"):
+    # the mesh refresh is ported (tests/test_torch_mesh_item10.py); a
+    # mesh must be one
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         C.refresh_game_model(world["prev"], world["drop"], world["plan"],
                              {"re": CFG_R[1]}, mesh=object())
 
@@ -677,12 +678,11 @@ def test_compact_rows_matches_reference(pad_rows):
 
 
 def test_mesh_parts_raise_with_their_item():
-    """The hybrid replica x data mesh still raises naming its item; the
-    rest of the mesh module is ported (`compact_rows` onto a mesh shards
-    the block over its slots; tests/test_torch_mesh.py holds the rest)."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue A item 10\\b"):
-        PM.make_hybrid_mesh()
+    """The whole mesh module is ported: the hybrid replica x data mesh
+    (tests/test_torch_mesh_item10.py holds it against the reference) and
+    `compact_rows` onto a mesh, which shards the block over its slots
+    (tests/test_torch_mesh.py holds the rest)."""
+    assert PM.make_hybrid_mesh(n_devices=2, device="cpu").shape == (1, 2)
     mesh = PM.make_mesh(n_devices=2, device="cpu")
     got = PM.compact_rows((torch.arange(6.0),), [4, 0], mesh=mesh)[0]
     assert torch.equal(got.local(), torch.tensor([4.0, 0.0]))

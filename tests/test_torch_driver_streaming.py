@@ -275,7 +275,7 @@ def test_cli_flags_and_what_still_raises(job, tmp_path, capsys):
     assert os.path.isdir(line["model_dir"])
     assert os.path.isdir(tmp_path / "o" / "cc")
     assert telemetry.snapshot()["counters"]["ingest.worker_chunks"] > 0
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         PD.run_training(params(PD, job, tmp_path / "m", streaming=True),
                         mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):

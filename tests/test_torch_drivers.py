@@ -311,7 +311,7 @@ def test_mesh_and_default_device(jobs, tmp_path):
         train_path=str(root / "train.avro"), output_dir=str(tmp_path),
         feature_shards=SHARDS, coordinates={"fixed": COORDINATES["fixed"]},
         entity_fields=["userId"], compilation_cache_dir="xla")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         PD.run_training(params, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -547,8 +547,9 @@ def test_unseen_entity_scores_zero():
 
 # --------------------------------------------------------- what raises
 def test_paths_not_ported_raise_with_their_item():
-    """Meshes (item 10) still raise; validation data (item 7), the
-    straggler re-solve and the cold reg-weight grid that the reference
+    """A mesh that is not a `parallel.mesh.Mesh` raises (meshes, item 10,
+    are ported: tests/test_torch_game_mesh.py); validation data (item 7),
+    the straggler re-solve and the cold reg-weight grid that the reference
     vectorizes (item 6) now fit, held against the reference."""
     ref, port = game_pair(raw_game(n=200))
     rest, pest = estimator_pair(n_sweeps=1)
@@ -563,7 +564,8 @@ def test_paths_not_ported_raise_with_their_item():
     assert_same_fit(rv, pv)
     np.testing.assert_allclose(pv.validation_score, rv.validation_score,
                                rtol=0, atol=1e-5)
-    raises(10, lambda: dataclasses.replace(pest, mesh=object()).fit(port))
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        dataclasses.replace(pest, mesh=object()).fit(port)
 
     # a host-chunked fixed shard (item 5, now ported) fits, as the same
     # shard resident does (test_torch_streamed.py holds it against the

@@ -154,9 +154,7 @@ def test_make_mesh_and_the_raising_hybrid_mesh():
     assert m2.n_slots == 4
     with pytest.raises(ValueError, match="at least one slot"):
         PM.make_mesh(n_devices=0, device=CPU)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue A item 10\\b"):
-        PM.make_hybrid_mesh()
+    assert PM.make_hybrid_mesh(n_devices=8, device=CPU).shape == (1, 8)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PM.make_mesh(n_devices=8)

@@ -6,6 +6,8 @@ and gloo runs of the `parallel.selfcheck` targets in spawned processes:
 
 - the psum-signature digest at 1, 2 and 4 processes — one value, equal
   to the in-process 8-slot mesh's (bit for bit: the slot-ordered tree);
+  and in the same launches GAME on the mesh, one digest of every table
+  at 1, 2 and 4 processes equal to the in-process mesh's;
 - the ``local_only`` ingest + mesh solve at 1, 2 and 4 processes — the
   coefficients bit for bit equal to each other and to the in-process
   mesh's, every rank of a multi-process run skipping chunks (the same
@@ -291,6 +293,16 @@ def test_psum_digest_one_value_at_1_2_4_processes(pmesh, stream_runs):
         assert all(r["collectives"] == (1 if n > 1 else 0) for r in res)
         assert all(r["wire_bytes"] == 4 * (n - 1) for r in res)
         assert all(r["backend"] == ("gloo" if n > 1 else None) for r in res)
+
+
+def test_game_digest_one_value_at_1_2_4_processes(pmesh, stream_runs):
+    """GAME on the mesh (`selfcheck.game_fit`: a fixed effect and a
+    per-user random effect whose lanes split over the 8 slots) in the
+    same launches: one digest of every table at 1, 2 and 4 processes,
+    equal to the in-process mesh's bit for bit."""
+    want = sc.game_fit(pmesh)["digest"]
+    for n, res in stream_runs.items():
+        assert {r["game_digest"] for r in res} == {want}
 
 
 def test_local_only_solve_bit_identical_and_split(dataset, pmesh,

@@ -652,10 +652,6 @@ def test_streamed_raises():
     task = L.TaskType.LINEAR_REGRESSION
     cfg = OptimizerConfig(max_iters=2, reg=Reg.l2(), reg_weight=1.0)
 
-    def item(n, fn, exc=NotImplementedError):
-        with pytest.raises(exc, match=f"ROADMAP queue A item {n}\\b"):
-            fn()
-
     with pytest.raises(ValueError, match="TRON is not available"):
         T.train_glm(pcb, task, dataclasses.replace(
             cfg, optimizer=OptimizerType.TRON), device=CPU)
@@ -675,9 +671,10 @@ def test_streamed_raises():
                                   mesh=object())
     with pytest.raises(TypeError, match="expects ShardedBlockedEllRows"):
         D.mesh_chunk_matrix(None, object())
-    # GAME's streamed scoring on a mesh waits for the GAME half of item 10
-    item(10, lambda: score_chunked_host(pcb.X, torch.zeros(300),
-                                       mesh=object()))
+    # GAME's streamed scoring on a mesh is ported
+    # (tests/test_torch_game_mesh.py); a mesh must be one
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        score_chunked_host(pcb.X, torch.zeros(300), mesh=object())
     ind, val, y = coo(n=64)
     sp = D.make_batch(M.SparseRows(ind, val, 3000), y, device=CPU)
     assert D.chunk_blocked_ell(sp, 32, n_shards=2).X.chunk_shards == 2
