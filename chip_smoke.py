@@ -11,7 +11,8 @@ live int8 ladder), its elastic runs (checkpoint/restore of the
 streamed solvers, GAME's descent and the training driver), its
 multi-GPU GLM training (the slot mesh in one process and in several) and
 GAME on the mesh (entity lanes over the slots, the mesh refresh, the
-driver and the GAME grid on a mesh) on one GPU.
+driver and the GAME grid on a mesh), its run telemetry (JSONL runs, the
+solver taps, request tracing) and its replica fleet on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -391,6 +392,29 @@ GMM. GAME on the in-process MG_SLOTS-slot mesh (all slots on the one
    2^21 rows, every solve at
    RE_CHECK_TOL, on one device and on the mesh (`fit_game_grid(mesh=)`),
    each lane at (a)'s bounds.
+TF. the run telemetry spine and the replica fleet: (a) after CK (d):
+   T2's resident L-BFGS (T_SHORT iterations, rows 2 and 4) under
+   ``telemetry.run(jsonl_path=..., resident_tap=True)`` against telemetry
+   off — the JSONL's iteration events equal the loss and |g| histories
+   bit for bit, the syncs (torch's sync debug mode) equal armed and off,
+   TF_CALLS solves of each in turns with the armed/off wall by median
+   within the runs' spread (or TF_FLOOR), the run's
+   `sample_device_memory` peak equal to `max_memory_allocated`; (b)
+   after phase 3: bench.py's serving configuration (:630-636: 4,096
+   members, a 64-wide dense fixed effect, d 8 with 8 slots, zipf(1.2)
+   with its cold tail, 32 clients) as a TF_REPLICAS-replica
+   `ReplicaFleet` on the one card — an f32 fleet within 1e-6 of a single
+   f32 dispatcher, the int8 fleet (row 1 on every replica) within
+   EPSILON / 4 of it, each replica serving exactly `replica_for`'s
+   share, QPS and p50/p99 with tracing off and on, the p99 exemplars'
+   split into fleet_route / replica_dispatch / queue_wait / device_flush
+   / retire_wait, and a kill at ``replica_dispatch`` and at
+   ``rung_execute`` each ending in the owner's or another replica's
+   (degraded) answer; (c) ``python -m photon_tpu_torch.serving
+   --selftest --json`` and ``python -m photon_tpu_torch.telemetry
+   --selftest --json`` on the card, side by side, each exiting 0; (d)
+   MG (d)'s selftest includes ``cross_rank_aggregation`` (its 2-process
+   launch's rank files merged, the straggler named).
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
@@ -405,7 +429,9 @@ counted alone — under ``drvs_launches``, after CR (d)'s hot swap
 under ``cr_launches``, in CK's armed and resumed runs and (d)'s
 tapped solve under ``ck_launches``, in MG (a)'s mesh solve under
 ``mg_launches``, and in GMM's legs — (b)'s mesh fit, (d)'s two
-processes, the rung after (c)'s swap — under ``gmm_launches``), the
+processes, the rung after (c)'s swap — under ``gmm_launches``, and in
+TF's (a) armed solve, (b)'s fleet legs and kills under ``tf_launches``),
+the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
 without one.
@@ -3243,6 +3269,15 @@ def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selftest, t_phase: float,
         f"{report['ingest_split']}; 2-process snapshot restored at 1 and 4 "
         f"bit for bit; commit kill (outcome, s) {report['commit_kill']}  "
         f"[{gpu}]")
+    agg = report["checks"].get("cross_rank_aggregation", {})
+    if not agg.get("ok"):
+        raise AssertionError(f"MG (d): no cross_rank_aggregation check: "
+                             f"{report['checks']}")
+    log(f"MG (d): cross_rank_aggregation ok: the 2-process launch's p0/p1 "
+        f"telemetry files merged into one complete report, straggler rank "
+        f"{report['aggregate']['straggler_rank']}, barrier wait by rank "
+        f"{report['aggregate']['barrier_wait_s']} s, rank start spread "
+        f"{report['aggregate']['clock_skew_s']} s  [{gpu}]")
 
     # (c) the multi-process spine: the selftest's digests against this
     # process's mesh, and (a)'s solve at 2 processes from saved shards
@@ -6977,6 +7012,414 @@ def phase_ck_resident(state: dict, dev, gpu) -> None:
         f"[{gpu}]")
 
 
+# ------------------------------------------- phase TF: the telemetry spine
+# (a) T2's resident L-BFGS, T_SHORT iterations a solve, TF_CALLS solves
+# telemetry-off and TF_CALLS tap-armed in turns; the walls compare by
+# median, within the larger relative spread of the two sets or TF_FLOOR
+TF_CALLS, TF_FLOOR = 4, 0.02
+# (b) bench.py's serving configuration (:630-636): entities, dense fixed
+# width, random-effect width, slots a row, zipf, clients; the fleet's
+# replicas on the one card, the requests of each leg, the exemplars kept
+# (the slowest 1%: the p99 tail), and the kill legs' requests
+SV_E, SV_DF, SV_DR, SV_K, SV_ZIPF, SV_CLIENTS = 4096, 64, 8, 8, 1.2, 32
+TF_REPLICAS, TF_REQUESTS, TF_KILL_REQUESTS = 4, 8192, 64
+TF_EXEMPLARS = TF_REQUESTS // 100
+TF_LAUNCHES: dict = {}  # TF's kernel launches, summed over its main paths
+
+
+def tf_count(launches: dict) -> None:
+    for name, n in launches.items():
+        TF_LAUNCHES[name] = TF_LAUNCHES.get(name, 0) + n
+
+
+def phase_tf_tap(state: dict, dev, gpu) -> None:
+    """TF (a): T2's resident L-BFGS (rows 2 and 4) under ``telemetry.run(
+    jsonl_path=..., resident_tap=True)`` against telemetry off: the
+    JSONL's iteration events equal the result's loss and |g| histories
+    bit for bit, the same syncs an iteration (torch's sync debug mode),
+    the armed/off wall by median within the runs' spread, and the run's
+    device-memory peak equal to `torch.cuda.max_memory_allocated`."""
+    import tempfile
+
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+    from photon_tpu_torch.telemetry.sinks import load_report
+    from photon_tpu_torch.utils.profiling import count_syncs
+
+    t_phase = time.perf_counter()
+    batch = state["batch"]
+    cfg = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+    tmp = tempfile.mkdtemp(prefix="_drv_tf", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    walls: dict = {"off": [], "armed": []}
+    try:
+        # the layout's first solve builds its kernel plans, and the first
+        # solve under the sync debug mode makes a one-time sync of its own:
+        # one counted solve first, its count dropped
+        with count_syncs(dev):
+            solve_timed(batch, cfg, dev)
+        with count_syncs(dev) as sync_off:
+            _, r_off, _ = solve_timed(batch, cfg, dev)
+        jsonl = os.path.join(tmp, "tf.jsonl")
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with telemetry.run("tf_tap", jsonl_path=jsonl, resident_tap=True):
+            with count_syncs(dev) as sync_on:
+                _, r_on, _ = solve_timed(batch, cfg, dev)
+            telemetry.sample_device_memory("tf")
+            peak = torch.cuda.max_memory_allocated(dev)
+            gauges = dict(telemetry.current_run().gauges)
+        launches = K.launch_counts()
+        events = [e for e in load_report(jsonl)["iterations"]
+                  if e["solver"] == "lbfgs_margin"]
+        for i in range(2 * TF_CALLS):  # off, armed, off, armed, ...
+            armed = i % 2 == 1
+            if armed:
+                with telemetry.run("tf_wall", resident_tap=True):
+                    _, _, wall = solve_timed(batch, cfg, dev)
+            else:
+                _, _, wall = solve_timed(batch, cfg, dev)
+            walls["armed" if armed else "off"].append(wall)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = r_on.iterations + 1
+    want = r_on.loss_history[:n].cpu().tolist()
+    gwant = r_on.grad_norm_history[:n].cpu().tolist()
+    if not ([e["loss"] for e in events] == want
+            and [e["grad_norm"] for e in events] == gwant
+            and [e["it"] for e in events] == list(range(n))):
+        raise AssertionError(f"TF (a): the JSONL's iteration events "
+                             f"{[e['loss'] for e in events]} are not the "
+                             f"solve's history {want}")
+    if not torch.equal(r_off.loss_history.nan_to_num(),
+                       r_on.loss_history.nan_to_num()) or \
+            not torch.equal(r_off.w, r_on.w):
+        raise AssertionError("TF (a): the armed tap changed the solve")
+    if sync_on["n"] != sync_off["n"]:
+        raise AssertionError(f"TF (a): syncs off {sync_off['n']}, armed "
+                             f"{sync_on['n']}; by site off "
+                             f"{sync_off['sites']}, armed "
+                             f"{sync_on['sites']}")
+    for name in (KB.TAIL, KB.RMATVEC):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"TF (a): {name} never launched "
+                                 f"({launches})")
+    tf_count(launches)
+    got_peak = gauges.get("hbm.peak_bytes_in_use.max.tf")
+    if got_peak != peak:
+        raise AssertionError(f"TF (a): the run's device-memory peak "
+                             f"{got_peak} against max_memory_allocated "
+                             f"{peak}")
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    spread = max((max(v) - min(v)) / med[k] for k, v in walls.items())
+    ratio = med["armed"] / med["off"]
+    if abs(ratio - 1.0) > max(spread, TF_FLOOR):
+        raise AssertionError(f"TF (a): armed/off wall {ratio:.4f} outside "
+                             f"the runs' spread {spread:.4f} (walls "
+                             f"{walls})")
+    log(f"TF (a): T2's resident L-BFGS, {r_on.iterations} iterations, tap "
+        f"armed into a JSONL run: {len(events)} iteration events equal the "
+        f"loss and |g| histories bit for bit; syncs {sync_on['n']} armed, "
+        f"{sync_off['n']} off ({sync_on['n'] / r_on.iterations:.2f} an "
+        f"iteration; by site, armed {sync_on['sites']}, off "
+        f"{sync_off['sites']}); wall median "
+        f"off {med['off']:.4f} s, armed {med['armed']:.4f} s, armed/off "
+        f"{ratio:.4f} (runs' spread {spread:.4f}; walls {walls}); the "
+        f"run's device-memory peak {got_peak / 1e9:.3f} GB = "
+        f"max_memory_allocated; launches {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+
+
+def sv_store(seed: int, dev):
+    """bench.py's serving model (:640-660): a dense fixed effect and one
+    per-member random effect over SV_E members, as a store on ``dev``."""
+    from photon_tpu_torch.convert import game_model_from_arrays
+    from photon_tpu_torch.serving import CoefficientStore
+
+    rng = np.random.default_rng(seed)
+    keys = np.asarray(sorted(str(i) for i in range(SV_E)))
+    model = game_model_from_arrays("logistic", {
+        "fixed": {"type": "fixed", "feature_shard": "global",
+                  "means": rng.normal(size=SV_DF).astype(np.float32)},
+        "perMember": {"type": "random", "feature_shard": "member",
+                      "entity_name": "memberId", "entity_keys": keys,
+                      "coefficients": rng.normal(
+                          size=(SV_E, SV_DR)).astype(np.float32)},
+    }, device=dev)
+    return CoefficientStore.from_game_model(model, device=dev), rng
+
+
+def sv_requests(rng, n: int) -> list:
+    """bench.py's request mix (:664-672): zipf(1.2) members, ranks past
+    SV_E the cold tail."""
+    from photon_tpu_torch.serving import ScoreRequest
+
+    ents = (rng.zipf(SV_ZIPF, size=n).astype(np.int64) - 1) % (2 * SV_E)
+    xg = rng.normal(size=(n, SV_DF)).astype(np.float32)
+    ind = rng.integers(0, SV_DR, size=(n, SV_K)).astype(np.int32)
+    val = rng.normal(size=(n, SV_K)).astype(np.float32)
+    return [ScoreRequest(features={"global": xg[i],
+                                   "member": (ind[i], val[i])},
+                         entities={"memberId": str(int(ents[i]))})
+            for i in range(n)]
+
+
+def closed_loop(score, reqs: list) -> tuple:
+    """SV_CLIENTS threads each scoring its share of ``reqs`` one request
+    at a time through ``score``; returns (answers, wall s, per-request
+    latencies in ms)."""
+    out = [None] * len(reqs)
+    lat = np.zeros(len(reqs))
+    errors: list = []
+
+    def client(c: int) -> None:
+        try:
+            for r in range(c, len(reqs), SV_CLIENTS):
+                t0 = time.perf_counter()
+                out[r] = score(reqs[r])
+                lat[r] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SV_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish")
+    return np.asarray(out, np.float64), wall, lat
+
+
+def phase_tf_fleet(args, dev, gpu) -> None:
+    """TF (b): a TF_REPLICAS-replica `ReplicaFleet` on the one card at
+    bench.py's serving widths, every replica on its int8 rung (row 1):
+    answers against a single f32 dispatcher (an f32 fleet within 1e-6,
+    the int8 fleet within EPSILON / 4), routing against `replica_for`,
+    QPS and p50/p99 with tracing off and on and the p99 exemplars' hop
+    split, and a ``replica_dispatch`` and a ``rung_execute`` kill each
+    ending in an exact or degraded-but-correct answer."""
+    from photon_tpu_torch import checkpoint
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import serving
+    from photon_tpu_torch.kernels import serving as KS
+    from photon_tpu_torch.telemetry import trace
+
+    t_phase = time.perf_counter()
+    store, rng = sv_store(args.seed + 17, dev)
+    reqs = sv_requests(rng, TF_REQUESTS)
+    spec = dict(floor=8, max_batch=MAX_BATCH, sparse_k={"member": SV_K},
+                output_mean=True)
+    q8 = dict(spec, quantize="int8", quant_epsilon=EPSILON)
+    dk = dict(max_batch=MAX_BATCH, max_delay_us=MAX_DELAY_US)
+    single = serving.ProgramLadder(store, **spec)
+    single.warmup()
+    d32 = serving.MicroBatchDispatcher(single, **dk)
+    try:
+        want, one_wall, one_lat = closed_loop(d32.score, reqs)
+    finally:
+        d32.close()
+    policy = serving.FleetPolicy(attempt_timeout_s=60.0)
+
+    def fleet(kw):
+        return serving.ReplicaFleet.build(store, TF_REPLICAS, policy=policy,
+                                          ladder_kwargs=kw,
+                                          dispatcher_kwargs=dk, warmup=True)
+
+    f32 = fleet(spec)
+    try:  # a parity leg only: a quarter of the requests
+        got32, _, _ = closed_loop(f32.score, reqs[:TF_REQUESTS // 4])
+    finally:
+        f32.close()
+    e32 = float(np.abs(got32 - want[:TF_REQUESTS // 4]).max())
+    if e32 > 1e-6:
+        raise AssertionError(f"TF (b): the f32 fleet is {e32} from the "
+                             f"single f32 dispatcher")
+    legs = {}
+    for armed in (False, True):
+        fl = fleet(q8)
+        try:
+            K.reset_launch_counts()
+            if armed:
+                with trace.tracing(k=TF_EXEMPLARS) as res:
+                    got, wall, lat = closed_loop(fl.score, reqs)
+                exemplars = res.snapshot()
+            else:
+                got, wall, lat = closed_loop(fl.score, reqs)
+            launches = K.launch_counts()
+            served = [r.dispatcher.latency_stats()["n"]
+                      for r in fl.replicas]
+            routes = np.bincount([fl.replica_for(q) for q in reqs],
+                                 minlength=TF_REPLICAS).tolist()
+            fl.assert_no_retrace()
+        finally:
+            fl.close()
+        if served != routes:
+            raise AssertionError(f"TF (b): replicas served {served}, "
+                                 f"replica_for routes {routes}")
+        if launches.get(KS.KERNEL, 0) == 0:
+            raise AssertionError(f"TF (b): {KS.KERNEL} never launched")
+        e8 = float(np.abs(got - want).max())
+        if e8 > EPSILON / 4:
+            raise AssertionError(f"TF (b): the int8 fleet is {e8} from the "
+                                 f"f32 dispatcher > {EPSILON / 4}")
+        tf_count(launches)
+        legs[armed] = dict(qps=len(reqs) / wall,
+                           p50=float(np.percentile(lat, 50)),
+                           p99=float(np.percentile(lat, 99)), err=e8,
+                           launches=launches, served=served)
+        if armed:
+            hops = ("fleet_route", "replica_dispatch", "queue_wait",
+                    "device_flush", "retire_wait")
+            split = {h: float(np.mean([ex["breakdown_ms"].get(h, 0.0)
+                                       for ex in exemplars])) for h in hops}
+            tot = float(np.mean([ex["total_ms"] for ex in exemplars]))
+            slowest = {}
+            for ex in exemplars:
+                slowest[ex["slowest_hop"]] = \
+                    slowest.get(ex["slowest_hop"], 0) + 1
+            if not all(h in exemplars[0]["breakdown_ms"]
+                       for h in ("queue_wait", "device_flush",
+                                 "retire_wait")):
+                raise AssertionError(f"TF (b): an exemplar lacks the "
+                                     f"dispatcher's hops: {exemplars[0]}")
+            legs[armed].update(split=split, total=tot, slowest=slowest,
+                               n_ex=len(exemplars))
+    for armed, leg in legs.items():
+        log(f"TF (b): {TF_REPLICAS}-replica int8 fleet, tracing "
+            f"{'on' if armed else 'off'}: QPS {leg['qps']:.1f}, p50 "
+            f"{leg['p50']:.3f} ms, p99 {leg['p99']:.3f} ms over "
+            f"{len(reqs)} requests from {SV_CLIENTS} clients; max |int8 "
+            f"fleet - f32 dispatcher| {leg['err']:.3g}; served by replica "
+            f"{leg['served']} = replica_for's routes; launches "
+            f"{leg['launches']}  [{gpu}]")
+    on = legs[True]
+    log(f"TF (b): the p99 tail's {on['n_ex']} exemplars (the slowest 1%), "
+        f"mean total {on['total']:.3f} ms: "
+        + ", ".join(f"{h} {v:.3f} ms" for h, v in on["split"].items())
+        + f"; slowest hop by count {on['slowest']}  [{gpu}]")
+    log(f"TF (b): single f32 dispatcher: QPS {len(reqs) / one_wall:.1f}, "
+        f"p50 {float(np.percentile(one_lat, 50)):.3f} ms, p99 "
+        f"{float(np.percentile(one_lat, 99)):.3f} ms; the f32 fleet within "
+        f"{e32:.3g} of it on {TF_REQUESTS // 4} requests  [{gpu}]")
+
+    # the kills: every answer is the owning replica's or another's
+    fl = fleet(q8)
+    kreqs = reqs[:TF_KILL_REQUESTS]
+    try:
+        answers = [[r.dispatcher.score(q) for r in fl.replicas]
+                   for q in kreqs]
+        facts = {}
+        for site, occ in (("replica_dispatch", TF_KILL_REQUESTS // 2),
+                          ("rung_execute", TF_KILL_REQUESTS // 2)):
+            K.reset_launch_counts()
+            with checkpoint.fault_plan(
+                    checkpoint.FaultPlan.kill_at(site, occ)) as plan:
+                got = [fl.score(q) for q in kreqs]
+            tf_count(K.launch_counts())
+            owner = [a[fl.replica_for(q)] for q, a in zip(kreqs, answers)]
+            bad = [i for i, (g, a) in enumerate(zip(got, answers))
+                   if g not in a]
+            if bad or plan.hits.get(site, 0) < occ:
+                raise AssertionError(f"TF (b): kill at {site}#{occ}: torn "
+                                     f"answers {bad}, hits {plan.hits}")
+            facts[site] = sum(g != o for g, o in zip(got, owner))
+    finally:
+        fl.close()
+    log(f"TF (b): a kill at replica_dispatch#{TF_KILL_REQUESTS // 2} and "
+        f"at rung_execute#{TF_KILL_REQUESTS // 2} over {len(kreqs)} "
+        f"requests: every answer the owner's or another replica's "
+        f"(degraded) answer; degraded answers {facts}; "
+        f"{time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+
+
+def tf_overheads(gpu, n: int = 20_000) -> dict:
+    """Host µs a call of `telemetry.span` (enter + exit) and of
+    `trace.begin` (+ `trace.finish`), off and on, over ``n`` calls each
+    (the best of three loops)."""
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.telemetry import trace
+
+    def per_call(fn) -> float:
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+        return best / n * 1e6
+
+    def span():
+        with telemetry.span("tf.overhead"):
+            pass
+
+    def begin():
+        trace.finish(trace.begin("queue_wait"))
+
+    out = {"span_off_us": per_call(span), "begin_off_us": per_call(begin)}
+    with telemetry.run("tf_overhead"):
+        out["span_on_us"] = per_call(span)
+    with trace.tracing(k=8):
+        out["begin_on_us"] = per_call(begin)
+    log("TF (c): host cost a call (best of 3 x "
+        f"{n:,} calls): telemetry.span off {out['span_off_us']:.3f} us, on "
+        f"(a run attached: record_function + NVTX + the span record) "
+        f"{out['span_on_us']:.3f} us; trace.begin + finish off "
+        f"{out['begin_off_us']:.3f} us, armed {out['begin_on_us']:.3f} us"
+        f"  [{gpu}]")
+    return out
+
+
+def phase_tf_selftests(gpu) -> None:
+    """TF (c): ``python -m photon_tpu_torch.serving --selftest --json`` and
+    ``python -m photon_tpu_torch.telemetry --selftest --json`` on the
+    card, side by side; each must exit 0."""
+    t0 = time.perf_counter()
+    procs = {mod: subprocess.Popen(
+        [sys.executable, "-m", f"photon_tpu_torch.{mod}", "--selftest",
+         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for mod in ("serving", "telemetry")}
+    outs = {}
+    try:
+        for mod, p in procs.items():
+            outs[mod] = p.communicate(timeout=600)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for mod, p in procs.items():
+        out, err = outs[mod]
+        report = json.loads(out.strip().splitlines()[-1]) \
+            if out.strip() else {}
+        if p.returncode != 0 or not report.get("ok"):
+            raise AssertionError(f"TF (c): {mod} selftest exit "
+                                 f"{p.returncode}: {out[-3000:]} "
+                                 f"{err[-3000:]}")
+        extra = {"serving": lambda r: f"int8 launches "
+                 f"{r['int8_launches']}, fleet latency {r['fleet_latency']}",
+                 "telemetry": lambda r: f"resident tap {r['resident_tap']}, "
+                 f"tracing launches {r['serving_trace']}"}[mod](report)
+        log(f"TF (c): python -m photon_tpu_torch.{mod} --selftest on the "
+            f"card: exit 0, {len(report['checks'])} checks ok; {extra}")
+    log(f"TF (c): both selftests in {time.perf_counter() - t0:.1f} s  "
+        f"[{gpu}]")
+    tf_overheads(gpu)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7006,11 +7449,16 @@ def main() -> int:
     kernels = [phase_serving(args, dev, gpu)]
     torch.cuda.empty_cache()
     lap("serving")
+    phase_tf_fleet(args, dev, gpu)
+    phase_tf_selftests(gpu)
+    lap("TF (b), (c)")
     state = phase_training(args, dev, gpu)
     kernels += phase_training_timings(state, gpu)
     phase_sparse_owlqn(state, dev, gpu)
     phase_ck_resident(state, dev, gpu)
     lap("T2, T3, CK (d)")
+    phase_tf_tap(state, dev, gpu)
+    lap("TF (a)")
     lanes8 = phase_grid_timings(state, phase_grid(state, dev, gpu), gpu)
     for entry in kernels:
         entry.update(lanes8.get(entry["name"], {}))
@@ -7064,6 +7512,7 @@ def main() -> int:
         entry["ck_launches"] = CK_LAUNCHES.get(entry["name"], 0)
         entry["mg_launches"] = mg.get(entry["name"], 0)
         entry["gmm_launches"] = GMM_LAUNCHES.get(entry["name"], 0)
+        entry["tf_launches"] = TF_LAUNCHES.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

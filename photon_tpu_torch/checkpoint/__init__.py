@@ -80,6 +80,7 @@ from photon_tpu_torch.checkpoint.store import (  # noqa: F401
     replace_committed,
 )
 from photon_tpu_torch.checkpoint.taps import (  # noqa: F401
+    resident_off_is_free,
     resident_restore,
     set_snapshot_tap,
     snapshot_tap,
@@ -97,7 +98,7 @@ __all__ = [
     "record_sites", "retry_io",
     "start_session", "finish_session", "session", "current", "enabled",
     "snapshot_tap", "snapshot_tap_enabled", "set_snapshot_tap",
-    "snapshot_tap_disabled", "resident_restore",
+    "snapshot_tap_disabled", "resident_restore", "resident_off_is_free",
 ]
 
 _CURRENT: Optional[CheckpointSession] = None

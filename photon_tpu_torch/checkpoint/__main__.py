@@ -19,7 +19,10 @@ seconds):
    `faults.retry_io`'s backoff;
 5. the resident tap: disarmed under an armed session, a resident solve
    equals the session-less one bit for bit and records nothing; armed,
-   it captures the final iterate.
+   it captures the final iterate; and with both resident taps forced off
+   (`checkpoint.taps.resident_off_is_free`) under an armed session and a
+   tap-armed telemetry run, the L-BFGS and TRON solves make the same
+   host↔device syncs and bits as bare ones.
 
 Exit 1 on any drift or failure.
 """
@@ -155,6 +158,21 @@ def selftest(device=None) -> dict:
               and bool(torch_equal(cap["w"], r_tap.w)))
     finally:
         shutil.rmtree(tmp3, ignore_errors=True)
+
+    # ---- both resident taps forced off under armed ambient state: the
+    # L-BFGS and TRON solves make the syncs and bits of bare ones
+    import torch
+
+    from photon_tpu_torch.models.training import make_objective
+
+    obj = make_objective(task, cfg, int(batch.X.shape[1]), device=dev)
+    w0 = torch.zeros(int(batch.X.shape[1]), dtype=torch.float32, device=dev)
+    off = checkpoint.resident_off_is_free(batch, obj, w0)
+    report["resident_off"] = off
+    check("resident_off_is_free",
+          all(v["syncs_off"] == v["syncs_plain"] and v["same_bits"]
+              and v["recorded_nothing"] for v in off.values()),
+          f"{off}")
 
     report["ok"] = ok
     return report

@@ -23,8 +23,9 @@ lineage to replay, so this module supplies the two halves explicitly:
 
 The registry keeps every reference site, so plans and site names mean
 the same in both packages, and the port hits every one but
-``replica_dispatch`` (`serving/fleet.py` waits for ROADMAP queue A item
-11) and ``selftest_io`` (the selftest's own): ``chunk_upload``
+``selftest_io`` (the selftest's own): ``replica_dispatch``
+(`serving.fleet.ReplicaFleet.score`, one hit per failover attempt),
+``chunk_upload``
 (`data.dataset.DeviceChunkRing.stream_pass`, one hit per consumed
 chunk), ``evaluation`` (`optim.streamed`), ``bucket_retire``
 (`game.random_effect`), ``snapshot_write`` / ``snapshot_io`` / ``commit``

@@ -24,7 +24,8 @@ from __future__ import annotations
 import contextlib
 
 __all__ = ["snapshot_tap", "snapshot_tap_enabled", "set_snapshot_tap",
-           "snapshot_tap_disabled", "resident_restore"]
+           "snapshot_tap_disabled", "resident_restore",
+           "resident_off_is_free"]
 
 _TAP_ARMED = False
 
@@ -78,3 +79,52 @@ def resident_restore(solver: str):
     if sess is None:
         return None
     return sess.restore_absolute(f"resident/{solver}")
+
+
+def resident_off_is_free(batch, obj, w0, max_iters: int = 5) -> dict:
+    """The off-state of both resident taps, held on one problem: the
+    margin-cached L-BFGS and TRON solves run under an armed session and a
+    tap-armed telemetry run but inside `snapshot_tap_disabled` and
+    `telemetry.taps.tap_disabled` (the reference's contract scoping),
+    against the same solves with nothing attached. Per solver: the
+    host↔device syncs of each (`utils.profiling.count_syncs`) and whether
+    the two give the same bits."""
+    import tempfile
+
+    import torch
+
+    from photon_tpu_torch import checkpoint, telemetry
+    from photon_tpu_torch.optim.lbfgs import minimize_lbfgs_margin
+    from photon_tpu_torch.optim.tron import minimize_tron_margin
+    from photon_tpu_torch.telemetry.taps import tap_disabled
+    from photon_tpu_torch.utils.profiling import count_syncs
+
+    solvers = {
+        "lbfgs_margin": lambda: minimize_lbfgs_margin(
+            obj, batch, w0, max_iters=max_iters, history=4),
+        "tron_margin": lambda: minimize_tron_margin(
+            obj, batch, w0, max_iters=max_iters)}
+    dev = w0.device
+    out = {}
+    for name, solve in solvers.items():
+        # the first solve under the sync debug mode makes a one-time sync
+        # of its own on the card: one counted solve first, its count dropped
+        with count_syncs(dev):
+            solve()
+        with count_syncs(dev) as plain_syncs:
+            plain = solve()
+        with tempfile.TemporaryDirectory() as tmp, \
+                checkpoint.session(tmp, every_evals=None, every_s=None,
+                                   async_writer=False, resident_tap=True), \
+                telemetry.run("resident_off", resident_tap=True) as r:
+            with tap_disabled(), snapshot_tap_disabled():
+                with count_syncs(dev) as off_syncs:
+                    off = solve()
+            quiet = not r.iterations
+        out[name] = {
+            "syncs_plain": plain_syncs["n"], "syncs_off": off_syncs["n"],
+            "recorded_nothing": quiet,
+            "same_bits": bool(torch.equal(plain.w, off.w) and torch.equal(
+                plain.loss_history.nan_to_num(),
+                off.loss_history.nan_to_num()))}
+    return out

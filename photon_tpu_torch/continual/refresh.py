@@ -27,7 +27,7 @@ which entities actually gained evidence, and only those re-solve:
   solve per 64 lanes as the reference's scan is. The fixed pad target is
   what makes shapes repeat: a refresh whose touched counts pad to the
   same targets records the same signatures (`RefreshResult.signatures`,
-  on the port's `serving.programs.SignatureLog`);
+  on the port's `telemetry.run.SignatureLog`);
 - with ``mesh`` (reference: `refresh_game_model(mesh=)`) the pad quantum
   rounds up to a slot multiple, and the padded block's lanes split over
   the slots, each local slot solving its contiguous share on its device
@@ -62,7 +62,7 @@ from photon_tpu_torch.game.random_effect import (RandomEffectCoordinate,
 from photon_tpu_torch.models.variance import VarianceComputationType
 from photon_tpu_torch.parallel.mesh import (check_mesh, compact_rows,
                                             pad_to_multiple)
-from photon_tpu_torch.serving.programs import SignatureLog
+from photon_tpu_torch.telemetry.run import SignatureLog
 
 # Fixed lane quantum of compacted refresh blocks: every touched count pads
 # to a multiple of this, so a bucket's solve shapes depend on its height,

@@ -285,6 +285,7 @@ def coordinate_descent(coordinates: dict, y, weights, base_offsets,
     done_updates = 0
     stats_entries: list = []
     updated: dict = {}  # coordinate name -> "fixed" | "re", updated so far
+    update_log: list = []  # (sweep, coordinate) per objective_history entry
     with cd_scope:
         progress = ck.restore("progress") if ck is not None else None
         if progress is not None:
@@ -306,13 +307,16 @@ def coordinate_descent(coordinates: dict, y, weights, base_offsets,
             telemetry.count("checkpoint.descent_restores")
 
         upd = -1
-        for _ in range(n_sweeps):
+        for sweep in range(n_sweeps):
+            telemetry.count("game.sweeps")
             for name in update_sequence:
                 if name in locked:
                     continue
                 upd += 1
+                update_log.append((sweep, name))
                 if upd < done_updates:
                     continue  # restored from the checkpoint image above
+                telemetry.count("game.coordinate_updates")
                 coord = coordinates[name]
                 others = tuple(s for o, s in scores.items() if o != name)
                 if streamed:
@@ -361,6 +365,13 @@ def coordinate_descent(coordinates: dict, y, weights, base_offsets,
         objective_history = [float(v) for v in torch.stack([
             torch.as_tensor(v, dtype=torch.float32, device=dev)
             for v in objective_history]).cpu().tolist()]
+    if telemetry.enabled():
+        # the GAME iteration stream: one event per coordinate update, in
+        # update order, after the one batched read-back of the objectives
+        for i, ((sweep, name), obj_v) in enumerate(
+                zip(update_log, objective_history)):
+            telemetry.iteration("game_descent", i, obj_v,
+                                coordinate=name, sweep=sweep)
     ordered = {name: models[name] for name in update_sequence}
     for name in coordinates:  # score-only coordinates outside the sequence
         if name in models and name not in ordered:

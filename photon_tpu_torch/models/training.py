@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import kernels as K
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import ChunkedBatch, GLMBatch
 from photon_tpu_torch.data.matrix import (BlockedEllRows, EntityBlocks,
                                           SparseRows)
@@ -423,6 +424,9 @@ def train_glm(
                          intercept_index=intercept_index, fused=use_fused,
                          normalization=norm_obj,
                          prior_full_precision=prior_full, device=dev)
+    telemetry.record_signature(
+        "training._train_run_sharded" if mesh is not None
+        else "training._train_run", (batch, w0, obj, _l1_lam(config)))
     res = solve(obj, batch, w0, config)
     var = compute_variances(obj, res.w, batch, variance)
     if permuted:
@@ -652,6 +656,8 @@ def train_glm_grid(
     l2s, l1s, static_cfg = lane_weight_arrays(config, weights)
     l2s = l2s.to(dev)
     l1s = None if l1s is None else l1s.to(dev)
+    telemetry.record_signature("training._train_run_grid",
+                               (batch, W0, obj, l2s, l1s))
     if variance is VarianceComputationType.NONE and supports_lanes(obj):
         res, var = _lane_solve(obj, batch, W0, l2s, l1s, static_cfg), None
     else:

@@ -13,6 +13,10 @@ CUDA-graph step is later work).
 
 The (m, d) history updates in place (the reference's arrays are
 immutable).
+
+With the telemetry tap armed (`telemetry.taps`), the loss, |g| and step
+ride in that same read-back and each iteration emits one event; with it
+off the solve reads back exactly the two flags.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from photon_tpu_torch.checkpoint.taps import snapshot_tap
 from photon_tpu_torch.optim.linesearch import wolfe_line_search
 from photon_tpu_torch.optim.tracker import OptResult
+from photon_tpu_torch.telemetry.taps import solver_tap, tap_enabled
 
 # Refresh the chained margin from w every this many iterations (f32 drift
 # bound), as the reference.
@@ -103,7 +108,14 @@ def minimize_lbfgs_margin(obj, batch, w0: torch.Tensor, max_iters: int = 100,
     idx = count = it = 0
     converged = g0norm <= 1e-14
     failed = torch.zeros((), dtype=torch.bool, device=dev)
-    done = bool(converged)
+    tap = tap_enabled()
+    if tap:  # the tap's values ride the start's one read-back
+        conv0, f0v, g0v = torch.stack(
+            [converged.to(dtype), f.to(dtype), g0norm]).tolist()  # sync
+        done = bool(conv0)
+        solver_tap("lbfgs_margin", 0, f0v, g0v)
+    else:
+        done = bool(converged)
 
     while not done and it < max_iters:
         direction = -two_loop(g, S, Y, rho, idx, count, sy, yy)
@@ -143,7 +155,14 @@ def minimize_lbfgs_margin(obj, batch, w0: torch.Tensor, max_iters: int = 100,
         hist[it] = f_new
         ghist[it] = gnorm
         snapshot_tap("lbfgs_margin", it, w_new, f_new, gnorm)
-        keep, done = torch.stack([keep, converged | ~ok]).tolist()  # sync
+        if tap:
+            keep, done, fv, gv, av = torch.stack([
+                keep.to(dtype), (converged | ~ok).to(dtype), f_new.to(dtype),
+                gnorm, torch.where(ok, alpha, 0.0).to(dtype)]).tolist()  # sync
+            keep, done = bool(keep), bool(done)
+            solver_tap("lbfgs_margin", it, fv, gv, av)
+        else:
+            keep, done = torch.stack([keep, converged | ~ok]).tolist()  # sync
         if keep:
             idx, count = _push(S, Y, rho, idx, count, s, y, sy_new)
             sy, yy = sy_new, yy_new

@@ -21,6 +21,9 @@ same point (the reference's ``value_and_grad(w_new)`` after its search):
 w_new is bit for bit the accepted w_try, and the objective is
 deterministic, so the solve's history does not change. A search that
 fails leaves w, f and g as they were, so it needs no evaluation either.
+
+With the telemetry tap armed (`telemetry.taps`), F, |pg| and the step
+ride in the iteration's one flag read-back; no read-back is added.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from photon_tpu_torch.checkpoint.taps import snapshot_tap
 from photon_tpu_torch.optim.lbfgs import _curvature, _push, two_loop
 from photon_tpu_torch.optim.tracker import OptResult
+from photon_tpu_torch.telemetry.taps import solver_tap, tap_enabled
 
 _C1 = 1e-4  # Armijo constant of the projected search
 
@@ -85,7 +89,14 @@ def minimize_owlqn(value_and_grad: Callable, w0: torch.Tensor,
     idx = count = it = 0
     converged = pg0norm <= 1e-14
     failed = torch.zeros((), dtype=torch.bool, device=dev)
-    done = bool(converged)
+    tap = tap_enabled()
+    if tap:  # the tap's values ride the start's one read-back
+        conv0, F0v, pg0v = torch.stack(
+            [converged.to(dtype), F.to(dtype), pg0norm]).tolist()  # sync
+        done = bool(conv0)
+        solver_tap("owlqn", 0, F0v, pg0v)
+    else:
+        done = bool(converged)
 
     while not done and it < max_iters:
         pg = pseudo_gradient(w, g, l1_weight, mask)
@@ -140,7 +151,15 @@ def minimize_owlqn(value_and_grad: Callable, w0: torch.Tensor,
         hist[it] = F_new
         ghist[it] = pgnorm
         snapshot_tap("owlqn", it, w_new, F_new, pgnorm)
-        keep, conv = torch.stack([keep, converged]).tolist()  # sync
+        if tap:
+            step = a if ok else torch.zeros((), dtype=dtype, device=dev)
+            keep, conv, Fv, pgv, av = torch.stack([
+                keep.to(dtype), converged.to(dtype), F_new.to(dtype),
+                pgnorm, step.to(dtype)]).tolist()  # sync
+            keep, conv = bool(keep), bool(conv)
+            solver_tap("owlqn", it, Fv, pgv, av)
+        else:
+            keep, conv = torch.stack([keep, converged]).tolist()  # sync
         done = conv or not ok
         if keep:
             idx, count = _push(S, Y, rho, idx, count, s, yv, sy_new)

@@ -510,10 +510,14 @@ def minimize_lbfgs_streamed(obj, data, w0: torch.Tensor,
     feature_streams``, ``solver.evaluations``, ``solver.linesearch_trials``,
     ``solver.iterations``, ``solver.margin_cache.hits`` / ``.refreshes``;
     ``checkpoint.solver_restores`` when it resumed from the current
-    `checkpoint` session's snapshot. ``mesh`` (a `parallel.mesh.Mesh`)
+    `checkpoint` session's snapshot; with a run attached, a
+    ``solve.lbfgs_streamed`` span and one ``lbfgs_streamed`` iteration
+    event per iteration (and the start's at 0) from the host values the
+    loop already holds. ``mesh`` (a `parallel.mesh.Mesh`)
     streams every chunk row-sharded over its slots, one reduction per
     evaluation; ``w0`` then lives on the mesh's home device."""
-    with K.scope(kernels):
+    with telemetry.span("solve.lbfgs_streamed", mesh=mesh is not None,
+                        n_chunks=data.n_chunks), K.scope(kernels):
         return _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
                                max_ls_evals, mesh, prefetch)
 
@@ -573,6 +577,7 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         telemetry.count("solver.feature_streams")
         telemetry.count("solver.evaluations")
         _eval_tick(ck)
+        telemetry.iteration("lbfgs_streamed", 0, f, grad_norm=g0norm)
 
         hist = np.full(max_iters + 1, np.nan, np.float32)
         ghist = np.full(max_iters + 1, np.nan, np.float32)
@@ -674,6 +679,8 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         it += 1
         hist[it], ghist[it] = f_new, gnorm
         telemetry.count("solver.iterations")
+        telemetry.iteration("lbfgs_streamed", it, f_new, grad_norm=gnorm,
+                            step=(alpha if ok else 0.0), trials=n_trials)
         w, g, f = w_new, g_new, f_new
         done = converged or not ok
         if ck is not None:
@@ -702,7 +709,8 @@ def minimize_owlqn_streamed(obj, data, w0: torch.Tensor, l1_weight: float,
     minimize_owlqn`; ``kernels``, ``mesh`` and the `checkpoint` session as
     in `minimize_lbfgs_streamed` (OWL-QN keeps no margin cache across
     iterations, so its snapshot is the iterate, history and scalars)."""
-    with K.scope(kernels):
+    with telemetry.span("solve.owlqn_streamed", mesh=mesh is not None,
+                        n_chunks=data.n_chunks), K.scope(kernels):
         return _owlqn_streamed(obj, data, w0, l1_weight, max_iters,
                                tolerance, history, max_ls_evals, reg_mask,
                                ladder_lanes, mesh, prefetch)
@@ -780,6 +788,7 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
         f_dev, g = value_grad_pass(w)
         f, l1w, pg0norm = _floats(f_dev, l1_term(w), pg_norm(w, g))
         F = f + l1w
+        telemetry.iteration("owlqn_streamed", 0, F, grad_norm=pg0norm)
         hist = np.full(max_iters + 1, np.nan, np.float32)
         ghist = np.full(max_iters + 1, np.nan, np.float32)
         hist[0], ghist[0] = F, pg0norm
@@ -855,6 +864,8 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
         it += 1
         hist[it], ghist[it] = F_new, pgnorm
         telemetry.count("solver.iterations")
+        telemetry.iteration("owlqn_streamed", it, F_new, grad_norm=pgnorm,
+                            trials=n_ls)
         w, g, f, F = w_new, g_new, f_new, F_new
         done = converged or not ok
         if ck is not None:

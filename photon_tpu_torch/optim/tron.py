@@ -12,8 +12,10 @@ loop reads its done flag back once per step (and skips the next
 direction's X pass when it stops), as the L-BFGS loop reads once per
 iteration; the outer loop reads back whether the step was accepted (a
 rejected step pays no Xᵀr pass, as the reference's `lax.cond`) and then
-its done flag. The generic `minimize_tron` (a value_and_grad callable)
-is still to come with the GAME slice, which uses it.
+its done flag (with the telemetry tap armed, f, |g| and the trust radius
+ride in that read: `telemetry.taps`). The generic `minimize_tron` (a
+value_and_grad callable) is still to come with the GAME slice, which
+uses it.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from photon_tpu_torch.checkpoint.taps import snapshot_tap
 from photon_tpu_torch.optim.tracker import OptResult
+from photon_tpu_torch.telemetry.taps import solver_tap, tap_enabled
 
 ETA0, ETA1, ETA2 = 1e-4, 0.25, 0.75
 SIGMA1, SIGMA2, SIGMA3 = 0.25, 0.5, 4.0
@@ -130,7 +133,14 @@ def minimize_tron_margin(obj, batch, w0: torch.Tensor, max_iters: int = 100,
     delta = torch.clamp(g0norm, min=1.0).to(dtype)
     converged = g0norm <= 1e-14
     failed = torch.zeros((), dtype=torch.bool, device=dev)
-    done = bool(converged)
+    tap = tap_enabled()
+    if tap:  # the tap's values ride the start's one read-back
+        conv0, f0v, g0v = torch.stack(
+            [converged.to(dtype), f.to(dtype), g0norm]).tolist()  # sync
+        done = bool(conv0)
+        solver_tap("tron_margin", 0, f0v, g0v)
+    else:
+        done = bool(converged)
     it = hvps = 0
 
     while not done and it < max_iters:
@@ -160,7 +170,14 @@ def minimize_tron_margin(obj, batch, w0: torch.Tensor, max_iters: int = 100,
         hist[it] = f_new
         ghist[it] = gnorm
         snapshot_tap("tron_margin", it, w_new, f_new, gnorm, aux=delta_new)
-        done = bool(converged | stuck)  # sync
+        if tap:  # f, |g| and the trust radius ride the done flag's read
+            done, fv, gv, dv = torch.stack([
+                (converged | stuck).to(dtype), f_new.to(dtype), gnorm,
+                delta_new.to(dtype)]).tolist()  # sync
+            done = bool(done)
+            solver_tap("tron_margin", it, fv, gv, dv)
+        else:
+            done = bool(converged | stuck)  # sync
         w, z, f, g, delta = w_new, z_new, f_new, g_new, delta_new
 
     return OptResult(

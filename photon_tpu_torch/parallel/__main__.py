@@ -28,7 +28,12 @@ run side by side, each cluster on its own rendezvous port):
 4. barrier-correct commits: rank 1 killed between its durable payload
    and the commit barrier — rank 0's commit fails loudly within
    ``PHOTON_TPU_BARRIER_TIMEOUT_S`` and the previous manifest still
-   restores.
+   restores;
+5. cross-rank aggregation: the 2-process launch of leg 1 writes one
+   telemetry file a rank (``p<k>.jsonl``), merged by
+   `telemetry.aggregate.aggregate_cluster` into one complete report —
+   both ranks, none missing, the straggler named, and the decoded
+   chunks summed to the ranks' own counts.
 
 Exit 1 on any failure (a host that cannot form even a localhost group
 fails too).
@@ -96,8 +101,11 @@ def selftest(device: str = "cuda", backend=None) -> dict:
         want = sc.stream_solve(data, mesh8)
         digests = {"in-process": [sc.psum_signature(mesh8)]}
         counts = (1, 2, 4)
+        tele = tmp / "telemetry"  # the 2-process launch's rank files
         solved = dict(zip(counts, run_side_by_side(
-            [(sc.target_stream_solve, n, (str(data),)) for n in counts])))
+            [(sc.target_stream_solve, n,
+              (str(data), str(tele)) if n == 2 else (str(data),))
+             for n in counts])))
         for n, res in solved.items():
             digests[n] = sorted({r["psum_digest"] for r in res})
         one = {d for ds in digests.values() for d in ds}
@@ -123,6 +131,25 @@ def selftest(device: str = "cuda", backend=None) -> dict:
               all(r["chunks_skipped"] > 0 and r["chunks_decoded"] > 0
                   for n, res in solved.items() if n > 1 for r in res),
               f"(rank, decoded, skipped)={report['ingest_split']}")
+
+        # ---- 5. the 2-process launch's rank files -> one cluster report
+        from photon_tpu_torch.telemetry.aggregate import aggregate_cluster
+
+        agg = aggregate_cluster(str(tele), expect_ranks=2)
+        decoded = sum(r["chunks_decoded"] for r in solved[2])
+        report["aggregate"] = {
+            "straggler_rank": agg["skew"]["straggler_rank"],
+            "barrier_wait_s": agg["skew"]["barrier_wait_s"]["per_rank"],
+            "clock_skew_s": agg["clock_skew_s"]}
+        check("cross_rank_aggregation",
+              agg["complete"] and agg["n_ranks"] == 2
+              and not agg["missing_ranks"]
+              and agg["skew"]["straggler_rank"] in (0, 1)
+              and agg["counters_total"].get("ingest.chunks", 0) == decoded,
+              f"n_ranks={agg['n_ranks']} missing={agg['missing_ranks']} "
+              f"straggler={agg['skew']['straggler_rank']} "
+              f"chunks={agg['counters_total'].get('ingest.chunks')} "
+              f"decoded={decoded}")
 
         # ---- 3. a 2-process snapshot restored at 1 and at 4 processes
         ref = sc._digest(sc.solve_chunked(mesh8))

@@ -681,19 +681,23 @@ def cluster_barrier(tag: str, timeout_s: Optional[float] = None) -> float:
     ``PHOTON_TPU_BARRIER_TIMEOUT_S`` knob); a dead or late peer makes it
     RAISE (naming the rank, gloo's monitored barrier) — it never hangs.
     Returns this rank's wait in seconds; 0.0 for one process. ``tag``
-    names the barrier in the error."""
+    names the barrier in the error. The wait is a ``parallel.barrier_wait``
+    span (attrs carry the tag): the rank that waits least is the one the
+    others waited for, which is how `telemetry.aggregate` names the
+    straggler."""
     t0 = time.perf_counter()
-    if not _DIST or _DIST["world"] <= 1:
-        return 0.0
-    import torch.distributed as dist
+    with telemetry.span("parallel.barrier_wait", tag=tag):
+        if not _DIST or _DIST["world"] <= 1:
+            return 0.0
+        import torch.distributed as dist
 
-    t = barrier_timeout_s() if timeout_s is None else float(timeout_s)
-    try:
-        dist.monitored_barrier(group=_DIST["barrier_group"],
-                               timeout=datetime.timedelta(seconds=t),
-                               wait_all_ranks=True)
-    except RuntimeError as e:
-        raise RuntimeError(f"cluster barrier {tag!r} failed within {t:g} "
-                           f"s on rank {_DIST['rank']}: {e}") from e
+        t = barrier_timeout_s() if timeout_s is None else float(timeout_s)
+        try:
+            dist.monitored_barrier(group=_DIST["barrier_group"],
+                                   timeout=datetime.timedelta(seconds=t),
+                                   wait_all_ranks=True)
+        except RuntimeError as e:
+            raise RuntimeError(f"cluster barrier {tag!r} failed within "
+                               f"{t:g} s on rank {_DIST['rank']}: {e}") from e
     telemetry.count("parallel.barrier_seconds", time.perf_counter() - t0)
     return time.perf_counter() - t0

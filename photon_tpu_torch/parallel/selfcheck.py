@@ -197,17 +197,33 @@ def target_psum_signature(ctx) -> dict:
 
 
 def target_stream_solve(ctx) -> dict:
-    """args=(dataset_root,): `target_psum_signature` (its digest as
-    ``psum_digest``, its collectives and wire bytes), then `stream_solve`
-    on this rank, then `game_fit` (its digest as ``game_digest``), then a
-    timed cluster barrier."""
+    """args=(dataset_root[, telemetry_dir]): `target_psum_signature` (its
+    digest as ``psum_digest``, its collectives and wire bytes), then
+    `stream_solve` on this rank, then `game_fit` (its digest as
+    ``game_digest``), then a timed cluster barrier. With a
+    ``telemetry_dir``, everything after the spine runs under a telemetry
+    run writing ``p<rank>.jsonl`` there (`telemetry.aggregate` merges
+    the ranks' files)."""
+    import os
+
+    from photon_tpu_torch import telemetry
     from photon_tpu_torch.parallel.mesh import cluster_barrier
 
-    (root,) = ctx.args
+    root, *rest = ctx.args
     spine = target_psum_signature(ctx)
-    out = stream_solve(root, _mesh(ctx))
-    out["game_digest"] = game_fit(_mesh(ctx))["digest"]
-    out["barrier_wait_s"] = cluster_barrier("stream_solve_done")
+    if rest:
+        telemetry.start_run(
+            name=f"multihost_rank{ctx.process_id}",
+            jsonl_path=os.path.join(str(rest[0]),
+                                    f"p{ctx.process_id}.jsonl"))
+    try:
+        out = stream_solve(root, _mesh(ctx))
+        out["game_digest"] = game_fit(_mesh(ctx))["digest"]
+        # the straggler waits least here: the aggregation's skew signal
+        out["barrier_wait_s"] = cluster_barrier("stream_solve_done")
+    finally:
+        if rest:
+            telemetry.finish_run()
     out.update(psum_digest=spine.pop("digest"), **spine)
     return out
 

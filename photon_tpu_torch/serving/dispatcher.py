@@ -1,6 +1,6 @@
 """Micro-batching dispatcher: the serving tier's request plane (port of
 `photon_tpu/serving/dispatcher.py`, with its ``rung_execute`` fault
-site; request tracing waits for a later slice).
+site and its request tracing).
 
 A bounded queue feeds a dispatch thread that collects up to ``max_batch``
 requests or until the OLDEST queued request has waited ``max_delay_us``,
@@ -19,8 +19,18 @@ of its own).
 
 Telemetry (`serving.*`): requests/batches/batch_rows/pad_waste/
 cold_misses/admitted/shed/deadline_expired counters, queue-depth and
-batch-fill gauges, and per-request latency (enqueue → score delivered)
-in a fixed-size `QuantileDigest`, summarized by `latency_stats`.
+batch-fill gauges, a ``serving.flush`` span and a ``serving_batch``
+event per flush (with a run attached), and per-request latency (enqueue
+→ score delivered) in a fixed-size `QuantileDigest`, summarized by
+`latency_stats`. With `telemetry.trace` armed each request carries a
+trace on its ``_Pending`` slot: ``queue_wait`` from submit, then
+``device_flush`` (collation, upload and the rung's launch), then
+``retire_wait`` (the wait for the device and the read-back), closed by
+the retire thread as it resolves the future (``shed`` instead for a
+request admission drops). A failed request closes its trace only if the
+trace is its own: one continued from a `ReplicaFleet` stays open, so the
+fleet's failover hops land on it (the reference closes it here, which
+drops them).
 
 Thread-safety: `submit`/`score` are safe from any number of client
 threads; results arrive on `concurrent.futures.Future`s — a float score,
@@ -47,6 +57,7 @@ from photon_tpu_torch.serving.admission import (SHED_DEADLINE,
                                                 AdmissionPolicy, Shed)
 from photon_tpu_torch.serving.programs import ProgramLadder
 from photon_tpu_torch.serving.store import CoefficientStore
+from photon_tpu_torch.telemetry import trace
 from photon_tpu_torch.telemetry.health import QuantileDigest
 
 
@@ -69,13 +80,21 @@ class ScoreRequest:
 
 
 class _Pending:
-    __slots__ = ("req", "future", "t_enqueue", "deadline_ns")
+    __slots__ = ("req", "future", "t_enqueue", "deadline_ns", "trace",
+                 "own_trace")
 
     def __init__(self, req: ScoreRequest):
         self.req = req
         self.future: Future = Future()
         self.t_enqueue = time.perf_counter_ns()
         self.deadline_ns: Optional[int] = None
+        # None unless tracing is armed; carried across the dispatch/retire
+        # thread boundary so the future-resolving thread closes the trace
+        self.trace = trace.begin("queue_wait")
+        # a trace continued from the caller's (a fleet's) is the caller's
+        # to close when the request fails: it fails over on the same trace
+        self.own_trace = (self.trace is not None
+                          and trace.current() is not self.trace)
 
 
 def collate_rung_args(ladder: ProgramLadder, batch: list,
@@ -259,6 +278,8 @@ class MicroBatchDispatcher:
             telemetry.count("serving.deadline_expired")
         else:
             telemetry.count("serving.shed")
+        trace.hop(p.trace, "shed", reason=reason)
+        trace.finish(p.trace)
         if not p.future.done():
             p.future.set_result(Shed(reason, queue_depth=self._q.qsize(),
                                      waited_ms=waited_ms))
@@ -329,12 +350,15 @@ class MicroBatchDispatcher:
         n = len(batch)
         if n == 0:
             return
+        for p in batch:
+            trace.hop(p.trace, "device_flush")
         try:
-            out_dev, bucket, misses = self._executor.execute(batch)
-            ready = None
-            if self._stream is not None:
-                ready = torch.cuda.Event()
-                ready.record(self._stream)
+            with telemetry.span("serving.flush", rows=n):
+                out_dev, bucket, misses = self._executor.execute(batch)
+                ready = None
+                if self._stream is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(self._stream)
             telemetry.count("serving.requests", n)
             telemetry.count("serving.batches")
             telemetry.count("serving.batch_rows", n)
@@ -342,9 +366,15 @@ class MicroBatchDispatcher:
             if misses:
                 telemetry.count("serving.cold_misses", misses)
             telemetry.gauge("serving.batch_fill", n / bucket)
+            telemetry.event("serving_batch", rows=n, bucket=bucket,
+                            cold_misses=misses)
+            for p in batch:
+                trace.hop(p.trace, "retire_wait")
             self._retire_q.put((batch, out_dev, ready))
         except Exception as e:  # delivered to every waiting caller
             for p in batch:
+                if p.own_trace:
+                    trace.finish(p.trace)
                 if not p.future.done():
                     p.future.set_exception(e)
 
@@ -367,12 +397,15 @@ class MicroBatchDispatcher:
                 scores = out_dev.cpu().numpy()
             except Exception as e:  # delivered to every waiting caller
                 for p in batch:
+                    if p.own_trace:
+                        trace.finish(p.trace)
                     p.future.set_exception(e)
                 continue
             t_now = time.perf_counter_ns()
             lats = []
             for i, p in enumerate(batch):
                 lats.append(t_now - p.t_enqueue)
+                trace.finish(p.trace)  # the retire thread closes the trace
                 p.future.set_result(float(scores[i]))
             with self._lat_lock:
                 self._lat.add_many(lats)

@@ -32,6 +32,7 @@ from photon_tpu_torch.game.model import score_rows
 from photon_tpu_torch.kernels import serving as KS
 from photon_tpu_torch.ops.losses import mean_fn
 from photon_tpu_torch.serving.store import CoefficientStore
+from photon_tpu_torch.telemetry.run import SignatureLog
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,42 +56,6 @@ class QuantizationRefused(RuntimeError):
             f"exceeds epsilon {report['epsilon']:.6g} "
             f"(mode={report['mode']})")
         self.report = report
-
-
-def _signature(tree) -> tuple:
-    """Hashable (structure, shapes, dtypes) signature of rung arguments."""
-    if isinstance(tree, dict):
-        return ("dict",) + tuple((k, _signature(tree[k]))
-                                 for k in sorted(tree))
-    if isinstance(tree, (tuple, list)):
-        return ("seq",) + tuple(_signature(t) for t in tree)
-    if isinstance(tree, SparseRows):
-        return ("sparse", tree.n_features, _signature(tree.indices),
-                _signature(tree.values))
-    if isinstance(tree, (torch.Tensor, np.ndarray)):
-        return (tuple(tree.shape), str(tree.dtype))
-    return (type(tree).__name__,)
-
-
-class SignatureLog:
-    """Thread-safe record of the distinct argument signatures per program
-    name (the port's counterpart of the reference's TraceSignatureLog)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._seen: dict = {}
-
-    def record(self, name: str, args) -> tuple:
-        sig = _signature(args)
-        with self._lock:
-            bucket = self._seen.setdefault(name, [])
-            if sig not in bucket:
-                bucket.append(sig)
-        return sig
-
-    def signatures(self, name: str) -> list:
-        with self._lock:
-            return list(self._seen.get(name, []))
 
 
 def _build_score_fn(coords: tuple, task, output_mean: bool,

@@ -5,9 +5,9 @@ drivers wrap around each training phase, plus a `Timed` context manager and a
 per-phase accumulator for the driver's end-of-run summary.
 
 Telemetry integration: a Timer constructed WITH a name opens a
-`photon_tpu_torch.telemetry` span for each start/stop interval (no-op
-while the port has no run object to record into). `PhaseTimers(span_prefix="train.")` names its spans
-``train.<phase>``. A bare `Timer()` stays a pure stopwatch.
+`photon_tpu_torch.telemetry` span for each start/stop interval (a no-op
+with no run attached). `PhaseTimers(span_prefix="train.")` names its
+spans ``train.<phase>``. A bare `Timer()` stays a pure stopwatch.
 """
 from __future__ import annotations
 

@@ -45,6 +45,10 @@ from photon_tpu_torch.data.ingest import \
     training_example_schema  # noqa: E402
 from photon_tpu_torch.data.statistics import FeatureSummary  # noqa: E402
 from photon_tpu_torch.drivers import train as PDT  # noqa: E402
+from _reference_native import reference_native  # noqa: E402
+
+# the JAX package's native library, built once across the test processes
+reference_native()
 
 W_RTOL, W_ATOL = 1e-4, 1e-5
 SHARDS = {

@@ -49,6 +49,10 @@ from photon_tpu_torch.data import validators as PV  # noqa: E402
 from photon_tpu_torch.data.matrix import SparseRows  # noqa: E402
 from photon_tpu_torch.data.statistics import FeatureSummary  # noqa: E402
 from photon_tpu_torch.ops.losses import TaskType  # noqa: E402
+from _reference_native import reference_native  # noqa: E402
+
+# the JAX package's native library, built once across the test processes
+reference_native()
 
 BAGS = ("global", "wide", "puser")
 SHARDS = {

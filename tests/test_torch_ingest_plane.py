@@ -55,6 +55,10 @@ from photon_tpu_torch.data.matrix import SparseRows  # noqa: E402
 
 from test_torch_streaming import (configs, ref_maps,  # noqa: E402
                                   write_files)
+from _reference_native import reference_native  # noqa: E402
+
+# the JAX package's native library, built once across the test processes
+reference_native()
 
 CPU = torch.device("cpu")
 

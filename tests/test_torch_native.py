@@ -49,6 +49,10 @@ from photon_tpu_torch.data.matrix import SparseRows  # noqa: E402
 from photon_tpu_torch.data.native_ingest import (  # noqa: E402
     compile_plan, read_game_data_native)
 from photon_tpu_torch.drivers import index as PDI  # noqa: E402
+from _reference_native import reference_native  # noqa: E402
+
+# the JAX package's native library, built once across the test processes
+reference_native()
 
 SHARDS = {"global": (("features", "ctx"), True),
           # bag order reversed against the schema's field order: ids

@@ -38,6 +38,10 @@ from photon_tpu_torch.data import streaming as PST  # noqa: E402
 from photon_tpu_torch.data.avro_io import write_avro  # noqa: E402
 from photon_tpu_torch.data.dataset import ChunkedMatrix  # noqa: E402
 from photon_tpu_torch.data.matrix import SparseRows, next_pow2  # noqa
+from _reference_native import reference_native  # noqa: E402
+
+# the JAX package's native library, built once across the test processes
+reference_native()
 
 CPU = torch.device("cpu")
 
