@@ -12,7 +12,8 @@ streamed solvers, GAME's descent and the training driver), its
 multi-GPU GLM training (the slot mesh in one process and in several) and
 GAME on the mesh (entity lanes over the slots, the mesh refresh, the
 driver and the GAME grid on a mesh), its run telemetry (JSONL runs, the
-solver taps, request tracing) and its replica fleet on one GPU.
+solver taps, request tracing), its replica fleet on one GPU, and its
+Bayesian reg-weight tuners and model diagnostics.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -243,8 +244,9 @@ DRV. the drivers on local Avro (a temporary directory beside this script):
    ms, its error and how many outputs its own calls disagree on). The
    drivers decode natively (a fallback to Python fails the phase).
 DRV-S. the streamed data plane on local Avro (a `_drvs*` temporary
-   directory): GM's widths at 2^21 training rows (just over the training
-   driver's default streaming threshold) as 8 deflate part files and 2^18
+   directory): GM's widths at 2^20 training rows (cut from 2^21 for TU's
+   time; over a streaming threshold of DRVS_THRESHOLD rows, where 2^21
+   rows were just over the default 2,000,000) as 8 deflate part files and 2^18
    validation rows, written by a spawn process pool; (a) a part file of
    DRVS_PY_ROWS rows written beside them through `read_game_data` native
    and Python (equal bit for bit, rows/s each), then half the training
@@ -415,6 +417,35 @@ TF. the run telemetry spine and the replica fleet: (a) after CK (d):
    --selftest --json`` on the card, side by side, each exiting 0; (d)
    MG (d)'s selftest includes ``cross_rank_aggregation`` (its 2-process
    launch's rank files merged, the straggler named).
+TU. the tuners and the diagnostics: (a) after TF (c): bench.py's
+   tuning_e2e (:1166-1240: 2^15 x 64 dense logistic, 24 iterations, 256
+   configs in lane chunks of 64) through `tune_glm_reg_lanes` on the card
+   — a warm tune, then a timed one adding no dispatch signature —:
+   configs/s against the point-at-a-time loop (a full-depth one-lane
+   `train_glm_grid` and its validation pass per point, 16 points), their
+   ratio (the reference's acceptance: 8x), rounds, the round's modeled
+   FLOPs, peak memory, and each round's GP fit on the card and on the
+   CPU; (c) ``python -m photon_tpu_torch.tuning --selftest --json`` on
+   the card beside (a), exiting 0; (b) after E: T2's layout (G's
+   configuration) through the lane tuner with E's held-out rows (cut:
+   TU_T2_CONFIGS configs in chunks of TU_T2_CHUNK, 4 rounds; a 64-lane
+   T2 state would need ~64 GB) — rows 2 and 4 launched, no plan build
+   (both layouts' exist), two dispatch signatures, peak memory —, the
+   first round's screen held against ``scope("off")`` (final objectives
+   within rtol 1e-5) and rows 2 and 4 at its lanes against their plain
+   versions;
+   (e) Hosmer–Lemeshow on the winner's held-out probabilities and both
+   feature importances on the SparseRows T2 is laid out from, each
+   against numpy f64 (1e-5 relative; the variance importance squared) and
+   repeated bit for bit over 5 calls; after D2-D5, `bootstrap_glm` with
+   TU_BOOT Poisson replicates of D2's L1 OWL-QN solve at the default
+   tolerance (row 6, a launch an evaluation), the first replicate re-solved
+   bit for bit and its first D_SHORT iterations within rtol 1e-5 of the
+   plain version's; (d) after GMM (e): DRV (a)'s Avro through
+   `run_training` with ``tuning_iters=8``, ``tuning_batch=4`` (a narrower
+   reg range whose batches vectorize; cut: solves stopped at
+   RE_CHECK_TOL), each result's validation score within 1e-6 of the same
+   configurations refitted by `GameEstimator.fit(config_grid=...)`.
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
@@ -430,7 +461,8 @@ under ``cr_launches``, in CK's armed and resumed runs and (d)'s
 tapped solve under ``ck_launches``, in MG (a)'s mesh solve under
 ``mg_launches``, and in GMM's legs — (b)'s mesh fit, (d)'s two
 processes, the rung after (c)'s swap — under ``gmm_launches``, and in
-TF's (a) armed solve, (b)'s fleet legs and kills under ``tf_launches``),
+TF's (a) armed solve, (b)'s fleet legs and kills under ``tf_launches``,
+and in TU's (b) tune and (e) bootstrap under ``tu_launches``),
 the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -510,14 +542,16 @@ DRV_USER_L2 = [2.5, 5.0]
 DRV_WIDE_ROWS, DRV_WIDE_D, DRV_WIDE_K, DRV_WIDE_ITERS = 1 << 15, 1 << 16, \
     32, 20
 DRV_XTR_ROWS = 1 << 19
-# the streamed data plane (DRV-S): GM's widths at 2^21 training rows
-# (just over the training driver's default streaming threshold of
-# 2,000,000) in 8 part files and 2^18 validation rows, 4 ingest workers,
+# the streamed data plane (DRV-S): GM's widths at 2^20 training rows (cut
+# from 2^21, which sat just over the training driver's default streaming
+# threshold of 2,000,000, for TU's time; the threshold is set to
+# DRVS_THRESHOLD) in 8 part files and 2^18 validation rows, 4 ingest workers,
 # 2^16-row decode chunks and 2^19-row objective chunks, solves stopped at
 # a relative progress of DRVS_TOL (the (b)/(c) comparison's tolerance);
 # (d) T2's widths at 2^17 rows (cut from 2^18 for the script's time), a
 # ladder of 2^15-row chunks, 10 iterations
-DRVS_ROWS, DRVS_VAL_ROWS, DRVS_PARTS, DRVS_SEED = 1 << 21, 1 << 18, 8, 404
+DRVS_ROWS, DRVS_VAL_ROWS, DRVS_PARTS, DRVS_SEED = 1 << 20, 1 << 18, 8, 404
+DRVS_THRESHOLD = 1_000_000
 DRVS_WORKERS, DRVS_CHUNK, DRVS_OBJ_CHUNK, DRVS_TOL = 4, 1 << 16, 1 << 19, \
     1e-3
 DRVS_LADDER_ROWS, DRVS_LADDER_CHUNK, DRVS_LADDER_ITERS = 1 << 17, 1 << 15, 10
@@ -526,6 +560,16 @@ DRVS_AUC_CALLS = 20  # (b): the same margins' AUC, call after call
 # own (cut for MG's time: a whole 2^18-row part took the pure Python
 # decoder ~35 s)
 DRVS_PY_ROWS = 1 << 15
+# the tuners: bench.py's tuning_e2e (:1177-1182) on the card; T2's layout
+# through the lane tuner (cut: TU_T2_CONFIGS configs, chunks of
+# TU_T2_CHUNK); the bootstrap's replicates of D2's solve; the training
+# driver's tuning_iters and tuning_batch on DRV (a)'s Avro
+TU_ROWS, TU_FEATURES, TU_ITERS, TU_CONFIGS, TU_CHUNK, TU_SEQ_SAMPLE = \
+    1 << 15, 64, 24, 256, 64, 16
+TU_T2_CONFIGS, TU_T2_CHUNK, TU_BOOT = 32, 8, 16
+TU_DRV_ITERS, TU_DRV_BATCH = 8, 4
+# a reg-weight range whose spread (1e3) the GAME grid's lane gate takes
+TU_DRV_RANGE = (0.1, 100.0)
 # continual refresh (CR): the previous model from GM's data (GM's rows),
 # a delta drop of 2^20 zipf(1.2) user rows plus 4,096 rows of 1,000 users
 # the model never saw (from seed + CR_SEED), the drop's users shifted by
@@ -2639,6 +2683,7 @@ def phase_validation(args, state: dict, dev, gpu) -> dict:
         f"{max(abs(a - b) for a, b in zip(sel_scores, aucs)):.3g}); "
         f"{T_SHORT}-iteration fits on the kernels and under scope(\"off\"): "
         f"per-lane AUCs within {gap5:.3g}  [{gpu}]")
+    state["e_val"] = (vbatch, vy)  # TU (b)'s validation rows
     del vbatch, Xv, margins, plain, direct, res, res_k, res_p
     torch.cuda.empty_cache()
     return launches
@@ -5233,6 +5278,8 @@ def phase_drivers(args, dev, gpu) -> dict:
         lap("CK (c)")
         gmm_driver(params_a, root, avro_cols.pop("train.avro"), dev, gpu)
         lap("GMM (e)")
+        tu_driver(params_a, root, dev, gpu)
+        lap("TU (d)")
         del out, sc, best, loaded, vfull, tr, va, avro_cols
         torch.cuda.empty_cache()
 
@@ -5515,7 +5562,7 @@ def model_gaps(a, b) -> dict:
 def phase_drivers_streamed(args, dev, gpu) -> dict:
     """DRV-S: the streamed data plane — (a) native against Python decode
     and the ingest plane's legs on GM-width part files, (b) the training
-    driver past its default streaming threshold (auto-trip, 4 workers, a
+    driver past its streaming threshold (auto-trip, 4 workers, a
     chunk cache) against the in-memory read and a cache-hit rerun, (c)
     the streamed objective under a device budget, (d) T2's ladder built
     from Avro and trained through the blocked-ELL kernels; returns the
@@ -5681,7 +5728,7 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
             + f"; cache {dir_bytes(cache_a) / 1e6:.1f} MB  [{gpu}]")
         lap("DRV-S (a)")
 
-        # (b) the training driver past its default streaming threshold
+        # (b) the training driver past its streaming threshold
         coords = {
             "fixed": {"feature_shard": "global", "reg_type": "l2",
                       "reg_weight": GM_FIXED[1], "max_iters": GM_FIXED[0],
@@ -5699,11 +5746,11 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
             coordinates=coords, entity_fields=["userId", "itemId"],
             n_sweeps=GM_SWEEPS, evaluators=["AUC", "SHARDED_AUC"],
             evaluator_entity="userId", index_map_dir=maps_dir,
-            ingest_workers=DRVS_WORKERS,
-            chunk_cache_dir=os.path.join(root, "cache_b"))
+            ingest_workers=DRVS_WORKERS, streaming_threshold_rows=
+            DRVS_THRESHOLD, chunk_cache_dir=os.path.join(root, "cache_b"))
         if DRVS_ROWS <= params.streaming_threshold_rows:
             raise AssertionError("DRV-S: the training set does not exceed "
-                                 "the default streaming threshold")
+                                 "the streaming threshold")
         sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
@@ -7025,6 +7072,7 @@ SV_E, SV_DF, SV_DR, SV_K, SV_ZIPF, SV_CLIENTS = 4096, 64, 8, 8, 1.2, 32
 TF_REPLICAS, TF_REQUESTS, TF_KILL_REQUESTS = 4, 8192, 64
 TF_EXEMPLARS = TF_REQUESTS // 100
 TF_LAUNCHES: dict = {}  # TF's kernel launches, summed over its main paths
+TU_LAUNCHES: dict = {}  # TU's: (b)'s tune and (e)'s bootstrap
 
 
 def tf_count(launches: dict) -> None:
@@ -7420,6 +7468,495 @@ def phase_tf_selftests(gpu) -> None:
     tf_overheads(gpu)
 
 
+# ------------------------------------------------- phase TU: the tuners
+def tu_count(launches: dict) -> None:
+    for name, n in launches.items():
+        TU_LAUNCHES[name] = TU_LAUNCHES.get(name, 0) + n
+
+
+def tu_problem(seed: int, dev):
+    """bench.py's tuning_problem (TU_ROWS x TU_FEATURES logistic from a
+    planted N(0, 1) signal; validation rows a quarter as many) with numpy
+    from ``seed``: (train, val) batches on ``dev``."""
+    from photon_tpu_torch.data.dataset import make_batch
+
+    rng = np.random.default_rng(seed)
+    w_true = rng.normal(size=TU_FEATURES).astype(np.float32)
+
+    def draw(n, s):
+        r = np.random.default_rng(s)
+        X = r.normal(size=(n, TU_FEATURES)).astype(np.float32)
+        p = 1.0 / (1.0 + np.exp(-(X @ w_true)))
+        y = (r.uniform(size=n) < p).astype(np.float32)
+        return make_batch(X, y, device=dev)
+
+    return draw(TU_ROWS, seed + 1), draw(TU_ROWS // 4, seed + 2)
+
+
+def tu_selftest_start():
+    """TU (c): ``python -m photon_tpu_torch.tuning --selftest --json`` on
+    the card, started beside TU (a)."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch.tuning", "--selftest",
+         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def tu_selftest_finish(started, gpu) -> None:
+    t0, p = started
+    try:
+        out, err = p.communicate(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    report = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    if p.returncode != 0 or not report.get("ok"):
+        raise AssertionError(f"TU (c): tuning selftest exit {p.returncode}: "
+                             f"{out[-3000:]} {err[-3000:]}")
+    checks = report["checks"]
+    log(f"TU (c): python -m photon_tpu_torch.tuning --selftest on the card: "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s (beside (a)'s warm "
+        f"tune), "
+        f"{len(checks)} checks ok ({', '.join(checks)}); best reg weight "
+        f"{checks['lane_tune']['best_w']:.6g}, best_y "
+        f"{checks['lane_tune']['best_y']:.6g}; round flops "
+        f"{checks['cost_budget']['round_flops']:.6g}  [{gpu}]")
+
+
+def phase_tu_tuner(args, dev, gpu) -> None:
+    """TU (a): bench.py's tuning_e2e on the card — the lane tuner over
+    TU_CONFIGS configs in chunks of TU_CHUNK (a warm tune, then a timed
+    one with no new dispatch signature) against the point-at-a-time loop
+    on TU_SEQ_SAMPLE points, and the GP fit of each round's history on
+    the card and on the CPU; (c) the tuning selftest beside it."""
+    import torch
+
+    from photon_tpu_torch.evaluation.evaluator import default_evaluator
+    from photon_tpu_torch.models.training import (evaluate_glm_grid,
+                                                  train_glm_grid)
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+    from photon_tpu_torch.tuning import gp as GP
+    from photon_tpu_torch.tuning.lane_tuner import (LaneTuningResult,
+                                                    tune_glm_reg_lanes)
+    from photon_tpu_torch.tuning.search import SearchRange, SearchSpace
+
+    selftest = tu_selftest_start()
+    train, val = tu_problem(args.seed, dev)
+    task = TaskType.LOGISTIC_REGRESSION
+    cfg = OptimizerConfig(max_iters=TU_ITERS, reg=l2(), history=5)
+    evaluator = default_evaluator(task)
+    t0 = time.perf_counter()
+    tune_glm_reg_lanes(train, task, cfg, val, n_configs=TU_CONFIGS,
+                       lane_chunk=TU_CHUNK, seed=7)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # the selftest shares the card and the host with the warm tune only
+    tu_selftest_finish(selftest, gpu)
+    base = LaneTuningResult.signature_count()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, best_w, res = tune_glm_reg_lanes(train, task, cfg, val,
+                                        n_configs=TU_CONFIGS,
+                                        lane_chunk=TU_CHUNK, seed=args.seed)
+    torch.cuda.synchronize()
+    lane_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    sigs = LaneTuningResult.assert_no_retrace(base)
+    if len(res.ys) != TU_CONFIGS or not 1e-4 <= best_w <= 1e4:
+        raise AssertionError(f"TU (a): {len(res.ys)} observations, best "
+                             f"weight {best_w}")
+
+    # the point-at-a-time loop: a full-depth single-lane grid and its own
+    # validation pass per candidate, on a sample
+    sample = list(np.geomspace(1e-4, 1e4, TU_SEQ_SAMPLE))
+
+    def one_point(w):
+        grid = train_glm_grid(train, task, cfg, [w], device=dev)
+        evaluate_glm_grid(grid, val, evaluator)
+
+    one_point(sample[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in sample:
+        one_point(w)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    lane_rate, seq_rate = TU_CONFIGS / lane_s, TU_SEQ_SAMPLE / seq_s
+
+    # each GP round's fit (the screen observations so far) on the card and
+    # on the CPU, after one warm fit of each
+    space = SearchSpace([SearchRange(1e-4, 1e4, log_scale=True)])
+    units = space.to_unit(res.xs).astype(np.float32)
+    fits = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        GP.fit_gp(units[:TU_CHUNK], res.ys[:TU_CHUNK], device=where)
+        ms = []
+        for r in range(1, len(res.rounds)):
+            t0 = time.perf_counter()
+            gp = GP.fit_gp(units[:TU_CHUNK * r], res.ys[:TU_CHUNK * r],
+                           device=where)
+            float(gp.alpha[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        fits[label] = ms
+    roof = 4.0 * TU_ROWS * TU_FEATURES * TU_CHUNK * res.rounds[0].screen_iters
+    log(f"TU (a): bench.py's tuning_e2e: {TU_CONFIGS} configs of "
+        f"{TU_ROWS} x {TU_FEATURES} logistic, {TU_ITERS} iterations, in lane "
+        f"chunks of {TU_CHUNK}: {len(res.rounds)} rounds in {lane_s:.3f} s "
+        f"(the warm tune, beside (c), {warm_s:.3f} s) = {lane_rate:.6g} "
+        f"configs/s; the "
+        f"point-at-a-time loop {TU_SEQ_SAMPLE} points in {seq_s:.3f} s = "
+        f"{seq_rate:.6g} configs/s; ratio {lane_rate / seq_rate:.4g}x "
+        f"(the reference's acceptance 8x); best reg weight {best_w:.6g}, "
+        f"best_y {res.best_y:.6g}; round_model_flops "
+        f"{res.rounds[0].modeled_flops:.6g} (lane roofline {roof:.6g}); "
+        f"peak device memory {peak_gb:.3f} GB; {sigs - base + 2} dispatch "
+        f"signatures over the timed tune, none new  [{gpu}]")
+    counts = ", ".join(str(TU_CHUNK * r) for r in range(1, len(res.rounds)))
+    log(f"TU (a): GP fit per round ({counts} observations): on the card "
+        + ", ".join(f"{m:.1f}" for m in fits["card"])
+        + " ms; on the CPU " + ", ".join(f"{m:.1f}" for m in fits["cpu"])
+        + f" ms  [{gpu}]")
+    del train, val
+    torch.cuda.empty_cache()
+
+
+def tu_kernels_agree(X, W, gen) -> float:
+    """Rows 2 and 4 at the lanes of ``W`` ((d, G), permuted space) on a
+    `BlockedEllRows` against their plain versions, rtol=atol=1e-5; returns
+    the max |err|."""
+    import torch
+
+    from photon_tpu_torch.kernels import blocked_ell as KB
+
+    got = KB.tail_matvec(X, W)
+    want = KB.tail_matvec_reference(X, W)
+    r = torch.randn((int(X.row_pos.shape[0]), W.shape[1]), generator=gen,
+                    device=W.device)
+    got_r = KB.bucket_rmatvec(X, r)
+    want_r = KB.bucket_rmatvec_reference(X, r)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL,
+                               err_msg="TU (b): tail matvec vs plain")
+    np.testing.assert_allclose(got_r.cpu().numpy(), want_r.cpu().numpy(),
+                               **TOL, err_msg="TU (b): rmatvec vs plain")
+    return max(float((got - want).abs().max()),
+               float((got_r - want_r).abs().max()))
+
+
+def hl_f64(p, y, n_bins: int = 10) -> tuple:
+    """Hosmer–Lemeshow (chi², bin masses, observed, expected) in numpy
+    f64, the reference's binning, unit weights."""
+    o = np.argsort(p, kind="stable")
+    p, y = p[o].astype(np.float64), y[o].astype(np.float64)
+    w = np.ones_like(p)
+    cw = np.cumsum(w) - 0.5 * w
+    b = np.clip((cw / w.sum() * n_bins).astype(int), 0, n_bins - 1)
+    obs, exp, mass = (np.bincount(b, v, n_bins) for v in (y, p, w))
+    den = exp * (1 - exp / np.maximum(mass, 1e-12))
+    chi2 = float(np.where(mass > 0, (obs - exp) ** 2
+                          / np.maximum(den, 1e-12), 0.0).sum())
+    return chi2, mass, obs, exp
+
+
+def rel_gap(got, want) -> float:
+    """max |got − want| over max |want|."""
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(np.abs(want).max(), 1e-300))
+
+
+def phase_tu_lanes(args, state: dict, dev, gpu) -> None:
+    """TU (b): T2's layout (G's configuration) through the lane tuner with
+    E's held-out rows (cut: TU_T2_CONFIGS configs in chunks of
+    TU_T2_CHUNK); (e) Hosmer–Lemeshow on the winner's held-out
+    probabilities and both importances on the SparseRows T2 is laid out
+    from, each against numpy f64 and repeated bit for bit."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.diagnostics import (expected_magnitude_importance,
+                                              hosmer_lemeshow,
+                                              variance_importance)
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.models.training import train_glm_grid
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+    from photon_tpu_torch.tuning.lane_tuner import (LaneBudget,
+                                                    LaneTuningResult,
+                                                    tune_glm_reg_lanes)
+
+    batch = state["batch"]
+    vbatch, vy = state.pop("e_val")
+    task = TaskType.LOGISTIC_REGRESSION
+    cfg = OptimizerConfig(max_iters=T_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=0.0, history=T_HISTORY,
+                          lane_history_dtype="bfloat16")
+    base = LaneTuningResult.signature_count()
+    # each layout's kernel plan exists before the tune (T2's and E's
+    # phases built them): the tune's rounds must build none
+    for b in (batch, vbatch):
+        KB.layout_plan(b.X)
+    builds = KB.plan_builds()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, best_w, res = tune_glm_reg_lanes(
+        batch, task, cfg, vbatch, n_configs=TU_T2_CONFIGS,
+        lane_chunk=TU_T2_CHUNK, seed=args.seed)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    tu_count(launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    new_builds = KB.plan_builds() - builds
+    sigs = LaneTuningResult.assert_no_retrace(base + 2)
+    if new_builds:
+        raise AssertionError(f"TU (b): {new_builds} plan builds in the tune")
+    if not all(launches.get(k, 0) > 0 for k in ("tail_matvec",
+                                                 "bucket_rmatvec")):
+        raise AssertionError(f"TU (b): the tune launched {launches}")
+
+    # the first round's screen on the kernels and under scope("off")
+    screen = dataclasses.replace(
+        cfg, max_iters=LaneBudget().screen_iters or max(4, T_ITERS // 8))
+    weights = [float(w) for w in res.xs[:TU_T2_CHUNK, 0]]
+    got, _ = train_glm_grid(batch, task, screen, weights, device=dev,
+                            device_results=True)
+    with K.scope("off"):
+        want, _ = train_glm_grid(batch, task, screen, weights, device=dev,
+                                 device_results=True)
+    gv, wv = got.value.cpu().numpy(), want.value.cpu().numpy()
+    np.testing.assert_allclose(gv, wv, rtol=1e-5,
+                               err_msg="TU (b): screen vs scope off")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 18)
+    X = batch.X
+    err = tu_kernels_agree(X, X.from_model_space(got.w.t().contiguous()),
+                           gen)
+    rounds = "; ".join(
+        f"round {i}: screen best {r.best_screen_y:.6g}, full best "
+        f"{r.best_full_y:.6g}" for i, r in enumerate(res.rounds))
+    log(f"TU (b): T2's layout through tune_glm_reg_lanes (G's configuration,"
+        f" {T_ITERS} iterations, screen {res.rounds[0].screen_iters}; cut: "
+        f"{TU_T2_CONFIGS} configs in chunks of {TU_T2_CHUNK}) with E's "
+        f"{E_ROWS} held-out rows: {len(res.rounds)} rounds in {tune_s:.3f} s"
+        f" ({TU_T2_CONFIGS / tune_s:.4g} configs/s); best reg weight "
+        f"{best_w:.6g}, validation AUC {-res.best_y:.8g}; {rounds}; "
+        f"round_model_flops {res.rounds[0].modeled_flops:.6g}, bytes "
+        f"{res.rounds[0].modeled_bytes:.6g}; launches {launches}; plan "
+        f"builds {new_builds}; {sigs - base} dispatch signatures; peak "
+        f"device memory {peak_gb:.3f} GB  [{gpu}]")
+    log(f"TU (b): the first round's {TU_T2_CHUNK}-lane screen on the kernels"
+        f" against scope(\"off\"): final objectives within rtol 1e-5 (max rel"
+        f" {float(np.max(np.abs(gv - wv) / np.abs(wv))):.3g}); rows 2 and 4 "
+        f"at its {TU_T2_CHUNK} lanes against their plain versions on this "
+        f"layout: max |err| {err:.3g}  [{gpu}]")
+    del got, want
+
+    # (e) Hosmer–Lemeshow on the winner's held-out probabilities
+    probs = torch.sigmoid(model.score(vbatch.X))
+    labels = vbatch.y
+    hls = [hosmer_lemeshow(probs, labels) for _ in range(5)]
+    t0 = time.perf_counter()
+    hl = hosmer_lemeshow(probs, labels)
+    float(hl.chi2)
+    hl_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(h.chi2, hls[0].chi2)
+               and torch.equal(h.bin_weight, hls[0].bin_weight)
+               and torch.equal(h.observed_pos, hls[0].observed_pos)
+               and torch.equal(h.expected_pos, hls[0].expected_pos)
+               for h in hls)
+    chi2, mass, obs, exp = hl_f64(probs.cpu().numpy(), vy)
+    gaps = {"chi2": abs(float(hl.chi2) - chi2) / chi2,
+            "bin masses": rel_gap(hl.bin_weight.cpu().numpy(), mass),
+            "observed": rel_gap(hl.observed_pos.cpu().numpy(), obs),
+            "expected": rel_gap(hl.expected_pos.cpu().numpy(), exp)}
+    if not same or max(gaps.values()) > 1e-5:
+        raise AssertionError(f"TU (e): Hosmer-Lemeshow repeat {same}, "
+                             f"against f64 {gaps}")
+    log(f"TU (e): hosmer_lemeshow on the winner's {E_ROWS} held-out "
+        f"probabilities: chi2 {float(hl.chi2):.6g}, p {float(hl.p_value):.6g}"
+        f", dof {float(hl.dof):g}, {hl_ms:.3f} ms; against numpy f64 (rel): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f"; 5 calls bit for bit  [{gpu}]")
+    del probs, vbatch
+
+    # (e) both importances on the SparseRows T2 is laid out from
+    ind, va, _ = state["coo"]
+    S = SparseRows(ind, va, T_FEATURES).to(dev)
+    w = model.coefficients.means
+    outs, secs = {}, {}
+    for name, fn in (("magnitude", expected_magnitude_importance),
+                     ("variance", variance_importance)):
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(fn(w, S).importance)
+            secs.setdefault(name, time.perf_counter() - t0)
+        if not all(np.array_equal(r, runs[0]) for r in runs):
+            raise AssertionError(f"TU (e): {name} importance moved between "
+                                 "calls")
+        outs[name] = runs[0]
+    wh = np.abs(w.cpu().numpy().astype(np.float64))
+    n = ind.shape[0]
+    cols = ind.reshape(-1)
+    v64 = va.reshape(-1).astype(np.float64)
+    e_abs = np.bincount(cols, np.abs(v64), T_FEATURES) / n
+    e1 = np.bincount(cols, v64, T_FEATURES) / n
+    e2 = np.bincount(cols, v64 * v64, T_FEATURES) / n
+    var = np.maximum(e2 - e1 * e1, 0.0)
+    g_mag = rel_gap(outs["magnitude"], wh * e_abs)
+    # σ of a constant column (the intercept) is the square root of a
+    # rounding in f32: the variance importance is held squared
+    g_var = rel_gap(outs["variance"].astype(np.float64) ** 2, wh ** 2 * var)
+    if max(g_mag, g_var) > 1e-5:
+        raise AssertionError(f"TU (e): importances against f64: magnitude "
+                             f"{g_mag}, variance (squared) {g_var}")
+    log(f"TU (e): importances of the winner on T2's SparseRows ({n} rows x "
+        f"{ind.shape[1]} slots, {T_FEATURES} columns): magnitude "
+        f"{secs['magnitude']:.3f} s (first call, its segment plan built), "
+        f"variance {secs['variance']:.3f} s; against numpy f64 (max gap "
+        f"over max): magnitude {g_mag:.3g}, variance (squared) {g_var:.3g};"
+        f" 5 calls each bit for bit; top 3 by magnitude "
+        + str([(int(j), float(outs['magnitude'][j]))
+               for j in np.argsort(-outs["magnitude"])[:3]])
+        + f"  [{gpu}]")
+    del S
+    torch.cuda.empty_cache()
+
+
+def phase_tu_bootstrap(args, state: dict, dev, gpu) -> None:
+    """TU (e): `bootstrap_glm` with TU_BOOT replicates of D2's dense L1
+    OWL-QN solve (row 6 a trial), the first replicate held against its
+    plain-version solve."""
+    import warnings
+
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.diagnostics import bootstrap_glm
+    from photon_tpu_torch.diagnostics.bootstrap import poisson_counts
+    from photon_tpu_torch.kernels import fused as KF
+    from photon_tpu_torch.models.training import make_objective, solve
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l1
+
+    batch = state["batch"]
+    task = TaskType.LOGISTIC_REGRESSION
+    # D2's solve at the default tolerance, so that converged counts
+    cfg = OptimizerConfig(max_iters=D_ITERS, reg=l1(), reg_weight=D_L1,
+                          history=D_HISTORY)
+    seed = args.seed + 18
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():  # a replicate that stops unconverged
+        warnings.simplefilter("ignore")
+        rep = bootstrap_glm(batch, task, cfg, n_replicates=TU_BOOT,
+                            seed=seed)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    tu_count(launches)
+    if launches.get(KF.KERNEL, 0) == 0:
+        raise AssertionError(f"TU (e): the bootstrap launched {launches}")
+    # replicate 0 again on the kernels (the same bits) and on the plain
+    # version for D_SHORT iterations: histories within rtol 1e-5
+    counts = poisson_counts(TU_BOOT, batch.n, seed=seed, device=dev)
+    rb = batch._replace(weights=batch.weights * counts[0])
+    obj = make_objective(task, cfg, D_FEATURES, fused=True, device=dev)
+    w0 = torch.zeros(D_FEATURES, dtype=torch.float32, device=dev)
+    r0 = solve(obj, rb, w0, cfg)
+    if not np.array_equal(r0.w.cpu().numpy(), rep.coefficients[0]):
+        raise AssertionError("TU (e): replicate 0 is not its own solve")
+    with K.scope("off"):
+        p0 = solve(obj, rb, w0, dataclasses.replace(cfg, max_iters=D_SHORT))
+    h0 = r0.history()
+    gap = histories_agree("TU (e) replicate 0 plain vs kernel",
+                          h0[:min(len(h0), D_SHORT + 1)], p0.history())
+    log(f"TU (e): bootstrap_glm, {TU_BOOT} Poisson replicates of D2's "
+        f"{D_ROWS} x {D_FEATURES} L1 OWL-QN solve (L1 {D_L1:g}, at most "
+        f"{D_ITERS} iterations, tolerance {cfg.tolerance:g}) in "
+        f"{boot_s:.3f} s ({boot_s / TU_BOOT:.3f} s a replicate); "
+        f"{int(rep.converged.sum())} of {TU_BOOT} converged; launches "
+        f"{launches}; CI width (95%) median "
+        f"{float(np.median(rep.ci_upper - rep.ci_lower)):.4g}; replicate 0 "
+        f"re-solved bit for bit, its first {D_SHORT} iterations within rtol "
+        f"1e-5 of the plain version's (max rel {gap:.3g})  [{gpu}]")
+
+
+def tu_driver(params_a: dict, root: str, dev, gpu) -> None:
+    """TU (d): DRV (a)'s Avro and parameters with ``tuning_iters=
+    TU_DRV_ITERS`` and ``tuning_batch=TU_DRV_BATCH`` over TU_DRV_RANGE (no
+    grid, no warm starts: the batches vectorize; the best model only;
+    cut: solves stopped at RE_CHECK_TOL) through `run_training`; each result's
+    validation score against the same configurations refitted by
+    `GameEstimator.fit(config_grid=...)` on the same data."""
+    import torch
+
+    from photon_tpu_torch import drivers as D
+    from photon_tpu_torch.game import estimator as GE
+
+    coords = {n: {**{k: v for k, v in c.items() if k != "reg_weights"},
+                  "tolerance": RE_CHECK_TOL}
+              for n, c in params_a["coordinates"].items()}
+    params = D.TrainingParams(**{
+        **params_a, "coordinates": coords, "output_mode": "BEST",
+        "output_dir": os.path.join(root, "train_tuned"),
+        "warm_start": False, "tuning_iters": TU_DRV_ITERS,
+        "tuning_batch": TU_DRV_BATCH, "tuning_range": TU_DRV_RANGE})
+    calls = []
+    real = GE.GameEstimator.fit
+
+    def spy(self, data, validation=None, config_grid=None,
+            initial_models=None):
+        calls.append((self, data, validation, config_grid))
+        return real(self, data, validation=validation,
+                    config_grid=config_grid, initial_models=initial_models)
+
+    GE.GameEstimator.fit = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = D.run_training(params, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        GE.GameEstimator.fit = real
+    if len(out.results) != TU_DRV_ITERS:
+        raise AssertionError(f"TU (d): {len(out.results)} results")
+    # the same calls again, each a GameEstimator.fit of its configurations
+    t0 = time.perf_counter()
+    refit = [r for est, data, validation, grid in calls
+             for r in est.fit(data, validation=validation,
+                              config_grid=grid)]
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    gap = max(abs(a.validation_score - b.validation_score)
+              for a, b in zip(out.results, refit))
+    if gap > 1e-6:
+        raise AssertionError(f"TU (d): validation scores part by {gap:.3g}")
+    best = {n: round(c.optimizer.reg_weight, 6)
+            for n, c in out.best.configs.items()}
+    log(f"TU (d): run_training with tuning_iters={TU_DRV_ITERS}, "
+        f"tuning_batch={TU_DRV_BATCH} on DRV (a)'s Avro: {len(out.results)} "
+        f"results in {run_s:.3f} s ({len(calls)} estimator fits of "
+        f"{[len(c[3]) for c in calls]} configs, vectorized "
+        f"{calls[0][0].would_vectorize(calls[0][3], data=calls[0][1])}), "
+        f"phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out.timings.items())
+        + f" s; best reg weights {best}, validation AUC "
+        f"{out.best.validation_score:.8g}; each result within {gap:.3g} of "
+        f"the same configuration refitted by GameEstimator.fit("
+        f"config_grid=...) ({refit_s:.3f} s)  [{gpu}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7452,6 +7989,8 @@ def main() -> int:
     phase_tf_fleet(args, dev, gpu)
     phase_tf_selftests(gpu)
     lap("TF (b), (c)")
+    phase_tu_tuner(args, dev, gpu)
+    lap("TU (a), (c)")
     state = phase_training(args, dev, gpu)
     kernels += phase_training_timings(state, gpu)
     phase_sparse_owlqn(state, dev, gpu)
@@ -7465,6 +8004,8 @@ def main() -> int:
     lap("G")
     e_launches = phase_validation(args, state, dev, gpu)
     lap("E")
+    phase_tu_lanes(args, state, dev, gpu)
+    lap("TU (b), (e)")
     t2 = {k: state[k] for k in ("coo", "hist_a", "w5_model", "owlqn",
                                 "solve_peak", "w40_model")}
     del state
@@ -7479,9 +8020,11 @@ def main() -> int:
     phase_dense_tron(state, dev, gpu)
     phase_dense_grid(state, dev, gpu)
     kernels.append(phase_dense_timings(state, gpu))
+    lap("D2-D5")
+    phase_tu_bootstrap(args, state, dev, gpu)
     del state
     torch.cuda.empty_cache()
-    lap("D2-D5")
+    lap("TU (e) bootstrap")
     gm, gs, gg = phase_game(args, dev, gpu)
     lap("CK (b)")
     gk = phase_game_kernels(args, dev, gpu)
@@ -7513,6 +8056,7 @@ def main() -> int:
         entry["mg_launches"] = mg.get(entry["name"], 0)
         entry["gmm_launches"] = GMM_LAUNCHES.get(entry["name"], 0)
         entry["tf_launches"] = TF_LAUNCHES.get(entry["name"], 0)
+        entry["tu_launches"] = TU_LAUNCHES.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

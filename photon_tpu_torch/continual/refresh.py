@@ -62,7 +62,7 @@ from photon_tpu_torch.game.random_effect import (RandomEffectCoordinate,
 from photon_tpu_torch.models.variance import VarianceComputationType
 from photon_tpu_torch.parallel.mesh import (check_mesh, compact_rows,
                                             pad_to_multiple)
-from photon_tpu_torch.telemetry.run import SignatureLog
+from photon_tpu_torch.telemetry.run import SignatureLog, float_drift
 
 # Fixed lane quantum of compacted refresh blocks: every touched count pads
 # to a multiple of this, so a bucket's solve shapes depend on its height,
@@ -89,17 +89,6 @@ class CoordinateRefreshStats:
     total_iterations: int
     n_converged: int
     n_failed: int
-
-
-def _float_drift(sig) -> list:
-    """The non-f32 floating dtypes in a recorded signature."""
-    if (isinstance(sig, tuple) and len(sig) == 2
-            and isinstance(sig[0], tuple) and isinstance(sig[1], str)):
-        dt = sig[1]
-        return [dt] if "float" in dt and dt != "torch.float32" else []
-    if isinstance(sig, tuple):
-        return [d for s in sig for d in _float_drift(s)]
-    return []
 
 
 @dataclasses.dataclass
@@ -130,7 +119,7 @@ class RefreshResult:
             raise AssertionError(
                 f"{len(sigs)} refresh solve signatures exceed the warmed "
                 f"baseline of {baseline}: the delta path took new shapes")
-        drift = sorted({d for s in sigs for d in _float_drift(s)})
+        drift = sorted({d for s in sigs for d in float_drift(s)})
         if drift:
             raise AssertionError(
                 f"dtype drift in refresh solve arguments: {drift}")

@@ -20,6 +20,9 @@ is reinterpreted bit for bit as ``torch.bfloat16``), enums by value.
 - `glm_from_arrays`: a trained GLM's coefficients (and variances).
 - `blocked_ell_from_arrays`: a `photon_tpu` BlockedEllRows ``X`` given as
   ``{f.name: getattr(X, f.name) for f in dataclasses.fields(X)}``.
+- `gp_from_arrays`: a fitted `photon_tpu.tuning` GaussianProcess ``gp``
+  given as ``{f.name: getattr(gp, f.name) for f in
+  dataclasses.fields(gp)}`` (arrays as numpy, scalars as floats).
 """
 from __future__ import annotations
 
@@ -107,3 +110,25 @@ def blocked_ell_from_arrays(fields: dict, device=None) -> BlockedEllRows:
            for k in ("dense", "row_pos", "perm_cols", "inv_perm")},
         **{k: int(fields[k]) for k in ("n_features", "n_prefix",
                                        "last_col_pos", "tail_nnz")})
+
+
+def gp_from_arrays(fields: dict, device=None):
+    """The port's `tuning.gp.GaussianProcess` on ``device`` (default
+    ``cuda``) from a reference GP's fields (see the module docstring):
+    the same posterior, every array f32 with its bits."""
+    from photon_tpu_torch.tuning.gp import GaussianProcess
+
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return None if a is None else host_tensor(
+            np.asarray(a, np.float32)).to(dev)
+
+    return GaussianProcess(
+        X=tensor(fields["X"]), y_mean=float(fields["y_mean"]),
+        y_std=float(fields["y_std"]), alpha=tensor(fields["alpha"]),
+        L=tensor(fields["L"]), amplitude=float(fields["amplitude"]),
+        inv_lengthscales=tensor(fields["inv_lengthscales"]),
+        noise=float(fields["noise"]),
+        kernel_name=str(fields.get("kernel_name", "matern52")),
+        mask=tensor(fields.get("mask")))

@@ -7,7 +7,10 @@ Here the same pipeline is a dataclass config + `run_training()`, with a JSON
 CLI.
 
 Hyperparameter search: the reference's grid mode maps to the cartesian
-product of each coordinate's `reg_weights`.
+product of each coordinate's `reg_weights`; its Bayesian search
+(HyperparameterTuner) to ``tuning_iters > 0``, which runs the GP tuner
+(`tuning.tune`) over the log reg weights of every regularized coordinate,
+each evaluation a `GameEstimator.fit` with validation, in any read regime.
 
 The port's copy of `photon_tpu/drivers/train.py`
 (``python -m photon_tpu_torch.drivers.train --config job.json``, on the
@@ -35,8 +38,7 @@ a process-wide `checkpoint` session over the train phase (relative paths
 land under ``output_dir``): the streamed solves and GAME's descent
 snapshot into it at the ``checkpoint_every_s`` / ``checkpoint_every_evals``
 cadence, and a rerun with the same params resumes from the last commit
-(``checkpoint_resume``). What is not ported raises naming its ROADMAP
-queue A item: ``tuning_iters`` (item 11).
+(``checkpoint_resume``).
 
 With ``mesh`` (a `parallel.mesh.Mesh`, in process or across processes)
 the data lands whole on the mesh's home device — the entity bucketing
@@ -225,8 +227,8 @@ class TrainingParams:
     # "AUC", "RMSE", "PRECISION@5", "SHARDED_AUC". Empty → the task's
     # default evaluator.
     evaluators: Sequence[str] = ()
-    # The reference's GP reg-weight tuner (tuning_iters > 0 raises: ROADMAP
-    # queue A item 11)
+    # Bayesian reg-weight search (reference: HyperparameterTuner): GP
+    # rounds over log reg weights of every regularized coordinate
     tuning_iters: int = 0
     tuning_range: tuple = (1e-4, 1e4)
     tuning_batch: int = 1
@@ -356,24 +358,13 @@ def _config_grid(coordinates: dict) -> Optional[list]:
     ]
 
 
-def _refuse_unported(params: TrainingParams, mesh) -> None:
-    """Raise for every option whose path is not ported, naming its ROADMAP
-    queue A item, before any data is read (and for a ``mesh`` that is not
-    one)."""
-    check_mesh(mesh)
-    if params.tuning_iters > 0:
-        raise NotImplementedError(
-            "tuning_iters > 0 (the GP reg-weight tuner, _tune) is not "
-            "ported yet (ROADMAP queue A item 11)")
-
-
 def run_training(params: TrainingParams, mesh=None,
                  device=None) -> TrainingOutput:
     """The full reference pipeline on ``device`` (default ``cuda``): read
     (in memory, streamed to the device, or the streamed objective) →
     validate → (summarize, normalize, down-sample) → train over the config
     grid → select best on validation → save."""
-    _refuse_unported(params, mesh)
+    check_mesh(mesh)
     dev = mesh.home if mesh is not None else resolve_device(device)
     on_mesh = ("" if mesh is None else
                f" (mesh of {mesh.n_slots} slots over "
@@ -604,7 +595,10 @@ def run_training(params: TrainingParams, mesh=None,
     n_resumed = 0
     try:
         with timers("train"):
-            if params.resume:
+            if params.tuning_iters > 0:
+                results = _tune(estimator, params, data, validation, log,
+                                initial_models, dev)
+            elif params.resume:
                 results, n_resumed = _fit_grid_resumable(
                     estimator, params, data, validation, initial_models,
                     index_maps, log, dev, streaming, streamed_obj)
@@ -1115,6 +1109,59 @@ def _fit_grid_resumable(estimator: GameEstimator, params: TrainingParams,
         log.info("resumed %d/%d grid points from %s", n_resumed,
                  len(grid), manifest_path)
     return results, n_resumed
+
+
+def _tune(estimator: GameEstimator, params: TrainingParams, data,
+          validation, log, initial_models=None, device=None) -> list:
+    """GP search over the log reg weights of every regularized coordinate
+    (reference: HyperparameterTuner driven by GameEstimator evaluations),
+    the GP on the run's device."""
+    from photon_tpu_torch.evaluation.evaluator import default_evaluator
+    from photon_tpu_torch.tuning import SearchRange, SearchSpace, tune
+
+    if validation is None:
+        raise ValueError("tuning_iters > 0 requires validation_path")
+    names = [n for n, s in params.coordinates.items()
+             if s.reg_type.lower() != "none"]
+    if not names:
+        raise ValueError("tuning requires at least one regularized coordinate")
+    evaluator = estimator.evaluator or default_evaluator(estimator.task)
+    lo, hi = params.tuning_range
+    space = SearchSpace([SearchRange(lo, hi, log_scale=True)] * len(names))
+    results: list = []
+
+    def evaluate_batch(X) -> list:
+        grid = [{n: params.coordinates[n].coordinate_config(w)
+                 for n, w in zip(names, x)} for x in np.atleast_2d(X)]
+        out = []
+        for r in estimator.fit(data, validation=validation, config_grid=grid,
+                               initial_models=initial_models):
+            results.append(r)
+            score = r.validation_score
+            # the tuner minimizes: flip metrics where higher is better
+            out.append(-score if evaluator.higher_is_better else score)
+        return out
+
+    batch = max(1, int(params.tuning_batch))
+    if batch > 1:
+        # the gate fit() itself applies, probed here so that a sequential
+        # "batched" tune says so
+        probe = [{n: params.coordinates[n].coordinate_config(w)
+                  for n in names} for w in (lo, hi)]
+        if not estimator.would_vectorize(probe, initial_models=initial_models,
+                                         data=data):
+            log.info(
+                "tuning_batch=%d requested but the reg grid would not "
+                "vectorize (warm starts, locked/incremental coordinates, "
+                "or an unsupported matrix layout); tuning point-at-a-time",
+                batch)
+            batch = 1
+    outcome = tune(None, space, n_iters=params.tuning_iters,
+                   seed=params.seed, batch_size=batch,
+                   evaluate_batch=evaluate_batch, device=device)
+    log.info("tuner best reg weights: %s -> %.6f",
+             dict(zip(names, outcome.best_x)), outcome.best_y)
+    return results
 
 
 def main(argv=None) -> None:

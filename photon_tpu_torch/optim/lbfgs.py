@@ -1,5 +1,6 @@
-"""Margin-cached L-BFGS (port of `two_loop`, `_push`, `_convergence` and
-`minimize_lbfgs_margin` of `photon_tpu/optim/lbfgs.py`).
+"""L-BFGS (port of `two_loop`, `_push`, `_convergence`, the generic
+`minimize_lbfgs` and the margin-cached `minimize_lbfgs_margin` of
+`photon_tpu/optim/lbfgs.py`).
 
 Reference parity: com.linkedin.photon.ml.optimization.LBFGS (Breeze's
 LBFGS): a circular (s, y) history of ``history`` pairs and a strong-Wolfe
@@ -17,6 +18,14 @@ immutable).
 With the telemetry tap armed (`telemetry.taps`), the loss, |g| and step
 ride in that same read-back and each iteration emits one event; with it
 off the solve reads back exactly the two flags.
+
+The generic `minimize_lbfgs` takes a ``value_and_grad`` closure (the
+tuner's GP marginal likelihood, differentiated by autograd): each
+line-search trial is one call of it, so its search stops at the trial
+that satisfies the Wolfe conditions (one read-back a trial, the
+reference's answer) rather than running its capped trials masked; an
+iteration costs its trials plus one call at the accepted point
+(`OptResult.evaluations`).
 """
 from __future__ import annotations
 
@@ -81,6 +90,82 @@ def _convergence(ok, f_old, f_new, gnorm, g0norm, dphi0, tolerance, dtype):
                                                        min=1.0)
     precision_limited = ~ok & (torch.abs(dphi0) <= noise)
     return grad_conv | f_conv | precision_limited
+
+
+def minimize_lbfgs(value_and_grad, w0: torch.Tensor, max_iters: int = 100,
+                   tolerance: float = 1e-7, history: int = 10,
+                   max_ls_evals: int = 12) -> OptResult:
+    """L-BFGS over a ``value_and_grad`` closure, w -> (f, g), with the
+    reference's history, line search and stop rules."""
+    w = w0 if w0.is_floating_point() else w0.float()
+    dtype, dev = w.dtype, w.device
+    d, m = w.shape[0], history
+    evals = 0
+
+    def evaluate(v):
+        nonlocal evals
+        evals += 1
+        return value_and_grad(v)
+
+    f, g = evaluate(w)
+    g0norm = torch.linalg.vector_norm(g)
+    hist = torch.full((max_iters + 1,), float("nan"), dtype=dtype,
+                      device=dev)
+    ghist = hist.clone()
+    hist[0] = f
+    ghist[0] = g0norm
+    S = torch.zeros((m, d), dtype=dtype, device=dev)
+    Y = torch.zeros((m, d), dtype=dtype, device=dev)
+    rho = torch.zeros((m,), dtype=dtype, device=dev)
+    sy = yy = torch.zeros((), dtype=dtype, device=dev)
+    idx = count = it = 0
+    converged = g0norm <= 1e-14
+    failed = torch.zeros((), dtype=torch.bool, device=dev)
+    done = bool(converged)  # sync
+
+    while not done and it < max_iters:
+        direction = -two_loop(g, S, Y, rho, idx, count, sy, yy)
+        dphi0 = torch.dot(direction, g)
+        bad_dir = dphi0 >= 0.0
+        direction = torch.where(bad_dir, -g, direction)
+        dphi0 = torch.where(bad_dir, -torch.dot(g, g), dphi0)
+
+        def phi(a, w=w, direction=direction):
+            fa, ga = evaluate(w + a * direction)
+            return fa, torch.dot(ga, direction)
+
+        a_init = (1.0 if count > 0 else
+                  1.0 / torch.clamp(torch.linalg.vector_norm(direction),
+                                    min=1.0))
+        alpha, _, ok = wolfe_line_search(phi, f, dphi0, a_init, max_ls_evals,
+                                         early_exit=True)
+
+        w_try = w + alpha * direction
+        f_try, g_try = evaluate(w_try)
+        # a failed search keeps the iterate and stops the solve
+        w_new = torch.where(ok, w_try, w)
+        f_new = torch.where(ok, f_try, f)
+        g_new = torch.where(ok, g_try, g)
+
+        s, y = w_new - w, g_new - g
+        sy_new, yy_new, keep = _curvature(s, y)
+        gnorm = torch.linalg.vector_norm(g_new)
+        converged = _convergence(ok, f, f_new, gnorm, g0norm, dphi0,
+                                 tolerance, dtype)
+        failed = failed | (~ok & ~converged)
+        it += 1
+        hist[it] = f_new
+        ghist[it] = gnorm
+        keep, done = torch.stack([keep, converged | ~ok]).tolist()  # sync
+        if keep:
+            idx, count = _push(S, Y, rho, idx, count, s, y, sy_new)
+            sy, yy = sy_new, yy_new
+        w, f, g = w_new, f_new, g_new
+
+    return OptResult(
+        w=w, value=f, grad_norm=torch.linalg.vector_norm(g), iterations=it,
+        converged=converged, failed=failed, loss_history=hist,
+        grad_norm_history=ghist, evaluations=evals)
 
 
 def minimize_lbfgs_margin(obj, batch, w0: torch.Tensor, max_iters: int = 100,

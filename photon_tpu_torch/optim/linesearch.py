@@ -6,7 +6,11 @@ The reference runs the bracket + zoom state machine in a bounded
 runs all ``max_evals`` steps and freezes the state once it is done, so the
 search never reads a value back to the host (the solver syncs once per
 outer iteration). The frozen steps evaluate φ at a trial point whose
-result is discarded; the answer is the reference's.
+result is discarded; the answer is the reference's. With ``early_exit``
+the search reads its done flag back after each step and stops there
+instead (the same answer): for a φ that costs a full evaluation of the
+objective (the generic L-BFGS's closures), one read-back a trial is
+cheaper than the frozen trials.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ def _cubic_min(a_lo, f_lo, d_lo, a_hi, f_hi, d_hi):
 
 
 def wolfe_line_search(phi: Callable, f0, dphi0, a_init=1.0,
-                      max_evals: int = 12):
+                      max_evals: int = 12, early_exit: bool = False):
     """``phi``: alpha -> (f, dphi) along the ray. Returns (alpha, f_alpha,
     ok) as 0-d tensors; alpha = 0 and ok = False on failure."""
     f0 = torch.as_tensor(f0)
@@ -111,5 +115,7 @@ def wolfe_line_search(phi: Callable, f0, dphi0, a_init=1.0,
                    d_hi=d_hi, a_star=a_star, f_star=f_star)
         live = ~s["done"]  # a finished search keeps its state
         s = {k: where(live, new[k], s[k]) for k in _FIELDS}
+        if early_exit and bool(s["done"]):  # sync: one a trial
+            break
     ok = s["done"] | (s["a_star"] > 0.0)
     return s["a_star"], s["f_star"], ok

@@ -1,6 +1,6 @@
-"""TRON, trust-region Newton with a Steihaug conjugate-gradient subproblem,
-over a cached margin (port of `_cg_step_geometry`, `_tr_update`,
-`_tr_stops`, `_cg_trust_margin` and `minimize_tron_margin` of
+"""TRON, trust-region Newton with a Steihaug conjugate-gradient subproblem
+(port of `_cg_step_geometry`, `_cg_trust`, `_tr_update`, `_tr_stops`, the
+generic `minimize_tron`, `_cg_trust_margin` and `minimize_tron_margin` of
 `photon_tpu/optim/tron.py`).
 
 Reference parity: com.linkedin.photon.ml.optimization.TRON (LIBLINEAR's
@@ -13,9 +13,9 @@ direction's X pass when it stops), as the L-BFGS loop reads once per
 iteration; the outer loop reads back whether the step was accepted (a
 rejected step pays no Xᵀr pass, as the reference's `lax.cond`) and then
 its done flag (with the telemetry tap armed, f, |g| and the trust radius
-ride in that read: `telemetry.taps`). The generic `minimize_tron` (a
-value_and_grad callable) is still to come with the GAME slice, which
-uses it.
+ride in that read: `telemetry.taps`). The generic `minimize_tron` takes
+a ``value_and_grad`` closure and an ``hvp_at(w, v)`` closure, and reads
+back the same flags.
 """
 from __future__ import annotations
 
@@ -81,6 +81,80 @@ def _tr_stops(accept, actual, pred, f_old, f_new, gnorm, g0norm, delta_new,
     precision_limited = ~accept & (pred <= noise)
     stuck = ~accept & (delta_new <= 1e-12)
     return grad_conv | f_conv | precision_limited, stuck
+
+
+def _cg_trust(hvp, g, delta, max_cg: int, tol_factor=0.1):
+    """Steihaug CG: approximately solve H p = -g subject to |p| <= delta.
+    Returns (p, HVPs made)."""
+    cg_tol = tol_factor * torch.linalg.vector_norm(g)
+    p = torch.zeros_like(g)
+    r = -g
+    dvec = r
+    rsq = torch.dot(r, r)
+    for it in range(max_cg):
+        Hd = hvp(dvec)
+        step, take_boundary = _cg_step_geometry(p, dvec, Hd, rsq, delta)
+        p = p + step * dvec
+        r = r - step * Hd
+        rsq_new = torch.dot(r, r)
+        small = torch.sqrt(rsq_new) <= cg_tol
+        dvec = r + rsq_new / torch.clamp(rsq, min=1e-20) * dvec
+        rsq = rsq_new
+        if it + 1 == max_cg or bool(take_boundary | small):  # sync
+            return p, it + 1
+    return p, 0
+
+
+def minimize_tron(value_and_grad, hvp_at, w0: torch.Tensor,
+                  max_iters: int = 100, tolerance: float = 1e-7,
+                  cg_max_iters: int = 20) -> OptResult:
+    """TRON over closures: ``value_and_grad(w) -> (f, g)`` and
+    ``hvp_at(w, v) -> H(w) v``, with the reference's trust-region rules.
+    Each iteration evaluates f and g once at the trial point and makes
+    the CG's HVPs plus one for the predicted reduction."""
+    w = w0 if w0.is_floating_point() else w0.float()
+    dtype, dev = w.dtype, w.device
+    f, g = value_and_grad(w)
+    evals = 1
+    g0norm = torch.linalg.vector_norm(g)
+    hist = torch.full((max_iters + 1,), float("nan"), dtype=dtype,
+                      device=dev)
+    ghist = hist.clone()
+    hist[0] = f
+    ghist[0] = g0norm
+    delta = torch.clamp(g0norm, min=1.0).to(dtype)
+    converged = g0norm <= 1e-14
+    failed = torch.zeros((), dtype=torch.bool, device=dev)
+    done = bool(converged)  # sync
+    it = hvps = 0
+
+    while not done and it < max_iters:
+        p, n_hv = _cg_trust(lambda v, w=w: hvp_at(w, v), g, delta,
+                            cg_max_iters)
+        Hp = hvp_at(w, p)
+        hvps += n_hv + 1
+        pred = -(torch.dot(g, p) + 0.5 * torch.dot(p, Hp))
+        f_try, g_try = value_and_grad(w + p)
+        evals += 1
+        accept, actual, delta_new = _tr_update(
+            f, f_try, pred, torch.linalg.vector_norm(p), delta)
+        w_new = torch.where(accept, w + p, w)
+        f_new = torch.where(accept, f_try, f)
+        g_new = torch.where(accept, g_try, g)
+        gnorm = torch.linalg.vector_norm(g_new)
+        converged, stuck = _tr_stops(accept, actual, pred, f, f_new, gnorm,
+                                     g0norm, delta_new, tolerance, dtype)
+        failed = failed | (stuck & ~converged)
+        it += 1
+        hist[it] = f_new
+        ghist[it] = gnorm
+        done = bool(converged | stuck)  # sync
+        w, f, g, delta = w_new, f_new, g_new, delta_new
+
+    return OptResult(
+        w=w, value=f, grad_norm=torch.linalg.vector_norm(g), iterations=it,
+        converged=converged, failed=failed, loss_history=hist,
+        grad_norm_history=ghist, evaluations=evals, hvps=hvps)
 
 
 def _cg_trust_margin(obj, w, z, batch, g, delta, max_cg: int,

@@ -481,7 +481,8 @@ def _map(fn, tree):
     raise TypeError(f"compact_rows: unsupported leaf {type(tree).__name__}")
 
 
-def compact_rows(tree, idx, pad_rows: int | None = None, mesh=None):
+def compact_rows(tree, idx, pad_rows: int | None = None, mesh=None,
+                 pad_mode: str = "zero"):
     """Gather leading-axis rows ``idx`` from every tensor of ``tree`` into
     a dense zero-padded ``(pad_rows, ...)`` block on the tensors' own
     device — the straggler repack and the continual refresh's compaction:
@@ -489,9 +490,15 @@ def compact_rows(tree, idx, pad_rows: int | None = None, mesh=None):
     small block padded to a fixed height. Zero-padded rows carry weight 0
     in every batch, so no reduction sees them. With ``mesh`` every leaf
     of the block is row-sharded over the mesh's slots (`SlotRows`; the
-    height must divide the slot count). The reference's
-    ``pad_mode="edge"`` waits for the tuner that uses it (ROADMAP queue
-    A item 11)."""
+    height must divide the slot count).
+
+    ``pad_mode="edge"`` repeats the LAST gathered row into the pad instead
+    of zeros, for lock-step lane consumers (the lane tuner's survivor
+    re-solve): a duplicate of a real lane converges as fast as its
+    original, where a zero lane could be the chunk's slowest."""
+    if pad_mode not in ("zero", "edge"):
+        raise ValueError(f"pad_mode must be 'zero' or 'edge', got "
+                         f"{pad_mode!r}")
     if not isinstance(idx, torch.Tensor):
         idx = torch.from_numpy(np.asarray(idx, np.int64).reshape(-1))
     idx = idx.long()
@@ -502,12 +509,16 @@ def compact_rows(tree, idx, pad_rows: int | None = None, mesh=None):
     if mesh is not None and target % mesh.n_slots:
         raise ValueError(f"{target} compacted rows do not divide the "
                          f"{mesh.n_slots}-slot mesh; pad to a multiple")
+    if n == 0 and target > 0 and pad_mode == "edge":
+        raise ValueError("pad_mode='edge' needs at least one gathered row")
 
     def take(x: torch.Tensor) -> torch.Tensor:
         g = x.index_select(0, idx.to(x.device))
         if target != n:
-            g = torch.cat([g, g.new_zeros((target - n,)
-                                          + tuple(g.shape[1:]))])
+            pad = (g[-1:].expand((target - n,) + tuple(g.shape[1:]))
+                   if pad_mode == "edge"
+                   else g.new_zeros((target - n,) + tuple(g.shape[1:])))
+            g = torch.cat([g, pad])
         return g if mesh is None else shard_rows(g, mesh, pad_rows=target)
 
     return _map(take, tree)

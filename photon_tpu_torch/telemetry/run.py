@@ -152,6 +152,18 @@ def signature(tree) -> tuple:
     return (type(tree).__name__,)
 
 
+def float_drift(sig) -> list:
+    """The floating dtypes other than f32 among the tensors and arrays of
+    a `signature` (the counterpart of the reference's weak-type check)."""
+    if isinstance(sig, tuple) and sig[:1] in (("tensor",), ("array",)):
+        dt = sig[2]
+        return [dt] if "float" in dt and dt not in ("torch.float32",
+                                                    "float32") else []
+    if isinstance(sig, tuple):
+        return [d for s in sig for d in float_drift(s)]
+    return []
+
+
 class SignatureLog:
     """Thread-safe record of the distinct argument signatures per program
     name (the port's counterpart of the reference's TraceSignatureLog):

@@ -282,8 +282,17 @@ def test_cli_flags_and_what_still_raises(job, tmp_path, capsys):
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         PD.run_training(params(PD, job, tmp_path / "m", streaming=True),
                         mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run(job, tmp_path / "r", streaming=True, tuning_iters=2)
+    # the reference tunes under every read regime: the streamed read's
+    # GP search picks and scores as the in-memory read's
+    tuned = [run(job, tmp_path / f"r{i}", streaming=streaming,
+                 tuning_iters=2)
+             for i, streaming in enumerate((True, False))]
+    assert len(tuned[0].results) == len(tuned[1].results) == 2
+    for a, b in zip(*(t.results for t in tuned)):
+        assert {n: c.optimizer.reg_weight for n, c in a.configs.items()} \
+            == {n: c.optimizer.reg_weight for n, c in b.configs.items()}
+        assert a.validation_score == pytest.approx(b.validation_score,
+                                                   abs=1e-6)
     with pytest.raises(ValueError, match="exclusively by fixed-effect"):
         run(job, tmp_path / "v", streamed_objective=True, coordinates={
             "perUser": COORDINATES["perUser"]})
