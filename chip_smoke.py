@@ -12,8 +12,9 @@ streamed solvers, GAME's descent and the training driver), its
 multi-GPU GLM training (the slot mesh in one process and in several) and
 GAME on the mesh (entity lanes over the slots, the mesh refresh, the
 driver and the GAME grid on a mesh), its run telemetry (JSONL runs, the
-solver taps, request tracing), its replica fleet on one GPU, and its
-Bayesian reg-weight tuners and model diagnostics.
+solver taps, request tracing), its replica fleet on one GPU, its
+Bayesian reg-weight tuners and model diagnostics, and its attribution
+ledger and self-test CLIs.
 
     python3 chip_smoke.py [--seed N] [--requests N]
 
@@ -314,17 +315,17 @@ MG. the slot mesh, after S (the multi-GPU GLM slice at T2's widths,
    against their plain versions as in (a); L-BFGS
    MG_ITERS_C iterations and OWL-QN T_SHORT against S's one-device
    histories (the same bounds), rows·iters/s against the link bound, the
-   stall share; (d) ``python -m photon_tpu_torch.parallel --selftest
-   --backend gloo --json`` as a subprocess on the card: exit 0 (one
-   digest and one ``local_only`` solve at 1, 2 and 4 processes, the
-   ingest split on every rank of 2 and 4, a 2-process snapshot restored
-   at 1 and 4 bit for bit, the commit kill loud); (c) that digest equal
-   to this process's mesh's, a line naming the backend, and (a)'s solve
-   cut to MG_ITERS_C iterations at 2 processes (each mapping its own
-   slots' shards from a ``_drv_mg*`` directory beside this script;
-   launched beside the selftest and (b)'s layout build, before any timed
-   solve) bit for bit equal to the in-process mesh's, with collectives,
-   reductions and wire bytes; with two cards
+   stall share; (d) PF (c)'s ``parallel`` suite (``python -m
+   photon_tpu_torch.parallel --selftest --backend gloo --json`` on the
+   card): one digest and one ``local_only`` solve at 1, 2 and 4
+   processes, the ingest split on every rank of 2 and 4, a 2-process
+   snapshot restored at 1 and 4 bit for bit, the commit kill loud; (c)
+   that digest equal to this process's mesh's, a line naming the
+   backend, and (a)'s solve cut to MG_ITERS_C iterations at 2 processes
+   (each mapping its own slots' shards from a ``_drv_mg*`` directory
+   beside this script; launched beside PF (c) and (b)'s layout build,
+   before any timed solve) bit for bit equal to the in-process mesh's,
+   with collectives, reductions and wire bytes; with two cards
    or more the same over NCCL, a card per rank. Every kernel and the
    native library are built (phase 0) before any child starts.
 CK. elastic runs (in-process kills: an injected fault, then a fresh
@@ -352,8 +353,8 @@ CK. elastic runs (in-process kills: an injected fault, then a fresh
    function of the model, are not recomputed: cut for MG's time); (c)
    inside DRV, after (a): DRV (a)'s `run_training` with a
    ``checkpoint_dir`` killed at its middle ``bucket_retire`` and rerun:
-   ``best_model/`` equals DRV (a)'s bit for bit; then ``python -m
-   photon_tpu_torch.checkpoint --selftest --json`` on the card exits 0;
+   ``best_model/`` equals DRV (a)'s bit for bit (the checkpoint
+   selftest runs once, as PF (c)'s ``checkpoint`` suite);
    (d) after T2(d): T2's resident L-BFGS (T_SHORT iterations) session-less,
    under an armed session with the tap off (the same launches, the same
    device ops — every aten operator the solve dispatches, counted by a
@@ -412,11 +413,10 @@ TF. the run telemetry spine and the replica fleet: (a) after CK (d):
    split into fleet_route / replica_dispatch / queue_wait / device_flush
    / retire_wait, and a kill at ``replica_dispatch`` and at
    ``rung_execute`` each ending in the owner's or another replica's
-   (degraded) answer; (c) ``python -m photon_tpu_torch.serving
-   --selftest --json`` and ``python -m photon_tpu_torch.telemetry
-   --selftest --json`` on the card, side by side, each exiting 0; (d)
-   MG (d)'s selftest includes ``cross_rank_aggregation`` (its 2-process
-   launch's rank files merged, the straggler named).
+   (degraded) answer; (c) the serving and telemetry selftests run once,
+   as PF (c)'s suites; the host cost of a span and a trace off and on;
+   (d) MG (d)'s selftest includes ``cross_rank_aggregation`` (its
+   2-process launch's rank files merged, the straggler named).
 TU. the tuners and the diagnostics: (a) after TF (c): bench.py's
    tuning_e2e (:1166-1240: 2^15 x 64 dense logistic, 24 iterations, 256
    configs in lane chunks of 64) through `tune_glm_reg_lanes` on the card
@@ -425,8 +425,8 @@ TU. the tuners and the diagnostics: (a) after TF (c): bench.py's
    `train_glm_grid` and its validation pass per point, 16 points), their
    ratio (the reference's acceptance: 8x), rounds, the round's modeled
    FLOPs, peak memory, and each round's GP fit on the card and on the
-   CPU; (c) ``python -m photon_tpu_torch.tuning --selftest --json`` on
-   the card beside (a), exiting 0; (b) after E: T2's layout (G's
+   CPU; (c) the tuning selftest runs once, as PF (c)'s suite; (b) after
+   E: T2's layout (G's
    configuration) through the lane tuner with E's held-out rows (cut:
    TU_T2_CONFIGS configs in chunks of TU_T2_CHUNK, 4 rounds; a 64-lane
    T2 state would need ~64 GB) — rows 2 and 4 launched, no plan build
@@ -446,6 +446,28 @@ TU. the tuners and the diagnostics: (a) after TF (c): bench.py's
    reg range whose batches vectorize; cut: solves stopped at
    RE_CHECK_TOL), each result's validation score within 1e-6 of the same
    configurations refitted by `GameEstimator.fit(config_grid=...)`.
+PF. the attribution ledger and the self-test CLIs: (a) after CK (a), on
+   S's ladder (T2 as 8 bf16 host chunks; cut: PF_ITERS L-BFGS
+   iterations, as MG (b) and CK (a)): PF_CALLS solves in turns disarmed,
+   armed, armed, disarmed, each under `utils.profiling.count_syncs`
+   (launches counted, reset just before the first armed solve and read
+   just after it) — every attribution entry's static FLOPs and bytes,
+   seconds and roofline share; for ``chunk_dz_phi`` and ``chunk_init``
+   the modeled bytes over (seconds · 3.35e12) beside rows 2 and 4's
+   device share of that pass (torch.profiler over one armed solve); the
+   first-call account (the kernel library's load, the plan); per-phase
+   device memory; held: the armed and disarmed coefficients equal bit
+   for bit and their sync counts equal, the armed wall against the
+   disarmed by median; (b) at the end: ``python -m
+   photon_tpu_torch.profiling --report --json`` at its defaults and
+   ``--selftest --json``, side by side, each exiting 0 with every
+   streamed entry's roofline share in (0, 1]; (c) started where MG
+   begins, beside its host layout builds and (c)'s 2-process solve, and
+   waited for before MG's timed solves: ``python -m photon_tpu_torch
+   --selfcheck --json --jobs PF_JOBS`` — every ported suite (telemetry,
+   serving, checkpoint, profiling, game, continual, ingest, kernels,
+   tuning, parallel) exiting 0 on the card, with its seconds, and
+   ``analysis``, ``lint`` and ``threads`` named as pending.
 
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
@@ -462,7 +484,8 @@ tapped solve under ``ck_launches``, in MG (a)'s mesh solve under
 ``mg_launches``, and in GMM's legs — (b)'s mesh fit, (d)'s two
 processes, the rung after (c)'s swap — under ``gmm_launches``, and in
 TF's (a) armed solve, (b)'s fleet legs and kills under ``tf_launches``,
-and in TU's (b) tune and (e) bootstrap under ``tu_launches``),
+and in TU's (b) tune and (e) bootstrap under ``tu_launches``, and in
+PF (a)'s first armed solve under ``pf_launches``),
 the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -587,6 +610,14 @@ CR_BUDGET_CHECK = 2
 # cadence of about CK_SNAPSHOTS snapshots a run; every snapshot directory
 # keeps CK_KEEP (about 1 GB at T2's widths)
 CK_ITERS, CK_SNAPSHOTS, CK_KEEP = 10, 3, 2
+# phase PF: (a)'s ladder solve cut to PF_ITERS iterations (as MG (b) and
+# CK (a)), PF_CALLS solves in turns disarmed, armed, armed, disarmed;
+# (c)'s umbrella runs PF_JOBS suites at a time; the card's HBM rate that
+# (a)'s bytes divide by (the kernel bounds' pair, PERF.md §6)
+PF_ITERS, PF_CALLS, PF_JOBS, PF_HBM_BYTES_PER_S = 10, 4, 3, 3.35e12
+# PF (a)'s kernel launches, its first armed solve's (reset just before it
+# and read just after)
+PF_LAUNCHES: dict = {}
 # phase MG: the in-process mesh's slots (T2's rows split eight ways), and
 # the iterations of (a)'s solve repeated across processes and of (b)'s
 # streamed L-BFGS
@@ -2973,6 +3004,8 @@ def phase_streamed(args, t2: dict, dev, gpu) -> dict:
     phase_ck_streamed(cb, res_b, cfg_b,
                       int(tele_b["solver.feature_streams"]), dev, gpu)
     lap("CK (a)")
+    phase_pf_ledger(cb, dev, gpu)
+    lap("PF (a)")
     del cb, model, model_b
     torch.cuda.empty_cache()
 
@@ -3067,9 +3100,10 @@ def psum_ms(mesh, d: int, dev, n: int = 20) -> float:
 def phase_mesh(t2: dict, s_ref: dict, dev, gpu) -> dict:
     """MG: (a) T2's L-BFGS on an in-process 8-slot mesh (every slot on
     the visible cards) against T2 (a); (b) S's ladder as mesh chunks
-    (L-BFGS, OWL-QN) against S; (d) the parallel selftest subprocess
-    (gloo on the card), whose digests at 1, 2 and 4 processes (c) holds
-    against this process's mesh; (c) (a)'s solve cut to MG_ITERS_C
+    (L-BFGS, OWL-QN) against S; (d) PF (c)'s umbrella selfcheck, whose
+    parallel suite (gloo on the card) gives the digests at 1, 2 and 4
+    processes that (c) holds against this process's mesh; (c) (a)'s
+    solve cut to MG_ITERS_C
     iterations at 2 processes from a saved sharded batch, bit for bit
     against the in-process mesh; NCCL legs with two cards or more.
     Returns the kernels' launches in (a)'s main-path solve."""
@@ -3078,29 +3112,30 @@ def phase_mesh(t2: dict, s_ref: dict, dev, gpu) -> dict:
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    # (d) runs beside the host layout builds below (its spawned processes
-    # on the card, the builds numpy on this host), and so do (c)'s
-    # multi-process solves once their shards are saved; both are waited
-    # for before any timed solve
-    selftest = subprocess.Popen(
-        [sys.executable, "-m", "photon_tpu_torch.parallel", "--selftest",
-         "--backend", "gloo", "--json"], cwd=here, stdout=subprocess.PIPE,
+    # PF (c)'s umbrella (the parallel suite among its ten) runs beside the
+    # host layout builds below (its spawned processes on the card, the
+    # builds numpy on this host), and so do (c)'s multi-process solves
+    # once their shards are saved; both are waited for before any timed
+    # solve
+    selfcheck = subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch", "--selfcheck", "--json",
+         "--jobs", str(PF_JOBS)], cwd=here, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     root = tempfile.mkdtemp(prefix="_drv_mg", dir=here)
     threads: list = []
     try:
-        return _phase_mesh(t2, s_ref, dev, gpu, selftest, t_phase, root,
+        return _phase_mesh(t2, s_ref, dev, gpu, selfcheck, t_phase, root,
                            threads)
     finally:
-        if selftest.poll() is None:
-            selftest.kill()
-            selftest.wait()
+        if selfcheck.poll() is None:
+            selfcheck.kill()
+            selfcheck.wait()
         for t in threads:
             t.join()
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selftest, t_phase: float,
+def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selfcheck, t_phase: float,
                 root: str, threads: list) -> dict:
     import threading
 
@@ -3129,7 +3164,7 @@ def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selftest, t_phase: float,
     sb = cast_features(shard_blocked_ell_batch(host, MG_SLOTS, T_DENSE))
     build_s = time.perf_counter() - t0
     # (c)'s multi-process solves start here, from the saved shards, beside
-    # the selftest and (b)'s host layout build; they are waited for before
+    # PF (c) and (b)'s host layout build; they are waited for before
     # any timed solve, and checked against (a)'s in-process mesh below
     t0 = time.perf_counter()
     sc.save_sharded_batch(sb, root)
@@ -3159,8 +3194,9 @@ def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selftest, t_phase: float,
     cbm = chunk_blocked_ell(host, S_CHUNK, T_DENSE,
                             feature_dtype=torch.bfloat16, n_shards=MG_SLOTS)
     lad_s = time.perf_counter() - t0
-    out, err = selftest.communicate(timeout=900)
+    out, err = selfcheck.communicate(timeout=900)
     st_s = time.perf_counter() - t_phase
+    report = pf_selfcheck(selfcheck.returncode, out, err, st_s, gpu)
     legs_c.join()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
@@ -3299,14 +3335,10 @@ def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selftest, t_phase: float,
     del cbm
     torch.cuda.empty_cache()
 
-    # (d) the selftest subprocess on the card (gloo: one card, 4 ranks)
-    report = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
-    if selftest.returncode != 0 or not report.get("ok"):
-        raise AssertionError(f"MG (d): selftest exit {selftest.returncode}: "
-                             f"{out[-3000:]} {err[-3000:]}")
-    log(f"MG (d): python -m photon_tpu_torch.parallel --selftest --backend "
-        f"gloo on the card (run beside (a)'s and (b)'s host layout "
-        f"builds): exit 0 in {st_s:.1f} s; digest "
+    # (d) PF (c)'s parallel suite on the card (gloo: one card, 4 ranks)
+    log(f"MG (d): PF (c)'s parallel suite (python -m "
+        f"photon_tpu_torch.parallel --selftest --backend gloo on the card, "
+        f"beside (a)'s and (b)'s host layout builds): digest "
         f"{report['digest']}; the local_only solve at 1, 2 and 4 processes "
         f"bit for bit equal to the selftest's in-process mesh "
         f"({report['checks']['local_only_solve_bit_identical']['detail']}), "
@@ -3357,8 +3389,8 @@ def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selftest, t_phase: float,
             f"collectives for {r0['reductions']} reductions (one each), "
             f"{r0['wire_bytes']:.6g} bytes on the wire from rank 0 "
             f"({(T_FEATURES + 1) * 4 * (n - 1):.6g} a value-and-gradient "
-            f"reduction); launch + load + solve {l_s:.1f} s, beside the "
-            f"selftest and (b)'s layout build  [{gpu}]")
+            f"reduction); launch + load + solve {l_s:.1f} s, beside PF "
+            f"(c) and (b)'s layout build  [{gpu}]")
     del sb, host
     torch.cuda.empty_cache()
     log(f"MG: {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
@@ -6908,8 +6940,8 @@ def phase_ck_driver(root: str, params: dict, out, retires: int, dev,
     """CK (c): DRV (a)'s `run_training` again with ``checkpoint_dir``
     (every evaluation, the async writer), killed at its middle
     ``bucket_retire`` and rerun with the same params: ``best_model/``
-    equals DRV (a)'s uncheckpointed one bit for bit; then the
-    checkpoint selftest as a subprocess on the card."""
+    equals DRV (a)'s uncheckpointed one bit for bit (the checkpoint
+    selftest runs in PF (c))."""
     import torch
 
     from photon_tpu_torch import checkpoint, telemetry
@@ -6959,20 +6991,6 @@ def phase_ck_driver(root: str, params: dict, out, retires: int, dev,
         f"{int(c.get('checkpoint.descent_restores', 0))}, re_restores "
         f"{int(c.get('checkpoint.re_restores', 0))}; best_model/ equals "
         f"DRV (a)'s bit for bit  [{gpu}]")
-    here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "photon_tpu_torch.checkpoint", "--selftest",
-         "--json"], cwd=here, capture_output=True, text=True, timeout=600)
-    report = (json.loads(proc.stdout.strip().splitlines()[-1])
-              if proc.stdout.strip() else {})
-    if proc.returncode != 0 or not report.get("ok"):
-        raise AssertionError(f"CK (c): the selftest failed (rc "
-                             f"{proc.returncode}): {proc.stdout[-2000:]} "
-                             f"{proc.stderr[-2000:]}")
-    log(f"CK (c): python -m photon_tpu_torch.checkpoint --selftest --json "
-        f"exit 0 in {time.perf_counter() - t0:.1f} s on "
-        f"{report['device']}: {sorted(report['checks'])}")
     log(f"CK (c): {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
 
 
@@ -7431,43 +7449,6 @@ def tf_overheads(gpu, n: int = 20_000) -> dict:
     return out
 
 
-def phase_tf_selftests(gpu) -> None:
-    """TF (c): ``python -m photon_tpu_torch.serving --selftest --json`` and
-    ``python -m photon_tpu_torch.telemetry --selftest --json`` on the
-    card, side by side; each must exit 0."""
-    t0 = time.perf_counter()
-    procs = {mod: subprocess.Popen(
-        [sys.executable, "-m", f"photon_tpu_torch.{mod}", "--selftest",
-         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for mod in ("serving", "telemetry")}
-    outs = {}
-    try:
-        for mod, p in procs.items():
-            outs[mod] = p.communicate(timeout=600)
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for mod, p in procs.items():
-        out, err = outs[mod]
-        report = json.loads(out.strip().splitlines()[-1]) \
-            if out.strip() else {}
-        if p.returncode != 0 or not report.get("ok"):
-            raise AssertionError(f"TF (c): {mod} selftest exit "
-                                 f"{p.returncode}: {out[-3000:]} "
-                                 f"{err[-3000:]}")
-        extra = {"serving": lambda r: f"int8 launches "
-                 f"{r['int8_launches']}, fleet latency {r['fleet_latency']}",
-                 "telemetry": lambda r: f"resident tap {r['resident_tap']}, "
-                 f"tracing launches {r['serving_trace']}"}[mod](report)
-        log(f"TF (c): python -m photon_tpu_torch.{mod} --selftest on the "
-            f"card: exit 0, {len(report['checks'])} checks ok; {extra}")
-    log(f"TF (c): both selftests in {time.perf_counter() - t0:.1f} s  "
-        f"[{gpu}]")
-    tf_overheads(gpu)
-
-
 # ------------------------------------------------- phase TU: the tuners
 def tu_count(launches: dict) -> None:
     for name, n in launches.items():
@@ -7493,43 +7474,12 @@ def tu_problem(seed: int, dev):
     return draw(TU_ROWS, seed + 1), draw(TU_ROWS // 4, seed + 2)
 
 
-def tu_selftest_start():
-    """TU (c): ``python -m photon_tpu_torch.tuning --selftest --json`` on
-    the card, started beside TU (a)."""
-    return time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-m", "photon_tpu_torch.tuning", "--selftest",
-         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
-
-
-def tu_selftest_finish(started, gpu) -> None:
-    t0, p = started
-    try:
-        out, err = p.communicate(timeout=600)
-    finally:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-    report = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
-    if p.returncode != 0 or not report.get("ok"):
-        raise AssertionError(f"TU (c): tuning selftest exit {p.returncode}: "
-                             f"{out[-3000:]} {err[-3000:]}")
-    checks = report["checks"]
-    log(f"TU (c): python -m photon_tpu_torch.tuning --selftest on the card: "
-        f"exit 0 in {time.perf_counter() - t0:.1f} s (beside (a)'s warm "
-        f"tune), "
-        f"{len(checks)} checks ok ({', '.join(checks)}); best reg weight "
-        f"{checks['lane_tune']['best_w']:.6g}, best_y "
-        f"{checks['lane_tune']['best_y']:.6g}; round flops "
-        f"{checks['cost_budget']['round_flops']:.6g}  [{gpu}]")
-
-
 def phase_tu_tuner(args, dev, gpu) -> None:
     """TU (a): bench.py's tuning_e2e on the card — the lane tuner over
     TU_CONFIGS configs in chunks of TU_CHUNK (a warm tune, then a timed
     one with no new dispatch signature) against the point-at-a-time loop
     on TU_SEQ_SAMPLE points, and the GP fit of each round's history on
-    the card and on the CPU; (c) the tuning selftest beside it."""
+    the card and on the CPU (the tuning selftest runs in PF (c))."""
     import torch
 
     from photon_tpu_torch.evaluation.evaluator import default_evaluator
@@ -7543,7 +7493,6 @@ def phase_tu_tuner(args, dev, gpu) -> None:
                                                     tune_glm_reg_lanes)
     from photon_tpu_torch.tuning.search import SearchRange, SearchSpace
 
-    selftest = tu_selftest_start()
     train, val = tu_problem(args.seed, dev)
     task = TaskType.LOGISTIC_REGRESSION
     cfg = OptimizerConfig(max_iters=TU_ITERS, reg=l2(), history=5)
@@ -7553,8 +7502,6 @@ def phase_tu_tuner(args, dev, gpu) -> None:
                        lane_chunk=TU_CHUNK, seed=7)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    # the selftest shares the card and the host with the warm tune only
-    tu_selftest_finish(selftest, gpu)
     base = LaneTuningResult.signature_count()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -7957,6 +7904,227 @@ def tu_driver(params_a: dict, root: str, dev, gpu) -> None:
         f"config_grid=...) ({refit_s:.3f} s)  [{gpu}]")
 
 
+# --------------------------------- phase PF: the ledger and the self-tests
+def pf_selfcheck(rc: int, out: str, err: str, seconds: float,
+                 gpu) -> dict:
+    """PF (c): the umbrella's JSON — every ported suite ok on the card,
+    each line with its seconds and the facts its report carries, the
+    pending suites named; returns the parallel suite's report (MG (c) and
+    (d) read it)."""
+    lines = out.strip().splitlines()
+    umb = json.loads(lines[-1]) if lines else {}
+    suites = umb.get("suites", {})
+    want = ["parallel", "telemetry", "serving", "checkpoint", "profiling",
+            "game", "continual", "ingest", "kernels", "tuning"]
+    if (rc != 0 or not umb.get("ok") or sorted(suites) != sorted(want)
+            or umb.get("pending") != ["analysis", "lint", "threads"]):
+        raise AssertionError(f"PF (c): selfcheck exit {rc}: "
+                             f"{out[-4000:]} {err[-3000:]}")
+    reports = {name: json.loads(r["detail"]) for name, r in suites.items()}
+    for name in want:
+        rep = reports[name]
+        checks = rep.get("checks", {})
+        if not rep.get("ok"):
+            raise AssertionError(f"PF (c): {name} report not ok: {rep}")
+        facts = {
+            "serving": lambda r: f"; int8 launches {r['int8_launches']}, "
+            f"fleet latency {r['fleet_latency']}",
+            "telemetry": lambda r: f"; resident tap {r['resident_tap']}, "
+            f"tracing launches {r['serving_trace']}",
+            "tuning": lambda r: "; best reg weight "
+            f"{r['checks']['lane_tune']['best_w']:.6g}, round flops "
+            f"{r['checks']['cost_budget']['round_flops']:.6g}",
+            "kernels": lambda r: "; parity max |err| "
+            f"{r['checks']['parity']['max_err']:.3g}, fused == tiled "
+            f"{r['checks']['parity']['fused_tiled_bitwise']}, streamed "
+            f"gap {r['checks']['streamed']['max_rel_gap']:.3g} with "
+            f"launches {r['checks']['streamed']['launches']}, ring plans "
+            f"{r['checks']['ring']['plan_builds']}",
+            "continual": lambda r: "; int8 after the swap within "
+            f"{r['checks']['swap']['int8_max_gap']:.3g}, row 1 launches "
+            f"{r['checks']['swap']['int8_launches']}",
+            "game": lambda r: "; blocked-ELL mesh launches "
+            f"{r['checks']['blocked_ell_mesh_smoke']['launches']}",
+            "profiling": lambda r: "; streamed utilizations "
+            f"{r['checks']['utilization_in_unit_interval']['utilization']}"
+            f" ({r['checks']['utilization_in_unit_interval']['peaks_source']})"
+            f", ledger free {r['checks']['ledger_off_is_free']}",
+        }.get(name, lambda r: "")(rep)
+        log(f"PF (c): {name} suite exit 0 in {suites[name]['seconds']} s, "
+            f"{len(checks)} checks ok ({', '.join(checks)}){facts}")
+    log(f"PF (c): python -m photon_tpu_torch --selfcheck --json --jobs "
+        f"{PF_JOBS}: {len(want)}/{len(want)} ported suites ok in "
+        f"{seconds:.1f} s (beside MG's host layout builds and (c)'s "
+        f"2-process solve); pending, not run and not counted: "
+        f"{', '.join(umb['pending'])}  [{gpu}]")
+    return reports["parallel"]
+
+
+def phase_pf_ledger(cb, dev, gpu) -> None:
+    """PF (a): the attribution ledger armed on S's ladder solve (cut to
+    PF_ITERS iterations): PF_CALLS solves in turns disarmed, armed,
+    armed, disarmed under `count_syncs`; the first armed solve's report
+    (launches counted around it); rows 2 and 4's device share of its
+    passes from one more armed solve under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import profiling
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.models.training import train_glm
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+    from photon_tpu_torch.utils.profiling import count_syncs
+
+    cfg = OptimizerConfig(max_iters=PF_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+    # one counted solve first, its count dropped: a first solve's one-time
+    # syncs (the sync debug mode's own, a new shape's plan) land in no leg
+    with count_syncs(dev):
+        train_glm(cb, TaskType.LOGISTIC_REGRESSION, cfg, device=dev)
+    runs, rep = [], None
+    for armed in (False, True, True, False)[:PF_CALLS]:
+        first = armed and rep is None
+        ctx = (profiling.ledger("pf", devices=dev) if armed
+               else profiling.ledger_disabled())
+        torch.cuda.synchronize()
+        if first:
+            K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ctx as led, count_syncs(dev) as syncs:
+            if armed:
+                led.sample_hbm("start")
+            model, res = train_glm(cb, TaskType.LOGISTIC_REGRESSION, cfg,
+                                   device=dev)
+            if armed:
+                led.sample_hbm("solve")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if first:
+            PF_LAUNCHES.update(K.launch_counts())
+            rep = led.report()
+        runs.append((armed, model.coefficients.means, syncs["n"], wall,
+                     res.iterations))
+    w0 = runs[0][1]
+    if not all(torch.equal(w0, r[1]) for r in runs):
+        raise AssertionError("PF (a): armed and disarmed coefficients "
+                             "differ")
+    if len({r[2] for r in runs}) != 1:
+        raise AssertionError(f"PF (a): syncs armed and disarmed "
+                             f"{[(r[0], r[2]) for r in runs]}")
+    for name in (KB.TAIL, KB.RMATVEC):
+        if PF_LAUNCHES.get(name, 0) == 0:
+            raise AssertionError(f"PF (a): {name} never launched "
+                                 f"({PF_LAUNCHES})")
+    off = [r[3] for r in runs if not r[0]]
+    on = [r[3] for r in runs if r[0]]
+    it = runs[0][4]
+    # one more armed solve under the profiler: rows 2 and 4 device us a
+    # launch
+    with profiling.ledger("pf_profiled", devices=dev), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solve_timed(cb, cfg, dev)
+    dev_us = {KB.TAIL: [], KB.RMATVEC: []}
+    for name, us in device_events(prof):
+        if "bell_tail_matvec_kernel" in name:
+            dev_us[KB.TAIL].append(us)
+        elif "bell_bucket_rmatvec_kernel" in name:
+            dev_us[KB.RMATVEC].append(us)
+    per = {k: (sum(v) / len(v) / 1e6 if v else 0.0)
+           for k, v in dev_us.items()}
+    entries = rep["attribution"]
+    log(f"PF (a): S's ladder ({cb.n_chunks} bf16 chunks of "
+        f"{cb.X.chunk_rows} rows, {it} L-BFGS iterations) under the "
+        f"ledger: peaks {rep['peaks']} from {rep['peaks_source']}; "
+        f"{len(entries)} attribution entries  [{gpu}]")
+    for e in entries:
+        util = e.get("utilization")
+        log(f"PF (a):   {e['program']} [{e['phase']}]: {e['calls']} calls, "
+            f"{e['seconds']:.6f} s"
+            + ("" if "flops_modeled" not in e else
+               f", modeled {e['flops_modeled']:.6g} FLOP / "
+               f"{e['bytes_modeled']:.6g} B, "
+               f"{e['achieved_bytes_per_s']:.6g} B/s, utilization "
+               f"{util:.6g} ({e['bound']}-bound)"))
+    by = {(e["program"], e["phase"]): e for e in entries}
+    for prog, phase, rows in (("chunk_dz_phi", "lbfgs/direction",
+                               (KB.TAIL,)),
+                              ("chunk_init", "lbfgs/init",
+                               (KB.TAIL, KB.RMATVEC))):
+        e = by.get(("streamed." + prog, phase))
+        if e is None:
+            raise AssertionError(f"PF (a): no {prog} [{phase}] entry")
+        call_s = e["seconds"] / e["calls"]
+        raw = e["bytes_modeled"] / (e["seconds"] * PF_HBM_BYTES_PER_S)
+        kern_s = sum(per[k] for k in rows)
+        log(f"PF (a): {prog} [{phase}]: modeled bytes / (seconds x "
+            f"{PF_HBM_BYTES_PER_S:.3g} B/s) = {raw:.6g}; rows "
+            f"{'+'.join(rows)} device {kern_s * 1e3:.4f} ms a chunk of "
+            f"{call_s * 1e3:.4f} ms a chunk call: {kern_s / call_s:.4g} of "
+            f"the pass  [{gpu}]")
+    progs = rep["programs"]
+    log(f"PF (a): first calls: "
+        + "; ".join(f"{n}: load {p.get('compile_s', 0.0):.6f} s, plan "
+                    f"{p.get('plan_s', 0.0):.6f} s, {p['retraces']} "
+                    f"signature(s)" for n, p in progs.items())
+        + f"; account {rep['compile']}; device memory {rep['hbm']}  "
+        f"[{gpu}]")
+    log(f"PF (a): {len(runs)} solves in turns disarmed/armed: coefficients "
+        f"equal bit for bit; syncs {runs[0][2]} each (count_syncs); wall "
+        f"disarmed {[round(x, 4) for x in off]} s, armed "
+        f"{[round(x, 4) for x in on]} s, armed/disarmed by median "
+        f"{float(np.median(on)) / float(np.median(off)):.4f}; launches "
+        f"{PF_LAUNCHES}  [{gpu}]")
+
+
+def phase_pf_clis(gpu) -> None:
+    """PF (b): ``python -m photon_tpu_torch.profiling --report --json`` at
+    its defaults and ``--selftest --json`` on the card, side by side."""
+    t0 = time.perf_counter()
+    procs = {flag: subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch.profiling", flag,
+         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for flag in ("--report", "--selftest")}
+    outs = {}
+    try:
+        for flag, p in procs.items():
+            outs[flag] = p.communicate(timeout=600)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for flag, p in procs.items():
+        out, err = outs[flag]
+        if p.returncode != 0 or not out.strip():
+            raise AssertionError(f"PF (b): profiling {flag} exit "
+                                 f"{p.returncode}: {out[-3000:]} "
+                                 f"{err[-3000:]}")
+    report = json.loads(outs["--report"][0].strip().splitlines()[-1])
+    led = report["ledger"]
+    streamed = [e for e in led["attribution"]
+                if e["program"].startswith("streamed.")]
+    if not streamed or not all(
+            e.get("utilization") is not None
+            and 0.0 < e["utilization"] <= 1.0 for e in streamed):
+        raise AssertionError(f"PF (b): report's streamed entries {streamed}")
+    log(f"PF (b): python -m photon_tpu_torch.profiling --report --json on "
+        f"{report['device']} (peaks from {led['peaks_source']}): "
+        + "; ".join(f"{e['program']} [{e['phase']}] {e['calls']} calls "
+                    f"{e['seconds']:.6f} s, utilization "
+                    f"{e['utilization']:.6g}" for e in streamed)
+        + f"; no gate (no --bench-dir)  [{gpu}]")
+    st = json.loads(outs["--selftest"][0].strip().splitlines()[-1])
+    if not st.get("ok"):
+        raise AssertionError(f"PF (b): profiling selftest {st}")
+    log(f"PF (b): python -m photon_tpu_torch.profiling --selftest: "
+        f"{len(st['checks'])} checks ok ({', '.join(st['checks'])}); "
+        f"ledger free {st['checks']['ledger_off_is_free']}; both in "
+        f"{time.perf_counter() - t0:.1f} s  [{gpu}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7987,7 +8155,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("serving")
     phase_tf_fleet(args, dev, gpu)
-    phase_tf_selftests(gpu)
+    tf_overheads(gpu)
     lap("TF (b), (c)")
     phase_tu_tuner(args, dev, gpu)
     lap("TU (a), (c)")
@@ -8040,6 +8208,8 @@ def main() -> int:
     lap("DRV-S (b)-(d)")
     _, cr = phase_continual(args, dev, gpu)
     lap("CR")
+    phase_pf_clis(gpu)
+    lap("PF (b)")
     log(f"phase seconds: {json.dumps(LAPS)}; {sum(LAPS.values()):.1f} s "
         f"in all  [{gpu}]")
     for entry in kernels:
@@ -8057,6 +8227,7 @@ def main() -> int:
         entry["gmm_launches"] = GMM_LAUNCHES.get(entry["name"], 0)
         entry["tf_launches"] = TF_LAUNCHES.get(entry["name"], 0)
         entry["tu_launches"] = TU_LAUNCHES.get(entry["name"], 0)
+        entry["pf_launches"] = PF_LAUNCHES.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,8 @@ Counters (`telemetry`): ``continual.plans``, ``touched_entities``,
 ``deferred_new_keys``, ``touched_buckets``, ``skipped_buckets``,
 ``refresh_solves``, ``refresh_iterations``, ``refreshes``,
 ``probe_entities``, ``swap_refusals``; the gauge ``staleness_s``; the
-cutover counts on ``serving.hot_swaps``. The reference's ``--selftest``
-CLI waits with the other self-test CLIs (ROADMAP queue A item 11).
+cutover counts on ``serving.hot_swaps``. Selftest: ``python -m
+photon_tpu_torch.continual --selftest [--device cpu]``.
 """
 from __future__ import annotations
 

@@ -43,7 +43,7 @@ scatters touched rows); entities new to the drop are deferred
 (`CoordinatePlan.new_keys`) — the previous entity space is the serving
 hot-swap's shape contract. The reference's jaxpr contracts on this path
 (``continual_re_refresh_solve``, ``continual_refresh_no_retrace``) wait
-for the port of `analysis/` (ROADMAP queue A item 11).
+for the port of `analysis/` (ROADMAP queue A item 11.9).
 """
 from __future__ import annotations
 

@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from photon_tpu_torch import telemetry
+from photon_tpu_torch import profiling, telemetry
 from photon_tpu_torch.checkpoint.faults import kill_point
 from photon_tpu_torch.data.matrix import (BlockedEllRows,
                                           ShardedBlockedEllRows, SparseRows,
@@ -685,13 +685,16 @@ class DeviceChunkRing:
 
 def _pass_done(ctl, ok: bool, stall: float, compute: float, n: int,
                depth: int, chunk_nbytes: int) -> None:
-    """A ring pass's counters, its controller's `observe` (a whole pass
-    only) and the stall log line."""
+    """A ring pass's counters, its attribution to an armed `profiling`
+    ledger (``ingest.upload`` the stall, ``solve.compute`` the rest), its
+    controller's `observe` (a whole pass only) and the stall log line."""
     telemetry.count("stream.passes")
     telemetry.count("stream.chunk_uploads", n)
     telemetry.count("stream.stall_seconds", stall)
     telemetry.count("stream.compute_seconds", max(compute, 0.0))
     telemetry.gauge("stream.prefetch_depth", depth)
+    profiling.attribute("ingest.upload", "upload", max(stall, 0.0))
+    profiling.attribute("solve.compute", "compute", max(compute, 0.0))
     if ok and ctl is not None:
         ctl.observe(stall, max(compute, 0.0), n, chunk_nbytes)
     _log_stream_stall(stall, compute, n, depth)

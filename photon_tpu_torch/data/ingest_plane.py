@@ -34,7 +34,9 @@ pieces:
 The phases' wall seconds are `telemetry` counters: ``ingest.decode_seconds``
 (in-process decode, and the wait for a worker's chunk),
 ``ingest.cache_open_seconds``, ``ingest.cache_read_seconds``,
-``ingest.cache_commit_seconds`` and ``ingest.layout_seconds``.
+``ingest.cache_commit_seconds`` and ``ingest.layout_seconds``; an armed
+`profiling` ledger books the same seconds to ``ingest.decode`` (decode),
+``ingest.cache`` (open, cache, commit) and ``ingest.layout`` (layout).
 
 Worker-pool execution modes: ``process`` (the real plane — spawn-context
 workers, decode fully off the consumer; a worker never initializes CUDA:
@@ -55,7 +57,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from photon_tpu_torch import native, telemetry
+from photon_tpu_torch import native, profiling, telemetry
 from photon_tpu_torch.checkpoint import faults
 from photon_tpu_torch.data.avro_io import AvroContainerReader, avro_paths
 from photon_tpu_torch.data.ingest import GameDataConfig, native_fallback
@@ -481,8 +483,8 @@ def iter_game_chunks_parallel(
                 if result is None:
                     t0 = time.perf_counter()
                     result = _decode_task(state, task)
-                    telemetry.count("ingest.decode_seconds",
-                                    time.perf_counter() - t0)
+                    _book("ingest.decode_seconds", "ingest.decode", "decode",
+                          time.perf_counter() - t0)
                 else:
                     telemetry.count("ingest.worker_chunks")
                 for k, v in (result[4] if len(result) > 4 else {}).items():
@@ -533,8 +535,8 @@ def open_chunk_source(
                            kind="game_chunks")
         t0 = time.perf_counter()
         bag = cc.open_cache(cache_dir, key, "game_chunks")
-        telemetry.count("ingest.cache_open_seconds",
-                        time.perf_counter() - t0)
+        _book("ingest.cache_open_seconds", "ingest.cache", "open",
+              time.perf_counter() - t0)
         if bag is not None:
             telemetry.count("ingest.cache_hits")
             stream = ChunkStream(config, dict(index_maps), chunk_rows,
@@ -559,9 +561,16 @@ def open_chunk_source(
     return stream, chunks
 
 
+def _book(counter: str, program: str, phase: str, seconds: float) -> None:
+    """A phase's wall seconds: the telemetry counter and, with a ledger
+    armed, its (program, phase) attribution."""
+    telemetry.count(counter, seconds)
+    profiling.attribute(program, phase, seconds)
+
+
 def _attributed_decode(chunks):
     """The serial decode path's wall seconds per chunk, counted on
-    ``ingest.decode_seconds``."""
+    ``ingest.decode_seconds`` and booked to (ingest.decode, decode)."""
     def gen():
         it = iter(chunks)
         while True:
@@ -570,8 +579,8 @@ def _attributed_decode(chunks):
                 chunk = next(it)
             except StopIteration:
                 return
-            telemetry.count("ingest.decode_seconds",
-                            time.perf_counter() - t0)
+            _book("ingest.decode_seconds", "ingest.decode", "decode",
+                  time.perf_counter() - t0)
             yield chunk
 
     return gen()
@@ -591,8 +600,8 @@ def _cached_chunks(bag, stream: ChunkStream):
                 chunk = next(it)
             except StopIteration:
                 return
-            telemetry.count("ingest.cache_read_seconds",
-                            time.perf_counter() - t0)
+            _book("ingest.cache_read_seconds", "ingest.cache", "cache",
+                  time.perf_counter() - t0)
             stream._note(_chunk_nbytes(chunk))
             yield chunk
 
@@ -617,8 +626,8 @@ def _caching_chunks(chunks, cache_dir, key: str, config, stream):
         w.meta["saw_missing_response"] = bool(stream.saw_missing_response)
         t0 = time.perf_counter()
         w.commit()
-        telemetry.count("ingest.cache_commit_seconds",
-                        time.perf_counter() - t0)
+        _book("ingest.cache_commit_seconds", "ingest.cache", "commit",
+              time.perf_counter() - t0)
         telemetry.count("ingest.cache_builds")
 
     return gen()
@@ -670,8 +679,8 @@ def chunk_blocked_ell_from_avro(
                            sparse_k, kind="ladder", extra=extra)
         t0 = time.perf_counter()
         cb = cc.open_ladder(cache_dir, key)
-        telemetry.count("ingest.cache_open_seconds",
-                        time.perf_counter() - t0)
+        _book("ingest.cache_open_seconds", "ingest.cache", "open",
+              time.perf_counter() - t0)
         if cb is not None:
             telemetry.count("ingest.cache_hits")
             return cb
@@ -701,11 +710,12 @@ def chunk_blocked_ell_from_avro(
     t0 = time.perf_counter()
     cb = chunk_blocked_ell(batch, objective_chunk_rows, d_dense=d_dense,
                            feature_dtype=f_dtype, n_shards=n_shards)
-    telemetry.count("ingest.layout_seconds", time.perf_counter() - t0)
+    _book("ingest.layout_seconds", "ingest.layout", "layout",
+          time.perf_counter() - t0)
     if cache_dir is not None:
         t0 = time.perf_counter()
         cc.save_ladder(cache_dir, key, cb)
-        telemetry.count("ingest.cache_commit_seconds",
-                        time.perf_counter() - t0)
+        _book("ingest.cache_commit_seconds", "ingest.cache", "commit",
+              time.perf_counter() - t0)
         telemetry.count("ingest.cache_builds")
     return cb

@@ -62,6 +62,17 @@ process holds the whole table and counts real lanes only. The straggler
 pass re-pads its lanes to a slot multiple the same way. Slots' lanes are
 never merged into one solve: that would tie an entity's bits to the
 process count.
+
+Attribution: with a `profiling` ledger armed, `train`'s loop measures
+four regions of program ``game_re.block``: ``upload`` (a bucket's warm
+starts and priors projected and copied onto its device, its offsets
+gathered), ``solve_dispatch`` (the lane solves' host loop), ``readback``
+(the retired bucket's results to the host) and ``tail_solve`` (the
+straggler pass). ``solve_dispatch`` is host time, not device time: the
+lane solvers wait on the device only at each iteration's done flag, so
+it holds most of a solve's device time, while the work enqueued after
+the last flag read (and, with ``pipeline_depth``, the overlap with
+younger buckets) lands in ``readback``.
 """
 from __future__ import annotations
 
@@ -73,7 +84,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import checkpoint as _ckpt
-from photon_tpu_torch import telemetry
+from photon_tpu_torch import profiling, telemetry
 from photon_tpu_torch.data.dataset import GLMBatch
 from photon_tpu_torch.game.dataset import RandomEffectDataset, REBlock
 from photon_tpu_torch.game.model import RandomEffectModel
@@ -629,34 +640,36 @@ class RandomEffectCoordinate:
 
         def dispatch(block: REBlock) -> _InFlight:
             """Stage 1: the bucket's warm starts and priors, projected into
-            its solve space, and its lane solves."""
-            ents = block.entity_index
-            w0_full = coeffs[ents]
-            pm = pp = None
-            if block.proj is not None:  # INDEX_MAP
-                from photon_tpu_torch.game.projector import gather_rows
+            its solve space and uploaded, and its lane solves."""
+            with profiling.measure("game_re.block", "upload"):
+                ents = block.entity_index
+                w0_full = coeffs[ents]
+                pm = pp = None
+                if block.proj is not None:  # INDEX_MAP
+                    from photon_tpu_torch.game.projector import gather_rows
 
-                w0 = gather_rows(w0_full, block.proj)
-                if prior_means is not None:
-                    pm = gather_rows(prior_means[ents], block.proj)
-                    pp = gather_rows(prior_precs[ents], block.proj)
-            elif ds.projector is not None:  # RANDOM
-                w0 = ds.projector.project_coeffs(w0_full)
-            else:
-                w0 = w0_full
-                if prior_means is not None:
-                    pm, pp = prior_means[ents], prior_precs[ents]
-            telemetry.count("game_re.blocks")
-            if self.mesh is not None:
+                    w0 = gather_rows(w0_full, block.proj)
+                    if prior_means is not None:
+                        pm = gather_rows(prior_means[ents], block.proj)
+                        pp = gather_rows(prior_precs[ents], block.proj)
+                elif ds.projector is not None:  # RANDOM
+                    w0 = ds.projector.project_coeffs(w0_full)
+                else:
+                    w0 = w0_full
+                    if prior_means is not None:
+                        pm, pp = prior_means[ents], prior_precs[ents]
                 dev = block.y.device
-                local = self._solve_slots(
-                    self.block_objective(block),
-                    ds.block_batch(block, offsets_dev), _lanes(w0, dev),
-                    None if pm is None else _lanes(pm, dev),
-                    None if pp is None else _lanes(pp, dev), budget)
-                return _InFlight(block, pm, pp, None, None, local)
-            res, var = self.solve_block(block, offsets_dev, w0, pm, pp,
-                                        max_iters=budget)
+                batch = ds.block_batch(block, offsets_dev)
+                W0, PM, PP = (None if a is None else _lanes(a, dev)
+                              for a in (w0, pm, pp))
+            telemetry.count("game_re.blocks")
+            obj = self.block_objective(block)
+            with profiling.measure("game_re.block", "solve_dispatch"):
+                if self.mesh is not None:
+                    local = self._solve_slots(obj, batch, W0, PM, PP, budget)
+                    return _InFlight(block, pm, pp, None, None, local)
+                res, var = self.solve_lanes(obj, batch, W0, PM, PP,
+                                            max_iters=budget)
             return _InFlight(block, pm, pp, res, var)
 
         def retire(fl: _InFlight) -> None:
@@ -667,14 +680,16 @@ class RandomEffectCoordinate:
             # unscattered results; a resume re-dispatches it
             _ckpt.kill_point("bucket_retire")
             block, ents = fl.block, fl.block.entity_index
-            if fl.local is not None:  # the bucket's one gather, in order
-                w_out, conv, fail, iters, var_h = self._gather_slots(
-                    fl.local, block.n_entities, self._block_dim(block))
-            else:
-                w_out, conv, fail, iters = (np.array(t.cpu()) for t in (
-                    fl.res.w, fl.res.converged, fl.res.failed,
-                    fl.res.iterations))
-                var_h = None if fl.var is None else np.array(fl.var.cpu())
+            with profiling.measure("game_re.block", "readback"):
+                if fl.local is not None:  # the bucket's one gather, in order
+                    w_out, conv, fail, iters, var_h = self._gather_slots(
+                        fl.local, block.n_entities, self._block_dim(block))
+                else:
+                    w_out, conv, fail, iters = (np.array(t.cpu()) for t in (
+                        fl.res.w, fl.res.converged, fl.res.failed,
+                        fl.res.iterations))
+                    var_h = (None if fl.var is None
+                             else np.array(fl.var.cpu()))
             iters = iters.astype(np.int64)
             if budget is not None:
                 telemetry.count("game_re.capped_lockstep_iters", _lockstep(
@@ -682,9 +697,10 @@ class RandomEffectCoordinate:
                     lanes=False))
                 strag = np.nonzero(~conv & ~fail)[0]
                 if strag.size:
-                    self._resolve_stragglers(block, offsets_dev, strag,
-                                             w_out, conv, fail, iters, var_h,
-                                             fl.pm, fl.pp)
+                    with profiling.measure("game_re.block", "tail_solve"):
+                        self._resolve_stragglers(block, offsets_dev, strag,
+                                                 w_out, conv, fail, iters,
+                                                 var_h, fl.pm, fl.pp)
             if block.proj is not None:
                 from photon_tpu_torch.game.projector import scatter_rows_into
 

@@ -5,9 +5,8 @@ The implementation lives beside the rest of the data layer —
 `photon_tpu_torch.data.ingest_plane` (sharded decode workers, the
 chunk-source seam, stall-driven prefetch) and
 `photon_tpu_torch.data.chunk_cache` (the decode-once columnar chunk
-cache); this package re-exports the public API. The reference's
-``--selftest`` CLI (``python -m photon_tpu.ingest``) waits for ROADMAP
-queue A item 11 with the other self-test CLIs.
+cache); this package re-exports the public API. Selftest: ``python -m
+photon_tpu_torch.ingest --selftest [--device cpu]``.
 """
 from photon_tpu_torch.data.chunk_cache import (  # noqa: F401
     CACHE_SCHEMA_VERSION,

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import kernels as K
-from photon_tpu_torch import telemetry
+from photon_tpu_torch import profiling, telemetry
 from photon_tpu_torch.data.dataset import ChunkedBatch, GLMBatch
 from photon_tpu_torch.data.matrix import (BlockedEllRows, EntityBlocks,
                                           SparseRows)
@@ -424,10 +424,14 @@ def train_glm(
                          intercept_index=intercept_index, fused=use_fused,
                          normalization=norm_obj,
                          prior_full_precision=prior_full, device=dev)
-    telemetry.record_signature(
-        "training._train_run_sharded" if mesh is not None
-        else "training._train_run", (batch, w0, obj, _l1_lam(config)))
-    res = solve(obj, batch, w0, config)
+    program = ("training._train_run_sharded" if mesh is not None
+               else "training._train_run")
+    run_args = (batch, w0, obj, _l1_lam(config))
+    telemetry.record_signature(program, run_args)
+    # an armed ledger's dispatch: the solve's host wall (it reads back once
+    # an iteration, not at its end)
+    with profiling.dispatch(program, run_args):
+        res = solve(obj, batch, w0, config)
     var = compute_variances(obj, res.w, batch, variance)
     if permuted:
         res = res._replace(w=X.to_model_space(res.w))
@@ -656,19 +660,22 @@ def train_glm_grid(
     l2s, l1s, static_cfg = lane_weight_arrays(config, weights)
     l2s = l2s.to(dev)
     l1s = None if l1s is None else l1s.to(dev)
-    telemetry.record_signature("training._train_run_grid",
-                               (batch, W0, obj, l2s, l1s))
-    if variance is VarianceComputationType.NONE and supports_lanes(obj):
-        res, var = _lane_solve(obj, batch, W0, l2s, l1s, static_cfg), None
-    else:
-        _log.info(
-            "train_glm_grid: %s requested — the lane-minor lock-step grid "
-            "does not take it; routing the %d-lane sweep to the general "
-            "runner (one single-lane solve per lane, in turn).",
-            "an informative prior" if not supports_lanes(obj)
-            else f"{variance.value.upper()} variances", len(weights))
-        res, var = _train_run_grid(batch, W0, obj, l2s, l1s, static_cfg,
-                                   variance)
+    grid_args = (batch, W0, obj, l2s, l1s)
+    telemetry.record_signature("training._train_run_grid", grid_args)
+    with profiling.dispatch("training._train_run_grid", grid_args):
+        if (variance is VarianceComputationType.NONE
+                and supports_lanes(obj)):
+            res, var = _lane_solve(obj, batch, W0, l2s, l1s,
+                                   static_cfg), None
+        else:
+            _log.info(
+                "train_glm_grid: %s requested — the lane-minor lock-step "
+                "grid does not take it; routing the %d-lane sweep to the "
+                "general runner (one single-lane solve per lane, in turn).",
+                "an informative prior" if not supports_lanes(obj)
+                else f"{variance.value.upper()} variances", len(weights))
+            res, var = _train_run_grid(batch, W0, obj, l2s, l1s,
+                                       static_cfg, variance)
     if permuted:  # back to original column order: one (d, G) gather
         res = res._replace(w=X.to_model_space(res.w))
         if var is not None:

@@ -47,6 +47,16 @@ same card and chunking. Each objective evaluation hits the
 ``evaluation`` fault site (`_eval_tick`). The session is the switch:
 session-less, each touch point is one ``current() is None`` branch.
 
+Attribution: with a `profiling` ledger armed, every pass is a measured
+region of its chunk program (``streamed.`` or ``streamed_mesh.``
++ ``chunk_init`` / ``chunk_dz_phi`` / ``chunk_phi`` / ``chunk_grad`` /
+``chunk_value_many``) under its phase (``lbfgs/init``,
+``lbfgs/direction``, ``lbfgs/linesearch``, ``lbfgs/gradient``,
+``owlqn/value_grad``, ``owlqn/ladder``), each closing at the host
+read-back the pass already makes, and each program is priced at first
+sight (`profiling.model.chunk_cost`, probed for its first-call load and
+plan). Disarmed, each is one global load and one branch.
+
 MESH MODE (``mesh=``): every chunk streams row-sharded over the local
 slots (`data.dataset.MeshChunkRing`: one upload ring per slot, onto the
 slot's device), the chunk partials stay per slot (one per local slot,
@@ -68,7 +78,7 @@ import torch
 
 from photon_tpu_torch import checkpoint as _ckpt
 from photon_tpu_torch import kernels as K
-from photon_tpu_torch import telemetry
+from photon_tpu_torch import profiling, telemetry
 from photon_tpu_torch.optim.lbfgs import _Z_REFRESH, two_loop
 from photon_tpu_torch.optim.linesearch import C1, C2
 from photon_tpu_torch.optim.owlqn import pseudo_gradient
@@ -86,15 +96,37 @@ def _floats(*ts) -> list:
                         for t in ts]).tolist()
 
 
+def _note(program: str, X, args, lanes: int = 1, rows=None) -> None:
+    """The ledger's static cost of a chunk program, at its first sight
+    under an armed ledger (priced from chunk matrix ``X``, or ``rows`` for
+    the feature-free φ trial), probed for its first call's library load
+    and plan."""
+    if profiling.needs_note(program):
+        name = program.split(".", 1)[1]
+        profiling.note_program(
+            program, profiling.chunk_cost(name, X, rows=rows, lanes=lanes),
+            args=args, layout=X)
+
+
 class _SingleDeviceStream:
     """The one-device regime: chunks stream through the ring onto the
     solve's device; per-chunk margin caches are rows of (n_chunks,
     chunk_rows) host f32 tensors, pinned on a GPU."""
 
+    prog = "streamed."
+
     def __init__(self, data, device, prefetch=2):
         self.data, self.device = data, device
         self.ring = data.device_ring(device=device, prefetch=prefetch)
         self._cuda = device.type == "cuda"
+
+    def note(self, name, b, *args, lanes=1):
+        """`_note` for chunk program ``name`` at device chunk ``b``."""
+        _note(self.prog + name, b.X, args + (b,), lanes)
+
+    def note_phi(self, z_row, a):
+        _note(self.prog + "chunk_phi", None, (z_row, a),
+              rows=self.data.chunk_rows)
 
     def host_margins(self) -> torch.Tensor:
         return torch.empty((self.data.n_chunks, self.data.chunk_rows),
@@ -171,6 +203,8 @@ class _MeshStream:
     host f32 tensors (local-slot layout, pinned on a GPU), and each
     evaluation closed by the mesh's one reduction."""
 
+    prog = "streamed_mesh."
+
     def __init__(self, data, mesh: Mesh, prefetch=2):
         self.data, self.mesh = data, mesh
         self.ring = data.device_ring(mesh=mesh, prefetch=prefetch)
@@ -182,6 +216,15 @@ class _MeshStream:
     def host_margins(self) -> torch.Tensor:
         return torch.empty((self.data.n_chunks, self.mesh.n_local * self.s),
                            dtype=torch.float32, pin_memory=self._cuda)
+
+    def note(self, name, bs, *args, lanes=1):
+        """`_note` for chunk program ``name``, priced per device on the
+        first slot's share of mesh chunk ``bs``."""
+        _note(self.prog + name, bs[0].X, args + (bs[0],), lanes)
+
+    def note_phi(self, z_row, a):
+        _note(self.prog + "chunk_phi", None, (self._row(z_row, 0), a),
+              rows=self.s)
 
     def iter_chunks(self):
         return self.ring.stream_pass()
@@ -568,11 +611,15 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
 
         # ---- initial pass: margins cached per chunk, (f, g) summed
         acc = None
-        for i, b in be.iter_chunks():
-            acc = _acc(acc, be.chunk_init(obj, w, b, z_host[i]))
-        f_dev, g = be.finish(obj, w, acc)
-        f, g0norm = _floats(f_dev, torch.linalg.vector_norm(g))
-        be.sync()
+        with profiling.measure(be.prog + "chunk_init", "lbfgs/init",
+                               calls=n_chunks):
+            for i, b in be.iter_chunks():
+                be.note("chunk_init", b, w)
+                acc = _acc(acc, be.chunk_init(obj, w, b, z_host[i]))
+            f_dev, g = be.finish(obj, w, acc)
+            # the host read-back closes the measured pass
+            f, g0norm = _floats(f_dev, torch.linalg.vector_norm(g))
+            be.sync()
         evals += 1
         telemetry.count("solver.feature_streams")
         telemetry.count("solver.evaluations")
@@ -610,11 +657,14 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
         # first Wolfe trial's φ(a_init) partials riding along
         a32 = float(np.float32(a_init))
         phis = None
-        for i, b in be.iter_chunks():
-            phis = _acc(phis, be.chunk_dz_phi(obj, p, z_host[i], a32, b,
-                                              dz_host[i]))
-        wl0, wd0 = _floats(*be.totals(phis))
-        be.sync()
+        with profiling.measure(be.prog + "chunk_dz_phi", "lbfgs/direction",
+                               calls=n_chunks):
+            for i, b in be.iter_chunks():
+                be.note("chunk_dz_phi", b, p, z_host[i], a32)
+                phis = _acc(phis, be.chunk_dz_phi(obj, p, z_host[i], a32, b,
+                                                  dz_host[i]))
+            wl0, wd0 = _floats(*be.totals(phis))
+            be.sync()
         rv, rd = reg_ray(a_init)
         first_eval = (wl0 + rv, wd0 + rd)
         evals += 1
@@ -630,10 +680,13 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
             telemetry.count("solver.margin_cache.hits")
             a32 = float(np.float32(a))
             acc_phi = None
-            for i in range(n_chunks):
-                acc_phi = _acc(acc_phi, be.chunk_phi(obj, i, z_host[i],
-                                                     dz_host[i], a32))
-            wl, wd = _floats(*be.totals(acc_phi))
+            with profiling.measure(be.prog + "chunk_phi",
+                                   "lbfgs/linesearch", calls=n_chunks):
+                be.note_phi(z_host[0], a32)
+                for i in range(n_chunks):
+                    acc_phi = _acc(acc_phi, be.chunk_phi(obj, i, z_host[i],
+                                                         dz_host[i], a32))
+                wl, wd = _floats(*be.totals(acc_phi))
             _eval_tick(ck)
             rv, rd = reg_ray(a)
             return wl + rv, wd + rd
@@ -657,18 +710,23 @@ def _lbfgs_streamed(obj, data, w0, max_iters, tolerance, history,
                 telemetry.count("solver.margin_cache.refreshes")
                 z_gen += 1
             acc = None
-            for i, b in be.iter_chunks():
-                if refresh:  # re-anchor the chained margin on w (f32 drift)
-                    parts = be.chunk_init(obj, w_new, b, z_host[i])
-                else:
-                    parts = be.chunk_grad(obj, z_host[i], b)
-                acc = _acc(acc, parts)
-            _, g_new = be.finish(obj, w_new, acc)
-            _eval_tick(ck)
+            grad_prog = "chunk_init" if refresh else "chunk_grad"
+            with profiling.measure(be.prog + grad_prog, "lbfgs/gradient",
+                                   calls=n_chunks):
+                for i, b in be.iter_chunks():
+                    if refresh:  # re-anchor the chained margin on w
+                        parts = be.chunk_init(obj, w_new, b, z_host[i])
+                    else:
+                        be.note("chunk_grad", b, z_host[i])
+                        parts = be.chunk_grad(obj, z_host[i], b)
+                    acc = _acc(acc, parts)
+                _, g_new = be.finish(obj, w_new, acc)
+                _eval_tick(ck)
+                # the history's curvature read-back closes the pass
+                hist_st.push(w_new - w, g_new - g)
+                be.sync()
             f_new = f_star  # the accepted trial's value, as the resident
             # margin solver keeps it
-            hist_st.push(w_new - w, g_new - g)
-            be.sync()
         else:
             w_new, g_new, f_new = w, g, f
 
@@ -754,16 +812,23 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
         return torch.linalg.vector_norm(pseudo_gradient(wv, gv, l1, mask))
 
     def value_grad_pass(w_at):
+        """(f, g) at ``w_at`` on the device; the caller's read-back closes
+        the pass (and its `value_grad_measured` region)."""
         nonlocal evals
         evals += 1
         telemetry.count("solver.feature_streams")
         telemetry.count("solver.evaluations")
         acc = None
         for _, b in be.iter_chunks():
+            be.note("chunk_init", b, w_at)
             acc = _acc(acc, be.chunk_grad_at(obj, w_at, b))
         f_dev, g_at = be.finish(obj, w_at, acc)
         _eval_tick(ck)
         return f_dev, g_at
+
+    def value_grad_measured():
+        return profiling.measure(be.prog + "chunk_init", "owlqn/value_grad",
+                                 calls=data.n_chunks)
 
     def pack(it, f, F, pg0norm, hist, ghist, converged, failed, done, w, g,
              hist_st) -> dict:
@@ -785,8 +850,9 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
         telemetry.count("checkpoint.solver_restores")
     else:
         hist_st = _History(history, d, dev)
-        f_dev, g = value_grad_pass(w)
-        f, l1w, pg0norm = _floats(f_dev, l1_term(w), pg_norm(w, g))
+        with value_grad_measured():
+            f_dev, g = value_grad_pass(w)
+            f, l1w, pg0norm = _floats(f_dev, l1_term(w), pg_norm(w, g))
         F = f + l1w
         telemetry.iteration("owlqn_streamed", 0, F, grad_norm=pg0norm)
         hist = np.full(max_iters + 1, np.nan, np.float32)
@@ -831,10 +897,13 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
             telemetry.count("solver.evaluations", Kb)
             telemetry.count("solver.linesearch_trials", Kb)
             acc = None
-            for _, b in be.iter_chunks():
-                acc = _acc(acc, be.chunk_value_many(obj, W.t(), b))
-            (vals,) = be.totals(acc)
-            host = torch.stack([vals, rv, l1t, dec]).cpu().numpy()
+            with profiling.measure(be.prog + "chunk_value_many",
+                                   "owlqn/ladder", calls=data.n_chunks):
+                for _, b in be.iter_chunks():
+                    be.note("chunk_value_many", b, W, lanes=Kb)
+                    acc = _acc(acc, be.chunk_value_many(obj, W.t(), b))
+                (vals,) = be.totals(acc)
+                host = torch.stack([vals, rv, l1t, dec]).cpu().numpy()
             _eval_tick(ck, Kb)
             vals, rv_h, l1t_h, dec_h = host.astype(np.float64)
             F_cand = vals + rv_h + l1t_h
@@ -846,9 +915,10 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
             n_ls += Kb
 
         if ok:
-            f_dev, g_new = value_grad_pass(w_new)  # the gradient stream
-            hist_st.push(w_new - w, g_new - g)  # smooth-gradient history
-            f_new, l1n = _floats(f_dev, l1_term(w_new))
+            with value_grad_measured():  # the gradient stream
+                f_dev, g_new = value_grad_pass(w_new)
+                hist_st.push(w_new - w, g_new - g)  # smooth-gradient history
+                f_new, l1n = _floats(f_dev, l1_term(w_new))
             F_new = f_new + l1n
         else:
             w_new, g_new, f_new, F_new = w, g, f, F

@@ -1,6 +1,8 @@
 """Static per-program cost estimates (port of `StaticCost` of
 `photon_tpu/profiling/model.py`, with `lane_grid_cost`, the price the
-lane tuner checks a round against before it dispatches it).
+lane tuner checks a round against before it dispatches it, and
+`chunk_cost`, the price of one call of a streamed solver's chunk program,
+which the attribution ledger divides by its measured seconds).
 
 The reference prices a program by walking its jaxpr (trace only). The
 port has no jaxpr, and `torch.utils.flop_counter` does not see the
@@ -18,6 +20,16 @@ those passes read (each stored value and its index once a pass) plus the
 mesh; on a mesh, every evaluation's one reduction payload ((d, G)
 gradient, or a trial's 2·G scalars). Per-device view, as the
 reference's: a mesh is priced on one slot's share of the rows.
+
+A chunk program (`optim/streamed.py`: ``chunk_init``, ``chunk_grad``,
+``chunk_dz_phi``, ``chunk_phi``, ``chunk_value_many``) is priced from the
+same X passes (`_x_passes`, `_add_pass`) plus the eager elementwise
+kernels the program launches over the chunk's rows, each charged
+`ELEM_BYTES` a row: eager PyTorch writes every elementwise result to
+memory, where the reference's jaxpr walk charges each equation's
+operands (a proxy that XLA's fusion undercuts). The reference's
+``xla_cost`` (XLA's own view of the compiled program) has no counterpart:
+there is no compiled program to ask, so the ledger reports ``xla: null``.
 """
 from __future__ import annotations
 
@@ -38,6 +50,22 @@ VECTOR_OPS = 10
 # The lane solvers' trial caps (optim/lane_lbfgs.py, lane_owlqn.py).
 LBFGS_TRIALS = 12
 OWLQN_TRIALS = 20
+# An eager elementwise kernel over a chunk's rows reads up to two f32
+# operands and writes one f32 result: bytes a row.
+ELEM_BYTES = 12.0
+# Eager kernels a row (and transcendentals) of the chunk programs on the
+# logistic loss, the main path's (`ops/objective.py`, `ops/losses.py`):
+# the partials at a margin — d1 (sigmoid, − y), × weights, the loss
+# (zeros, logaddexp, − y·z: three), × weights, Σ; the margin's offset add;
+# a φ trial — z + a·dz (two), the loss four, × weights, Σ, d1 two,
+# × weights, × dz, Σ; a ladder lane — Z + offsets, the loss four,
+# × weights, Σ.
+PARTIALS_OPS, PARTIALS_TRANS = 9, 3
+MARGIN_OPS = 1
+PHI_OPS, PHI_TRANS = 13, 3
+LANE_VALUE_OPS, LANE_VALUE_TRANS = 7, 2
+CHUNK_PROGRAMS = ("chunk_init", "chunk_grad", "chunk_dz_phi", "chunk_phi",
+                  "chunk_value_many")
 
 
 @dataclasses.dataclass
@@ -203,4 +231,66 @@ def lane_grid_cost(batch, task, config, G: int, mesh=None) -> StaticCost:
             (iters * evals_per_iter + 1.0) * 4.0 * d * G
             + iters * trials * 2.0 * 4.0 * G)
     _COST_CACHE[key] = cost
+    return cost
+
+
+def _rows_of(X) -> int:
+    """One device's rows of a chunk matrix (a mesh slot's share)."""
+    from photon_tpu_torch.data.matrix import BlockedEllRows, SparseRows
+    from photon_tpu_torch.parallel.mesh import SlotRows
+
+    if isinstance(X, SlotRows):
+        X = X.parts[0]
+    if isinstance(X, BlockedEllRows):
+        return int(X.dense.shape[0])
+    if isinstance(X, SparseRows):
+        return int(X.values.shape[0])
+    return int(X.shape[0])
+
+
+def chunk_cost(program: str, X=None, *, rows=None, lanes: int = 1
+               ) -> StaticCost:
+    """The modeled cost of ONE call of streamed chunk program ``program``
+    (one of `CHUNK_PROGRAMS`) on chunk matrix ``X`` (dense, `SparseRows`,
+    `BlockedEllRows`, or a mesh chunk: one slot's share): its X passes
+    priced as `lane_grid_cost` prices them, plus its elementwise kernels
+    over the chunk's rows. ``chunk_phi`` reads no features: give its
+    ``rows`` instead of ``X``. ``lanes``: the ladder's candidates of
+    ``chunk_value_many``. Nothing runs on the device."""
+    from photon_tpu_torch.models.training import _matrix_dim
+
+    if program not in CHUNK_PROGRAMS:
+        raise ValueError(f"unknown chunk program {program!r}; one of "
+                         f"{CHUNK_PROGRAMS}")
+    n = int(rows) if rows is not None else _rows_of(X)
+    cost = StaticCost()
+
+    def elementwise(ops: int, trans: int, G: int = 1) -> None:
+        cost.flops += ops * n * G
+        cost.transcendentals += trans * n * G
+        cost.bytes += ops * ELEM_BYTES * n * G
+        cost.eqns += ops
+
+    if program == "chunk_phi":
+        elementwise(PHI_OPS, PHI_TRANS)
+        return cost
+    d = _matrix_dim(X)
+    fwd, bwd = _x_passes(X)
+    if program == "chunk_init":  # the margin, then the partials at it
+        _add_pass(cost, fwd, 1, n, d, 1.0)
+        _add_pass(cost, bwd, 1, n, d, 1.0)
+        elementwise(MARGIN_OPS + PARTIALS_OPS, PARTIALS_TRANS)
+        cost.eqns += 2
+    elif program == "chunk_grad":  # the partials at a cached margin
+        _add_pass(cost, bwd, 1, n, d, 1.0)
+        elementwise(PARTIALS_OPS, PARTIALS_TRANS)
+        cost.eqns += 1
+    elif program == "chunk_dz_phi":  # dz = X·p, then a φ trial on it
+        _add_pass(cost, fwd, 1, n, d, 1.0)
+        elementwise(PHI_OPS, PHI_TRANS)
+        cost.eqns += 1
+    else:  # chunk_value_many: one pass at `lanes` lanes, the loss a lane
+        _add_pass(cost, fwd, int(lanes), n, d, 1.0)
+        elementwise(LANE_VALUE_OPS, LANE_VALUE_TRANS, int(lanes))
+        cost.eqns += 1
     return cost

@@ -27,11 +27,12 @@ a modeled-cost budget checked before each round.
   otherwise).
 
 The GP fits on the training batch's device (the mesh's home with
-``mesh``). The reference's attribution-ledger dispatches
-(`profiling.dispatch`) wait for ROADMAP queue A item 11.5, and its two
-registered jaxpr contracts (``tuning_lane_dispatch``,
-``tuning_round_budget``) for item 11.9; the signature log and
-`_enforce_budget` hold the same two laws at run time.
+``mesh``). With a `profiling` ledger armed, the screen and the re-solve
+are its dispatches (``tuning.lane_screen``, ``tuning.lane_resolve``),
+each priced by `lane_grid_cost`. The reference's two registered jaxpr
+contracts (``tuning_lane_dispatch``, ``tuning_round_budget``) wait for
+ROADMAP queue A item 11.9; the signature log and `_enforce_budget` hold
+the same two laws at run time.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photon_tpu_torch import telemetry
+from photon_tpu_torch import profiling, telemetry
 from photon_tpu_torch.data.matrix import SparseRows, next_pow2
 from photon_tpu_torch.parallel.mesh import compact_rows
 from photon_tpu_torch.profiling.model import StaticCost, lane_grid_cost
@@ -292,11 +293,15 @@ def tune_glm_reg_lanes(
         with telemetry.span("tuning.round", index=r, proposed=q,
                             chunk=lane_chunk):
             # ---- screen: a capped lock-step solve of the whole chunk
-            _SIG_LOG.record(_SIG_SCREEN, _dispatch_args(
-                train_batch, torch.tensor(padded, dtype=torch.float32)))
-            res, _ = _training.train_glm_grid(
-                train_batch, task, cfg_screen, padded, mesh=mesh,
-                device_results=True, device=dev)
+            screen_args = _dispatch_args(
+                train_batch, torch.tensor(padded, dtype=torch.float32))
+            _SIG_LOG.record(_SIG_SCREEN, screen_args)
+            if profiling.needs_note(_SIG_SCREEN):
+                profiling.note_program(_SIG_SCREEN, cost)
+            with profiling.dispatch(_SIG_SCREEN, screen_args):
+                res, _ = _training.train_glm_grid(
+                    train_batch, task, cfg_screen, padded, mesh=mesh,
+                    device_results=True, device=dev)
             ys = _lane_scores(res.w, val_batch, evaluator, q)
             xs_unit.extend(units)
             screen_ys.extend(ys.tolist())
@@ -310,12 +315,17 @@ def tune_glm_reg_lanes(
                 [survivors, np.full(s_chunk - kk, survivors[0], np.int64)])
             W0 = compact_rows(res.w, idx_pad, pad_mode="edge")
             sur_weights = [padded[i] for i in idx_pad]
-            _SIG_LOG.record(_SIG_RESOLVE, _dispatch_args(
+            resolve_args = _dispatch_args(
                 train_batch, W0, torch.tensor(sur_weights,
-                                              dtype=torch.float32)))
-            res_full, _ = _training.train_glm_grid(
-                train_batch, task, config, sur_weights, mesh=mesh, w0=W0,
-                device_results=True, device=dev)
+                                              dtype=torch.float32))
+            _SIG_LOG.record(_SIG_RESOLVE, resolve_args)
+            if profiling.needs_note(_SIG_RESOLVE):
+                profiling.note_program(_SIG_RESOLVE, lane_grid_cost(
+                    train_batch, task, config, s_chunk, mesh))
+            with profiling.dispatch(_SIG_RESOLVE, resolve_args):
+                res_full, _ = _training.train_glm_grid(
+                    train_batch, task, config, sur_weights, mesh=mesh,
+                    w0=W0, device_results=True, device=dev)
             full_ys = _lane_scores(res_full.w, val_batch, evaluator, kk)
             telemetry.count("tuning.rounds")
             telemetry.count("tuning.configs", q)

@@ -1,8 +1,8 @@
-"""The multi-process ``PHOTON_TPU_*`` environment knobs (the port's copy of
-the part of `photon_tpu/utils/env.py` the mesh spine reads).
+"""The ``PHOTON_TPU_*`` environment knobs (the port's copy of the part of
+`photon_tpu/utils/env.py` that the mesh spine and the attribution ledger
+read).
 
-Every knob the multi-process spine reads is declared ONCE here, with its
-one-line contract; modules read raw values through :func:`get_raw`, which
+Every knob is declared ONCE here, with its one-line contract; modules read raw values through :func:`get_raw`, which
 refuses an undeclared name. Parsing stays with the owner module named in
 each doc line.
 """
@@ -34,6 +34,16 @@ KNOB_DOCS = {
         "barriers among them — waits for every process before it raises "
         "(a dead peer fails the barrier loudly instead of hanging it). "
         "Owner: photon_tpu_torch.parallel.mesh (barrier_timeout_s())."),
+    "PHOTON_TPU_PEAK_FLOPS": (
+        "Per-device FLOP/s ceiling for the attribution ledger's "
+        "roofline-utilization denominators (overrides the device's table "
+        "entry). Owner: photon_tpu_torch.profiling.ledger "
+        "(resolve_peaks())."),
+    "PHOTON_TPU_PEAK_BYTES_PER_S": (
+        "Per-device memory bytes/s ceiling for the attribution ledger's "
+        "roofline-utilization denominators (overrides the device's table "
+        "entry). Owner: photon_tpu_torch.profiling.ledger "
+        "(resolve_peaks())."),
 }
 
 
