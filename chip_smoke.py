@@ -245,10 +245,11 @@ DRV. the drivers on local Avro (a temporary directory beside this script):
    ms, its error and how many outputs its own calls disagree on). The
    drivers decode natively (a fallback to Python fails the phase).
 DRV-S. the streamed data plane on local Avro (a `_drvs*` temporary
-   directory): GM's widths at 2^20 training rows (cut from 2^21 for TU's
-   time; over a streaming threshold of DRVS_THRESHOLD rows, where 2^21
-   rows were just over the default 2,000,000) as 8 deflate part files and 2^18
-   validation rows, written by a spawn process pool; (a) a part file of
+   directory): GM's widths at 2^19 training rows (cut from 2^21 for TU's
+   and HY's time; over a streaming threshold of DRVS_THRESHOLD rows, where
+   2^21 rows were just over the default 2,000,000) as 8 deflate part files
+   and 2^17 validation rows, written by a spawn process pool, the largest
+   file first; (a) a part file of
    DRVS_PY_ROWS rows written beside them through `read_game_data` native
    and Python (equal bit for bit, rows/s each), then half the training
    part files (cut: depth) through `iter_game_chunks_parallel` with 0 and
@@ -469,6 +470,29 @@ PF. the attribution ledger and the self-test CLIs: (a) after CK (a), on
    tuning, parallel) exiting 0 on the card, with its seconds, and
    ``analysis``, ``lint`` and ``threads`` named as pending.
 
+HY. the hybrid layouts on T2's data (after MG): (a) `to_permuted_hybrid`
+   at full width, every value leaf bf16 (build s, bytes on the card); the
+   occurrence-bucket rmatvec at its unrounded instantiation (rows 4 and 5,
+   1 and 8 lanes, square off and on) and the whole Xᵀr against their
+   plain versions (rtol=atol=1e-5, max |err| stated), the flat tail's
+   per-row sums against f64 on HY_SAMPLE rows, a 5-iteration L-BFGS
+   `train_glm` (counts reset just before, read just after; the model's
+   margins, original order, against f64), the same on the tiled forms,
+   5 Xᵀr calls bit for bit, row 4's unrounded time beside its bound, its
+   plain version and cuSPARSE; (b) `to_hybrid` at the same widths (hot
+   block built on the card in bf16): its passes against (a)'s (one
+   function at bf16), a 5-iteration solve within rtol 1e-5 of (a)'s,
+   5 Xᵀr calls bit for bit, its tail sums against f64; (c) the first
+   HY_C_ROWS rows at f32 storage as `BlockedEllRows`, `HybridRows` and
+   `PermutedHybridRows`: 5-iteration histories within rtol 1e-5, each
+   layout's margins against f64 on sampled rows; (d) the sharded pair on
+   MG_SLOTS slots of the card (`shard_permuted_batch`, built on the host
+   beside (a)-(c); `shard_hybrid` of (b)'s layout): the bucket bytes
+   reckoned first, every slot's rmatvec against its plain version, 5
+   iterations each within rtol 1e-5 of (a)'s and (b)'s, row 4 launched
+   once per slot and pass; (e) bench.py's 8-lane grid (S_GRID, G (a)'s
+   settings) on (a)'s layout, rows*sum(iters)/s beside G's.
+
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
 their launches in the grid's solves under ``grid_launches``; every
@@ -485,7 +509,9 @@ tapped solve under ``ck_launches``, in MG (a)'s mesh solve under
 processes, the rung after (c)'s swap — under ``gmm_launches``, and in
 TF's (a) armed solve, (b)'s fleet legs and kills under ``tf_launches``,
 and in TU's (b) tune and (e) bootstrap under ``tu_launches``, and in
-PF (a)'s first armed solve under ``pf_launches``),
+PF (a)'s first armed solve under ``pf_launches``, and in HY's solves and
+grid under ``hy_launches``; rows 4 and 5 carry HY's unrounded timings
+under ``hy_*``),
 the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -565,17 +591,18 @@ DRV_USER_L2 = [2.5, 5.0]
 DRV_WIDE_ROWS, DRV_WIDE_D, DRV_WIDE_K, DRV_WIDE_ITERS = 1 << 15, 1 << 16, \
     32, 20
 DRV_XTR_ROWS = 1 << 19
-# the streamed data plane (DRV-S): GM's widths at 2^20 training rows (cut
+# the streamed data plane (DRV-S): GM's widths at 2^19 training rows (cut
 # from 2^21, which sat just over the training driver's default streaming
-# threshold of 2,000,000, for TU's time; the threshold is set to
-# DRVS_THRESHOLD) in 8 part files and 2^18 validation rows, 4 ingest workers,
-# 2^16-row decode chunks and 2^19-row objective chunks, solves stopped at
+# threshold of 2,000,000, to 2^20 for TU's time and to 2^19 for HY's; the
+# threshold is set to DRVS_THRESHOLD) in 8 part files and 2^17 validation
+# rows, 4 ingest workers,
+# 2^16-row decode chunks and 2^18-row objective chunks, solves stopped at
 # a relative progress of DRVS_TOL (the (b)/(c) comparison's tolerance);
 # (d) T2's widths at 2^17 rows (cut from 2^18 for the script's time), a
 # ladder of 2^15-row chunks, 10 iterations
-DRVS_ROWS, DRVS_VAL_ROWS, DRVS_PARTS, DRVS_SEED = 1 << 20, 1 << 18, 8, 404
-DRVS_THRESHOLD = 1_000_000
-DRVS_WORKERS, DRVS_CHUNK, DRVS_OBJ_CHUNK, DRVS_TOL = 4, 1 << 16, 1 << 19, \
+DRVS_ROWS, DRVS_VAL_ROWS, DRVS_PARTS, DRVS_SEED = 1 << 19, 1 << 17, 8, 404
+DRVS_THRESHOLD = 500_000
+DRVS_WORKERS, DRVS_CHUNK, DRVS_OBJ_CHUNK, DRVS_TOL = 4, 1 << 16, 1 << 18, \
     1e-3
 DRVS_LADDER_ROWS, DRVS_LADDER_CHUNK, DRVS_LADDER_ITERS = 1 << 17, 1 << 15, 10
 DRVS_AUC_CALLS = 20  # (b): the same margins' AUC, call after call
@@ -618,6 +645,13 @@ PF_ITERS, PF_CALLS, PF_JOBS, PF_HBM_BYTES_PER_S = 10, 4, 3, 3.35e12
 # PF (a)'s kernel launches, its first armed solve's (reset just before it
 # and read just after)
 PF_LAUNCHES: dict = {}
+# phase HY: the solves' iterations, (c)'s f32 rows, the rows whose margins
+# and tail sums are held against f64; HY's kernel launches over its main
+# paths ((a)'s solves, (d)'s mesh solves, (e)'s grid; each reset just
+# before and read just after); G (a)'s rows*sum(iters)/s, for (e)
+HY_ITERS, HY_C_ROWS, HY_SAMPLE = 5, 1 << 19, 4096
+HY_LAUNCHES: dict = {}
+GRID_RATE: dict = {}
 # phase MG: the in-process mesh's slots (T2's rows split eight ways), and
 # the iterations of (a)'s solve repeated across processes and of (b)'s
 # streamed L-BFGS
@@ -725,6 +759,10 @@ def _ptxas_label(kernel: str, name: str) -> str:
     ``name``."""
     import re
 
+    m = re.search(r"ILb(\d)ELb(\d)ELb(\d)ELi(\d+)E", name)
+    if m:
+        return (f"bf16={m.group(1)} square={m.group(2)} "
+                f"round_r={m.group(3)} lane_chunk={m.group(4)}")
     m = re.search(r"ILb(\d)ELb(\d)ELi(\d+)E", name)
     if m:
         return (f"bf16={m.group(1)} square={m.group(2)} "
@@ -1594,24 +1632,31 @@ def blocked_ell_bounds(X, lanes: int = 1) -> dict:
     + stored value, once; the distinct vector entries it reads, G floats
     each; row_pos; its f32 output, G floats a row or column) over HBM
     bandwidth vs its f32 operations (a multiply-add per slot and lane,
-    one more multiply per slot for ``square``) over the f32 peak."""
+    one more multiply per slot for ``square``) over the f32 peak. A
+    layout without an ELL tail (`PermutedHybridRows`) has only the
+    rmatvec's, whose rows read are those with a flat-tail entry."""
     n, U, G = int(X.shape[0]), X.n_prefix - X.d_sel, lanes
-    vb = X.ell_vals[0].element_size()
-    ell = sum(int(v.numel()) for v in X.ell_vals)
+    vb = X.bucket_vals[0].element_size()
     occ = sum(int(v.numel()) for v in X.bucket_vals)
-    B = sum(int(v.shape[0]) for v in X.ell_vals)
-    tail_rows = int((X.row_pos != B).sum().item())  # rows the rmatvec reads
 
     def bound(nbytes, ops):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         return max(tb, to), ("bytes" if tb >= to else "operations")
 
-    tail = bound(ell * (4 + vb) + 4 * U * G + 4 * n + 4 * n * G,
-                 2 * ell * G)
+    out = {}
+    if hasattr(X, "row_pos"):
+        ell = sum(int(v.numel()) for v in X.ell_vals)
+        B = sum(int(v.shape[0]) for v in X.ell_vals)
+        tail_rows = int((X.row_pos != B).sum().item())  # rows it reads
+        tail = bound(ell * (4 + vb) + 4 * U * G + 4 * n + 4 * n * G,
+                     2 * ell * G)
+        out = {"tail_matvec": tail, "tail_matvec_tiled": tail}
+    else:
+        tail_rows = int(((X.row_bounds[1:] - X.row_bounds[:-1]) > 0).sum())
     rmv = bound(occ * (4 + vb) + 4 * tail_rows * G + 4 * U * G,
                 2 * occ * G)
-    return {"tail_matvec": tail, "tail_matvec_tiled": tail,
-            "bucket_rmatvec": rmv, "bucket_rmatvec_tiled": rmv}
+    out.update({"bucket_rmatvec": rmv, "bucket_rmatvec_tiled": rmv})
+    return out
 
 
 def phase_training_timings(state: dict, gpu) -> list:
@@ -1865,6 +1910,7 @@ def phase_grid(state: dict, dev, gpu) -> dict:
         raise AssertionError(f"G (a) launched {launches}")
     steps = int(its.max())
     rate = rows * int(its.sum()) / wall
+    GRID_RATE["G"] = rate
     layout_b = sum(t.numel() * t.element_size() for t in X._tensors())
     lane_b = 4 * d * G
     state_b = 10 * lane_b + 2 * m * d * G * 2 + 8 * rows * G * 4
@@ -5660,7 +5706,9 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
         with cf.ProcessPoolExecutor(
                 max_workers=min(len(tasks), os.cpu_count() or 1),
                 mp_context=multiprocessing.get_context("spawn")) as pool:
-            part_s = [s for _, s in pool.map(write_gm_part, tasks)]
+            # the largest files first, so none starts last
+            part_s = [s for _, s in pool.map(
+                write_gm_part, sorted(tasks, key=lambda t: -t[3]))]
         write_s = time.perf_counter() - t0
         mb = dir_bytes(train_dir) / 1e6
         log(f"DRV-S: {DRVS_ROWS} training rows at GM's widths as "
@@ -6658,6 +6706,455 @@ def phase_continual(args, dev, gpu) -> tuple:
     torch.cuda.empty_cache()
     log(f"CR: {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
     return refresh_launches, cr_launches
+
+
+# ------------------------------------------------ phase HY: hybrid layouts
+HY_TIMES: dict = {}  # row 4's and row 5's unrounded timings, by kernel
+
+
+def hy_count(launches: dict) -> None:
+    for name, c in launches.items():
+        HY_LAUNCHES[name] = HY_LAUNCHES.get(name, 0) + c
+
+
+def layout_gb(X) -> float:
+    """The bytes of every tensor of a layout, GB."""
+    total = 0
+    for f in dataclasses.fields(X):
+        v = getattr(X, f.name)
+        for t in (v if isinstance(v, tuple) else (v,)):
+            if hasattr(t, "element_size"):
+                total += t.numel() * t.element_size()
+    return total / 1e9
+
+
+def row_sum_errors(sums, contrib, bounds, sample) -> tuple:
+    """How per-row sums ``sums`` (n,) of flat f32 products ``contrib``,
+    row i spanning ``bounds[i]:bounds[i + 1]`` (numpy arrays), stand on
+    the ``sample`` rows against f64 sums of the same products: (max |err|,
+    max |err| over the row's sum of |products| on rows with a nonzero
+    product, the rows whose products are all zero that come out nonzero,
+    the largest |prefix sum| a difference of prefix sums cancels, and the
+    max |err| of a plain f32 sum of each row's own products in order: how
+    a per-row reduction rounds)."""
+    c = contrib.astype(np.float64)
+    exact = np.array([c[bounds[i]:bounds[i + 1]].sum() for i in sample])
+    scale = np.array([np.abs(c[bounds[i]:bounds[i + 1]]).sum()
+                      for i in sample])
+    own = np.array([np.sum(contrib[bounds[i]:bounds[i + 1]],
+                           dtype=np.float32) for i in sample], np.float64)
+    err = np.abs(sums[sample] - exact)
+    live = scale > 0
+    return (float(err.max()), float((err[live] / scale[live]).max()),
+            int(((~live) & (err > 0)).sum()),
+            float(np.abs(np.cumsum(c)).max()),
+            float(np.abs(own - exact).max()))
+
+
+def tail_errors(X, w, sample: np.ndarray) -> tuple:
+    """`row_sum_errors` of a flat-tail layout's per-row tail sums on its
+    device (`HybridRows`: w original, the sorted segments of its tail;
+    `PermutedHybridRows`: w permuted, prefix-sum differences over
+    ``row_bounds``)."""
+    import torch
+
+    from photon_tpu_torch.data import matrix as M
+
+    n = int(X.shape[0])
+    if isinstance(X, M.PermutedHybridRows):
+        contrib = M._gather_product(X.tail_vals, w, X.tail_pcols)
+        bounds = X.row_bounds.long()
+    else:
+        contrib = M._gather_product(X.tail_vals, w, X.tail_cols)
+        bounds = torch.searchsorted(
+            X.tail_rows, torch.arange(n + 1, dtype=torch.int32,
+                                      device=w.device)).long()
+    tail = M._tail_rowsum(contrib, bounds)
+    return row_sum_errors(tail.cpu().numpy(), contrib.cpu().numpy(),
+                          bounds.cpu().numpy(), sample)
+
+
+def exact_margins(ind, va, w, sample: np.ndarray) -> tuple:
+    """(f64 margins, f64 sums of |terms|) of the COO rows ``sample`` for
+    original-space ``w``."""
+    t = va[sample].astype(np.float64) * w.astype(np.float64)[ind[sample]]
+    return t.sum(1), np.abs(t).sum(1)
+
+
+def hybrid_tail_csr(X, transpose: bool):
+    """A `PermutedHybridRows`' tail as an f32 CSR (n, U), or its transpose,
+    on its device — cuSPARSE's operand for the library yardstick."""
+    import torch
+
+    n, U = int(X.shape[0]), X.n_prefix - X.d_sel
+    counts = (X.row_bounds[1:] - X.row_bounds[:-1]).long()
+    m = int(X.row_bounds[-1])
+    r = torch.repeat_interleave(torch.arange(n, device=counts.device),
+                                counts)
+    c = X.tail_pcols[:m].long() - X.d_sel
+    v = X.tail_vals[:m].float()
+    if transpose:
+        r, c, n, U = c, r, U, n
+    return torch.sparse_coo_tensor(torch.stack([r, c]), v, (n, U)) \
+        .coalesce().to_sparse_csr()
+
+
+def passes_repeat(X, w, r, label: str, calls: int = 5) -> None:
+    """Raise unless ``calls`` Xᵀr of ``r`` (and matvecs of ``w``) give the
+    same bits."""
+    import torch
+
+    from photon_tpu_torch.data import matrix as M
+
+    for name, fn, v in (("Xᵀr", M.rmatvec, r), ("matvec", M.matvec, w)):
+        first = fn(X, v)
+        for _ in range(calls - 1):
+            if not torch.equal(fn(X, v), first):
+                raise AssertionError(f"{label}: the {name} moved between "
+                                     "calls")
+
+
+def phase_hybrid(t2: dict, dev, gpu) -> None:
+    """HY: the hybrid and permuted-hybrid layouts on T2's data, (a)-(e).
+    (a)'s and (b)'s layouts are built first; the sharded permuted layout
+    of (d) is then built on the host in a thread beside (a)-(c)'s checks,
+    and every timing but the builds' is taken after it has ended."""
+    import torch
+
+    from photon_tpu_torch.data import matrix as M
+    from photon_tpu_torch.data.dataset import (cast_features, make_batch,
+                                               shard_permuted_batch)
+
+    ind, va, y = t2["coo"]
+    X = M.SparseRows(ind, va, T_FEATURES)
+    builds = []
+    for build in (M.to_permuted_hybrid, M.to_hybrid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = cast_features(make_batch(build(
+            X, T_DENSE, device_dense_dtype=torch.bfloat16, device=dev), y,
+            device=dev))
+        torch.cuda.synchronize()
+        builds.append((b, time.perf_counter() - t0))
+    built: dict = {}
+
+    def build_sp():
+        t0 = time.perf_counter()
+        try:
+            host = make_batch(M.SparseRows(ind, va, T_FEATURES), y,
+                              device="cpu")
+            built["sp"] = cast_features(shard_permuted_batch(
+                host, MG_SLOTS, T_DENSE, device_dense_dtype=torch.bfloat16))
+        except BaseException as e:  # raised in the main thread below
+            built["sp"] = e
+        built["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=build_sp)
+    th.start()
+    try:
+        _phase_hybrid(t2, dev, gpu, builds, th, built)
+    finally:
+        th.join()
+
+
+def _phase_hybrid(t2: dict, dev, gpu, builds: list, th,
+                  built: dict) -> None:
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data import matrix as M
+    from photon_tpu_torch.data.dataset import (GLMBatch, make_batch,
+                                               mesh_batch)
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    ind, va, y = t2["coo"]
+    rows, d = int(ind.shape[0]), T_FEATURES
+    rng = np.random.default_rng(41)
+    sample = np.sort(rng.choice(rows, HY_SAMPLE, replace=False))
+    w_model = t2["w40_model"]
+    cfg = OptimizerConfig(max_iters=HY_ITERS, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    (bp, build_a), (bh, build_b) = builds
+
+    # (a) the permuted hybrid at full width, every value leaf bf16
+    P = bp.X
+    U = P.n_prefix - P.d_sel
+    occ = sum(int(v.numel()) for v in P.bucket_vals)
+    log(f"HY (a): PermutedHybridRows of T2's rows built in {build_a:.1f} s "
+        f"(host + device, hot block on the card); {layout_gb(P):.3f} GB on "
+        f"the card; flat tail {int(P.row_bounds[-1])} entries, U {U}, "
+        f"{len(P.bucket_vals)} occurrence buckets, {occ} bucket slots "
+        f"({occ / max(int(P.row_bounds[-1]), 1) - 1:.4f} padding)  [{gpu}]")
+    err = 0.0
+    for lanes in (1, 8):
+        shape = (rows,) if lanes == 1 else (rows, lanes)
+        r = torch.randn(shape, generator=gen, device=dev)
+        for sq in (False, True):
+            want = KB.bucket_rmatvec_reference(P, r, square=sq,
+                                               round_r=False)
+            got = [form(P, r, square=sq, round_r=False)
+                   for form in (KB.bucket_rmatvec, KB.bucket_rmatvec_tiled)]
+            torch.cuda.synchronize()
+            for g in got:
+                np.testing.assert_allclose(
+                    g.cpu().numpy(), want.cpu().numpy(), **TOL,
+                    err_msg=f"HY (a) rmatvec {lanes} lanes square={sq}")
+                err = max(err, float((g - want).abs().max()))
+            if not torch.equal(got[0], got[1]):
+                raise AssertionError("HY (a): fused and tiled rmatvec differ")
+            fn = M.sq_rmatvec if sq else M.rmatvec
+            whole = fn(P, r)
+            with K.scope("off"):
+                plain = fn(P, r)
+            scale = float(plain.abs().max())
+            np.testing.assert_allclose(
+                whole.cpu().numpy(), plain.cpu().numpy(), rtol=1e-5,
+                atol=1e-5 * scale, err_msg=f"HY (a) Xᵀr {lanes} lanes")
+    wp = P.from_model_space(torch.from_numpy(w_model).to(dev))
+    t_abs, t_rel, t_zero, t_pre, t_own = tail_errors(P, wp, sample)
+    log(f"HY (a): rows 4 and 5 at the unrounded instantiation (bf16 values "
+        f"by an f32 cotangent), 1 and 8 lanes, square off and on, agree "
+        f"with their plain versions within rtol=atol=1e-5 (max |err| "
+        f"{err:.3g}), fused and tiled bit for bit; the whole Xᵀr and "
+        f"(X∘X)ᵀr against scope('off') within 1e-5 of the largest output; "
+        f"flat-tail row sums (T2 (a)'s 40th w) on {HY_SAMPLE} rows against "
+        f"f64: max |err| {t_abs:.3g}, {t_rel:.3g} of the row's sum of "
+        f"|products|, {t_zero} all-zero rows nonzero, largest |prefix sum| "
+        f"{t_pre:.6g}; a per-row f32 sum of the same products (host) "
+        f"{t_own:.3g}  [{gpu}]")
+
+    # the main path: counts reset just before, read just after
+    K.reset_launch_counts()
+    model_a, res_a, _ = solve_timed(bp, cfg, dev)
+    la = K.launch_counts()
+    hy_count(la)
+    if la.get(KB.RMATVEC, 0) == 0 or set(la) != {KB.RMATVEC}:
+        raise AssertionError(f"HY (a): the solve launched {la}")
+    ha = res_a.history()
+    if not np.isfinite(ha).all() or not ha[-1] < ha[0]:
+        raise AssertionError(f"HY (a): loss history {ha}")
+    w_a = model_a.coefficients.means.cpu().numpy()
+    z = model_a.score(P).cpu().numpy()[sample]
+    ex, sc = exact_margins(ind, va, w_a, sample)
+    z_rel = float((np.abs(z - ex) / np.maximum(sc, 1e-30)).max())
+    if z_rel > 1e-2:
+        raise AssertionError(f"HY (a): the model's margins are {z_rel:.3g} "
+                             "of the row scale off its f64 margins")
+    K.reset_launch_counts()
+    _, res_t, _ = with_budget("0", lambda: solve_timed(bp, cfg, dev))
+    lt = K.launch_counts()
+    hy_count(lt)
+    if lt.get(KB.RMATVEC_TILED, 0) == 0 or set(lt) != {KB.RMATVEC_TILED}:
+        raise AssertionError(f"HY (a): the tiled solve launched {lt}")
+    gap_t = histories_agree("HY (a) tiled vs fused", ha, res_t.history())
+    r1 = torch.randn(rows, generator=gen, device=dev)
+    r8 = torch.randn((rows, 8), generator=gen, device=dev)
+    w8 = torch.randn((d, 8), generator=gen, device=dev) * 0.01
+    passes_repeat(P, wp, r1, "HY (a)")
+    passes_repeat(P, w8, r8, "HY (a) 8 lanes")
+    log(f"HY (a): {HY_ITERS}-iteration L-BFGS train_glm, loss {ha[0]:.7g} "
+        f"-> {ha[-1]:.7g}, launches {la}; its model (original column "
+        f"order) scores the layout within {z_rel:.3g} of the row scale of "
+        f"f64 margins; the tiled forms (budget 0) launches {lt}, history "
+        f"within {gap_t:.3g}; 5 Xᵀr and 5 matvec calls (1 and 8 lanes) bit "
+        f"for bit  [{gpu}]")
+
+    # (b) the hybrid at the same widths, hot block built on the card
+    H = bh.X
+    gaps = []
+    for lanes in (1, 8):
+        shape = (d,) if lanes == 1 else (d, lanes)
+        w = torch.randn(shape, generator=gen, device=dev) * 0.01
+        r = r1 if lanes == 1 else r8
+        pairs = ((M.matvec(H, w), M.matvec(P, P.from_model_space(w))),
+                 (M.rmatvec(H, r), P.to_model_space(M.rmatvec(P, r))),
+                 (M.sq_rmatvec(H, r), P.to_model_space(M.sq_rmatvec(P, r))))
+        for k, (got, want) in enumerate(pairs):
+            scale = float(want.abs().max())
+            gap = float((got - want).abs().max()) / scale
+            np.testing.assert_allclose(
+                got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+                atol=1e-5 * scale, err_msg=f"HY (b) pass {k}, {lanes} lanes")
+            gaps.append(gap)
+    K.reset_launch_counts()
+    _, res_b, _ = solve_timed(bh, cfg, dev)
+    if K.launch_counts():
+        raise AssertionError(f"HY (b) launched {K.launch_counts()}")
+    gap_b = histories_agree("HY (b) vs (a)", ha, res_b.history())
+    passes_repeat(H, torch.from_numpy(w_model).to(dev), r1, "HY (b)")
+    passes_repeat(H, w8, r8, "HY (b) 8 lanes")
+    h_abs, h_rel, h_zero, h_pre, h_own = tail_errors(
+        H, torch.from_numpy(w_model).to(dev), sample)
+    log(f"HY (b): HybridRows built in {build_b:.1f} s, {layout_gb(H):.3f} "
+        f"GB on the card; matvec, Xᵀr and (X∘X)ᵀr (1 and 8 lanes) against "
+        f"(a)'s within {max(gaps):.3g} of the largest output; "
+        f"{HY_ITERS}-iteration solve's history within {gap_b:.3g} of "
+        f"(a)'s; 5 Xᵀr and matvec calls (1 and 8 lanes) bit "
+        f"for bit; tail row sums against f64: max |err| {h_abs:.3g}, "
+        f"{h_rel:.3g} of the row's sum of |products|, {h_zero} all-zero "
+        f"rows nonzero, largest |prefix sum| {h_pre:.6g}; a per-row f32 "
+        f"sum {h_own:.3g}  [{gpu}]")
+
+    # (c) the cross-layout check at f32 storage
+    n_c = HY_C_ROWS
+    Xc = M.SparseRows(ind[:n_c], va[:n_c], d)
+    layouts = {"BlockedEllRows": M.to_blocked_ell(Xc, T_DENSE, device=dev),
+               "HybridRows": M.to_hybrid(Xc, T_DENSE, device=dev),
+               "PermutedHybridRows": M.to_permuted_hybrid(Xc, T_DENSE,
+                                                          device=dev)}
+    hist, errs = {}, {}
+    s_c = np.sort(rng.choice(n_c, HY_SAMPLE, replace=False))
+    for name, L in layouts.items():
+        b = make_batch(L, y[:n_c], device=dev)
+        m, res, _ = solve_timed(b, cfg, dev)
+        hist[name] = res.history()
+        w_c = m.coefficients.means.cpu().numpy()
+        ex, sc = exact_margins(ind, va, w_c, s_c)
+        z = m.score(L).cpu().numpy()[s_c]
+        errs[name] = (float(np.abs(z - ex).max()),
+                      float((np.abs(z - ex) / np.maximum(sc, 1e-30)).max()))
+    gap_c = max(histories_agree(f"HY (c) {name} vs BlockedEllRows",
+                                hist["BlockedEllRows"], h)
+                for name, h in hist.items())
+    log(f"HY (c): {n_c} rows at f32 storage: {HY_ITERS}-iteration "
+        f"histories of HybridRows and PermutedHybridRows within {gap_c:.3g} "
+        f"of BlockedEllRows'; each model's margins on its layout against "
+        f"f64 on {HY_SAMPLE} rows (max |err|, of the row's sum of |terms|): "
+        + "; ".join(f"{k} {a:.3g}, {b:.3g}" for k, (a, b) in errs.items())
+        + f"  [{gpu}]")
+    del layouts
+    torch.cuda.empty_cache()
+
+    # the timings, with the host build of (d) ended
+    th.join()
+    if isinstance(built.get("sp"), BaseException):
+        raise built["sp"]
+    _, _, wall_a = solve_timed(bp, cfg, dev)
+    _, _, wall_b = solve_timed(bh, cfg, dev)
+    log(f"HY (a), (b): {HY_ITERS}-iteration solves timed after (d)'s host "
+        f"build: PermutedHybridRows {wall_a:.3f} s "
+        f"({rows * HY_ITERS / wall_a:.6g} rows*iters/s), HybridRows "
+        f"{wall_b:.3f} s ({rows * HY_ITERS / wall_b:.6g})  [{gpu}]")
+    csr_t = hybrid_tail_csr(P, transpose=True)
+    for name, form in ((KB.RMATVEC, KB.bucket_rmatvec),
+                       (KB.RMATVEC_TILED, KB.bucket_rmatvec_tiled)):
+        out = {}
+        for lanes, r in ((1, r1), (8, r8)):
+            bound_ms, bound_by = blocked_ell_bounds(P, lanes)[name]
+            with K.scope("on"):
+                ms = time_ms(lambda: form(P, r, round_r=False), n=50,
+                             warm=5)
+                ev = events_ms(lambda: form(P, r, round_r=False),
+                               cold=False)
+                ev_cold = events_ms(lambda: form(P, r, round_r=False),
+                                    cold=True)
+            plain = time_ms(lambda: KB.bucket_rmatvec_reference(
+                P, r, round_r=False), n=10, warm=2)
+            rr = r if lanes > 1 else r[:, None]
+            lib = time_ms(lambda: torch.sparse.mm(csr_t, rr), n=20, warm=3)
+            key = "hy" if lanes == 1 else "hy_lanes8"
+            out.update({f"{key}_ms": ms, f"{key}_device_ms_events": ev,
+                        f"{key}_device_ms_cold": ev_cold,
+                        f"{key}_plain_ms": plain, f"{key}_library_ms": lib,
+                        f"{key}_bound_ms": bound_ms,
+                        f"{key}_bound_by": bound_by})
+            log(f"HY (a): {name} unrounded at {lanes} lane(s): {ms:.4f} ms "
+                f"per call, {ev:.4f} ms device warm, {ev_cold:.4f} cold "
+                f"(events); plain {plain:.4f} ms; cuSPARSE f32 CSR "
+                f"{lib:.4f} ms; bound {bound_ms:.4f} ms  [{gpu}]")
+        HY_TIMES[name] = out
+    del csr_t
+
+    # (d) the sharded pair on MG_SLOTS slots of the card
+    sp = built["sp"]
+    S = MG_SLOTS
+    occ_s = sum(int(v.numel()) for v in sp.X.bucket_vals)
+    log(f"HY (d): ShardedPermutedHybridRows for {S} slots built in "
+        f"{built['s']:.1f} s on the host beside (a)-(c)'s checks; "
+        f"reckoned bucket slots {occ_s} ({occ_s * 6 / 1e9:.3f} GB at 4 + 2 "
+        f"B a slot) "
+        f"against one device's {occ} ({occ * 6 / 1e9:.3f} GB): "
+        f"{occ_s / occ:.2f}x, every slot carrying all {U} bucket columns; "
+        f"the whole layout {layout_gb(sp.X):.3f} GB  [{gpu}]")
+    mesh = make_mesh(n_devices=S)
+    t0 = time.perf_counter()
+    mb_p = mesh_batch(sp, mesh)
+    mb_h = mesh_batch(GLMBatch(M.shard_hybrid(H, S), bh.y, bh.weights,
+                               bh.offsets), mesh)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    del sp, built["sp"]
+    err_d = 0.0
+    for part in mb_p.X.parts:
+        n_l = int(part.shape[0])
+        for lanes in (1, 8):
+            r = torch.randn((n_l,) if lanes == 1 else (n_l, lanes),
+                            generator=gen, device=dev)
+            for sq in (False, True):
+                got = KB.bucket_rmatvec(part, r, square=sq, round_r=False)
+                want = KB.bucket_rmatvec_reference(part, r, square=sq,
+                                                   round_r=False)
+                torch.cuda.synchronize()
+                np.testing.assert_allclose(
+                    got.cpu().numpy(), want.cpu().numpy(), **TOL,
+                    err_msg=f"HY (d) slot rmatvec {lanes} lanes")
+                err_d = max(err_d, float((got - want).abs().max()))
+    out = {}
+    for label, mb, h_one in (("ShardedPermutedHybridRows", mb_p, ha),
+                             ("ShardedHybridRows", mb_h, res_b.history())):
+        K.reset_launch_counts()
+        _, res, wall = mesh_solve(mb, cfg, mesh)
+        lc = K.launch_counts()
+        hy_count(lc)
+        gap = histories_agree(f"HY (d) {label} vs one device", h_one,
+                              res.history())
+        out[label] = (wall, lc, gap)
+    lp = out["ShardedPermutedHybridRows"][1]
+    if lp.get(KB.RMATVEC, 0) == 0 or lp[KB.RMATVEC] % S:
+        raise AssertionError(f"HY (d): row 4 launched {lp}, not once per "
+                             f"slot and pass of {S} slots")
+    if out["ShardedHybridRows"][1]:
+        raise AssertionError("HY (d): the hybrid mesh launched "
+                             f"{out['ShardedHybridRows'][1]}")
+    log(f"HY (d): both on {S} slots (uploaded in {up_s:.2f} s); every "
+        f"slot's rmatvec (1 and 8 lanes, square off and on, unrounded) "
+        f"against its plain version within rtol=atol=1e-5 (max |err| "
+        f"{err_d:.3g}); "
+        + "; ".join(f"{k}: {HY_ITERS} iterations in {w:.3f} s, launches "
+                    f"{lc or 'none'}, history within {g:.3g} of one "
+                    f"device's" for k, (w, lc, g) in out.items())
+        + f"  [{gpu}]")
+    del mb_p, mb_h, H, bh
+    torch.cuda.empty_cache()
+
+    # (e) bench.py's 8-lane grid on (a)'s layout
+    gcfg = OptimizerConfig(max_iters=T_ITERS, tolerance=0.0, reg=l2(),
+                           reg_weight=0.0, history=T_HISTORY,
+                           lane_history_dtype="bfloat16")
+    K.reset_launch_counts()
+    (res_g, _), wall_g = grid_timed(bp, gcfg, S_GRID, dev,
+                                    device_results=True)
+    lg = K.launch_counts()
+    hy_count(lg)
+    its = res_g.iterations.cpu().numpy()
+    for i, h in enumerate(lane_histories(res_g)):
+        if not np.isfinite(h).all() or not h[-1] < h[0]:
+            raise AssertionError(f"HY (e) lane {i}: loss history {h}")
+    if lg.get(KB.RMATVEC, 0) == 0:
+        raise AssertionError(f"HY (e): the grid launched {lg}")
+    rate = rows * int(its.sum()) / wall_g
+    log(f"HY (e): the {len(S_GRID)}-lane grid (S_GRID, history "
+        f"{T_HISTORY} bf16, tolerance 0) on (a)'s layout: per-lane "
+        f"iterations {its.tolist()} in {wall_g:.3f} s: {rate:.6g} "
+        f"rows*sum(iters)/s against G (a)'s {GRID_RATE.get('G', 0.0):.6g} "
+        f"on BlockedEllRows ({rate / GRID_RATE['G']:.3f}x); trials "
+        f"{res_g.trials}; launches {lg}  [{gpu}]")
+    del res_g, bp, P
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------ phase CK: elastic runs
@@ -8182,8 +8679,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("S (c)")
     mg = phase_mesh(t2, s_ref, dev, gpu)
-    del t2
     lap("MG")
+    phase_hybrid(t2, dev, gpu)
+    del t2
+    torch.cuda.empty_cache()
+    lap("HY")
     state = phase_dense_owlqn(args, dev, gpu)
     phase_dense_tron(state, dev, gpu)
     phase_dense_grid(state, dev, gpu)
@@ -8228,6 +8728,8 @@ def main() -> int:
         entry["tf_launches"] = TF_LAUNCHES.get(entry["name"], 0)
         entry["tu_launches"] = TU_LAUNCHES.get(entry["name"], 0)
         entry["pf_launches"] = PF_LAUNCHES.get(entry["name"], 0)
+        entry["hy_launches"] = HY_LAUNCHES.get(entry["name"], 0)
+        entry.update(HY_TIMES.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,8 @@ solver state; its depth may follow a stall-driven controller
 On a mesh (`parallel.mesh.Mesh`) a batch is row-sharded over the slots:
 `mesh_batch` lays a resident batch out (X as a `SlotRows`, the scalar
 columns as this process's rows), `shard_blocked_ell_batch` builds the
-blocked-ELL layout for S shards under one column permutation, and a
+blocked-ELL layout for S shards under one column permutation
+(`shard_hybrid_batch` and `shard_permuted_batch` the hybrid ones), and a
 `ChunkedBatch` streams every chunk row-sharded over the local slots
 (`MeshChunkRing`; a blocked-ELL ladder laid for the mesh by
 `chunk_blocked_ell(n_shards=S)`).
@@ -36,16 +37,18 @@ import torch
 
 from photon_tpu_torch import profiling, telemetry
 from photon_tpu_torch.checkpoint.faults import kill_point
-from photon_tpu_torch.data.matrix import (BlockedEllRows,
-                                          ShardedBlockedEllRows, SparseRows,
-                                          as_tensor, shard_blocked_ell)
+from photon_tpu_torch.data.matrix import (
+    SHARDED_LAYOUTS, SINGLE_DEVICE_LAYOUTS, BlockedEllRows, HybridRows,
+    PermutedHybridRows, ShardedBlockedEllRows, ShardedHybridRows,
+    ShardedPermutedHybridRows, SparseRows, _cpu, as_tensor,
+    shard_blocked_ell, shard_hybrid, shard_permuted_hybrid)
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.parallel.mesh import (SlotRows, _slot_slice,
                                             pad_to_multiple, shard_rows)
 
 
 class GLMBatch(NamedTuple):
-    X: object  # dense (n, d) tensor, SparseRows or BlockedEllRows
+    X: object  # dense (n, d) tensor, SparseRows or a layout
     y: torch.Tensor  # (n,)
     weights: torch.Tensor  # (n,) — 0.0 marks padding
     offsets: torch.Tensor  # (n,)
@@ -70,8 +73,9 @@ def _f32(a, device) -> torch.Tensor:
 def make_batch(X, y, weights=None, offsets=None, device=None) -> GLMBatch:
     """A batch on ``device`` (default ``cuda``). A dense X from numpy
     arrives as f32; a floating tensor keeps its storage dtype; layouts
-    move as they are. A row-sharded X (`SlotRows`, e.g. from
-    `stream_to_device(mesh=...)`) stays on its mesh, and takes its
+    move as they are; a sharded layout stays a host container (the mesh
+    solve lays it out, `mesh_batch`). A row-sharded X (`SlotRows`, e.g.
+    from `stream_to_device(mesh=...)`) stays on its mesh, and takes its
     columns row-sharded over the same mesh — the weights given (only the
     producer knows which rows are padding), the offsets zero by
     default."""
@@ -80,8 +84,10 @@ def make_batch(X, y, weights=None, offsets=None, device=None) -> GLMBatch:
     dev = resolve_device(device)
     y = _f32(y, dev)
     n = int(y.shape[0])
-    if isinstance(X, (SparseRows, BlockedEllRows)):
+    if isinstance(X, (SparseRows,) + SINGLE_DEVICE_LAYOUTS):
         X = X.to(dev)
+    elif isinstance(X, SHARDED_LAYOUTS):
+        pass
     elif isinstance(X, torch.Tensor) and X.is_floating_point():
         X = X.to(dev)
     else:
@@ -113,7 +119,9 @@ def pad_batch(batch: GLMBatch, target_n: int) -> GLMBatch:
     (zero features, label, weight and offset), which every reduction
     ignores — e.g. to a multiple of a mesh's slot count. A
     `BlockedEllRows` grows its hot block, and the new rows' ``row_pos``
-    point at the zero slot (no tail)."""
+    point at the zero slot (no tail); a `HybridRows` grows its hot block
+    alone (the tail's rows are real rows), a `PermutedHybridRows` its hot
+    block and its ``row_bounds``, flat at the tail's length."""
     n = batch.n
     if target_n == n:
         return batch
@@ -121,10 +129,11 @@ def pad_batch(batch: GLMBatch, target_n: int) -> GLMBatch:
         raise ValueError(f"cannot pad {n} rows down to {target_n}")
     extra = target_n - n
     X = batch.X
-    if isinstance(X, (ShardedBlockedEllRows, SlotRows)):
+    if isinstance(X, SHARDED_LAYOUTS + (SlotRows,)):
         raise ValueError(
             "cannot pad a sharded batch (its per-shard layouts are laid "
-            "out already); pad before shard_blocked_ell_batch / mesh_batch")
+            "out already); pad before shard_blocked_ell_batch / "
+            "shard_hybrid_batch / shard_permuted_batch / mesh_batch")
 
     def grow(t, fill=0):
         pad = torch.full((extra,) + tuple(t.shape[1:]), fill, dtype=t.dtype,
@@ -135,6 +144,11 @@ def pad_batch(batch: GLMBatch, target_n: int) -> GLMBatch:
         B = sum(int(v.shape[0]) for v in X.ell_vals)
         X = dataclasses.replace(X, dense=grow(X.dense),
                                 row_pos=grow(X.row_pos, B))
+    elif isinstance(X, PermutedHybridRows):
+        X = dataclasses.replace(X, dense=grow(X.dense), row_bounds=grow(
+            X.row_bounds, int(X.row_bounds[-1])))
+    elif isinstance(X, HybridRows):
+        X = dataclasses.replace(X, dense=grow(X.dense))
     elif isinstance(X, SparseRows):
         X = SparseRows(grow(X.indices), grow(X.values), X.n_features)
     else:
@@ -154,18 +168,52 @@ def shard_blocked_ell_batch(batch: GLMBatch, n_shards: int,
     kernels on every slot's shard and closes each evaluation with one
     reduction. ``device_dense_dtype`` (e.g. ``torch.bfloat16``) recasts
     the hot block's storage."""
-    X = batch.X
-    if not isinstance(X, SparseRows):
+    if not isinstance(batch.X, SparseRows):
         raise TypeError("shard_blocked_ell_batch expects SparseRows")
-    n_pad = pad_to_multiple(batch.n, n_shards)
-    host = GLMBatch(SparseRows(_cpu(X.indices), _cpu(X.values),
-                               X.n_features),
-                    _cpu(batch.y), _cpu(batch.weights), _cpu(batch.offsets))
-    host = pad_batch(host, n_pad)
+    host = _host_batch(batch, n_shards)
     sb = shard_blocked_ell(host.X, n_shards, d_dense)
     if device_dense_dtype is not None:
         sb = dataclasses.replace(sb, dense=sb.dense.to(device_dense_dtype))
     return host._replace(X=sb)
+
+
+def _host_batch(batch: GLMBatch, n_shards: int) -> GLMBatch:
+    """The batch on the host, padded with weight-0 rows to a multiple of
+    ``n_shards``."""
+    X = batch.X
+    X = (SparseRows(_cpu(X.indices), _cpu(X.values), X.n_features)
+         if isinstance(X, SparseRows) else X.to("cpu"))
+    host = GLMBatch(X, _cpu(batch.y), _cpu(batch.weights),
+                    _cpu(batch.offsets))
+    return pad_batch(host, pad_to_multiple(batch.n, n_shards))
+
+
+def shard_hybrid_batch(batch: GLMBatch, n_shards: int,
+                       d_dense: int = 1024) -> GLMBatch:
+    """Pad a `SparseRows` or `HybridRows` batch to the mesh and re-lay its
+    X, on the host, as a `ShardedHybridRows` for ``n_shards`` slots
+    (reference: `shard_hybrid_batch`): each slot gets its own rows' flat
+    tail with local row ids."""
+    if not isinstance(batch.X, (SparseRows, HybridRows)):
+        raise TypeError("shard_hybrid_batch expects SparseRows or HybridRows")
+    host = _host_batch(batch, n_shards)
+    return host._replace(X=shard_hybrid(host.X, n_shards, d_dense))
+
+
+def shard_permuted_batch(batch: GLMBatch, n_shards: int,
+                         d_dense: int = 1024,
+                         device_dense_dtype=None) -> GLMBatch:
+    """Pad a `SparseRows` batch to the mesh and re-lay its X, on the host,
+    as a `ShardedPermutedHybridRows` for ``n_shards`` slots (reference:
+    `shard_permuted_batch`): each slot gets its own flat tail and
+    occurrence buckets under ONE global column permutation, so a mesh
+    solve runs the rmatvec kernel on every slot's buckets and closes each
+    evaluation with one reduction."""
+    if not isinstance(batch.X, SparseRows):
+        raise TypeError("shard_permuted_batch expects SparseRows")
+    host = _host_batch(batch, n_shards)
+    return host._replace(X=shard_permuted_hybrid(
+        host.X, n_shards, d_dense, device_dense_dtype=device_dense_dtype))
 
 
 def mesh_batch(batch: GLMBatch, mesh) -> GLMBatch:
@@ -177,9 +225,12 @@ def mesh_batch(batch: GLMBatch, mesh) -> GLMBatch:
     device — the layout the objective's per-slot row sums and the mesh's
     one reduction per evaluation read. A batch already row-sharded
     (`SlotRows` X, its columns row-sharded or in this solve form) keeps
-    its shards. A single-device `BlockedEllRows` cannot be row-sharded
-    (its buckets are laid for all rows); build the mesh form with
-    `shard_blocked_ell_batch`."""
+    its shards. A sharded hybrid (`ShardedHybridRows`,
+    `ShardedPermutedHybridRows`) gives each slot its shard's layout as a
+    `BlockedEllRows` shard does. A single-device layout cannot be
+    row-sharded (its tail is laid for all rows); build the mesh form with
+    `shard_blocked_ell_batch`, `shard_hybrid_batch` or
+    `shard_permuted_batch`."""
     X = batch.X
     if isinstance(X, SlotRows):
         if X.mesh is not mesh:
@@ -200,16 +251,32 @@ def mesh_batch(batch: GLMBatch, mesh) -> GLMBatch:
             "cannot be row-sharded); use the mesh form "
             "(data.dataset.shard_blocked_ell_batch(batch, "
             f"{mesh.n_slots})) under a mesh")
-    if isinstance(X, ShardedBlockedEllRows):
+    if isinstance(X, PermutedHybridRows):
+        raise ValueError(
+            "PermutedHybridRows is a single-device representation (its "
+            "bucketed tail cannot be row-sharded); use the sharded form "
+            "(data.dataset.shard_permuted_batch / shard_blocked_ell_batch) "
+            "or ShardedHybridRows under a mesh")
+    if isinstance(X, HybridRows):
+        raise ValueError(
+            "HybridRows is a single-device representation: its flat COO "
+            "tail cannot be row-sharded over a mesh (global row ids, "
+            "arbitrary nnz length). Re-lay it with "
+            f"data.dataset.shard_hybrid_batch(batch, {mesh.n_slots}) — the "
+            "per-shard-tail form a mesh solve runs — or use SparseRows "
+            "under a mesh.")
+    if isinstance(X, SHARDED_LAYOUTS):
         if X.n_shards != mesh.n_slots:
+            builder = {ShardedBlockedEllRows: "shard_blocked_ell_batch",
+                       ShardedHybridRows: "shard_hybrid_batch",
+                       ShardedPermutedHybridRows: "shard_permuted_batch"}
             raise ValueError(
-                f"ShardedBlockedEllRows has {X.n_shards} shards but the "
-                f"mesh has {mesh.n_slots} slots; rebuild with "
-                f"data.dataset.shard_blocked_ell_batch(batch, "
-                f"{mesh.n_slots})")
+                f"{type(X).__name__} has {X.n_shards} shards but the mesh "
+                f"has {mesh.n_slots} slots; rebuild with data.dataset."
+                f"{builder[type(X)]}(batch, {mesh.n_slots})")
         n_pad = int(X.dense.shape[0])
         Xs = SlotRows(mesh, tuple(
-            X.chunk(j).to(dev)
+            X.local(j).to(dev)
             for j, dev in zip(mesh.local_slots, mesh.slot_devices)),
             X.n_local)
     else:
@@ -230,11 +297,11 @@ def total_weight(batch: GLMBatch) -> float:
 
 def cast_features(batch: GLMBatch, dtype=torch.bfloat16) -> GLMBatch:
     """Recast feature STORAGE (dense X, SparseRows values, or every value
-    leaf of a BlockedEllRows) — typically to bf16. The X passes then
-    multiply in that dtype and accumulate in f32; labels, weights,
+    leaf of a layout, sharded or not) — typically to bf16. The X passes
+    then multiply in that dtype and accumulate in f32; labels, weights,
     offsets and all solver state stay f32."""
     X = batch.X
-    if isinstance(X, (BlockedEllRows, ShardedBlockedEllRows)):
+    if isinstance(X, SINGLE_DEVICE_LAYOUTS + SHARDED_LAYOUTS):
         X = X.astype(dtype)
     elif isinstance(X, SparseRows):
         X = SparseRows(X.indices, X.values.to(dtype), X.n_features)
@@ -259,12 +326,6 @@ def _pin(t: torch.Tensor) -> torch.Tensor:
     if not torch.cuda.is_available() or t.is_pinned():
         return t
     return t.pin_memory()
-
-
-def _cpu(a) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu()
-    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 def _map_leaves(X, fn):
@@ -797,10 +858,10 @@ def chunk_matrix(X, chunk_rows: int) -> ChunkedMatrix:
     dtype, anything else arrives as f32) or a `SparseRows` into a host
     ChunkedMatrix, the last chunk zero-padded to the uniform height;
     chunks are pinned when a GPU is present."""
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, SINGLE_DEVICE_LAYOUTS + SHARDED_LAYOUTS):
         raise TypeError(
-            "BlockedEllRows cannot be host-chunked (a device-locality "
-            "layout); chunk the SparseRows form instead — or use "
+            f"{type(X).__name__} cannot be host-chunked (device-locality "
+            "layout); chunk the SparseRows/dense form instead — or use "
             "chunk_blocked_ell to build a blocked-ELL chunk ladder from "
             "SparseRows")
     if chunk_rows < 1:

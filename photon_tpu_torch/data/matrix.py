@@ -10,10 +10,17 @@ of `photon_tpu/data/matrix.py`).
 - `ShardedBlockedEllRows`: the same laid for S row shards under one
   global permutation, on the host — what a streamed chunk ladder is cut
   from (`shard_blocked_ell`, one `BlockedEllRows` chunk per shard);
+- `HybridRows`: the hot columns dense, the cold tail flat row-sorted COO
+  in original column ids; `PermutedHybridRows`: the hot block plus a flat
+  row-major tail (matvec) and the occurrence buckets (rmatvec) in the
+  permuted space of `BlockedEllRows`; `ShardedHybridRows` and
+  `ShardedPermutedHybridRows`: both laid for S row shards on the host,
+  reaching a mesh one shard per slot (`local`);
 - `EntityBlocks`: a random effect's bucket of E entities' padded rows,
   lane-minor, whose lane passes multiply each lane by its own rows.
 
-The host builders (`to_blocked_ell`, `shard_blocked_ell`,
+The host builders (`to_blocked_ell`, `shard_blocked_ell`, `to_hybrid`,
+`to_permuted_hybrid`, `shard_hybrid`, `shard_permuted_hybrid`,
 `quantize_blocks`) stay numpy, copied from the reference, so every layout
 array, int8 block and scale equals the JAX package's bit for bit; only
 bf16 leaves numpy (as `torch.bfloat16`, since numpy has no bfloat16).
@@ -129,21 +136,7 @@ class BlockedEllRows:
         """The same layout with every tensor on ``device``: this layout
         itself when they all are there already, so the kernels' plan for
         it (`kernels.blocked_ell.layout_plan`) is kept."""
-        def mv(t):
-            return t.to(device, non_blocking=non_blocking)
-
-        moved = dataclasses.replace(
-            self, dense=mv(self.dense),
-            ell_pcols=tuple(map(mv, self.ell_pcols)),
-            ell_vals=tuple(map(mv, self.ell_vals)), row_pos=mv(self.row_pos),
-            bucket_rows=tuple(map(mv, self.bucket_rows)),
-            bucket_vals=tuple(map(mv, self.bucket_vals)),
-            perm_cols=mv(self.perm_cols), inv_perm=mv(self.inv_perm),
-            tail_rows=(None if self.tail_rows is None
-                       else mv(self.tail_rows)))
-        if all(a is b for a, b in zip(moved._tensors(), self._tensors())):
-            return self
-        return moved
+        return _to_device(self, device, non_blocking)
 
     def _tensors(self):
         """Every tensor of the layout, in field order."""
@@ -224,19 +217,26 @@ def _hot_cold_split(ind, val, d, d_dense, device_dense_dtype, device):
             val[hot].astype(np.float32), n, d_sel, device_dense_dtype,
             device)
     else:
-        # bincount over flat (row, pos) ids, chunked over row ranges so the
-        # float64 scratch stays bounded (the reference's host path)
-        dense = np.empty((n, d_sel), np.float32)
+        # each cell the float64 sum of its values in row order, rounded to
+        # f32: the reference's bincount over every (row, pos) cell, summed
+        # here over the occupied cells alone (a stable sort within each
+        # row brings a cell's slots together in their order), chunked over
+        # row ranges so the scratch stays bounded
+        dense = np.zeros((n, d_sel), np.float32)
+        key = np.where(hot, pos, d_sel)  # cold slots sort last in a row
         row_chunk = max(1, (1 << 27) // max(d_sel, 1))
         for r0 in range(0, n, row_chunk):
             r1 = min(n, r0 + row_chunk)
-            h = hot[r0:r1]
-            flat_ids = ((rows[r0:r1][h] - r0) * np.int64(d_sel)
-                        + pos[r0:r1][h])
-            dense[r0:r1] = np.bincount(
-                flat_ids, weights=val[r0:r1][h].astype(np.float64),
-                minlength=(r1 - r0) * d_sel,
-            ).astype(np.float32).reshape(r1 - r0, d_sel)
+            order = np.argsort(key[r0:r1], axis=1, kind="stable")
+            ks = np.take_along_axis(key[r0:r1], order, axis=1)
+            vs = np.take_along_axis(val[r0:r1], order, axis=1)
+            live = ks < d_sel
+            cells = (np.arange(r1 - r0)[:, None] * d_sel + ks)[live]
+            first = np.ones(cells.shape, bool)
+            first[1:] = cells[1:] != cells[:-1]
+            sums = np.bincount(np.cumsum(first) - 1,
+                               weights=vs[live].astype(np.float64))
+            dense[r0:r1].reshape(-1)[cells[first]] = sums.astype(np.float32)
         dense = torch.from_numpy(dense).to(device)
     cold = (~hot) & nnz_mask
     flat = cold.reshape(-1)           # row-major → tail rows ascending
@@ -290,6 +290,32 @@ def _occurrence_buckets(t_rows, t_vals, pcol, d_sel, e, order, u_counts):
         bucket_rows.append(br)
         bucket_vals.append(bv)
     return bucket_rows, bucket_vals
+
+
+def _tail_ranks(t_cols, counts_of, d_sel):
+    """The occurrence-bucket relabeling of the distinct tail columns:
+    (u_cols, inv, exponent per column, order, rank, pcol) with
+    ``counts_of(inv, u_counts)`` the count that sets each column's bucket
+    (the global count, or a sharded layout's largest per-shard one)."""
+    u_cols, inv, u_counts = np.unique(t_cols, return_inverse=True,
+                                      return_counts=True)
+    e = _bucket_exponents(counts_of(inv, u_counts))
+    order = np.lexsort((u_cols, e))   # bucket-major, col id within bucket
+    rank = np.empty(u_cols.size, np.int64)
+    rank[order] = np.arange(u_cols.size)
+    pcol = (d_sel + rank[inv]).astype(np.int32)
+    return u_cols, inv, u_counts, e, order, rank, pcol
+
+
+def _max_local_counts(s_ids, S: int):
+    """The bucket count of a sharded layout (for `_tail_ranks`): each
+    column's largest occurrence count over the S shards (``s_ids``: the
+    shard of each tail entry)."""
+    def counts_of(inv, u_counts):
+        cs = np.bincount(inv * S + s_ids, minlength=u_counts.size * S)
+        return cs.reshape(u_counts.size, S).max(axis=1)
+
+    return counts_of
 
 
 def _row_exponents(counts: np.ndarray) -> np.ndarray:
@@ -363,14 +389,9 @@ def to_blocked_ell(X: SparseRows, d_dense: int = 1024,
             n_features=d, n_prefix=d_sel,
             last_col_pos=int(inv_perm[d - 1]), tail_nnz=0)
 
-    u_cols, inv, u_counts = np.unique(t_cols, return_inverse=True,
-                                      return_counts=True)
+    u_cols, _, u_counts, e, order, _, pcol = _tail_ranks(
+        t_cols, lambda inv, c: c, d_sel)
     U = u_cols.size
-    e = _bucket_exponents(u_counts)
-    order = np.lexsort((u_cols, e))   # bucket-major, col id within bucket
-    rank = np.empty(U, np.int64)
-    rank[order] = np.arange(U)
-    pcol = (d_sel + rank[inv]).astype(np.int32)
     perm_cols, inv_perm = _column_perm(sel, u_cols, order, d)
     bucket_rows, bucket_vals = _occurrence_buckets(
         t_rows, t_vals, pcol, d_sel, e, order, u_counts)
@@ -460,6 +481,8 @@ class ShardedBlockedEllRows:
             n_features=self.n_features, n_prefix=self.n_prefix,
             last_col_pos=self.last_col_pos, tail_nnz=self.tail_nnz,
             tail_rows=torch.from_numpy(tail_rows))
+
+    local = chunk  # the shard accessor every sharded layout shares
 
     def shard_slice(self, lo: int, hi: int) -> "ShardedBlockedEllRows":
         """Shards ``lo:hi`` as one smaller ladder (views, no copies)."""
@@ -557,16 +580,9 @@ def shard_blocked_ell(X: SparseRows, n_shards: int,
     s_ids = (t_rows // n_local).astype(np.int64)       # (m,) shard per nnz
     loc_rows = (t_rows - s_ids * n_local).astype(np.int64)
 
-    u_cols, inv, u_counts = np.unique(t_cols, return_inverse=True,
-                                      return_counts=True)
+    u_cols, inv, _, e, order, rank, pcol = _tail_ranks(
+        t_cols, _max_local_counts(s_ids, S), d_sel)
     U = u_cols.size
-    # per-(column, shard) occurrence counts -> the largest per column
-    cs_counts = np.bincount(inv * S + s_ids, minlength=U * S).reshape(U, S)
-    e = _bucket_exponents(cs_counts.max(axis=1))
-    order = np.lexsort((u_cols, e))   # bucket-major, col id within bucket
-    rank = np.empty(U, np.int64)
-    rank[order] = np.arange(U)
-    pcol = (d_sel + rank[inv]).astype(np.int32)   # (m,) global prefix ids
     perm_cols, inv_perm = _column_perm(sel, u_cols, order, d)
     bucket_rows, bucket_vals = _sharded_occurrence_buckets(
         loc_rows, t_vals, rank[inv], s_ids, S, e, order)
@@ -604,6 +620,421 @@ def shard_blocked_ell(X: SparseRows, n_shards: int,
         perm_cols=t(perm_cols), inv_perm=t(inv_perm),
         n_features=d, n_prefix=d_sel + U,
         last_col_pos=int(inv_perm[d - 1]), tail_nnz=int(m_tot))
+
+
+def blocked_ell_from_scipy_csr(csr, d_dense: int = 1024,
+                               device_dense_dtype=None, strict: bool = False,
+                               device=None) -> BlockedEllRows:
+    """scipy CSR → `BlockedEllRows` in one call: `from_scipy_csr` (never
+    truncating: k is the largest row nnz; ``strict`` is passed on), then
+    `to_blocked_ell` on ``device``."""
+    return to_blocked_ell(from_scipy_csr(csr, strict=strict), d_dense,
+                          device_dense_dtype=device_dense_dtype,
+                          device=device)
+
+
+# ------------------------------------------------------- hybrid layouts
+def _to_device(X, device, non_blocking: bool = False):
+    """``X`` (a frozen layout) with every tensor field, and every tuple of
+    tensors, on ``device``: ``X`` itself when they all are there already,
+    so what is kept with it (a plan) stays."""
+    changes, same = {}, True
+    for f in dataclasses.fields(X):
+        v = getattr(X, f.name)
+        if not f.init or not isinstance(v, (torch.Tensor, tuple)):
+            continue
+        new = (v.to(device, non_blocking=non_blocking)
+               if isinstance(v, torch.Tensor) else
+               tuple(t.to(device, non_blocking=non_blocking) for t in v))
+        same &= (new is v if isinstance(v, torch.Tensor)
+                 else all(a is b for a, b in zip(new, v)))
+        changes[f.name] = new
+    return X if same else dataclasses.replace(X, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridRows:
+    """Hot columns dense, cold tail flat COO (reference:
+    `photon_tpu.data.matrix.HybridRows`).
+
+    The ``d_sel`` most frequent columns form a dense (n, d_sel) block at
+    their original ids ``dense_cols``; the other nonzeros are an exact-size
+    flat COO sorted by row (one zero sentinel entry when there are none).
+    Vectors stay in ORIGINAL column order. The matvec reduces the tail per
+    row by `sorted_segment_sum`; the Xᵀr sums it per column through the
+    layout's `SegmentPlan` (built on the first one and kept, like a
+    `SparseRows`'), then adds the hot block's product at ``dense_cols``."""
+
+    dense: torch.Tensor       # (n, d_sel) hot-column values
+    dense_cols: torch.Tensor  # (d_sel,) int32 original column ids
+    tail_rows: torch.Tensor   # (m,) int32 row ids, ascending
+    tail_cols: torch.Tensor   # (m,) int32 original column ids
+    tail_vals: torch.Tensor   # (m,) values (padding: 0.0)
+    n_features: int
+    plan: object = dataclasses.field(default=None, init=False,
+                                     compare=False, repr=False)
+
+    @property
+    def shape(self):
+        return (self.dense.shape[0], self.n_features)
+
+    def to(self, device, non_blocking: bool = False) -> "HybridRows":
+        """The same layout with every tensor on ``device`` (itself when
+        they are all there, its plan kept)."""
+        return _to_device(self, device, non_blocking)
+
+    def astype(self, dtype) -> "HybridRows":
+        """The hot block and the tail values in ``dtype``."""
+        return dataclasses.replace(self, dense=self.dense.to(dtype),
+                                   tail_vals=self.tail_vals.to(dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedHybridRows:
+    """A `HybridRows` laid for S row shards, held on the host (reference:
+    `photon_tpu.data.matrix.ShardedHybridRows`): rows split into S equal
+    contiguous shards, each shard's tail padded to one length m with
+    LOCAL row ids (padding: row n_local - 1, column 0, value 0, so a
+    shard's rows stay ascending). Shard ``i`` reaches a mesh slot as its
+    own `HybridRows` (`local`, `data.dataset.mesh_batch`)."""
+
+    dense: torch.Tensor       # (n, d_sel) hot block, global rows
+    dense_cols: torch.Tensor  # (d_sel,) int32
+    tail_rows: torch.Tensor   # (S, m) int32 LOCAL row ids, ascending
+    tail_cols: torch.Tensor   # (S, m) int32 original column ids
+    tail_vals: torch.Tensor   # (S, m) values (padding: 0.0)
+    n_features: int
+
+    @property
+    def shape(self):
+        return (self.dense.shape[0], self.n_features)
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.tail_rows.shape[0])
+
+    @property
+    def n_local(self) -> int:
+        return int(self.dense.shape[0]) // self.n_shards
+
+    def local(self, i: int) -> HybridRows:
+        """Shard ``i`` as a `HybridRows` (views, no copies)."""
+        nl = self.n_local
+        return HybridRows(self.dense[i * nl:(i + 1) * nl], self.dense_cols,
+                          self.tail_rows[i], self.tail_cols[i],
+                          self.tail_vals[i], self.n_features)
+
+    def astype(self, dtype) -> "ShardedHybridRows":
+        return dataclasses.replace(self, dense=self.dense.to(dtype),
+                                   tail_vals=self.tail_vals.to(dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class PermutedHybridRows:
+    """The hot block and the cold tail in the permuted column space of
+    `BlockedEllRows` (reference: `photon_tpu.data.matrix.
+    PermutedHybridRows`): hot columns at [0, d_sel), the U distinct tail
+    columns at [d_sel, n_prefix) in occurrence-bucket order, untouched
+    columns after. The tail is laid twice: row-major flat (``tail_pcols``,
+    ``tail_vals``, row s at ``row_bounds[s]:row_bounds[s + 1]``) for the
+    matvec, reduced per row by differences of one prefix sum; and as the
+    occurrence buckets for the Xᵀr, which the blocked-ELL rmatvec kernel
+    sums with the cotangent NOT rounded to the storage dtype (the
+    reference multiplies the upcast values by the f32 cotangent here).
+    Solver vectors live in the permuted space; `to_model_space` /
+    `from_model_space` translate at the public boundary."""
+
+    dense: torch.Tensor       # (n, d_sel) hot block
+    tail_pcols: torch.Tensor  # (m,) int32 PERMUTED column ids, row-major
+    tail_vals: torch.Tensor   # (m,) values
+    row_bounds: torch.Tensor  # (n + 1,) int32 tail bounds per row
+    bucket_rows: tuple        # per occurrence bucket: (c_b, k_b) int32 rows
+    bucket_vals: tuple        # per occurrence bucket: (c_b, k_b) values
+    perm_cols: torch.Tensor   # (d,) int32 original column per position
+    inv_perm: torch.Tensor    # (d,) int32 position of each original column
+    n_features: int
+    n_prefix: int             # d_sel + U distinct tail columns
+    last_col_pos: int         # permuted position of original column d - 1
+
+    @property
+    def shape(self):
+        return (self.dense.shape[0], self.n_features)
+
+    @property
+    def d_sel(self) -> int:
+        return int(self.dense.shape[1])
+
+    def from_model_space(self, v: torch.Tensor) -> torch.Tensor:
+        """Original-space (d,) vector (or (d, ...) stack) → permuted space."""
+        return torch.index_select(v, 0, self.perm_cols)
+
+    def to_model_space(self, w: torch.Tensor) -> torch.Tensor:
+        """Permuted-space (d,) vector (or (d, ...) stack) → original space."""
+        return torch.index_select(w, 0, self.inv_perm)
+
+    def to(self, device, non_blocking: bool = False) -> "PermutedHybridRows":
+        """The same layout with every tensor on ``device`` (itself when
+        they are all there, so the kernels' plan for it is kept)."""
+        return _to_device(self, device, non_blocking)
+
+    def astype(self, dtype) -> "PermutedHybridRows":
+        """Every value leaf (hot block, flat tail, occurrence buckets) in
+        ``dtype``."""
+        return dataclasses.replace(
+            self, dense=self.dense.to(dtype),
+            tail_vals=self.tail_vals.to(dtype),
+            bucket_vals=tuple(v.to(dtype) for v in self.bucket_vals))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedPermutedHybridRows:
+    """A `PermutedHybridRows` laid for S row shards under ONE global column
+    permutation, held on the host (reference: `photon_tpu.data.matrix.
+    ShardedPermutedHybridRows`): per shard a row-major flat tail padded to
+    one length (padding: column d_sel, value 0, past the shard's last row
+    bound) and occurrence buckets with LOCAL row ids. Every shard carries
+    all U bucket columns (a column a shard lacks is zero slots), so the
+    bucket work a shard does does not shrink with S. Shard ``i`` reaches a
+    mesh slot as its own `PermutedHybridRows` (`local`)."""
+
+    dense: torch.Tensor       # (n, d_sel) hot block, global rows
+    tail_pcols: torch.Tensor  # (S, m) int32 PERMUTED column ids
+    tail_vals: torch.Tensor   # (S, m) values (padding: 0)
+    row_bounds: torch.Tensor  # (S, n_local + 1) int32
+    bucket_rows: tuple        # per occurrence bucket: (S, c_b, k_b) LOCAL
+    bucket_vals: tuple        # per occurrence bucket: (S, c_b, k_b)
+    perm_cols: torch.Tensor   # (d,) int32
+    inv_perm: torch.Tensor    # (d,) int32
+    n_features: int
+    n_prefix: int
+    last_col_pos: int
+
+    @property
+    def shape(self):
+        return (self.dense.shape[0], self.n_features)
+
+    @property
+    def d_sel(self) -> int:
+        return int(self.dense.shape[1])
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.tail_pcols.shape[0])
+
+    @property
+    def n_local(self) -> int:
+        return int(self.dense.shape[0]) // self.n_shards
+
+    def local(self, i: int) -> PermutedHybridRows:
+        """Shard ``i`` as a `PermutedHybridRows` (views, no copies)."""
+        nl = self.n_local
+        return PermutedHybridRows(
+            dense=self.dense[i * nl:(i + 1) * nl],
+            tail_pcols=self.tail_pcols[i], tail_vals=self.tail_vals[i],
+            row_bounds=self.row_bounds[i],
+            bucket_rows=tuple(b[i] for b in self.bucket_rows),
+            bucket_vals=tuple(b[i] for b in self.bucket_vals),
+            perm_cols=self.perm_cols, inv_perm=self.inv_perm,
+            n_features=self.n_features, n_prefix=self.n_prefix,
+            last_col_pos=self.last_col_pos)
+
+    def from_model_space(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.index_select(v, 0, self.perm_cols.to(v.device))
+
+    def to_model_space(self, w: torch.Tensor) -> torch.Tensor:
+        return torch.index_select(w, 0, self.inv_perm.to(w.device))
+
+    def astype(self, dtype) -> "ShardedPermutedHybridRows":
+        return dataclasses.replace(
+            self, dense=self.dense.to(dtype),
+            tail_vals=self.tail_vals.to(dtype),
+            bucket_vals=tuple(v.to(dtype) for v in self.bucket_vals))
+
+
+# the permuted-space layouts: a solve on one runs in its column space
+PERMUTED_LAYOUTS = (BlockedEllRows, PermutedHybridRows)
+# the layouts laid for one device's rows: a mesh takes their sharded forms
+SINGLE_DEVICE_LAYOUTS = (BlockedEllRows, HybridRows, PermutedHybridRows)
+# the host containers laid for S row shards, one per mesh slot
+SHARDED_LAYOUTS = (ShardedBlockedEllRows, ShardedHybridRows,
+                   ShardedPermutedHybridRows)
+
+
+def to_hybrid(X: SparseRows, d_dense: int = 1024, device_dense_dtype=None,
+              device=None) -> HybridRows:
+    """Split padded COO rows into a `HybridRows` on ``device`` (default
+    ``cuda``): the ``d_dense`` columns with the most nonzeros dense, the
+    rest compacted into exact-size flat COO sorted by row (the reference's
+    numpy pass, the same arrays). ``device_dense_dtype`` builds the hot
+    block on the device in that dtype, as `to_blocked_ell`."""
+    from photon_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    ind, val = _host(X.indices), _host(X.values)
+    dense, sel, t_rows, t_cols, t_vals = _hot_cold_split(
+        ind, val, X.n_features, d_dense, device_dense_dtype, dev)
+    if t_rows.size == 0:  # one zero sentinel keeps the arrays non-empty
+        t_rows = np.zeros(1, np.int64)
+        t_cols = np.zeros(1, np.int64)
+        t_vals = np.zeros(1, np.float32)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a.astype(dtype))).to(dev)
+
+    return HybridRows(dense, up(sel, np.int32), up(t_rows, np.int32),
+                      up(t_cols, np.int32), up(t_vals, np.float32),
+                      X.n_features)
+
+
+def to_permuted_hybrid(X: SparseRows, d_dense: int = 1024,
+                       device_dense_dtype=None,
+                       device=None) -> PermutedHybridRows:
+    """Build the `PermutedHybridRows` of padded COO rows on ``device``
+    (default ``cuda``): the reference's numpy pass (the same arrays as
+    `photon_tpu.data.matrix.to_permuted_hybrid`), sharing the hot/cold
+    split, the column permutation and the occurrence buckets with
+    `to_blocked_ell`."""
+    from photon_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    ind, val = _host(X.indices), _host(X.values)
+    n, d = ind.shape[0], X.n_features
+    d_sel = min(d_dense, d)
+    dense, sel, t_rows, t_cols, t_vals = _hot_cold_split(
+        ind, val, d, d_dense, device_dense_dtype, dev)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if t_rows.size == 0:
+        perm_cols, inv_perm = _column_perm(
+            sel, np.zeros(0, np.int64), np.zeros(0, np.int64), d)
+        return PermutedHybridRows(
+            dense=dense, tail_pcols=up(np.zeros(1, np.int32)),
+            tail_vals=up(np.zeros(1, np.float32)),
+            row_bounds=up(np.zeros(n + 1, np.int32)),
+            bucket_rows=(), bucket_vals=(), perm_cols=up(perm_cols),
+            inv_perm=up(inv_perm), n_features=d, n_prefix=d_sel,
+            last_col_pos=int(inv_perm[d - 1]))
+    row_bounds = np.searchsorted(t_rows, np.arange(n + 1)).astype(np.int32)
+    u_cols, _, u_counts, e, order, _, pcol = _tail_ranks(
+        t_cols, lambda inv, c: c, d_sel)
+    perm_cols, inv_perm = _column_perm(sel, u_cols, order, d)
+    bucket_rows, bucket_vals = _occurrence_buckets(
+        t_rows, t_vals, pcol, d_sel, e, order, u_counts)
+    return PermutedHybridRows(
+        dense=dense, tail_pcols=up(pcol),
+        tail_vals=up(t_vals.astype(np.float32)), row_bounds=up(row_bounds),
+        bucket_rows=tuple(map(up, bucket_rows)),
+        bucket_vals=tuple(map(up, bucket_vals)),
+        perm_cols=up(perm_cols), inv_perm=up(inv_perm), n_features=d,
+        n_prefix=d_sel + u_cols.size, last_col_pos=int(inv_perm[d - 1]))
+
+
+def _cpu(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def shard_hybrid(X, n_shards: int, d_dense: int = 1024) -> ShardedHybridRows:
+    """Re-lay a `HybridRows` (or padded COO rows, through `to_hybrid`) for
+    ``n_shards`` row shards, on the host (the reference's pass: each
+    shard's slice of the row-sorted tail, the sentinel and any padding
+    dropped, padded to the longest shard's length). Rows must divide
+    ``n_shards`` (pad the batch first); the hot block stays where it
+    is."""
+    if isinstance(X, SparseRows):
+        X = to_hybrid(X, d_dense, device="cpu")
+    n = int(X.dense.shape[0])
+    if n % n_shards != 0:
+        raise ValueError(
+            f"{n} rows do not divide {n_shards} shards; pad the batch first "
+            "(data.dataset.shard_hybrid_batch)")
+    n_local = n // n_shards
+    tv = _cpu(X.tail_vals)
+    keep = (tv != 0).numpy()   # drop the sentinel / any padding
+    tr, tc = _host(X.tail_rows)[keep], _host(X.tail_cols)[keep]
+    tv = tv[torch.from_numpy(keep)]
+    bounds = np.searchsorted(tr, np.arange(n_shards + 1) * n_local)
+    m = max(1, int(np.max(np.diff(bounds))))
+    rows = np.full((n_shards, m), n_local - 1, np.int32)
+    cols = np.zeros((n_shards, m), np.int32)
+    vals = torch.zeros((n_shards, m), dtype=tv.dtype)
+    for s in range(n_shards):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        c = hi - lo
+        rows[s, :c] = tr[lo:hi] - s * n_local
+        cols[s, :c] = tc[lo:hi]
+        vals[s, :c] = tv[lo:hi]
+    return ShardedHybridRows(X.dense, _cpu(X.dense_cols),
+                             torch.from_numpy(rows), torch.from_numpy(cols),
+                             vals, X.n_features)
+
+
+def shard_permuted_hybrid(X: SparseRows, n_shards: int, d_dense: int = 1024,
+                          device_dense_dtype=None
+                          ) -> ShardedPermutedHybridRows:
+    """Build the `ShardedPermutedHybridRows` of padded COO rows on the host
+    (the reference's numpy pass, the same arrays): a GLOBAL column
+    permutation (hot prefix from global frequencies, tail ranks by the
+    largest per-shard occurrence count) and per-shard flat tails and
+    occurrence buckets with local rows. Rows must divide ``n_shards``
+    (pad the batch first); ``device_dense_dtype`` builds the hot block in
+    that dtype."""
+    ind, val = _host(X.indices), _host(X.values)
+    n, d = ind.shape[0], X.n_features
+    if n % n_shards != 0:
+        raise ValueError(
+            f"{n} rows do not divide {n_shards} shards; pad the batch first "
+            "(data.dataset.shard_permuted_batch)")
+    n_local = n // n_shards
+    d_sel = min(d_dense, d)
+    dense, sel, t_rows, t_cols, t_vals = _hot_cold_split(
+        ind, val, d, d_dense, device_dense_dtype, torch.device("cpu"))
+    t_vals = t_vals.astype(np.float32)
+    S = n_shards
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    if t_rows.size == 0:
+        perm_cols, inv_perm = _column_perm(
+            sel, np.zeros(0, np.int64), np.zeros(0, np.int64), d)
+        return ShardedPermutedHybridRows(
+            dense=dense, tail_pcols=t(np.zeros((S, 1), np.int32)),
+            tail_vals=t(np.zeros((S, 1), np.float32)),
+            row_bounds=t(np.zeros((S, n_local + 1), np.int32)),
+            bucket_rows=(), bucket_vals=(), perm_cols=t(perm_cols),
+            inv_perm=t(inv_perm), n_features=d, n_prefix=d_sel,
+            last_col_pos=int(inv_perm[d - 1]))
+    s_ids = (t_rows // n_local).astype(np.int64)       # (m,) shard per nnz
+    loc_rows = (t_rows - s_ids * n_local).astype(np.int64)
+
+    u_cols, inv, _, e, order, rank, pcol = _tail_ranks(
+        t_cols, _max_local_counts(s_ids, S), d_sel)
+    perm_cols, inv_perm = _column_perm(sel, u_cols, order, d)
+    # per-shard row-major flat tails (t_rows ascending: a shard's slice is
+    # contiguous); padding (pcol d_sel, value 0) sits past the last bound
+    sb = np.searchsorted(t_rows, np.arange(S + 1) * n_local)
+    m = max(1, int(np.max(np.diff(sb))))
+    tail_pcols = np.full((S, m), d_sel, np.int32)
+    tail_vals = np.zeros((S, m), np.float32)
+    row_bounds = np.zeros((S, n_local + 1), np.int32)
+    for s in range(S):
+        lo, hi = int(sb[s]), int(sb[s + 1])
+        tail_pcols[s, :hi - lo] = pcol[lo:hi]
+        tail_vals[s, :hi - lo] = t_vals[lo:hi]
+        row_bounds[s] = np.searchsorted(
+            loc_rows[lo:hi], np.arange(n_local + 1)).astype(np.int32)
+    bucket_rows, bucket_vals = _sharded_occurrence_buckets(
+        loc_rows, t_vals, rank[inv], s_ids, S, e, order)
+    return ShardedPermutedHybridRows(
+        dense=dense, tail_pcols=t(tail_pcols), tail_vals=t(tail_vals),
+        row_bounds=t(row_bounds), bucket_rows=tuple(map(t, bucket_rows)),
+        bucket_vals=tuple(map(t, bucket_vals)), perm_cols=t(perm_cols),
+        inv_perm=t(inv_perm), n_features=d, n_prefix=d_sel + u_cols.size,
+        last_col_pos=int(inv_perm[d - 1]))
 
 
 # --------------------------------------------------------------- X passes
@@ -693,23 +1124,70 @@ def _bell_matvec(X: BlockedEllRows, w: torch.Tensor) -> torch.Tensor:
     return tail(X, w, out=hot)
 
 
-def _bell_rmatvec(X: BlockedEllRows, r: torch.Tensor,
-                  square: bool = False) -> torch.Tensor:
-    """Xᵀr (or (X∘X)ᵀr) in prefix order, in one (d,)/(d, G) f32 result:
+def _bell_rmatvec(X, r: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """Xᵀr (or (X∘X)ᵀr) of a permuted layout (`BlockedEllRows` or
+    `PermutedHybridRows`) in prefix order, in one (d,)/(d, G) f32 result:
     the hot block's transpose product (for ``square`` each row chunk
     squared in the storage dtype as it goes) in ``[:d_sel]``, the
     occurrence-bucket block written by the kernel seam into
     ``[d_sel:n_prefix]``, zeros for the untouched suffix. r: (n,) or
-    (n, G)."""
+    (n, G). The blocked-ELL block rounds r to the storage dtype; the
+    permuted hybrid's does not (each reference's recipe)."""
     out = torch.empty((X.n_features,) + tuple(r.shape[1:]),
                       dtype=torch.float32, device=r.device)
     out[:X.d_sel] = _mm_f32(X.dense.t(), r.to(X.dense.dtype), square=square)
     if X.bucket_vals:
         rmv = (KB.bucket_rmatvec if K.route(X, r) == "fused"
                else KB.bucket_rmatvec_tiled)
-        rmv(X, r, square=square, out=out[X.d_sel:X.n_prefix])
+        rmv(X, r, square=square, out=out[X.d_sel:X.n_prefix],
+            round_r=isinstance(X, BlockedEllRows))
     out[X.n_prefix:].zero_()
     return out
+
+
+def _gather_product(vals: torch.Tensor, vec: torch.Tensor,
+                    idx: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """(m,) or (m, G) f32 products ``f32(vals) · vec[idx]`` (the values
+    squared first for ``square``), the cotangent or coefficients taken
+    unrounded, as the reference's hybrids."""
+    v = vals.to(torch.float32)
+    if square:
+        v = v * v
+    g = vec.index_select(0, idx)
+    return v[:, None] * g if g.dim() == 2 else v * g
+
+
+def _hybrid_matvec(X: HybridRows, w: torch.Tensor) -> torch.Tensor:
+    """w: (d,) or (d, G) in original order. The tail's products summed
+    per row by `sorted_segment_sum` over the sorted ``tail_rows``, plus
+    the hot block against bf16(w[dense_cols]) (storage dtype)."""
+    tail = sorted_segment_sum(_gather_product(X.tail_vals, w, X.tail_cols),
+                              X.tail_rows, int(X.dense.shape[0]))
+    return tail + _mm_f32(X.dense,
+                          w.index_select(0, X.dense_cols).to(X.dense.dtype))
+
+
+def _hybrid_rmatvec(X: HybridRows, r: torch.Tensor,
+                    square: bool = False) -> torch.Tensor:
+    """Xᵀr (or (X∘X)ᵀr): each live tail entry's product summed per column
+    by the layout's `SegmentPlan` (no atomic add: the same bits every
+    run), then the hot block's transpose product written at the unique
+    ``dense_cols`` (which hold no tail entry) on top of what is there."""
+    plan = segment_plan(X)
+    out = segment_sums(plan, _gather_product(
+        X.tail_vals.index_select(0, plan.src), r, plan.rows, square))
+    hot = _mm_f32(X.dense.t(), r.to(X.dense.dtype), square=square)
+    cols = X.dense_cols.long()
+    return out.index_copy_(0, cols, out.index_select(0, cols) + hot)
+
+
+def _perm_matvec(X: PermutedHybridRows, w: torch.Tensor) -> torch.Tensor:
+    """w: (d,) or (d, G) PERMUTED. The hot block against bf16(w[:d_sel])
+    (storage dtype), plus the flat tail's products reduced per row by
+    differences of one prefix sum over ``row_bounds``."""
+    hot = _mm_f32(X.dense, w[:X.d_sel].to(X.dense.dtype))
+    return hot + _tail_rowsum(
+        _gather_product(X.tail_vals, w, X.tail_pcols), X.row_bounds)
 
 
 def _sparse_rmatvec(X: SparseRows, r: torch.Tensor,
@@ -759,12 +1237,17 @@ def matvec(X, w: torch.Tensor) -> torch.Tensor:
 
     Dense storage multiplies in its own dtype and accumulates in f32.
     Sparse rows gather ``w[indices]`` and take the rowwise dot in f32.
-    `BlockedEllRows` takes w in its permuted space. A row-sharded
-    `SlotRows` gives this process's rows, slot by slot."""
+    `BlockedEllRows` and `PermutedHybridRows` take w in their permuted
+    space, `HybridRows` in original order. A row-sharded `SlotRows` gives
+    this process's rows, slot by slot."""
     if isinstance(X, SlotRows):
         return _slot_matvec(X, w, matvec)
     if isinstance(X, BlockedEllRows):
         return _bell_matvec(X, w)
+    if isinstance(X, PermutedHybridRows):
+        return _perm_matvec(X, w)
+    if isinstance(X, HybridRows):
+        return _hybrid_matvec(X, w)
     if isinstance(X, SparseRows):
         eq = "nk,nkg->ng" if w.dim() == 2 else "nk,nk->n"
         return torch.einsum(eq, X.values.to(torch.float32),
@@ -781,8 +1264,10 @@ def rmatvec(X, r: torch.Tensor) -> torch.Tensor:
     `SlotRows` gives one partial per local slot (`SlotParts`)."""
     if isinstance(X, SlotRows):
         return _slot_rmatvec(X, r, rmatvec)
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, PERMUTED_LAYOUTS):
         return _bell_rmatvec(X, r)
+    if isinstance(X, HybridRows):
+        return _hybrid_rmatvec(X, r)
     if isinstance(X, SparseRows):
         return _sparse_rmatvec(X, r)
     if isinstance(X, EntityBlocks):
@@ -815,8 +1300,10 @@ def sq_rmatvec(X, r: torch.Tensor) -> torch.Tensor:
     partials for a `SlotRows`)."""
     if isinstance(X, SlotRows):
         return _slot_rmatvec(X, r, sq_rmatvec)
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, PERMUTED_LAYOUTS):
         return _bell_rmatvec(X, r, square=True)
+    if isinstance(X, HybridRows):
+        return _hybrid_rmatvec(X, r, square=True)
     if isinstance(X, SparseRows):
         return _sparse_rmatvec(X, r, square=True)
     return _mm_f32(X.t(), r.to(X.dtype), square=True)
@@ -841,10 +1328,10 @@ def _gram_too_wide(X, d: int) -> None:
 
 
 def _densify(X) -> torch.Tensor:
-    """An f32 (n, d) copy of a sparse layout (`BlockedEllRows` in its
+    """An f32 (n, d) copy of a sparse layout (a permuted layout in its
     permuted space, the space of every other X pass on it)."""
     n, d = X.shape
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, PERMUTED_LAYOUTS):
         dev = X.dense.device
         rows = torch.zeros((n, d), dtype=torch.float32, device=dev)
         rows[:, :X.d_sel] += X.dense.to(torch.float32)
@@ -856,6 +1343,13 @@ def _densify(X) -> torch.Tensor:
                             bv.to(torch.float32), accumulate=True)
             off += c_b
         return rows
+    if isinstance(X, HybridRows):
+        rows = torch.zeros((n, d), dtype=torch.float32,
+                           device=X.dense.device)
+        rows[:, X.dense_cols.long()] += X.dense.to(torch.float32)
+        rows.index_put_((X.tail_rows.long(), X.tail_cols.long()),
+                        X.tail_vals.to(torch.float32), accumulate=True)
+        return rows
     rows = torch.zeros((n, d), dtype=torch.float32,
                        device=X.values.device)
     ridx = torch.arange(n, device=rows.device)[:, None].expand_as(X.indices)
@@ -866,12 +1360,13 @@ def _densify(X) -> torch.Tensor:
 
 def weighted_gram(X, r: torch.Tensor) -> torch.Tensor:
     """Xᵀ diag(r) X -> (d, d) f32, for FULL variances on small feature
-    spaces. Sparse layouts are densified, so d is capped at
-    `MAX_GRAM_FEATURES` (the reference's guard); dense storage is taken in
-    f32 whatever its dtype. A `SlotRows` gives per-slot partials."""
+    spaces. Sparse layouts are densified (a permuted one in its permuted
+    space), so d is capped at `MAX_GRAM_FEATURES` (the reference's guard);
+    dense storage is taken in f32 whatever its dtype. A `SlotRows` gives
+    per-slot partials."""
     if isinstance(X, SlotRows):
         return _slot_rmatvec(X, r, weighted_gram)
-    if isinstance(X, (SparseRows, BlockedEllRows)):
+    if isinstance(X, (SparseRows,) + SINGLE_DEVICE_LAYOUTS):
         _gram_too_wide(X, X.n_features)
         rows = _densify(X)
     else:
@@ -890,7 +1385,7 @@ def _host_col(dense, j: int) -> np.ndarray:
 def last_column_is_intercept(X) -> bool:
     """True when the design matrix's last column is constant 1 — the
     intercept-last convention of the feature builders."""
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, PERMUTED_LAYOUTS):
         if X.last_col_pos < X.d_sel:  # an intercept is maximally hot
             return bool((_host_col(X.dense, X.last_col_pos) == 1.0).all())
         if X.last_col_pos >= X.n_prefix:
@@ -909,6 +1404,18 @@ def last_column_is_intercept(X) -> bool:
                             and (np.sort(r[real]) == np.arange(n)).all())
             off += c_b
         return False
+    if isinstance(X, HybridRows):
+        d = X.n_features
+        cols = _host(X.dense_cols)
+        if d - 1 in cols:  # an intercept is maximally hot: dense block
+            return bool((_host_col(X.dense, int(np.flatnonzero(
+                cols == d - 1)[0])) == 1.0).all())
+        tc = _host(X.tail_cols)
+        tv = _host(X.tail_vals.to(torch.float32))
+        hit = (tc == d - 1) & (tv != 0.0)
+        per_row = np.zeros(X.shape[0], bool)
+        per_row[_host(X.tail_rows)[hit]] = True
+        return bool(per_row.all() and (tv[hit] == 1.0).all())
     if isinstance(X, SparseRows):
         d = X.n_features
         ind = _host(X.indices)
@@ -920,6 +1427,21 @@ def last_column_is_intercept(X) -> bool:
     return bool((_host_col(X, X.shape[1] - 1) == 1.0).all())
 
 
+def nnz_stats(X) -> tuple:
+    """(rows, stored entries) of a design matrix, as the reference counts
+    them: padded slots for `SparseRows`, the hot block plus the tail for
+    the permuted and blocked-ELL layouts, n·d otherwise."""
+    n = int(X.shape[0])
+    if isinstance(X, SparseRows):
+        return n, int(np.prod(tuple(X.values.shape)))
+    if isinstance(X, PermutedHybridRows):
+        return n, int(np.prod(tuple(X.dense.shape))) + int(
+            X.tail_vals.shape[0])
+    if isinstance(X, (BlockedEllRows, ShardedBlockedEllRows)):
+        return n, int(np.prod(tuple(X.dense.shape))) + X.tail_nnz
+    return n, int(np.prod(tuple(X.shape)))
+
+
 # ------------------------------------------------ sorted segment sums
 _SCAN_BLOCK = 1024
 
@@ -929,33 +1451,38 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     run. ``torch.cumsum`` of a float CUDA tensor with one column is one
     CUB device scan (decoupled look-back), whose additions group by the
     timing of its blocks: the same input gives other bits from call to
-    call, so that case takes `_blocked_prefix_sum`. Several columns scan
-    one thread per column, in row order, and the CPU's scan is
-    sequential: both keep ``torch.cumsum``."""
-    single = x.dim() == 1 or x[0].numel() == 1
-    if x.is_cuda and x.is_floating_point() and single:
+    call. Several columns scan one thread per column, in row order: a
+    fixed order, but as many dependent steps as rows. Both take
+    `_blocked_prefix_sum` on the card. The CPU's scan is sequential and
+    keeps ``torch.cumsum``."""
+    if x.is_cuda and x.is_floating_point() and (
+            x.dim() in (1, 2) or x[0].numel() == 1):
         return _blocked_prefix_sum(x)
     return torch.cumsum(x, dim=0)
 
 
 def _blocked_prefix_sum(x: torch.Tensor) -> torch.Tensor:
-    """`prefix_sum` in a fixed order: the values cut into rows of 1,024,
-    each row scanned along itself, and the row totals prefix-summed the
-    same way, recursively, then added back."""
-    v = x.reshape(-1)
-    n = int(v.shape[0])
+    """`prefix_sum` in a fixed order: the rows cut into blocks of 1,024,
+    each block scanned along its rows, and the block totals prefix-summed
+    the same way, recursively, then added back. One column scans as a
+    flat vector (each block one row of 1,024 values); (n, G) columns as
+    (blocks, 1,024, G), one thread per block and column."""
+    v = x.reshape(-1) if x.dim() == 1 or x[0].numel() == 1 else x
+    n, rest = int(v.shape[0]), tuple(v.shape[1:])
     m = _SCAN_BLOCK
     rows = max(-(-n // m), 1)
-    blocks = torch.nn.functional.pad(v, (0, rows * m - n)).reshape(rows, m)
+    pad = (0, 0) * len(rest) + (0, rows * m - n)
+    blocks = torch.nn.functional.pad(v, pad).reshape((rows, m) + rest)
     if rows == 1:
-        # a second row keeps the scan along the row (one row alone is
-        # the single-column case again)
+        # a second block keeps the scan along the block (one block of one
+        # column alone is the single-column case again)
         out = torch.cumsum(torch.cat([blocks, torch.zeros_like(blocks)]),
                            dim=1)[0]
     else:
         inner = torch.cumsum(blocks, dim=1)
         carry = _blocked_prefix_sum(inner[:, -1])
-        out = torch.cat([inner[:1], inner[1:] + carry[:-1, None]]).reshape(-1)
+        out = torch.cat([inner[:1], inner[1:] + carry[:-1, None]]).reshape(
+            (rows * m,) + rest)
     return out[:n].reshape(x.shape)
 
 
@@ -997,7 +1524,8 @@ _SEGMENT_PLAN_BUILDS = 0
 
 @dataclasses.dataclass(frozen=True)
 class SegmentPlan:
-    """The column sums of a `SparseRows` matrix, planned once: its live
+    """The column sums of a `SparseRows` matrix (or of a `HybridRows`' flat
+    tail), planned once: its live
     slots (value ≠ 0, so padding never touches column 0) sorted by column,
     stably, and the levels that sum each column's run. Indices are int32."""
 
@@ -1043,19 +1571,24 @@ def _plan_levels(keys: torch.Tensor) -> tuple:
     return tuple(levels)
 
 
-def segment_plan(X: SparseRows) -> SegmentPlan:
-    """``X``'s `SegmentPlan`, built on the first call for this matrix
+def segment_plan(X) -> SegmentPlan:
+    """The `SegmentPlan` of a `SparseRows` (its padded slots) or of a
+    `HybridRows` (its flat tail), built on the first call for this matrix
     object (on its device) and kept with it."""
     global _SEGMENT_PLAN_BUILDS
     if X.plan is None:
-        _, k = X.indices.shape
-        live = torch.nonzero(X.values.reshape(-1) != 0).squeeze(1)
-        keys, order = torch.sort(X.indices.reshape(-1).long()[live],
-                                 stable=True)
+        if isinstance(X, HybridRows):
+            cols, vals = X.tail_cols, X.tail_vals
+        else:
+            cols, vals = X.indices.reshape(-1), X.values.reshape(-1)
+        live = torch.nonzero(vals != 0).squeeze(1)
+        keys, order = torch.sort(cols.long()[live], stable=True)
         src = live[order]
+        rows = (X.tail_rows.index_select(0, src)
+                if isinstance(X, HybridRows) else
+                torch.div(src, X.indices.shape[1], rounding_mode="floor"))
         object.__setattr__(X, "plan", SegmentPlan(
-            _i32(src), _i32(torch.div(src, k, rounding_mode="floor")),
-            _plan_levels(keys), X.n_features))
+            _i32(src), _i32(rows), _plan_levels(keys), X.n_features))
         _SEGMENT_PLAN_BUILDS += 1
     return X.plan
 

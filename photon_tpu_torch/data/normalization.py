@@ -21,7 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photon_tpu_torch.data.matrix import BlockedEllRows, SparseRows
+from photon_tpu_torch.data.matrix import (BlockedEllRows, HybridRows,
+                                          SparseRows)
 
 
 class NormalizationType(enum.Enum):
@@ -46,6 +47,12 @@ def _column_stats(X) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
             "the context from the SparseRows/dense matrix BEFORE "
             "to_blocked_ell (the factors/shifts then apply unchanged, the "
             "solve permutes them itself)")
+    if isinstance(X, HybridRows):
+        raise TypeError(
+            "NormalizationContext.build does not take HybridRows: build the "
+            "context from the original SparseRows/dense matrix BEFORE "
+            "to_hybrid (the fitted factors/shifts then apply unchanged, "
+            "since to_hybrid only reorders storage)")
     if isinstance(X, SparseRows):
         n, d = X.shape
         idx = _np(X.indices).reshape(-1)

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.checkpoint.store import commit_bytes
-from photon_tpu_torch.data.matrix import (BlockedEllRows, SparseRows,
+from photon_tpu_torch.data.matrix import (BlockedEllRows, HybridRows,
+                                          ShardedHybridRows, SparseRows,
                                           as_tensor, segment_plan,
                                           segment_sums)
 from photon_tpu_torch.device import resolve_device
@@ -178,6 +179,12 @@ class FeatureSummary:
                 "FeatureSummary.compute takes the original SparseRows/dense "
                 "matrix, not a blocked-ELL re-layout; compute the summary "
                 "before to_blocked_ell (the statistics are unaffected by "
+                "storage re-layout)")
+        if isinstance(X, (HybridRows, ShardedHybridRows)):
+            raise TypeError(
+                "FeatureSummary.compute takes the original SparseRows/dense "
+                "matrix, not a hybrid re-layout; compute the summary before "
+                "to_hybrid/shard_hybrid (the statistics are unaffected by "
                 "storage re-layout)")
         n = X.shape[0]
         sparse = isinstance(X, SparseRows)

@@ -18,7 +18,7 @@ import enum
 import numpy as np
 import torch
 
-from photon_tpu_torch.data.matrix import SparseRows, _host
+from photon_tpu_torch.data.matrix import HybridRows, SparseRows, _host
 from photon_tpu_torch.ops.losses import TaskType
 
 
@@ -34,6 +34,9 @@ SAMPLE_SIZE = 100_000
 
 
 def _feature_values(X) -> np.ndarray:
+    if isinstance(X, HybridRows):  # the hot block's values, then the tail's
+        return np.concatenate([_host(X.dense.float()).reshape(-1),
+                               _host(X.tail_vals.float())])
     v = X.values if isinstance(X, SparseRows) else X
     return _host(v.float() if isinstance(v, torch.Tensor) else v)
 

@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.data.dataset import _f32
-from photon_tpu_torch.data.matrix import (BlockedEllRows, SparseRows,
-                                          segment_plan, segment_sums)
+from photon_tpu_torch.data.matrix import (BlockedEllRows, HybridRows,
+                                          SparseRows, segment_plan,
+                                          segment_sums)
 from photon_tpu_torch.device import resolve_device
 
 
@@ -39,7 +40,8 @@ class FeatureImportanceReport(NamedTuple):
 def _on_device(X, device):
     """X as the moments take it: a layout or tensor where it lies, a numpy
     array as an f32 tensor on ``device`` (default ``cuda``)."""
-    if isinstance(X, (SparseRows, BlockedEllRows, torch.Tensor)):
+    if isinstance(X, (SparseRows, BlockedEllRows, HybridRows,
+                      torch.Tensor)):
         return X
     return _f32(X, resolve_device(device))
 
@@ -47,7 +49,7 @@ def _on_device(X, device):
 def _device_of(X) -> torch.device:
     if isinstance(X, SparseRows):
         return X.values.device
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, (BlockedEllRows, HybridRows)):
         return X.dense.device
     return X.device
 
@@ -60,6 +62,11 @@ def _column_moments(X, weights: torch.Tensor, which: str) -> torch.Tensor:
             "feature importance does not take BlockedEllRows: compute it on "
             "the original SparseRows/dense matrix (to_blocked_ell only "
             "reorders storage)")
+    if isinstance(X, HybridRows):
+        raise TypeError(
+            "feature importance does not take HybridRows: compute it on the "
+            "original SparseRows/dense matrix (to_hybrid only reorders "
+            "storage)")
     w = weights / torch.clamp(torch.sum(weights), min=1e-12)
     if isinstance(X, SparseRows):
         plan = segment_plan(X)

@@ -42,17 +42,20 @@ import torch
 
 from photon_tpu_torch.data.dataset import (ChunkedMatrix, GLMBatch,
                                            make_chunked_batch)
-from photon_tpu_torch.data.matrix import (BlockedEllRows, EntityBlocks,
-                                          ShardedBlockedEllRows, SparseRows,
-                                          _host, as_tensor, next_pow2)
+from photon_tpu_torch.data.matrix import (SHARDED_LAYOUTS,
+                                          SINGLE_DEVICE_LAYOUTS, EntityBlocks,
+                                          SparseRows, _host, as_tensor,
+                                          next_pow2)
 from photon_tpu_torch.device import resolve_device
 
 
 @dataclasses.dataclass
 class GameData:
     """Host-side GAME data: response + per-shard design matrices (numpy
-    arrays, tensors, `SparseRows` or, for a fixed effect, `BlockedEllRows`
-    or a host-chunked `ChunkedMatrix`) + per-coordinate raw entity
+    arrays, tensors, `SparseRows` or, for a fixed effect, a layout
+    (`BlockedEllRows`, `HybridRows`, `PermutedHybridRows`, or a sharded
+    one for a mesh) or a host-chunked `ChunkedMatrix`) + per-coordinate
+    raw entity
     ids."""
 
     y: np.ndarray  # (n,)
@@ -83,13 +86,13 @@ class GameData:
         moved there once, so each later score and metric is device work
         alone (reference: `GameData.to_device`). A host-chunked shard
         stays on the host (it streams chunk by chunk), and so does a
-        mesh's blocked-ELL layout (it scores shard by shard); entity ids
+        mesh's sharded layout (it scores shard by shard); entity ids
         stay host numpy (they are densified on the host). Training data
         stays on the host: its entity bucketing reads numpy columns."""
         dev = resolve_device(device)
 
         def put(X):
-            if isinstance(X, (ChunkedMatrix, ShardedBlockedEllRows)):
+            if isinstance(X, (ChunkedMatrix,) + SHARDED_LAYOUTS):
                 return X
             return _on_device(X, dev)
 
@@ -104,8 +107,8 @@ class GameData:
 
 
 def _shard_dim(X) -> int:
-    if isinstance(X, (SparseRows, BlockedEllRows, ChunkedMatrix,
-                      ShardedBlockedEllRows)):
+    if isinstance(X, (SparseRows, ChunkedMatrix) + SINGLE_DEVICE_LAYOUTS
+                  + SHARDED_LAYOUTS):
         return X.n_features
     return int(X.shape[1])
 
@@ -121,11 +124,11 @@ def _refuse_chunked_entity_shard(X) -> None:
 
 def _gather_rows(X, idx: np.ndarray):
     """Host-side row gather: numpy dense rows, or (indices, values)."""
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, SINGLE_DEVICE_LAYOUTS):
         raise TypeError(
-            "BlockedEllRows shards are not supported for GAME entity "
-            "bucketing (a fixed-effect layout); use SparseRows or dense "
-            "shards for random-effect coordinates")
+            f"{type(X).__name__} shards are not supported for GAME entity "
+            "bucketing (single-device fixed-effect representation); use "
+            "SparseRows or dense shards for random-effect coordinates")
     if isinstance(X, SparseRows):
         return _host(X.indices)[idx], _host(X.values)[idx]
     if isinstance(X, torch.Tensor):
@@ -135,13 +138,14 @@ def _gather_rows(X, idx: np.ndarray):
 
 def _host_shard(X):
     """A shard as the host form `data.dataset.mesh_batch` shards: numpy
-    rows, CPU `SparseRows`, or a `ShardedBlockedEllRows` as it is."""
+    rows, CPU `SparseRows`, or a layout as it is (a sharded one is laid
+    out by `mesh_batch`, a one-device one refused there)."""
     if isinstance(X, SparseRows):
         return SparseRows(torch.as_tensor(_host(X.indices)),
                           torch.as_tensor(_host(X.values)), X.n_features)
     if isinstance(X, torch.Tensor):
         return X.detach().cpu()
-    if isinstance(X, (BlockedEllRows, ShardedBlockedEllRows)):
+    if isinstance(X, SINGLE_DEVICE_LAYOUTS + SHARDED_LAYOUTS):
         return X
     return np.asarray(X, np.float32)
 
@@ -150,7 +154,7 @@ def _on_device(X, dev):
     """A shard on the device: layouts move as they are; a floating tensor
     keeps its storage dtype (a bf16 shard stays bf16); anything else
     arrives as f32."""
-    if isinstance(X, (SparseRows, BlockedEllRows)):
+    if isinstance(X, (SparseRows,) + SINGLE_DEVICE_LAYOUTS):
         return X.to(dev)
     if isinstance(X, torch.Tensor) and X.is_floating_point():
         return X.to(dev)
@@ -165,7 +169,7 @@ class FixedEffectDataset:
 
     With ``mesh`` a resident shard is row-sharded over the mesh's slots
     once, at build (`data.dataset.mesh_batch`: X a `SlotRows` — dense
-    rows, `SparseRows`, or a `ShardedBlockedEllRows`' shards — and ``y``
+    rows, `SparseRows`, or a sharded layout's shards — and ``y``
     and ``weights`` this process's padded rows on the home device); every
     solve reuses the shards and `batch` cuts this process's rows out of
     the descent's whole offsets."""

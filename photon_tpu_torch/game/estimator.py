@@ -45,8 +45,8 @@ import torch
 
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import ChunkedMatrix
-from photon_tpu_torch.data.matrix import (BlockedEllRows,
-                                          ShardedBlockedEllRows,
+from photon_tpu_torch.data.matrix import (PERMUTED_LAYOUTS,
+                                          SHARDED_LAYOUTS, HybridRows,
                                           last_column_is_intercept)
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.evaluation.evaluator import (Evaluator,
@@ -376,13 +376,21 @@ class GameEstimator:
         return lanes
 
     def _grid_data_supported(self, data: GameData) -> bool:
-        """Layouts the lane-axis grid runs: dense or SparseRows (a
-        blocked-ELL shard, one device's or a mesh's, and a chunked one
-        keep the sequential path, on a mesh or not)."""
+        """Layouts the lane-axis grid runs: dense or SparseRows, and a
+        `HybridRows` fixed effect without a mesh (reference:
+        `_grid_data_supported`). A permuted layout (its coefficient-space
+        translation lives at the train_glm boundary the grid bypasses), a
+        sharded one and a chunked one keep the sequential path, on a mesh
+        or not; so does a `HybridRows` shard of a random effect or on a
+        mesh."""
         for cfg in self.coordinate_configs.values():
             X = data.shards[cfg.feature_shard]
-            if isinstance(X, (BlockedEllRows, ShardedBlockedEllRows,
-                              ChunkedMatrix)):
+            if isinstance(X, PERMUTED_LAYOUTS + SHARDED_LAYOUTS
+                          + (ChunkedMatrix,)):
+                return False
+            if isinstance(X, HybridRows) and (
+                    self.mesh is not None
+                    or not isinstance(cfg, FixedEffectConfig)):
                 return False
         return True
 

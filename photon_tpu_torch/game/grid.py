@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 
 from photon_tpu_torch.data.dataset import ChunkedMatrix, GLMBatch
-from photon_tpu_torch.data.matrix import BlockedEllRows, matvec_lanes
+from photon_tpu_torch.data.matrix import PERMUTED_LAYOUTS, matvec_lanes
 from photon_tpu_torch.game.coordinate_descent import coordinate_device
 from photon_tpu_torch.game.fixed_effect import FixedEffectCoordinate
 from photon_tpu_torch.game.model import (FixedEffectModel, GameModel,
@@ -100,7 +100,7 @@ def _refuse(coord, name: str) -> None:
     if isinstance(coord, FixedEffectCoordinate):
         if isinstance(X, SlotRows):
             X = X.parts[0]
-        if isinstance(X, (BlockedEllRows, ChunkedMatrix)):
+        if isinstance(X, PERMUTED_LAYOUTS + (ChunkedMatrix,)):
             raise ValueError(
                 f"fit_game_grid: coordinate {name!r} has a "
                 f"{type(X).__name__} shard; the estimator routes those "

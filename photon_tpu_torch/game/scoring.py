@@ -18,8 +18,9 @@ come back in slot order through one gather per call.
 
 A row-sharded fixed shard (`SlotRows`, the mesh form of a GAME fixed
 effect) scores slot by slot and gathers in slot order (`mesh_margins`);
-a `ShardedBlockedEllRows` shard in scoring data scores shard by shard on
-the model's device.
+a sharded layout (`ShardedBlockedEllRows`, `ShardedHybridRows`,
+`ShardedPermutedHybridRows`) in scoring data scores shard by shard on the
+model's device.
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ import torch
 
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.data.dataset import ChunkedMatrix, make_chunked_batch
-from photon_tpu_torch.data.matrix import (BlockedEllRows,
-                                          ShardedBlockedEllRows, SparseRows,
+from photon_tpu_torch.data.matrix import (PERMUTED_LAYOUTS,
+                                          SHARDED_LAYOUTS,
+                                          SINGLE_DEVICE_LAYOUTS, SparseRows,
                                           as_tensor, matvec, matvec_lanes)
 from photon_tpu_torch.parallel.mesh import (SlotRows, check_mesh,
                                             gather_processes, gather_rows,
@@ -48,9 +50,9 @@ def _model_device(model: GameModel) -> torch.device:
 
 
 def _on(X, device):
-    if isinstance(X, (ChunkedMatrix, ShardedBlockedEllRows)):
+    if isinstance(X, (ChunkedMatrix,) + SHARDED_LAYOUTS):
         return X  # streamed chunk by chunk / shard by shard
-    if isinstance(X, (SparseRows, BlockedEllRows)):
+    if isinstance(X, (SparseRows,) + SINGLE_DEVICE_LAYOUTS):
         return X.to(device)
     return as_tensor(X, device)
 
@@ -59,24 +61,27 @@ def mesh_margins(X: SlotRows, w: torch.Tensor, n_rows: int
                  ) -> torch.Tensor:
     """The (n,) margins (or (n, G) for lane-minor (d, G) ``w``) of a
     row-sharded matrix for model-space ``w``: every local slot's matvec on
-    its device (a blocked-ELL slot through the kernels, ``w`` in the
-    layout's permuted space), gathered in slot order over the processes
-    and trimmed to the ``n_rows`` real rows, on the home device."""
+    its device (a blocked-ELL slot through the kernels, ``w`` in a
+    permuted layout's permuted space), gathered in slot order over the
+    processes and trimmed to the ``n_rows`` real rows, on the home
+    device."""
     w = w.to(X.mesh.home, torch.float32)
-    if isinstance(X.parts[0], BlockedEllRows):
+    if isinstance(X.parts[0], PERMUTED_LAYOUTS):
         w = X.from_model_space(w)
     local = matvec_lanes(X, w.contiguous()) if w.dim() == 2 \
         else matvec(X, w)
     return gather_rows(X.mesh, local, n_rows)
 
 
-def _score_sharded(X: ShardedBlockedEllRows, w: torch.Tensor,
-                   n_rows: int) -> torch.Tensor:
-    """Margins of a host `ShardedBlockedEllRows` on ``w``'s device, shard
-    by shard in row order (the mesh form scored on one device)."""
+def _score_sharded(X, w: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Margins of a host sharded layout on ``w``'s device, shard by shard
+    in row order (the mesh form scored on one device; ``w`` translated
+    into a permuted layout's space once)."""
     dev = w.device
-    wp = w.to(torch.float32)[X.perm_cols.to(dev).long()]
-    parts = [matvec(X.chunk(j).to(dev), wp) for j in range(X.n_shards)]
+    w = w.to(torch.float32)
+    if hasattr(X, "perm_cols"):
+        w = w[X.perm_cols.to(dev).long()]
+    parts = [matvec(X.local(j).to(dev), w) for j in range(X.n_shards)]
     return torch.cat(parts)[:n_rows]
 
 
@@ -89,7 +94,7 @@ def coordinate_scores(model: GameModel, data: GameData) -> dict:
         X = _on(data.shards[cm.feature_shard], device)
         if isinstance(cm, FixedEffectModel):
             out[name] = (_score_sharded(X, cm.model.weights, data.n)
-                         if isinstance(X, ShardedBlockedEllRows)
+                         if isinstance(X, SHARDED_LAYOUTS)
                          else cm.score(X))
         elif isinstance(cm, RandomEffectModel):
             out[name] = cm.score(X, cm.dense_ids(

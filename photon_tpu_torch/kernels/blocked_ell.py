@@ -12,13 +12,17 @@ over a work plan of one-block items:
   items, into the same output;
 - `bucket_rmatvec` (fused): ONE launch over every item of the rmatvec
   plan (`rmatvec_plan`) writes the (U,)/(U, G) tail-gradient block in
-  prefix order; ``square`` gives (X∘X)ᵀr;
+  prefix order; ``square`` gives (X∘X)ᵀr; ``round_r=False`` multiplies
+  the cotangent unrounded (the `PermutedHybridRows` recipe, whose
+  occurrence buckets are laid as the blocked-ELL ones);
 - `bucket_rmatvec_tiled`: one launch per occurrence bucket over that
   bucket's items, each writing its slice of one output.
 
 `layout_plan` checks a layout's buckets, packs their descriptors and
 builds both work plans and ``tail_rows`` once per layout object (a
-`BlockedEllRows` is frozen and its tensors are never replaced), so a call
+`BlockedEllRows` is frozen and its tensors are never replaced; a layout
+with no ELL tail, a `PermutedHybridRows`, gets the rmatvec's plan alone),
+so a call
 checks only its vector and its output, then makes one ctypes call, in
 which the C entry point makes all of the form's launches. The work plans
 depend on the bucket shapes alone and are shared by every layout of the
@@ -116,7 +120,7 @@ def library() -> ctypes.CDLL:
                 p, i, p, p, i, ranges, i, p, i, p, ctypes.c_longlong, p]
             lib.photon_bell_tail_matvec.restype = i
             lib.photon_bell_bucket_rmatvec.argtypes = [p, p, i, ranges, i, p,
-                                                       i, i, p, p]
+                                                       i, i, i, p, p]
             lib.photon_bell_bucket_rmatvec.restype = i
             lib.photon_bell_error_string.argtypes = [i]
             lib.photon_bell_error_string.restype = ctypes.c_char_p
@@ -161,19 +165,22 @@ def tail_matvec_reference(X, w: torch.Tensor) -> torch.Tensor:
     return torch.index_select(torch.cat(parts, dim=0), 0, X.row_pos)
 
 
-def bucket_rmatvec_reference(X, r: torch.Tensor,
-                             square: bool = False) -> torch.Tensor:
+def bucket_rmatvec_reference(X, r: torch.Tensor, square: bool = False,
+                             round_r: bool = True) -> torch.Tensor:
     """The plain occurrence-bucket rmatvec: per bucket gather ``r`` at the
     row ids and dot with the values in f32 (values squared in f32 and r
-    not rounded for ``square``), concatenated in prefix order."""
+    not rounded for ``square``; r not rounded either without
+    ``round_r``), concatenated in prefix order."""
     parts = []
     for br, bv in zip(X.bucket_rows, X.bucket_vals):
         g = _gather(r, br)
         if square:
             v = bv.float()
             v, g = v * v, g.float()
-        else:
+        elif round_r:
             v, g = _compute(bv, g)
+        else:
+            v, g = bv.float(), g.float()
         parts.append(_rowdot(v, g))
     if not parts:
         return torch.zeros((0,) + tuple(r.shape[1:]), dtype=torch.float32,
@@ -344,13 +351,18 @@ def _shape_plan(tail_shapes, occ_shapes, device) -> tuple:
 
 
 def _build_plan(X) -> LayoutPlan:
-    device = X.row_pos.device
-    n = int(X.shape[0])
-    _check(X.row_pos, torch.int32, (n,), device, "row_pos")
-    tail_bf16 = _check_buckets(X.ell_pcols, X.ell_vals, device, "ELL")
+    # a layout without an ELL tail (a PermutedHybridRows) gets the
+    # occurrence-bucket plan alone: no width bucket, no inverse map
+    ell = hasattr(X, "row_pos")
+    ell_pcols, ell_vals = (X.ell_pcols, X.ell_vals) if ell else ((), ())
+    device = X.row_pos.device if ell else X.dense.device
+    if ell:
+        _check(X.row_pos, torch.int32, (int(X.shape[0]),), device,
+               "row_pos")
+    tail_bf16 = _check_buckets(ell_pcols, ell_vals, device, "ELL")
     occ_bf16 = _check_buckets(X.bucket_rows, X.bucket_vals, device,
                               "occurrence-bucket")
-    tail_shapes = [tuple(int(s) for s in v.shape) for v in X.ell_vals]
+    tail_shapes = [tuple(int(s) for s in v.shape) for v in ell_vals]
     occ_shapes = [tuple(int(s) for s in v.shape) for v in X.bucket_vals]
     if len(tail_shapes) > MAX_TAIL_BUCKETS:
         raise ValueError(f"{len(tail_shapes)} ELL width buckets; the tail "
@@ -361,7 +373,7 @@ def _build_plan(X) -> LayoutPlan:
         if w_b & (w_b - 1):
             raise ValueError(f"ELL width bucket {b}: width {w_b} is not a "
                              "power of two")
-        _check_aligned(X.ell_pcols[b], X.ell_vals[b], min(w_b, 4),
+        _check_aligned(ell_pcols[b], ell_vals[b], min(w_b, 4),
                        f"ELL width bucket {b}")
     for b, (_, k_b) in enumerate(occ_shapes):
         if k_b % 4 == 0:
@@ -370,9 +382,11 @@ def _build_plan(X) -> LayoutPlan:
     B = sum(r_b for r_b, _ in tail_shapes)
     (tail_dev, tail_fused, tail_tiled, occ_dev, occ_fused,
      occ_tiled) = _shape_plan(tail_shapes, occ_shapes, device)
-    tail_desc = _descriptors(X.ell_pcols, X.ell_vals, device)
+    tail_desc = _descriptors(ell_pcols, ell_vals, device)
     occ_desc = _descriptors(X.bucket_rows, X.bucket_vals, device)
-    if X.tail_rows is not None:
+    if not ell:
+        tail_rows = torch.zeros(0, dtype=torch.int32, device=device)
+    elif X.tail_rows is not None:
         _check(X.tail_rows, torch.int32, (B,), device, "tail_rows")
         tail_rows = X.tail_rows
     else:
@@ -429,32 +443,36 @@ def tail_matvec_tiled(X, w: torch.Tensor, out=None) -> torch.Tensor:
     return out
 
 
-def bucket_rmatvec(X, r: torch.Tensor, square: bool = False,
-                   out=None) -> torch.Tensor:
+def bucket_rmatvec(X, r: torch.Tensor, square: bool = False, out=None,
+                   round_r: bool = True) -> torch.Tensor:
     """The fused occurrence-bucket rmatvec: the (U,)/(U, G) f32 tail
     gradient block in prefix order (written into ``out`` when given), one
-    launch over every item of the layout's work plan."""
+    launch over every item of the layout's work plan. ``round_r`` rounds
+    each gathered cotangent to the storage dtype (the blocked-ELL
+    recipe); without it the cotangent multiplies unrounded (the permuted
+    hybrid's)."""
     if not K.use_kernel(r):
-        return _plain_into(bucket_rmatvec_reference(X, r, square), X, r,
-                           out)
+        return _plain_into(bucket_rmatvec_reference(X, r, square, round_r),
+                           X, r, out)
     plan, lanes = _check_rmatvec(X, r)
     out = _rmatvec_out(X, r, out)
-    _launch_rmatvec(RMATVEC, plan, plan.occ_fused, r, lanes, square, out)
+    _launch_rmatvec(RMATVEC, plan, plan.occ_fused, r, lanes, square, out,
+                    round_r)
     return out
 
 
 def bucket_rmatvec_tiled(X, r: torch.Tensor, square: bool = False,
-                         out=None) -> torch.Tensor:
+                         out=None, round_r: bool = True) -> torch.Tensor:
     """The tiled occurrence-bucket rmatvec: one launch per bucket over that
     bucket's items of the plan, each into its slice of one output. The
     same items per bucket as `bucket_rmatvec`, so the same bits."""
     if not K.use_kernel(r):
-        return _plain_into(bucket_rmatvec_reference(X, r, square), X, r,
-                           out)
+        return _plain_into(bucket_rmatvec_reference(X, r, square, round_r),
+                           X, r, out)
     plan, lanes = _check_rmatvec(X, r)
     out = _rmatvec_out(X, r, out)
     _launch_rmatvec(RMATVEC_TILED, plan, plan.occ_tiled, r, lanes, square,
-                    out)
+                    out, round_r)
     return out
 
 
@@ -607,10 +625,11 @@ def _launch_tail(name, plan, ranges, w, lanes, out, zero_bytes) -> None:
             zero_bytes)
 
 
-def _launch_rmatvec(name, plan, ranges, r, lanes, square, out) -> None:
+def _launch_rmatvec(name, plan, ranges, r, lanes, square, out,
+                    round_r) -> None:
     """The rmatvec kernel over ``ranges`` (a `_host_ranges` tuple) of the
     rmatvec plan."""
     flat, n_ranges, n_launches = ranges
     _launch(name, "photon_bell_bucket_rmatvec", n_launches, out,
             *plan.occ_args, flat, n_ranges, r.data_ptr(), lanes,
-            int(bool(square)), out.data_ptr())
+            int(bool(square)), int(bool(round_r)), out.data_ptr())

@@ -19,7 +19,10 @@
 //   square       out[c, g] = sum_k (f32(bv[c, k]) * f32(bv[c, k])) * r[br[c, k], g]
 // where S rounds to the storage dtype: to bf16 when the values are bf16
 // (the product of two bf16 values is then exact in f32), nothing when they
-// are f32. In square mode the cotangent is not rounded. Sums accumulate in
+// are f32. In square mode the cotangent is not rounded, and neither is it
+// when the caller asks for it unrounded (round_r = 0: the permuted hybrid
+// layout's recipe, whose occurrence buckets are laid as blocked-ELL's; one
+// more instantiation, bf16 values by an f32 cotangent). Sums accumulate in
 // f32 in slot order with Kahan compensation: an occurrence bucket can hold
 // thousands of slots, and a plain running f32 sum that long drifts by
 // ~sqrt(k) ulp of its terms, while the compensated sum stays within a few
@@ -219,8 +222,9 @@ __device__ __forceinline__ float load_value_cs(long long p, long long i) {
 }
 
 // acc[g] += f(v) * f(r[row, g0 + g]) for the nl (<= kChunk) lanes of one
-// slot, the slot's G floats read together (16 B loads when vec4).
-template <bool kBf16, bool kSquare, int kChunk>
+// slot, the slot's G floats read together (16 B loads when vec4); r is
+// rounded to the storage dtype unless kSquare or not kRound.
+template <bool kBf16, bool kSquare, bool kRound, int kChunk>
 __device__ __forceinline__ void add_slot(const float* __restrict__ r,
                                          int lanes, int g0, int nl,
                                          bool vec4, int32_t row, float v,
@@ -249,8 +253,8 @@ __device__ __forceinline__ void add_slot(const float* __restrict__ r,
 #pragma unroll
   for (int g = 0; g < kChunk; ++g) {
     if (g < nl) {
-      kahan_fma(vv, kSquare ? x[g] : to_storage<kBf16>(x[g]), acc[g],
-                comp[g]);
+      kahan_fma(vv, kSquare || !kRound ? x[g] : to_storage<kBf16>(x[g]),
+                acc[g], comp[g]);
     }
   }
 }
@@ -332,8 +336,8 @@ __device__ __forceinline__ void tail_row(const Bucket& bk, long long p,
       for (int g = 0; g < kChunk; ++g) acc[g] = comp[g] = 0.f;
 #pragma unroll
       for (int j = 0; j < kW; ++j) {
-        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id[j], v[j], acc,
-                               comp);
+        add_slot<kBf16, false, true>(wt, lanes, g0, nl, vec4, id[j], v[j],
+                                     acc, comp);
       }
       add_to_row(out, row, lanes, g0, nl, acc, comp);
     }
@@ -351,14 +355,14 @@ __device__ __forceinline__ void tail_row(const Bucket& bk, long long p,
         const int4 id = __ldcs(reinterpret_cast<const int4*>(pc + s));
         float v[4];
         load_values4<kBf16>(bk.val, off + s, v);
-        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id.x, v[0], acc,
-                               comp);
-        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id.y, v[1], acc,
-                               comp);
-        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id.z, v[2], acc,
-                               comp);
-        add_slot<kBf16, false>(wt, lanes, g0, nl, vec4, id.w, v[3], acc,
-                               comp);
+        add_slot<kBf16, false, true>(wt, lanes, g0, nl, vec4, id.x, v[0],
+                                     acc, comp);
+        add_slot<kBf16, false, true>(wt, lanes, g0, nl, vec4, id.y, v[1],
+                                     acc, comp);
+        add_slot<kBf16, false, true>(wt, lanes, g0, nl, vec4, id.z, v[2],
+                                     acc, comp);
+        add_slot<kBf16, false, true>(wt, lanes, g0, nl, vec4, id.w, v[3],
+                                     acc, comp);
       }
       add_to_row(out, row, lanes, g0, nl, acc, comp);
     }
@@ -478,7 +482,7 @@ bell_tail_matvec_kernel(const Bucket* __restrict__ buckets, int nb,
 // One block per WorkItem. Thread t of the block works on column
 // col0 + t / tpc of the item's bucket as member j = t % tpc of its group;
 // see the header for the load pattern and the reduction.
-template <bool kBf16, bool kSquare, int kChunk>
+template <bool kBf16, bool kSquare, bool kRound, int kChunk>
 __global__ void __launch_bounds__(kThreads)
 bell_bucket_rmatvec_kernel(const Bucket* __restrict__ buckets,
                            const WorkItem* __restrict__ items,
@@ -508,20 +512,20 @@ bell_bucket_rmatvec_kernel(const Bucket* __restrict__ buckets,
           const int4 id = __ldcs(reinterpret_cast<const int4*>(br + s));
           float v[4];
           load_values4<kBf16>(bk.val, off + s, v);
-          add_slot<kBf16, kSquare>(r, lanes, g0, nl, vec4, id.x, v[0], acc,
-                                   comp);
-          add_slot<kBf16, kSquare>(r, lanes, g0, nl, vec4, id.y, v[1], acc,
-                                   comp);
-          add_slot<kBf16, kSquare>(r, lanes, g0, nl, vec4, id.z, v[2], acc,
-                                   comp);
-          add_slot<kBf16, kSquare>(r, lanes, g0, nl, vec4, id.w, v[3], acc,
-                                   comp);
+          add_slot<kBf16, kSquare, kRound>(r, lanes, g0, nl, vec4, id.x,
+                                           v[0], acc, comp);
+          add_slot<kBf16, kSquare, kRound>(r, lanes, g0, nl, vec4, id.y,
+                                           v[1], acc, comp);
+          add_slot<kBf16, kSquare, kRound>(r, lanes, g0, nl, vec4, id.z,
+                                           v[2], acc, comp);
+          add_slot<kBf16, kSquare, kRound>(r, lanes, g0, nl, vec4, id.w,
+                                           v[3], acc, comp);
         }
       } else {
         for (long long s = j; s < k; s += tpc) {
-          add_slot<kBf16, kSquare>(r, lanes, g0, nl, vec4, __ldcs(br + s),
-                                   load_value_cs<kBf16>(bk.val, off + s),
-                                   acc, comp);
+          add_slot<kBf16, kSquare, kRound>(
+              r, lanes, g0, nl, vec4, __ldcs(br + s),
+              load_value_cs<kBf16>(bk.val, off + s), acc, comp);
         }
       }
     }
@@ -564,15 +568,15 @@ bell_bucket_rmatvec_kernel(const Bucket* __restrict__ buckets,
   }
 }
 
-template <bool kBf16, bool kSquare>
+template <bool kBf16, bool kSquare, bool kRound = true>
 void launch_rmatvec(const Bucket* b, const WorkItem* items, int n_items,
                     const float* r, int lanes, int vec4, float* o,
                     cudaStream_t s) {
   if (lanes == 1) {
-    bell_bucket_rmatvec_kernel<kBf16, kSquare, 1>
+    bell_bucket_rmatvec_kernel<kBf16, kSquare, kRound, 1>
         <<<n_items, kThreads, 0, s>>>(b, items, r, lanes, vec4, o);
   } else {
-    bell_bucket_rmatvec_kernel<kBf16, kSquare, kLaneChunk>
+    bell_bucket_rmatvec_kernel<kBf16, kSquare, kRound, kLaneChunk>
         <<<n_items, kThreads, 0, s>>>(b, items, r, lanes, vec4, o);
   }
 }
@@ -637,11 +641,14 @@ photon_bell_tail_matvec(const void* buckets, int nb, const void* items,
 }
 
 // Occurrence-bucket rmatvec: column c of bucket b lands in out[buckets[b]
-// .base + c] (out is (U, lanes), U the total of the buckets' columns).
+// .base + c] (out is (U, lanes), U the total of the buckets' columns); a
+// bf16 layout's cotangent is rounded to bf16 unless square or round_r is 0
+// (f32 values: nothing to round either way).
 extern "C" __attribute__((visibility("default"))) int
 photon_bell_bucket_rmatvec(const void* buckets, const void* items, int bf16,
                            const int* ranges, int n_ranges, const void* r,
-                           int lanes, int square, void* out, void* stream) {
+                           int lanes, int square, int round_r, void* out,
+                           void* stream) {
   const auto* b = static_cast<const Bucket*>(buckets);
   const auto* it = static_cast<const WorkItem*>(items);
   const auto* rr = static_cast<const float*>(r);
@@ -658,6 +665,9 @@ photon_bell_bucket_rmatvec(const void* buckets, const void* items, int bf16,
       } else {
         launch_rmatvec<false, true>(b, it + lo, n, rr, lanes, vec4, o, s);
       }
+    } else if (bf16 && !round_r) {
+      launch_rmatvec<true, false, false>(b, it + lo, n, rr, lanes, vec4, o,
+                                         s);
     } else if (bf16) {
       launch_rmatvec<true, false>(b, it + lo, n, rr, lanes, vec4, o, s);
     } else {

@@ -3,7 +3,8 @@ part of `photon_tpu/models/glm.py`, with `chunked_margins` and the
 batched `score_models`).
 
 User-facing coefficients are in ORIGINAL column order; a `BlockedEllRows`
-design matrix (or a chunk ladder) works in its permuted space, so scoring
+or `PermutedHybridRows` design matrix (or a chunk ladder) works in its
+permuted space, so scoring
 translates w at the boundary (one gather). A host `ChunkedMatrix` scores
 chunk by chunk (`chunked_margins`)."""
 from __future__ import annotations
@@ -13,7 +14,8 @@ from typing import Optional
 
 import torch
 
-from photon_tpu_torch.data.matrix import (BlockedEllRows, SparseRows,
+from photon_tpu_torch.data.matrix import (PERMUTED_LAYOUTS,
+                                          SINGLE_DEVICE_LAYOUTS, SparseRows,
                                           matvec, matvec_lanes)
 from photon_tpu_torch.ops.losses import TaskType, mean_fn
 
@@ -44,7 +46,7 @@ class GeneralizedLinearModel:
         w = self.coefficients.means
         if hasattr(X, "n_chunks"):
             return chunked_margins(X, w, offsets)
-        if isinstance(X, BlockedEllRows):
+        if isinstance(X, PERMUTED_LAYOUTS):
             w = X.from_model_space(w)
         return matvec(X, w) + offsets
 
@@ -70,12 +72,12 @@ def chunked_margins(X, w: torch.Tensor, offsets=0.0) -> torch.Tensor:
 
 def _score_many(W: torch.Tensor, X, offsets=0.0) -> torch.Tensor:
     """(G, n) margins of G lane-major coefficient rows W (G, d), original
-    column order: one lane pass over X — a `BlockedEllRows` takes
+    column order: one lane pass over X — a permuted layout takes
     ``W[:, perm_cols]`` lane-minor (its hot product one (n, d_sel) ×
     (d_sel, G) product, its tail one G-lane kernel launch), dense X one
     (n, d) × (d, G) product."""
     W = W.to(torch.float32)
-    Wt = (X.from_model_space(W.t()) if isinstance(X, BlockedEllRows)
+    Wt = (X.from_model_space(W.t()) if isinstance(X, PERMUTED_LAYOUTS)
           else W.t().contiguous())
     return matvec_lanes(X, Wt).t() + offsets
 
@@ -84,7 +86,7 @@ def score_models(models, X, offsets=0.0) -> torch.Tensor:
     """(G, n) raw margins of G same-shape models over one design matrix in
     one lane pass (reference: `score_models`, the scoring side of a
     `train_glm_grid` sweep), on X's device."""
-    dev = (X.dense if isinstance(X, BlockedEllRows)
+    dev = (X.dense if isinstance(X, SINGLE_DEVICE_LAYOUTS)
            else X.values if isinstance(X, SparseRows) else X).device
     W = torch.stack([m.coefficients.means.to(dev) for m in models])
     if not isinstance(offsets, (int, float)):

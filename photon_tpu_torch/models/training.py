@@ -7,8 +7,10 @@ Reference parity: com.linkedin.photon.ml.optimization.game.
 SingleNodeOptimizationProblem. The solve is the margin-cached L-BFGS
 (`optim.lbfgs.minimize_lbfgs_margin`), OWL-QN (`optim.owlqn`, whenever the
 config has an L1 term) or the margin-cached TRON
-(`optim.tron.minimize_tron_margin`), over dense X or `BlockedEllRows`. The
-blocked-ELL X passes go through the port's CUDA kernels on the card; a
+(`optim.tron.minimize_tron_margin`), over dense X, `SparseRows` or a
+layout (`BlockedEllRows`, `HybridRows`, `PermutedHybridRows`). The
+blocked-ELL X passes, and the permuted hybrid's Xᵀr, go through the
+port's CUDA kernels on the card; a
 dense OWL-QN solve evaluates f and its gradient through the fused
 value+grad kernel (`kernels.fused`), one pass over X per evaluation.
 
@@ -27,7 +29,8 @@ streamed through the device (`optim.streamed`).
 
 With ``mesh=`` (a `parallel.mesh.Mesh`) the rows shard over the mesh's
 slots (`data.dataset.mesh_batch`: dense X, `SparseRows`, or the mesh
-blocked-ELL form of `shard_blocked_ell_batch`), every slot runs the X
+form of `shard_blocked_ell_batch`, `shard_hybrid_batch` or
+`shard_permuted_batch`), every slot runs the X
 passes (the blocked-ELL kernels on its own shard) and each evaluation
 closes with one reduction (`parallel.mesh.psum`) — resident, streamed
 and grid solves alike. The fused value+grad stays off the mesh path, as
@@ -45,8 +48,10 @@ import torch
 from photon_tpu_torch import kernels as K
 from photon_tpu_torch import profiling, telemetry
 from photon_tpu_torch.data.dataset import ChunkedBatch, GLMBatch
-from photon_tpu_torch.data.matrix import (BlockedEllRows, EntityBlocks,
-                                          SparseRows)
+from photon_tpu_torch.data.matrix import (PERMUTED_LAYOUTS,
+                                          SHARDED_LAYOUTS,
+                                          SINGLE_DEVICE_LAYOUTS,
+                                          EntityBlocks, SparseRows)
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_tpu_torch.models.variance import (VarianceComputationType,
@@ -145,10 +150,10 @@ def solve(obj: Objective, batch: GLMBatch, w0: torch.Tensor,
         tolerance=config.tolerance, history=config.history)
 
 
-def _permuted_prep(X: BlockedEllRows, w0, prior_mean, prior_precision):
+def _permuted_prep(X, w0, prior_mean, prior_precision):
     """Translate original-space side inputs into the permuted feature space
-    a BlockedEllRows solve runs in ((d,) vectors gather through
-    ``perm_cols``)."""
+    a `BlockedEllRows` or `PermutedHybridRows` solve runs in ((d,) vectors
+    gather through ``perm_cols``)."""
     w0 = X.from_model_space(w0)
     if prior_mean is not None:
         prior_mean = X.from_model_space(prior_mean)
@@ -157,7 +162,7 @@ def _permuted_prep(X: BlockedEllRows, w0, prior_mean, prior_precision):
     return w0, prior_mean, prior_precision
 
 
-def _permuted_norm(X: BlockedEllRows, norm):
+def _permuted_norm(X, norm):
     """The normalization context the objective of a permuted solve uses:
     factors and shifts gathered into the permuted space on the host
     (elementwise transforms commute with the permutation, so the
@@ -212,6 +217,10 @@ def _prep(batch: GLMBatch, mesh, device) -> tuple:
         if isinstance(batch.X, SlotRows):
             raise ValueError("a row-sharded batch solves on its mesh: pass "
                              "mesh=")
+        if isinstance(batch.X, SHARDED_LAYOUTS):
+            raise ValueError(
+                f"{type(batch.X).__name__} is laid for a mesh's slots: "
+                "pass mesh= (or build the one-device layout)")
         dev = resolve_device(device)
         return batch.to(dev), dev
     from photon_tpu_torch.data.dataset import mesh_batch
@@ -220,15 +229,16 @@ def _prep(batch: GLMBatch, mesh, device) -> tuple:
 
 
 def _is_permuted(X) -> bool:
-    """A blocked-ELL layout (one device's, or every slot's of a mesh):
-    the solve runs in its permuted column space."""
+    """A blocked-ELL or permuted hybrid layout (one device's, or every
+    slot's of a mesh): the solve runs in its permuted column space."""
     if isinstance(X, SlotRows):
         X = X.parts[0]
-    return isinstance(X, BlockedEllRows)
+    return isinstance(X, PERMUTED_LAYOUTS)
 
 
 def _matrix_dim(X) -> int:
-    if isinstance(X, (SparseRows, BlockedEllRows, EntityBlocks, SlotRows)):
+    if isinstance(X, (SparseRows, EntityBlocks, SlotRows)
+                  + SINGLE_DEVICE_LAYOUTS):
         return X.n_features
     return int(X.shape[1])
 
@@ -334,20 +344,22 @@ def train_glm(
 ) -> tuple[GeneralizedLinearModel, OptResult]:
     """Full-batch GLM training (reference: train_glm). The batch moves to
     ``device`` (default ``cuda``) first — or, with ``mesh``, row-shards
-    over its slots (`data.dataset.mesh_batch`; a blocked-ELL batch in the
-    mesh form of `shard_blocked_ell_batch`), each evaluation closing with
-    one reduction over the mesh, the model coming back on the mesh's home
-    device.
+    over its slots (`data.dataset.mesh_batch`; a layout in the mesh form
+    of `shard_blocked_ell_batch`, `shard_hybrid_batch` or
+    `shard_permuted_batch`; a one-device layout raises), each evaluation
+    closing with one reduction over the mesh, the model coming back on the
+    mesh's home device.
 
-    A `BlockedEllRows` batch solves in its permuted space; ``w0`` and the
+    A `BlockedEllRows` or `PermutedHybridRows` batch solves in its
+    permuted space; ``w0`` and the
     priors are taken, and the model's coefficients and variances returned,
     in ORIGINAL column order. With a `NormalizationContext` the solve runs
     in normalized space (the objective folds the factors and shifts in; X
     is untouched) and the model comes back in original space; ``w0`` and
     the priors are original-space too. ``prior``: an
     `optim.prior.PriorDistribution`, the only way to pass a
-    full-covariance precision (refused with normalization or a
-    `BlockedEllRows` batch, as the reference). ``config.kernels`` scopes
+    full-covariance precision (refused with normalization or a permuted
+    layout, as the reference). ``config.kernels`` scopes
     the kernel mode of the whole solve.
 
     A `ChunkedBatch` (host-resident chunks) dispatches to the streamed
@@ -404,17 +416,19 @@ def train_glm(
     norm_obj = norm
     # Dense OWL-QN evaluates f and g through the fused kernel (one X pass
     # per evaluation); L-BFGS and TRON are margin-cached and never call
-    # value_and_grad, and a BlockedEllRows batch keeps the unfused route
-    # (its X passes are the blocked-ELL kernels), as the reference; so
-    # does a mesh solve (its evaluation closes with the mesh reduction).
+    # value_and_grad, and a layout keeps the unfused route (`can_fuse`
+    # takes dense X alone; a layout's X passes are its own), as the
+    # reference; so does a mesh solve (its evaluation closes with the mesh
+    # reduction).
     use_fused = (config.effective_optimizer() is OptimizerType.OWLQN
                  and not permuted and mesh is None)
     if permuted:
         if prior_full is not None:
+            layout = X.parts[0] if isinstance(X, SlotRows) else X
             raise ValueError(
                 "full-covariance priors are not supported with "
-                "BlockedEllRows (a (d, d) precision at that scale is "
-                "impractical; use a diagonal prior)")
+                f"{type(layout).__name__} (a (d, d) precision at that scale "
+                "is impractical; use a diagonal prior)")
         w0, prior_mean, prior_precision = _permuted_prep(
             X, w0, prior_mean, prior_precision)
         norm_obj = _permuted_norm(X, norm)
@@ -589,7 +603,7 @@ def train_glm_grid(
 
     Every lane starts from ``w0``: None (zeros), a shared (d,) start, or
     a lane-major (G, d) per-lane start, in ORIGINAL column order. A
-    `BlockedEllRows` batch solves in its permuted space (the (d, G) start
+    permuted layout solves in its permuted space (the (d, G) start
     gathers in through ``from_model_space``, the result out through
     ``to_model_space``). Sweeps without variances or priors run the
     lane-minor solvers (L-BFGS, TRON, or OWL-QN for any L1 weight, as

@@ -12,7 +12,8 @@ margin-cached L-BFGS and TRON's accepted step, one a trial for OWL-QN,
 two a CG step for TRON), each 2·nnz·G FLOPs over the layout's stored
 slots (dense: n·d; `SparseRows`: n·k; `BlockedEllRows`: the hot block
 n·h plus the ELL tail's slots on a matvec and the occurrence buckets'
-on an Xᵀr); the line search's elementwise trials over (n, G) at its trial
+on an Xᵀr; `HybridRows` and `PermutedHybridRows` the hot block plus the
+flat tail, the permuted one's buckets on an Xᵀr); the line search's elementwise trials over (n, G) at its trial
 cap; the per-lane vector work (the two-loop recursion over the history);
 ``max_iters`` iterations plus the start's two passes. Bytes are what
 those passes read (each stored value and its index once a pass) plus the
@@ -132,12 +133,14 @@ def _values(t: torch.Tensor, nnz: float) -> tuple:
 
 def _x_passes(X) -> tuple:
     """(matvec pass, Xᵀr pass) of one device's matrix."""
-    from photon_tpu_torch.data.matrix import BlockedEllRows, SparseRows
+    from photon_tpu_torch.data.matrix import (SINGLE_DEVICE_LAYOUTS,
+                                              BlockedEllRows, HybridRows,
+                                              SparseRows)
     from photon_tpu_torch.parallel.mesh import SlotRows
 
     if isinstance(X, SlotRows):
         X = X.parts[0]  # per-device view: one slot's share
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, SINGLE_DEVICE_LAYOUTS):
         n, h = X.dense.shape
         hot, hot_saved = _values(X.dense, float(n * h))
 
@@ -149,7 +152,11 @@ def _x_passes(X) -> tuple:
             return _Pass(float(n * h) + slots, hot + b + idx + 4.0 * slots,
                          4.0 * slots, hot_saved + saved)
 
-        return tail(X.ell_vals), tail(X.bucket_vals)
+        if isinstance(X, BlockedEllRows):
+            return tail(X.ell_vals), tail(X.bucket_vals)
+        flat = tail((X.tail_vals,))  # the flat tail, read by both passes
+        return flat, (flat if isinstance(X, HybridRows)
+                      else tail(X.bucket_vals))
     if isinstance(X, SparseRows):
         nnz = float(X.values.numel())
         b, saved = _values(X.values, nnz)
@@ -236,12 +243,13 @@ def lane_grid_cost(batch, task, config, G: int, mesh=None) -> StaticCost:
 
 def _rows_of(X) -> int:
     """One device's rows of a chunk matrix (a mesh slot's share)."""
-    from photon_tpu_torch.data.matrix import BlockedEllRows, SparseRows
+    from photon_tpu_torch.data.matrix import (SINGLE_DEVICE_LAYOUTS,
+                                              SparseRows)
     from photon_tpu_torch.parallel.mesh import SlotRows
 
     if isinstance(X, SlotRows):
         X = X.parts[0]
-    if isinstance(X, BlockedEllRows):
+    if isinstance(X, SINGLE_DEVICE_LAYOUTS):
         return int(X.dense.shape[0])
     if isinstance(X, SparseRows):
         return int(X.values.shape[0])

@@ -111,7 +111,9 @@ class TraceContext:
     def switch(self, name: str, **attrs) -> None:
         """Close the open hop (if any) and open ``name`` — the causal
         hand-off point between stages."""
-        now = time.perf_counter_ns()
+        self._switch(name, time.perf_counter_ns(), attrs)
+
+    def _switch(self, name: str, now: int, attrs: dict) -> None:
         with self._lock:
             if self._done:
                 return
@@ -273,7 +275,11 @@ def begin(name: str = "queue_wait", **attrs) -> Optional[TraceContext]:
     tc = _CTX.get()
     if tc is None or tc._done:
         tc = TraceContext()
-    tc.switch(name, **attrs)
+        # a fresh trace's first hop opens at the trace's own start, so the
+        # hops tile its total with no gap between two clock reads
+        tc._switch(name, tc.start_ns, attrs)
+    else:
+        tc.switch(name, **attrs)
     return tc
 
 

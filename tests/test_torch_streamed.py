@@ -216,8 +216,10 @@ def emulate_tail(name, plan, ranges, w, lanes, out, zero_bytes):
     K.count_launch(name, ranges[2])
 
 
-def emulate_rmatvec(name, plan, ranges, r, lanes, square, out):
-    out.copy_(KB.bucket_rmatvec_reference(_layout_of(plan), r, square))
+def emulate_rmatvec(name, plan, ranges, r, lanes, square, out,
+                    round_r=True):
+    out.copy_(KB.bucket_rmatvec_reference(_layout_of(plan), r, square,
+                                          round_r))
     K.count_launch(name, ranges[2])
 
 
