@@ -171,8 +171,9 @@ D4. time the fused kernel at D2's shape (CUDA events; device time from the
    warm and cold) and its bound;
 GM. GAME at benches/game_10m.py's full width — 10,000,000 rows, 100,000
    users, 50,000 items, a 32-wide fixed shard in bf16 on the card, 4-wide
-   per-user and per-item shards, 2 sweeps; logistic, the fixed effect L2
-   1.0 for 30 iterations, each random effect L2 5.0 for 15 — through
+   per-user and per-item shards, 2 sweeps (the rows made in MG's wait);
+   logistic, the fixed effect L2 1.0 for 30 iterations, each random
+   effect L2 5.0 for 15 — through
    `GameEstimator.fit`: the entity bucketing's seconds and buckets (m, E,
    lane chunk), a cold fit and a warm refit (row-sweeps/s = rows x sweeps
    / warm wall), peak device memory, the objective history, each random
@@ -222,10 +223,11 @@ GK. GAME through the kernels, one sweep, random effects with the serving
    entity decides its own steps and stop, and a few in 10^5 decide on
    the rounding their offsets differ by; they are counted).
 DRV. the drivers on local Avro (a temporary directory beside this script):
-   (a) benches/game_10m.py's widths and settings at 2^18 training and
-   2^16 validation rows (GM's planted model; written as deflate Avro by
-   a vectorized encoder through the port's `AvroBlockWriter`, its first
-   256 records held against `write_datum`) through `run_indexing`,
+   (a) benches/game_10m.py's widths and settings at 2^17 training and
+   2^15 validation rows (cut from 2^18 and 2^16 for AN's time; GM's
+   planted model; written in MG's wait as deflate Avro by a vectorized
+   encoder through the port's `AvroBlockWriter`, its first 256 records
+   held against `write_datum`) through `run_indexing`,
    `run_training` (a 2-point grid over the per-user L2, 2.5 and 5.0;
    validation with AUC and SHARDED_AUC by user; ``output_mode="ALL"``)
    and `run_scoring` of ``best_model/`` on the validation file, the
@@ -245,11 +247,11 @@ DRV. the drivers on local Avro (a temporary directory beside this script):
    ms, its error and how many outputs its own calls disagree on). The
    drivers decode natively (a fallback to Python fails the phase).
 DRV-S. the streamed data plane on local Avro (a `_drvs*` temporary
-   directory): GM's widths at 2^19 training rows (cut from 2^21 for TU's
-   and HY's time; over a streaming threshold of DRVS_THRESHOLD rows, where
-   2^21 rows were just over the default 2,000,000) as 8 deflate part files
-   and 2^17 validation rows, written by a spawn process pool, the largest
-   file first; (a) a part file of
+   directory): GM's widths at 2^18 training rows (cut from 2^21 for TU's,
+   HY's and AN's time; over a streaming threshold of DRVS_THRESHOLD rows,
+   where 2^21 rows were just over the default 2,000,000) as 8 deflate part
+   files and 2^16 validation rows, written in MG's wait by a spawn process
+   pool, the largest file first; (a) a part file of
    DRVS_PY_ROWS rows written beside them through `read_game_data` native
    and Python (equal bit for bit, rows/s each), then half the training
    part files (cut: depth) through `iter_game_chunks_parallel` with 0 and
@@ -393,7 +395,7 @@ GMM. GAME on the in-process MG_SLOTS-slot mesh (all slots on the one
    device (the best model only; a third run on one device reads a copy
    of the training Avro whose row weights sit one ulp above 1), the same
    best point, held at (a)'s bounds; (f) after GG: GG's 4-lane grid at
-   2^21 rows, every solve at
+   2^20 rows (cut from 2^21 for AN's time), every solve at
    RE_CHECK_TOL, on one device and on the mesh (`fit_game_grid(mesh=)`),
    each lane at (a)'s bounds.
 TF. the run telemetry spine and the replica fleet: (a) after CK (d):
@@ -463,12 +465,13 @@ PF. the attribution ledger and the self-test CLIs: (a) after CK (a), on
    photon_tpu_torch.profiling --report --json`` at its defaults and
    ``--selftest --json``, side by side, each exiting 0 with every
    streamed entry's roofline share in (0, 1]; (c) started where MG
-   begins, beside its host layout builds and (c)'s 2-process solve, and
-   waited for before MG's timed solves: ``python -m photon_tpu_torch
-   --selfcheck --json --jobs PF_JOBS`` — every ported suite (telemetry,
-   serving, checkpoint, profiling, game, continual, ingest, kernels,
-   tuning, parallel) exiting 0 on the card, with its seconds, and
-   ``analysis``, ``lint`` and ``threads`` named as pending.
+   begins, beside its host layout builds, (c)'s 2-process solve and the
+   later phases' host data (GM's rows, DRV's and DRV-S's Avro files, none
+   of it timed), and waited for before MG's timed solves: ``python -m
+   photon_tpu_torch --selfcheck --json --jobs PF_JOBS`` — all 13 suites
+   (parallel, analysis, telemetry, serving, checkpoint, profiling, game,
+   continual, ingest, kernels, tuning, lint, threads) exiting 0 on the
+   card, with their seconds, and none pending.
 
 HY. the hybrid layouts on T2's data (after MG): (a) `to_permuted_hybrid`
    at full width, every value leaf bf16 (build s, bytes on the card); the
@@ -493,6 +496,22 @@ HY. the hybrid layouts on T2's data (after MG): (a) `to_permuted_hybrid`
    once per slot and pass; (e) bench.py's 8-lane grid (S_GRID, G (a)'s
    settings) on (a)'s layout, rows*sum(iters)/s beside G's.
 
+AN. the hot-path contracts and the source auditor (last): (a) every
+   contract of `photon_tpu_torch.analysis.registry` run twice in this
+   process on the card under the recorder (`analysis.walker`), one line
+   each — psum count, host syncs against the contract's budget, kernel
+   launches, plans built on the second call, violations —, every
+   contract holding, and the kernel contracts of rows 1-5
+   (``blocked_ell_kernel_x_passes``, ``blocked_ell_kernel_no_retrace``,
+   ``blocked_ell_tiled_x_passes``, ``serving_kernel_fused_rung``,
+   ``serving_kernel_mode_invariance``) launching their kernels with no
+   host sync and no plan on the second call (the counts reset just before
+   and read just after); (b) beside (a), ``python -m
+   photon_tpu_torch.lint --json`` and ``--threads --json``, both ``ok``
+   with zero findings and no stale waiver. PF (c)'s umbrella runs the
+   same contracts (``analysis``) and audits (``lint``, ``threads``) as
+   suites of their own.
+
 Output: the run's lines, then one ``{"kernels": [...]}`` JSON line (the
 blocked-ELL entries carry their 8-lane figures under ``lanes8_*`` and
 their launches in the grid's solves under ``grid_launches``; every
@@ -510,8 +529,9 @@ processes, the rung after (c)'s swap — under ``gmm_launches``, and in
 TF's (a) armed solve, (b)'s fleet legs and kills under ``tf_launches``,
 and in TU's (b) tune and (e) bootstrap under ``tu_launches``, and in
 PF (a)'s first armed solve under ``pf_launches``, and in HY's solves and
-grid under ``hy_launches``; rows 4 and 5 carry HY's unrounded timings
-under ``hy_*``),
+grid under ``hy_launches``, and in AN (a)'s contract runs under
+``an_launches``; rows 4 and 5 carry HY's unrounded timings under
+``hy_*``),
 the
 card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; exits non-zero
@@ -582,27 +602,28 @@ GG_USER_L2, GG_VAL_ROWS, GG_SEED = [1.25, 2.5, 5.0, 10.0], 1 << 20, 202
 # GK's ladder
 S_CHUNK, S_DENSE_CHUNK, GS_CHUNK, GK_S_CHUNK = 1 << 18, 1 << 16, 1 << 20, \
     1 << 17
-# the drivers on local Avro: GM's widths at 2^18 training and 2^16
-# validation rows (a pure-Python Avro decode is ~100 µs a row), a grid
+# the drivers on local Avro: GM's widths at 2^17 training and 2^15
+# validation rows (cut from 2^18 and 2^16 for AN's time; a pure-Python
+# Avro decode is ~100 µs a row), a grid
 # over the per-user L2 weight; (b) a wide sparse fixed effect; (c) the
 # SparseRows Xᵀr at T2's widths
-DRV_ROWS, DRV_VAL_ROWS, DRV_SEED, DRV_BLOCK = 1 << 18, 1 << 16, 303, 4096
+DRV_ROWS, DRV_VAL_ROWS, DRV_SEED, DRV_BLOCK = 1 << 17, 1 << 15, 303, 4096
 DRV_USER_L2 = [2.5, 5.0]
 DRV_WIDE_ROWS, DRV_WIDE_D, DRV_WIDE_K, DRV_WIDE_ITERS = 1 << 15, 1 << 16, \
     32, 20
 DRV_XTR_ROWS = 1 << 19
-# the streamed data plane (DRV-S): GM's widths at 2^19 training rows (cut
+# the streamed data plane (DRV-S): GM's widths at 2^18 training rows (cut
 # from 2^21, which sat just over the training driver's default streaming
-# threshold of 2,000,000, to 2^20 for TU's time and to 2^19 for HY's; the
-# threshold is set to DRVS_THRESHOLD) in 8 part files and 2^17 validation
-# rows, 4 ingest workers,
-# 2^16-row decode chunks and 2^18-row objective chunks, solves stopped at
+# threshold of 2,000,000, to 2^20 for TU's time, to 2^19 for HY's and to
+# 2^18 for AN's; the threshold is set to DRVS_THRESHOLD) in 8 part files
+# and 2^16 validation rows, 4 ingest workers,
+# 2^16-row decode chunks and 2^17-row objective chunks, solves stopped at
 # a relative progress of DRVS_TOL (the (b)/(c) comparison's tolerance);
 # (d) T2's widths at 2^17 rows (cut from 2^18 for the script's time), a
 # ladder of 2^15-row chunks, 10 iterations
-DRVS_ROWS, DRVS_VAL_ROWS, DRVS_PARTS, DRVS_SEED = 1 << 19, 1 << 17, 8, 404
-DRVS_THRESHOLD = 500_000
-DRVS_WORKERS, DRVS_CHUNK, DRVS_OBJ_CHUNK, DRVS_TOL = 4, 1 << 16, 1 << 18, \
+DRVS_ROWS, DRVS_VAL_ROWS, DRVS_PARTS, DRVS_SEED = 1 << 18, 1 << 16, 8, 404
+DRVS_THRESHOLD = 200_000
+DRVS_WORKERS, DRVS_CHUNK, DRVS_OBJ_CHUNK, DRVS_TOL = 4, 1 << 16, 1 << 17, \
     1e-3
 DRVS_LADDER_ROWS, DRVS_LADDER_CHUNK, DRVS_LADDER_ITERS = 1 << 17, 1 << 15, 10
 DRVS_AUC_CALLS = 20  # (b): the same margins' AUC, call after call
@@ -620,13 +641,13 @@ TU_T2_CONFIGS, TU_T2_CHUNK, TU_BOOT = 32, 8, 16
 TU_DRV_ITERS, TU_DRV_BATCH = 8, 4
 # a reg-weight range whose spread (1e3) the GAME grid's lane gate takes
 TU_DRV_RANGE = (0.1, 100.0)
-# continual refresh (CR): the previous model from GM's data (GM's rows),
-# a delta drop of 2^20 zipf(1.2) user rows plus 4,096 rows of 1,000 users
+# continual refresh (CR): the previous model on GM's data (GM's own
+# GameData), a delta drop of 2^20 zipf(1.2) user rows plus 4,096 rows of
+# 1,000 users
 # the model never saw (from seed + CR_SEED), the drop's users shifted by
 # CR_SHIFT; the hot swap's requests and its probe bound (a refreshed user
 # moves its margin by a few units, a blown-up store by ~1e6); (f)'s budget
-CR_ROWS, CR_DROP_ROWS, CR_NEW_USERS, CR_NEW_ROWS = GM_ROWS, 1 << 20, 1000, \
-    4096
+CR_DROP_ROWS, CR_NEW_USERS, CR_NEW_ROWS = 1 << 20, 1000, 4096
 CR_SEED, CR_SHIFT, CR_REQUESTS, CR_PROBE_BOUND, CR_BUDGET = 505, 0.3, \
     4096, 25.0, 5
 W_CHECK_RTOL = 1e-4  # coefficients of one entity solved two ways
@@ -639,9 +660,11 @@ CR_BUDGET_CHECK = 2
 CK_ITERS, CK_SNAPSHOTS, CK_KEEP = 10, 3, 2
 # phase PF: (a)'s ladder solve cut to PF_ITERS iterations (as MG (b) and
 # CK (a)), PF_CALLS solves in turns disarmed, armed, armed, disarmed;
-# (c)'s umbrella runs PF_JOBS suites at a time; the card's HBM rate that
+# (c)'s umbrella runs PF_JOBS suites at a time (raised from 3 for AN's
+# time: the 13 suites wait for no GPU work of each other); the card's
+# HBM rate that
 # (a)'s bytes divide by (the kernel bounds' pair, PERF.md §6)
-PF_ITERS, PF_CALLS, PF_JOBS, PF_HBM_BYTES_PER_S = 10, 4, 3, 3.35e12
+PF_ITERS, PF_CALLS, PF_JOBS, PF_HBM_BYTES_PER_S = 10, 4, 6, 3.35e12
 # PF (a)'s kernel launches, its first armed solve's (reset just before it
 # and read just after)
 PF_LAUNCHES: dict = {}
@@ -682,7 +705,7 @@ GMM_GAP_FACTOR = 2.0
 # GMM (d)'s two clusters each ran in under 30 s with their start; a hung
 # one is stopped and fails the phase well inside the script's limit
 GMM_D_TIMEOUT_S = 180.0
-GMM_D_ROWS, GMM_F_ROWS, GMM_VAL_ROWS, GMM_SEED = 1 << 16, 1 << 21, 1 << 18, \
+GMM_D_ROWS, GMM_F_ROWS, GMM_VAL_ROWS, GMM_SEED = 1 << 16, 1 << 20, 1 << 18, \
     606
 # GMM's kernel launches, summed over its legs (each reset just before its
 # main path and read just after): (b)'s mesh fit, (d)'s processes, the
@@ -3143,7 +3166,7 @@ def psum_ms(mesh, d: int, dev, n: int = 20) -> float:
     return float(np.median(ts[3:]))
 
 
-def phase_mesh(t2: dict, s_ref: dict, dev, gpu) -> dict:
+def phase_mesh(t2: dict, s_ref: dict, dev, gpu, setup) -> tuple:
     """MG: (a) T2's L-BFGS on an in-process 8-slot mesh (every slot on
     the visible cards) against T2 (a); (b) S's ladder as mesh chunks
     (L-BFGS, OWL-QN) against S; (d) PF (c)'s umbrella selfcheck, whose
@@ -3152,17 +3175,19 @@ def phase_mesh(t2: dict, s_ref: dict, dev, gpu) -> dict:
     solve cut to MG_ITERS_C
     iterations at 2 processes from a saved sharded batch, bit for bit
     against the in-process mesh; NCCL legs with two cards or more.
-    Returns the kernels' launches in (a)'s main-path solve."""
+    ``setup()`` (later phases' host data, nothing in it timed) runs in
+    the wait for the umbrella. Returns the kernels' launches in (a)'s
+    main-path solve and what ``setup()`` returned."""
     import shutil
     import tempfile
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    # PF (c)'s umbrella (the parallel suite among its ten) runs beside the
-    # host layout builds below (its spawned processes on the card, the
-    # builds numpy on this host), and so do (c)'s multi-process solves
-    # once their shards are saved; both are waited for before any timed
-    # solve
+    # PF (c)'s umbrella (the parallel suite among its 13) runs beside the
+    # host layout builds below and the later phases' host data (its
+    # spawned processes on the card, the builds and the data numpy on
+    # this host), and so do (c)'s multi-process solves once their shards
+    # are saved; both are waited for before any timed solve
     selfcheck = subprocess.Popen(
         [sys.executable, "-m", "photon_tpu_torch", "--selfcheck", "--json",
          "--jobs", str(PF_JOBS)], cwd=here, stdout=subprocess.PIPE,
@@ -3171,7 +3196,7 @@ def phase_mesh(t2: dict, s_ref: dict, dev, gpu) -> dict:
     threads: list = []
     try:
         return _phase_mesh(t2, s_ref, dev, gpu, selfcheck, t_phase, root,
-                           threads)
+                           threads, setup)
     finally:
         if selfcheck.poll() is None:
             selfcheck.kill()
@@ -3182,7 +3207,7 @@ def phase_mesh(t2: dict, s_ref: dict, dev, gpu) -> dict:
 
 
 def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selfcheck, t_phase: float,
-                root: str, threads: list) -> dict:
+                root: str, threads: list, setup) -> tuple:
     import threading
 
     import torch
@@ -3240,8 +3265,16 @@ def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selfcheck, t_phase: float,
     cbm = chunk_blocked_ell(host, S_CHUNK, T_DENSE,
                             feature_dtype=torch.bfloat16, n_shards=MG_SLOTS)
     lad_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    made = setup()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out, err = selfcheck.communicate(timeout=900)
+    wait_s = time.perf_counter() - t0
     st_s = time.perf_counter() - t_phase
+    log(f"MG: the later phases' host data (GM's rows, DRV's and DRV-S's "
+        f"Avro files) made in {setup_s:.1f} s while PF (c)'s umbrella ran, "
+        f"then {wait_s:.1f} s waiting for it  [{gpu}]")
     report = pf_selfcheck(selfcheck.returncode, out, err, st_s, gpu)
     legs_c.join()
     torch.cuda.synchronize()
@@ -3440,7 +3473,7 @@ def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selfcheck, t_phase: float,
     del sb, host
     torch.cuda.empty_cache()
     log(f"MG: {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
-    return launches
+    return launches, made
 
 
 # ------------------------------------------ phases GM and GK: GAME training
@@ -3669,9 +3702,11 @@ def entity_check(coord, offsets, seed: int, cfg, dev, gpu, label,
     return n
 
 
-def phase_game(args, dev, gpu) -> dict:
-    """GM: benches/game_10m.py at full width through GameEstimator.fit;
-    returns the kernels' launches in its fits."""
+def phase_game(args, gm_rows: tuple, dev, gpu) -> tuple:
+    """GM: benches/game_10m.py at full width through GameEstimator.fit, on
+    ``gm_rows`` (`game_10m_data(args.seed)` and the seconds it took);
+    returns the kernels' launches in its fits, GS's and GG's, and the
+    data CR refreshes."""
     import torch
 
     from photon_tpu_torch import kernels as K
@@ -3686,9 +3721,7 @@ def phase_game(args, dev, gpu) -> dict:
     from photon_tpu_torch.optim.regularization import l2
 
     n, sweeps = GM_ROWS, GM_SWEEPS
-    t0 = time.perf_counter()
-    Xf, Xu, Xi, uid, iid, y = game_10m_data(args.seed)
-    gen_s = time.perf_counter() - t0
+    (Xf, Xu, Xi, uid, iid, y), gen_s = gm_rows
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     Xf_dev = torch.from_numpy(Xf).to(dev).to(torch.bfloat16)
@@ -3703,7 +3736,8 @@ def phase_game(args, dev, gpu) -> dict:
     cfg_r = OptimizerConfig(max_iters=GM_RE[0], reg=l2(),
                             reg_weight=GM_RE[1])
     est = game_estimator(dev, cfg_f, cfg_r, sweeps)
-    log(f"GM: data made in {gen_s:.1f} s ({n} rows, {GM_USERS} users + "
+    log(f"GM: data made in {gen_s:.1f} s in MG's wait ({n} rows, "
+        f"{GM_USERS} users + "
         f"{GM_ITEMS} items, d_fixed {GM_D_FIXED} bf16 on the card "
         f"({Xf_dev.numel() * 2 / 1e9:.2f} GB, uploaded in {up_s:.2f} s), "
         f"d_re {GM_D_RE} f32)")
@@ -3821,12 +3855,17 @@ def phase_game(args, dev, gpu) -> dict:
     gmm_grid(est, data, gmm_val, dev, gpu)
     del gmm_val
     lap("GMM (f)")
+    # CR's previous model is fitted on this data: its arrays, the fixed
+    # shard kept on the host (GS swaps a chunked one into ``data``)
+    cr_data = dataclasses.replace(
+        data, shards={**data.shards, "fixed": data.shards["fixed"].cpu()},
+        entity_ids=dict(data.entity_ids))
     gs = game_streamed(est, data, warm, game_auc, cfg_f, dev, gpu)
     lap("GS")
     phase_ck_game(est, data, dev, gpu)
     del data, est, cold, warm
     torch.cuda.empty_cache()
-    return launches, gs, gg
+    return launches, gs, gg, cr_data
 
 
 def sharded_auc_np(scores: np.ndarray, y: np.ndarray, groups) -> float:
@@ -4909,7 +4948,7 @@ def gmm_processes_start(seed: int, cfgs: dict, var, ckdir: str) -> tuple:
             runs[key] = (e, time.perf_counter() - t0)
 
     # the two clusters side by side
-    threads = [threading.Thread(target=go, args=a)
+    threads = [threading.Thread(target=go, args=a, daemon=True)
                for a in (("fit", None, 0), ("kill", ckdir, 2))]
     for t in threads:
         t.start()
@@ -5011,23 +5050,21 @@ def gmm_refresh(prev, drop, plan, configs, res, one_s: float, dev, gpu):
     return res_m
 
 
-def gmm_driver(params_a: dict, root: str, train: tuple, dev, gpu) -> None:
+def gmm_driver(params_a: dict, root: str, write_s: float, dev,
+               gpu) -> None:
     """GMM (e): DRV (a)'s Avro and parameters with every solve stopped at
     RE_CHECK_TOL (the best model only) through `run_training(mesh=)`, held
     at GMM's bounds against the same run on one device; a third run on
-    one device reads ``train`` (DRV (a)'s training columns) again as Avro
-    whose row weights sit one ulp above 1, the one-device run's own
-    spread for the entity bound."""
+    one device reads DRV (a)'s training rows again from
+    ``train_nudged.avro`` (`drv_files`, written in ``write_s``), whose row
+    weights sit one ulp above 1, the one-device run's own spread for the
+    entity bound."""
     import torch
 
     from photon_tpu_torch import drivers as D
     from photon_tpu_torch import kernels as K
 
-    t0 = time.perf_counter()
     nudged_path = os.path.join(root, "train_nudged.avro")
-    write_examples(nudged_path, *train, weights=np.full(
-        len(train[1]), np.nextafter(np.float32(1), np.float32(2))))
-    write_s = time.perf_counter() - t0
     coords = {n: {**c, "tolerance": RE_CHECK_TOL}
               for n, c in params_a["coordinates"].items()}
 
@@ -5063,7 +5100,8 @@ def gmm_driver(params_a: dict, root: str, train: tuple, dev, gpu) -> None:
         f" {mesh_s:.3f} s, phases " + ", ".join(
             f"{k} {v:.3f}" for k, v in out_m.timings.items())
         + f" s; on one device {one_s:.3f} s; the nudged training Avro "
-        f"written in {write_s:.1f} s; the same best point; held at GMM's "
+        f"written in {write_s:.1f} s (in MG's wait); the same best point; "
+        f"held at GMM's "
         f"bounds: {held}  [{gpu}]")
 
 
@@ -5175,13 +5213,56 @@ def dir_bytes(path) -> int:
                for d, _, fs in os.walk(path) for f in fs)
 
 
-def phase_drivers(args, dev, gpu) -> dict:
-    """DRV: the drivers end to end on local Avro — (a) indexing, training
-    (a 2-point per-user L2 grid, validation, ALL mode) and scoring at GM's
-    widths, (b) a wide sparse fixed effect trained twice, (c) the
-    SparseRows Xᵀr at T2's widths; returns the kernels' launches in (a)."""
+def later_setup(args) -> dict:
+    """The later phases' host data, made while MG waits for PF (c)'s
+    umbrella (set-up: nothing in it is timed as a metric): GM's rows with
+    the seconds they took, DRV (a)'s and DRV-S's Avro files."""
+    t0 = time.perf_counter()
+    gm = game_10m_data(args.seed)
+    return {"gm": (gm, time.perf_counter() - t0), "drv": drv_files(args),
+            "drvs": drvs_files(args)}
+
+
+def drv_files(args) -> dict:
+    """DRV (a)'s Avro in a `_drv*` temporary directory beside this script:
+    GM's widths at DRV_ROWS training and DRV_VAL_ROWS validation rows (GM's
+    planted model), and GMM (e)'s copy of the training file whose row
+    weights sit one ulp above 1; the directory and the seconds."""
     import tempfile
 
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="_drv", dir=here)
+    t0 = time.perf_counter()
+    seed = args.seed + DRV_SEED
+    tr = game_10m_data(seed, DRV_ROWS)
+    va = game_10m_data(seed + 1, DRV_VAL_ROWS, model_seed=seed)
+    schema, names = gm_schema()
+    cols = {}
+    for path, (Xf, Xu, Xi, uid, iid, y) in (("train.avro", tr),
+                                            ("val.avro", va)):
+        n = len(y)
+        cols[path] = (schema, y,
+                      [np.char.add("r", np.arange(n).astype(str)),
+                       np.char.add("u", uid.astype(str)),
+                       np.char.add("i", iid.astype(str))],
+                      list(zip(names, (Xf, Xu, Xi))))
+        write_examples(os.path.join(tmp.name, path), *cols[path])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = cols["train.avro"]
+    write_examples(os.path.join(tmp.name, "train_nudged.avro"), *train,
+                   weights=np.full(len(train[1]), np.nextafter(
+                       np.float32(1), np.float32(2))))
+    return {"dir": tmp, "write_s": write_s,
+            "nudged_s": time.perf_counter() - t0}
+
+
+def phase_drivers(args, files: dict, dev, gpu) -> dict:
+    """DRV: the drivers end to end on local Avro — (a) indexing, training
+    (a 2-point per-user L2 grid, validation, ALL mode) and scoring at GM's
+    widths on ``files`` (`drv_files`), (b) a wide sparse fixed effect
+    trained twice, (c) the SparseRows Xᵀr at T2's widths; returns the
+    kernels' launches in (a)."""
     import torch
 
     from photon_tpu_torch import drivers as D
@@ -5195,27 +5276,12 @@ def phase_drivers(args, dev, gpu) -> dict:
     from photon_tpu_torch.game.model import FixedEffectModel
     from photon_tpu_torch.game.scoring import score_game
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="_drv", dir=here) as root:
+    seed = args.seed + DRV_SEED
+    with files["dir"] as root:
         # (a) GM's widths, cut in depth
-        t0 = time.perf_counter()
-        seed = args.seed + DRV_SEED
-        tr = game_10m_data(seed, DRV_ROWS)
-        va = game_10m_data(seed + 1, DRV_VAL_ROWS, model_seed=seed)
-        schema, names = gm_schema()
-        avro_cols = {}
-        for path, (Xf, Xu, Xi, uid, iid, y) in (("train.avro", tr),
-                                                ("val.avro", va)):
-            n = len(y)
-            avro_cols[path] = (schema, y,
-                               [np.char.add("r", np.arange(n).astype(str)),
-                                np.char.add("u", uid.astype(str)),
-                                np.char.add("i", iid.astype(str))],
-                               list(zip(names, (Xf, Xu, Xi))))
-            write_examples(os.path.join(root, path), *avro_cols[path])
         log(f"DRV (a): {DRV_ROWS} training and {DRV_VAL_ROWS} validation "
-            f"rows written as deflate Avro in "
-            f"{time.perf_counter() - t0:.1f} s "
+            f"rows written as deflate Avro in {files['write_s']:.1f} s "
+            f"(in MG's wait) "
             f"({os.path.getsize(os.path.join(root, 'train.avro')) / 1e6:.1f}"
             f" MB and "
             f"{os.path.getsize(os.path.join(root, 'val.avro')) / 1e6:.1f} "
@@ -5354,11 +5420,11 @@ def phase_drivers(args, dev, gpu) -> dict:
             telemetry.snapshot()["counters"].get("game_re.blocks", 0)),
             dev, gpu)
         lap("CK (c)")
-        gmm_driver(params_a, root, avro_cols.pop("train.avro"), dev, gpu)
+        gmm_driver(params_a, root, files["nudged_s"], dev, gpu)
         lap("GMM (e)")
         tu_driver(params_a, root, dev, gpu)
         lap("TU (d)")
-        del out, sc, best, loaded, vfull, tr, va, avro_cols
+        del out, sc, best, loaded, vfull
         torch.cuda.empty_cache()
 
         # (b) a wide sparse fixed effect through the driver, twice
@@ -5637,18 +5703,49 @@ def model_gaps(a, b) -> dict:
     return out
 
 
-def phase_drivers_streamed(args, dev, gpu) -> dict:
-    """DRV-S: the streamed data plane — (a) native against Python decode
-    and the ingest plane's legs on GM-width part files, (b) the training
-    driver past its streaming threshold (auto-trip, 4 workers, a
-    chunk cache) against the in-memory read and a cache-hit rerun, (c)
-    the streamed objective under a device budget, (d) T2's ladder built
-    from Avro and trained through the blocked-ELL kernels; returns the
-    kernels' launches in (b)'s streamed run, (c)'s and (d)'s solve."""
+def drvs_files(args) -> dict:
+    """DRV-S's GM-width part files in a `_drvs*` temporary directory beside
+    this script (``train/``: DRVS_PARTS parts of DRVS_ROWS rows in all,
+    ``val/``: DRVS_VAL_ROWS rows, ``python/``: DRVS_PY_ROWS rows for (a)),
+    written by a spawn process pool, the largest file first; the
+    directory, the tasks and the seconds."""
     import concurrent.futures as cf
     import multiprocessing
     import tempfile
 
+    here = os.path.dirname(os.path.abspath(__file__))
+    seed = args.seed + DRVS_SEED
+    tmp = tempfile.TemporaryDirectory(prefix="_drvs", dir=here)
+    dirs = [os.path.join(tmp.name, d) for d in ("train", "val", "python")]
+    for d in dirs:
+        os.makedirs(d)
+    per = DRVS_ROWS // DRVS_PARTS
+    tasks = [(os.path.join(dirs[0], f"part-{p:05d}.avro"), seed + 10 + p,
+              seed, per, p * per) for p in range(DRVS_PARTS)]
+    tasks.append((os.path.join(dirs[1], "part-00000.avro"), seed + 1, seed,
+                  DRVS_VAL_ROWS, 0))
+    tasks.append((os.path.join(dirs[2], "part-00000.avro"), seed + 2, seed,
+                  DRVS_PY_ROWS, 0))
+    t0 = time.perf_counter()
+    with cf.ProcessPoolExecutor(
+            max_workers=min(len(tasks), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        # the largest files first, so none starts last
+        part_s = [s for _, s in pool.map(
+            write_gm_part, sorted(tasks, key=lambda t: -t[3]))]
+    return {"dir": tmp, "tasks": tasks, "write_s": time.perf_counter() - t0,
+            "part_s": part_s}
+
+
+def phase_drivers_streamed(args, files: dict, dev, gpu) -> dict:
+    """DRV-S: the streamed data plane on ``files`` (`drvs_files`) — (a)
+    native against Python decode and the ingest plane's legs on GM-width
+    part files, (b) the training driver past its streaming threshold
+    (auto-trip, 4 workers, a chunk cache) against the in-memory read and a
+    cache-hit rerun, (c) the streamed objective under a device budget, (d)
+    T2's ladder built from Avro and trained through the blocked-ELL
+    kernels; returns the kernels' launches in (b)'s streamed run, (c)'s
+    and (d)'s solve."""
     import torch
 
     from photon_tpu_torch import drivers as D
@@ -5684,40 +5781,23 @@ def phase_drivers_streamed(args, dev, gpu) -> dict:
     if not native.available():
         raise AssertionError(f"DRV-S: the native library did not build: "
                              f"{native.build_error()}")
-    here = os.path.dirname(os.path.abspath(__file__))
     seed = args.seed + DRVS_SEED
+    per = DRVS_ROWS // DRVS_PARTS
     t_phase = time.perf_counter()
     failures: list = []
-    with tempfile.TemporaryDirectory(prefix="_drvs", dir=here) as root:
+    tasks, write_s, part_s = files["tasks"], files["write_s"], \
+        files["part_s"]
+    with files["dir"] as root:
         train_dir = os.path.join(root, "train")
         val_dir = os.path.join(root, "val")
-        py_dir = os.path.join(root, "python")
-        for d in (train_dir, val_dir, py_dir):
-            os.makedirs(d)
-        per = DRVS_ROWS // DRVS_PARTS
-        tasks = [(os.path.join(train_dir, f"part-{p:05d}.avro"),
-                  seed + 10 + p, seed, per, p * per)
-                 for p in range(DRVS_PARTS)]
-        tasks.append((os.path.join(val_dir, "part-00000.avro"), seed + 1,
-                      seed, DRVS_VAL_ROWS, 0))
-        tasks.append((os.path.join(py_dir, "part-00000.avro"), seed + 2,
-                      seed, DRVS_PY_ROWS, 0))
-        t0 = time.perf_counter()
-        with cf.ProcessPoolExecutor(
-                max_workers=min(len(tasks), os.cpu_count() or 1),
-                mp_context=multiprocessing.get_context("spawn")) as pool:
-            # the largest files first, so none starts last
-            part_s = [s for _, s in pool.map(
-                write_gm_part, sorted(tasks, key=lambda t: -t[3]))]
-        write_s = time.perf_counter() - t0
         mb = dir_bytes(train_dir) / 1e6
         log(f"DRV-S: {DRVS_ROWS} training rows at GM's widths as "
             f"{DRVS_PARTS} deflate part files ({mb:.1f} MB) and "
             f"{DRVS_VAL_ROWS} validation rows ({dir_bytes(val_dir) / 1e6:.1f}"
             f" MB) written by {len(tasks)} spawn processes in {write_s:.1f} "
-            f"s (each part {min(part_s):.1f}–{max(part_s):.1f} s); cut: "
+            f"s in MG's wait (each part {min(part_s):.1f}–{max(part_s):.1f} "
+            f"s); cut: "
             f"depth, {DRVS_ROWS} of GM's {GM_ROWS} rows  [{gpu}]")
-        lap("DRV-S write")
         shards = {"global": {"bags": ["global"], "has_intercept": True},
                   "perUser": {"bags": ["perUser"], "has_intercept": False},
                   "perItem": {"bags": ["perItem"], "has_intercept": False}}
@@ -6266,7 +6346,7 @@ def lat_text(lat_ms: np.ndarray, wall: float) -> str:
             f"{np.percentile(lat_ms, 99):.3f} ms over {lat_ms.size}")
 
 
-def phase_continual(args, dev, gpu) -> tuple:
+def phase_continual(args, gm_data, dev, gpu) -> tuple:
     """CR: continual refresh at GM's widths — (a) the previous model, (b)
     a delta drop's plan and refresh held entity by entity, (c) a second
     drop on the same padded shapes, (d) the hot swap into a live int8
@@ -6286,7 +6366,6 @@ def phase_continual(args, dev, gpu) -> tuple:
                                                     fault_plan)
     from photon_tpu_torch.continual import refresh as CRF
     from photon_tpu_torch.data.dataset import make_batch
-    from photon_tpu_torch.game.dataset import GameData
     from photon_tpu_torch.game.random_effect import (RandomEffectCoordinate,
                                                      align_entity_priors)
     from photon_tpu_torch.game.scoring import coordinate_scores
@@ -6311,14 +6390,13 @@ def phase_continual(args, dev, gpu) -> tuple:
     cfg_b = dataclasses.replace(cfg_r, tolerance=RE_CHECK_TOL)
     configs = {"per_user": cfg_b, "per_item": cfg_b}
 
-    # (a) the previous model: GM's data, SIMPLE variances, its manifest
+    # (a) the previous model: GM's data (``gm_data``, its fixed shard
+    # uploaded again), SIMPLE variances, its manifest
     t0 = time.perf_counter()
-    Xf, Xu, Xi, uid, iid, y = game_10m_data(args.seed, rows=CR_ROWS)
-    Xf_dev = torch.from_numpy(Xf).to(dev).to(torch.bfloat16)
-    del Xf
-    data = GameData.build(y, shards={"fixed": Xf_dev, "u_re": Xu,
-                                     "i_re": Xi},
-                          entity_ids={"user": uid, "item": iid})
+    Xf_dev = gm_data.shards["fixed"].to(dev)
+    data = dataclasses.replace(gm_data, shards={**gm_data.shards,
+                                                "fixed": Xf_dev})
+    torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     est = game_estimator(dev, cfg_f, cfg_r, GM_SWEEPS,
                          variance=VarianceComputationType.SIMPLE)
@@ -6328,7 +6406,8 @@ def phase_continual(args, dev, gpu) -> tuple:
     manifest = CT.build_manifest(data)
     manifest_s = time.perf_counter() - t0
     n_users = len(manifest["entities"]["user"])
-    log(f"CR (a): previous model: {CR_ROWS} rows made in {gen_s:.1f} s, "
+    log(f"CR (a): previous model: GM's {data.n} rows (its data, the fixed "
+        f"shard uploaded again in {gen_s:.2f} s), "
         f"GameEstimator.fit ({GM_SWEEPS} sweeps, SIMPLE variances) "
         f"{fit_s:.3f} s, manifest {manifest_s:.2f} s ({n_users} users, "
         f"{len(manifest['entities']['item'])} items)  [{gpu}]")
@@ -8406,17 +8485,21 @@ def pf_selfcheck(rc: int, out: str, err: str, seconds: float,
                  gpu) -> dict:
     """PF (c): the umbrella's JSON — every ported suite ok on the card,
     each line with its seconds and the facts its report carries, the
-    pending suites named; returns the parallel suite's report (MG (c) and
-    (d) read it)."""
+    13 suites with none pending; returns the parallel suite's report (MG
+    (c) and (d) read it)."""
     lines = out.strip().splitlines()
     umb = json.loads(lines[-1]) if lines else {}
     suites = umb.get("suites", {})
-    want = ["parallel", "telemetry", "serving", "checkpoint", "profiling",
-            "game", "continual", "ingest", "kernels", "tuning"]
+    want = ["parallel", "analysis", "telemetry", "serving", "checkpoint",
+            "profiling", "game", "continual", "ingest", "kernels", "tuning",
+            "lint", "threads"]
     if (rc != 0 or not umb.get("ok") or sorted(suites) != sorted(want)
-            or umb.get("pending") != ["analysis", "lint", "threads"]):
-        raise AssertionError(f"PF (c): selfcheck exit {rc}: "
-                             f"{out[-4000:]} {err[-3000:]}")
+            or umb.get("pending") != []):
+        failed = {name: {"rc": r.get("rc"), "seconds": r.get("seconds"),
+                         "detail": r.get("detail", "")[-1500:]}
+                  for name, r in suites.items() if not r.get("ok")}
+        raise AssertionError(f"PF (c): selfcheck exit {rc}: suites not ok "
+                             f"{failed}; {sorted(suites)} {err[-3000:]}")
     reports = {name: json.loads(r["detail"]) for name, r in suites.items()}
     for name in want:
         rep = reports[name]
@@ -8446,14 +8529,20 @@ def pf_selfcheck(rc: int, out: str, err: str, seconds: float,
             f"{r['checks']['utilization_in_unit_interval']['utilization']}"
             f" ({r['checks']['utilization_in_unit_interval']['peaks_source']})"
             f", ledger free {r['checks']['ledger_off_is_free']}",
+            "analysis": lambda r: f"; {r['n_specs']} contracts on "
+            f"{r['device']}, {r['n_violations']} violations",
+            "lint": lambda r: f"; {r['n_files']} files, {r['n_findings']} "
+            f"findings, {r['n_suppressed']} waived",
+            "threads": lambda r: f"; {len(r['model']['threads'])} thread "
+            f"entries, {r['n_findings']} findings",
         }.get(name, lambda r: "")(rep)
         log(f"PF (c): {name} suite exit 0 in {suites[name]['seconds']} s, "
             f"{len(checks)} checks ok ({', '.join(checks)}){facts}")
     log(f"PF (c): python -m photon_tpu_torch --selfcheck --json --jobs "
-        f"{PF_JOBS}: {len(want)}/{len(want)} ported suites ok in "
-        f"{seconds:.1f} s (beside MG's host layout builds and (c)'s "
-        f"2-process solve); pending, not run and not counted: "
-        f"{', '.join(umb['pending'])}  [{gpu}]")
+        f"{PF_JOBS}: {len(want)}/{len(want)} suites ok in "
+        f"{seconds:.1f} s (beside MG's host layout builds, (c)'s "
+        f"2-process solve and the later phases' host data), none pending  "
+        f"[{gpu}]")
     return reports["parallel"]
 
 
@@ -8622,6 +8711,111 @@ def phase_pf_clis(gpu) -> None:
         f"{time.perf_counter() - t0:.1f} s  [{gpu}]")
 
 
+# ------------------------------- phase AN: the contracts and the auditor
+AN_LAUNCHES: dict = {}  # AN (a)'s kernel launches (reset, run, read)
+# the kernel contracts of rows 1-5, by the wrappers each must launch
+AN_KERNEL_CONTRACTS = {
+    "blocked_ell_kernel_x_passes": ("tail_matvec", "bucket_rmatvec"),
+    "blocked_ell_kernel_no_retrace": ("tail_matvec", "bucket_rmatvec"),
+    "blocked_ell_tiled_x_passes": ("tail_matvec_tiled",
+                                   "bucket_rmatvec_tiled"),
+    "serving_kernel_fused_rung": ("serving_int8",),
+    "serving_kernel_mode_invariance": ("serving_int8",),
+}
+
+
+def phase_an(dev, gpu) -> None:
+    """AN: (a) every registered contract checked in this process on the
+    card (`analysis.contracts.trace_contract`: two calls under the
+    recorder), one line each — psum count, host syncs, kernel launches,
+    plans built on the second call, violations —, every contract holding
+    and the kernel contracts of rows 1-5 launching their kernels with no
+    sync and no plan on the second call (the counts reset just before and
+    read just after); (b) ``python -m photon_tpu_torch.lint --json`` and
+    ``--threads --json``, run beside (a): both ``ok`` with zero findings
+    and no stale waiver."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.analysis.contracts import (check_contract,
+                                                     summarize,
+                                                     sync_budget,
+                                                     trace_contract)
+    from photon_tpu_torch.analysis.registry import load_registry
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    audits = {name: subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch.lint", *flags],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, flags in (("lint", ("--json",)),
+                            ("threads", ("--threads", "--json")))}
+    try:
+        t0 = time.perf_counter()
+        specs = load_registry()
+        bad: dict = {}
+        K.reset_launch_counts()
+        for name in sorted(specs):
+            spec = specs[name]
+            try:
+                traced = trace_contract(spec, dev)
+                violations = [str(v) for v in check_contract(spec, traced)]
+                facts = summarize(traced)
+            except Exception as e:  # noqa: BLE001 — the phase fails below
+                violations = [f"(trace-error) {type(e).__name__}: {e}"]
+                facts = {}
+            want = AN_KERNEL_CONTRACTS.get(name)
+            if want and facts and (
+                    any(not facts["launches"].get(k) for k in want)
+                    or facts["syncs"] or facts["plan_builds_second"]):
+                violations.append(f"kernel contract: launches "
+                                  f"{facts['launches']}, syncs "
+                                  f"{facts['syncs']}, plans on the second "
+                                  f"call {facts['plan_builds_second']}")
+            if violations:
+                bad[name] = violations
+            log(f"AN (a): {name}: psum "
+                f"{facts.get('collectives', {}).get('psum', 0)}, syncs "
+                f"{facts.get('syncs', '?')} (budget "
+                f"{sync_budget(spec, dev)}), launches "
+                f"{facts.get('launches', {})}, plans on the second call "
+                f"{facts.get('plan_builds_second', '?')}, violations "
+                f"{len(violations)}" + (f": {violations}" if violations
+                                        else "") + f"  [{gpu}]")
+        AN_LAUNCHES.update(K.launch_counts())
+        an_s = time.perf_counter() - t0
+        outs = {name: p.communicate(timeout=300)
+                for name, p in audits.items()}
+    finally:
+        for p in audits.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if bad:
+        raise AssertionError(f"AN (a): {len(bad)} contract(s) broken on "
+                             f"the card: {bad}")
+    log(f"AN (a): {len(specs)} contracts hold on "
+        f"{torch.cuda.get_device_name(0)} in {an_s:.1f} s; kernel launches "
+        f"{dict(AN_LAUNCHES)}  [{gpu}]")
+    for name, (out, err) in outs.items():
+        doc = json.loads(out.strip().splitlines()[-1]) if out.strip() \
+            else {}
+        stale = [f for f in doc.get("findings", [])
+                 if f.get("key", "").startswith("stale:")]
+        if audits[name].returncode != 0 or not doc.get("ok") \
+                or doc.get("n_findings") != 0 or stale:
+            raise AssertionError(f"AN (b): {name} exit "
+                                 f"{audits[name].returncode}: "
+                                 f"{out[-3000:]} {err[-2000:]}")
+    lint, threads = (json.loads(outs[n][0].strip().splitlines()[-1])
+                     for n in ("lint", "threads"))
+    log(f"AN (b): python -m photon_tpu_torch.lint --json: ok, "
+        f"{lint['n_rules']} rules over {lint['n_files']} files, 0 findings, "
+        f"{lint['n_suppressed']} waived, no stale waiver; --threads --json: "
+        f"ok, {len(threads['model']['threads'])} thread entries, "
+        f"{len(threads['model']['lock_edges'])} lock-order edges, no cycle, "
+        f"0 findings  [{gpu}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8678,7 +8872,7 @@ def main() -> int:
     s_launches, s_ref = phase_streamed(args, t2, dev, gpu)
     torch.cuda.empty_cache()
     lap("S (c)")
-    mg = phase_mesh(t2, s_ref, dev, gpu)
+    mg, made = phase_mesh(t2, s_ref, dev, gpu, lambda: later_setup(args))
     lap("MG")
     phase_hybrid(t2, dev, gpu)
     del t2
@@ -8693,23 +8887,26 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     lap("TU (e) bootstrap")
-    gm, gs, gg = phase_game(args, dev, gpu)
+    gm, gs, gg, gm_data = phase_game(args, made.pop("gm"), dev, gpu)
     lap("CK (b)")
     gk = phase_game_kernels(args, dev, gpu)
     for name, c in phase_gk_ladder(args, dev, gpu).items():
         gs[name] = gs.get(name, 0) + c
     torch.cuda.empty_cache()
     lap("GK")
-    drv = phase_drivers(args, dev, gpu)
+    drv = phase_drivers(args, made.pop("drv"), dev, gpu)
     torch.cuda.empty_cache()
     lap("DRV (b), (c)")
-    drvs = phase_drivers_streamed(args, dev, gpu)
+    drvs = phase_drivers_streamed(args, made.pop("drvs"), dev, gpu)
     torch.cuda.empty_cache()
     lap("DRV-S (b)-(d)")
-    _, cr = phase_continual(args, dev, gpu)
+    _, cr = phase_continual(args, gm_data, dev, gpu)
+    del gm_data
     lap("CR")
     phase_pf_clis(gpu)
     lap("PF (b)")
+    phase_an(dev, gpu)
+    lap("AN")
     log(f"phase seconds: {json.dumps(LAPS)}; {sum(LAPS.values()):.1f} s "
         f"in all  [{gpu}]")
     for entry in kernels:
@@ -8729,6 +8926,7 @@ def main() -> int:
         entry["tu_launches"] = TU_LAUNCHES.get(entry["name"], 0)
         entry["pf_launches"] = PF_LAUNCHES.get(entry["name"], 0)
         entry["hy_launches"] = HY_LAUNCHES.get(entry["name"], 0)
+        entry["an_launches"] = AN_LAUNCHES.get(entry["name"], 0)
         entry.update(HY_TIMES.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -15,18 +15,28 @@ Conventions:
 - every TPU kernel on a ported path is a hand-written Hopper kernel under
   `kernels/`, with its plain PyTorch version beside it.
 
-Ported so far: the GAME serving path (store → int8/bf16/f32 program
-ladder → micro-batching dispatcher), with the int8 rung as a CUDA kernel;
-single-device GLM training (`models.training.train_glm`: L-BFGS, OWL-QN,
-TRON; priors, normalization, variances) on dense X, `SparseRows` or the
-blocked-ELL layout, whose X passes are CUDA kernels; reg-weight grids
-(`train_glm_grid`); GAME training (`game.estimator.GameEstimator`); and
+Ported so far (slices 1–21): the GAME serving path (store →
+int8/bf16/f32 program ladder → micro-batching dispatcher), with the int8
+rung as a CUDA kernel, and the replica fleet; single-device GLM training
+(`models.training.train_glm`: L-BFGS, OWL-QN, TRON; priors,
+normalization, variances) on dense X, `SparseRows`, the blocked-ELL
+layout — whose X passes are CUDA kernels — and the hybrid and permuted
+hybrid layouts; the dense fused value+grad kernel; reg-weight grids
+(`train_glm_grid`); GAME training (`game.estimator.GameEstimator`);
 streamed training of datasets larger than device memory (a host
 `data.dataset.ChunkedBatch` through `train_glm`, and a GAME fixed effect
 over a host-chunked shard); evaluation and validation-driven selection;
-and the drivers (`drivers`) over the streamed data plane: the native
-Avro block decoder (`native`, host C++ built by g++), streamed reads to
-the card and to the host (`data.streaming`), the parallel ingest plane
-with its chunk cache (`data.ingest_plane`, `ingest`) and the training
-driver's streamed regimes.
+the drivers (`drivers`) over the streamed data plane: the native Avro
+block decoder (`native`, host C++ built by g++), streamed reads to the
+card and to the host (`data.streaming`), the parallel ingest plane with
+its chunk cache (`data.ingest_plane`, `ingest`) and the training
+driver's streamed regimes; continual refresh and the hot swap
+(`continual`); elastic runs (`checkpoint`); the mesh and multi-process
+training (`parallel`); run telemetry and request tracing (`telemetry`);
+Bayesian and lane-batched tuning (`tuning`) and the model diagnostics
+(`diagnostics`); the attribution ledger (`profiling`); the self-test
+CLIs and the umbrella ``python -m photon_tpu_torch --selfcheck``; and
+the source auditor with its thread model (``python -m
+photon_tpu_torch.lint [--threads]``) and the hot paths' run-time
+contracts (``python -m photon_tpu_torch.analysis``).
 """

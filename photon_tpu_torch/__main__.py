@@ -36,12 +36,17 @@ subsystem cannot take the others down), each on the card unless given
   (fused and tiled bit for bit on the card), the streamed ladder solve,
   the dispatch seam's route, the upload ring's plans;
 - ``tuning``     — the lane tuner's rounds, signatures, GP ladder, q-EI
-  edges and budget.
+  edges and budget;
+- ``analysis``   — every registered hot-path contract (``python -m
+  photon_tpu_torch.analysis --json``) on the same device;
+- ``lint``       — the source auditor (``python -m photon_tpu_torch.lint
+  --json``; it reads source files, so it takes no device);
+- ``threads``    — the whole-program thread model and its four
+  concurrency rules (``python -m photon_tpu_torch.lint --threads
+  --json``).
 
-The reference's ``analysis``, ``lint`` and ``threads`` suites (jaxpr
-contracts and source auditors) wait for ROADMAP queue A item 11.9: the
-summary and the JSON (``"pending"``) name them, and they never count as
-passed.
+Every suite of the reference's umbrella is ported, so the JSON's
+``"pending"`` is empty.
 
 Exit status: 0 iff every suite that ran passed.
 """
@@ -59,6 +64,7 @@ SUITES: tuple = (
     # the longest first: with --jobs it overlaps the rest
     ("parallel", ("photon_tpu_torch.parallel", "--selftest", "--json",
                   "--backend", "gloo")),
+    ("analysis", ("photon_tpu_torch.analysis", "--json")),
     ("telemetry", ("photon_tpu_torch.telemetry", "--selftest", "--json")),
     ("serving", ("photon_tpu_torch.serving", "--selftest", "--json")),
     ("checkpoint", ("photon_tpu_torch.checkpoint", "--selftest", "--json")),
@@ -68,16 +74,21 @@ SUITES: tuple = (
     ("ingest", ("photon_tpu_torch.ingest", "--selftest", "--json")),
     ("kernels", ("photon_tpu_torch.kernels", "--selftest", "--json")),
     ("tuning", ("photon_tpu_torch.tuning", "--selftest", "--json")),
+    ("lint", ("photon_tpu_torch.lint", "--json")),
+    ("threads", ("photon_tpu_torch.lint", "--threads", "--json")),
 )
-# the reference's suites that wait for ROADMAP queue A item 11.9
-PENDING: tuple = ("analysis", "lint", "threads")
+# suites that read source files and take no --device
+_NO_DEVICE = frozenset({"lint", "threads"})
+# the reference's suites not ported yet (none)
+PENDING: tuple = ()
 
 
-def _run_suite(argv: tuple, device: str, timeout_s: float) -> dict:
+def _run_suite(argv: tuple, device, timeout_s: float) -> dict:
     t0 = time.perf_counter()
+    tail = () if device is None else ("--device", device)
     try:
         proc = subprocess.run(
-            [sys.executable, "-m", *argv, "--device", device],
+            [sys.executable, "-m", *argv, *tail],
             env=dict(os.environ), capture_output=True, text=True,
             timeout=timeout_s)
         rc = proc.returncode
@@ -100,13 +111,13 @@ def run_selfcheck(only=None, device: str = "cuda", jobs: int = 1,
         unknown = sorted(set(only) - set(names))
         if unknown:
             raise ValueError(
-                f"not a ported suite: {unknown} (ported: {names}; pending "
-                f"ROADMAP queue A item 11.9: {list(PENDING)})")
+                f"not a suite: {unknown} (suites: {names})")
     todo = [(name, argv) for name, argv in SUITES
             if not only or name in only]
     with ThreadPoolExecutor(max_workers=max(int(jobs), 1)) as pool:
-        futures = {name: pool.submit(_run_suite, argv, device, timeout_s)
-                   for name, argv in todo}
+        futures = {name: pool.submit(
+            _run_suite, argv, None if name in _NO_DEVICE else device,
+            timeout_s) for name, argv in todo}
         return {name: fut.result() for name, fut in futures.items()}
 
 
@@ -132,9 +143,9 @@ def main(argv=None) -> int:
         parts = [f"{name}={'ok' if r['ok'] else 'FAIL(rc=%d)' % r['rc']}"
                  for name, r in results.items()]
         n_ok = sum(r["ok"] for r in results.values())
-        print(f"selfcheck: {' '.join(parts)} — {n_ok}/{len(results)} ok; "
-              f"pending (ROADMAP queue A item 11.9, not run): "
-              f"{' '.join(PENDING)}")
+        print(f"selfcheck: {' '.join(parts)} — {n_ok}/{len(results)} ok"
+              + (f"; pending, not run: {' '.join(PENDING)}" if PENDING
+                 else ""))
         for name, r in results.items():
             if not r["ok"]:
                 print(f"  {name}: {r['detail']}")

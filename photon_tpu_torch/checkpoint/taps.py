@@ -128,3 +128,67 @@ def resident_off_is_free(batch, obj, w0, max_iters: int = 5) -> dict:
                 plain.loss_history.nan_to_num(),
                 off.loss_history.nan_to_num()))}
     return out
+
+
+# ----------------------------------------------------------------- contracts
+# The checkpoint-off guarantee as law: with the snapshot tap (and the
+# telemetry tap) disarmed, the resident solves make no collective, and
+# exactly the host syncs of the bare solver on the same problem.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import TRANSFER_PRIMITIVES  # noqa: E402
+
+
+@register_contract(
+    name="checkpoint_off_is_free",
+    description="resident margin-cached L-BFGS solve with the snapshot "
+                "tap and the telemetry tap disarmed: zero collectives, "
+                "host syncs equal to the bare solver's on the same problem",
+    collectives={}, forbid=TRANSFER_PRIMITIVES,
+    # the 5-iteration L-BFGS's read-backs (ROADMAP speed item 1), pinned
+    # so they can only fall; the bare solve's count is the equality
+    max_syncs={"cuda": 20, "cpu": 6}, tags=("resident", "checkpoint"))
+def _contract_checkpoint_off_is_free(device):
+    from photon_tpu_torch.models.training import _contract_resident_problem
+    from photon_tpu_torch.optim.lbfgs import minimize_lbfgs_margin
+    from photon_tpu_torch.telemetry.taps import tap_disabled
+
+    cfg, obj, batch, w0 = _contract_resident_problem(device)
+
+    def bare(b, w, o):
+        return minimize_lbfgs_margin(o, b, w, max_iters=cfg.max_iters,
+                                     history=cfg.history)
+
+    def fn(b, w, o):
+        with tap_disabled(), snapshot_tap_disabled():
+            return bare(b, w, o)
+
+    return fn, (batch, w0, obj), bare
+
+
+@register_contract(
+    name="checkpoint_off_tron_free",
+    description="resident TRON margin solve with the snapshot tap "
+                "disarmed: zero collectives, host syncs equal to the bare "
+                "solver's on the same problem (TRON's only checkpoint "
+                "surface is this tap)",
+    collectives={}, forbid=TRANSFER_PRIMITIVES,
+    # the 5-iteration TRON's read-backs (ROADMAP speed item 1), pinned so
+    # they can only fall: a CG step's stop flag (optim/tron.py:184, 16
+    # here), the start (:217), an iteration's accept flag (:231) and done
+    # flag (:254); the bare solve's count is the equality
+    max_syncs={"cuda": 27, "cpu": 27}, tags=("resident", "checkpoint"))
+def _contract_checkpoint_off_tron_free(device):
+    from photon_tpu_torch.models.training import _contract_resident_problem
+    from photon_tpu_torch.optim.tron import minimize_tron_margin
+    from photon_tpu_torch.telemetry.taps import tap_disabled
+
+    cfg, obj, batch, w0 = _contract_resident_problem(device)
+
+    def bare(b, w, o):
+        return minimize_tron_margin(o, b, w, max_iters=cfg.max_iters)
+
+    def fn(b, w, o):
+        with tap_disabled(), snapshot_tap_disabled():
+            return bare(b, w, o)
+
+    return fn, (batch, w0, obj), bare

@@ -23,8 +23,9 @@ unless given ``--device cpu``:
   kill injected at the ``swap_publish`` site leaves the old version
   serving bit for bit, and a blown-up store is refused.
 
-The reference's ``contracts`` check (its two jaxpr contracts) waits for
-the port of `analysis/` (ROADMAP queue A item 11.9).
+- ``contracts`` — the two continual contracts (`analysis/`:
+  ``continual_re_refresh_solve``, ``continual_refresh_no_retrace``) hold
+  on the same device.
 
 Exit status: 0 iff every check passed.
 """
@@ -33,6 +34,10 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+# the registered contracts this selftest checks (`analysis/`)
+CONTINUAL_CONTRACTS = ("continual_re_refresh_solve",
+                       "continual_refresh_no_retrace")
 
 
 def run_selftest(device: str = "cuda") -> dict:
@@ -226,6 +231,9 @@ def run_selftest(device: str = "cuda") -> dict:
                 "int8_launches": launches}
     finally:
         telemetry.finish_run()
+    from photon_tpu_torch.analysis.contracts import check_names
+
+    checks["contracts"] = check_names(CONTINUAL_CONTRACTS, str(dev))
     return {"ok": all(c["ok"] for c in checks.values()), "checks": checks,
             "device": str(dev)}
 

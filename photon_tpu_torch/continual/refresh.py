@@ -41,9 +41,11 @@ depend on which lanes share its solve. Untouched entities keep their
 previous coefficients and variances BIT-identically (the refresh only
 scatters touched rows); entities new to the drop are deferred
 (`CoordinatePlan.new_keys`) — the previous entity space is the serving
-hot-swap's shape contract. The reference's jaxpr contracts on this path
-(``continual_re_refresh_solve``, ``continual_refresh_no_retrace``) wait
-for the port of `analysis/` (ROADMAP queue A item 11.9).
+hot-swap's shape contract. Two contracts at the bottom of this module
+pin the path: ``continual_re_refresh_solve`` (the compacted solve makes
+no collective, its host syncs held to the lane search's pinned
+read-backs) and ``continual_refresh_no_retrace`` (touched sets of
+different sizes record one signature).
 """
 from __future__ import annotations
 
@@ -316,3 +318,81 @@ def _refresh_coordinate(prev_model: GameModel, cm: RandomEffectModel,
         solve_dispatches=dispatches, total_iterations=total_iters,
         n_converged=n_conv, n_failed=n_fail), (
             np.concatenate(failed) if failed else ds.entity_keys[:0])
+
+
+# ----------------------------------------------------------------- contracts
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+def _refresh_contract_problem(device):
+    """(coordinate, objective, the bucket's lane-minor batch, its (E, p)
+    starts, prior means and precisions) of a small seeded bucket."""
+    from photon_tpu_torch.game.random_effect import _re_contract_fixture
+
+    coord, obj, batch, W0 = _re_contract_fixture(device, users=8)
+    E, p = int(batch.y.shape[1]), int(W0.shape[0])
+    rng = np.random.default_rng(7)
+
+    def rows(scale):
+        return torch.from_numpy(
+            scale * rng.normal(size=(E, p)).astype(np.float32)).to(W0.device)
+
+    return coord, obj, batch, rows(0.1), rows(0.1), rows(0.0).abs() + 1.0
+
+
+def _refresh_solve(coord, o, b, w, m_, p_, lanes, e_pad):
+    """The refresh's compaction + solve of one bucket's touched lanes."""
+    sub = take_lanes(b, lanes, e_pad)
+    W0, PM, PP = (t.t().contiguous() for t in compact_rows(
+        (w, m_, p_), lanes, pad_rows=e_pad))
+    return coord.solve_lanes(o, sub, W0, PM, PP)[0].w
+
+
+@register_contract(
+    name="continual_re_refresh_solve",
+    description="the compacted continual-refresh re-solve: the touched "
+                "lanes gathered on the device (take_lanes, compact_rows) "
+                "+ the prior warm-started lane solve (priors per lane) — "
+                "zero collectives, the host syncs held to the lane "
+                "search's pinned read-backs",
+    # the take of the touched lanes (on the card: data/matrix.py:1707,
+    # parallel/mesh.py:516 a leaf), a weight upload and 4 iterations x 2
+    # one-flag read-backs (ROADMAP speed item 1)
+    collectives={}, max_syncs={"cuda": 16, "cpu": 8},
+    tags=("continual", "game", "lane"))
+def _contract_re_refresh_solve(device):
+    coord, obj, batch, w, pm, pp = _refresh_contract_problem(device)
+    lanes = np.array([1, 3, 4])
+    return ((lambda o, b, w_, m_, p_: _refresh_solve(
+        coord, o, b, w_, m_, p_, lanes, 8)), (obj, batch, w, pm, pp))
+
+
+@register_contract(
+    name="continual_refresh_no_retrace",
+    description="the delta path adds ZERO new signatures: touched sets "
+                "of different sizes compact into blocks padded to the "
+                "SAME lane quantum, so every refresh dispatch of a bucket "
+                "shape records one signature (the builder raises on any "
+                "divergence)",
+    # as continual_re_refresh_solve (ROADMAP speed item 1)
+    collectives={}, max_syncs={"cuda": 16, "cpu": 8},
+    tags=("continual", "lane"))
+def _contract_refresh_no_retrace(device):
+    coord, obj, batch, w, pm, pp = _refresh_contract_problem(device)
+    log = SignatureLog()
+    quantum = 8
+    for n_touched in (3, 7):
+        lanes = np.arange(n_touched)
+        e_pad = pad_to_multiple(n_touched, quantum)
+        sub = take_lanes(batch, lanes, e_pad)
+        W0, PM, PP = (t.t().contiguous() for t in compact_rows(
+            (w, pm, pp), lanes, pad_rows=e_pad))
+        log.record(_SIG_NAME, (sub.X.dense, sub.X.indices, sub.X.values,
+                               sub.y, sub.weights, sub.offsets, W0, PM, PP))
+    if len(log.signatures(_SIG_NAME)) != 1:
+        raise AssertionError(
+            "refresh dispatch signatures diverged across touched sets: "
+            f"{log.signatures(_SIG_NAME)}")
+    lanes = np.array([0, 2, 5, 6, 7])
+    return ((lambda o, b, w_, m_, p_: _refresh_solve(
+        coord, o, b, w_, m_, p_, lanes, quantum)), (obj, batch, w, pm, pp))

@@ -53,6 +53,7 @@ class IndexMap:
             if not self.has_intercept:
                 if self.frozen:
                     return self.NULL_ID
+                # photon: unguarded(decode workers only ever see FROZEN maps — index_of on a frozen map is read-only; growth happens on the single-threaded scan path before any pool exists)
                 self.has_intercept = True
             return self.intercept_id
         idx = self.key_to_id.get(key)
@@ -60,6 +61,7 @@ class IndexMap:
             if self.frozen:
                 return self.NULL_ID
             idx = len(self.key_to_id)
+            # photon: unguarded(decode workers only ever see FROZEN maps — index_of on a frozen map is read-only; growth happens on the single-threaded scan path before any pool exists)
             self.key_to_id[key] = idx
         return idx
 
@@ -70,6 +72,7 @@ class IndexMap:
         return self.key_to_id.get(key, self.NULL_ID)
 
     def freeze(self) -> "IndexMap":
+        # photon: unguarded(freeze is the scan-completion step, called once before the decode pool spins up; workers never un-freeze)
         self.frozen = True
         return self
 

@@ -463,6 +463,7 @@ def iter_game_chunks_parallel(
                                         time.perf_counter() - t0)
                     except (KeyboardInterrupt, SystemExit):
                         raise
+                    # photon: allow(exception_hygiene, InjectedFault IS the simulated worker death — the chunk degrades to bit-identical in-process decode)
                     except BaseException as e:  # noqa: BLE001
                         telemetry.count("ingest.worker_deaths")
                         if not logged_death:
@@ -719,3 +720,56 @@ def chunk_blocked_ell_from_avro(
               time.perf_counter() - t0)
         telemetry.count("ingest.cache_builds")
     return cb
+
+
+# ----------------------------------------------------------------- contract
+# The plane's law: HOW a chunk was produced (worker pool vs in-process,
+# cache round-trip vs live decode) never changes the program a streamed
+# solve dispatches. The builder runs a chunk's arrays through the cache's
+# .npy round-trip against the direct chunk under the signature log and
+# raises on any divergence, then hands the streamed chunk program over.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+@register_contract(
+    name="ingest_plane_chunk_invariance",
+    description="plane-produced chunks (worker decode / cache .npy "
+                "round-trip) dispatch the SAME streamed chunk program as "
+                "in-process decode: one signature, no dtype drift, zero "
+                "collectives",
+    collectives={}, tags=("ingest", "streamed"))
+def _contract_ingest_plane_chunk_invariance(device):
+    import io as _io
+
+    import torch
+
+    from photon_tpu_torch.data.dataset import make_batch
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.ops.objective import Objective
+    from photon_tpu_torch.telemetry.run import SignatureLog
+
+    def npy_round_trip(a):
+        buf = _io.BytesIO()
+        np.save(buf, np.asarray(a), allow_pickle=False)
+        buf.seek(0)
+        return np.load(buf, allow_pickle=False)
+
+    n, d = 16, 6
+    rng = np.random.default_rng(0)
+    direct = (rng.normal(size=(n, d)).astype(np.float32),
+              (rng.uniform(size=n) < 0.5).astype(np.float32),
+              np.ones(n, np.float32), np.zeros(n, np.float32))
+    cached = tuple(npy_round_trip(a) for a in direct)
+    obj = Objective(task=TaskType.LOGISTIC_REGRESSION, l2=0.4)
+    w = torch.from_numpy(0.1 * rng.normal(size=d).astype(np.float32)).to(
+        device)
+    log = SignatureLog()
+    batches = [make_batch(*arrs, device=device) for arrs in (direct, cached)]
+    for b in batches:
+        log.record("streamed.chunk_init", (obj, w, b))
+    if len(log.signatures("streamed.chunk_init")) != 1:
+        raise AssertionError(
+            "the cache round-trip changed the chunk-program signature — "
+            "the ingest plane changed the device program")
+    return ((lambda o, wv, b: o.chunk_value_grad_partials(wv, b)),
+            (obj, w, batches[1]))

@@ -1911,3 +1911,69 @@ def quantize_blocks(block, mode: str = "int8"):
     if vec:
         return q[0], np.float32(scales[0])
     return q, scales
+
+
+# ----------------------------------------------------------------- contracts
+# The blocked-ELL law, registered next to the layout it pins: both X passes
+# run no combining scatter, and every bf16 product accumulates f32.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import SCATTER_PRIMITIVES  # noqa: E402
+
+
+def _contract_blocked_ell(device, n=256, d=512, k=8, d_dense=64,
+                          bf16=False) -> BlockedEllRows:
+    """A small zipf blocked-ELL matrix (hot block, a multi-width ELL tail
+    and occurrence buckets all populated, an intercept column last);
+    ``bf16`` casts its storage as `dataset.cast_features` does."""
+    rng = np.random.default_rng(0)
+    col = (rng.zipf(1.5, size=(n, k)).astype(np.int64) - 1) % (d - 1)
+    val = rng.normal(size=(n, k)).astype(np.float32)
+    ind = np.concatenate([col, np.full((n, 1), d - 1)], 1).astype(np.int32)
+    va = np.concatenate([val, np.ones((n, 1), np.float32)], 1)
+    X = to_blocked_ell(SparseRows(ind, va, d), d_dense, device=device)
+    return X.astype(torch.bfloat16) if bf16 else X
+
+
+def _contract_vectors(X, device, lanes=None):
+    rng = np.random.default_rng(1)
+    n, d = X.shape
+    shape = () if lanes is None else (lanes,)
+    w = torch.from_numpy(rng.normal(size=(d,) + shape).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=(n,) + shape).astype(np.float32))
+    return w.to(device), r.to(device)
+
+
+@register_contract(
+    name="blocked_ell_x_passes",
+    description="BlockedEllRows matvec + rmatvec (bf16 storage) as one "
+                "call: no combining scatter in either X pass, every bf16 "
+                "product accumulating f32",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("resident", "sparse"))
+def _contract_blocked_ell_x_passes(device):
+    X = _contract_blocked_ell(device, bf16=True)
+    w, r = _contract_vectors(X, device)
+
+    def both(Xb, wv, rv):
+        z = matvec(Xb, wv)             # X pass 1: the margin
+        return z, rmatvec(Xb, rv * z)  # X pass 2: the gradient backprop
+
+    return both, (X, w, r)
+
+
+@register_contract(
+    name="blocked_ell_lane_x_passes",
+    description="BlockedEllRows lane-minor X passes (matvec_lanes + "
+                "rmatvec_lanes, G=4, bf16 storage): no combining scatter, "
+                "f32 accumulation — the reg-sweep form of the same law",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("resident", "lane", "sparse"))
+def _contract_blocked_ell_lane_x_passes(device):
+    X = _contract_blocked_ell(device, bf16=True)
+    W, R = _contract_vectors(X, device, lanes=4)
+
+    def both(Xb, Wv, Rv):
+        Z = matvec_lanes(Xb, Wv)
+        return Z, rmatvec_lanes(Xb, Rv * Z)
+
+    return both, (X, W, R)

@@ -100,7 +100,9 @@ class _SkipTable:
         hit = self._memo.get(key)
         if hit is not None:
             return hit
+        # photon: unguarded(each decode task compiles its own per-schema _SkipTable instance — tables are built and consumed inside one task, never shared across threads)
         self.progs.append(prog)
+        # photon: unguarded(each decode task compiles its own per-schema _SkipTable instance — tables are built and consumed inside one task, never shared across threads)
         self._memo[key] = len(self.progs) - 1
         return self._memo[key]
 

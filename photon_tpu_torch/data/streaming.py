@@ -131,8 +131,9 @@ def scan_ingest(path, config: GameDataConfig,
     todo = {s: cfg for s, cfg in config.shards.items() if s not in index_maps}
     index_out: dict = {}
     if todo:
-        index_maps = _build_index_maps_streaming(path, config, index_maps,
-                                                 todo, index_out=index_out)
+        with telemetry.span("ingest.build_index_maps", shards=sorted(todo)):
+            index_maps = _build_index_maps_streaming(
+                path, config, index_maps, todo, index_out=index_out)
     else:
         for p in avro_paths(path):
             index_out[str(p)] = _open_reader(p).block_index()
@@ -182,8 +183,9 @@ def build_index_maps_streaming(
     todo = {s: cfg for s, cfg in config.shards.items() if s not in index_maps}
     if not todo:
         return index_maps
-    return _build_index_maps_streaming(path, config, index_maps, todo,
-                                       use_native=use_native)
+    with telemetry.span("ingest.build_index_maps", shards=sorted(todo)):
+        return _build_index_maps_streaming(path, config, index_maps, todo,
+                                           use_native=use_native)
 
 
 def _build_index_maps_streaming(path, config: GameDataConfig, index_maps,

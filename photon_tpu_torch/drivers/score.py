@@ -432,3 +432,39 @@ def main(argv=None) -> None:
 
 if __name__ == "__main__":
     main()
+
+
+# ----------------------------------------------------------------- contracts
+# The scoring driver's per-chunk device program (offsets + fixed-effect
+# margin + per-row random-effect gather-dot): the pipeline only overlaps
+# host decode with device work if the program itself never waits on the
+# host.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+@register_contract(
+    name="driver_scoring_chunk",
+    description="the scoring driver's per-chunk device program: offsets + "
+                "fixed-effect margin + random-effect rowwise gather-dot, "
+                "no collectives, no host syncs, nothing uploaded",
+    collectives={}, tags=("game", "driver"))
+def _contract_driver_scoring_chunk(device):
+    from photon_tpu_torch.data.matrix import matvec
+    from photon_tpu_torch.game.model import padded_coeffs, score_rows
+
+    n, d, k, E = 32, 10, 3, 4
+    rng = np.random.default_rng(0)
+    X = SparseRows(rng.integers(0, d, size=(n, k)).astype(np.int32),
+                   rng.normal(size=(n, k)).astype(np.float32),
+                   d).to(device)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+
+    def program(offs, Xs, wf, C, dense_ids):
+        return offs + matvec(Xs, wf) + score_rows(
+            Xs, padded_coeffs(C, dense_ids))
+
+    return program, (t(rng.normal(size=n)), X, t(rng.normal(size=d)),
+                     t(rng.normal(size=(E, d))),
+                     t(rng.integers(0, E + 1, size=n), torch.int32))

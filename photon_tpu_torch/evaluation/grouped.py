@@ -218,3 +218,29 @@ def grouped_precision_at_k(scores, labels, weights, groups,
     _count_saved(n, n, n)  # 2 segment sums + 1 group min
     return _grouped_precision_at_k(scores, labels, weights, groups,
                                    num_groups, int(k))
+
+
+# ----------------------------------------------------------------- contracts
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import SCATTER_PRIMITIVES  # noqa: E402
+
+
+@register_contract(
+    name="grouped_auc_scatter_free",
+    description="per-entity sharded AUC rides the sorted-segment "
+                "machinery: no combining scatter (sums are cumsum "
+                "differences, segmented min/max are boundary gathers over "
+                "monotone sequences)",
+    collectives={}, forbid=SCATTER_PRIMITIVES, tags=("evaluation",))
+def _contract_grouped_auc_scatter_free(device):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n, G = 64, 7
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    args = (t(rng.normal(size=n)), t(rng.uniform(size=n) < 0.5),
+            t(np.ones(n)), t(rng.integers(0, G, size=n), torch.int32))
+    return (lambda s, y, w, g: _grouped_auc(s, y, w, g, G)), args

@@ -19,8 +19,10 @@ unless given ``--device cpu`` (both slots on the one card):
   shard's device-resident estimate above a (synthetic) device budget:
   the regime the resident path could not hold.
 
-The reference's ``contracts`` check (its four jaxpr contracts) waits for
-the port of `analysis/` (ROADMAP queue A item 11.9).
+- ``contracts`` — the four pod-scale GAME contracts (`analysis/`:
+  ``game_streamed_fixed_evaluation``, ``game_re_mesh_bucket_solve``,
+  ``streamed_mesh_blocked_ell_chunk_partials``,
+  ``game_score_stream_chunk``) hold on the same device.
 
 Exit status: 0 iff every check passed.
 """
@@ -29,6 +31,14 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+# the registered contracts this selftest checks (`analysis/`)
+GAME_E2E_CONTRACTS = (
+    "game_streamed_fixed_evaluation",
+    "game_re_mesh_bucket_solve",
+    "streamed_mesh_blocked_ell_chunk_partials",
+    "game_score_stream_chunk",
+)
 
 
 def run_selftest(device: str = "cuda") -> dict:
@@ -129,6 +139,9 @@ def run_selftest(device: str = "cuda") -> dict:
     checks["beyond_resident_smoke"] = {
         "ok": bool(parity_ok and est_bytes > budget),
         "estimate_bytes": est_bytes, "budget_bytes": budget}
+    from photon_tpu_torch.analysis.contracts import check_names
+
+    checks["contracts"] = check_names(GAME_E2E_CONTRACTS, str(dev))
     return {"ok": all(c["ok"] for c in checks.values()), "checks": checks,
             "device": str(dev)}
 

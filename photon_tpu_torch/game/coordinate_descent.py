@@ -378,3 +378,72 @@ def coordinate_descent(coordinates: dict, y, weights, base_offsets,
             ordered[name] = models[name]
     return CoordinateDescentResult(GameModel(ordered, task),
                                    objective_history, coordinate_stats)
+
+
+# ----------------------------------------------------------------- contracts
+# The GAME descent's fixed-effect update (offsets sum + solve + margins +
+# objective) makes no collective and only the solver's pinned read-backs;
+# a streamed fixed effect's evaluation on a mesh accumulates its chunk
+# partials collective-free and closes with ONE psum.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+@register_contract(
+    name="game_fixed_update",
+    description="the fixed-effect coordinate update: offsets sum + L-BFGS "
+                "solve + margins + objective with zero communication, its "
+                "host syncs held to the solver's pinned read-backs",
+    # the 5-iteration L-BFGS's own syncs (ROADMAP speed item 1)
+    collectives={}, max_syncs={"cuda": 20, "cpu": 6}, tags=("game",))
+def _contract_game_fixed_update(device):
+    from photon_tpu_torch.game.dataset import FixedEffectDataset, GameData
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    n, d = 32, 6
+    rng = np.random.default_rng(0)
+    task = TaskType.LOGISTIC_REGRESSION
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    data = GameData.build(y, {"g": rng.normal(size=(n, d)).astype(
+        np.float32)})
+    coord = FixedEffectCoordinate(
+        FixedEffectDataset.build(data, "g", device=device), task,
+        OptimizerConfig(max_iters=5, tolerance=1e-7, reg=l2(),
+                        reg_weight=0.4, history=3))
+    dev = torch.device(device)
+    yv, wv = _column(y, dev), torch.ones(n, device=dev)
+
+    def fn(base, scores):
+        offsets = _sum_scores(base, scores)
+        model, _ = coord.train(offsets)
+        return _objective_at(task, yv, wv, offsets, coord.score(model))
+
+    base = torch.zeros(n, device=dev)
+    scores = (_column(0.1 * rng.normal(size=n), dev),)
+    return fn, (base, scores)
+
+
+@register_contract(
+    name="game_streamed_fixed_evaluation",
+    description="one streamed fixed-effect objective evaluation on an "
+                "8-slot mesh: two chunks' partials accumulate "
+                "collective-FREE, then close with exactly ONE psum (the "
+                "whole evaluation's communication)",
+    collectives={"psum": 1}, tags=("game", "mesh-streamed"))
+def _contract_game_streamed_fixed_evaluation(device):
+    from photon_tpu_torch.optim.streamed import (_MeshStream, _acc,
+                                                 _contract_problem)
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_devices=8, device=device)
+    obj, w, data = _contract_problem(device, mesh)
+    stream = _MeshStream(data, mesh)
+    chunks = [b for _, b in stream.iter_chunks()]
+    z = stream.host_margins()
+
+    def fn(o, wv, c0, c1):
+        acc = _acc(None, stream.chunk_init(o, wv, c0, z[0]))
+        acc = _acc(acc, stream.chunk_init(o, wv, c1, z[1]))
+        return stream.finish(o, wv, acc)
+
+    return fn, (obj, w, chunks[0], chunks[1])

@@ -234,6 +234,7 @@ class GameEstimator:
         check_mesh(self.mesh)
         dev = resolve_device(self._device())
         grid = config_grid or [self.coordinate_configs]
+        telemetry.count("game.grid_points", len(grid))
         evaluator = self.evaluator or default_evaluator(self.task)
         if self._chunked_shards(data):
             # the streamed regime: fixed effects stream their host-chunked
@@ -278,12 +279,13 @@ class GameEstimator:
             configs = {**self.coordinate_configs, **overrides}
             datasets = self._datasets_for(data, configs, dataset_cache)
             coords = self._build_coordinates(datasets, configs, coord_cache)
-            descent = coordinate_descent(
-                coords, data.y, data.weights, data.offsets, self.task,
-                update_sequence=self.update_sequence,
-                n_sweeps=self.n_sweeps, locked=self.locked,
-                initial_models=prev_models, incremental=self.incremental,
-                priors=user_priors)
+            with telemetry.span("game.fit_point", index=len(results)):
+                descent = coordinate_descent(
+                    coords, data.y, data.weights, data.offsets, self.task,
+                    update_sequence=self.update_sequence,
+                    n_sweeps=self.n_sweeps, locked=self.locked,
+                    initial_models=prev_models,
+                    incremental=self.incremental, priors=user_priors)
             result = GameFitResult(descent.model, descent, configs)
             if validation is not None:
                 telemetry.count("game.validate_point")

@@ -77,6 +77,7 @@ younger buckets) lands in ``readback``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Optional
 
@@ -680,7 +681,9 @@ class RandomEffectCoordinate:
             # unscattered results; a resume re-dispatches it
             _ckpt.kill_point("bucket_retire")
             block, ents = fl.block, fl.block.entity_index
-            with profiling.measure("game_re.block", "readback"):
+            t0 = time.perf_counter_ns()
+            with telemetry.span("game_re.readback", m=block.m), \
+                    profiling.measure("game_re.block", "readback"):
                 if fl.local is not None:  # the bucket's one gather, in order
                     w_out, conv, fail, iters, var_h = self._gather_slots(
                         fl.local, block.n_entities, self._block_dim(block))
@@ -690,6 +693,8 @@ class RandomEffectCoordinate:
                         fl.res.iterations))
                     var_h = (None if fl.var is None
                              else np.array(fl.var.cpu()))
+            telemetry.count("game_re.readback_wait_ns",
+                            time.perf_counter_ns() - t0)
             iters = iters.astype(np.int64)
             if budget is not None:
                 telemetry.count("game_re.capped_lockstep_iters", _lockstep(
@@ -697,7 +702,9 @@ class RandomEffectCoordinate:
                     lanes=False))
                 strag = np.nonzero(~conv & ~fail)[0]
                 if strag.size:
-                    with profiling.measure("game_re.block", "tail_solve"):
+                    with telemetry.span("game_re.tail_solve",
+                                        entities=int(strag.size)), \
+                            profiling.measure("game_re.block", "tail_solve"):
                         self._resolve_stragglers(block, offsets_dev, strag,
                                                  w_out, conv, fail, iters,
                                                  var_h, fl.pm, fl.pp)
@@ -763,3 +770,110 @@ class RandomEffectCoordinate:
         """Per-row margin for ALL rows, active and passive: one gather +
         rowwise dot."""
         return model.score(self.dataset.X, self.dataset.entity_dense)
+
+
+# ----------------------------------------------------------------- contracts
+# A random-effect bucket's lane solves: zero communication (off the mesh
+# and on it — per-entity training is embarrassingly parallel), their
+# host syncs held to the pinned lock-step read-backs (ROADMAP speed item
+# 1: the device-resident loop).
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+def _re_contract_fixture(device, max_iters: int = 4, mesh=None,
+                         users: int = 6):
+    """(coordinate, objective, lane-minor batch, (p, E) starts) of the
+    first bucket of a small seeded per-user problem."""
+    from photon_tpu_torch.game.dataset import GameData, RandomEffectDataset
+    from photon_tpu_torch.optim.regularization import l2
+
+    rng = np.random.default_rng(5)
+    n, d = 96, 5
+    Xu = np.concatenate([rng.normal(size=(n, d - 1)), np.ones((n, 1))],
+                        1).astype(np.float32)
+    uid = np.arange(n) % users
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    data = GameData.build(y, {"u": Xu}, {"user": uid})
+    ds = RandomEffectDataset.build(data, "user", "u", device=device)
+    cfg = OptimizerConfig(max_iters=max_iters, tolerance=1e-7, reg=l2(),
+                          reg_weight=0.3, history=3)
+    coord = RandomEffectCoordinate(ds, TaskType.LOGISTIC_REGRESSION, cfg,
+                                   mesh=mesh)
+    block = ds.blocks[0]
+    batch = ds.block_batch(block, np.zeros(n, np.float32))
+    W0 = torch.zeros(coord._block_dim(block), block.n_entities,
+                     device=block.y.device)
+    return coord, coord.block_objective(block), batch, W0
+
+
+@register_contract(
+    name="game_re_vmapped_solve",
+    description="one random-effect bucket's per-entity L-BFGS lane solves: "
+                "E lanes in lock step, zero communication, the lane "
+                "search's host syncs held to the pinned budget",
+    collectives={}, max_syncs={"cuda": 9, "cpu": 8}, tags=("game", "lane"))
+def _contract_re_vmapped_solve(device):
+    # 4 iterations x 2 one-flag read-backs (optim/lane_lbfgs.py:253, :117)
+    # + on the card the lane chunk's weight upload (:408) (ROADMAP speed
+    # item 1)
+    coord, obj, batch, W0 = _re_contract_fixture(device)
+    return ((lambda o, b, w: coord.solve_lanes(o, b, w)[0].w),
+            (obj, batch, W0))
+
+
+@register_contract(
+    name="game_re_budgeted_first_pass",
+    description="the straggler-capped first pass: the SAME lane solve at "
+                "a budgeted max_iters — capping iterations does not "
+                "change the zero-collective story the pipelined bucket "
+                "loop rests on",
+    collectives={}, max_syncs={"cuda": 5, "cpu": 4}, tags=("game", "lane"))
+def _contract_re_budgeted_first_pass(device):
+    # 2 capped iterations x 2 one-flag read-backs + the card's weight
+    # upload (ROADMAP speed item 1)
+    coord, obj, batch, W0 = _re_contract_fixture(device)
+    return ((lambda o, b, w: coord.solve_lanes(o, b, w, max_iters=2)[0].w),
+            (obj, batch, W0))
+
+
+@register_contract(
+    name="game_re_mesh_bucket_solve",
+    description="a random-effect bucket's lane solves split over an "
+                "8-slot mesh (each slot solves its share of the lanes on "
+                "its device): ZERO collectives — the GAME sweep's "
+                "random-effect half adds nothing to the collective budget",
+    collectives={}, max_syncs={"cuda": 113, "cpu": 65},
+    tags=("game", "lane", "mesh"))
+def _contract_re_mesh_bucket_solve(device):
+    # 8 slots, each its lanes' take (data/matrix.py:1707, parallel/mesh.py
+    # :516 on the card), weight upload and 2 one-flag read-backs an
+    # iteration (ROADMAP speed item 1)
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_devices=8, device=device)
+    coord, obj, batch, W0 = _re_contract_fixture(device, mesh=mesh,
+                                                 users=16)
+    return ((lambda o, b, w: coord._solve_slots(o, b, w)),
+            (obj, batch, W0))
+
+
+@register_contract(
+    name="game_re_straggler_resolve",
+    description="the compacted straggler re-solve: the unconverged lanes "
+                "taken on the device (take_lanes) + the full-depth "
+                "second pass — zero collectives off the mesh, the host "
+                "syncs held to the pinned budget",
+    collectives={}, max_syncs={"cuda": 14, "cpu": 8}, tags=("game", "lane"))
+def _contract_re_straggler_resolve(device):
+    # the take of the 2 lanes (on the card: data/matrix.py:1707,
+    # parallel/mesh.py:516, the column index) + 4 iterations x 2 one-flag
+    # read-backs (ROADMAP speed item 1)
+    coord, obj, batch, W0 = _re_contract_fixture(device)
+    idx = np.array([1, 3])
+
+    def fn(o, b, w, i):
+        sub = take_lanes(b, i)
+        cols = torch.as_tensor(i, device=w.device)
+        return coord.solve_lanes(o, sub, w[:, cols].contiguous())[0].w
+
+    return fn, (obj, batch, W0, idx)

@@ -188,3 +188,46 @@ def _score_chunked_mesh(X: ChunkedMatrix, w, mesh) -> np.ndarray:
     rows = rows.permute(1, 0, 2, 3).reshape(X.n_chunks, mesh.n_slots * s)
     telemetry.count("game_e2e.score_stream_rows", int(X.n_real))
     return rows[:, :c].reshape(-1)[:X.n_real].cpu().numpy()
+
+
+# ----------------------------------------------------------------- contracts
+# The streamed scorer's chunk program: each slot's margins of a mesh
+# blocked-ELL chunk stay on its device — no collective, no combining
+# scatter, f32 out of bf16 storage; the host margin cache does the
+# summing.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import SCATTER_PRIMITIVES  # noqa: E402
+
+
+@register_contract(
+    name="game_score_stream_chunk",
+    description="one streamed GAME scoring chunk (score_chunked_host's "
+                "per-slot matvec over a mesh blocked-ELL chunk): margins "
+                "stay slot-local — zero collectives, no combining "
+                "scatter, f32 accumulation",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("game", "mesh-streamed", "sparse"))
+def _contract_game_score_stream_chunk(device):
+    from photon_tpu_torch.data.dataset import chunk_blocked_ell, make_batch
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_devices=8, device=device)
+    d, k = 96, 4
+    rng = np.random.default_rng(0)
+    n = 32 * mesh.n_slots
+    sp = SparseRows(rng.integers(0, d, size=(n, k)).astype(np.int32),
+                    rng.normal(size=(n, k)).astype(np.float32), d)
+    ladder = chunk_blocked_ell(make_batch(sp, np.zeros(n, np.float32),
+                                          device="cpu"), n // 2, 16,
+                               feature_dtype=torch.bfloat16,
+                               n_shards=mesh.n_slots)
+    parts = [p for _, p in ladder.iter_device(mesh=mesh)][0]
+    w = torch.from_numpy(0.1 * rng.normal(size=d).astype(np.float32))
+    w = w.to(mesh.home)[ladder.X.perm_cols.to(mesh.home).long()]
+
+    def fn(chunk, wv):
+        return [matvec(b.X, wv.to(dev))
+                for b, dev in zip(chunk, mesh.slot_devices)]
+
+    return fn, (parts, w)

@@ -24,9 +24,8 @@ the decoded chunks go onto the card unless given ``--device cpu``:
 - ``prefetch``      — the stall-driven controller widens under stall,
   narrows when stall-free, and honors its byte budget.
 
-The reference's ``contract`` check (``ingest_plane_chunk_invariance``, a
-jaxpr contract) waits for the port of `analysis/` (ROADMAP queue A item
-11.9).
+- ``contracts`` — the plane's contract (`analysis/`:
+  ``ingest_plane_chunk_invariance``) holds on the same device.
 
 Exit status: 0 iff every check passed.
 """
@@ -194,6 +193,7 @@ def run_selftest(device: str = "cuda") -> dict:
         f0 = os.path.join(bag.dir, bag.manifest["entries"][0]["file"])
         with open(f0, "rb") as fh:
             raw = fh.read()
+        # photon: allow(durable_write, deliberate corruption of a scratch cache payload — the CRC-detection selftest)
         with open(f0, "wb") as fh:  # a scratch cache payload, corrupted
             fh.write(raw[:-4] + b"\x00\x01\x02\x03")
         corrupt_detected = False
@@ -249,6 +249,10 @@ def run_selftest(device: str = "cuda") -> dict:
                               "decisions": [d["why"] for d in ap.decisions]}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    from photon_tpu_torch.analysis.contracts import check_names
+
+    checks["contracts"] = check_names(("ingest_plane_chunk_invariance",),
+                                      str(dev))
     return {"ok": all(c["ok"] for c in checks.values()), "checks": checks,
             "device": str(dev)}
 

@@ -39,11 +39,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import os
 import threading
 from pathlib import Path
 
 import torch
+
+from photon_tpu_torch.utils.env import get_raw
 
 ENV_KNOB = "PHOTON_TPU_TORCH_KERNELS"
 ENV_BUDGET = "PHOTON_TPU_TORCH_KERNELS_BUDGET"
@@ -56,6 +57,8 @@ BUILD_DIR = Path(__file__).parent / "_build"
 _OVERRIDES: list = []
 
 _launch_lock = threading.Lock()
+_LAUNCH_HOOKS: list = []
+_LOADS = [0]
 _LAUNCHES: dict = {}
 
 
@@ -74,7 +77,7 @@ def mode() -> str:
     else ``auto``."""
     if _OVERRIDES:
         return _OVERRIDES[-1]
-    return _canon(os.environ.get(ENV_KNOB, "auto"))
+    return _canon(get_raw(ENV_KNOB, "auto"))
 
 
 def use_kernel(t: torch.Tensor) -> bool:
@@ -105,11 +108,50 @@ def scope(m=None):
         _OVERRIDES.pop()
 
 
-def count_launch(name: str, n: int = 1) -> None:
+def device_mode(device) -> str:
+    """The mode that makes a call on ``device`` take the kernel: ``on`` on
+    the card (a CUDA tensor must launch), ``auto`` on the CPU (the plain
+    versions: there is no kernel there). The kernel contracts run under
+    it."""
+    return "on" if torch.device(device).type == "cuda" else "auto"
+
+
+def count_launch(name: str, n: int = 1, out=None) -> None:
     """Called by a wrapper where it launches its kernel (``n`` launches
-    made by one call), and nowhere else."""
+    made by one call, writing ``out``), and nowhere else. Each hook added
+    by `add_launch_hook` sees ``(name, n, out)``."""
     with _launch_lock:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
+        hooks = tuple(_LAUNCH_HOOKS)
+    for hook in hooks:
+        hook(name, n, out)
+
+
+def add_launch_hook(hook) -> None:
+    """Call ``hook(name, n, out)`` at every counted launch (the contract
+    recorder reads the kernels' output dtypes through it)."""
+    with _launch_lock:
+        _LAUNCH_HOOKS.append(hook)
+
+
+def remove_launch_hook(hook) -> None:
+    with _launch_lock:
+        _LAUNCH_HOOKS.remove(hook)
+
+
+def library_loads() -> int:
+    """How many kernel libraries this process has loaded."""
+    with _launch_lock:
+        return _LOADS[0]
+
+
+def plan_builds() -> int:
+    """How many kernel plans this process has built: blocked-ELL layout
+    plans, int8 rung plans and fused value+grad geometries."""
+    from photon_tpu_torch.kernels import blocked_ell, fused, serving
+
+    return (blocked_ell.plan_builds() + serving.plan_builds()
+            + fused.plan_builds())
 
 
 def launch_counts() -> dict:
@@ -126,7 +168,7 @@ def budget():
     """The fused form's byte budget (``PHOTON_TPU_TORCH_KERNELS_BUDGET``),
     None when the knob is unset (no budget); a malformed knob raises here,
     naming it."""
-    raw = os.environ.get(ENV_BUDGET)
+    raw = get_raw(ENV_BUDGET)
     if raw is None:
         return None
     try:
@@ -179,7 +221,10 @@ def load_library(source: Path) -> ctypes.CDLL:
                                        "-gencode=arch=compute_90a,"
                                        "code=sm_90a"],
                     is_python_module=False, verbose=False)
-    return ctypes.CDLL(path)
+    lib = ctypes.CDLL(path)
+    with _launch_lock:
+        _LOADS[0] += 1
+    return lib
 
 
 def current_stream(index: int) -> int:

@@ -25,8 +25,11 @@ sizes, in f32 and bf16 storage:
   passes and its chunks take one kernel plan per ring slot
   (`kernels.blocked_ell.plan_builds`).
 
-The reference's ``contracts`` check (its jaxpr contracts) waits for the
-port of `analysis/` (ROADMAP queue A item 11.9).
+- ``contracts`` — the registered kernel contracts (`analysis/`:
+  ``blocked_ell_kernel_x_passes``, ``blocked_ell_kernel_no_retrace``,
+  ``blocked_ell_tiled_x_passes``, ``serving_kernel_fused_rung``,
+  ``serving_kernel_mode_invariance``, ``mesh_stream_donated_no_retrace``,
+  ``serving_quantized_rung_invariance``) hold on the same device.
 
 Exit status: 0 iff every check passed.
 """
@@ -38,6 +41,15 @@ import os
 import sys
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+# the registered contracts this selftest checks (`analysis/`)
+KERNEL_CONTRACTS = ("blocked_ell_kernel_x_passes",
+                    "blocked_ell_kernel_no_retrace",
+                    "blocked_ell_tiled_x_passes",
+                    "serving_kernel_fused_rung",
+                    "serving_kernel_mode_invariance",
+                    "mesh_stream_donated_no_retrace",
+                    "serving_quantized_rung_invariance")
 
 
 def _sparse(n: int = 2048, d: int = 3000, k: int = 12, seed: int = 0):
@@ -265,6 +277,9 @@ def run_selftest(device: str = "cuda") -> dict:
             checks[name] = fn(dev)
         except AssertionError as e:
             checks[name] = {"ok": False, "error": str(e)[:400]}
+    from photon_tpu_torch.analysis.contracts import check_names
+
+    checks["contracts"] = check_names(KERNEL_CONTRACTS, str(dev))
     return {"ok": all(c["ok"] for c in checks.values()), "checks": checks,
             "device": str(dev)}
 

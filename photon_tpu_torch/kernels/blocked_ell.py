@@ -611,7 +611,7 @@ def _launch(name: str, entry: str, n_launches: int, out, *args) -> None:
         raise RuntimeError(f"{name} launch failed: "
                            f"{library().photon_bell_error_string(code)}")
     if n_launches:
-        K.count_launch(name, n_launches)
+        K.count_launch(name, n_launches, out)
 
 
 def _launch_tail(name, plan, ranges, w, lanes, out, zero_bytes) -> None:
@@ -633,3 +633,98 @@ def _launch_rmatvec(name, plan, ranges, r, lanes, square, out,
     _launch(name, "photon_bell_bucket_rmatvec", n_launches, out,
             *plan.occ_args, flat, n_ranges, r.data_ptr(), lanes,
             int(bool(square)), int(bool(round_r)), out.data_ptr())
+
+
+# ----------------------------------------------------------------- contracts
+# The kernel-side pins of the blocked-ELL law: on the card both X passes
+# launch the hand-written kernels (fused and tiled forms) with no host
+# sync and no combining scatter, write f32, and build the layout's plan
+# once — a second call on the same layout builds none.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import SCATTER_PRIMITIVES  # noqa: E402
+
+
+def _contract_layout(device, bf16: bool = True):
+    from photon_tpu_torch.data.matrix import (_contract_blocked_ell,
+                                              _contract_vectors)
+
+    X = _contract_blocked_ell(device, bf16=bf16)
+    w, r = _contract_vectors(X, device)
+    return X, X.from_model_space(w), r
+
+
+@register_contract(
+    name="blocked_ell_kernel_x_passes",
+    description="BlockedEllRows matvec + rmatvec with the hand-written "
+                "kernels dispatched (rows 2 and 4 on the card): ZERO host "
+                "syncs, no combining scatter, f32 kernel outputs, bf16 "
+                "products accumulating f32",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("kernels", "sparse", "resident"))
+def _contract_kernel_x_passes(device):
+    from photon_tpu_torch.data import matrix as M
+
+    X, w, r = _contract_layout(device)
+    mode = K.device_mode(device)
+
+    def both(Xb, wv, rv):
+        with K.scope(mode):
+            z = M.matvec(Xb, wv)
+            return z, M.rmatvec(Xb, rv * z)
+
+    return both, (X, w, r)
+
+
+@register_contract(
+    name="blocked_ell_kernel_no_retrace",
+    description="the kernel dispatch seam is signature-invariant: the "
+                "same layout dispatched kernels-on and kernels-off "
+                "records IDENTICAL call signatures (the builder replays "
+                "both modes through the signature log and raises on "
+                "divergence), and a second call on the layout builds no "
+                "plan",
+    collectives={}, tags=("kernels", "sparse"))
+def _contract_kernel_no_retrace(device):
+    from photon_tpu_torch.analysis.rules import TraceSignatureLog
+    from photon_tpu_torch.data import matrix as M
+
+    X, w, r = _contract_layout(device, bf16=False)
+    log = TraceSignatureLog()
+    cuda = torch.device(device).type == "cuda"
+    for m in (("off", "on", "off") if cuda else ("off", "auto", "off")):
+        with K.scope(m):
+            log.record("dispatch.matvec", (X, w))
+            log.record("dispatch.rmatvec", (X, r))
+    for name in ("dispatch.matvec", "dispatch.rmatvec"):
+        if len(log.signatures(name)) != 1:
+            raise AssertionError(
+                f"kernel dispatch seam drifted: "
+                f"{len(log.signatures(name))} distinct {name} signatures "
+                "across mode flips (expected 1)")
+    mode = K.device_mode(device)
+
+    def passes(Xb, wv, rv):
+        with K.scope(mode):
+            return M.matvec(Xb, wv), M.rmatvec(Xb, rv)
+
+    return passes, (X, w, r)
+
+
+@register_contract(
+    name="blocked_ell_tiled_x_passes",
+    description="the tiled forms (rows 3 and 5 on the card): one launch "
+                "per width bucket / occurrence bucket, the SAME law as "
+                "the fused forms — ZERO host syncs, no combining scatter, "
+                "f32 kernel outputs",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("kernels", "sparse", "streamed"))
+def _contract_tiled_x_passes(device):
+    X, w, r = _contract_layout(device)
+    mode = K.device_mode(device)
+
+    def both(Xb, wv, rv):
+        with K.scope(mode):
+            z = tail_matvec_tiled(Xb, wv)
+            return z, bucket_rmatvec_tiled(Xb, rv)
+
+    return both, (X, w, r)

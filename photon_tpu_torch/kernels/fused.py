@@ -62,6 +62,7 @@ _lib = None
 _lib_lock = threading.Lock()
 _plan_lock = threading.Lock()
 _PLANS: dict = {}
+_PLAN_BUILDS = [0]
 
 
 def library() -> ctypes.CDLL:
@@ -190,7 +191,7 @@ def fused_value_and_grad(task: TaskType, X: torch.Tensor, w: torch.Tensor,
     if code:
         raise RuntimeError(f"{KERNEL} launch failed: "
                            f"{lib.photon_fused_vg_error_string(code)}")
-    K.count_launch(KERNEL)
+    K.count_launch(KERNEL, 1, out)
     return out[d], out[:d]
 
 
@@ -234,4 +235,11 @@ def _plan(device, n: int, d: int, bf16: bool):
     plan = (rows, ring, int(ctas.value))
     with _plan_lock:
         _PLANS[key] = plan
+        _PLAN_BUILDS[0] += 1
     return plan
+
+
+def plan_builds() -> int:
+    """How many launch geometries this process has computed."""
+    with _plan_lock:
+        return _PLAN_BUILDS[0]

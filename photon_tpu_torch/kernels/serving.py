@@ -63,6 +63,7 @@ _lib = None
 _lib_lock = threading.Lock()
 _plans_lock = threading.Lock()
 _PLANS: dict = {}
+_PLAN_BUILDS = [0]
 
 
 def library() -> ctypes.CDLL:
@@ -157,9 +158,16 @@ def rung_plan(coords, shards, fixed_ws, re_cs) -> RungPlan:
     tensors = tuple(t for qs in blocks for t in qs)
     with _plans_lock:
         _PLANS[key] = (tuple(weakref.ref(t) for t in tensors), plan)
+        _PLAN_BUILDS[0] += 1
     for t in tensors:
         weakref.finalize(t, _PLANS.pop, key, None)
     return plan
+
+
+def plan_builds() -> int:
+    """How many rung plans this process has built."""
+    with _plans_lock:
+        return _PLAN_BUILDS[0]
 
 
 def _build_plan(coords, shards, blocks) -> RungPlan:
@@ -249,5 +257,76 @@ def _launch(coords, offsets, shards, ids, fixed_ws, re_cs):
         raise RuntimeError(
             f"{KERNEL} launch failed: "
             f"{lib.photon_cuda_error_string(code).decode()}")
-    K.count_launch(KERNEL, plan.launches)
+    K.count_launch(KERNEL, plan.launches, out)
     return out
+
+
+# ----------------------------------------------------------------- contracts
+# The kernel-side pins: an int8 rung routed through the hand-written
+# kernel keeps the serving law (no collective, no host sync, no combining
+# scatter, an f32 output) and builds its rung plan once; the kernel seam
+# never moves a rung's dispatch signature.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import SCATTER_PRIMITIVES  # noqa: E402
+
+
+def _contract_int8_ladder(device):
+    from photon_tpu_torch.serving.programs import (ProgramLadder,
+                                                   _contract_rung_args,
+                                                   _tiny_store)
+
+    ladder = ProgramLadder(_tiny_store(device), ladder=(8,),
+                           sparse_k={"member": 3}, output_mean=True,
+                           quantize="int8")
+    return ladder, _contract_rung_args(ladder, 8)
+
+
+@register_contract(
+    name="serving_kernel_fused_rung",
+    description="one int8 serving rung routed through the hand-written "
+                "kernel (kernels.scope('on') on the card): dequant + "
+                "fixed matvec + per-entity gather-dot in one launch, ZERO "
+                "collectives, ZERO host syncs, no combining scatter, an "
+                "f32 margin",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("serving", "kernels"))
+def _contract_fused_rung(device):
+    ladder, args = _contract_int8_ladder(device)
+    mode = K.device_mode(device)
+
+    def rung(*a):
+        with K.scope(mode):
+            return ladder._fn(*a)
+
+    return rung, args
+
+
+@register_contract(
+    name="serving_kernel_mode_invariance",
+    description="the serving-kernel seam is signature-invariant: the "
+                "same int8 rung args record IDENTICAL dispatch signatures "
+                "kernels-on and kernels-off (the builder replays both "
+                "modes through the signature log and raises on "
+                "divergence); the rung's plan is built once",
+    collectives={}, tags=("serving", "kernels"))
+def _contract_mode_invariance(device):
+    from photon_tpu_torch.analysis.rules import TraceSignatureLog
+
+    ladder, args = _contract_int8_ladder(device)
+    log = TraceSignatureLog()
+    modes = (("off", "on", "off") if torch.device(device).type == "cuda"
+             else ("off", "auto", "off"))
+    for m in modes:
+        with K.scope(m):
+            log.record("serving.kernel_rung", args)
+    if len(log.signatures("serving.kernel_rung")) != 1:
+        raise AssertionError(
+            "serving kernel seam drifted: rung args signature moved "
+            "across mode flips (expected 1 signature)")
+    mode = K.device_mode(device)
+
+    def rung(*a):
+        with K.scope(mode):
+            return ladder._fn(*a)
+
+    return rung, args

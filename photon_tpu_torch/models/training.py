@@ -741,3 +741,185 @@ def evaluate_glm_grid(grid, batch: GLMBatch, evaluator=None):
         if evaluator.better_than(scores[i], scores[best]):
             best = i
     return best, scores
+
+
+# ----------------------------------------------------------------- contracts
+# The resident and lane solvers make no collective and no combining
+# scatter; the Python-loop solvers' host syncs are pinned as budgets that
+# can only fall (ROADMAP speed item 1: a device-resident solve loop). On
+# a mesh every evaluation closes with ONE psum: the sharded layouts'
+# tails never cross slots.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import (  # noqa: E402
+    SCATTER_ADD_PRIMITIVES, SCATTER_PRIMITIVES)
+
+
+def _contract_cfg(**kw) -> OptimizerConfig:
+    from photon_tpu_torch.optim.regularization import l2
+
+    kw.setdefault("max_iters", 6)
+    kw.setdefault("tolerance", 1e-7)
+    kw.setdefault("reg", l2())
+    kw.setdefault("history", 4)
+    return OptimizerConfig(**kw)
+
+
+def _contract_dense_batch(device, n=64, d=8) -> GLMBatch:
+    from photon_tpu_torch.data.dataset import make_batch
+
+    rng = np.random.default_rng(0)
+    return make_batch(rng.normal(size=(n, d)).astype(np.float32),
+                      (rng.uniform(size=n) < 0.5).astype(np.float32),
+                      device=device)
+
+
+def _contract_resident_problem(device, n=48, d=7, seed=2):
+    """(cfg, obj, batch, w0) of the resident solver contracts: a 5-
+    iteration L2 logistic solve on seeded dense rows."""
+    from photon_tpu_torch.data.dataset import make_batch
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    cfg = _contract_cfg(max_iters=5, reg_weight=0.3)
+    obj = make_objective(TaskType.LOGISTIC_REGRESSION, cfg, d,
+                         device=device)
+    return (cfg, obj, make_batch(X, y, device=device),
+            torch.zeros(d, device=device))
+
+
+def _contract_sparse_batch(n, d, k=4) -> GLMBatch:
+    from photon_tpu_torch.data.dataset import make_batch
+    from photon_tpu_torch.data.matrix import SparseRows
+
+    rng = np.random.default_rng(0)
+    ind = rng.integers(0, d, size=(n, k)).astype(np.int32)
+    val = rng.normal(size=(n, k)).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    return make_batch(SparseRows(ind, val, d), y, device="cpu")
+
+
+@register_contract(
+    name="resident_lbfgs_solve",
+    description="the margin-cached L-BFGS solve (6 iterations): single "
+                "device, zero communication, its host syncs held to the "
+                "pinned per-iteration read-backs",
+    collectives={}, max_syncs={"cuda": 24, "cpu": 7}, tags=("resident",))
+def _contract_resident_lbfgs_solve(device):
+    # 6 iterations: on the card 1 sync at the start (optim/lbfgs.py:203),
+    # 1 read-back an iteration (:250) and 17 scalar uploads of the Wolfe
+    # search (optim/linesearch.py:57); the CPU counts the 7 read-backs
+    # (ROADMAP speed item 1)
+    batch = _contract_dense_batch(device)
+    cfg = _contract_cfg(reg_weight=0.5)
+    obj = make_objective(TaskType.LOGISTIC_REGRESSION, cfg, 8,
+                         device=device)
+    return ((lambda b, w, o: solve(o, b, w, cfg)),
+            (batch, torch.zeros(8, device=device), obj))
+
+
+@register_contract(
+    name="resident_grid_lanes",
+    description="the lane-minor reg-weight grid (L-BFGS lanes, G=2): G "
+                "lock-step lanes, zero communication, the lane search's "
+                "host syncs held to the pinned budget",
+    collectives={}, max_syncs={"cuda": 12, "cpu": 12},
+    tags=("resident", "lane"))
+def _contract_resident_grid_lanes(device):
+    # 6 iterations x 2 one-flag read-backs: the loop's done flag
+    # (optim/lane_lbfgs.py:253) and the lane search's per-trial flag
+    # (:117) (ROADMAP speed item 1)
+    batch = _contract_dense_batch(device)
+    cfg = _contract_cfg(reg_weight=0.0)
+    l2s, l1s, static_cfg = lane_weight_arrays(cfg, [0.1, 1.0])
+    obj = make_objective(TaskType.LOGISTIC_REGRESSION, cfg, 8,
+                         device=device)
+    return ((lambda b, W, o, l2v: _lane_solve(o, b, W, l2v, None,
+                                              static_cfg)),
+            (batch, torch.zeros(8, 2, device=device), obj,
+             l2s.to(device)))
+
+
+def _contract_sharded(kind: str, device, d: int = 96, bf16: bool = False):
+    """(mesh, batch, obj) for a sharded layout on an 8-slot mesh."""
+    from photon_tpu_torch.data.dataset import (cast_features, mesh_batch,
+                                               shard_blocked_ell_batch,
+                                               shard_hybrid_batch,
+                                               shard_permuted_batch)
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_devices=8, device=device)
+    shard = {"hybrid": shard_hybrid_batch,
+             "permuted": shard_permuted_batch,
+             "blocked_ell": shard_blocked_ell_batch}[kind]
+    host = shard(_contract_sparse_batch(16 * mesh.n_slots, d),
+                 mesh.n_slots, d_dense=16)
+    if bf16:
+        host = cast_features(host)
+    batch = mesh_batch(host, mesh)
+    cfg = _contract_cfg(reg_weight=0.5)
+    pos = getattr(batch.X, "last_col_pos", None) if kind != "hybrid" \
+        else -1
+    obj = make_objective(TaskType.LOGISTIC_REGRESSION, cfg, d,
+                         intercept_index=pos, device=mesh.home)
+    return mesh, batch, obj
+
+
+def _contract_sharded_vg(kind: str, device, bf16: bool = False):
+    mesh, batch, obj = _contract_sharded(kind, device, bf16=bf16)
+    d = obj.reg_mask.shape[0] if obj.reg_mask is not None else 96
+    w = torch.from_numpy(0.1 * np.random.default_rng(2).normal(
+        size=d).astype(np.float32)).to(mesh.home)
+    return (lambda o, b, wv: o.value_and_grad(wv, b)), (obj, batch, w)
+
+
+@register_contract(
+    name="sharded_hybrid_value_and_grad",
+    description="ShardedHybridRows evaluation on an 8-slot mesh: ONE "
+                "psum, and the per-shard tail never crosses slots",
+    collectives={"psum": 1}, tags=("resident", "mesh"))
+def _contract_sharded_hybrid_value_and_grad(device):
+    return _contract_sharded_vg("hybrid", device)
+
+
+@register_contract(
+    name="sharded_permuted_value_and_grad",
+    description="ShardedPermutedHybridRows evaluation on an 8-slot mesh: "
+                "ONE psum and no combining scatter — the scatter-free "
+                "layout holds on the mesh path",
+    collectives={"psum": 1}, forbid=SCATTER_PRIMITIVES,
+    tags=("resident", "mesh"))
+def _contract_sharded_permuted_value_and_grad(device):
+    return _contract_sharded_vg("permuted", device)
+
+
+@register_contract(
+    name="sharded_permuted_grid_lanes",
+    description="one iteration of the sharded lane-grid L-BFGS "
+                "(ShardedPermutedHybridRows, G=2): no combining scatter "
+                "and exactly 3 psums — the start's value+grad, the "
+                "accepted first trial's phi, the accepted step's grad",
+    collectives={"psum": 3}, forbid=SCATTER_ADD_PRIMITIVES,
+    max_syncs={"cuda": 2, "cpu": 2}, tags=("resident", "mesh", "lane"))
+def _contract_sharded_permuted_grid_lanes(device):
+    # 1 iteration: the loop's and the search's one-flag read-backs
+    # (optim/lane_lbfgs.py:253, :117; ROADMAP speed item 1)
+    mesh, batch, obj = _contract_sharded("permuted", device)
+    cfg = _contract_cfg(reg_weight=0.0, max_iters=1)
+    l2s, _, static_cfg = lane_weight_arrays(cfg, [0.1, 1.0])
+    obj = dataclasses.replace(obj, l2=0.0)
+    return ((lambda b, W, o, l2v: _lane_solve(o, b, W, l2v, None,
+                                              static_cfg)),
+            (batch, torch.zeros(96, 2, device=mesh.home), obj,
+             l2s.to(mesh.home)))
+
+
+@register_contract(
+    name="sharded_blocked_ell_value_and_grad",
+    description="ShardedBlockedEllRows evaluation (bf16 storage) on an "
+                "8-slot mesh: ONE psum, no combining scatter, every bf16 "
+                "product accumulating f32",
+    collectives={"psum": 1}, forbid=SCATTER_PRIMITIVES,
+    require_f32_accum=True, tags=("resident", "mesh", "sparse"))
+def _contract_sharded_blocked_ell_value_and_grad(device):
+    return _contract_sharded_vg("blocked_ell", device, bf16=True)

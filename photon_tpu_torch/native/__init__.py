@@ -49,7 +49,7 @@ def _compile() -> None:
     import fcntl
 
     _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    with open(_LIB_PATH.parent / ".lock", "w") as lk:
+    with open(_LIB_PATH.parent / ".lock", "a") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         try:
             if _fresh():
@@ -135,6 +135,7 @@ def get_lib():
         _tried = True
         try:
             if not _fresh():
+                # photon: allow(blocking_under_lock, the first-use compile MUST serialize under _lock — two threads racing g++ onto the same .so is the actual bug; hold time is bounded by the compile timeout and later callers hit the memoized fast path)
                 _compile()
             lib = ctypes.CDLL(str(_LIB_PATH))
             _bind(lib)

@@ -380,3 +380,118 @@ class Objective:
         if self.prior_full_precision is not None:
             H = H + self.prior_full_precision
         return H
+
+
+# ----------------------------------------------------------------- contracts
+# The resident evaluation's law: no collective, no host sync, f32 out of
+# every bf16 product; a line-search trial makes no pass over X at all.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import (  # noqa: E402
+    DOT_GENERAL, SCATTER_PRIMITIVES)
+
+
+def _contract_batch(device, n=64, d=8, feature_dtype=None):
+    import numpy as np
+
+    from photon_tpu_torch.data.dataset import cast_features, make_batch
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    batch = make_batch(X, y, device=device)
+    if feature_dtype is not None:
+        batch = cast_features(batch, feature_dtype)
+    return batch
+
+
+def _contract_objective() -> Objective:
+    return Objective(task=TaskType.LOGISTIC_REGRESSION, l2=0.4)
+
+
+def _contract_w(d: int, device, seed: int = 2) -> torch.Tensor:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        0.1 * rng.normal(size=d).astype(np.float32)).to(device)
+
+
+@register_contract(
+    name="resident_value_and_grad",
+    description="single-device Objective.value_and_grad: communication-"
+                "free, sync-free, f32 throughout",
+    collectives={}, tags=("resident",))
+def _contract_resident_value_and_grad(device):
+    batch = _contract_batch(device)
+    return ((lambda o, wv, b: o.value_and_grad(wv, b)),
+            (_contract_objective(), _contract_w(8, device), batch))
+
+
+@register_contract(
+    name="resident_value_and_grad_bf16",
+    description="value_and_grad on bf16 features: every contraction "
+                "accumulates f32",
+    collectives={}, tags=("resident",))
+def _contract_resident_value_and_grad_bf16(device):
+    batch = _contract_batch(device, feature_dtype=torch.bfloat16)
+    return ((lambda o, wv, b: o.value_and_grad(wv, b)),
+            (_contract_objective(), _contract_w(8, device), batch))
+
+
+@register_contract(
+    name="streamed_blocked_ell_chunk_partials",
+    description="Objective.chunk_value_grad_partials on a blocked-ELL "
+                "chunk (the streamed-chunk leaf): communication-free, no "
+                "combining scatter, every bf16 product accumulating f32",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("streamed", "sparse"))
+def _contract_streamed_blocked_ell_chunk_partials(device):
+    from photon_tpu_torch.data.dataset import make_batch
+    from photon_tpu_torch.data.matrix import _contract_blocked_ell
+
+    X = _contract_blocked_ell(device, bf16=True)
+    n, d = X.shape
+    batch = make_batch(X, torch.zeros(n), device=device)
+    return ((lambda o, wv, b: o.chunk_value_grad_partials(wv, b)),
+            (_contract_objective(), _contract_w(d, device), batch))
+
+
+@register_contract(
+    name="lane_blocked_ell_value_and_grad",
+    description="lane-minor margin + value_and_grad_at_margin over a "
+                "BlockedEllRows batch (G=3): the reg-sweep evaluation has "
+                "no combining scatter and accumulates f32",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("lane", "sparse"))
+def _contract_lane_blocked_ell_value_and_grad(device):
+    from photon_tpu_torch.data.dataset import make_batch
+    from photon_tpu_torch.data.matrix import _contract_blocked_ell
+    from photon_tpu_torch.ops import lane_objective as lo
+
+    X = _contract_blocked_ell(device, bf16=True)
+    n, d = X.shape
+    batch = make_batch(X, torch.zeros(n), device=device)
+    l2s = torch.tensor([0.1, 0.5, 1.0], device=device)
+    W = torch.stack([_contract_w(d, device, s) for s in range(3)], 1)
+
+    def fn(o, l2v, Wv, b):
+        z = lo.margin_lanes(o, Wv, b)
+        return lo.value_and_grad_at_margin_lanes(o, l2v, Wv, z, b)
+
+    return fn, (_contract_objective(), l2s, W, batch)
+
+
+@register_contract(
+    name="resident_linesearch_trial",
+    description="margin-cached Wolfe trial (phi_at_ray): elementwise on "
+                "cached (z, dz) — ZERO passes over X, pinned by forbidding "
+                "the matmul family and every kernel launch",
+    collectives={}, forbid=DOT_GENERAL, tags=("resident",))
+def _contract_linesearch_trial(device):
+    batch = _contract_batch(device)
+    z = _contract_w(64, device, 3)
+    dz = _contract_w(64, device, 4)
+    coeffs = tuple(torch.tensor(v, device=device) for v in (0.1, 0.2, 0.3))
+    a = torch.tensor(0.5, device=device)
+    return ((lambda o, zz, dd, aa, cc, b: o.phi_at_ray(zz, dd, aa, cc, b)),
+            (_contract_objective(), z, dz, a, coeffs, batch))

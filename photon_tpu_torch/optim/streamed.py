@@ -947,3 +947,175 @@ def _owlqn_streamed(obj, data, w0, l1_weight, max_iters, tolerance, history,
     (pgnorm,) = _floats(pg_norm(w, g))
     return _result(w, F, pgnorm, it, converged, failed, hist, ghist, evals,
                    trials)
+
+
+# ----------------------------------------------------------------- contracts
+# The streamed regime's law: a chunk's partials are communication-free
+# (one device or each slot of a mesh keeps its own), an evaluation and a
+# line-search trial each close with ONE mesh reduction, and the upload
+# ring dispatches the chunk program with one argument signature across
+# passes.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import SCATTER_PRIMITIVES  # noqa: E402
+from photon_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+
+
+def _contract_problem(device, mesh=None, d: int = 6):
+    """(obj, w, a host ChunkedBatch of two 16-row chunks per slot)."""
+    import numpy as np
+
+    from photon_tpu_torch.data.dataset import chunk_batch, make_batch
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.ops.objective import Objective
+
+    S = mesh.n_slots if mesh is not None else 1
+    n = 32 * S
+    rng = np.random.default_rng(0)
+    batch = make_batch(rng.normal(size=(n, d)).astype(np.float32),
+                       (rng.uniform(size=n) < 0.5).astype(np.float32),
+                       device="cpu")
+    obj = Objective(task=TaskType.LOGISTIC_REGRESSION, l2=0.4)
+    home = mesh.home if mesh is not None else torch.device(device)
+    w = torch.from_numpy(0.1 * rng.normal(size=d).astype(np.float32))
+    return obj, w.to(home), chunk_batch(batch, 16 * S)
+
+
+def _first_chunk(stream):
+    """The stream's first device chunk, with the pass drained."""
+    chunks = [b for _, b in stream.iter_chunks()]
+    return chunks[0]
+
+
+@register_contract(
+    name="streamed_chunk_init",
+    description="one device's streamed chunk-partial program "
+                "(chunk_init): margins + (loss, grad) partials, LOCAL "
+                "sums only, no host sync",
+    collectives={}, tags=("streamed",))
+def _contract_streamed_chunk_init(device):
+    obj, w, data = _contract_problem(device)
+    stream = _SingleDeviceStream(data, torch.device(device))
+    b = _first_chunk(stream)
+    z = stream.host_margins()[0]
+    return ((lambda o, wv, bv: stream.chunk_init(o, wv, bv, z)),
+            (obj, w, b))
+
+
+@register_contract(
+    name="streamed_mesh_chunk_init",
+    description="the mesh-streamed chunk-partial program on 8 slots: the "
+                "partials stay slot-local, ZERO collectives per chunk",
+    collectives={}, tags=("mesh-streamed",))
+def _contract_streamed_mesh_chunk_init(device):
+    mesh = make_mesh(n_devices=8, device=device)
+    obj, w, data = _contract_problem(device, mesh)
+    stream = _MeshStream(data, mesh)
+    bs = _first_chunk(stream)
+    z = stream.host_margins()[0]
+    return ((lambda o, wv, b: stream.chunk_init(o, wv, b, z)),
+            (obj, w, bs))
+
+
+def _contract_slot_parts(mesh, *shapes):
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    return SlotParts(
+        tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+            mesh.slot_devices[k]) if s is not None else None
+            for s in shapes)
+        for k in range(mesh.n_local))
+
+
+@register_contract(
+    name="streamed_mesh_finish",
+    description="the evaluation close (_MeshStream.finish): value and "
+                "gradient partials ride ONE psum — the whole evaluation's "
+                "only collective",
+    collectives={"psum": 1}, tags=("mesh-streamed",))
+def _contract_streamed_mesh_finish(device):
+    mesh = make_mesh(n_devices=8, device=device)
+    obj, w, data = _contract_problem(device, mesh)
+    stream = _MeshStream(data, mesh)
+    parts = _contract_slot_parts(mesh, (), (6,), None)
+    return ((lambda o, wv, p: stream.finish(o, wv, p)), (obj, w, parts))
+
+
+@register_contract(
+    name="streamed_mesh_blocked_ell_chunk_partials",
+    description="a mesh blocked-ELL streamed chunk's partial program "
+                "(chunk_blocked_ell(n_shards=8) under _MeshStream): each "
+                "slot's ELL/occurrence buckets stay local — ZERO "
+                "collectives per chunk, no combining scatter, every bf16 "
+                "product accumulating f32",
+    collectives={}, forbid=SCATTER_PRIMITIVES, require_f32_accum=True,
+    tags=("mesh-streamed", "sparse", "game"))
+def _contract_streamed_mesh_blocked_ell_chunk_partials(device):
+    import numpy as np
+
+    from photon_tpu_torch.data.dataset import chunk_blocked_ell, make_batch
+    from photon_tpu_torch.data.matrix import SparseRows
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.ops.objective import Objective
+
+    mesh = make_mesh(n_devices=8, device=device)
+    d, k = 96, 4
+    rng = np.random.default_rng(0)
+    n = 32 * mesh.n_slots
+    sp = SparseRows(rng.integers(0, d, size=(n, k)).astype(np.int32),
+                    rng.normal(size=(n, k)).astype(np.float32), d)
+    data = chunk_blocked_ell(
+        make_batch(sp, (rng.uniform(size=n) < 0.5).astype(np.float32),
+                   device="cpu"), n // 2, 16,
+        feature_dtype=torch.bfloat16, n_shards=mesh.n_slots)
+    stream = _MeshStream(data, mesh)
+    bs = _first_chunk(stream)
+    z = stream.host_margins()[0]
+    obj = Objective(task=TaskType.LOGISTIC_REGRESSION, l2=0.4)
+    w = torch.from_numpy(0.1 * rng.normal(size=d).astype(np.float32))
+    return ((lambda o, wv, b: stream.chunk_init(o, wv, b, z)),
+            (obj, w.to(mesh.home), bs))
+
+
+@register_contract(
+    name="mesh_stream_donated_no_retrace",
+    description="the upload ring is signature-stable: rotating the "
+                "DeviceChunkRing across two passes (wraparound included) "
+                "dispatches the chunk-partial program with ONE argument "
+                "signature (the builder drains both passes through the "
+                "signature log and raises on divergence), and the "
+                "program stays communication-free",
+    collectives={}, tags=("streamed",))
+def _contract_donated_ring_no_retrace(device):
+    from photon_tpu_torch.analysis.rules import TraceSignatureLog
+
+    obj, w, data = _contract_problem(device)
+    stream = _SingleDeviceStream(data, torch.device(device))
+    log = TraceSignatureLog()
+    first = None
+    for _ in range(2):  # two passes: the ring wraps across the boundary
+        for _, b in stream.iter_chunks():
+            log.record("streamed.chunk_init", (obj, w, b))
+            first = b if first is None else first
+    n_sigs = len(log.signatures("streamed.chunk_init"))
+    if n_sigs != 1:
+        raise AssertionError(
+            f"ring dispatch drifted: {n_sigs} distinct chunk-program "
+            "signatures across ring rotations (expected 1)")
+    z = stream.host_margins()[0]
+    return ((lambda o, wv, bv: stream.chunk_init(o, wv, bv, z)),
+            (obj, w, first))
+
+
+@register_contract(
+    name="streamed_mesh_trial_totals",
+    description="a line-search trial's (phi, phi') totals "
+                "(_MeshStream.totals): trials never multiply the "
+                "collective count — ONE psum",
+    collectives={"psum": 1}, tags=("mesh-streamed",))
+def _contract_streamed_mesh_trial_totals(device):
+    mesh = make_mesh(n_devices=8, device=device)
+    obj, w, data = _contract_problem(device, mesh)
+    stream = _MeshStream(data, mesh)
+    parts = _contract_slot_parts(mesh, (), ())
+    return (lambda p: stream.totals(p)), (parts,)

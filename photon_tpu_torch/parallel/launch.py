@@ -11,8 +11,9 @@ slot-ordered reduction, hence the same bits (`parallel.mesh.psum`).
 
 The child protocol, in order:
 
-1. the ``env`` overrides and the ``PHOTON_TPU_*`` cluster knobs are
-   exported;
+1. the ``env`` overrides are exported (the cluster's address, size and
+   rank reach `initialize_distributed` as arguments, as the reference's
+   launcher passes them);
 2. on CUDA the child pins its card (`torch.cuda.set_device`) before it
    allocates anything: card ``rank`` under NCCL (a card per process),
    card ``rank % count`` under gloo (several ranks may share one);
@@ -90,9 +91,6 @@ def _child_main(conn, target: Callable, ctx: LaunchContext,
     the pipe."""
     try:
         os.environ.update(env)
-        os.environ["PHOTON_TPU_COORDINATOR"] = ctx.coordinator
-        os.environ["PHOTON_TPU_NUM_PROCESSES"] = str(ctx.num_processes)
-        os.environ["PHOTON_TPU_PROCESS_ID"] = str(ctx.process_id)
         import torch
 
         from photon_tpu_torch.parallel import mesh as M

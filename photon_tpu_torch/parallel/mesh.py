@@ -585,9 +585,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     the reference's Spark driver/executor bootstrap.
 
     With no arguments, reads ``PHOTON_TPU_COORDINATOR`` /
-    ``PHOTON_TPU_NUM_PROCESSES`` / ``PHOTON_TPU_PROCESS_ID`` (the launcher
-    exports them to its children); with none of them set it returns False
-    (a plain single process). Returns True once the group is up — an
+    ``PHOTON_TPU_NUM_PROCESSES`` / ``PHOTON_TPU_PROCESS_ID`` (a cluster
+    launched outside `parallel.launch`); with none of them set it returns
+    False (a plain single process). Returns True once the group is up — an
     explicit ``num_processes=1`` cluster-of-one included.
 
     ``device`` is this process's device (default ``cuda``: the current
@@ -712,3 +712,81 @@ def cluster_barrier(tag: str, timeout_s: Optional[float] = None) -> float:
                                f"{t:g} s on rank {_DIST['rank']}: {e}") from e
     telemetry.count("parallel.barrier_seconds", time.perf_counter() - t0)
     return time.perf_counter() - t0
+
+
+# ----------------------------------------------------------------- contracts
+# The mesh's law: one evaluation closes with ONE reduction (`psum`) over
+# every slot, whatever the mesh's shape, and the features never ride it.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+def _contract_mesh_vg(mesh: Mesh, d: int = 12, rows_per_slot: int = 8):
+    """(vg, (batch, w)): a logistic value_and_grad over a dense batch
+    row-sharded on ``mesh``."""
+    from photon_tpu_torch.data.dataset import make_batch, mesh_batch
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.ops.objective import Objective
+
+    rng = np.random.default_rng(0)
+    n = rows_per_slot * mesh.n_slots
+    batch = mesh_batch(make_batch(
+        rng.normal(size=(n, d)).astype(np.float32),
+        (rng.uniform(size=n) < 0.5).astype(np.float32),
+        device=mesh.home), mesh)
+    obj = Objective(task=TaskType.LOGISTIC_REGRESSION, l2=0.5)
+    w = torch.from_numpy(0.1 * rng.normal(size=d).astype(np.float32))
+    return ((lambda b, wv: obj.value_and_grad(wv, b)),
+            (batch, w.to(mesh.home)))
+
+
+@register_contract(
+    name="mesh_value_and_grad",
+    description="value_and_grad over an 8-slot data mesh: value and "
+                "gradient partials close with ONE psum per evaluation",
+    collectives={"psum": 1}, tags=("resident", "mesh"))
+def _contract_mesh_value_and_grad(device):
+    return _contract_mesh_vg(make_mesh(n_devices=8, device=device))
+
+
+@register_contract(
+    name="hybrid_mesh_value_and_grad",
+    description="the 2-D replica x data mesh: the reduction over BOTH "
+                "axes is still ONE psum (the slot tree is the mesh's "
+                "job; the contract is the single close)",
+    collectives={"psum": 1}, tags=("resident", "mesh"))
+def _contract_hybrid_mesh_value_and_grad(device):
+    return _contract_mesh_vg(make_hybrid_mesh(2, n_devices=8,
+                                              device=device))
+
+
+@register_contract(
+    name="multihost_grad_only_dcn",
+    description="the multi-process spine's wire bill: an evaluation over "
+                "a feature block 100x the model size still closes with "
+                "ONE psum whose payload is the (d,) gradient partial + "
+                "the scalar value — features stay on their owning slot "
+                "and never ride a collective (the builder checks the "
+                "payload from the mesh's reduction partials)",
+    collectives={"psum": 1}, tags=("mesh", "multihost", "streamed"))
+def _contract_multihost_grad_only_dcn(device):
+    mesh = make_mesh(n_devices=8, device=device)
+    d = 48
+    vg, (batch, w) = _contract_mesh_vg(mesh, d=d, rows_per_slot=128)
+    seen: list = []
+    orig = Mesh.psum
+
+    def spy(self, parts):
+        seen.append(sum(t.numel() for t in parts[0] if t is not None))
+        return orig(self, parts)
+
+    Mesh.psum = spy
+    try:
+        vg(batch, w)
+    finally:
+        Mesh.psum = orig
+    feature_elems = 128 * d
+    if seen != [d + 1] or feature_elems < 100 * (d + 1):
+        raise AssertionError(
+            f"the evaluation's reduction carried {seen} elements a slot "
+            f"(want [{d + 1}]: the gradient partial and the value)")
+    return vg, (batch, w)

@@ -25,10 +25,10 @@ acceptance facts: every streamed attribution entry has static estimates,
 a measured time and a roofline share in (0, 1]; the first-call account
 adds up; and the ledger is free when off and when on — a resident
 L-BFGS solve gives the same bits and the same host↔device syncs
-(`utils.profiling.count_syncs`) with the ledger armed and disarmed (the
-counterpart of the reference's ``ledger_off_is_free`` contract, a jaxpr
-contract of `analysis/`, ROADMAP queue A item 11.9). The umbrella
-``python -m photon_tpu_torch --selfcheck`` aggregates it.
+(`utils.profiling.count_syncs`) with the ledger armed and disarmed; and
+the ``contracts`` check holds the registered ``ledger_off_is_free``
+contract (`analysis/`) on the same device. The umbrella ``python -m
+photon_tpu_torch --selfcheck`` aggregates it.
 """
 from __future__ import annotations
 
@@ -211,6 +211,9 @@ def run_selftest(device: str = "cuda") -> dict:
     check("ledger_off_is_free",
           free["same_bits"] and free["syncs_off"] == free["syncs_armed"]
           and free["entries"] >= 1, **free)
+    from photon_tpu_torch.analysis.contracts import check_names
+
+    checks["contracts"] = check_names(("ledger_off_is_free",), device)
     return {"ok": all(c["ok"] for c in checks.values()), "checks": checks,
             "device": out["device"]}
 

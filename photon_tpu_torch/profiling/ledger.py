@@ -526,3 +526,40 @@ def sample_hbm(phase: str) -> None:
     led = _CURRENT
     if led is not None:
         led.sample_hbm(phase)
+
+
+# ----------------------------------------------------------------- contracts
+# The ledger-off guarantee as law, the discipline of telemetry_off_is_free:
+# the resident solve with the ledger detached makes no collective, and
+# exactly the host syncs of the bare solver on the same problem.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import TRANSFER_PRIMITIVES  # noqa: E402
+
+
+@register_contract(
+    name="ledger_off_is_free",
+    description="resident L-BFGS solve with the attribution ledger "
+                "detached: zero collectives, host syncs equal to the bare "
+                "solver's on the same problem — profiling adds nothing",
+    collectives={}, forbid=TRANSFER_PRIMITIVES,
+    # the 5-iteration L-BFGS's read-backs (ROADMAP speed item 1), pinned
+    # so they can only fall; the bare solve's count is the equality
+    max_syncs={"cuda": 20, "cpu": 6},
+    tags=("resident", "profiling"))
+def _contract_ledger_off_is_free(device):
+    from photon_tpu_torch.models.training import (_contract_resident_problem,
+                                                  solve)
+    from photon_tpu_torch.optim.lbfgs import minimize_lbfgs_margin
+
+    cfg, obj, batch, w0 = _contract_resident_problem(device, 40, 6, 0)
+
+    def fn(b, w, o):
+        with ledger_disabled():
+            return solve(o, b, w, cfg)
+
+    def bare(b, w, o):
+        return minimize_lbfgs_margin(o, b, w, max_iters=cfg.max_iters,
+                                     tolerance=cfg.tolerance,
+                                     history=cfg.history)
+
+    return fn, (batch, w0, obj), bare

@@ -101,3 +101,68 @@ class AdmissionController:
         if dl is None:
             return False
         return (time.perf_counter_ns() if now_ns is None else now_ns) > dl
+
+
+# ----------------------------------------------------------------- contracts
+# The admission layer's law: policy changes WHICH requests reach the
+# device, never the device program. The builder runs the real collate
+# path under admission OFF and ON (an expired request filtered out, a
+# watermark decision taken) and raises if the two dispatch signatures
+# differ.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+@register_contract(
+    name="serving_admission_program_invariance",
+    description="admission on vs off over the same rung: deadline-expired "
+                "filtering and watermark decisions change batch membership "
+                "only — identical dispatch signature, identical program, "
+                "zero collectives / host syncs / f64",
+    collectives={}, tags=("serving",))
+def _contract_admission_invariance(device):
+    import numpy as np
+
+    from photon_tpu_torch.serving.dispatcher import (ScoreRequest, _Pending,
+                                                     collate_rung_args)
+    from photon_tpu_torch.serving.programs import (ProgramLadder,
+                                                   _contract_rung_args,
+                                                   _tiny_store)
+    from photon_tpu_torch.telemetry.run import SignatureLog
+
+    ladder = ProgramLadder(_tiny_store(device), ladder=(8,),
+                           sparse_k={"member": 3}, output_mean=True)
+
+    def req(i: int) -> ScoreRequest:
+        return ScoreRequest(
+            features={"global": np.zeros(12, np.float32),
+                      "member": (np.zeros(2, np.int32),
+                                 np.zeros(2, np.float32))},
+            entities={"memberId": f"e{i % 5}"})
+
+    log = SignatureLog()
+    now = time.perf_counter_ns()
+    fixed_ws, re_cs = ladder.store.device_blocks()
+    for policy in (AdmissionPolicy(),
+                   AdmissionPolicy(deadline_ms=5.0, shed_watermark=4)):
+        ctrl = AdmissionController(policy)
+        batch = []
+        for i in range(6):
+            p = _Pending(req(i))
+            p.deadline_ns = ctrl.deadline_ns(p.req, p.t_enqueue)
+            batch.append(p)
+        if policy.active:
+            batch[0].deadline_ns = now - 1
+            if ctrl.submit_shed_reason(queue_depth=4) != SHED_WATERMARK:
+                raise AssertionError("watermark policy did not engage")
+            batch = [p for p in batch if not ctrl.expired(p, now)]
+            if len(batch) != 5:
+                raise AssertionError("deadline filter dropped nothing")
+        offsets, shards, ids, _ = collate_rung_args(ladder, batch, 8)
+        args = ladder._upload(offsets, shards, ids) + (fixed_ws, re_cs)
+        log.record("serving.score", args)
+    sigs = log.signatures("serving.score")
+    if len(sigs) != 1:
+        raise AssertionError(
+            f"admission on/off produced {len(sigs)} dispatch signatures "
+            "— the policy layer changed the device program")
+    return ladder._fn, _contract_rung_args(ladder, 8)

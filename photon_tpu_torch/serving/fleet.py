@@ -341,3 +341,27 @@ class ReplicaFleet:
         self._pool.shutdown(wait=True)
         for r in self.replicas:
             r.dispatcher.close(timeout=timeout)
+
+
+# ----------------------------------------------------------------- contracts
+# The fleet's per-request device path IS the single-replica rung program:
+# routing and failover are host arithmetic, sharding only re-roots the
+# coefficient blocks.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+@register_contract(
+    name="serving_fleet_request_path",
+    description="one fleet replica's rung program over an entity-range "
+                "shard: the per-request path stays collective-free / "
+                "sync-free / f64-free — routing and failover never enter "
+                "the device program",
+    collectives={}, tags=("serving",))
+def _contract_fleet_request_path(device):
+    from photon_tpu_torch.serving.programs import (_contract_rung_args,
+                                                   _tiny_store)
+
+    shards = shard_store(_tiny_store(device), 2)
+    ladder = ProgramLadder(shards[0], ladder=(8,), sparse_k={"member": 3},
+                           output_mean=True)
+    return ladder._fn, _contract_rung_args(ladder, 8)

@@ -299,3 +299,101 @@ class ProgramLadder:
                 f"{len(sigs)} distinct scoring signatures exceed the "
                 f"{len(self.ladder)}-rung ladder: serving retraced")
         return len(sigs)
+
+
+# ----------------------------------------------------------------- contracts
+# A serving rung's law: coefficients are arguments, so a rung makes no
+# collective, no host sync and no f64, and a coefficient swap moves no
+# dispatch signature.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+def _tiny_store(device, seed: int = 0) -> CoefficientStore:
+    """The store the serving contracts share: one dense fixed shard + one
+    sparse random-effect shard of 5 entities, seeded values."""
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.serving.store import FixedBlock, RandomBlock
+
+    rng = np.random.default_rng(seed)
+    d_f, d_r, E = 12, 6, 5
+    coef = rng.normal(size=(E + 1, d_r)).astype(np.float32)
+    coef[E] = 0.0
+    directory = IndexMap({f"e{i}": i for i in range(E)}, frozen=True)
+    return CoefficientStore(
+        TaskType.LOGISTIC_REGRESSION, ("fixed", "perEntity"),
+        {"fixed": FixedBlock(
+            "global", rng.normal(size=d_f).astype(np.float32))},
+        {"perEntity": RandomBlock("member", "memberId", coef, directory)},
+        device=device)
+
+
+def _contract_rung_args(ladder: ProgramLadder, B: int, seed: int = 1):
+    """Seeded request arguments at rung ``B`` on the ladder's device."""
+    rng = np.random.default_rng(seed)
+    shards = {}
+    for s, spec in ladder.shard_specs.items():
+        if spec.sparse_k is None:
+            shards[s] = rng.normal(size=(B, spec.d)).astype(np.float32)
+        else:
+            shards[s] = SparseRows(
+                rng.integers(0, spec.d, size=(B, spec.sparse_k)).astype(
+                    np.int32),
+                rng.normal(size=(B, spec.sparse_k)).astype(np.float32),
+                spec.d)
+    ids = {name: (np.arange(B) % (ladder.store.n_entities(name) + 1)
+                  ).astype(np.int32) for name in ladder.store.random}
+    fixed_ws, re_cs = ladder._coefficient_args()
+    return ladder._upload(rng.normal(size=B).astype(np.float32), shards,
+                          ids) + (fixed_ws, re_cs)
+
+
+@register_contract(
+    name="serving_request_program",
+    description="one serving-ladder rung end to end: dense fixed matvec + "
+                "sparse random-effect gather-dot + inverse link, "
+                "coefficients as arguments — no collectives, no host "
+                "syncs, no f64, no upload",
+    collectives={}, tags=("serving", "game"))
+def _contract_serving_request(device):
+    ladder = ProgramLadder(_tiny_store(device), ladder=(8,),
+                           sparse_k={"member": 3}, output_mean=True)
+    return ladder._fn, _contract_rung_args(ladder, 8)
+
+
+@register_contract(
+    name="serving_quantized_rung_invariance",
+    description="one int8 serving rung: the same zero-collective / "
+                "zero-sync / no-f64 law as the f32 rungs, and program "
+                "INVARIANCE — the builder swaps coefficient values (a "
+                "hot-swap's re-quantization) and raises if the rung's "
+                "dispatch signature moves",
+    collectives={}, tags=("serving", "kernels"))
+def _contract_serving_quantized_rung(device):
+    ladder = ProgramLadder(_tiny_store(device), ladder=(8,),
+                           sparse_k={"member": 3}, output_mean=True,
+                           quantize="int8")
+    args = _contract_rung_args(ladder, 8)
+    log = SignatureLog()
+    log.record("serving.quant_rung", args)
+    ladder.store.reload_coefficients(_tiny_store(device, seed=2))
+    args = _contract_rung_args(ladder, 8)
+    log.record("serving.quant_rung", args)
+    sigs = log.signatures("serving.quant_rung")
+    if len(sigs) != 1:
+        raise AssertionError(
+            f"quantized rung dispatch drifted across a coefficient "
+            f"reload: {len(sigs)} signatures (expected 1)")
+    return ladder._fn, args
+
+
+@register_contract(
+    name="serving_request_margin",
+    description="the margin-only serving rung (output_mean=False, dense "
+                "random-effect shard): the raw-score head obeys the same "
+                "zero-collective / zero-sync / no-f64 law",
+    collectives={}, tags=("serving",))
+def _contract_serving_margin(device):
+    ladder = ProgramLadder(_tiny_store(device), ladder=(4,),
+                           output_mean=False)
+    return ladder._fn, _contract_rung_args(ladder, 4)

@@ -79,6 +79,7 @@ class RandomBlock:
 
 
 def _write_synced(path: str, data: bytes) -> None:
+    # photon: allow(durable_write, staged two-phase payload — fsync'd here, published by replace_committed after all writes)
     with open(path, "wb") as f:
         f.write(data)
         f.flush()

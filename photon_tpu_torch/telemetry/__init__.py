@@ -37,9 +37,68 @@ How this differs from the reference:
   NVTX range on CUDA (`run._SpanCM`); device memory comes from
   `torch.cuda.memory_stats`.
 
-`TELEMETRY_REGISTRY` below is a copy of the reference's name registry
-(the port emits some names of its own besides, e.g. ``mesh.*``,
-``parallel.barrier_seconds`` and ``ingest.staging_peak_*``).
+This docstring is the HUMAN registry of telemetry names; the
+machine-readable twin is `TELEMETRY_REGISTRY` at the bottom of this
+module, and ``python -m photon_tpu_torch.lint``'s ``telemetry_sync`` rule
+holds all three sides: every counter/gauge literal the package emits is
+registered, every registered name is emitted somewhere, and every
+registered name appears here. By family (counters unless marked):
+
+- ``faults.*`` — injected_kills, injected_errors, io_retries (also per
+  site, ``io_retries.<site>``), backoff_seconds.
+- ``checkpoint.*`` — snapshots, bytes, restores, the per-layer
+  scope_restores / solver_restores / re_restores / descent_restores,
+  gc_snapshots, and the async writer's pack_seconds / commit_seconds.
+- ``continual.*`` — plans, touched_entities, deferred_new_keys,
+  refreshes, touched_buckets, skipped_buckets, refresh_solves,
+  refresh_iterations, probe_entities, swap_refusals; the staleness_s
+  gauge.
+- ``ingest.*`` — chunks, rows, device_chunks (chunks uploaded by the
+  streamed reads), chunks_skipped, python_fallback and
+  native_unavailable (the native decoder's fallbacks), worker_chunks,
+  worker_deaths, pool_starts, decode_seconds, staging_wait_seconds, the
+  chunk cache's cache_hits / cache_misses / cache_builds /
+  cache_commits / cache_chunks / cache_bytes / cache_invalid; the
+  workers, staging_peak_depth and staging_peak_bytes gauges.
+- ``stream.*`` — passes, chunk_uploads, stall_seconds,
+  compute_seconds, stalled_passes, prefetch_widened,
+  prefetch_narrowed; the prefetch_depth gauge.
+- ``solver.*`` — iterations, evaluations, feature_streams,
+  linesearch_trials, margin_cache.hits, margin_cache.refreshes; and
+  retrace.new_signatures.
+- ``score.*`` — the chunked scoring driver's chunks and rows.
+- ``train.*`` gauges — dataset_estimate_bytes, hbm_budget_bytes.
+- ``serving.*`` — requests, batches, batch_rows, pad_waste,
+  cold_misses, hot_swaps, quant_refusals, admitted, shed,
+  deadline_expired, fleet_dispatches, fleet_failovers, fleet_degraded;
+  the queue_depth, batch_fill, latency_p50_ms/p95/p99 and
+  fleet_replicas gauges.
+- ``game.*`` — sweeps, coordinate_updates, grid_points,
+  grid_vectorized_lanes, validate_point.
+- ``game_re.*`` — blocks, readback_wait_ns, straggler_entities,
+  tail_resolves, iters_saved, slot_solves, lockstep_solves,
+  capped_lockstep_iters, tail_lockstep_iters; the blocks_in_flight
+  gauge.
+- ``game_e2e.*`` — pod_scale_runs, streamed_fixed_updates,
+  objective_chunks, host_offset_sums, score_stream_chunks,
+  score_stream_rows, chunked_fit_points.
+- ``eval.*`` — scatter_elems_saved.
+- ``tuning.*`` — rounds, configs, survivor_resolves; the
+  round_model_flops gauge.
+- ``mesh.*`` — reductions (one per evaluation close, `parallel.mesh.
+  psum`), collectives (one per cross-process gather), wire_bytes; and
+  parallel.barrier_seconds.
+- ``hbm.*`` gauges — bytes_in_use.max and peak_bytes_in_use.max, with
+  per-tag suffixes.
+
+Spans open under the families train, score, ingest, solve, game,
+game_re, serving, checkpoint, continual, tuning and parallel.
+
+The reference's ``game_re.fused_gate_offs`` (its fused one-program
+update's gate, ROADMAP queue A item 6) and ``kernels.tile_measures`` /
+``kernels.tile_cache_hits`` (the tile autotuner, item 11.3) have no
+emitter in the port and are not registered; its ``ingest.device_shards``
+is the port's ``ingest.device_chunks``.
 
 The multi-process spine's ``parallel.barrier_wait`` span, opened by
 `parallel/mesh.py::cluster_barrier`, is what `telemetry.aggregate` reads
@@ -246,10 +305,12 @@ def sample_device_memory(tag: str = "") -> None:
         r.sample_device_memory(tag)
 
 
-# The reference's machine-readable name registry, copied as a literal.
-# Entries ending in ".*" / "_*" are prefix globs for dynamically suffixed
-# names; `span_families` lists the allowed prefix (before the first dot)
-# of every `telemetry.span(...)` name.
+# The machine-readable name registry: the reference's names the port
+# emits, plus the port's own (``mesh.*``, ``parallel.barrier_seconds``,
+# the ingest plane's staging/pool/decode names, the GAME lock-step
+# counters). Entries ending in ".*" / "_*" are prefix globs for
+# dynamically suffixed names; `span_families` lists the allowed prefix
+# (before the first dot) of every `telemetry.span(...)` name.
 TELEMETRY_REGISTRY = {
     "counters": (
         "faults.injected_kills", "faults.injected_errors",
@@ -258,15 +319,19 @@ TELEMETRY_REGISTRY = {
         "checkpoint.snapshots", "checkpoint.bytes", "checkpoint.restores",
         "checkpoint.scope_restores", "checkpoint.solver_restores",
         "checkpoint.re_restores", "checkpoint.descent_restores",
-        "checkpoint.gc_snapshots",
+        "checkpoint.gc_snapshots", "checkpoint.pack_seconds",
+        "checkpoint.commit_seconds",
         "continual.plans", "continual.touched_entities",
         "continual.deferred_new_keys", "continual.refreshes",
         "continual.touched_buckets", "continual.skipped_buckets",
         "continual.refresh_solves", "continual.refresh_iterations",
         "continual.probe_entities", "continual.swap_refusals",
-        "ingest.chunks", "ingest.rows", "ingest.device_shards",
-        "ingest.chunks_skipped",
+        "ingest.chunks", "ingest.rows", "ingest.device_chunks",
+        "ingest.chunks_skipped", "ingest.python_fallback",
+        "ingest.native_unavailable",
         "ingest.worker_chunks", "ingest.worker_deaths",
+        "ingest.pool_starts", "ingest.decode_seconds",
+        "ingest.staging_wait_seconds",
         "ingest.cache_hits", "ingest.cache_misses", "ingest.cache_builds",
         "ingest.cache_commits", "ingest.cache_chunks",
         "ingest.cache_bytes", "ingest.cache_invalid",
@@ -284,19 +349,24 @@ TELEMETRY_REGISTRY = {
         "serving.deadline_expired", "serving.fleet_dispatches",
         "serving.fleet_failovers", "serving.fleet_degraded",
         "game.sweeps", "game.coordinate_updates", "game.grid_points",
+        "game.grid_vectorized_lanes", "game.validate_point",
         "game_re.blocks", "game_re.readback_wait_ns",
         "game_re.straggler_entities", "game_re.tail_resolves",
-        "game_re.iters_saved", "game_re.fused_gate_offs",
+        "game_re.iters_saved", "game_re.slot_solves",
+        "game_re.lockstep_solves", "game_re.capped_lockstep_iters",
+        "game_re.tail_lockstep_iters",
         "game_e2e.pod_scale_runs", "game_e2e.streamed_fixed_updates",
         "game_e2e.objective_chunks",
         "game_e2e.host_offset_sums", "game_e2e.score_stream_chunks",
         "game_e2e.score_stream_rows", "game_e2e.chunked_fit_points",
         "eval.scatter_elems_saved",
         "tuning.rounds", "tuning.configs", "tuning.survivor_resolves",
-        "kernels.tile_measures", "kernels.tile_cache_hits",
+        "mesh.reductions", "mesh.collectives", "mesh.wire_bytes",
+        "parallel.barrier_seconds",
     ),
     "gauges": (
         "stream.prefetch_depth", "ingest.workers",
+        "ingest.staging_peak_depth", "ingest.staging_peak_bytes",
         "train.dataset_estimate_bytes", "train.hbm_budget_bytes",
         "game_re.blocks_in_flight",
         "serving.queue_depth", "serving.batch_fill",

@@ -365,6 +365,7 @@ def main(argv=None) -> int:
         rep = report_from_jsonl(args.health)
         print(json.dumps(rep.to_json(), indent=2))
         if args.prom:
+            # photon: allow(durable_write, node-exporter textfile — rewritten on every scrape, nothing resumes from it)
             with open(args.prom, "w") as f:
                 f.write(rep.prometheus())
         return 0

@@ -72,7 +72,9 @@ class QuantileDigest:
 
     def add(self, value: float) -> None:
         self.counts[self._index(float(value))] += 1
+        # photon: unguarded(owner-serialized: shared digests are only touched under the owner's _lat_lock)
         self.n += 1
+        # photon: unguarded(owner-serialized: shared digests are only touched under the owner's _lat_lock)
         self.total += float(value)
 
     def add_many(self, values) -> None:
@@ -84,7 +86,9 @@ class QuantileDigest:
         ).astype(np.int64)
         np.clip(idx, 0, self.counts.size - 1, out=idx)
         np.add.at(self.counts, idx, 1)
+        # photon: unguarded(owner-serialized: shared digests are only touched under the owner's _lat_lock)
         self.n += int(v.size)
+        # photon: unguarded(owner-serialized: shared digests are only touched under the owner's _lat_lock)
         self.total += float(v.sum())
 
     def merge(self, other: "QuantileDigest") -> "QuantileDigest":
@@ -92,7 +96,9 @@ class QuantileDigest:
                 (self.lo, self.hi, self.rel_error):
             raise ValueError("cannot merge digests with different bucketing")
         self.counts += other.counts
+        # photon: unguarded(owner-serialized: fleet merge holds each replica's _lat_lock; the target digest is merge-local)
         self.n += other.n
+        # photon: unguarded(owner-serialized: fleet merge holds each replica's _lat_lock; the target digest is merge-local)
         self.total += other.total
         return self
 

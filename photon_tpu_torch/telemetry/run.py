@@ -250,6 +250,7 @@ class Run:
             f = self._jsonl_file
             if f is None:  # closed concurrently
                 return
+            # photon: allow(blocking_under_lock, _emit_lock exists to serialize exactly this one-line write — it guards no other state, so nothing can deadlock or stall behind it)
             json.dump(obj, f)
             f.write("\n")
 

@@ -67,3 +67,41 @@ def solver_tap(solver: str, it: int, loss: float, grad_norm=None,
     run.iteration(solver, int(it), loss,
                   grad_norm=0.0 if grad_norm is None else grad_norm,
                   step=0.0 if step is None else step, tapped=True)
+
+
+# ----------------------------------------------------------------- contracts
+# The telemetry-off guarantee as law: the resident margin-cached L-BFGS
+# solve with the tap forced off makes no collective, and exactly the host
+# syncs of the bare solver (`minimize_lbfgs_margin`) on the same problem:
+# the tap rides the read-back the solver already makes.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import TRANSFER_PRIMITIVES  # noqa: E402
+
+
+@register_contract(
+    name="telemetry_off_is_free",
+    description="resident L-BFGS solve with telemetry's tap forced off: "
+                "zero collectives, and its host syncs equal to the bare "
+                "solver's on the same problem — off adds nothing",
+    collectives={}, forbid=TRANSFER_PRIMITIVES,
+    # the 5-iteration L-BFGS's read-backs (ROADMAP speed item 1), pinned
+    # so they can only fall; the bare solve's count is the equality
+    max_syncs={"cuda": 20, "cpu": 6},
+    tags=("resident", "telemetry"))
+def _contract_telemetry_off_is_free(device):
+    from photon_tpu_torch.models.training import (_contract_resident_problem,
+                                                  solve)
+    from photon_tpu_torch.optim.lbfgs import minimize_lbfgs_margin
+
+    cfg, obj, batch, w0 = _contract_resident_problem(device, 48, 7, 0)
+
+    def fn(b, w, o):
+        with tap_disabled():
+            return solve(o, b, w, cfg)
+
+    def bare(b, w, o):
+        return minimize_lbfgs_margin(o, b, w, max_iters=cfg.max_iters,
+                                     tolerance=cfg.tolerance,
+                                     history=cfg.history)
+
+    return fn, (batch, w0, obj), bare

@@ -319,3 +319,60 @@ def attach(tc: Optional[TraceContext]):
 
 def current() -> Optional[TraceContext]:
     return _CTX.get()
+
+
+# ----------------------------------------------------------------- contracts
+# The off-is-free guarantee, two halves in one spec: (1) the serving rung
+# run with tracing disarmed makes no collective and no host sync (tracing
+# is host bookkeeping around host queues, it never enters the rung);
+# (2) the collated rung ARGUMENTS are signature-identical armed and
+# disarmed, so arming tracing never changes a rung's signature (the
+# builder raises before returning if they differ).
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+from photon_tpu_torch.analysis.walker import TRANSFER_PRIMITIVES  # noqa: E402
+
+
+@register_contract(
+    name="serving_trace_off_is_free",
+    description="serving rung run with request tracing disarmed: zero "
+                "collectives, zero host syncs, and zero signature drift — "
+                "the collated rung arguments are identical armed and "
+                "disarmed",
+    collectives={}, forbid=TRANSFER_PRIMITIVES,
+    tags=("serving", "telemetry"))
+def _contract_serving_trace_off_is_free(device):
+    import types
+
+    import numpy as np
+
+    from photon_tpu_torch.serving.dispatcher import (ScoreRequest,
+                                                     collate_rung_args)
+    from photon_tpu_torch.serving.programs import (ProgramLadder,
+                                                   _contract_rung_args,
+                                                   _tiny_store)
+    from photon_tpu_torch.telemetry.run import SignatureLog
+
+    ladder = ProgramLadder(_tiny_store(device), ladder=(8,),
+                           sparse_k={"member": 3}, output_mean=True)
+    reqs = [types.SimpleNamespace(req=ScoreRequest(
+        features={"global": np.zeros(12, np.float32),
+                  "member": (np.asarray([0, 1], np.int32),
+                             np.asarray([0.5, -0.25], np.float32))},
+        entities={"memberId": f"e{i}"})) for i in range(3)]
+    log = SignatureLog()
+    with trace_disabled():
+        off, shards_off, ids_off, _ = collate_rung_args(ladder, reqs, 8)
+    log.record("rung_args", (off, shards_off, ids_off))
+    with tracing(k=2):
+        on, shards_on, ids_on, _ = collate_rung_args(ladder, reqs, 8)
+    log.record("rung_args", (on, shards_on, ids_on))
+    if len(log.signatures("rung_args")) != 1:
+        raise AssertionError(
+            "tracing armed vs disarmed changed the collated rung-argument "
+            f"signatures: {log.signatures('rung_args')}")
+
+    def fn(*args):
+        with trace_disabled():
+            return ladder._fn(*args)
+
+    return fn, _contract_rung_args(ladder, 8)

@@ -26,8 +26,9 @@ logistic problem.
   ``tuning.configs`` == configs proposed, and a positive
   ``tuning.round_model_flops`` gauge.
 
-The reference's ``contracts`` check (its two jaxpr contracts) waits for
-the port of `analysis/` (ROADMAP queue A item 11.9).
+- ``contracts`` — the two tuning contracts (`analysis/`:
+  ``tuning_lane_dispatch``, ``tuning_round_budget``) hold on the same
+  device.
 
 Exit status: 0 iff every check passed.
 """
@@ -36,6 +37,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+# the registered contracts this selftest checks (`analysis/`)
+TUNING_CONTRACTS = ("tuning_lane_dispatch", "tuning_round_budget")
 
 
 def run_selftest(device: str = "cuda") -> dict:
@@ -135,6 +139,9 @@ def run_selftest(device: str = "cuda") -> dict:
                    and rs.modeled_flops > 0),
         "starved_raises": starved, "round_flops": rs.modeled_flops}
 
+    from photon_tpu_torch.analysis.contracts import check_names
+
+    checks["contracts"] = check_names(TUNING_CONTRACTS, str(dev))
     return {"ok": all(c["ok"] for c in checks.values()), "checks": checks,
             "device": str(dev)}
 

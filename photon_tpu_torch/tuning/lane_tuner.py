@@ -29,10 +29,10 @@ a modeled-cost budget checked before each round.
 The GP fits on the training batch's device (the mesh's home with
 ``mesh``). With a `profiling` ledger armed, the screen and the re-solve
 are its dispatches (``tuning.lane_screen``, ``tuning.lane_resolve``),
-each priced by `lane_grid_cost`. The reference's two registered jaxpr
-contracts (``tuning_lane_dispatch``, ``tuning_round_budget``) wait for
-ROADMAP queue A item 11.9; the signature log and `_enforce_budget` hold
-the same two laws at run time.
+each priced by `lane_grid_cost`. The signature log and `_enforce_budget`
+hold the tuner's two laws at run time; the two contracts at the bottom
+of this module (``tuning_lane_dispatch``, ``tuning_round_budget``) pin
+them in `python -m photon_tpu_torch.analysis`.
 """
 from __future__ import annotations
 
@@ -361,3 +361,105 @@ def qei_greedy_costed(gp, pool, best_y: float, q: int, seed: int,
     budgets pick by gain per FLOP with no tuner change."""
     costs = np.full(pool.shape[0], max(float(price), 1.0), np.float64)
     return qei_greedy(gp, pool, best_y, q, seed=seed, costs=costs)
+
+
+# ----------------------------------------------------------------- contracts
+# The tuner's two laws: a round's dispatch signature does not depend on
+# how many configs it proposed (the fixed pow2 chunk), and a round fits
+# its modeled budget before dispatch; both lane programs make no
+# collective, their host syncs held to the lane search's pinned
+# read-backs.
+from photon_tpu_torch.analysis.contracts import register_contract  # noqa: E402
+
+
+def _tuner_contract_problem(device, iters: int = 3, chunk: int = 8):
+    from photon_tpu_torch.data.dataset import make_batch
+    from photon_tpu_torch.models import training as _training
+    from photon_tpu_torch.ops.losses import TaskType
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    n, d = 32, 5
+    rng = np.random.default_rng(0)
+    cfg = OptimizerConfig(max_iters=iters, tolerance=1e-7, reg=l2(),
+                          reg_weight=0.0, history=3,
+                          regularize_intercept=True)
+    batch = make_batch(rng.normal(size=(n, d)).astype(np.float32),
+                       (rng.uniform(size=n) < 0.5).astype(np.float32),
+                       device=device)
+    weights = pad_proposals([0.1, 1.0], chunk)
+    l2s, _, static_cfg = _training.lane_weight_arrays(cfg, weights)
+    obj = _training.make_objective(TaskType.LOGISTIC_REGRESSION, cfg, d,
+                                   device=device)
+    return batch, obj, l2s.to(batch.y.device), static_cfg, cfg
+
+
+@register_contract(
+    name="tuning_lane_dispatch",
+    description="the batched tuner's screen dispatch: proposal batches "
+                "of DIFFERENT sizes pad to the fixed pow2 lane chunk, so "
+                "every round carries one signature (builder raises on "
+                "divergence), and the lock-step lane program is "
+                "collective-free with no f64",
+    # 3 iterations x 2 one-flag read-backs (optim/lane_lbfgs.py:253, :117;
+    # ROADMAP speed item 1)
+    collectives={}, max_syncs={"cuda": 6, "cpu": 6}, tags=("tuning", "lane"))
+def _contract_tuning_lane_dispatch(device):
+    from photon_tpu_torch.models.training import _lane_solve
+
+    batch, obj, l2s, static_cfg, _ = _tuner_contract_problem(device)
+    chunk = int(l2s.shape[0])
+    log = SignatureLog()
+    for q in (3, 7):
+        padded = pad_proposals([0.1] * q, chunk)
+        log.record("screen", _dispatch_args(
+            batch, torch.tensor(padded, dtype=torch.float32)))
+    if len(log.signatures("screen")) != 1:
+        raise AssertionError(
+            f"tuner dispatch signatures diverged across proposal counts: "
+            f"{log.signatures('screen')}")
+    d = int(batch.X.shape[1])
+
+    def fn(b, W, o, l2v):
+        return _lane_solve(o, b, W, l2v, None, static_cfg)
+
+    return fn, (batch, torch.zeros(d, chunk, device=batch.y.device), obj,
+                l2s)
+
+
+@register_contract(
+    name="tuning_round_budget",
+    description="a tuner round fits its modeled budget BEFORE dispatch: "
+                "the builder prices the screen with lane_grid_cost and "
+                "raises unless collective bytes are zero and FLOPs sit "
+                "within LaneBudget.cost_factor of the lane roofline; the "
+                "program run is the halving tail — the compact_rows "
+                "survivor gather + the warm-started full-depth re-solve "
+                "from per-lane starts — equally collective-free",
+    # 3 iterations x 2 one-flag read-backs (optim/lane_lbfgs.py:253, :117;
+    # ROADMAP speed item 1)
+    collectives={}, max_syncs={"cuda": 6, "cpu": 6}, tags=("tuning", "lane"))
+def _contract_tuning_round_budget(device):
+    from photon_tpu_torch.models.training import _lane_solve
+    from photon_tpu_torch.ops.losses import TaskType
+
+    batch, obj, l2s, static_cfg, cfg = _tuner_contract_problem(device)
+    chunk = int(l2s.shape[0])
+    d = int(batch.X.shape[1])
+    iters = int(static_cfg.max_iters)
+    cost = lane_grid_cost(batch, TaskType.LOGISTIC_REGRESSION, static_cfg,
+                          chunk)
+    _enforce_budget(cost, batch, d, chunk, iters, LaneBudget(), mesh=None)
+    s_chunk = 4
+    dev = batch.y.device
+
+    def tail(w_lanes, b, o, l2_sur, idx):
+        W0 = compact_rows(w_lanes, idx, pad_rows=s_chunk,
+                          pad_mode="edge").t().contiguous()
+        return _lane_solve(o, b, W0, l2_sur, None, static_cfg)
+
+    rng = np.random.default_rng(1)
+    w_lanes = torch.from_numpy(
+        0.1 * rng.normal(size=(chunk, d)).astype(np.float32)).to(dev)
+    return tail, (w_lanes, batch, obj, l2s[:s_chunk].contiguous(),
+                  torch.tensor([1, 5, 2], dtype=torch.long, device=dev))

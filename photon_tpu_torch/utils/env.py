@@ -1,6 +1,6 @@
 """The ``PHOTON_TPU_*`` environment knobs (the port's copy of the part of
-`photon_tpu/utils/env.py` that the mesh spine and the attribution ledger
-read).
+`photon_tpu/utils/env.py` that the mesh spine, the attribution ledger and
+the logger read, plus the kernel seam's two knobs).
 
 Every knob is declared ONCE here, with its one-line contract; modules read raw values through :func:`get_raw`, which
 refuses an undeclared name. Parsing stays with the owner module named in
@@ -16,9 +16,9 @@ __all__ = ["KNOB_DOCS", "get_raw", "declared"]
 KNOB_DOCS = {
     "PHOTON_TPU_COORDINATOR": (
         "Multi-process coordinator address (host:port) for "
-        "torch.distributed's TCP rendezvous — the launcher exports it to "
-        "every child; set it by hand to join an externally launched "
-        "cluster. Owner: photon_tpu_torch.parallel.mesh "
+        "torch.distributed's TCP rendezvous — set it to join an externally "
+        "launched cluster (parallel.launch passes the address to its "
+        "children as an argument). Owner: photon_tpu_torch.parallel.mesh "
         "(initialize_distributed())."),
     "PHOTON_TPU_NUM_PROCESSES": (
         "Multi-process cluster size (integer >= 1; read with "
@@ -39,6 +39,22 @@ KNOB_DOCS = {
         "roofline-utilization denominators (overrides the device's table "
         "entry). Owner: photon_tpu_torch.profiling.ledger "
         "(resolve_peaks())."),
+    "PHOTON_TPU_LOG_LEVEL": (
+        "Default level of the package's loggers (a standard level name "
+        "such as DEBUG/warning, or a numeric level); unset or "
+        "unparseable keeps the logger's own default. Owner: "
+        "photon_tpu_torch.utils.logging (photon_logger())."),
+    "PHOTON_TPU_TORCH_KERNELS": (
+        "The kernel dispatch mode: auto (default; the hand-written kernel "
+        "for CUDA tensors, the plain version for CPU tensors), on (the "
+        "kernel required: a CPU tensor raises), off (the plain version "
+        "everywhere); 1/true and 0/false alias on and off. Owner: "
+        "photon_tpu_torch.kernels (mode())."),
+    "PHOTON_TPU_TORCH_KERNELS_BUDGET": (
+        "Byte budget of the fused blocked-ELL form (integer >= 0): a "
+        "vector the kernel gathers from that exceeds it routes to the "
+        "tiled form; unset means no budget (always fused), 0 forces "
+        "tiled. Owner: photon_tpu_torch.kernels (budget(), route())."),
     "PHOTON_TPU_PEAK_BYTES_PER_S": (
         "Per-device memory bytes/s ceiling for the attribution ledger's "
         "roofline-utilization denominators (overrides the device's table "

@@ -26,7 +26,9 @@ _FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
 def _env_level() -> Optional[int]:
     """PHOTON_TPU_LOG_LEVEL, parsed: a standard level name ("DEBUG",
     "warning") or a numeric level; unset/unparseable -> None."""
-    raw = os.environ.get("PHOTON_TPU_LOG_LEVEL", "").strip()
+    from photon_tpu_torch.utils.env import get_raw
+
+    raw = (get_raw("PHOTON_TPU_LOG_LEVEL") or "").strip()
     if not raw:
         return None
     if raw.isdigit():

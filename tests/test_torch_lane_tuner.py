@@ -307,7 +307,7 @@ def test_selftest_on_cpu_exits_zero(capsys):
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["ok"] and set(report["checks"]) == {
         "lane_tune", "no_retrace", "gp_ladder", "qei_edges", "cost_budget",
-        "telemetry"}
+        "telemetry", "contracts"}
     assert tuning_cli.main([]) == 2
 
 

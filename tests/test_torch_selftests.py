@@ -1,8 +1,9 @@
 """The port's self-test CLIs on the CPU: each new suite's
-``run_selftest(device="cpu")`` passes every check, the umbrella
-``python -m photon_tpu_torch --selfcheck`` runs two suites and names the
-pending ones without counting them, and every new CLI refuses
-``--device cuda`` on a machine with no GPU (no fallback to the CPU).
+``run_selftest(device="cpu")`` passes every check (its ``contracts``
+check included), the umbrella ``python -m photon_tpu_torch --selfcheck``
+runs two suites, knows all 13 of the reference's suites with none
+pending, and every new CLI refuses ``--device cuda`` on a machine with no
+GPU (no fallback to the CPU).
 """
 import json
 
@@ -20,16 +21,17 @@ NEW_CLIS = {"kernels": kernels_cli, "ingest": ingest_cli,
             "continual": continual_cli, "game": game_cli,
             "profiling": profiling_cli}
 CHECKS = {
-    "kernels": {"parity", "streamed", "dispatch", "ring"},
-    "ingest": {"scan", "decode_parity", "cache", "ladder", "prefetch"},
+    "kernels": {"parity", "streamed", "dispatch", "ring", "contracts"},
+    "ingest": {"scan", "decode_parity", "cache", "ladder", "prefetch",
+               "contracts"},
     "continual": {"delta_plan", "refresh_parity", "refresh_no_retrace",
-                  "swap"},
+                  "swap", "contracts"},
     "game": {"streamed_mesh_parity", "blocked_ell_mesh_smoke",
-             "beyond_resident_smoke"},
+             "beyond_resident_smoke", "contracts"},
     "profiling": {"has_streamed_entries", "entries_have_static_estimates",
                   "utilization_in_unit_interval",
                   "measured_durations_positive", "compile_accounting",
-                  "ledger_off_is_free"},
+                  "ledger_off_is_free", "contracts"},
 }
 
 
@@ -61,22 +63,32 @@ def test_umbrella_runs_two_suites(capsys):
 
 def test_umbrella_names_the_pending_suites_and_never_counts_them(
         capsys, monkeypatch):
-    assert umbrella.PENDING == ("analysis", "lint", "threads")
+    # every suite of the reference's umbrella is ported: none is pending
+    assert umbrella.PENDING == ()
     ported = [name for name, _ in umbrella.SUITES]
-    assert len(ported) == 10 and not set(ported) & set(umbrella.PENDING)
-    for pending in umbrella.PENDING:
-        with pytest.raises(ValueError, match="not a ported suite"):
-            umbrella.run_selfcheck(only=[pending], device="cpu")
-    # a failing suite fails the run; the line names the pending suites
+    assert len(ported) == 13 == len(set(ported))
+    assert {"analysis", "lint", "threads"} <= set(ported)
+    with pytest.raises(ValueError, match="not a suite"):
+        umbrella.run_selfcheck(only=["no_such_suite"], device="cpu")
+    # a failing suite fails the run; the line names no pending suite
     monkeypatch.setattr(umbrella, "run_selfcheck", lambda **kw: {
         "kernels": {"rc": 1, "ok": False, "seconds": 0.1,
                     "detail": "no GPU is available"}})
     assert umbrella.main(["--selfcheck", "--only", "kernels"]) == 1
     line = capsys.readouterr().out
     assert "kernels=FAIL(rc=1)" in line and "0/1 ok" in line
-    assert "pending (ROADMAP queue A item 11.9, not run): analysis lint " \
-           "threads" in line
+    assert "pending" not in line
     assert umbrella.main(["--selfcheck", "--json", "--only", "kernels"]) == 1
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert not out["ok"] and out["pending"] == list(umbrella.PENDING)
-    assert not set(out["suites"]) & set(umbrella.PENDING)
+    assert not out["ok"] and out["pending"] == []
+
+
+def test_umbrella_runs_the_source_audits_without_a_device(capsys):
+    rc = umbrella.main(["--selfcheck", "--json", "--device", "cpu",
+                        "--jobs", "2", "--only", "lint", "threads"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["ok"] and out["pending"] == []
+    assert list(out["suites"]) == ["lint", "threads"]
+    for r in out["suites"].values():
+        detail = json.loads(r["detail"])
+        assert r["rc"] == 0 and detail["ok"] and detail["n_findings"] == 0
