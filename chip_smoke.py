@@ -368,9 +368,10 @@ GMM. GAME on the in-process MG_SLOTS-slot mesh (all slots on the one
    card), its legs inside the phases whose data they reuse: (a) after
    GM's scoring, GM's estimator and data with ``mesh=`` (the fixed shard
    row-sharded, every bucket's lanes split over the slots): sharding
-   seconds, a cold fit and a warm refit (row-sweeps/s), peak memory,
-   random-effect lock-step solves a sweep (at most 8x GM's), a profiled
-   warm sweep's idle share; held against GM's warm fit: the fixed effect
+   seconds, a profiled first sweep's idle share, then a warm refit
+   (row-sweeps/s; the cold fit before it cut for GV's time), peak memory,
+   random-effect lock-step solves a sweep (at most 8x GM's); held against
+   GM's warm fit: the fixed effect
    within atol 2e-3 (the reference's mesh bound) and the AUC on 2^18
    held-out rows within 1e-4, the entities apart beyond rtol 1e-5
    reported (§C16: every solve runs to the f32 floor), then both fits
@@ -496,6 +497,33 @@ HY. the hybrid layouts on T2's data (after MG): (a) `to_permuted_hybrid`
    once per slot and pass; (e) bench.py's 8-lane grid (S_GRID, G (a)'s
    settings) on (a)'s layout, rows*sum(iters)/s beside G's.
 
+GV. the sharded layouts' one-device global view and the tile tuner
+   (after HY, reusing MG's and HY's host layouts): (a) MG's 8-shard
+   bf16 `ShardedBlockedEllRows` of T2's rows moved whole onto the card
+   (no mesh): rows 2 and 4 on its first and last shards against their
+   plain versions; matvec, Xᵀr and (X∘X)ᵀr at 1 and 8 lanes against T2's
+   one-device layout given the same hot block (the device build sums a
+   cell's duplicates in f32, the host build in f64: the cells apart are
+   counted) (model space, within 1e-5 of the largest output),
+   the margins' max |err| against f64 on HY_SAMPLE rows beside one
+   device's; rows 2 and 4 launched once per shard and pass, no plan built
+   on a second call; a 5-iteration L-BFGS `train_glm` (counts reset just
+   before, read just after) within rtol 1e-5 of T2 (a)'s first 5
+   iterations, its coefficients within atol 1e-4 of T2's 5-iteration
+   model; rows·iters/s, a profiled solve's idle share, peak memory;
+   (b) HY (d)'s host `ShardedPermutedHybridRows` and `ShardedHybridRows`
+   moved onto the card: their passes (1 and 8 lanes) against HY (b)'s
+   one-device `HybridRows` (its per-row tail sums; the one-device
+   permuted layout's carry its whole tail's prefix-sum rounding, §C19),
+   5-iteration solves within rtol 1e-5 of HY (a)'s and (b)'s, row 4 once
+   per shard and pass (the hybrid none); (c)
+   `autotune_tiles` on T2's one-device layout into a temporary cache,
+   cold (candidates × keys measures, no hit) then warm after
+   `reset_memo` (no measure, every key a hit); both tiled forms bit for
+   bit at every candidate tile against the default; each key's device
+   time (CUDA events) at the default and at its winner; the tuned tiled
+   forms against the fused ones.
+
 AN. the hot-path contracts and the source auditor (last): (a) every
    contract of `photon_tpu_torch.analysis.registry` run twice in this
    process on the card under the recorder (`analysis.walker`), one line
@@ -529,7 +557,8 @@ processes, the rung after (c)'s swap — under ``gmm_launches``, and in
 TF's (a) armed solve, (b)'s fleet legs and kills under ``tf_launches``,
 and in TU's (b) tune and (e) bootstrap under ``tu_launches``, and in
 PF (a)'s first armed solve under ``pf_launches``, and in HY's solves and
-grid under ``hy_launches``, and in AN (a)'s contract runs under
+grid under ``hy_launches``, and in GV (a)'s and (b)'s solves under
+``gv_launches``, and in AN (a)'s contract runs under
 ``an_launches``; rows 4 and 5 carry HY's unrounded timings under
 ``hy_*``),
 the
@@ -675,6 +704,11 @@ PF_LAUNCHES: dict = {}
 HY_ITERS, HY_C_ROWS, HY_SAMPLE = 5, 1 << 19, 4096
 HY_LAUNCHES: dict = {}
 GRID_RATE: dict = {}
+# phase GV: the kernels' launches over its main paths ((a)'s and (b)'s
+# solves, each reset just before and read just after), and (c)'s repeats
+# of each candidate tile's timing
+GV_LAUNCHES: dict = {}
+GV_REPEATS = 3
 # phase MG: the in-process mesh's slots (T2's rows split eight ways), and
 # the iterations of (a)'s solve repeated across processes and of (b)'s
 # streamed L-BFGS
@@ -3177,7 +3211,8 @@ def phase_mesh(t2: dict, s_ref: dict, dev, gpu, setup) -> tuple:
     against the in-process mesh; NCCL legs with two cards or more.
     ``setup()`` (later phases' host data, nothing in it timed) runs in
     the wait for the umbrella. Returns the kernels' launches in (a)'s
-    main-path solve and what ``setup()`` returned."""
+    main-path solve and what ``setup()`` returned, with (a)'s host batch
+    under ``"sb"``."""
     import shutil
     import tempfile
 
@@ -3470,8 +3505,9 @@ def _phase_mesh(t2: dict, s_ref: dict, dev, gpu, selfcheck, t_phase: float,
             f"({(T_FEATURES + 1) * 4 * (n - 1):.6g} a value-and-gradient "
             f"reduction); launch + load + solve {l_s:.1f} s, beside PF "
             f"(c) and (b)'s layout build  [{gpu}]")
-    del sb, host
+    del host
     torch.cuda.empty_cache()
+    made["sb"] = sb  # GV (a) lays it on one card
     log(f"MG: {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
     return launches, made
 
@@ -4702,8 +4738,8 @@ def gmm_game(est, data, warm, warm_counters: dict, val, dev, gpu) -> None:
     """GMM (a): GM at full width on the MG_SLOTS-slot mesh — GM's
     estimator and data with ``mesh=``: the datasets sharded (the fixed
     shard row-sharded, every bucket's lanes split over the slots at
-    dispatch), a cold fit and a warm refit, peak memory, lock-step solves
-    a sweep against GM's, a profiled warm sweep; held against GM's warm
+    dispatch), a profiled first sweep and a warm refit, peak memory,
+    lock-step solves a sweep against GM's; held against GM's warm
     fit."""
     import torch
 
@@ -4727,8 +4763,13 @@ def gmm_game(est, data, warm, warm_counters: dict, val, dev, gpu) -> None:
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    # a profiled one-sweep fit first (cut from a whole cold fit for GV's
+    # time): it takes the mesh fit's first-call work, so the timed fit
+    # after it is warm
+    est1 = dataclasses.replace(est_m, n_sweeps=1)
+    est1._caches = est_m._caches
+    busy, wall, n_ops, top = profiled_busy(lambda: est1.fit(data))
     K.reset_launch_counts()
-    cold, cold_s = fit_timed(est_m, data)
     telemetry.reset()
     warm_m, warm_s = fit_timed(est_m, data)
     c = telemetry.snapshot()["counters"]
@@ -4736,9 +4777,6 @@ def gmm_game(est, data, warm, warm_counters: dict, val, dev, gpu) -> None:
     gmm_count(launches)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     sweeps, n = est.n_sweeps, data.n
-    np.testing.assert_allclose(cold.descent.objective_history,
-                               warm_m.descent.objective_history, rtol=1e-5,
-                               err_msg="GMM (a) cold vs warm fit")
     lock_m = c.get("game_re.lockstep_solves", 0) / sweeps
     lock_1 = warm_counters.get("game_re.lockstep_solves", 0) / sweeps
     if not 0 < lock_m <= MG_SLOTS * lock_1:
@@ -4748,8 +4786,8 @@ def gmm_game(est, data, warm, warm_counters: dict, val, dev, gpu) -> None:
                      model_auc(warm.model, val), model_auc(warm_m.model, val))
     log(f"GMM (a): GM on a {MG_SLOTS}-slot mesh (slots on "
         f"{sorted({str(d) for d in mesh.slot_devices})}): the fixed shard "
-        f"sharded in {build_s:.2f} s (GM's buckets reused); cold fit "
-        f"{cold_s:.3f} s, warm refit {warm_s:.3f} s: "
+        f"sharded in {build_s:.2f} s (GM's buckets reused); warm refit "
+        f"{warm_s:.3f} s (after the profiled sweep below): "
         f"{n * sweeps / warm_s:.6g} row-sweeps/s; peak "
         f"device memory {peak_gb:.3f} GB ({base / 1e9:.3f} GB held before "
         f"the fits); random-effect lock-step solves a sweep {lock_m:g} "
@@ -4761,10 +4799,8 @@ def gmm_game(est, data, warm, warm_counters: dict, val, dev, gpu) -> None:
         + ", ".join(f"{v:.8g}" for v in warm_m.descent.objective_history)
         + "; against GM's warm fit (" + ", ".join(
             f"{v:.8g}" for v in warm.descent.objective_history) + ")")
-    est1 = dataclasses.replace(est_m, n_sweeps=1)
-    est1._caches = est_m._caches
-    busy, wall, n_ops, top = profiled_busy(lambda: est1.fit(data))
-    log("GMM (a): profiled warm sweep: device busy "
+    log("GMM (a): profiled first sweep (before the timed refit): device "
+        "busy "
         + ("not measured" if busy is None else
            f"{busy:.3f} s of {wall:.3f} s wall ({busy / wall:.3f} busy, "
            f"{1 - busy / wall:.3f} idle)")
@@ -4792,7 +4828,7 @@ def gmm_game(est, data, warm, warm_counters: dict, val, dev, gpu) -> None:
     log(f"GMM (a): every solve stopped at a relative progress of "
         f"{RE_CHECK_TOL:g}: one device {fits[0][1]:.3f} s, the mesh "
         f"{fits[1][1]:.3f} s; held at GMM's bounds: {held}  [{gpu}]")
-    del est_m, est1, cold, warm_m, fits
+    del est_m, est1, warm_m, fits
     torch.cuda.empty_cache()
 
 
@@ -6893,11 +6929,13 @@ def passes_repeat(X, w, r, label: str, calls: int = 5) -> None:
                                      "calls")
 
 
-def phase_hybrid(t2: dict, dev, gpu) -> None:
+def phase_hybrid(t2: dict, dev, gpu) -> dict:
     """HY: the hybrid and permuted-hybrid layouts on T2's data, (a)-(e).
     (a)'s and (b)'s layouts are built first; the sharded permuted layout
     of (d) is then built on the host in a thread beside (a)-(c)'s checks,
-    and every timing but the builds' is taken after it has ended."""
+    and every timing but the builds' is taken after it has ended. Returns
+    what GV (b) reuses: (d)'s two sharded batches with their tails on the
+    host, (a)'s and (b)'s batches and their 5-iteration histories."""
     import torch
 
     from photon_tpu_torch.data import matrix as M
@@ -6931,13 +6969,13 @@ def phase_hybrid(t2: dict, dev, gpu) -> None:
     th = threading.Thread(target=build_sp)
     th.start()
     try:
-        _phase_hybrid(t2, dev, gpu, builds, th, built)
+        return _phase_hybrid(t2, dev, gpu, builds, th, built)
     finally:
         th.join()
 
 
 def _phase_hybrid(t2: dict, dev, gpu, builds: list, th,
-                  built: dict) -> None:
+                  built: dict) -> dict:
     import torch
 
     from photon_tpu_torch import kernels as K
@@ -7160,13 +7198,13 @@ def _phase_hybrid(t2: dict, dev, gpu, builds: list, th,
         f"{occ_s / occ:.2f}x, every slot carrying all {U} bucket columns; "
         f"the whole layout {layout_gb(sp.X):.3f} GB  [{gpu}]")
     mesh = make_mesh(n_devices=S)
+    sh = GLMBatch(M.shard_hybrid(H, S), bh.y, bh.weights, bh.offsets)
     t0 = time.perf_counter()
     mb_p = mesh_batch(sp, mesh)
-    mb_h = mesh_batch(GLMBatch(M.shard_hybrid(H, S), bh.y, bh.weights,
-                               bh.offsets), mesh)
+    mb_h = mesh_batch(sh, mesh)
     torch.cuda.synchronize()
     up_s = time.perf_counter() - t0
-    del sp, built["sp"]
+    del built["sp"]
     err_d = 0.0
     for part in mb_p.X.parts:
         n_l = int(part.shape[0])
@@ -7207,7 +7245,8 @@ def _phase_hybrid(t2: dict, dev, gpu, builds: list, th,
                     f"{lc or 'none'}, history within {g:.3g} of one "
                     f"device's" for k, (w, lc, g) in out.items())
         + f"  [{gpu}]")
-    del mb_p, mb_h, H, bh
+    reuse = dict(sp=sp, sh=sh, bp=bp, bh=bh, ha=ha, hb=res_b.history())
+    del mb_p, mb_h, H, bh, sp, sh
     torch.cuda.empty_cache()
 
     # (e) bench.py's 8-lane grid on (a)'s layout
@@ -7234,6 +7273,381 @@ def _phase_hybrid(t2: dict, dev, gpu, builds: list, th,
         f"{res_g.trials}; launches {lg}  [{gpu}]")
     del res_g, bp, P
     torch.cuda.empty_cache()
+    return reuse
+
+
+# ------------------------------------ phase GV: the sharded global view
+def gv_count(launches: dict) -> None:
+    for name, c in launches.items():
+        GV_LAUNCHES[name] = GV_LAUNCHES.get(name, 0) + c
+
+
+def gv_passes_agree(S, O, gen, label: str) -> float:
+    """matvec, Xᵀr and (X∘X)ᵀr of a sharded layout ``S`` on the card (its
+    global view) against the one-device layout ``O`` of the same rows, in
+    model space (each through its own permutation, where it has one), 1
+    and 8 lanes: raise unless within rtol 1e-5 plus 1e-5 of the largest
+    output (HY (b)'s bound; a hybrid's matvec also within 8 f32 ulps of
+    either side's largest flat-tail prefix sum, `prefix`); returns the
+    largest gap over the largest output."""
+    import torch
+
+    from photon_tpu_torch.data import matrix as M
+
+    def into(X, v):
+        return X.from_model_space(v) if hasattr(X, "perm_cols") else v
+
+    def out_of(X, g):
+        return X.to_model_space(g) if hasattr(X, "perm_cols") else g
+
+    def prefix(X, v) -> float:
+        """The largest |prefix sum| of a flat tail's products: its row
+        sums are differences of one prefix sum (the reference's recipe,
+        §C19), each rounded at that magnitude; 0 for a blocked-ELL
+        layout."""
+        if isinstance(X, M.ShardedPermutedHybridRows):
+            parts = [(P.tail_vals, P.tail_pcols) for P in X.shards()]
+        elif isinstance(X, M.ShardedHybridRows):
+            G = X.global_tail()
+            parts = [(G.tail_vals, G.tail_cols)]
+        elif isinstance(X, M.HybridRows):
+            parts = [(X.tail_vals, X.tail_cols)]
+        elif isinstance(X, M.PermutedHybridRows):
+            parts = [(X.tail_vals, X.tail_pcols)]
+        else:
+            return 0.0
+        return max(float(M.prefix_sum(M._gather_product(t, v, c)).abs()
+                         .max()) for t, c in parts)
+
+    n, d = S.shape
+    dev = S.dense.device
+    worst = 0.0
+    for lanes in (1, 8):
+        sh = () if lanes == 1 else (lanes,)
+        w = torch.randn((d,) + sh, generator=gen, device=dev) * 0.01
+        r = torch.randn((n,) + sh, generator=gen, device=dev)
+        # a flat tail's matvec: 8 f32 ulps of either side's largest prefix
+        extra = 8 * 2.0 ** -23 * max(prefix(S, into(S, w)),
+                                     prefix(O, into(O, w)))
+        for name, got, want in (
+                ("matvec", M.matvec(S, into(S, w)), M.matvec(O, into(O, w))),
+                ("Xᵀr", out_of(S, M.rmatvec(S, r)),
+                 out_of(O, M.rmatvec(O, r))),
+                ("(X∘X)ᵀr", out_of(S, M.sq_rmatvec(S, r)),
+                 out_of(O, M.sq_rmatvec(O, r)))):
+            diff, scale = (got - want).abs(), want.abs().max()
+            tol = 1e-5 * (want.abs() + scale) + (extra if name == "matvec"
+                                                 else 0.0)
+            if bool((diff > tol).any()):
+                raise AssertionError(
+                    f"{label}: the {name} at {lanes} lane(s) is "
+                    f"{float(diff.max() / scale):.3g} of the largest output "
+                    "off one device's")
+            worst = max(worst, float(diff.max() / scale))
+    return worst
+
+
+def gv_one_device(S, O, label: str) -> tuple:
+    """(``O`` with ``S``'s hot block, the cells where the two hot blocks
+    differ): the one-device layout the global view's passes are held
+    against. Both builders pick the same hot columns in the same order,
+    but the device build sums a cell's duplicate entries in f32 (an
+    atomic add) where the host build sums them in f64, so a few cells of
+    the bf16 blocks sit a bf16 ulp apart — a storage difference, not a
+    pass's."""
+    import torch
+
+    def hot(X):
+        return (X.perm_cols[:int(X.dense.shape[1])]
+                if hasattr(X, "perm_cols") else X.dense_cols)
+
+    if not torch.equal(hot(S).to(O.dense.device), hot(O)):
+        raise AssertionError(f"{label}: the hot columns differ")
+    apart = int((S.dense != O.dense).sum())
+    return dataclasses.replace(O, dense=S.dense), apart
+
+
+def phase_global_view(t2: dict, sb, hy: dict, dev, gpu) -> None:
+    """GV: (a) MG's host `ShardedBlockedEllRows` batch ``sb`` moved onto
+    the card whole, against T2's one-device layout and solve; (b) HY
+    (d)'s host sharded hybrids ``hy`` against HY (a)'s and (b)'s; (c) the
+    tile tuner on T2's one-device layout."""
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch.data import matrix as M
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.optim.config import OptimizerConfig
+    from photon_tpu_torch.optim.regularization import l2
+
+    t_phase = time.perf_counter()
+    ind, va, _ = t2["coo"]
+    rows = int(ind.shape[0])
+    O = t2["batch"].X
+    gen = torch.Generator(device=dev).manual_seed(47)
+    sample = np.sort(np.random.default_rng(47).choice(rows, HY_SAMPLE,
+                                                      replace=False))
+    cfg = OptimizerConfig(max_iters=T_SHORT, tolerance=0.0, reg=l2(),
+                          reg_weight=T_REG, history=T_HISTORY)
+
+    # (a) T2's 8-shard blocked-ELL layout on one card
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    gb = sb.to(dev)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    X = gb.X
+    S = X.n_shards
+    O, apart = gv_one_device(X, O, "GV (a)")
+    t0 = time.perf_counter()
+    shards = X.shards()
+    views_s = time.perf_counter() - t0
+    err = 0.0
+    for j in (0, S - 1):
+        _, _, e = shard_kernels_agree(shards[j], gen, f"GV (a) shard {j}",
+                                      square=(False, True))
+        err = max(err, e)
+    wm = torch.from_numpy(t2["w40_model"]).to(dev)
+    r1 = torch.randn(rows, generator=gen, device=dev)
+    counts = []
+    for _ in range(2):
+        K.reset_launch_counts()
+        builds = K.plan_builds()
+        z = M.matvec(X, X.from_model_space(wm))
+        M.rmatvec(X, r1)
+        counts.append((K.launch_counts(), K.plan_builds() - builds))
+    (_, b_first), (second, b_second) = counts
+    if second != {KB.TAIL: S, KB.RMATVEC: S} or b_second:
+        raise AssertionError(f"GV (a): a second pass launched {second} and "
+                             f"built {b_second} plan(s)")
+    ex, sc = exact_margins(ind, va, t2["w40_model"], sample)
+    z_o = M.matvec(O, O.from_model_space(wm)).cpu().numpy()[sample]
+    z_s = z.cpu().numpy()[sample]
+    e_s, e_o = (float((np.abs(v - ex) / np.maximum(sc, 1e-30)).max())
+                for v in (z_s, z_o))
+    gap = gv_passes_agree(X, O, gen, "GV (a)")
+    log(f"GV (a): MG's {S}-shard ShardedBlockedEllRows (bf16, "
+        f"{layout_gb(X):.3f} GB) moved onto the card whole in {up_s:.2f} s, "
+        f"its shard views (inverse maps) in {views_s:.2f} s; rows 2 and 4 "
+        f"on shards 0 and {S - 1} (1 and 8 lanes, (X∘X)ᵀr too) against "
+        f"their plain versions within rtol=atol=1e-5 (max |err| "
+        f"{err:.3g}); a pass launches {second} (the first built "
+        f"{b_first} plan(s), the second {b_second}); matvec, Xᵀr and "
+        f"(X∘X)ᵀr (1 and 8 lanes) within {gap:.3g} of the largest output "
+        f"of T2's one-device layout's (its tails, this hot block: the two "
+        f"builds' bf16 hot blocks differ in {apart} cells, a duplicate "
+        f"entry summed in f32 on the card and in f64 on the host); T2 "
+        f"(a)'s 40th model's margins on "
+        f"{HY_SAMPLE} rows against f64: {e_s:.3g} of the row's sum of "
+        f"|terms| (one device {e_o:.3g})  [{gpu}]")
+    if abs(e_s - e_o) > 1e-5:
+        raise AssertionError(f"GV (a): margins {e_s:.3g} from f64 against "
+                             f"one device's {e_o:.3g}")
+    # the main path: counts reset just before, read just after
+    layout_peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    model, res, wall = solve_timed(gb, cfg, dev)
+    la = K.launch_counts()
+    gv_count(la)
+    if set(la) != {KB.TAIL, KB.RMATVEC} or la[KB.TAIL] % S \
+            or la[KB.RMATVEC] % S:
+        raise AssertionError(f"GV (a): the solve launched {la}, not rows 2 "
+                             f"and 4 once per shard and pass")
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+    gap5 = histories_agree("GV (a) vs T2 (a), first iterations",
+                           t2["hist_a"][:T_SHORT + 1], res.history())
+    w5 = model.coefficients.means.cpu().numpy()
+    dw5 = float(np.abs(w5 - t2["w5_model"]).max())
+    np.testing.assert_allclose(w5, t2["w5_model"], atol=1e-4,
+                               err_msg="GV (a) coefficients vs T2")
+    busy, n_ops, top, pwall, _, _ = solve_profile(gb, cfg, dev)
+    log(f"GV (a): {T_SHORT}-iteration L-BFGS train_glm (no mesh) in "
+        f"{wall:.3f} s: {rows * T_SHORT / wall:.6g} rows*iters/s; launches "
+        f"{la}; history within {gap5:.3g} of T2 (a)'s first {T_SHORT} "
+        f"iterations, coefficients max |dw| {dw5:.4g} from T2's "
+        f"{T_SHORT}-iteration model; peak device memory {peak:.3f} GB over "
+        f"the solve, above the {(held - base) / 1e9:.3f} GB held (the "
+        f"layout and the passes' inputs; {layout_peak:.3f} GB at the "
+        f"passes' peak); profiled solve: "
+        + ("device busy not measured" if busy is None else
+           f"{busy / pwall:.3f} busy, {1 - busy / pwall:.3f} idle of "
+           f"{pwall * 1e3:.1f} ms")
+        + f", {n_ops} device ops; most device time: "
+        + "; ".join(f"{name[:50]} {us / 1e3:.3f} ms" for name, us in top)
+        + f"  [{gpu}]")
+    del gb, X, shards, model, z
+    torch.cuda.empty_cache()
+
+    # (b) HY (d)'s sharded hybrids on one card
+    # both held against the one-device HybridRows: its tail sums per row
+    # by sorted segments, where the one-device PermutedHybridRows' row sums
+    # carry its whole flat tail's prefix-sum rounding (§C19; HY (b) holds
+    # the two one-device layouts within 1e-5 of each other)
+    out = []
+    for label, hb, one, h_one in (
+            ("ShardedPermutedHybridRows", hy["sp"], hy["bh"].X, hy["ha"]),
+            ("ShardedHybridRows", hy["sh"], hy["bh"].X, hy["hb"])):
+        t0 = time.perf_counter()
+        b = hb.to(dev)
+        torch.cuda.synchronize()
+        up = time.perf_counter() - t0
+        one, apart = gv_one_device(b.X, one, f"GV (b) {label}")
+        gap_p = gv_passes_agree(b.X, one, gen, f"GV (b) {label}")
+        K.reset_launch_counts()
+        _, res_b, wall_b = solve_timed(b, cfg, dev)
+        lc = K.launch_counts()
+        gv_count(lc)
+        gap_h = histories_agree(f"GV (b) {label} vs one device", h_one,
+                                res_b.history())
+        want = ({KB.RMATVEC} if label.startswith("ShardedPermuted")
+                else set())
+        if set(lc) != want or any(c % S for c in lc.values()):
+            raise AssertionError(f"GV (b) {label}: the solve launched {lc}")
+        out.append(f"{label}: moved onto the card in {up:.2f} s, passes "
+                   f"(1 and 8 lanes) within {gap_p:.3g} of the one-device "
+                   f"HybridRows' (this hot block; {apart} cells of the two "
+                   f"apart), "
+                   f"{T_SHORT} iterations in {wall_b:.3f} s "
+                   f"({rows * T_SHORT / wall_b:.6g} rows*iters/s), "
+                   f"launches {lc or 'none'}, history within {gap_h:.3g} "
+                   "of one device's")
+        del b
+        torch.cuda.empty_cache()
+    log("GV (b): " + "; ".join(out) + f"  [{gpu}]")
+
+    # (c) the tile tuner on T2's one-device layout
+    gv_tiles(O, t2["w"], dev, gpu)
+    log(f"GV: {time.perf_counter() - t_phase:.1f} s  [{gpu}]")
+
+
+def gv_tiles(X, w, dev, gpu) -> None:
+    """GV (c): `autotune_tiles` cold into a temporary cache, then warm; the
+    tiled forms bit for bit at every candidate tile; each key's device
+    time at the default and at its winner; the tuned tiled forms against
+    the fused ones."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from photon_tpu_torch.tuning import tile_tuner as TT
+
+    n = int(X.shape[0])
+    r = torch.from_numpy(np.random.default_rng(49).uniform(
+        -1, 1, size=n).astype(np.float32)).to(dev)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cache = tempfile.mkdtemp(prefix="_drv_gv", dir=here)
+    try:
+        _gv_tiles(X, w, r, cache, dev, gpu)
+    finally:
+        TT.reset_memo()
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def _gv_tiles(X, w, r, cache: str, dev, gpu) -> None:
+    import torch
+
+    from photon_tpu_torch import kernels as K
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.kernels import blocked_ell as KB
+    from photon_tpu_torch.tuning import tile_tuner as TT
+
+    tuned = []
+    for _ in range(2):  # cold, then warm from the file
+        TT.reset_memo()
+        telemetry.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        won = TT.autotune_tiles(X, w, r, cache_dir=cache,
+                                repeats=GV_REPEATS)
+        c = telemetry.snapshot()["counters"]
+        tuned.append((won, time.perf_counter() - t0,
+                      int(c.get("kernels.tile_measures", 0)),
+                      int(c.get("kernels.tile_cache_hits", 0))))
+    (won, cold_s, m_cold, h_cold), (warm, warm_s, m_warm, h_warm) = tuned
+    keys = len(won)
+    if (m_cold, h_cold) != (len(TT.CANDIDATE_TILES) * keys, 0) or \
+            warm != won or (m_warm, h_warm) != (0, keys):
+        raise AssertionError(f"GV (c): cold {m_cold} measures, {h_cold} "
+                             f"hits; warm {m_warm}, {h_warm}; {keys} keys")
+    log(f"GV (c): autotune_tiles on T2's layout ({keys} keys, candidates "
+        f"{TT.CANDIDATE_TILES}, best of {GV_REPEATS}): cold {cold_s:.2f} s, "
+        f"{m_cold} measures and no hit; warm after reset_memo {warm_s:.3f} "
+        f"s, no measure and {h_warm} hits; winners {won}  [{gpu}]")
+
+    def forms():
+        return (KB.tail_matvec_tiled(X, w), KB.bucket_rmatvec_tiled(X, r))
+
+    with K.scope("on"):
+        TT.reset_memo()
+        default = forms()
+        fused = (KB.tail_matvec(X, w), KB.bucket_rmatvec(X, r))
+        if not all(torch.equal(a, b) for a, b in zip(default, fused)):
+            raise AssertionError("GV (c): the tiled forms at the default "
+                                 "tile differ from the fused forms")
+        for tile in TT.CANDIDATE_TILES:
+            os.environ[K.ENV_TILE] = str(tile)
+            try:
+                got = forms()
+            finally:
+                os.environ.pop(K.ENV_TILE)
+            if not all(torch.equal(a, b) for a, b in zip(got, default)):
+                raise AssertionError(f"GV (c): tile {tile} changed the bits")
+        # each key's launch at the default tile and at its winner, in
+        # turns (default, winner, winner, default): the tiled form makes
+        # one launch per bucket, in bucket order
+        per_key = {}
+        for kind, fn, symbol, buckets in (
+                ("tail_matvec", lambda: KB.tail_matvec_tiled(X, w),
+                 "bell_tail_matvec_kernel", X.ell_vals),
+                ("bucket_rmatvec", lambda: KB.bucket_rmatvec_tiled(X, r),
+                 "bell_bucket_rmatvec_kernel", X.bucket_vals)):
+            widths = [int(v.shape[1]) for v in buckets]
+            runs = {"default": [], "winner": []}
+            for side in ("default", "winner", "winner", "default"):
+                TT.reset_memo()
+                if side == "winner":  # the winners back, from the file
+                    TT.autotune_tiles(X, w, r, cache_dir=cache)
+                runs[side].append(launch_us(fn, symbol, len(widths), n=3))
+            at = {side: (np.mean(v, axis=0) if all(len(x) for x in v)
+                         else None) for side, v in runs.items()}
+            for i, width in enumerate(widths):
+                key = f"{kind}:{width}"
+                t = KB.clamp_tile(kind, width, won[key])
+                per_key[key] = (t, t == KB.max_tile(kind, width),
+                                *(None if at[side] is None
+                                  else float(at[side][i])
+                                  for side in ("default", "winner")))
+        ms = {}
+        for label, fn in (
+                ("tail tuned", lambda: KB.tail_matvec_tiled(X, w)),
+                ("tail fused", lambda: KB.tail_matvec(X, w)),
+                ("rmatvec tuned", lambda: KB.bucket_rmatvec_tiled(X, r)),
+                ("rmatvec fused", lambda: KB.bucket_rmatvec(X, r))):
+            ms[label] = events_ms(fn, cold=False)
+        TT.reset_memo()  # the untuned tiled forms, in the same call
+        ms["tail default"] = events_ms(lambda: KB.tail_matvec_tiled(X, w),
+                                       cold=False)
+        ms["rmatvec default"] = events_ms(
+            lambda: KB.bucket_rmatvec_tiled(X, r), cold=False)
+
+    def us(v):
+        return "not measured" if v is None else f"{v:.2f}"
+
+    log("GV (c): every candidate tile gives the tiled forms' bits at the "
+        "default (itself the fused forms' bits); per key (winner tile, "
+        "clamped to one block's item — '=' where that is the default's —, "
+        "device us at the default tile, at the winner, each the mean of two "
+        "profiles taken in turns): "
+        + "; ".join(f"{k} T{t}{'=' if same else ''} {us(a)} -> {us(b)}"
+                    for k, (t, same, a, b) in per_key.items())
+        + "; device ms a call (events, warm L2): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f"  [{gpu}]")
 
 
 # ------------------------------------------------ phase CK: elastic runs
@@ -8866,7 +9280,7 @@ def main() -> int:
     phase_tu_lanes(args, state, dev, gpu)
     lap("TU (b), (e)")
     t2 = {k: state[k] for k in ("coo", "hist_a", "w5_model", "owlqn",
-                                "solve_peak", "w40_model")}
+                                "solve_peak", "w40_model", "batch", "w")}
     del state
     torch.cuda.empty_cache()
     s_launches, s_ref = phase_streamed(args, t2, dev, gpu)
@@ -8874,10 +9288,13 @@ def main() -> int:
     lap("S (c)")
     mg, made = phase_mesh(t2, s_ref, dev, gpu, lambda: later_setup(args))
     lap("MG")
-    phase_hybrid(t2, dev, gpu)
-    del t2
+    hy = phase_hybrid(t2, dev, gpu)
     torch.cuda.empty_cache()
     lap("HY")
+    phase_global_view(t2, made.pop("sb"), hy, dev, gpu)
+    del t2, hy
+    torch.cuda.empty_cache()
+    lap("GV")
     state = phase_dense_owlqn(args, dev, gpu)
     phase_dense_tron(state, dev, gpu)
     phase_dense_grid(state, dev, gpu)
@@ -8926,6 +9343,7 @@ def main() -> int:
         entry["tu_launches"] = TU_LAUNCHES.get(entry["name"], 0)
         entry["pf_launches"] = PF_LAUNCHES.get(entry["name"], 0)
         entry["hy_launches"] = HY_LAUNCHES.get(entry["name"], 0)
+        entry["gv_launches"] = GV_LAUNCHES.get(entry["name"], 0)
         entry["an_launches"] = AN_LAUNCHES.get(entry["name"], 0)
         entry.update(HY_TIMES.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,7 +15,7 @@ Conventions:
 - every TPU kernel on a ported path is a hand-written Hopper kernel under
   `kernels/`, with its plain PyTorch version beside it.
 
-Ported so far (slices 1–21): the GAME serving path (store →
+Ported so far (slices 1–22): the GAME serving path (store →
 int8/bf16/f32 program ladder → micro-batching dispatcher), with the int8
 rung as a CUDA kernel, and the replica fleet; single-device GLM training
 (`models.training.train_glm`: L-BFGS, OWL-QN, TRON; priors,
@@ -38,5 +38,26 @@ Bayesian and lane-batched tuning (`tuning`) and the model diagnostics
 CLIs and the umbrella ``python -m photon_tpu_torch --selfcheck``; and
 the source auditor with its thread model (``python -m
 photon_tpu_torch.lint [--threads]``) and the hot paths' run-time
-contracts (``python -m photon_tpu_torch.analysis``).
+contracts (``python -m photon_tpu_torch.analysis``); the sharded
+layouts' one-device global view, the tiled kernels' work-item tile
+autotuner (`tuning.tile_tuner`); and the reference's package facades:
+this one re-exports `OptimizerConfig`, `OptimizerType`,
+`RegularizationContext`, `RegularizationType` and `TaskType`, `game` and
+`utils` theirs.
 """
+
+__version__ = "0.1.0"
+
+from photon_tpu_torch.ops.losses import TaskType  # noqa: E402
+from photon_tpu_torch.optim.config import (  # noqa: E402
+    OptimizerConfig, OptimizerType)
+from photon_tpu_torch.optim.regularization import (  # noqa: E402
+    RegularizationContext, RegularizationType)
+
+__all__ = [
+    "OptimizerConfig",
+    "OptimizerType",
+    "RegularizationContext",
+    "RegularizationType",
+    "TaskType",
+]

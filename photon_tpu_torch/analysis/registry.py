@@ -10,15 +10,15 @@ The reference's 51 contracts, each ported next to the port module it
 pins (`module:line` of its registration):
 
 - ``blocked_ell_kernel_no_retrace``:
-  kernels/blocked_ell.py:678 (reference kernels/blocked_ell.py:489)
+  kernels/blocked_ell.py:773 (reference kernels/blocked_ell.py:489)
 - ``blocked_ell_kernel_x_passes``:
-  kernels/blocked_ell.py:656 (reference kernels/blocked_ell.py:463)
+  kernels/blocked_ell.py:751 (reference kernels/blocked_ell.py:463)
 - ``blocked_ell_lane_x_passes``:
-  data/matrix.py:1964 (reference data/matrix.py:1955)
+  data/matrix.py:2159 (reference data/matrix.py:1955)
 - ``blocked_ell_tiled_x_passes``:
-  kernels/blocked_ell.py:713 (reference kernels/blocked_ell.py:531)
+  kernels/blocked_ell.py:808 (reference kernels/blocked_ell.py:531)
 - ``blocked_ell_x_passes``:
-  data/matrix.py:1946 (reference data/matrix.py:1935)
+  data/matrix.py:2141 (reference data/matrix.py:1935)
 - ``checkpoint_off_is_free``:
   checkpoint/taps.py:141 (reference checkpoint/taps.py:140)
 - ``checkpoint_off_tron_free``:
@@ -40,7 +40,7 @@ pins (`module:line` of its registration):
 - ``game_re_vmapped_solve``:
   game/random_effect.py:809 (reference game/random_effect.py:742)
 - ``game_score_stream_chunk``:
-  game/scoring.py:202 (reference game/scoring.py:171)
+  game/scoring.py:208 (reference game/scoring.py:171)
 - ``game_streamed_fixed_evaluation``:
   game/coordinate_descent.py:426 (reference game/coordinate_descent.py:623)
 - ``grouped_auc_scatter_free``:
@@ -60,9 +60,9 @@ pins (`module:line` of its registration):
 - ``multihost_grad_only_dcn``:
   parallel/mesh.py:762 (reference parallel/mesh.py:470)
 - ``resident_grid_lanes``:
-  models/training.py:821 (reference models/training.py:1084)
+  models/training.py:825 (reference models/training.py:1084)
 - ``resident_lbfgs_solve``:
-  models/training.py:802 (reference models/training.py:1066)
+  models/training.py:806 (reference models/training.py:1066)
 - ``resident_linesearch_trial``:
   ops/objective.py:484 (reference ops/objective.py:531)
 - ``resident_value_and_grad``:
@@ -74,9 +74,9 @@ pins (`module:line` of its registration):
 - ``serving_fleet_request_path``:
   serving/fleet.py:353 (reference serving/fleet.py:346)
 - ``serving_kernel_fused_rung``:
-  kernels/serving.py:284 (reference kernels/serving.py:169)
+  kernels/serving.py:288 (reference kernels/serving.py:169)
 - ``serving_kernel_mode_invariance``:
-  kernels/serving.py:304 (reference kernels/serving.py:195)
+  kernels/serving.py:308 (reference kernels/serving.py:195)
 - ``serving_quantized_rung_invariance``:
   serving/programs.py:364 (reference serving/programs.py:461)
 - ``serving_request_margin``:
@@ -86,13 +86,13 @@ pins (`module:line` of its registration):
 - ``serving_trace_off_is_free``:
   telemetry/trace.py:335 (reference telemetry/trace.py:335)
 - ``sharded_blocked_ell_value_and_grad``:
-  models/training.py:917 (reference models/training.py:1193)
+  models/training.py:921 (reference models/training.py:1193)
 - ``sharded_hybrid_value_and_grad``:
-  models/training.py:876 (reference models/training.py:1118)
+  models/training.py:880 (reference models/training.py:1118)
 - ``sharded_permuted_grid_lanes``:
-  models/training.py:896 (reference models/training.py:1164)
+  models/training.py:900 (reference models/training.py:1164)
 - ``sharded_permuted_value_and_grad``:
-  models/training.py:885 (reference models/training.py:1140)
+  models/training.py:889 (reference models/training.py:1140)
 - ``streamed_blocked_ell_chunk_partials``:
   ops/objective.py:441 (reference ops/objective.py:482)
 - ``streamed_chunk_init``:

@@ -73,8 +73,9 @@ def _f32(a, device) -> torch.Tensor:
 def make_batch(X, y, weights=None, offsets=None, device=None) -> GLMBatch:
     """A batch on ``device`` (default ``cuda``). A dense X from numpy
     arrives as f32; a floating tensor keeps its storage dtype; layouts
-    move as they are; a sharded layout stays a host container (the mesh
-    solve lays it out, `mesh_batch`). A row-sharded X (`SlotRows`, e.g.
+    move as they are; a sharded layout stays a host container (a mesh
+    solve lays it out, `mesh_batch`; a solve without a mesh moves it
+    whole to its device, `GLMBatch.to`). A row-sharded X (`SlotRows`, e.g.
     from `stream_to_device(mesh=...)`) stays on its mesh, and takes its
     columns row-sharded over the same mesh — the weights given (only the
     producer knows which rows are padding), the offsets zero by

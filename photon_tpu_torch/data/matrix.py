@@ -8,14 +8,19 @@ of `photon_tpu/data/matrix.py`).
   tail as power-of-two-width ELL row buckets (matvec) and occurrence
   buckets (rmatvec), in a permuted column space;
 - `ShardedBlockedEllRows`: the same laid for S row shards under one
-  global permutation, on the host — what a streamed chunk ladder is cut
-  from (`shard_blocked_ell`, one `BlockedEllRows` chunk per shard);
+  global permutation, built on the host — what a streamed chunk ladder is
+  cut from (`shard_blocked_ell`, one `BlockedEllRows` chunk per shard);
 - `HybridRows`: the hot columns dense, the cold tail flat row-sorted COO
   in original column ids; `PermutedHybridRows`: the hot block plus a flat
   row-major tail (matvec) and the occurrence buckets (rmatvec) in the
   permuted space of `BlockedEllRows`; `ShardedHybridRows` and
   `ShardedPermutedHybridRows`: both laid for S row shards on the host,
   reaching a mesh one shard per slot (`local`);
+- every sharded layout also has a one-device GLOBAL view: moved to one
+  device (`to`), the X passes run on all its rows, shard by shard —
+  the hot block as one product, each shard's tail through that shard's
+  own layout (a blocked-ELL shard's rows 2 and 4 once per shard), the
+  Xᵀr's shard partials summed in shard order;
 - `EntityBlocks`: a random effect's bucket of E entities' padded rows,
   lane-minor, whose lane passes multiply each lane by its own rows.
 
@@ -431,7 +436,14 @@ class ShardedBlockedEllRows:
     the form a streamed chunk ladder is cut from (`chunk`,
     `data.dataset.chunk_blocked_ell`), and a mesh's: shard ``j`` goes to
     slot ``j`` as its own `BlockedEllRows` (`data.dataset.mesh_batch`,
-    `mesh_chunk_matrix`)."""
+    `mesh_chunk_matrix`).
+
+    Moved to one device (`to`), it is also the reference's global view:
+    the X passes run on all n rows with the hot block as one product and
+    each shard's tail through its own `BlockedEllRows` (`shards`, built
+    with their inverse maps on the first pass and kept, so the kernels'
+    plans are built once per shard). Solver vectors live in the permuted
+    space, as `BlockedEllRows`'."""
 
     dense: torch.Tensor        # (n, d_sel) hot block, global rows
     ell_pcols: tuple           # per width bucket: (S, r_b, W_b) int32
@@ -445,6 +457,9 @@ class ShardedBlockedEllRows:
     n_prefix: int
     last_col_pos: int
     tail_nnz: int
+    # the per-shard views of the global view (`shards`), built once
+    views: object = dataclasses.field(default=None, init=False,
+                                      compare=False, repr=False)
 
     @property
     def n_shards(self) -> int:
@@ -455,18 +470,36 @@ class ShardedBlockedEllRows:
         return (self.dense.shape[0], self.n_features)
 
     @property
+    def d_sel(self) -> int:
+        return int(self.dense.shape[1])
+
+    @property
     def n_local(self) -> int:
         return int(self.row_pos.shape[1])
 
+    def from_model_space(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.index_select(v, 0, self.perm_cols.to(v.device))
+
+    def to_model_space(self, w: torch.Tensor) -> torch.Tensor:
+        return torch.index_select(w, 0, self.inv_perm.to(w.device))
+
+    def to(self, device, non_blocking: bool = False
+           ) -> "ShardedBlockedEllRows":
+        """The same layout with every tensor on ``device`` (itself when
+        they are all there, its shard views kept): the global view's
+        device form."""
+        return _to_device(self, device, non_blocking)
+
     def chunk(self, i: int) -> BlockedEllRows:
-        """Shard ``i`` as a CPU `BlockedEllRows` (views, no copies of the
-        value blocks), with its inverse map ``tail_rows``: every chunk
-        shares the common shapes, so the kernels' work plans are shared
-        too, and the padded rows of its width buckets map to -1."""
+        """Shard ``i`` as a `BlockedEllRows` on the layout's device (views,
+        no copies of the value blocks), with its inverse map ``tail_rows``:
+        every chunk shares the common shapes, so the kernels' work plans
+        are shared too, and the padded rows of its width buckets map to
+        -1."""
         nl = self.n_local
         row_pos = self.row_pos[i]
         B = sum(int(v.shape[1]) for v in self.ell_vals)
-        rp = row_pos.numpy()
+        rp = row_pos.cpu().numpy()
         live = np.flatnonzero(rp < B)
         tail_rows = np.full(B, -1, np.int32)
         tail_rows[rp[live]] = live
@@ -480,9 +513,14 @@ class ShardedBlockedEllRows:
             perm_cols=self.perm_cols, inv_perm=self.inv_perm,
             n_features=self.n_features, n_prefix=self.n_prefix,
             last_col_pos=self.last_col_pos, tail_nnz=self.tail_nnz,
-            tail_rows=torch.from_numpy(tail_rows))
+            tail_rows=torch.from_numpy(tail_rows).to(row_pos.device))
 
     local = chunk  # the shard accessor every sharded layout shares
+
+    def shards(self) -> tuple:
+        """Every shard as its `BlockedEllRows` (`chunk`), built on the
+        first call and kept with the layout."""
+        return _shard_views(self)
 
     def shard_slice(self, lo: int, hi: int) -> "ShardedBlockedEllRows":
         """Shards ``lo:hi`` as one smaller ladder (views, no copies)."""
@@ -704,6 +742,9 @@ class ShardedHybridRows:
     tail_cols: torch.Tensor   # (S, m) int32 original column ids
     tail_vals: torch.Tensor   # (S, m) values (padding: 0.0)
     n_features: int
+    # the global view's flat tail (`global_tail`), built once
+    views: object = dataclasses.field(default=None, init=False,
+                                      compare=False, repr=False)
 
     @property
     def shape(self):
@@ -723,6 +764,28 @@ class ShardedHybridRows:
         return HybridRows(self.dense[i * nl:(i + 1) * nl], self.dense_cols,
                           self.tail_rows[i], self.tail_cols[i],
                           self.tail_vals[i], self.n_features)
+
+    def to(self, device, non_blocking: bool = False) -> "ShardedHybridRows":
+        """The same layout with every tensor on ``device`` (itself when
+        they are all there, its global tail kept)."""
+        return _to_device(self, device, non_blocking)
+
+    def global_tail(self) -> HybridRows:
+        """The reference's global view (`_global_tail`): one `HybridRows`
+        over all rows whose flat tail is every shard's, its local row ids
+        offset by ``shard · n_local`` (still ascending; the padding keeps
+        value 0), built on the first call and kept, with its
+        `SegmentPlan`."""
+        if self.views is None:
+            S, m = (int(s) for s in self.tail_rows.shape)
+            off = torch.arange(S, dtype=torch.int32,
+                               device=self.tail_rows.device) * self.n_local
+            rows = (self.tail_rows + off[:, None]).reshape(-1)
+            object.__setattr__(self, "views", HybridRows(
+                self.dense, self.dense_cols, rows,
+                self.tail_cols.reshape(-1), self.tail_vals.reshape(-1),
+                self.n_features))
+        return self.views
 
     def astype(self, dtype) -> "ShardedHybridRows":
         return dataclasses.replace(self, dense=self.dense.to(dtype),
@@ -808,6 +871,9 @@ class ShardedPermutedHybridRows:
     n_features: int
     n_prefix: int
     last_col_pos: int
+    # the per-shard views of the global view (`shards`), built once
+    views: object = dataclasses.field(default=None, init=False,
+                                      compare=False, repr=False)
 
     @property
     def shape(self):
@@ -838,11 +904,22 @@ class ShardedPermutedHybridRows:
             n_features=self.n_features, n_prefix=self.n_prefix,
             last_col_pos=self.last_col_pos)
 
+    def shards(self) -> tuple:
+        """Every shard as its `PermutedHybridRows` (`local`), built on the
+        first call and kept with the layout."""
+        return _shard_views(self)
+
     def from_model_space(self, v: torch.Tensor) -> torch.Tensor:
         return torch.index_select(v, 0, self.perm_cols.to(v.device))
 
     def to_model_space(self, w: torch.Tensor) -> torch.Tensor:
         return torch.index_select(w, 0, self.inv_perm.to(w.device))
+
+    def to(self, device, non_blocking: bool = False
+           ) -> "ShardedPermutedHybridRows":
+        """The same layout with every tensor on ``device`` (itself when
+        they are all there, its shard views kept)."""
+        return _to_device(self, device, non_blocking)
 
     def astype(self, dtype) -> "ShardedPermutedHybridRows":
         return dataclasses.replace(
@@ -855,9 +932,22 @@ class ShardedPermutedHybridRows:
 PERMUTED_LAYOUTS = (BlockedEllRows, PermutedHybridRows)
 # the layouts laid for one device's rows: a mesh takes their sharded forms
 SINGLE_DEVICE_LAYOUTS = (BlockedEllRows, HybridRows, PermutedHybridRows)
-# the host containers laid for S row shards, one per mesh slot
+# the layouts laid for S row shards: one per mesh slot, or all on one
+# device (the global view)
 SHARDED_LAYOUTS = (ShardedBlockedEllRows, ShardedHybridRows,
                    ShardedPermutedHybridRows)
+# the sharded layouts whose solves run in their permuted column space
+SHARDED_PERMUTED = (ShardedBlockedEllRows, ShardedPermutedHybridRows)
+
+
+def _shard_views(X) -> tuple:
+    """``X``'s shards as one-device layouts (``X.local(j)``), built on the
+    first call and kept in ``X.views``, so their kernel plans are built
+    once."""
+    if X.views is None:
+        object.__setattr__(X, "views", tuple(
+            X.local(j) for j in range(X.n_shards)))
+    return X.views
 
 
 def to_hybrid(X: SparseRows, d_dense: int = 1024, device_dense_dtype=None,
@@ -1204,6 +1294,62 @@ def _sparse_rmatvec(X: SparseRows, r: torch.Tensor,
     return segment_sums(plan, v[:, None] * rr if r.dim() == 2 else v * rr)
 
 
+def _sharded_matvec(X, w: torch.Tensor) -> torch.Tensor:
+    """The global view's X·w of a `ShardedBlockedEllRows` or
+    `ShardedPermutedHybridRows` (w (d,)/(d, G) PERMUTED): the hot block
+    against bf16(w[:d_sel]) as one product over all n rows, then each
+    shard's tail added into its rows' slice — a blocked-ELL shard's by
+    the tail kernel in place (one add per row, as `_bell_matvec`), a
+    permuted hybrid shard's prefix-sum row sums (the reference's
+    ``vmap(_tail_rowsum)``)."""
+    hot = _mm_f32(X.dense, w[:X.d_sel].to(X.dense.dtype))
+    nl = X.n_local
+    if isinstance(X, ShardedBlockedEllRows):
+        if not X.ell_vals:
+            return hot
+        shards = X.shards()
+        tail = (KB.tail_matvec if K.route(shards[0], w) == "fused"
+                else KB.tail_matvec_tiled)
+        for j, Xj in enumerate(shards):
+            tail(Xj, w, out=hot[j * nl:(j + 1) * nl])
+        return hot
+    for j, Pj in enumerate(X.shards()):
+        hot[j * nl:(j + 1) * nl] += _tail_rowsum(
+            _gather_product(Pj.tail_vals, w, Pj.tail_pcols), Pj.row_bounds)
+    return hot
+
+
+def _sharded_rmatvec(X, r: torch.Tensor,
+                     square: bool = False) -> torch.Tensor:
+    """The global view's Xᵀr (or (X∘X)ᵀr) of a `ShardedBlockedEllRows` or
+    `ShardedPermutedHybridRows` in prefix order: the hot block's transpose
+    product over all n rows in ``[:d_sel]``; in ``[d_sel:n_prefix]`` each
+    shard's occurrence-bucket block of its rows of r (the rmatvec kernel,
+    the cotangent rounded for blocked-ELL and not for the permuted
+    hybrid, as `_bell_rmatvec`), the shards' blocks summed in shard
+    order — every shard carries all U columns, so the sum gathers and
+    adds, with no scatter; zeros after."""
+    out = torch.empty((X.n_features,) + tuple(r.shape[1:]),
+                      dtype=torch.float32, device=r.device)
+    out[:X.d_sel] = _mm_f32(X.dense.t(), r.to(X.dense.dtype), square=square)
+    if X.bucket_vals:
+        nl = X.n_local
+        shards = X.shards()
+        rmv = (KB.bucket_rmatvec
+               if K.route(shards[0], r[:nl]) == "fused"
+               else KB.bucket_rmatvec_tiled)
+        acc = out[X.d_sel:X.n_prefix]
+        part = torch.empty_like(acc) if len(shards) > 1 else None
+        round_r = isinstance(X, ShardedBlockedEllRows)
+        for j, Xj in enumerate(shards):
+            rmv(Xj, r[j * nl:(j + 1) * nl], square=square,
+                out=acc if j == 0 else part, round_r=round_r)
+            if j:
+                acc += part
+    out[X.n_prefix:].zero_()
+    return out
+
+
 def _slot_matvec(X: SlotRows, w: torch.Tensor, fn) -> torch.Tensor:
     """``fn`` (a row pass) of every local slot's shard on its own device
     (w copied there once per device), the margins assembled in slot order
@@ -1238,8 +1384,10 @@ def matvec(X, w: torch.Tensor) -> torch.Tensor:
     Dense storage multiplies in its own dtype and accumulates in f32.
     Sparse rows gather ``w[indices]`` and take the rowwise dot in f32.
     `BlockedEllRows` and `PermutedHybridRows` take w in their permuted
-    space, `HybridRows` in original order. A row-sharded `SlotRows` gives
-    this process's rows, slot by slot."""
+    space, `HybridRows` in original order; a sharded layout on one device
+    takes w as its one-device form does and gives all its rows (the
+    global view). A row-sharded `SlotRows` gives this process's rows,
+    slot by slot."""
     if isinstance(X, SlotRows):
         return _slot_matvec(X, w, matvec)
     if isinstance(X, BlockedEllRows):
@@ -1248,6 +1396,10 @@ def matvec(X, w: torch.Tensor) -> torch.Tensor:
         return _perm_matvec(X, w)
     if isinstance(X, HybridRows):
         return _hybrid_matvec(X, w)
+    if isinstance(X, SHARDED_PERMUTED):
+        return _sharded_matvec(X, w)
+    if isinstance(X, ShardedHybridRows):
+        return _hybrid_matvec(X.global_tail(), w)
     if isinstance(X, SparseRows):
         eq = "nk,nkg->ng" if w.dim() == 2 else "nk,nk->n"
         return torch.einsum(eq, X.values.to(torch.float32),
@@ -1268,6 +1420,10 @@ def rmatvec(X, r: torch.Tensor) -> torch.Tensor:
         return _bell_rmatvec(X, r)
     if isinstance(X, HybridRows):
         return _hybrid_rmatvec(X, r)
+    if isinstance(X, SHARDED_PERMUTED):
+        return _sharded_rmatvec(X, r)
+    if isinstance(X, ShardedHybridRows):
+        return _hybrid_rmatvec(X.global_tail(), r)
     if isinstance(X, SparseRows):
         return _sparse_rmatvec(X, r)
     if isinstance(X, EntityBlocks):
@@ -1304,6 +1460,10 @@ def sq_rmatvec(X, r: torch.Tensor) -> torch.Tensor:
         return _bell_rmatvec(X, r, square=True)
     if isinstance(X, HybridRows):
         return _hybrid_rmatvec(X, r, square=True)
+    if isinstance(X, SHARDED_PERMUTED):
+        return _sharded_rmatvec(X, r, square=True)
+    if isinstance(X, ShardedHybridRows):
+        return _hybrid_rmatvec(X.global_tail(), r, square=True)
     if isinstance(X, SparseRows):
         return _sparse_rmatvec(X, r, square=True)
     return _mm_f32(X.t(), r.to(X.dtype), square=True)
@@ -1331,18 +1491,22 @@ def _densify(X) -> torch.Tensor:
     """An f32 (n, d) copy of a sparse layout (a permuted layout in its
     permuted space, the space of every other X pass on it)."""
     n, d = X.shape
-    if isinstance(X, PERMUTED_LAYOUTS):
+    if isinstance(X, PERMUTED_LAYOUTS + SHARDED_PERMUTED):
         dev = X.dense.device
         rows = torch.zeros((n, d), dtype=torch.float32, device=dev)
         rows[:, :X.d_sel] += X.dense.to(torch.float32)
-        off = X.d_sel
-        for br, bv in zip(X.bucket_rows, X.bucket_vals):
-            c_b = br.shape[0]
-            cols = torch.arange(off, off + c_b, device=dev)[:, None]
-            rows.index_put_((br.long(), cols.expand_as(br)),
-                            bv.to(torch.float32), accumulate=True)
-            off += c_b
+        sharded = isinstance(X, SHARDED_PERMUTED)
+        for j, P in enumerate(X.shards() if sharded else (X,)):
+            off, r0 = X.d_sel, j * X.n_local if sharded else 0
+            for br, bv in zip(P.bucket_rows, P.bucket_vals):
+                c_b = br.shape[0]
+                cols = torch.arange(off, off + c_b, device=dev)[:, None]
+                rows.index_put_((br.long() + r0, cols.expand_as(br)),
+                                bv.to(torch.float32), accumulate=True)
+                off += c_b
         return rows
+    if isinstance(X, ShardedHybridRows):
+        X = X.global_tail()
     if isinstance(X, HybridRows):
         rows = torch.zeros((n, d), dtype=torch.float32,
                            device=X.dense.device)
@@ -1360,13 +1524,15 @@ def _densify(X) -> torch.Tensor:
 
 def weighted_gram(X, r: torch.Tensor) -> torch.Tensor:
     """Xᵀ diag(r) X -> (d, d) f32, for FULL variances on small feature
-    spaces. Sparse layouts are densified (a permuted one in its permuted
-    space), so d is capped at `MAX_GRAM_FEATURES` (the reference's guard);
+    spaces. Sparse layouts, sharded ones too, are densified (a permuted
+    one in its permuted space), so d is capped at `MAX_GRAM_FEATURES`
+    (the reference's guard);
     dense storage is taken in f32 whatever its dtype. A `SlotRows` gives
     per-slot partials."""
     if isinstance(X, SlotRows):
         return _slot_rmatvec(X, r, weighted_gram)
-    if isinstance(X, (SparseRows,) + SINGLE_DEVICE_LAYOUTS):
+    if isinstance(X, (SparseRows,) + SINGLE_DEVICE_LAYOUTS
+                  + SHARDED_LAYOUTS):
         _gram_too_wide(X, X.n_features)
         rows = _densify(X)
     else:
@@ -1384,7 +1550,12 @@ def _host_col(dense, j: int) -> np.ndarray:
 
 def last_column_is_intercept(X) -> bool:
     """True when the design matrix's last column is constant 1 — the
-    intercept-last convention of the feature builders."""
+    intercept-last convention of the feature builders (a sharded layout
+    read over all its rows)."""
+    if isinstance(X, ShardedHybridRows):
+        X = X.global_tail()
+    if isinstance(X, SHARDED_PERMUTED):
+        return _sharded_column_is_ones(X)
     if isinstance(X, PERMUTED_LAYOUTS):
         if X.last_col_pos < X.d_sel:  # an intercept is maximally hot
             return bool((_host_col(X.dense, X.last_col_pos) == 1.0).all())
@@ -1425,6 +1596,30 @@ def last_column_is_intercept(X) -> bool:
         hit = (ind == d - 1) & (val != 0.0)
         return bool(hit.any(axis=1).all() and (val[hit] == 1.0).all())
     return bool((_host_col(X, X.shape[1] - 1) == 1.0).all())
+
+
+def _sharded_column_is_ones(X) -> bool:
+    """`last_column_is_intercept` of a sharded permuted layout: the hot
+    column, or the column's occurrence slots over every shard (local rows
+    offset by ``shard · n_local``): n entries, all 1.0, rows a
+    permutation of range(n)."""
+    pos = X.last_col_pos
+    if pos < X.d_sel:
+        return bool((_host_col(X.dense, pos) == 1.0).all())
+    if pos >= X.n_prefix:
+        return False
+    n, off = int(X.shape[0]), X.d_sel
+    for b, br in enumerate(X.bucket_rows):
+        c_b = int(br.shape[1])
+        if pos < off + c_b:
+            r = _host(br[:, pos - off]).astype(np.int64)
+            r += (np.arange(X.n_shards) * X.n_local)[:, None]
+            v = _host(X.bucket_vals[b][:, pos - off].to(torch.float32))
+            real = v != 0.0
+            return bool(int(real.sum()) == n and (v[real] == 1.0).all()
+                        and (np.sort(r[real]) == np.arange(n)).all())
+        off += c_b
+    return False
 
 
 def nnz_stats(X) -> tuple:

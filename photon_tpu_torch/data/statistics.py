@@ -28,9 +28,12 @@ import torch
 
 from photon_tpu_torch.checkpoint.store import commit_bytes
 from photon_tpu_torch.data.matrix import (BlockedEllRows, HybridRows,
-                                          ShardedHybridRows, SparseRows,
-                                          as_tensor, segment_plan,
-                                          segment_sums)
+                                          PermutedHybridRows,
+                                          ShardedBlockedEllRows,
+                                          ShardedHybridRows,
+                                          ShardedPermutedHybridRows,
+                                          SparseRows, as_tensor,
+                                          segment_plan, segment_sums)
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.parallel.mesh import (SlotRows, gather_processes,
                                             shard_rows)
@@ -174,7 +177,8 @@ class FeatureSummary:
         counts)."""
         if mesh is not None or isinstance(X, SlotRows):
             return _compute_mesh(X, mesh)
-        if isinstance(X, BlockedEllRows):
+        if isinstance(X, (BlockedEllRows, PermutedHybridRows,
+                          ShardedBlockedEllRows, ShardedPermutedHybridRows)):
             raise TypeError(
                 "FeatureSummary.compute takes the original SparseRows/dense "
                 "matrix, not a blocked-ELL re-layout; compute the summary "
@@ -204,6 +208,25 @@ class FeatureSummary:
                else _shifted_ssq_dense(X, shift))
         return _finish_summary(n, s1, s2, mn, mx, l1, nnz,
                                ssq.cpu().numpy().astype(np.float64), sparse)
+
+
+def summarize_features(X, mesh=None, names=None, device=None) -> dict:
+    """The per-feature table of the driver's summarization output
+    (reference: `summarize_features`): `FeatureSummary.compute` of ``X``
+    (``mesh`` and ``device`` as there), one row per feature keyed by its
+    name (``names``, from the index map when available; else the column
+    index as a string)."""
+    s = FeatureSummary.compute(X, mesh=mesh, device=device)
+    d = s.mean.shape[0]
+    names = names if names is not None else [str(j) for j in range(d)]
+    return {
+        names[j]: {
+            "mean": float(s.mean[j]), "variance": float(s.variance[j]),
+            "min": float(s.minimum[j]), "max": float(s.maximum[j]),
+            "num_nonzeros": int(s.num_nonzeros[j]),
+        }
+        for j in range(d)
+    }
 
 
 def _finish_summary(n, s1, s2, mn, mx, l1, nnz, ssq,

@@ -151,10 +151,12 @@ def _host_shard(X):
 
 
 def _on_device(X, dev):
-    """A shard on the device: layouts move as they are; a floating tensor
+    """A shard on the device: layouts move as they are (a sharded one
+    then trains in its global view); a floating tensor
     keeps its storage dtype (a bf16 shard stays bf16); anything else
     arrives as f32."""
-    if isinstance(X, (SparseRows,) + SINGLE_DEVICE_LAYOUTS):
+    if isinstance(X, (SparseRows,) + SINGLE_DEVICE_LAYOUTS
+                  + SHARDED_LAYOUTS):
         return X.to(dev)
     if isinstance(X, torch.Tensor) and X.is_floating_point():
         return X.to(dev)

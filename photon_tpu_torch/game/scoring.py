@@ -114,6 +114,12 @@ def score_game(model: GameModel, data: GameData) -> torch.Tensor:
     return out
 
 
+def predict_mean(model: GameModel, data: GameData) -> torch.Tensor:
+    """The mean response of every row, the task's inverse link of
+    `score_game` (reference: computeMean)."""
+    return model.mean(score_game(model, data))
+
+
 def score_chunked_host(X: ChunkedMatrix, w, mesh=None,
                        device=None) -> np.ndarray:
     """Margins of a host ChunkedMatrix as a HOST (n_real,) f32 cache

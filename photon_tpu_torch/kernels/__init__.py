@@ -26,6 +26,15 @@ the training path's full-width shapes, so there is no default budget.
 There is no floor below which neither form runs, so a CUDA tensor never
 routes to the plain version.
 
+TILE (`tile_override`, `tuning.tile_tuner`): the tiled forms cut each
+bucket's work into one-block items of at most T rows (tail matvec) or T
+columns (rmatvec), T clamped to what one block takes
+(`blocked_ell.clamp_tile`). ``PHOTON_TPU_TORCH_KERNELS_TILE`` pins T for
+every bucket; unset, each (kind, width) takes the autotuner's winner for
+the card, else the default, which reproduces the fused forms' items.
+Every row and column is summed by the same threads in the same order at
+any T, so every tile gives the same bits.
+
 BUILD (`load_library`): each CUDA source under ``csrc/`` is a plain C
 entry point, built for ``sm_90a`` into ``_build/`` on first use by
 `torch.utils.cpp_extension.load` and bound with ctypes.
@@ -48,7 +57,10 @@ from photon_tpu_torch.utils.env import get_raw
 
 ENV_KNOB = "PHOTON_TPU_TORCH_KERNELS"
 ENV_BUDGET = "PHOTON_TPU_TORCH_KERNELS_BUDGET"
+ENV_TILE = "PHOTON_TPU_TORCH_KERNELS_TILE"
 _MODES = ("on", "off", "auto")
+# the smallest tile the knob takes: one warp's worth of rows or columns
+MIN_TILE = 32
 
 BUILD_DIR = Path(__file__).parent / "_build"
 
@@ -179,6 +191,27 @@ def budget():
     if b < 0:
         raise ValueError(f"{ENV_BUDGET} must be >= 0 bytes, got {b}")
     return b
+
+
+def tile_override():
+    """The ``PHOTON_TPU_TORCH_KERNELS_TILE`` work-item tile of the tiled
+    forms (None = defer to the autotuner's winner for the card). The
+    port's quantum is a warp: a power of two of at least `MIN_TILE` (32)
+    rows or columns — the reference's pow2 multiple of 8 is the TPU's
+    f32 sublane. A malformed value raises here, naming the knob."""
+    raw = get_raw(ENV_TILE)
+    if raw is None:
+        return None
+    try:
+        tile = int(raw)
+    except ValueError:
+        raise ValueError(f"{ENV_TILE} must be an integer tile, got "
+                         f"{raw!r}") from None
+    if tile < MIN_TILE or tile & (tile - 1):
+        raise ValueError(f"{ENV_TILE} must be a power of two >= "
+                         f"{MIN_TILE} (a warp's rows or columns), got "
+                         f"{tile}")
+    return tile
 
 
 def route(X, vec: torch.Tensor) -> str:

@@ -9,17 +9,31 @@ over a work plan of one-block items:
   (n,)/(n, G) f32 tail term into its output in original row order, each
   row through the inverse map ``tail_rows``;
 - `tail_matvec_tiled`: one launch per width bucket over that bucket's
-  items, into the same output;
+  items, into the same output, the items cut at the bucket's tile;
 - `bucket_rmatvec` (fused): ONE launch over every item of the rmatvec
   plan (`rmatvec_plan`) writes the (U,)/(U, G) tail-gradient block in
   prefix order; ``square`` gives (X∘X)ᵀr; ``round_r=False`` multiplies
   the cotangent unrounded (the `PermutedHybridRows` recipe, whose
   occurrence buckets are laid as the blocked-ELL ones);
 - `bucket_rmatvec_tiled`: one launch per occurrence bucket over that
-  bucket's items, each writing its slice of one output.
+  bucket's items, each writing its slice of one output, the items cut at
+  the bucket's tile.
+
+THE TILE (the reference's row tile ``T`` of its grid-tiled forms): a
+work item holds at most T rows of a width bucket (tail) or T columns of
+an occurrence bucket (rmatvec), T clamped to what one block takes
+(`max_tile`: BLOCK·`rows_per_thread`(W_b) rows, BLOCK // tpc columns).
+The tiled forms resolve T per (kind, width) on every call
+(`resolve_tiles`: the ``PHOTON_TPU_TORCH_KERNELS_TILE`` pin, else the
+autotuner's winner for the card, `tuning.tile_tuner.tile_for`, else
+`DEFAULT_TILE`, which clamps to today's whole-block items); the fused
+forms always run the whole-block items. A row or a column is summed by
+the same threads in the same order whatever item holds it, so every tile
+gives the same bits.
 
 `layout_plan` checks a layout's buckets, packs their descriptors and
-builds both work plans and ``tail_rows`` once per layout object (a
+builds both work plans and ``tail_rows`` once per layout object and tile
+set (a
 `BlockedEllRows` is frozen and its tensors are never replaced; a layout
 with no ELL tail, a `PermutedHybridRows`, gets the rmatvec's plan alone),
 so a call
@@ -196,17 +210,35 @@ def rows_per_thread(w_b: int) -> int:
     return max(1, TAIL_SLOTS_PER_THREAD // int(w_b))
 
 
-def tail_plan(bucket_shapes) -> np.ndarray:
+def max_tile(kind: str, width: int) -> int:
+    """The most rows (``kind`` `TAIL`, width W_b) or columns (`RMATVEC`,
+    k_b slots) one work item takes: one block's worth,
+    BLOCK·`rows_per_thread`(W_b) or BLOCK // `threads_per_column`(k_b)."""
+    if kind == TAIL:
+        return BLOCK * rows_per_thread(width)
+    return BLOCK // threads_per_column(width)
+
+
+def clamp_tile(kind: str, width: int, tile: int) -> int:
+    """``tile`` clamped to `max_tile` (the port's counterpart of the
+    reference's `_clamp_tile`, which halves its row tile to fit VMEM)."""
+    return min(int(tile), max_tile(kind, width))
+
+
+def tail_plan(bucket_shapes, tiles=None) -> np.ndarray:
     """The tail matvec's work plan for ELL width buckets of (r_b, W_b)
     shapes: an (items, 3) int32 array of (bucket, row0, rows) rows, fields
-    as `_TAIL_FIELDS`. Each item is one block's worth of one bucket's
-    rows: ``rows`` ≤ BLOCK·`rows_per_thread`(W_b) rows from ``row0`` on,
-    thread t taking rows t, t + BLOCK, .... Items run widest bucket first
-    (the longest rows start first, the short ones fill in behind), then in
-    bucket order; one bucket's items are contiguous, in row order."""
+    as `_TAIL_FIELDS`. Each item is at most one block's worth of one
+    bucket's rows: ``rows`` ≤ BLOCK·`rows_per_thread`(W_b) — or ≤ the
+    bucket's tile, ``tiles[b]`` clamped by `clamp_tile` — rows from
+    ``row0`` on, thread t taking rows t, t + BLOCK, .... Items run widest
+    bucket first (the longest rows start first, the short ones fill in
+    behind), then in bucket order; one bucket's items are contiguous, in
+    row order."""
     parts = []
     for b, (r_b, w_b) in enumerate(bucket_shapes):
-        per = BLOCK * rows_per_thread(w_b)
+        per = (max_tile(TAIL, w_b) if tiles is None
+               else clamp_tile(TAIL, w_b, tiles[b]))
         row0 = np.arange(0, int(r_b), per, dtype=np.int64)
         item = np.empty((row0.size, len(_TAIL_FIELDS)), np.int32)
         item[:, 0], item[:, 1] = b, row0
@@ -237,19 +269,21 @@ def walk_length(k_b: int) -> int:
     return -(-k_b // t)
 
 
-def rmatvec_plan(bucket_shapes) -> np.ndarray:
+def rmatvec_plan(bucket_shapes, tiles=None) -> np.ndarray:
     """The rmatvec's work plan for occurrence buckets of (c_b, k_b) shapes:
     an (items, 4) int32 array of (bucket, col0, cols, tpc) rows, fields as
-    `_PLAN_FIELDS`. Each item is one block's worth of one bucket's
-    columns: ``cols`` columns from ``col0`` on, each summed by ``tpc`` =
-    `threads_per_column` threads, cols·tpc ≤ BLOCK. Items run longest walk
-    first (then wider buckets first, then bucket and column order), so the
-    long columns start first and the short ones fill in behind; one
-    bucket's items are contiguous, in column order."""
+    `_PLAN_FIELDS`. Each item is at most one block's worth of one bucket's
+    columns: ``cols`` columns from ``col0`` on (at most the bucket's tile,
+    ``tiles[b]`` clamped by `clamp_tile`, when given), each summed by
+    ``tpc`` = `threads_per_column` threads, cols·tpc ≤ BLOCK. Items run
+    longest walk first (then wider buckets first, then bucket and column
+    order), so the long columns start first and the short ones fill in
+    behind; one bucket's items are contiguous, in column order."""
     parts = []
     for b, (c_b, k_b) in enumerate(bucket_shapes):
         tpc = threads_per_column(int(k_b))
-        per = BLOCK // tpc
+        per = (max_tile(RMATVEC, int(k_b)) if tiles is None
+               else clamp_tile(RMATVEC, int(k_b), tiles[b]))
         col0 = np.arange(0, int(c_b), per, dtype=np.int64)
         item = np.empty((col0.size, len(_PLAN_FIELDS)), np.int32)
         item[:, 0], item[:, 1] = b, col0
@@ -306,23 +340,53 @@ class LayoutPlan:
     occ_args: tuple
 
 
-def layout_plan(X) -> LayoutPlan:
+def layout_plan(X, tiles=None) -> LayoutPlan:
     """``X``'s `LayoutPlan`: built on the first call for this layout object
-    and kept until the layout is collected. Raises if a bucket is not what
-    the kernels take."""
+    (and tile set) and kept until the layout is collected. ``tiles``:
+    None for the whole-block items, or (tail tiles, occurrence tiles),
+    each a per-bucket tuple as `resolve_tiles` gives it or None for
+    whole-block items. Raises if a bucket is not what the kernels
+    take."""
     global _PLAN_BUILDS
-    hit = _PLANS.get(id(X))
+    if tiles == (None, None):
+        tiles = None
+    key = id(X) if tiles is None else (id(X), tiles)
+    hit = _PLANS.get(key)
     if hit is not None and hit[0]() is X:
         return hit[1]
+    base = None if tiles is None else layout_plan(X)
     with _plans_lock:
-        hit = _PLANS.get(id(X))
+        hit = _PLANS.get(key)
         if hit is not None and hit[0]() is X:
             return hit[1]
-        plan = _build_plan(X)
+        plan = _build_plan(X) if base is None else _tiled_plan(X, base,
+                                                                tiles)
         _PLAN_BUILDS += 1
-        _PLANS[id(X)] = (weakref.ref(X), plan)
-        weakref.finalize(X, _PLANS.pop, id(X), None)
+        _PLANS[key] = (weakref.ref(X), plan)
+        weakref.finalize(X, _PLANS.pop, key, None)
     return plan
+
+
+def resolve_tiles(kind: str, widths, device) -> tuple | None:
+    """The tiled form's tile for each bucket of these widths on
+    ``device``: the ``PHOTON_TPU_TORCH_KERNELS_TILE`` pin, else the
+    autotuner's winner for (the card, kind, width), else `DEFAULT_TILE`
+    (`tuning.tile_tuner.tiles_for`); clamped by `clamp_tile`. None when
+    every bucket takes its whole-block items (the fused forms' plan) —
+    in an untuned process after one environment read."""
+    from photon_tpu_torch.tuning.tile_tuner import tiles_for
+
+    pin = K.tile_override()
+    if pin is not None:
+        raw = (pin,) * len(widths)
+    else:
+        raw = tiles_for(kind, widths, device)
+        if raw is None:  # untuned: DEFAULT_TILE clamps to whole blocks
+            return None
+    tiles = tuple(clamp_tile(kind, w, t) for w, t in zip(widths, raw))
+    if all(t == max_tile(kind, w) for t, w in zip(tiles, widths)):
+        return None
+    return tiles
 
 
 def plan_builds() -> int:
@@ -331,15 +395,16 @@ def plan_builds() -> int:
         return _PLAN_BUILDS
 
 
-def _shape_plan(tail_shapes, occ_shapes, device) -> tuple:
-    """The parts of a plan that depend on the bucket shapes alone: both
-    work plans on ``device`` and their fused and tiled ranges, built once
-    per (shapes, device) (called under ``_plans_lock``)."""
-    key = (tuple(tail_shapes), tuple(occ_shapes), str(device))
+def _shape_plan(tail_shapes, occ_shapes, device, tiles) -> tuple:
+    """The parts of a plan that depend on the bucket shapes (and tiles)
+    alone: both work plans on ``device`` and their fused and tiled ranges,
+    built once per (shapes, tiles, device) (called under
+    ``_plans_lock``)."""
+    key = (tuple(tail_shapes), tuple(occ_shapes), tiles, str(device))
     hit = _SHAPE_PLANS.get(key)
     if hit is None:
-        tail_items = tail_plan(tail_shapes)
-        occ_items = rmatvec_plan(occ_shapes)
+        tail_items = tail_plan(tail_shapes, tiles[0])
+        occ_items = rmatvec_plan(occ_shapes, tiles[1])
         hit = (torch.from_numpy(tail_items).to(device),
                _host_ranges([(0, int(tail_items.shape[0]))]),
                _host_ranges(plan_ranges(tail_items, len(tail_shapes))),
@@ -348,6 +413,26 @@ def _shape_plan(tail_shapes, occ_shapes, device) -> tuple:
                _host_ranges(plan_ranges(occ_items, len(occ_shapes))))
         _SHAPE_PLANS[key] = hit
     return hit
+
+
+def _tiled_plan(X, base: LayoutPlan, tiles) -> LayoutPlan:
+    """``base`` (``X``'s whole-block plan) with its work plans cut at
+    ``tiles``: the descriptors and the inverse map are shared, only the
+    items and their ranges are new (called under ``_plans_lock``)."""
+    tail_shapes = [tuple(int(s) for s in v.shape)
+                   for v in getattr(X, "ell_vals", ())]
+    occ_shapes = [tuple(int(s) for s in v.shape) for v in X.bucket_vals]
+    (tail_dev, tail_fused, tail_tiled, occ_dev, occ_fused,
+     occ_tiled) = _shape_plan(tail_shapes, occ_shapes, base.device, tiles)
+    desc, nb, _, rows, bf16 = base.tail_args
+    occ_desc, _, occ_bf16 = base.occ_args
+    return dataclasses.replace(
+        base, tail_items=tail_dev, tail_fused=tail_fused,
+        tail_tiled=tail_tiled, occ_items=occ_dev, occ_fused=occ_fused,
+        occ_tiled=occ_tiled,
+        tail_args=(desc, nb, ctypes.c_void_p(tail_dev.data_ptr()), rows,
+                   bf16),
+        occ_args=(occ_desc, ctypes.c_void_p(occ_dev.data_ptr()), occ_bf16))
 
 
 def _build_plan(X) -> LayoutPlan:
@@ -381,7 +466,8 @@ def _build_plan(X) -> LayoutPlan:
                            f"occurrence bucket {b}")
     B = sum(r_b for r_b, _ in tail_shapes)
     (tail_dev, tail_fused, tail_tiled, occ_dev, occ_fused,
-     occ_tiled) = _shape_plan(tail_shapes, occ_shapes, device)
+     occ_tiled) = _shape_plan(tail_shapes, occ_shapes, device,
+                              (None, None))
     tail_desc = _descriptors(ell_pcols, ell_vals, device)
     occ_desc = _descriptors(X.bucket_rows, X.bucket_vals, device)
     if not ell:
@@ -431,12 +517,15 @@ def tail_matvec(X, w: torch.Tensor, out=None) -> torch.Tensor:
 
 def tail_matvec_tiled(X, w: torch.Tensor, out=None) -> torch.Tensor:
     """The tiled tail matvec: one launch per width bucket over that
-    bucket's items of the plan, each adding its rows into the same
-    output. The same per-row arithmetic as `tail_matvec`, so the same
-    bits."""
+    bucket's items of the plan, cut at the bucket's tile
+    (`resolve_tiles`), each adding its rows into the same output. The
+    same per-row arithmetic as `tail_matvec`, so the same bits at every
+    tile."""
     if not K.use_kernel(w):
         return _plain_add(tail_matvec_reference(X, w), X, w, out)
-    plan, lanes = _check_tail(X, w)
+    tiles = resolve_tiles(TAIL, [int(v.shape[-1]) for v in X.ell_vals],
+                          w.device)
+    plan, lanes = _check_tail(X, w, (tiles, None))
     out, zero_bytes = _tail_out(X, w, out)
     _launch_tail(TAIL_TILED, plan, plan.tail_tiled, w, lanes, out,
                  zero_bytes)
@@ -464,12 +553,16 @@ def bucket_rmatvec(X, r: torch.Tensor, square: bool = False, out=None,
 def bucket_rmatvec_tiled(X, r: torch.Tensor, square: bool = False,
                          out=None, round_r: bool = True) -> torch.Tensor:
     """The tiled occurrence-bucket rmatvec: one launch per bucket over that
-    bucket's items of the plan, each into its slice of one output. The
-    same items per bucket as `bucket_rmatvec`, so the same bits."""
+    bucket's items of the plan, cut at the bucket's tile
+    (`resolve_tiles`), each into its slice of one output. Each column is
+    summed as in `bucket_rmatvec`, so the same bits at every tile."""
     if not K.use_kernel(r):
         return _plain_into(bucket_rmatvec_reference(X, r, square, round_r),
                            X, r, out)
-    plan, lanes = _check_rmatvec(X, r)
+    tiles = resolve_tiles(RMATVEC,
+                          [int(v.shape[-1]) for v in X.bucket_vals],
+                          r.device)
+    plan, lanes = _check_rmatvec(X, r, (None, tiles))
     out = _rmatvec_out(X, r, out)
     _launch_rmatvec(RMATVEC_TILED, plan, plan.occ_tiled, r, lanes, square,
                     out, round_r)
@@ -534,9 +627,10 @@ def _check_aligned(i, v, slots: int, what: str) -> None:
                          f"values {av}-byte aligned")
 
 
-def _check_tail(X, w):
-    """(``X``'s plan, the lane count) for a tail matvec of ``w``."""
-    plan = layout_plan(X)
+def _check_tail(X, w, tiles=None):
+    """(``X``'s plan at ``tiles``, the lane count) for a tail matvec of
+    ``w``."""
+    plan = layout_plan(X, tiles)
     lanes = _check_vector(w, plan.device, "w")
     if w.shape[0] != plan.n_features:
         raise ValueError(f"w has {w.shape[0]} rows, the layout "
@@ -544,9 +638,10 @@ def _check_tail(X, w):
     return plan, lanes
 
 
-def _check_rmatvec(X, r):
-    """(``X``'s plan, the lane count) for an rmatvec of ``r``."""
-    plan = layout_plan(X)
+def _check_rmatvec(X, r, tiles=None):
+    """(``X``'s plan at ``tiles``, the lane count) for an rmatvec of
+    ``r``."""
+    plan = layout_plan(X, tiles)
     lanes = _check_vector(r, plan.device, "r")
     if r.shape[0] != X.shape[0]:
         raise ValueError(f"r has {r.shape[0]} rows, the layout "

@@ -133,6 +133,10 @@ class RungPlan:
     lock: threading.Lock
 
 
+# the reference's name for the rung (`photon_tpu/kernels/serving.py`)
+fused_int8_margin = int8_margin
+
+
 def rung_plan(coords, shards, fixed_ws, re_cs) -> RungPlan:
     """The `RungPlan` of these coordinates over these coefficient tensors,
     keyed by the tensors' ids and kept while they live (each one's

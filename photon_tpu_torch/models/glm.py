@@ -3,10 +3,11 @@ part of `photon_tpu/models/glm.py`, with `chunked_margins` and the
 batched `score_models`).
 
 User-facing coefficients are in ORIGINAL column order; a `BlockedEllRows`
-or `PermutedHybridRows` design matrix (or a chunk ladder) works in its
-permuted space, so scoring
-translates w at the boundary (one gather). A host `ChunkedMatrix` scores
-chunk by chunk (`chunked_margins`)."""
+or `PermutedHybridRows` design matrix (or its sharded form, or a chunk
+ladder) works in its permuted space, so scoring
+translates w at the boundary (one gather). A sharded layout scores all
+its rows on its device (the global view); a host `ChunkedMatrix` chunk
+by chunk (`chunked_margins`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 
 from photon_tpu_torch.data.matrix import (PERMUTED_LAYOUTS,
+                                          SHARDED_LAYOUTS, SHARDED_PERMUTED,
                                           SINGLE_DEVICE_LAYOUTS, SparseRows,
                                           matvec, matvec_lanes)
 from photon_tpu_torch.ops.losses import TaskType, mean_fn
@@ -46,7 +48,7 @@ class GeneralizedLinearModel:
         w = self.coefficients.means
         if hasattr(X, "n_chunks"):
             return chunked_margins(X, w, offsets)
-        if isinstance(X, PERMUTED_LAYOUTS):
+        if isinstance(X, PERMUTED_LAYOUTS + SHARDED_PERMUTED):
             w = X.from_model_space(w)
         return matvec(X, w) + offsets
 
@@ -77,7 +79,8 @@ def _score_many(W: torch.Tensor, X, offsets=0.0) -> torch.Tensor:
     (d_sel, G) product, its tail one G-lane kernel launch), dense X one
     (n, d) × (d, G) product."""
     W = W.to(torch.float32)
-    Wt = (X.from_model_space(W.t()) if isinstance(X, PERMUTED_LAYOUTS)
+    Wt = (X.from_model_space(W.t())
+          if isinstance(X, PERMUTED_LAYOUTS + SHARDED_PERMUTED)
           else W.t().contiguous())
     return matvec_lanes(X, Wt).t() + offsets
 
@@ -86,9 +89,32 @@ def score_models(models, X, offsets=0.0) -> torch.Tensor:
     """(G, n) raw margins of G same-shape models over one design matrix in
     one lane pass (reference: `score_models`, the scoring side of a
     `train_glm_grid` sweep), on X's device."""
-    dev = (X.dense if isinstance(X, SINGLE_DEVICE_LAYOUTS)
+    dev = (X.dense if isinstance(X, SINGLE_DEVICE_LAYOUTS + SHARDED_LAYOUTS)
            else X.values if isinstance(X, SparseRows) else X).device
     W = torch.stack([m.coefficients.means.to(dev) for m in models])
     if not isinstance(offsets, (int, float)):
         offsets = torch.as_tensor(offsets).to(dev, torch.float32)
     return _score_many(W, X, offsets)
+
+
+def _glm(task: TaskType, coeffs, variances=None) -> GeneralizedLinearModel:
+    means = torch.as_tensor(coeffs)
+    if variances is not None:
+        variances = torch.as_tensor(variances)
+    return GeneralizedLinearModel(Coefficients(means, variances), task)
+
+
+def logistic_regression(coeffs, variances=None) -> GeneralizedLinearModel:
+    """A logistic-regression GLM of these coefficients (tensors, or
+    arrays taken as tensors on the CPU)."""
+    return _glm(TaskType.LOGISTIC_REGRESSION, coeffs, variances)
+
+
+def linear_regression(coeffs, variances=None) -> GeneralizedLinearModel:
+    """A linear-regression GLM of these coefficients."""
+    return _glm(TaskType.LINEAR_REGRESSION, coeffs, variances)
+
+
+def poisson_regression(coeffs, variances=None) -> GeneralizedLinearModel:
+    """A Poisson-regression GLM of these coefficients."""
+    return _glm(TaskType.POISSON_REGRESSION, coeffs, variances)

@@ -35,6 +35,12 @@ passes (the blocked-ELL kernels on its own shard) and each evaluation
 closes with one reduction (`parallel.mesh.psum`) — resident, streamed
 and grid solves alike. The fused value+grad stays off the mesh path, as
 in the reference. The solver state lives on the mesh's home device.
+
+Without ``mesh=`` a sharded layout moves whole to the device and solves
+in its global view (`data.matrix`: the hot block over all rows, each
+shard's tail through its own layout — a blocked-ELL shard's kernels once
+per shard), as one device's layout does; a permuted one in its permuted
+space, the model back in original column order.
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ from photon_tpu_torch import kernels as K
 from photon_tpu_torch import profiling, telemetry
 from photon_tpu_torch.data.dataset import ChunkedBatch, GLMBatch
 from photon_tpu_torch.data.matrix import (PERMUTED_LAYOUTS,
-                                          SHARDED_LAYOUTS,
+                                          SHARDED_LAYOUTS, SHARDED_PERMUTED,
                                           SINGLE_DEVICE_LAYOUTS,
                                           EntityBlocks, SparseRows)
 from photon_tpu_torch.device import resolve_device
@@ -217,10 +223,7 @@ def _prep(batch: GLMBatch, mesh, device) -> tuple:
         if isinstance(batch.X, SlotRows):
             raise ValueError("a row-sharded batch solves on its mesh: pass "
                              "mesh=")
-        if isinstance(batch.X, SHARDED_LAYOUTS):
-            raise ValueError(
-                f"{type(batch.X).__name__} is laid for a mesh's slots: "
-                "pass mesh= (or build the one-device layout)")
+        # a sharded layout moves whole to the device: its global view
         dev = resolve_device(device)
         return batch.to(dev), dev
     from photon_tpu_torch.data.dataset import mesh_batch
@@ -233,12 +236,12 @@ def _is_permuted(X) -> bool:
     slot's of a mesh): the solve runs in its permuted column space."""
     if isinstance(X, SlotRows):
         X = X.parts[0]
-    return isinstance(X, PERMUTED_LAYOUTS)
+    return isinstance(X, PERMUTED_LAYOUTS + SHARDED_PERMUTED)
 
 
 def _matrix_dim(X) -> int:
     if isinstance(X, (SparseRows, EntityBlocks, SlotRows)
-                  + SINGLE_DEVICE_LAYOUTS):
+                  + SINGLE_DEVICE_LAYOUTS + SHARDED_LAYOUTS):
         return X.n_features
     return int(X.shape[1])
 
@@ -343,15 +346,16 @@ def train_glm(
     device=None,
 ) -> tuple[GeneralizedLinearModel, OptResult]:
     """Full-batch GLM training (reference: train_glm). The batch moves to
-    ``device`` (default ``cuda``) first — or, with ``mesh``, row-shards
+    ``device`` (default ``cuda``) first — a sharded layout too, which
+    then solves in its global view — or, with ``mesh``, row-shards
     over its slots (`data.dataset.mesh_batch`; a layout in the mesh form
     of `shard_blocked_ell_batch`, `shard_hybrid_batch` or
     `shard_permuted_batch`; a one-device layout raises), each evaluation
     closing with one reduction over the mesh, the model coming back on the
     mesh's home device.
 
-    A `BlockedEllRows` or `PermutedHybridRows` batch solves in its
-    permuted space; ``w0`` and the
+    A `BlockedEllRows` or `PermutedHybridRows` batch (or its sharded
+    form) solves in its permuted space; ``w0`` and the
     priors are taken, and the model's coefficients and variances returned,
     in ORIGINAL column order. With a `NormalizationContext` the solve runs
     in normalized space (the objective folds the factors and shifts in; X

@@ -327,6 +327,8 @@ def save_sharded_batch(batch, root) -> None:
     meta: dict = {"fields": {}}
     X = batch.X
     for f in dataclasses.fields(X):
+        if not f.init:  # a cache kept with the layout, not a leaf
+            continue
         v = getattr(X, f.name)
         leaves = v if isinstance(v, tuple) else (v,)
         if all(isinstance(t, torch.Tensor) for t in leaves) and leaves:

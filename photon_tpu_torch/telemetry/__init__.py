@@ -83,6 +83,9 @@ registered name appears here. By family (counters unless marked):
   objective_chunks, host_offset_sums, score_stream_chunks,
   score_stream_rows, chunked_fit_points.
 - ``eval.*`` — scatter_elems_saved.
+- ``kernels.*`` — tile_measures (one per live candidate-tile timing)
+  and tile_cache_hits (one per winner reused from the tile cache without
+  measuring; `tuning/tile_tuner.py`).
 - ``tuning.*`` — rounds, configs, survivor_resolves; the
   round_model_flops gauge.
 - ``mesh.*`` — reductions (one per evaluation close, `parallel.mesh.
@@ -95,10 +98,9 @@ Spans open under the families train, score, ingest, solve, game,
 game_re, serving, checkpoint, continual, tuning and parallel.
 
 The reference's ``game_re.fused_gate_offs`` (its fused one-program
-update's gate, ROADMAP queue A item 6) and ``kernels.tile_measures`` /
-``kernels.tile_cache_hits`` (the tile autotuner, item 11.3) have no
-emitter in the port and are not registered; its ``ingest.device_shards``
-is the port's ``ingest.device_chunks``.
+update's gate, ROADMAP queue A item 6) has no emitter in the port and is
+not registered; its ``ingest.device_shards`` is the port's
+``ingest.device_chunks``.
 
 The multi-process spine's ``parallel.barrier_wait`` span, opened by
 `parallel/mesh.py::cluster_barrier`, is what `telemetry.aggregate` reads
@@ -361,6 +363,7 @@ TELEMETRY_REGISTRY = {
         "game_e2e.score_stream_rows", "game_e2e.chunked_fit_points",
         "eval.scatter_elems_saved",
         "tuning.rounds", "tuning.configs", "tuning.survivor_resolves",
+        "kernels.tile_measures", "kernels.tile_cache_hits",
         "mesh.reductions", "mesh.collectives", "mesh.wire_bytes",
         "parallel.barrier_seconds",
     ),

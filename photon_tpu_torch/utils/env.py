@@ -1,6 +1,6 @@
 """The ``PHOTON_TPU_*`` environment knobs (the port's copy of the part of
 `photon_tpu/utils/env.py` that the mesh spine, the attribution ledger and
-the logger read, plus the kernel seam's two knobs).
+the logger read, plus the kernel seam's three knobs).
 
 Every knob is declared ONCE here, with its one-line contract; modules read raw values through :func:`get_raw`, which
 refuses an undeclared name. Parsing stays with the owner module named in
@@ -55,6 +55,13 @@ KNOB_DOCS = {
         "vector the kernel gathers from that exceeds it routes to the "
         "tiled form; unset means no budget (always fused), 0 forces "
         "tiled. Owner: photon_tpu_torch.kernels (budget(), route())."),
+    "PHOTON_TPU_TORCH_KERNELS_TILE": (
+        "Work-item tile of the tiled blocked-ELL forms (rows 3 and 5): a "
+        "power of two >= 32, rows per tail-matvec item or columns per "
+        "rmatvec item, that beats the autotuned per-card choice "
+        "(tuning/tile_tuner.py); clamped to what one block takes. Unset "
+        "(default) = the tuner's winner, else DEFAULT_TILE. Owner: "
+        "photon_tpu_torch.kernels (tile_override())."),
     "PHOTON_TPU_PEAK_BYTES_PER_S": (
         "Per-device memory bytes/s ceiling for the attribution ledger's "
         "roofline-utilization denominators (overrides the device's table "

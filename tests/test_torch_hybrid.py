@@ -822,7 +822,8 @@ def test_refusals_match_reference_messages():
 def test_single_device_layouts_refuse_a_mesh():
     """`test_perm_mesh_rejected` and `test_plain_hybrid_under_mesh_points
     _at_sharded`: a one-device hybrid under ``mesh=`` names the sharded
-    form; a sharded one without a mesh says to pass one."""
+    form; a sharded one without a mesh solves in its global view
+    (`test_single_device_global_view_owlqn`), as on the mesh."""
     mesh = PM.make_mesh(n_devices=8, device=CPU)
     cfg = OptimizerConfig(max_iters=2, reg=Reg.l2(), reg_weight=0.1)
     ind, val, d = rows(36, n=64, d=100, k=4)
@@ -836,8 +837,12 @@ def test_single_device_layouts_refuse_a_mesh():
                 fn(D.make_batch(X, y, device=CPU), LOGISTIC, cfg, mesh=mesh)
     sb = D.shard_hybrid_batch(D.make_batch(M.SparseRows(ind, val, d), y,
                                            device=CPU), 8, d_dense=16)
-    with pytest.raises(ValueError, match="pass mesh="):
-        T.train_glm(sb, LOGISTIC, cfg, device=CPU)
+    m_g, r_g = T.train_glm(sb, LOGISTIC, cfg, device=CPU)
+    m_m, r_m = T.train_glm(sb, LOGISTIC, cfg, mesh=mesh)
+    np.testing.assert_allclose(float(r_g.value), float(r_m.value),
+                               rtol=1e-5)
+    np.testing.assert_allclose(m_g.coefficients.means.numpy(),
+                               m_m.coefficients.means.numpy(), atol=1e-4)
 
 
 def test_make_batch_keeps_a_sharded_hybrid():
