@@ -14,11 +14,11 @@ pins (`module:line` of its registration):
 - ``blocked_ell_kernel_x_passes``:
   kernels/blocked_ell.py:751 (reference kernels/blocked_ell.py:463)
 - ``blocked_ell_lane_x_passes``:
-  data/matrix.py:2159 (reference data/matrix.py:1955)
+  data/matrix.py:2230 (reference data/matrix.py:1955)
 - ``blocked_ell_tiled_x_passes``:
   kernels/blocked_ell.py:808 (reference kernels/blocked_ell.py:531)
 - ``blocked_ell_x_passes``:
-  data/matrix.py:2141 (reference data/matrix.py:1935)
+  data/matrix.py:2212 (reference data/matrix.py:1935)
 - ``checkpoint_off_is_free``:
   checkpoint/taps.py:141 (reference checkpoint/taps.py:140)
 - ``checkpoint_off_tron_free``:
@@ -32,11 +32,11 @@ pins (`module:line` of its registration):
 - ``game_fixed_update``:
   game/coordinate_descent.py:391 (reference game/coordinate_descent.py:588)
 - ``game_re_budgeted_first_pass``:
-  game/random_effect.py:824 (reference game/random_effect.py:753)
+  game/random_effect.py:825 (reference game/random_effect.py:753)
 - ``game_re_mesh_bucket_solve``:
-  game/random_effect.py:839 (reference game/random_effect.py:767)
+  game/random_effect.py:840 (reference game/random_effect.py:767)
 - ``game_re_straggler_resolve``:
-  game/random_effect.py:860 (reference game/random_effect.py:810)
+  game/random_effect.py:861 (reference game/random_effect.py:810)
 - ``game_re_vmapped_solve``:
   game/random_effect.py:809 (reference game/random_effect.py:742)
 - ``game_score_stream_chunk``:

@@ -355,7 +355,7 @@ def _refresh_solve(coord, o, b, w, m_, p_, lanes, e_pad):
                 "+ the prior warm-started lane solve (priors per lane) — "
                 "zero collectives, the host syncs held to the lane "
                 "search's pinned read-backs",
-    # the take of the touched lanes (on the card: data/matrix.py:1707,
+    # the take of the touched lanes (on the card: data/matrix.py:1776,
     # parallel/mesh.py:516 a leaf), a weight upload and 4 iterations x 2
     # one-flag read-backs (ROADMAP speed item 1)
     collectives={}, max_syncs={"cuda": 16, "cpu": 8},

@@ -36,13 +36,16 @@ f32, as the reference's ``preferred_element_type=float32``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 import warnings
 
 import numpy as np
 import torch
 
 from photon_tpu_torch import kernels as K
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.kernels import blocked_ell as KB
 from photon_tpu_torch.parallel.mesh import SlotParts, SlotRows
 
@@ -179,6 +182,44 @@ def _host(a) -> np.ndarray:
 _SCATTER_CHUNK_ELEMS = 1 << 29  # 2 GB f32 scatter chunk, as the reference
 
 
+class _BuildClock:
+    """The host seconds of one layout build, split into its numpy host
+    passes and its device work (uploads, the hot block's scatter), each
+    phase under its own ``train.layout.*`` span. No synchronize: the host
+    passes hold no device work, and an upload from pageable numpy returns
+    once copied."""
+
+    def __init__(self):
+        self.ns = {"host": 0, "device": 0}
+
+    @contextlib.contextmanager
+    def phase(self, kind: str, span):
+        """Time the block as ``kind`` ("host" or "device") inside ``span``
+        (a `telemetry.span`)."""
+        with span:
+            t = time.perf_counter_ns()
+            try:
+                yield
+            finally:
+                self.ns[kind] += time.perf_counter_ns() - t
+
+    def publish(self) -> None:
+        telemetry.gauge("train.layout.host_pass_s", self.ns["host"] / 1e9)
+        telemetry.gauge("train.layout.device_s", self.ns["device"] / 1e9)
+
+
+class _NoClock:
+    """The clock of a build that is not timed (every layout but
+    `to_blocked_ell`'s): its phases time nothing and open no span."""
+
+    @staticmethod
+    def phase(kind: str, span):
+        return contextlib.nullcontext()
+
+
+_NO_CLOCK = _NoClock()
+
+
 def _dense_scatter_chunked(rows_h, pos_h, vals_h, n, d_sel, dtype, device):
     """Hot COO → (n, d_sel) block on ``device``: per row chunk an f32
     ``index_put_(accumulate=True)`` then the storage cast into the
@@ -200,54 +241,67 @@ def _dense_scatter_chunked(rows_h, pos_h, vals_h, n, d_sel, dtype, device):
     return out
 
 
-def _hot_cold_split(ind, val, d, d_dense, device_dense_dtype, device):
+def _hot_cold_split(ind, val, d, d_dense, device_dense_dtype, device,
+                    clock=None):
     """Pick the ``d_dense`` most frequent columns, build the (n, d_sel) hot
     block (on ``device`` when ``device_dense_dtype`` is set, else a host
     chunked bincount), and extract the cold nnz as flat row-major COO.
-    Returns (dense, sel, t_rows, t_cols, t_vals) with host t_* arrays."""
+    Returns (dense, sel, t_rows, t_cols, t_vals) with host t_* arrays.
+    ``clock`` (`to_blocked_ell`'s `_BuildClock`) times the host and device
+    phases under their ``train.layout.*`` spans; without one, nothing is
+    timed or spanned."""
+    clock = clock or _NO_CLOCK
     n, k = ind.shape
-    nnz_mask = val != 0.0
-    counts = np.bincount(ind[nnz_mask].ravel(), minlength=d)
-    d_sel = min(d_dense, d)
-    sel = np.sort(np.argpartition(-counts, d_sel - 1)[:d_sel])
-    col_to_pos = np.full(d, -1, np.int64)
-    col_to_pos[sel] = np.arange(d_sel)
+    with clock.phase("host", telemetry.span("train.layout.split")):
+        nnz_mask = val != 0.0
+        counts = np.bincount(ind[nnz_mask].ravel(), minlength=d)
+        d_sel = min(d_dense, d)
+        sel = np.sort(np.argpartition(-counts, d_sel - 1)[:d_sel])
+        col_to_pos = np.full(d, -1, np.int64)
+        col_to_pos[sel] = np.arange(d_sel)
 
-    pos = col_to_pos[ind]  # (n, k); -1 = stays sparse
-    hot = (pos >= 0) & nnz_mask
-    rows = np.repeat(np.arange(n), k).reshape(n, k)
+        pos = col_to_pos[ind]  # (n, k); -1 = stays sparse
+        hot = (pos >= 0) & nnz_mask
+        rows = np.repeat(np.arange(n), k).reshape(n, k)
+        if device_dense_dtype is not None:
+            hot_coo = (rows[hot].astype(np.int32), pos[hot].astype(np.int32),
+                       val[hot].astype(np.float32))
     if device_dense_dtype is not None:
-        dense = _dense_scatter_chunked(
-            rows[hot].astype(np.int32), pos[hot].astype(np.int32),
-            val[hot].astype(np.float32), n, d_sel, device_dense_dtype,
-            device)
+        with clock.phase("device", telemetry.span("train.layout.hot_block")):
+            dense = _dense_scatter_chunked(*hot_coo, n, d_sel,
+                                           device_dense_dtype, device)
+        del hot_coo
     else:
         # each cell the float64 sum of its values in row order, rounded to
         # f32: the reference's bincount over every (row, pos) cell, summed
         # here over the occupied cells alone (a stable sort within each
         # row brings a cell's slots together in their order), chunked over
         # row ranges so the scratch stays bounded
-        dense = np.zeros((n, d_sel), np.float32)
-        key = np.where(hot, pos, d_sel)  # cold slots sort last in a row
-        row_chunk = max(1, (1 << 27) // max(d_sel, 1))
-        for r0 in range(0, n, row_chunk):
-            r1 = min(n, r0 + row_chunk)
-            order = np.argsort(key[r0:r1], axis=1, kind="stable")
-            ks = np.take_along_axis(key[r0:r1], order, axis=1)
-            vs = np.take_along_axis(val[r0:r1], order, axis=1)
-            live = ks < d_sel
-            cells = (np.arange(r1 - r0)[:, None] * d_sel + ks)[live]
-            first = np.ones(cells.shape, bool)
-            first[1:] = cells[1:] != cells[:-1]
-            sums = np.bincount(np.cumsum(first) - 1,
-                               weights=vs[live].astype(np.float64))
-            dense[r0:r1].reshape(-1)[cells[first]] = sums.astype(np.float32)
-        dense = torch.from_numpy(dense).to(device)
-    cold = (~hot) & nnz_mask
-    flat = cold.reshape(-1)           # row-major → tail rows ascending
-    t_rows = rows.reshape(-1)[flat]
-    t_cols = ind.reshape(-1)[flat]
-    t_vals = val.reshape(-1)[flat].astype(np.float32)
+        with clock.phase("host", telemetry.span("train.layout.split")):
+            dense = np.zeros((n, d_sel), np.float32)
+            key = np.where(hot, pos, d_sel)  # cold slots sort last in a row
+            row_chunk = max(1, (1 << 27) // max(d_sel, 1))
+            for r0 in range(0, n, row_chunk):
+                r1 = min(n, r0 + row_chunk)
+                order = np.argsort(key[r0:r1], axis=1, kind="stable")
+                ks = np.take_along_axis(key[r0:r1], order, axis=1)
+                vs = np.take_along_axis(val[r0:r1], order, axis=1)
+                live = ks < d_sel
+                cells = (np.arange(r1 - r0)[:, None] * d_sel + ks)[live]
+                first = np.ones(cells.shape, bool)
+                first[1:] = cells[1:] != cells[:-1]
+                sums = np.bincount(np.cumsum(first) - 1,
+                                   weights=vs[live].astype(np.float64))
+                dense[r0:r1].reshape(-1)[cells[first]] = \
+                    sums.astype(np.float32)
+        with clock.phase("device", telemetry.span("train.layout.upload")):
+            dense = torch.from_numpy(dense).to(device)
+    with clock.phase("host", telemetry.span("train.layout.split")):
+        cold = (~hot) & nnz_mask
+        flat = cold.reshape(-1)           # row-major → tail rows ascending
+        t_rows = rows.reshape(-1)[flat]
+        t_cols = ind.reshape(-1)[flat]
+        t_vals = val.reshape(-1)[flat].astype(np.float32)
     return dense, sel, t_rows, t_cols, t_vals
 
 
@@ -368,57 +422,74 @@ def to_blocked_ell(X: SparseRows, d_dense: int = 1024,
     split, occurrence buckets, and rows bucketed by tail nnz into the pow2
     width ladder. ``device_dense_dtype`` (e.g. ``torch.bfloat16``) builds
     the hot block on the device from the compact hot COO in that dtype;
-    otherwise it is built on the host in f32 and uploaded."""
+    otherwise it is built on the host in f32 and uploaded.
+
+    Traced under the ``train.layout`` spans; each build sets the
+    ``train.layout.host_pass_s`` and ``train.layout.device_s`` gauges."""
     from photon_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
+    clock = _BuildClock()
+    with telemetry.span("train.layout", d_dense=d_dense):
+        X = _build_blocked_ell(X, d_dense, device_dense_dtype, dev, clock)
+    clock.publish()
+    return X
+
+
+def _build_blocked_ell(X, d_dense, device_dense_dtype, dev, clock):
     ind, val = _host(X.indices), _host(X.values)
     n = ind.shape[0]
     d = X.n_features
     d_sel = min(d_dense, d)
     dense, sel, t_rows, t_cols, t_vals = _hot_cold_split(
-        ind, val, d, d_dense, device_dense_dtype, dev)
+        ind, val, d, d_dense, device_dense_dtype, dev, clock)
     m = t_rows.size
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     if m == 0:
-        perm_cols, inv_perm = _column_perm(
-            sel, np.zeros(0, np.int64), np.zeros(0, np.int64), d)
+        with clock.phase("host", telemetry.span("train.layout.buckets")):
+            perm_cols, inv_perm = _column_perm(
+                sel, np.zeros(0, np.int64), np.zeros(0, np.int64), d)
+        with clock.phase("device", telemetry.span("train.layout.upload")):
+            return BlockedEllRows(
+                dense=dense, ell_pcols=(), ell_vals=(),
+                row_pos=up(np.zeros(n, np.int32)),
+                bucket_rows=(), bucket_vals=(),
+                perm_cols=up(perm_cols), inv_perm=up(inv_perm),
+                n_features=d, n_prefix=d_sel,
+                last_col_pos=int(inv_perm[d - 1]), tail_nnz=0)
+
+    with clock.phase("host", telemetry.span("train.layout.buckets")):
+        u_cols, _, u_counts, e, order, _, pcol = _tail_ranks(
+            t_cols, lambda inv, c: c, d_sel)
+        U = u_cols.size
+        perm_cols, inv_perm = _column_perm(sel, u_cols, order, d)
+        bucket_rows, bucket_vals = _occurrence_buckets(
+            t_rows, t_vals, pcol, d_sel, e, order, u_counts)
+
+    with clock.phase("host", telemetry.span("train.layout.ladder")):
+        row_bounds = np.searchsorted(t_rows,
+                                     np.arange(n + 1)).astype(np.int64)
+        counts = np.diff(row_bounds)
+        e_row = _row_exponents(counts)
+        widths = [(int(ev), int((e_row == ev).sum()))
+                  for ev in np.unique(e_row[e_row >= 0])]
+        # prefix-RELATIVE ids: the tail gather reads w[d_sel:n_prefix]
+        pcol_rel = (pcol.astype(np.int64) - d_sel).astype(np.int32)
+        pcs, pvs, row_pos = _fill_ell(widths, counts, e_row,
+                                      row_bounds[:-1], pcol_rel, t_vals)
+
+    with clock.phase("device", telemetry.span("train.layout.upload")):
         return BlockedEllRows(
-            dense=dense, ell_pcols=(), ell_vals=(),
-            row_pos=up(np.zeros(n, np.int32)),
-            bucket_rows=(), bucket_vals=(),
+            dense=dense, ell_pcols=tuple(map(up, pcs)),
+            ell_vals=tuple(map(up, pvs)), row_pos=up(row_pos),
+            bucket_rows=tuple(map(up, bucket_rows)),
+            bucket_vals=tuple(map(up, bucket_vals)),
             perm_cols=up(perm_cols), inv_perm=up(inv_perm),
-            n_features=d, n_prefix=d_sel,
-            last_col_pos=int(inv_perm[d - 1]), tail_nnz=0)
-
-    u_cols, _, u_counts, e, order, _, pcol = _tail_ranks(
-        t_cols, lambda inv, c: c, d_sel)
-    U = u_cols.size
-    perm_cols, inv_perm = _column_perm(sel, u_cols, order, d)
-    bucket_rows, bucket_vals = _occurrence_buckets(
-        t_rows, t_vals, pcol, d_sel, e, order, u_counts)
-
-    row_bounds = np.searchsorted(t_rows, np.arange(n + 1)).astype(np.int64)
-    counts = np.diff(row_bounds)
-    e_row = _row_exponents(counts)
-    widths = [(int(ev), int((e_row == ev).sum()))
-              for ev in np.unique(e_row[e_row >= 0])]
-    # prefix-RELATIVE ids: the tail gather reads w[d_sel:n_prefix]
-    pcol_rel = (pcol.astype(np.int64) - d_sel).astype(np.int32)
-    pcs, pvs, row_pos = _fill_ell(widths, counts, e_row, row_bounds[:-1],
-                                  pcol_rel, t_vals)
-
-    return BlockedEllRows(
-        dense=dense, ell_pcols=tuple(map(up, pcs)),
-        ell_vals=tuple(map(up, pvs)), row_pos=up(row_pos),
-        bucket_rows=tuple(map(up, bucket_rows)),
-        bucket_vals=tuple(map(up, bucket_vals)),
-        perm_cols=up(perm_cols), inv_perm=up(inv_perm),
-        n_features=d, n_prefix=d_sel + U,
-        last_col_pos=int(inv_perm[d - 1]), tail_nnz=int(m))
+            n_features=d, n_prefix=d_sel + U,
+            last_col_pos=int(inv_perm[d - 1]), tail_nnz=int(m))
 
 
 # ------------------------------------------------------ host chunk ladder

@@ -813,7 +813,8 @@ def _re_contract_fixture(device, max_iters: int = 4, mesh=None,
                 "search's host syncs held to the pinned budget",
     collectives={}, max_syncs={"cuda": 9, "cpu": 8}, tags=("game", "lane"))
 def _contract_re_vmapped_solve(device):
-    # 4 iterations x 2 one-flag read-backs (optim/lane_lbfgs.py:253, :117)
+    # 4 iterations x 2 one-count read-backs (solver.host_syncs.lane_loop,
+    # .lane_search)
     # + on the card the lane chunk's weight upload (:408) (ROADMAP speed
     # item 1)
     coord, obj, batch, W0 = _re_contract_fixture(device)
@@ -845,7 +846,7 @@ def _contract_re_budgeted_first_pass(device):
     collectives={}, max_syncs={"cuda": 113, "cpu": 65},
     tags=("game", "lane", "mesh"))
 def _contract_re_mesh_bucket_solve(device):
-    # 8 slots, each its lanes' take (data/matrix.py:1707, parallel/mesh.py
+    # 8 slots, each its lanes' take (data/matrix.py:1776, parallel/mesh.py
     # :516 on the card), weight upload and 2 one-flag read-backs an
     # iteration (ROADMAP speed item 1)
     from photon_tpu_torch.parallel.mesh import make_mesh
@@ -865,7 +866,7 @@ def _contract_re_mesh_bucket_solve(device):
                 "syncs held to the pinned budget",
     collectives={}, max_syncs={"cuda": 14, "cpu": 8}, tags=("game", "lane"))
 def _contract_re_straggler_resolve(device):
-    # the take of the 2 lanes (on the card: data/matrix.py:1707,
+    # the take of the 2 lanes (on the card: data/matrix.py:1776,
     # parallel/mesh.py:516, the column index) + 4 iterations x 2 one-flag
     # read-backs (ROADMAP speed item 1)
     coord, obj, batch, W0 = _re_contract_fixture(device)

@@ -174,7 +174,9 @@ def telemetry_sync(ctx: Context) -> list:
     """Three-way sync between emitted counter/gauge/span literals, the
     ``telemetry.TELEMETRY_REGISTRY`` literal, and the telemetry
     docstring: emitted ⊆ registry, registry ⊆ emitted (no orphans), and
-    every registry name appears in the docstring."""
+    every registry name appears in the docstring. The registry's named
+    ``spans`` are held to the last two: each is opened somewhere under
+    its literal name, and the docstring names it whole."""
     tele_rel = "photon_tpu_torch/telemetry/__init__.py"
     tele = ctx.get(tele_rel)
     if tele is None:
@@ -185,8 +187,10 @@ def telemetry_sync(ctx: Context) -> list:
     counters = tuple(registry.get("counters", ()))
     gauges = tuple(registry.get("gauges", ()))
     families = tuple(registry.get("span_families", ()))
+    named_spans = tuple(registry.get("spans", ()))
     out = []
     hit: dict = {e: False for e in counters + gauges}
+    span_hit: dict = {e: False for e in named_spans}
     fam_hit: dict = {f: False for f in families}
 
     def match(name: str, entries: tuple, prefix: bool) -> bool:
@@ -235,6 +239,8 @@ def telemetry_sync(ctx: Context) -> list:
                     fam = pref.split(".", 1)[0]
                 if fam is None:
                     continue
+                if lit in span_hit:
+                    span_hit[lit] = True
                 if fam in fam_hit:
                     fam_hit[fam] = True
                 else:
@@ -282,6 +288,19 @@ def telemetry_sync(ctx: Context) -> list:
                 "telemetry/__init__ docstring — the documented registry "
                 "of counter names",
                 key=f"doc:{e}"))
+    for e in named_spans:
+        if not span_hit[e]:
+            out.append(Finding(
+                "telemetry_sync", tele_rel,
+                tele.literal_line("TELEMETRY_REGISTRY", e),
+                f"registered span {e!r} is opened nowhere in the package "
+                "— orphaned registration", key=f"spanname:{e}"))
+        if e not in doc:
+            out.append(Finding(
+                "telemetry_sync", tele_rel,
+                tele.literal_line("TELEMETRY_REGISTRY", e),
+                f"registered span {e!r} does not appear in the "
+                "telemetry/__init__ docstring", key=f"spandoc:{e}"))
     for fam in families:
         if not fam_hit[fam]:
             out.append(Finding(

@@ -830,9 +830,9 @@ def _contract_resident_lbfgs_solve(device):
     collectives={}, max_syncs={"cuda": 12, "cpu": 12},
     tags=("resident", "lane"))
 def _contract_resident_grid_lanes(device):
-    # 6 iterations x 2 one-flag read-backs: the loop's done flag
-    # (optim/lane_lbfgs.py:253) and the lane search's per-trial flag
-    # (:117) (ROADMAP speed item 1)
+    # 6 iterations x 2 one-count read-backs: the loop's
+    # (solver.host_syncs.lane_loop) and the lane search's per trial
+    # (solver.host_syncs.lane_search) (ROADMAP speed item 1)
     batch = _contract_dense_batch(device)
     cfg = _contract_cfg(reg_weight=0.0)
     l2s, l1s, static_cfg = lane_weight_arrays(cfg, [0.1, 1.0])
@@ -906,8 +906,8 @@ def _contract_sharded_permuted_value_and_grad(device):
     collectives={"psum": 3}, forbid=SCATTER_ADD_PRIMITIVES,
     max_syncs={"cuda": 2, "cpu": 2}, tags=("resident", "mesh", "lane"))
 def _contract_sharded_permuted_grid_lanes(device):
-    # 1 iteration: the loop's and the search's one-flag read-backs
-    # (optim/lane_lbfgs.py:253, :117; ROADMAP speed item 1)
+    # 1 iteration: the loop's and the search's one-count read-backs
+    # (solver.host_syncs.lane_loop, .lane_search; ROADMAP speed item 1)
     mesh, batch, obj = _contract_sharded("permuted", device)
     cfg = _contract_cfg(reg_weight=0.0, max_iters=1)
     l2s, _, static_cfg = lane_weight_arrays(cfg, [0.1, 1.0])

@@ -14,18 +14,29 @@ Differences from the scalar solver (`optim/lbfgs.py`), all masked per lane:
 - converged or failed lanes freeze while the others run on.
 
 The reference's `lax.while_loop`s become host loops that stop where the
-reference's loops stop. The outer loop reads back one flag per iteration
-(is every lane done); the line search evaluates φ for as many trials as
-the reference's loop does, reading back one flag (is every lane done)
-after each trial but the last — it does not run ``max_evals`` masked
-trials. The history updates in place.
+reference's loops stop. The outer loop reads back one count per
+iteration (how many lanes are done); the line search evaluates φ for as
+many trials as the reference's loop does, reading back one count after
+each trial but the last — it does not run ``max_evals`` masked trials.
+The history updates in place.
+
+Tracing: the solve runs under the ``solve.lane_lbfgs`` spans (the
+telemetry docstring lists them), nothing while neither a telemetry run
+nor torch's profiler is on. Its counts (`LaneTally`: lock-step
+iterations, trials, the lanes each trial searched, the read-backs by
+site and the host time inside them) stay in Python and are published
+once, at the solve's end, as the ``solver.*`` counters and the
+``solver.lane.*`` gauges; the read-back counts are the ones the loop
+needs anyway, so tracing adds no sync.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.ops import lane_objective as lo
 from photon_tpu_torch.optim.lbfgs import _convergence
 from photon_tpu_torch.optim.linesearch import C1, C2, _cubic_min
@@ -35,6 +46,56 @@ _Z_REFRESH = 64  # as optim.lbfgs: margin re-derivation period
 
 _FIELDS = ("phase", "a", "a_prev", "f_prev", "d_prev", "a_lo", "f_lo",
            "d_lo", "a_hi", "f_hi", "d_hi", "a_star", "f_star")
+
+
+class LaneTally:
+    """One lane solve's counts, in Python: trials, the lanes searching
+    summed over the trials, the one-count read-backs
+    by site (``lane_loop``: the outer loop's; ``lane_search``: the
+    search's, after each trial but the last) and the host ns spent inside
+    them. ``left``: the lanes not yet done as of the last read-back."""
+
+    __slots__ = ("lanes", "left", "trials", "searching", "syncs",
+                 "wait_ns")
+
+    def __init__(self, lanes: int):
+        self.lanes = self.left = lanes
+        self.trials = self.searching = 0
+        self.syncs = {"lane_loop": 0, "lane_search": 0}
+        self.wait_ns = 0
+
+    def lanes_left(self, done, site: str) -> int:
+        """The lanes of the (G,) bool ``done`` still running: one read-back,
+        timed on the host."""
+        with telemetry.span("solve.lane_lbfgs.sync"):
+            t = time.perf_counter_ns()
+            self.left = self.lanes - int(done.sum())  # sync: one count
+            self.wait_ns += time.perf_counter_ns() - t
+        self.syncs[site] += 1
+        return self.left
+
+    def trial(self) -> None:
+        """One φ evaluation, over the lanes still searching."""
+        self.trials += 1
+        self.searching += self.left
+
+    def publish(self, iterations: int, wall_ns: int) -> None:
+        """The solve's counts, with its lock-step ``iterations`` and wall,
+        once: the cumulative ``solver.*`` counters and the
+        ``solver.lane.*`` gauges of this (the last) lane solve."""
+        syncs = sum(self.syncs.values())
+        telemetry.count("solver.iterations", iterations)
+        telemetry.count("solver.linesearch_trials", self.trials)
+        telemetry.count("solver.host_syncs", syncs)
+        for site, n in self.syncs.items():
+            telemetry.count(f"solver.host_syncs.{site}", n)
+        telemetry.gauge("solver.lane.iterations", iterations)
+        telemetry.gauge("solver.lane.trials", self.trials)
+        telemetry.gauge("solver.lane.searching_lane_trials", self.searching)
+        telemetry.gauge("solver.lane.lanes", self.lanes)
+        telemetry.gauge("solver.lane.syncs", syncs)
+        telemetry.gauge("solver.lane.sync_wait_s", self.wait_ns / 1e9)
+        telemetry.gauge("solver.lane.wall_s", wall_ns / 1e9)
 
 
 def wolfe_line_search_lanes(phi: Callable, f0, dphi0, a_init,
@@ -50,7 +111,10 @@ def wolfe_line_search_lanes(phi: Callable, f0, dphi0, a_init,
     done mask keeps it frozen). The search stops once every lane is done,
     after the first trial at the earliest: with every lane seeded done it
     evaluates one trial whose result it discards (the reference's loop
-    none; the lane solvers never call it so)."""
+    none; the lane solvers never call it so).
+
+    ``phi`` may carry a ``tally`` (`LaneTally`, as the lane solver's φ
+    does): the search's read-backs then count into it."""
     f0 = torch.as_tensor(f0)
     dtype, dev = f0.dtype, f0.device
     G = f0.shape[0]
@@ -66,6 +130,7 @@ def wolfe_line_search_lanes(phi: Callable, f0, dphi0, a_init,
              d_lo=dphi0, a_hi=inf, f_hi=inf, d_hi=inf, a_star=zero,
              f_star=f0)
     done = done_init
+    tally = getattr(phi, "tally", None) or LaneTally(G)
     curv_bound = -C2 * dphi0
     for i in range(max_evals):
         a = s["a"]
@@ -114,7 +179,7 @@ def wolfe_line_search_lanes(phi: Callable, f0, dphi0, a_init,
         # sticky freeze: lanes already done keep every field
         s = {k: where(done, s[k], new[k]) for k in _FIELDS}
         done = done | newly_done
-        if i + 1 < max_evals and bool(done.all()):  # sync: one flag a trial
+        if i + 1 < max_evals and not tally.lanes_left(done, "lane_search"):
             break
     # seeded-done lanes stay ok=False (alpha 0, nothing accepted)
     ok = (done & ~done_init) | (s["a_star"] > 0.0)
@@ -239,62 +304,81 @@ def minimize_lbfgs_margin_lanes(obj, l2s, batch, W0, max_iters: int = 100,
     W = W0.to(torch.float32).contiguous()
     d, G = W.shape
     dtype, dev = W.dtype, W.device
-    z = lo.margin_lanes(obj, W, batch)
-    f, g = lo.value_and_grad_at_margin_lanes(obj, l2s, W, z, batch)
-    g0norm = _colnorm(g)
-    hist, ghist = _history_buffers(f, g0norm, max_iters)
-    H = LaneHistory(history, d, G, history_dtype or dtype, dev)
-    its = torch.zeros((G,), dtype=torch.int32, device=dev)
-    done = g0norm <= 1e-14
-    converged = done.clone()
-    failed = torch.zeros((G,), dtype=torch.bool, device=dev)
-    it = trials = 0
+    hdt = history_dtype or dtype
+    tally = LaneTally(G)
+    t0 = time.perf_counter_ns()
+    with telemetry.span("solve.lane_lbfgs", n=batch.n, d=d, G=G,
+                        history_dtype=str(hdt)):
+        z = lo.margin_lanes(obj, W, batch)
+        f, g = lo.value_and_grad_at_margin_lanes(obj, l2s, W, z, batch)
+        g0norm = _colnorm(g)
+        hist, ghist = _history_buffers(f, g0norm, max_iters)
+        H = LaneHistory(history, d, G, hdt, dev)
+        its = torch.zeros((G,), dtype=torch.int32, device=dev)
+        done = g0norm <= 1e-14
+        converged = done.clone()
+        failed = torch.zeros((G,), dtype=torch.bool, device=dev)
+        it = 0
 
-    while it < max_iters and not bool(done.all()):  # sync: one flag
-        active = ~done
-        D = H.direction(g)
-        dphi0 = torch.sum(D * g, dim=0)
-        bad_dir = dphi0 >= 0.0
-        D = torch.where(bad_dir[None, :], -g, D)
-        dphi0 = torch.where(bad_dir, -torch.sum(g * g, dim=0), dphi0)
+        while it < max_iters and tally.lanes_left(done, "lane_loop"):
+            with telemetry.span("solve.lane_lbfgs.iter"):
+                active = ~done
+                with telemetry.span("solve.lane_lbfgs.direction"):
+                    D = H.direction(g)
+                    dphi0 = torch.sum(D * g, dim=0)
+                    bad_dir = dphi0 >= 0.0
+                    D = torch.where(bad_dir[None, :], -g, D)
+                    dphi0 = torch.where(bad_dir, -torch.sum(g * g, dim=0),
+                                        dphi0)
 
-        dz = lo.direction_margin_lanes(obj, D, batch)  # X pass 1
-        ray = lo.ray_reg_coeffs_lanes(obj, l2s, W, D)
-        n_phi = [0]
+                with telemetry.span("solve.lane_lbfgs.matvec"):
+                    dz = lo.direction_margin_lanes(obj, D, batch)  # X pass 1
 
-        def phi(a):
-            n_phi[0] += 1
-            return lo.phi_at_ray_lanes(obj, z, dz, a, ray, batch)
+                with telemetry.span("solve.lane_lbfgs.linesearch"):
+                    ray = lo.ray_reg_coeffs_lanes(obj, l2s, W, D)
 
-        a_init = torch.where(H.has_pairs(), 1.0,
-                             1.0 / torch.clamp(_colnorm(D), min=1.0))
-        alpha, f_star, ok = wolfe_line_search_lanes(phi, f, dphi0, a_init,
-                                                    max_ls_evals, done0=done)
-        trials += n_phi[0]
+                    def phi(a):
+                        tally.trial()
+                        with telemetry.span("solve.lane_lbfgs.trial"):
+                            return lo.phi_at_ray_lanes(obj, z, dz, a, ray,
+                                                       batch)
 
-        step = active & ok
-        W_new = torch.where(step[None, :], W + alpha[None, :] * D, W)
-        z_new = torch.where(step[None, :], z + alpha[None, :] * dz, z)
-        if (it + 1) % _Z_REFRESH == 0:
-            z_new = lo.margin_lanes(obj, W_new, batch)  # f32 drift bound
-        f_new = torch.where(step, f_star, f)
-        g_new = torch.where(step[None, :],  # X pass 2
-                            lo.grad_at_margin_lanes(obj, l2s, W_new, z_new,
-                                                    batch), g)
-        H.push(W_new - W, g_new - g, step)
+                    phi.tally = tally
+                    a_init = torch.where(
+                        H.has_pairs(), 1.0,
+                        1.0 / torch.clamp(_colnorm(D), min=1.0))
+                    alpha, f_star, ok = wolfe_line_search_lanes(
+                        phi, f, dphi0, a_init, max_ls_evals, done0=done)
 
-        gnorm = _colnorm(g_new)
-        conv = _convergence(ok, f, f_new, gnorm, g0norm, dphi0, tolerance,
-                            dtype)
-        it += 1
-        its = torch.where(active, its + 1, its)
-        done = done | (active & (conv | ~ok))
-        converged = torch.where(active, conv, converged)
-        failed = failed | (active & ~ok & ~conv)
-        hist[it] = torch.where(active, f_new, hist[it])
-        ghist[it] = torch.where(active, gnorm, ghist[it])
-        W, z, f, g = W_new, z_new, f_new, g_new
+                step = active & ok
+                W_new = torch.where(step[None, :], W + alpha[None, :] * D, W)
+                z_new = torch.where(step[None, :], z + alpha[None, :] * dz,
+                                    z)
+                f_new = torch.where(step, f_star, f)
+                with telemetry.span("solve.lane_lbfgs.rmatvec"):
+                    if (it + 1) % _Z_REFRESH == 0:
+                        # f32 drift bound
+                        z_new = lo.margin_lanes(obj, W_new, batch)
+                    g_new = torch.where(  # X pass 2
+                        step[None, :],
+                        lo.grad_at_margin_lanes(obj, l2s, W_new, z_new,
+                                                batch), g)
+                with telemetry.span("solve.lane_lbfgs.push"):
+                    H.push(W_new - W, g_new - g, step)
 
+                gnorm = _colnorm(g_new)
+                conv = _convergence(ok, f, f_new, gnorm, g0norm, dphi0,
+                                    tolerance, dtype)
+                it += 1
+                its = torch.where(active, its + 1, its)
+                done = done | (active & (conv | ~ok))
+                converged = torch.where(active, conv, converged)
+                failed = failed | (active & ~ok & ~conv)
+                hist[it] = torch.where(active, f_new, hist[it])
+                ghist[it] = torch.where(active, gnorm, ghist[it])
+                W, z, f, g = W_new, z_new, f_new, g_new
+
+    tally.publish(it, time.perf_counter_ns() - t0)
     return OptResult(w=W, value=f, grad_norm=_colnorm(g), iterations=its,
                      converged=converged, failed=failed, loss_history=hist,
-                     grad_norm_history=ghist, trials=trials)
+                     grad_norm_history=ghist, trials=tally.trials)

@@ -29,7 +29,8 @@ How this differs from the reference:
   report holds exactly the counters bumped while it was attached.
 - **Spans, events, iterations, signatures and memory samples** are the
   reference's off-state: one global load and one branch with no run
-  attached, recording nothing.
+  attached, recording nothing; a span checks the profiler's flag too,
+  and is a bare `record_function` while torch's profiler collects.
 - **The resident tap** folds its loss, |g| and step into the host read
   each solver iteration already makes (no added device sync), instead
   of a compiled-in `jax.debug.callback`.
@@ -64,10 +65,18 @@ registered name appears here. By family (counters unless marked):
   compute_seconds, stalled_passes, prefetch_widened,
   prefetch_narrowed; the prefetch_depth gauge.
 - ``solver.*`` — iterations, evaluations, feature_streams,
-  linesearch_trials, margin_cache.hits, margin_cache.refreshes; and
-  retrace.new_signatures.
+  linesearch_trials, margin_cache.hits, margin_cache.refreshes,
+  host_syncs (the lane L-BFGS's read-backs, also per site:
+  ``host_syncs.lane_loop``, the loop's done flag, and
+  ``host_syncs.lane_search``, the search's per-trial flag); the gauges
+  of the last lane L-BFGS solve, lane.iterations (lock-step),
+  lane.trials, lane.searching_lane_trials (lanes searching, summed over
+  the trials), lane.lanes, lane.syncs, lane.sync_wait_s (host seconds
+  inside the read-backs) and lane.wall_s; and retrace.new_signatures.
 - ``score.*`` — the chunked scoring driver's chunks and rows.
-- ``train.*`` gauges — dataset_estimate_bytes, hbm_budget_bytes.
+- ``train.*`` gauges — dataset_estimate_bytes, hbm_budget_bytes, and
+  the last `to_blocked_ell` build's layout.host_pass_s (its numpy host
+  passes) and layout.device_s (its uploads and device scatter).
 - ``serving.*`` — requests, batches, batch_rows, pad_waste,
   cold_misses, hot_swaps, quant_refusals, admitted, shed,
   deadline_expired, fleet_dispatches, fleet_failovers, fleet_degraded;
@@ -95,7 +104,30 @@ registered name appears here. By family (counters unless marked):
   per-tag suffixes.
 
 Spans open under the families train, score, ingest, solve, game,
-game_re, serving, checkpoint, continual, tuning and parallel.
+game_re, serving, checkpoint, continual, tuning and parallel. Named ones
+(`TELEMETRY_REGISTRY['spans']`):
+
+- the lane L-BFGS (`optim/lane_lbfgs.py`): solve.lane_lbfgs (attrs n,
+  d, G, history_dtype) around the solve; solve.lane_lbfgs.iter around
+  each lock-step iteration, and in it solve.lane_lbfgs.direction (the
+  two-loop and the d·g check), solve.lane_lbfgs.matvec (the dz X pass),
+  solve.lane_lbfgs.linesearch with one solve.lane_lbfgs.trial per φ,
+  solve.lane_lbfgs.rmatvec (the gradient X pass, and the margin refresh
+  every 64 iterations) and solve.lane_lbfgs.push (the history update);
+  solve.lane_lbfgs.sync around each one-flag read-back;
+- the layout build (`data/matrix.py::to_blocked_ell`): train.layout,
+  and in it the host passes train.layout.split (the hot/cold split),
+  train.layout.buckets (the occurrence buckets) and train.layout.ladder
+  (the tail width ladder), and the device work train.layout.hot_block
+  (the hot block's scatter) and train.layout.upload.
+
+With no run attached, a span is nothing, unless torch's profiler is
+collecting: then it is a bare `torch.profiler.record_function` under its
+name, so a profiled region shows the program's spans on the device
+events' clock, run or no run. The timeline's names differ between the
+two: with no run, a span's own name (``solve.lane_lbfgs.iter``); with a
+run, its path of enclosing spans
+(``solve.lane_lbfgs/solve.lane_lbfgs.iter``).
 
 The reference's ``game_re.fused_gate_offs`` (its fused one-program
 update's gate, ROADMAP queue A item 6) has no emitter in the port and is
@@ -111,6 +143,8 @@ from __future__ import annotations
 import contextlib
 import threading
 from typing import Optional
+
+from torch.autograd import profiler as _profiler
 
 from photon_tpu_torch.telemetry.run import Run, Span  # noqa: F401
 from photon_tpu_torch.telemetry.sinks import (  # noqa: F401
@@ -236,7 +270,8 @@ def enabled() -> bool:
 
 # ----------------------------------------------------- hot-path entry points
 # Spans, iterations, events, signatures and memory samples are the ONE
-# branch a run-less process pays; counters and gauges also feed REGISTRY.
+# branch a run-less process pays (a span one more check: the profiler's
+# flag); counters and gauges also feed REGISTRY.
 
 class _NullSpan:
     """Shared no-op span context manager for the disabled state."""
@@ -256,6 +291,8 @@ _NULL_SPAN = _NullSpan()
 def span(name: str, **attrs):
     r = _CURRENT
     if r is None:
+        if _profiler._is_profiler_enabled:
+            return _profiler.record_function(name)
         return _NULL_SPAN
     return r.span(name, **attrs)
 
@@ -312,7 +349,8 @@ def sample_device_memory(tag: str = "") -> None:
 # the ingest plane's staging/pool/decode names, the GAME lock-step
 # counters). Entries ending in ".*" / "_*" are prefix globs for
 # dynamically suffixed names; `span_families` lists the allowed prefix
-# (before the first dot) of every `telemetry.span(...)` name.
+# (before the first dot) of every `telemetry.span(...)` name, and
+# `spans` the span names the benchmark's readers and PERF.md name.
 TELEMETRY_REGISTRY = {
     "counters": (
         "faults.injected_kills", "faults.injected_errors",
@@ -343,6 +381,7 @@ TELEMETRY_REGISTRY = {
         "solver.iterations", "solver.evaluations",
         "solver.feature_streams", "solver.linesearch_trials",
         "solver.margin_cache.hits", "solver.margin_cache.refreshes",
+        "solver.host_syncs", "solver.host_syncs.*",
         "retrace.new_signatures",
         "score.chunks", "score.rows",
         "serving.requests", "serving.batches", "serving.batch_rows",
@@ -371,6 +410,11 @@ TELEMETRY_REGISTRY = {
         "stream.prefetch_depth", "ingest.workers",
         "ingest.staging_peak_depth", "ingest.staging_peak_bytes",
         "train.dataset_estimate_bytes", "train.hbm_budget_bytes",
+        "train.layout.host_pass_s", "train.layout.device_s",
+        "solver.lane.iterations", "solver.lane.trials",
+        "solver.lane.searching_lane_trials", "solver.lane.lanes",
+        "solver.lane.syncs", "solver.lane.sync_wait_s",
+        "solver.lane.wall_s",
         "game_re.blocks_in_flight",
         "serving.queue_depth", "serving.batch_fill",
         "serving.latency_*", "serving.fleet_replicas",
@@ -382,5 +426,15 @@ TELEMETRY_REGISTRY = {
         "train", "score", "ingest", "solve",
         "game", "game_re", "serving", "checkpoint", "continual",
         "tuning", "parallel",
+    ),
+    "spans": (
+        "solve.lane_lbfgs", "solve.lane_lbfgs.iter",
+        "solve.lane_lbfgs.direction", "solve.lane_lbfgs.matvec",
+        "solve.lane_lbfgs.linesearch", "solve.lane_lbfgs.trial",
+        "solve.lane_lbfgs.rmatvec", "solve.lane_lbfgs.push",
+        "solve.lane_lbfgs.sync",
+        "train.layout", "train.layout.split", "train.layout.buckets",
+        "train.layout.ladder", "train.layout.hot_block",
+        "train.layout.upload",
     ),
 }

@@ -3,11 +3,17 @@ scoring run (port of `photon_tpu/telemetry/run.py`).
 
 Three primitives, as the reference's:
 
-- **spans** — nestable host-side timed scopes (`time.perf_counter_ns`).
-  Every span also enters `torch.profiler.record_function` under its path,
-  so a `utils.profiling.trace` timeline shows it over the device ops it
-  launched, and pushes an NVTX range when CUDA is up. Spans exist only
-  while a run is attached, so a run-less serving flush pays neither.
+- **spans** — nestable host-side timed scopes. Durations come from
+  `time.perf_counter_ns`; a span's ``start_ns``/``end_ns`` are on the
+  profiler's clock (Unix-epoch ns, as kineto's events report them),
+  through one (`perf_counter_ns`, `time_ns`) anchor the run takes at its
+  start, so an exported span lays over a device trace. Every span also
+  enters `torch.profiler.record_function` under its path, so a
+  `utils.profiling.trace` timeline shows it over the device ops it
+  launched, and pushes an NVTX range when CUDA is up. Spans are recorded
+  only while a run is attached, so a run-less serving flush pays neither
+  (with no run, `telemetry.span` is a bare `record_function` while the
+  profiler collects, and nothing otherwise).
   `utils.timing.Timer`/`PhaseTimers` feed spans automatically.
 - **counters / gauges** — monotonic totals and last-value gauges;
   thread-safe.
@@ -26,8 +32,7 @@ are `torch.cuda.memory_stats` / `max_memory_allocated` of each CUDA
 device (nothing on a process that never initialised CUDA, as the
 reference's CPU backend reports nothing); the jaxpr signature log is a
 host-side set of argument structures, shapes and dtypes per program (a
-new one counts on ``retrace.new_signatures``; torch has no weak types,
-so the report's ``weak_type_hazards`` list stays empty).
+new one counts on ``retrace.new_signatures``).
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -50,21 +55,26 @@ class Span:
 
     name: str
     path: str  # "/"-joined enclosing span names + own name
-    start_ns: int
+    start_ns: int  # Unix-epoch ns on the profiler's clock (`Run.clock_ns`)
     end_ns: Optional[int] = None
     depth: int = 0
     attrs: dict = dataclasses.field(default_factory=dict)
     error: Optional[str] = None  # exception type name, when one escaped
+    # the clock start_ns was read from (its run's `Run.clock_ns`)
+    clock: Callable[[], int] = dataclasses.field(
+        default=time.time_ns, repr=False, compare=False)
 
     @property
     def seconds(self) -> float:
-        end = (self.end_ns if self.end_ns is not None
-               else time.perf_counter_ns())
+        """The span's duration; so far, on its own clock, while it is
+        open."""
+        end = self.end_ns if self.end_ns is not None else self.clock()
         return (end - self.start_ns) / 1e9
 
     def to_json(self) -> dict:
         out = {"type": "span", "name": self.name, "path": self.path,
-               "seconds": round(self.seconds, 6), "depth": self.depth}
+               "seconds": round(self.seconds, 6), "depth": self.depth,
+               "start_ns": self.start_ns, "end_ns": self.end_ns}
         if self.attrs:
             out["attrs"] = self.attrs
         if self.error:
@@ -93,9 +103,8 @@ class _SpanCM:
         stack = run._span_stack()
         parent = stack[-1] if stack else None
         path = (parent.path + "/" + name) if parent is not None else name
-        self._rec = Span(name=name, path=path,
-                         start_ns=time.perf_counter_ns(),
-                         depth=len(stack), attrs=attrs)
+        self._rec = Span(name=name, path=path, start_ns=run.clock_ns(),
+                         depth=len(stack), attrs=attrs, clock=run.clock_ns)
         self._ann = None
         self._nvtx = False
 
@@ -113,7 +122,7 @@ class _SpanCM:
             torch.cuda.nvtx.range_pop()
         self._ann.__exit__(exc_type, exc, tb)
         rec = self._rec
-        rec.end_ns = time.perf_counter_ns()
+        rec.end_ns = self._run.clock_ns()
         if exc_type is not None:
             rec.error = exc_type.__name__
         stack = self._run._span_stack()
@@ -202,8 +211,10 @@ class Run:
                  keep_iterations: int = 100_000, append: bool = False):
         self.name = name
         self.resident_tap = bool(resident_tap)
-        self.started_unix = time.time()
+        # the anchor of `clock_ns`: one read of each clock, back to back
         self._t0_ns = time.perf_counter_ns()
+        self._epoch0_ns = time.time_ns()
+        self.started_unix = self._epoch0_ns / 1e9
         self._end_ns: Optional[int] = None
         self._lock = threading.Lock()
         # the JSONL sink gets its OWN lock: serializing file writes under
@@ -260,8 +271,14 @@ class Run:
         j = rec.to_json()
         # run-relative start offset: telemetry.aggregate places the span
         # on a wall clock as run_start.started_unix + t_s
-        j["t_s"] = round((rec.start_ns - self._t0_ns) / 1e9, 6)
+        j["t_s"] = round((rec.start_ns - self._epoch0_ns) / 1e9, 6)
         self._emit(j)
+
+    def clock_ns(self) -> int:
+        """Now on the profiler's clock (Unix-epoch ns), advanced by
+        `time.perf_counter_ns` from the run's anchor: monotonic within
+        the run, where `time.time_ns` may step."""
+        return self._epoch0_ns + time.perf_counter_ns() - self._t0_ns
 
     # ------------------------------------------------------------- primitives
     def span(self, name: str, **attrs) -> _SpanCM:
@@ -366,8 +383,7 @@ class Run:
             "gauges": gauges,
             "iterations": iterations,
             "n_iteration_events": n_iter,
-            "retrace": {"programs": self.signature_log.programs(),
-                        "weak_type_hazards": []},
+            "retrace": {"programs": self.signature_log.programs()},
         }
 
     def report_compact(self) -> dict:

@@ -8,9 +8,11 @@ property the reference gets from Spark's incremental event log). Record
 types, discriminated by the ``type`` field:
 
 - ``run_start``  — {name, started_unix}; always the first line.
-- ``span``       — {name, path, seconds, depth, attrs?, error?}; written
-                   at span EXIT (ordering is by completion, as in any
-                   trace log — nest by ``path``).
+- ``span``       — {name, path, seconds, depth, start_ns, end_ns, t_s,
+                   attrs?, error?}; written at span EXIT (ordering is by
+                   completion, as in any trace log — nest by ``path``);
+                   ``start_ns``/``end_ns`` on the profiler's clock
+                   (Unix-epoch ns), the port's own keys.
 - ``iteration``  — {solver, it, loss, grad_norm?, step?, trials?, ...};
                    the live per-iteration solver stream.
 - ``run_end``    — {duration_s, counters, gauges, n_iteration_events};

@@ -401,8 +401,8 @@ def _tuner_contract_problem(device, iters: int = 3, chunk: int = 8):
                 "every round carries one signature (builder raises on "
                 "divergence), and the lock-step lane program is "
                 "collective-free with no f64",
-    # 3 iterations x 2 one-flag read-backs (optim/lane_lbfgs.py:253, :117;
-    # ROADMAP speed item 1)
+    # 3 iterations x 2 one-count read-backs (solver.host_syncs.lane_loop,
+    # .lane_search; ROADMAP speed item 1)
     collectives={}, max_syncs={"cuda": 6, "cpu": 6}, tags=("tuning", "lane"))
 def _contract_tuning_lane_dispatch(device):
     from photon_tpu_torch.models.training import _lane_solve
@@ -436,8 +436,8 @@ def _contract_tuning_lane_dispatch(device):
                 "program run is the halving tail — the compact_rows "
                 "survivor gather + the warm-started full-depth re-solve "
                 "from per-lane starts — equally collective-free",
-    # 3 iterations x 2 one-flag read-backs (optim/lane_lbfgs.py:253, :117;
-    # ROADMAP speed item 1)
+    # 3 iterations x 2 one-count read-backs (solver.host_syncs.lane_loop,
+    # .lane_search; ROADMAP speed item 1)
     collectives={}, max_syncs={"cuda": 6, "cpu": 6}, tags=("tuning", "lane"))
 def _contract_tuning_round_budget(device):
     from photon_tpu_torch.models.training import _lane_solve

@@ -603,3 +603,152 @@ def test_grid_default_device_raises_without_gpu():
     _, pb = small_bell()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.train_glm_grid(pb, LOGISTIC, _configs(iters=2)[1], [0.1, 1.0])
+
+
+# ------------------------------------------------- the lane solve's tracing
+TRACE_WEIGHTS = [1.0, 30.0, 1e3, 1e4]
+
+
+def _traced_solve(layout="blocked_ell", iters=40):
+    """The bare lane L-BFGS on a small problem whose lanes stop at
+    different iterations: a zero-argument call and G."""
+    _, pb = small_bell(seed=1) if layout == "blocked_ell" else \
+        dense_problem(seed=1)
+    _, pcfg = _configs(iters=iters, tolerance=1e-4)
+    l2s, _, scfg = T.lane_weight_arrays(pcfg, TRACE_WEIGHTS)
+    d = pb.X.n_features if layout == "blocked_ell" else pb.X.shape[1]
+    obj = T.make_objective(LOGISTIC, scfg, d, device=CPU)
+    W0 = torch.zeros((d, len(TRACE_WEIGHTS)))
+
+    def call():
+        return LB.minimize_lbfgs_margin_lanes(
+            obj, l2s, pb, W0, max_iters=iters, tolerance=1e-4,
+            history=scfg.history)
+
+    return call, len(TRACE_WEIGHTS)
+
+
+def _assert_bits_equal(a, b):
+    assert a.trials == b.trials
+    for name in ("w", "value", "grad_norm", "iterations", "converged",
+                 "failed", "loss_history", "grad_norm_history"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("layout", ["blocked_ell", "dense"])
+def test_lane_solve_bits_equal_off_with_a_run_and_profiled(layout):
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch import telemetry
+
+    call, _ = _traced_solve(layout)
+    off = call()
+    with telemetry.run("lanes") as r:
+        with_run = call()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        profiled = call()
+    _assert_bits_equal(off, with_run)
+    _assert_bits_equal(off, profiled)
+    its = int(off.iterations.max())
+    totals = r.span_totals()
+    assert len([s for s in r.spans
+                if s.name == "solve.lane_lbfgs.iter"]) == its
+    assert {"solve.lane_lbfgs",
+            "solve.lane_lbfgs/solve.lane_lbfgs.sync",
+            "solve.lane_lbfgs/solve.lane_lbfgs.iter/"
+            "solve.lane_lbfgs.linesearch/solve.lane_lbfgs.trial"} \
+        <= set(totals)
+    assert r.spans[-1].attrs["G"] == len(TRACE_WEIGHTS)
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert names.count("solve.lane_lbfgs.iter") == its
+    assert names.count("solve.lane_lbfgs.trial") == off.trials
+
+
+def test_lane_gauges_agree_with_the_result():
+    from photon_tpu_torch import telemetry
+
+    call, G = _traced_solve()
+    call()  # warm
+    telemetry.reset()
+    res = call()
+    snap = telemetry.snapshot()
+    g, c = snap["gauges"], snap["counters"]
+    its = res.iterations
+    assert g["solver.lane.iterations"] == int(its.max())
+    assert g["solver.lane.trials"] == res.trials
+    assert g["solver.lane.lanes"] == G
+    assert int(its.min()) < int(its.max())  # lanes stop apart
+    assert c["solver.iterations"] == int(its.max())
+    assert c["solver.linesearch_trials"] == res.trials
+    sites = {k: v for k, v in c.items()
+             if k.startswith("solver.host_syncs.")}
+    assert set(sites) == {"solver.host_syncs.lane_loop",
+                          "solver.host_syncs.lane_search"}
+    # the loop reads once an iteration and once more to stop
+    assert sites["solver.host_syncs.lane_loop"] == int(its.max()) + 1
+    assert g["solver.lane.syncs"] == sum(sites.values()) == \
+        c["solver.host_syncs"]
+    assert 0.0 <= g["solver.lane.sync_wait_s"] < g["solver.lane.wall_s"]
+    # a solve's gauges replace the last one's
+    call()
+    assert telemetry.snapshot()["gauges"]["solver.lane.trials"] == \
+        res.trials
+    assert telemetry.snapshot()["counters"]["solver.linesearch_trials"] \
+        == 2 * res.trials
+    telemetry.reset()
+
+
+def test_searching_lane_trials_count_the_lanes_phi_searched(monkeypatch):
+    """Counted by wrapping φ: the lanes of a search are independent, so a
+    lane searches as many trials as a search of that lane alone (the
+    others seeded done) evaluates φ; each search of the solve is
+    replayed so, lane by lane, through a φ the solver's tally does not
+    see."""
+    from photon_tpu_torch import telemetry
+
+    call, G = _traced_solve()
+    search = LB.wolfe_line_search_lanes
+    want = [0]
+
+    def replayed(phi, f0, dphi0, a_init, max_evals=12, done0=None):
+        out = search(phi, f0, dphi0, a_init, max_evals, done0=done0)
+        with monkeypatch.context() as m:
+            m.setattr(LB.LaneTally, "trial", lambda self: None)
+            for i in torch.nonzero(~done0).flatten().tolist():
+                alone = torch.ones_like(done0)
+                alone[i] = False
+                n = [0]
+
+                def counted(a):
+                    n[0] += 1
+                    return phi(a)
+
+                search(counted, f0, dphi0, a_init, max_evals, done0=alone)
+                want[0] += n[0]
+        return out
+
+    monkeypatch.setattr(LB, "wolfe_line_search_lanes", replayed)
+    telemetry.reset()
+    res = call()
+    got = telemetry.snapshot()["gauges"]["solver.lane.searching_lane_trials"]
+    assert got == want[0]
+    assert int(res.iterations.sum()) < got < G * res.trials
+    telemetry.reset()
+
+
+def test_lane_syncs_by_site_equal_the_counted_read_backs():
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.utils import profiling
+
+    call, _ = _traced_solve()
+    telemetry.reset()
+    with profiling.count_syncs("cpu") as syncs:
+        call()
+    snap = telemetry.snapshot()
+    by_site = sum(v for k, v in snap["counters"].items()
+                  if k.startswith("solver.host_syncs."))
+    assert snap["gauges"]["solver.lane.syncs"] == by_site == syncs["n"]
+    telemetry.reset()

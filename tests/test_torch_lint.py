@@ -140,6 +140,37 @@ def note(n):
     assert "emit:ingest.staging_peak_depth" in keys
 
 
+@pytest.mark.parametrize("doc, opened, keys", [
+    ("solve.lane.iter", True, set()),
+    ("solve.lane.iter", False, {"spanname:solve.lane.iter"}),
+    ("solve spans", True, {"spandoc:solve.lane.iter"}),
+])
+def test_registered_span_names_are_opened_and_documented(tmp_path, doc,
+                                                         opened, keys):
+    tele = f'''
+"""chunk_uploads latency_ {doc}"""
+TELEMETRY_REGISTRY = {{
+    "counters": ("stream.chunk_uploads",),
+    "gauges": ("serving.latency_*",),
+    "span_families": ("solve",),
+    "spans": ("solve.lane.iter",),
+}}
+'''
+    name = "solve.lane.iter" if opened else "solve.other"
+    root = _write(tmp_path, {
+        "photon_tpu/telemetry/__init__.py": tele,
+        "photon_tpu/loop.py": f'''
+from photon_tpu import telemetry
+
+
+def step():
+    with telemetry.span("{name}"):
+        pass
+'''})
+    report = run_lint(root=root, only=["telemetry_sync"], baseline=set())
+    assert {f.key for f in report["findings"]} == keys
+
+
 def test_shipped_baseline_is_empty():
     assert load_baseline() == set()
     path = os.path.join(REPO, "photon_tpu_torch", "lint", "baseline.json")
